@@ -1,0 +1,129 @@
+// K1: f64 Dubiner value recurrence on the triangle, writing Phi (nexp, npts).
+//
+// Replaces the TPU kernel fiat_tpu/ops/pallas_recurrence.py:
+// PallasSliceRecurrence._kernel (emit_slices + slice_split_ff).  That kernel
+// emulates f64 with df32 (hi, lo) pairs, gathers each level into morton
+// order through a {0,1} selection matmul, and splits the result into Ozaki
+// bf16/int8 windows for the MXU.  Hopper has native FP64, so this kernel
+// computes the function itself: plain f64 arithmetic, each value written
+// straight to its morton row, no windows.
+//
+// Bound on the card: the store of Phi, nexp * npts doubles (53 MB at degree
+// 10 and 1e5 points); the arithmetic is ~5 flops per value.  Design: one
+// thread per point; Phi is row-major with points contiguous, so every store
+// of a warp is one coalesced 256-byte row segment.  The degree is a template
+// parameter, so the loops unroll and the live state stays in registers:
+// the stage-0 output (N+1 values) and the two previous levels of the
+// current row.  The per-(level, row) constants are uniform across the
+// warp and come through the read-only cache.
+//
+// Constant layout (built by fiat_tpu_torch/ops/recurrence.py:pack_stages):
+//   consts[4*i + {0,1,2,3}], i = 0..N          stage 0: a, b, c, norm
+//   consts[4*(N+1) + 4*e + {0,1,2,3}]          stage 1 entry e: a, b, c, norm
+//   slots[e]                                   stage 1 entry e: output row
+// Stage-1 entries run row-major over (input row r = 0..N, level i = 0..N-r),
+// the order the kernel visits them.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+struct Affine {
+  double a00, a01, a10, a11, b0, b1;
+};
+
+template <int N>
+__global__ void __launch_bounds__(128)
+dubiner2_values_kernel(const double* __restrict__ pts, int npts,
+                       const double* __restrict__ consts,
+                       const int* __restrict__ slots, Affine m, double scale,
+                       double* __restrict__ phi) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  const double px = pts[2 * p], py = pts[2 * p + 1];
+  // cell map onto the default (-1, 1) triangle: ref = A @ x + b
+  const double x0 = (px * m.a00 + py * m.a01) + m.b0;
+  const double x1 = (px * m.a10 + py * m.a11) + m.b1;
+  if (N == 0) {
+    phi[p] = scale;
+    return;
+  }
+
+  // stage 0: the 1D recurrence in the first collapsed coordinate
+  double r1[N + 1];
+  {
+    const double fb = 0.5 * (x1 + -1.0);
+    const double fa = x0 + fb + 1.0;
+    const double fc = fb * fb;
+    double prev2 = 0.0, prev = scale;
+    r1[0] = prev * __ldg(consts + 3);
+#pragma unroll
+    for (int i = 1; i <= N; ++i) {
+      const double* c = consts + 4 * i;
+      const double v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
+      r1[i] = v * __ldg(c + 3);
+      prev2 = prev;
+      prev = v;
+    }
+  }
+
+  // stage 1: per input row r, the recurrence in the second coordinate;
+  // every level goes straight to its morton row, times its norm
+  const double fb = 0.5 * (-1.0 + -1.0);
+  const double fa = x1 + fb + 1.0;
+  const double fc = fb * fb;
+  const double* c1 = consts + 4 * (N + 1);
+  const size_t ld = static_cast<size_t>(npts);
+  int e = 0;
+#pragma unroll
+  for (int r = 0; r <= N; ++r) {
+    double prev2 = 0.0, prev = r1[r];
+    phi[__ldg(slots + e) * ld + p] = prev * __ldg(c1 + 4 * e + 3);
+    ++e;
+#pragma unroll
+    for (int i = 1; i <= N - r; ++i, ++e) {
+      const double* c = c1 + 4 * e;
+      const double v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
+      phi[__ldg(slots + e) * ld + p] = v * __ldg(c + 3);
+      prev2 = prev;
+      prev = v;
+    }
+  }
+}
+
+template <int N>
+void launch(const double* pts, int npts, const double* consts, const int* slots,
+            Affine m, double scale, double* phi, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (npts + threads - 1) / threads;
+  dubiner2_values_kernel<N><<<blocks, threads, 0, stream>>>(pts, npts, consts, slots, m,
+                                                             scale, phi);
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
+// degree outside 0..15 (the wrapper checks first; K2's shared-memory tile
+// caps the engine at degree 15 anyway).
+extern "C" int fiat_dubiner2_values(const double* pts, int npts, const double* consts,
+                                    const int* slots, double a00, double a01, double a10,
+                                    double a11, double b0, double b1, double scale,
+                                    int degree, double* phi, void* stream) {
+  const Affine m{a00, a01, a10, a11, b0, b1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+#define FIAT_CASE(n) \
+  case n:            \
+    launch<n>(pts, npts, consts, slots, m, scale, phi, s); \
+    break;
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10) FIAT_CASE(11)
+    FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
+#undef FIAT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,98 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources in ``fiat_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for
+Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+loaded with ``ctypes``.  The build happens at first use, into
+``build/fiat_tpu_torch/`` beside the package, and is redone whenever a
+hash of the sources and flags changes.  Without ``nvcc`` (a CPU-only
+machine) ``load_kernels`` raises ``RuntimeError``; importing the package
+never builds anything.
+
+Every C entry point takes raw device pointers plus the caller's CUDA
+stream, launches, and returns ``cudaGetLastError()``; the wrappers
+(``recurrence.py``, ``fused_zoo.py``) raise when it is not 0.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fiat_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+#: C signatures: name -> argtypes (all return int, the CUDA error code)
+SIGNATURES = {
+    # pts, npts, consts, slots, affine[6], scale, degree, phi, stream
+    "fiat_dubiner2_values": [_P, _I, _P, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _P],
+    # A, lda, tiles, ntiles, phi, ldphi, npts, C, stream
+    "fiat_bucket_matmul": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+}
+
+
+def find_nvcc():
+    """Path of the CUDA compiler (on PATH, else the toolkit's default
+    location), or None."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+@functools.lru_cache(maxsize=1)
+def load_kernels():
+    """The loaded kernel library (built first if needed).  Attributes
+    ``path`` and ``build_log`` (nvcc's output with ptxas register and
+    spill counts; empty when a matching build existed)."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "fiat_tpu_torch kernels need the CUDA compiler (nvcc), which was not "
+            "found on PATH or in /usr/local/cuda/bin; the CUDA kernels only build "
+            "on a machine with the CUDA toolkit and an sm_90 card")
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"libfiat_tpu_torch_{h.hexdigest()[:16]}.so"
+    log = ""
+    if not lib_path.exists():
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.path = lib_path
+    lib.build_log = log
+    return lib
+
+
+def check_launch(name, err):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_of(tensor):
+    """The current CUDA stream handle on the tensor's device (an int)."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream
