@@ -9,6 +9,9 @@ on the CPU.  Nothing here imports JAX.
 
 from fiat_tpu_torch.core.cells import default_simplex, ufc_simplex  # noqa: F401
 from fiat_tpu_torch.core.finite_element import CiarletElement, FiniteElement  # noqa: F401
-from fiat_tpu_torch.elements import DiscontinuousLagrange, Lagrange, P0  # noqa: F401
+from fiat_tpu_torch.elements import (  # noqa: F401
+    Argyris, Bell, BrezziDouglasMarini, CubicHermite, DiscontinuousLagrange,
+    HsiehCloughTocher, Lagrange, Morley, Nedelec, P0, QuadraticPowellSabin6,
+    QuadraticPowellSabin12, RaviartThomas)
 from fiat_tpu_torch.ops import device_tabulator  # noqa: F401
 from fiat_tpu_torch.ops.kernels import load_kernels  # noqa: F401

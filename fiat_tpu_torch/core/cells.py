@@ -1,10 +1,14 @@
-"""Reference simplices: geometry and topology, host-side and static.
+"""Reference simplices and simplicial complexes: geometry and topology,
+host-side and static.
 
 Counterpart of the simplex part of ``fiat_tpu/core/cells.py`` (UFC
-conventions).  Cells are plain Python objects whose data (vertices,
-entity->vertex topology, lattices, affine entity transforms) parameterise
-the tabulation kernels; everything here is float64 numpy.
-Tensor-product cells, hypercubes and split complexes are not ported yet.
+conventions): ``Cell`` (topology, sub/super entities, connectivity,
+parents), ``SimplicialComplex`` (normals, tangents, barycentric maps,
+L1 distances, subentity transforms) and the reference simplices.  Split
+complexes subclass ``SimplicialComplex`` in ``core/macro.py``.  Cells are
+plain Python objects whose data parameterise the tabulation kernels;
+everything here is float64 numpy.  Tensor-product cells and hypercubes are
+not ported yet.
 """
 
 import math
@@ -80,20 +84,17 @@ def simplex_volume(verts):
 
 # Cells --------------------------------------------------------------------
 
-class Simplex:
-    """A reference simplex: vertices plus an entity->vertex topology dict
-    ``topology[dim][entity] = (vertex ids...)``, with the sub-entities of
-    every entity derived eagerly."""
+class Cell:
+    """A reference cell: vertices plus an entity->vertex topology dict
+    ``topology[dim][entity] = (vertex ids...)``.  Derived connectivity
+    (sub/super entities, dim0->dim1 adjacency) is computed eagerly."""
 
     def __init__(self, shape, vertices, topology):
-        for dim, ents in topology.items():
-            for verts in ents.values():
-                if len(verts) != dim + 1:
-                    raise ValueError("Entity has wrong vertex count for a simplex")
         self.shape = shape
         self.vertices = tuple(map(tuple, vertices))
         self.topology = topology
 
+        # sub_entities[dim][e] = sorted [(dim', e')] contained in (dim, e)
         self.sub_entities = {}
         for dim, ents in topology.items():
             self.sub_entities[dim] = {}
@@ -103,24 +104,42 @@ class Simplex:
                     (d2, e2) for d2, ents2 in topology.items()
                     for e2, verts2 in ents2.items() if vset.issuperset(verts2))
 
+        self.super_entities = {d: {e: [] for e in topology[d]} for d in topology}
+        for dim, ents in self.sub_entities.items():
+            for e, subs in ents.items():
+                for d2, e2 in subs:
+                    self.super_entities[d2][e2].append((dim, e))
+
+        # connectivity[(dim0, dim1)][entity] = tuple of dim1 neighbours
+        self.connectivity = {}
+        for dim0 in sorted(topology):
+            for dim1 in sorted(topology):
+                self.connectivity[(dim0, dim1)] = []
+            for e in sorted(topology[dim0]):
+                for dim1 in sorted(topology):
+                    nbrs = (self.sub_entities[dim0][e] if dim1 < dim0
+                            else self.super_entities[dim0][e])
+                    self.connectivity[(dim0, dim1)].append(
+                        tuple(e2 for d2, e2 in nbrs if d2 == dim1))
+
+        self._split_cache = {}
+
     def __repr__(self):
         return f"{type(self).__name__}({self.shape!r}, {self.vertices!r})"
+
+    def __hash__(self):
+        return hash(type(self))
 
     def __eq__(self, other):
         if self is other:
             return True
-        if not isinstance(other, Simplex):
+        if not isinstance(other, Cell):
             return NotImplemented
         mine, theirs = self.vertices, other.vertices
         return (len(mine) == len(theirs) and np.allclose(mine, theirs)
                 and all(set(self.topology[d].values())
                         == set(other.topology[d].values())
                         for d in self.topology))
-
-    def __hash__(self):
-        return hash(type(self))
-
-    # -- accessors ----------------------------------------------------------
 
     def get_shape(self):
         return self.shape
@@ -131,6 +150,9 @@ class Simplex:
     def get_topology(self):
         return self.topology
 
+    def get_connectivity(self):
+        return self.connectivity
+
     def get_spatial_dimension(self):
         return len(self.vertices[0])
 
@@ -140,19 +162,88 @@ class Simplex:
     def get_vertices_of_subcomplex(self, ids):
         return tuple(self.vertices[i] for i in ids)
 
+    def construct_subelement(self, dimension):
+        raise NotImplementedError
+
     def is_macrocell(self):
         return False
+
+    def get_interior_facets(self, dim):
+        return ()
 
     def get_parent(self):
         return None
 
-    def symmetry_group_size(self, dim):
-        return math.factorial(dim + 1)
+    def get_parent_complex(self):
+        return None
 
-    def construct_subelement(self, dimension):
-        raise NotImplementedError
+class SimplicialComplex(Cell):
+    """A cell made of simplices (a single simplex, or a split complex)."""
 
-    # -- geometry -----------------------------------------------------------
+    def __init__(self, shape, vertices, topology):
+        for dim, ents in topology.items():
+            for verts in ents.values():
+                if len(verts) != dim + 1:
+                    raise ValueError("Entity has wrong vertex count for a simplex")
+        super().__init__(shape, vertices, topology)
+
+    # -- geometry -------------------------------------------------------------
+
+    def compute_normal(self, facet_i, cell=None):
+        """Outward unit normal to a codimension-1 facet (seen from ``cell``,
+        the first cell holding the facet by default; UFC cells override the
+        sign convention)."""
+        top = self.topology
+        sd = self.get_spatial_dimension()
+        if cell is None:
+            cell = next(k for k, fs in enumerate(self.connectivity[(sd, sd - 1)])
+                        if facet_i in fs)
+        facet_verts = top[sd - 1][facet_i]
+        off_vertex, = set(top[sd][cell]) - set(facet_verts)
+        V = np.asarray(self.get_vertices_of_subcomplex(facet_verts))
+        r = V[0] - np.asarray(self.vertices[off_vertex])
+        if sd == 1 or len(facet_verts) == 1:
+            return r / np.linalg.norm(r)
+        # component of r orthogonal to the facet span
+        T = V[1:] - V[:1]
+        coef, *_ = np.linalg.lstsq(T.T, r, rcond=None)
+        n = r - T.T @ coef
+        return n / np.linalg.norm(n)
+
+    def compute_tangents(self, dim, i):
+        vs = np.asarray(self.get_vertices_of_subcomplex(self.topology[dim][i]))
+        return vs[1:] - vs[:1]
+
+    def compute_normalized_tangents(self, dim, i):
+        ts = self.compute_tangents(dim, i)
+        return ts / np.linalg.norm(ts, axis=1)[:, None]
+
+    def compute_edge_tangent(self, edge_i):
+        vs = np.asarray(self.get_vertices_of_subcomplex(self.topology[1][edge_i]))
+        return vs[1] - vs[0]
+
+    def compute_normalized_edge_tangent(self, edge_i):
+        t = self.compute_edge_tangent(edge_i)
+        return t / np.linalg.norm(t)
+
+    def compute_face_tangents(self, face_i):
+        if self.get_spatial_dimension() != 3:
+            raise ValueError("Face tangents only defined in 3D")
+        vs = np.asarray(self.get_vertices_of_subcomplex(self.topology[2][face_i]))
+        return vs[1:] - vs[:1]
+
+    def compute_scaled_normal(self, facet_i):
+        """Normal to facet_i scaled by the facet volume (UFC sign rules in
+        2D/3D via tangent rotation / cross product)."""
+        sd = self.get_spatial_dimension()
+        if sd == 2:
+            t, = self.compute_tangents(1, facet_i)
+            return np.array([t[1], -t[0]])
+        if sd == 3:
+            t = self.compute_tangents(2, facet_i)
+            return -np.cross(t[0], t[1])
+        v = self.volume_of_subcomplex(sd - 1, facet_i)
+        return self.compute_normal(facet_i) * v
 
     def volume(self):
         sd = self.get_spatial_dimension()
@@ -160,6 +251,8 @@ class Simplex:
 
     def volume_of_subcomplex(self, dim, facet_no):
         return simplex_volume(self.get_vertices_of_subcomplex(self.topology[dim][facet_no]))
+
+    # -- points and subentity maps ---------------------------------------------
 
     def make_points(self, dim, entity_id, order, variant=None, interior=1):
         if dim == 0:
@@ -169,17 +262,38 @@ class Simplex:
             return make_lattice(verts, order, interior=interior, variant=variant)
         raise ValueError("Illegal entity dimension")
 
+    def get_cell_connectivity(self):
+        """{cell: {dim: [entity ids]}} listing, for each top-level cell,
+        its subentities in the reference ordering of the cell's own vertex
+        tuple (unlike ``connectivity[(sd, dim)]``, which is sorted)."""
+        try:
+            return self._cell_connectivity
+        except AttributeError:
+            pass
+        sd = self.get_spatial_dimension()
+        top = self.topology
+        ref_top = self.construct_subelement(sd).get_topology()
+        inv_top = {dim: {top[dim][e]: e for e in top[dim]} for dim in top}
+        conn = {}
+        for cell in top[sd]:
+            cell_verts = top[sd][cell]
+            conn[cell] = {dim: [inv_top[dim][tuple(cell_verts[v] for v in ref_top[dim][ref_e])]
+                                for ref_e in sorted(ref_top[dim])]
+                          for dim in top}
+        self._cell_connectivity = conn
+        return conn
+
     def get_entity_transform(self, dim, entity):
         """Map from subentity reference coordinates into this cell."""
         top = self.topology
         sd = self.get_spatial_dimension()
-        if dim == sd:
-            assert entity == 0
-            return lambda x: x
         if dim == 0:
             i, = top[0][entity]
             offset = np.asarray(self.vertices[i])
             C = np.zeros((0, len(offset)))
+        elif dim == sd and len(top[sd]) == 1:
+            assert entity == 0
+            return lambda x: x
         else:
             subcell = self.construct_subelement(dim)
             v_e = np.asarray(subcell.get_vertices())
@@ -195,6 +309,63 @@ class Simplex:
 
         return transform
 
+    # -- barycentric machinery -------------------------------------------------
+
+    def barycentric_map(self, entity=None, rescale=False):
+        """The affine map (A, b) with barycentric coords = points @ A.T + b
+        for the given entity (host f64 numpy); ``rescale`` divides each row
+        by its gradient's norm (distances become Euclidean to first order)."""
+        sd = self.get_spatial_dimension()
+        if entity is None:
+            entity = (sd, 0)
+        edim, eid = entity
+        restrict = slice(None)
+        verts_ids = self.topology[edim][eid]
+        if edim != sd:
+            cell_id = self.connectivity[(edim, sd)][eid][0]
+            cell_verts = self.topology[sd][cell_id]
+            restrict = [i for i, v in enumerate(cell_verts) if v in verts_ids]
+            verts_ids = cell_verts
+        A, b = make_affine_mapping(self.get_vertices_of_subcomplex(verts_ids), np.eye(sd + 1))
+        A, b = A[restrict], b[restrict]
+        if rescale:
+            h = 1.0 / np.linalg.norm(A, axis=1)
+            A, b = A * h[:, None], b * h
+        return A, b
+
+    def compute_barycentric_coordinates(self, points, entity=None, rescale=False):
+        """Barycentric coordinates of numpy points (host f64), or of a
+        torch tensor on its device in its dtype."""
+        if len(points) == 0:
+            return points
+        A, b = self.barycentric_map(entity=entity, rescale=rescale)
+        if hasattr(points, "new_tensor"):
+            return points @ points.new_tensor(A.T) + points.new_tensor(b)
+        return np.asarray(points, dtype=np.float64) @ A.T + b
+
+    def distance_to_point_l1(self, points, entity=None, rescale=False):
+        """L1 distance from points to an entity; 0 inside (sum of negative
+        barycentric parts)."""
+        bary = self.compute_barycentric_coordinates(points, entity=entity, rescale=rescale)
+        return 0.5 * abs((abs(bary) - bary).sum(-1))
+
+
+class Simplex(SimplicialComplex):
+    """A single reference simplex."""
+
+    def symmetry_group_size(self, dim):
+        return math.factorial(dim + 1)
+
+
+class UFCSimplex(Simplex):
+    def construct_subelement(self, dimension):
+        return ufc_simplex(dimension)
+
+
+class DefaultSimplex(Simplex):
+    def construct_subelement(self, dimension):
+        return default_simplex(dimension)
+
 
 class Point(Simplex):
     def __init__(self):
@@ -203,16 +374,6 @@ class Point(Simplex):
     def construct_subelement(self, dimension):
         assert dimension == 0
         return self
-
-
-class DefaultSimplex(Simplex):
-    def construct_subelement(self, dimension):
-        return default_simplex(dimension)
-
-
-class UFCSimplex(Simplex):
-    def construct_subelement(self, dimension):
-        return ufc_simplex(dimension)
 
 
 class DefaultLine(DefaultSimplex):
@@ -246,6 +407,12 @@ class UFCTriangle(UFCSimplex):
                           1: {0: (1, 2), 1: (0, 2), 2: (0, 1)},
                           2: {0: (0, 1, 2)}})
 
+    def compute_normal(self, i):
+        # UFC-consistent: rotate the edge tangent, no outwardness guarantee
+        t = self.compute_tangents(1, i)[0]
+        n = np.array([t[1], -t[0]])
+        return n / np.linalg.norm(n)
+
 
 class DefaultTetrahedron(DefaultSimplex):
     def __init__(self):
@@ -271,6 +438,12 @@ class UFCTetrahedron(UFCSimplex):
                           2: {0: (1, 2, 3), 1: (0, 2, 3),
                               2: (0, 1, 3), 3: (0, 1, 2)},
                           3: {0: (0, 1, 2, 3)}})
+
+    def compute_normal(self, i):
+        # UFC-consistent normals: length 2, tangent-cross-product sign
+        t = self.compute_tangents(2, i)
+        n = np.cross(t[0], t[1])
+        return -2.0 * n / np.linalg.norm(n)
 
 
 def default_simplex(spatial_dim):

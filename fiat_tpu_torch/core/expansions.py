@@ -1,7 +1,6 @@
-"""Orthogonal (Dubiner) expansion bases on single simplices.
+"""Orthogonal (Dubiner) expansion bases on simplices and split complexes.
 
-Counterpart of ``fiat_tpu/core/expansions.py`` (single-cell part; binning
-on split complexes is not ported yet).  The Kirby singularity-free
+Counterpart of ``fiat_tpu/core/expansions.py``.  The Kirby singularity-free
 recurrence on collapsed coordinates is written once over generic array
 arithmetic: it runs in numpy on the host (construction paths) and on torch
 tensors, on the CPU or the card, wherever the points are a tensor.
@@ -241,11 +240,19 @@ def mis(m, n):
 # ---------------------------------------------------------------------------
 # Expansion sets
 
+def _is_tensor(x):
+    return isinstance(x, torch.Tensor)
+
+
 class ExpansionSet:
-    """Dubiner expansion set over a single simplex.
+    """Dubiner expansion set over a simplicial complex (a single simplex,
+    or a split complex with one Dubiner basis per subcell).
 
     Tabulation runs one generic recurrence: in numpy for numpy points, on
-    torch tensors (their device and dtype) for tensor points."""
+    torch tensors (their device and dtype) for tensor points.  On a split
+    complex, numpy points are binned to subcells (``compute_cell_point_map``)
+    and tensor points go through {0,1} partition-of-unity masks
+    (``partition_of_unity_masks``), the shape-static form a device runs."""
 
     def __new__(cls, *args, **kwargs):
         if cls is not ExpansionSet:
@@ -261,20 +268,22 @@ class ExpansionSet:
         return sub(*args, **kwargs)
 
     def __init__(self, ref_el, scale=None, variant=None):
-        if ref_el.is_macrocell():
-            raise NotImplementedError("Expansion sets on split complexes are not ported yet")
         self.ref_el = ref_el
         self.variant = variant
         sd = ref_el.get_spatial_dimension()
+        top = ref_el.get_topology()
         base = cl.default_simplex(sd)
-        self.affine_mappings = [cl.make_affine_mapping(ref_el.get_vertices(),
-                                                       base.get_vertices())]
+        base_verts = base.get_vertices()
+        self.affine_mappings = [
+            cl.make_affine_mapping(ref_el.get_vertices_of_subcomplex(top[sd][cell]), base_verts)
+            for cell in top[sd]]
         if scale is None:
             scale = math.sqrt(1.0 / base.volume())
         self.scale = scale
         self.continuity = "C0" if variant == "bubble" else None
         self.recurrence_order = 2
         self._dmats_cache = {}
+        self._cell_node_map_cache = {}
 
     def get_scale(self, n, cell=0):
         scale = self.scale
@@ -286,27 +295,37 @@ class ExpansionSet:
                 scale = math.sqrt(1.0 / vol)
             elif name == "l2 piola":
                 scale = 1.0 / vol
-        elif n == 0 and sd > 1:
-            # reference quirk: the constant member is exactly 1 on a cell
+        elif n == 0 and sd > 1 and len(self.affine_mappings) == 1:
+            # fiat_tpu's quirk: the constant member is exactly 1 on a
+            # single cell
             scale = 1
         return scale
 
     def get_num_members(self, n):
         return polynomial_dimension(self.ref_el, n, self.continuity)
 
+    def get_cell_node_map(self, n):
+        try:
+            return self._cell_node_map_cache[n]
+        except KeyError:
+            cnm = polynomial_cell_node_map(self.ref_el, n, self.continuity)
+            return self._cell_node_map_cache.setdefault(n, cnm)
+
+    # -- tabulation -------------------------------------------------------------
+
     def _tabulate_on_cell(self, n, pts, order=0, cell=0):
-        """dict alpha -> (m, npts) table of D^alpha phi_i(pts_j).
+        """dict alpha -> (m, npts) table of D^alpha phi_i(pts_j) of the
+        Dubiner basis of subcell ``cell`` (extended polynomially past it).
 
         numpy points run on the host; a torch tensor runs on its device in
         its dtype.  Derivatives come from the recurrence on Taylor jets in
         the cell coordinates."""
         sd = self.ref_el.get_spatial_dimension()
         A, b = self.affine_mappings[cell]
-        if isinstance(pts, torch.Tensor):
+        if _is_tensor(pts):
             pts = pts.reshape(-1, sd)
-            ref = (pts @ torch.as_tensor(A.T, dtype=pts.dtype, device=pts.device)
-                   + torch.as_tensor(b, dtype=pts.dtype, device=pts.device))
-            zeros = lambda shape: torch.zeros(shape, dtype=pts.dtype, device=pts.device)  # noqa: E731
+            ref = pts @ pts.new_tensor(A.T) + pts.new_tensor(b)
+            zeros = lambda shape: pts.new_zeros(shape)  # noqa: E731
         else:
             pts = np.asarray(pts, dtype=np.float64).reshape(-1, sd)
             ref = pts @ A.T + b
@@ -327,23 +346,149 @@ class ExpansionSet:
         return result
 
     def _tabulate(self, n, pts, order=0):
-        return self._tabulate_on_cell(n, pts, order)
+        """Tabulate on the whole complex: the identity assembly on a single
+        cell; on a split complex, per-subcell tabulations scattered through
+        the cell-node map (multiplicity-averaged on shared facets unless the
+        basis is C0 at order 0, where the first subcell wins)."""
+        if _is_tensor(pts):
+            if self.ref_el.is_macrocell():
+                return self._tabulate_masked(n, pts, order)
+            return self._tabulate_on_cell(n, pts, order)
+        pts = np.asarray(pts, dtype=np.float64)
+        unique = self.continuity is not None and order == 0
+        cell_point_map = compute_cell_point_map(self.ref_el, pts, unique=unique)
+        phis = {c: self._tabulate_on_cell(n, pts[ipts if ipts is not Ellipsis else slice(None)],
+                                          order, cell=c)
+                for c, ipts in cell_point_map.items()}
+        if not self.ref_el.is_macrocell():
+            return phis[0]
+
+        if not unique:
+            mult = np.zeros(pts.shape[:-1])
+            for ipts in cell_point_map.values():
+                mult[ipts] += 1
+            for c, ipts in cell_point_map.items():
+                for alpha in phis[c]:
+                    phis[c][alpha] /= mult[None, ipts]
+
+        num_phis = self.get_num_members(n)
+        cell_node_map = self.get_cell_node_map(n)
+        result = {}
+        probe = next(iter(phis.values()))
+        for alpha in probe:
+            out = np.zeros((num_phis, *pts.shape[:-1]), dtype=probe[alpha].dtype)
+            for c, ipts in cell_point_map.items():
+                ibfs = cell_node_map[c]
+                if ipts is Ellipsis:
+                    out[ibfs, ...] += phis[c][alpha]
+                else:
+                    out[np.ix_(ibfs, ipts)] += phis[c][alpha]
+            result[alpha] = out
+        return result
+
+    def _tabulate_masked(self, n, pts, order=0):
+        """Shape-static tabulation of tensor points on a split complex:
+        every subcell tabulates at every point and the results combine
+        through {0,1} partition-of-unity masks (fiat_tpu's traced form)."""
+        unique = self.continuity is not None and order == 0
+        masks = partition_of_unity_masks(self.ref_el, pts, unique=unique)
+        sd = self.ref_el.get_spatial_dimension()
+        cell_node_map = self.get_cell_node_map(n)
+        result = {}
+        for pos, c in enumerate(sorted(self.ref_el.get_topology()[sd])):
+            rows = torch.as_tensor(cell_node_map[c], device=pts.device)
+            for alpha, tab in self._tabulate_on_cell(n, pts, order, cell=c).items():
+                if alpha not in result:
+                    result[alpha] = tab.new_zeros((self.get_num_members(n),) + tab.shape[1:])
+                result[alpha].index_add_(0, rows, masks[pos] * tab)
+        return result
 
     def tabulate(self, n, pts):
         if len(pts) == 0:
             return np.array([])
         return self._tabulate(n, pts)[(0,) * self.ref_el.get_spatial_dimension()]
 
+    # -- jumps on split complexes ---------------------------------------------
+
+    def tabulate_normal_jumps(self, n, ref_pts, facet, order=0):
+        """Normal-derivative jumps of the expansion at reference points of a
+        facet of the complex: (order + 1, num_members, npts)."""
+        sd = self.ref_el.get_spatial_dimension()
+        transform = self.ref_el.get_entity_transform(sd - 1, facet)
+        pts = np.asarray(transform(ref_pts))
+        cell_point_map = compute_cell_point_map(self.ref_el, pts, unique=False)
+        cell_node_map = self.get_cell_node_map(n)
+        results = np.zeros((order + 1, self.get_num_members(n), *pts.shape[:-1]))
+        for c, ipts in cell_point_map.items():
+            normal = self.ref_el.compute_normal(facet, cell=c)
+            side = np.dot(normal, self.ref_el.compute_normal(facet))
+            sel = slice(None) if ipts is Ellipsis else ipts
+            phi = self._tabulate_on_cell(n, pts[sel], order, cell=c)
+            v0 = phi[(0,) * sd]
+            ibfs = cell_node_map[c]
+            for r in range(order + 1):
+                vr = np.zeros((sd,) * r + v0.shape, dtype=v0.dtype)
+                for index in np.ndindex(vr.shape[:r]):
+                    vr[index] = phi[tuple(map(index.count, range(sd)))]
+                for _ in range(r):
+                    vr = np.tensordot(normal, vr, axes=(0, 0))
+                indices = np.ix_(ibfs, np.arange(pts.shape[0])[sel])
+                if r % 2 == 0 and side < 0:
+                    results[r][indices] -= vr
+                else:
+                    results[r][indices] += vr
+        return results
+
+    def tabulate_jumps(self, n, points, order=0):
+        """Derivative jumps across the interior facets of the complex:
+        {r: (num_members, nalpha_r * njumps)}."""
+        sd = self.ref_el.get_spatial_dimension()
+        cell_node_map = self.get_cell_node_map(n)
+        points = np.asarray(points, dtype=np.float64)
+        cell_point_map = compute_cell_point_map(self.ref_el, points, unique=False)
+
+        num_jumps = 0
+        facet_point_map = {}
+        for facet in self.ref_el.get_interior_facets(sd - 1):
+            cells_ = self.ref_el.connectivity[(sd - 1, sd)][facet]
+            # a jump needs the point binned to BOTH adjacent cells
+            ipts = list(set.intersection(*(set(np.atleast_1d(cell_point_map.get(c, ())))
+                                           for c in cells_)))
+            if ipts:
+                facet_point_map[facet] = ipts
+                num_jumps += len(ipts)
+
+        derivs = {c: self._tabulate_on_cell(n, points, order=order, cell=c)
+                  for c in cell_point_map}
+        jumps = {}
+        for r in range(order + 1):
+            cur = 0
+            alphas = mis(sd, r)
+            jumps[r] = np.zeros((self.get_num_members(n), len(alphas) * num_jumps))
+            for facet, ipts in facet_point_map.items():
+                c0, c1 = self.ref_el.connectivity[(sd - 1, sd)][facet]
+                for alpha in alphas:
+                    ijump = range(cur, cur + len(ipts))
+                    jumps[r][np.ix_(cell_node_map[c1], ijump)] += derivs[c1][alpha][:, ipts]
+                    jumps[r][np.ix_(cell_node_map[c0], ijump)] -= derivs[c0][alpha][:, ipts]
+                    cur += len(ipts)
+        return jumps
+
+    # -- spectral differentiation matrices --------------------------------------
+
     def get_dmats(self, degree, cell=0):
-        """dmat[k, j, i]: coefficients of d(phi_j)/dx_k in the expansion
-        basis, from a collocation solve at a Gauss-Legendre lattice."""
+        """dmat[k, j, i]: coefficients of d(phi_j)/dx_k in the basis of
+        subcell ``cell``, from a collocation solve at a Gauss-Legendre
+        lattice."""
         key = (degree, cell)
         if key in self._dmats_cache:
             return self._dmats_cache[key]
         sd = self.ref_el.get_spatial_dimension()
         if degree == 0:
             return self._dmats_cache.setdefault(key, np.zeros((sd, 1, 1)))
-        pts = cl.make_lattice(self.ref_el.get_vertices(), degree, variant="gl")
+        top = self.ref_el.get_topology()
+        verts = self.ref_el.get_vertices_of_subcomplex(top[sd][cell])
+        pts = cl.make_lattice(verts, degree, variant="gl")
         v = self._tabulate_on_cell(degree, pts, order=1, cell=cell)
         dv = [np.transpose(v[alpha]) for alpha in mis(sd, 1)]
         dmats = np.linalg.solve(np.transpose(v[(0,) * sd]), dv)
@@ -375,6 +520,9 @@ class TetrahedronExpansionSet(ExpansionSet):
     pass
 
 
+# ---------------------------------------------------------------------------
+# Complex-wide numbering and binning
+
 def polynomial_dimension(ref_el, n, continuity=None):
     if ref_el.get_shape() == cl.POINT:
         if n > 0:
@@ -385,3 +533,114 @@ def polynomial_dimension(ref_el, n, continuity=None):
         return sum(math.comb(n - 1, dim) * len(top[dim]) for dim in top)
     dim = ref_el.get_spatial_dimension()
     return math.comb(n + dim, dim) * len(top[dim])
+
+
+def polynomial_entity_ids(ref_el, n, continuity=None):
+    """{dim: {entity: [member ids]}}: C0 members sit on every entity,
+    discontinuous ones on the cells only."""
+    top = ref_el.get_topology()
+    sd = ref_el.get_spatial_dimension()
+    entity_ids = {}
+    cur = 0
+    for dim in sorted(top):
+        if continuity == "C0":
+            dofs = math.comb(n - 1, dim)
+        else:
+            dofs = math.comb(n + dim, dim) if dim == sd else 0
+        entity_ids[dim] = {e: list(range(cur + i * dofs, cur + (i + 1) * dofs))
+                           for i, e in enumerate(sorted(top[dim]))}
+        cur += dofs * len(top[dim])
+    return entity_ids
+
+
+def polynomial_cell_node_map(ref_el, n, continuity=None):
+    """(num_cells, dofs_per_cell) map from each subcell's local members to
+    the complex's members."""
+    top = ref_el.get_topology()
+    sd = ref_el.get_spatial_dimension()
+    entity_ids = polynomial_entity_ids(ref_el, n, continuity)
+    ref_ids = polynomial_entity_ids(ref_el.construct_subelement(sd), n, continuity)
+    dofs_per_cell = sum(len(ref_ids[dim][e]) for dim in ref_ids for e in ref_ids[dim])
+    cell_node_map = np.zeros((len(top[sd]), dofs_per_cell), dtype=int)
+    conn = ref_el.get_cell_connectivity()
+    for c in top[sd]:
+        for dim in top:
+            for ref_e, e in enumerate(conn[c][dim]):
+                cell_node_map[c, ref_ids[dim][ref_e]] = entity_ids[dim][e]
+    return cell_node_map
+
+
+def compute_cell_point_map(ref_el, pts, unique=True, tol=1e-12):
+    """Bin host points to the nearest subcells of a complex: a subcell takes
+    a point when its rescaled L1 distance is strictly below the parent's
+    plus ``tol``.  Returns {cell: point-index array or Ellipsis}."""
+    top = ref_el.get_topology()
+    sd = ref_el.get_spatial_dimension()
+    if len(top[sd]) == 1:
+        return {0: Ellipsis}
+    pts = np.asarray(pts)
+    tol = ref_el.get_parent().distance_to_point_l1(pts, rescale=True) + tol
+    out = {}
+    for c in sorted(top[sd]):
+        near = ref_el.distance_to_point_l1(pts, entity=(sd, c), rescale=True) < tol
+        if near.ndim == 0:
+            if near:
+                out[c] = Ellipsis
+                if unique:
+                    break
+        else:
+            if unique:
+                for other in out.values():
+                    near[other] = False
+            ipts = np.where(near)[0]
+            if len(ipts) > 0:
+                out[c] = ipts
+    return out
+
+
+def partition_of_unity_masks(ref_el, pts, unique=True, tol=None, raw=False):
+    """Per-subcell {0,1} masks over a point batch (torch tensors on the
+    points' device; numpy points become a CPU float64 tensor), the
+    shape-static binning the device engine runs: ``subcell_masks`` with the
+    complex's rescaled barycentric maps."""
+    sd = ref_el.get_spatial_dimension()
+    maps = [ref_el.barycentric_map(entity=(sd, c), rescale=True)
+            for c in sorted(ref_el.get_topology()[sd])]
+    return subcell_masks(pts, ref_el.get_parent().barycentric_map(rescale=True), maps,
+                         unique=unique, tol=tol, raw=raw)
+
+
+def subcell_masks(pts, parent_map, cell_maps, unique=True, tol=None, raw=False):
+    """{0,1} subcell masks from barycentric maps (A, b) (lambda = A x + b):
+    subcell c takes a point when its L1 distance sum_j max(-lambda_j, 0) is
+    at most the parent's plus ``tol`` (1e-12 in float64, 1e-5 otherwise).
+    ``unique`` keeps the first hit in subcell order; otherwise every mask is
+    divided by the cover count (with ``raw``, the undivided masks and the
+    cover count -- None when ``unique`` -- come back instead)."""
+    if not _is_tensor(pts):
+        pts = torch.as_tensor(np.asarray(pts, dtype=np.float64))
+    if tol is None:
+        tol = 1e-12 if pts.dtype == torch.float64 else 1e-5
+
+    def distance(A, b):
+        bary = pts @ pts.new_tensor(np.asarray(A).T) + pts.new_tensor(np.asarray(b))
+        return 0.5 * abs((abs(bary) - bary).sum(-1))
+
+    best = distance(*parent_map) + tol
+    masks = []
+    taken = None
+    for A, b in cell_maps:
+        m = (distance(A, b) <= best).to(pts.dtype)
+        if unique:
+            if taken is not None:
+                m = m * (1.0 - taken)
+                taken = torch.maximum(taken, m)
+            else:
+                taken = m
+        masks.append(m)
+    if raw:
+        return masks, (None if unique else sum(masks))
+    if not unique:
+        total = sum(masks)
+        masks = [m / total for m in masks]
+    return masks

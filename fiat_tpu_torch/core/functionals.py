@@ -1,18 +1,28 @@
 """Linear functionals (dual-basis nodes) in struct-of-arrays form.
 
-Counterpart of ``fiat_tpu/core/functionals.py`` (the ``Functional`` base
-and the point evaluations the nodal elements use).  Every functional is
-stored as five flat arrays
+Counterpart of ``fiat_tpu/core/functionals.py`` (the functionals the
+``full_zoo`` elements use).  Every functional is stored as five flat arrays
 
     ell(f) = sum_k  weights[k] * (D^{alphas[k]} f)_{comps[k]} (points[pt_ids[k]])
 
+    points   (npts, space_dim)     evaluation points
+    pt_ids   (nterms,)             point index per term
+    alphas   (nterms, space_dim)   derivative multi-index per term (zeros = value)
+    comps    (nterms,)             flat C-order component index into target_shape
+    weights  (nterms,)             term weights
+
 and the Riesz map (the rows of the generalized Vandermonde system) is one
 expansion tabulation over the union of all points followed by a segment-sum
-per derivative multi-index (``riesz_representers``).  Moment functionals,
-which need quadrature, are not ported yet.
+per derivative multi-index (``riesz_representers``), for scalar and
+vector/tensor target shapes alike.  Point evaluations of values and
+derivatives, and integral moments of values and derivatives (pushed onto
+facets by ``quadrature.FacetQuadratureRule``) are ported; the tensor,
+divergence, Legendre-weighted and trace-moment families are not yet.
 """
 
 import numpy as np
+
+from . import quadrature
 
 
 def flat_component(comp, shape):
@@ -24,9 +34,37 @@ def flat_component(comp, shape):
     return int(np.ravel_multi_index(tuple(comp), shape))
 
 
+def directional_alphas(S, space_dim):
+    """Collapse a rank-k direction tensor S (product of k directions) into
+    derivative multi-indices: returns (alphas (m, space_dim), weights (m,)) with
+    sum_alpha w_alpha D^alpha == sum_{i1..ik} S[i1..ik] d_{i1}..d_{ik}."""
+    S = np.asarray(S, dtype=float)
+    tau = {}
+    for index in np.ndindex(S.shape):
+        alpha = tuple(np.bincount(index, minlength=space_dim))
+        tau[alpha] = tau.get(alpha, 0.0) + S[index]
+    alphas = np.array(sorted(tau), dtype=np.intp).reshape(len(tau), space_dim)
+    weights = np.array([tau[tuple(a)] for a in alphas])
+    return alphas, weights
+
+
+def _derivative_term_arrays(alphas, W, comps=None):
+    """Term arrays for derivative "alpha slots":
+    ell(f) = sum_q sum_a W[q, a] (D^{alphas[a]} f)_{comps[a]}(x_q)."""
+    W = np.asarray(W, dtype=float)
+    alphas = np.asarray(alphas, np.intp)
+    npts, nalpha = W.shape
+    slot_comps = (np.zeros(nalpha, np.intp) if comps is None
+                  else np.asarray(comps, np.intp))
+    return dict(pt_ids=np.repeat(np.arange(npts), nalpha),
+                weights=W.ravel(),
+                comps=np.tile(slot_comps, npts),
+                alphas=np.tile(alphas, (npts, 1)))
+
+
 class Functional:
     """A discrete linear functional over points, derivative multi-indices,
-    components and weights (see the module docstring for the encoding)."""
+    components and weights (see module docstring for the term encoding)."""
 
     def __init__(self, ref_el, target_shape, functional_type, points,
                  pt_ids=None, weights=None, comps=None, alphas=None):
@@ -37,7 +75,7 @@ class Functional:
         if points.ndim != 2:
             points = points.reshape(max(len(points), 1), -1)
         self.points = points
-        sd = points.shape[1]
+        space_dim = points.shape[1]
         weights = np.zeros(0) if weights is None else np.asarray(weights, float).ravel()
         n = weights.shape[0]
         self.weights = weights
@@ -45,11 +83,15 @@ class Functional:
                        else np.asarray(pt_ids, np.intp).ravel())
         self.comps = (np.zeros(n, np.intp) if comps is None
                       else np.asarray(comps, np.intp).ravel())
-        self.alphas = (np.zeros((n, sd), np.intp) if alphas is None
-                       else np.asarray(alphas, np.intp).reshape(n, sd))
+        self.alphas = (np.zeros((n, space_dim), np.intp) if alphas is None
+                       else np.asarray(alphas, np.intp).reshape(n, space_dim))
+
+    # -- queries --------------------------------------------------------------
 
     def get_reference_element(self):
         return self.ref_el
+
+    # -- point-keyed dict views, derived lazily ------------------------------
 
     def _unflat(self, c):
         if not self.target_shape:
@@ -58,20 +100,24 @@ class Functional:
 
     @property
     def pt_dict(self):
-        """{point: [(weight, component)]} of the value terms."""
+        try:
+            return self._pt_dict
+        except AttributeError:
+            pass
         d = {}
         orders = self.alphas.sum(axis=1)
         for k in np.flatnonzero(orders == 0):
             pt = tuple(self.points[self.pt_ids[k]].tolist())
             d.setdefault(pt, []).append((self.weights[k], self._unflat(self.comps[k])))
+        self._pt_dict = d
         return d
 
     def get_point_dict(self):
         return self.pt_dict
 
-
 def _segment_sum(out, rows, values):
-    """out[rows[k]] += values[k] with duplicate rows reduced first."""
+    """out[rows[k]] += values[k] with duplicate rows reduced first
+    (sort + reduceat segment-sum)."""
     order = np.argsort(rows, kind="stable")
     r = rows[order]
     v = values[order]
@@ -82,7 +128,12 @@ def _segment_sum(out, rows, values):
 def riesz_representers(nodes, poly_set, shape=None):
     """Batched Riesz map of a list of functionals:
     array (len(nodes), *shape, num_exp), shape defaulting to the first
-    functional's target_shape."""
+    functional's target_shape.
+
+    The expansion set is tabulated once over the union of all value points
+    and once (as a jet) over the union of all derivative points; the term
+    weights are then scattered with one segment-sum per derivative
+    multi-index."""
     es = poly_set.get_expansion_set()
     ed = poly_set.get_embedded_degree()
     num_exp = es.get_num_members(ed)
@@ -90,6 +141,7 @@ def riesz_representers(nodes, poly_set, shape=None):
     ncomp = int(np.prod(tshape, dtype=int)) if tshape else 1
     out = np.zeros((len(nodes) * ncomp, num_exp))
 
+    # flatten all terms of all nodes into one term table
     offs = np.cumsum([0] + [n.points.shape[0] for n in nodes])
     allpts = np.concatenate([n.points for n in nodes], axis=0)
     gpt = np.concatenate([n.pt_ids + o for n, o in zip(nodes, offs)])
@@ -116,7 +168,9 @@ def riesz_representers(nodes, poly_set, shape=None):
         ai = ai.ravel()
         for a, alpha in enumerate(map(tuple, ualphas)):
             sel = deriv[ai == a]
-            _segment_sum(out, grow[sel], gw[sel, None] * jets[alpha].T[inv[ai == a]])
+            tab = jets[alpha]
+            _segment_sum(out, grow[sel],
+                         gw[sel, None] * tab.T[inv[ai == a]])
 
     return out.reshape((len(nodes),) + tshape + (num_exp,))
 
@@ -125,7 +179,170 @@ class PointEvaluation(Functional):
     """f -> f(x)."""
 
     def __init__(self, ref_el, x):
-        super().__init__(ref_el, (), "PointEval", [tuple(x)], weights=[1.0])
+        super().__init__(ref_el, (), "PointEval", [tuple(x)],
+                         weights=[1.0])
 
     def __call__(self, fn):
         return fn(tuple(self.points[0]))
+
+
+
+class ComponentPointEvaluation(Functional):
+    """f -> f_c(x) for a component c of a vector/tensor field."""
+
+    def __init__(self, ref_el, comp, shp, x):
+        if not isinstance(comp, tuple):
+            comp = (comp,)
+        if len(shp) != len(comp):
+            raise ValueError("Component and shape are incompatible")
+        if any(i < 0 or i >= n for i, n in zip(comp, shp)):
+            raise ValueError("Illegal component")
+        self.comp = comp
+        super().__init__(ref_el, shp, "ComponentPointEval", [tuple(x)],
+                         weights=[1.0], comps=[flat_component(comp, shp)])
+
+
+class PointScaledNormalEvaluation(Functional):
+    """v -> (v . n~)(x), n~ the facet-volume-scaled normal."""
+
+    def __init__(self, ref_el, facet_no, pt):
+        n = ref_el.compute_scaled_normal(facet_no)
+        super().__init__(*_vector_point_args(ref_el, n, pt, "PointScaledNormalEval"))
+
+
+
+class PointEdgeTangentEvaluation(Functional):
+    """v -> (v . t)(x) on an edge."""
+
+    def __init__(self, ref_el, edge_no, pt):
+        self.t = ref_el.compute_edge_tangent(edge_no)
+        super().__init__(*_vector_point_args(ref_el, self.t, pt, "PointEdgeTangent"))
+
+
+
+class PointFaceTangentEvaluation(Functional):
+    """v -> (v . t_k)(x) for face tangent t_k."""
+
+    def __init__(self, ref_el, face_no, tno, pt):
+        self.t = ref_el.compute_face_tangents(face_no)[tno]
+        self.tno = tno
+        super().__init__(*_vector_point_args(ref_el, self.t, pt, "PointFaceTangent"))
+
+
+
+def _vector_point_args(ref_el, direction, pt, name):
+    """(init args) for ``v -> (v . direction)(pt)`` as dense value terms."""
+    space_dim = ref_el.get_spatial_dimension()
+    W = np.asarray(direction, float).reshape(1, space_dim)
+    n = W.shape[1]
+    return (ref_el, (space_dim,), name, [tuple(pt)],
+            np.zeros(n, np.intp), W.ravel(), np.arange(n))
+
+
+class PointDerivative(Functional):
+    """f -> D^alpha f(x)."""
+
+    def __init__(self, ref_el, x, alpha):
+        self.alpha = tuple(alpha)
+        self.order = sum(self.alpha)
+        super().__init__(ref_el, (), "PointDeriv", [tuple(x)],
+                         weights=[1.0], alphas=[self.alpha])
+
+    def __call__(self, fn):
+        import sympy
+        x = tuple(self.points[0])
+        X = tuple(sympy.Symbol(f"X[{i}]") for i in range(len(x)))
+        dvars = tuple(v for v, a in zip(X, self.alpha) for _ in range(a))
+        return sympy.lambdify(X, sympy.diff(fn(X), *dvars))(*x)
+
+
+class PointDirectionalDerivative(Functional):
+    """f -> (s . grad f)(x)."""
+
+    def __init__(self, ref_el, s, pt, comp=(), shp=(), nm=None):
+        space_dim = ref_el.get_spatial_dimension()
+        cf = flat_component(comp, shp)
+        super().__init__(ref_el, shp, nm or "PointDirectionalDeriv", [tuple(pt)],
+                         pt_ids=np.zeros(space_dim, np.intp),
+                         weights=np.asarray(s, float),
+                         comps=np.full(space_dim, cf, np.intp),
+                         alphas=np.eye(space_dim, dtype=np.intp))
+
+
+class PointNormalDerivative(PointDirectionalDerivative):
+    def __init__(self, ref_el, facet_no, pt, comp=(), shp=()):
+        n = ref_el.compute_normal(facet_no)
+        super().__init__(ref_el, n, pt, comp=comp, shp=shp, nm="PointNormalDeriv")
+
+
+class IntegralMoment(Functional):
+    """f -> int f_c q  against a tabulated density q (rule Q)."""
+
+    def __init__(self, ref_el, Q, f_at_qpts, comp=tuple(), shp=tuple()):
+        self.Q = Q
+        self.f_at_qpts = f_at_qpts
+        self.comp = comp
+        qwts = np.multiply(f_at_qpts, Q.get_weights())
+        pts = Q.get_points()
+        cf = flat_component(comp, shp)
+        super().__init__(ref_el, shp, "IntegralMoment", pts,
+                         pt_ids=np.arange(len(pts)),
+                         weights=qwts,
+                         comps=np.full(len(pts), cf, np.intp))
+
+    def __call__(self, fn):
+        result = np.dot([fn(tuple(p)) for p in self.points], self.weights)
+        return result[self.comp] if self.comp else result
+
+
+class FrobeniusIntegralMoment(Functional):
+    """u -> int u : F for a tensor density F tabulated at Q's points."""
+
+    def __init__(self, ref_el, Q, f_at_qpts, nm=None):
+        shp = tuple(f_at_qpts.shape[:-1])
+        npts = len(Q.get_points())
+        if npts != f_at_qpts.shape[-1]:
+            raise ValueError("Mismatch in number of quadrature points and values")
+        self.Q = Q
+        self.comp = slice(None, None)
+        self.f_at_qpts = f_at_qpts
+        # (npts, *shp) dense weights: every component slot per point
+        W = np.moveaxis(np.multiply(f_at_qpts, Q.get_weights()), -1, 0)
+        ncomp = int(np.prod(shp, dtype=int))
+        super().__init__(ref_el, shp, nm or "FrobeniusIntegralMoment",
+                         Q.get_points(),
+                         pt_ids=np.repeat(np.arange(npts), ncomp),
+                         weights=W.reshape(npts, ncomp).ravel(),
+                         comps=np.tile(np.arange(ncomp), npts))
+
+
+class IntegralMomentOfDerivative(Functional):
+    """f -> int (D_s1 ... D_sk f)_c q for directions s1..sk."""
+
+    def __init__(self, ref_el, Q, f_at_qpts, *directions, comp=(), shp=(), nm=""):
+        self.Q = Q
+        self.f_at_qpts = f_at_qpts
+        self.comp = comp
+        S = directions[0]
+        for d in directions[1:]:
+            S = np.outer(S, d)
+        space_dim = ref_el.get_spatial_dimension()
+        alphas, taus = directional_alphas(S, space_dim)
+        qwts = np.multiply(f_at_qpts, Q.get_weights())
+        self.weights_by_alpha = {tuple(a): qwts * t for a, t in zip(alphas, taus)}
+        cf = flat_component(comp, shp)
+        super().__init__(ref_el, shp, nm or "IntegralMomentOfDerivative",
+                         Q.get_points(),
+                         **_derivative_term_arrays(
+                             alphas, np.outer(qwts, taus),
+                             comps=np.full(len(taus), cf, np.intp)))
+
+
+class IntegralMomentOfNormalDerivative(IntegralMomentOfDerivative):
+    """f -> int_F (dn f) q over a facet F."""
+
+    def __init__(self, ref_el, facet_no, Q_face, f_at_qpts):
+        n = ref_el.compute_normal(facet_no)
+        space_dim = ref_el.get_spatial_dimension()
+        Q = quadrature.FacetQuadratureRule(ref_el, space_dim - 1, facet_no, Q_face, avg=True)
+        super().__init__(ref_el, Q, f_at_qpts, n, nm="IntegralMomentOfNormalDerivative")

@@ -1,0 +1,104 @@
+"""Quadrature rules on reference simplices, array-native.
+
+Counterpart of the simplex part of ``fiat_tpu/core/quadrature.py``:
+Gauss-Jacobi line rules, collapsed Duffy simplex rules and rules pushed
+forward onto facets.
+Points and weights are contiguous float64 ndarrays from construction on;
+an affine pushforward is one matmul.  Lobatto and Radau line rules and
+tensor-product rules are not ported yet.
+"""
+
+import math
+
+import numpy as np
+
+from . import cells as cl
+from .recursive_nodes import collapsed_gauss_simplex, gauss_jacobi_rule
+
+
+class QuadratureRule:
+    """Integration over a reference cell as a weighted point sum."""
+
+    def __init__(self, ref_el, pts, wts):
+        pts = np.ascontiguousarray(pts, dtype=float)
+        if pts.ndim != 2:
+            pts = pts.reshape(max(len(pts), 1), -1)
+        wts = np.ascontiguousarray(wts, dtype=float).ravel()
+        if wts.shape[0] != pts.shape[0]:
+            raise ValueError(f"Have {wts.shape[0]} weights, but {pts.shape[0]} points")
+        self.ref_el = ref_el
+        self.pts = pts
+        self.wts = wts
+
+    def get_points(self):
+        return self.pts
+
+    def get_weights(self):
+        return self.wts
+
+
+def pseudo_determinant(A):
+    """sqrt(det(A^T A)): volume scale of a (possibly non-square) affine map."""
+    return math.sqrt(abs(np.linalg.det(A.T @ A)))
+
+
+def affine_pushforward(pts, wts, source_cell, target_cell, avg=False):
+    """Push a rule from source_cell to target_cell along the vertex affine
+    map.  Returns (points, weights, A): one matmul for the points, one
+    pseudo-determinant scale for the weights (skipped when ``avg``)."""
+    while source_cell.get_parent():
+        source_cell = source_cell.get_parent()
+    A, b = cl.make_affine_mapping(source_cell.get_vertices(), target_cell.get_vertices())
+    pts = np.asarray(pts, dtype=float).reshape(len(pts), A.shape[1])
+    scale = 1.0 if avg else pseudo_determinant(A)
+    return pts @ A.T + b, np.asarray(wts, dtype=float).ravel() * scale, A
+
+
+class GaussJacobiQuadratureLineRule(QuadratureRule):
+    """m-point Gauss-Jacobi rule for weights (a, b) on an interval."""
+
+    def __init__(self, ref_el, m, a=0, b=0):
+        x, w = gauss_jacobi_rule(m, a, b)
+        pts, wts, _ = affine_pushforward(x, w, cl.DefaultLine(), ref_el)
+        super().__init__(ref_el, pts, wts)
+
+
+class CollapsedQuadratureSimplexRule(QuadratureRule):
+    """Karniadakis & Sherwin collapsed rule: Duffy image of a Gauss-Jacobi
+    product grid, mapped from the default simplex."""
+
+    def __init__(self, ref_el, m):
+        dim = ref_el.get_spatial_dimension()
+        x, w = collapsed_gauss_simplex(dim, m)
+        pts, wts, _ = affine_pushforward(x, w, cl.default_simplex(dim), ref_el)
+        super().__init__(ref_el, pts, wts)
+
+
+class FacetQuadratureRule(QuadratureRule):
+    """A reference rule pushed forward onto a facet of a cell."""
+
+    def __init__(self, ref_el, entity_dim, entity_id, Q_ref, avg=False):
+        facet = ref_el.construct_subelement(entity_dim)
+        facet.vertices = ref_el.get_vertices_of_subcomplex(
+            ref_el.get_topology()[entity_dim][entity_id])
+        pts, wts, J = affine_pushforward(Q_ref.get_points(), Q_ref.get_weights(),
+                                         Q_ref.ref_el, facet, avg=avg)
+        super().__init__(facet, pts, wts)
+        self._J = J
+
+    def jacobian(self):
+        return self._J
+
+
+def make_quadrature(ref_el, m):
+    """Collapsed-quadrature rule with m points per direction."""
+    if m <= 0:
+        raise ValueError("Need at least one quadrature point per direction")
+    shape = ref_el.get_shape()
+    if shape == cl.POINT:
+        return QuadratureRule(ref_el, np.zeros((1, 0)), np.ones(1))
+    if shape == cl.LINE:
+        return GaussJacobiQuadratureLineRule(ref_el, m)
+    if shape in (cl.TRIANGLE, cl.TETRAHEDRON):
+        return CollapsedQuadratureSimplexRule(ref_el, m)
+    raise ValueError(f"Unable to make quadrature for cell {ref_el}")

@@ -1,0 +1,88 @@
+"""Degree -> quadrature rule selection.
+
+Counterpart of the simplex part of ``fiat_tpu/core/quadrature_schemes.py``.
+The 'default' scheme picks the CHEAPEST of the interchangeable exact
+candidates, exactly as fiat_tpu does, so the moment duals land on the
+same points and the coefficients of the moment elements agree:
+
+* the generated fully symmetric orbit rules (``symquad``), gated on weight
+  conditioning sum|w| / sum w <= 2;
+* the generated positive node-elimination rules (``elimquad``);
+* collapsed Gauss (``((degree + 2) // 2) ** sd`` points);
+
+with ties going to the symmetric rule, then elimination.  Lines and
+points always take collapsed Gauss (Gauss-Jacobi).  Split complexes get
+the composite rule (``macro.MacroQuadratureRule``).  Grundmann-Moller and
+KMV schemes, and tensor-product cells, are not ported yet.
+"""
+
+from . import cells as cl
+from .quadrature import FacetQuadratureRule, make_quadrature
+
+
+def create_quadrature(ref_el, degree, scheme="default", entity=None):
+    """A rule integrating degree-``degree`` polynomials exactly on
+    ``ref_el`` (or one of its subentities, via ``entity=(dim, id)``)."""
+    if entity is not None:
+        dimension, entity_id = entity
+        sub_el = ref_el.construct_subelement(dimension)
+        Q_ref = create_quadrature(sub_el, degree, scheme=scheme)
+        return FacetQuadratureRule(ref_el, dimension, entity_id, Q_ref)
+
+    if ref_el.is_macrocell():
+        from .macro import MacroQuadratureRule
+        sub_el = ref_el.construct_subelement(ref_el.get_dimension())
+        Q_ref = create_quadrature(sub_el, degree, scheme=scheme)
+        return MacroQuadratureRule(ref_el, Q_ref)
+
+    if ref_el.get_shape() not in (cl.POINT, cl.LINE, cl.TRIANGLE, cl.TETRAHEDRON):
+        raise NotImplementedError(f"Quadrature on {ref_el.get_shape()} cells is not ported yet")
+    if degree < 0:
+        raise ValueError(f"Need positive degree, not {degree}")
+
+    if scheme == "default":
+        sd = ref_el.get_spatial_dimension()
+        if sd >= 2:
+            candidates = []
+            try:
+                from .symquad import RULE_COND_MAX, rule_size
+                candidates.append((rule_size(sd, degree, max_cond=RULE_COND_MAX),
+                                   _gated_symmetric_scheme))
+            except KeyError:
+                pass
+            try:
+                from .elimquad import rule_size as elim_rule_size
+                candidates.append((elim_rule_size(degree, sd), _general_elim_scheme))
+            except KeyError:
+                pass
+            candidates.append((((degree + 2) // 2) ** sd, _collapsed_scheme))
+            # stable min: the (conditioning-gated) symmetric rule wins ties
+            _, builder = min(candidates, key=lambda t: t[0])
+            return builder(ref_el, degree)
+        return _collapsed_scheme(ref_el, degree)
+    if scheme == "canonical":
+        return _collapsed_scheme(ref_el, degree)
+    if scheme in ("symmetric", "xg"):
+        from .symquad import symmetric_rule
+        return symmetric_rule(ref_el, degree)
+    if scheme in ("gm", "grundmann_moller", "KMV"):
+        raise NotImplementedError(f"Quadrature scheme {scheme!r} is not ported yet")
+    raise ValueError(f"Unknown quadrature scheme {scheme!r}")
+
+
+def _gated_symmetric_scheme(ref_el, degree):
+    """Symmetric rule restricted to weight-conditioning <= RULE_COND_MAX
+    (the 'default' dispatch path)."""
+    from .symquad import RULE_COND_MAX, symmetric_rule
+    return symmetric_rule(ref_el, degree, max_cond=RULE_COND_MAX)
+
+
+def _general_elim_scheme(ref_el, degree):
+    """Generated general (asymmetric, positive) simplex rule."""
+    from .elimquad import general_rule
+    return general_rule(ref_el, degree)
+
+
+def _collapsed_scheme(ref_el, degree):
+    """Collapsed Gauss rule exact to the requested degree."""
+    return make_quadrature(ref_el, (degree + 2) // 2)

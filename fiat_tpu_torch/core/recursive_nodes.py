@@ -84,6 +84,26 @@ def gauss_lobatto_legendre_nodes(m):
     return np.concatenate(([-1.0], xi, [1.0]))
 
 
+def collapsed_gauss_simplex(dim, m):
+    """Collapsed (Duffy-mapped) Gauss rule with m points per direction on
+    the default (-1,1)-vertex dim-simplex: a product of Gauss-Jacobi rules
+    whose (1-eta_k)^k weights absorb the Duffy Jacobian powers."""
+    lines = [gauss_jacobi_rule(m, float(k), 0.0) for k in range(dim)]
+    pts = np.zeros((m,) * dim + (dim,))
+    wts = np.ones((m,) * dim)
+    etas = np.meshgrid(*[x for x, _ in lines], indexing="ij")
+    for k in range(dim):
+        shape = [1] * dim
+        shape[k] = m
+        wts = wts * (lines[k][1] / 2.0 ** k).reshape(shape)
+    for k in range(dim):
+        xi = 1.0 + etas[k]
+        for j in range(k + 1, dim):
+            xi = xi * (1.0 - etas[j]) / 2.0
+        pts[..., k] = xi - 1.0
+    return pts.reshape(-1, dim), wts.reshape(-1)
+
+
 @lru_cache(maxsize=None)
 def family_nodes_1d(family, n):
     """The n+1 nodes of a 1D family on [0, 1] for polynomial degree n."""

@@ -17,16 +17,16 @@
 // current row.  The per-(level, row) constants are uniform across the
 // warp and come through the read-only cache.
 //
-// Constant layout (built by fiat_tpu_torch/ops/recurrence.py:pack_stages):
-//   consts[4*i + {0,1,2,3}], i = 0..N          stage 0: a, b, c, norm
-//   consts[4*(N+1) + 4*e + {0,1,2,3}]          stage 1 entry e: a, b, c, norm
+// The per-point recurrence lives in dubiner2.cuh (shared with K3, which
+// keeps Phi in registers); its constant layout is documented there.  Here
 //   slots[e]                                   stage 1 entry e: output row
-// Stage-1 entries run row-major over (input row r = 0..N, level i = 0..N-r),
-// the order the kernel visits them.
+// (ops/recurrence.py:pack_stages), the morton row of stage-1 entry e.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "dubiner2.cuh"
 
 namespace {
 
@@ -46,51 +46,11 @@ dubiner2_values_kernel(const double* __restrict__ pts, int npts,
   // cell map onto the default (-1, 1) triangle: ref = A @ x + b
   const double x0 = (px * m.a00 + py * m.a01) + m.b0;
   const double x1 = (px * m.a10 + py * m.a11) + m.b1;
-  if (N == 0) {
-    phi[p] = scale;
-    return;
-  }
-
-  // stage 0: the 1D recurrence in the first collapsed coordinate
-  double r1[N + 1];
-  {
-    const double fb = 0.5 * (x1 + -1.0);
-    const double fa = x0 + fb + 1.0;
-    const double fc = fb * fb;
-    double prev2 = 0.0, prev = scale;
-    r1[0] = prev * __ldg(consts + 3);
-#pragma unroll
-    for (int i = 1; i <= N; ++i) {
-      const double* c = consts + 4 * i;
-      const double v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
-      r1[i] = v * __ldg(c + 3);
-      prev2 = prev;
-      prev = v;
-    }
-  }
-
-  // stage 1: per input row r, the recurrence in the second coordinate;
-  // every level goes straight to its morton row, times its norm
-  const double fb = 0.5 * (-1.0 + -1.0);
-  const double fa = x1 + fb + 1.0;
-  const double fc = fb * fb;
-  const double* c1 = consts + 4 * (N + 1);
   const size_t ld = static_cast<size_t>(npts);
-  int e = 0;
-#pragma unroll
-  for (int r = 0; r <= N; ++r) {
-    double prev2 = 0.0, prev = r1[r];
-    phi[__ldg(slots + e) * ld + p] = prev * __ldg(c1 + 4 * e + 3);
-    ++e;
-#pragma unroll
-    for (int i = 1; i <= N - r; ++i, ++e) {
-      const double* c = c1 + 4 * e;
-      const double v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
-      phi[__ldg(slots + e) * ld + p] = v * __ldg(c + 3);
-      prev2 = prev;
-      prev = v;
-    }
-  }
+  // every value goes straight to its morton row
+  fiat::dubiner2_point<N>(x0, x1, consts, scale, [&](int e, int, int, double v) {
+    phi[(N == 0 ? 0 : __ldg(slots + e)) * ld + p] = v;
+  });
 }
 
 template <int N>

@@ -7,9 +7,9 @@ the kernel engine on the requested device.
 
 def device_tabulator(elements, order=0, f64=True, device=None):
     """The kernel engine (``fused_zoo.FusedZooTabulator``) for a zoo of
-    nodal elements sharing a reference cell, tabulating derivatives up to
-    ``order`` in float64 on ``device`` (CPU when None: the kernels' plain
-    PyTorch versions; a CUDA device: the CUDA kernels).
+    nodal elements sharing a reference cell, plain and macro, tabulating
+    derivatives up to ``order`` in float64 on ``device`` (CPU when None:
+    the kernels' plain PyTorch versions; a CUDA device: the CUDA kernels).
 
     ``tab.block_tables(points)`` gives per-group float64 blocks and
     ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
@@ -21,12 +21,6 @@ def device_tabulator(elements, order=0, f64=True, device=None):
             "f64=False: the f32 throughput engine (TPU kernel K6, "
             "fiat_tpu/ops/pallas_tabulate.py) is not ported yet; ROADMAP.md, "
             "'TPU kernels to port', queues it after the moments kernels")
-    macro = [type(e).__name__ for e in elements if e.is_macroelement()]
-    if macro:
-        raise NotImplementedError(
-            f"macro elements {macro}: the split-complex engine (TPU kernel K3, "
-            "FusedMacroOneShot) is not ported yet; ROADMAP.md queues it with "
-            "the rest of the full_zoo configuration, next")
     from .fused_zoo import FusedZooTabulator
     from .tabulate import BatchedTabulator
     # the plain engine stays on the host: it only supplies the arrays

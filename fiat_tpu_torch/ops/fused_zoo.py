@@ -1,17 +1,22 @@
-"""The fused zoo engine: K1 recurrence + K2 bucketed change of basis.
+"""The fused zoo engine: K1 recurrence + K2 bucketed change of basis + K3
+macro elements.
 
 Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedZooTabulator``
-over ``FusedMultiwordMatmul``, for plain elements).  One pass runs
+over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
 
   1. K1 (``recurrence.DubinerRecurrence``): Phi (nexp, npts) in f64;
   2. K2 (``BucketMatmul``, ``csrc/bucket_matmul.cu``): for every group of
      zoo rows sharing a contraction width K_g (a degree-d element only
      touches the degree-d morton prefix of the basis), the alpha-stacked
-     change-of-basis rows A_g times Phi[:K_g], all groups in one launch.
+     change-of-basis rows A_g times Phi[:K_g], all groups in one launch;
+  3. K3 (``macro_oneshot.MacroOneShot``, ``csrc/macro_oneshot.cu``), when
+     the zoo holds macro elements: the merged tables of every macro program
+     (subcell binning, parent recurrence, masked change of basis,
+     multiplicity average) in one launch.
 
 The TPU engine reaches f64 on the bf16 MXU through df32 pairs, Ozaki
-windows and TwoSum combines; Hopper has native FP64, so neither kernel
-carries any of that, and the pair surfaces (``pair_blocks``,
+windows and TwoSum combines; Hopper has native FP64, so no kernel carries
+any of that, and the pair surfaces (``pair_blocks``,
 ``unpack_pairs``, ``pair_tables``) collapse into the f64 blocks here.
 
 The plain version of K2 is a per-group ``torch.matmul`` in f64; the
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from .kernels import check_launch, load_kernels, stream_of
+from .macro_oneshot import MacroOneShot
 from .recurrence import DubinerRecurrence
 
 
@@ -106,54 +112,65 @@ class BucketMatmul:
 
 
 class FusedZooTabulator:
-    """The kernel engine of a zoo of plain (single-cell) nodal elements.
+    """The kernel engine of a zoo of nodal elements, plain and macro.
 
     ``blocks = fz.block_tables(points)`` gives {alpha: [one (rows_g, npts)
-    float64 block per width group]}, and ``fz.unpack(blocks)`` the
-    per-element dicts of ``el.tabulate(order, points)``;
-    ``fz(points)`` gives {alpha: (rows, npts)} in the row order of
-    ``BatchedTabulator``.  ``fz.recurrence`` (K1) and ``fz.matmul`` (K2)
-    carry the launch counts."""
+    float64 block per width group..., one block per macro element...]},
+    and ``fz.unpack(blocks)`` the per-element dicts of
+    ``el.tabulate(order, points)``; ``fz(points)`` gives {alpha: (rows,
+    npts)} in the row order of ``BatchedTabulator``.  ``fz.recurrence``
+    (K1), ``fz.matmul`` (K2) and ``fz.macro`` (K3; None without macro
+    elements) carry the launch counts."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), device=batched.device if device is None else device)
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-                    affine_map, device=None):
+                    affine_map, macro_programs=(), device=None):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``BatchedTabulator.state()``, or fiat_tpu's ``BatchedTabulator``
-        attributes of the same names): ``stacked`` (rows, nexp);
-        ``alpha_mats`` {alpha: (rows, nexp)} (empty at order 0);
+        attributes of the same names): ``stacked`` (plain rows, nexp);
+        ``alpha_mats`` {alpha: (plain rows, nexp)} (empty at order 0);
         ``slices`` [(lo, hi, value shape)] per element; ``plain_nexp``
-        {element: contraction width}; the target expansion set's
-        ``max_degree``, ``scale`` and ``affine_map`` (A, b)."""
+        {plain element: contraction width}; the target expansion set's
+        ``max_degree``, ``scale`` and ``affine_map`` (A, b); and the
+        ``macro_programs`` (``MacroSideProgram``s, the port's or fiat_tpu's)
+        of the macro elements, which are the elements missing from
+        ``plain_nexp``."""
         self = cls.__new__(cls)
         self._setup(stacked=stacked, alpha_mats=alpha_mats, slices=slices,
                     plain_nexp=plain_nexp, max_degree=max_degree, scale=scale,
-                    affine_map=affine_map, device=device)
+                    affine_map=affine_map, macro_programs=macro_programs, device=device)
         return self
 
     def _setup(self, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-               affine_map, device):
+               affine_map, macro_programs, device):
         self.device = torch.device("cpu" if device is None else device)
         A, _ = affine_map
         self.sd = np.asarray(A).shape[0]
         mats = dict(alpha_mats) or {(0,) * self.sd: stacked}
         self.alphas = list(mats)
-        self.rows = np.asarray(stacked).shape[0]
         self.slices = [(int(lo), int(hi), tuple(shape)) for lo, hi, shape in slices]
-        if set(plain_nexp) != set(range(len(self.slices))):
-            raise ValueError("every element needs a contraction width in plain_nexp")
+        self.rows = max(hi for _, hi, _ in self.slices)
+        #: macro element -> (program, row range in its program's tables),
+        #: in element order (the order of their blocks)
+        self._macro_loc = {int(idx): (g, int(lo), int(hi))
+                           for g, prog in enumerate(macro_programs)
+                           for idx, lo, hi in prog.row_slices}
+        self.special = sorted(self._macro_loc)
+        if set(plain_nexp) | set(self.special) != set(range(len(self.slices))):
+            raise ValueError("every element needs a contraction width in plain_nexp "
+                             "or a macro program")
 
         # group rows by exact contraction width; within a group, elements
         # keep their zoo order and the alphas stack row-wise
         self.widths = sorted(set(int(w) for w in plain_nexp.values()))
-        self._loc = {}                  # element -> (group, lo, hi)
+        self._loc = {}                  # plain element -> (group, lo, hi)
         group_mats, self.group_rows = [], []
         for g, K in enumerate(self.widths):
             members = [(i, lo, hi) for i, (lo, hi, _) in enumerate(self.slices)
-                       if int(plain_nexp[i]) == K]
+                       if i in plain_nexp and int(plain_nexp[i]) == K]
             cursor = 0
             for i, lo, hi in members:
                 self._loc[i] = (g, cursor, cursor + hi - lo)
@@ -171,6 +188,12 @@ class FusedZooTabulator:
         self.recurrence = DubinerRecurrence(self.sd, max_degree, scale, affine_map, self.device)
         self.matmul = BucketMatmul(group_mats, self.device)
         self.device = self.matmul.A.device      # "cuda" resolved to its index
+        self.macro = None
+        self._programs = list(macro_programs)
+        if self._programs:
+            self.macro = MacroOneShot(**_merge_macro_programs(
+                self._programs, scale, affine_map, max(map(sum, self.alphas))),
+                device=self.device)
 
     def _points(self, points):
         """Host (numpy) points go to the engine's device; a tensor must
@@ -183,12 +206,28 @@ class FusedZooTabulator:
         return pts
 
     def block_tables(self, points):
-        """{alpha: [per-group (rows_g, npts) float64 block]} (views into one
-        kernel output); ``unpack`` maps them to per-element dicts."""
-        phi = self.recurrence(self._points(points))
-        blocks = self.matmul.views(self.matmul(phi))
-        return {a: [blk[k * r:(k + 1) * r] for blk, r in zip(blocks, self.group_rows)]
-                for k, a in enumerate(self.alphas)}
+        """{alpha: [per-group (rows_g, npts) float64 block..., per macro
+        element (rows_e, npts) block...]} (views into the kernels'
+        outputs); ``unpack`` maps them to per-element dicts."""
+        pts = self._points(points)
+        blocks = self.matmul.views(self.matmul(self.recurrence(pts)))
+        out = {a: [blk[k * r:(k + 1) * r] for blk, r in zip(blocks, self.group_rows)]
+               for k, a in enumerate(self.alphas)}
+        if self.macro is not None:
+            merged = self.macro(pts)
+            for i in self.special:
+                g, lo, hi = self._macro_loc[i]
+                r0, r = self.macro.geom[g]["rows"][0], self._programs[g].rows
+                for k, a in enumerate(self.alphas):
+                    out[a].append(merged[r0 + k * r + lo:r0 + k * r + hi])
+        return out
+
+    def _table(self, i, tabs):
+        """Element i's rows in a ``block_tables`` list of blocks."""
+        if i in self._loc:
+            g, lo, hi = self._loc[i]
+            return tabs[g][lo:hi]
+        return tabs[len(self.widths) + self.special.index(i)]
 
     def unpack(self, block_tables):
         """Per-element {alpha: tensor} views of ``block_tables`` output;
@@ -197,22 +236,63 @@ class FusedZooTabulator:
         for i, (lo, hi, shape) in enumerate(self.slices):
             elem = {}
             for a, tabs in block_tables.items():
-                if isinstance(tabs, (list, tuple)):
-                    g, blo, bhi = self._loc[i]
-                    tab = tabs[g][blo:bhi]
-                else:
-                    tab = tabs[lo:hi]
+                tab = self._table(i, tabs) if isinstance(tabs, (list, tuple)) else tabs[lo:hi]
                 elem[a] = tab.reshape(shape + tuple(tab.shape[-1:]))
             out.append(elem)
         return out
 
     def __call__(self, points):
         """{alpha: (rows, npts)} float64 in the zoo's stacked row order."""
-        out = {}
-        for a, blocks in self.block_tables(points).items():
-            parts = [None] * len(self.slices)
-            for i in range(len(self.slices)):
-                g, blo, bhi = self._loc[i]
-                parts[i] = blocks[g][blo:bhi]
-            out[a] = torch.cat(parts, dim=0)
-        return out
+        order = sorted(range(len(self.slices)), key=lambda i: self.slices[i][0])
+        return {a: torch.cat([self._table(i, tabs) for i in order], dim=0)
+                for a, tabs in self.block_tables(points).items()}
+
+
+def _merge_macro_programs(programs, scale, affine_map, order):
+    """K3's arrays from the macro side programs (fiat_tpu's
+    ``_build_macro_merged`` / ``_build_macro_oneshot``): the merged tall
+    matrix with each program's scale ratio folded in, the (row, nexp_parent)
+    pieces per subcell, per-program geometry (rescaled barycentric maps,
+    ``unique``, row range), the parent map, ``rec_deg`` and the parent
+    scale.  Raises ``NotImplementedError`` naming K7, the masked fallback
+    engine that is not ported, where the one-shot engine does not apply."""
+    def refuse(why):
+        raise NotImplementedError(
+            f"macro programs {why}: the one-shot engine (K3) does not apply, and the "
+            "masked fallback engine (TPU kernel K7, FusedMaskedMultiword) is not "
+            "ported yet; ROADMAP.md queues it")
+
+    A_zoo, b_zoo = (np.asarray(v, np.float64) for v in affine_map)
+    for p in programs:
+        pes = p.parent_es
+        if pes.variant is not None:
+            refuse(f"with a parent expansion variant {pes.variant!r}")
+        if (len(pes.affine_mappings) != 1 or not np.allclose(pes.affine_mappings[0][0], A_zoo)
+                or not np.allclose(pes.affine_mappings[0][1], b_zoo)):
+            refuse("on another parent cell than the zoo's")
+    rec_deg = max(p.degree for p in programs)
+    rec_scale = float(programs[0].parent_es.get_scale(rec_deg))
+    # degree-dependent normalisation (the degree-0 "exactly 1" quirk)
+    # would break the shared parent basis
+    if rec_scale != float(scale):
+        refuse(f"whose degree-{rec_deg} parent scale {rec_scale} differs from the zoo's {scale}")
+
+    rows_t = sum(p.tall.shape[0] for p in programs)
+    A = np.zeros((rows_t, sum(p.K for p in programs)))
+    pieces, geom = [], []
+    r0 = c0 = 0
+    for p in programs:
+        ratio = float(p.parent_es.get_scale(p.degree)) / rec_scale
+        A[r0:r0 + p.tall.shape[0], c0:c0 + p.K] = ratio * p.tall
+        ref = p.es.ref_el
+        sd = ref.get_spatial_dimension()
+        pieces.extend((len(pieces), p.nexp_parent) for _ in p.cells)
+        geom.append({"maps": [ref.barycentric_map(entity=(sd, c), rescale=True) for c in p.cells],
+                     "unique": p.es.continuity is not None and order == 0,
+                     "rows": (r0, r0 + p.tall.shape[0])})
+        r0 += p.tall.shape[0]
+        c0 += p.K
+    parent = programs[0].es.ref_el.get_parent()
+    return dict(A=A, pieces=pieces, geom=geom, parent_map=parent.barycentric_map(rescale=True),
+                degree=rec_deg, scale=rec_scale,
+                affine_map=programs[0].parent_es.affine_mappings[0])

@@ -1,16 +1,18 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in ``fiat_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-loaded with ``ctypes``.  The build happens at first use, into
-``build/fiat_tpu_torch/`` beside the package, and is redone whenever a
-hash of the sources and flags changes.  Without ``nvcc`` (a CPU-only
-machine) ``load_kernels`` raises ``RuntimeError``; importing the package
-never builds anything.
+The sources in ``fiat_tpu_torch/csrc/*.cu`` (with the headers
+``csrc/*.cuh`` they share) compile with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and link into ONE shared
+library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, into ``build/fiat_tpu_torch/`` beside the package,
+and is redone whenever a hash of the sources, headers and flags changes.
+Without ``nvcc`` (a CPU-only machine) ``load_kernels`` raises
+``RuntimeError``; importing the package never builds anything.
 
 Every C entry point takes raw device pointers plus the caller's CUDA
 stream, launches, and returns ``cudaGetLastError()``; the wrappers
-(``recurrence.py``, ``fused_zoo.py``) raise when it is not 0.
+(``recurrence.py``, ``fused_zoo.py``, ``macro_oneshot.py``) raise when it
+is not 0.
 """
 
 import ctypes
@@ -25,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fiat_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,10 @@ SIGNATURES = {
     "fiat_dubiner2_values": [_P, _I, _P, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _P],
     # A, lda, tiles, ntiles, phi, ldphi, npts, C, stream
     "fiat_bucket_matmul": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # pts, npts, consts, affine[6], scale, degree, maps, npieces, progs, nprogs,
+    # pieces, A, rows, K, out, stream
+    "fiat_macro_oneshot": [_P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _I, _P, _I,
+                           _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -63,20 +69,14 @@ def load_kernels():
             "on a machine with the CUDA toolkit and an sm_90 card")
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libfiat_tpu_torch_{h.hexdigest()[:16]}.so"
     log = ""
     if not lib_path.exists():
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
+        log = _build(nvcc, sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -85,6 +85,33 @@ def load_kernels():
     lib.path = lib_path
     lib.build_log = log
     return lib
+
+
+def _build(nvcc, sources, lib_path):
+    """Compile every source with its own nvcc, all at once, then link them
+    into ``lib_path``; returns nvcc's output (ptxas register counts)."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [lib_path.with_name(f"{src.stem}.{tag}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    try:
+        for src, proc, out in zip(sources, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+        tmp = lib_path.with_suffix(f".{tag}")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
 
 
 def check_launch(name, err):

@@ -1,12 +1,14 @@
 """The batched tabulation engine for a zoo of elements.
 
-Counterpart of ``fiat_tpu/ops/tabulate.py`` (``change_of_basis`` and
-``BatchedTabulator`` with ``derivs="dmats"``, ``matmul="native"``).  Every
-element's coefficients are re-expressed in the plain orthonormal Dubiner
-basis of the zoo's maximum degree (lower-degree bases are prefixes of
-higher-degree ones in morton order), stacked, and multiplied by one
-change-of-basis matrix per derivative multi-index (the dmats form), so a
-pass is ONE recurrence plus one matrix product per multi-index.
+Counterpart of ``fiat_tpu/ops/tabulate.py`` (``change_of_basis``,
+``MacroSideProgram`` and ``BatchedTabulator`` with ``derivs="dmats"``,
+``matmul="native"``).  Every plain element's coefficients are re-expressed
+in the orthonormal Dubiner basis of the zoo's maximum degree (lower-degree
+bases are prefixes of higher-degree ones in morton order), stacked, and
+multiplied by one change-of-basis matrix per derivative multi-index (the
+dmats form), so the plain part of a pass is ONE recurrence plus one matrix
+product per multi-index.  Macro elements (bases on split complexes) become
+``MacroSideProgram``s: one tall matrix over the masked parent-cell basis.
 
 The engine here runs in plain PyTorch on the points' device; the kernel
 engine is ``fused_zoo.FusedZooTabulator``, which takes the same host-built
@@ -30,9 +32,85 @@ def change_of_basis(expansion_set, degree, target_expansion_set, target_degree):
     return np.linalg.solve(tgt.T, src.T).T                    # (m_src, m_tgt)
 
 
+class MacroSideProgram:
+    """Batched tabulation of macro (split-complex) elements sharing one
+    expansion set and degree, in the dmats form.
+
+    Per subcell c the macro basis rows supported on c restrict to the
+    cell's polynomial basis Phi_c, which extends polynomially to the whole
+    parent cell, so Phi_c = T_c @ Phi_parent exactly.  Every derivative
+    table therefore reads
+
+      D^alpha table = sum_c (flat[:, nodes_c] D_c^alphaT T_c) @ (mask_c * Phi)
+
+    with Phi the PARENT-cell orthonormal tabulation, computed once per pass,
+    and one tall matrix (``tall``, alpha-major, element-minor rows; one
+    ``nexp_parent``-wide column block per subcell) covering all member
+    elements and derivative multi-indices."""
+
+    def __init__(self, es, degree, members, alphas):
+        """:arg members: [(element_index, flat_coeffs (rows_e, num_phis))]
+        :arg alphas: derivative multi-indices (the (0,..,0) value entry
+        first)."""
+        self.es = es
+        self.degree = degree
+        self.alphas = list(alphas)
+        sd = es.ref_el.get_spatial_dimension()
+        self.cells = sorted(es.ref_el.get_topology()[sd])
+        cnm = es.get_cell_node_map(degree)
+
+        parent = es.ref_el.get_parent()
+        self.parent_es = expansions.ExpansionSet(parent)
+        self.nexp_parent = self.parent_es.get_num_members(degree)
+        # subcell basis -> parent basis by collocation at a GL lattice
+        lat = cl.make_lattice(parent.get_vertices(), max(degree, 1), variant="gl")
+        tgt = self.parent_es.tabulate(degree, lat)
+        T = {}
+        for c in self.cells:
+            src = es._tabulate_on_cell(degree, np.asarray(lat), order=0, cell=c)[(0,) * sd]
+            T[c] = np.linalg.solve(tgt.T, np.asarray(src).T).T
+
+        blocks = {a: [] for a in self.alphas}
+        self.row_slices = []
+        cursor = 0
+        for idx, flat in members:
+            for alpha in self.alphas:
+                row = []
+                for c in self.cells:
+                    M = flat[:, cnm[c]]
+                    D = es.get_dmats(degree, cell=c)
+                    for k, ak in enumerate(alpha):
+                        for _ in range(ak):
+                            M = M @ np.transpose(D[k])
+                    row.append(M @ T[c])
+                blocks[alpha].append(np.hstack(row))
+            self.row_slices.append((idx, cursor, cursor + flat.shape[0]))
+            cursor += flat.shape[0]
+        self.rows = cursor
+        # (nalpha * rows, ncells * nexp_parent): alpha-major, element-minor
+        self.tall = np.vstack([np.vstack(blocks[a]) for a in self.alphas])
+        self.K = self.tall.shape[1]
+
+    def b_stack(self, pts, order):
+        """Stacked masked parent tabulation (ncells * nexp_parent, npts) on
+        the points' device: unique binning for a C0 basis at order 0,
+        averaged multiplicities otherwise."""
+        unique = self.es.continuity is not None and order == 0
+        masks = expansions.partition_of_unity_masks(self.es.ref_el, pts, unique=unique)
+        phi = self.parent_es._tabulate_on_cell(self.degree, pts)[(0,) * pts.shape[-1]]
+        return torch.cat([m * phi for m in masks], dim=0)
+
+    def tables(self, pts, order):
+        """{alpha: (rows, npts)} via one tall matrix product."""
+        out = pts.new_tensor(self.tall) @ self.b_stack(pts, order)
+        r = self.rows
+        return {a: out[k * r:(k + 1) * r] for k, a in enumerate(self.alphas)}
+
+
 class BatchedTabulator:
     """Tabulate a whole zoo of nodal elements (same reference cell) in one
-    program: ``tables = bt(points)`` gives {alpha: (rows, npts)}, and
+    program: ``tables = bt(points)`` gives {alpha: (rows, npts)} (the plain
+    elements' rows first, then the macro elements'), and
     ``bt.unpack(tables)`` the per-element dicts of ``el.tabulate``."""
 
     def __init__(self, elements, order=0, device=None):
@@ -40,10 +118,6 @@ class BatchedTabulator:
         if len(cells) != 1:
             raise ValueError("BatchedTabulator needs a common reference cell")
         self.ref_el, = cells
-        if any(e.is_macroelement() for e in elements):
-            raise NotImplementedError(
-                "Macro elements (split-complex expansions) are not ported yet; "
-                "see ROADMAP.md, 'TPU kernels to port', K3")
         if not all(getattr(e, "is_nodal", lambda: False)() for e in elements):
             raise NotImplementedError("BatchedTabulator fuses nodal (Ciarlet) bases")
         self.elements = list(elements)
@@ -51,17 +125,26 @@ class BatchedTabulator:
         self.device = torch.device("cpu" if device is None else device)
         self.sd = self.ref_el.get_spatial_dimension()
 
-        self.max_degree = max(e.get_nodal_basis().get_embedded_degree() for e in self.elements)
+        # plain elements share the fused change of basis; macro elements
+        # (split-complex expansions) become side programs
+        plain = [e for e in self.elements if not e.is_macroelement()]
+        self.special = [(i, e) for i, e in enumerate(self.elements) if e.is_macroelement()]
+        if not plain:
+            raise ValueError("BatchedTabulator needs at least one non-macro element")
+
+        self.max_degree = max(e.get_nodal_basis().get_embedded_degree() for e in plain)
         self.target_es = expansions.ExpansionSet(self.ref_el)
         nexp = self.target_es.get_num_members(self.max_degree)
 
         blocks = []
-        self.slices = []
+        plain_slices = {}
         #: element index -> leading target-basis columns its rows can touch
         #: (a degree-d basis lives in the degree-d morton prefix)
         self.plain_nexp = {}
         cursor = 0
         for i, e in enumerate(self.elements):
+            if e.is_macroelement():
+                continue
             ps = e.get_nodal_basis()
             es = ps.get_expansion_set()
             deg = ps.get_embedded_degree()
@@ -78,9 +161,22 @@ class BatchedTabulator:
                 T = change_of_basis(es, deg, self.target_es, self.max_degree)
             flat = coeffs.reshape(-1, coeffs.shape[-1]) @ T
             blocks.append(flat)
-            self.slices.append((cursor, cursor + flat.shape[0], coeffs.shape[:-1]))
+            plain_slices[i] = (cursor, cursor + flat.shape[0], coeffs.shape[:-1])
             cursor += flat.shape[0]
-        self.stacked = np.vstack(blocks)          # (rows, nexp)
+        self.stacked = np.vstack(blocks)          # (plain_rows, nexp)
+
+        # macro side programs: (expansion set, degree, flat coeffs)
+        self.special_progs = []
+        special_slices = {}
+        for i, e in self.special:
+            ps = e.get_nodal_basis()
+            coeffs = np.asarray(ps.get_coeffs())
+            flat = coeffs.reshape(-1, coeffs.shape[-1])
+            self.special_progs.append((ps.get_expansion_set(), ps.get_embedded_degree(), flat))
+            special_slices[i] = (cursor, cursor + flat.shape[0], coeffs.shape[:-1])
+            cursor += flat.shape[0]
+        self.slices = [plain_slices.get(i) or special_slices[i]
+                       for i in range(len(self.elements))]
 
         # one change-of-basis matrix per derivative multi-index:
         # D^alpha phi = (prod_k dmats[k]^T^alpha_k) @ phi
@@ -96,22 +192,39 @@ class BatchedTabulator:
         mats = self.alpha_mats or {(0,) * self.sd: self.stacked}
         self._mats = {a: torch.as_tensor(M, device=self.device) for a, M in mats.items()}
 
+        # one tall program per group of macro elements sharing an expansion set
+        self.macro_programs = []
+        groups = {}
+        for (i, e), (es, deg, flat) in zip(self.special, self.special_progs):
+            groups.setdefault((id(es), deg), (es, deg, []))[2].append((i, flat))
+        for es, deg, members in groups.values():
+            self.macro_programs.append(MacroSideProgram(es, deg, members, list(mats)))
+
     def state(self):
         """The host-built arrays that define the engine (see
         ``fused_zoo.FusedZooTabulator.from_arrays``)."""
-        A, b = self.target_es.affine_mappings[0]
         return dict(stacked=self.stacked, alpha_mats=self.alpha_mats,
                     slices=self.slices, plain_nexp=self.plain_nexp,
                     max_degree=self.max_degree,
                     scale=float(self.target_es.get_scale(self.max_degree)),
-                    affine_map=(A, b))
+                    affine_map=self.target_es.affine_mappings[0],
+                    macro_programs=self.macro_programs)
 
     def __call__(self, points):
         """{alpha: (total_rows, npts)} fused tables, in float64 on the
         engine's device."""
         pts = torch.as_tensor(points, dtype=torch.float64, device=self.device)
         phi = self.target_es._tabulate_on_cell(self.max_degree, pts)[(0,) * self.sd]
-        return {a: M @ phi for a, M in self._mats.items()}
+        parts = {a: [M @ phi] for a, M in self._mats.items()}
+        per_elem = {}
+        for prog in self.macro_programs:
+            tabs = prog.tables(pts, self.order)
+            for idx, lo, hi in prog.row_slices:
+                per_elem[idx] = {a: t[lo:hi] for a, t in tabs.items()}
+        for i, _ in self.special:
+            for a in parts:
+                parts[a].append(per_elem[i][a])
+        return {a: torch.cat(blocks, dim=0) for a, blocks in parts.items()}
 
     def unpack(self, tables):
         """Split fused tables back into the per-element layout."""

@@ -164,10 +164,15 @@ def test_grouping_refuses_to_drop_real_coefficients(zoos):
 
 
 def test_device_tabulator_raises_for_unported_engines(zoos):
+    """The f32 engine (K6) is not ported and raises; macro elements, which
+    used to raise, now build on the one-shot engine (K3)."""
     _, tzoo = zoos
     with pytest.raises(NotImplementedError, match="K6"):
         device_tabulator(tzoo, order=1, f64=False)
-    hct = jfe.HsiehCloughTocher(jcl.ufc_simplex(2), 3)
+    hct = tfe.HsiehCloughTocher(tcl.ufc_simplex(2), 3)
     assert hct.is_macroelement()
-    with pytest.raises(NotImplementedError, match="K3"):
-        device_tabulator(tzoo + [hct], order=1)
+    with pytest.raises(NotImplementedError, match="K6"):
+        device_tabulator(tzoo + [hct], order=1, f64=False)
+    tab = device_tabulator(tzoo + [hct], order=1)
+    assert tab.macro is not None and tab.special == [len(tzoo)]
+    assert tab.macro.geom[0]["unique"] is False       # order 1: averaged binning

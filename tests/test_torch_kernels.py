@@ -99,3 +99,60 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     for g, w in zip(got, want):
         for a in w:
             assert (g[a].cpu() - w[a]).abs().max().item() <= 1e-12
+
+
+def _macro_zoo(T):
+    return [tfe.Lagrange(T, 3), tfe.CubicHermite(T), tfe.HsiehCloughTocher(T, 3),
+            tfe.QuadraticPowellSabin6(T)]
+
+
+def _special_points():
+    """Points exactly on the interior edges of the Alfeld and Powell-Sabin
+    splits, on the Alfeld barycentre (= the Powell-Sabin centre), on the
+    edge midpoints and on the vertices."""
+    c = np.array([1.0, 1.0]) / 3.0
+    ends = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [0.5, 0.5], [0.0, 0.5], [0.5, 0.0]])
+    t = np.array([0.0, 0.125, 0.25, 0.5, 0.75])[:, None]
+    return np.vstack([c[None]] + [v + t * (c - v) for v in ends])
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_macro_kernel_matches_plain(cuda, order):
+    """K3 against its plain version: order 0 bins the C0 HCT basis uniquely,
+    order 1 averages over the subcells sharing a point."""
+    fz = device_tabulator(_macro_zoo(tcl.ufc_simplex(2)), order=order, device=cuda)
+    assert [g["unique"] for g in fz.macro.geom] == [order == 0, False]
+    P = torch.as_tensor(_points(3001, seed=order), device=cuda)
+    got = fz.macro(P)
+    torch.cuda.synchronize()
+    assert fz.macro.launches == 1
+    want = fz.macro.plain(P)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_macro_kernel_on_facet_barycentre_and_centre_points(cuda, order):
+    fz = device_tabulator(_macro_zoo(tcl.ufc_simplex(2)), order=order, device=cuda)
+    P = torch.as_tensor(_special_points(), device=cuda)
+    got = fz.macro(P)
+    want = fz.macro.plain(P)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def test_macro_engine_on_card_matches_host_and_refuses_cpu_points(cuda):
+    T = tcl.ufc_simplex(2)
+    zoo = _macro_zoo(T)
+    pts = np.vstack([_points(700), _special_points()])
+    gpu = device_tabulator(zoo, order=1, device=cuda)
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        gpu.block_tables(torch.as_tensor(pts))
+    # K3's wrapper alone runs its plain version on a CPU tensor, launching nothing
+    assert gpu.macro(torch.as_tensor(pts)).device.type == "cpu"
+    assert gpu.macro.launches == 0
+    got = gpu.unpack(gpu.block_tables(torch.as_tensor(pts, device=cuda)))
+    assert (gpu.recurrence.launches, gpu.matmul.launches, gpu.macro.launches) == (1, 1, 1)
+    for el, g in zip(zoo, got):
+        want = el.tabulate(1, pts)
+        for a in want:
+            assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10

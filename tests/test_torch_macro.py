@@ -1,0 +1,270 @@
+"""Split complexes, expansion sets on them, subcell binning and the macro
+engine (K3's plain version) of the port against fiat_tpu.
+
+Inputs are numpy arrays made from seeds and handed to both packages; the
+fiat_tpu Pallas kernels run in interpret mode, as its own tests run them
+(tests/test_device_ops.py).  In interpret mode fiat_tpu takes its merged
+macro kernel when the zoo's max degree equals the macro degree and its
+per-program kernels otherwise; both are held against the port here."""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from fiat_tpu import elements as jfe
+from fiat_tpu.core import cells as jcl
+from fiat_tpu.core import expansions as jexp
+from fiat_tpu.core import macro as jmacro
+from fiat_tpu.ops.pallas_multiword import FusedZooTabulator as JFusedZooTabulator
+from fiat_tpu.ops.tabulate import BatchedTabulator as JBatchedTabulator
+from fiat_tpu_torch import device_tabulator
+from fiat_tpu_torch import elements as tfe
+from fiat_tpu_torch.core import cells as tcl
+from fiat_tpu_torch.core import expansions as texp
+from fiat_tpu_torch.core import macro as tmacro
+from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+SPLITS = ["AlfeldSplit", "PowellSabinSplit", "WorseyFarinSplit", "PowellSabin12Split"]
+TOL = 1e-14         # host geometry and expansions: the same numpy algorithm
+
+
+def _splits(name):
+    return getattr(tmacro, name)(tcl.ufc_simplex(2)), getattr(jmacro, name)(jcl.ufc_simplex(2))
+
+
+def _points(n, seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 2))
+    return pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((n, 1))
+
+
+def _special_points():
+    """Points exactly on the interior edges of the Alfeld and Powell-Sabin
+    splits, on the Alfeld barycentre (= the Powell-Sabin centre), on the
+    edge midpoints and on the vertices."""
+    c = np.array([1.0, 1.0]) / 3.0
+    verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+    mids = np.array([[0.5, 0.5], [0.0, 0.5], [0.5, 0.0]])
+    t = np.array([0.125, 0.25, 0.5, 0.75])[:, None]
+    spokes = [v + t * (c - v) for v in np.vstack([verts, mids])]
+    return np.vstack([c[None], verts, mids, *spokes])
+
+
+def _max_diff(ref_tabs, got_tabs):
+    return max(float(np.abs(np.asarray(r[a]) - np.asarray(g[a])).max())
+               for r, g in zip(ref_tabs, got_tabs) for a in r)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_split_topology_matches_fiat_tpu(split):
+    got, want = _splits(split)
+    assert got.vertices == want.vertices
+    assert got.topology == want.topology
+    assert got.get_child_to_parent() == want.get_child_to_parent()
+    assert got.get_parent_to_children() == want.get_parent_to_children()
+    for dim in got.topology:
+        assert list(got.get_interior_facets(dim)) == list(want.get_interior_facets(dim))
+    assert got.get_cell_connectivity() == want.get_cell_connectivity()
+    assert got.is_macrocell() and got.get_parent() == tcl.ufc_simplex(2)
+
+
+@pytest.mark.parametrize("split", ["AlfeldSplit", "PowellSabinSplit"])
+def test_split_geometry_matches_fiat_tpu(split):
+    got, want = _splits(split)
+    pts = _points(40, 1)
+    for f in got.topology[1]:
+        for c in got.connectivity[(1, 2)][f]:
+            assert np.abs(got.compute_normal(f, cell=c)
+                          - want.compute_normal(f, cell=c)).max() <= TOL
+        assert np.abs(got.compute_scaled_normal(f) - want.compute_scaled_normal(f)).max() <= TOL
+        assert np.abs(got.compute_edge_tangent(f) - want.compute_edge_tangent(f)).max() <= TOL
+        assert np.abs(got.get_entity_transform(1, f)(pts[:5, :1])
+                      - want.get_entity_transform(1, f)(pts[:5, :1])).max() <= TOL
+    for c in got.topology[2]:
+        for rescale in (False, True):
+            for g, w in zip(got.barycentric_map((2, c), rescale),
+                            want.barycentric_map((2, c), rescale)):
+                assert np.abs(g - w).max() <= TOL
+            assert np.abs(got.distance_to_point_l1(pts, (2, c), rescale)
+                          - want.distance_to_point_l1(pts, (2, c), rescale)).max() <= TOL
+    assert abs(got.volume() - want.volume()) <= TOL
+
+
+def test_simplex_geometry_matches_fiat_tpu():
+    for dim in (2, 3):
+        got, want = tcl.ufc_simplex(dim), jcl.ufc_simplex(dim)
+        for f in got.topology[dim - 1]:
+            assert np.abs(got.compute_normal(f) - want.compute_normal(f)).max() <= TOL
+            assert np.abs(got.compute_scaled_normal(f) - want.compute_scaled_normal(f)).max() <= TOL
+        for e in got.topology[1]:
+            assert np.abs(got.compute_edge_tangent(e) - want.compute_edge_tangent(e)).max() <= TOL
+            for g, w in zip(got.barycentric_map((1, e)), want.barycentric_map((1, e))):
+                assert np.abs(g - w).max() <= TOL
+        assert got.connectivity == want.connectivity
+    assert np.abs(tcl.ufc_simplex(3).compute_face_tangents(1)
+                  - jcl.ufc_simplex(3).compute_face_tangents(1)).max() <= TOL
+
+
+@pytest.mark.parametrize("split", ["AlfeldSplit", "PowellSabinSplit"])
+@pytest.mark.parametrize("variant", [None, "bubble"])
+def test_expansion_set_on_a_complex_matches(split, variant):
+    got_cell, want_cell = _splits(split)
+    got, want = texp.ExpansionSet(got_cell, variant=variant), jexp.ExpansionSet(want_cell,
+                                                                               variant=variant)
+    n = 3
+    assert got.get_num_members(n) == want.get_num_members(n)
+    assert np.array_equal(got.get_cell_node_map(n), want.get_cell_node_map(n))
+    pts = np.vstack([_points(30, 2), _special_points()])
+    for order in (0, 1):
+        g, w = got._tabulate(n, pts, order), want._tabulate(n, pts, order)
+        assert set(g) == set(w)
+        assert max(np.abs(g[a] - np.asarray(w[a])).max() for a in w) <= 1e-13
+    for c in got_cell.topology[2]:
+        assert np.abs(got.get_dmats(n, cell=c) - want.get_dmats(n, cell=c)).max() <= 1e-12
+    qp = np.array([[0.2], [0.5], [0.9]])
+    for f in got_cell.get_interior_facets(1):
+        assert np.abs(got.tabulate_normal_jumps(n, qp, f, order=2)
+                      - want.tabulate_normal_jumps(n, qp, f, order=2)).max() <= 1e-12
+    vj_g, vj_w = got.tabulate_jumps(n, pts, order=2), want.tabulate_jumps(n, pts, order=2)
+    assert all(np.abs(vj_g[r] - vj_w[r]).max(initial=0.0) <= 1e-12 for r in vj_w)
+
+
+@pytest.mark.parametrize("split,kw", [("AlfeldSplit", dict(order=1, vorder=2, variant="bubble")),
+                                      ("PowellSabinSplit", dict(order=1)),
+                                      ("PowellSabin12Split", dict(order=1))])
+def test_ck_polynomial_set_matches(split, kw):
+    degree = 3 if split == "AlfeldSplit" else 2
+    got_cell, want_cell = _splits(split)
+    got = tmacro.CkPolynomialSet(got_cell, degree, **kw)
+    want = jmacro.CkPolynomialSet(want_cell, degree, **kw)
+    assert got.get_coeffs().shape == want.get_coeffs().shape
+    assert np.abs(got.get_coeffs() - np.asarray(want.get_coeffs())).max() <= 1e-13
+
+
+@pytest.mark.parametrize("split", ["AlfeldSplit", "PowellSabinSplit"])
+@pytest.mark.parametrize("unique", [True, False])
+def test_binning_masks_equal_fiat_tpu_exactly(split, unique):
+    """On random points and on points exactly on interior edges, on the
+    Alfeld barycentre and on the Powell-Sabin centre: the same {0,1} masks
+    and the same multiplicity."""
+    got_cell, want_cell = _splits(split)
+    pts = np.vstack([_points(300, 3), _special_points()])
+    g_masks, g_total = texp.partition_of_unity_masks(got_cell, torch.as_tensor(pts),
+                                                     unique=unique, raw=True)
+    w_masks, w_total = jexp.partition_of_unity_masks(want_cell, jnp.asarray(pts),
+                                                     unique=unique, raw=True)
+    for g, w in zip(g_masks, w_masks):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    if unique:
+        assert g_total is None and w_total is None
+        assert (sum(g_masks).numpy() == 1.0).all()
+    else:
+        assert np.array_equal(g_total.numpy(), np.asarray(w_total))
+        # the special points sit on 2 (edges) or 3/6 (centre) subcells
+        assert g_total.numpy()[-len(_special_points()):].max() >= 3
+    g_cpm = texp.compute_cell_point_map(got_cell, pts, unique=unique)
+    w_cpm = jexp.compute_cell_point_map(want_cell, pts, unique=unique)
+    assert g_cpm.keys() == w_cpm.keys()
+    assert all(np.array_equal(g_cpm[c], w_cpm[c]) for c in g_cpm)
+
+
+def _small_zoo(fe, T):
+    return [fe.Lagrange(T, 3), fe.RaviartThomas(T, 2), fe.Nedelec(T, 2),
+            fe.BrezziDouglasMarini(T, 2), fe.CubicHermite(T), fe.Morley(T), fe.Argyris(T, 5),
+            fe.Bell(T), fe.HsiehCloughTocher(T, 3), fe.QuadraticPowellSabin6(T)]
+
+
+def _macro_zoo(fe, T):
+    return [fe.Lagrange(T, 3), fe.HsiehCloughTocher(T, 3), fe.QuadraticPowellSabin6(T)]
+
+
+@pytest.mark.parametrize("zoo", [_small_zoo, _macro_zoo])
+def test_engine_matches_fiat_tpu_fused_interpret_and_host(zoo):
+    """The small zoo (max degree 5 > macro degree 3) runs fiat_tpu's
+    per-program macro kernels, Lagrange 3 + HCT + PS6 its merged one."""
+    pts = np.vstack([_points(200, 42), _special_points()])
+    jzoo, tzoo = zoo(jfe, jcl.ufc_simplex(2)), zoo(tfe, tcl.ufc_simplex(2))
+    bt = JBatchedTabulator(jzoo, order=1)
+    jfz = JFusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
+    ref = bt.unpack(jfz(jnp.asarray(pts)))
+
+    tab = device_tabulator(tzoo, order=1)
+    blocks = tab.block_tables(pts)
+    assert len(blocks[(0, 0)]) == len(tab.widths) + 2     # one block per macro element
+    got = tab.unpack(blocks)
+    assert tab.recurrence.launches == tab.matmul.launches == tab.macro.launches == 0
+    assert _max_diff(ref, got) <= 1e-11
+    assert _max_diff([el.tabulate(1, pts) for el in tzoo], got) <= 1e-10
+
+
+def test_order_zero_unique_binning_matches_host():
+    """At order 0 the C0 (bubble) HCT basis bins uniquely, PS6 averages."""
+    pts = np.vstack([_points(150, 7), _special_points()])
+    tzoo = _macro_zoo(tfe, tcl.ufc_simplex(2))
+    tab = device_tabulator(tzoo, order=0)
+    assert [g["unique"] for g in tab.macro.geom] == [True, False]
+    got = tab.unpack(tab.block_tables(pts))
+    assert _max_diff([el.tabulate(0, pts) for el in tzoo], got) <= 1e-12
+
+
+def test_k3_plain_matches_the_batched_programs():
+    """MacroOneShot's plain version (masks, recurrence, masked B, matmul,
+    recip) against MacroSideProgram.tables, program by program."""
+    pts = torch.as_tensor(np.vstack([_points(120, 5), _special_points()]))
+    bt = BatchedTabulator(_small_zoo(tfe, tcl.ufc_simplex(2)), order=1)
+    fz = FusedZooTabulator(bt)
+    out = fz.macro(pts)
+    assert tuple(out.shape) == (fz.macro.rows, len(pts))
+    # HCT 12 + PS6 9 basis rows x 3 alphas; K = 3 subcells x 10 + 6 x 6
+    assert (fz.macro.rows, fz.macro.K) == (63, 66)
+    for prog, g in zip(bt.macro_programs, fz.macro.geom):
+        want = torch.cat(list(prog.tables(pts, 1).values()), dim=0)
+        r0, r1 = g["rows"]
+        assert (out[r0:r1] - want).abs().max().item() <= 1e-13
+
+
+def test_from_arrays_on_fiat_tpu_macro_programs():
+    pts = _points(150, 9)
+    jzoo = _small_zoo(jfe, jcl.ufc_simplex(2))
+    bt = JBatchedTabulator(jzoo, order=1, matmul="native")
+    fz = FusedZooTabulator.from_arrays(
+        stacked=bt.stacked, alpha_mats=bt.alpha_mats, slices=bt.slices,
+        plain_nexp=bt.plain_nexp, max_degree=bt.max_degree,
+        scale=float(bt.target_es.get_scale(bt.max_degree)),
+        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs)
+    ref = bt.unpack(bt(jnp.asarray(pts)))
+    assert _max_diff(ref, fz.unpack(fz.block_tables(pts))) <= 1e-12
+    cat = fz(pts)
+    want = bt(jnp.asarray(pts))
+    assert max(np.abs(cat[a].numpy() - np.asarray(want[a])).max() for a in want) <= 1e-12
+
+
+def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
+    """Where fiat_tpu's preconditions for its one-shot engine fail, the
+    port raises naming K7 (the masked fallback, not ported) instead of
+    running something else."""
+    st = BatchedTabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1).state()
+    for attr, value in (("variant", "dual"),                       # a parent variant
+                        ("affine_mappings", [(2 * np.eye(2), np.zeros(2))]),  # another cell
+                        ("get_scale", lambda n, cell=0: 0.5)):     # another scale
+        odd = copy.copy(st["macro_programs"][0])
+        odd.parent_es = copy.copy(odd.parent_es)
+        setattr(odd.parent_es, attr, value)
+        with pytest.raises(NotImplementedError, match="K7"):
+            programs = [odd, *st["macro_programs"][1:]]
+            FusedZooTabulator.from_arrays(**{**st, "macro_programs": programs})
+
+
+def test_k3_wrapper_checks_its_inputs():
+    fz = device_tabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1)
+    with pytest.raises(TypeError):
+        fz.macro(torch.zeros((4, 2), dtype=torch.float32))
+    with pytest.raises(ValueError):
+        fz.macro(torch.zeros((4, 3), dtype=torch.float64))
+    with pytest.raises(ValueError, match="engine on cpu"):
+        fz.macro(torch.zeros((4, 2), dtype=torch.float64, device="meta"))
+    assert fz.macro.launches == 0

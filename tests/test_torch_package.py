@@ -16,7 +16,11 @@ PKG = REPO / "fiat_tpu_torch"
 
 def test_import_leaves_jax_and_fiat_tpu_out():
     code = ("import sys, fiat_tpu_torch, fiat_tpu_torch.ops.fused_zoo, "
-            "fiat_tpu_torch.ops.tabulate, fiat_tpu_torch.ops.recurrence\n"
+            "fiat_tpu_torch.ops.tabulate, fiat_tpu_torch.ops.recurrence, "
+            "fiat_tpu_torch.ops.macro_oneshot, fiat_tpu_torch.core.macro, "
+            "fiat_tpu_torch.core.quadrature_schemes\n"
+            "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
+            "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'fiat_tpu' or m.startswith('fiat_tpu.'))\n"
             "print(bad)\n"
@@ -52,8 +56,9 @@ def test_pyproject_ships_the_port():
     packages = cfg["tool"]["setuptools"]["packages"]
     for sub in ("", ".core", ".elements", ".ops", ".utils"):
         assert "fiat_tpu_torch" + sub in packages
-    assert "csrc/*.cu" in cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
-    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == ["bucket_matmul.cu",
-                                                                   "recurrence.cu"]
+    data = cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
+    assert "csrc/*.cu" in data and "csrc/*.cuh" in data
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
+        "bucket_matmul.cu", "dubiner2.cuh", "macro_oneshot.cu", "recurrence.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)
