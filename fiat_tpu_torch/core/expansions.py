@@ -135,20 +135,22 @@ def _base_value(x):
     return next(iter(x.comps.values())) if isinstance(x, Jet) else x
 
 
-def dubiner_tabulate(dim, n, coords, scale, variant=None):
+def dubiner_tabulate(dim, n, coords, scale, variant=None, raw=False):
     """Stacked tabulation (num_members, npts) of the Dubiner basis at points
     on the default (-1,1) simplex.
 
     :arg coords: list of ``dim`` coordinate objects -- (npts,) numpy arrays
         or torch tensors (plain values), or Jets over them (values +
         derivatives).  Tensors keep their device and dtype.
+    :arg raw: the recurrence alone: ``scale`` as given and, for "bubble",
+        no C0 recovery (the f32 engine folds both into its change of basis).
     :returns: a (num_members, npts) array or tensor, or a Jet of them.
     """
     if variant not in (None, "bubble", "dual"):
         raise ValueError(f"Invalid expansion variant {variant!r}")
     if dim > 3:
         raise ValueError("Only dim <= 3 simplices supported")
-    eff_scale = -scale if variant == "bubble" else scale
+    eff_scale = -scale if variant == "bubble" and not raw else scale
 
     x0 = coords[0]
     base = _base_value(x0)
@@ -179,7 +181,7 @@ def dubiner_tabulate(dim, n, coords, scale, variant=None):
                               - (c * fc) * levels[-2])
             R = take_rows(concat_rows(levels), index(perm)) * const(norms)
 
-    if variant == "bubble":
+    if variant == "bubble" and not raw:
         R = matapply(_c0_matrix(dim, n), R)
     return R
 
@@ -616,15 +618,33 @@ def subcell_masks(pts, parent_map, cell_maps, unique=True, tol=None, raw=False):
     at most the parent's plus ``tol`` (1e-12 in float64, 1e-5 otherwise).
     ``unique`` keeps the first hit in subcell order; otherwise every mask is
     divided by the cover count (with ``raw``, the undivided masks and the
-    cover count -- None when ``unique`` -- come back instead)."""
+    cover count -- None when ``unique`` -- come back instead).
+
+    Below float64 the distances are elementwise operations in a fixed
+    order, which the kernels' float binning (``csrc/binning.cuh``) repeats
+    bit for bit: there a rounding step is ~1e-7 against a tolerance of
+    1e-5, and a point binned differently would move a table entry by
+    O(tol)."""
     if not _is_tensor(pts):
         pts = torch.as_tensor(np.asarray(pts, dtype=np.float64))
+    f64 = pts.dtype == torch.float64
     if tol is None:
-        tol = 1e-12 if pts.dtype == torch.float64 else 1e-5
+        tol = 1e-12 if f64 else 1e-5
 
     def distance(A, b):
-        bary = pts @ pts.new_tensor(np.asarray(A).T) + pts.new_tensor(np.asarray(b))
-        return 0.5 * abs((abs(bary) - bary).sum(-1))
+        A, b = pts.new_tensor(np.asarray(A)), pts.new_tensor(np.asarray(b))
+        if f64:
+            bary = pts @ A.T + b
+            return 0.5 * abs((abs(bary) - bary).sum(-1))
+        bary = pts[:, :1] * A[:, 0]
+        for i in range(1, A.shape[1]):
+            bary = bary + pts[:, i:i + 1] * A[:, i]
+        bary = bary + b
+        t = abs(bary) - bary
+        s = t[:, 0]
+        for j in range(1, t.shape[1]):
+            s = s + t[:, j]
+        return 0.5 * abs(s)
 
     best = distance(*parent_map) + tol
     masks = []

@@ -1,17 +1,24 @@
-// The per-point f64 Dubiner value recurrence on the triangle, shared by
-// K1 (recurrence.cu, which writes Phi to device memory) and K3
-// (macro_oneshot.cu, which keeps Phi in registers).
+// The per-point Dubiner value recurrence on the triangle, shared by K1
+// (recurrence.cu, which writes Phi to device memory), K3
+// (macro_oneshot.cu, which keeps Phi in registers), K45 (moments.cu, which
+// reduces Phi against the weights) and K6 (zoo_f32.cu, which writes a Phi
+// tile to shared memory).
 //
-// dubiner2_point<N>(x0, x1, consts, scale, emit) runs the two-stage Kirby
-// recurrence at one point (x0, x1) of the default (-1, 1) triangle and
-// calls emit(e, r, i, value) once for every stage-1 entry e: input row
-// r = 0..N, level i = 0..N-r, row-major.  The entry's member is the morton
-// row (r + i)(r + i + 1)/2 + i (ops/recurrence.py:pack_stages builds the
-// same table as `slots`).  With N a template parameter and the loops
-// unrolled, r and i are compile-time constants at every call of emit, so
-// an emitter that indexes a register array by them keeps it in registers.
+// dubiner2_point<N, T>(x0, x1, consts, scale, emit) runs the two-stage
+// Kirby recurrence in T (double or float) at one point (x0, x1) of the
+// default (-1, 1) triangle and calls emit(e, r, i, value) once for every
+// stage-1 entry e: input row r = 0..N, level i = 0..N-r, row-major.  The
+// entry's member is the morton row (r + i)(r + i + 1)/2 + i
+// (ops/recurrence.py:pack_stages builds the same table as `slots`).  With N
+// a template parameter and the loops unrolled, r and i are compile-time
+// constants at every call of emit, so an emitter that indexes a register
+// array by them keeps it in registers.
 //
-// Constant layout (ops/recurrence.py:pack_stages):
+// The expansion variants (None, "bubble", "dual") share this structure and
+// differ only in their constants; the "bubble" C0 recovery is not part of
+// the recurrence (the f32 engine folds it into its change of basis).
+//
+// Constant layout (ops/recurrence.py:pack_stages), in T:
 //   consts[4*i + {0,1,2,3}], i = 0..N          stage 0: a, b, c, norm
 //   consts[4*(N+1) + 4*e + {0,1,2,3}]          stage 1 entry e: a, b, c, norm
 // N == 0 calls emit(0, 0, 0, scale) and reads no constants.
@@ -27,25 +34,28 @@ struct Nexp {
   static constexpr int value = (N + 1) * (N + 2) / 2;
 };
 
-template <int N, class Emit>
-__device__ __forceinline__ void dubiner2_point(double x0, double x1,
-                                               const double* __restrict__ consts,
-                                               double scale, Emit&& emit) {
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
+
+template <int N, class T, class Emit>
+__device__ __forceinline__ void dubiner2_point(T x0, T x1, const T* __restrict__ consts,
+                                               T scale, Emit&& emit) {
   if constexpr (N == 0) {
     emit(0, 0, 0, scale);
   } else {
+    const T half = T(0.5), one = T(1.0);
     // stage 0: the 1D recurrence in the first collapsed coordinate
-    double r1[N + 1];
+    T r1[N + 1];
     {
-      const double fb = 0.5 * (x1 + -1.0);
-      const double fa = x0 + fb + 1.0;
-      const double fc = fb * fb;
-      double prev2 = 0.0, prev = scale;
+      const T fb = half * (x1 + -one);
+      const T fa = x0 + fb + one;
+      const T fc = fb * fb;
+      T prev2 = T(0), prev = scale;
       r1[0] = prev * __ldg(consts + 3);
 #pragma unroll
       for (int i = 1; i <= N; ++i) {
-        const double* c = consts + 4 * i;
-        const double v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
+        const T* c = consts + 4 * i;
+        const T v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
         r1[i] = v * __ldg(c + 3);
         prev2 = prev;
         prev = v;
@@ -54,20 +64,20 @@ __device__ __forceinline__ void dubiner2_point(double x0, double x1,
 
     // stage 1: per input row r, the recurrence in the second coordinate;
     // every level goes to the emitter, times its norm
-    const double fb = 0.5 * (-1.0 + -1.0);
-    const double fa = x1 + fb + 1.0;
-    const double fc = fb * fb;
-    const double* c1 = consts + 4 * (N + 1);
+    const T fb = half * (-one + -one);
+    const T fa = x1 + fb + one;
+    const T fc = fb * fb;
+    const T* c1 = consts + 4 * (N + 1);
     int e = 0;
 #pragma unroll
     for (int r = 0; r <= N; ++r) {
-      double prev2 = 0.0, prev = r1[r];
+      T prev2 = T(0), prev = r1[r];
       emit(e, r, 0, prev * __ldg(c1 + 4 * e + 3));
       ++e;
 #pragma unroll
       for (int i = 1; i <= N - r; ++i, ++e) {
-        const double* c = c1 + 4 * e;
-        const double v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
+        const T* c = c1 + 4 * e;
+        const T v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
         emit(e, r, i, v * __ldg(c + 3));
         prev2 = prev;
         prev = v;

@@ -6,22 +6,25 @@ the kernel engine on the requested device.
 
 
 def device_tabulator(elements, order=0, f64=True, device=None):
-    """The kernel engine (``fused_zoo.FusedZooTabulator``) for a zoo of
-    nodal elements sharing a reference cell, plain and macro, tabulating
-    derivatives up to ``order`` in float64 on ``device`` (CPU when None:
-    the kernels' plain PyTorch versions; a CUDA device: the CUDA kernels).
+    """The kernel engine for a zoo of nodal elements sharing a reference
+    cell, plain and macro, tabulating derivatives up to ``order`` on
+    ``device`` (CPU when None: the kernels' plain PyTorch versions; a CUDA
+    device: the CUDA kernels).
 
-    ``tab.block_tables(points)`` gives per-group float64 blocks and
-    ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
+    * ``f64=True``: ``fused_zoo.FusedZooTabulator`` (K1, K2, K3) in
+      float64; ``tab.block_tables(points)`` gives per-group blocks and
+      ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
+    * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``
+      (K6, and K3 in float32 for macro elements); ``tab.tables(points)``
+      gives the whole zoo's float32 tables.
 
     Never returns a slower engine in place of the one asked for: what is
     not ported yet raises ``NotImplementedError``."""
-    if not f64:
-        raise NotImplementedError(
-            "f64=False: the f32 throughput engine (TPU kernel K6, "
-            "fiat_tpu/ops/pallas_tabulate.py) is not ported yet; ROADMAP.md, "
-            "'TPU kernels to port', queues it after the moments kernels")
-    from .fused_zoo import FusedZooTabulator
     from .tabulate import BatchedTabulator
     # the plain engine stays on the host: it only supplies the arrays
-    return FusedZooTabulator(BatchedTabulator(elements, order=order), device=device)
+    batched = BatchedTabulator(elements, order=order)
+    if not f64:
+        from .f32_zoo import F32ZooTabulator
+        return F32ZooTabulator(batched, device=device)
+    from .fused_zoo import FusedZooTabulator
+    return FusedZooTabulator(batched, device=device)

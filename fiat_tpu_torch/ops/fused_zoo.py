@@ -32,6 +32,25 @@ from .macro_oneshot import MacroOneShot
 from .recurrence import DubinerRecurrence
 
 
+def pack_rows(mats, tile_rows):
+    """The rows of every group matrix back to back, zero-padded to the
+    widest K, and cut into ``tile_rows``-row tiles, each contracting to the
+    widest row it holds (the padding is exact zeros): (packed (rows, max
+    K), tiles int32 (ntiles, 3) = (first row, rows, K), K per group, rows
+    per group, first row per group plus the total)."""
+    K = [int(M.shape[1]) for M in mats]
+    rows = [int(M.shape[0]) for M in mats]
+    offsets = np.concatenate([[0], np.cumsum(rows)]).astype(int).tolist()
+    packed = np.zeros((offsets[-1], max(K)))
+    width = np.zeros(offsets[-1], int)
+    for M, off, k, n in zip(mats, offsets, K, rows):
+        packed[off:off + n, :k] = M
+        width[off:off + n] = k
+    tiles = [(r0, min(tile_rows, offsets[-1] - r0), int(width[r0:r0 + tile_rows].max()))
+             for r0 in range(0, offsets[-1], tile_rows)]
+    return packed, np.asarray(tiles, np.int32).reshape(-1, 3), K, rows, offsets
+
+
 class BucketMatmul:
     """``mm = BucketMatmul([A_g ...], device)``; ``C = mm(phi)`` is the
     (sum_g rows_g, npts) float64 stack of A_g @ phi[:K_g], K_g =
@@ -49,21 +68,10 @@ class BucketMatmul:
 
     def __init__(self, mats, device=None):
         self.device = torch.device("cpu" if device is None else device)
-        self.K = [int(M.shape[1]) for M in mats]
-        self.rows = [int(M.shape[0]) for M in mats]
-        self.offsets = np.concatenate([[0], np.cumsum(self.rows)]).astype(int).tolist()
-        self.total_rows = self.offsets[-1]
-        self.max_k = max(self.K)
-        packed = np.zeros((self.total_rows, self.max_k))
-        width = np.zeros(self.total_rows, int)
-        for M, off, K, rows in zip(mats, self.offsets, self.K, self.rows):
-            packed[off:off + rows, :K] = M
-            width[off:off + rows] = K
-        tiles = [(r0, min(self.TILE_ROWS, self.total_rows - r0),
-                  int(width[r0:r0 + self.TILE_ROWS].max()))
-                 for r0 in range(0, self.total_rows, self.TILE_ROWS)]
+        packed, tiles, self.K, self.rows, self.offsets = pack_rows(mats, self.TILE_ROWS)
+        self.total_rows, self.max_k = packed.shape
         self.A = torch.as_tensor(packed, device=self.device)
-        self.tiles = torch.as_tensor(np.asarray(tiles, np.int32), device=self.device)
+        self.tiles = torch.as_tensor(tiles, device=self.device)
         self.launches = 0
 
     def _check(self, phi):
@@ -163,28 +171,8 @@ class FusedZooTabulator:
             raise ValueError("every element needs a contraction width in plain_nexp "
                              "or a macro program")
 
-        # group rows by exact contraction width; within a group, elements
-        # keep their zoo order and the alphas stack row-wise
-        self.widths = sorted(set(int(w) for w in plain_nexp.values()))
-        self._loc = {}                  # plain element -> (group, lo, hi)
-        group_mats, self.group_rows = [], []
-        for g, K in enumerate(self.widths):
-            members = [(i, lo, hi) for i, (lo, hi, _) in enumerate(self.slices)
-                       if i in plain_nexp and int(plain_nexp[i]) == K]
-            cursor = 0
-            for i, lo, hi in members:
-                self._loc[i] = (g, cursor, cursor + hi - lo)
-                cursor += hi - lo
-            parts = []
-            for a in self.alphas:
-                rows = np.vstack([np.asarray(mats[a])[lo:hi] for _, lo, hi in members])
-                dropped = rows[:, K:]
-                if dropped.size and np.abs(dropped).max() > 1e-8 * (np.abs(rows).max() + 1.0):
-                    raise ValueError("width grouping would drop real coefficients")
-                parts.append(rows[:, :K])
-            group_mats.append(np.vstack(parts))
-            self.group_rows.append(cursor)
-
+        self.widths, group_mats, self._loc, self.group_rows, _ = group_by_width(
+            mats, self.alphas, self.slices, plain_nexp)
         self.recurrence = DubinerRecurrence(self.sd, max_degree, scale, affine_map, self.device)
         self.matmul = BucketMatmul(group_mats, self.device)
         self.device = self.matmul.A.device      # "cuda" resolved to its index
@@ -248,21 +236,56 @@ class FusedZooTabulator:
                 for a, tabs in self.block_tables(points).items()}
 
 
-def _merge_macro_programs(programs, scale, affine_map, order):
+def group_by_width(mats, alphas, slices, plain_nexp):
+    """The plain rows grouped by exact contraction width (a degree-d element
+    only touches the degree-d morton prefix of the basis); within a group,
+    elements keep their zoo order and the alphas stack row-wise.
+
+    Returns (widths, [one (nalpha * rows_g, K_g) matrix per width], {plain
+    element: (group, lo, hi) rows within one alpha's block}, [rows_g], src)
+    with ``src`` (packed rows, 2) giving every packed row's (alpha index,
+    zoo row).  Raises ``ValueError`` where a width would drop a coefficient."""
+    widths = sorted(set(int(w) for w in plain_nexp.values()))
+    loc, group_mats, group_rows, src = {}, [], [], []
+    for g, K in enumerate(widths):
+        members = [(i, lo, hi) for i, (lo, hi, _) in enumerate(slices)
+                   if i in plain_nexp and int(plain_nexp[i]) == K]
+        cursor = 0
+        for i, lo, hi in members:
+            loc[i] = (g, cursor, cursor + hi - lo)
+            cursor += hi - lo
+        parts = []
+        for k, a in enumerate(alphas):
+            rows = np.vstack([np.asarray(mats[a])[lo:hi] for _, lo, hi in members])
+            dropped = rows[:, K:]
+            if dropped.size and np.abs(dropped).max() > 1e-8 * (np.abs(rows).max() + 1.0):
+                raise ValueError("width grouping would drop real coefficients")
+            parts.append(rows[:, :K])
+            src.extend((k, r) for _, lo, hi in members for r in range(lo, hi))
+        group_mats.append(np.vstack(parts))
+        group_rows.append(cursor)
+    return widths, group_mats, loc, group_rows, np.asarray(src, np.int64).reshape(-1, 2)
+
+
+def _merge_macro_programs(programs, scale, affine_map, order,
+                          engine="the one-shot engine (K3)"):
     """K3's arrays from the macro side programs (fiat_tpu's
     ``_build_macro_merged`` / ``_build_macro_oneshot``): the merged tall
     matrix with each program's scale ratio folded in, the (row, nexp_parent)
     pieces per subcell, per-program geometry (rescaled barycentric maps,
     ``unique``, row range), the parent map, ``rec_deg`` and the parent
     scale.  Raises ``NotImplementedError`` naming K7, the masked fallback
-    engine that is not ported, where the one-shot engine does not apply."""
+    engine that is not ported, where ``engine`` does not apply: the parent
+    basis must be one plain expansion set on the zoo's cell at its scale."""
     def refuse(why):
         raise NotImplementedError(
-            f"macro programs {why}: the one-shot engine (K3) does not apply, and the "
+            f"macro programs {why}: {engine} does not apply, and the "
             "masked fallback engine (TPU kernel K7, FusedMaskedMultiword) is not "
             "ported yet; ROADMAP.md queues it")
 
     A_zoo, b_zoo = (np.asarray(v, np.float64) for v in affine_map)
+    if any(type(p.parent_es) is not type(programs[0].parent_es) for p in programs):
+        refuse("with mixed parent expansion-set types")
     for p in programs:
         pes = p.parent_es
         if pes.variant is not None:

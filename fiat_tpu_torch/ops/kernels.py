@@ -11,10 +11,11 @@ Without ``nvcc`` (a CPU-only machine) ``load_kernels`` raises
 
 Every C entry point takes raw device pointers plus the caller's CUDA
 stream, launches, and returns ``cudaGetLastError()``; the wrappers
-(``recurrence.py``, ``fused_zoo.py``, ``macro_oneshot.py``) raise when it
-is not 0.
+(``recurrence.py``, ``fused_zoo.py``, ``macro_oneshot.py``,
+``moment_kernel.py``, ``f32_zoo.py``) raise when it is not 0.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -33,16 +34,27 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_F = ctypes.c_float
 #: C signatures: name -> argtypes (all return int, the CUDA error code)
 SIGNATURES = {
     # pts, npts, consts, slots, affine[6], scale, degree, phi, stream
     "fiat_dubiner2_values": [_P, _I, _P, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _P],
     # A, lda, tiles, ntiles, phi, ldphi, npts, C, stream
     "fiat_bucket_matmul": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
-    # pts, npts, consts, affine[6], scale, degree, maps, npieces, progs, nprogs,
-    # pieces, A, rows, K, out, stream
-    "fiat_macro_oneshot": [_P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _I, _P, _I,
+    # pts, npts, consts, affine[6], scale, tol, degree, maps, npieces, progs,
+    # nprogs, pieces, A, rows, K, out, stream (in f64 / in f32)
+    "fiat_macro_oneshot": [_P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _P, _I, _P, _I,
                            _P, _P, _I, _I, _P, _P],
+    "fiat_macro_oneshot_f32": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P,
+                               _I, _P, _P, _I, _I, _P, _P],
+    # pts, wf, npts, consts, affine[6], scale, tol, degree, nplain, maps,
+    # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
+    "fiat_pair_moments": [_P, _P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,
+                          _P, _I, _P, _I, _P, _I, _P],
+    # pts, npts, consts, affine[6], scale, degree, At, lda, tiles, ntiles, dst,
+    # out, splits, stream
+    "fiat_zoo_f32": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P, _I, _P, _P, _I,
+                     _P],
 }
 
 
@@ -123,3 +135,16 @@ def check_launch(name, err):
 def stream_of(tensor):
     """The current CUDA stream handle on the tensor's device (an int)."""
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 matrix products in full float32 (never TF32) inside the
+    block: the plain versions of the f32 kernels, as fiat_tpu's
+    ``Precision.HIGHEST``; the previous setting comes back after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

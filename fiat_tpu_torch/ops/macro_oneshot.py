@@ -1,12 +1,15 @@
 """K3: the macro (split-complex) elements of a zoo in one CUDA launch.
 
 Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedMacroOneShot``,
-with the binning of ``pallas_recurrence.SubcellBinning``).  For every point
-the kernel (``csrc/macro_oneshot.cu``) bins it to the subcells of every
-macro program, runs the parent-cell Dubiner recurrence, multiplies the
-merged change of basis by the masked parent basis and averages over the
-subcells that share the point.  The TPU kernel does this in df32 pairs and
-Ozaki windows; Hopper has native FP64, so the kernel computes it in f64.
+with the binning of ``pallas_recurrence.SubcellBinning``) and, in float32,
+of the macro side program of ``fiat_tpu/ops/pallas_tabulate.py``
+(``PallasZooTabulator._macro_tables``).  For every point the kernel
+(``csrc/macro_oneshot.cu``) bins it to the subcells of every macro program,
+runs the parent-cell Dubiner recurrence, multiplies the merged change of
+basis by the masked parent basis and averages over the subcells that share
+the point.  The TPU kernel does this in df32 pairs and Ozaki windows;
+Hopper has native FP64, so the kernel computes it in f64 (or in f32 for the
+f32 engine).
 
 The plain version beside it does the same in plain PyTorch: masks by
 ``core.expansions.subcell_masks`` (the body of
@@ -19,19 +22,50 @@ import numpy as np
 import torch
 
 from ..core.expansions import dubiner_tabulate, subcell_masks
-from .kernels import check_launch, load_kernels, stream_of
+from .kernels import check_launch, load_kernels, no_tf32, stream_of
 from .recurrence import pack_stages
 
 #: highest parent degree the kernel is instantiated for (csrc/macro_oneshot.cu)
 MAX_DEGREE = 10
 #: subcells over all programs: the kernel keeps a point's masks as bits of one word
 MAX_PIECES = 32
+#: binning tolerance per working type (``subcell_masks``' defaults)
+BINNING_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def pack_geometry(geom, parent_map, nexp):
+    """The binning tables of ``csrc/binning.cuh`` (float64 numpy/int32):
+    ``maps`` (1 + pieces, 3, 3), the parent's rescaled barycentric map
+    first, then every subcell's, each row (a0, a1, b); ``progs`` (programs,
+    5) = (first row, end row, first piece, end piece, unique) from ``geom``
+    (per program {"maps", "unique", "rows"}); ``pieces`` (pieces, 2) =
+    (first column, nexp) from the per-piece widths ``nexp``."""
+    parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
+    if parent_map[0].shape != (3, 2):
+        raise NotImplementedError("the macro kernels cover triangles (sd = 2) only")
+    nexp = [int(n) for n in nexp]
+    if len(nexp) > MAX_PIECES:
+        raise NotImplementedError(f"{len(nexp)} subcells: the kernels take at most {MAX_PIECES}")
+    maps, progs, c0 = [parent_map], [], 0
+    for g in geom:
+        maps.extend((np.asarray(Am, np.float64), np.asarray(bm, np.float64))
+                    for Am, bm in g["maps"])
+        r0, r1 = g["rows"]
+        progs.append((r0, r1, c0, c0 + len(g["maps"]), int(bool(g["unique"]))))
+        c0 += len(g["maps"])
+    if c0 != len(nexp):
+        raise ValueError("every subcell of every program needs one piece")
+    offsets = np.concatenate([[0], np.cumsum(nexp)]).astype(int)
+    maps = np.stack([np.column_stack([Am, bm]) for Am, bm in maps])
+    return (maps, np.asarray(progs, np.int32).reshape(-1, 5),
+            np.column_stack([offsets[:-1], nexp]).astype(np.int32).reshape(-1, 2))
 
 
 class MacroOneShot:
     """``mo = MacroOneShot(A, pieces, geom, parent_map, degree, scale,
-    affine_map, device)``; ``out = mo(points)`` is the (rows, npts) float64
-    table of every macro program at ``points`` (npts, 2).
+    affine_map, device, dtype)``; ``out = mo(points)`` is the (rows, npts)
+    table of every macro program at ``points`` (npts, 2), in ``dtype``
+    (float64, or float32 for the f32 engine).
 
     ``A`` (rows, K) is the merged change of basis: per subcell ("piece") c,
     in program order, the columns ``pieces[c][1]`` wide that multiply the
@@ -41,10 +75,19 @@ class MacroOneShot:
     rescaled barycentric map; ``degree``, ``scale`` and ``affine_map`` define
     the parent recurrence (onto the default triangle by ``A x + b``).
 
+    ``mo(points, A=W)`` runs the same kernel with another change of basis
+    ``W`` (programs, K), one row per program (interpolation folds its
+    coefficients into it): row g is program g's binned, averaged sum.
+
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
 
-    def __init__(self, A, pieces, geom, parent_map, degree, scale, affine_map, device=None):
+    def __init__(self, A, pieces, geom, parent_map, degree, scale, affine_map, device=None,
+                 dtype=torch.float64):
+        if dtype not in BINNING_TOL:
+            raise TypeError(f"K3 runs in float64 or float32, not {dtype}")
+        self.dtype = dtype
+        self.tol = BINNING_TOL[dtype]
         A = np.asarray(A, np.float64)
         self.rows, self.K = A.shape
         self.degree = int(degree)
@@ -53,78 +96,82 @@ class MacroOneShot:
         self.geom = [dict(g, maps=[(np.asarray(Am, np.float64), np.asarray(bm, np.float64))
                                    for Am, bm in g["maps"]]) for g in geom]
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
-        if self.parent_map[0].shape != (3, 2):
-            raise NotImplementedError("K3 covers triangles (sd = 2) only")
         self.nexp = [int(n) for _, n in pieces]
-        if len(self.nexp) > MAX_PIECES:
-            raise NotImplementedError(f"{len(self.nexp)} subcells: K3 takes at most {MAX_PIECES}")
+        maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
         if max(self.nexp) > (self.degree + 1) * (self.degree + 2) // 2:
             raise ValueError("a subcell reads more parent members than the recurrence makes")
-        offsets = np.concatenate([[0], np.cumsum(self.nexp)]).astype(int)
-        if offsets[-1] != self.K:
+        if int(pieces_t[-1].sum()) != self.K:
             raise ValueError("the pieces must cover the columns of A")
-        self.offsets = offsets[:-1].tolist()
+        self.offsets = pieces_t[:, 0].tolist()
         self.scale = float(scale)
         Af, bf = affine_map
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
-
-        maps, progs, c0 = [self.parent_map], [], 0
-        for g in self.geom:
-            maps.extend(g["maps"])
-            r0, r1 = g["rows"]
-            progs.append((r0, r1, c0, c0 + len(g["maps"]), int(bool(g["unique"]))))
-            c0 += len(g["maps"])
-        if c0 != len(self.nexp):
-            raise ValueError("every subcell of every program needs one piece")
         self.device = torch.device("cpu" if device is None else device)
 
-        def as_t(a, dtype=torch.float64):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
+        def as_t(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(dt)
 
         self.A = as_t(A)
-        self.maps = as_t(np.stack([np.column_stack([Am, bm]) for Am, bm in maps]))
-        self.progs = as_t(np.asarray(progs, np.int32), torch.int32)
-        self.pieces = as_t(np.column_stack([self.offsets, self.nexp]).astype(np.int32),
-                           torch.int32)
+        self.maps = as_t(maps)
+        self.progs = as_t(progs, torch.int32)
+        # the same programs with one row each, for ``mo(points, A=W)``
+        one = progs.copy()
+        one[:, 0], one[:, 1] = np.arange(len(progs)), np.arange(1, len(progs) + 1)
+        self.progs_one = as_t(one, torch.int32)
+        self.pieces = as_t(pieces_t, torch.int32)
         self.consts = as_t(pack_stages(self.degree)[0])
         self.device = self.A.device       # "cuda" resolved to its index
         self.launches = 0
 
-    def _check(self, points):
+    def _check(self, points, A):
         if not isinstance(points, torch.Tensor):
             raise TypeError("points must be a torch.Tensor")
-        if points.dtype != torch.float64:
-            raise TypeError(f"points must be float64, got {points.dtype}")
+        if points.dtype != self.dtype:
+            raise TypeError(f"points must be {self.dtype}, got {points.dtype}")
         if points.dim() != 2 or points.shape[1] != 2:
             raise ValueError(f"points must have shape (npts, 2), got {tuple(points.shape)}")
         if not points.is_contiguous():
             raise ValueError("points must be contiguous")
         if points.shape[0] >= 2 ** 31:
             raise ValueError("too many points for one launch")
+        if A is not None:
+            if not isinstance(A, torch.Tensor) or A.dtype != self.dtype:
+                raise TypeError(f"A must be a {self.dtype} tensor")
+            if tuple(A.shape) != (len(self.geom), self.K) or not A.is_contiguous():
+                raise ValueError(f"A must be contiguous of shape {(len(self.geom), self.K)}, "
+                                 f"got {tuple(A.shape)}")
+            if A.device != points.device:
+                raise ValueError(f"A on {A.device}, points on {points.device}")
 
-    def __call__(self, points):
-        self._check(points)
+    def __call__(self, points, A=None):
+        self._check(points, A)
         if points.device.type == "cpu":
-            return self.plain(points)
+            return self.plain(points, A)
         if points.device.type != "cuda" or points.device != self.device:
             raise ValueError(f"points on {points.device}, engine on {self.device}")
+        A, progs = (self.A, self.progs) if A is None else (A, self.progs_one)
         npts = points.shape[0]
-        out = torch.empty((self.rows, npts), dtype=torch.float64, device=points.device)
+        out = torch.empty((A.shape[0], npts), dtype=self.dtype, device=points.device)
         if npts == 0:
             return out
         lib = load_kernels()
-        err = lib.fiat_macro_oneshot(
-            points.data_ptr(), npts, self.consts.data_ptr(), *self.affine.tolist(), self.scale,
-            self.degree, self.maps.data_ptr(), len(self.nexp), self.progs.data_ptr(),
-            len(self.geom), self.pieces.data_ptr(), self.A.data_ptr(), self.rows, self.K,
-            out.data_ptr(), stream_of(points))
-        check_launch(f"fiat_macro_oneshot ({self.rows} x {self.K})", err)
+        fn = lib.fiat_macro_oneshot if self.dtype == torch.float64 else lib.fiat_macro_oneshot_f32
+        err = fn(points.data_ptr(), npts, self.consts.data_ptr(), *self.affine.tolist(),
+                 self.scale, self.tol, self.degree, self.maps.data_ptr(), len(self.nexp),
+                 progs.data_ptr(), len(self.geom), self.pieces.data_ptr(), A.data_ptr(),
+                 A.shape[0], self.K, out.data_ptr(), stream_of(points))
+        check_launch(f"fiat_macro_oneshot ({A.shape[0]} x {self.K}, {self.dtype})", err)
         self.launches += 1
         return out
 
-    def plain(self, points):
-        """The same tables in plain PyTorch, on the points' device."""
+    def plain(self, points, A=None):
+        """The same tables in plain PyTorch, on the points' device (float32
+        matrix products in full float32, never TF32)."""
+        if A is None:
+            A, rows = self.A.to(points.device), [g["rows"] for g in self.geom]
+        else:
+            rows = [(g, g + 1) for g in range(len(self.geom))]
         Af = points.new_tensor(self.affine[:4].reshape(2, 2))
         ref = points @ Af.T + points.new_tensor(self.affine[4:])
         phi = dubiner_tabulate(2, self.degree, [ref[:, 0], ref[:, 1]], self.scale)
@@ -135,9 +182,9 @@ class MacroOneShot:
                                          unique=g["unique"], raw=True)
             parts.extend(m * phi[:next(nexp)] for m in masks)
             totals.append(total)
-        out = self.A.to(points.device) @ torch.cat(parts, dim=0)
-        for g, total in zip(self.geom, totals):
+        with no_tf32():
+            out = A @ torch.cat(parts, dim=0)
+        for (r0, r1), total in zip(rows, totals):
             if total is not None:
-                r0, r1 = g["rows"]
                 out[r0:r1] *= 1.0 / total
         return out

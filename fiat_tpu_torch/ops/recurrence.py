@@ -24,24 +24,26 @@ from .kernels import check_launch, load_kernels, stream_of
 MAX_DEGREE = 15
 
 
-def pack_stages(degree):
-    """Host-packed constants of the triangle recurrence for the kernel:
-    (consts f64, slots int32) in the layout ``csrc/recurrence.cu``
+def pack_stages(degree, variant=None):
+    """Host-packed constants of the triangle recurrence for the kernels:
+    (consts f64, slots int32) in the layout ``csrc/dubiner2.cuh``
     documents.  Stage 0 runs on one row (its output is the identity
     permutation of its levels); stage-1 entries are (input row r, level i)
-    with r + i <= degree, row-major, each with its morton output row."""
+    with r + i <= degree, row-major, each with its morton output row.  The
+    expansion variants ("bubble", "dual") keep the stage structure and the
+    morton rows; their recurrence coefficients and norms differ."""
     n = degree
     consts = []
     if n == 0:
         return np.zeros(4), np.zeros(1, np.int32)
-    a1, b1, general, perm, norms = _stage_constants(2, n, 0, None)
+    a1, b1, general, perm, norms = _stage_constants(2, n, 0, variant)
     if not np.array_equal(perm, np.arange(n + 1)):
         raise AssertionError("stage-0 output is expected in level order")
     for i in range(n + 1):
         a, b, c = _level_coeffs(a1, b1, general, i, 0)
         consts.append((a, b, c, norms[i, 0]))
 
-    a1, b1, general, perm, norms = _stage_constants(2, n, 1, None)
+    a1, b1, general, perm, norms = _stage_constants(2, n, 1, variant)
     m_in = n + 1
     slot_of = {int(p): j for j, p in enumerate(perm)}
     slots = []

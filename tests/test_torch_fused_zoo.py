@@ -5,6 +5,8 @@ Inputs are numpy arrays made from seeds and handed to both packages; the
 fiat_tpu Pallas kernels run in interpret mode, as its own tests run them
 (tests/test_device_ops.py)."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,9 @@ from fiat_tpu.ops.tabulate import BatchedTabulator as JBatchedTabulator
 from fiat_tpu_torch import device_tabulator
 from fiat_tpu_torch import elements as tfe
 from fiat_tpu_torch.core import cells as tcl
+from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
 from fiat_tpu_torch.ops.fused_zoo import BucketMatmul, FusedZooTabulator
+from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
 
@@ -164,15 +168,21 @@ def test_grouping_refuses_to_drop_real_coefficients(zoos):
 
 
 def test_device_tabulator_raises_for_unported_engines(zoos):
-    """The f32 engine (K6) is not ported and raises; macro elements, which
-    used to raise, now build on the one-shot engine (K3)."""
+    """``f64=False`` builds the f32 engine (K6, macro elements on K3 in
+    float32); what is still unported raises naming it: macro programs the
+    fused moments kernel (K45) cannot take name the masked fallback, K7."""
     _, tzoo = zoos
-    with pytest.raises(NotImplementedError, match="K6"):
-        device_tabulator(tzoo, order=1, f64=False)
     hct = tfe.HsiehCloughTocher(tcl.ufc_simplex(2), 3)
     assert hct.is_macroelement()
-    with pytest.raises(NotImplementedError, match="K6"):
-        device_tabulator(tzoo + [hct], order=1, f64=False)
+    tab = device_tabulator(tzoo + [hct], order=1, f64=False)
+    assert isinstance(tab, F32ZooTabulator)
+    assert tab.macro is not None and tab.macro.dtype == torch.float32
+    assert tab.macro.geom[0]["unique"] is False       # order 1: averaged binning
     tab = device_tabulator(tzoo + [hct], order=1)
     assert tab.macro is not None and tab.special == [len(tzoo)]
-    assert tab.macro.geom[0]["unique"] is False       # order 1: averaged binning
+    st = BatchedTabulator(tzoo + [hct], order=0).state()
+    odd = copy.copy(st["macro_programs"][0])
+    odd.parent_es = copy.copy(odd.parent_es)
+    odd.parent_es.variant = "dual"
+    with pytest.raises(NotImplementedError, match="K45.*K7"):
+        MomentEngine.from_arrays(**{**st, "macro_programs": [odd]})

@@ -156,3 +156,107 @@ def test_macro_engine_on_card_matches_host_and_refuses_cpu_points(cuda):
         want = el.tabulate(1, pts)
         for a in want:
             assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10
+
+
+def _moment_engine(cuda=None):
+    from fiat_tpu_torch.ops.moments import MomentEngine
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    T = tcl.ufc_simplex(2)
+    zoo = [tfe.Lagrange(T, 10), tfe.RaviartThomas(T, 2)] + _macro_zoo(T)
+    return MomentEngine(BatchedTabulator(zoo, order=0), device=cuda)
+
+
+@pytest.mark.parametrize("npts", [1, 127, 1077, 100_000])
+def test_moments_kernel_matches_plain(cuda, npts):
+    """K45 (plain and masked moments in one launch) against its plain
+    version at odd point counts and at the bench's size."""
+    eng = _moment_engine(cuda)
+    rng = np.random.default_rng(npts)
+    P = torch.as_tensor(_points(npts, seed=npts), device=cuda)
+    wf = torch.as_tensor(rng.random(npts), device=cuda)
+    got = eng.moments(P, wf)
+    torch.cuda.synchronize()
+    assert eng.moments.launches == 1
+    want = eng.moments.plain(P, wf)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def test_moments_kernel_on_facet_barycentre_and_centre_points(cuda):
+    eng = _moment_engine(cuda)
+    P = torch.as_tensor(_special_points(), device=cuda)
+    wf = torch.linspace(0.5, 1.5, len(P), dtype=torch.float64, device=cuda)
+    got, want = eng.moments(P, wf), eng.moments.plain(P, wf)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def test_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(cuda):
+    """A CUDA tensor never takes a plain path: one K45 launch per moments
+    pass, one K1 and one K3 launch per interpolation pass."""
+    gpu, cpu = _moment_engine(cuda), _moment_engine()
+    pts = np.vstack([_points(900), _special_points()])
+    rng = np.random.default_rng(4)
+    wf, c = rng.random(len(pts)), rng.random(gpu.rows) - 0.5
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        gpu.moment_rows(torch.as_tensor(pts), wf)
+    got = gpu.moment_rows(torch.as_tensor(pts, device=cuda), torch.as_tensor(wf, device=cuda))
+    assert (gpu.moments.launches, gpu.recurrence.launches, gpu.macro.launches) == (1, 0, 0)
+    want = cpu.moment_rows(pts, wf)
+    assert (got.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+    u = gpu.interpolate_rows(torch.as_tensor(pts, device=cuda), torch.as_tensor(c, device=cuda))
+    assert (gpu.moments.launches, gpu.recurrence.launches, gpu.macro.launches) == (1, 1, 1)
+    want = cpu.interpolate_rows(pts, c)
+    assert (u.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("degree,variant", [(0, None), (1, None), (5, None), (10, None),
+                                            (5, "bubble"), (5, "dual")])
+def test_f32_kernel_matches_plain(cuda, degree, variant):
+    """K6 against its plain version (eager f32 recurrence + full-f32 matmul
+    per group); both are f32, so only the order of operations differs."""
+    from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
+    es = ExpansionSet(tcl.ufc_simplex(2), variant=variant)
+    nexp = (degree + 1) * (degree + 2) // 2
+    rng = np.random.default_rng(degree)
+    stacked = rng.standard_normal((300, nexp))
+    tab = F32ZooTabulator.from_arrays(
+        stacked=stacked, alpha_mats={}, slices=[(0, 100, (100,)), (100, 300, (200,))],
+        plain_nexp=None, max_degree=degree, scale=float(es.get_scale(degree)),
+        affine_map=es.affine_mappings[0], variant=variant, device=cuda)
+    P = torch.as_tensor(_points(3001, seed=degree), device=cuda).float()
+    out = torch.empty((300, 3001), device=cuda)
+    got = tab.kernel(P, tab.dst_plain, out).clone()
+    torch.cuda.synchronize()
+    assert tab.kernel.launches == 1
+    want = tab.kernel.plain(P, tab.dst_plain, torch.empty_like(out))
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_f32_macro_kernel_matches_plain(cuda, order):
+    """K3 in float32 (tolerance 1e-5 binning) against its plain version,
+    on random points and on points on interior edges and centres."""
+    tab = device_tabulator(_macro_zoo(tcl.ufc_simplex(2)), order=order, f64=False, device=cuda)
+    assert tab.macro.dtype == torch.float32
+    pts = np.vstack([_points(3001, seed=order), _special_points()])
+    P = torch.as_tensor(pts, device=cuda).float()
+    got = tab.macro(P)
+    torch.cuda.synchronize()
+    assert tab.macro.launches == 1
+    want = tab.macro.plain(P)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def test_f32_engine_on_card_one_launch_each_and_refuses_cpu_points(cuda):
+    T = tcl.ufc_simplex(2)
+    zoo = [tfe.Lagrange(T, p) for p in (1, 4)] + _macro_zoo(T)
+    pts = np.vstack([_points(700), _special_points()])
+    gpu = device_tabulator(zoo, order=1, f64=False, device=cuda)
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        gpu.tables(torch.as_tensor(pts))
+    got = gpu.tables(torch.as_tensor(pts, device=cuda))
+    assert (gpu.kernel.launches, gpu.macro.launches) == (1, 1)
+    want = device_tabulator(zoo, order=1, f64=False).tables(pts)
+    for a in want:
+        assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-5 * (want[a].abs().max().item() + 1)

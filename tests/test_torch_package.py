@@ -17,7 +17,9 @@ PKG = REPO / "fiat_tpu_torch"
 def test_import_leaves_jax_and_fiat_tpu_out():
     code = ("import sys, fiat_tpu_torch, fiat_tpu_torch.ops.fused_zoo, "
             "fiat_tpu_torch.ops.tabulate, fiat_tpu_torch.ops.recurrence, "
-            "fiat_tpu_torch.ops.macro_oneshot, fiat_tpu_torch.core.macro, "
+            "fiat_tpu_torch.ops.macro_oneshot, fiat_tpu_torch.ops.moments, "
+            "fiat_tpu_torch.ops.moment_kernel, fiat_tpu_torch.ops.f32_zoo, "
+            "fiat_tpu_torch.core.macro, "
             "fiat_tpu_torch.core.quadrature_schemes\n"
             "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
@@ -59,6 +61,7 @@ def test_pyproject_ships_the_port():
     data = cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
-        "bucket_matmul.cu", "dubiner2.cuh", "macro_oneshot.cu", "recurrence.cu"]
+        "binning.cuh", "bucket_matmul.cu", "dubiner2.cuh", "macro_oneshot.cu", "moments.cu",
+        "recurrence.cu", "zoo_f32.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)

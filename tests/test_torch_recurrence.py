@@ -13,6 +13,7 @@ from fiat_tpu.core import cells as jcl
 from fiat_tpu.core.expansions import ExpansionSet as JExpansionSet
 from fiat_tpu.ops.pallas_recurrence import PallasSliceRecurrence
 from fiat_tpu_torch.core import cells as tcl
+from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core.expansions import ExpansionSet
 from fiat_tpu_torch.ops.recurrence import MAX_DEGREE, DubinerRecurrence, pack_stages
 
@@ -78,6 +79,49 @@ def test_pack_stages_covers_every_member_once():
         nexp = (n + 1) * (n + 2) // 2
         assert consts.shape == (4 * (n + 1) + 4 * nexp,)
         assert sorted(slots.tolist()) == list(range(nexp))
+
+
+def _dubiner2_point(x0, x1, consts, slots, n, scale):
+    """csrc/dubiner2.cuh's per-point recurrence in numpy, reading the packed
+    constants as the kernels do; values land on their morton rows."""
+    out = np.zeros(((n + 1) * (n + 2) // 2,) + np.shape(x0))
+    if n == 0:
+        out[0] = scale
+        return out
+    c = consts.reshape(-1, 4)
+    fb = 0.5 * (x1 - 1.0)
+    fa, fc = x0 + fb + 1.0, fb * fb
+    prev2, prev, r1 = 0.0, scale, [scale * c[0, 3]]
+    for i in range(1, n + 1):
+        v = (c[i, 0] * fa - c[i, 1] * fb) * prev - (c[i, 2] * fc) * prev2
+        r1.append(v * c[i, 3])
+        prev2, prev = prev, v
+    fb = -1.0
+    fa, fc = x1 + fb + 1.0, fb * fb
+    c1, e = c[n + 1:], 0
+    for r in range(n + 1):
+        prev2, prev = 0.0, r1[r]
+        out[slots[e]] = prev * c1[e, 3]
+        e += 1
+        for i in range(1, n - r + 1):
+            v = (c1[e, 0] * fa - c1[e, 1] * fb) * prev - (c1[e, 2] * fc) * prev2
+            out[slots[e]] = v * c1[e, 3]
+            prev2, prev = prev, v
+            e += 1
+    return out
+
+
+@pytest.mark.parametrize("variant", [None, "bubble", "dual"])
+@pytest.mark.parametrize("degree", [0, 1, 4, 10])
+def test_packed_constants_run_the_variant_recurrences(variant, degree):
+    """The kernels' recurrence on pack_stages' constants is
+    dubiner_tabulate's raw recurrence (no C0 recovery), for every variant."""
+    consts, slots = pack_stages(degree, variant)
+    ref = PTS @ np.array([[2.0, 0.0], [0.0, 2.0]]).T - 1.0
+    got = _dubiner2_point(ref[:, 0], ref[:, 1], consts, slots, degree, 1.25)
+    want = texp.dubiner_tabulate(2, degree, [ref[:, 0], ref[:, 1]], 1.25, variant=variant,
+                                 raw=True)
+    assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
 
 
 def test_wrapper_rejects_bad_inputs():
