@@ -16,7 +16,13 @@ Drives the port's main paths once each at their real size, at 1e5 points
      (K45) and ``interpolate_rows`` (K1, K3), also timed at 1e7 points;
   4. ``full_zoo`` on the f32 engine,
      ``device_tabulator(..., order=1, f64=False, device="cuda").tables``
-     (K6, K3 in float32), held against phase 2's float64 tables.
+     (K6, K3 in float32), held against phase 2's float64 tables;
+  5. tetrahedra at bench.py's ``pts3`` (seed 42, drawn after ``pts2``):
+     ``tet_lagrange8`` (bench.py:793-795) through ``device_tabulator(...,
+     order=1)`` on the default device (K1's sd = 3 stage, K2 at contraction
+     width 165) and through ``FusedZooTabulator(BatchedTabulator(...),
+     features="bernstein")`` (K8 + K2), and ``hdiv_hcurl_tet``
+     (bench.py:809-818: RT, Nedelec and BDM 1-3, K1 + K2).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -30,13 +36,16 @@ Usage (from the repository root, on a machine with a CUDA card):
 
 Prints the card's name and power limit, one line per step, a JSON line
 ``{"kernels": [...]}`` (K1, K2 and K3 measured on ``full_zoo``, K45 on the
-moments phase, K6 on the f32 phase), and as its last line
+moments phase, K6 on the f32 phase, K1, K2 and K8 on the tetrahedra, each
+with its bound: the larger of its bytes over the HBM rate and its
+operations over the peak rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, if any phase fails or there is no
 CUDA device.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,6 +63,13 @@ F32_MACRO_TOL = 5e-5     # f32 macro rows vs float64, / (max abs + 1) (:586-589)
 BIG_NPTS = 10_000_000    # moments streamed from HBM: 240 MB of points and weights
 REPS = 10
 INNER = 10
+# the H100 SXM's published peaks (NVIDIA's data sheet), per millisecond
+HBM_BYTES_MS = 3.35e9    # 3.35 TB/s
+FP64_FMA_MS = 33.5e9     # 33.5 TFLOP/s FP64 outside the tensor cores
+FP64_MMA_MS = 67e9       # 67 TFLOP/s FP64 matrix products on the tensor cores (DMMA)
+FP32_FMA_MS = 67e9       # 67 TFLOP/s FP32 outside the tensor cores (no TF32)
+# flops of one recurrence level, (a fa - b fb) prev - (c fc) prev2, times its norm
+REC_FLOPS = 8
 
 
 def fail(msg):
@@ -136,16 +152,18 @@ def host_check(zoo, per, pts, npts, torch, np):
     return host_err
 
 
-def run_main_path(name, tab, zoo, pts2, torch, np):
-    """One pass of ``block_tables`` with the launch counts set to 0 just
-    before and read just after; checks finiteness and host parity."""
-    engines = {"K1": tab.recurrence, "K2": tab.matmul}
-    if tab.macro is not None:
-        engines["K3"] = tab.macro
+def run_main_path(name, tab, zoo, pts2, torch, np, engines=None):
+    """One pass of ``block_tables`` with the launch counts of ``engines``
+    (by default K1, K2 and K3 where the zoo has macro elements) set to 0
+    just before and read just after; checks finiteness and host parity."""
+    if engines is None:
+        engines = {"K1": tab.recurrence, "K2": tab.matmul}
+        if tab.macro is not None:
+            engines["K3"] = tab.macro
     blocks, launches = counted(engines, lambda: tab.block_tables(pts2), torch)
     finite = all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl)
     host_err = host_check(zoo, tab.unpack(blocks), pts2, NPTS, torch, np)
-    print(f"{name} main path: device_tabulator(order=1).block_tables at {NPTS} points: "
+    print(f"{name} main path: block_tables(order 1) at {NPTS} points: "
           f"{len(zoo)} elements, finite {finite}, max abs err vs host el.tabulate on "
           f"{HOST_CHECK_PTS} points {host_err:.3e}")
     if not finite:
@@ -226,6 +244,10 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     phi = rec(P)
     k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
     k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), median_ms(lambda: mm.plain(phi), torch)
+    # one cuBLAS DGEMM over the zero-padded stack of every group
+    A = mm.A.to(phi.device)
+    k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)
+    del A
     k3_ms, k3_plain = median_ms(lambda: mo(P), torch), median_ms(lambda: mo.plain(P), torch)
     del phi
     path_ms = median_ms(lambda: tab.block_tables(P), torch)
@@ -233,31 +255,123 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     gbytes = (mm.total_rows + mo.rows) * NPTS * 8 / 1e9
     print(f"full_zoo timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"kernel path {path_ms:.4f} ms, plain path {plain_ms:.4f} ms; "
-          f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}), "
-          f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}); a pass writes {gbytes:.3f} GB "
+          f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
+          f"one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}); "
+          f"a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
 
     return tab, [
         entry("K1 dubiner2_values", "fiat_tpu_torch/csrc/recurrence.cu",
-              "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain),
+              "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain,
+              rec_bound(rec, NPTS)),
         entry("K2 bucket_matmul", "fiat_tpu_torch/csrc/bucket_matmul.cu",
-              "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain),
+              "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain,
+              matmul_bound(mm, NPTS), k2_lib),
         entry("K3 macro_oneshot", "fiat_tpu_torch/csrc/macro_oneshot.cu",
-              "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], k3_abs, k3_ms, k3_plain),
+              "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], k3_abs, k3_ms, k3_plain,
+              macro_bound(mo, NPTS)),
     ]
 
 
-def entry(name, source, replaces, launches, err, ms, plain):
+def entry(name, source, replaces, launches, err, ms, plain, bound, library=None):
+    """One kernel of the ``{"kernels": [...]}`` line; ``bound`` is
+    ``bound_of(...)``'s (ms, "bytes" or "operations"), ``library`` the
+    time of one PyTorch call computing the same function, or None."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain}
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
 
 
-def make_points(n, seed, np):
-    """bench.py's pts2: uniform in the UFC triangle's bounding square,
-    pulled into the triangle."""
+def bound_of(nbytes, flops, flops_ms):
+    """The least time the card could take: the larger of ``nbytes`` (each
+    input read once, each output written once) over the HBM rate and
+    ``flops`` over ``flops_ms``, the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_MS, flops / flops_ms
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rec_flops(sd, degree):
+    """Flops of the Dubiner recurrence at one point: REC_FLOPS for every
+    level that steps, one multiply (its norm) for every level 0.  Stage k
+    has comb(degree + k + 1, k + 1) levels, one level 0 per input row: one
+    in stage 0, then one per entry of the stage before."""
+    if degree == 0:
+        return 0
+    flops, level0 = 0, 1
+    for k in range(sd):
+        levels = math.comb(degree + k + 1, k + 1)
+        flops += REC_FLOPS * (levels - level0) + level0
+        level0 = levels
+    return flops
+
+
+def rec_bound(rec, npts):
+    """K1: the points in, Phi out; the recurrence at every point."""
+    return bound_of(8 * npts * (rec.sd + rec.nexp), rec_flops(rec.sd, rec.degree) * npts,
+                    FP64_FMA_MS)
+
+
+def matmul_flops(mm, npts):
+    """2 K_g flops per output of group g."""
+    return 2 * sum(r * k for r, k in zip(mm.rows, mm.K)) * npts
+
+
+def matmul_bound(mm, npts):
+    """K2: A (each group at its own width) and Phi[:kmax] in, C out; a
+    matrix product, so the FP64 tensor-core rate."""
+    nbytes = 8 * (sum(r * k for r, k in zip(mm.rows, mm.K)) + (mm.max_k + mm.total_rows) * npts)
+    return bound_of(nbytes, matmul_flops(mm, npts), FP64_MMA_MS)
+
+
+def one_piece_nexp(geom, piece_nexp):
+    """Per macro program, (program, the width of the one subcell an
+    interior point bins into)."""
+    out, piece = [], 0
+    for g in geom:
+        out.append((g, piece_nexp[piece]))
+        piece += len(g["maps"])
+    return out
+
+
+def macro_bound(mo, npts, itemsize=8, flops_ms=FP64_FMA_MS):
+    """K3: the points and A in, the tables out; per point the parent
+    recurrence and, for every program, its rows against the one subcell an
+    interior point bins into."""
+    flops = rec_flops(2, mo.degree) + sum(
+        2 * (g["rows"][1] - g["rows"][0]) * nexp for g, nexp in one_piece_nexp(mo.geom, mo.nexp))
+    return bound_of(itemsize * (npts * 2 + mo.A.numel() + mo.rows * npts), flops * npts,
+                    flops_ms)
+
+
+def moments_bound(pm, npts):
+    """K45: points and weights in, the sums out; per point the recurrence,
+    one FMA per plain sum and, for every program, one per member of the one
+    subcell an interior point bins into (csrc/moments.cu adds a point only
+    into the pieces it lies on)."""
+    flops = rec_flops(2, pm.degree) + 2 * pm.nplain + sum(
+        2 * nexp for _, nexp in one_piece_nexp(pm.geom, pm.piece_nexp))
+    return bound_of(8 * (3 * npts + pm.rows), flops * npts, FP64_FMA_MS)
+
+
+def features_bound(feat, npts):
+    """K8: the points in, the features out; per point the barycentric map,
+    the power table and one multiply per nonzero exponent of each
+    feature."""
+    sd, n = feat.sd, feat.degree
+    per_point = 2 * sd * (sd + 1) + (sd + 1) * max(n - 1, 0) + sum(
+        sum(1 for e in mi if e) for mi in feat.mis)
+    return bound_of(8 * npts * (sd + feat.nexp), per_point * npts, FP64_FMA_MS)
+
+
+def make_points(n, seed, np, sd=2):
+    """bench.py's pts2 (sd = 2) or pts3 (sd = 3): uniform in the UFC
+    simplex's bounding box, pulled into the simplex; pts3 comes from the
+    same generator after pts2 (bench.py:764-768)."""
     rng = np.random.default_rng(seed)
-    pts = rng.random((n, 2))
-    return pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((n, 1))
+    for d in range(2, sd + 1):
+        pts = rng.random((n, d))
+        pts = pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((n, 1))
+    return pts
 
 
 def moments_phase(T, dev, pts2, P, card, torch, np):
@@ -269,7 +383,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
 
     t0 = time.perf_counter()
     zoo = full_zoo(T)
-    bt = BatchedTabulator(zoo, order=0, device=dev)
+    bt = BatchedTabulator(zoo, order=0)     # the default device: the card
     eng = mo.moment_engine(bt)
     pm, rec, m3 = eng.moments, eng.recurrence, eng.macro
     rows = eng.rows
@@ -348,30 +462,38 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     big_k45 = median_ms(lambda: pm(big, wbig), torch)
     big_plain = median_ms(lambda: moments_plain(big, wbig), torch, reps=3, inner=2)
     big_k45_plain = median_ms(lambda: pm.plain(big, wbig), torch, reps=3, inner=2)
+    big_bound = moments_bound(pm, BIG_NPTS)
     print(f"moments timing at {BIG_NPTS} points ({card}; CUDA events): moment_rows "
           f"{big_ms:.4f} ms (plain {big_plain:.4f}), K45 {big_k45:.4f} ms (plain "
-          f"{big_k45_plain:.4f}); {24 * BIG_NPTS / 1e9 / big_k45:.3f} TB/s of points and "
+          f"{big_k45_plain:.4f}, bound {big_bound[0]:.4f} by {big_bound[1]}); "
+          f"{24 * BIG_NPTS / 1e9 / big_k45:.3f} TB/s of points and "
           f"weights; plain peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del big, wbig
     torch.cuda.empty_cache()
     return [entry("K45 pair_moments", "fiat_tpu_torch/csrc/moments.cu",
-                  "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727", moments_launches,
-                  k45_abs, k45_ms, k45_plain)]
+                  "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727",
+                  moments_launches, k45_abs, k45_ms, k45_plain, moments_bound(pm, NPTS))]
 
 
 def f32_phase(T, dev, P, ref64, card, torch):
     """Phase 4: full_zoo on the f32 engine, K6 and K3 in float32, one
     launch each; held against phase 2's float64 tables ``ref64``."""
     from fiat_tpu_torch import device_tabulator
+    from fiat_tpu_torch.core.expansions import dubiner_tabulate
+    from fiat_tpu_torch.ops.kernels import no_tf32
 
     t0 = time.perf_counter()
     zoo = full_zoo(T)
     tab = device_tabulator(zoo, order=1, f64=False, device=dev)
     k6, m3 = tab.kernel, tab.macro
+    if k6.variant is not None:
+        fail("f32: full_zoo's target basis is the plain Dubiner one")
     print(f"f32 host construction: {len(zoo)} elements, {tab.rows} rows x {len(tab.alphas)} "
           f"alphas, K6 {k6.total_rows} rows in widths {k6.K}, K3 float32 {m3.rows} x {m3.K}, "
           f"{time.perf_counter() - t0:.2f} s")
     P32 = P.float()
+    Af = P32.new_tensor(k6.affine[:4].reshape(2, 2))
+    x_ref = P32 @ Af.T + P32.new_tensor(k6.affine[4:])   # on the default triangle
     shape = (k6.total_rows, NPTS)
     k6_abs = check_kernel(f"K6 f32 zoo ({k6.total_rows} x {NPTS})",
                           k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
@@ -422,7 +544,12 @@ def f32_phase(T, dev, P, ref64, card, torch):
     k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
     k6_plain = median_ms(lambda: k6.plain(P32, tab.dst_plain, out), torch)
     m3_ms, m3_plain = median_ms(lambda: m3(P32), torch), median_ms(lambda: m3.plain(P32), torch)
-    del out
+    # one cuBLAS SGEMM (TF32 off) over the zero-padded stack, on a Phi computed before
+    phi32 = dubiner_tabulate(2, k6.degree, [x_ref[:, 0], x_ref[:, 1]], k6.scale, raw=True)
+    with no_tf32():
+        A = k6.A.to(phi32.device)
+        k6_lib = median_ms(lambda: torch.matmul(A, phi32[:k6.max_k]), torch)
+    del out, phi32, A
     path_ms = median_ms(lambda: tab.tables(P), torch)
     full = torch.empty((len(tab.alphas) * tab.rows, NPTS), device=dev)
     plain_ms = median_ms(lambda: (k6.plain(P.float(), tab.dst_tables, full),
@@ -433,10 +560,127 @@ def f32_phase(T, dev, P, ref64, card, torch):
           f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K6 {k6_ms:.4f} ms (plain "
           f"{k6_plain:.4f}), K3 float32 {m3_ms:.4f} ms (plain {m3_plain:.4f}); a pass writes "
           f"{gbytes:.3f} GB = {gbytes / path_ms:.3f} TB/s (K6 alone "
-          f"{k6.total_rows * NPTS * 4 / 1e9 / k6_ms:.3f} TB/s)")
+          f"{k6.total_rows * NPTS * 4 / 1e9 / k6_ms:.3f} TB/s; one padded SGEMM on a computed "
+          f"Phi {k6_lib:.4f} ms)")
+    k6_flops = (2 * sum(r * k for r, k in zip(k6.group_rows, k6.K))
+                + rec_flops(2, k6.degree)) * NPTS
+    k6_bytes = 4 * (2 * NPTS + k6.A.numel() + k6.total_rows * NPTS)
     return [entry("K6 zoo_f32", "fiat_tpu_torch/csrc/zoo_f32.cu",
                   "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs, k6_ms,
-                  k6_plain)]
+                  k6_plain, bound_of(k6_bytes, k6_flops, FP32_FMA_MS), k6_lib),
+            entry("K3 macro_oneshot float32", "fiat_tpu_torch/csrc/macro_oneshot.cu",
+                  "fiat_tpu/ops/pallas_multiword.py:652", launches["K3 float32"], m3_abs, m3_ms,
+                  m3_plain, macro_bound(m3, NPTS, 4, FP32_FMA_MS))]
+
+
+def tet_zoos(T3):
+    """bench.py's tet_lagrange8 (:793-795) and hdiv_hcurl_tet (:809-818)."""
+    import fiat_tpu_torch as ft
+    return ([ft.Lagrange(T3, 8)],
+            [ft.RaviartThomas(T3, k) for k in range(1, 4)]
+            + [ft.Nedelec(T3, k) for k in range(1, 4)]
+            + [ft.BrezziDouglasMarini(T3, k) for k in range(1, 4)])
+
+
+def tet_phase(dev, card, torch, np):
+    """Phase 5: tet_lagrange8 on K1 (sd = 3) + K2 (K = 165) and on K8 + K2,
+    hdiv_hcurl_tet on K1 + K2, at bench.py's pts3; one launch of each
+    kernel of a route per pass."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    pts3 = make_points(NPTS, SEED, np, sd=3)
+    P = torch.as_tensor(pts3, device=dev)
+    t0 = time.perf_counter()
+    lag8, hdiv = tet_zoos(ufc_simplex(3))
+    tab = device_tabulator(lag8, order=1)          # the default device: the card
+    bern = FusedZooTabulator(BatchedTabulator(lag8, order=1, device="cpu"), features="bernstein")
+    htab = device_tabulator(hdiv, order=1)
+    if not tab.device == bern.device == htab.device == dev:
+        fail(f"tet engines on {tab.device}, {bern.device}, {htab.device}, not {dev}")
+    rec, mm, feat, bmm = tab.recurrence, tab.matmul, bern.features, bern.matmul
+    hrec, hmm = htab.recurrence, htab.matmul
+    print(f"tet host construction: tet_lagrange8 {tab.rows} rows x {len(tab.alphas)} alphas, "
+          f"K {mm.max_k}; hdiv_hcurl_tet {len(hdiv)} elements, {htab.rows} rows x "
+          f"{len(htab.alphas)} alphas, widths {htab.widths}; Bernstein route (conversion "
+          f"folded into K2's rows) included; {time.perf_counter() - t0:.2f} s")
+
+    phi_p = rec.plain(P)
+    k1_abs = check_kernel(f"tet_lagrange8 K1 recurrence (sd 3, degree {rec.degree}) at {NPTS} "
+                          f"points", rec(P), phi_p, torch)
+    k2_abs = check_kernel(f"tet_lagrange8 K2 bucket matmul ({mm.total_rows} x {NPTS}, K "
+                          f"{mm.max_k})", mm(phi_p), mm.plain(phi_p), torch)
+    del phi_p
+    b_p = feat.plain(P)
+    k8_abs = check_kernel(f"K8 Bernstein features (sd 3, degree {feat.degree}) at {NPTS} points",
+                          feat(P), b_p, torch)
+    check_kernel(f"tet_lagrange8 Bernstein route K2 ({bmm.total_rows} x {NPTS}, K {bmm.max_k})",
+                 bmm(b_p), bmm.plain(b_p), torch)
+    del b_p
+    hphi_p = hrec.plain(P)
+    check_kernel(f"hdiv_hcurl_tet K1 recurrence (sd 3, degree {hrec.degree})", hrec(P), hphi_p,
+                 torch)
+    hk2_abs = check_kernel(f"hdiv_hcurl_tet K2 bucket matmul ({hmm.total_rows} x {NPTS}, widths "
+                           f"{hmm.K})", hmm(hphi_p), hmm.plain(hphi_p), torch)
+    del hphi_p
+
+    routes = {"tet_lagrange8": (tab, lag8, {"K1": rec, "K2": mm}),
+              "tet_lagrange8 bernstein": (bern, lag8, {"K8": feat, "K2": bmm}),
+              "hdiv_hcurl_tet": (htab, hdiv, {"K1": hrec, "K2": hmm})}
+    launches, host = {}, {}
+    for name, (t, zoo, engines) in routes.items():
+        launches[name], host[name] = run_main_path(name, t, zoo, pts3, torch, np, engines)
+        if launches[name] != {k: 1 for k in engines}:
+            fail(f"{name}: one pass must launch each of {sorted(engines)} once: {launches[name]}")
+
+    phi, feats, hphi = rec(P), feat(P), hrec(P)
+    k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
+    k8_ms, k8_plain = median_ms(lambda: feat(P), torch), median_ms(lambda: feat.plain(P), torch)
+    k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), median_ms(lambda: mm.plain(phi), torch)
+    A, hA = mm.A.to(phi.device), hmm.A.to(phi.device)
+    k2_lib = median_ms(lambda: torch.matmul(A, phi), torch)     # one cuBLAS DGEMM
+    bk2_ms = median_ms(lambda: bmm(feats), torch)
+    hk1_ms = median_ms(lambda: hrec(P), torch)
+    hk2_ms, hk2_plain = median_ms(lambda: hmm(hphi), torch), median_ms(lambda: hmm.plain(hphi),
+                                                                     torch)
+    hk2_lib = median_ms(lambda: torch.matmul(hA, hphi[:hmm.max_k]), torch)
+    del phi, feats, hphi, A, hA
+    path = {name: median_ms(lambda t=t: t.block_tables(P), torch)
+            for name, (t, _, _) in routes.items()}
+    plain = {"tet_lagrange8": median_ms(lambda: mm.plain(rec.plain(P)), torch),
+             "tet_lagrange8 bernstein": median_ms(lambda: bmm.plain(feat.plain(P)), torch),
+             "hdiv_hcurl_tet": median_ms(lambda: hmm.plain(hrec.plain(P)), torch)}
+    for name, (t, _, _) in routes.items():
+        gbytes = t.matmul.total_rows * NPTS * 8 / 1e9
+        print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
+              f"{path[name]:.4f} ms, plain path {plain[name]:.4f} ms; a pass writes "
+              f"{gbytes:.3f} GB = {gbytes / path[name]:.3f} TB/s; host error "
+              f"{host[name]:.3e}")
+    k2_tflops = matmul_flops(mm, NPTS) / k2_ms / 1e9
+    print(f"tet kernels ({card}; CUDA events): K1 sd 3 degree 8 {k1_ms:.4f} ms (plain "
+          f"{k1_plain:.4f}); K8 {k8_ms:.4f} ms (plain {k8_plain:.4f}); faster B operand: "
+          f"{'K8' if k8_ms < k1_ms else 'K1'} by {max(k1_ms, k8_ms) / min(k1_ms, k8_ms):.2f}x; "
+          f"K2 K 165 {k2_ms:.4f} ms = {k2_tflops:.2f} TFLOP/s (plain {k2_plain:.4f}, cuBLAS "
+          f"DGEMM {k2_lib:.4f}), on the Bernstein route {bk2_ms:.4f}; hdiv_hcurl_tet K1 "
+          f"{hk1_ms:.4f} ms, K2 {hk2_ms:.4f} ms (plain {hk2_plain:.4f}, one padded DGEMM "
+          f"{hk2_lib:.4f})")
+
+    src = "fiat_tpu_torch/csrc/"
+    return [
+        entry("K1 dubiner3_values (tet_lagrange8)", src + "recurrence.cu",
+              "fiat_tpu/ops/pallas_recurrence.py:399", launches["tet_lagrange8"]["K1"], k1_abs,
+              k1_ms, k1_plain, rec_bound(rec, NPTS)),
+        entry("K2 bucket_matmul (tet_lagrange8, K 165)", src + "bucket_matmul.cu",
+              "fiat_tpu/ops/pallas_multiword.py:269", launches["tet_lagrange8"]["K2"], k2_abs,
+              k2_ms, k2_plain, matmul_bound(mm, NPTS), k2_lib),
+        entry("K8 bernstein_features (tet_lagrange8)", src + "bernstein.cu",
+              "fiat_tpu/ops/pallas_bernstein.py:288", launches["tet_lagrange8 bernstein"]["K8"],
+              k8_abs, k8_ms, k8_plain, features_bound(feat, NPTS)),
+        entry("K2 bucket_matmul (hdiv_hcurl_tet)", src + "bucket_matmul.cu",
+              "fiat_tpu/ops/pallas_multiword.py:269", launches["hdiv_hcurl_tet"]["K2"], hk2_abs,
+              hk2_ms, hk2_plain, matmul_bound(hmm, NPTS), hk2_lib),
+    ]
 
 
 def main():
@@ -477,6 +721,8 @@ def main():
     del tab64
     kernels += moments_phase(T, dev, pts2, P, card, torch, np)
     kernels += f32_phase(T, dev, P, ref64, card, torch)
+    del ref64
+    kernels += tet_phase(dev, card, torch, np)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

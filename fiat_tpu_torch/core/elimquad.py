@@ -1,8 +1,8 @@
 """General (asymmetric) positive-weight simplex quadrature.
 
 Counterpart of ``fiat_tpu/core/elimquad.py``: node-elimination rules with
-strictly positive weights, stored in ``fiat_tpu/core/triquad_data.py`` and
-``tetquad_data.py`` (read by file path, ``quad_tables``) as degree ->
+strictly positive weights, stored in ``core/triquad_data.py`` and
+``tetquad_data.py`` (loaded on first use, ``quad_tables``) as degree ->
 (barycentric points flat, weights); weights integrate over the UFC
 reference simplex (sum = 1/d!) and are rescaled by ref_el.volume() * d!
 on mapping, the same contract as ``symquad``.

@@ -1,25 +1,15 @@
-"""The generated quadrature tables, loaded by file path.
+"""The generated quadrature tables.
 
-``fiat_tpu/core/{tri,tet,sym}quad_data.py`` are pure data (about 18.9k
-lines, no imports): the port reads them where they lie instead of keeping
-a second copy, without importing the ``fiat_tpu`` package.
+``core/{tri,tet,sym}quad_data.py`` are pure data (about 18.9k lines, no
+imports), kept in the port as copies of the JAX package's modules of the
+same names (``tests/test_torch_quadrature.py`` holds them equal).  They
+are large, so they are imported on first use, not with the package.
 """
 
-import functools
-import importlib.util
-from pathlib import Path
-
-DATA_DIR = Path(__file__).resolve().parents[2] / "fiat_tpu" / "core"
+import importlib
 
 
-@functools.lru_cache(maxsize=None)
 def load_table(name):
     """The data module ``name`` (``triquad_data``, ``tetquad_data`` or
-    ``symquad_data``), executed from its file."""
-    path = DATA_DIR / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"fiat_tpu_torch.core._{name}", path)
-    if spec is None or not path.is_file():
-        raise FileNotFoundError(f"quadrature table {path} is missing")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    ``symquad_data``) of this package."""
+    return importlib.import_module(f"{__package__}.{name}")

@@ -2,7 +2,7 @@
 
 Counterpart of ``fiat_tpu/core/symquad.py``: rules are stored as symmetry
 ORBITS of the simplex's permutation group (barycentric generators plus one
-weight per orbit) in ``fiat_tpu/core/symquad_data.py``, read by file path
+weight per orbit) in ``core/symquad_data.py``, loaded on first use
 (``quad_tables``), and expanded to points and weights on demand.
 
 Orbit types (barycentric):

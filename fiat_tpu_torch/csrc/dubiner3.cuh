@@ -1,0 +1,106 @@
+// The per-point Dubiner value recurrence on the tetrahedron, used by K1
+// (recurrence.cu, which writes Phi to device memory).
+//
+// dubiner3_point<N>(x0, x1, x2, consts, scale, emit) runs the three-stage
+// Kirby recurrence in f64 at one point (x0, x1, x2) of the default (-1, 1)
+// tetrahedron and calls emit(e, value) once for every stage-2 entry e:
+// stage-1 row (p, q), p = 0..N, q = 0..N-p, then level r = 0..N-p-q,
+// row-major in (p, q, r).  The entry's member is the morton row of
+// (p, q, r) (ops/recurrence.py:pack_stages(N, sd=3) builds it as `slots`).
+//
+// At degree 8 a point has 165 values, more than a thread's 255 registers
+// hold, so nothing of Phi is kept: the stage-0 output (N+1 values) stays in
+// a register array, each stage-1 row runs its three-term recurrence over q
+// holding two levels, and every stage-1 value starts a stage-2 chain over r
+// (two levels again) whose values go straight to the emitter.  The live
+// state is the N+1 stage-0 values plus four doubles.  With N a template
+// parameter and the loops unrolled, the entry counters are compile-time
+// constants, so the constant loads carry immediate offsets.
+//
+// Constant layout (ops/recurrence.py:pack_stages(N, sd=3)), f64:
+//   consts[4*i + {0,1,2,3}], i = 0..N              stage 0: a, b, c, norm
+//   consts[4*(N+1) + 4*e1 + {0,1,2,3}]            stage 1 entry e1 (p, q)
+//   consts[4*(N+1) + 4*nexp2 + 4*e + {0,1,2,3}]   stage 2 entry e (p, q, r)
+// with nexp2 = (N+1)(N+2)/2.  N == 0 calls emit(0, scale) and reads no
+// constants.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fiat {
+
+// one level of a three-term recurrence: (a fa - b fb) prev - (c fc) prev2,
+// with (a, b, c) at c[0..2] (c = 0 at level 1)
+__device__ __forceinline__ double dubiner_step(const double* __restrict__ c, double fa,
+                                               double fb, double fc, double prev,
+                                               double prev2) {
+  return (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
+}
+
+template <int N, class Emit>
+__device__ __forceinline__ void dubiner3_point(double x0, double x1, double x2,
+                                               const double* __restrict__ consts, double scale,
+                                               Emit&& emit) {
+  if constexpr (N == 0) {
+    emit(0, scale);
+  } else {
+    constexpr int kNexp2 = (N + 1) * (N + 2) / 2;
+    // stage 0: the 1D recurrence in the first collapsed coordinate
+    double r0[N + 1];
+    {
+      const double fb = 0.5 * (x1 + x2);
+      const double fa = x0 + fb + 1.0;
+      const double fc = fb * fb;
+      double prev2 = 0.0, prev = scale;
+      r0[0] = prev * __ldg(consts + 3);
+#pragma unroll
+      for (int i = 1; i <= N; ++i) {
+        const double v = dubiner_step(consts + 4 * i, fa, fb, fc, prev, prev2);
+        r0[i] = v * __ldg(consts + 4 * i + 3);
+        prev2 = prev;
+        prev = v;
+      }
+    }
+
+    const double fb1 = 0.5 * (x2 + -1.0);
+    const double fa1 = x1 + fb1 + 1.0;
+    const double fc1 = fb1 * fb1;
+    const double fb2 = 0.5 * (-1.0 + -1.0);
+    const double fa2 = x2 + fb2 + 1.0;
+    const double fc2 = fb2 * fb2;
+    const double* c1 = consts + 4 * (N + 1);
+    const double* c2 = c1 + 4 * kNexp2;
+    int e1 = 0, e = 0;
+#pragma unroll
+    for (int p = 0; p <= N; ++p) {
+      // stage 1, row p: levels q = 0..N-p in the second coordinate
+      double prev2 = 0.0, prev = r0[p];
+#pragma unroll
+      for (int q = 0; q <= N - p; ++q, ++e1) {
+        const double* c = c1 + 4 * e1;
+        double v = prev;
+        if (q > 0) {
+          v = dubiner_step(c, fa1, fb1, fc1, prev, prev2);
+          prev2 = prev;
+          prev = v;
+        }
+        // stage 2, row (p, q): levels r = 0..N-p-q in the third
+        // coordinate, each value straight to the emitter
+        double s2 = 0.0, s = v * __ldg(c + 3);
+        emit(e, s * __ldg(c2 + 4 * e + 3));
+        ++e;
+#pragma unroll
+        for (int r = 1; r <= N - p - q; ++r, ++e) {
+          const double* cc = c2 + 4 * e;
+          const double w = dubiner_step(cc, fa2, fb2, fc2, s, s2);
+          emit(e, w * __ldg(cc + 3));
+          s2 = s;
+          s = w;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace fiat

@@ -1,4 +1,5 @@
-// K1: f64 Dubiner value recurrence on the triangle, writing Phi (nexp, npts).
+// K1: f64 Dubiner value recurrence on the triangle and the tetrahedron,
+// writing Phi (nexp, npts).
 //
 // Replaces the TPU kernel fiat_tpu/ops/pallas_recurrence.py:
 // PallasSliceRecurrence._kernel (emit_slices + slice_split_ff).  That kernel
@@ -8,8 +9,9 @@
 // computes the function itself: plain f64 arithmetic, each value written
 // straight to its morton row, no windows.
 //
-// Bound on the card: the store of Phi, nexp * npts doubles (53 MB at degree
-// 10 and 1e5 points); the arithmetic is ~5 flops per value.  Design: one
+// Bound on the card: the store of Phi, nexp * npts doubles (53 MB on the
+// triangle at degree 10, 132 MB on the tetrahedron at degree 8, at 1e5
+// points); the arithmetic is ~5 flops per value.  Design: one
 // thread per point; Phi is row-major with points contiguous, so every store
 // of a warp is one coalesced 256-byte row segment.  The degree is a template
 // parameter, so the loops unroll and the live state stays in registers:
@@ -17,16 +19,20 @@
 // current row.  The per-(level, row) constants are uniform across the
 // warp and come through the read-only cache.
 //
-// The per-point recurrence lives in dubiner2.cuh (shared with K3, which
-// keeps Phi in registers); its constant layout is documented there.  Here
-//   slots[e]                                   stage 1 entry e: output row
-// (ops/recurrence.py:pack_stages), the morton row of stage-1 entry e.
+// The per-point recurrence lives in dubiner2.cuh (triangle; shared with K3,
+// which keeps Phi in registers) and dubiner3.cuh (tetrahedron: 165 values
+// at degree 8 do not fit a thread's registers, so each stage-2 chain streams
+// its values out holding two levels); the constant layouts are documented
+// there.  Here
+//   slots[e]                                   last-stage entry e: output row
+// (ops/recurrence.py:pack_stages), the morton row of the entry.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "dubiner2.cuh"
+#include "dubiner3.cuh"
 
 namespace {
 
@@ -62,11 +68,42 @@ void launch(const double* pts, int npts, const double* consts, const int* slots,
                                                              scale, phi);
 }
 
+struct Affine3 {
+  double a[9], b[3];
+};
+
+template <int N>
+__global__ void __launch_bounds__(128)
+dubiner3_values_kernel(const double* __restrict__ pts, int npts,
+                       const double* __restrict__ consts,
+                       const int* __restrict__ slots, Affine3 m, double scale,
+                       double* __restrict__ phi) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  const double px = pts[3 * p], py = pts[3 * p + 1], pz = pts[3 * p + 2];
+  // cell map onto the default (-1, 1) tetrahedron: ref = A @ x + b
+  const double x0 = (px * m.a[0] + py * m.a[1] + pz * m.a[2]) + m.b[0];
+  const double x1 = (px * m.a[3] + py * m.a[4] + pz * m.a[5]) + m.b[1];
+  const double x2 = (px * m.a[6] + py * m.a[7] + pz * m.a[8]) + m.b[2];
+  const size_t ld = static_cast<size_t>(npts);
+  fiat::dubiner3_point<N>(x0, x1, x2, consts, scale, [&](int e, double v) {
+    phi[(N == 0 ? 0 : __ldg(slots + e)) * ld + p] = v;
+  });
+}
+
+template <int N>
+void launch3(const double* pts, int npts, const double* consts, const int* slots,
+             const Affine3& m, double scale, double* phi, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (npts + threads - 1) / threads;
+  dubiner3_values_kernel<N><<<blocks, threads, 0, stream>>>(pts, npts, consts, slots, m,
+                                                             scale, phi);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// degree outside 0..15 (the wrapper checks first; K2's shared-memory tile
-// caps the engine at degree 15 anyway).
+// degree outside 0..15 (the wrapper checks first).
 extern "C" int fiat_dubiner2_values(const double* pts, int npts, const double* consts,
                                     const int* slots, double a00, double a01, double a10,
                                     double a11, double b0, double b1, double scale,
@@ -81,6 +118,28 @@ extern "C" int fiat_dubiner2_values(const double* pts, int npts, const double* c
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10) FIAT_CASE(11)
     FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
+#undef FIAT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tetrahedron: degree 0..10 (nexp 286); cudaErrorInvalidValue outside.
+extern "C" int fiat_dubiner3_values(const double* pts, int npts, const double* consts,
+                                    const int* slots, double a00, double a01, double a02,
+                                    double a10, double a11, double a12, double a20,
+                                    double a21, double a22, double b0, double b1, double b2,
+                                    double scale, int degree, double* phi, void* stream) {
+  const Affine3 m{{a00, a01, a02, a10, a11, a12, a20, a21, a22}, {b0, b1, b2}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+#define FIAT_CASE(n) \
+  case n:            \
+    launch3<n>(pts, npts, consts, slots, m, scale, phi, s); \
+    break;
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
 #undef FIAT_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

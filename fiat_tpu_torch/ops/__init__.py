@@ -8,21 +8,25 @@ the kernel engine on the requested device.
 def device_tabulator(elements, order=0, f64=True, device=None):
     """The kernel engine for a zoo of nodal elements sharing a reference
     cell, plain and macro, tabulating derivatives up to ``order`` on
-    ``device`` (CPU when None: the kernels' plain PyTorch versions; a CUDA
-    device: the CUDA kernels).
+    ``device``: the current CUDA card when None (raising without one), the
+    CUDA kernels on a CUDA device, their plain PyTorch versions only where
+    the caller asks for ``device="cpu"``.
 
     * ``f64=True``: ``fused_zoo.FusedZooTabulator`` (K1, K2, K3) in
-      float64; ``tab.block_tables(points)`` gives per-group blocks and
-      ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
+      float64, on triangles and tetrahedra; ``tab.block_tables(points)``
+      gives per-group blocks and ``tab.unpack(blocks)`` the per-element
+      dicts of ``el.tabulate``.
     * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``
-      (K6, and K3 in float32 for macro elements); ``tab.tables(points)``
-      gives the whole zoo's float32 tables.
+      (K6, and K3 in float32 for macro elements), triangles only;
+      ``tab.tables(points)`` gives the whole zoo's float32 tables.
 
     Never returns a slower engine in place of the one asked for: what is
     not ported yet raises ``NotImplementedError``."""
+    from .kernels import resolve_device
     from .tabulate import BatchedTabulator
+    device = resolve_device(device)
     # the plain engine stays on the host: it only supplies the arrays
-    batched = BatchedTabulator(elements, order=order)
+    batched = BatchedTabulator(elements, order=order, device="cpu")
     if not f64:
         from .f32_zoo import F32ZooTabulator
         return F32ZooTabulator(batched, device=device)

@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from ..core.expansions import _c0_matrix, dubiner_tabulate
-from .fused_zoo import _merge_macro_programs, group_by_width, pack_rows
-from .kernels import check_launch, load_kernels, no_tf32, stream_of
+from .fused_zoo import _merge_macro_programs, group_by_width, pack_rows, transposed_tiles
+from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream_of
 from .macro_oneshot import MacroOneShot
 from .recurrence import pack_stages
 
@@ -41,8 +41,10 @@ class ZooF32Kernel:
     given, on the cell mapped onto the default triangle by ``affine_map``.
 
     Rows are packed back to back, zero-padded to the widest K and cut into
-    64-row tiles (K2's layout).  ``launches`` counts kernel launches (the
-    plain CPU path adds nothing)."""
+    64-row tiles (K2's layout).  The kernel reads the tiles transposed
+    (``At``, on the device); the packed rows ``A`` serve the plain version
+    only and live where it last ran.  ``launches`` counts kernel launches
+    (the plain CPU path adds nothing)."""
 
     #: rows of one kernel tile and points of one block (csrc/zoo_f32.cu, TR, TP)
     TILE_ROWS = 64
@@ -68,19 +70,17 @@ class ZooF32Kernel:
         if self.affine.shape != (6,):
             raise NotImplementedError("K6 covers triangles (sd = 2) only; the sd = 3 stage "
                                       "of the recurrence is queued in ROADMAP.md")
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         # every row tile transposed, (tile, k, row), for the kernel's loads
-        At = np.zeros((len(tiles), self.max_k, self.TILE_ROWS))
-        for t, (r0, n, _) in enumerate(tiles):
-            At[t, :, :n] = packed[r0:r0 + n].T
-        self.A = torch.as_tensor(packed, device=self.device).float()
-        self.At = torch.as_tensor(At, device=self.device).float()
+        self.A = torch.as_tensor(packed).float()
+        self.At = torch.as_tensor(transposed_tiles(packed, tiles, self.TILE_ROWS),
+                                  device=self.device).float()
         self.tiles = torch.as_tensor(tiles, device=self.device)
         # shared memory of a block: the Phi tile and one transposed A tile
         self.smem = 4 * (self.nexp * self.TILE_POINTS + self.max_k * (self.TILE_ROWS + 4))
         self.consts = torch.as_tensor(pack_stages(self.degree, variant)[0],
                                       device=self.device).float()
-        self.device = self.A.device       # "cuda" resolved to its index
+        self.device = self.At.device       # "cuda" resolved to its index
         self.launches = 0
 
     def _check(self, points, dst, out):
@@ -142,7 +142,8 @@ class ZooF32Kernel:
         ref = points @ Af.T + points.new_tensor(self.affine[4:])
         phi = dubiner_tabulate(2, self.degree, [ref[:, 0], ref[:, 1]], self.scale,
                                variant=self.variant, raw=True)
-        A, dst = self.A.to(points.device), dst.long()
+        self.A = A = self.A.to(points.device)
+        dst = dst.long()
         with no_tf32():
             for off, K, rows in zip(self.offsets, self.K, self.group_rows):
                 out[dst[off:off + rows]] = A[off:off + rows, :K] @ phi[:K]
@@ -161,7 +162,7 @@ class F32ZooTabulator:
     without macro elements) carry the launch counts."""
 
     def __init__(self, batched, device=None):
-        self._setup(**batched.state(), device=batched.device if device is None else device)
+        self._setup(**batched.state(), device=device)
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, max_degree, scale, affine_map,
@@ -181,12 +182,12 @@ class F32ZooTabulator:
 
     def _setup(self, stacked, alpha_mats, slices, max_degree, scale, affine_map, plain_nexp,
                macro_programs, device, variant=None):
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.sd = np.asarray(affine_map[0]).shape[0]
         if self.sd != 2:
             raise NotImplementedError(
-                f"The CUDA f32 engine covers triangles (sd=2), not sd={self.sd}; "
-                "tetrahedra are queued in ROADMAP.md")
+                f"The CUDA f32 engine covers triangles (sd=2), not sd={self.sd}: K6's "
+                "sd = 3 stage (tetrahedra) is queued in ROADMAP.md")
         if variant not in VARIANTS:
             raise NotImplementedError(f"expansion variant {variant!r}: K6 takes {VARIANTS}")
         stacked = np.asarray(stacked, np.float64)

@@ -1,10 +1,14 @@
-"""The fused zoo engine: K1 recurrence + K2 bucketed change of basis + K3
-macro elements.
+"""The fused zoo engine: K1 recurrence (or K8 Bernstein features) + K2
+bucketed change of basis + K3 macro elements.
 
 Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedZooTabulator``
 over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
 
-  1. K1 (``recurrence.DubinerRecurrence``): Phi (nexp, npts) in f64;
+  1. K1 (``recurrence.DubinerRecurrence``): Phi (nexp, npts) in f64, on
+     triangles and tetrahedra; or, with ``features="bernstein"`` on a zoo
+     of one contraction width and no macro elements, K8
+     (``bernstein.BernsteinFeatures``): the Bernstein features, with the
+     Dubiner <- Bernstein conversion folded into K2's rows on the host;
   2. K2 (``BucketMatmul``, ``csrc/bucket_matmul.cu``): for every group of
      zoo rows sharing a contraction width K_g (a degree-d element only
      touches the degree-d morton prefix of the basis), the alpha-stacked
@@ -27,7 +31,8 @@ kernel or raises.
 import numpy as np
 import torch
 
-from .kernels import check_launch, load_kernels, stream_of
+from .bernstein import BernsteinFeatures, bernstein_operand
+from .kernels import check_launch, load_kernels, resolve_device, stream_of
 from .macro_oneshot import MacroOneShot
 from .recurrence import DubinerRecurrence
 
@@ -51,6 +56,16 @@ def pack_rows(mats, tile_rows):
     return packed, np.asarray(tiles, np.int32).reshape(-1, 3), K, rows, offsets
 
 
+def transposed_tiles(packed, tiles, tile_rows):
+    """Every row tile of ``pack_rows``' output transposed, zero-padded to
+    ``tile_rows`` rows: (ntiles, max K, tile_rows), the layout the kernels
+    copy a tile into shared memory from."""
+    At = np.zeros((len(tiles), packed.shape[1], tile_rows))
+    for t, (r0, n, _) in enumerate(tiles):
+        At[t, :, :n] = packed[r0:r0 + n].T
+    return At
+
+
 class BucketMatmul:
     """``mm = BucketMatmul([A_g ...], device)``; ``C = mm(phi)`` is the
     (sum_g rows_g, npts) float64 stack of A_g @ phi[:K_g], K_g =
@@ -59,19 +74,25 @@ class BucketMatmul:
     The rows of all groups are packed back to back, zero-padded to the
     widest K, and cut into 64-row tiles, each contracting up to the widest
     row it holds (the padding is exact zeros): one launch covers every
-    group.  ``launches`` counts kernel launches (the plain CPU path adds
-    nothing).
+    group, up to the widest K the kernel's shared memory takes (438,
+    ``csrc/bucket_matmul.cu`` ``plan``, which refuses wider ones).  The
+    kernel reads the tiles transposed (``At``, on the device); the packed
+    rows ``A`` serve the plain version only and live where it last ran.
+    ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
 
     #: rows of one kernel tile (csrc/bucket_matmul.cu, TR)
     TILE_ROWS = 64
 
     def __init__(self, mats, device=None):
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         packed, tiles, self.K, self.rows, self.offsets = pack_rows(mats, self.TILE_ROWS)
         self.total_rows, self.max_k = packed.shape
-        self.A = torch.as_tensor(packed, device=self.device)
+        self.A = torch.as_tensor(packed)
+        self.At = torch.as_tensor(transposed_tiles(packed, tiles, self.TILE_ROWS),
+                                  device=self.device)
         self.tiles = torch.as_tensor(tiles, device=self.device)
+        self.device = self.At.device       # "cuda" resolved to its index
         self.launches = 0
 
     def _check(self, phi):
@@ -90,25 +111,25 @@ class BucketMatmul:
         self._check(phi)
         if phi.device.type == "cpu":
             return self.plain(phi)
-        if phi.device.type != "cuda" or phi.device != self.A.device:
-            raise ValueError(f"phi on {phi.device}, engine on {self.A.device}")
+        if phi.device.type != "cuda" or phi.device != self.device:
+            raise ValueError(f"phi on {phi.device}, engine on {self.device}")
         npts = phi.shape[1]
         C = torch.empty((self.total_rows, npts), dtype=torch.float64, device=phi.device)
         if npts == 0:
             return C
         lib = load_kernels()
-        err = lib.fiat_bucket_matmul(self.A.data_ptr(), self.max_k, self.tiles.data_ptr(),
+        err = lib.fiat_bucket_matmul(self.At.data_ptr(), self.max_k, self.tiles.data_ptr(),
                                      self.tiles.shape[0], phi.data_ptr(), npts, npts,
                                      C.data_ptr(), stream_of(phi))
-        # a contraction width whose shared-memory tile exceeds the card's
-        # limit fails here, at the kernel's cudaFuncSetAttribute
+        # a contraction width past what shared memory takes is refused here,
+        # by the C entry
         check_launch(f"fiat_bucket_matmul (contraction width {self.max_k})", err)
         self.launches += 1
         return C
 
     def plain(self, phi):
         """The same product in plain PyTorch: one f64 matmul per group."""
-        A = self.A.to(phi.device)
+        self.A = A = self.A.to(phi.device)
         C = torch.empty((self.total_rows, phi.shape[1]), dtype=torch.float64, device=phi.device)
         for off, K, rows in zip(self.offsets, self.K, self.rows):
             torch.matmul(A[off:off + rows, :K], phi[:K], out=C[off:off + rows])
@@ -127,15 +148,23 @@ class FusedZooTabulator:
     and ``fz.unpack(blocks)`` the per-element dicts of
     ``el.tabulate(order, points)``; ``fz(points)`` gives {alpha: (rows,
     npts)} in the row order of ``BatchedTabulator``.  ``fz.recurrence``
-    (K1), ``fz.matmul`` (K2) and ``fz.macro`` (K3; None without macro
-    elements) carry the launch counts."""
+    (K1; None on the Bernstein route), ``fz.features`` (K8; None on the
+    Dubiner route), ``fz.matmul`` (K2) and ``fz.macro`` (K3; None without
+    macro elements) carry the launch counts.
 
-    def __init__(self, batched, device=None):
-        self._setup(**batched.state(), device=batched.device if device is None else device)
+    ``features``: "auto" or "dubiner" (the default) feed K2 from the
+    recurrence; "bernstein" from the Bernstein features, with the
+    conversion folded into K2's rows in longdouble (fiat_tpu's
+    ``_Bucket(post=M)``).  The Bernstein route needs one contraction width
+    and no macro elements; elsewhere it raises ``ValueError`` (fiat_tpu
+    keeps the recurrence there without saying so)."""
+
+    def __init__(self, batched, device=None, features="auto"):
+        self._setup(**batched.state(), device=device, features=features)
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-                    affine_map, macro_programs=(), device=None):
+                    affine_map, macro_programs=(), features="auto", device=None):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``BatchedTabulator.state()``, or fiat_tpu's ``BatchedTabulator``
         attributes of the same names): ``stacked`` (plain rows, nexp);
@@ -149,12 +178,15 @@ class FusedZooTabulator:
         self = cls.__new__(cls)
         self._setup(stacked=stacked, alpha_mats=alpha_mats, slices=slices,
                     plain_nexp=plain_nexp, max_degree=max_degree, scale=scale,
-                    affine_map=affine_map, macro_programs=macro_programs, device=device)
+                    affine_map=affine_map, macro_programs=macro_programs, device=device,
+                    features=features)
         return self
 
     def _setup(self, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-               affine_map, macro_programs, device):
-        self.device = torch.device("cpu" if device is None else device)
+               affine_map, macro_programs, device, features):
+        if features not in ("auto", "dubiner", "bernstein"):
+            raise ValueError(f"features {features!r}: 'auto', 'dubiner' or 'bernstein'")
+        self.device = resolve_device(device)
         A, _ = affine_map
         self.sd = np.asarray(A).shape[0]
         mats = dict(alpha_mats) or {(0,) * self.sd: stacked}
@@ -173,9 +205,21 @@ class FusedZooTabulator:
 
         self.widths, group_mats, self._loc, self.group_rows, _ = group_by_width(
             mats, self.alphas, self.slices, plain_nexp)
-        self.recurrence = DubinerRecurrence(self.sd, max_degree, scale, affine_map, self.device)
+        self.recurrence = self.features = None
+        if features == "bernstein":
+            if len(self.widths) != 1 or self.special:
+                raise ValueError(
+                    "features='bernstein' needs a zoo of one contraction width and no macro "
+                    f"elements (Bernstein features are not degree-graded); this zoo has widths "
+                    f"{self.widths} and {len(self.special)} macro elements")
+            M, bary = bernstein_operand(self.sd, max_degree, scale, affine_map)
+            group_mats = [np.asarray(np.asarray(group_mats[0], np.longdouble) @ M, np.float64)]
+            self.features = BernsteinFeatures(self.sd, max_degree, bary, self.device)
+        else:
+            self.recurrence = DubinerRecurrence(self.sd, max_degree, scale, affine_map,
+                                                self.device)
         self.matmul = BucketMatmul(group_mats, self.device)
-        self.device = self.matmul.A.device      # "cuda" resolved to its index
+        self.device = self.matmul.device      # "cuda" resolved to its index
         self.macro = None
         self._programs = list(macro_programs)
         if self._programs:
@@ -198,7 +242,8 @@ class FusedZooTabulator:
         element (rows_e, npts) block...]} (views into the kernels'
         outputs); ``unpack`` maps them to per-element dicts."""
         pts = self._points(points)
-        blocks = self.matmul.views(self.matmul(self.recurrence(pts)))
+        basis = self.recurrence(pts) if self.features is None else self.features(pts)
+        blocks = self.matmul.views(self.matmul(basis))
         out = {a: [blk[k * r:(k + 1) * r] for blk, r in zip(blocks, self.group_rows)]
                for k, a in enumerate(self.alphas)}
         if self.macro is not None:

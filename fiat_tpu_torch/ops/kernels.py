@@ -12,7 +12,8 @@ Without ``nvcc`` (a CPU-only machine) ``load_kernels`` raises
 Every C entry point takes raw device pointers plus the caller's CUDA
 stream, launches, and returns ``cudaGetLastError()``; the wrappers
 (``recurrence.py``, ``fused_zoo.py``, ``macro_oneshot.py``,
-``moment_kernel.py``, ``f32_zoo.py``) raise when it is not 0.
+``moment_kernel.py``, ``f32_zoo.py``, ``bernstein.py``) raise when it is
+not 0.
 """
 
 import contextlib
@@ -39,7 +40,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # pts, npts, consts, slots, affine[6], scale, degree, phi, stream
     "fiat_dubiner2_values": [_P, _I, _P, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _P],
-    # A, lda, tiles, ntiles, phi, ldphi, npts, C, stream
+    # pts, npts, consts, slots, affine[12], scale, degree, phi, stream
+    "fiat_dubiner3_values": [_P, _I, _P, _P, *[_D] * 12, _D, _I, _P, _P],
+    # pts, npts, sd, degree, bary, coef, out, stream
+    "fiat_bernstein_features": [_P, _I, _I, _I, _P, _P, _P, _P],
+    # At, kmax, tiles, ntiles, phi, ldphi, npts, C, stream
     "fiat_bucket_matmul": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
     # pts, npts, consts, affine[6], scale, tol, degree, maps, npieces, progs,
     # nprogs, pieces, A, rows, K, out, stream (in f64 / in f32)
@@ -124,6 +129,19 @@ def _build(nvcc, sources, lib_path):
         for obj in objs:
             obj.unlink(missing_ok=True)
     return log
+
+
+def resolve_device(device):
+    """The device of an engine or kernel wrapper: the one asked for, else
+    the current CUDA card.  Without a card a missing device raises: the
+    plain PyTorch versions run only where the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: fiat_tpu_torch runs on the card unless asked otherwise; "
+            "pass device=\"cpu\" for the kernels' plain PyTorch versions")
+    return torch.device("cuda")
 
 
 def check_launch(name, err):

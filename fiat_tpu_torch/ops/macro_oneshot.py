@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.expansions import dubiner_tabulate, subcell_masks
-from .kernels import check_launch, load_kernels, no_tf32, stream_of
+from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream_of
 from .recurrence import pack_stages
 
 #: highest parent degree the kernel is instantiated for (csrc/macro_oneshot.cu)
@@ -107,7 +107,7 @@ class MacroOneShot:
         Af, bf = affine_map
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
 
         def as_t(a, dt=dtype):
             return torch.as_tensor(np.ascontiguousarray(a), device=self.device).to(dt)

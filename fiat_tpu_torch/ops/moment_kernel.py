@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core.expansions import dubiner_tabulate, subcell_masks
-from .kernels import check_launch, load_kernels, stream_of
+from .kernels import check_launch, load_kernels, resolve_device, stream_of
 from .macro_oneshot import BINNING_TOL, pack_geometry
 from .recurrence import pack_stages
 
@@ -55,6 +55,12 @@ class PairMoments:
 
     def __init__(self, degree, nplain, scale, affine_map, geom=(), parent_map=None, pieces=(),
                  device=None):
+        Af, bf = affine_map
+        self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
+                                      np.asarray(bf, np.float64).ravel()])
+        if self.affine.shape != (6,):
+            raise NotImplementedError("K45 covers triangles (sd = 2) only; its sd = 3 stage "
+                                      "(tetrahedra) is queued in ROADMAP.md")
         self.degree = int(degree)
         if not 0 <= self.degree <= MAX_DEGREE:
             raise NotImplementedError(f"moments degree {degree} outside 0..{MAX_DEGREE}")
@@ -69,12 +75,7 @@ class PairMoments:
         if self.rows > MAX_ROWS:
             raise NotImplementedError(f"{self.rows} moment rows: K45 keeps at most {MAX_ROWS}")
         self.scale = float(scale)
-        Af, bf = affine_map
-        self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
-                                      np.asarray(bf, np.float64).ravel()])
-        if self.affine.shape != (6,):
-            raise NotImplementedError("K45 covers triangles (sd = 2) only")
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
 
         def as_t(a, dtype=torch.float64):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)

@@ -15,14 +15,15 @@ into a one-row change of basis per macro program.  The small products
 around them stay ``torch.matmul``, as fiat_tpu leaves them to XLA.
 
 The engine is built once per tabulator and cached on it; it runs on
-``tabulator.device`` (a CUDA device: the kernels; the CPU: their plain
-PyTorch versions).
+``tabulator.device`` (a CUDA device, the default: the kernels; the CPU,
+where the tabulator was asked for it: their plain PyTorch versions).
 """
 
 import numpy as np
 import torch
 
 from .fused_zoo import _merge_macro_programs
+from .kernels import resolve_device
 from .macro_oneshot import MacroOneShot
 from .moment_kernel import PairMoments
 from .recurrence import DubinerRecurrence
@@ -36,7 +37,7 @@ class MomentEngine:
     macro elements) carry the launch counts."""
 
     def __init__(self, batched, device=None):
-        self._setup(**batched.state(), device=batched.device if device is None else device)
+        self._setup(**batched.state(), device=device)
 
     @classmethod
     def from_arrays(cls, *, stacked, slices, max_degree, scale, affine_map, macro_programs=(),
@@ -54,7 +55,7 @@ class MomentEngine:
 
     def _setup(self, stacked, slices, max_degree, scale, affine_map, macro_programs, device,
                alpha_mats=None, plain_nexp=None):
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         stacked = np.asarray(stacked, np.float64)
         self.plain_rows, self.nexp = stacked.shape
         self.slices = [(int(lo), int(hi), tuple(shape)) for lo, hi, shape in slices]
@@ -126,7 +127,7 @@ def moment_engine(tabulator):
     on it (fiat_tpu caches its moment kernels the same way)."""
     eng = getattr(tabulator, "_moment_engine", None)
     if eng is None:
-        eng = tabulator._moment_engine = MomentEngine(tabulator)
+        eng = tabulator._moment_engine = MomentEngine(tabulator, device=tabulator.device)
     return eng
 
 

@@ -1,4 +1,5 @@
-"""K1: the Dubiner value recurrence as a hand-written CUDA kernel.
+"""K1: the Dubiner value recurrence as a hand-written CUDA kernel, on
+triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_recurrence.py``
 (``PallasSliceRecurrence``).  The TPU kernel emits the expansion
@@ -12,49 +13,65 @@ The plain version beside it is the torch path of
 only.  For a CUDA tensor it launches the kernel or raises.
 """
 
+import math
+
 import numpy as np
 import torch
 
 from ..core.expansions import _stage_constants, dubiner_tabulate
-from .kernels import check_launch, load_kernels, stream_of
+from .kernels import check_launch, load_kernels, resolve_device, stream_of
 
-#: highest degree the kernel is instantiated for (csrc/recurrence.cu); the
-#: kernel engine cannot pass it anyway, since K2's shared-memory tile caps the
-#: contraction width at 149 (degree 15: 136, degree 16: 153)
-MAX_DEGREE = 15
+#: highest degree the kernel is instantiated for, per spatial dimension
+#: (csrc/recurrence.cu): nexp 136 on the triangle, 286 on the tetrahedron,
+#: both inside the widest contraction K2 takes (438)
+MAX_DEGREE = {2: 15, 3: 10}
 
 
-def pack_stages(degree, variant=None):
-    """Host-packed constants of the triangle recurrence for the kernels:
-    (consts f64, slots int32) in the layout ``csrc/dubiner2.cuh``
-    documents.  Stage 0 runs on one row (its output is the identity
-    permutation of its levels); stage-1 entries are (input row r, level i)
-    with r + i <= degree, row-major, each with its morton output row.  The
-    expansion variants ("bubble", "dual") keep the stage structure and the
-    morton rows; their recurrence coefficients and norms differ."""
+def pack_stages(degree, variant=None, sd=2):
+    """Host-packed constants of the Dubiner recurrence for the kernels:
+    (consts f64, slots int32) in the layout ``csrc/dubiner2.cuh`` (sd = 2)
+    or ``csrc/dubiner3.cuh`` (sd = 3) documents.  Stage 0 runs on one row
+    (its output is the identity permutation of its levels); every later
+    stage's entries are (input row, level) pairs, input rows in the order
+    of their multi-indices (p, then q), levels innermost, each with the
+    (a, b, c) of its level and the norm of its output row.  ``slots`` gives
+    the last stage's entries their morton output rows.  The expansion
+    variants ("bubble", "dual") keep the stage structure and the morton
+    rows; their recurrence coefficients and norms differ."""
+    if sd not in (2, 3):
+        raise NotImplementedError(f"the recurrence kernels cover sd = 2 and 3, not sd = {sd}")
     n = degree
-    consts = []
     if n == 0:
         return np.zeros(4), np.zeros(1, np.int32)
-    a1, b1, general, perm, norms = _stage_constants(2, n, 0, variant)
+    a1, b1, general, perm, norms = _stage_constants(sd, n, 0, variant)
     if not np.array_equal(perm, np.arange(n + 1)):
         raise AssertionError("stage-0 output is expected in level order")
-    for i in range(n + 1):
-        a, b, c = _level_coeffs(a1, b1, general, i, 0)
-        consts.append((a, b, c, norms[i, 0]))
+    consts = [(*_level_coeffs(a1, b1, general, i, 0), norms[i, 0]) for i in range(n + 1)]
 
-    a1, b1, general, perm, norms = _stage_constants(2, n, 1, variant)
-    m_in = n + 1
-    slot_of = {int(p): j for j, p in enumerate(perm)}
+    # stage 1: input row p (stage 0's level p), level q
+    a1, b1, general, perm, norms = _stage_constants(sd, n, 1, variant)
+    slot1 = {int(v): j for j, v in enumerate(perm)}     # q * (n + 1) + p -> output rank
     slots = []
-    for r in range(n + 1):
-        for i in range(n + 1 - r):
-            j = slot_of[i * m_in + r]
-            a, b, c = _level_coeffs(a1, b1, general, i, r)
-            consts.append((a, b, c, norms[j, 0]))
+    for p in range(n + 1):
+        for q in range(n + 1 - p):
+            j = slot1[q * (n + 1) + p]
+            consts.append((*_level_coeffs(a1, b1, general, q, p), norms[j, 0]))
             slots.append(j)
+    if sd == 3:
+        # stage 2: input row (p, q) (stage 1's output rank), level r
+        m_in = len(perm)
+        a1, b1, general, perm, norms = _stage_constants(sd, n, 2, variant)
+        slot2 = {int(v): j for j, v in enumerate(perm)}     # r * m_in + row -> output rank
+        slots = []
+        for p in range(n + 1):
+            for q in range(n + 1 - p):
+                row = slot1[q * (n + 1) + p]
+                for r in range(n + 1 - p - q):
+                    j = slot2[r * m_in + row]
+                    consts.append((*_level_coeffs(a1, b1, general, r, row), norms[j, 0]))
+                    slots.append(j)
     if sorted(slots) != list(range(len(perm))):
-        raise AssertionError("stage-1 entries must cover every member once")
+        raise AssertionError("the last stage's entries must cover every member once")
     return np.asarray(consts, np.float64).ravel(), np.asarray(slots, np.int32)
 
 
@@ -69,30 +86,31 @@ def _level_coeffs(a1, b1, general, i, r):
 
 
 class DubinerRecurrence:
-    """``rec = DubinerRecurrence(2, degree, scale, (A, b), device)``;
+    """``rec = DubinerRecurrence(sd, degree, scale, (A, b), device)``;
     ``phi = rec(points)`` is the (nexp, npts) float64 tabulation of the
-    plain orthonormal Dubiner basis at ``points`` (npts, 2), float64,
-    contiguous, mapped onto the default triangle by ``ref = A @ x + b``.
+    plain orthonormal Dubiner basis at ``points`` (npts, sd), float64,
+    contiguous, mapped onto the default simplex by ``ref = A @ x + b``;
+    sd is 2 (triangle) or 3 (tetrahedron).
 
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
 
     def __init__(self, sd, degree, scale, affine_map, device=None):
-        if sd != 2:
+        if sd not in MAX_DEGREE:
             raise NotImplementedError(
-                f"The CUDA recurrence covers triangles (sd=2), not sd={sd}; "
-                "tetrahedra are queued in ROADMAP.md")
-        if not 0 <= degree <= MAX_DEGREE:
-            raise NotImplementedError(f"degree {degree} outside 0..{MAX_DEGREE}")
+                f"The CUDA recurrence covers triangles and tetrahedra (sd = 2, 3), not sd={sd}")
+        if not 0 <= degree <= MAX_DEGREE[sd]:
+            raise NotImplementedError(
+                f"degree {degree} outside 0..{MAX_DEGREE[sd]} for sd = {sd}")
         self.sd = sd
         self.degree = degree
         self.scale = float(scale)
-        self.nexp = (degree + 1) * (degree + 2) // 2
+        self.nexp = math.comb(degree + sd, sd)
         A, b = affine_map
         self.A = np.asarray(A, np.float64).reshape(sd, sd)
         self.b = np.asarray(b, np.float64).reshape(sd)
-        self.device = torch.device("cpu" if device is None else device)
-        consts, slots = pack_stages(degree)
+        self.device = resolve_device(device)
+        consts, slots = pack_stages(degree, sd=sd)
         self.consts = torch.as_tensor(consts, device=self.device)
         self.slots = torch.as_tensor(slots, device=self.device)
         self.launches = 0
@@ -120,11 +138,12 @@ class DubinerRecurrence:
         if npts == 0:
             return phi
         lib = load_kernels()
-        err = lib.fiat_dubiner2_values(
+        name = f"fiat_dubiner{self.sd}_values"
+        err = getattr(lib, name)(
             points.data_ptr(), npts, self.consts.data_ptr(), self.slots.data_ptr(),
             *self.A.ravel().tolist(), *self.b.tolist(), self.scale, self.degree,
             phi.data_ptr(), stream_of(points))
-        check_launch("fiat_dubiner2_values", err)
+        check_launch(name, err)
         self.launches += 1
         return phi
 

@@ -20,6 +20,7 @@ import torch
 
 from ..core import cells as cl
 from ..core import expansions
+from .kernels import resolve_device
 
 
 def change_of_basis(expansion_set, degree, target_expansion_set, target_degree):
@@ -111,7 +112,12 @@ class BatchedTabulator:
     """Tabulate a whole zoo of nodal elements (same reference cell) in one
     program: ``tables = bt(points)`` gives {alpha: (rows, npts)} (the plain
     elements' rows first, then the macro elements'), and
-    ``bt.unpack(tables)`` the per-element dicts of ``el.tabulate``."""
+    ``bt.unpack(tables)`` the per-element dicts of ``el.tabulate``.
+
+    ``device``: where ``bt(points)`` and the moments functions run; the
+    CUDA card when None (raising without one), the CPU only where asked.
+    The kernel engines take the host arrays (``state()``) and their own
+    ``device``."""
 
     def __init__(self, elements, order=0, device=None):
         cells = {e.get_reference_element() for e in elements}
@@ -122,7 +128,7 @@ class BatchedTabulator:
             raise NotImplementedError("BatchedTabulator fuses nodal (Ciarlet) bases")
         self.elements = list(elements)
         self.order = order
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.sd = self.ref_el.get_spatial_dimension()
 
         # plain elements share the fused change of basis; macro elements

@@ -52,7 +52,7 @@ def test_plain_rows_match_fiat_tpu_pallas_interpret():
     pts = _rng(0).random((700, 2)) / 2
     bt = JBatchedTabulator(_nodal_zoo(jfe, jcl.ufc_simplex(2)), order=0)
     want = np.asarray(PallasZooTabulator(bt, tile=256, interpret=True)(pts))
-    tab = device_tabulator(_nodal_zoo(tfe, tcl.ufc_simplex(2)), order=0, f64=False)
+    tab = device_tabulator(_nodal_zoo(tfe, tcl.ufc_simplex(2)), order=0, f64=False, device="cpu")
     got = tab(pts)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert tab.kernel.launches == 0            # CPU tensors: the plain version
@@ -76,7 +76,8 @@ def test_variant_recurrences_match_fiat_tpu_pallas_interpret(variant):
     tes = texp.ExpansionSet(tcl.ufc_simplex(2), variant=variant)
     tab = F32ZooTabulator.from_arrays(
         stacked=np.eye(nexp), alpha_mats={}, slices=[(0, nexp, (nexp,))], max_degree=degree,
-        scale=float(tes.get_scale(degree)), affine_map=tes.affine_mappings[0], variant=variant)
+        scale=float(tes.get_scale(degree)), affine_map=tes.affine_mappings[0], variant=variant,
+        device="cpu")
     got = tab(pts).numpy()
     assert np.abs(got - want).max() / (np.abs(want).max() + 1.0) <= RTOL
     assert np.abs(got - host).max() / (np.abs(host).max() + 1.0) <= RTOL
@@ -87,14 +88,14 @@ def test_macro_zoo_matches_host_and_fiat_tpu_pallas_interpret():
     bt = JBatchedTabulator(_macro_zoo(jfe, jcl.ufc_simplex(2)), order=1)
     want = PallasZooTabulator(bt, tile=256, interpret=True).tables(pts)
     tzoo = _macro_zoo(tfe, tcl.ufc_simplex(2))
-    tab = device_tabulator(tzoo, order=1, f64=False)
+    tab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
     got = tab.tables(pts)
     assert list(got) == list(want)
     for a in want:
         w = np.asarray(want[a])
         assert np.abs(got[a].numpy() - w).max() / (np.abs(w).max() + 1.0) <= MACRO_TOL, a
     assert (tab.kernel.launches, tab.macro.launches) == (0, 0)
-    for el, t in zip(tzoo, BatchedTabulator(tzoo, order=1).unpack(got)):
+    for el, t in zip(tzoo, BatchedTabulator(tzoo, order=1, device="cpu").unpack(got)):
         host = el.tabulate(1, pts)
         for a in host:
             err = np.abs(t[a].numpy().reshape(host[a].shape) - host[a]).max()
@@ -110,8 +111,8 @@ def test_from_arrays_on_fiat_tpu_arrays_matches_the_ports():
         stacked=bt.stacked, alpha_mats=bt.alpha_mats, slices=bt.slices,
         plain_nexp=bt.plain_nexp, max_degree=bt.max_degree,
         scale=float(bt.target_es.get_scale(bt.max_degree)),
-        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs)
-    ttab = device_tabulator(tzoo, order=1, f64=False)
+        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs, device="cpu")
+    ttab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
     got, want = jtab.tables(pts), ttab.tables(pts)
     for a in want:
         assert np.abs(got[a].numpy() - want[a].numpy()).max() <= 1e-6 * np.abs(
@@ -127,8 +128,8 @@ def test_single_degrees_against_float64_tables(degree):
     zoo = ([tfe.DiscontinuousLagrange(T, 0)] if degree == 0
            else [tfe.Lagrange(T, degree), tfe.DiscontinuousLagrange(T, degree)])
     pts = _rng(4).random((500, 2)) / 2
-    f32 = device_tabulator(zoo, order=1, f64=False).tables(pts)
-    f64 = device_tabulator(zoo, order=1)(pts)
+    f32 = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
+    f64 = device_tabulator(zoo, order=1, device="cpu")(pts)
     for a in f64:
         scale = f64[a].abs().max().item() or 1.0
         assert (f32[a].double() - f64[a]).abs().max().item() / scale <= RTOL, a
@@ -137,13 +138,13 @@ def test_single_degrees_against_float64_tables(degree):
 def test_call_tables_and_unpack_share_rows():
     pts = _rng(5).random((130, 2)) / 2
     tzoo = _nodal_zoo(tfe, tcl.ufc_simplex(2)) + _macro_zoo(tfe, tcl.ufc_simplex(2))
-    tab = device_tabulator(tzoo, order=1, f64=False)
+    tab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
     plain, tables = tab.unpack(tab(pts)), tab.tables(pts)
     assert list(plain) == list(tables) == [(0, 0), (0, 1), (1, 0)]
     for a in plain:
         assert tuple(tables[a].shape) == (tab.rows, len(pts))
         assert torch.equal(plain[a], tables[a][:tab.plain_rows])
-    f64 = device_tabulator(tzoo, order=1)(pts)
+    f64 = device_tabulator(tzoo, order=1, device="cpu")(pts)
     for a in f64:
         assert (tables[a].double() - f64[a]).abs().max().item() <= MACRO_TOL * (
             f64[a].abs().max().item() + 1.0)
@@ -151,7 +152,7 @@ def test_call_tables_and_unpack_share_rows():
 
 def test_engine_checks_device_cell_and_inputs():
     T = tcl.ufc_simplex(2)
-    tab = device_tabulator([tfe.Lagrange(T, 2)], order=1, f64=False)
+    tab = device_tabulator([tfe.Lagrange(T, 2)], order=1, f64=False, device="cpu")
     pts = _rng(6).random((40, 2)) / 2
     with pytest.raises(ValueError, match="engine on cpu"):
         tab.tables(torch.as_tensor(pts, device="meta"))
@@ -162,7 +163,7 @@ def test_engine_checks_device_cell_and_inputs():
         tab.kernel(torch.zeros((4, 2), dtype=torch.float64), tab.dst_plain, out)
     assert tab.kernel.launches == 0
     with pytest.raises(NotImplementedError, match="tetrahedra"):
-        device_tabulator([tfe.Lagrange(tcl.ufc_simplex(3), 2)], order=0, f64=False)
+        device_tabulator([tfe.Lagrange(tcl.ufc_simplex(3), 2)], order=0, f64=False, device="cpu")
     with pytest.raises(NotImplementedError, match="variant"):
         ZooF32Kernel([np.eye(3)], 1, 1.0, (np.eye(2), np.zeros(2)), variant="other")
 

@@ -54,7 +54,7 @@ def test_bucket_matmul_plain_matches_fused_multiword_interpret():
     B = rng.standard_normal((66, 900))
     want = np.asarray(FusedMultiwordMatmul(A, interpret=True, row_block=256,
                                            point_tile=256)(jnp.asarray(B)))
-    mm = BucketMatmul([A])
+    mm = BucketMatmul([A], device="cpu")
     got = mm(torch.as_tensor(B)).numpy()
     assert mm.launches == 0           # a CPU tensor takes the plain version
     rel = np.abs(got - want).max() / np.abs(want).max()
@@ -65,7 +65,7 @@ def test_bucket_matmul_groups_contract_their_prefix():
     rng = np.random.default_rng(6)
     mats = [rng.standard_normal((r, k)) for r, k in ((5, 3), (130, 10), (64, 6))]
     B = rng.standard_normal((12, 77))
-    mm = BucketMatmul(mats)
+    mm = BucketMatmul(mats, device="cpu")
     blocks = mm.views(mm(torch.as_tensor(B)))
     for M, blk in zip(mats, blocks):
         assert np.abs(blk.numpy() - M @ B[:M.shape[1]]).max() <= 1e-13 * np.abs(M).max() * 12
@@ -83,7 +83,7 @@ def test_slice_matches_fiat_tpu_fused_interpret_and_host(points, zoos):
     jfz = JFusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
     ref = bt.unpack(jfz(jnp.asarray(points)))
 
-    tab = device_tabulator(tzoo, order=1)
+    tab = device_tabulator(tzoo, order=1, device="cpu")
     got = tab.unpack(tab.block_tables(points))
     assert tab.recurrence.launches == 0 and tab.matmul.launches == 0
     assert _max_diff(ref, got) <= 1e-11
@@ -102,7 +102,7 @@ def test_from_arrays_on_fiat_tpu_batched_arrays(points, zoos):
         stacked=bt.stacked, alpha_mats=bt.alpha_mats, slices=bt.slices,
         plain_nexp=bt.plain_nexp, max_degree=bt.max_degree,
         scale=float(bt.target_es.get_scale(bt.max_degree)),
-        affine_map=bt.target_es.affine_mappings[0])
+        affine_map=bt.target_es.affine_mappings[0], device="cpu")
     ref = bt.unpack(bt(jnp.asarray(points)))
     got = fz.unpack(fz.block_tables(points))
     assert _max_diff(ref, got) <= 1e-13
@@ -110,8 +110,8 @@ def test_from_arrays_on_fiat_tpu_batched_arrays(points, zoos):
 
 def test_concatenated_layout_matches_batched_tabulator(points, zoos):
     _, tzoo = zoos
-    bt = BatchedTabulator(tzoo, order=1)
-    fz = FusedZooTabulator(bt)
+    bt = BatchedTabulator(tzoo, order=1, device="cpu")
+    fz = FusedZooTabulator(bt, device="cpu")
     want, got = bt(points), fz(points)
     assert list(got) == list(want) == [(0, 0), (0, 1), (1, 0)]
     for a in want:
@@ -124,7 +124,7 @@ def test_engine_refuses_a_tensor_on_another_device(points, zoos):
     work on the host while the caller's data is on the card); numpy points
     are host data and go to the engine's device."""
     _, tzoo = zoos
-    tab = device_tabulator(tzoo, order=1)
+    tab = device_tabulator(tzoo, order=1, device="cpu")
     with pytest.raises(ValueError, match="engine on cpu"):
         tab.block_tables(torch.as_tensor(points, device="meta"))
     assert tab.recurrence.launches == 0 and tab.matmul.launches == 0
@@ -137,8 +137,8 @@ def test_engine_refuses_a_tensor_on_another_device(points, zoos):
 
 def test_order_zero_and_state_round_trip(points, zoos):
     _, tzoo = zoos
-    bt = BatchedTabulator(tzoo, order=0)
-    fz = FusedZooTabulator.from_arrays(**bt.state())
+    bt = BatchedTabulator(tzoo, order=0, device="cpu")
+    fz = FusedZooTabulator.from_arrays(**bt.state(), device="cpu")
     assert fz.alphas == [(0, 0)]
     got = fz.unpack(fz.block_tables(points))
     host = [el.tabulate(0, points) for el in tzoo]
@@ -151,7 +151,7 @@ def test_degree_zero_member_embeds_with_its_own_scale(points):
     the scale ratio, as fiat_tpu's does."""
     zoo = [tfe.DiscontinuousLagrange(tcl.ufc_simplex(2), 0), tfe.Lagrange(tcl.ufc_simplex(2), 3)]
     jzoo = [jfe.DiscontinuousLagrange(jcl.ufc_simplex(2), 0), jfe.Lagrange(jcl.ufc_simplex(2), 3)]
-    tab = device_tabulator(zoo, order=1)
+    tab = device_tabulator(zoo, order=1, device="cpu")
     assert tab.widths == [1, 10]
     got = tab.unpack(tab.block_tables(points))
     assert _max_diff([el.tabulate(1, points) for el in zoo], got) <= 1e-10
@@ -161,10 +161,10 @@ def test_degree_zero_member_embeds_with_its_own_scale(points):
 
 def test_grouping_refuses_to_drop_real_coefficients(zoos):
     _, tzoo = zoos
-    st = BatchedTabulator(tzoo, order=0).state()
+    st = BatchedTabulator(tzoo, order=0, device="cpu").state()
     st["plain_nexp"] = {i: 3 for i in st["plain_nexp"]}
     with pytest.raises(ValueError, match="drop real coefficients"):
-        FusedZooTabulator.from_arrays(**st)
+        FusedZooTabulator.from_arrays(**st, device="cpu")
 
 
 def test_device_tabulator_raises_for_unported_engines(zoos):
@@ -174,15 +174,15 @@ def test_device_tabulator_raises_for_unported_engines(zoos):
     _, tzoo = zoos
     hct = tfe.HsiehCloughTocher(tcl.ufc_simplex(2), 3)
     assert hct.is_macroelement()
-    tab = device_tabulator(tzoo + [hct], order=1, f64=False)
+    tab = device_tabulator(tzoo + [hct], order=1, f64=False, device="cpu")
     assert isinstance(tab, F32ZooTabulator)
     assert tab.macro is not None and tab.macro.dtype == torch.float32
     assert tab.macro.geom[0]["unique"] is False       # order 1: averaged binning
-    tab = device_tabulator(tzoo + [hct], order=1)
+    tab = device_tabulator(tzoo + [hct], order=1, device="cpu")
     assert tab.macro is not None and tab.special == [len(tzoo)]
-    st = BatchedTabulator(tzoo + [hct], order=0).state()
+    st = BatchedTabulator(tzoo + [hct], order=0, device="cpu").state()
     odd = copy.copy(st["macro_programs"][0])
     odd.parent_es = copy.copy(odd.parent_es)
     odd.parent_es.variant = "dual"
     with pytest.raises(NotImplementedError, match="K45.*K7"):
-        MomentEngine.from_arrays(**{**st, "macro_programs": [odd]})
+        MomentEngine.from_arrays(**{**st, "macro_programs": [odd]}, device="cpu")

@@ -61,11 +61,12 @@ def test_bucket_matmul_kernel_matches_plain(cuda, npts, offset):
 
 
 def test_bucket_matmul_kernel_raises_past_its_shared_memory(cuda):
-    """Contraction width 150 needs more shared memory than a block may
-    have: the C entry's error surfaces as a raise, with no launch."""
-    mm = BucketMatmul([np.ones((4, 150))], cuda)
-    with pytest.raises(RuntimeError, match="contraction width 150"):
-        mm(torch.ones((150, 256), dtype=torch.float64, device=cuda))
+    """Contraction width 439 leaves no room for an A chunk beside a 64-point
+    Phi tile in a block's shared memory: the C entry's error surfaces as a
+    raise, with no launch."""
+    mm = BucketMatmul([np.ones((4, 439))], cuda)
+    with pytest.raises(RuntimeError, match="contraction width 439"):
+        mm(torch.ones((439, 256), dtype=torch.float64, device=cuda))
     assert mm.launches == 0
     # the refused launch leaves no error behind for the next one to report
     ok = BucketMatmul([np.ones((4, 10))], cuda)
@@ -78,7 +79,7 @@ def test_engine_device_checks(cuda):
     zoo = [tfe.Lagrange(T, 2)]
     pts = torch.as_tensor(_points(300))
     with pytest.raises(ValueError, match="engine on cpu"):
-        device_tabulator(zoo, order=1).block_tables(pts.to(cuda))
+        device_tabulator(zoo, order=1, device="cpu").block_tables(pts.to(cuda))
     gpu = device_tabulator(zoo, order=1, device="cuda")     # no index: the current card
     assert gpu.device == cuda
     with pytest.raises(ValueError, match="engine on cuda:0"):
@@ -92,7 +93,7 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     zoo = [tfe.Lagrange(T, p) for p in (1, 3, 6)] + [tfe.DiscontinuousLagrange(T, 2)]
     pts = _points(513)
     gpu = device_tabulator(zoo, order=1, device=cuda)
-    cpu = device_tabulator(zoo, order=1)
+    cpu = device_tabulator(zoo, order=1, device="cpu")
     got = gpu.unpack(gpu.block_tables(pts))
     want = cpu.unpack(cpu.block_tables(pts))
     assert gpu.recurrence.launches == 1 and gpu.matmul.launches == 1
@@ -158,12 +159,12 @@ def test_macro_engine_on_card_matches_host_and_refuses_cpu_points(cuda):
             assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10
 
 
-def _moment_engine(cuda=None):
+def _moment_engine(cuda="cpu"):
     from fiat_tpu_torch.ops.moments import MomentEngine
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
     T = tcl.ufc_simplex(2)
     zoo = [tfe.Lagrange(T, 10), tfe.RaviartThomas(T, 2)] + _macro_zoo(T)
-    return MomentEngine(BatchedTabulator(zoo, order=0), device=cuda)
+    return MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device=cuda)
 
 
 @pytest.mark.parametrize("npts", [1, 127, 1077, 100_000])
@@ -257,6 +258,101 @@ def test_f32_engine_on_card_one_launch_each_and_refuses_cpu_points(cuda):
         gpu.tables(torch.as_tensor(pts))
     got = gpu.tables(torch.as_tensor(pts, device=cuda))
     assert (gpu.kernel.launches, gpu.macro.launches) == (1, 1)
-    want = device_tabulator(zoo, order=1, f64=False).tables(pts)
+    want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
     for a in want:
         assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-5 * (want[a].abs().max().item() + 1)
+
+
+# -- tetrahedra: K1's sd = 3 stage, K2 past width 151, K8 ----------------------
+
+def _tet_points(n, seed=5):
+    """Uniform points in the UFC tetrahedron (bench.py's pts3 construction)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 3))
+    return pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((n, 1))
+
+
+def test_default_device_is_the_card(cuda):
+    tab = device_tabulator([tfe.Lagrange(tcl.ufc_simplex(3), 2)], order=1)
+    assert tab.device == cuda and tab.recurrence.consts.device == cuda
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 5, 8, 10])
+def test_tet_recurrence_kernel_matches_plain(cuda, degree):
+    es = ExpansionSet(tcl.ufc_simplex(3))
+    rec = DubinerRecurrence(3, degree, es.get_scale(degree), es.affine_mappings[0], cuda)
+    P = torch.as_tensor(_tet_points(1000 + degree), device=cuda)
+    got = rec(P)
+    torch.cuda.synchronize()
+    assert rec.launches == 1 and tuple(got.shape) == (rec.nexp, 1000 + degree)
+    want = rec.plain(P)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("npts", [1077, 1024])
+@pytest.mark.parametrize("widths", [(165, 4, 20, 10), (300, 35), (438,)])
+def test_wide_bucket_matmul_kernel_matches_plain(cuda, npts, widths):
+    """Contraction widths past 151 (the A tile in chunks; past 219 the
+    64-point tile) mixed with narrow groups, in one launch."""
+    rng = np.random.default_rng(sum(widths))
+    mats = [rng.standard_normal((67 + 13 * i, k)) for i, k in enumerate(widths)]
+    mm = BucketMatmul(mats, cuda)
+    phi = torch.as_tensor(rng.standard_normal((max(widths), npts)), device=cuda)
+    got = mm(phi)
+    torch.cuda.synchronize()
+    assert mm.launches == 1
+    want = mm.plain(phi)
+    for g, w in zip(mm.views(got), mm.views(want)):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("sd,degree", [(1, 0), (1, 15), (2, 1), (2, 7), (2, 15), (3, 0),
+                                       (3, 4), (3, 8), (3, 10)])
+def test_bernstein_kernel_matches_plain(cuda, sd, degree):
+    from fiat_tpu_torch.ops.bernstein import BernsteinFeatures, _bary_map
+    cell = tcl.ufc_simplex(sd)
+    feat = BernsteinFeatures(sd, degree, _bary_map(cell), cuda)
+    lam = np.random.default_rng(degree).dirichlet(np.ones(sd + 1), 1001)
+    P = torch.as_tensor(lam @ np.asarray(cell.get_vertices()), device=cuda)
+    got = feat(P)
+    torch.cuda.synchronize()
+    assert feat.launches == 1
+    want = feat.plain(P)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def _tet_zoo(T):
+    return ([tfe.RaviartThomas(T, k) for k in (1, 2)] + [tfe.Nedelec(T, k) for k in (1, 2)]
+            + [tfe.BrezziDouglasMarini(T, k) for k in (1, 2)] + [tfe.Lagrange(T, 3)])
+
+
+@pytest.mark.parametrize("features", ["dubiner", "bernstein"])
+def test_tet_engines_on_card_one_launch_each_match_host(cuda, features):
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    T = tcl.ufc_simplex(3)
+    zoo = [tfe.Lagrange(T, 8)] if features == "bernstein" else _tet_zoo(T)
+    tab = FusedZooTabulator(BatchedTabulator(zoo, order=1, device="cpu"), device=cuda,
+                            features=features)
+    pts = _tet_points(701)
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        tab.block_tables(torch.as_tensor(pts))
+    got = tab.unpack(tab.block_tables(torch.as_tensor(pts, device=cuda)))
+    basis = tab.features if features == "bernstein" else tab.recurrence
+    assert (basis.launches, tab.matmul.launches) == (1, 1)
+    assert (tab.recurrence, tab.features)[features == "dubiner"] is None
+    for el, g in zip(zoo, got):
+        want = el.tabulate(1, pts)
+        for a in want:
+            assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10
+
+
+def test_bernstein_wrapper_refuses_points_on_another_device(cuda):
+    from fiat_tpu_torch.ops.bernstein import BernsteinFeatures, _bary_map
+    feat = BernsteinFeatures(3, 2, _bary_map(tcl.ufc_simplex(3)), cuda)
+    P = torch.as_tensor(_tet_points(10))
+    assert feat(P).device.type == "cpu" and feat.launches == 0
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        feat(P.to("meta"))
+    with pytest.raises(ValueError, match="shape"):
+        feat(torch.zeros((4, 2), dtype=torch.float64, device=cuda))

@@ -192,7 +192,7 @@ def test_engine_matches_fiat_tpu_fused_interpret_and_host(zoo):
     jfz = JFusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
     ref = bt.unpack(jfz(jnp.asarray(pts)))
 
-    tab = device_tabulator(tzoo, order=1)
+    tab = device_tabulator(tzoo, order=1, device="cpu")
     blocks = tab.block_tables(pts)
     assert len(blocks[(0, 0)]) == len(tab.widths) + 2     # one block per macro element
     got = tab.unpack(blocks)
@@ -205,7 +205,7 @@ def test_order_zero_unique_binning_matches_host():
     """At order 0 the C0 (bubble) HCT basis bins uniquely, PS6 averages."""
     pts = np.vstack([_points(150, 7), _special_points()])
     tzoo = _macro_zoo(tfe, tcl.ufc_simplex(2))
-    tab = device_tabulator(tzoo, order=0)
+    tab = device_tabulator(tzoo, order=0, device="cpu")
     assert [g["unique"] for g in tab.macro.geom] == [True, False]
     got = tab.unpack(tab.block_tables(pts))
     assert _max_diff([el.tabulate(0, pts) for el in tzoo], got) <= 1e-12
@@ -215,8 +215,8 @@ def test_k3_plain_matches_the_batched_programs():
     """MacroOneShot's plain version (masks, recurrence, masked B, matmul,
     recip) against MacroSideProgram.tables, program by program."""
     pts = torch.as_tensor(np.vstack([_points(120, 5), _special_points()]))
-    bt = BatchedTabulator(_small_zoo(tfe, tcl.ufc_simplex(2)), order=1)
-    fz = FusedZooTabulator(bt)
+    bt = BatchedTabulator(_small_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu")
+    fz = FusedZooTabulator(bt, device="cpu")
     out = fz.macro(pts)
     assert tuple(out.shape) == (fz.macro.rows, len(pts))
     # HCT 12 + PS6 9 basis rows x 3 alphas; K = 3 subcells x 10 + 6 x 6
@@ -235,7 +235,7 @@ def test_from_arrays_on_fiat_tpu_macro_programs():
         stacked=bt.stacked, alpha_mats=bt.alpha_mats, slices=bt.slices,
         plain_nexp=bt.plain_nexp, max_degree=bt.max_degree,
         scale=float(bt.target_es.get_scale(bt.max_degree)),
-        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs)
+        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs, device="cpu")
     ref = bt.unpack(bt(jnp.asarray(pts)))
     assert _max_diff(ref, fz.unpack(fz.block_tables(pts))) <= 1e-12
     cat = fz(pts)
@@ -247,7 +247,7 @@ def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
     """Where fiat_tpu's preconditions for its one-shot engine fail, the
     port raises naming K7 (the masked fallback, not ported) instead of
     running something else."""
-    st = BatchedTabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1).state()
+    st = BatchedTabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu").state()
     for attr, value in (("variant", "dual"),                       # a parent variant
                         ("affine_mappings", [(2 * np.eye(2), np.zeros(2))]),  # another cell
                         ("get_scale", lambda n, cell=0: 0.5)):     # another scale
@@ -256,11 +256,11 @@ def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
         setattr(odd.parent_es, attr, value)
         with pytest.raises(NotImplementedError, match="K7"):
             programs = [odd, *st["macro_programs"][1:]]
-            FusedZooTabulator.from_arrays(**{**st, "macro_programs": programs})
+            FusedZooTabulator.from_arrays(**{**st, "macro_programs": programs}, device="cpu")
 
 
 def test_k3_wrapper_checks_its_inputs():
-    fz = device_tabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1)
+    fz = device_tabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu")
     with pytest.raises(TypeError):
         fz.macro(torch.zeros((4, 2), dtype=torch.float32))
     with pytest.raises(ValueError):

@@ -61,7 +61,7 @@ def test_moment_rows_match_fiat_tpu_and_host():
     bt = JBatchedTabulator(jzoo, order=0)
     want = np.asarray(jax.jit(lambda q, w: jmo.moment_rows(bt, q, w))(
         jnp.asarray(pts), jnp.asarray(wf)))
-    tb = BatchedTabulator(tzoo, order=0)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
     got = tmo.moment_rows(tb, pts, wf)
     assert got.dtype == torch.float64 and tuple(got.shape) == want.shape
     assert np.abs(got.numpy() - want).max() <= ATOL
@@ -82,7 +82,7 @@ def test_interpolate_rows_match_fiat_tpu_and_host():
     c = rng.random(rows) - 0.5
     want = np.asarray(jax.jit(lambda q, cc: jmo.interpolate_rows(bt, q, cc))(
         jnp.asarray(pts), jnp.asarray(c)))
-    tb = BatchedTabulator(tzoo, order=0)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
     got = tmo.interpolate_rows(tb, pts, c)
     assert tuple(got.shape) == (len(pts),)
     assert np.abs(got.numpy() - want).max() <= ATOL
@@ -99,7 +99,7 @@ def test_k45_plain_pieces_are_the_explicit_contractions():
     jzoo, tzoo = _zoos(_moment_zoo)
     _, pts, wf = _inputs(5)
     bt = JBatchedTabulator(jzoo, order=0)
-    eng = MomentEngine(BatchedTabulator(tzoo, order=0))
+    eng = MomentEngine(BatchedTabulator(tzoo, order=0, device="cpu"), device="cpu")
     pm = eng.moments
     sums = pm(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
     assert pm.rows == len(sums) == 10 + 3 * 10 + 6 * 6
@@ -117,8 +117,8 @@ def test_engine_from_fiat_tpu_arrays_matches_the_ports():
     jeng = MomentEngine.from_arrays(
         stacked=bt.stacked, slices=bt.slices, max_degree=bt.max_degree,
         scale=float(bt.target_es.get_scale(bt.max_degree)),
-        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs)
-    teng = MomentEngine(BatchedTabulator(tzoo, order=0))
+        affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs, device="cpu")
+    teng = MomentEngine(BatchedTabulator(tzoo, order=0, device="cpu"), device="cpu")
     assert np.abs(jeng.moment_rows(pts, wf).numpy()
                   - teng.moment_rows(pts, wf).numpy()).max() <= 1e-13
     c = rng.random(teng.rows) - 0.5
@@ -132,7 +132,7 @@ def test_zoo_moments_folds_the_field_and_unpacks_per_element():
     f = rng.standard_normal(len(pts))
     bt = JBatchedTabulator(jzoo, order=0)
     want = np.asarray(jmo.zoo_moments(bt, jnp.asarray(pts), jnp.asarray(w), jnp.asarray(f)))
-    tb = BatchedTabulator(tzoo, order=0)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
     got = tmo.zoo_moments(tb, pts, w, f)
     assert np.abs(got.numpy() - want).max() <= ATOL
     for g, j in zip(tmo.unpack_moments(tb, got), jmo.unpack_moments(bt, want)):
@@ -147,7 +147,7 @@ def test_plain_zoo_moments_without_macro_programs():
         tfe.RaviartThomas(tcl.ufc_simplex(2), 2)]
     rng, pts, wf = _inputs(17, n=120)
     bt = JBatchedTabulator(jzoo, order=0)
-    tb = BatchedTabulator(tzoo, order=0)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
     got = tmo.moment_rows(tb, pts, wf)
     want = np.asarray(jmo.moment_rows(bt, jnp.asarray(pts), jnp.asarray(wf)))
     assert np.abs(got.numpy() - want).max() <= ATOL
@@ -160,7 +160,7 @@ def test_plain_zoo_moments_without_macro_programs():
 def test_engine_is_cached_and_refuses_a_tensor_on_another_device():
     _, tzoo = _zoos(_moment_zoo)
     _, pts, wf = _inputs(19, n=50)
-    tb = BatchedTabulator(tzoo, order=0)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
     tmo.moment_rows(tb, pts, wf)
     eng = tb._moment_engine
     tmo.interpolate_rows(tb, pts, np.zeros(eng.rows))
@@ -185,16 +185,17 @@ def test_engine_refuses_programs_k45_cannot_take(attr, value):
     """Where the fused kernel's preconditions fail, the engine raises
     naming K7 (the masked fallback, not ported) instead of running
     something else."""
-    st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0).state()
+    st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0, device="cpu").state()
     odd = copy.copy(st["macro_programs"][0])
     odd.parent_es = copy.copy(odd.parent_es)
     setattr(odd.parent_es, attr, value)
     with pytest.raises(NotImplementedError, match="K45.*K7"):
-        MomentEngine.from_arrays(**{**st, "macro_programs": [odd, *st["macro_programs"][1:]]})
+        MomentEngine.from_arrays(**{**st, "macro_programs": [odd, *st["macro_programs"][1:]]},
+                                 device="cpu")
 
 
 def test_engine_refuses_mixed_parent_expansion_types():
-    st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0).state()
+    st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0, device="cpu").state()
     odd = copy.copy(st["macro_programs"][1])
 
     class OtherSet(type(odd.parent_es)):
@@ -203,4 +204,5 @@ def test_engine_refuses_mixed_parent_expansion_types():
     odd.parent_es = copy.copy(odd.parent_es)
     odd.parent_es.__class__ = OtherSet
     with pytest.raises(NotImplementedError, match="mixed parent.*K7"):
-        MomentEngine.from_arrays(**{**st, "macro_programs": [st["macro_programs"][0], odd]})
+        MomentEngine.from_arrays(**{**st, "macro_programs": [st["macro_programs"][0], odd]},
+                                 device="cpu")

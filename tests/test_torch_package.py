@@ -2,6 +2,7 @@
 JAX nor fiat_tpu, imports without building anything, and refuses to load
 its kernels where there is no CUDA compiler."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -19,10 +20,14 @@ def test_import_leaves_jax_and_fiat_tpu_out():
             "fiat_tpu_torch.ops.tabulate, fiat_tpu_torch.ops.recurrence, "
             "fiat_tpu_torch.ops.macro_oneshot, fiat_tpu_torch.ops.moments, "
             "fiat_tpu_torch.ops.moment_kernel, fiat_tpu_torch.ops.f32_zoo, "
+            "fiat_tpu_torch.ops.bernstein, fiat_tpu_torch.core.elimquad, "
             "fiat_tpu_torch.core.macro, "
             "fiat_tpu_torch.core.quadrature_schemes\n"
             "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
+            "create_quadrature(fiat_tpu_torch.ufc_simplex(3), 9)\n"
+            "from fiat_tpu_torch.core import elimquad\n"
+            "elimquad.rule_size(8, 2), elimquad.rule_size(8, 3)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'fiat_tpu' or m.startswith('fiat_tpu.'))\n"
             "print(bad)\n"
@@ -40,6 +45,62 @@ def test_sources_import_no_jax_or_fiat_tpu():
         text = path.read_text()
         assert not pattern.search(text), path
         assert "import jax" not in text, path
+
+
+def _code_strings(path):
+    """The string constants of a module's code: docstrings, which name the
+    fiat_tpu counterpart of a module, left out."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_sources_name_no_path_of_the_jax_package():
+    """The port opens nothing of fiat_tpu by file path either: no string in
+    its code (nor in chip_smoke.py) names a path under fiat_tpu/ or the
+    package's directory, apart from file:line references to the TPU
+    kernels ported (chip_smoke.py's "replaces")."""
+    reference = re.compile(r"fiat_tpu/[\w/]+\.py:\d+")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        for text in _code_strings(path):
+            rest = reference.sub("", text)
+            assert "fiat_tpu/" not in rest and rest.strip() != "fiat_tpu", (path, text)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """device=None means the CUDA card; without one the entry points raise,
+    naming device="cpu", and never carry on on the CPU."""
+    import numpy as np
+    import torch
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch.ops import moments
+    from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    zoo = [ft.Lagrange(ft.ufc_simplex(2), 2)]
+    bt = BatchedTabulator(zoo, order=1, device="cpu")
+    calls = [lambda: ft.device_tabulator(zoo, order=1),
+             lambda: ft.device_tabulator(zoo, order=1, f64=False),
+             lambda: BatchedTabulator(zoo, order=1),
+             lambda: FusedZooTabulator(bt),
+             lambda: FusedZooTabulator.from_arrays(**bt.state()),
+             lambda: F32ZooTabulator(bt),
+             lambda: moments.MomentEngine(bt),
+             lambda: moments.MomentEngine.from_arrays(**bt.state())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    tab = ft.device_tabulator(zoo, order=1, device="cpu")
+    pts = np.random.default_rng(2).random((9, 2)) / 2
+    assert tab.block_tables(pts)[(0, 0)][0].device.type == "cpu"
+    # the moments functions build their engine on the tabulator's device
+    assert moments.moment_rows(bt, pts, np.ones(9)).device.type == "cpu"
 
 
 def test_load_kernels_raises_without_nvcc(monkeypatch):
@@ -61,7 +122,7 @@ def test_pyproject_ships_the_port():
     data = cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
-        "binning.cuh", "bucket_matmul.cu", "dubiner2.cuh", "macro_oneshot.cu", "moments.cu",
-        "recurrence.cu", "zoo_f32.cu"]
+        "bernstein.cu", "binning.cuh", "bucket_matmul.cu", "dubiner2.cuh", "dubiner3.cuh",
+        "macro_oneshot.cu", "moments.cu", "recurrence.cu", "zoo_f32.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)

@@ -86,3 +86,22 @@ def test_jacobi_batches_match(a, b):
                   - jjac.eval_jacobi_deriv_batch(a, b, 6, x)).max() <= TOL
     assert np.abs(tjac.eval_jacobi(a, b, 4, x[:, 0])
                   - jjac.eval_jacobi(a, b, 4, x[:, 0])).max() <= TOL
+
+
+@pytest.mark.parametrize("name,tables", [("triquad_data", ["TRIANGLE"]),
+                                         ("tetquad_data", ["TETRAHEDRON"]),
+                                         ("symquad_data", ["TRIANGLE", "TETRAHEDRON"])])
+def test_quadrature_data_copies_equal_fiat_tpu_tables(name, tables):
+    """The port's copies of the generated data modules hold fiat_tpu's
+    tables exactly, degree by degree (the copy is loaded as the port's own
+    module, never from fiat_tpu's directory)."""
+    import importlib
+    from fiat_tpu_torch.core.quad_tables import load_table
+    got = load_table(name)
+    want = importlib.import_module(f"fiat_tpu.core.{name}")
+    assert got.__name__ == f"fiat_tpu_torch.core.{name}"
+    for table in tables:
+        g, w = getattr(got, table), getattr(want, table)
+        assert sorted(g) == sorted(w)
+        for degree in w:
+            assert g[degree] == w[degree], (table, degree)

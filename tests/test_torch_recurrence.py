@@ -21,7 +21,7 @@ PTS = np.random.default_rng(11).random((300, 2)) * 0.45
 
 
 def _recurrence(es, n):
-    return DubinerRecurrence(2, n, es.get_scale(n), es.affine_mappings[0])
+    return DubinerRecurrence(2, n, es.get_scale(n), es.affine_mappings[0], device="cpu")
 
 
 @pytest.mark.parametrize("degree", range(0, 11))
@@ -132,7 +132,9 @@ def test_wrapper_rejects_bad_inputs():
         rec(torch.as_tensor(PTS[:, :1]).contiguous())
     with pytest.raises(ValueError):
         rec(torch.as_tensor(np.asfortranarray(PTS)).T.contiguous().T)
-    with pytest.raises(NotImplementedError):
-        DubinerRecurrence(3, 2, 1.0, (np.eye(3), np.zeros(3)))
+    with pytest.raises(NotImplementedError, match="sd = 2, 3"):
+        DubinerRecurrence(4, 2, 1.0, (np.eye(4), np.zeros(4)), device="cpu")
     with pytest.raises(NotImplementedError, match="outside 0..15"):
-        DubinerRecurrence(2, MAX_DEGREE + 1, 1.0, (np.eye(2), np.zeros(2)))
+        DubinerRecurrence(2, MAX_DEGREE[2] + 1, 1.0, (np.eye(2), np.zeros(2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="outside 0..10"):
+        DubinerRecurrence(3, MAX_DEGREE[3] + 1, 1.0, (np.eye(3), np.zeros(3)), device="cpu")
