@@ -22,7 +22,13 @@ Drives the port's main paths once each at their real size, at 1e5 points
      order=1)`` on the default device (K1's sd = 3 stage, K2 at contraction
      width 165) and through ``FusedZooTabulator(BatchedTabulator(...),
      features="bernstein")`` (K8 + K2), and ``hdiv_hcurl_tet``
-     (bench.py:809-818: RT, Nedelec and BDM 1-3, K1 + K2).
+     (bench.py:809-818: RT, Nedelec and BDM 1-3, K1 + K2);
+  6. ``sv_macro_tet`` at ``pts3``: the Scott-Vogelius pairs on barycentrically
+     refined tetrahedra (Lagrange 1 and 3, Lagrange 3 + DG 2 on the Alfeld
+     split, Lagrange 2 + DG 1 on the Worsey-Farin split) through
+     ``device_tabulator(..., order=1)`` on the default device: K1 (sd = 3),
+     K2 and K7, the macro elements on K7 reading K1's Phi by prefix; K7 is
+     also held against K3 on ``full_zoo``'s macro arrays.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -36,7 +42,8 @@ Usage (from the repository root, on a machine with a CUDA card):
 
 Prints the card's name and power limit, one line per step, a JSON line
 ``{"kernels": [...]}`` (K1, K2 and K3 measured on ``full_zoo``, K45 on the
-moments phase, K6 on the f32 phase, K1, K2 and K8 on the tetrahedra, each
+moments phase, K6 on the f32 phase, K1, K2 and K8 on the tetrahedra, K7
+on ``sv_macro_tet``, each
 with its bound: the larger of its bytes over the HBM rate and its
 operations over the peak rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -683,6 +690,97 @@ def tet_phase(dev, card, torch, np):
     ]
 
 
+def sv_macro_tet(T3):
+    """The Scott-Vogelius velocity/pressure pairs on barycentrically refined
+    tetrahedral meshes: P3 / DG2 on Alfeld splits, P2 / DG1 on Worsey-Farin
+    splits, beside the unsplit P1 and P3."""
+    import fiat_tpu_torch as ft
+    return [ft.Lagrange(T3, 1), ft.Lagrange(T3, 3), ft.Lagrange(T3, 3, variant="alfeld"),
+            ft.DiscontinuousLagrange(T3, 2, variant="alfeld"),
+            ft.Lagrange(T3, 2, variant="worsey-farin"),
+            ft.DiscontinuousLagrange(T3, 1, variant="worsey-farin")]
+
+
+def masked_bound(k7, npts):
+    """K7: the points, Phi's prefix and A in, the tables out; per point and
+    program, its rows against the one subcell an interior point bins into."""
+    flops = sum(2 * (g["rows"][1] - g["rows"][0]) * nexp
+                for g, nexp in one_piece_nexp(k7.geom, k7.nexp))
+    nbytes = 8 * (npts * (k7.sd + k7.max_nexp) + k7.A.numel() + k7.rows * npts)
+    return bound_of(nbytes, flops * npts, FP64_FMA_MS)
+
+
+def sv_phase(dev, card, full_zoo_engine, P2, torch, np):
+    """Phase 6: sv_macro_tet on K1 (sd = 3), K2 and K7, one launch each per
+    pass, at bench.py's pts3; K7 against its plain version on the same Phi
+    and points, and against K3 on full_zoo's merged macro arrays."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
+
+    pts3 = make_points(NPTS, SEED, np, sd=3)
+    P = torch.as_tensor(pts3, device=dev)
+    t0 = time.perf_counter()
+    zoo = sv_macro_tet(ufc_simplex(3))
+    tab = device_tabulator(zoo, order=1)          # the default device: the card
+    rec, mm, k7 = tab.recurrence, tab.matmul, tab.macro
+    if tab.device != dev or k7 is None or k7.name != "K7":
+        fail(f"sv_macro_tet: the macro elements must run on K7 on {dev}, got "
+             f"{getattr(k7, 'name', None)} on {tab.device}")
+    print(f"sv_macro_tet host construction: {len(zoo)} elements, {mm.total_rows} plain rows in "
+          f"widths {tab.widths}, K7 {k7.rows} x {k7.K} over {len(k7.nexp)} subcells in "
+          f"{len(k7.geom)} programs ({k7.chunks.shape[0]} row chunks), K1 degree {rec.degree}, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    phi_p = rec.plain(P)
+    check_kernel(f"sv_macro_tet K1 recurrence (sd 3, degree {rec.degree})", rec(P), phi_p, torch)
+    check_kernel(f"sv_macro_tet K2 bucket matmul ({mm.total_rows} x {NPTS})", mm(phi_p),
+                 mm.plain(phi_p), torch)
+    k7_abs = check_kernel(f"sv_macro_tet K7 masked matmul ({k7.rows} x {NPTS})", k7(P, phi_p),
+                          k7.plain(P, phi_p), torch)
+    del phi_p
+
+    # K7 on full_zoo's merged macro arrays (HCT + PS6, sd = 2) against K3
+    zrec, mo = full_zoo_engine.recurrence, full_zoo_engine.macro
+    cross = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
+                         device=dev)
+    err, rel = rel_err(cross(P2, zrec(P2)), mo(P2))
+    print(f"K7 on full_zoo's macro arrays ({cross.rows} x {cross.K}, sd 2) vs K3: max abs "
+          f"{err:.3e}, rel {rel:.3e}")
+    if not rel <= KERNEL_RTOL:
+        fail(f"K7 disagrees with K3 on full_zoo's macro arrays: rel {rel:.3e} > {KERNEL_RTOL}")
+
+    engines = {"K1": rec, "K2": mm, "K7": k7}
+    launches, host_err = run_main_path("sv_macro_tet", tab, zoo, pts3, torch, np, engines)
+    if launches != {"K1": 1, "K2": 1, "K7": 1}:
+        fail(f"sv_macro_tet: one pass must launch K1, K2 and K7 once each: {launches}")
+
+    phi = rec(P)
+    k7_ms, k7_plain = median_ms(lambda: k7(P, phi), torch), median_ms(lambda: k7.plain(P, phi),
+                                                                     torch)
+    B = k7.masked_basis(k7.masks(P)[0], phi)
+    A = k7.A.to(dev)
+    k7_lib = median_ms(lambda: torch.matmul(A, B), torch)       # one DGEMM, B given
+    k1_ms, k2_ms = median_ms(lambda: rec(P), torch), median_ms(lambda: mm(phi), torch)
+    del phi, B, A
+    path_ms = median_ms(lambda: tab.block_tables(P), torch)
+
+    def plain_path():
+        phi = rec.plain(P)
+        return mm.plain(phi), k7.plain(P, phi)
+
+    plain_ms = median_ms(plain_path, torch)
+    bound = masked_bound(k7, NPTS)
+    gbytes = (mm.total_rows + k7.rows) * NPTS * 8 / 1e9
+    print(f"sv_macro_tet timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
+          f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms, "
+          f"K7 {k7_ms:.4f} ms (plain {k7_plain:.4f}, one DGEMM on the masked B "
+          f"{k7_lib:.4f}, bound {bound[0]:.4f} by {bound[1]}); a pass writes {gbytes:.3f} GB "
+          f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
+    return [entry("K7 masked_matmul (sv_macro_tet)", "fiat_tpu_torch/csrc/masked_matmul.cu",
+                  "fiat_tpu/ops/pallas_multiword.py:440", launches["K7"], k7_abs, k7_ms,
+                  k7_plain, bound, k7_lib)]
+
+
 def main():
     try:
         import torch
@@ -718,11 +816,11 @@ def main():
     slice_phase(T, dev, pts2, P, card, torch, np)
     tab64, kernels = full_zoo_phase(T, dev, pts2, P, card, torch, np)
     ref64 = tab64(P)
-    del tab64
     kernels += moments_phase(T, dev, pts2, P, card, torch, np)
     kernels += f32_phase(T, dev, P, ref64, card, torch)
     del ref64
     kernels += tet_phase(dev, card, torch, np)
+    kernels += sv_phase(dev, card, tab64, P, torch, np)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

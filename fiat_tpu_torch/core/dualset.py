@@ -1,17 +1,21 @@
 """Dual sets: the functionals of an element plus entity->DoF maps.
 
-Counterpart of ``fiat_tpu/core/dualset.py`` on single cells.  ``to_riesz``
-(the generalized-Vandermonde assembly) delegates to the segment-sum
-program in ``functionals.riesz_representers``.
+Counterpart of ``fiat_tpu/core/dualset.py`` on simplices and their split
+complexes.  ``to_riesz`` (the generalized-Vandermonde assembly) delegates
+to the segment-sum program in ``functionals.riesz_representers``.  A dual
+set built on a split complex collects its DoFs onto the parent cell's
+entities (``merge_entities``).
 """
+
+import numpy as np
 
 from . import functionals
 
 
 class DualSet:
     def __init__(self, nodes, ref_el, entity_ids, entity_permutations=None):
-        if ref_el.get_parent() is not None:
-            raise NotImplementedError("Dual sets on split complexes are not ported yet")
+        nodes, ref_el, entity_ids, entity_permutations = merge_entities(
+            nodes, ref_el, entity_ids, entity_permutations)
         self.nodes = nodes
         self.ref_el = ref_el
         self.entity_ids = entity_ids
@@ -49,9 +53,58 @@ class DualSet:
         array (num_nodes, *target_shape, num_exp)."""
         return functionals.riesz_representers(self.nodes, poly_set)
 
+    def get_indices(self, restriction_domain, take_closure=True):
+        """DoF indices supported on a restriction domain ('interior',
+        'vertex', 'edge', 'face', 'facet', 'ridge')."""
+        dofs = self.get_entity_ids()
+        if restriction_domain == "interior":
+            return [i for _, ids in sorted(dofs[max(dofs)].items()) for i in ids]
+        csd = self.get_reference_element().get_spatial_dimension()
+        named = {"vertex": 0, "edge": 1, "face": 2, "facet": csd - 1, "ridge": csd - 2}
+        if restriction_domain not in named:
+            raise RuntimeError("Invalid restriction domain")
+        dim = named[restriction_domain]
+        wanted = range(0 if take_closure else dim, dim + 1)
+        return [i for edim in sorted(dofs) if edim in wanted
+                for _, ids in sorted(dofs[edim].items()) for i in ids]
+
 
 def make_entity_closure_ids(ref_el, entity_ids):
     """{dim: {entity: sorted dof ids of the entity's closure}}."""
     return {dim: {e: sorted(i for d, se in subs for i in entity_ids[d][se])
                   for e, subs in entities.items()}
             for dim, entities in ref_el.sub_entities.items()}
+
+
+def lexsort_nodes(ref_el, nodes, offset=0):
+    """Order PointEvaluation nodes lexicographically by barycentric
+    coordinates: their indices, shifted by ``offset``."""
+    if len(nodes) < 2:
+        return list(range(offset, offset + len(nodes)))
+    bary = ref_el.compute_barycentric_coordinates([tuple(node.points[0]) for node in nodes])
+    return list(offset + np.lexsort(bary.T))
+
+
+def merge_entities(nodes, ref_el, entity_ids, entity_permutations):
+    """Collect the DoFs of a split complex onto the parent cell's entities.
+
+    Pure point-evaluation duals are re-sorted lexicographically per parent
+    entity (so the parent ordering is canonical); any other functional mix
+    keeps the child ordering.  The merged dual lives on the parent."""
+    parent = ref_el.get_parent()
+    if parent is None:
+        return nodes, ref_el, entity_ids, entity_permutations
+    children_of = ref_el.get_parent_to_children()
+    lagrange = all(isinstance(node, functionals.PointEvaluation) for node in nodes)
+
+    parent_ids = {dim: {} for dim in sorted(children_of)}
+    parent_nodes = [] if lagrange else nodes
+    for dim in sorted(children_of):
+        for entity in sorted(children_of[dim]):
+            child_ids = [i for cd, ce in children_of[dim][entity] for i in entity_ids[cd][ce]]
+            if lagrange:
+                lo = len(parent_nodes)
+                parent_nodes += [nodes[i] for i in child_ids]
+                child_ids = lexsort_nodes(parent, parent_nodes[lo:], offset=lo)
+            parent_ids[dim][entity] = child_ids
+    return parent_nodes, parent, parent_ids, None

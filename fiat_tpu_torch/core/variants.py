@@ -3,14 +3,12 @@
 Counterpart of ``fiat_tpu/core/variants.py``: a variant string is a comma
 list of at most two options, each a point or moment family ('equispaced',
 'gll', 'spectral', 'integral(q)', 'point', ...) or a macro split
-('Alfeld', 'Iso(2)', ...).  Splits are recognised but not ported as
-variants yet: asking for one raises ``NotImplementedError`` (the split
-complexes themselves live in ``core/macro.py``).
+('Alfeld', 'Worsey-Farin', 'Powell-Sabin', 'Powell-Sabin(12)'), which
+comes back as the split constructor of ``core/macro.py``.  'Iso(k)' is
+recognised but raises ``NotImplementedError``: ``IsoSplit`` is not ported.
 """
 
 import re
-
-_SPLITS = ("iso", "alfeld", "worsey-farin", "powell-sabin", "powell-sabin(12)")
 
 
 def _families(discontinuous):
@@ -24,11 +22,47 @@ def _families(discontinuous):
     return table
 
 
-def _refuse_split(raw):
-    opt = raw.lower()
-    if opt in _SPLITS or re.fullmatch(r"iso\((\d+)\)", opt):
+def _split_table():
+    from .macro import (AlfeldSplit, PowellSabin12Split, PowellSabinSplit,
+                        WorseyFarinSplit)
+    return {
+        "alfeld": AlfeldSplit,
+        "worsey-farin": WorseyFarinSplit,
+        "powell-sabin": PowellSabinSplit,
+        "powell-sabin(12)": PowellSabin12Split,
+    }
+
+
+def _refuse_iso(raw):
+    if raw.lower() == "iso" or re.fullmatch(r"iso\((\d+)\)", raw.lower()):
         raise NotImplementedError(
-            f"Macro split {raw!r}: split variants are not ported yet")
+            f"Macro split {raw!r}: IsoSplit is not ported yet")
+
+
+def _parse_options(variant, families, default):
+    """Split a variant string into (splitting ctor or None, family name).
+
+    ``families`` maps recognised family spellings to canonical names;
+    spellings starting with 'integral' pass through verbatim (the moment
+    parser inspects the argument itself)."""
+    options = (variant or default).replace(" ", "").split(",")
+    if len(options) > 2:
+        raise ValueError("At most two comma-separated variant options")
+    splits = _split_table()
+    splitting = None
+    family = families.get(default, default)
+    for raw in options:
+        _refuse_iso(raw)
+        opt = raw.lower()
+        if opt in splits:
+            splitting = splits[opt]
+        elif opt.startswith("integral"):
+            family = opt
+        elif opt in families:
+            family = families[opt]
+        else:
+            raise ValueError(f"Illegal variant option {raw!r}")
+    return splitting, family
 
 
 def parse_lagrange_variant(variant, discontinuous=False, integral=False):
@@ -39,20 +73,12 @@ def parse_lagrange_variant(variant, discontinuous=False, integral=False):
         families, default = {"integral": None, "point": "point"}, "integral"
     else:
         families, default = _families(discontinuous), "spectral"
-    options = (variant or default).replace(" ", "").split(",")
-    if len(options) > 2:
-        raise ValueError("At most two comma-separated variant options")
-    family = families.get(default, default)
-    for raw in options:
-        _refuse_split(raw)
-        opt = raw.lower()
-        if opt.startswith("integral"):
-            family = opt
-        elif opt in families:
-            family = families[opt]
-        else:
-            raise ValueError(f"Illegal variant option {raw!r}")
-    return None, family
+    splitting, family = _parse_options(variant, families, default)
+    if discontinuous and splitting is not None \
+            and family in ("equispaced", "gll", "lgc"):
+        raise ValueError("DG macroelements with DOFs on subcell boundaries "
+                         "are not unisolvent.")
+    return splitting, family
 
 
 def check_format_variant(variant, degree):
@@ -76,7 +102,10 @@ def parse_quadrature_scheme(ref_el, degree, quad_scheme=None):
     from .quadrature_schemes import create_quadrature
     scheme = None
     for opt in (quad_scheme or "").split(","):
-        _refuse_split(opt)
+        _refuse_iso(opt)
+        if opt.lower() in _split_table():
+            raise NotImplementedError(
+                f"Quadrature scheme {opt!r}: split prefixes are not ported yet")
         if re.fullmatch(r"KMV\((\d+)\)", opt):
             raise NotImplementedError("KMV quadrature schemes are not ported yet")
         scheme = opt or scheme

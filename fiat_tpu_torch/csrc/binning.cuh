@@ -1,5 +1,6 @@
 // Subcell binning of one point for the macro (split-complex) programs of a
-// zoo, shared by K3 (macro_oneshot.cu) and K45 (moments.cu).
+// zoo, shared by K3 (macro_oneshot.cu), K45 (moments.cu), both on triangles,
+// and K7 (masked_matmul.cu), on triangles and tetrahedra.
 //
 // fiat_tpu's rule (fiat_tpu/ops/pallas_recurrence.py:SubcellBinning and
 // core/expansions.py:partition_of_unity_masks): with lambda_c(x) the rescaled
@@ -11,13 +12,15 @@
 //
 // Every operation is rounded on its own (no FMA contraction), in the order
 // fiat_tpu_torch/core/expansions.py:subcell_masks computes the float32
-// distances elementwise, so the float instantiation bins every point as
+// distances elementwise (x_0 a_0, + x_1 a_1, ..., + b per row; the rows'
+// terms summed in row order), so the float instantiation bins every point as
 // the plain version does (a point that changed subcell would move a table
 // entry by O(tol)).
 //
-// Tables (built by fiat_tpu_torch/ops/macro_oneshot.py:pack_geometry):
-//   maps[9*m + 3*j + {0,1,2}]   map m (0 = parent, 1 + c = piece c), row j:
-//                               lambda_j = a0 * x + a1 * y + b
+// Tables (built by fiat_tpu_torch/ops/macro_oneshot.py:pack_geometry), with
+// W = SD + 1 barycentric rows of W entries per map:
+//   maps[W*W*m + W*j + {0..SD}] map m (0 = parent, 1 + c = piece c), row j:
+//                               lambda_j = a_0 x_0 + ... + a_{SD-1} x_{SD-1} + b
 //   progs[5*g + {0..4}]         program g: first row, end row, first piece,
 //                               end piece, unique (0/1)
 //   pieces[2*c + {0,1}]         piece c: first column, nexp
@@ -35,47 +38,70 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double abs_of(double a) { return fabs(a); }
 __device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
 
-template <class T>
-__device__ __forceinline__ T l1_distance(const T* __restrict__ map, T x, T y) {
+template <int SD, class T>
+__device__ __forceinline__ T l1_distance(const T* __restrict__ map, const T* x) {
+  constexpr int W = SD + 1;
   T s = T(0);
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const T b = add_rn(add_rn(mul_rn(x, __ldg(map + 3 * j)), mul_rn(y, __ldg(map + 3 * j + 1))),
-                       __ldg(map + 3 * j + 2));
+  for (int j = 0; j < W; ++j) {
+    T b = mul_rn(x[0], __ldg(map + W * j));
+#pragma unroll
+    for (int i = 1; i < SD; ++i) b = add_rn(b, mul_rn(x[i], __ldg(map + W * j + i)));
+    b = add_rn(b, __ldg(map + W * j + SD));
     const T t = add_rn(abs_of(b), -b);
     s = j == 0 ? t : add_rn(s, t);
   }
   return T(0.5) * s;
 }
 
-// Bit c of the result is the mask of piece c (all programs, piece order).
-template <class T>
-__device__ __forceinline__ unsigned subcell_bits(const T* __restrict__ maps, int npieces, T x,
-                                                 T y, T tol) {
-  const T best = add_rn(l1_distance(maps, x, y), tol);
+// The bound a piece's distance is held to: dist_parent + tol.
+template <int SD, class T>
+__device__ __forceinline__ T parent_bound(const T* __restrict__ maps, const T* x, T tol) {
+  return add_rn(l1_distance<SD>(maps, x), tol);
+}
+
+// Bit c - c0 of the result is the mask of piece c, for c0 <= c < c1 (at most
+// 32 pieces).
+template <int SD, class T>
+__device__ __forceinline__ unsigned piece_bits(const T* __restrict__ maps, int c0, int c1,
+                                               const T* x, T best) {
   unsigned near = 0u;
-  for (int c = 0; c < npieces; ++c) {
-    if (l1_distance(maps + 9 * (c + 1), x, y) <= best) near |= 1u << c;
+  for (int c = c0; c < c1; ++c) {
+    if (l1_distance<SD>(maps + (SD + 1) * (SD + 1) * (c + 1), x) <= best) near |= 1u << (c - c0);
   }
   return near;
 }
 
-// Program g's masks (bit c - c0 for piece c) and the factor each masked
-// value takes: the first hit alone for a unique program, else every hit
-// times 1 / (number of hits).
+// A program's rule on its masks: the first hit alone for a unique program,
+// else every hit times recip = 1 / (number of hits).
+template <class T>
+__device__ __forceinline__ unsigned program_rule(unsigned mk, int unique, T& recip) {
+  if (unique) {
+    recip = T(1);
+    return mk & (0u - mk);  // the first hit in subcell order
+  }
+  recip = T(1) / static_cast<T>(__popc(mk));
+  return mk;
+}
+
+// Triangles, every piece of every program in one word (K3, K45: at most 32
+// pieces): bit c of the result is the mask of piece c.
+template <class T>
+__device__ __forceinline__ unsigned subcell_bits(const T* __restrict__ maps, int npieces, T x,
+                                                 T y, T tol) {
+  const T p[2] = {x, y};
+  return piece_bits<2>(maps, 0, npieces, p, parent_bound<2>(maps, p, tol));
+}
+
+// Program g's masks (bit c - c0 for piece c) out of ``subcell_bits``, and
+// the factor each masked value takes.
 template <class T>
 __device__ __forceinline__ unsigned program_mask(unsigned near, const int* __restrict__ progs,
                                                  int g, T& recip) {
   const int c0 = __ldg(progs + 5 * g + 2), c1 = __ldg(progs + 5 * g + 3);
   const int nc = c1 - c0;
-  unsigned mk = (near >> c0) & (nc >= 32 ? ~0u : (1u << nc) - 1u);
-  if (__ldg(progs + 5 * g + 4)) {
-    recip = T(1);
-    mk &= 0u - mk;  // the first hit in subcell order
-  } else {
-    recip = T(1) / static_cast<T>(__popc(mk));
-  }
-  return mk;
+  const unsigned mk = (near >> c0) & (nc >= 32 ? ~0u : (1u << nc) - 1u);
+  return program_rule(mk, __ldg(progs + 5 * g + 4), recip);
 }
 
 }  // namespace fiat

@@ -37,7 +37,9 @@ class Argyris(finite_element.CiarletElement):
     def __init__(self, ref_el, degree=5, variant=None, quad_scheme=None):
         if ref_el.get_shape() != cl.TRIANGLE:
             raise ValueError("Argyris only defined on triangles")
-        _, variant, qdegree = check_format_variant(variant, degree)
+        splitting, variant, qdegree = check_format_variant(variant, degree)
+        if splitting is not None:
+            raise NotImplementedError("Argyris is not implemented as a macroelement.")
 
         b = DualBuilder(ref_el)
         b.vertex_jets(2)

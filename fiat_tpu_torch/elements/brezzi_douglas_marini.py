@@ -48,7 +48,10 @@ class BrezziDouglasMarini(finite_element.CiarletElement):
     """The BDM element (contravariant Piola)."""
 
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
-        _, variant, qdegree = check_format_variant(variant, degree)
+        splitting, variant, qdegree = check_format_variant(variant, degree)
+        if splitting is not None:
+            raise NotImplementedError(
+                "BrezziDouglasMarini on a split complex needs MacroPolynomialSet, which is not ported yet")
         if degree < 1:
             raise ValueError("BDM_k elements are only valid for k >= 1")
         sd = ref_el.get_spatial_dimension()

@@ -3,7 +3,8 @@
 Counterpart of ``fiat_tpu/elements/discontinuous_lagrange.py``: all DoFs
 attached to the cell interior; points either on the full
 boundary-including lattice ('broken' numbering with geometric DG
-orientation permutations) or on interior point families (gl/gc).
+orientation permutations) or on interior point families (gl/gc), one
+lattice per subcell on a split complex.
 """
 
 import math
@@ -73,26 +74,33 @@ def _broken_dual(ref_el, degree, point_variant):
 
 
 def _interior_dual(ref_el, degree, point_variant):
-    """Interior point families (gl/gc): one lattice on the cell."""
+    """Interior point families (gl/gc): one lattice per top-level cell
+    (a split complex has several)."""
     b = DualBuilder(ref_el)
     cell_dim = max(b.top)
-    b.tag(cell_dim, 0,
-          (PointEvaluation(ref_el, x)
-           for x in cl.make_lattice(ref_el.get_vertices(), degree, variant=point_variant)))
+    for e in b.entities(cell_dim):
+        verts = ref_el.get_vertices_of_subcomplex(b.top[cell_dim][e])
+        b.tag(cell_dim, e,
+              (PointEvaluation(ref_el, x)
+               for x in cl.make_lattice(verts, degree, variant=point_variant)))
     return b.dual_set(permutations=_per_dim_perms(b, make_entity_permutations_simplex, degree))
 
 
 class DiscontinuousLagrange(finite_element.CiarletElement):
-    """Discontinuous Lagrange; degree 0 degenerates to P0."""
+    """Discontinuous Lagrange; degree 0 degenerates to P0, except on a
+    split complex (one constant per subcell)."""
 
     def __new__(cls, ref_el, degree, variant="equispaced"):
         if degree == 0:
-            parse_lagrange_variant(variant, discontinuous=True)
-            return P0(ref_el)
+            splitting, _ = parse_lagrange_variant(variant, discontinuous=True)
+            if splitting is None and not ref_el.is_macrocell():
+                return P0(ref_el)
         return super().__new__(cls)
 
     def __init__(self, ref_el, degree, variant="equispaced"):
-        _, point_variant = parse_lagrange_variant(variant, discontinuous=True)
+        splitting, point_variant = parse_lagrange_variant(variant, discontinuous=True)
+        if splitting is not None:
+            ref_el = splitting(ref_el)
         if point_variant in ("equispaced", "gll", "lgc"):
             dual = _broken_dual(ref_el, degree, point_variant)
         else:

@@ -1,7 +1,8 @@
 """Lagrange elements.
 
 Counterpart of ``fiat_tpu/elements/lagrange.py``: point evaluation at
-recursively-defined lattice points of every entity; 1D uses the exact
+recursively-defined lattice points of every entity, on simplices and on
+their split complexes; 1D uses the exact
 barycentric nodal basis, higher dimensions the C0 bubble expansion.
 """
 
@@ -40,11 +41,15 @@ def LagrangeDualSet(ref_el, degree, point_variant="equispaced",
 
 
 class Lagrange(finite_element.CiarletElement):
-    """The Lagrange element; ``variant`` names the point distribution
-    ('equispaced', 'gll', 'spectral', ...)."""
+    """The Lagrange element.  ``variant`` may combine a point distribution
+    ('equispaced', 'gll', 'spectral', ...) and a macro splitting ('Alfeld',
+    'Worsey-Farin', 'Powell-Sabin', 'Powell-Sabin(12)'): on a split, the C0
+    bubble expansion set of the complex."""
 
     def __init__(self, ref_el, degree, variant="equispaced", sort_entities=False):
-        _, point_variant = parse_lagrange_variant(variant)
+        splitting, point_variant = parse_lagrange_variant(variant)
+        if splitting is not None:
+            ref_el = splitting(ref_el)
         dual = LagrangeDualSet(ref_el, degree, point_variant=point_variant,
                                sort_entities=sort_entities)
         if ref_el.shape == cl.LINE:

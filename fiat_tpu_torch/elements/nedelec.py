@@ -117,7 +117,10 @@ class Nedelec(finite_element.CiarletElement):
     """First-kind Nedelec element (covariant Piola)."""
 
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
-        _, variant, qdegree = check_format_variant(variant, degree)
+        splitting, variant, qdegree = check_format_variant(variant, degree)
+        if splitting is not None:
+            raise NotImplementedError(
+                "Nedelec on a split complex needs MacroPolynomialSet, which is not ported yet")
         sd = ref_el.get_spatial_dimension()
         if sd == 3:
             poly_set = NedelecSpace3D(ref_el, degree)

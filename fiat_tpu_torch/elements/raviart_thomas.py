@@ -75,7 +75,10 @@ class RaviartThomas(finite_element.CiarletElement):
     """The Raviart-Thomas element (contravariant Piola)."""
 
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
-        _, variant, qdegree = check_format_variant(variant, degree)
+        splitting, variant, qdegree = check_format_variant(variant, degree)
+        if splitting is not None:
+            raise NotImplementedError(
+                "RaviartThomas on a split complex needs MacroPolynomialSet, which is not ported yet")
         poly_set = RTSpace(ref_el, degree)
         b = DualBuilder(ref_el)
         if variant == "integral":

@@ -12,13 +12,16 @@ def device_tabulator(elements, order=0, f64=True, device=None):
     CUDA kernels on a CUDA device, their plain PyTorch versions only where
     the caller asks for ``device="cpu"``.
 
-    * ``f64=True``: ``fused_zoo.FusedZooTabulator`` (K1, K2, K3) in
-      float64, on triangles and tetrahedra; ``tab.block_tables(points)``
-      gives per-group blocks and ``tab.unpack(blocks)`` the per-element
-      dicts of ``el.tabulate``.
+    * ``f64=True``: ``fused_zoo.FusedZooTabulator`` in float64, on
+      triangles and tetrahedra: K1 and K2, and for macro elements K3 (a
+      triangle parent, at most 32 subcells) or else K7, as
+      ``tab.macro.name`` says; ``tab.block_tables(points)`` gives
+      per-group blocks and ``tab.unpack(blocks)`` the per-element dicts of
+      ``el.tabulate``.
     * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``
-      (K6, and K3 in float32 for macro elements), triangles only;
-      ``tab.tables(points)`` gives the whole zoo's float32 tables.
+      (K6, and K3 in float32 for macro elements), triangles only (K6's
+      and K3's sd = 3 stages are not ported); ``tab.tables(points)`` gives
+      the whole zoo's float32 tables.
 
     Never returns a slower engine in place of the one asked for: what is
     not ported yet raises ``NotImplementedError``."""

@@ -1,5 +1,5 @@
 """The fused zoo engine: K1 recurrence (or K8 Bernstein features) + K2
-bucketed change of basis + K3 macro elements.
+bucketed change of basis + K3 or K7 for the macro elements.
 
 Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedZooTabulator``
 over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
@@ -13,10 +13,14 @@ over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
      zoo rows sharing a contraction width K_g (a degree-d element only
      touches the degree-d morton prefix of the basis), the alpha-stacked
      change-of-basis rows A_g times Phi[:K_g], all groups in one launch;
-  3. K3 (``macro_oneshot.MacroOneShot``, ``csrc/macro_oneshot.cu``), when
-     the zoo holds macro elements: the merged tables of every macro program
-     (subcell binning, parent recurrence, masked change of basis,
-     multiplicity average) in one launch.
+  3. when the zoo holds macro elements, the merged tables of every macro
+     program (subcell binning, masked change of basis, multiplicity average)
+     in one launch: K3 (``macro_oneshot.MacroOneShot``,
+     ``csrc/macro_oneshot.cu``, with its own parent recurrence) where its
+     preconditions hold (a triangle parent, at most 32 subcells, parent
+     degree at most 10), else K7 (``masked_matmul.MaskedMatmul``,
+     ``csrc/masked_matmul.cu``), which reads the parent basis as a prefix of
+     K1's Phi; K1 then runs at the larger of the plain and macro degrees.
 
 The TPU engine reaches f64 on the bf16 MXU through df32 pairs, Ozaki
 windows and TwoSum combines; Hopper has native FP64, so no kernel carries
@@ -33,7 +37,8 @@ import torch
 
 from .bernstein import BernsteinFeatures, bernstein_operand
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import MacroOneShot
+from .macro_oneshot import MacroOneShot, one_shot_applies
+from .masked_matmul import MaskedMatmul
 from .recurrence import DubinerRecurrence
 
 
@@ -149,8 +154,9 @@ class FusedZooTabulator:
     ``el.tabulate(order, points)``; ``fz(points)`` gives {alpha: (rows,
     npts)} in the row order of ``BatchedTabulator``.  ``fz.recurrence``
     (K1; None on the Bernstein route), ``fz.features`` (K8; None on the
-    Dubiner route), ``fz.matmul`` (K2) and ``fz.macro`` (K3; None without
-    macro elements) carry the launch counts.
+    Dubiner route), ``fz.matmul`` (K2) and ``fz.macro`` (K3 or K7, as
+    ``fz.macro.name`` says; None without macro elements) carry the launch
+    counts.
 
     ``features``: "auto" or "dubiner" (the default) feed K2 from the
     recurrence; "bernstein" from the Bernstein features, with the
@@ -205,7 +211,19 @@ class FusedZooTabulator:
 
         self.widths, group_mats, self._loc, self.group_rows, _ = group_by_width(
             mats, self.alphas, self.slices, plain_nexp)
-        self.recurrence = self.features = None
+        self.recurrence = self.features = self.macro = None
+        self._programs = list(macro_programs)
+        rec_degree = max_degree
+        if self._programs:
+            merged = _merge_macro_programs(self._programs, scale, affine_map,
+                                           max(map(sum, self.alphas)))
+            # chosen by precondition, once: K3 where it applies, else K7
+            if one_shot_applies(merged):
+                self.macro = MacroOneShot(**merged, device=self.device)
+            else:
+                self.macro = MaskedMatmul(merged["A"], merged["pieces"], merged["geom"],
+                                          merged["parent_map"], device=self.device)
+                rec_degree = max(max_degree, merged["degree"])
         if features == "bernstein":
             if len(self.widths) != 1 or self.special:
                 raise ValueError(
@@ -216,16 +234,10 @@ class FusedZooTabulator:
             group_mats = [np.asarray(np.asarray(group_mats[0], np.longdouble) @ M, np.float64)]
             self.features = BernsteinFeatures(self.sd, max_degree, bary, self.device)
         else:
-            self.recurrence = DubinerRecurrence(self.sd, max_degree, scale, affine_map,
+            self.recurrence = DubinerRecurrence(self.sd, rec_degree, scale, affine_map,
                                                 self.device)
         self.matmul = BucketMatmul(group_mats, self.device)
         self.device = self.matmul.device      # "cuda" resolved to its index
-        self.macro = None
-        self._programs = list(macro_programs)
-        if self._programs:
-            self.macro = MacroOneShot(**_merge_macro_programs(
-                self._programs, scale, affine_map, max(map(sum, self.alphas))),
-                device=self.device)
 
     def _points(self, points):
         """Host (numpy) points go to the engine's device; a tensor must
@@ -247,7 +259,7 @@ class FusedZooTabulator:
         out = {a: [blk[k * r:(k + 1) * r] for blk, r in zip(blocks, self.group_rows)]
                for k, a in enumerate(self.alphas)}
         if self.macro is not None:
-            merged = self.macro(pts)
+            merged = self.macro(pts, basis) if self.macro.name == "K7" else self.macro(pts)
             for i in self.special:
                 g, lo, hi = self._macro_loc[i]
                 r0, r = self.macro.geom[g]["rows"][0], self._programs[g].rows
@@ -313,20 +325,21 @@ def group_by_width(mats, alphas, slices, plain_nexp):
 
 
 def _merge_macro_programs(programs, scale, affine_map, order,
-                          engine="the one-shot engine (K3)"):
-    """K3's arrays from the macro side programs (fiat_tpu's
+                          engine="each macro engine (K3, K7)"):
+    """The merged arrays of the macro side programs (fiat_tpu's
     ``_build_macro_merged`` / ``_build_macro_oneshot``): the merged tall
     matrix with each program's scale ratio folded in, the (row, nexp_parent)
     pieces per subcell, per-program geometry (rescaled barycentric maps,
     ``unique``, row range), the parent map, ``rec_deg`` and the parent
-    scale.  Raises ``NotImplementedError`` naming K7, the masked fallback
-    engine that is not ported, where ``engine`` does not apply: the parent
-    basis must be one plain expansion set on the zoo's cell at its scale."""
+    scale.  ``engine`` is built on one parent basis shared by every program:
+    one plain expansion set on the zoo's cell at its scale.  Where the
+    programs do not share one, this raises ``NotImplementedError`` naming
+    fiat_tpu's per-program fallback (``macro_fms``), which is not ported."""
     def refuse(why):
         raise NotImplementedError(
-            f"macro programs {why}: {engine} does not apply, and the "
-            "masked fallback engine (TPU kernel K7, FusedMaskedMultiword) is not "
-            "ported yet; ROADMAP.md queues it")
+            f"macro programs {why} do not share one parent basis, and {engine} is built on "
+            "one; fiat_tpu's per-program fallback (macro_fms, one kernel per macro program) "
+            "is not ported yet")
 
     A_zoo, b_zoo = (np.asarray(v, np.float64) for v in affine_map)
     if any(type(p.parent_es) is not type(programs[0].parent_es) for p in programs):

@@ -12,7 +12,7 @@ Without ``nvcc`` (a CPU-only machine) ``load_kernels`` raises
 Every C entry point takes raw device pointers plus the caller's CUDA
 stream, launches, and returns ``cudaGetLastError()``; the wrappers
 (``recurrence.py``, ``fused_zoo.py``, ``macro_oneshot.py``,
-``moment_kernel.py``, ``f32_zoo.py``, ``bernstein.py``) raise when it is
+``masked_matmul.py``, ``moment_kernel.py``, ``f32_zoo.py``, ``bernstein.py``) raise when it is
 not 0.
 """
 
@@ -56,6 +56,9 @@ SIGNATURES = {
     # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
     "fiat_pair_moments": [_P, _P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,
                           _P, _I, _P, _I, _P, _I, _P],
+    # pts, npts, sd, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
+    # phi, out, stream
+    "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     # pts, npts, consts, affine[6], scale, degree, At, lda, tiles, ntiles, dst,
     # out, splits, stream
     "fiat_zoo_f32": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P, _I, _P, _P, _I,

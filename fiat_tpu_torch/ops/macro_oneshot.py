@@ -34,18 +34,19 @@ BINNING_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 def pack_geometry(geom, parent_map, nexp):
-    """The binning tables of ``csrc/binning.cuh`` (float64 numpy/int32):
-    ``maps`` (1 + pieces, 3, 3), the parent's rescaled barycentric map
-    first, then every subcell's, each row (a0, a1, b); ``progs`` (programs,
-    5) = (first row, end row, first piece, end piece, unique) from ``geom``
-    (per program {"maps", "unique", "rows"}); ``pieces`` (pieces, 2) =
-    (first column, nexp) from the per-piece widths ``nexp``."""
+    """The binning tables of ``csrc/binning.cuh`` (float64 numpy/int32) on
+    triangles or tetrahedra (sd = 2, 3): ``maps`` (1 + pieces, sd + 1, sd +
+    1), the parent's rescaled barycentric map first, then every subcell's,
+    each row (a_0, ..., a_{sd-1}, b); ``progs`` (programs, 5) = (first row,
+    end row, first piece, end piece, unique) from ``geom`` (per program
+    {"maps", "unique", "rows"}); ``pieces`` (pieces, 2) = (first column,
+    nexp) from the per-piece widths ``nexp``."""
     parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
-    if parent_map[0].shape != (3, 2):
-        raise NotImplementedError("the macro kernels cover triangles (sd = 2) only")
+    sd = parent_map[0].shape[1]
+    if sd not in (2, 3) or parent_map[0].shape != (sd + 1, sd):
+        raise NotImplementedError(f"the macro kernels bin on triangles and tetrahedra, "
+                                  f"not a parent map of shape {parent_map[0].shape}")
     nexp = [int(n) for n in nexp]
-    if len(nexp) > MAX_PIECES:
-        raise NotImplementedError(f"{len(nexp)} subcells: the kernels take at most {MAX_PIECES}")
     maps, progs, c0 = [parent_map], [], 0
     for g in geom:
         maps.extend((np.asarray(Am, np.float64), np.asarray(bm, np.float64))
@@ -59,6 +60,15 @@ def pack_geometry(geom, parent_map, nexp):
     maps = np.stack([np.column_stack([Am, bm]) for Am, bm in maps])
     return (maps, np.asarray(progs, np.int32).reshape(-1, 5),
             np.column_stack([offsets[:-1], nexp]).astype(np.int32).reshape(-1, 2))
+
+
+def one_shot_applies(merged):
+    """Whether K3 takes the merged macro programs (``fused_zoo.
+    _merge_macro_programs``' output): a triangle parent (its recurrence has
+    no sd = 3 stage yet), at most ``MAX_PIECES`` subcells in all and a parent
+    degree of at most ``MAX_DEGREE``."""
+    return (np.asarray(merged["parent_map"][0]).shape == (3, 2)
+            and len(merged["pieces"]) <= MAX_PIECES and 0 <= merged["degree"] <= MAX_DEGREE)
 
 
 class MacroOneShot:
@@ -82,6 +92,9 @@ class MacroOneShot:
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
 
+    #: which TPU kernel this engine ports
+    name = "K3"
+
     def __init__(self, A, pieces, geom, parent_map, degree, scale, affine_map, device=None,
                  dtype=torch.float64):
         if dtype not in BINNING_TOL:
@@ -97,6 +110,11 @@ class MacroOneShot:
                                    for Am, bm in g["maps"]]) for g in geom]
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
         self.nexp = [int(n) for _, n in pieces]
+        if self.parent_map[0].shape != (3, 2):
+            raise NotImplementedError("K3 covers triangles (sd = 2) only; its sd = 3 stage is "
+                                      "queued in ROADMAP.md")
+        if len(self.nexp) > MAX_PIECES:
+            raise NotImplementedError(f"{len(self.nexp)} subcells: K3 takes at most {MAX_PIECES}")
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
         if max(self.nexp) > (self.degree + 1) * (self.degree + 2) // 2:
             raise ValueError("a subcell reads more parent members than the recurrence makes")

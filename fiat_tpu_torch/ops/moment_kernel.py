@@ -19,7 +19,7 @@ import torch
 
 from ..core.expansions import dubiner_tabulate, subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import BINNING_TOL, pack_geometry
+from .macro_oneshot import BINNING_TOL, MAX_PIECES, pack_geometry
 from .recurrence import pack_stages
 
 #: highest degree the kernel is instantiated for (csrc/moments.cu)
@@ -67,6 +67,9 @@ class PairMoments:
         self.nexp = (self.degree + 1) * (self.degree + 2) // 2
         self.nplain = int(nplain)
         self.piece_nexp = [int(n) for _, n in pieces]
+        if len(self.piece_nexp) > MAX_PIECES:
+            raise NotImplementedError(
+                f"{len(self.piece_nexp)} subcells: K45 takes at most {MAX_PIECES}")
         if self.nplain > self.nexp or max(self.piece_nexp, default=0) > self.nexp:
             raise ValueError("a row reads more members than the recurrence makes")
         self.geom = list(geom)

@@ -56,8 +56,12 @@ def test_variants_and_unported_splits():
     ref = jfe.Lagrange(jcl.ufc_simplex(2), 4, variant="gll")
     el = tfe.Lagrange(T, 4, variant="gll")
     assert np.abs(el.get_coeffs() - np.asarray(ref.get_coeffs())).max() <= TOL
-    with pytest.raises(NotImplementedError):
-        tfe.Lagrange(T, 2, variant="alfeld")
+    ref = jfe.Lagrange(jcl.ufc_simplex(2), 2, variant="alfeld")
+    el = tfe.Lagrange(T, 2, variant="alfeld")
+    assert el.is_macroelement() and el.entity_dofs() == ref.entity_dofs()
+    assert np.abs(el.get_coeffs() - np.asarray(ref.get_coeffs())).max() <= TOL
+    with pytest.raises(NotImplementedError, match="IsoSplit"):
+        tfe.Lagrange(T, 2, variant="iso(2)")
     with pytest.raises(ValueError):
         tfe.Lagrange(T, 2, variant="nonsense")
 

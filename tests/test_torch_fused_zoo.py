@@ -170,7 +170,8 @@ def test_grouping_refuses_to_drop_real_coefficients(zoos):
 def test_device_tabulator_raises_for_unported_engines(zoos):
     """``f64=False`` builds the f32 engine (K6, macro elements on K3 in
     float32); what is still unported raises naming it: macro programs the
-    fused moments kernel (K45) cannot take name the masked fallback, K7."""
+    fused moments kernel (K45) cannot take name fiat_tpu's per-program
+    fallback, macro_fms."""
     _, tzoo = zoos
     hct = tfe.HsiehCloughTocher(tcl.ufc_simplex(2), 3)
     assert hct.is_macroelement()
@@ -184,5 +185,5 @@ def test_device_tabulator_raises_for_unported_engines(zoos):
     odd = copy.copy(st["macro_programs"][0])
     odd.parent_es = copy.copy(odd.parent_es)
     odd.parent_es.variant = "dual"
-    with pytest.raises(NotImplementedError, match="K45.*K7"):
+    with pytest.raises(NotImplementedError, match="K45.*macro_fms"):
         MomentEngine.from_arrays(**{**st, "macro_programs": [odd]}, device="cpu")

@@ -356,3 +356,104 @@ def test_bernstein_wrapper_refuses_points_on_another_device(cuda):
         feat(P.to("meta"))
     with pytest.raises(ValueError, match="shape"):
         feat(torch.zeros((4, 2), dtype=torch.float64, device=cuda))
+
+
+# -- K7: macro elements on tetrahedra (and past K3's 32 subcells) ------------
+
+def _sv_zoo(T, wide=False):
+    """sv_macro_tet: the Scott-Vogelius pairs on Alfeld and Worsey-Farin
+    splits; ``wide`` adds Lagrange 3 on Worsey-Farin (44 subcells in all)."""
+    zoo = [tfe.Lagrange(T, 1), tfe.Lagrange(T, 3), tfe.Lagrange(T, 3, variant="alfeld"),
+           tfe.DiscontinuousLagrange(T, 2, variant="alfeld"),
+           tfe.Lagrange(T, 2, variant="worsey-farin"),
+           tfe.DiscontinuousLagrange(T, 1, variant="worsey-farin")]
+    return zoo + [tfe.Lagrange(T, 3, variant="worsey-farin")] if wide else zoo
+
+
+_K7_ZOOS = {
+    "alfeld": lambda T: [tfe.Lagrange(T, 3), tfe.Lagrange(T, 3, variant="alfeld"),
+                         tfe.DiscontinuousLagrange(T, 2, variant="alfeld")],
+    "worsey-farin": lambda T: [tfe.Lagrange(T, 2), tfe.Lagrange(T, 2, variant="worsey-farin"),
+                               tfe.DiscontinuousLagrange(T, 1, variant="worsey-farin")],
+    "sv_wide": lambda T: _sv_zoo(T, wide=True),
+}
+
+
+def _tet_special_points():
+    """Points where subcells meet: the barycentre (the Alfeld and
+    Worsey-Farin centre), the face centres (Worsey-Farin), the vertices,
+    points on the Alfeld interior faces and on the Worsey-Farin interior
+    edges (centre to vertices, to face centres, face centres to vertices)."""
+    V = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    c = V.mean(axis=0)
+    faces = [V[[j for j in range(4) if j != i]].mean(axis=0) for i in range(4)]
+    t = np.array([0.25, 0.5, 0.75])[:, None]
+    segs = [v + t * (c - v) for v in list(V) + faces]
+    segs += [f + t * (V[j] - f) for i, f in enumerate(faces) for j in range(4) if j != i]
+    alfeld_faces = [(V[i] + V[j] + c) / 3 for i in range(4) for j in range(i + 1, 4)]
+    return np.vstack([c[None], np.asarray(faces), V, *segs, np.asarray(alfeld_faces)])
+
+
+@pytest.mark.parametrize("npts", [1, 1077, 100_000])
+@pytest.mark.parametrize("zoo", sorted(_K7_ZOOS))
+def test_masked_matmul_kernel_matches_plain(cuda, zoo, npts):
+    """K7 against its plain version on the same Phi and points: each split
+    alone, and a zoo of 44 subcells (past K3's 32)."""
+    fz = device_tabulator(_K7_ZOOS[zoo](tcl.ufc_simplex(3)), order=1, device=cuda)
+    k7 = fz.macro
+    assert k7.name == "K7" and k7.sd == 3
+    P = torch.as_tensor(_tet_points(npts, seed=npts), device=cuda)
+    phi = fz.recurrence(P)
+    got = k7(P, phi)
+    torch.cuda.synchronize()
+    assert k7.launches == 1 and tuple(got.shape) == (k7.rows, npts)
+    want = k7.plain(P, phi)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_masked_matmul_kernel_on_tie_points(cuda, order):
+    """Points on interior faces, edges and centres: several subcells take
+    them, averaged (order 1) or first hit of a C0 basis (order 0)."""
+    fz = device_tabulator(_sv_zoo(tcl.ufc_simplex(3)), order=order, device=cuda)
+    assert [g["unique"] for g in fz.macro.geom] == [order == 0, False, order == 0, False]
+    P = torch.as_tensor(_tet_special_points(), device=cuda)
+    phi = fz.recurrence(P)
+    got, want = fz.macro(P, phi), fz.macro.plain(P, phi)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def test_masked_matmul_kernel_matches_k3_on_triangle_macro_arrays(cuda):
+    """K7 on the merged macro arrays of HCT + PS6 (K3's 63 x 66), reading
+    the zoo's degree-10 Phi by prefix, against K3."""
+    from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
+    T = tcl.ufc_simplex(2)
+    fz = device_tabulator([tfe.Lagrange(T, 10)] + _macro_zoo(T), order=1, device=cuda)
+    mo = fz.macro
+    assert mo.name == "K3" and (mo.rows, mo.K) == (63, 66)
+    k7 = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
+                      device=cuda)
+    P = torch.as_tensor(np.vstack([_points(3001), _special_points()]), device=cuda)
+    got, want = k7(P, fz.recurrence(P)), mo(P)
+    torch.cuda.synchronize()
+    assert k7.launches == 1
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def test_sv_macro_tet_on_card_one_launch_each_matches_host(cuda):
+    """One pass launches K1, K2 and K7 once each; K1 runs at the macro
+    degree when it exceeds the plain one, and a CPU tensor is refused."""
+    T = tcl.ufc_simplex(3)
+    for zoo in (_sv_zoo(T), [tfe.Lagrange(T, 1), tfe.Lagrange(T, 3, variant="alfeld")]):
+        tab = device_tabulator(zoo, order=1, device=cuda)
+        assert tab.macro.name == "K7" and tab.recurrence.degree == 3
+        pts = np.vstack([_tet_points(900), _tet_special_points()])
+        with pytest.raises(ValueError, match="engine on cuda:0"):
+            tab.block_tables(torch.as_tensor(pts))
+        got = tab.unpack(tab.block_tables(torch.as_tensor(pts, device=cuda)))
+        assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (1, 1, 1)
+        for el, g in zip(zoo, got):
+            want = el.tabulate(1, pts)
+            for a in want:
+                assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10

@@ -244,9 +244,10 @@ def test_from_arrays_on_fiat_tpu_macro_programs():
 
 
 def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
-    """Where fiat_tpu's preconditions for its one-shot engine fail, the
-    port raises naming K7 (the masked fallback, not ported) instead of
-    running something else."""
+    """Where the programs do not share one parent basis (fiat_tpu's
+    precondition for its merged engines), the port raises naming fiat_tpu's
+    per-program fallback (macro_fms, not ported) instead of running
+    something else."""
     st = BatchedTabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu").state()
     for attr, value in (("variant", "dual"),                       # a parent variant
                         ("affine_mappings", [(2 * np.eye(2), np.zeros(2))]),  # another cell
@@ -254,7 +255,7 @@ def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
         odd = copy.copy(st["macro_programs"][0])
         odd.parent_es = copy.copy(odd.parent_es)
         setattr(odd.parent_es, attr, value)
-        with pytest.raises(NotImplementedError, match="K7"):
+        with pytest.raises(NotImplementedError, match="macro_fms"):
             programs = [odd, *st["macro_programs"][1:]]
             FusedZooTabulator.from_arrays(**{**st, "macro_programs": programs}, device="cpu")
 

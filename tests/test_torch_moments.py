@@ -183,13 +183,13 @@ def test_engine_is_cached_and_refuses_a_tensor_on_another_device():
 ])
 def test_engine_refuses_programs_k45_cannot_take(attr, value):
     """Where the fused kernel's preconditions fail, the engine raises
-    naming K7 (the masked fallback, not ported) instead of running
-    something else."""
+    naming fiat_tpu's per-program fallback (macro_fms, not ported) instead
+    of running something else."""
     st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0, device="cpu").state()
     odd = copy.copy(st["macro_programs"][0])
     odd.parent_es = copy.copy(odd.parent_es)
     setattr(odd.parent_es, attr, value)
-    with pytest.raises(NotImplementedError, match="K45.*K7"):
+    with pytest.raises(NotImplementedError, match="K45.*macro_fms"):
         MomentEngine.from_arrays(**{**st, "macro_programs": [odd, *st["macro_programs"][1:]]},
                                  device="cpu")
 
@@ -203,6 +203,6 @@ def test_engine_refuses_mixed_parent_expansion_types():
 
     odd.parent_es = copy.copy(odd.parent_es)
     odd.parent_es.__class__ = OtherSet
-    with pytest.raises(NotImplementedError, match="mixed parent.*K7"):
+    with pytest.raises(NotImplementedError, match="mixed parent.*macro_fms"):
         MomentEngine.from_arrays(**{**st, "macro_programs": [st["macro_programs"][0], odd]},
                                  device="cpu")
