@@ -28,7 +28,17 @@ Drives the port's main paths once each at their real size, at 1e5 points
      split, Lagrange 2 + DG 1 on the Worsey-Farin split) through
      ``device_tabulator(..., order=1)`` on the default device: K1 (sd = 3),
      K2 and K7, the macro elements on K7 reading K1's Phi by prefix; K7 is
-     also held against K3 on ``full_zoo``'s macro arrays.
+     also held against K3 on ``full_zoo``'s macro arrays;
+  7. tetrahedra through dual evaluation and the f32 engine, at ``pts3``:
+     ``ops.moments.moment_rows`` and ``interpolate_rows`` on a
+     ``BatchedTabulator(zoo, order=0)`` on the default device for
+     ``tet_lagrange8`` and ``hdiv_hcurl_tet`` (moments on K45's sd = 3
+     stage, interpolation on K1 and no K45), ``moment_rows`` on
+     ``sv_macro_tet`` (K45 alone: 308 sums over 32 subcells, no K3), K45
+     alone on ``tet_lagrange8`` at 1e7 points, and
+     ``device_tabulator(..., order=1, f64=False).tables`` for
+     ``tet_lagrange8`` and ``hdiv_hcurl_tet`` (K6's sd = 3 stage), held
+     against phase 5's float64 tables.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -43,7 +53,7 @@ Usage (from the repository root, on a machine with a CUDA card):
 Prints the card's name and power limit, one line per step, a JSON line
 ``{"kernels": [...]}`` (K1, K2 and K3 measured on ``full_zoo``, K45 on the
 moments phase, K6 on the f32 phase, K1, K2 and K8 on the tetrahedra, K7
-on ``sv_macro_tet``, each
+on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's cells, each
 with its bound: the larger of its bytes over the HBM rate and its
 operations over the peak rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -355,9 +365,32 @@ def moments_bound(pm, npts):
     one FMA per plain sum and, for every program, one per member of the one
     subcell an interior point bins into (csrc/moments.cu adds a point only
     into the pieces it lies on)."""
-    flops = rec_flops(2, pm.degree) + 2 * pm.nplain + sum(
+    flops = rec_flops(pm.sd, pm.degree) + 2 * pm.nplain + sum(
         2 * nexp for _, nexp in one_piece_nexp(pm.geom, pm.piece_nexp))
-    return bound_of(8 * (3 * npts + pm.rows), flops * npts, FP64_FMA_MS)
+    return bound_of(8 * ((pm.sd + 1) * npts + pm.rows), flops * npts, FP64_FMA_MS)
+
+
+def zoo_f32_bound(k6, npts):
+    """K6: the points and A in, the rows out; per point the recurrence and
+    2 K_g flops per row of group g."""
+    flops = 2 * sum(r * k for r, k in zip(k6.group_rows, k6.K)) + rec_flops(k6.sd, k6.degree)
+    nbytes = 4 * (k6.sd * npts + k6.A.numel() + k6.total_rows * npts)
+    return bound_of(nbytes, flops * npts, FP32_FMA_MS)
+
+
+def zoo_f32_library_ms(k6, P32, torch):
+    """One cuBLAS SGEMM (TF32 off) of the zero-padded packed rows by a Phi
+    computed beforehand: the library yardstick of K6."""
+    from fiat_tpu_torch.core.expansions import dubiner_tabulate
+    from fiat_tpu_torch.ops.kernels import no_tf32
+    sd = k6.sd
+    x_ref = P32 @ P32.new_tensor(k6.affine[:sd * sd].reshape(sd, sd)).T + P32.new_tensor(
+        k6.affine[sd * sd:])                     # on the default simplex
+    phi32 = dubiner_tabulate(sd, k6.degree, [x_ref[:, i] for i in range(sd)], k6.scale,
+                             variant=k6.variant, raw=True)
+    with no_tf32():
+        A = k6.A.to(phi32.device)
+        return median_ms(lambda: torch.matmul(A, phi32[:k6.max_k]), torch)
 
 
 def features_bound(feat, npts):
@@ -379,6 +412,28 @@ def make_points(n, seed, np, sd=2):
         pts = rng.random((n, d))
         pts = pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((n, 1))
     return pts
+
+
+def host_dual_check(name, zoo, bt, mo, P, pts, wf, wf_h, u, c_h, np):
+    """Moments on the first HOST_CHECK_PTS points against host
+    el.tabulate(0) @ wf, in the bench's form (bench.py:476-486), and, where
+    ``u`` (the main path's interpolated values) is given, its first
+    HOST_CHECK_PTS values against host sum_i c_i phi_i; fails past
+    HOST_ATOL."""
+    n = HOST_CHECK_PTS
+    sub, wsub = pts[:n], wf_h[:n]
+    origin = (0,) * pts.shape[1]
+    per = mo.unpack_moments(bt, mo.moment_rows(bt, P[:n], wf[:n]))
+    mom_err, host_u = 0.0, np.zeros(n)
+    for el, m, (lo, hi, _) in zip(zoo, per, bt.slices):
+        tab = np.asarray(el.tabulate(0, sub)[origin]).reshape(hi - lo, n)
+        mom_err = max(mom_err, float(np.abs(tab @ wsub - m.reshape(-1).cpu().numpy()).max()))
+        host_u += c_h[lo:hi] @ tab
+    interp_err = 0.0 if u is None else float(np.abs(u[:n].cpu().numpy() - host_u).max())
+    print(f"{name} vs host el.tabulate(0) on {n} points: moments max abs {mom_err:.3e}"
+          + ("" if u is None else f", interpolation max abs {interp_err:.3e}"))
+    if not (mom_err <= HOST_ATOL and interp_err <= HOST_ATOL):
+        fail(f"{name}: moments {mom_err:.3e} / interpolation {interp_err:.3e} > {HOST_ATOL}")
 
 
 def moments_phase(T, dev, pts2, P, card, torch, np):
@@ -419,22 +474,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     if not (bool(torch.isfinite(M).all()) and bool(torch.isfinite(u).all())):
         fail("non-finite moments or interpolated values")
 
-    # against host tabulation in the bench's form (bench.py:476-486)
-    sub, wsub = pts2[:HOST_CHECK_PTS], wf_h[:HOST_CHECK_PTS]
-    per = mo.unpack_moments(bt, mo.moment_rows(bt, P[:HOST_CHECK_PTS], wf[:HOST_CHECK_PTS]))
-    mom_err = interp_err = 0.0
-    host_u = np.zeros(HOST_CHECK_PTS)
-    for el, m, (lo, hi, _) in zip(zoo, per, bt.slices):
-        tab = el.tabulate(0, sub)[(0, 0)]
-        want = np.asarray(tab).reshape(tuple(m.shape) + (len(sub),)) @ wsub
-        mom_err = max(mom_err, float(np.abs(want - m.cpu().numpy()).max()))
-        host_u += c_h[lo:hi] @ np.asarray(tab).reshape(hi - lo, len(sub))
-    interp_err = float(np.abs(u[:HOST_CHECK_PTS].cpu().numpy() - host_u).max())
-    print(f"moments vs host el.tabulate(0) @ wf on {HOST_CHECK_PTS} points: max abs "
-          f"{mom_err:.3e} (|M| <= {M.abs().max().item():.3e}); interpolation vs host "
-          f"sum_i c_i phi_i: max abs {interp_err:.3e}")
-    if not (mom_err <= HOST_ATOL and interp_err <= HOST_ATOL):
-        fail(f"moments {mom_err:.3e} / interpolation {interp_err:.3e} > {HOST_ATOL}")
+    host_dual_check("full_zoo", zoo, bt, mo, P, pts2, wf, wf_h, u, c_h, np)
 
     def moments_plain(Q, w):
         return eng.matrix @ pm.plain(Q, w)
@@ -446,6 +486,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
 
     k45_ms, k45_plain = median_ms(lambda: pm(P, wf), torch), median_ms(lambda: pm.plain(P, wf),
                                                                       torch)
+    k45_lib = stack_mv_ms(pm, P, wf, torch)
     mom_ms = median_ms(lambda: mo.moment_rows(bt, P, wf), torch)
     mom_plain = median_ms(lambda: moments_plain(P, wf), torch)
     int_ms = median_ms(lambda: mo.interpolate_rows(bt, P, c), torch)
@@ -454,7 +495,8 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     via_ms = median_ms(lambda: [b @ wf for b in fz.block_tables(P)[(0, 0)]], torch)
     print(f"moments timing at {NPTS} points ({card}; median of {REPS} runs of {INNER}, CUDA "
           f"events): moment_rows {mom_ms:.4f} ms (plain {mom_plain:.4f}), K45 {k45_ms:.4f} ms "
-          f"(plain {k45_plain:.4f}); interpolate_rows {int_ms:.4f} ms (plain {int_plain:.4f})")
+          f"(plain {k45_plain:.4f}, one DGEMV on its stack built beforehand {k45_lib:.4f}); "
+          f"interpolate_rows {int_ms:.4f} ms (plain {int_plain:.4f})")
     print(f"moments via tables at {NPTS} points ({card}): order-0 f64 engine (K1 + K2 + K3) "
           f"block_tables then each block @ wf: {via_ms:.4f} ms = {via_ms / mom_ms:.1f} x "
           f"moment_rows")
@@ -479,15 +521,23 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     torch.cuda.empty_cache()
     return [entry("K45 pair_moments", "fiat_tpu_torch/csrc/moments.cu",
                   "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727",
-                  moments_launches, k45_abs, k45_ms, k45_plain, moments_bound(pm, NPTS))]
+                  moments_launches, k45_abs, k45_ms, k45_plain, moments_bound(pm, NPTS),
+                  k45_lib)]
+
+
+def stack_mv_ms(pm, P, wf, torch):
+    """One cuBLAS DGEMV of K45's (rows, npts) stack, built beforehand, by
+    the weights: the library yardstick of K45."""
+    B = pm.stack(P)
+    ms = median_ms(lambda: torch.mv(B, wf), torch)
+    del B
+    return ms
 
 
 def f32_phase(T, dev, P, ref64, card, torch):
     """Phase 4: full_zoo on the f32 engine, K6 and K3 in float32, one
     launch each; held against phase 2's float64 tables ``ref64``."""
     from fiat_tpu_torch import device_tabulator
-    from fiat_tpu_torch.core.expansions import dubiner_tabulate
-    from fiat_tpu_torch.ops.kernels import no_tf32
 
     t0 = time.perf_counter()
     zoo = full_zoo(T)
@@ -499,8 +549,6 @@ def f32_phase(T, dev, P, ref64, card, torch):
           f"alphas, K6 {k6.total_rows} rows in widths {k6.K}, K3 float32 {m3.rows} x {m3.K}, "
           f"{time.perf_counter() - t0:.2f} s")
     P32 = P.float()
-    Af = P32.new_tensor(k6.affine[:4].reshape(2, 2))
-    x_ref = P32 @ Af.T + P32.new_tensor(k6.affine[4:])   # on the default triangle
     shape = (k6.total_rows, NPTS)
     k6_abs = check_kernel(f"K6 f32 zoo ({k6.total_rows} x {NPTS})",
                           k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
@@ -551,12 +599,8 @@ def f32_phase(T, dev, P, ref64, card, torch):
     k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
     k6_plain = median_ms(lambda: k6.plain(P32, tab.dst_plain, out), torch)
     m3_ms, m3_plain = median_ms(lambda: m3(P32), torch), median_ms(lambda: m3.plain(P32), torch)
-    # one cuBLAS SGEMM (TF32 off) over the zero-padded stack, on a Phi computed before
-    phi32 = dubiner_tabulate(2, k6.degree, [x_ref[:, 0], x_ref[:, 1]], k6.scale, raw=True)
-    with no_tf32():
-        A = k6.A.to(phi32.device)
-        k6_lib = median_ms(lambda: torch.matmul(A, phi32[:k6.max_k]), torch)
-    del out, phi32, A
+    k6_lib = zoo_f32_library_ms(k6, P32, torch)
+    del out
     path_ms = median_ms(lambda: tab.tables(P), torch)
     full = torch.empty((len(tab.alphas) * tab.rows, NPTS), device=dev)
     plain_ms = median_ms(lambda: (k6.plain(P.float(), tab.dst_tables, full),
@@ -569,12 +613,9 @@ def f32_phase(T, dev, P, ref64, card, torch):
           f"{gbytes:.3f} GB = {gbytes / path_ms:.3f} TB/s (K6 alone "
           f"{k6.total_rows * NPTS * 4 / 1e9 / k6_ms:.3f} TB/s; one padded SGEMM on a computed "
           f"Phi {k6_lib:.4f} ms)")
-    k6_flops = (2 * sum(r * k for r, k in zip(k6.group_rows, k6.K))
-                + rec_flops(2, k6.degree)) * NPTS
-    k6_bytes = 4 * (2 * NPTS + k6.A.numel() + k6.total_rows * NPTS)
     return [entry("K6 zoo_f32", "fiat_tpu_torch/csrc/zoo_f32.cu",
                   "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs, k6_ms,
-                  k6_plain, bound_of(k6_bytes, k6_flops, FP32_FMA_MS), k6_lib),
+                  k6_plain, zoo_f32_bound(k6, NPTS), k6_lib),
             entry("K3 macro_oneshot float32", "fiat_tpu_torch/csrc/macro_oneshot.cu",
                   "fiat_tpu/ops/pallas_multiword.py:652", launches["K3 float32"], m3_abs, m3_ms,
                   m3_plain, macro_bound(m3, NPTS, 4, FP32_FMA_MS))]
@@ -674,7 +715,8 @@ def tet_phase(dev, card, torch, np):
           f"{hk2_lib:.4f})")
 
     src = "fiat_tpu_torch/csrc/"
-    return [
+    engines64 = {"tet_lagrange8": tab, "hdiv_hcurl_tet": htab}
+    return engines64, [
         entry("K1 dubiner3_values (tet_lagrange8)", src + "recurrence.cu",
               "fiat_tpu/ops/pallas_recurrence.py:399", launches["tet_lagrange8"]["K1"], k1_abs,
               k1_ms, k1_plain, rec_bound(rec, NPTS)),
@@ -781,6 +823,147 @@ def sv_phase(dev, card, full_zoo_engine, P2, torch, np):
                   k7_plain, bound, k7_lib)]
 
 
+def tet_dual_f32_phase(dev, card, engines64, torch, np):
+    """Phase 7: tetrahedra through dual evaluation (moments on K45's sd = 3
+    stage, one launch; interpolation on K1, one launch, no K45; moments of
+    sv_macro_tet on K45 alone, no K3) and through the f32 engine (K6's
+    sd = 3 stage, one launch a pass, held against phase 5's float64
+    tables ``engines64``), at bench.py's pts3."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    pts3 = make_points(NPTS, SEED, np, sd=3)
+    P = torch.as_tensor(pts3, device=dev)
+    T3 = ufc_simplex(3)
+    lag8, hdiv = tet_zoos(T3)
+    zoos = {"tet_lagrange8": lag8, "hdiv_hcurl_tet": hdiv, "sv_macro_tet": sv_macro_tet(T3)}
+    wf_h = np.random.default_rng(7).random(NPTS)      # bench.py:441
+    wf = torch.as_tensor(wf_h, device=dev)
+    src = "fiat_tpu_torch/csrc/"
+    k45_replaces = "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727"
+    kernels = []
+
+    for name, zoo in zoos.items():
+        t0 = time.perf_counter()
+        bt = BatchedTabulator(zoo, order=0)     # the default device: the card
+        eng = mo.moment_engine(bt)
+        pm, rec = eng.moments, eng.recurrence
+        macro = name == "sv_macro_tet"
+        if eng.device != dev or pm.sd != 3:
+            fail(f"{name}: the moments engine must run K45's sd = 3 stage on {dev}")
+        if macro and (pm.rows, len(pm.piece_nexp), len(pm.geom)) != (308, 32, 4):
+            fail(f"sv_macro_tet: K45 must sum 308 rows over 32 subcells in 4 programs, got "
+                 f"{pm.rows} over {len(pm.piece_nexp)} in {len(pm.geom)}")
+        print(f"{name} dual host construction: {len(zoo)} elements, {eng.rows} rows, K45 "
+              f"{pm.rows} sums (degree {pm.degree}: {pm.nplain} plain + {pm.rows - pm.nplain} "
+              f"masked over {len(pm.piece_nexp)} subcells), {pm.blocks_per_sm} resident blocks "
+              f"an SM, {time.perf_counter() - t0:.2f} s")
+        k45_abs = check_kernel(f"{name} K45 sd 3 ({pm.rows} sums over {NPTS} points)",
+                               pm(P, wf), pm.plain(P, wf), torch)
+
+        engines = {"K45": pm, "K1": rec}
+        M, launches = counted(engines, lambda: mo.moment_rows(bt, P, wf), torch)
+        expect_launches(f"{name} moments", launches, {"K45": 1, "K1": 0})
+        k45_launches = launches["K45"]
+        c_h = np.random.default_rng(11).random(eng.rows) - 0.5
+        c = u = None
+        if macro:
+            if eng.built["macro"]:
+                fail("sv_macro_tet: moments must not build K3")
+        else:
+            c = torch.as_tensor(c_h, device=dev)
+            u, launches = counted(engines, lambda: mo.interpolate_rows(bt, P, c), torch)
+            expect_launches(f"{name} interpolation", launches, {"K45": 0, "K1": 1})
+            if tuple(u.shape) != (NPTS,) or not bool(torch.isfinite(u).all()):
+                fail(f"{name}: interpolation {tuple(u.shape)}, finite "
+                     f"{bool(torch.isfinite(u).all())}")
+        if tuple(M.shape) != (eng.rows,) or not bool(torch.isfinite(M).all()):
+            fail(f"{name}: moments {tuple(M.shape)}, finite {bool(torch.isfinite(M).all())}")
+        host_dual_check(name, zoo, bt, mo, P, pts3, wf, wf_h, u, c_h, np)
+
+        mom_ms = median_ms(lambda: mo.moment_rows(bt, P, wf), torch)
+        int_ms = None if macro else median_ms(lambda: mo.interpolate_rows(bt, P, c), torch)
+        k45_ms, k45_plain = median_ms(lambda: pm(P, wf), torch), median_ms(lambda: pm.plain(P, wf),
+                                                                          torch)
+        k45_lib = stack_mv_ms(pm, P, wf, torch)
+        bound = moments_bound(pm, NPTS)
+        print(f"{name} dual timing at {NPTS} points ({card}; median of {REPS} runs of {INNER}, "
+              f"CUDA events): moment_rows {mom_ms:.4f} ms"
+              + ("" if macro else f", interpolate_rows {int_ms:.4f} ms")
+              + f"; K45 {k45_ms:.4f} ms (plain {k45_plain:.4f}, one DGEMV on its stack built "
+              f"beforehand {k45_lib:.4f}, bound {bound[0]:.4f} by {bound[1]})")
+        if name != "hdiv_hcurl_tet":
+            kernels.append(entry(f"K45 pair_moments sd 3 ({name})", src + "moments.cu",
+                                 k45_replaces, k45_launches, k45_abs, k45_ms, k45_plain, bound,
+                                 k45_lib))
+        if name == "tet_lagrange8":
+            # 1e7 points: points and weights (320 MB) stream from HBM; the
+            # plain version holds the first 1e6 (its Phi alone at 1e7 is 13 GB)
+            big = torch.as_tensor(make_points(BIG_NPTS, SEED + 1, np, sd=3), device=dev)
+            wbig = torch.as_tensor(np.random.default_rng(8).random(BIG_NPTS), device=dev)
+            head = BIG_NPTS // 10
+            check_kernel(f"tet_lagrange8 K45 sd 3 ({pm.rows} sums over the first {head} of "
+                         f"{BIG_NPTS} points)", pm(big[:head], wbig[:head]),
+                         pm.plain(big[:head], wbig[:head]), torch)
+            big_ms = median_ms(lambda: pm(big, wbig), torch, reps=5, inner=4)
+            big_bound = moments_bound(pm, BIG_NPTS)
+            print(f"tet_lagrange8 K45 sd 3 at {BIG_NPTS} points ({card}; CUDA events): "
+                  f"{big_ms:.4f} ms (bound {big_bound[0]:.4f} by {big_bound[1]}, "
+                  f"{big_ms / big_bound[0]:.1f}x); {BIG_NPTS / big_ms / 1e6:.3f} Gpoints/s")
+            del big, wbig
+            torch.cuda.empty_cache()
+
+    P32 = P.float()
+    for name in ("tet_lagrange8", "hdiv_hcurl_tet"):
+        zoo = zoos[name]
+        t0 = time.perf_counter()
+        tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
+        k6 = tab.kernel
+        if tab.device != dev or k6.sd != 3 or tab.macro is not None:
+            fail(f"{name} f32: K6's sd = 3 stage alone on {dev}")
+        print(f"{name} f32 host construction: {tab.rows} rows x {len(tab.alphas)} alphas, K6 "
+              f"{k6.total_rows} rows in widths {k6.K}, {k6.tile_points}-point tiles, "
+              f"{k6.smem} bytes of shared memory a block, {time.perf_counter() - t0:.2f} s")
+        shape = (k6.total_rows, NPTS)
+        k6_abs = check_kernel(f"{name} K6 sd 3 ({k6.total_rows} x {NPTS})",
+                              k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
+                              k6.plain(P32, tab.dst_plain, torch.empty(shape, device=dev)),
+                              torch, F32_KERNEL_RTOL)
+        tables, launches = counted({"K6": k6}, lambda: tab.tables(P), torch)
+        expect_launches(f"{name} f32", launches, {"K6": 1})
+        if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
+            fail(f"{name} f32: non-finite values in the tables")
+        ref64 = engines64[name](P)
+        worst = 0.0
+        for a in tab.alphas:
+            err = (tables[a].double() - ref64[a]).abs().max().item()
+            rel = err / ref64[a].abs().max().item()
+            worst = max(worst, rel)
+            if not rel <= F32_RTOL:
+                fail(f"{name} f32 {a}: {rel:.3e} of the alpha's max > {F32_RTOL}")
+        print(f"{name} f32 vs phase 5's f64 tables on all {NPTS} points: worst alpha "
+              f"{worst:.3e} of its max abs (limit {F32_RTOL})")
+        del tables, ref64
+
+        out = torch.empty(shape, device=dev)
+        k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
+        k6_plain = median_ms(lambda: k6.plain(P32, tab.dst_plain, out), torch)
+        k6_lib = zoo_f32_library_ms(k6, P32, torch)
+        del out
+        path_ms = median_ms(lambda: tab.tables(P), torch)
+        bound = zoo_f32_bound(k6, NPTS)
+        gbytes = k6.total_rows * NPTS * 4 / 1e9
+        print(f"{name} f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
+              f"tables {path_ms:.4f} ms; K6 {k6_ms:.4f} ms (plain {k6_plain:.4f}, one padded "
+              f"SGEMM on a computed Phi {k6_lib:.4f}, bound {bound[0]:.4f} by {bound[1]}); K6 "
+              f"writes {gbytes:.3f} GB = {gbytes / k6_ms:.3f} TB/s")
+        kernels.append(entry(f"K6 zoo_f32 sd 3 ({name})", src + "zoo_f32.cu",
+                             "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs,
+                             k6_ms, k6_plain, bound, k6_lib))
+    return kernels
+
+
 def main():
     try:
         import torch
@@ -813,14 +996,30 @@ def main():
     pts2 = make_points(NPTS, SEED, np)
     P = torch.as_tensor(pts2, device=dev)
 
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"phase {phase} done in {now - clock[0]:.1f} s (wall clock)")
+        clock[0] = now
+
     slice_phase(T, dev, pts2, P, card, torch, np)
+    lap(1)
     tab64, kernels = full_zoo_phase(T, dev, pts2, P, card, torch, np)
+    lap(2)
     ref64 = tab64(P)
     kernels += moments_phase(T, dev, pts2, P, card, torch, np)
+    lap(3)
     kernels += f32_phase(T, dev, P, ref64, card, torch)
+    lap(4)
     del ref64
-    kernels += tet_phase(dev, card, torch, np)
+    tet64, tet_kernels = tet_phase(dev, card, torch, np)
+    kernels += tet_kernels
+    lap(5)
     kernels += sv_phase(dev, card, tab64, P, torch, np)
+    lap(6)
+    kernels += tet_dual_f32_phase(dev, card, tet64, torch, np)
+    lap(7)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

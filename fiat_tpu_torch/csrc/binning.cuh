@@ -1,5 +1,5 @@
 // Subcell binning of one point for the macro (split-complex) programs of a
-// zoo, shared by K3 (macro_oneshot.cu), K45 (moments.cu), both on triangles,
+// zoo, shared by K3 (macro_oneshot.cu), on triangles, and K45 (moments.cu)
 // and K7 (masked_matmul.cu), on triangles and tetrahedra.
 //
 // fiat_tpu's rule (fiat_tpu/ops/pallas_recurrence.py:SubcellBinning and
@@ -93,8 +93,17 @@ __device__ __forceinline__ unsigned subcell_bits(const T* __restrict__ maps, int
   return piece_bits<2>(maps, 0, npieces, p, parent_bound<2>(maps, p, tol));
 }
 
-// Program g's masks (bit c - c0 for piece c) out of ``subcell_bits``, and
-// the factor each masked value takes.
+// Tetrahedra, the same for K45's sd = 3 stage: bit c of the result is the
+// mask of piece c.
+template <class T>
+__device__ __forceinline__ unsigned subcell_bits3(const T* __restrict__ maps, int npieces, T x,
+                                                  T y, T z, T tol) {
+  const T p[3] = {x, y, z};
+  return piece_bits<3>(maps, 0, npieces, p, parent_bound<3>(maps, p, tol));
+}
+
+// Program g's masks (bit c - c0 for piece c) out of ``subcell_bits`` or
+// ``subcell_bits3``, and the factor each masked value takes.
 template <class T>
 __device__ __forceinline__ unsigned program_mask(unsigned near, const int* __restrict__ progs,
                                                  int g, T& recip) {

@@ -1,9 +1,12 @@
-// The per-point Dubiner value recurrence on the tetrahedron, used by K1
-// (recurrence.cu, which writes Phi to device memory).
+// The per-point Dubiner value recurrence on the tetrahedron, shared by K1
+// (recurrence.cu, which writes Phi to device memory), K45 (moments.cu, which
+// adds every value into its row sums as it comes) and K6 (zoo_f32.cu, which
+// writes a Phi tile to shared memory).
 //
-// dubiner3_point<N>(x0, x1, x2, consts, scale, emit) runs the three-stage
-// Kirby recurrence in f64 at one point (x0, x1, x2) of the default (-1, 1)
-// tetrahedron and calls emit(e, value) once for every stage-2 entry e:
+// dubiner3_point<N, T>(x0, x1, x2, consts, scale, emit) runs the three-stage
+// Kirby recurrence in T (double or float) at one point (x0, x1, x2) of the
+// default (-1, 1) tetrahedron and calls emit(e, value) once for every
+// stage-2 entry e:
 // stage-1 row (p, q), p = 0..N, q = 0..N-p, then level r = 0..N-p-q,
 // row-major in (p, q, r).  The entry's member is the morton row of
 // (p, q, r) (ops/recurrence.py:pack_stages(N, sd=3) builds it as `slots`).
@@ -13,11 +16,11 @@
 // a register array, each stage-1 row runs its three-term recurrence over q
 // holding two levels, and every stage-1 value starts a stage-2 chain over r
 // (two levels again) whose values go straight to the emitter.  The live
-// state is the N+1 stage-0 values plus four doubles.  With N a template
+// state is the N+1 stage-0 values plus four more.  With N a template
 // parameter and the loops unrolled, the entry counters are compile-time
 // constants, so the constant loads carry immediate offsets.
 //
-// Constant layout (ops/recurrence.py:pack_stages(N, sd=3)), f64:
+// Constant layout (ops/recurrence.py:pack_stages(N, variant, sd=3)), in T:
 //   consts[4*i + {0,1,2,3}], i = 0..N              stage 0: a, b, c, norm
 //   consts[4*(N+1) + 4*e1 + {0,1,2,3}]            stage 1 entry e1 (p, q)
 //   consts[4*(N+1) + 4*nexp2 + 4*e + {0,1,2,3}]   stage 2 entry e (p, q, r)
@@ -32,54 +35,54 @@ namespace fiat {
 
 // one level of a three-term recurrence: (a fa - b fb) prev - (c fc) prev2,
 // with (a, b, c) at c[0..2] (c = 0 at level 1)
-__device__ __forceinline__ double dubiner_step(const double* __restrict__ c, double fa,
-                                               double fb, double fc, double prev,
-                                               double prev2) {
+template <class T>
+__device__ __forceinline__ T dubiner_step(const T* __restrict__ c, T fa, T fb, T fc, T prev,
+                                          T prev2) {
   return (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
 }
 
-template <int N, class Emit>
-__device__ __forceinline__ void dubiner3_point(double x0, double x1, double x2,
-                                               const double* __restrict__ consts, double scale,
-                                               Emit&& emit) {
+template <int N, class T, class Emit>
+__device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const T* __restrict__ consts,
+                                               T scale, Emit&& emit) {
   if constexpr (N == 0) {
     emit(0, scale);
   } else {
     constexpr int kNexp2 = (N + 1) * (N + 2) / 2;
+    const T half = T(0.5), one = T(1.0);
     // stage 0: the 1D recurrence in the first collapsed coordinate
-    double r0[N + 1];
+    T r0[N + 1];
     {
-      const double fb = 0.5 * (x1 + x2);
-      const double fa = x0 + fb + 1.0;
-      const double fc = fb * fb;
-      double prev2 = 0.0, prev = scale;
+      const T fb = half * (x1 + x2);
+      const T fa = x0 + fb + one;
+      const T fc = fb * fb;
+      T prev2 = T(0), prev = scale;
       r0[0] = prev * __ldg(consts + 3);
 #pragma unroll
       for (int i = 1; i <= N; ++i) {
-        const double v = dubiner_step(consts + 4 * i, fa, fb, fc, prev, prev2);
+        const T v = dubiner_step(consts + 4 * i, fa, fb, fc, prev, prev2);
         r0[i] = v * __ldg(consts + 4 * i + 3);
         prev2 = prev;
         prev = v;
       }
     }
 
-    const double fb1 = 0.5 * (x2 + -1.0);
-    const double fa1 = x1 + fb1 + 1.0;
-    const double fc1 = fb1 * fb1;
-    const double fb2 = 0.5 * (-1.0 + -1.0);
-    const double fa2 = x2 + fb2 + 1.0;
-    const double fc2 = fb2 * fb2;
-    const double* c1 = consts + 4 * (N + 1);
-    const double* c2 = c1 + 4 * kNexp2;
+    const T fb1 = half * (x2 + -one);
+    const T fa1 = x1 + fb1 + one;
+    const T fc1 = fb1 * fb1;
+    const T fb2 = half * (-one + -one);
+    const T fa2 = x2 + fb2 + one;
+    const T fc2 = fb2 * fb2;
+    const T* c1 = consts + 4 * (N + 1);
+    const T* c2 = c1 + 4 * kNexp2;
     int e1 = 0, e = 0;
 #pragma unroll
     for (int p = 0; p <= N; ++p) {
       // stage 1, row p: levels q = 0..N-p in the second coordinate
-      double prev2 = 0.0, prev = r0[p];
+      T prev2 = T(0), prev = r0[p];
 #pragma unroll
       for (int q = 0; q <= N - p; ++q, ++e1) {
-        const double* c = c1 + 4 * e1;
-        double v = prev;
+        const T* c = c1 + 4 * e1;
+        T v = prev;
         if (q > 0) {
           v = dubiner_step(c, fa1, fb1, fc1, prev, prev2);
           prev2 = prev;
@@ -87,13 +90,13 @@ __device__ __forceinline__ void dubiner3_point(double x0, double x1, double x2,
         }
         // stage 2, row (p, q): levels r = 0..N-p-q in the third
         // coordinate, each value straight to the emitter
-        double s2 = 0.0, s = v * __ldg(c + 3);
+        T s2 = T(0), s = v * __ldg(c + 3);
         emit(e, s * __ldg(c2 + 4 * e + 3));
         ++e;
 #pragma unroll
         for (int r = 1; r <= N - p - q; ++r, ++e) {
-          const double* cc = c2 + 4 * e;
-          const double w = dubiner_step(cc, fa2, fb2, fc2, s, s2);
+          const T* cc = c2 + 4 * e;
+          const T w = dubiner_step(cc, fa2, fb2, fc2, s, s2);
           emit(e, w * __ldg(cc + 3));
           s2 = s;
           s = w;

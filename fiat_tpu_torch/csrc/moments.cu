@@ -34,6 +34,20 @@
 // pw; piece c's masked moments are rows nplain + off_c + k, k < nexp_c
 // (program-major, subcell-major: fiat_tpu's b_stack order).  Tables:
 // binning.cuh (maps, progs, pieces) and dubiner2.cuh (consts).
+//
+// The tetrahedron (sd = 3, degree 0..10) computes the same sums in the same
+// layout, but phi does not fit a thread's registers (165 values at degree
+// 8), so dubiner3.cuh streams the values and the kernel adds each one into
+// its rows as it comes: slots[e] (ops/recurrence.py:pack_stages(N, sd=3))
+// gives stage-2 entry e its morton row j.  A point runs one pass of the
+// recurrence for each row block it feeds: the plain rows (w * phi_j, j <
+// nplain), then, binned as above, every piece it lies on in program and
+// subcell order (recip * w * phi_j into piece c's rows, j < nexp_c).  An
+// interior point of sv_macro_tet (4 programs) runs 5 passes of the degree-3
+// recurrence (167 flops each) beside its binning (33 L1 distances).  A
+// single pass feeding every block at once unrolls a compare and add per
+// block into each value: with it the kernels' build took 79 s on the H100
+// machine, against 23 s with one pass per block.
 
 #include <cuda_runtime.h>
 
@@ -41,6 +55,7 @@
 
 #include "binning.cuh"
 #include "dubiner2.cuh"
+#include "dubiner3.cuh"
 
 namespace {
 
@@ -131,6 +146,94 @@ int launch(const double* pts, const double* wf, int npts, const double* consts, 
   return static_cast<int>(cudaGetLastError());
 }
 
+struct Affine3 {
+  double a[9], b[3];
+};
+
+// Adds f * phi_j to rows[32 * j] (this lane's column of a row block) for
+// every member j < nk of the degree-N basis at (x0, x1, x2): one pass of
+// the streamed recurrence, each value into its morton row as it comes.
+template <int N>
+__device__ __forceinline__ void add_rows(double x0, double x1, double x2,
+                                         const double* __restrict__ consts,
+                                         const int* __restrict__ slots, double scale,
+                                         double* rows, int nk, double f) {
+  fiat::dubiner3_point<N>(x0, x1, x2, consts, scale, [&](int e, double v) {
+    const int j = N == 0 ? 0 : __ldg(slots + e);
+    if (j < nk) rows[32 * j] += f * v;
+  });
+}
+
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+pair_moments3_kernel(const double* __restrict__ pts, const double* __restrict__ wf, int npts,
+                     const double* __restrict__ consts, const int* __restrict__ slots,
+                     Affine3 m, double scale, double tol, int nplain,
+                     const double* __restrict__ maps, int npieces,
+                     const int* __restrict__ progs, int nprogs, const int* __restrict__ pieces,
+                     int R, double* __restrict__ partials) {
+  extern __shared__ double acc[];  // [WARPS][R][32]: every lane's own row sums
+  for (int e = threadIdx.x; e < WARPS * R * 32; e += THREADS) acc[e] = 0.0;
+  __syncthreads();
+  double* mine = acc + (threadIdx.x >> 5) * R * 32 + (threadIdx.x & 31);
+
+  for (long long p = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; p < npts;
+       p += static_cast<long long>(gridDim.x) * THREADS) {
+    const double px = pts[3 * p], py = pts[3 * p + 1], pz = pts[3 * p + 2];
+    const double w = wf[p];
+    // cell map onto the default (-1, 1) tetrahedron, as K1's
+    const double x0 = (px * m.a[0] + py * m.a[1] + pz * m.a[2]) + m.b[0];
+    const double x1 = (px * m.a[3] + py * m.a[4] + pz * m.a[5]) + m.b[1];
+    const double x2 = (px * m.a[6] + py * m.a[7] + pz * m.a[8]) + m.b[2];
+
+    // K4's rows: the plain moments
+    add_rows<N>(x0, x1, x2, consts, slots, scale, mine, nplain, w);
+
+    // K5's rows: one pass for each piece this point lies on
+    if (nprogs == 0) continue;
+    const unsigned near = fiat::subcell_bits3(maps, npieces, px, py, pz, tol);
+    for (int g = 0; g < nprogs; ++g) {
+      double recip;
+      const int c0 = __ldg(progs + 5 * g + 2);
+      for (unsigned mk = fiat::program_mask(near, progs, g, recip); mk; mk &= mk - 1u) {
+        const int c = c0 + __ffs(mk) - 1;
+        add_rows<N>(x0, x1, x2, consts, slots, scale, mine + 32 * (nplain + __ldg(pieces + 2 * c)),
+                    __ldg(pieces + 2 * c + 1), recip * w);
+      }
+    }
+  }
+
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    double s = 0.0;
+    for (int wi = 0; wi < WARPS; ++wi) {
+      const double* col = acc + (wi * R + r) * 32;
+#pragma unroll
+      for (int l = 0; l < 32; ++l) s += col[l];
+    }
+    partials[static_cast<size_t>(blockIdx.x) * R + r] = s;
+  }
+}
+
+template <int N>
+int launch3(const double* pts, const double* wf, int npts, const double* consts,
+            const int* slots, const Affine3& m, double scale, double tol, int nplain,
+            const double* maps, int npieces, const int* progs, int nprogs, const int* pieces,
+            int R, double* partials, int nblocks, cudaStream_t stream) {
+  const size_t smem = sizeof(double) * WARPS * 32 * static_cast<size_t>(R);
+  const cudaError_t err = cudaFuncSetAttribute(
+      pair_moments3_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return static_cast<int>(err);
+  }
+  pair_moments3_kernel<N><<<nblocks, THREADS, smem, stream>>>(
+      pts, wf, npts, consts, slots, m, scale, tol, nplain, maps, npieces, progs, nprogs, pieces,
+      R, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // pts (npts, 2), wf (npts,), partials (nblocks, R): device f64.  Returns the
@@ -154,6 +257,33 @@ extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts,
   case n:                                                                                  \
     return launch<n>(pts, wf, npts, consts, m, scale, tol, nplain, maps, npieces, progs,   \
                      nprogs, pieces, R, partials, nblocks, s);
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
+#undef FIAT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The tetrahedron: pts (npts, 3), slots (pack_stages(degree, sd=3)), the rest
+// as above; degree 0..10, cudaErrorInvalidValue outside.
+extern "C" int fiat_pair_moments3(const double* pts, const double* wf, int npts,
+                                  const double* consts, const int* slots, double a00,
+                                  double a01, double a02, double a10, double a11, double a12,
+                                  double a20, double a21, double a22, double b0, double b1,
+                                  double b2, double scale, double tol, int degree, int nplain,
+                                  const double* maps, int npieces, const int* progs, int nprogs,
+                                  const int* pieces, int R, double* partials, int nblocks,
+                                  void* stream) {
+  if (npieces > 32 || degree < 0 || nplain > (degree + 1) * (degree + 2) * (degree + 3) / 6)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Affine3 m{{a00, a01, a02, a10, a11, a12, a20, a21, a22}, {b0, b1, b2}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+#define FIAT_CASE(n)                                                                    \
+  case n:                                                                               \
+    return launch3<n>(pts, wf, npts, consts, slots, m, scale, tol, nplain, maps, npieces, \
+                      progs, nprogs, pieces, R, partials, nblocks, s);
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
 #undef FIAT_CASE

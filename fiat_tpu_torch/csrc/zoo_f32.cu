@@ -33,6 +33,14 @@
 //   * dst maps every packed row to its output row, so the output comes out
 //     in the caller's layout (alpha-major, zoo row order) with no copy.
 // Each output is one sequential FMA chain over k = 0..K-1.
+//
+// The tetrahedron (sd = 3, degree 0..10) runs the same kernel with the Phi
+// tile from dubiner3.cuh in float, each value to its morton row through
+// slots[e] (ops/recurrence.py:pack_stages(N, variant, sd=3)), as K1's sd = 3
+// stage writes them.  Its Phi tile is larger (165 rows at degree 8: 169 KB
+// at 256 points, one block per SM beside a 45 KB A tile); from degree 9 on
+// a 256-point tile does not fit a block's 227 KB, so the tile takes 128
+// points there (tile_points below; the wrapper sizes the grid from it).
 
 #include <cuda_runtime.h>
 
@@ -40,6 +48,7 @@
 #include <cstdint>
 
 #include "dubiner2.cuh"
+#include "dubiner3.cuh"
 
 namespace {
 
@@ -47,21 +56,36 @@ struct Affine {
   float a00, a01, a10, a11, b0, b1;
 };
 
+struct Affine3 {
+  float a[9], b[3];
+};
+
 constexpr int TR = 64;              // rows per tile
-constexpr int TP = 256;             // points per block
 constexpr int TX = 32;
 constexpr int TY = 8;
 constexpr int RI = TR / TY;         // rows per thread (contiguous)
-constexpr int PJ4 = TP / (4 * TX);  // float4 point quads per thread
 constexpr int TRP = TR + 4;         // padded row stride of the transposed A tile
 
-template <int N>
+// points per block: 256, or 128 where a 256-point Phi tile of the
+// tetrahedron would not fit shared memory
+__host__ __device__ constexpr int tile_points(int sd, int n) {
+  return sd == 3 && n >= 9 ? 128 : 256;
+}
+
+template <int SD, int N>
+struct Members {
+  static constexpr int value = SD == 2 ? (N + 1) * (N + 2) / 2 : (N + 1) * (N + 2) * (N + 3) / 6;
+};
+
+template <int SD, int N, class Map>
 __global__ void __launch_bounds__(TX * TY, 2)
 zoo_f32_kernel(const float* __restrict__ pts, int npts, const float* __restrict__ consts,
-               Affine m, float scale, const float* __restrict__ At, int lda,
-               const int* __restrict__ tiles, int ntiles, const int* __restrict__ dst,
+               const int* __restrict__ slots, Map m, float scale, const float* __restrict__ At,
+               int lda, const int* __restrict__ tiles, int ntiles, const int* __restrict__ dst,
                float* __restrict__ out) {
-  constexpr int NE = fiat::Nexp<N>::value;
+  constexpr int NE = Members<SD, N>::value;
+  constexpr int TP = tile_points(SD, N);
+  constexpr int PJ4 = TP / (4 * TX);  // float4 point quads per thread
   extern __shared__ __align__(16) float smem[];
   float* Bs = smem;              // [NE][TP]: Phi on this block's points
   float* As = smem + NE * TP;    // [lda][TRP]: the current row tile, transposed
@@ -72,7 +96,7 @@ zoo_f32_kernel(const float* __restrict__ pts, int npts, const float* __restrict_
                     ((reinterpret_cast<uintptr_t>(out) & 15) == 0);
 
   // the Phi tile: one point per thread, each value to its morton row
-  {
+  if constexpr (SD == 2) {
     const int p = p0 + tid;
     const float px = p < npts ? pts[2 * p] : 0.0f;
     const float py = p < npts ? pts[2 * p + 1] : 0.0f;
@@ -80,6 +104,17 @@ zoo_f32_kernel(const float* __restrict__ pts, int npts, const float* __restrict_
     const float x1 = (px * m.a10 + py * m.a11) + m.b1;
     fiat::dubiner2_point<N>(x0, x1, consts, scale, [&](int, int r, int i, float v) {
       Bs[((r + i) * (r + i + 1) / 2 + i) * TP + tid] = v;
+    });
+  } else if (tid < TP) {
+    const int p = p0 + tid;
+    const float px = p < npts ? pts[3 * p] : 0.0f;
+    const float py = p < npts ? pts[3 * p + 1] : 0.0f;
+    const float pz = p < npts ? pts[3 * p + 2] : 0.0f;
+    const float x0 = (px * m.a[0] + py * m.a[1] + pz * m.a[2]) + m.b[0];
+    const float x1 = (px * m.a[3] + py * m.a[4] + pz * m.a[5]) + m.b[1];
+    const float x2 = (px * m.a[6] + py * m.a[7] + pz * m.a[8]) + m.b[2];
+    fiat::dubiner3_point<N>(x0, x1, x2, consts, scale, [&](int e, float v) {
+      Bs[(N == 0 ? 0 : __ldg(slots + e)) * TP + tid] = v;
     });
   }
 
@@ -144,21 +179,23 @@ zoo_f32_kernel(const float* __restrict__ pts, int npts, const float* __restrict_
   }
 }
 
-template <int N>
-int launch(const float* pts, int npts, const float* consts, Affine m, float scale,
-           const float* At, int lda, const int* tiles, int ntiles, const int* dst, float* out,
-           int splits, cudaStream_t stream) {
-  const size_t bytes =
-      sizeof(float) * (static_cast<size_t>(fiat::Nexp<N>::value) * TP + static_cast<size_t>(lda) * TRP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      zoo_f32_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+template <int SD, int N, class Map>
+int launch(const float* pts, int npts, const float* consts, const int* slots, const Map& m,
+           float scale, const float* At, int lda, const int* tiles, int ntiles, const int* dst,
+           float* out, int splits, cudaStream_t stream) {
+  constexpr int TP = tile_points(SD, N);
+  const size_t bytes = sizeof(float) * (static_cast<size_t>(Members<SD, N>::value) * TP +
+                                        static_cast<size_t>(lda) * TRP);
+  const cudaError_t err = cudaFuncSetAttribute(zoo_f32_kernel<SD, N, Map>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, or the next launch's check would report it
     return static_cast<int>(err);
   }
   const dim3 blocks((npts + TP - 1) / TP, splits);
-  zoo_f32_kernel<N><<<blocks, dim3(TX, TY), bytes, stream>>>(pts, npts, consts, m, scale, At,
-                                                             lda, tiles, ntiles, dst, out);
+  zoo_f32_kernel<SD, N, Map><<<blocks, dim3(TX, TY), bytes, stream>>>(
+      pts, npts, consts, slots, m, scale, At, lda, tiles, ntiles, dst, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,10 +222,40 @@ extern "C" int fiat_zoo_f32(const float* pts, int npts, const float* consts, flo
   switch (degree) {
 #define FIAT_CASE(n) \
   case n:            \
-    return launch<n>(pts, npts, consts, m, scale, At, lda, tiles, ntiles, dst, out, splits, s);
+    return launch<2, n>(pts, npts, consts, nullptr, m, scale, At, lda, tiles, ntiles, dst, out, \
+                        splits, s);
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10) FIAT_CASE(11)
     FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
+#undef FIAT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The tetrahedron: pts (npts, 3) f32, slots (pack_stages(degree, variant,
+// sd=3)), the rest as above, lda at most the degree's members; tp must be
+// the kernel's point tile (256, or 128 from degree 9), which the wrapper
+// sized the grid and the splits for.  cudaErrorInvalidValue for a degree
+// outside 0..10 or a tp that differs.
+extern "C" int fiat_zoo3_f32(const float* pts, int npts, const float* consts, const int* slots,
+                             float a00, float a01, float a02, float a10, float a11, float a12,
+                             float a20, float a21, float a22, float b0, float b1, float b2,
+                             float scale, int degree, const float* At, int lda, const int* tiles,
+                             int ntiles, const int* dst, float* out, int splits, int tp,
+                             void* stream) {
+  if (degree < 0 || degree > 10 || lda > (degree + 1) * (degree + 2) * (degree + 3) / 6 ||
+      splits < 1 || splits > ntiles || tp != tile_points(3, degree))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Affine3 m{{a00, a01, a02, a10, a11, a12, a20, a21, a22}, {b0, b1, b2}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+#define FIAT_CASE(n)                                                                        \
+  case n:                                                                                   \
+    return launch<3, n>(pts, npts, consts, slots, m, scale, At, lda, tiles, ntiles, dst, out, \
+                        splits, s);
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
 #undef FIAT_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -19,9 +19,10 @@ def device_tabulator(elements, order=0, f64=True, device=None):
       per-group blocks and ``tab.unpack(blocks)`` the per-element dicts of
       ``el.tabulate``.
     * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``
-      (K6, and K3 in float32 for macro elements), triangles only (K6's
-      and K3's sd = 3 stages are not ported); ``tab.tables(points)`` gives
-      the whole zoo's float32 tables.
+      (K6, and K3 in float32 for macro elements), on triangles and
+      tetrahedra, macro elements on triangles only (K3's sd = 3 stage is
+      not ported); ``tab.tables(points)`` gives the whole zoo's float32
+      tables.
 
     Never returns a slower engine in place of the one asked for: what is
     not ported yet raises ``NotImplementedError``."""

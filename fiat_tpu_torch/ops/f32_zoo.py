@@ -1,4 +1,5 @@
-"""K6: the f32 throughput engine (recurrence fused with the change of basis).
+"""K6: the f32 throughput engine (recurrence fused with the change of
+basis), on triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_tabulate.py`` (``PallasZooTabulator``).
 One pass runs
@@ -8,7 +9,8 @@ One pass runs
      Phi computed per point tile inside the kernel (it never reaches device
      memory) and every row written straight to its place in the output;
   2. K3 in float32 (``macro_oneshot.MacroOneShot``) for the macro elements,
-     when the zoo holds them: fiat_tpu's ``_macro_tables``.
+     when the zoo holds them: fiat_tpu's ``_macro_tables`` (triangles only:
+     a tetrahedral macro zoo raises naming K3's sd = 3 stage).
 
 Points are cast to float32 on the device.  Plain FP32 FMAs throughout: no
 TF32 and no tensor cores, as fiat_tpu's ``Precision.HIGHEST``.  The plain
@@ -16,6 +18,8 @@ version of K6 is the eager f32 recurrence and a per-group f32
 ``torch.matmul``; the wrapper runs it for CPU tensors only.  For a CUDA
 tensor it launches the kernel or raises.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -26,9 +30,17 @@ from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream
 from .macro_oneshot import MacroOneShot
 from .recurrence import pack_stages
 
-#: highest degree the kernel is instantiated for (csrc/zoo_f32.cu), as K1
-MAX_DEGREE = 15
+#: highest degree the kernel is instantiated for per spatial dimension
+#: (csrc/zoo_f32.cu), as K1
+MAX_DEGREE = {2: 15, 3: 10}
 VARIANTS = (None, "bubble", "dual")
+
+
+def tile_points(sd, degree):
+    """Points of one block's Phi tile (csrc/zoo_f32.cu ``tile_points``): 256,
+    or 128 on the tetrahedron from degree 9, where 256 points of Phi would
+    not fit a block's shared memory."""
+    return 128 if sd == 3 and degree >= 9 else 256
 
 
 class ZooF32Kernel:
@@ -38,7 +50,8 @@ class ZooF32Kernel:
     ``out[dst[row]]`` and returns ``out`` (rows not in ``dst`` are left as
     they were).  Phi is the degree-``degree`` Dubiner recurrence of
     ``variant`` (the bubble C0 recovery belongs in A) with ``scale`` as
-    given, on the cell mapped onto the default triangle by ``affine_map``.
+    given, on the cell mapped onto the default triangle or tetrahedron by
+    ``affine_map`` (points (npts, sd), sd 2 or 3).
 
     Rows are packed back to back, zero-padded to the widest K and cut into
     64-row tiles (K2's layout).  The kernel reads the tiles transposed
@@ -46,30 +59,33 @@ class ZooF32Kernel:
     only and live where it last ran.  ``launches`` counts kernel launches
     (the plain CPU path adds nothing)."""
 
-    #: rows of one kernel tile and points of one block (csrc/zoo_f32.cu, TR, TP)
+    #: rows of one kernel tile (csrc/zoo_f32.cu, TR)
     TILE_ROWS = 64
-    TILE_POINTS = 256
 
     def __init__(self, mats, degree, scale, affine_map, variant=None, device=None):
+        Af, bf = affine_map
+        self.sd = np.asarray(Af).shape[0]
+        if self.sd not in MAX_DEGREE:
+            raise NotImplementedError(
+                f"K6 covers triangles and tetrahedra (sd = 2, 3), not sd = {self.sd}")
         self.degree = int(degree)
-        if not 0 <= self.degree <= MAX_DEGREE:
-            raise NotImplementedError(f"degree {degree} outside 0..{MAX_DEGREE}")
+        if not 0 <= self.degree <= MAX_DEGREE[self.sd]:
+            raise NotImplementedError(
+                f"degree {degree} outside 0..{MAX_DEGREE[self.sd]} for sd = {self.sd}")
         if variant not in VARIANTS:
             raise NotImplementedError(f"expansion variant {variant!r}: K6 takes {VARIANTS}")
         self.variant = variant
-        self.nexp = (self.degree + 1) * (self.degree + 2) // 2
+        self.nexp = math.comb(self.degree + self.sd, self.sd)
+        #: points of one block's Phi tile
+        self.tile_points = tile_points(self.sd, self.degree)
         packed, tiles, self.K, self.group_rows, self.offsets = pack_rows(mats, self.TILE_ROWS)
         self.total_rows, self.max_k = packed.shape
         if self.max_k > self.nexp:
             raise ValueError(f"a row is {self.max_k} wide; the degree-{degree} basis has "
                              f"{self.nexp} members")
         self.scale = float(scale)
-        Af, bf = affine_map
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
-        if self.affine.shape != (6,):
-            raise NotImplementedError("K6 covers triangles (sd = 2) only; the sd = 3 stage "
-                                      "of the recurrence is queued in ROADMAP.md")
         self.device = resolve_device(device)
         # every row tile transposed, (tile, k, row), for the kernel's loads
         self.A = torch.as_tensor(packed).float()
@@ -77,9 +93,10 @@ class ZooF32Kernel:
                                   device=self.device).float()
         self.tiles = torch.as_tensor(tiles, device=self.device)
         # shared memory of a block: the Phi tile and one transposed A tile
-        self.smem = 4 * (self.nexp * self.TILE_POINTS + self.max_k * (self.TILE_ROWS + 4))
-        self.consts = torch.as_tensor(pack_stages(self.degree, variant)[0],
-                                      device=self.device).float()
+        self.smem = 4 * (self.nexp * self.tile_points + self.max_k * (self.TILE_ROWS + 4))
+        consts, slots = pack_stages(self.degree, variant, sd=self.sd)
+        self.consts = torch.as_tensor(consts, device=self.device).float()
+        self.slots = torch.as_tensor(slots, device=self.device)   # read at sd = 3 only
         self.device = self.At.device       # "cuda" resolved to its index
         self.launches = 0
 
@@ -88,8 +105,9 @@ class ZooF32Kernel:
             raise TypeError("points must be a torch.Tensor")
         if points.dtype != torch.float32:
             raise TypeError(f"points must be float32, got {points.dtype}")
-        if points.dim() != 2 or points.shape[1] != 2:
-            raise ValueError(f"points must have shape (npts, 2), got {tuple(points.shape)}")
+        if points.dim() != 2 or points.shape[1] != self.sd:
+            raise ValueError(f"points must have shape (npts, {self.sd}), got "
+                             f"{tuple(points.shape)}")
         if not points.is_contiguous():
             raise ValueError("points must be contiguous")
         if points.shape[0] >= 2 ** 31:
@@ -112,12 +130,19 @@ class ZooF32Kernel:
         if npts == 0:
             return out
         lib = load_kernels()
-        err = lib.fiat_zoo_f32(points.data_ptr(), npts, self.consts.data_ptr(),
-                               *self.affine.tolist(), self.scale, self.degree,
-                               self.At.data_ptr(), self.max_k, self.tiles.data_ptr(),
-                               self.tiles.shape[0], dst.data_ptr(), out.data_ptr(),
-                               self.splits(npts, points.device), stream_of(points))
-        check_launch(f"fiat_zoo_f32 (degree {self.degree}, width {self.max_k})", err)
+        common = (self.scale, self.degree, self.At.data_ptr(), self.max_k, self.tiles.data_ptr(),
+                  self.tiles.shape[0], dst.data_ptr(), out.data_ptr(),
+                  self.splits(npts, points.device))
+        if self.sd == 2:
+            name = "fiat_zoo_f32"
+            err = lib.fiat_zoo_f32(points.data_ptr(), npts, self.consts.data_ptr(),
+                                   *self.affine.tolist(), *common, stream_of(points))
+        else:
+            name = "fiat_zoo3_f32"
+            err = lib.fiat_zoo3_f32(points.data_ptr(), npts, self.consts.data_ptr(),
+                                    self.slots.data_ptr(), *self.affine.tolist(), *common,
+                                    self.tile_points, stream_of(points))
+        check_launch(f"{name} (degree {self.degree}, width {self.max_k})", err)
         self.launches += 1
         return out
 
@@ -126,7 +151,7 @@ class ZooF32Kernel:
         split (at most 4) whose blocks fill their last wave on the card best
         (two blocks fit an SM while their shared memory allows, as the
         kernel's launch bounds ask)."""
-        ptiles = -(-npts // self.TILE_POINTS)
+        ptiles = -(-npts // self.tile_points)
         per_sm = max(1, min(2, 232448 // self.smem))
         slots = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -138,9 +163,10 @@ class ZooF32Kernel:
     def plain(self, points, dst, out):
         """The same rows in plain PyTorch, on the points' device: the eager
         f32 recurrence and one full-f32 matmul per group."""
-        Af = points.new_tensor(self.affine[:4].reshape(2, 2))
-        ref = points @ Af.T + points.new_tensor(self.affine[4:])
-        phi = dubiner_tabulate(2, self.degree, [ref[:, 0], ref[:, 1]], self.scale,
+        sd = self.sd
+        Af = points.new_tensor(self.affine[:sd * sd].reshape(sd, sd))
+        ref = points @ Af.T + points.new_tensor(self.affine[sd * sd:])
+        phi = dubiner_tabulate(sd, self.degree, [ref[:, i] for i in range(sd)], self.scale,
                                variant=self.variant, raw=True)
         self.A = A = self.A.to(points.device)
         dst = dst.long()
@@ -159,7 +185,9 @@ class F32ZooTabulator:
     ``tab.tables(points)`` gives {alpha: (rows, npts)} float32 for the whole
     zoo in the ``BatchedTabulator`` row order (plain rows, then the macro
     elements').  ``tab.kernel`` (K6) and ``tab.macro`` (K3 in float32; None
-    without macro elements) carry the launch counts."""
+    without macro elements) carry the launch counts.  Triangles and
+    tetrahedra; macro elements on triangles only (K3 has no sd = 3 stage
+    yet, so a tetrahedral macro zoo raises ``NotImplementedError``)."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), device=device)
@@ -184,10 +212,6 @@ class F32ZooTabulator:
                macro_programs, device, variant=None):
         self.device = resolve_device(device)
         self.sd = np.asarray(affine_map[0]).shape[0]
-        if self.sd != 2:
-            raise NotImplementedError(
-                f"The CUDA f32 engine covers triangles (sd=2), not sd={self.sd}: K6's "
-                "sd = 3 stage (tetrahedra) is queued in ROADMAP.md")
         if variant not in VARIANTS:
             raise NotImplementedError(f"expansion variant {variant!r}: K6 takes {VARIANTS}")
         stacked = np.asarray(stacked, np.float64)

@@ -56,6 +56,10 @@ SIGNATURES = {
     # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
     "fiat_pair_moments": [_P, _P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,
                           _P, _I, _P, _I, _P, _I, _P],
+    # pts, wf, npts, consts, slots, affine[12], scale, tol, degree, nplain, maps,
+    # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
+    "fiat_pair_moments3": [_P, _P, _I, _P, _P, *[_D] * 12, _D, _D, _I, _I, _P, _I, _P, _I, _P,
+                           _I, _P, _I, _P],
     # pts, npts, sd, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
     # phi, out, stream
     "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
@@ -63,6 +67,9 @@ SIGNATURES = {
     # out, splits, stream
     "fiat_zoo_f32": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P, _I, _P, _P, _I,
                      _P],
+    # pts, npts, consts, slots, affine[12], scale, degree, At, lda, tiles, ntiles,
+    # dst, out, splits, tile_points, stream
+    "fiat_zoo3_f32": [_P, _I, _P, _P, *[_F] * 12, _F, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P],
 }
 
 

@@ -1,18 +1,21 @@
-"""K45: the plain and masked moments of a zoo in one CUDA launch.
+"""K45: the plain and masked moments of a zoo in one CUDA launch, on
+triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_recurrence.py`` ``PallasPairMoments``
 (K4) and ``PallasMaskedPairMoments`` (K5).  The TPU kernels reach f64 sums
 through df32 pairs, Ozaki windows and exact window reductions, and are two
 kernels; Hopper has native FP64, so one kernel (``csrc/moments.cu``)
 computes both in f64: per point the Dubiner recurrence, the subcell masks
-of every macro program (``csrc/binning.cuh``, shared with K3), and the
-weighted sums of both, reduced per block; the wrapper sums the per-block
-partials.
+of every macro program (``csrc/binning.cuh``, shared with K3 and K7), and
+the weighted sums of both, reduced per block; the wrapper sums the
+per-block partials.
 
 The plain version beside it is the eager recurrence times the weights plus
 ``subcell_masks`` x phi times the weights; the wrapper runs it for CPU
 tensors only.  For a CUDA tensor it launches the kernel or raises.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -22,22 +25,29 @@ from .kernels import check_launch, load_kernels, resolve_device, stream_of
 from .macro_oneshot import BINNING_TOL, MAX_PIECES, pack_geometry
 from .recurrence import pack_stages
 
-#: highest degree the kernel is instantiated for (csrc/moments.cu)
+#: highest degree the kernel is instantiated for (csrc/moments.cu), on the
+#: triangle and on the tetrahedron
 MAX_DEGREE = 10
-#: threads per block (csrc/moments.cu THREADS) and resident blocks per SM
-#: the grid is sized for (the kernel loops over the points; every lane keeps
-#: a double per output row in shared memory, 67.6 KB a block on full_zoo)
+#: threads per block (csrc/moments.cu THREADS) and at most how many resident
+#: blocks per SM the grid is sized for (the kernel loops over the points;
+#: every lane keeps a double per output row in shared memory, 67.6 KB a
+#: block on full_zoo, so three fit an SM)
 THREADS = 64
 BLOCKS_PER_SM = 3
+#: shared memory of one SM and of one block, and what the card reserves
+#: for each resident block (bytes)
+SM_SMEM = 233472
+BLOCK_SMEM = 232448
+BLOCK_RESERVED = 1024
 #: output rows whose per-lane accumulators fit one block's shared memory
-MAX_ROWS = 232448 // (THREADS * 8)
+MAX_ROWS = BLOCK_SMEM // (THREADS * 8)
 
 
 class PairMoments:
     """``pm = PairMoments(degree, nplain, scale, affine_map, geom,
     parent_map, pieces, device)``; ``out = pm(points, wf)`` is the float64
-    vector of every moment over ``points`` (npts, 2) with weights ``wf``
-    (npts,):
+    vector of every moment over ``points`` (npts, sd) with weights ``wf``
+    (npts,), sd 2 or 3 as ``affine_map`` says:
 
       * ``out[:nplain]``: pw[k] = sum_q phi_k(x_q) wf_q, the degree-``degree``
         Dubiner basis (scale ``scale``, cell map ``affine_map``);
@@ -56,15 +66,16 @@ class PairMoments:
     def __init__(self, degree, nplain, scale, affine_map, geom=(), parent_map=None, pieces=(),
                  device=None):
         Af, bf = affine_map
+        self.sd = np.asarray(Af).shape[0]
+        if self.sd not in (2, 3):
+            raise NotImplementedError(
+                f"K45 covers triangles and tetrahedra (sd = 2, 3), not sd = {self.sd}")
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
-        if self.affine.shape != (6,):
-            raise NotImplementedError("K45 covers triangles (sd = 2) only; its sd = 3 stage "
-                                      "(tetrahedra) is queued in ROADMAP.md")
         self.degree = int(degree)
         if not 0 <= self.degree <= MAX_DEGREE:
             raise NotImplementedError(f"moments degree {degree} outside 0..{MAX_DEGREE}")
-        self.nexp = (self.degree + 1) * (self.degree + 2) // 2
+        self.nexp = math.comb(self.degree + self.sd, self.sd)
         self.nplain = int(nplain)
         self.piece_nexp = [int(n) for _, n in pieces]
         if len(self.piece_nexp) > MAX_PIECES:
@@ -86,12 +97,19 @@ class PairMoments:
         if self.geom:
             maps, progs, pieces_t = pack_geometry(self.geom, parent_map, self.piece_nexp)
         else:
-            maps, progs, pieces_t = np.zeros((1, 3, 3)), np.zeros((0, 5)), np.zeros((0, 2))
+            maps = np.zeros((1, self.sd + 1, self.sd + 1))
+            progs, pieces_t = np.zeros((0, 5)), np.zeros((0, 2))
         self.maps = as_t(maps)
         self.progs = as_t(progs, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
-        self.consts = as_t(pack_stages(self.degree)[0])
+        consts, slots = pack_stages(self.degree, sd=self.sd)
+        self.consts = as_t(consts)
+        self.slots = as_t(slots, torch.int32)      # read by the sd = 3 stage only
         self.device = self.consts.device       # "cuda" resolved to its index
+        # accumulators of one block, and the blocks an SM holds at once
+        self.smem = THREADS * 8 * self.rows
+        self.blocks_per_sm = max(1, min(BLOCKS_PER_SM,
+                                        SM_SMEM // (self.smem + BLOCK_RESERVED)))
         self.launches = 0
 
     def _check(self, points, wf):
@@ -102,8 +120,9 @@ class PairMoments:
                 raise TypeError(f"{name} must be float64, got {t.dtype}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if points.dim() != 2 or points.shape[1] != 2:
-            raise ValueError(f"points must have shape (npts, 2), got {tuple(points.shape)}")
+        if points.dim() != 2 or points.shape[1] != self.sd:
+            raise ValueError(f"points must have shape (npts, {self.sd}), got "
+                             f"{tuple(points.shape)}")
         if tuple(wf.shape) != (points.shape[0],):
             raise ValueError(f"wf must have shape ({points.shape[0]},), got {tuple(wf.shape)}")
         if wf.device != points.device:
@@ -121,27 +140,37 @@ class PairMoments:
         if npts == 0:
             return torch.zeros(self.rows, dtype=torch.float64, device=points.device)
         sms = torch.cuda.get_device_properties(points.device).multi_processor_count
-        nblocks = min(-(-npts // THREADS), BLOCKS_PER_SM * sms)
+        nblocks = min(-(-npts // THREADS), self.blocks_per_sm * sms)
         partials = torch.empty((nblocks, self.rows), dtype=torch.float64, device=points.device)
         lib = load_kernels()
-        err = lib.fiat_pair_moments(
-            points.data_ptr(), wf.data_ptr(), npts, self.consts.data_ptr(),
+        if self.sd == 2:
+            name, fn, tables = "fiat_pair_moments", lib.fiat_pair_moments, ()
+        else:
+            name, fn, tables = "fiat_pair_moments3", lib.fiat_pair_moments3, (self.slots.data_ptr(),)
+        err = fn(
+            points.data_ptr(), wf.data_ptr(), npts, self.consts.data_ptr(), *tables,
             *self.affine.tolist(), self.scale, BINNING_TOL[torch.float64], self.degree,
             self.nplain, self.maps.data_ptr(), len(self.piece_nexp), self.progs.data_ptr(),
             len(self.geom), self.pieces.data_ptr(), self.rows, partials.data_ptr(), nblocks,
             stream_of(points))
-        check_launch(f"fiat_pair_moments ({self.rows} rows, degree {self.degree})", err)
+        check_launch(f"{name} ({self.rows} rows, degree {self.degree})", err)
         self.launches += 1
         return partials.sum(dim=0)
 
     def plain(self, points, wf):
         """The same moments in plain PyTorch, on the points' device."""
-        Af = points.new_tensor(self.affine[:4].reshape(2, 2))
-        ref = points @ Af.T + points.new_tensor(self.affine[4:])
-        phi = dubiner_tabulate(2, self.degree, [ref[:, 0], ref[:, 1]], self.scale)
-        parts = [phi[:self.nplain] @ wf]
+        return self.stack(points) @ wf
+
+    def stack(self, points):
+        """The (rows, npts) float64 matrix whose product with wf is every
+        moment: Phi's plain rows, then each piece's masked rows."""
+        sd = self.sd
+        Af = points.new_tensor(self.affine[:sd * sd].reshape(sd, sd))
+        ref = points @ Af.T + points.new_tensor(self.affine[sd * sd:])
+        phi = dubiner_tabulate(sd, self.degree, [ref[:, i] for i in range(sd)], self.scale)
+        parts = [phi[:self.nplain]]
         nexp = iter(self.piece_nexp)
         for g in self.geom:
             for m in subcell_masks(points, self.parent_map, g["maps"], unique=g["unique"]):
-                parts.append((m * phi[:next(nexp)]) @ wf)
+                parts.append(m * phi[:next(nexp)])
         return torch.cat(parts)

@@ -12,11 +12,16 @@ expansion-side sums of the plain rows and of every macro subcell come from
 one launch of K45 (``moment_kernel.PairMoments``); interpolation, the
 transpose, runs K1 for the plain rows and K3 with the coefficients folded
 into a one-row change of basis per macro program.  The small products
-around them stay ``torch.matmul``, as fiat_tpu leaves them to XLA.
+around them stay ``torch.matmul``, as fiat_tpu leaves them to XLA.  Both
+directions take triangles and tetrahedra, except interpolation on a
+tetrahedral macro zoo, which needs K3's sd = 3 stage (not ported yet).
 
 The engine is built once per tabulator and cached on it; it runs on
 ``tabulator.device`` (a CUDA device, the default: the kernels; the CPU,
-where the tabulator was asked for it: their plain PyTorch versions).
+where the tabulator was asked for it: their plain PyTorch versions).  The
+host checks of the macro programs run when the engine is built; each
+kernel wrapper is built on the first call that needs it (K45 on the first
+moments, K3 on the first interpolation of a macro zoo) and kept.
 """
 
 import numpy as np
@@ -34,7 +39,10 @@ class MomentEngine:
     ``BatchedTabulator`` row layout (plain rows, then the macro elements').
 
     ``moments`` (K45), ``recurrence`` (K1) and ``macro`` (K3, None without
-    macro elements) carry the launch counts."""
+    macro elements) carry the launch counts; ``moments`` and ``macro`` are
+    built on first use, by whichever reads them first (reading ``macro`` on
+    a tetrahedral macro zoo raises, as its interpolation does), and
+    ``built`` says which of the two exist."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), device=device)
@@ -65,7 +73,8 @@ class MomentEngine:
         self.device = self.recurrence.consts.device     # "cuda" resolved to its index
 
         programs = list(macro_programs)
-        self.macro = None
+        self._moments = self._macro = None
+        self._merged = None
         degree, geom, parent_map, pieces = max_degree, (), None, ()
         # moments = matrix @ (K45's sums): the value rows of every plain
         # element over pw, and of every macro element over its program's
@@ -74,9 +83,9 @@ class MomentEngine:
         if programs:
             merged = _merge_macro_programs(
                 programs, scale, affine_map, 0, engine="the fused moments engine (K45)")
+            self._merged = merged
             degree = max(max_degree, merged["degree"])
             geom, parent_map, pieces = merged["geom"], merged["parent_map"], merged["pieces"]
-            self.macro = MacroOneShot(**merged, device=self.device)
             K = merged["A"].shape[1]
             matrix = [np.hstack([stacked, np.zeros((self.plain_rows, K))]),
                       np.zeros((self.rows - self.plain_rows, self.nexp + K))]
@@ -95,8 +104,28 @@ class MomentEngine:
                 cols[g, c0:c0 + programs[g].K] = 1.0
             self.program_columns = torch.as_tensor(cols, device=self.device)
         self.matrix = torch.as_tensor(np.vstack(matrix), device=self.device)
-        self.moments = PairMoments(degree, self.nexp, scale, affine_map, geom, parent_map,
-                                   pieces, self.device)
+        self._pair_moments = (degree, self.nexp, scale, affine_map, geom, parent_map, pieces)
+
+    @property
+    def moments(self):
+        """K45 (``PairMoments``), built on first use."""
+        if self._moments is None:
+            self._moments = PairMoments(*self._pair_moments, self.device)
+        return self._moments
+
+    @property
+    def macro(self):
+        """K3 (``MacroOneShot``) for interpolation, built on first use;
+        None without macro elements."""
+        if self._macro is None and self._merged is not None:
+            self._macro = MacroOneShot(**self._merged, device=self.device)
+        return self._macro
+
+    @property
+    def built(self):
+        """Which of the wrappers built on first use exist: {"moments": bool,
+        "macro": bool}."""
+        return {"moments": self._moments is not None, "macro": self._macro is not None}
 
     def _tensor(self, x, name):
         """Host (numpy) data go to the engine's device; a tensor must

@@ -457,3 +457,126 @@ def test_sv_macro_tet_on_card_one_launch_each_matches_host(cuda):
             want = el.tabulate(1, pts)
             for a in want:
                 assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10
+
+
+# -- tetrahedra through dual evaluation (K45 sd = 3) and the f32 engine (K6 sd = 3)
+
+def _tet_moment_engine(zoo, device="cpu"):
+    from fiat_tpu_torch.ops.moments import MomentEngine
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    return MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device=device)
+
+
+@pytest.mark.parametrize("npts", [1, 1077, 100_000])
+@pytest.mark.parametrize("degree", [0, 3, 8])
+def test_tet_moments_kernel_plain_rows_match_plain(cuda, degree, npts):
+    """K45's sd = 3 stage on the plain rows alone (one row block a point)."""
+    from fiat_tpu_torch.ops.moment_kernel import PairMoments
+    es = ExpansionSet(tcl.ufc_simplex(3))
+    nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
+    pm = PairMoments(degree, nexp, es.get_scale(degree), es.affine_mappings[0], device=cuda)
+    P = torch.as_tensor(_tet_points(npts, seed=npts + degree), device=cuda)
+    wf = torch.as_tensor(np.random.default_rng(degree).random(npts), device=cuda)
+    got = pm(P, wf)
+    torch.cuda.synchronize()
+    assert pm.launches == 1 and tuple(got.shape) == (nexp,)
+    want = pm.plain(P, wf)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("npts", [0, 1077, 100_000])
+def test_tet_moments_kernel_on_both_splits_and_tie_points(cuda, npts):
+    """K45's sd = 3 stage on sv_macro_tet (Alfeld and Worsey-Farin, 32
+    subcells; the first hit of each C0 program, 1 / hits of each DG
+    program): random points plus points shared by up to 12 subcells."""
+    eng = _tet_moment_engine(_sv_zoo(tcl.ufc_simplex(3)), cuda)
+    pm = eng.moments
+    assert len(pm.piece_nexp) == 32 and pm.rows == 308
+    assert [g["unique"] for g in pm.geom] == [True, False, True, False]
+    pts = np.vstack([_tet_points(npts, seed=npts), _tet_special_points()])
+    P = torch.as_tensor(pts, device=cuda)
+    wf = torch.as_tensor(np.random.default_rng(npts).random(len(pts)) - 0.25, device=cuda)
+    got = pm(P, wf)
+    torch.cuda.synchronize()
+    assert pm.launches == 1 and torch.isfinite(got).all()
+    want = pm.plain(P, wf)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("zoo", ["hdiv_lagrange", "sv"])
+def test_tet_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(cuda, zoo):
+    """One K45 launch per moments pass and one K1 launch per interpolation
+    pass, no K45 there; a tet macro zoo's moments never build K3 and its
+    interpolation raises naming K3's sd = 3 stage."""
+    T = tcl.ufc_simplex(3)
+    elements = _tet_zoo(T) if zoo == "hdiv_lagrange" else _sv_zoo(T)
+    gpu, cpu = _tet_moment_engine(elements, cuda), _tet_moment_engine(elements)
+    pts = np.vstack([_tet_points(900), _tet_special_points()])
+    rng = np.random.default_rng(6)
+    wf, c = rng.random(len(pts)), rng.random(gpu.rows) - 0.5
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        gpu.moment_rows(torch.as_tensor(pts), wf)
+    got = gpu.moment_rows(torch.as_tensor(pts, device=cuda), torch.as_tensor(wf, device=cuda))
+    assert (gpu.moments.launches, gpu.recurrence.launches) == (1, 0)
+    want = cpu.moment_rows(pts, wf)
+    assert (got.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+    P, C = torch.as_tensor(pts, device=cuda), torch.as_tensor(c, device=cuda)
+    if zoo == "sv":
+        with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
+            gpu.interpolate_rows(P, C)
+        assert gpu.built == {"moments": True, "macro": False}
+        return
+    u = gpu.interpolate_rows(P, C)
+    assert (gpu.moments.launches, gpu.recurrence.launches) == (1, 1) and gpu.macro is None
+    want = cpu.interpolate_rows(pts, c)
+    assert (u.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("degree,variant", [
+    (d, v) for d in (0, 3, 8, 10) for v in (None, "bubble", "dual") if (d, v) != (0, "bubble")])
+def test_tet_f32_kernel_matches_plain(cuda, degree, variant):
+    """K6's sd = 3 stage against its plain version, every variant (the
+    bubble basis starts at degree 1); degree 10 takes the 128-point tile."""
+    from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
+    es = ExpansionSet(tcl.ufc_simplex(3), variant=variant)
+    nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
+    rng = np.random.default_rng(degree)
+    stacked = rng.standard_normal((300, nexp))
+    tab = F32ZooTabulator.from_arrays(
+        stacked=stacked, alpha_mats={}, slices=[(0, 100, (100,)), (100, 300, (200,))],
+        plain_nexp=None, max_degree=degree, scale=float(es.get_scale(degree)),
+        affine_map=es.affine_mappings[0], variant=variant, device=cuda)
+    assert tab.kernel.sd == 3 and tab.kernel.tile_points == (128 if degree == 10 else 256)
+    P = torch.as_tensor(_tet_points(3001, seed=degree), device=cuda).float()
+    out = torch.empty((300, 3001), device=cuda)
+    got = tab.kernel(P, tab.dst_plain, out).clone()
+    torch.cuda.synchronize()
+    assert tab.kernel.launches == 1
+    want = tab.kernel.plain(P, tab.dst_plain, torch.empty_like(out))
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def test_tet_f32_engine_on_card_one_launch_matches_cpu_and_refuses_cpu_points(cuda):
+    T = tcl.ufc_simplex(3)
+    zoo = _tet_zoo(T)
+    pts = _tet_points(700)
+    gpu = device_tabulator(zoo, order=1, f64=False, device=cuda)
+    assert gpu.macro is None
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        gpu.tables(torch.as_tensor(pts))
+    got = gpu.tables(torch.as_tensor(pts, device=cuda))
+    assert gpu.kernel.launches == 1
+    want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
+    for a in want:
+        assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-5 * want[a].abs().max().item()
+
+
+def test_tet_dual_and_f32_engines_default_to_the_card(cuda):
+    from fiat_tpu_torch.ops import moments as tmo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    zoo = [tfe.Lagrange(tcl.ufc_simplex(3), 2)]
+    tab = device_tabulator(zoo, order=1, f64=False)
+    assert tab.device == cuda and tab.kernel.At.device == cuda
+    eng = tmo.moment_engine(BatchedTabulator(zoo, order=0))
+    assert eng.device == cuda and eng.moments.consts.device == cuda
+

@@ -174,10 +174,17 @@ def test_lagrange8_tet_engine_matches_fiat_tpu_native_batched():
 
 
 def test_f32_and_moments_engines_refuse_tetrahedra_naming_their_sd3_stage():
+    """Plain tet zoos run on both engines (K6's and K45's sd = 3 stages);
+    what still needs an unported sd = 3 stage, K3's, raises naming it: the
+    f32 tables and the interpolation of a tet macro zoo."""
     from fiat_tpu_torch.ops.moments import MomentEngine
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
-    zoo = [tfe.Lagrange(tcl.ufc_simplex(3), 2)]
-    with pytest.raises(NotImplementedError, match="sd = 3 stage"):
-        device_tabulator(zoo, order=0, f64=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="sd = 3 stage"):
-        MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device="cpu")
+    T = tcl.ufc_simplex(3)
+    plain, macro = [tfe.Lagrange(T, 2)], [tfe.Lagrange(T, 2), tfe.Lagrange(T, 2, variant="alfeld")]
+    assert device_tabulator(plain, order=0, f64=False, device="cpu").kernel.sd == 3
+    with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
+        device_tabulator(macro, order=0, f64=False, device="cpu")
+    eng = MomentEngine(BatchedTabulator(macro, order=0, device="cpu"), device="cpu")
+    assert eng.moments.sd == 3
+    with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
+        eng.interpolate_rows(PTS, np.zeros(eng.rows))
