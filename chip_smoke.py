@@ -38,7 +38,17 @@ Drives the port's main paths once each at their real size, at 1e5 points
      alone on ``tet_lagrange8`` at 1e7 points, and
      ``device_tabulator(..., order=1, f64=False).tables`` for
      ``tet_lagrange8`` and ``hdiv_hcurl_tet`` (K6's sd = 3 stage), held
-     against phase 5's float64 tables.
+     against phase 5's float64 tables;
+  8. ``sv_macro_tet`` on K3's sd = 3 stage, at ``pts3``: ``interpolate_rows``
+     on a ``BatchedTabulator(zoo, order=0)`` on the default device (K1 and
+     K3 on one folded row per program, no K45) and
+     ``device_tabulator(..., order=1, f64=False).tables`` (K6's sd = 3
+     stage and K3 float32), held against phase 6's float64 tables; K3 in
+     f64 on the f64 engine's merged arrays against K7, both timed;
+  9. ``c1_macro_zoo`` and ``c1_macro_hessians`` (bench.py:825-837: Hermite,
+     Morley, Argyris 5, Bell, HCT 3, PS6 and PS12 at order 1 and 2) through
+     ``device_tabulator(..., order=1|2, device="cuda").block_tables`` (K1,
+     K2 and K3's sd = 2 stage over 21 subcells).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -53,9 +63,10 @@ Usage (from the repository root, on a machine with a CUDA card):
 Prints the card's name and power limit, one line per step, a JSON line
 ``{"kernels": [...]}`` (K1, K2 and K3 measured on ``full_zoo``, K45 on the
 moments phase, K6 on the f32 phase, K1, K2 and K8 on the tetrahedra, K7
-on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's cells, each
-with its bound: the larger of its bytes over the HBM rate and its
-operations over the peak rate for their type), and as its last line
+on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's cells, K3's sd = 3
+stage on phase 8's and K3 on the C1 zoos, each with its bound: the larger
+of its bytes over the HBM rate and its operations over the peak rate for
+their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, if any phase fails or there is no
 CUDA device.
@@ -78,6 +89,7 @@ F32_KERNEL_RTOL = 1e-5   # float32 kernel vs plain: only the order of operations
 F32_RTOL = 5e-6          # f32 plain rows vs float64, per alpha (tests/test_device_ops.py:143)
 F32_MACRO_TOL = 5e-5     # f32 macro rows vs float64, / (max abs + 1) (:586-589)
 BIG_NPTS = 10_000_000    # moments streamed from HBM: 240 MB of points and weights
+STACK_SLICE = 1_000_000  # points per slice of a K45 stack built for its DGEMV
 REPS = 10
 INNER = 10
 # the H100 SXM's published peaks (NVIDIA's data sheet), per millisecond
@@ -152,13 +164,14 @@ def expect_launches(name, launches, want):
         fail(f"{name}: one pass must launch {want}, got {launches}")
 
 
-def host_check(zoo, per, pts, npts, torch, np):
-    """Max abs error of the per-element tables against host el.tabulate on
-    the first HOST_CHECK_PTS points; fails on wrong alphas or shapes."""
+def host_check(zoo, per, pts, npts, torch, np, order=1):
+    """Max abs error of the per-element tables against host el.tabulate
+    (derivatives up to ``order``) on the first HOST_CHECK_PTS points; fails
+    on wrong alphas or shapes."""
     host_err = 0.0
     check = pts[:HOST_CHECK_PTS]
     for el, got in zip(zoo, per):
-        want = el.tabulate(1, check)
+        want = el.tabulate(order, check)
         if set(want) != set(got):
             fail(f"{type(el).__name__}: alphas {sorted(got)} != {sorted(want)}")
         for a, w in want.items():
@@ -169,18 +182,19 @@ def host_check(zoo, per, pts, npts, torch, np):
     return host_err
 
 
-def run_main_path(name, tab, zoo, pts2, torch, np, engines=None):
-    """One pass of ``block_tables`` with the launch counts of ``engines``
-    (by default K1, K2 and K3 where the zoo has macro elements) set to 0
-    just before and read just after; checks finiteness and host parity."""
+def run_main_path(name, tab, zoo, pts2, torch, np, engines=None, order=1):
+    """One pass of ``block_tables`` (derivatives up to ``order``) with the
+    launch counts of ``engines`` (by default K1, K2 and K3 where the zoo has
+    macro elements) set to 0 just before and read just after; checks
+    finiteness and host parity."""
     if engines is None:
         engines = {"K1": tab.recurrence, "K2": tab.matmul}
         if tab.macro is not None:
             engines["K3"] = tab.macro
     blocks, launches = counted(engines, lambda: tab.block_tables(pts2), torch)
     finite = all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl)
-    host_err = host_check(zoo, tab.unpack(blocks), pts2, NPTS, torch, np)
-    print(f"{name} main path: block_tables(order 1) at {NPTS} points: "
+    host_err = host_check(zoo, tab.unpack(blocks), pts2, NPTS, torch, np, order)
+    print(f"{name} main path: block_tables(order {order}) at {NPTS} points: "
           f"{len(zoo)} elements, finite {finite}, max abs err vs host el.tabulate on "
           f"{HOST_CHECK_PTS} points {host_err:.3e}")
     if not finite:
@@ -266,6 +280,7 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)
     del A
     k3_ms, k3_plain = median_ms(lambda: mo(P), torch), median_ms(lambda: mo.plain(P), torch)
+    k3_lib = masked_gemm_ms(mo, P, torch)
     del phi
     path_ms = median_ms(lambda: tab.block_tables(P), torch)
     plain_ms = median_ms(lambda: (mm.plain(rec.plain(P)), mo.plain(P)), torch)
@@ -273,7 +288,8 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     print(f"full_zoo timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"kernel path {path_ms:.4f} ms, plain path {plain_ms:.4f} ms; "
           f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
-          f"one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}); "
+          f"one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, one DGEMM "
+          f"on the masked B {k3_lib:.4f}); "
           f"a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
 
@@ -286,7 +302,7 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
               matmul_bound(mm, NPTS), k2_lib),
         entry("K3 macro_oneshot", "fiat_tpu_torch/csrc/macro_oneshot.cu",
               "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], k3_abs, k3_ms, k3_plain,
-              macro_bound(mo, NPTS)),
+              macro_bound(mo, NPTS), k3_lib),
     ]
 
 
@@ -350,13 +366,14 @@ def one_piece_nexp(geom, piece_nexp):
     return out
 
 
-def macro_bound(mo, npts, itemsize=8, flops_ms=FP64_FMA_MS):
+def macro_bound(mo, npts, itemsize=8, flops_ms=FP64_FMA_MS, one_row=False):
     """K3: the points and A in, the tables out; per point the parent
-    recurrence and, for every program, its rows against the one subcell an
-    interior point bins into."""
-    flops = rec_flops(2, mo.degree) + sum(
-        2 * (g["rows"][1] - g["rows"][0]) * nexp for g, nexp in one_piece_nexp(mo.geom, mo.nexp))
-    return bound_of(itemsize * (npts * 2 + mo.A.numel() + mo.rows * npts), flops * npts,
+    recurrence and, for every program, its rows (one with ``one_row``, the
+    interpolation's) against the one subcell an interior point bins into."""
+    rows = [1 if one_row else g["rows"][1] - g["rows"][0] for g in mo.geom]
+    flops = rec_flops(mo.sd, mo.degree) + sum(
+        2 * r * nexp for r, (_, nexp) in zip(rows, one_piece_nexp(mo.geom, mo.nexp)))
+    return bound_of(itemsize * (npts * mo.sd + sum(rows) * (mo.K + npts)), flops * npts,
                     flops_ms)
 
 
@@ -512,9 +529,11 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     big_plain = median_ms(lambda: moments_plain(big, wbig), torch, reps=3, inner=2)
     big_k45_plain = median_ms(lambda: pm.plain(big, wbig), torch, reps=3, inner=2)
     big_bound = moments_bound(pm, BIG_NPTS)
+    big_lib = stack_mv_ms(pm, big, wbig, torch, reps=5, inner=4)
     print(f"moments timing at {BIG_NPTS} points ({card}; CUDA events): moment_rows "
           f"{big_ms:.4f} ms (plain {big_plain:.4f}), K45 {big_k45:.4f} ms (plain "
-          f"{big_k45_plain:.4f}, bound {big_bound[0]:.4f} by {big_bound[1]}); "
+          f"{big_k45_plain:.4f}, one DGEMV on its {pm.rows * BIG_NPTS * 8 / 1e9:.1f} GB stack "
+          f"built beforehand {big_lib:.4f}, bound {big_bound[0]:.4f} by {big_bound[1]}); "
           f"{24 * BIG_NPTS / 1e9 / big_k45:.3f} TB/s of points and "
           f"weights; plain peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del big, wbig
@@ -525,12 +544,17 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
                   k45_lib)]
 
 
-def stack_mv_ms(pm, P, wf, torch):
-    """One cuBLAS DGEMV of K45's (rows, npts) stack, built beforehand, by
-    the weights: the library yardstick of K45."""
-    B = pm.stack(P)
-    ms = median_ms(lambda: torch.mv(B, wf), torch)
+def stack_mv_ms(pm, P, wf, torch, **timing):
+    """One cuBLAS DGEMV of K45's (rows, npts) stack, built beforehand (in
+    slices of STACK_SLICE points, so that the plain recurrence's
+    temporaries stay small beside it), by the weights: the library
+    yardstick of K45."""
+    B = torch.empty((pm.rows, P.shape[0]), dtype=torch.float64, device=P.device)
+    for s in range(0, P.shape[0], STACK_SLICE):
+        B[:, s:s + STACK_SLICE] = pm.stack(P[s:s + STACK_SLICE])
+    ms = median_ms(lambda: torch.mv(B, wf), torch, **timing)
     del B
+    torch.cuda.empty_cache()
     return ms
 
 
@@ -559,46 +583,14 @@ def f32_phase(T, dev, P, ref64, card, torch):
 
     tables, launches = counted({"K6": k6, "K3 float32": m3}, lambda: tab.tables(P), torch)
     expect_launches("f32", launches, {"K6": 1, "K3 float32": 1})
-    if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
-        fail("f32: non-finite values in the tables")
-
-    # against the float64 kernel tables: plain rows per alpha relative to
-    # their max abs, macro rows per element / (max abs + 1)
-    pr = tab.plain_rows
-    worst, zoo_err, zoo_max = 0.0, 0.0, 0.0
-    for a in tab.alphas:
-        d = (tables[a][:pr].double() - ref64[a][:pr]).abs()
-        err, scale = d.max().item(), ref64[a][:pr].abs().max().item()
-        row = int(d.max(dim=1).values.argmax().item())
-        el = next(i for i, (lo, hi, _) in enumerate(tab.slices) if lo <= row < hi)
-        print(f"f32 vs f64 plain rows {a}: max abs {err:.3e} / max {scale:.3e} = "
-              f"{err / scale:.3e} (worst {type(zoo[el]).__name__} #{el})")
-        worst = max(worst, err / scale)
-        zoo_err, zoo_max = max(zoo_err, err), max(zoo_max, scale)
-        if not err / scale <= F32_RTOL:
-            fail(f"f32 plain rows {a}: {err / scale:.3e} > {F32_RTOL} at "
-                 f"{type(zoo[el]).__name__} #{el}")
-    macro_worst = 0.0
-    for i in range(len(zoo)):
-        lo, hi, _ = tab.slices[i]
-        if lo < pr:
-            continue
-        for a in tab.alphas:
-            ref = ref64[a][lo:hi]
-            err = (tables[a][lo:hi].double() - ref).abs().max().item()
-            rel = err / (ref.abs().max().item() + 1.0)
-            macro_worst = max(macro_worst, rel)
-            if not rel <= F32_MACRO_TOL:
-                fail(f"f32 macro rows {type(zoo[i]).__name__} {a}: {rel:.3e} > {F32_MACRO_TOL}")
-    print(f"f32 vs f64 on all {NPTS} points: zoo-wide plain rows {zoo_err / zoo_max:.3e} "
-          f"(worst alpha {worst:.3e}, limit {F32_RTOL}); macro rows {macro_worst:.3e} "
-          f"(limit {F32_MACRO_TOL})")
+    f32_vs_f64("f32", tab, zoo, tables, ref64, torch)
     del tables
 
     out = torch.empty(shape, device=dev)
     k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
     k6_plain = median_ms(lambda: k6.plain(P32, tab.dst_plain, out), torch)
     m3_ms, m3_plain = median_ms(lambda: m3(P32), torch), median_ms(lambda: m3.plain(P32), torch)
+    m3_lib = masked_gemm_ms(m3, P32, torch)
     k6_lib = zoo_f32_library_ms(k6, P32, torch)
     del out
     path_ms = median_ms(lambda: tab.tables(P), torch)
@@ -609,7 +601,8 @@ def f32_phase(T, dev, P, ref64, card, torch):
     gbytes = len(tab.alphas) * tab.rows * NPTS * 4 / 1e9
     print(f"f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events): tables "
           f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K6 {k6_ms:.4f} ms (plain "
-          f"{k6_plain:.4f}), K3 float32 {m3_ms:.4f} ms (plain {m3_plain:.4f}); a pass writes "
+          f"{k6_plain:.4f}), K3 float32 {m3_ms:.4f} ms (plain {m3_plain:.4f}, one SGEMM on the "
+          f"masked B {m3_lib:.4f}); a pass writes "
           f"{gbytes:.3f} GB = {gbytes / path_ms:.3f} TB/s (K6 alone "
           f"{k6.total_rows * NPTS * 4 / 1e9 / k6_ms:.3f} TB/s; one padded SGEMM on a computed "
           f"Phi {k6_lib:.4f} ms)")
@@ -618,7 +611,66 @@ def f32_phase(T, dev, P, ref64, card, torch):
                   k6_plain, zoo_f32_bound(k6, NPTS), k6_lib),
             entry("K3 macro_oneshot float32", "fiat_tpu_torch/csrc/macro_oneshot.cu",
                   "fiat_tpu/ops/pallas_multiword.py:652", launches["K3 float32"], m3_abs, m3_ms,
-                  m3_plain, macro_bound(m3, NPTS, 4, FP32_FMA_MS))]
+                  m3_plain, macro_bound(m3, NPTS, 4, FP32_FMA_MS), m3_lib)]
+
+
+def f32_vs_f64(name, tab, zoo, tables, ref64, torch, P=None):
+    """The f32 engine's ``tables`` against the float64 tables ``ref64`` of
+    the same zoo at the same points: plain rows per alpha relative to their
+    max abs (F32_RTOL), macro rows per element / (max abs + 1)
+    (F32_MACRO_TOL); fails past either, or on non-finite values.  With the
+    points ``P``, macro rows are compared where the float32 binning puts a
+    point in the same subcells as the float64 one (``same_subcells``)."""
+    if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
+        fail(f"{name}: non-finite values in the tables")
+    pr = tab.plain_rows
+    worst, zoo_err, zoo_max = 0.0, 0.0, 0.0
+    for a in tab.alphas:
+        d = (tables[a][:pr].double() - ref64[a][:pr]).abs()
+        err, scale = d.max().item(), ref64[a][:pr].abs().max().item()
+        row = int(d.max(dim=1).values.argmax().item())
+        el = next(i for i, (lo, hi, _) in enumerate(tab.slices) if lo <= row < hi)
+        print(f"{name} vs f64 plain rows {a}: max abs {err:.3e} / max {scale:.3e} = "
+              f"{err / scale:.3e} (worst {type(zoo[el]).__name__} #{el})")
+        worst = max(worst, err / scale)
+        zoo_err, zoo_max = max(zoo_err, err), max(zoo_max, scale)
+        if not err / scale <= F32_RTOL:
+            fail(f"{name} plain rows {a}: {err / scale:.3e} > {F32_RTOL} at "
+                 f"{type(zoo[el]).__name__} #{el}")
+    macro_worst, keep = 0.0, slice(None)
+    if P is not None:
+        keep = tab.macro.same_subcells(P)
+        print(f"{name}: {int((~keep).sum())} of {keep.numel()} points lie within the float32 "
+              f"binning tolerance of an interior face, where float32 averages over the subcells "
+              f"that meet and float64 does not; macro rows compared on the other "
+              f"{int(keep.sum())}")
+    for i in range(len(zoo)):
+        lo, hi, _ = tab.slices[i]
+        if lo < pr:
+            continue
+        for a in tab.alphas:
+            ref = ref64[a][lo:hi, keep]
+            err = (tables[a][lo:hi, keep].double() - ref).abs().max().item()
+            rel = err / (ref.abs().max().item() + 1.0)
+            macro_worst = max(macro_worst, rel)
+            if not rel <= F32_MACRO_TOL:
+                fail(f"{name} macro rows {type(zoo[i]).__name__} {a}: {rel:.3e} > "
+                     f"{F32_MACRO_TOL}")
+    print(f"{name} vs f64 on all {NPTS} points: zoo-wide plain rows {zoo_err / zoo_max:.3e} "
+          f"(worst alpha {worst:.3e}, limit {F32_RTOL}); macro rows {macro_worst:.3e} "
+          f"(limit {F32_MACRO_TOL})")
+
+
+def masked_gemm_ms(mo, P, torch):
+    """One cuBLAS GEMM (DGEMM, or SGEMM with TF32 off) of K3's merged A by
+    the masked parent basis B of its plain version, computed beforehand:
+    the library yardstick of K3."""
+    from fiat_tpu_torch.ops.kernels import no_tf32
+    B = mo.operand(P)[0]
+    with no_tf32():
+        ms = median_ms(lambda: torch.matmul(mo.A, B), torch)
+    del B
+    return ms
 
 
 def tet_zoos(T3):
@@ -818,9 +870,9 @@ def sv_phase(dev, card, full_zoo_engine, P2, torch, np):
           f"K7 {k7_ms:.4f} ms (plain {k7_plain:.4f}, one DGEMM on the masked B "
           f"{k7_lib:.4f}, bound {bound[0]:.4f} by {bound[1]}); a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
-    return [entry("K7 masked_matmul (sv_macro_tet)", "fiat_tpu_torch/csrc/masked_matmul.cu",
-                  "fiat_tpu/ops/pallas_multiword.py:440", launches["K7"], k7_abs, k7_ms,
-                  k7_plain, bound, k7_lib)]
+    return tab, [entry("K7 masked_matmul (sv_macro_tet)", "fiat_tpu_torch/csrc/masked_matmul.cu",
+                       "fiat_tpu/ops/pallas_multiword.py:440", launches["K7"], k7_abs, k7_ms,
+                       k7_plain, bound, k7_lib)]
 
 
 def tet_dual_f32_phase(dev, card, engines64, torch, np):
@@ -908,9 +960,14 @@ def tet_dual_f32_phase(dev, card, engines64, torch, np):
                          pm.plain(big[:head], wbig[:head]), torch)
             big_ms = median_ms(lambda: pm(big, wbig), torch, reps=5, inner=4)
             big_bound = moments_bound(pm, BIG_NPTS)
+            torch.cuda.reset_peak_memory_stats()
+            big_lib = stack_mv_ms(pm, big, wbig, torch, reps=5, inner=4)
             print(f"tet_lagrange8 K45 sd 3 at {BIG_NPTS} points ({card}; CUDA events): "
                   f"{big_ms:.4f} ms (bound {big_bound[0]:.4f} by {big_bound[1]}, "
-                  f"{big_ms / big_bound[0]:.1f}x); {BIG_NPTS / big_ms / 1e6:.3f} Gpoints/s")
+                  f"{big_ms / big_bound[0]:.1f}x; one DGEMV on its "
+                  f"{pm.rows * BIG_NPTS * 8 / 1e9:.1f} GB stack built beforehand {big_lib:.4f}, "
+                  f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB); "
+                  f"{BIG_NPTS / big_ms / 1e6:.3f} Gpoints/s")
             del big, wbig
             torch.cuda.empty_cache()
 
@@ -961,6 +1018,184 @@ def tet_dual_f32_phase(dev, card, engines64, torch, np):
         kernels.append(entry(f"K6 zoo_f32 sd 3 ({name})", src + "zoo_f32.cu",
                              "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs,
                              k6_ms, k6_plain, bound, k6_lib))
+    return kernels
+
+
+def tet_macro_phase(dev, card, sv_tab, torch, np):
+    """Phase 8: sv_macro_tet on K3's sd = 3 stage at bench.py's pts3:
+    ``interpolate_rows`` (K1 + K3, one launch each a pass, no K45), the f32
+    ``tables`` (K6 + K3 float32, one launch each, held against phase 6's f64
+    tables of the engine ``sv_tab``), K3 against its plain version in f64
+    and float32, and K3 against K7 on the f64 engine's merged arrays, both
+    timed."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    pts3 = make_points(NPTS, SEED, np, sd=3)
+    P = torch.as_tensor(pts3, device=dev)
+    zoo = sv_macro_tet(ufc_simplex(3))
+    src, replaces = "fiat_tpu_torch/csrc/macro_oneshot.cu", "fiat_tpu/ops/pallas_multiword.py:652"
+
+    # interpolation: K1 for the plain rows, K3 on one folded row per program
+    t0 = time.perf_counter()
+    bt = BatchedTabulator(zoo, order=0)     # the default device: the card
+    eng = mo.moment_engine(bt)
+    rec, m3 = eng.recurrence, eng.macro
+    if eng.device != dev or m3 is None or m3.sd != 3:
+        fail(f"sv_macro_tet interpolation must run K3's sd = 3 stage on {dev}")
+    print(f"sv_macro_tet interpolation host construction: {eng.rows} rows, K1 degree "
+          f"{rec.degree}, K3 sd 3 over {len(m3.geom)} programs x {m3.K} columns in "
+          f"{len(m3.nexp)} subcells ({m3.chunks_one.shape[0]} one-row chunks), "
+          f"{time.perf_counter() - t0:.2f} s")
+    c_h = np.random.default_rng(11).random(eng.rows) - 0.5
+    c = torch.as_tensor(c_h, device=dev)
+    W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
+    w_abs = check_kernel(f"sv_macro_tet K3 sd 3 one row per program ({W.shape[0]} x "
+                         f"{W.shape[1]}, interpolation)", m3(P, A=W), m3.plain(P, A=W), torch)
+    u, launches = counted({"K1": rec, "K3": m3}, lambda: mo.interpolate_rows(bt, P, c), torch)
+    expect_launches("sv_macro_tet interpolation", launches, {"K1": 1, "K3": 1})
+    w_launches = launches["K3"]
+    if eng.built["moments"]:
+        fail("sv_macro_tet: interpolation must not build K45")
+    if tuple(u.shape) != (NPTS,) or not bool(torch.isfinite(u).all()):
+        fail(f"sv_macro_tet interpolation {tuple(u.shape)}, finite {bool(torch.isfinite(u).all())}")
+    n = HOST_CHECK_PTS
+    host_u = np.zeros(n)
+    for el, (lo, hi, _) in zip(zoo, bt.slices):
+        host_u += c_h[lo:hi] @ np.asarray(el.tabulate(0, pts3[:n])[(0, 0, 0)]).reshape(hi - lo, n)
+    int_err = float(np.abs(u[:n].cpu().numpy() - host_u).max())
+    print(f"sv_macro_tet interpolation vs host el.tabulate(0) on {n} points: max abs "
+          f"{int_err:.3e}")
+    if not int_err <= HOST_ATOL:
+        fail(f"sv_macro_tet interpolation: {int_err:.3e} > {HOST_ATOL}")
+
+    def interp_plain():
+        folded = c @ eng.matrix
+        return (folded[:eng.nexp] @ rec.plain(P)
+                + m3.plain(P, A=eng.program_columns * folded[eng.nexp:]).sum(dim=0))
+
+    int_ms, int_plain = median_ms(lambda: mo.interpolate_rows(bt, P, c), torch), median_ms(
+        interp_plain, torch)
+    w_ms, w_plain = median_ms(lambda: m3(P, A=W), torch), median_ms(lambda: m3.plain(P, A=W),
+                                                                  torch)
+    B = m3.operand(P)[0]
+    w_lib = median_ms(lambda: torch.matmul(W, B), torch)      # one DGEMM, B given
+    del B
+    w_bound = macro_bound(m3, NPTS, one_row=True)
+    print(f"sv_macro_tet interpolation timing ({card}; median of {REPS} runs of {INNER}, CUDA "
+          f"events): interpolate_rows {int_ms:.4f} ms (plain {int_plain:.4f}); K3 sd 3 one row "
+          f"per program {w_ms:.4f} ms (plain {w_plain:.4f}, one DGEMM on the masked B "
+          f"{w_lib:.4f}, bound {w_bound[0]:.4f} by {w_bound[1]})")
+
+    # the f32 tables: K6's sd = 3 stage for the plain rows, K3 float32 for the macro rows
+    t0 = time.perf_counter()
+    tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
+    k6, m3f = tab.kernel, tab.macro
+    if tab.device != dev or k6.sd != 3 or m3f is None or m3f.sd != 3:
+        fail(f"sv_macro_tet f32: K6's and K3's sd = 3 stages on {dev}")
+    print(f"sv_macro_tet f32 host construction: K6 {k6.total_rows} rows in widths {k6.K}, K3 "
+          f"float32 sd 3 {m3f.rows} x {m3f.K} ({m3f.chunks.shape[0]} row chunks, "
+          f"{m3f.smem * 4} bytes of shared memory a block), {time.perf_counter() - t0:.2f} s")
+    P32 = P.float()
+    shape = (k6.total_rows, NPTS)
+    check_kernel(f"sv_macro_tet K6 sd 3 ({k6.total_rows} x {NPTS})",
+                 k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
+                 k6.plain(P32, tab.dst_plain, torch.empty(shape, device=dev)), torch,
+                 F32_KERNEL_RTOL)
+    f_abs = check_kernel(f"sv_macro_tet K3 float32 sd 3 ({m3f.rows} x {NPTS})", m3f(P32),
+                         m3f.plain(P32), torch, F32_KERNEL_RTOL)
+    tables, launches = counted({"K6": k6, "K3 float32": m3f}, lambda: tab.tables(P), torch)
+    expect_launches("sv_macro_tet f32", launches, {"K6": 1, "K3 float32": 1})
+    f_launches = launches["K3 float32"]
+    f32_vs_f64("sv_macro_tet f32", tab, zoo, tables, sv_tab(P), torch, P)
+    del tables
+    path_ms = median_ms(lambda: tab.tables(P), torch)
+    f_ms, f_plain = median_ms(lambda: m3f(P32), torch), median_ms(lambda: m3f.plain(P32), torch)
+    f_lib = masked_gemm_ms(m3f, P32, torch)
+    f_bound = macro_bound(m3f, NPTS, 4, FP32_FMA_MS)
+    print(f"sv_macro_tet f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
+          f"tables {path_ms:.4f} ms; K3 float32 sd 3 {f_ms:.4f} ms (plain {f_plain:.4f}, one "
+          f"SGEMM on the masked B {f_lib:.4f}, bound {f_bound[0]:.4f} by {f_bound[1]}); a pass "
+          f"writes {len(tab.alphas) * tab.rows * NPTS * 4 / 1e9:.3f} GB")
+
+    # K3 against K7 on the f64 engine's merged arrays (632 x 288) and points
+    k7, rec64 = sv_tab.macro, sv_tab.recurrence
+    k3 = MacroOneShot(k7.A.cpu().numpy(), list(enumerate(k7.nexp)), k7.geom, k7.parent_map,
+                      rec64.degree, rec64.scale, (rec64.A, rec64.b), device=dev)
+    out3 = k3(P)
+    k3_abs = check_kernel(f"sv_macro_tet K3 sd 3 ({k3.rows} x {NPTS}, {k3.chunks.shape[0]} row "
+                          f"chunks)", out3, k3.plain(P), torch)
+    phi = rec64(P)
+    err, rel = rel_err(out3, k7(P, phi))
+    print(f"K3 sd 3 vs K7 on sv_macro_tet's f64 arrays ({k3.rows} x {k3.K}): max abs {err:.3e}, "
+          f"rel {rel:.3e}")
+    if not rel <= KERNEL_RTOL:
+        fail(f"K3 sd 3 disagrees with K7 on sv_macro_tet: rel {rel:.3e} > {KERNEL_RTOL}")
+    del out3
+    k3_ms, k3_plain = median_ms(lambda: k3(P), torch), median_ms(lambda: k3.plain(P), torch)
+    k7_ms, k1_ms = median_ms(lambda: k7(P, phi), torch), median_ms(lambda: rec64(P), torch)
+    k3_lib = masked_gemm_ms(k3, P, torch)
+    k3_bound = macro_bound(k3, NPTS)
+    del phi
+    print(f"K3 sd 3 vs K7 on sv_macro_tet ({card}; median of {REPS} runs of {INNER}, CUDA "
+          f"events): K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, one DGEMM on the masked B "
+          f"{k3_lib:.4f}, bound {k3_bound[0]:.4f} by {k3_bound[1]}); K7 {k7_ms:.4f} ms on K1's "
+          f"Phi (K1 {k1_ms:.4f} ms); the f64 engine takes {sv_tab.macro.name}")
+    return [
+        # the f64 sd = 3 kernel's main path is the interpolation (the f64
+        # tables take K7): its launches there, its times on the tables' A
+        entry("K3 macro_oneshot sd 3 (timed on sv_macro_tet's f64 tables, 632 x 288; main "
+              "path: interpolation)", src, replaces, w_launches, k3_abs, k3_ms, k3_plain,
+              k3_bound, k3_lib),
+        entry("K3 macro_oneshot float32 sd 3 (sv_macro_tet)", src, replaces, f_launches, f_abs,
+              f_ms, f_plain, f_bound, f_lib),
+        entry("K3 macro_oneshot sd 3 (sv_macro_tet interpolation)", src, replaces, w_launches,
+              w_abs, w_ms, w_plain, w_bound, w_lib),
+    ]
+
+
+def c1_phase(T, dev, pts2, P, card, torch, np):
+    """Phase 9: bench.py's c1_macro_zoo and c1_macro_hessians (:825-837),
+    the C1 elements plus PS6 and PS12 at order 1 and 2, on K1, K2 and K3's
+    sd = 2 stage (21 subcells; at order 2 the merged A, 198 x 138, takes
+    213.5 KB of a block's 227 KB of shared memory), one launch each a pass,
+    held to host."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator
+
+    zoo = [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
+           ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T), ft.QuadraticPowellSabin12(T)]
+    kernels = []
+    for name, order in (("c1_macro_zoo", 1), ("c1_macro_hessians", 2)):
+        t0 = time.perf_counter()
+        tab = device_tabulator(zoo, order=order, device=dev)
+        rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+        if mo is None or mo.name != "K3" or len(mo.nexp) != 21:
+            fail(f"{name}: the macro elements must run on K3 over 21 subcells")
+        print(f"{name} host construction: {len(zoo)} elements, order {order}, {tab.rows} rows x "
+              f"{len(tab.alphas)} alphas, widths {tab.widths}, K3 {mo.rows} x {mo.K} "
+              f"({mo.rows * mo.K * 8} bytes of shared memory a block), "
+              f"{time.perf_counter() - t0:.2f} s")
+        k3_abs = check_kernel(f"{name} K3 ({mo.rows} x {NPTS})", mo(P), mo.plain(P), torch)
+        launches, host_err = run_main_path(name, tab, zoo, pts2, torch, np, order=order)
+        if launches != {"K1": 1, "K2": 1, "K3": 1}:
+            fail(f"{name}: one pass must launch K1, K2 and K3 once each: {launches}")
+        path_ms = median_ms(lambda: tab.block_tables(P), torch)
+        plain_ms = median_ms(lambda: (mm.plain(rec.plain(P)), mo.plain(P)), torch)
+        k3_ms, k3_plain = median_ms(lambda: mo(P), torch), median_ms(lambda: mo.plain(P), torch)
+        k3_lib = masked_gemm_ms(mo, P, torch)
+        bound = macro_bound(mo, NPTS)
+        gbytes = (mm.total_rows + mo.rows) * NPTS * 8 / 1e9
+        print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
+              f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K3 {k3_ms:.4f} ms (plain "
+              f"{k3_plain:.4f}, one DGEMM on the masked B {k3_lib:.4f}, bound {bound[0]:.4f} by "
+              f"{bound[1]}); a pass writes {gbytes:.3f} GB = {gbytes / path_ms:.3f} TB/s; host "
+              f"error {host_err:.3e}")
+        kernels.append(entry(f"K3 macro_oneshot ({name})", "fiat_tpu_torch/csrc/macro_oneshot.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], k3_abs, k3_ms,
+                             k3_plain, bound, k3_lib))
     return kernels
 
 
@@ -1016,10 +1251,15 @@ def main():
     tet64, tet_kernels = tet_phase(dev, card, torch, np)
     kernels += tet_kernels
     lap(5)
-    kernels += sv_phase(dev, card, tab64, P, torch, np)
+    sv64, sv_kernels = sv_phase(dev, card, tab64, P, torch, np)
+    kernels += sv_kernels
     lap(6)
     kernels += tet_dual_f32_phase(dev, card, tet64, torch, np)
     lap(7)
+    kernels += tet_macro_phase(dev, card, sv64, torch, np)
+    lap(8)
+    kernels += c1_phase(T, dev, pts2, P, card, torch, np)
+    lap(9)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 // Subcell binning of one point for the macro (split-complex) programs of a
-// zoo, shared by K3 (macro_oneshot.cu), on triangles, and K45 (moments.cu)
-// and K7 (masked_matmul.cu), on triangles and tetrahedra.
+// zoo, shared by K3 (macro_oneshot.cu), K45 (moments.cu) and K7
+// (masked_matmul.cu), on triangles and tetrahedra.
 //
 // fiat_tpu's rule (fiat_tpu/ops/pallas_recurrence.py:SubcellBinning and
 // core/expansions.py:partition_of_unity_masks): with lambda_c(x) the rescaled
@@ -84,8 +84,8 @@ __device__ __forceinline__ unsigned program_rule(unsigned mk, int unique, T& rec
   return mk;
 }
 
-// Triangles, every piece of every program in one word (K3, K45: at most 32
-// pieces): bit c of the result is the mask of piece c.
+// Triangles, every piece of every program in one word (K3's and K45's sd = 2
+// stages: at most 32 pieces): bit c of the result is the mask of piece c.
 template <class T>
 __device__ __forceinline__ unsigned subcell_bits(const T* __restrict__ maps, int npieces, T x,
                                                  T y, T tol) {

@@ -8,9 +8,9 @@ One pass runs
      derivative multi-indices stacked, as A_g @ Phi[:K_g] in float32, with
      Phi computed per point tile inside the kernel (it never reaches device
      memory) and every row written straight to its place in the output;
-  2. K3 in float32 (``macro_oneshot.MacroOneShot``) for the macro elements,
-     when the zoo holds them: fiat_tpu's ``_macro_tables`` (triangles only:
-     a tetrahedral macro zoo raises naming K3's sd = 3 stage).
+  2. K3 in float32 (``macro_oneshot.MacroOneShot``, its sd = 2 or sd = 3
+     stage) for the macro elements, when the zoo holds them: fiat_tpu's
+     ``_macro_tables``.
 
 Points are cast to float32 on the device.  Plain FP32 FMAs throughout: no
 TF32 and no tensor cores, as fiat_tpu's ``Precision.HIGHEST``.  The plain
@@ -186,8 +186,7 @@ class F32ZooTabulator:
     zoo in the ``BatchedTabulator`` row order (plain rows, then the macro
     elements').  ``tab.kernel`` (K6) and ``tab.macro`` (K3 in float32; None
     without macro elements) carry the launch counts.  Triangles and
-    tetrahedra; macro elements on triangles only (K3 has no sd = 3 stage
-    yet, so a tetrahedral macro zoo raises ``NotImplementedError``)."""
+    tetrahedra, plain and macro."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), device=device)

@@ -16,11 +16,12 @@ over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
   3. when the zoo holds macro elements, the merged tables of every macro
      program (subcell binning, masked change of basis, multiplicity average)
      in one launch: K3 (``macro_oneshot.MacroOneShot``,
-     ``csrc/macro_oneshot.cu``, with its own parent recurrence) where its
-     preconditions hold (a triangle parent, at most 32 subcells, parent
-     degree at most 10), else K7 (``masked_matmul.MaskedMatmul``,
-     ``csrc/masked_matmul.cu``), which reads the parent basis as a prefix of
-     K1's Phi; K1 then runs at the larger of the plain and macro degrees.
+     ``csrc/macro_oneshot.cu``, with its own parent recurrence) where
+     ``macro_oneshot.one_shot_applies`` (a triangle parent, at most 32
+     subcells, parent degree at most 10), else K7
+     (``masked_matmul.MaskedMatmul``, ``csrc/masked_matmul.cu``), which
+     reads the parent basis as a prefix of K1's Phi; K1 then runs at the
+     larger of the plain and macro degrees.
 
 The TPU engine reaches f64 on the bf16 MXU through df32 pairs, Ozaki
 windows and TwoSum combines; Hopper has native FP64, so no kernel carries
@@ -217,7 +218,8 @@ class FusedZooTabulator:
         if self._programs:
             merged = _merge_macro_programs(self._programs, scale, affine_map,
                                            max(map(sum, self.alphas)))
-            # chosen by precondition, once: K3 where it applies, else K7
+            # chosen by precondition, once: K3 where it applies, else K7 (on
+            # tetrahedra K7 measured faster than K3's sd = 3 stage)
             if one_shot_applies(merged):
                 self.macro = MacroOneShot(**merged, device=self.device)
             else:

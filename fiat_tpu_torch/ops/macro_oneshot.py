@@ -1,4 +1,5 @@
-"""K3: the macro (split-complex) elements of a zoo in one CUDA launch.
+"""K3: the macro (split-complex) elements of a zoo in one CUDA launch, on
+triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedMacroOneShot``,
 with the binning of ``pallas_recurrence.SubcellBinning``) and, in float32,
@@ -9,7 +10,10 @@ runs the parent-cell Dubiner recurrence, multiplies the merged change of
 basis by the masked parent basis and averages over the subcells that share
 the point.  The TPU kernel does this in df32 pairs and Ozaki windows;
 Hopper has native FP64, so the kernel computes it in f64 (or in f32 for the
-f32 engine).
+f32 engine).  On a tetrahedral parent (the sd = 3 stage) the grid runs over
+row chunks of one program, as K7's does, and each thread keeps its point's
+parent basis in its own column of a shared-memory Phi tile (the kernel's
+source note says why).
 
 The plain version beside it does the same in plain PyTorch: masks by
 ``core.expansions.subcell_masks`` (the body of
@@ -17,6 +21,8 @@ The plain version beside it does the same in plain PyTorch: masks by
 ``torch.matmul``, then the reciprocal of the cover count.  The wrapper runs
 it for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -31,6 +37,16 @@ MAX_DEGREE = 10
 MAX_PIECES = 32
 #: binning tolerance per working type (``subcell_masks``' defaults)
 BINNING_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+#: rows of one chunk, and values per staged column, of the chunked macro
+#: kernels (K3's sd = 3 stage and K7: RC, RCP in csrc/macro_oneshot.cu and
+#: csrc/masked_matmul.cu)
+CHUNK_ROWS = 32
+COLUMN_STRIDE = CHUNK_ROWS + 2
+#: shared memory one block may take on the card (bytes)
+MAX_SMEM = 227 * 1024
+#: points of one block of K3's sd = 3 stage, each with a column of the Phi
+#: tile (csrc/macro_oneshot.cu THREADS)
+TILE_POINTS = 128
 
 
 def pack_geometry(geom, parent_map, nexp):
@@ -62,11 +78,30 @@ def pack_geometry(geom, parent_map, nexp):
             np.column_stack([offsets[:-1], nexp]).astype(np.int32).reshape(-1, 2))
 
 
+def chunk_table(progs, pieces):
+    """Every program's rows cut into chunks of at most ``CHUNK_ROWS``, as K3's
+    sd = 3 stage stages them: (chunks int32 (nchunks, 4) = (program, first
+    row, rows, ps), the largest chunk's staged values).  The kernel stages
+    piece j of the chunk's program ps * j columns in (ps is the program's
+    widest piece rounded up to odd, so lanes in up to 8 subcells read
+    distinct banks), each column ``COLUMN_STRIDE`` values, K7's layout
+    (``masked_matmul.chunk_layout``)."""
+    chunks, largest = [], 0
+    for g, (r0, r1, c0, c1, _) in enumerate(progs):
+        ps = int(pieces[c0:c1, 1].max()) | 1
+        chunks.extend((g, row, min(CHUNK_ROWS, r1 - row), ps)
+                      for row in range(r0, r1, CHUNK_ROWS))
+        largest = max(largest, (c1 - c0) * ps * COLUMN_STRIDE)
+    return np.asarray(chunks, np.int32).reshape(-1, 4), largest
+
+
 def one_shot_applies(merged):
-    """Whether K3 takes the merged macro programs (``fused_zoo.
-    _merge_macro_programs``' output): a triangle parent (its recurrence has
-    no sd = 3 stage yet), at most ``MAX_PIECES`` subcells in all and a parent
-    degree of at most ``MAX_DEGREE``."""
+    """Whether K3 is the f64 engine's kernel for the merged macro programs
+    (``fused_zoo._merge_macro_programs``' output): at most ``MAX_PIECES``
+    subcells in all, a parent degree of at most ``MAX_DEGREE``, and a
+    triangle parent.  On a tetrahedral parent K3's sd = 3 stage runs the
+    f32 tables and interpolation, and the f64 tables take K7, which the
+    H100 measured faster on ``sv_macro_tet`` (PERF.md §6)."""
     return (np.asarray(merged["parent_map"][0]).shape == (3, 2)
             and len(merged["pieces"]) <= MAX_PIECES and 0 <= merged["degree"] <= MAX_DEGREE)
 
@@ -74,8 +109,9 @@ def one_shot_applies(merged):
 class MacroOneShot:
     """``mo = MacroOneShot(A, pieces, geom, parent_map, degree, scale,
     affine_map, device, dtype)``; ``out = mo(points)`` is the (rows, npts)
-    table of every macro program at ``points`` (npts, 2), in ``dtype``
-    (float64, or float32 for the f32 engine).
+    table of every macro program at ``points`` (npts, sd), sd 2 or 3 as
+    ``parent_map`` says, in ``dtype`` (float64, or float32 for the f32
+    engine).
 
     ``A`` (rows, K) is the merged change of basis: per subcell ("piece") c,
     in program order, the columns ``pieces[c][1]`` wide that multiply the
@@ -83,7 +119,7 @@ class MacroOneShot:
     program {"maps": [(A_c, b_c) rescaled barycentric map per subcell],
     "unique": bool, "rows": (r0, r1)}; ``parent_map`` is the parent cell's
     rescaled barycentric map; ``degree``, ``scale`` and ``affine_map`` define
-    the parent recurrence (onto the default triangle by ``A x + b``).
+    the parent recurrence (onto the default simplex by ``A x + b``).
 
     ``mo(points, A=W)`` runs the same kernel with another change of basis
     ``W`` (programs, K), one row per program (interpolation folds its
@@ -105,18 +141,17 @@ class MacroOneShot:
         self.rows, self.K = A.shape
         self.degree = int(degree)
         if not 0 <= self.degree <= MAX_DEGREE:
-            raise NotImplementedError(f"macro parent degree {degree} outside 0..{MAX_DEGREE}")
+            raise NotImplementedError(f"macro parent degree {degree} outside 0..{MAX_DEGREE}: "
+                                      f"K3 is instantiated for degrees 0..{MAX_DEGREE}")
         self.geom = [dict(g, maps=[(np.asarray(Am, np.float64), np.asarray(bm, np.float64))
                                    for Am, bm in g["maps"]]) for g in geom]
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
         self.nexp = [int(n) for _, n in pieces]
-        if self.parent_map[0].shape != (3, 2):
-            raise NotImplementedError("K3 covers triangles (sd = 2) only; its sd = 3 stage is "
-                                      "queued in ROADMAP.md")
         if len(self.nexp) > MAX_PIECES:
             raise NotImplementedError(f"{len(self.nexp)} subcells: K3 takes at most {MAX_PIECES}")
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
-        if max(self.nexp) > (self.degree + 1) * (self.degree + 2) // 2:
+        self.sd = sd = self.parent_map[0].shape[1]
+        if max(self.nexp) > math.comb(self.degree + sd, sd):
             raise ValueError("a subcell reads more parent members than the recurrence makes")
         if int(pieces_t[-1].sum()) != self.K:
             raise ValueError("the pieces must cover the columns of A")
@@ -138,7 +173,20 @@ class MacroOneShot:
         one[:, 0], one[:, 1] = np.arange(len(progs)), np.arange(1, len(progs) + 1)
         self.progs_one = as_t(one, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
-        self.consts = as_t(pack_stages(self.degree)[0])
+        consts, slots = pack_stages(self.degree, sd=sd)
+        self.consts = as_t(consts)
+        if sd == 3:
+            # shared memory of a block: the largest staged chunk, then the Phi tile
+            chunks, self.phi_at = chunk_table(progs, pieces_t)
+            self.smem = self.phi_at + math.comb(self.degree + 3, 3) * TILE_POINTS
+            nbytes = self.smem * self.A.element_size()
+            if nbytes > MAX_SMEM:
+                raise NotImplementedError(
+                    f"a row chunk and Phi tile of {nbytes} bytes: K3's sd = 3 stage takes at "
+                    f"most {MAX_SMEM} bytes of shared memory a block")
+            self.slots = as_t(slots, torch.int32)
+            self.chunks = as_t(chunks, torch.int32)
+            self.chunks_one = as_t(chunk_table(one, pieces_t)[0], torch.int32)
         self.device = self.A.device       # "cuda" resolved to its index
         self.launches = 0
 
@@ -147,8 +195,9 @@ class MacroOneShot:
             raise TypeError("points must be a torch.Tensor")
         if points.dtype != self.dtype:
             raise TypeError(f"points must be {self.dtype}, got {points.dtype}")
-        if points.dim() != 2 or points.shape[1] != 2:
-            raise ValueError(f"points must have shape (npts, 2), got {tuple(points.shape)}")
+        if points.dim() != 2 or points.shape[1] != self.sd:
+            raise ValueError(f"points must have shape (npts, {self.sd}), got "
+                             f"{tuple(points.shape)}")
         if not points.is_contiguous():
             raise ValueError("points must be contiguous")
         if points.shape[0] >= 2 ** 31:
@@ -168,18 +217,32 @@ class MacroOneShot:
             return self.plain(points, A)
         if points.device.type != "cuda" or points.device != self.device:
             raise ValueError(f"points on {points.device}, engine on {self.device}")
-        A, progs = (self.A, self.progs) if A is None else (A, self.progs_one)
+        one = A is not None
+        A = A if one else self.A
         npts = points.shape[0]
         out = torch.empty((A.shape[0], npts), dtype=self.dtype, device=points.device)
         if npts == 0:
             return out
         lib = load_kernels()
-        fn = lib.fiat_macro_oneshot if self.dtype == torch.float64 else lib.fiat_macro_oneshot_f32
-        err = fn(points.data_ptr(), npts, self.consts.data_ptr(), *self.affine.tolist(),
-                 self.scale, self.tol, self.degree, self.maps.data_ptr(), len(self.nexp),
-                 progs.data_ptr(), len(self.geom), self.pieces.data_ptr(), A.data_ptr(),
-                 A.shape[0], self.K, out.data_ptr(), stream_of(points))
-        check_launch(f"fiat_macro_oneshot ({A.shape[0]} x {self.K}, {self.dtype})", err)
+        f64 = self.dtype == torch.float64
+        if self.sd == 2:
+            name = "fiat_macro_oneshot" if f64 else "fiat_macro_oneshot_f32"
+            progs = self.progs_one if one else self.progs
+            err = getattr(lib, name)(
+                points.data_ptr(), npts, self.consts.data_ptr(), *self.affine.tolist(),
+                self.scale, self.tol, self.degree, self.maps.data_ptr(), len(self.nexp),
+                progs.data_ptr(), len(self.geom), self.pieces.data_ptr(), A.data_ptr(),
+                A.shape[0], self.K, out.data_ptr(), stream_of(points))
+        else:
+            name = "fiat_macro_oneshot3" if f64 else "fiat_macro_oneshot3_f32"
+            chunks = self.chunks_one if one else self.chunks
+            err = getattr(lib, name)(
+                points.data_ptr(), npts, self.consts.data_ptr(), self.slots.data_ptr(),
+                *self.affine.tolist(), self.scale, self.tol, self.degree, self.maps.data_ptr(),
+                self.progs.data_ptr(), self.pieces.data_ptr(), chunks.data_ptr(),
+                chunks.shape[0], self.phi_at, A.data_ptr(), self.K, out.data_ptr(),
+                stream_of(points))
+        check_launch(f"{name} ({A.shape[0]} x {self.K}, {self.dtype})", err)
         self.launches += 1
         return out
 
@@ -190,9 +253,38 @@ class MacroOneShot:
             A, rows = self.A.to(points.device), [g["rows"] for g in self.geom]
         else:
             rows = [(g, g + 1) for g in range(len(self.geom))]
-        Af = points.new_tensor(self.affine[:4].reshape(2, 2))
-        ref = points @ Af.T + points.new_tensor(self.affine[4:])
-        phi = dubiner_tabulate(2, self.degree, [ref[:, 0], ref[:, 1]], self.scale)
+        B, totals = self.operand(points)
+        with no_tf32():
+            out = A @ B
+        for (r0, r1), total in zip(rows, totals):
+            if total is not None:
+                out[r0:r1] *= 1.0 / total
+        return out
+
+    def same_subcells(self, points):
+        """(npts,) bool: whether the float32 binning (tolerance 1e-5) puts
+        each point in the same subcells of every program as the float64
+        binning (1e-12).  A point within 1e-5 of an interior face is averaged
+        over the subcells that meet there in float32 only, so the f32 and f64
+        tables of a macro element differ by design at the points where not."""
+        same = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+        for g in self.geom:
+            m32, _ = subcell_masks(points.float(), self.parent_map, g["maps"],
+                                   unique=g["unique"], raw=True)
+            m64, _ = subcell_masks(points.double(), self.parent_map, g["maps"],
+                                   unique=g["unique"], raw=True)
+            for a, b in zip(m32, m64):
+                same &= a.double() == b
+        return same
+
+    def operand(self, points):
+        """The plain version's masked parent basis B = cat(mask_c *
+        phi[:nexp_c]) (K, npts) and every program's cover count (None where
+        it keeps its first hit), on the points' device."""
+        sd = self.sd
+        Af = points.new_tensor(self.affine[:sd * sd].reshape(sd, sd))
+        ref = points @ Af.T + points.new_tensor(self.affine[sd * sd:])
+        phi = dubiner_tabulate(sd, self.degree, [ref[:, i] for i in range(sd)], self.scale)
         parts, totals = [], []
         nexp = iter(self.nexp)
         for g in self.geom:
@@ -200,9 +292,4 @@ class MacroOneShot:
                                          unique=g["unique"], raw=True)
             parts.extend(m * phi[:next(nexp)] for m in masks)
             totals.append(total)
-        with no_tf32():
-            out = A @ torch.cat(parts, dim=0)
-        for (r0, r1), total in zip(rows, totals):
-            if total is not None:
-                out[r0:r1] *= 1.0 / total
-        return out
+        return torch.cat(parts, dim=0), totals

@@ -23,39 +23,30 @@ import torch
 
 from ..core.expansions import subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import BINNING_TOL, pack_geometry
+from .macro_oneshot import BINNING_TOL, COLUMN_STRIDE, MAX_SMEM, chunk_table, pack_geometry
 
-#: rows of one chunk, and doubles per staged column (csrc/masked_matmul.cu RC, RCP)
-CHUNK_ROWS = 32
-COLUMN_STRIDE = CHUNK_ROWS + 2
 #: pieces of one program: the kernel keeps a point's masks as bits of one word
 MAX_PROGRAM_PIECES = 32
-#: shared memory one block may take on the card (bytes)
-MAX_SMEM = 227 * 1024
 
 
 def chunk_layout(A, progs, pieces):
-    """Every program's rows cut into chunks of at most ``CHUNK_ROWS`` and
-    laid out as ``csrc/masked_matmul.cu`` stages them: (chunks int32
+    """Every program's rows cut into chunks (``macro_oneshot.chunk_table``)
+    and laid out as ``csrc/masked_matmul.cu`` stages them: (chunks int32
     (nchunks, 5) = (program, first row, rows, offset in ``At``, ps), ``At``
     f64 flat, the largest chunk in doubles).  Within a chunk, piece j of the
-    program starts ps * j columns in (ps is the program's widest piece,
-    rounded up to odd, so up to 8 pieces read distinct banks) and column k of
-    a piece holds its rows' A[:, off + k], ``COLUMN_STRIDE`` doubles apart."""
-    chunks, blocks, offset, largest = [], [], 0, 0
-    for g, (r0, r1, c0, c1, _) in enumerate(progs):
-        nk = pieces[c0:c1, 1]
-        ps = int(nk.max()) | 1
-        for row in range(r0, r1, CHUNK_ROWS):
-            n = min(CHUNK_ROWS, r1 - row)
-            block = np.zeros((c1 - c0, ps, COLUMN_STRIDE))
-            for j, (off, w) in enumerate(pieces[c0:c1]):
-                block[j, :w, :n] = A[row:row + n, off:off + w].T
-            chunks.append((g, row, n, offset, ps))
-            blocks.append(block.ravel())
-            offset += block.size
-            largest = max(largest, block.size)
-    return (np.asarray(chunks, np.int32).reshape(-1, 5), np.concatenate(blocks), largest)
+    program starts ps * j columns in and column k of a piece holds its rows'
+    A[:, off + k], ``COLUMN_STRIDE`` doubles apart."""
+    table, largest = chunk_table(progs, pieces)
+    chunks, blocks, offset = [], [], 0
+    for g, row, n, ps in table:
+        _, _, c0, c1, _ = progs[g]
+        block = np.zeros((c1 - c0, ps, COLUMN_STRIDE))
+        for j, (off, w) in enumerate(pieces[c0:c1]):
+            block[j, :w, :n] = A[row:row + n, off:off + w].T
+        chunks.append((g, row, n, offset, ps))
+        blocks.append(block.ravel())
+        offset += block.size
+    return np.asarray(chunks, np.int32).reshape(-1, 5), np.concatenate(blocks), largest
 
 
 class MaskedMatmul:

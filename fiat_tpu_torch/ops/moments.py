@@ -11,10 +11,10 @@ the nodal change of basis applies to one vector.  On the card the
 expansion-side sums of the plain rows and of every macro subcell come from
 one launch of K45 (``moment_kernel.PairMoments``); interpolation, the
 transpose, runs K1 for the plain rows and K3 with the coefficients folded
-into a one-row change of basis per macro program.  The small products
-around them stay ``torch.matmul``, as fiat_tpu leaves them to XLA.  Both
-directions take triangles and tetrahedra, except interpolation on a
-tetrahedral macro zoo, which needs K3's sd = 3 stage (not ported yet).
+into a one-row change of basis per macro program (K3's sd = 2 or sd = 3
+stage).  The small products around them stay ``torch.matmul``, as fiat_tpu
+leaves them to XLA.  Both directions take triangles and tetrahedra, plain
+and macro.
 
 The engine is built once per tabulator and cached on it; it runs on
 ``tabulator.device`` (a CUDA device, the default: the kernels; the CPU,
@@ -40,9 +40,8 @@ class MomentEngine:
 
     ``moments`` (K45), ``recurrence`` (K1) and ``macro`` (K3, None without
     macro elements) carry the launch counts; ``moments`` and ``macro`` are
-    built on first use, by whichever reads them first (reading ``macro`` on
-    a tetrahedral macro zoo raises, as its interpolation does), and
-    ``built`` says which of the two exist."""
+    built on first use, by whichever reads them first, and ``built`` says
+    which of the two exist."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), device=device)

@@ -162,11 +162,13 @@ def test_engine_checks_device_cell_and_inputs():
     with pytest.raises(TypeError, match="float32"):
         tab.kernel(torch.zeros((4, 2), dtype=torch.float64), tab.dst_plain, out)
     assert tab.kernel.launches == 0
-    # tetrahedra run on K6's sd = 3 stage; a tet macro zoo needs K3's, not ported
+    # tetrahedra run on K6's sd = 3 stage, a tet macro zoo's macro rows on K3's
     T3 = tcl.ufc_simplex(3)
-    with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
-        device_tabulator([tfe.Lagrange(T3, 2), tfe.Lagrange(T3, 2, variant="alfeld")], order=0,
-                         f64=False, device="cpu")
+    tet = device_tabulator([tfe.Lagrange(T3, 2), tfe.Lagrange(T3, 2, variant="alfeld")],
+                           order=0, f64=False, device="cpu")
+    assert tet.kernel.sd == tet.macro.sd == 3
+    with pytest.raises(ValueError, match="points must have shape"):
+        tet.macro(torch.zeros((4, 2)))
     with pytest.raises(NotImplementedError, match="variant"):
         ZooF32Kernel([np.eye(3)], 1, 1.0, (np.eye(2), np.zeros(2)), variant="other")
 

@@ -506,8 +506,8 @@ def test_tet_moments_kernel_on_both_splits_and_tie_points(cuda, npts):
 @pytest.mark.parametrize("zoo", ["hdiv_lagrange", "sv"])
 def test_tet_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(cuda, zoo):
     """One K45 launch per moments pass and one K1 launch per interpolation
-    pass, no K45 there; a tet macro zoo's moments never build K3 and its
-    interpolation raises naming K3's sd = 3 stage."""
+    pass, no K45 there; a tet macro zoo's moments never build K3, and its
+    interpolation adds one launch of K3's sd = 3 stage."""
     T = tcl.ufc_simplex(3)
     elements = _tet_zoo(T) if zoo == "hdiv_lagrange" else _sv_zoo(T)
     gpu, cpu = _tet_moment_engine(elements, cuda), _tet_moment_engine(elements)
@@ -521,13 +521,13 @@ def test_tet_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(
     want = cpu.moment_rows(pts, wf)
     assert (got.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
     P, C = torch.as_tensor(pts, device=cuda), torch.as_tensor(c, device=cuda)
-    if zoo == "sv":
-        with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
-            gpu.interpolate_rows(P, C)
-        assert gpu.built == {"moments": True, "macro": False}
-        return
+    assert gpu.built == {"moments": True, "macro": False}
     u = gpu.interpolate_rows(P, C)
-    assert (gpu.moments.launches, gpu.recurrence.launches) == (1, 1) and gpu.macro is None
+    assert (gpu.moments.launches, gpu.recurrence.launches) == (1, 1)
+    if zoo == "sv":
+        assert gpu.macro.sd == 3 and gpu.macro.launches == 1
+    else:
+        assert gpu.macro is None
     want = cpu.interpolate_rows(pts, c)
     assert (u.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
 
@@ -580,3 +580,134 @@ def test_tet_dual_and_f32_engines_default_to_the_card(cuda):
     eng = tmo.moment_engine(BatchedTabulator(zoo, order=0))
     assert eng.device == cuda and eng.moments.consts.device == cuda
 
+
+
+# -- K3's sd = 3 stage: macro elements on tetrahedra, f64 and float32 ---------
+
+def _tet_k3(zoo, order, cuda, dtype=torch.float64):
+    from fiat_tpu_torch.ops.fused_zoo import _merge_macro_programs
+    from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    st = BatchedTabulator(zoo, order=order, device="cpu").state()
+    merged = _merge_macro_programs(st["macro_programs"], st["scale"], st["affine_map"], order)
+    return MacroOneShot(**merged, device=cuda, dtype=dtype)
+
+
+def _bar(mo, P, want, A=None):
+    """The largest difference K3 may have from its plain version: 1e-13 of
+    max |plain| in f64; in float32, 1e-6 of the rows' rounding scale, the
+    largest sum of |terms| a row adds up (max |A| @ |B| over the plain
+    version's masked operand B).  sv_macro_tet's rows at order 0 sum terms
+    up to 133x their value, where the float32 plain version is itself
+    1.5e-5 of max |plain| from exact arithmetic."""
+    if mo.dtype == torch.float64:
+        return 1e-13 * want.abs().max().item()
+    A = mo.A if A is None else A
+    return 1e-6 * (A.abs() @ mo.operand(P)[0].abs()).max().item()
+
+
+@pytest.mark.parametrize("npts", [1, 1077, 100_000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("order", [0, 1])
+def test_tet_macro_kernel_matches_plain(cuda, order, dtype, npts):
+    """K3's sd = 3 stage against its plain version on sv_macro_tet (632 x
+    288 at order 1, 21 row chunks), random points plus the tie points (the
+    float32 binning, tolerance 1e-5, repeats the plain one bit for bit)."""
+    mo = _tet_k3(_sv_zoo(tcl.ufc_simplex(3)), order, cuda, dtype)
+    assert mo.sd == 3 and len(mo.nexp) == 32
+    pts = np.vstack([_tet_points(npts, seed=npts + order), _tet_special_points()])
+    P = torch.as_tensor(pts, device=cuda).to(dtype)
+    got = mo(P)
+    torch.cuda.synchronize()
+    assert mo.launches == 1 and tuple(got.shape) == (mo.rows, len(pts))
+    want = mo.plain(P)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= _bar(mo, P, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tet_macro_kernel_one_row_per_program_matches_plain(cuda, dtype):
+    """The interpolation's W: one row per program over its own columns."""
+    mo = _tet_k3(_sv_zoo(tcl.ufc_simplex(3)), 0, cuda, dtype)
+    rng = np.random.default_rng(12)
+    W = rng.standard_normal((len(mo.geom), mo.K)) * np.repeat(
+        np.eye(len(mo.geom)), [sum(mo.nexp[c0:c1]) for _, _, c0, c1, _ in mo.progs.cpu().numpy()],
+        axis=1)
+    P = torch.as_tensor(np.vstack([_tet_points(3001), _tet_special_points()]),
+                        device=cuda).to(dtype)
+    Wt = torch.as_tensor(W, device=cuda).to(dtype)
+    got = mo(P, A=Wt)
+    torch.cuda.synchronize()
+    assert mo.launches == 1 and tuple(got.shape) == (len(mo.geom), P.shape[0])
+    want = mo.plain(P, A=Wt)
+    assert (got - want).abs().max().item() <= _bar(mo, P, want, Wt)
+
+
+@pytest.mark.parametrize("zoo", sorted(_K7_ZOOS))
+def test_tet_macro_kernel_matches_k7_on_its_arrays(cuda, zoo):
+    """K3's sd = 3 stage on K7's merged arrays (the f64 engine's), reading
+    no Phi, against K7 on the same points; the 44-subcell zoo is past K3's
+    32 and refused."""
+    from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot
+    fz = device_tabulator(_K7_ZOOS[zoo](tcl.ufc_simplex(3)), order=1, device=cuda)
+    k7, rec = fz.macro, fz.recurrence
+    args = (k7.A.cpu().numpy(), list(enumerate(k7.nexp)), k7.geom, k7.parent_map, rec.degree,
+            rec.scale, (rec.A, rec.b))
+    if len(k7.nexp) > 32:
+        with pytest.raises(NotImplementedError, match="at most 32"):
+            MacroOneShot(*args, device=cuda)
+        return
+    k3 = MacroOneShot(*args, device=cuda)
+    P = torch.as_tensor(np.vstack([_tet_points(5001), _tet_special_points()]), device=cuda)
+    got, want = k3(P), k7(P, rec(P))
+    torch.cuda.synchronize()
+    assert k3.launches == 1
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+def test_tet_macro_f32_engine_on_card_one_launch_each_matches_cpu(cuda):
+    """sv_macro_tet's f32 tables: one K6 and one K3 float32 launch a pass,
+    against the CPU engine and the card's f64 tables (macro rows where both
+    binnings put a point in the same subcells)."""
+    zoo = _sv_zoo(tcl.ufc_simplex(3))
+    pts = np.vstack([_tet_points(900), _tet_special_points()])
+    gpu = device_tabulator(zoo, order=1, f64=False, device=cuda)
+    assert gpu.macro.sd == 3 and gpu.macro.name == "K3"
+    with pytest.raises(ValueError, match="engine on cuda:0"):
+        gpu.tables(torch.as_tensor(pts))
+    got = gpu.tables(torch.as_tensor(pts, device=cuda))
+    assert (gpu.kernel.launches, gpu.macro.launches) == (1, 1)
+    want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
+    P = torch.as_tensor(pts, device=cuda)
+    f64 = device_tabulator(zoo, order=1, device=cuda)(P)
+    keep, pr = gpu.macro.same_subcells(P), gpu.plain_rows
+    for a in want:
+        scale = want[a].abs().max().item() + 1.0
+        assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-5 * scale
+        assert (got[a][:pr].double() - f64[a][:pr]).abs().max().item() <= 5e-6 * scale
+        assert (got[a][pr:, keep].double() - f64[a][pr:, keep]).abs().max().item() <= 5e-5 * scale
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_c1_macro_zoos_on_card_match_host(cuda, order):
+    """bench.py's c1_macro_zoo / c1_macro_hessians on K3's sd = 2 stage:
+    the order-2 A (198 x 138, 213.5 KB in f64) fills nearly all of a
+    block's shared memory."""
+    T = tcl.ufc_simplex(2)
+    zoo = [tfe.CubicHermite(T), tfe.Morley(T), tfe.Argyris(T, 5), tfe.Bell(T),
+           tfe.HsiehCloughTocher(T, 3), tfe.QuadraticPowellSabin6(T),
+           tfe.QuadraticPowellSabin12(T)]
+    tab = device_tabulator(zoo, order=order, device=cuda)
+    assert tab.macro.name == "K3" and len(tab.macro.nexp) == 21
+    pts = np.vstack([_points(1500, seed=order), _special_points()])
+    P = torch.as_tensor(pts, device=cuda)
+    got = tab.macro(P)
+    torch.cuda.synchronize()
+    want = tab.macro.plain(P)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+    per = tab.unpack(tab.block_tables(P))
+    assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (1, 1, 2)
+    for el, g in zip(zoo, per):
+        host = el.tabulate(order, pts)
+        for a in host:
+            assert np.abs(g[a].cpu().numpy() - host[a]).max() <= 1e-10

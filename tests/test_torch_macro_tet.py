@@ -316,16 +316,26 @@ def test_k7_wrapper_checks_its_inputs():
 
 
 def test_tet_macro_zoos_refused_by_the_f32_and_moments_engines():
-    """The f32 tables and the interpolation of a tet macro zoo need K3's
-    sd = 3 stage and raise naming it; its moments run on K45 alone."""
+    """The f32 tables and the interpolation of a tet macro zoo run on K3's
+    sd = 3 stage (no longer refused), against the f64 tables and host; its
+    moments run on K45 alone and never build K3."""
     from fiat_tpu_torch.ops.moments import MomentEngine
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
     zoo = sv_macro_tet(tfe, tcl.ufc_simplex(3))
-    with pytest.raises(NotImplementedError, match="K3 covers triangles.*sd = 3 stage"):
-        device_tabulator(zoo, order=1, f64=False, device="cpu")
+    pts = np.vstack([_points(60, 2), _tet_special_points()])
+    f32 = device_tabulator(zoo, order=1, f64=False, device="cpu")
+    assert f32.macro.name == "K3" and f32.macro.sd == 3 and f32.macro.dtype == torch.float32
+    got = f32.tables(pts)
+    want = device_tabulator(zoo, order=1, device="cpu")(pts)
+    for a in want:
+        assert (got[a].double() - want[a]).abs().max().item() <= 5e-5 * (
+            want[a].abs().max().item() + 1.0), a
     eng = MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device="cpu")
-    pts = _points(30, 2)
-    with pytest.raises(NotImplementedError, match="K3 covers triangles.*sd = 3 stage"):
-        eng.interpolate_rows(pts, np.zeros(eng.rows))
     assert tuple(eng.moment_rows(pts, np.ones(len(pts))).shape) == (eng.rows,)
     assert eng.built == {"moments": True, "macro": False}
+    c = np.random.default_rng(3).random(eng.rows) - 0.5
+    u = eng.interpolate_rows(pts, c).numpy()
+    assert eng.built == {"moments": True, "macro": True} and eng.macro.sd == 3
+    host = sum(c[lo:hi] @ el.tabulate(0, pts)[(0, 0, 0)].reshape(hi - lo, len(pts))
+               for el, (lo, hi, _) in zip(zoo, eng.slices))
+    assert np.abs(u - host).max() <= 1e-12

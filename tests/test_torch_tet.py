@@ -174,17 +174,20 @@ def test_lagrange8_tet_engine_matches_fiat_tpu_native_batched():
 
 
 def test_f32_and_moments_engines_refuse_tetrahedra_naming_their_sd3_stage():
-    """Plain tet zoos run on both engines (K6's and K45's sd = 3 stages);
-    what still needs an unported sd = 3 stage, K3's, raises naming it: the
-    f32 tables and the interpolation of a tet macro zoo."""
+    """Nothing is refused any more: plain tet zoos run on both engines (K6's
+    and K45's sd = 3 stages), and so do the f32 tables and the
+    interpolation of a tet macro zoo (K3's sd = 3 stage), against host."""
     from fiat_tpu_torch.ops.moments import MomentEngine
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
     T = tcl.ufc_simplex(3)
     plain, macro = [tfe.Lagrange(T, 2)], [tfe.Lagrange(T, 2), tfe.Lagrange(T, 2, variant="alfeld")]
     assert device_tabulator(plain, order=0, f64=False, device="cpu").kernel.sd == 3
-    with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
-        device_tabulator(macro, order=0, f64=False, device="cpu")
+    tab = device_tabulator(macro, order=0, f64=False, device="cpu")
+    assert tab.kernel.sd == tab.macro.sd == 3
+    tables = tab.tables(PTS)[(0, 0, 0)]
+    host = np.vstack([el.tabulate(0, PTS)[(0, 0, 0)] for el in macro])
+    assert np.abs(tables.numpy() - host).max() <= 5e-5 * (np.abs(host).max() + 1.0)
     eng = MomentEngine(BatchedTabulator(macro, order=0, device="cpu"), device="cpu")
     assert eng.moments.sd == 3
-    with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
-        eng.interpolate_rows(PTS, np.zeros(eng.rows))
+    c = np.random.default_rng(1).random(eng.rows) - 0.5
+    assert np.abs(eng.interpolate_rows(PTS, c).numpy() - c @ host).max() <= 1e-12

@@ -156,11 +156,23 @@ def test_macro_moments_on_32_subcells_match_fiat_tpu_and_host():
 
 
 def test_interpolation_on_a_tet_macro_zoo_raises_naming_k3():
-    tb = BatchedTabulator(_sv(tfe, tcl.ufc_simplex(3)), order=0, device="cpu")
-    pts = _points(20, 9)
+    """It no longer raises: K1 for the plain rows and K3's sd = 3 stage for
+    the folded macro rows, against fiat_tpu and host on random and tie
+    points; K45 is built by the moments that follow, never before."""
+    jzoo, tzoo = _zoos(_sv)
+    pts = np.vstack([_points(200, 9), _tie_points()])
+    bt = JBatchedTabulator(jzoo, order=0)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
     eng = tmo.moment_engine(tb)
-    with pytest.raises(NotImplementedError, match="K3.*sd = 3 stage"):
-        tmo.interpolate_rows(tb, pts, np.zeros(eng.rows))
+    c = np.random.default_rng(10).random(eng.rows) - 0.5
+    got = tmo.interpolate_rows(tb, pts, c).numpy()
+    assert eng.built == {"moments": False, "macro": True} and eng.macro.sd == 3
+    want = np.asarray(jmo.interpolate_rows(bt, jnp.asarray(pts), jnp.asarray(c)))
+    assert np.abs(got - want).max() <= ATOL
+    host = np.zeros(len(pts))
+    for el, (lo, hi, _) in zip(tzoo, tb.slices):
+        host += c[lo:hi] @ el.tabulate(0, pts)[ORIGIN].reshape(hi - lo, len(pts))
+    assert np.abs(got - host).max() <= ATOL
     assert tuple(tmo.moment_rows(tb, pts, np.ones(len(pts))).shape) == (eng.rows,)
 
 
