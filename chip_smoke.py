@@ -9,11 +9,13 @@ Drives the port's main paths once each at their real size, at 1e5 points
   2. ``full_zoo`` (bench.py:840-862), the 42 triangle elements: the slice
      plus RT, Nedelec and BDM 1-6, CubicHermite, Morley, Argyris, Bell,
      and the macro elements HsiehCloughTocher 3 and QuadraticPowellSabin6,
-     the same call in float64 (K1, K2, K3);
+     the same call in float64 (K1, K2, K3; K7 on K3's arrays and K1's Phi
+     held against K3 and timed beside it);
   3. ``moments_interp_full_zoo`` (bench.py:864-879): dual evaluation of
      ``full_zoo`` through ``ops.moments`` on a
      ``BatchedTabulator(full_zoo, order=0, device="cuda")``: ``moment_rows``
-     (K45) and ``interpolate_rows`` (K1, K3), also timed at 1e7 points;
+     (K45, also timed at 1e7 points) and ``interpolate_rows`` (K1, and K3
+     on one row per program, timed);
   4. ``full_zoo`` on the f32 engine,
      ``device_tabulator(..., order=1, f64=False, device="cuda").tables``
      (K6, K3 in float32), held against phase 2's float64 tables;
@@ -27,8 +29,7 @@ Drives the port's main paths once each at their real size, at 1e5 points
      refined tetrahedra (Lagrange 1 and 3, Lagrange 3 + DG 2 on the Alfeld
      split, Lagrange 2 + DG 1 on the Worsey-Farin split) through
      ``device_tabulator(..., order=1)`` on the default device: K1 (sd = 3),
-     K2 and K7, the macro elements on K7 reading K1's Phi by prefix; K7 is
-     also held against K3 on ``full_zoo``'s macro arrays;
+     K2 and K7, the macro elements on K7 reading K1's Phi by prefix;
   7. tetrahedra through dual evaluation and the f32 engine, at ``pts3``:
      ``ops.moments.moment_rows`` and ``interpolate_rows`` on a
      ``BatchedTabulator(zoo, order=0)`` on the default device for
@@ -46,9 +47,10 @@ Drives the port's main paths once each at their real size, at 1e5 points
      stage and K3 float32), held against phase 6's float64 tables; K3 in
      f64 on the f64 engine's merged arrays against K7, both timed;
   9. ``c1_macro_zoo`` and ``c1_macro_hessians`` (bench.py:825-837: Hermite,
-     Morley, Argyris 5, Bell, HCT 3, PS6 and PS12 at order 1 and 2) through
-     ``device_tabulator(..., order=1|2, device="cuda").block_tables`` (K1,
-     K2 and K3's sd = 2 stage over 21 subcells).
+     Morley, Argyris 5, Bell, HCT 3, PS6 and PS12 at order 1 and 2), and the
+     same zoo at order 3 (K3's A 330 x 138, past a block's shared memory),
+     through ``device_tabulator(..., order=1|2|3, device="cuda").block_tables``
+     (K1, K2 and K3's sd = 2 stage over 21 subcells; K7 timed beside K3).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -59,14 +61,16 @@ kernel path against the plain path with CUDA events.
 Usage (from the repository root, on a machine with a CUDA card):
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k3-cells ROOT   # K3 alone per cell, package at ROOT
 
-Prints the card's name and power limit, one line per step, a JSON line
-``{"kernels": [...]}`` (K1, K2 and K3 measured on ``full_zoo``, K45 on the
-moments phase, K6 on the f32 phase, K1, K2 and K8 on the tetrahedra, K7
-on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's cells, K3's sd = 3
-stage on phase 8's and K3 on the C1 zoos, each with its bound: the larger
-of its bytes over the HBM rate and its operations over the peak rate for
-their type), and as its last line
+Prints the card's name and power limit, the build time and K3's registers
+by instantiation, one line per step, a JSON line ``{"kernels": [...]}``
+(K1, K2 and K3 measured on ``full_zoo``, K45 on the moments phase with K3
+on its interpolation, K6 on the f32 phase, K1, K2 and K8 on the
+tetrahedra, K7 on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's
+cells, K3's sd = 3 stage on phase 8's and K3 on the C1 zoos (order 1, 2
+and 3), each with its bound: the larger of its bytes over the HBM rate and
+its operations over the peak rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, if any phase fails or there is no
 CUDA device.
@@ -74,6 +78,7 @@ CUDA device.
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -112,6 +117,45 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_entries(log):
+    """Per kernel entry function in nvcc's ``-Xptxas -v`` output: [mangled
+    name, registers, spill stores, spill loads (bytes)]."""
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            rows.append([m.group(1), None, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if rows and m:
+            rows[-1][2:] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if rows and m:
+            rows[-1][1] = int(m.group(1))
+    return rows
+
+
+def print_ptxas(log):
+    """The registers of K3's instantiations by (sd, chunk height, type),
+    degree 0 to 10, and every kernel that spills."""
+    if not log:
+        print("ptxas: no build log (a matching build existed)")
+        return
+    k3, spills = {}, []
+    for name, regs, st, ld in ptxas_entries(log):
+        m = re.search(r"macro_oneshot_kernelILi(\d+)ELi(\d+)ELi(\d+)E([df])", name)
+        if m:
+            sd, n, rc, t = int(m.group(1)), int(m.group(2)), int(m.group(3)), m.group(4)
+            k3.setdefault((sd, rc, "double" if t == "d" else "float"), {})[n] = regs
+            name = f"K3 sd {sd} RC {rc} {'double' if t == 'd' else 'float'} degree {n}"
+        if st or ld:
+            spills.append(f"{name[:80]}: {st}/{ld} bytes")
+    for (sd, rc, t), regs in sorted(k3.items()):
+        print(f"ptxas K3 sd {sd} RC {rc} {t}: registers by degree "
+              f"{[regs.get(n) for n in range(11)]}")
+    print(f"ptxas spill stores/loads: {spills if spills else 'none'}")
+
+
 def median_ms(fn, torch, reps=REPS, inner=INNER, warmup=2):
     """Median over ``reps`` samples of the device time of one fn() call,
     each sample a run of ``inner`` calls between two CUDA events."""
@@ -128,6 +172,40 @@ def median_ms(fn, torch, reps=REPS, inner=INNER, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, torch, calls=INNER):
+    """Mean device time of the kernels one fn() call launches, from
+    torch.profiler's CUDA activity over ``calls`` calls (host time not
+    included: what the card spends, where a wrapper's host time hides it
+    from CUDA events); None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls / 1000 if total else None
+
+
+def host_ms(fn, torch, reps=REPS, inner=INNER):
+    """Median over ``reps`` samples of the host time of one fn() call: the
+    wall clock of ``inner`` calls issued back to back, without waiting for
+    the card (what a host-bound pass costs the host alone)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        times.append((time.perf_counter() - t0) * 1000 / inner)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -281,6 +359,7 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     del A
     k3_ms, k3_plain = median_ms(lambda: mo(P), torch), median_ms(lambda: mo.plain(P), torch)
     k3_lib = masked_gemm_ms(mo, P, torch)
+    k7_ms = k7_on_k3_arrays("full_zoo", mo, phi, P, dev, torch)
     del phi
     path_ms = median_ms(lambda: tab.block_tables(P), torch)
     plain_ms = median_ms(lambda: (mm.plain(rec.plain(P)), mo.plain(P)), torch)
@@ -289,7 +368,7 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
           f"kernel path {path_ms:.4f} ms, plain path {plain_ms:.4f} ms; "
           f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
           f"one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, one DGEMM "
-          f"on the masked B {k3_lib:.4f}); "
+          f"on the masked B {k3_lib:.4f}, K7 on K1's Phi {k7_ms:.4f}); "
           f"a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
 
@@ -477,8 +556,8 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     k45_abs = check_kernel(f"K45 pair moments ({pm.rows} sums over {NPTS} points)",
                            pm(P, wf), pm.plain(P, wf), torch)
     W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
-    check_kernel(f"K3 one row per program ({W.shape[0]} x {W.shape[1]}, interpolation)",
-                 m3(P, A=W), m3.plain(P, A=W), torch)
+    w_abs = check_kernel(f"K3 one row per program ({W.shape[0]} x {W.shape[1]}, interpolation)",
+                         m3(P, A=W), m3.plain(P, A=W), torch)
 
     engines = {"K45": pm, "K1": rec, "K3": m3}
     M, launches = counted(engines, lambda: mo.moment_rows(bt, P, wf), torch)
@@ -486,6 +565,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     moments_launches = launches["K45"]
     u, launches = counted(engines, lambda: mo.interpolate_rows(bt, P, c), torch)
     expect_launches("interpolation", launches, {"K45": 0, "K1": 1, "K3": 1})
+    w_launches = launches["K3"]
     if tuple(M.shape) != (rows,) or tuple(u.shape) != (NPTS,):
         fail(f"moments {tuple(M.shape)} / interpolation {tuple(u.shape)}: wrong shapes")
     if not (bool(torch.isfinite(M).all()) and bool(torch.isfinite(u).all())):
@@ -508,12 +588,20 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     mom_plain = median_ms(lambda: moments_plain(P, wf), torch)
     int_ms = median_ms(lambda: mo.interpolate_rows(bt, P, c), torch)
     int_plain = median_ms(lambda: interp_plain(P), torch)
+    w_ms, w_plain = median_ms(lambda: m3(P, A=W), torch), median_ms(lambda: m3.plain(P, A=W),
+                                                                  torch)
+    B = m3.operand(P)[0]
+    w_lib = median_ms(lambda: torch.matmul(W, B), torch)      # one DGEMM, B given
+    del B
+    w_bound = macro_bound(m3, NPTS, one_row=True)
     fz = device_tabulator(zoo, order=0, device=dev)
     via_ms = median_ms(lambda: [b @ wf for b in fz.block_tables(P)[(0, 0)]], torch)
     print(f"moments timing at {NPTS} points ({card}; median of {REPS} runs of {INNER}, CUDA "
           f"events): moment_rows {mom_ms:.4f} ms (plain {mom_plain:.4f}), K45 {k45_ms:.4f} ms "
           f"(plain {k45_plain:.4f}, one DGEMV on its stack built beforehand {k45_lib:.4f}); "
-          f"interpolate_rows {int_ms:.4f} ms (plain {int_plain:.4f})")
+          f"interpolate_rows {int_ms:.4f} ms (plain {int_plain:.4f}); K3 one row per program "
+          f"{w_ms:.4f} ms (plain {w_plain:.4f}, one DGEMM on the masked B {w_lib:.4f}, bound "
+          f"{w_bound[0]:.4f} by {w_bound[1]})")
     print(f"moments via tables at {NPTS} points ({card}): order-0 f64 engine (K1 + K2 + K3) "
           f"block_tables then each block @ wf: {via_ms:.4f} ms = {via_ms / mom_ms:.1f} x "
           f"moment_rows")
@@ -541,7 +629,10 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     return [entry("K45 pair_moments", "fiat_tpu_torch/csrc/moments.cu",
                   "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727",
                   moments_launches, k45_abs, k45_ms, k45_plain, moments_bound(pm, NPTS),
-                  k45_lib)]
+                  k45_lib),
+            entry("K3 macro_oneshot (full_zoo interpolation, one row per program)",
+                  "fiat_tpu_torch/csrc/macro_oneshot.cu", "fiat_tpu/ops/pallas_multiword.py:652",
+                  w_launches, w_abs, w_ms, w_plain, w_bound, w_lib)]
 
 
 def stack_mv_ms(pm, P, wf, torch, **timing):
@@ -659,6 +750,22 @@ def f32_vs_f64(name, tab, zoo, tables, ref64, torch, P=None):
     print(f"{name} vs f64 on all {NPTS} points: zoo-wide plain rows {zoo_err / zoo_max:.3e} "
           f"(worst alpha {worst:.3e}, limit {F32_RTOL}); macro rows {macro_worst:.3e} "
           f"(limit {F32_MACRO_TOL})")
+
+
+def k7_on_k3_arrays(name, mo, phi, P, dev, torch):
+    """K7 (csrc/masked_matmul.cu) on K3's merged triangle arrays, reading
+    the zoo's K1 Phi ``phi`` by prefix: held to K3 (KERNEL_RTOL), and its
+    ms, Phi given, a second yardstick of K3 beside the DGEMM on the masked
+    B."""
+    from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
+    k7 = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
+                      device=dev)
+    err, rel = rel_err(k7(P, phi), mo(P))
+    print(f"{name}: K7 on K3's macro arrays ({k7.rows} x {k7.K}, sd 2) vs K3: max abs {err:.3e}, "
+          f"rel {rel:.3e}")
+    if not rel <= KERNEL_RTOL:
+        fail(f"{name}: K7 disagrees with K3 on its macro arrays: rel {rel:.3e} > {KERNEL_RTOL}")
+    return median_ms(lambda: k7(P, phi), torch)
 
 
 def masked_gemm_ms(mo, P, torch):
@@ -804,12 +911,11 @@ def masked_bound(k7, npts):
     return bound_of(nbytes, flops * npts, FP64_FMA_MS)
 
 
-def sv_phase(dev, card, full_zoo_engine, P2, torch, np):
+def sv_phase(dev, card, torch, np):
     """Phase 6: sv_macro_tet on K1 (sd = 3), K2 and K7, one launch each per
     pass, at bench.py's pts3; K7 against its plain version on the same Phi
-    and points, and against K3 on full_zoo's merged macro arrays."""
+    and points (phases 2 and 9 hold it against K3 on triangles)."""
     from fiat_tpu_torch import device_tabulator, ufc_simplex
-    from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
 
     pts3 = make_points(NPTS, SEED, np, sd=3)
     P = torch.as_tensor(pts3, device=dev)
@@ -832,16 +938,6 @@ def sv_phase(dev, card, full_zoo_engine, P2, torch, np):
     k7_abs = check_kernel(f"sv_macro_tet K7 masked matmul ({k7.rows} x {NPTS})", k7(P, phi_p),
                           k7.plain(P, phi_p), torch)
     del phi_p
-
-    # K7 on full_zoo's merged macro arrays (HCT + PS6, sd = 2) against K3
-    zrec, mo = full_zoo_engine.recurrence, full_zoo_engine.macro
-    cross = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
-                         device=dev)
-    err, rel = rel_err(cross(P2, zrec(P2)), mo(P2))
-    print(f"K7 on full_zoo's macro arrays ({cross.rows} x {cross.K}, sd 2) vs K3: max abs "
-          f"{err:.3e}, rel {rel:.3e}")
-    if not rel <= KERNEL_RTOL:
-        fail(f"K7 disagrees with K3 on full_zoo's macro arrays: rel {rel:.3e} > {KERNEL_RTOL}")
 
     engines = {"K1": rec, "K2": mm, "K7": k7}
     launches, host_err = run_main_path("sv_macro_tet", tab, zoo, pts3, torch, np, engines)
@@ -1158,17 +1254,19 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
 
 def c1_phase(T, dev, pts2, P, card, torch, np):
     """Phase 9: bench.py's c1_macro_zoo and c1_macro_hessians (:825-837),
-    the C1 elements plus PS6 and PS12 at order 1 and 2, on K1, K2 and K3's
-    sd = 2 stage (21 subcells; at order 2 the merged A, 198 x 138, takes
-    213.5 KB of a block's 227 KB of shared memory), one launch each a pass,
-    held to host."""
+    the C1 elements plus PS6 and PS12 at order 1 and 2, and the same zoo at
+    order 3 (K3's A 330 x 138, 355.8 KB in f64: past a block's 227 KB of
+    shared memory, which only a row chunk of it must fit), on K1, K2 and
+    K3's sd = 2 stage (21 subcells), one launch each a pass, held to host;
+    K3 timed beside a DGEMM on its masked B and K7 on K1's Phi."""
     import fiat_tpu_torch as ft
     from fiat_tpu_torch import device_tabulator
 
     zoo = [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
            ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T), ft.QuadraticPowellSabin12(T)]
     kernels = []
-    for name, order in (("c1_macro_zoo", 1), ("c1_macro_hessians", 2)):
+    for name, order in (("c1_macro_zoo", 1), ("c1_macro_hessians", 2),
+                        ("c1_macro_zoo order 3", 3)):
         t0 = time.perf_counter()
         tab = device_tabulator(zoo, order=order, device=dev)
         rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
@@ -1176,8 +1274,8 @@ def c1_phase(T, dev, pts2, P, card, torch, np):
             fail(f"{name}: the macro elements must run on K3 over 21 subcells")
         print(f"{name} host construction: {len(zoo)} elements, order {order}, {tab.rows} rows x "
               f"{len(tab.alphas)} alphas, widths {tab.widths}, K3 {mo.rows} x {mo.K} "
-              f"({mo.rows * mo.K * 8} bytes of shared memory a block), "
-              f"{time.perf_counter() - t0:.2f} s")
+              f"({mo.rows * mo.K * 8} bytes of A; {mo.chunks.shape[0]} row chunks, "
+              f"{mo.smem * 8} bytes of shared memory a block), {time.perf_counter() - t0:.2f} s")
         k3_abs = check_kernel(f"{name} K3 ({mo.rows} x {NPTS})", mo(P), mo.plain(P), torch)
         launches, host_err = run_main_path(name, tab, zoo, pts2, torch, np, order=order)
         if launches != {"K1": 1, "K2": 1, "K3": 1}:
@@ -1186,17 +1284,95 @@ def c1_phase(T, dev, pts2, P, card, torch, np):
         plain_ms = median_ms(lambda: (mm.plain(rec.plain(P)), mo.plain(P)), torch)
         k3_ms, k3_plain = median_ms(lambda: mo(P), torch), median_ms(lambda: mo.plain(P), torch)
         k3_lib = masked_gemm_ms(mo, P, torch)
+        phi = rec(P)
+        k7_ms = k7_on_k3_arrays(name, mo, phi, P, dev, torch)
+        del phi
         bound = macro_bound(mo, NPTS)
         gbytes = (mm.total_rows + mo.rows) * NPTS * 8 / 1e9
         print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
               f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K3 {k3_ms:.4f} ms (plain "
-              f"{k3_plain:.4f}, one DGEMM on the masked B {k3_lib:.4f}, bound {bound[0]:.4f} by "
-              f"{bound[1]}); a pass writes {gbytes:.3f} GB = {gbytes / path_ms:.3f} TB/s; host "
-              f"error {host_err:.3e}")
+              f"{k3_plain:.4f}, one DGEMM on the masked B {k3_lib:.4f}, K7 on K1's Phi "
+              f"{k7_ms:.4f}, bound {bound[0]:.4f} by {bound[1]}); a pass writes {gbytes:.3f} GB "
+              f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
         kernels.append(entry(f"K3 macro_oneshot ({name})", "fiat_tpu_torch/csrc/macro_oneshot.cu",
                              "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], k3_abs, k3_ms,
                              k3_plain, bound, k3_lib))
     return kernels
+
+
+def k3_cells(dev, card, torch, np, own):
+    """``python3 chip_smoke.py --k3-cells ROOT``: K3 alone in every cell
+    that launches it, on the fiat_tpu_torch package of the checkout at ROOT
+    (this one, or another commit's unpacked beside it, to compare the two
+    on one card in one call), K7 on sv_macro_tet's f64 tables, and the
+    interpolate_rows passes of full_zoo and sv_macro_tet (K1 + K3, host
+    bound at these sizes); the same points and shapes as the main run.
+    Prints {"k3_cells": {cell: [ms, device ms, host ms]}}: CUDA events
+    over back-to-back calls (host time of the wrapper included where it
+    exceeds the kernel's), torch.profiler's device time alone, and the
+    host's time to issue one call.  Where ROOT is
+    another checkout (``own`` False), a cell its package refuses records
+    the error message; in this checkout every cell must run."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    T, T3 = ufc_simplex(2), ufc_simplex(3)
+    P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
+    P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev)
+    c1 = [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
+          ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T), ft.QuadraticPowellSabin12(T)]
+
+    def tables(zoo, order, Q, f64=True):
+        m3 = device_tabulator(zoo, order=order, f64=f64, device=dev).macro
+        Q = Q if f64 else Q.float()
+        return lambda: m3(Q)
+
+    def interpolation(zoo, Q):
+        eng = mo.moment_engine(BatchedTabulator(zoo, order=0, device=dev))
+        c = torch.as_tensor(np.random.default_rng(11).random(eng.rows) - 0.5, device=dev)
+        W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
+        return lambda: eng.macro(Q, A=W)
+
+    def interpolation_pass(zoo, Q):
+        bt = BatchedTabulator(zoo, order=0, device=dev)
+        c = torch.as_tensor(np.random.default_rng(11).random(mo.moment_engine(bt).rows) - 0.5,
+                            device=dev)
+        return lambda: mo.interpolate_rows(bt, Q, c)
+
+    def k7_tables(zoo, Q):
+        tab = device_tabulator(zoo, order=1, device=dev)
+        phi = tab.recurrence(Q)
+        return lambda: tab.macro(Q, phi)
+
+    cells = {"full_zoo": lambda: tables(full_zoo(T), 1, P),
+             "full_zoo f32": lambda: tables(full_zoo(T), 1, P, f64=False),
+             "full_zoo interpolation": lambda: interpolation(full_zoo(T), P),
+             "c1_macro_zoo": lambda: tables(c1, 1, P),
+             "c1_macro_hessians": lambda: tables(c1, 2, P),
+             "c1_macro_zoo order 3": lambda: tables(c1, 3, P),
+             "sv_macro_tet f32": lambda: tables(sv_macro_tet(T3), 1, P3, f64=False),
+             "sv_macro_tet interpolation": lambda: interpolation(sv_macro_tet(T3), P3),
+             "sv_macro_tet K7": lambda: k7_tables(sv_macro_tet(T3), P3),
+             "full_zoo interpolate_rows pass": lambda: interpolation_pass(full_zoo(T), P),
+             "sv_macro_tet interpolate_rows pass": lambda: interpolation_pass(sv_macro_tet(T3),
+                                                                              P3)}
+    out = {}
+    for name, make in cells.items():
+        try:
+            run = make()
+            run()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as exc:
+            if own:
+                raise
+            out[name] = f"raises: {str(exc).splitlines()[0][:160]}"
+        else:
+            out[name] = [median_ms(run, torch), device_ms(run, torch), host_ms(run, torch)]
+        print(f"{name} ({card}; median of {REPS} runs of {INNER}, CUDA events; profiler "
+              f"device time; host time): {out[name]}")
+    print(json.dumps({"k3_cells": out}))
 
 
 def main():
@@ -1207,8 +1383,11 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     root = Path(__file__).resolve().parent
+    cells = "--k3-cells" in sys.argv
+    if cells:
+        root = Path(sys.argv[sys.argv.index("--k3-cells") + 1]).resolve()
     if not (root / "fiat_tpu_torch" / "__init__.py").is_file():
-        fail(f"the fiat_tpu_torch package is not beside {Path(__file__).name}")
+        fail(f"the fiat_tpu_torch package is not in {root}")
     sys.path.insert(0, str(root))
 
     import numpy as np
@@ -1218,14 +1397,18 @@ def main():
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
+    if cells:
+        t0 = time.perf_counter()
+        load_kernels()
+        print(f"build of {root}: {time.perf_counter() - t0:.1f} s")
+        k3_cells(dev, card, torch, np, own=root == Path(__file__).resolve().parent)
+        return 0
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
     lib = load_kernels()
     print(f"build: {lib.path.relative_to(root)} in {time.perf_counter() - t0:.1f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print_ptxas(lib.build_log)
 
     T = ufc_simplex(2)
     pts2 = make_points(NPTS, SEED, np)
@@ -1251,7 +1434,7 @@ def main():
     tet64, tet_kernels = tet_phase(dev, card, torch, np)
     kernels += tet_kernels
     lap(5)
-    sv64, sv_kernels = sv_phase(dev, card, tab64, P, torch, np)
+    sv64, sv_kernels = sv_phase(dev, card, torch, np)
     kernels += sv_kernels
     lap(6)
     kernels += tet_dual_f32_phase(dev, card, tet64, torch, np)

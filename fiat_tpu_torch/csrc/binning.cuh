@@ -1,5 +1,5 @@
 // Subcell binning of one point for the macro (split-complex) programs of a
-// zoo, shared by K3 (macro_oneshot.cu), K45 (moments.cu) and K7
+// zoo, shared by K3 (macro_oneshot.cuh), K45 (moments.cu) and K7
 // (masked_matmul.cu), on triangles and tetrahedra.
 //
 // fiat_tpu's rule (fiat_tpu/ops/pallas_recurrence.py:SubcellBinning and
@@ -84,8 +84,8 @@ __device__ __forceinline__ unsigned program_rule(unsigned mk, int unique, T& rec
   return mk;
 }
 
-// Triangles, every piece of every program in one word (K3's and K45's sd = 2
-// stages: at most 32 pieces): bit c of the result is the mask of piece c.
+// Triangles, every piece of every program in one word (K45's sd = 2 stage:
+// at most 32 pieces): bit c of the result is the mask of piece c.
 template <class T>
 __device__ __forceinline__ unsigned subcell_bits(const T* __restrict__ maps, int npieces, T x,
                                                  T y, T tol) {

@@ -1,8 +1,7 @@
 // The per-point Dubiner value recurrence on the triangle, shared by K1
 // (recurrence.cu, which writes Phi to device memory), K3
-// (macro_oneshot.cu, which keeps Phi in registers), K45 (moments.cu, which
-// reduces Phi against the weights) and K6 (zoo_f32.cu, which writes a Phi
-// tile to shared memory).
+// (macro_oneshot.cuh) and K6 (zoo_f32.cu), which write a Phi tile to shared
+// memory, and K45 (moments.cu, which reduces Phi against the weights).
 //
 // dubiner2_point<N, T>(x0, x1, consts, scale, emit) runs the two-stage
 // Kirby recurrence in T (double or float) at one point (x0, x1) of the

@@ -1,7 +1,8 @@
 // The per-point Dubiner value recurrence on the tetrahedron, shared by K1
 // (recurrence.cu, which writes Phi to device memory), K45 (moments.cu, which
-// adds every value into its row sums as it comes) and K6 (zoo_f32.cu, which
-// writes a Phi tile to shared memory).
+// adds every value into its row sums as it comes), and K3
+// (macro_oneshot.cuh) and K6 (zoo_f32.cu), which write a Phi tile to shared
+// memory.
 //
 // dubiner3_point<N, T>(x0, x1, x2, consts, scale, emit) runs the three-stage
 // Kirby recurrence in T (double or float) at one point (x0, x1, x2) of the

@@ -46,18 +46,13 @@ SIGNATURES = {
     "fiat_bernstein_features": [_P, _I, _I, _I, _P, _P, _P, _P],
     # At, kmax, tiles, ntiles, phi, ldphi, npts, C, stream
     "fiat_bucket_matmul": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
-    # pts, npts, consts, affine[6], scale, tol, degree, maps, npieces, progs,
-    # nprogs, pieces, A, rows, K, out, stream (in f64 / in f32)
-    "fiat_macro_oneshot": [_P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _P, _I, _P, _I,
-                           _P, _P, _I, _I, _P, _P],
-    "fiat_macro_oneshot_f32": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P,
-                               _I, _P, _P, _I, _I, _P, _P],
-    # pts, npts, consts, slots, affine[12], scale, tol, degree, maps, progs,
-    # pieces, chunks, nchunks, phi_at, A, K, out, stream (in f64 / in f32)
-    "fiat_macro_oneshot3": [_P, _I, _P, _P, *[_D] * 12, _D, _D, _I, _P, _P, _P, _P, _I, _I,
-                            _P, _I, _P, _P],
-    "fiat_macro_oneshot3_f32": [_P, _I, _P, _P, *[_F] * 12, _F, _F, _I, _P, _P, _P, _P, _I,
-                                _I, _P, _I, _P, _P],
+    # pts, npts, sd, consts, slots, affine[12] (host array), scale, tol, degree,
+    # maps, progs, pieces, chunks, nchunks, rc, cpb, sub, phi_at, A, K, out,
+    # stream (in f64 / in f32)
+    "fiat_macro_oneshot": [_P, _I, _I, _P, _P, _P, _D, _D, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _P, _I, _P, _P],
+    "fiat_macro_oneshot_f32": [_P, _I, _I, _P, _P, _P, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _P, _I, _P, _P],
     # pts, wf, npts, consts, affine[6], scale, tol, degree, nplain, maps,
     # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
     "fiat_pair_moments": [_P, _P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,

@@ -10,10 +10,12 @@ runs the parent-cell Dubiner recurrence, multiplies the merged change of
 basis by the masked parent basis and averages over the subcells that share
 the point.  The TPU kernel does this in df32 pairs and Ozaki windows;
 Hopper has native FP64, so the kernel computes it in f64 (or in f32 for the
-f32 engine).  On a tetrahedral parent (the sd = 3 stage) the grid runs over
-row chunks of one program, as K7's does, and each thread keeps its point's
-parent basis in its own column of a shared-memory Phi tile (the kernel's
-source note says why).
+f32 engine).  On both parents the grid runs over row chunks of one program,
+as K7's does, so A has no size limit; each point multiplies only the
+subcells it falls in, and keeps its parent basis in its own column of a
+shared-memory Phi tile (the kernel's source note says why).  One row per
+program (interpolation) runs an instantiation whose chunks are one row
+high.
 
 The plain version beside it does the same in plain PyTorch: masks by
 ``core.expansions.subcell_masks`` (the body of
@@ -22,6 +24,7 @@ The plain version beside it does the same in plain PyTorch: masks by
 it for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -38,15 +41,39 @@ MAX_PIECES = 32
 #: binning tolerance per working type (``subcell_masks``' defaults)
 BINNING_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 #: rows of one chunk, and values per staged column, of the chunked macro
-#: kernels (K3's sd = 3 stage and K7: RC, RCP in csrc/macro_oneshot.cu and
-#: csrc/masked_matmul.cu)
+#: kernels (K3 and K7: RC_TABLES, column_stride in csrc/macro_oneshot.cu, RC,
+#: RCP in csrc/masked_matmul.cu)
 CHUNK_ROWS = 32
 COLUMN_STRIDE = CHUNK_ROWS + 2
+#: the chunk height of K3's instantiation for one row per program
+#: (csrc/macro_oneshot.cu RC_ONE)
+ONE_ROW_CHUNK = 1
 #: shared memory one block may take on the card (bytes)
 MAX_SMEM = 227 * 1024
-#: points of one block of K3's sd = 3 stage, each with a column of the Phi
-#: tile (csrc/macro_oneshot.cu THREADS)
+#: points of one block of K3, each with a column of the Phi tile
+#: (csrc/macro_oneshot.cu THREADS)
 TILE_POINTS = 128
+#: point tiles one block of K3 may walk (csrc/macro_oneshot.cu MAX_SUB), and
+#: the blocks a launch keeps at least, where it can: about eight an SM on
+#: the H100's 132 SMs (of 256 to 8192, 1024 timed best on the H100 on the
+#: C1 zoos and full_zoo)
+MAX_SUB = 8
+MIN_BLOCKS = 1024
+
+
+def column_stride(rows):
+    """Values per staged column of a chunk ``rows`` high
+    (csrc/macro_oneshot.cu ``column_stride``): ``rows + 2`` (even, so
+    16-byte pairs stay aligned), or 1 for one-row chunks."""
+    return rows + 2 if rows > 1 else 1
+
+
+def tiles_per_block(npts, nchunks):
+    """Point tiles each block of K3 walks with its staged chunk: as many as
+    keep ``MIN_BLOCKS`` blocks in the grid, 1 to ``MAX_SUB``.  Fewer tiles a
+    block stage the chunk more often; more leave SMs idle at the tail."""
+    tiles = -(-npts // TILE_POINTS)
+    return max(1, min(MAX_SUB, tiles * nchunks // MIN_BLOCKS))
 
 
 def pack_geometry(geom, parent_map, nexp):
@@ -78,21 +105,30 @@ def pack_geometry(geom, parent_map, nexp):
             np.column_stack([offsets[:-1], nexp]).astype(np.int32).reshape(-1, 2))
 
 
-def chunk_table(progs, pieces):
-    """Every program's rows cut into chunks of at most ``CHUNK_ROWS``, as K3's
-    sd = 3 stage stages them: (chunks int32 (nchunks, 4) = (program, first
-    row, rows, ps), the largest chunk's staged values).  The kernel stages
-    piece j of the chunk's program ps * j columns in (ps is the program's
-    widest piece rounded up to odd, so lanes in up to 8 subcells read
-    distinct banks), each column ``COLUMN_STRIDE`` values, K7's layout
+def chunk_table(progs, pieces, rows=CHUNK_ROWS):
+    """Every program's rows cut into chunks of at most ``rows``, as K3
+    stages them: (chunks int32 (nchunks, 4) = (program, first row, rows,
+    ps), the largest chunk's staged values).  The kernel stages piece j of
+    the chunk's program ps * j columns in (ps is the program's widest piece
+    rounded up to odd, so lanes in up to 8 subcells read distinct banks),
+    each column ``column_stride(rows)`` values, K7's layout
     (``masked_matmul.chunk_layout``)."""
     chunks, largest = [], 0
     for g, (r0, r1, c0, c1, _) in enumerate(progs):
         ps = int(pieces[c0:c1, 1].max()) | 1
-        chunks.extend((g, row, min(CHUNK_ROWS, r1 - row), ps)
-                      for row in range(r0, r1, CHUNK_ROWS))
-        largest = max(largest, (c1 - c0) * ps * COLUMN_STRIDE)
+        chunks.extend((g, row, min(rows, r1 - row), ps) for row in range(r0, r1, rows))
+        largest = max(largest, (c1 - c0) * ps * column_stride(rows))
     return np.asarray(chunks, np.int32).reshape(-1, 4), largest
+
+
+def group_staged(chunks, progs, rows, cpb):
+    """Staged values of the largest group of ``cpb`` consecutive chunks of
+    ``chunk_table(progs, pieces, rows)``, rounded up to even: where the Phi
+    tile starts in a block's shared memory."""
+    sizes = [int(progs[g, 3] - progs[g, 2]) * int(ps) * column_stride(rows)
+             for g, _, _, ps in chunks]
+    largest = max(sum(sizes[i:i + cpb]) for i in range(0, len(sizes), cpb))
+    return largest + largest % 2
 
 
 def one_shot_applies(merged):
@@ -168,25 +204,29 @@ class MacroOneShot:
         self.A = as_t(A)
         self.maps = as_t(maps)
         self.progs = as_t(progs, torch.int32)
-        # the same programs with one row each, for ``mo(points, A=W)``
-        one = progs.copy()
-        one[:, 0], one[:, 1] = np.arange(len(progs)), np.arange(1, len(progs) + 1)
-        self.progs_one = as_t(one, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
         consts, slots = pack_stages(self.degree, sd=sd)
         self.consts = as_t(consts)
-        if sd == 3:
-            # shared memory of a block: the largest staged chunk, then the Phi tile
-            chunks, self.phi_at = chunk_table(progs, pieces_t)
-            self.smem = self.phi_at + math.comb(self.degree + 3, 3) * TILE_POINTS
-            nbytes = self.smem * self.A.element_size()
-            if nbytes > MAX_SMEM:
-                raise NotImplementedError(
-                    f"a row chunk and Phi tile of {nbytes} bytes: K3's sd = 3 stage takes at "
-                    f"most {MAX_SMEM} bytes of shared memory a block")
-            self.slots = as_t(slots, torch.int32)
-            self.chunks = as_t(chunks, torch.int32)
-            self.chunks_one = as_t(chunk_table(one, pieces_t)[0], torch.int32)
+        self.slots = as_t(slots, torch.int32)
+        # the row chunks of the tables and, for ``mo(points, A=W)``, one row
+        # per program; shared memory of a block in each mode (values): its
+        # staged chunks (rounded up to even), then the Phi tile.  A mode
+        # whose block does not fit raises at its launch on the card; the
+        # plain version has no such limit
+        one = progs.copy()
+        one[:, 0], one[:, 1] = np.arange(len(progs)), np.arange(1, len(progs) + 1)
+        chunks = chunk_table(progs, pieces_t)[0]
+        chunks_one = chunk_table(one, pieces_t, ONE_ROW_CHUNK)[0]
+        # a block of the tables takes one chunk; one of the one-row chunks
+        # takes every program's (fewer values than the largest chunk of 32
+        # rows), so the recurrence runs once a point
+        self.cpb, self.cpb_one = 1, len(chunks_one)
+        self.phi_at = group_staged(chunks, progs, CHUNK_ROWS, self.cpb)
+        self.phi_at_one = group_staged(chunks_one, progs, ONE_ROW_CHUNK, self.cpb_one)
+        tile = math.comb(self.degree + sd, sd) * TILE_POINTS
+        self.smem, self.smem_one = self.phi_at + tile, self.phi_at_one + tile
+        self.chunks = as_t(chunks, torch.int32)
+        self.chunks_one = as_t(chunks_one, torch.int32)
         self.device = self.A.device       # "cuda" resolved to its index
         self.launches = 0
 
@@ -217,32 +257,40 @@ class MacroOneShot:
             return self.plain(points, A)
         if points.device.type != "cuda" or points.device != self.device:
             raise ValueError(f"points on {points.device}, engine on {self.device}")
+        return self._launch(points, A)
+
+    def _launch(self, points, A):
+        """Launch the kernel on checked CUDA inputs: the (rows, npts)
+        output.  Raises where a block of this mode (the tables, or one row
+        per program) is past the card's shared memory, or the grid has too
+        many blocks along the chunks."""
         one = A is not None
+        chunks, rc, cpb, phi_at, smem = (
+            (self.chunks_one, ONE_ROW_CHUNK, self.cpb_one, self.phi_at_one, self.smem_one) if one
+            else (self.chunks, CHUNK_ROWS, self.cpb, self.phi_at, self.smem))
+        nbytes = smem * self.A.element_size()
+        if nbytes > MAX_SMEM:
+            raise NotImplementedError(
+                f"K3 {'one row a program' if one else 'tables'}: a block's row chunks and Phi "
+                f"tile take {nbytes} bytes, past the {MAX_SMEM} bytes of shared memory a block")
+        groups = -(-chunks.shape[0] // cpb)
+        if groups > 65535:
+            raise NotImplementedError(f"{groups} blocks of row chunks: K3's grid takes at most "
+                                      f"65535")
         A = A if one else self.A
         npts = points.shape[0]
         out = torch.empty((A.shape[0], npts), dtype=self.dtype, device=points.device)
         if npts == 0:
             return out
-        lib = load_kernels()
         f64 = self.dtype == torch.float64
-        if self.sd == 2:
-            name = "fiat_macro_oneshot" if f64 else "fiat_macro_oneshot_f32"
-            progs = self.progs_one if one else self.progs
-            err = getattr(lib, name)(
-                points.data_ptr(), npts, self.consts.data_ptr(), *self.affine.tolist(),
-                self.scale, self.tol, self.degree, self.maps.data_ptr(), len(self.nexp),
-                progs.data_ptr(), len(self.geom), self.pieces.data_ptr(), A.data_ptr(),
-                A.shape[0], self.K, out.data_ptr(), stream_of(points))
-        else:
-            name = "fiat_macro_oneshot3" if f64 else "fiat_macro_oneshot3_f32"
-            chunks = self.chunks_one if one else self.chunks
-            err = getattr(lib, name)(
-                points.data_ptr(), npts, self.consts.data_ptr(), self.slots.data_ptr(),
-                *self.affine.tolist(), self.scale, self.tol, self.degree, self.maps.data_ptr(),
-                self.progs.data_ptr(), self.pieces.data_ptr(), chunks.data_ptr(),
-                chunks.shape[0], self.phi_at, A.data_ptr(), self.K, out.data_ptr(),
-                stream_of(points))
-        check_launch(f"{name} ({A.shape[0]} x {self.K}, {self.dtype})", err)
+        fn = getattr(load_kernels(), "fiat_macro_oneshot" if f64 else "fiat_macro_oneshot_f32")
+        affine = ((ctypes.c_double if f64 else ctypes.c_float) * 12)(*self.affine)
+        err = fn(points.data_ptr(), npts, self.sd, self.consts.data_ptr(), self.slots.data_ptr(),
+                 affine, self.scale, self.tol, self.degree, self.maps.data_ptr(),
+                 self.progs.data_ptr(), self.pieces.data_ptr(), chunks.data_ptr(),
+                 chunks.shape[0], rc, cpb, tiles_per_block(npts, groups), phi_at, A.data_ptr(),
+                 self.K, out.data_ptr(), stream_of(points))
+        check_launch(f"K3 ({A.shape[0]} x {self.K}, {self.dtype})", err)
         self.launches += 1
         return out
 

@@ -11,8 +11,8 @@ the nodal change of basis applies to one vector.  On the card the
 expansion-side sums of the plain rows and of every macro subcell come from
 one launch of K45 (``moment_kernel.PairMoments``); interpolation, the
 transpose, runs K1 for the plain rows and K3 with the coefficients folded
-into a one-row change of basis per macro program (K3's sd = 2 or sd = 3
-stage).  The small products around them stay ``torch.matmul``, as fiat_tpu
+into a one-row change of basis per macro program (K3's one-row chunks,
+every program's in one block).  The small products around them stay ``torch.matmul``, as fiat_tpu
 leaves them to XLA.  Both directions take triangles and tetrahedra, plain
 and macro.
 

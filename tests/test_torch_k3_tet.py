@@ -3,7 +3,7 @@ parent) against fiat_tpu on the CPU: its plain version against fiat_tpu's
 one-shot kernel ``FusedMacroOneShot`` built by hand at sd = 3 (as
 tests/test_device_ops.py builds it at sd = 2) in interpret mode, against
 fiat_tpu's interpreted K7 path and host tabulation, a replay of the
-kernel's loop on its chunk table and packed constants, and the two paths
+kernel's loop on its chunk tables and packed constants, and the two paths
 it opens: the f32 tables and the interpolation of tetrahedral macro zoos.
 Also the C1 macro zoos of bench.py on K3's sd = 2 stage.
 
@@ -40,8 +40,8 @@ from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_macro_tet import _bin_as_the_kernel  # noqa: E402
-from test_torch_tet_dual import _dubiner3_values, _points, _tie_points  # noqa: E402
+from test_torch_k3_tri import _replay_k3  # noqa: E402
+from test_torch_tet_dual import _points, _tie_points  # noqa: E402
 
 RTOL_INTERPRET = 1e-5   # fiat_tpu's one-shot kernel in interpret mode (its own CPU bar)
 ATOL_FIAT = 1e-11       # fiat_tpu's interpreted K7 path: 9.2e-12 from host itself
@@ -156,62 +156,32 @@ def test_k3_sd3_in_the_f64_engine_matches_fiat_tpu_k7_path_and_host(order):
     assert _max_diff([el.tabulate(order, pts) for el in tzoo], tables) <= ATOL_HOST
 
 
-def _replay_k3_sd3(mo, pts, A=None):
-    """csrc/macro_oneshot.cu's sd = 3 loop in numpy on the tables the
-    wrapper built: per chunk the staged block (piece j's column k holds the
-    chunk's rows of A[:, off_j + k], zeros past the piece's width), the
-    program's binning, the recurrence's values at their member rows of the
-    Phi tile, and for each hit piece, k ascending, phi_k times its staged
-    column into the rows."""
-    maps, progs, pieces = mo.maps.numpy(), mo.progs.numpy(), mo.pieces.numpy()
-    consts, slots = mo.consts.numpy(), mo.slots.numpy()
-    chunks = (mo.chunks if A is None else mo.chunks_one).numpy()
-    A = mo.A.numpy() if A is None else A
-    ref = (pts @ mo.affine[:9].reshape(3, 3).T + mo.affine[9:]).T
-    phi = np.zeros((math.comb(mo.degree + 3, 3), len(pts)))
-    for e, v in _dubiner3_values(ref, consts, mo.degree, mo.scale):
-        phi[slots[e]] = v
-    out = np.full((A.shape[0], len(pts)), np.nan)
-    for g, row0, nrows, ps in chunks:
-        _, _, c0, c1, unique = progs[g]
-        staged = np.zeros((c1 - c0, ps, COLUMN_STRIDE))
-        for j, (off, nk) in enumerate(pieces[c0:c1]):
-            staged[j, :nk, :nrows] = A[row0:row0 + nrows, off:off + nk].T
-        hits = _bin_as_the_kernel(maps, pts, c0, c1)
-        if unique:      # the first hit alone
-            hits &= np.cumsum(hits, axis=1) == 1
-        recip = 1.0 if unique else 1.0 / hits.sum(axis=1)
-        acc = np.zeros((CHUNK_ROWS, len(pts)))
-        for j in range(c1 - c0):
-            for k in range(pieces[c0 + j, 1]):
-                acc += np.where(hits[:, j], staged[j, k, :CHUNK_ROWS, None] * phi[k], 0.0)
-        out[row0:row0 + nrows] = (acc * recip)[:nrows]
-    return out
-
-
 @pytest.mark.parametrize("where", ["random", "tie"])
 @pytest.mark.parametrize("order", [0, 1])
 def test_k3_sd3_kernel_loop_on_its_chunk_table_matches_plain(order, where):
-    """The kernel cannot run here: its loop, replayed on the chunk table and
-    the packed constants, equals the plain version, on random points and on
-    tie points (the first hit of each C0 program at order 0, 1 / hits
-    elsewhere), for the merged tables and for one row per program (the
-    interpolation's W)."""
+    """The kernel cannot run here: its loop (the one template of both
+    parents, replayed as test_torch_k3_tri does), on the chunk tables, the
+    shared-memory offsets and the packed constants, equals the plain
+    version, on random points and on tie points (the first hit of each C0
+    program at order 0, 1 / hits elsewhere), for the merged tables and for
+    one row per program (the interpolation's W: every program's one-row
+    chunk in one block)."""
     mo = _k3(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order)
     assert (mo.rows, mo.K) == ((158, 288) if order == 0 else (632, 288))
     assert mo.chunks.shape[0] == sum(-(-(g["rows"][1] - g["rows"][0]) // CHUNK_ROWS)
                                      for g in mo.geom) == (8 if order == 0 else 21)
     assert tuple(mo.chunks_one.shape) == (4, 4) and mo.chunks_one[:, 2].tolist() == [1] * 4
+    assert (mo.cpb, mo.cpb_one) == (1, 4)
     pts = _points(150, 23 + order) if where == "random" else _tie_points()
     P = torch.as_tensor(pts)
     want = mo(P).numpy()
-    assert np.abs(_replay_k3_sd3(mo, pts) - want).max() <= RTOL_REPLAY * np.abs(want).max()
+    assert np.abs(_replay_k3(mo, pts) - want).max() <= RTOL_REPLAY * np.abs(want).max()
     # row g of W holds program g's columns alone, as the interpolation's does
     W = np.random.default_rng(order).standard_normal((len(mo.geom), mo.K))
     W *= np.repeat(np.eye(len(mo.geom)), [sum(mo.nexp[c0:c1]) for _, _, c0, c1, _ in
                                           mo.progs.numpy()], axis=1)
     want = mo(P, A=torch.as_tensor(W)).numpy()
-    assert np.abs(_replay_k3_sd3(mo, pts, W) - want).max() <= RTOL_REPLAY * np.abs(want).max()
+    assert np.abs(_replay_k3(mo, pts, W) - want).max() <= RTOL_REPLAY * np.abs(want).max()
 
 
 def test_k3_sd3_chunks_fit_shared_memory_and_the_precondition():
@@ -259,8 +229,9 @@ def test_k3_sd3_wrapper_checks_and_limits():
     (torch.float32, 12, 7, False)])
 def test_k3_sd3_refuses_a_chunk_and_tile_past_shared_memory(dtype, subcells, degree, fits):
     """One program of ``subcells`` pieces of the degree's width: its staged
-    chunk and the Phi tile fit a block's 227 KB or raise naming it (the
-    source note's limits)."""
+    chunk and the Phi tile fit a block's 227 KB, or the tables' launch
+    raises naming it, with no launch counted (the source note's limits).
+    The engine builds either way and its plain version runs."""
     split = tmacro.AlfeldSplit if subcells == 4 else tmacro.WorseyFarinSplit
     cell = split(tcl.ufc_simplex(3))
     n = math.comb(degree + 3, 3)
@@ -269,11 +240,15 @@ def test_k3_sd3_refuses_a_chunk_and_tile_past_shared_memory(dtype, subcells, deg
                 geom=[{"maps": maps, "unique": False, "rows": (0, 40)}],
                 parent_map=tcl.ufc_simplex(3).barycentric_map(rescale=True), degree=degree,
                 scale=1.0, affine_map=(2 * np.eye(3), -np.ones(3)), device="cpu", dtype=dtype)
-    if fits:
-        assert MacroOneShot(**args).smem * (8 if dtype == torch.float64 else 4) <= MAX_SMEM
-    else:
+    mo = MacroOneShot(**args)
+    assert (mo.smem * (8 if dtype == torch.float64 else 4) <= MAX_SMEM) == fits
+    P = torch.as_tensor(_points(20, degree)).to(dtype)
+    assert tuple(mo(P).shape) == (40, 20) and mo.launches == 0
+    if not fits:
+        # the launch on the card, up to the kernel's library (none here)
         with pytest.raises(NotImplementedError, match="shared memory"):
-            MacroOneShot(**args)
+            mo._launch(P, None)
+        assert mo.launches == 0
 
 
 def test_tet_macro_f32_tables_match_fiat_tpu_pallas_interpret():

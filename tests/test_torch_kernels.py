@@ -711,3 +711,107 @@ def test_c1_macro_zoos_on_card_match_host(cuda, order):
         host = el.tabulate(order, pts)
         for a in host:
             assert np.abs(g[a].cpu().numpy() - host[a]).max() <= 1e-10
+
+
+def _c1_zoo(T):
+    return [tfe.CubicHermite(T), tfe.Morley(T), tfe.Argyris(T, 5), tfe.Bell(T),
+            tfe.HsiehCloughTocher(T, 3), tfe.QuadraticPowellSabin6(T),
+            tfe.QuadraticPowellSabin12(T)]
+
+
+def test_c1_macro_zoo_order3_on_card_matches_plain_and_host(cuda):
+    """The C1 zoo at order 3: K3's A (330 x 138, 355.8 KB in f64) is past a
+    block's shared memory, which holds a row chunk of it; the kernel
+    launches, matches its plain version and the pass matches host."""
+    zoo = _c1_zoo(tcl.ufc_simplex(2))
+    tab = device_tabulator(zoo, order=3, device=cuda)
+    mo = tab.macro
+    assert mo.name == "K3" and (mo.rows, mo.K) == (330, 138) and mo.rows * mo.K * 8 > 227 * 1024
+    pts = np.vstack([_points(2500, seed=3), _special_points()])
+    P = torch.as_tensor(pts, device=cuda)
+    got = mo(P)
+    torch.cuda.synchronize()
+    assert mo.launches == 1
+    want = mo.plain(P)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+    per = tab.unpack(tab.block_tables(P))
+    assert (tab.recurrence.launches, tab.matmul.launches, mo.launches) == (1, 1, 2)
+    for el, g in zip(zoo, per):
+        host = el.tabulate(3, pts)
+        for a in host:
+            assert np.abs(g[a].cpu().numpy() - host[a]).max() <= 1e-10
+
+
+@pytest.mark.parametrize("npts", [1, 1077, 100_000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_c1_macro_kernel_matches_plain_at_every_tile_count(cuda, dtype, npts):
+    """K3 on the C1 zoo at order 2 (8 row chunks, ragged tails of 8 and 22
+    rows): one point, a partial tile, and 1e5 points, where each block walks
+    several tiles with its staged chunk."""
+    from fiat_tpu_torch.ops.macro_oneshot import tiles_per_block
+    zoo = _c1_zoo(tcl.ufc_simplex(2))
+    mo = device_tabulator(zoo, order=2, f64=dtype == torch.float64, device=cuda).macro
+    assert mo.chunks[:, 2].tolist() == [32, 32, 8, 32, 22, 32, 32, 8]
+    pts = np.vstack([_points(npts, seed=npts), _special_points()])
+    P = torch.as_tensor(pts, device=cuda).to(dtype)
+    assert tiles_per_block(P.shape[0], mo.chunks.shape[0]) == (6 if npts == 100_000 else 1)
+    got = mo(P)
+    torch.cuda.synchronize()
+    assert mo.launches == 1 and torch.isfinite(got).all()
+    want = mo.plain(P)
+    assert (got - want).abs().max().item() <= _bar(mo, P, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("zoo", ["full_zoo_macro", "c1"])
+def test_macro_kernel_one_row_per_program_matches_plain(cuda, zoo, dtype):
+    """The small chunk height on triangles: one row per program (the
+    interpolation's W), every program's one-row chunk in one block."""
+    T = tcl.ufc_simplex(2)
+    els = _macro_zoo(T) if zoo == "full_zoo_macro" else _c1_zoo(T)
+    mo = device_tabulator(els, order=0, f64=dtype == torch.float64, device=cuda).macro
+    assert mo.chunks_one[:, 2].tolist() == [1] * len(mo.geom) and mo.cpb_one == len(mo.geom)
+    rng = np.random.default_rng(13)
+    W = rng.standard_normal((len(mo.geom), mo.K)) * np.repeat(
+        np.eye(len(mo.geom)), [sum(mo.nexp[c0:c1]) for _, _, c0, c1, _ in mo.progs.cpu().numpy()],
+        axis=1)
+    P = torch.as_tensor(np.vstack([_points(5001), _special_points()]), device=cuda).to(dtype)
+    Wt = torch.as_tensor(W, device=cuda).to(dtype)
+    got = mo(P, A=Wt)
+    torch.cuda.synchronize()
+    assert mo.launches == 1 and tuple(got.shape) == (len(mo.geom), P.shape[0])
+    want = mo.plain(P, A=Wt)
+    assert (got - want).abs().max().item() <= _bar(mo, P, want, Wt)
+
+
+def test_macro_kernel_refuses_only_the_mode_past_shared_memory(cuda):
+    """Lagrange 9 on Powell-Sabin-12 splits beside P1: a block of K3's
+    tables (235,840 bytes in f64) is past the card's 227 KB and its launch
+    raises naming shared memory, with no launch counted; the interpolation's
+    one row a program (61,600 bytes) launches K3 and matches its plain
+    version and the CPU engine.  The element is ill-conditioned: the
+    folded W reaches 7.5e8 and a value sums terms up to 3.4e9 for a result
+    near 1, so the bars are of that rounding scale (max |W| @ |B|)."""
+    from fiat_tpu_torch.ops.moments import MomentEngine
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    T = tcl.ufc_simplex(2)
+    zoo = [tfe.Lagrange(T, 1), tfe.Lagrange(T, 9, variant="powell-sabin(12)")]
+    pts = np.vstack([_points(3000, seed=9), _special_points()])
+    P = torch.as_tensor(pts, device=cuda)
+    mo = device_tabulator(zoo, order=0, device=cuda).macro
+    assert mo.name == "K3" and mo.smem * 8 > 227 * 1024 >= mo.smem_one * 8
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        mo(P)
+    assert mo.launches == 0
+    gpu = MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device=cuda)
+    cpu = MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device="cpu")
+    c = np.random.default_rng(5).random(gpu.rows) - 0.5
+    C = torch.as_tensor(c, device=cuda)
+    u = gpu.interpolate_rows(P, C)
+    torch.cuda.synchronize()
+    assert (gpu.recurrence.launches, gpu.macro.launches) == (1, 1)
+    W = gpu.program_columns * (C @ gpu.matrix)[gpu.nexp:]
+    got, want = gpu.macro(P, A=W), gpu.macro.plain(P, A=W)
+    scale = (W.abs() @ gpu.macro.operand(P)[0].abs()).max().item()
+    assert (got - want).abs().max().item() <= 1e-13 * scale
+    assert (u.cpu() - cpu.interpolate_rows(pts, c)).abs().max().item() <= 1e-13 * scale

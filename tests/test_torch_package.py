@@ -123,6 +123,7 @@ def test_pyproject_ships_the_port():
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
         "bernstein.cu", "binning.cuh", "bucket_matmul.cu", "dubiner2.cuh", "dubiner3.cuh",
-        "macro_oneshot.cu", "masked_matmul.cu", "moments.cu", "recurrence.cu", "zoo_f32.cu"]
+        "macro_oneshot.cu", "macro_oneshot.cuh", "macro_oneshot_f32.cu", "macro_oneshot_one.cu",
+        "masked_matmul.cu", "moments.cu", "recurrence.cu", "zoo_f32.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)
