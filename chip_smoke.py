@@ -62,12 +62,14 @@ Usage (from the repository root, on a machine with a CUDA card):
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k3-cells ROOT   # K3 alone per cell, package at ROOT
+    python3 chip_smoke.py --k2-cells ROOT   # K2 alone per cell, package at ROOT
 
-Prints the card's name and power limit, the build time and K3's registers
-by instantiation, one line per step, a JSON line ``{"kernels": [...]}``
-(K1, K2 and K3 measured on ``full_zoo``, K45 on the moments phase with K3
-on its interpolation, K6 on the f32 phase, K1, K2 and K8 on the
-tetrahedra, K7 on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's
+Prints the card's name and power limit, the build time, K3's and K2's
+registers by instantiation and the spills, the DMMA instructions in each
+of K2's instantiations (it fails where one has none), one line per step,
+a JSON line ``{"kernels": [...]}`` (K1, K2 and K3 measured on
+``full_zoo``, K45 on the moments phase with K3 on its interpolation, K6
+on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7 on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's
 cells, K3's sd = 3 stage on phase 8's and K3 on the C1 zoos (order 1, 2
 and 3), each with its bound: the larger of its bytes over the HBM rate and
 its operations over the peak rate for their type), and as its last line
@@ -135,25 +137,72 @@ def ptxas_entries(log):
     return rows
 
 
+K2_INSTANCES = 6     # point tiles 128, 64, 32, each for 1 and 2 blocks an SM
+
+
+def k2_instance(name):
+    """'K2 TP <point tile> x<blocks an SM>' for a mangled K2
+    instantiation, or None."""
+    m = re.search(r"bucket_matmul_kernelILi(\d+)ELi(\d+)EE", name)
+    return f"K2 TP {m.group(1)} x{m.group(2)}" if m else None
+
+
 def print_ptxas(log):
     """The registers of K3's instantiations by (sd, chunk height, type),
-    degree 0 to 10, and every kernel that spills."""
+    degree 0 to 10, K2's registers and spills by instantiation, and every
+    kernel that spills."""
     if not log:
         print("ptxas: no build log (a matching build existed)")
         return
-    k3, spills = {}, []
+    k3, k2, spills = {}, [], []
     for name, regs, st, ld in ptxas_entries(log):
         m = re.search(r"macro_oneshot_kernelILi(\d+)ELi(\d+)ELi(\d+)E([df])", name)
         if m:
             sd, n, rc, t = int(m.group(1)), int(m.group(2)), int(m.group(3)), m.group(4)
             k3.setdefault((sd, rc, "double" if t == "d" else "float"), {})[n] = regs
             name = f"K3 sd {sd} RC {rc} {'double' if t == 'd' else 'float'} degree {n}"
+        if k2_instance(name):
+            name = k2_instance(name)
+            k2.append(f"{name}: {regs} registers, spills {st}/{ld} bytes")
         if st or ld:
             spills.append(f"{name[:80]}: {st}/{ld} bytes")
     for (sd, rc, t), regs in sorted(k3.items()):
         print(f"ptxas K3 sd {sd} RC {rc} {t}: registers by degree "
               f"{[regs.get(n) for n in range(11)]}")
+    print(f"ptxas {'; '.join(sorted(k2))}")
     print(f"ptxas spill stores/loads: {spills if spills else 'none'}")
+
+
+def check_k2_sass(lib_path):
+    """The DMMA instructions in each of K2's instantiations, from
+    ``cuobjdump -sass`` of the built library; fails where an instantiation
+    has none (K2 must multiply on the FP64 tensor cores)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: cuobjdump not found, DMMA not checked")
+        return
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = k2_instance(m.group(1))
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bDMMA\b", line):
+            counts[name] += 1
+    print(f"sass DMMA instructions: {json.dumps(dict(sorted(counts.items())))}")
+    if len(counts) != K2_INSTANCES or not all(counts.values()):
+        fail(f"K2 must run DMMA in each of its {K2_INSTANCES} instantiations: {counts}")
+
+
+def k2_rates(mm, ms, npts=NPTS):
+    """K2's rate at ``ms`` a call: TFLOP/s (2 K_g flops per output of group
+    g) and TB/s of C written."""
+    return (f"{matmul_flops(mm, npts) / ms / 1e9:.2f} TFLOP/s, "
+            f"{mm.total_rows * npts * 8 / ms / 1e9:.3f} TB/s of C")
 
 
 def median_ms(fn, torch, reps=REPS, inner=INNER, warmup=2):
@@ -366,8 +415,9 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     gbytes = (mm.total_rows + mo.rows) * NPTS * 8 / 1e9
     print(f"full_zoo timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"kernel path {path_ms:.4f} ms, plain path {plain_ms:.4f} ms; "
-          f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
-          f"one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, one DGEMM "
+          f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} "
+          f"(plain {k2_plain:.4f}, one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain "
+          f"{k3_plain:.4f}, one DGEMM "
           f"on the masked B {k3_lib:.4f}, K7 on K1's Phi {k7_ms:.4f}); "
           f"a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
@@ -822,8 +872,8 @@ def tet_phase(dev, card, torch, np):
     b_p = feat.plain(P)
     k8_abs = check_kernel(f"K8 Bernstein features (sd 3, degree {feat.degree}) at {NPTS} points",
                           feat(P), b_p, torch)
-    check_kernel(f"tet_lagrange8 Bernstein route K2 ({bmm.total_rows} x {NPTS}, K {bmm.max_k})",
-                 bmm(b_p), bmm.plain(b_p), torch)
+    bk2_abs = check_kernel(f"tet_lagrange8 Bernstein route K2 ({bmm.total_rows} x {NPTS}, K "
+                           f"{bmm.max_k})", bmm(b_p), bmm.plain(b_p), torch)
     del b_p
     hphi_p = hrec.plain(P)
     check_kernel(f"hdiv_hcurl_tet K1 recurrence (sd 3, degree {hrec.degree})", hrec(P), hphi_p,
@@ -845,14 +895,16 @@ def tet_phase(dev, card, torch, np):
     k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
     k8_ms, k8_plain = median_ms(lambda: feat(P), torch), median_ms(lambda: feat.plain(P), torch)
     k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), median_ms(lambda: mm.plain(phi), torch)
-    A, hA = mm.A.to(phi.device), hmm.A.to(phi.device)
+    A, bA, hA = mm.A.to(phi.device), bmm.A.to(phi.device), hmm.A.to(phi.device)
     k2_lib = median_ms(lambda: torch.matmul(A, phi), torch)     # one cuBLAS DGEMM
-    bk2_ms = median_ms(lambda: bmm(feats), torch)
+    bk2_ms, bk2_plain = median_ms(lambda: bmm(feats), torch), median_ms(lambda: bmm.plain(feats),
+                                                                      torch)
+    bk2_lib = median_ms(lambda: torch.matmul(bA, feats), torch)
     hk1_ms = median_ms(lambda: hrec(P), torch)
     hk2_ms, hk2_plain = median_ms(lambda: hmm(hphi), torch), median_ms(lambda: hmm.plain(hphi),
                                                                      torch)
     hk2_lib = median_ms(lambda: torch.matmul(hA, hphi[:hmm.max_k]), torch)
-    del phi, feats, hphi, A, hA
+    del phi, feats, hphi, A, bA, hA
     path = {name: median_ms(lambda t=t: t.block_tables(P), torch)
             for name, (t, _, _) in routes.items()}
     plain = {"tet_lagrange8": median_ms(lambda: mm.plain(rec.plain(P)), torch),
@@ -864,13 +916,13 @@ def tet_phase(dev, card, torch, np):
               f"{path[name]:.4f} ms, plain path {plain[name]:.4f} ms; a pass writes "
               f"{gbytes:.3f} GB = {gbytes / path[name]:.3f} TB/s; host error "
               f"{host[name]:.3e}")
-    k2_tflops = matmul_flops(mm, NPTS) / k2_ms / 1e9
     print(f"tet kernels ({card}; CUDA events): K1 sd 3 degree 8 {k1_ms:.4f} ms (plain "
           f"{k1_plain:.4f}); K8 {k8_ms:.4f} ms (plain {k8_plain:.4f}); faster B operand: "
           f"{'K8' if k8_ms < k1_ms else 'K1'} by {max(k1_ms, k8_ms) / min(k1_ms, k8_ms):.2f}x; "
-          f"K2 K 165 {k2_ms:.4f} ms = {k2_tflops:.2f} TFLOP/s (plain {k2_plain:.4f}, cuBLAS "
-          f"DGEMM {k2_lib:.4f}), on the Bernstein route {bk2_ms:.4f}; hdiv_hcurl_tet K1 "
-          f"{hk1_ms:.4f} ms, K2 {hk2_ms:.4f} ms (plain {hk2_plain:.4f}, one padded DGEMM "
+          f"K2 K 165 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} (plain {k2_plain:.4f}, cuBLAS DGEMM "
+          f"{k2_lib:.4f}), on the Bernstein route {bk2_ms:.4f} ms = {k2_rates(bmm, bk2_ms)} "
+          f"(plain {bk2_plain:.4f}, DGEMM {bk2_lib:.4f}); hdiv_hcurl_tet K1 {hk1_ms:.4f} ms, K2 "
+          f"{hk2_ms:.4f} ms = {k2_rates(hmm, hk2_ms)} (plain {hk2_plain:.4f}, one padded DGEMM "
           f"{hk2_lib:.4f})")
 
     src = "fiat_tpu_torch/csrc/"
@@ -885,6 +937,9 @@ def tet_phase(dev, card, torch, np):
         entry("K8 bernstein_features (tet_lagrange8)", src + "bernstein.cu",
               "fiat_tpu/ops/pallas_bernstein.py:288", launches["tet_lagrange8 bernstein"]["K8"],
               k8_abs, k8_ms, k8_plain, features_bound(feat, NPTS)),
+        entry("K2 bucket_matmul (tet_lagrange8 bernstein, K 165)", src + "bucket_matmul.cu",
+              "fiat_tpu/ops/pallas_multiword.py:269", launches["tet_lagrange8 bernstein"]["K2"],
+              bk2_abs, bk2_ms, bk2_plain, matmul_bound(bmm, NPTS), bk2_lib),
         entry("K2 bucket_matmul (hdiv_hcurl_tet)", src + "bucket_matmul.cu",
               "fiat_tpu/ops/pallas_multiword.py:269", launches["hdiv_hcurl_tet"]["K2"], hk2_abs,
               hk2_ms, hk2_plain, matmul_bound(hmm, NPTS), hk2_lib),
@@ -962,8 +1017,9 @@ def sv_phase(dev, card, torch, np):
     bound = masked_bound(k7, NPTS)
     gbytes = (mm.total_rows + k7.rows) * NPTS * 8 / 1e9
     print(f"sv_macro_tet timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
-          f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms, "
-          f"K7 {k7_ms:.4f} ms (plain {k7_plain:.4f}, one DGEMM on the masked B "
+          f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms "
+          f"= {k2_rates(mm, k2_ms)}, K7 {k7_ms:.4f} ms (plain {k7_plain:.4f}, one DGEMM on the "
+          f"masked B "
           f"{k7_lib:.4f}, bound {bound[0]:.4f} by {bound[1]}); a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
     return tab, [entry("K7 masked_matmul (sv_macro_tet)", "fiat_tpu_torch/csrc/masked_matmul.cu",
@@ -1286,11 +1342,13 @@ def c1_phase(T, dev, pts2, P, card, torch, np):
         k3_lib = masked_gemm_ms(mo, P, torch)
         phi = rec(P)
         k7_ms = k7_on_k3_arrays(name, mo, phi, P, dev, torch)
+        k2_ms = median_ms(lambda: mm(phi), torch)
         del phi
         bound = macro_bound(mo, NPTS)
         gbytes = (mm.total_rows + mo.rows) * NPTS * 8 / 1e9
         print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
-              f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K3 {k3_ms:.4f} ms (plain "
+              f"{path_ms:.4f} ms, plain path {plain_ms:.4f} ms; K2 {k2_ms:.4f} ms = "
+              f"{k2_rates(mm, k2_ms)}; K3 {k3_ms:.4f} ms (plain "
               f"{k3_plain:.4f}, one DGEMM on the masked B {k3_lib:.4f}, K7 on K1's Phi "
               f"{k7_ms:.4f}, bound {bound[0]:.4f} by {bound[1]}); a pass writes {gbytes:.3f} GB "
               f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
@@ -1358,10 +1416,28 @@ def k3_cells(dev, card, torch, np, own):
              "full_zoo interpolate_rows pass": lambda: interpolation_pass(full_zoo(T), P),
              "sv_macro_tet interpolate_rows pass": lambda: interpolation_pass(sv_macro_tet(T3),
                                                                               P3)}
+
+    def with_host_time(make):
+        def made():
+            run = make()
+            return run, lambda ev, dev_ms: [host_ms(run, torch)]
+        return made
+
+    time_cells("k3_cells", "host time",
+               {name: with_host_time(make) for name, make in cells.items()}, card, torch, own)
+
+
+def time_cells(label, extra, cells, card, torch, own):
+    """Time each cell of ``cells`` ({name: make}, make() -> (run, more)):
+    CUDA events over back-to-back run() calls and torch.profiler's device
+    time alone, followed by ``more(events ms, device ms)`` (``extra`` says
+    what).  Where the package is another checkout's (``own`` False), a cell
+    it refuses records the error message; in this checkout every cell must
+    run.  Prints {label: {cell: [ms, device ms, ...]}}."""
     out = {}
     for name, make in cells.items():
         try:
-            run = make()
+            run, more = make()
             run()
             torch.cuda.synchronize()
         except (RuntimeError, NotImplementedError) as exc:
@@ -1369,10 +1445,56 @@ def k3_cells(dev, card, torch, np, own):
                 raise
             out[name] = f"raises: {str(exc).splitlines()[0][:160]}"
         else:
-            out[name] = [median_ms(run, torch), device_ms(run, torch), host_ms(run, torch)]
+            ev, dev_ms = median_ms(run, torch), device_ms(run, torch)
+            out[name] = [ev, dev_ms] + more(ev, dev_ms)
         print(f"{name} ({card}; median of {REPS} runs of {INNER}, CUDA events; profiler "
-              f"device time; host time): {out[name]}")
-    print(json.dumps({"k3_cells": out}))
+              f"device time; {extra}): {out[name]}")
+    print(json.dumps({label: out}))
+
+
+def k2_cells(dev, card, torch, np, own):
+    """``python3 chip_smoke.py --k2-cells ROOT``: K2 alone in every cell that
+    launches it (full_zoo, tet_lagrange8 on K1's Phi and on K8's Bernstein
+    features, hdiv_hcurl_tet, sv_macro_tet, c1_macro_zoo, c1_macro_hessians)
+    on the fiat_tpu_torch package of the checkout at ROOT, at the points
+    and shapes of the main run, each beside one cuBLAS DGEMM of the same
+    packed A by the same Phi (zero-padded to the widest width where the
+    cell has several).  Prints {"k2_cells": {cell: [ms, device ms, DGEMM
+    ms, TFLOP/s, TB/s of C]}}, the rates at the device time."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    T, T3 = ufc_simplex(2), ufc_simplex(3)
+    P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
+    P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev)
+    lag8, hdiv = tet_zoos(T3)
+    c1 = [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
+          ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T), ft.QuadraticPowellSabin12(T)]
+
+    def k2(tab, Q):
+        mm = tab.matmul
+        basis = (tab.features if tab.recurrence is None else tab.recurrence)(Q)
+        A = mm.A.to(dev)
+
+        def more(ev, dev_ms):
+            ms = dev_ms or ev
+            lib = median_ms(lambda: torch.matmul(A, basis[:mm.max_k]), torch)
+            return [lib, matmul_flops(mm, NPTS) / ms / 1e9, mm.total_rows * NPTS * 8 / ms / 1e9]
+        return lambda: mm(basis), more
+
+    cells = {
+        "full_zoo": lambda: k2(device_tabulator(full_zoo(T), order=1, device=dev), P),
+        "tet_lagrange8": lambda: k2(device_tabulator(lag8, order=1, device=dev), P3),
+        "tet_lagrange8 bernstein": lambda: k2(FusedZooTabulator(
+            BatchedTabulator(lag8, order=1, device="cpu"), device=dev, features="bernstein"), P3),
+        "hdiv_hcurl_tet": lambda: k2(device_tabulator(hdiv, order=1, device=dev), P3),
+        "sv_macro_tet": lambda: k2(device_tabulator(sv_macro_tet(T3), order=1, device=dev), P3),
+        "c1_macro_zoo": lambda: k2(device_tabulator(c1, order=1, device=dev), P),
+        "c1_macro_hessians": lambda: k2(device_tabulator(c1, order=2, device=dev), P)}
+    time_cells("k2_cells", "one cuBLAS DGEMM ms; TFLOP/s and TB/s of C at the device time",
+               cells, card, torch, own)
 
 
 def main():
@@ -1382,10 +1504,11 @@ def main():
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    root = Path(__file__).resolve().parent
-    cells = "--k3-cells" in sys.argv
-    if cells:
-        root = Path(sys.argv[sys.argv.index("--k3-cells") + 1]).resolve()
+    here = root = Path(__file__).resolve().parent
+    modes = {"--k3-cells": k3_cells, "--k2-cells": k2_cells}
+    mode = next((m for m in modes if m in sys.argv), None)
+    if mode:
+        root = Path(sys.argv[sys.argv.index(mode) + 1]).resolve()
     if not (root / "fiat_tpu_torch" / "__init__.py").is_file():
         fail(f"the fiat_tpu_torch package is not in {root}")
     sys.path.insert(0, str(root))
@@ -1397,18 +1520,15 @@ def main():
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
-    if cells:
-        t0 = time.perf_counter()
-        load_kernels()
-        print(f"build of {root}: {time.perf_counter() - t0:.1f} s")
-        k3_cells(dev, card, torch, np, own=root == Path(__file__).resolve().parent)
-        return 0
-
-    # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
     lib = load_kernels()
-    print(f"build: {lib.path.relative_to(root)} in {time.perf_counter() - t0:.1f} s")
+    print(f"build of {root}: {lib.path.relative_to(root)} in {time.perf_counter() - t0:.1f} s")
     print_ptxas(lib.build_log)
+    if root == here:
+        check_k2_sass(lib.path)
+    if mode:
+        modes[mode](dev, card, torch, np, own=root == here)
+        return 0
 
     T = ufc_simplex(2)
     pts2 = make_points(NPTS, SEED, np)

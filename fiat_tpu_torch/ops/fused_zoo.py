@@ -72,34 +72,126 @@ def transposed_tiles(packed, tiles, tile_rows):
     return At
 
 
+def k2_swizzle(k):
+    """Column c of row k of K2's shared-memory Phi and A tiles lies at
+    c ^ k2_swizzle(k) (``csrc/bucket_matmul.cu`` ``swizzle``)."""
+    return (k & 3) << 2
+
+
+def k2_staging_stride(wn):
+    """Row stride, in doubles, of a warp's C staging area for a warp tile of
+    ``wn`` points: 8 mod 16 (``staging_stride``)."""
+    return (wn + 15) // 16 * 16 + 8
+
+
+def swizzled_tiles(At):
+    """K2's A operand: the transposed row tiles ``At`` (ntiles, kpad, 64)
+    with row k's column m at m ^ k2_swizzle(k), the kernel's shared-memory
+    layout, so that a chunk of rows is one contiguous copy (C-contiguous)."""
+    k = np.arange(At.shape[1])[:, None]
+    return np.ascontiguousarray(np.take_along_axis(
+        At, (np.arange(At.shape[2])[None, :] ^ k2_swizzle(k))[None], axis=2))
+
+
 class BucketMatmul:
     """``mm = BucketMatmul([A_g ...], device)``; ``C = mm(phi)`` is the
     (sum_g rows_g, npts) float64 stack of A_g @ phi[:K_g], K_g =
     A_g.shape[1]; ``mm.views(C)`` gives the per-group blocks (views).
 
-    The rows of all groups are packed back to back, zero-padded to the
-    widest K, and cut into 64-row tiles, each contracting up to the widest
-    row it holds (the padding is exact zeros): one launch covers every
-    group, up to the widest K the kernel's shared memory takes (438,
-    ``csrc/bucket_matmul.cu`` ``plan``, which refuses wider ones).  The
-    kernel reads the tiles transposed (``At``, on the device); the packed
-    rows ``A`` serve the plain version only and live where it last ran.
+    The rows of all groups are packed back to back, zero-padded to ``kpad``
+    (the widest K rounded up to the MMA's depth, 4), and cut into 64-row
+    tiles, each contracting up to the widest row it holds, rounded up to
+    that depth (the padding is exact zeros): one launch covers every group.
+    ``plan`` is the kernel's (point tile, rows of an A chunk, chunks in the
+    ring, blocks an SM holds), or None past the widest K whose Phi tile a
+    block's shared memory takes beside a ring of A chunks (792); such a
+    width raises at the launch.  The kernel reads the tiles transposed and
+    swizzled (``At``, ``swizzled_tiles``, on the device); the packed rows
+    ``A`` serve the plain version only and live where it last ran.
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
 
     #: rows of one kernel tile (csrc/bucket_matmul.cu, TR)
     TILE_ROWS = 64
+    #: a block's warps, WARPS_N of them along the points: a warp
+    #: tile is TILE_ROWS / (WARPS / WARPS_N) rows by point tile / WARPS_N
+    #: points
+    WARPS, WARPS_N = 8, 4
+    #: rows of C a warp stages at a time (SLAB), the most A chunks in the
+    #: ring and the fewest
+    SLAB, STAGES, MIN_STAGES = 8, 4, 2
+    #: point tiles, widest first, and the fewest A rows worth a chunk
+    POINT_TILES = (128, 64, 32)
+    KC_MIN = 16
+    #: the most row tiles for which a narrow contraction takes the
+    #: narrowest point tile
+    FEW_TILES = 16
+    #: shared memory a block may take on sm_90, an SM's, and what the SM
+    #: keeps for each resident block
+    SMEM_MAX, SMEM_SM, SMEM_BLOCK = 232448, 233472, 1024
+    #: the depth of the MMA (mma.sync m16n8k4)
+    DEPTH = 4
 
     def __init__(self, mats, device=None):
         self.device = resolve_device(device)
         packed, tiles, self.K, self.rows, self.offsets = pack_rows(mats, self.TILE_ROWS)
         self.total_rows, self.max_k = packed.shape
+        self.kpad = max(1, -(-self.max_k // self.DEPTH)) * self.DEPTH
+        self.plan = self.plan_for(self.kpad, len(tiles))
         self.A = torch.as_tensor(packed)
-        self.At = torch.as_tensor(transposed_tiles(packed, tiles, self.TILE_ROWS),
-                                  device=self.device)
+        At = np.pad(transposed_tiles(packed, tiles, self.TILE_ROWS),
+                    ((0, 0), (0, self.kpad - self.max_k), (0, 0)))
+        self.At = torch.as_tensor(swizzled_tiles(At), device=self.device)
         self.tiles = torch.as_tensor(tiles, device=self.device)
         self.device = self.At.device       # "cuda" resolved to its index
         self.launches = 0
+
+    @classmethod
+    def smem_bytes(cls, kpad, tp, kc, stages):
+        """Shared memory of a block: the Phi tile, a ring of ``stages`` A
+        chunks, every warp's C staging area, and the ring's two mbarriers
+        and counter a buffer (``smem_doubles``)."""
+        staging = cls.WARPS * cls.SLAB * k2_staging_stride(tp // cls.WARPS_N)
+        return 8 * (kpad * tp + stages * kc * cls.TILE_ROWS + staging + 3 * cls.STAGES)
+
+    @classmethod
+    def fit(cls, kpad, tp, blocks):
+        """(tp, A chunk rows, chunks in the ring, blocks) with the widest
+        chunk, a multiple of DEPTH up to kpad, that MIN_STAGES of leave room
+        for beside the Phi tile and staging in the shared memory of
+        ``blocks`` blocks an SM, and as many of those chunks as fit, up to
+        STAGES; None if that chunk is under ``min(kpad, KC_MIN)`` rows."""
+        chunk = 8 * cls.TILE_ROWS                 # bytes of one row of k in a chunk
+        budget = min(cls.SMEM_MAX, cls.SMEM_SM // blocks - cls.SMEM_BLOCK)
+        free = budget - cls.smem_bytes(kpad, tp, 0, 0)
+        kc = min(kpad, max(0, free) // (cls.MIN_STAGES * chunk) // cls.DEPTH * cls.DEPTH)
+        if kc < min(kpad, cls.KC_MIN):
+            return None
+        return tp, kc, min(cls.STAGES, free // (kc * chunk)), blocks
+
+    @classmethod
+    def plan_for(cls, kpad, ntiles):
+        """(point tile, A chunk rows, chunks in the ring, blocks an SM
+        holds) for a contraction padded to ``kpad`` over ``ntiles`` row
+        tiles.  A narrow contraction, one whose 128-point tile fits two
+        blocks an SM with A's whole width in one chunk (kpad <= 44), runs
+        two blocks an SM (registers capped to let them), so that one block's
+        Phi loads and C stores overlap the other's products; its point tile
+        is the narrowest (more, shorter blocks, whose fill and drain weigh
+        most when a block walks few row tiles) for at most FEW_TILES row
+        tiles, else the widest (whole-line stores of C).  Any other runs one
+        block an SM on the widest point tile that ``fit`` takes (fewer,
+        wider chunks: each chunk is a wait on the ring).  None if no point
+        tile leaves room."""
+        narrow = cls.fit(kpad, cls.POINT_TILES[0], 2)
+        if narrow is not None and narrow[1] == kpad:
+            tp = cls.POINT_TILES[-1 if ntiles <= cls.FEW_TILES else 0]
+            return cls.fit(kpad, tp, 2)
+        for tp in cls.POINT_TILES:
+            plan = cls.fit(kpad, tp, 1)
+            if plan is not None:
+                return plan
+        return None
 
     def _check(self, phi):
         if not isinstance(phi, torch.Tensor):
@@ -119,16 +211,20 @@ class BucketMatmul:
             return self.plain(phi)
         if phi.device.type != "cuda" or phi.device != self.device:
             raise ValueError(f"phi on {phi.device}, engine on {self.device}")
+        if self.plan is None:
+            raise RuntimeError(
+                f"fiat_bucket_matmul (contraction width {self.max_k}): a block's "
+                f"{self.SMEM_MAX} bytes of shared memory take no Phi tile of {self.kpad} rows "
+                f"beside the ring of A chunks and the C staging")
         npts = phi.shape[1]
         C = torch.empty((self.total_rows, npts), dtype=torch.float64, device=phi.device)
         if npts == 0:
             return C
         lib = load_kernels()
-        err = lib.fiat_bucket_matmul(self.At.data_ptr(), self.max_k, self.tiles.data_ptr(),
-                                     self.tiles.shape[0], phi.data_ptr(), npts, npts,
-                                     C.data_ptr(), stream_of(phi))
-        # a contraction width past what shared memory takes is refused here,
-        # by the C entry
+        tp, kc, stages, blocks = self.plan
+        err = lib.fiat_bucket_matmul(self.At.data_ptr(), self.kpad, self.max_k, tp, kc, stages,
+                                     blocks, self.tiles.data_ptr(), self.tiles.shape[0],
+                                     phi.data_ptr(), npts, npts, C.data_ptr(), stream_of(phi))
         check_launch(f"fiat_bucket_matmul (contraction width {self.max_k})", err)
         self.launches += 1
         return C

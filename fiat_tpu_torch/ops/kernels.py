@@ -44,8 +44,8 @@ SIGNATURES = {
     "fiat_dubiner3_values": [_P, _I, _P, _P, *[_D] * 12, _D, _I, _P, _P],
     # pts, npts, sd, degree, bary, coef, out, stream
     "fiat_bernstein_features": [_P, _I, _I, _I, _P, _P, _P, _P],
-    # At, kmax, tiles, ntiles, phi, ldphi, npts, C, stream
-    "fiat_bucket_matmul": [_P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # At, kpad, kmax, tp, kc, stages, minb, tiles, ntiles, phi, ldphi, npts, C, stream
+    "fiat_bucket_matmul": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     # pts, npts, sd, consts, slots, affine[12] (host array), scale, tol, degree,
     # maps, progs, pieces, chunks, nchunks, rc, cpb, sub, phi_at, A, K, out,
     # stream (in f64 / in f32)

@@ -61,12 +61,13 @@ def test_bucket_matmul_kernel_matches_plain(cuda, npts, offset):
 
 
 def test_bucket_matmul_kernel_raises_past_its_shared_memory(cuda):
-    """Contraction width 439 leaves no room for an A chunk beside a 64-point
-    Phi tile in a block's shared memory: the C entry's error surfaces as a
-    raise, with no launch."""
-    mm = BucketMatmul([np.ones((4, 439))], cuda)
-    with pytest.raises(RuntimeError, match="contraction width 439"):
-        mm(torch.ones((439, 256), dtype=torch.float64, device=cuda))
+    """Contraction width 793 leaves no room for a ring of two 16-row A
+    chunks and the C staging beside a 32-point Phi tile in a block's shared
+    memory: the launch raises, naming the width, and launches nothing."""
+    mm = BucketMatmul([np.ones((4, 793))], cuda)
+    assert mm.plan is None
+    with pytest.raises(RuntimeError, match="contraction width 793"):
+        mm(torch.ones((793, 256), dtype=torch.float64, device=cuda))
     assert mm.launches == 0
     # the refused launch leaves no error behind for the next one to report
     ok = BucketMatmul([np.ones((4, 10))], cuda)
@@ -292,8 +293,9 @@ def test_tet_recurrence_kernel_matches_plain(cuda, degree):
 @pytest.mark.parametrize("npts", [1077, 1024])
 @pytest.mark.parametrize("widths", [(165, 4, 20, 10), (300, 35), (438,)])
 def test_wide_bucket_matmul_kernel_matches_plain(cuda, npts, widths):
-    """Contraction widths past 151 (the A tile in chunks; past 219 the
-    64-point tile) mixed with narrow groups, in one launch."""
+    """Contraction widths past 104 (the A tile in chunks; past 188 the
+    64-point tile, past 396 the 32-point one) mixed with narrow groups, in
+    one launch."""
     rng = np.random.default_rng(sum(widths))
     mats = [rng.standard_normal((67 + 13 * i, k)) for i, k in enumerate(widths)]
     mm = BucketMatmul(mats, cuda)
@@ -304,6 +306,140 @@ def test_wide_bucket_matmul_kernel_matches_plain(cuda, npts, widths):
     want = mm.plain(phi)
     for g, w in zip(mm.views(got), mm.views(want)):
         assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-13
+
+
+# -- K2 on the FP64 tensor cores (mma.sync m16n8k4) ------------------------------
+
+def _k2_matches_plain(mm, phi, exact=False):
+    """One launch of K2 against its plain version on the same Phi: bit for
+    bit, or per group within 1e-13 of the group's max |plain|."""
+    got = mm(phi)
+    torch.cuda.synchronize()
+    assert mm.launches == 1
+    want = mm.plain(phi)
+    if exact:
+        assert torch.equal(got, want)
+        return
+    assert bool(torch.isfinite(got).all())
+    for g, w in zip(mm.views(got), mm.views(want)):
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-13 * scale
+
+
+def _phi_before_nan(rng, rows, npts, cuda, offset=0):
+    """A (rows, npts) Phi followed in memory by NaN (and starting ``offset``
+    doubles into its buffer): a kernel that reads past Phi's rows, or
+    multiplies uninitialised shared memory, returns NaN."""
+    buf = torch.full((offset + (rows + 8) * npts,), float("nan"), dtype=torch.float64,
+                     device=cuda)
+    phi = buf[offset:offset + rows * npts].view(rows, npts)
+    phi.copy_(torch.as_tensor(rng.standard_normal((rows, npts))))
+    return phi
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 66, 165, 167, 438])
+def test_dmma_bucket_matmul_widths(cuda, width):
+    """Contraction widths that are not a multiple of the MMA's depth, the
+    widest group beside a one-column one, on a Phi of exactly ``width``
+    rows followed by NaN: the rows past it are zeros in shared memory."""
+    rng = np.random.default_rng(width)
+    mats = [rng.standard_normal((70, width)), rng.standard_normal((9, 1))]
+    mm = BucketMatmul(mats, cuda)
+    assert mm.kpad % 4 == 0 and mm.kpad - width < 4
+    _k2_matches_plain(mm, _phi_before_nan(rng, width, 1077, cuda))
+
+
+def test_dmma_bucket_matmul_ragged_row_tiles(cuda):
+    """Row counts of 1 to 129: tiles of 1 to 64 rows that end inside an
+    MMA tile, a warp tile or an 8-row staging slab."""
+    rng = np.random.default_rng(12)
+    for rows in (1, 2, 7, 8, 9, 15, 16, 17, 31, 33, 47, 63, 64, 65, 127, 129):
+        mm = BucketMatmul([rng.standard_normal((rows, 21))], cuda)
+        _k2_matches_plain(mm, torch.as_tensor(rng.standard_normal((21, 333)), device=cuda))
+
+
+@pytest.mark.parametrize("npts,offset", [(0, 0), (1, 0), (127, 0), (1077, 0), (1024, 1),
+                                         (1077, 1)])
+def test_dmma_bucket_matmul_point_counts(cuda, npts, offset):
+    """No point, one, a point tile short of one, a ragged last tile, and a
+    Phi that starts off 16-byte alignment (the scalar paths)."""
+    rng = np.random.default_rng(npts + offset)
+    mats = [rng.standard_normal((r, k)) for r, k in ((18, 3), (200, 66), (65, 21), (1, 10))]
+    mm = BucketMatmul(mats, cuda)
+    phi = _phi_before_nan(rng, 66, npts, cuda, offset)
+    if npts:
+        _k2_matches_plain(mm, phi)
+    else:
+        assert tuple(mm(phi).shape) == (mm.total_rows, 0) and mm.launches == 0
+
+
+@pytest.mark.parametrize("widths", [(3, 66), (165,), (3, 66, 165, 438)])
+def test_dmma_bucket_matmul_is_exact_on_integers(cuda, widths):
+    """Integer A and Phi in [-8, 8]: every partial sum is an integer below
+    2^53, exact in f64 whatever the order, so the kernel must equal the
+    plain version bit for bit and a fragment-layout error cannot hide under
+    1e-13.  Point tiles of 128 (K <= 165) and 32 (K 438)."""
+    rng = np.random.default_rng(len(widths))
+    mats = [rng.integers(-8, 9, (37 + 29 * i, k)).astype(np.float64)
+            for i, k in enumerate(widths)]
+    mm = BucketMatmul(mats, cuda)
+    phi = torch.as_tensor(rng.integers(-8, 9, (max(widths), 1077)).astype(np.float64),
+                          device=cuda)
+    _k2_matches_plain(mm, phi, exact=True)
+
+
+def test_dmma_bucket_matmul_widest(cuda):
+    """The widest contraction the plan takes (792) runs, on a 32-point tile
+    and two 16-row A chunks: the host's shared-memory sum is the entry's."""
+    width = 792
+    assert BucketMatmul.plan_for(width + 4, 2) is None
+    rng = np.random.default_rng(width)
+    mm = BucketMatmul([rng.standard_normal((80, width))], cuda)
+    assert mm.plan == (32, 16, 2, 1)
+    _k2_matches_plain(mm, torch.as_tensor(rng.standard_normal((width, 300)), device=cuda))
+
+
+@pytest.mark.parametrize("tp", [128, 64, 32])
+@pytest.mark.parametrize("blocks", [1, 2])
+def test_dmma_bucket_matmul_every_instantiation(cuda, tp, blocks):
+    """Each point tile built for one and for two blocks an SM, forced on a
+    narrow zoo of 1100 rows (the plan takes most of them only at other
+    widths or row counts, and 64 points on two blocks never), bit for bit
+    on integers."""
+    rng = np.random.default_rng(tp + blocks)
+    mats = [rng.integers(-8, 9, (r, k)).astype(np.float64) for r, k in ((900, 20), (200, 7))]
+    mm = BucketMatmul(mats, cuda)
+    mm.plan = BucketMatmul.fit(mm.kpad, tp, blocks)
+    assert mm.plan[1] == mm.kpad == 20
+    _k2_matches_plain(mm, torch.as_tensor(rng.integers(-8, 9, (20, 1077)).astype(np.float64),
+                                          device=cuda), exact=True)
+
+
+def test_bucket_matmul_entry_refuses_a_plan_past_shared_memory(cuda):
+    """The C entry checks the host's plan: a Phi tile and ring of A chunks
+    that do not fit a block's shared memory (or two blocks' an SM), a point
+    tile it has no kernel for, a chunk or kpad that is not a multiple of
+    the MMA's depth, a ring of other than 2 to 4 chunks, or other than 1
+    or 2 blocks an SM, is refused with cudaErrorInvalidValue, launching
+    nothing."""
+    from fiat_tpu_torch.ops.kernels import load_kernels, stream_of
+    mm = BucketMatmul([np.ones((64, 208))], cuda)
+    assert (mm.kpad, mm.plan) == (208, (64, 108, 2, 1))
+    phi = torch.ones((208, 256), dtype=torch.float64, device=cuda)
+    C = torch.zeros((64, 256), dtype=torch.float64, device=cuda)
+    lib = load_kernels()
+    for kpad, tp, kc, stages, minb in ((208, 128, 16, 2, 1), (208, 64, 56, 4, 1),
+                                       (208, 96, 16, 4, 1), (208, 64, 50, 2, 1),
+                                       (210, 64, 52, 2, 1), (208, 64, 16, 5, 1),
+                                       (208, 64, 16, 1, 1), (208, 64, 16, 2, 2),
+                                       (208, 64, 16, 2, 0), (208, 64, 16, 2, 3)):
+        err = lib.fiat_bucket_matmul(mm.At.data_ptr(), kpad, mm.max_k, tp, kc, stages, minb,
+                                     mm.tiles.data_ptr(), mm.tiles.shape[0], phi.data_ptr(), 256,
+                                     256, C.data_ptr(), stream_of(phi))
+        assert err == 1                 # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert C.abs().max().item() == 0.0
+    _k2_matches_plain(mm, phi)
 
 
 @pytest.mark.parametrize("sd,degree", [(1, 0), (1, 15), (2, 1), (2, 7), (2, 15), (3, 0),
