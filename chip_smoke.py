@@ -55,22 +55,26 @@ Drives the port's main paths once each at their real size, at 1e5 points
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
 gives it, checks that each path launched every kernel of it (exactly once
-from phase 2 on), checks the result against host tabulation, and times the
-kernel path against the plain path with CUDA events.
+from phase 2 on; K45's calls, in the profiler's trace, launch nothing
+else, and K45's resident warps an SM are printed), checks the result
+against host tabulation, and times the kernel path against the plain path
+with CUDA events.
 
 Usage (from the repository root, on a machine with a CUDA card):
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k3-cells ROOT   # K3 alone per cell, package at ROOT
     python3 chip_smoke.py --k2-cells ROOT   # K2 alone per cell, package at ROOT
+    python3 chip_smoke.py --k45-cells ROOT  # K45 alone per cell, package at ROOT
 
-Prints the card's name and power limit, the build time, K3's and K2's
-registers by instantiation and the spills, the DMMA instructions in each
-of K2's instantiations (it fails where one has none), one line per step,
+Prints the card's name and power limit, the build time, K3's, K45's and
+K2's registers by instantiation and the spills, the DMMA instructions in
+each of K2's instantiations (it fails where one has none), one line per step,
 a JSON line ``{"kernels": [...]}`` (K1, K2 and K3 measured on
 ``full_zoo``, K45 on the moments phase with K3 on its interpolation, K6
-on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7 on ``sv_macro_tet``, K45 and K6 at sd = 3 on phase 7's
-cells, K3's sd = 3 stage on phase 8's and K3 on the C1 zoos (order 1, 2
+on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7
+on ``sv_macro_tet``, K45 at sd = 3 on phase 7's three cells and K6 at sd =
+3 on two, K3's sd = 3 stage on phase 8's and K3 on the C1 zoos (order 1, 2
 and 3), each with its bound: the larger of its bytes over the HBM rate and
 its operations over the peak rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -121,16 +125,17 @@ def card_line():
 
 def ptxas_entries(log):
     """Per kernel entry function in nvcc's ``-Xptxas -v`` output: [mangled
-    name, registers, spill stores, spill loads (bytes)]."""
+    name, registers, spill stores, spill loads, stack frame (bytes)]."""
     rows = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            rows.append([m.group(1), None, 0, 0])
+            rows.append([m.group(1), None, 0, 0, 0])
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
         if rows and m:
-            rows[-1][2:] = int(m.group(1)), int(m.group(2))
+            rows[-1][2:] = int(m.group(2)), int(m.group(3)), int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if rows and m:
             rows[-1][1] = int(m.group(1))
@@ -149,13 +154,18 @@ def k2_instance(name):
 
 def print_ptxas(log):
     """The registers of K3's instantiations by (sd, chunk height, type),
-    degree 0 to 10, K2's registers and spills by instantiation, and every
-    kernel that spills."""
+    degree 0 to 10, K45's by sd, degree 0 to 10, K2's registers and spills
+    by instantiation, and every kernel that spills."""
     if not log:
         print("ptxas: no build log (a matching build existed)")
         return
-    k3, k2, spills = {}, [], []
-    for name, regs, st, ld in ptxas_entries(log):
+    k3, k45, k2, spills = {}, {}, [], []
+    for name, regs, st, ld, frame in ptxas_entries(log):
+        m = re.search(r"pair_moments_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            sd, n = int(m.group(1)), int(m.group(2))
+            k45.setdefault(sd, {})[n] = (regs, frame)
+            name = f"K45 sd {sd} degree {n}"
         m = re.search(r"macro_oneshot_kernelILi(\d+)ELi(\d+)ELi(\d+)E([df])", name)
         if m:
             sd, n, rc, t = int(m.group(1)), int(m.group(2)), int(m.group(3)), m.group(4)
@@ -169,6 +179,9 @@ def print_ptxas(log):
     for (sd, rc, t), regs in sorted(k3.items()):
         print(f"ptxas K3 sd {sd} RC {rc} {t}: registers by degree "
               f"{[regs.get(n) for n in range(11)]}")
+    for sd, by_n in sorted(k45.items()):
+        print(f"ptxas K45 sd {sd}: (registers, stack frame bytes) by degree "
+              f"{[by_n.get(n) for n in range(11)]}")
     print(f"ptxas {'; '.join(sorted(k2))}")
     print(f"ptxas spill stores/loads: {spills if spills else 'none'}")
 
@@ -240,6 +253,33 @@ def device_ms(fn, torch, calls=INNER):
     total = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA)
     return total / calls / 1000 if total else None
+
+
+def device_kernels(fn, torch):
+    """{kernel name: launches} of one fn() call, from torch.profiler's CUDA
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.count}
+
+
+def check_k45_alone(name, pm, P, wf, torch):
+    """K45's wrapper launches its kernel and nothing else (the blocks'
+    partials are summed inside that launch; its counter holds it to one
+    launch a call): no other kernel in the profiler's trace of INNER calls
+    (which may drop an event); prints the resident warps an SM."""
+    kernels = device_kernels(lambda: [pm(P, wf) for _ in range(INNER)], torch)
+    if not kernels or any("pair_moments" not in k or n > INNER for k, n in kernels.items()):
+        fail(f"{name}: a K45 call must launch K45 alone, got {kernels} in {INNER} calls")
+    print(f"{name} K45: one launch a call, nothing else on the card; {pm.warps} warps a "
+          f"block, {pm.blocks_per_sm} blocks = {pm.resident_warps} resident warps an SM "
+          f"({pm.smem} bytes of shared memory a block)")
 
 
 def host_ms(fn, torch, reps=REPS, inner=INNER):
@@ -605,6 +645,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
 
     k45_abs = check_kernel(f"K45 pair moments ({pm.rows} sums over {NPTS} points)",
                            pm(P, wf), pm.plain(P, wf), torch)
+    check_k45_alone("full_zoo", pm, P, wf, torch)
     W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
     w_abs = check_kernel(f"K3 one row per program ({W.shape[0]} x {W.shape[1]}, interpolation)",
                          m3(P, A=W), m3.plain(P, A=W), torch)
@@ -683,6 +724,14 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
             entry("K3 macro_oneshot (full_zoo interpolation, one row per program)",
                   "fiat_tpu_torch/csrc/macro_oneshot.cu", "fiat_tpu/ops/pallas_multiword.py:652",
                   w_launches, w_abs, w_ms, w_plain, w_bound, w_lib)]
+
+
+def plain_in_slices(pm, P, wf):
+    """K45's plain version over slices of STACK_SLICE points, summed in
+    slice order: the same moments with the plain recurrence's temporaries
+    kept small."""
+    return sum(pm.plain(P[s:s + STACK_SLICE], wf[s:s + STACK_SLICE])
+               for s in range(0, P.shape[0], STACK_SLICE))
 
 
 def stack_mv_ms(pm, P, wf, torch, **timing):
@@ -1061,10 +1110,10 @@ def tet_dual_f32_phase(dev, card, engines64, torch, np):
                  f"{pm.rows} over {len(pm.piece_nexp)} in {len(pm.geom)}")
         print(f"{name} dual host construction: {len(zoo)} elements, {eng.rows} rows, K45 "
               f"{pm.rows} sums (degree {pm.degree}: {pm.nplain} plain + {pm.rows - pm.nplain} "
-              f"masked over {len(pm.piece_nexp)} subcells), {pm.blocks_per_sm} resident blocks "
-              f"an SM, {time.perf_counter() - t0:.2f} s")
+              f"masked over {len(pm.piece_nexp)} subcells), {time.perf_counter() - t0:.2f} s")
         k45_abs = check_kernel(f"{name} K45 sd 3 ({pm.rows} sums over {NPTS} points)",
                                pm(P, wf), pm.plain(P, wf), torch)
+        check_k45_alone(name, pm, P, wf, torch)
 
         engines = {"K45": pm, "K1": rec}
         M, launches = counted(engines, lambda: mo.moment_rows(bt, P, wf), torch)
@@ -1097,19 +1146,16 @@ def tet_dual_f32_phase(dev, card, engines64, torch, np):
               + ("" if macro else f", interpolate_rows {int_ms:.4f} ms")
               + f"; K45 {k45_ms:.4f} ms (plain {k45_plain:.4f}, one DGEMV on its stack built "
               f"beforehand {k45_lib:.4f}, bound {bound[0]:.4f} by {bound[1]})")
-        if name != "hdiv_hcurl_tet":
-            kernels.append(entry(f"K45 pair_moments sd 3 ({name})", src + "moments.cu",
-                                 k45_replaces, k45_launches, k45_abs, k45_ms, k45_plain, bound,
-                                 k45_lib))
+        kernels.append(entry(f"K45 pair_moments sd 3 ({name})", src + "moments.cu",
+                             k45_replaces, k45_launches, k45_abs, k45_ms, k45_plain, bound,
+                             k45_lib))
         if name == "tet_lagrange8":
             # 1e7 points: points and weights (320 MB) stream from HBM; the
-            # plain version holds the first 1e6 (its Phi alone at 1e7 is 13 GB)
+            # plain version runs in slices of 1e6 (its Phi alone at 1e7 is 13 GB)
             big = torch.as_tensor(make_points(BIG_NPTS, SEED + 1, np, sd=3), device=dev)
             wbig = torch.as_tensor(np.random.default_rng(8).random(BIG_NPTS), device=dev)
-            head = BIG_NPTS // 10
-            check_kernel(f"tet_lagrange8 K45 sd 3 ({pm.rows} sums over the first {head} of "
-                         f"{BIG_NPTS} points)", pm(big[:head], wbig[:head]),
-                         pm.plain(big[:head], wbig[:head]), torch)
+            check_kernel(f"tet_lagrange8 K45 sd 3 ({pm.rows} sums over {BIG_NPTS} points)",
+                         pm(big, wbig), plain_in_slices(pm, big, wbig), torch)
             big_ms = median_ms(lambda: pm(big, wbig), torch, reps=5, inner=4)
             big_bound = moments_bound(pm, BIG_NPTS)
             torch.cuda.reset_peak_memory_stats()
@@ -1497,6 +1543,53 @@ def k2_cells(dev, card, torch, np, own):
                cells, card, torch, own)
 
 
+def k45_cells(dev, card, torch, np, own):
+    """``python3 chip_smoke.py --k45-cells ROOT``: K45 alone, one call of its
+    wrapper, in every cell that runs it (full_zoo and tet_lagrange8 at 1e5
+    and 1e7 points, hdiv_hcurl_tet and sv_macro_tet at 1e5; the main run's
+    points and weights), on the fiat_tpu_torch package of the checkout at
+    ROOT.  Prints {"k45_cells": {cell: [ms, device ms, DGEMV ms, bound ms,
+    device ms / bound, resident warps an SM, host ms]}}: CUDA events, the
+    profiler's device time of every kernel the call launches, one cuBLAS
+    DGEMV of its stack built beforehand (this checkout's runs only; None for
+    another's), the resident warps (None where the package does not report
+    them) and the host's time to issue one call."""
+    from fiat_tpu_torch import ufc_simplex
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    T, T3 = ufc_simplex(2), ufc_simplex(3)
+    lag8, hdiv = tet_zoos(T3)
+    engines = {}
+
+    def k45(name, make_zoo, sd, n):
+        if name not in engines:
+            engines[name] = mo.moment_engine(BatchedTabulator(make_zoo(), order=0,
+                                                              device=dev)).moments
+        pm = engines[name]
+        big = n == BIG_NPTS
+        P = torch.as_tensor(make_points(n, SEED + big, np, sd=sd), device=dev)
+        wf = torch.as_tensor(np.random.default_rng(8 if big else 7).random(n), device=dev)
+
+        def more(ev, dev_ms):
+            lib = stack_mv_ms(pm, P, wf, torch, **({"reps": 5, "inner": 4} if big else {})) \
+                if own else None
+            bound = moments_bound(pm, n)[0]
+            return [lib, bound, (dev_ms or ev) / bound, getattr(pm, "resident_warps", None),
+                    host_ms(lambda: pm(P, wf), torch)]
+        return lambda: pm(P, wf), more
+
+    cells = {
+        "full_zoo": lambda: k45("full_zoo", lambda: full_zoo(T), 2, NPTS),
+        "full_zoo 1e7": lambda: k45("full_zoo", lambda: full_zoo(T), 2, BIG_NPTS),
+        "tet_lagrange8": lambda: k45("tet_lagrange8", lambda: lag8, 3, NPTS),
+        "tet_lagrange8 1e7": lambda: k45("tet_lagrange8", lambda: lag8, 3, BIG_NPTS),
+        "hdiv_hcurl_tet": lambda: k45("hdiv_hcurl_tet", lambda: hdiv, 3, NPTS),
+        "sv_macro_tet": lambda: k45("sv_macro_tet", lambda: sv_macro_tet(T3), 3, NPTS)}
+    time_cells("k45_cells", "one cuBLAS DGEMV on its stack ms; bound ms; device / bound; "
+               "resident warps an SM; host ms a call", cells, card, torch, own)
+
+
 def main():
     try:
         import torch
@@ -1505,7 +1598,7 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     here = root = Path(__file__).resolve().parent
-    modes = {"--k3-cells": k3_cells, "--k2-cells": k2_cells}
+    modes = {"--k3-cells": k3_cells, "--k2-cells": k2_cells, "--k45-cells": k45_cells}
     mode = next((m for m in modes if m in sys.argv), None)
     if mode:
         root = Path(sys.argv[sys.argv.index(mode) + 1]).resolve()

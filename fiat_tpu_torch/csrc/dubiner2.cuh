@@ -17,7 +17,8 @@
 // differ only in their constants; the "bubble" C0 recovery is not part of
 // the recurrence (the f32 engine folds it into its change of basis).
 //
-// Constant layout (ops/recurrence.py:pack_stages), in T:
+// Constant layout (ops/recurrence.py:pack_stages), in T (a pointer or a
+// ConstTable, below):
 //   consts[4*i + {0,1,2,3}], i = 0..N          stage 0: a, b, c, norm
 //   consts[4*(N+1) + 4*e + {0,1,2,3}]          stage 1 entry e: a, b, c, norm
 // N == 0 calls emit(0, 0, 0, scale) and reads no constants.
@@ -33,12 +34,25 @@ struct Nexp {
   static constexpr int value = (N + 1) * (N + 2) / 2;
 };
 
+// A table of the recurrence's constants: a device pointer, read through the
+// read-only cache, or an array held in the kernel's parameters (K45), whose
+// entries at compile-time offsets are constant-bank operands and cost no
+// load instruction.
+template <class T, int M>
+struct ConstTable {
+  T v[M];
+};
+template <class T>
+__device__ __forceinline__ T const_at(const T* __restrict__ p, int i) { return __ldg(p + i); }
+template <class T, int M>
+__device__ __forceinline__ T const_at(const ConstTable<T, M>& t, int i) { return t.v[i]; }
+
 __device__ __forceinline__ double fma_of(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
 
-template <int N, class T, class Emit>
-__device__ __forceinline__ void dubiner2_point(T x0, T x1, const T* __restrict__ consts,
-                                               T scale, Emit&& emit) {
+template <int N, class T, class Consts, class Emit>
+__device__ __forceinline__ void dubiner2_point(T x0, T x1, const Consts& consts, T scale,
+                                               Emit&& emit) {
   if constexpr (N == 0) {
     emit(0, 0, 0, scale);
   } else {
@@ -50,12 +64,13 @@ __device__ __forceinline__ void dubiner2_point(T x0, T x1, const T* __restrict__
       const T fa = x0 + fb + one;
       const T fc = fb * fb;
       T prev2 = T(0), prev = scale;
-      r1[0] = prev * __ldg(consts + 3);
+      r1[0] = prev * const_at(consts, 3);
 #pragma unroll
       for (int i = 1; i <= N; ++i) {
-        const T* c = consts + 4 * i;
-        const T v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
-        r1[i] = v * __ldg(c + 3);
+        const int c = 4 * i;
+        const T v = (const_at(consts, c) * fa - const_at(consts, c + 1) * fb) * prev -
+                    (const_at(consts, c + 2) * fc) * prev2;
+        r1[i] = v * const_at(consts, c + 3);
         prev2 = prev;
         prev = v;
       }
@@ -66,18 +81,19 @@ __device__ __forceinline__ void dubiner2_point(T x0, T x1, const T* __restrict__
     const T fb = half * (-one + -one);
     const T fa = x1 + fb + one;
     const T fc = fb * fb;
-    const T* c1 = consts + 4 * (N + 1);
+    constexpr int c1 = 4 * (N + 1);
     int e = 0;
 #pragma unroll
     for (int r = 0; r <= N; ++r) {
       T prev2 = T(0), prev = r1[r];
-      emit(e, r, 0, prev * __ldg(c1 + 4 * e + 3));
+      emit(e, r, 0, prev * const_at(consts, c1 + 4 * e + 3));
       ++e;
 #pragma unroll
       for (int i = 1; i <= N - r; ++i, ++e) {
-        const T* c = c1 + 4 * e;
-        const T v = (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
-        emit(e, r, i, v * __ldg(c + 3));
+        const int c = c1 + 4 * e;
+        const T v = (const_at(consts, c) * fa - const_at(consts, c + 1) * fb) * prev -
+                    (const_at(consts, c + 2) * fc) * prev2;
+        emit(e, r, i, v * const_at(consts, c + 3));
         prev2 = prev;
         prev = v;
       }

@@ -21,7 +21,8 @@
 // parameter and the loops unrolled, the entry counters are compile-time
 // constants, so the constant loads carry immediate offsets.
 //
-// Constant layout (ops/recurrence.py:pack_stages(N, variant, sd=3)), in T:
+// Constant layout (ops/recurrence.py:pack_stages(N, variant, sd=3)), in T (a
+// pointer or a ConstTable, dubiner2.cuh):
 //   consts[4*i + {0,1,2,3}], i = 0..N              stage 0: a, b, c, norm
 //   consts[4*(N+1) + 4*e1 + {0,1,2,3}]            stage 1 entry e1 (p, q)
 //   consts[4*(N+1) + 4*nexp2 + 4*e + {0,1,2,3}]   stage 2 entry e (p, q, r)
@@ -32,19 +33,22 @@
 
 #include <cuda_runtime.h>
 
+#include "dubiner2.cuh"
+
 namespace fiat {
 
 // one level of a three-term recurrence: (a fa - b fb) prev - (c fc) prev2,
-// with (a, b, c) at c[0..2] (c = 0 at level 1)
-template <class T>
-__device__ __forceinline__ T dubiner_step(const T* __restrict__ c, T fa, T fb, T fc, T prev,
+// with (a, b, c) at consts[o..o+2] (c = 0 at level 1)
+template <class T, class Consts>
+__device__ __forceinline__ T dubiner_step(const Consts& consts, int o, T fa, T fb, T fc, T prev,
                                           T prev2) {
-  return (__ldg(c) * fa - __ldg(c + 1) * fb) * prev - (__ldg(c + 2) * fc) * prev2;
+  return (const_at(consts, o) * fa - const_at(consts, o + 1) * fb) * prev -
+         (const_at(consts, o + 2) * fc) * prev2;
 }
 
-template <int N, class T, class Emit>
-__device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const T* __restrict__ consts,
-                                               T scale, Emit&& emit) {
+template <int N, class T, class Consts, class Emit>
+__device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const Consts& consts, T scale,
+                                               Emit&& emit) {
   if constexpr (N == 0) {
     emit(0, scale);
   } else {
@@ -57,11 +61,11 @@ __device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const T* __rest
       const T fa = x0 + fb + one;
       const T fc = fb * fb;
       T prev2 = T(0), prev = scale;
-      r0[0] = prev * __ldg(consts + 3);
+      r0[0] = prev * const_at(consts, 3);
 #pragma unroll
       for (int i = 1; i <= N; ++i) {
-        const T v = dubiner_step(consts + 4 * i, fa, fb, fc, prev, prev2);
-        r0[i] = v * __ldg(consts + 4 * i + 3);
+        const T v = dubiner_step(consts, 4 * i, fa, fb, fc, prev, prev2);
+        r0[i] = v * const_at(consts, 4 * i + 3);
         prev2 = prev;
         prev = v;
       }
@@ -73,8 +77,8 @@ __device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const T* __rest
     const T fb2 = half * (-one + -one);
     const T fa2 = x2 + fb2 + one;
     const T fc2 = fb2 * fb2;
-    const T* c1 = consts + 4 * (N + 1);
-    const T* c2 = c1 + 4 * kNexp2;
+    constexpr int c1 = 4 * (N + 1);
+    constexpr int c2 = c1 + 4 * kNexp2;
     int e1 = 0, e = 0;
 #pragma unroll
     for (int p = 0; p <= N; ++p) {
@@ -82,23 +86,23 @@ __device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const T* __rest
       T prev2 = T(0), prev = r0[p];
 #pragma unroll
       for (int q = 0; q <= N - p; ++q, ++e1) {
-        const T* c = c1 + 4 * e1;
+        const int c = c1 + 4 * e1;
         T v = prev;
         if (q > 0) {
-          v = dubiner_step(c, fa1, fb1, fc1, prev, prev2);
+          v = dubiner_step(consts, c, fa1, fb1, fc1, prev, prev2);
           prev2 = prev;
           prev = v;
         }
         // stage 2, row (p, q): levels r = 0..N-p-q in the third
         // coordinate, each value straight to the emitter
-        T s2 = T(0), s = v * __ldg(c + 3);
-        emit(e, s * __ldg(c2 + 4 * e + 3));
+        T s2 = T(0), s = v * const_at(consts, c + 3);
+        emit(e, s * const_at(consts, c2 + 4 * e + 3));
         ++e;
 #pragma unroll
         for (int r = 1; r <= N - p - q; ++r, ++e) {
-          const T* cc = c2 + 4 * e;
-          const T w = dubiner_step(cc, fa2, fb2, fc2, s, s2);
-          emit(e, w * __ldg(cc + 3));
+          const int cc = c2 + 4 * e;
+          const T w = dubiner_step(consts, cc, fa2, fb2, fc2, s, s2);
+          emit(e, w * const_at(consts, cc + 3));
           s2 = s;
           s = w;
         }

@@ -1,0 +1,362 @@
+// K45's kernel template, its launch and its occupancy query
+// (csrc/moments.cu has the design note and the C entry points; the sd = 3
+// instantiations build from csrc/moments3.cu, beside the others).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstddef>
+
+#include "binning.cuh"
+#include "dubiner2.cuh"
+#include "dubiner3.cuh"
+
+namespace fiat::k45 {
+
+constexpr int MAX_WARPS = 8;   // the most warps a block
+constexpr int SLAB_LD = 33;    // slab row stride (doubles)
+constexpr int SLAB = 32 * SLAB_LD;
+// doubles of a warp before its piece sums: the slab, then 32 piece masks
+// and 32 hit masks (unsigned); a warp's share is rounded up to an even
+// count (ops/moment_kernel.py WARP_FIXED and warp_smem)
+constexpr int WARP_FIXED = SLAB + 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int GROUP = 16;  // blocks whose partials one block sums (ops/moment_kernel.py GROUP)
+
+// The warps a block and the blocks an SM each instantiation is built for
+// (__launch_bounds__, ops/moment_kernel.py block_warps): 8 and 3, 24 warps
+// within 80 registers a thread; the tetrahedron from degree 7, whose
+// recurrence holds more values, in blocks of 4 warps, MIN_BLOCKS_WIDE an SM.
+constexpr int MIN_BLOCKS_WIDE = 5;
+__host__ __device__ constexpr int block_warps(int sd, int n) {
+  return sd == 3 && n >= 7 ? 4 : MAX_WARPS;
+}
+__host__ __device__ constexpr int min_blocks(int sd, int n) {
+  return sd == 3 && n >= 7 ? MIN_BLOCKS_WIDE : 3;
+}
+
+__host__ __device__ constexpr int nexp_of(int sd, int n) {
+  return sd == 2 ? (n + 1) * (n + 2) / 2 : (n + 1) * (n + 2) * (n + 3) / 6;
+}
+// doubles of pack_stages(n, sd=sd): 4 per stage entry (4 at degree 0)
+__host__ __device__ constexpr int nconst_of(int sd, int n) {
+  return n == 0 ? 4 : 4 * (n + 1 + nexp_of(2, n) + (sd == 3 ? nexp_of(3, n) : 0));
+}
+__host__ __device__ constexpr int warp_doubles(int piece_rows) {
+  return (WARP_FIXED + piece_rows + 1) & ~1;
+}
+
+inline size_t smem_bytes(int warps, int piece_rows) {
+  return sizeof(double) * static_cast<size_t>(warps) * warp_doubles(piece_rows);
+}
+
+struct Params {
+  const double* pts;
+  const double* wf;
+  long long npts;
+  const int* slots;
+  double affine[12];  // the SD x SD map row-major, then its shift
+  double scale, tol;
+  int nplain;
+  const double* maps;
+  int npieces;
+  const int* progs;
+  int nprogs;
+  const int* pieces;
+  int R;
+  double* partials;  // (gridDim.x + the groups of GROUP blocks, R)
+  unsigned* tickets; // 1 + the groups: 0 before the launch, 0 after it
+  double* out;       // (R,)
+};
+
+template <int SD, int N>
+using Consts = fiat::ConstTable<double, nconst_of(SD, N)>;
+
+template <int SD, int N>
+__global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
+    pair_moments_kernel(const __grid_constant__ Params q,
+                        const __grid_constant__ Consts<SD, N> consts) {
+  constexpr int NE = nexp_of(SD, N);
+  constexpr int NCH = (NE + 31) / 32;
+  extern __shared__ double smem[];
+  __shared__ int s_off[32], s_nk[32];
+  __shared__ unsigned s_pmask[32];
+  __shared__ double s_rcp[33];
+  __shared__ bool last;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int PR = q.R - q.nplain;
+  double* slab = smem + warp * warp_doubles(PR);
+  unsigned* mq = reinterpret_cast<unsigned*>(slab + SLAB);  // piece c's points
+  unsigned* hq = mq + 32;                                    // point k's pieces
+  double* acc = slab + WARP_FIXED;  // this warp's piece sums: piece c's member j at off_c + j
+
+  // piece tables: first row, width, the mask of its program's pieces, and
+  // 1 / hits for 1..32 hits (binning.cuh's program_rule computes the same)
+  if (threadIdx.x < 32) {
+    const int c = threadIdx.x;
+    s_rcp[c + 1] = 1.0 / static_cast<double>(c + 1);
+    if (c < q.npieces) {
+      s_off[c] = __ldg(q.pieces + 2 * c);
+      s_nk[c] = __ldg(q.pieces + 2 * c + 1);
+    }
+    if (c < q.nprogs) {
+      const int c0 = __ldg(q.progs + 5 * c + 2), c1 = __ldg(q.progs + 5 * c + 3);
+      const unsigned m = (c1 - c0 >= 32 ? ~0u : (1u << (c1 - c0)) - 1u) << c0;
+      for (int k = c0; k < c1; ++k) s_pmask[k] = m;
+    }
+  }
+  for (int i = lane; i < PR; i += 32) acc[i] = 0.0;
+  __syncthreads();
+  int widest = 0;  // the widest piece's members
+  for (int c = 0; c < q.npieces; ++c) widest = max(widest, s_nk[c]);
+
+  // the plain sums of the lane's entries 32 c + lane
+  double plain[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) plain[c] = 0.0;
+  // entry 32 c + lane's member (morton row), INT_MAX past the last entry
+  auto member = [&](int c) {
+    const int e = 32 * c + lane;
+    return e < NE ? __ldg(q.slots + e) : INT_MAX;
+  };
+  bool ties = false;  // some point of the tile is shared by pieces of one program
+
+  // chunk c of the slab (the tile's weighted values) is complete: the lane
+  // adds its entry over the 32 points into its plain sum, and over each
+  // piece's points into that piece's sum
+  auto flush = [&](const int c) {
+    __syncwarp();
+    const int j = member(c);
+    const double* row = slab + lane * SLAB_LD;
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+#pragma unroll
+    for (int k = 0; k < 32; k += 4) {
+      s0 += row[k];
+      s1 += row[k + 1];
+      s2 += row[k + 2];
+      s3 += row[k + 3];
+    }
+    // a chunk none of whose members a piece reads (the pieces take the
+    // leading members, the chunks run in the recurrence's order) skips them
+    const int npieces = __any_sync(FULL, j < widest) ? q.npieces : 0;
+    for (int pc = 0; pc < npieces; ++pc) {
+      const unsigned m = mq[pc];
+      if (!m || j >= s_nk[pc]) continue;
+      double t0 = 0.0, t1 = 0.0;
+      if (!ties) {
+        // every hit takes the whole weight: two points at a time, the
+        // second read from the row's zero past the points where m runs out
+        for (unsigned mm = m; mm;) {
+          const int k0 = __ffs(mm) - 1;
+          mm &= mm - 1u;
+          const int k1 = mm ? __ffs(mm) - 1 : 32;
+          mm &= mm - 1u;
+          t0 += row[k0];
+          t1 += row[k1];
+        }
+      } else {
+        for (unsigned mm = m; mm; mm &= mm - 1u) {
+          const int k = __ffs(mm) - 1;
+          t0 += s_rcp[__popc(hq[k] & s_pmask[pc])] * row[k];
+        }
+      }
+      acc[s_off[pc] + j] += t0 + t1;
+    }
+    __syncwarp();
+    // rows past the last entry hold stale values
+    return j < INT_MAX ? (s0 + s1) + (s2 + s3) : 0.0;
+  };
+
+  double w = 0.0;
+  auto put = [&](int e, double v) {
+    slab[(e & 31) * SLAB_LD + lane] = v * w;
+    if ((e & 31) == 31 || e == NE - 1) plain[e >> 5] += flush(e >> 5);
+  };
+
+  slab[lane * SLAB_LD + 32] = 0.0;  // the zero past the points of row lane
+  const long long ntiles = (q.npts + 31) / 32;
+  for (long long t = static_cast<long long>(blockIdx.x) * warps + warp; t < ntiles;
+       t += static_cast<long long>(gridDim.x) * warps) {
+    const long long p = t * 32 + lane;
+    const bool live = p < q.npts;
+    // a lane past the last point runs the recurrence at the cell's first
+    // vertex, with no weight and no piece
+    double x[SD];
+#pragma unroll
+    for (int i = 0; i < SD; ++i) x[i] = live ? q.pts[SD * p + i] : 0.0;
+    w = live ? q.wf[p] : 0.0;
+    if (q.nprogs) {
+      unsigned hits = 0u;
+      bool tie = false;
+      if (live) {
+        const unsigned near = SD == 2 ? fiat::subcell_bits(q.maps, q.npieces, x[0], x[1], q.tol)
+                                      : fiat::subcell_bits3(q.maps, q.npieces, x[0], x[1],
+                                                            x[SD - 1], q.tol);
+        for (int g = 0; g < q.nprogs; ++g) {
+          double recip;
+          const unsigned mk = fiat::program_mask(near, q.progs, g, recip);
+          tie |= __popc(mk) > 1;
+          hits |= mk << __ldg(q.progs + 5 * g + 2);
+        }
+      }
+      ties = __any_sync(FULL, tie);
+      unsigned mine = 0u;
+      for (int c = 0; c < q.npieces; ++c) {
+        const unsigned m = __ballot_sync(FULL, (hits >> c) & 1u);
+        if (lane == c) mine = m;
+      }
+      mq[lane] = mine;
+      hq[lane] = hits;
+    }
+
+    // cell map onto the default (-1, 1) simplex, as K1's
+    double y[SD];
+#pragma unroll
+    for (int i = 0; i < SD; ++i) {
+      double v = x[0] * q.affine[SD * i];
+#pragma unroll
+      for (int k = 1; k < SD; ++k) v += x[k] * q.affine[SD * i + k];
+      y[i] = v + q.affine[SD * SD + i];
+    }
+    if constexpr (SD == 2) {
+      fiat::dubiner2_point<N>(y[0], y[1], consts, q.scale,
+                              [&](int e, int, int, double v) { put(e, v); });
+    } else {
+      fiat::dubiner3_point<N>(y[0], y[1], y[SD - 1], consts, q.scale, put);
+    }
+  }
+
+  // the block's partial: each warp's plain sums into its slab by member,
+  // then every row summed over the warps in order
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const int j = member(c);
+    if (j < q.nplain) slab[j] = plain[c];
+  }
+  __syncthreads();
+  double* part = q.partials + static_cast<size_t>(blockIdx.x) * q.R;
+  for (int r = threadIdx.x; r < q.R; r += blockDim.x) {
+    double s = 0.0;
+    for (int wi = 0; wi < warps; ++wi) {
+      const double* b = smem + wi * warp_doubles(PR);
+      s += r < q.nplain ? b[r] : b[WARP_FIXED + r - q.nplain];
+    }
+    part[r] = s;
+  }
+
+  // the partials are summed in the same launch, in two levels: the last
+  // block of each group of GROUP blocks to finish sums its group's in block
+  // order, the last group to finish sums the groups' in group order
+  __threadfence();
+  __syncthreads();
+  const int nb = gridDim.x, ngroups = (nb + GROUP - 1) / GROUP;
+  const int g = blockIdx.x / GROUP, b0 = g * GROUP, b1 = min(b0 + GROUP, nb);
+  if (threadIdx.x == 0) last = atomicAdd(q.tickets + 1 + g, 1u) == b1 - b0 - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double* groups = q.partials + static_cast<size_t>(nb) * q.R;  // (ngroups, R)
+  for (int r = threadIdx.x; r < q.R; r += blockDim.x) {
+    double s = 0.0;
+#pragma unroll 8
+    for (int b = b0; b < b1; ++b) s += __ldcg(q.partials + static_cast<size_t>(b) * q.R + r);
+    groups[static_cast<size_t>(g) * q.R + r] = s;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    q.tickets[1 + g] = 0u;
+    last = atomicAdd(q.tickets, 1u) == ngroups - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int r = threadIdx.x; r < q.R; r += blockDim.x) {
+    double s = 0.0;
+#pragma unroll 8
+    for (int gi = 0; gi < ngroups; ++gi) s += __ldcg(groups + static_cast<size_t>(gi) * q.R + r);
+    q.out[r] = s;
+  }
+  if (threadIdx.x == 0) q.tickets[0] = 0u;
+}
+
+template <int SD, int N>
+cudaError_t allow_smem(size_t smem) {
+  return cudaFuncSetAttribute(pair_moments_kernel<SD, N>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int SD, int N>
+int launch(const Params& q, const double* consts, int warps, int nblocks, cudaStream_t stream) {
+  if (warps > block_warps(SD, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(warps, q.R - q.nplain);
+  const cudaError_t err = allow_smem<SD, N>(smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return static_cast<int>(err);
+  }
+  Consts<SD, N> table;
+  for (int i = 0; i < nconst_of(SD, N); ++i) table.v[i] = consts[i];
+  pair_moments_kernel<SD, N><<<nblocks, 32 * warps, smem, stream>>>(q, table);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks an SM (registers and shared memory both counted), or
+// minus the CUDA error.
+template <int SD, int N>
+int occupancy(int warps, int piece_rows) {
+  if (warps > block_warps(SD, N)) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(warps, piece_rows);
+  int blocks = 0;
+  cudaError_t err = allow_smem<SD, N>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pair_moments_kernel<SD, N>,
+                                                        32 * warps, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return blocks;
+}
+
+// Every degree of one sd: the launch and the occupancy query, or
+// cudaErrorInvalidValue for a degree outside 0..10.
+template <int SD>
+int launch_by_degree(const Params& q, const double* consts, int degree, int warps, int nblocks,
+                     cudaStream_t stream) {
+  switch (degree) {
+#define FIAT_CASE(n) \
+  case n:            \
+    return launch<SD, n>(q, consts, warps, nblocks, stream);
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
+#undef FIAT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int SD>
+int occupancy_by_degree(int degree, int warps, int piece_rows) {
+  switch (degree) {
+#define FIAT_CASE(n) \
+  case n:            \
+    return occupancy<SD, n>(warps, piece_rows);
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
+#undef FIAT_CASE
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// sd = 3 is instantiated in moments3.cu
+extern template int launch_by_degree<3>(const Params&, const double*, int, int, int,
+                                        cudaStream_t);
+extern template int occupancy_by_degree<3>(int, int, int);
+
+}  // namespace fiat::k45

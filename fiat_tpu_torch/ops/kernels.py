@@ -53,14 +53,13 @@ SIGNATURES = {
                            _I, _P, _I, _P, _P],
     "fiat_macro_oneshot_f32": [_P, _I, _I, _P, _P, _P, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _P, _I, _P, _P],
-    # pts, wf, npts, consts, affine[6], scale, tol, degree, nplain, maps,
-    # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
-    "fiat_pair_moments": [_P, _P, _I, _P, _D, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,
-                          _P, _I, _P, _I, _P, _I, _P],
-    # pts, wf, npts, consts, slots, affine[12], scale, tol, degree, nplain, maps,
-    # npieces, progs, nprogs, pieces, R, partials, nblocks, stream
-    "fiat_pair_moments3": [_P, _P, _I, _P, _P, *[_D] * 12, _D, _D, _I, _I, _P, _I, _P, _I, _P,
-                           _I, _P, _I, _P],
+    # pts, wf, npts, sd, consts (host array), slots, affine[12] (host array),
+    # scale, tol, degree, nplain, maps, npieces, progs, nprogs, pieces, R, warps,
+    # nblocks, partials, tickets, out, stream
+    "fiat_pair_moments": [_P, _P, _I, _I, _P, _P, _P, _D, _D, _I, _I, _P, _I, _P, _I, _P, _I,
+                          _I, _I, _P, _P, _P, _P],
+    # sd, degree, warps, piece rows (returns blocks an SM, or minus the error)
+    "fiat_pair_moments_occupancy": [_I, _I, _I, _I],
     # pts, npts, sd, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
     # phi, out, stream
     "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],

@@ -5,16 +5,19 @@ Counterpart of ``fiat_tpu/ops/pallas_recurrence.py`` ``PallasPairMoments``
 (K4) and ``PallasMaskedPairMoments`` (K5).  The TPU kernels reach f64 sums
 through df32 pairs, Ozaki windows and exact window reductions, and are two
 kernels; Hopper has native FP64, so one kernel (``csrc/moments.cu``)
-computes both in f64: per point the Dubiner recurrence, the subcell masks
-of every macro program (``csrc/binning.cuh``, shared with K3 and K7), and
-the weighted sums of both, reduced per block; the wrapper sums the
-per-block partials.
+computes both in f64: per point the Dubiner recurrence and the subcell
+masks of every macro program (``csrc/binning.cuh``, shared with K3 and
+K7), streamed a warp's 32 points at a time through a shared-memory slab
+into sums each lane owns by member, reduced per block, and the blocks'
+partials summed in groups by the last blocks to finish, in the same
+launch (``csrc/moments.cu`` has the design).
 
 The plain version beside it is the eager recurrence times the weights plus
 ``subcell_masks`` x phi times the weights; the wrapper runs it for CPU
 tensors only.  For a CUDA tensor it launches the kernel or raises.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -28,19 +31,32 @@ from .recurrence import pack_stages
 #: highest degree the kernel is instantiated for (csrc/moments.cu), on the
 #: triangle and on the tetrahedron
 MAX_DEGREE = 10
-#: threads per block (csrc/moments.cu THREADS) and at most how many resident
-#: blocks per SM the grid is sized for (the kernel loops over the points;
-#: every lane keeps a double per output row in shared memory, 67.6 KB a
-#: block on full_zoo, so three fit an SM)
-THREADS = 64
-BLOCKS_PER_SM = 3
-#: shared memory of one SM and of one block, and what the card reserves
-#: for each resident block (bytes)
-SM_SMEM = 233472
-BLOCK_SMEM = 232448
-BLOCK_RESERVED = 1024
-#: output rows whose per-lane accumulators fit one block's shared memory
-MAX_ROWS = BLOCK_SMEM // (THREADS * 8)
+
+#: doubles of shared memory a warp holds besides its piece sums: the slab
+#: of 32 entries x 32 points (row stride 33), the tile's 32 piece masks and
+#: 32 hit masks (csrc/moments.cuh WARP_FIXED; a warp's share is rounded up
+#: to an even count of doubles)
+WARP_FIXED = 32 * 33 + 32
+#: shared memory a block may have, less the kernel's static tables (bytes)
+BLOCK_SMEM = 232448 - 1024
+#: blocks whose partials one block of the launch sums, before the last
+#: sums those groups (csrc/moments.cuh GROUP)
+GROUP = 16
+
+
+def block_warps(sd, degree):
+    """The most warps a block of the (sd, degree) instantiation takes
+    (csrc/moments.cuh block_warps: the tetrahedron from degree 7 runs more,
+    smaller blocks within its registers)."""
+    return 4 if sd == 3 and degree >= 7 else 8
+
+
+def grid_blocks(npts, warps, blocks_per_sm, sms):
+    """K45's grid: a block for every ``warps`` tiles of 32 points, at most as
+    many as the card holds at once (the blocks then loop over the tiles),
+    and at least one (which writes zeros for no points)."""
+    tiles = -(-npts // 32)
+    return max(1, min(-(-tiles // warps), blocks_per_sm * sms))
 
 
 class PairMoments:
@@ -60,6 +76,8 @@ class PairMoments:
         of the same recurrence; the caller checks that it is (same cell,
         same scale).
 
+    A call on CUDA tensors is one launch, for any point count (none gives
+    zeros), and two calls on the same inputs give the same bits.
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
 
@@ -86,8 +104,6 @@ class PairMoments:
         self.geom = list(geom)
         self.parent_map = parent_map
         self.rows = self.nplain + sum(self.piece_nexp)
-        if self.rows > MAX_ROWS:
-            raise NotImplementedError(f"{self.rows} moment rows: K45 keeps at most {MAX_ROWS}")
         self.scale = float(scale)
         self.device = resolve_device(device)
 
@@ -102,15 +118,41 @@ class PairMoments:
         self.maps = as_t(maps)
         self.progs = as_t(progs, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
-        consts, slots = pack_stages(self.degree, sd=self.sd)
-        self.consts = as_t(consts)
-        self.slots = as_t(slots, torch.int32)      # read by the sd = 3 stage only
-        self.device = self.consts.device       # "cuda" resolved to its index
-        # accumulators of one block, and the blocks an SM holds at once
-        self.smem = THREADS * 8 * self.rows
-        self.blocks_per_sm = max(1, min(BLOCKS_PER_SM,
-                                        SM_SMEM // (self.smem + BLOCK_RESERVED)))
+        # the recurrence's constants go to the kernel in its parameters
+        self.consts, slots = pack_stages(self.degree, sd=self.sd)
+        self._consts_arg = (ctypes.c_double * len(self.consts))(*self.consts)
+        self._affine_arg = (ctypes.c_double * 12)(*self.affine)
+        self.slots = as_t(slots, torch.int32)
+        self.device = self.slots.device        # "cuda" resolved to its index
+        # a warp's shared memory (its slab, piece and hit masks and piece
+        # sums) and the warps a block takes: the largest zoo the tables
+        # allow (degree 10, 32 pieces of 286) needs 80 KB a warp, 2 a block
+        piece_rows = self.rows - self.nplain
+        self.warp_smem = 8 * (WARP_FIXED + piece_rows + piece_rows % 2)
+        self.warps = min(block_warps(self.sd, self.degree), BLOCK_SMEM // self.warp_smem)
+        self.smem = self.warps * self.warp_smem
+        self._blocks_per_sm = self._sms = None
+        self._tickets = {}
         self.launches = 0
+
+    @property
+    def blocks_per_sm(self):
+        """The blocks an SM of the card holds at once (registers and shared
+        memory both counted, by the CUDA runtime); the grid is sized to it.
+        Needs the card."""
+        if self._blocks_per_sm is None:
+            n = load_kernels().fiat_pair_moments_occupancy(
+                self.sd, self.degree, self.warps, self.rows - self.nplain)
+            if n <= 0:
+                raise RuntimeError(f"K45 (degree {self.degree}, sd {self.sd}, {self.warps} "
+                                   f"warps, {self.smem} bytes): no block fits an SM ({n})")
+            self._blocks_per_sm = n
+        return self._blocks_per_sm
+
+    @property
+    def resident_warps(self):
+        """Warps resident an SM while K45 runs (needs the card)."""
+        return self.blocks_per_sm * self.warps
 
     def _check(self, points, wf):
         for name, t in (("points", points), ("wf", wf)):
@@ -137,25 +179,29 @@ class PairMoments:
         if points.device.type != "cuda" or points.device != self.device:
             raise ValueError(f"points on {points.device}, engine on {self.device}")
         npts = points.shape[0]
-        if npts == 0:
-            return torch.zeros(self.rows, dtype=torch.float64, device=points.device)
-        sms = torch.cuda.get_device_properties(points.device).multi_processor_count
-        nblocks = min(-(-npts // THREADS), self.blocks_per_sm * sms)
-        partials = torch.empty((nblocks, self.rows), dtype=torch.float64, device=points.device)
-        lib = load_kernels()
-        if self.sd == 2:
-            name, fn, tables = "fiat_pair_moments", lib.fiat_pair_moments, ()
-        else:
-            name, fn, tables = "fiat_pair_moments3", lib.fiat_pair_moments3, (self.slots.data_ptr(),)
-        err = fn(
-            points.data_ptr(), wf.data_ptr(), npts, self.consts.data_ptr(), *tables,
-            *self.affine.tolist(), self.scale, BINNING_TOL[torch.float64], self.degree,
-            self.nplain, self.maps.data_ptr(), len(self.piece_nexp), self.progs.data_ptr(),
-            len(self.geom), self.pieces.data_ptr(), self.rows, partials.data_ptr(), nblocks,
-            stream_of(points))
-        check_launch(f"{name} ({self.rows} rows, degree {self.degree})", err)
+        if self._sms is None:
+            self._sms = torch.cuda.get_device_properties(self.device).multi_processor_count
+        bps = self.blocks_per_sm
+        nblocks = grid_blocks(npts, self.warps, bps, self._sms)
+        out = torch.empty(self.rows, dtype=torch.float64, device=points.device)
+        partials = torch.empty((nblocks + -(-nblocks // GROUP), self.rows), dtype=torch.float64,
+                               device=points.device)
+        stream = stream_of(points)
+        tickets = self._tickets.get(stream)
+        if tickets is None:     # one set per stream: a launch finds them 0 and leaves them 0
+            most = -(-(bps * self._sms) // GROUP)
+            tickets = self._tickets[stream] = torch.zeros(1 + most, dtype=torch.int32,
+                                                          device=points.device)
+        err = load_kernels().fiat_pair_moments(
+            points.data_ptr(), wf.data_ptr(), npts, self.sd, self._consts_arg,
+            self.slots.data_ptr(), self._affine_arg, self.scale, BINNING_TOL[torch.float64],
+            self.degree, self.nplain, self.maps.data_ptr(), len(self.piece_nexp),
+            self.progs.data_ptr(), len(self.geom), self.pieces.data_ptr(), self.rows, self.warps,
+            nblocks, partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream)
+        check_launch(f"fiat_pair_moments ({self.rows} rows, degree {self.degree}, sd {self.sd})",
+                     err)
         self.launches += 1
-        return partials.sum(dim=0)
+        return out
 
     def plain(self, points, wf):
         """The same moments in plain PyTorch, on the points' device."""

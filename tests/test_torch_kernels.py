@@ -168,19 +168,28 @@ def _moment_engine(cuda="cpu"):
     return MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device=cuda)
 
 
-@pytest.mark.parametrize("npts", [1, 127, 1077, 100_000])
+def _assert_k45_matches_plain(pm, P, wf):
+    """One launch against the plain version at 1e-13 of max |plain|
+    (the order of the sums differs); no points give exact zeros."""
+    got = pm(P, wf)
+    torch.cuda.synchronize()
+    assert pm.launches == 1 and tuple(got.shape) == (pm.rows,)
+    want = pm.plain(P, wf)
+    if P.shape[0] == 0:
+        assert not got.any()
+    else:
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("npts", [0, 1, 31, 33, 127, 1077, 100_000])
 def test_moments_kernel_matches_plain(cuda, npts):
     """K45 (plain and masked moments in one launch) against its plain
-    version at odd point counts and at the bench's size."""
+    version at partial warp tiles and at the bench's size."""
     eng = _moment_engine(cuda)
     rng = np.random.default_rng(npts)
-    P = torch.as_tensor(_points(npts, seed=npts), device=cuda)
+    P = torch.as_tensor(_points(npts, seed=npts).reshape(npts, 2), device=cuda)
     wf = torch.as_tensor(rng.random(npts), device=cuda)
-    got = eng.moments(P, wf)
-    torch.cuda.synchronize()
-    assert eng.moments.launches == 1
-    want = eng.moments.plain(P, wf)
-    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+    _assert_k45_matches_plain(eng.moments, P, wf)
 
 
 def test_moments_kernel_on_facet_barycentre_and_centre_points(cuda):
@@ -603,21 +612,54 @@ def _tet_moment_engine(zoo, device="cpu"):
     return MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device=device)
 
 
-@pytest.mark.parametrize("npts", [1, 1077, 100_000])
+@pytest.mark.parametrize("npts", [0, 1, 31, 33, 1077, 100_000])
 @pytest.mark.parametrize("degree", [0, 3, 8])
 def test_tet_moments_kernel_plain_rows_match_plain(cuda, degree, npts):
-    """K45's sd = 3 stage on the plain rows alone (one row block a point)."""
+    """K45's sd = 3 stage on the plain rows alone."""
     from fiat_tpu_torch.ops.moment_kernel import PairMoments
     es = ExpansionSet(tcl.ufc_simplex(3))
     nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
     pm = PairMoments(degree, nexp, es.get_scale(degree), es.affine_mappings[0], device=cuda)
-    P = torch.as_tensor(_tet_points(npts, seed=npts + degree), device=cuda)
+    P = torch.as_tensor(_tet_points(npts, seed=npts + degree).reshape(npts, 3), device=cuda)
     wf = torch.as_tensor(np.random.default_rng(degree).random(npts), device=cuda)
-    got = pm(P, wf)
-    torch.cuda.synchronize()
-    assert pm.launches == 1 and tuple(got.shape) == (nexp,)
-    want = pm.plain(P, wf)
-    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+    _assert_k45_matches_plain(pm, P, wf)
+
+
+@pytest.mark.parametrize("sd", [2, 3])
+def test_moments_kernel_is_deterministic(cuda, sd):
+    """Two calls on the same inputs give the same bits: every sum, the last
+    block's over the partials too, runs in an order fixed by the launch's
+    shape (signed weights, so that the order would show)."""
+    if sd == 2:
+        pm = _moment_engine(cuda).moments
+        P = torch.as_tensor(_points(100_000, seed=5), device=cuda)
+    else:
+        pm = _tet_moment_engine(_sv_zoo(tcl.ufc_simplex(3)), cuda).moments
+        P = torch.as_tensor(_tet_points(100_000, seed=5), device=cuda)
+    wf = torch.as_tensor(np.random.default_rng(6).random(P.shape[0]) - 0.5, device=cuda)
+    first, second = pm(P, wf), pm(P, wf)
+    assert pm.launches == 2 and torch.equal(first, second)
+
+
+@pytest.mark.parametrize("npts", [0, 1, 31, 33, 1077, 100_000])
+def test_tet_moments_kernel_past_the_old_row_cap(cuda, npts):
+    """Lagrange 10 beside sv_macro_tet's macro pairs: 574 rows (286 plain +
+    288 over 32 subcells; the per-lane layout took at most 454), and degree 10 with 32
+    pieces of 286 members (9438 rows, two warps a block), against the plain
+    version on random and tie points, and the resident warps an SM."""
+    from fiat_tpu_torch.ops.moment_kernel import PairMoments
+    T = tcl.ufc_simplex(3)
+    pm = _tet_moment_engine([tfe.Lagrange(T, 10)] + _sv_zoo(T)[1:], cuda).moments
+    assert (pm.rows, pm.warps) == (574, 4) and pm.resident_warps >= 8
+    es = ExpansionSet(T)
+    big = PairMoments(10, 286, es.get_scale(10), es.affine_mappings[0], pm.geom, pm.parent_map,
+                      [(i, 286) for i in range(32)], device=cuda)
+    assert (big.rows, big.warps) == (9438, 2) and big.resident_warps >= 2
+    pts = np.vstack([_tet_points(npts, seed=npts).reshape(npts, 3), _tet_special_points()])
+    P = torch.as_tensor(pts, device=cuda)
+    wf = torch.as_tensor(np.random.default_rng(npts).random(len(pts)) - 0.25, device=cuda)
+    _assert_k45_matches_plain(pm, P, wf)
+    _assert_k45_matches_plain(big, P, wf)
 
 
 @pytest.mark.parametrize("npts", [0, 1077, 100_000])
@@ -714,7 +756,7 @@ def test_tet_dual_and_f32_engines_default_to_the_card(cuda):
     tab = device_tabulator(zoo, order=1, f64=False)
     assert tab.device == cuda and tab.kernel.At.device == cuda
     eng = tmo.moment_engine(BatchedTabulator(zoo, order=0))
-    assert eng.device == cuda and eng.moments.consts.device == cuda
+    assert eng.device == cuda and eng.moments.slots.device == cuda
 
 
 

@@ -6,6 +6,8 @@ fiat_tpu's ``moment_rows`` and ``interpolate_rows`` run their f64 XLA
 fallback on the CPU, as its own tests run them (tests/test_device_ops.py)."""
 
 import copy
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,7 +25,11 @@ from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_tet_dual import K45_GRIDS, _replay_k45  # noqa: E402
+
 ATOL = 1e-12        # against fiat_tpu (f64 on both sides; fiat_tpu's own bar)
+RTOL_PLAIN = 1e-13  # the same sums in another order of operations
 
 
 def _special_points():
@@ -108,6 +114,31 @@ def test_k45_plain_pieces_are_the_explicit_contractions():
                          for p in bt.macro_programs]
     want = np.concatenate(want)
     assert np.abs(sums - want).max() <= 1e-13 * np.abs(want).max()
+
+
+def _full_zoo_shapes(fe, T):
+    """full_zoo's K45 shapes: degree 10 (66 plain rows), HCT 3 and PS6 (3
+    pieces of 10 and 6 of 6 members, 132 rows)."""
+    return [fe.Lagrange(T, 10), fe.HsiehCloughTocher(T, 3), fe.QuadraticPowellSabin6(T)]
+
+
+@pytest.mark.parametrize("grid", sorted(K45_GRIDS))
+@pytest.mark.parametrize("where", ["random", "tie"])
+def test_k45_sd2_kernel_loop_on_its_packed_tables_matches_plain(where, grid):
+    """The kernel cannot run here: its schedule on triangles (slab chunks of
+    32 entries, lane-owned members, block and last-block reductions)
+    replayed on the packed constants and binning tables equals the plain
+    version, on random points and on points where subcells meet."""
+    pm = MomentEngine(BatchedTabulator(_full_zoo_shapes(tfe, tcl.ufc_simplex(2)), order=0,
+                                       device="cpu"), device="cpu").moments
+    assert (pm.sd, pm.degree, pm.nplain, pm.rows, pm.warps) == (2, 10, 66, 132, 8)
+    assert pm.piece_nexp == [10] * 3 + [6] * 6
+    rng = np.random.default_rng(31)
+    pts = rng.random((300, 2)) / 2 if where == "random" else _special_points()
+    wf = rng.random(len(pts)) - 0.25
+    want = pm(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
+    got = _replay_k45(pm, pts, wf, *K45_GRIDS[grid](len(pts), pm))
+    assert np.abs(got - want).max() <= RTOL_PLAIN * np.abs(want).max()
 
 
 def test_engine_from_fiat_tpu_arrays_matches_the_ports():

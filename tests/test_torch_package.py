@@ -124,6 +124,7 @@ def test_pyproject_ships_the_port():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
         "bernstein.cu", "binning.cuh", "bucket_matmul.cu", "dubiner2.cuh", "dubiner3.cuh",
         "macro_oneshot.cu", "macro_oneshot.cuh", "macro_oneshot_f32.cu", "macro_oneshot_one.cu",
-        "masked_matmul.cu", "moments.cu", "recurrence.cu", "zoo_f32.cu"]
+        "masked_matmul.cu", "moments.cu", "moments.cuh", "moments3.cu", "recurrence.cu",
+        "zoo_f32.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)

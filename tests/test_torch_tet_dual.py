@@ -10,6 +10,8 @@ fallback on the CPU and its Pallas kernels run in interpret mode, as its own
 tests run them (tests/test_device_ops.py)."""
 
 import math
+import os
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -31,9 +33,13 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator, ZooF32Kernel, tile_points
-from fiat_tpu_torch.ops.moment_kernel import MAX_ROWS, PairMoments
+from fiat_tpu_torch.ops.moment_kernel import GROUP, PairMoments, grid_blocks
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_macro_tet import _bin_as_the_kernel  # noqa: E402
+from test_torch_recurrence import _dubiner2_point  # noqa: E402
 
 ATOL = 1e-12            # against fiat_tpu and host (f64 on both sides)
 RTOL_PLAIN = 1e-13      # the same sums in another order of operations
@@ -214,23 +220,6 @@ def test_k45_sd3_pieces_match_fiat_tpu_masked_kernel_and_explicit_masks():
     assert np.abs(sums - want).max() <= RTOL_PLAIN * np.abs(want).max()
 
 
-def _bin_as_the_kernel(maps, x, tol=1e-12):
-    """binning.cuh's piece bits for one point, each operation rounded on its
-    own in the kernel's order: [bool per piece]."""
-    def dist(M):
-        s = None
-        for row in M:
-            b = x[0] * row[0]
-            for i in range(1, 3):
-                b = b + x[i] * row[i]
-            b = b + row[3]
-            t = abs(b) - b
-            s = t if s is None else s + t
-        return 0.5 * s
-    best = dist(maps[0]) + tol
-    return [dist(M) <= best for M in maps[1:]]
-
-
 def _dubiner3_values(x, consts, n, scale):
     """csrc/dubiner3.cuh's recurrence at one point on the packed constants,
     yielding (entry, value) in the order the kernel's emitter sees them."""
@@ -274,59 +263,128 @@ def _dubiner3_values(x, consts, n, scale):
             e1 += 1
 
 
-def _replay_k45_sd3(pm, pts, wf):
-    """csrc/moments.cu's sd = 3 loop in numpy, reading the tables the
-    wrapper built: per point the binning, then one recurrence pass for each
-    row block it feeds (the plain rows, then each piece it lies on, in
-    program and subcell order), every streamed value added into its morton
-    row of the block where that row is inside the block's width."""
+def _replay_k45(pm, pts, wf, nblocks, warps=None):
+    """csrc/moments.cuh's schedule in numpy on the tables the wrapper built,
+    on triangles or tetrahedra, for a grid of ``nblocks`` blocks of
+    ``warps`` warps (the wrapper's ``pm.warps`` unless given; the kernel
+    takes 1 to 8).  Warp w of block b takes the 32-point tiles b * warps +
+    w, then every nblocks * warps further.  Each point's values of the
+    recurrence (dubiner2.cuh, dubiner3.cuh on the packed constants) times
+    its weight fill the slab in chunks of 32 entries (0 for the lanes past
+    the last point); the lane of entry e (member slots[e]) adds the chunk's
+    32 points into its plain sum (four running sums, point k into sum k mod
+    4), and for each piece in order the points that hit it: two running
+    sums taking the hits in turns, or, where a point of the tile is shared
+    by pieces of one program, one sum of 1 / hits times each.  Then the
+    warps' sums in warp order into the block's partial, the partials of
+    each group of GROUP blocks in block order, and the groups' in group
+    order."""
     maps, progs, pieces = pm.maps.numpy(), pm.progs.numpy(), pm.pieces.numpy()
-    consts, slots = pm.consts.numpy(), pm.slots.numpy()
-    A, b = pm.affine[:9].reshape(3, 3), pm.affine[9:]
-    out = np.zeros(pm.rows)
-    for x, w in zip(pts, wf):
-        ref = A @ x + b
-        near = _bin_as_the_kernel(maps, x) if len(pieces) else []
-        todo = [(0, pm.nplain, w)]
-        for _, _, c0, c1, unique in progs:
-            hits = [c for c in range(c0, c1) if near[c]]
-            if unique:
-                hits = hits[:1]
-            todo += [(pm.nplain + pieces[c, 0], pieces[c, 1], (1.0 / len(hits)) * w)
-                     for c in hits]
-        for first, width, f in todo:
-            for e, v in _dubiner3_values(ref, consts, pm.degree, pm.scale):
-                j = slots[e]
-                if j < width:
-                    out[first + j] += f * v
+    consts, slots = pm.consts, pm.slots.numpy()
+    sd, n, R, warps = pm.sd, len(pts), pm.rows, warps or pm.warps
+    ref = (pts @ pm.affine[:sd * sd].reshape(sd, sd).T + pm.affine[sd * sd:]).T
+    if sd == 2:
+        phi = _dubiner2_point(ref[0], ref[1], consts, slots, pm.degree, pm.scale)
+    else:
+        phi = np.zeros((pm.nexp, n))
+        for e, v in _dubiner3_values(ref, consts, pm.degree, pm.scale):
+            phi[slots[e]] = v
+    values = np.hstack([phi[slots] * wf, np.zeros((pm.nexp, 32))])  # entry order, 0 past n
+    hits = np.zeros((n, len(pieces)), bool)
+    tie = np.zeros(n, bool)
+    recip = np.zeros(hits.shape)
+    for _, _, c0, c1, unique in progs:
+        h = _bin_as_the_kernel(maps, pts, c0, c1)
+        if unique:
+            h &= np.cumsum(h, axis=1) == 1
+        hits[:, c0:c1] = h
+        tie |= h.sum(axis=1) > 1
+        recip[:, c0:c1] = 1.0 / np.maximum(h.sum(axis=1), 1)[:, None]
+    ntiles = -(-n // 32)
+    partials = np.zeros((nblocks, R))
+    for b in range(nblocks):
+        for w in range(warps):
+            plain = np.zeros(pm.nexp)         # by entry
+            acc = np.zeros(R - pm.nplain)
+            for t in range(b * warps + w, ntiles, nblocks * warps):
+                q = np.arange(32 * t, 32 * t + 32)
+                live = q[q < n]
+                ties = tie[live].any()
+                for e0 in range(0, pm.nexp, 32):
+                    e = np.arange(e0, min(e0 + 32, pm.nexp))
+                    j = slots[e]
+                    v = values[e][:, q]
+                    s = [np.zeros(len(e)) for _ in range(4)]
+                    for k in range(32):
+                        s[k % 4] = s[k % 4] + v[:, k]
+                    plain[e] += (s[0] + s[1]) + (s[2] + s[3])
+                    for c, (off, nk) in enumerate(pieces):
+                        ks = live[hits[live, c]] - 32 * t
+                        if not len(ks):
+                            continue
+                        tt = [np.zeros(len(e)), np.zeros(len(e))]
+                        for i, k in enumerate(ks):
+                            if ties:
+                                tt[0] = tt[0] + recip[32 * t + k, c] * v[:, k]
+                            else:
+                                tt[i % 2] = tt[i % 2] + v[:, k]
+                        inside = j < nk
+                        acc[off + j[inside]] += (tt[0] + tt[1])[inside]
+            sums = np.concatenate([np.zeros(pm.nplain), acc])
+            inside = slots < pm.nplain
+            sums[slots[inside]] = plain[inside]
+            partials[b] = partials[b] + sums
+    groups = [_in_order(partials[g:g + GROUP]) for g in range(0, nblocks, GROUP)]
+    return _in_order(np.asarray(groups))
+
+
+def _in_order(rows):
+    """The rows summed one after another from zero, as the kernel does."""
+    out = np.zeros(rows.shape[1])
+    for r in rows:
+        out = out + r
     return out
 
 
+#: grids the replays run: (nblocks, warps) from the points' count; one tile
+#: a warp (the card's grid at 2 blocks an SM of 132), one block whose warps
+#: loop over the tiles, and 37 one-warp blocks (three groups of partials,
+#: the last short)
+K45_GRIDS = {"one_tile_a_warp": lambda n, pm: (grid_blocks(n, pm.warps, 2, 132), pm.warps),
+             "one_block": lambda n, pm: (1, pm.warps),
+             "thirty_seven_blocks": lambda n, pm: (37, 1)}
+
+
+@pytest.mark.parametrize("grid", sorted(K45_GRIDS))
 @pytest.mark.parametrize("where", ["random", "tie"])
-def test_k45_sd3_kernel_loop_on_its_packed_tables_matches_plain(where):
-    """The kernel cannot run here: its sd = 3 loop replayed on the packed
+def test_k45_sd3_kernel_loop_on_its_packed_tables_matches_plain(where, grid):
+    """The kernel cannot run here: its schedule (slab chunks, lane-owned
+    members, block and last-block reductions) replayed on the packed
     constants and binning tables equals the plain version, on random points
     and on tie points (the first hit of each C0 program, 1 / hits of each
-    DG program: up to 12 passes for one program at the centre)."""
+    DG program: up to 12 pieces of one program at the centre)."""
     pm, _, pts, wf = _k45_case()
     assert [g["unique"] for g in pm.geom] == [True, False, True, False]
     n = len(_tie_points())
     pts, wf = (pts[:-n], wf[:-n]) if where == "random" else (pts[-n:], wf[-n:])
     want = pm(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
-    got = _replay_k45_sd3(pm, pts, wf)
+    got = _replay_k45(pm, pts, wf, *K45_GRIDS[grid](len(pts), pm))
     assert np.abs(got - want).max() <= RTOL_PLAIN * np.abs(want).max()
 
 
 def test_k45_sd3_plain_rows_replay_at_degree_8():
-    """tet_lagrange8's K45: 165 plain rows, no pieces, one pass a point."""
+    """tet_lagrange8's K45: 165 plain rows in 6 chunks, no pieces; blocks
+    of 4 warps (the tetrahedron from degree 7) of 8 (1088 + 0) doubles each
+    (the card's occupancy then sets the blocks an SM from the registers)."""
     tb = BatchedTabulator([tfe.Lagrange(tcl.ufc_simplex(3), 8)], order=0, device="cpu")
     pm = tmo.moment_engine(tb).moments
-    assert (pm.degree, pm.nplain, pm.rows, pm.blocks_per_sm) == (8, 165, 165, 2)
+    assert (pm.degree, pm.nplain, pm.rows, pm.warps, pm.smem) == (8, 165, 165, 4, 4 * 8 * 1088)
     pts = _points(40, 13)
     wf = np.random.default_rng(14).random(len(pts))
     want = pm(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
-    assert np.abs(_replay_k45_sd3(pm, pts, wf) - want).max() <= RTOL_PLAIN * np.abs(
-        want).max()
+    for grid in K45_GRIDS.values():
+        got = _replay_k45(pm, pts, wf, *grid(len(pts), pm))
+        assert np.abs(got - want).max() <= RTOL_PLAIN * np.abs(want).max()
 
 
 def test_engine_from_fiat_tpu_arrays_matches_the_ports():
@@ -353,6 +411,27 @@ def test_engine_from_fiat_tpu_arrays_matches_the_ports():
                           - teng.interpolate_rows(pts, c).numpy()).max() <= RTOL_PLAIN
 
 
+def _sv_lagrange10(fe, T):
+    """The SV pairs beside Lagrange 10: K45 at degree 10, 286 plain rows
+    and 224 masked ones over 32 subcells (510, past the 454 the per-lane
+    layout took)."""
+    return [fe.Lagrange(T, 10)] + _sv(fe, T)[1:]
+
+
+def test_moment_rows_past_the_old_row_cap_match_fiat_tpu_and_host():
+    jzoo, tzoo = _zoos(_sv_lagrange10)
+    pts = np.vstack([_points(150, 23), _tie_points()])
+    wf = np.random.default_rng(24).random(len(pts))
+    bt = JBatchedTabulator(jzoo, order=0)
+    want = np.asarray(jmo.moment_rows(bt, jnp.asarray(pts), jnp.asarray(wf)))
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
+    got = tmo.moment_rows(tb, pts, wf)
+    pm = tb._moment_engine.moments
+    assert (pm.degree, pm.nplain, pm.rows, len(pm.piece_nexp)) == (10, 286, 510, 32)
+    assert np.abs(got.numpy() - want).max() <= ATOL
+    assert np.abs(got.numpy() - _host_moments(tzoo, tb.slices, pts, wf)).max() <= ATOL
+
+
 def test_k45_sd3_wrapper_checks_and_limits():
     pm, _, pts, wf = _k45_case()
     with pytest.raises(ValueError, match=r"points must have shape \(npts, 3\)"):
@@ -363,12 +442,42 @@ def test_k45_sd3_wrapper_checks_and_limits():
     amap = es.affine_mappings[0]
     with pytest.raises(NotImplementedError, match="outside 0..10"):
         PairMoments(11, 1, 1.0, amap, device="cpu")
-    # degree 10 alone fits the per-lane row sums; past MAX_ROWS K45 refuses
-    assert PairMoments(10, math.comb(13, 3), 1.0, amap, device="cpu").rows == 286 <= MAX_ROWS
-    with pytest.raises(NotImplementedError, match="moment rows"):
-        PairMoments(10, 286, 1.0, amap, pm.geom, pm.parent_map,
-                    [(i, 286) for i in range(len(pm.piece_nexp))], device="cpu")
     assert pm.launches == 0
+
+
+def test_k45_sd3_past_the_old_row_cap_matches_plain_and_fiat_tpu():
+    """No row cap: degree 10 with the SV zoo's 32 subcells as pieces of 286
+    members (9438 rows; the per-lane layout refused past 454) takes two
+    warps a block of 80 KB each.  Its plain version against fiat_tpu's
+    PallasMaskedPairMoments in interpret mode, and the kernel's schedule
+    replayed on its tables against the plain version, on random and tie
+    points."""
+    pm, bt, _, _ = _k45_case()
+    es = texp.ExpansionSet(tcl.ufc_simplex(3))
+    scale = es.get_scale(10)
+    big = PairMoments(10, 286, scale, es.affine_mappings[0], pm.geom, pm.parent_map,
+                      [(i, 286) for i in range(32)], device="cpu")
+    assert (big.rows, big.warps, big.smem) == (286 * 33, 2, 2 * 8 * (1088 + 32 * 286))
+    pts = np.vstack([_points(40, 21), _tie_points()])
+    wf = np.random.default_rng(22).random(len(pts)) - 0.5
+    sums = big(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
+    assert big.launches == 0
+
+    progs = bt.macro_programs
+    entries = [{"nexp": 286, "unique": p.es.continuity is not None,
+                "maps": [p.es.ref_el.barycentric_map(entity=(3, c), rescale=True)
+                         for c in p.cells]} for p in progs]
+    parent_map = progs[0].es.ref_el.get_parent().barycentric_map(rescale=True)
+    kernel = PallasMaskedPairMoments(progs[0].parent_es, 10, entries, parent_map,
+                                     interpret=True, tile=128)
+    assert kernel.scale == scale
+    bws = np.concatenate([np.asarray(b) for b in jax.jit(kernel.moment_rows)(
+        jnp.asarray(pts), jnp.asarray(wf))])
+    assert np.abs(sums[286:] - bws).max() <= RTOL_INTERPRET * np.abs(bws).max()
+
+    for grid in ("one_tile_a_warp", "thirty_seven_blocks"):
+        got = _replay_k45(big, pts, wf, *K45_GRIDS[grid](len(pts), big))
+        assert np.abs(got - sums).max() <= RTOL_PLAIN * np.abs(sums).max()
 
 
 # -- the f32 engine on tetrahedra (K6's sd = 3 stage) -------------------------
