@@ -66,16 +66,19 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k3-cells ROOT   # K3 alone per cell, package at ROOT
     python3 chip_smoke.py --k2-cells ROOT   # K2 alone per cell, package at ROOT
     python3 chip_smoke.py --k45-cells ROOT  # K45 alone per cell, package at ROOT
+    python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
 
-Prints the card's name and power limit, the build time, K3's, K45's and
-K2's registers by instantiation and the spills, the DMMA instructions in
-each of K2's instantiations (it fails where one has none), one line per step,
+Prints the card's name and power limit, the build time, K3's, K45's, K6's
+and K2's registers by instantiation and the spills (it fails where K6
+spills), the DMMA instructions in each of K2's instantiations (it fails
+where one has none), K6's plan and resident blocks an SM in each f32 cell
+(it fails below the plan's), one line per step,
 a JSON line ``{"kernels": [...]}`` (K1, K2 and K3 measured on
 ``full_zoo``, K45 on the moments phase with K3 on its interpolation, K6
 on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7
 on ``sv_macro_tet``, K45 at sd = 3 on phase 7's three cells and K6 at sd =
-3 on two, K3's sd = 3 stage on phase 8's and K3 on the C1 zoos (order 1, 2
-and 3), each with its bound: the larger of its bytes over the HBM rate and
+3 on two, K3's sd = 3 stage and K6 on phase 8's and K3 on the C1 zoos (order
+1, 2 and 3), each with its bound: the larger of its bytes over the HBM rate and
 its operations over the peak rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, if any phase fails or there is no
@@ -154,13 +157,21 @@ def k2_instance(name):
 
 def print_ptxas(log):
     """The registers of K3's instantiations by (sd, chunk height, type),
-    degree 0 to 10, K45's by sd, degree 0 to 10, K2's registers and spills
-    by instantiation, and every kernel that spills."""
+    degree 0 to 10, K45's by sd, degree 0 to 10, K6's by (sd, point tile),
+    degree 0 to 15, K2's registers and spills by instantiation, and every
+    kernel that spills; fails where a K6 instantiation spills."""
     if not log:
         print("ptxas: no build log (a matching build existed)")
         return
-    k3, k45, k2, spills = {}, {}, [], []
+    k3, k45, k6, k2, spills, k6_spills = {}, {}, {}, [], [], []
     for name, regs, st, ld, frame in ptxas_entries(log):
+        m = re.search(r"zoo_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if m:
+            sd, n, tp = map(int, m.groups())
+            k6.setdefault((sd, tp), {})[n] = (regs, frame)
+            name = f"K6 sd {sd} degree {n} TP {tp}"
+            if st or ld:
+                k6_spills.append(name)
         m = re.search(r"pair_moments_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             sd, n = int(m.group(1)), int(m.group(2))
@@ -182,8 +193,13 @@ def print_ptxas(log):
     for sd, by_n in sorted(k45.items()):
         print(f"ptxas K45 sd {sd}: (registers, stack frame bytes) by degree "
               f"{[by_n.get(n) for n in range(11)]}")
+    for (sd, tp), regs in sorted(k6.items()):
+        print(f"ptxas K6 sd {sd} TP {tp}: (registers, stack frame bytes) by degree "
+              f"{[regs.get(n) for n in range(16 if sd == 2 else 11)]}")
     print(f"ptxas {'; '.join(sorted(k2))}")
     print(f"ptxas spill stores/loads: {spills if spills else 'none'}")
+    if k6_spills:
+        fail(f"K6 must not spill: {k6_spills}")
 
 
 def check_k2_sass(lib_path):
@@ -296,6 +312,26 @@ def host_ms(fn, torch, reps=REPS, inner=INNER):
         times.append((time.perf_counter() - t0) * 1000 / inner)
         torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def clock_under_load(fn, torch, seconds=1.5):
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` reads,
+    every 100 ms, while fn() runs back to back for ``seconds``: medians."""
+    smi = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(INNER):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    out = smi.communicate(timeout=30)[0]
+    rows = [[float(v) for v in line.split(",")] for line in out.splitlines()
+            if line.strip() and "[" not in line]
+    rows = rows[len(rows) // 3:] or rows            # past the ramp
+    return (statistics.median(r[0] for r in rows) if rows else None,
+            statistics.median(r[1] for r in rows) if rows else None)
 
 
 def rel_err(got, want):
@@ -556,27 +592,39 @@ def moments_bound(pm, npts):
     return bound_of(8 * ((pm.sd + 1) * npts + pm.rows), flops * npts, FP64_FMA_MS)
 
 
+def zoo_f32_flops(k6, npts):
+    """K6's flops: per point the recurrence and 2 K_g flops per row of
+    group g."""
+    return (2 * sum(r * k for r, k in zip(k6.group_rows, k6.K))
+            + rec_flops(k6.sd, k6.degree)) * npts
+
+
 def zoo_f32_bound(k6, npts):
-    """K6: the points and A in, the rows out; per point the recurrence and
-    2 K_g flops per row of group g."""
-    flops = 2 * sum(r * k for r, k in zip(k6.group_rows, k6.K)) + rec_flops(k6.sd, k6.degree)
+    """K6: the points and A in, the rows out; its flops at the FP32 rate."""
     nbytes = 4 * (k6.sd * npts + k6.A.numel() + k6.total_rows * npts)
-    return bound_of(nbytes, flops * npts, FP32_FMA_MS)
+    return bound_of(nbytes, zoo_f32_flops(k6, npts), FP32_FMA_MS)
 
 
 def zoo_f32_library_ms(k6, P32, torch):
     """One cuBLAS SGEMM (TF32 off) of the zero-padded packed rows by a Phi
     computed beforehand: the library yardstick of K6."""
-    from fiat_tpu_torch.core.expansions import dubiner_tabulate
     from fiat_tpu_torch.ops.kernels import no_tf32
-    sd = k6.sd
-    x_ref = P32 @ P32.new_tensor(k6.affine[:sd * sd].reshape(sd, sd)).T + P32.new_tensor(
-        k6.affine[sd * sd:])                     # on the default simplex
-    phi32 = dubiner_tabulate(sd, k6.degree, [x_ref[:, i] for i in range(sd)], k6.scale,
-                             variant=k6.variant, raw=True)
+    phi32 = k6.phi(P32)
     with no_tf32():
         A = k6.A.to(phi32.device)
         return median_ms(lambda: torch.matmul(A, phi32[:k6.max_k]), torch)
+
+
+def k6_plan_line(name, k6):
+    """K6's plan and, from the CUDA runtime, the blocks an SM that its
+    registers and shared memory allow; fails below the plan's blocks."""
+    tp, kc, stages, blocks = k6.plan
+    resident = k6.occupancy()
+    print(f"{name} K6 plan: {tp}-point tiles, A chunks of {kc} rows in a ring of {stages}, "
+          f"{blocks} blocks an SM planned, {resident} resident ({k6.smem} bytes of shared "
+          f"memory a block, Phi {k6.kpad} x {tp})")
+    if resident < blocks:
+        fail(f"{name}: K6 holds {resident} blocks an SM, its plan {k6.plan} needs {blocks}")
 
 
 def features_bound(feat, npts):
@@ -762,6 +810,7 @@ def f32_phase(T, dev, P, ref64, card, torch):
     print(f"f32 host construction: {len(zoo)} elements, {tab.rows} rows x {len(tab.alphas)} "
           f"alphas, K6 {k6.total_rows} rows in widths {k6.K}, K3 float32 {m3.rows} x {m3.K}, "
           f"{time.perf_counter() - t0:.2f} s")
+    k6_plan_line("f32 full_zoo", k6)
     P32 = P.float()
     shape = (k6.total_rows, NPTS)
     k6_abs = check_kernel(f"K6 f32 zoo ({k6.total_rows} x {NPTS})",
@@ -1178,8 +1227,8 @@ def tet_dual_f32_phase(dev, card, engines64, torch, np):
         if tab.device != dev or k6.sd != 3 or tab.macro is not None:
             fail(f"{name} f32: K6's sd = 3 stage alone on {dev}")
         print(f"{name} f32 host construction: {tab.rows} rows x {len(tab.alphas)} alphas, K6 "
-              f"{k6.total_rows} rows in widths {k6.K}, {k6.tile_points}-point tiles, "
-              f"{k6.smem} bytes of shared memory a block, {time.perf_counter() - t0:.2f} s")
+              f"{k6.total_rows} rows in widths {k6.K}, {time.perf_counter() - t0:.2f} s")
+        k6_plan_line(name, k6)
         shape = (k6.total_rows, NPTS)
         k6_abs = check_kernel(f"{name} K6 sd 3 ({k6.total_rows} x {NPTS})",
                               k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
@@ -1296,26 +1345,34 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
     print(f"sv_macro_tet f32 host construction: K6 {k6.total_rows} rows in widths {k6.K}, K3 "
           f"float32 sd 3 {m3f.rows} x {m3f.K} ({m3f.chunks.shape[0]} row chunks, "
           f"{m3f.smem * 4} bytes of shared memory a block), {time.perf_counter() - t0:.2f} s")
+    k6_plan_line("sv_macro_tet f32", k6)
     P32 = P.float()
     shape = (k6.total_rows, NPTS)
-    check_kernel(f"sv_macro_tet K6 sd 3 ({k6.total_rows} x {NPTS})",
-                 k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
-                 k6.plain(P32, tab.dst_plain, torch.empty(shape, device=dev)), torch,
-                 F32_KERNEL_RTOL)
+    k6_abs = check_kernel(f"sv_macro_tet K6 sd 3 ({k6.total_rows} x {NPTS})",
+                          k6(P32, tab.dst_plain, torch.empty(shape, device=dev)),
+                          k6.plain(P32, tab.dst_plain, torch.empty(shape, device=dev)), torch,
+                          F32_KERNEL_RTOL)
     f_abs = check_kernel(f"sv_macro_tet K3 float32 sd 3 ({m3f.rows} x {NPTS})", m3f(P32),
                          m3f.plain(P32), torch, F32_KERNEL_RTOL)
     tables, launches = counted({"K6": k6, "K3 float32": m3f}, lambda: tab.tables(P), torch)
     expect_launches("sv_macro_tet f32", launches, {"K6": 1, "K3 float32": 1})
-    f_launches = launches["K3 float32"]
+    f_launches, k6_launches = launches["K3 float32"], launches["K6"]
     f32_vs_f64("sv_macro_tet f32", tab, zoo, tables, sv_tab(P), torch, P)
     del tables
     path_ms = median_ms(lambda: tab.tables(P), torch)
     f_ms, f_plain = median_ms(lambda: m3f(P32), torch), median_ms(lambda: m3f.plain(P32), torch)
     f_lib = masked_gemm_ms(m3f, P32, torch)
     f_bound = macro_bound(m3f, NPTS, 4, FP32_FMA_MS)
+    out = torch.empty(shape, device=dev)
+    k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
+    k6_plain = median_ms(lambda: k6.plain(P32, tab.dst_plain, out), torch)
+    del out
+    k6_lib, k6_bound = zoo_f32_library_ms(k6, P32, torch), zoo_f32_bound(k6, NPTS)
     print(f"sv_macro_tet f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"tables {path_ms:.4f} ms; K3 float32 sd 3 {f_ms:.4f} ms (plain {f_plain:.4f}, one "
-          f"SGEMM on the masked B {f_lib:.4f}, bound {f_bound[0]:.4f} by {f_bound[1]}); a pass "
+          f"SGEMM on the masked B {f_lib:.4f}, bound {f_bound[0]:.4f} by {f_bound[1]}); K6 sd 3 "
+          f"{k6_ms:.4f} ms (plain {k6_plain:.4f}, one SGEMM on a computed Phi {k6_lib:.4f}, "
+          f"bound {k6_bound[0]:.4f} by {k6_bound[1]}); a pass "
           f"writes {len(tab.alphas) * tab.rows * NPTS * 4 / 1e9:.3f} GB")
 
     # K3 against K7 on the f64 engine's merged arrays (632 x 288) and points
@@ -1351,6 +1408,9 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
               f_ms, f_plain, f_bound, f_lib),
         entry("K3 macro_oneshot sd 3 (sv_macro_tet interpolation)", src, replaces, w_launches,
               w_abs, w_ms, w_plain, w_bound, w_lib),
+        entry("K6 zoo_f32 sd 3 (sv_macro_tet)", "fiat_tpu_torch/csrc/zoo_f32.cu",
+              "fiat_tpu/ops/pallas_tabulate.py:248", k6_launches, k6_abs, k6_ms, k6_plain,
+              k6_bound, k6_lib),
     ]
 
 
@@ -1590,6 +1650,65 @@ def k45_cells(dev, card, torch, np, own):
                "resident warps an SM; host ms a call", cells, card, torch, own)
 
 
+def k6_cells(dev, card, torch, np, own):
+    """``python3 chip_smoke.py --k6-cells ROOT``: K6 alone, one call of its
+    wrapper, in every f32 cell (full_zoo, tet_lagrange8, hdiv_hcurl_tet,
+    sv_macro_tet at the main run's points), on the fiat_tpu_torch package of
+    the checkout at ROOT.  Prints {"k6_cells": {cell: [ms, device ms, SGEMM
+    ms, bound ms, device / bound, TB/s of out, FP32 peak share, host ms]}}:
+    CUDA events, the profiler's device time of every kernel the call
+    launches, one cuBLAS SGEMM (TF32 off) of the padded packed rows by a Phi
+    computed beforehand (this checkout's runs only; None for another's), the
+    bound, the rates at the device time and the host's time to issue one
+    call.  On this checkout it also prints {"k6_plans": {cell: {plan: device
+    ms}}}, the device time under every plan ``ZooF32Kernel.candidates``
+    offers (the wrapper's own plan first), and {"k6_clocks": {cell: [SM
+    MHz, W]}}, the card's clock and power draw while K6 runs back to back
+    (the FP32 peak scales with the clock)."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+
+    T, T3 = ufc_simplex(2), ufc_simplex(3)
+    P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev).float()
+    P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev).float()
+    lag8, hdiv = tet_zoos(T3)
+    plans, clocks = {}, {}
+
+    def k6(name, zoo, Q):
+        tab = device_tabulator(zoo, order=1, f64=False, device=dev)
+        k = tab.kernel
+        out = torch.empty((k.total_rows, NPTS), device=dev)
+
+        def run():
+            return k(Q, tab.dst_plain, out)
+
+        def more(ev, dev_ms):
+            ms = dev_ms or ev
+            bound = zoo_f32_bound(k, NPTS)[0]
+            row = [zoo_f32_library_ms(k, Q, torch) if own else None, bound, ms / bound,
+                   k.total_rows * NPTS * 4 / ms / 1e9,
+                   zoo_f32_flops(k, NPTS) / ms / FP32_FMA_MS, host_ms(run, torch)]
+            if own:
+                mine, plans[name] = k.plan, {}
+                for plan in [mine] + [p for p in k.candidates(k.kpad) if p != mine]:
+                    k.plan = plan
+                    plans[name][str(plan)] = device_ms(run, torch)
+                k.plan = mine
+                clocks[name] = clock_under_load(run, torch)
+            return row
+        return run, more
+
+    cells = {"full_zoo f32": lambda: k6("full_zoo f32", full_zoo(T), P),
+             "tet_lagrange8 f32": lambda: k6("tet_lagrange8 f32", lag8, P3),
+             "hdiv_hcurl_tet f32": lambda: k6("hdiv_hcurl_tet f32", hdiv, P3),
+             "sv_macro_tet f32": lambda: k6("sv_macro_tet f32", sv_macro_tet(T3), P3)}
+    time_cells("k6_cells", "one cuBLAS SGEMM (TF32 off) on a computed Phi ms; bound ms; "
+               "device / bound; TB/s of out and FP32 peak share at the device time; host ms "
+               "a call", cells, card, torch, own)
+    if own:
+        print(json.dumps({"k6_plans": plans}))
+        print(json.dumps({"k6_clocks": clocks}))
+
+
 def main():
     try:
         import torch
@@ -1598,7 +1717,8 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     here = root = Path(__file__).resolve().parent
-    modes = {"--k3-cells": k3_cells, "--k2-cells": k2_cells, "--k45-cells": k45_cells}
+    modes = {"--k3-cells": k3_cells, "--k2-cells": k2_cells, "--k45-cells": k45_cells,
+             "--k6-cells": k6_cells}
     mode = next((m for m in modes if m in sys.argv), None)
     if mode:
         root = Path(sys.argv[sys.argv.index(mode) + 1]).resolve()

@@ -67,7 +67,14 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "bulk_copy.cuh"
+
 namespace {
+
+using fiat::bulk_copy;
+using fiat::mbar_arrive;
+using fiat::mbar_init;
+using fiat::mbar_wait;
 
 constexpr int TR = 64;          // rows per tile
 constexpr int WARPS = 8;        // warps that multiply
@@ -98,47 +105,6 @@ __device__ __forceinline__ void mma_16x8x4(double* c, const double* a, double b)
       "{%0,%1,%2,%3};\n"
       : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
       : "d"(a[0]), "d"(a[1]), "d"(b));
-}
-
-// -- mbarriers and the bulk copy (PTX ISA 8.0, sm_90) ----------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// copy `bytes` (a multiple of 16) from global src to shared dst, completing
-// as transactions on `bar`, whose current phase expects them
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // Shared memory of a block, in doubles: the Phi tile, a ring of `stages` A
@@ -316,7 +282,7 @@ bucket_matmul_kernel(const double* __restrict__ At, int kpad, int kmax, int kc, 
           if (ahead.tile < ntiles) {
             mbar_wait(empty + s, (q / stages) & 1);  // every warp's reads, acquired
             // order those reads before the copy's writes (another proxy)
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            fiat::fence_async_smem();
             fetch(ahead, s);
           }
         }

@@ -22,6 +22,11 @@
 //   consts[4*i + {0,1,2,3}], i = 0..N          stage 0: a, b, c, norm
 //   consts[4*(N+1) + 4*e + {0,1,2,3}]          stage 1 entry e: a, b, c, norm
 // N == 0 calls emit(0, 0, 0, scale) and reads no constants.
+//
+// An optional last argument keep(r) (default: every row) skips the stage-1
+// rows r it refuses, so that two threads can share one point's recurrence
+// (K6 gives each half of its rows to one thread); the entries keep their
+// numbers.
 
 #pragma once
 
@@ -50,9 +55,14 @@ __device__ __forceinline__ T const_at(const ConstTable<T, M>& t, int i) { return
 __device__ __forceinline__ double fma_of(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
 
-template <int N, class T, class Consts, class Emit>
+// The default row filter of dubiner2_point / dubiner3_point: every row.
+struct AllRows {
+  __device__ constexpr bool operator()(int) const { return true; }
+};
+
+template <int N, class T, class Consts, class Emit, class Keep = AllRows>
 __device__ __forceinline__ void dubiner2_point(T x0, T x1, const Consts& consts, T scale,
-                                               Emit&& emit) {
+                                               Emit&& emit, Keep keep = {}) {
   if constexpr (N == 0) {
     emit(0, 0, 0, scale);
   } else {
@@ -85,6 +95,10 @@ __device__ __forceinline__ void dubiner2_point(T x0, T x1, const Consts& consts,
     int e = 0;
 #pragma unroll
     for (int r = 0; r <= N; ++r) {
+      if (!keep(r)) {
+        e += N - r + 1;
+        continue;
+      }
       T prev2 = T(0), prev = r1[r];
       emit(e, r, 0, prev * const_at(consts, c1 + 4 * e + 3));
       ++e;

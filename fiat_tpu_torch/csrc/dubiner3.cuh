@@ -27,7 +27,8 @@
 //   consts[4*(N+1) + 4*e1 + {0,1,2,3}]            stage 1 entry e1 (p, q)
 //   consts[4*(N+1) + 4*nexp2 + 4*e + {0,1,2,3}]   stage 2 entry e (p, q, r)
 // with nexp2 = (N+1)(N+2)/2.  N == 0 calls emit(0, scale) and reads no
-// constants.
+// constants.  An optional last argument keep(p) (default: every row)
+// skips the stage-1 rows p it refuses, as dubiner2_point's.
 
 #pragma once
 
@@ -46,9 +47,9 @@ __device__ __forceinline__ T dubiner_step(const Consts& consts, int o, T fa, T f
          (const_at(consts, o + 2) * fc) * prev2;
 }
 
-template <int N, class T, class Consts, class Emit>
+template <int N, class T, class Consts, class Emit, class Keep = AllRows>
 __device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const Consts& consts, T scale,
-                                               Emit&& emit) {
+                                               Emit&& emit, Keep keep = {}) {
   if constexpr (N == 0) {
     emit(0, scale);
   } else {
@@ -82,6 +83,11 @@ __device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const Consts& c
     int e1 = 0, e = 0;
 #pragma unroll
     for (int p = 0; p <= N; ++p) {
+      if (!keep(p)) {
+        e1 += N - p + 1;
+        e += (N - p + 1) * (N - p + 2) / 2;
+        continue;
+      }
       // stage 1, row p: levels q = 0..N-p in the second coordinate
       T prev2 = T(0), prev = r0[p];
 #pragma unroll

@@ -8,256 +8,134 @@
 // matmul on the MXU) and contracts the alpha-stacked change of basis with
 // it in one HIGHEST-precision MXU product, so the expansion table never
 // reaches HBM.  This kernel keeps that fusion: each block computes its
-// Phi tile (dubiner2.cuh in float, one point per thread) straight into
-// shared memory, and Phi never goes to device memory.  The expansion
-// variants ("bubble", "dual") are the same recurrence with other constants;
-// the bubble C0 recovery is folded into A on the host, as fiat_tpu does.
+// Phi tile (dubiner2.cuh / dubiner3.cuh in float) straight into shared
+// memory, and Phi never goes to device memory.  The expansion variants
+// ("bubble", "dual") are the same recurrence with other constants; the
+// bubble C0 recovery is folded into A on the host, as fiat_tpu does.
 // Plain f32 FMAs: no TF32, no tensor cores.
 //
-// Bound on the card: the store of out (4113 x 1e5 floats = 1.65 GB a
-// full_zoo pass at order 1) and the FP32 FMA rate (1.06e10 FMAs a pass over
-// the width groups).  Design: K2's (bucket_matmul.cu) in f32:
-//   * a block computes Phi[:nexp] for its 256-point tile into shared memory
-//     and walks the 64-row tiles of the stacked rows; gridDim.y blocks share
-//     a point tile, each taking every gridDim.y-th row tile (the wrapper
-//     picks the split that fills the last wave of blocks: 391 point tiles
-//     alone are 1.5 waves of the H100's 264 resident blocks);
-//   * the rows of all width groups are packed back to back, zero-padded to
-//     lda = the widest K, and cut into 64-row tiles, stored transposed
-//     (tile, k, row) so a block loads its tile with coalesced reads and
-//     conflict-free shared stores; a table gives each tile its first row,
-//     row count and contraction width (its widest row);
-//   * each thread keeps 8 rows x 8 points of accumulators, reads A and Phi
-//     from shared memory as float4, and stores out as float4 with
-//     evict-first hints;
-//   * dst maps every packed row to its output row, so the output comes out
-//     in the caller's layout (alpha-major, zoo row order) with no copy.
-// Each output is one sequential FMA chain over k = 0..K-1.
+// Bound on the card: the store of out where the rows are narrow (full_zoo:
+// 4113 x 1e5 floats, 1.65 GB a pass at order 1, against 1.06e10 FMAs) and
+// the FP32 FMA rate where they are wide (tet_lagrange8: 660 rows at K =
+// 165, 1.09e10 FMAs against 0.26 GB).  Design (the kernel template is in
+// zoo_f32.cuh):
+//   * a block of 2 TP threads (TP = 64 or 128 points) computes Phi[:kmax]
+//     for its point tile into shared memory, two threads a point, each the
+//     recurrence of half its stage-1 rows, and walks every 128-row tile of
+//     the stacked rows of all width groups;
+//   * A goes through a ring of 2 to STAGES chunks of kc rows of k: one thread
+//     issues a bulk copy (cp.async.bulk) of each chunk, completing on the
+//     buffer's "full" mbarrier; each warp done reading a buffer arrives on
+//     its "empty" mbarrier, and the last of them (a counter elects it)
+//     refills the buffer with the chunk STAGES ahead.  The host stores every
+//     row tile transposed at its own width (rounded up to DEPTH), tile after
+//     tile (ops/f32_zoo.py k6_layout), so a chunk is one contiguous copy; the
+//     first chunks are in flight while the recurrence runs, and no block
+//     barrier is left once the Phi tile is complete;
+//   * a warp owns 32 rows x 64 points, a lane 8 rows x 8 points of
+//     accumulators (lanes 8 to a row group, 4 row groups): a k-step reads two
+//     float4 of A (the 4 row groups' 16 bytes lie 32 bytes apart) and two of
+//     Phi (8 lanes' consecutive 16 bytes), one conflict-free 128-byte
+//     wavefront each, for 64 FMAs a lane; two sets of fragments alternate,
+//     so each k-step's loads run beside the last one's FMAs; the Phi tile
+//     keeps each pair of points' columns swapped, so that every FMA reads
+//     its accumulator and its Phi operand from the two register banks;
+//   * a warp contracts its 32 rows only to their widest row (the table
+//     holds each warp row's width): a tile that spans two width groups
+//     (full_zoo's 33 tiles of 4113 rows in 10 widths) pads only the warps
+//     that do, and a warp past a ragged tile's last row (tet_lagrange8's
+//     660 rows leave 20 in the last tile) skips its products;
+//   * a finished tile goes out from the accumulators as 16-byte stores
+//     (evict-first), 8 lanes writing a row's 128 contiguous bytes, so with no
+//     block barrier the stores of one warp run beside the products of the
+//     others; dst maps every packed row to its output row, so the output
+//     comes out in the caller's layout (alpha-major, zoo row order) with no
+//     copy;
+//   * the plan (point tile, chunk rows, chunks in the ring, blocks an SM) is
+//     chosen on the host per (sd, degree, width) (ZooF32Kernel.plan_for) so
+//     that at least two blocks share an SM, and one block's recurrence and
+//     fill run beside another's products; launch bounds give every point
+//     tile 16 warps' worth of registers an SM (128 a thread).  128-row tiles
+//     keep 16 warps an SM where the Phi tile leaves room for two blocks of
+//     128 points (tet_lagrange8's 85 KB); 64-row tiles held 8 (PERF.md).
+// Each output is one sequential FMA chain over k = 0..K_t - 1 (A's padding
+// is exact zeros), so two calls give the same bits.
 //
-// The tetrahedron (sd = 3, degree 0..10) runs the same kernel with the Phi
-// tile from dubiner3.cuh in float, each value to its morton row through
-// slots[e] (ops/recurrence.py:pack_stages(N, variant, sd=3)), as K1's sd = 3
-// stage writes them.  Its Phi tile is larger (165 rows at degree 8: 169 KB
-// at 256 points, one block per SM beside a 45 KB A tile); from degree 9 on
-// a 256-point tile does not fit a block's 227 KB, so the tile takes 128
-// points there (tile_points below; the wrapper sizes the grid from it).
+// The tetrahedron (sd = 3, degree 0..10) takes the Phi tile from
+// dubiner3.cuh in float, each value to its morton row through slots[e]
+// (ops/recurrence.py:pack_stages(N, variant, sd=3)), as K1's sd = 3 stage
+// writes them.
 
-#include <cuda_runtime.h>
+#include "zoo_f32.cuh"
 
-#include <cstddef>
-#include <cstdint>
+namespace fiat::k6 {
 
-#include "dubiner2.cuh"
-#include "dubiner3.cuh"
+FIAT_K6_INSTANTIATE(2, 128)
 
 namespace {
 
-struct Affine {
-  float a00, a01, a10, a11, b0, b1;
-};
-
-struct Affine3 {
-  float a[9], b[3];
-};
-
-constexpr int TR = 64;              // rows per tile
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int RI = TR / TY;         // rows per thread (contiguous)
-constexpr int TRP = TR + 4;         // padded row stride of the transposed A tile
-
-// points per block: 256, or 128 where a 256-point Phi tile of the
-// tetrahedron would not fit shared memory
-__host__ __device__ constexpr int tile_points(int sd, int n) {
-  return sd == 3 && n >= 9 ? 128 : 256;
+int members(int sd, int degree) {
+  return sd == 2 ? (degree + 1) * (degree + 2) / 2 : (degree + 1) * (degree + 2) * (degree + 3) / 6;
 }
 
-template <int SD, int N>
-struct Members {
-  static constexpr int value = SD == 2 ? (N + 1) * (N + 2) / 2 : (N + 1) * (N + 2) * (N + 3) / 6;
-};
-
-template <int SD, int N, class Map>
-__global__ void __launch_bounds__(TX * TY, 2)
-zoo_f32_kernel(const float* __restrict__ pts, int npts, const float* __restrict__ consts,
-               const int* __restrict__ slots, Map m, float scale, const float* __restrict__ At,
-               int lda, const int* __restrict__ tiles, int ntiles, const int* __restrict__ dst,
-               float* __restrict__ out) {
-  constexpr int NE = Members<SD, N>::value;
-  constexpr int TP = tile_points(SD, N);
-  constexpr int PJ4 = TP / (4 * TX);  // float4 point quads per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Bs = smem;              // [NE][TP]: Phi on this block's points
-  float* As = smem + NE * TP;    // [lda][TRP]: the current row tile, transposed
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const int p0 = blockIdx.x * TP;
-  // float4 paths need a whole tile and 16-byte aligned rows of out
-  const bool full = (p0 + TP <= npts) && ((npts & 3) == 0) &&
-                    ((reinterpret_cast<uintptr_t>(out) & 15) == 0);
-
-  // the Phi tile: one point per thread, each value to its morton row
-  if constexpr (SD == 2) {
-    const int p = p0 + tid;
-    const float px = p < npts ? pts[2 * p] : 0.0f;
-    const float py = p < npts ? pts[2 * p + 1] : 0.0f;
-    const float x0 = (px * m.a00 + py * m.a01) + m.b0;
-    const float x1 = (px * m.a10 + py * m.a11) + m.b1;
-    fiat::dubiner2_point<N>(x0, x1, consts, scale, [&](int, int r, int i, float v) {
-      Bs[((r + i) * (r + i + 1) / 2 + i) * TP + tid] = v;
-    });
-  } else if (tid < TP) {
-    const int p = p0 + tid;
-    const float px = p < npts ? pts[3 * p] : 0.0f;
-    const float py = p < npts ? pts[3 * p + 1] : 0.0f;
-    const float pz = p < npts ? pts[3 * p + 2] : 0.0f;
-    const float x0 = (px * m.a[0] + py * m.a[1] + pz * m.a[2]) + m.b[0];
-    const float x1 = (px * m.a[3] + py * m.a[4] + pz * m.a[5]) + m.b[1];
-    const float x2 = (px * m.a[6] + py * m.a[7] + pz * m.a[8]) + m.b[2];
-    fiat::dubiner3_point<N>(x0, x1, x2, consts, scale, [&](int e, float v) {
-      Bs[(N == 0 ? 0 : __ldg(slots + e)) * TP + tid] = v;
-    });
-  }
-
-  for (int t = blockIdx.y; t < ntiles; t += gridDim.y) {
-    const int row0 = __ldg(tiles + 3 * t);
-    const int nrows = __ldg(tiles + 3 * t + 1);
-    const int K = __ldg(tiles + 3 * t + 2);
-    __syncthreads();  // Bs written / the previous tile's reads of As done
-    const float* At_t = At + static_cast<size_t>(t) * lda * TR;  // [lda][TR]
-    for (int e = tid; e < TR * K; e += TX * TY) As[(e / TR) * TRP + e % TR] = At_t[e];
-    __syncthreads();
-
-    float4 acc[RI][PJ4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < PJ4; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 2
-    for (int k = 0; k < K; ++k) {
-      float a[RI];
-      float4 b[PJ4];
-#pragma unroll
-      for (int i = 0; i < RI; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(As + k * TRP + threadIdx.y * RI + i);
-        a[i] = v.x;
-        a[i + 1] = v.y;
-        a[i + 2] = v.z;
-        a[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < PJ4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(Bs + k * TP + 4 * threadIdx.x + 4 * TX * j);
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ4; ++j) {
-          acc[i][j].x = fmaf(a[i], b[j].x, acc[i][j].x);
-          acc[i][j].y = fmaf(a[i], b[j].y, acc[i][j].y);
-          acc[i][j].z = fmaf(a[i], b[j].z, acc[i][j].z);
-          acc[i][j].w = fmaf(a[i], b[j].w, acc[i][j].w);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = threadIdx.y * RI + i;
-      if (r >= nrows) continue;
-      float* orow = out + static_cast<size_t>(__ldg(dst + row0 + r)) * npts;
-#pragma unroll
-      for (int j = 0; j < PJ4; ++j) {
-        const int p = p0 + 4 * threadIdx.x + 4 * TX * j;
-        if (full) {
-          __stcs(reinterpret_cast<float4*>(orow + p), acc[i][j]);
-        } else {
-          if (p < npts) __stcs(orow + p, acc[i][j].x);
-          if (p + 1 < npts) __stcs(orow + p + 1, acc[i][j].y);
-          if (p + 2 < npts) __stcs(orow + p + 2, acc[i][j].z);
-          if (p + 3 < npts) __stcs(orow + p + 3, acc[i][j].w);
-        }
-      }
-    }
-  }
+// whether (sd, degree, kpad, kmax, tp, kc, stages, minb) is a plan this
+// kernel runs: kpad is kmax rounded up to DEPTH, a chunk is a positive
+// multiple of DEPTH rows, and minb blocks of tp threads fit an SM's
+// registers (the launch bounds) and shared memory
+bool valid(int sd, int degree, int kpad, int kmax, int tp, int kc, int stages, int minb) {
+  if ((sd != 2 && sd != 3) || degree < 0 || degree > (sd == 2 ? 15 : 10)) return false;
+  if (kmax < 1 || kmax > members(sd, degree) || kpad != (kmax + DEPTH - 1) / DEPTH * DEPTH)
+    return false;
+  if ((tp != 64 && tp != 128) || kc < DEPTH || kc % DEPTH != 0 || kc > kpad || stages < 2 ||
+      stages > STAGES || minb < 1 || minb * threads_of(tp) > THREADS_SM)
+    return false;
+  const size_t bytes = smem_bytes(kpad, tp, kc, stages);
+  return bytes <= SMEM_MAX &&
+         minb * ((bytes + SMEM_UNIT - 1) / SMEM_UNIT * SMEM_UNIT + SMEM_BLOCK) <= SMEM_SM;
 }
 
-template <int SD, int N, class Map>
-int launch(const float* pts, int npts, const float* consts, const int* slots, const Map& m,
-           float scale, const float* At, int lda, const int* tiles, int ntiles, const int* dst,
-           float* out, int splits, cudaStream_t stream) {
-  constexpr int TP = tile_points(SD, N);
-  const size_t bytes = sizeof(float) * (static_cast<size_t>(Members<SD, N>::value) * TP +
-                                        static_cast<size_t>(lda) * TRP);
-  const cudaError_t err = cudaFuncSetAttribute(zoo_f32_kernel<SD, N, Map>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(bytes));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, or the next launch's check would report it
-    return static_cast<int>(err);
-  }
-  const dim3 blocks((npts + TP - 1) / TP, splits);
-  zoo_f32_kernel<SD, N, Map><<<blocks, dim3(TX, TY), bytes, stream>>>(
-      pts, npts, consts, slots, m, scale, At, lda, tiles, ntiles, dst, out);
-  return static_cast<int>(cudaGetLastError());
+int dispatch(int sd, int tp, const Params& q, int degree, size_t bytes, cudaStream_t s) {
+  if (sd == 2)
+    return tp == 64 ? by_degree<2, 64>(q, degree, bytes, s) : by_degree<2, 128>(q, degree, bytes, s);
+  return tp == 64 ? by_degree<3, 64>(q, degree, bytes, s) : by_degree<3, 128>(q, degree, bytes, s);
 }
 
 }  // namespace
+}  // namespace fiat::k6
 
-// pts: device (npts, 2) f32; At: device (ntiles, lda, 64) f32, every
-// 64-row tile of the packed rows transposed and zero-padded to lda = the
-// widest K <= nexp(degree); tiles: device int32 (ntiles, 3) = (first row,
-// rows <= 64, K <= lda); dst: device int32 (rows,) output row of every
-// packed row; out: device (>= max dst + 1, npts) f32; splits: blocks per
-// point tile (1 <= splits <= ntiles).  Returns cudaGetLastError() after the
-// launch, or the attribute call's error (a tile that needs more shared
-// memory than a block may have), which is then cleared and nothing is
-// launched; cudaErrorInvalidValue for a degree outside 0..15, lda past the
-// degree's members or splits out of range.
-extern "C" int fiat_zoo_f32(const float* pts, int npts, const float* consts, float a00,
-                            float a01, float a10, float a11, float b0, float b1, float scale,
-                            int degree, const float* At, int lda, const int* tiles, int ntiles,
-                            const int* dst, float* out, int splits, void* stream) {
-  if (degree < 0 || lda > (degree + 1) * (degree + 2) / 2 || splits < 1 || splits > ntiles)
+// pts: device (npts, sd) f32, sd 2 or 3; consts, slots: pack_stages(degree,
+// variant, sd) on the device (slots read at sd = 3 only); affine: HOST array
+// of sd * sd + sd floats (A row-major, then b) mapping the points onto the
+// default simplex; At: device (sum of widths, 128) f32, every 128-row tile
+// of the packed rows transposed at its width, tile after tile; tiles: device
+// int32 (ntiles, 8) = (first row, rows <= 128, width (even, <= kpad), first
+// row of At, the width of each 32-row warp slab (even, <= the tile's, 0
+// past its rows)); kmax: the widest row (Phi rows read), kpad: kmax rounded up
+// to 2; dst: device int32, the output row of every packed row; out: device
+// (>= max dst + 1, npts) f32; (tp, kc, stages, minb): the plan.  Returns
+// cudaGetLastError() after the launch; cudaErrorInvalidValue, launching
+// nothing, for a degree or plan outside what the kernel takes (`valid`).
+extern "C" int fiat_zoo_f32(const float* pts, int npts, int sd, const float* consts,
+                            const int* slots, const float* affine, float scale, int degree,
+                            const float* At, int kpad, int kmax, const int* tiles, int ntiles,
+                            const int* dst, float* out, int tp, int kc, int stages, int minb,
+                            void* stream) {
+  using namespace fiat::k6;
+  if (!valid(sd, degree, kpad, kmax, tp, kc, stages, minb) || npts < 0 || ntiles < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Affine m{a00, a01, a10, a11, b0, b1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define FIAT_CASE(n) \
-  case n:            \
-    return launch<2, n>(pts, npts, consts, nullptr, m, scale, At, lda, tiles, ntiles, dst, out, \
-                        splits, s);
-    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
-    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10) FIAT_CASE(11)
-    FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
-#undef FIAT_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  Params q{pts, npts, consts, slots, {}, scale, At, kpad, kmax, tiles, ntiles, dst, out, kc,
+           stages};
+  for (int i = 0; i < sd * sd + sd; ++i) q.aff[i] = affine[i];
+  return dispatch(sd, tp, q, degree, 0, static_cast<cudaStream_t>(stream));
 }
 
-// The tetrahedron: pts (npts, 3) f32, slots (pack_stages(degree, variant,
-// sd=3)), the rest as above, lda at most the degree's members; tp must be
-// the kernel's point tile (256, or 128 from degree 9), which the wrapper
-// sized the grid and the splits for.  cudaErrorInvalidValue for a degree
-// outside 0..10 or a tp that differs.
-extern "C" int fiat_zoo3_f32(const float* pts, int npts, const float* consts, const int* slots,
-                             float a00, float a01, float a02, float a10, float a11, float a12,
-                             float a20, float a21, float a22, float b0, float b1, float b2,
-                             float scale, int degree, const float* At, int lda, const int* tiles,
-                             int ntiles, const int* dst, float* out, int splits, int tp,
-                             void* stream) {
-  if (degree < 0 || degree > 10 || lda > (degree + 1) * (degree + 2) * (degree + 3) / 6 ||
-      splits < 1 || splits > ntiles || tp != tile_points(3, degree))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Affine3 m{{a00, a01, a02, a10, a11, a12, a20, a21, a22}, {b0, b1, b2}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define FIAT_CASE(n)                                                                        \
-  case n:                                                                                   \
-    return launch<3, n>(pts, npts, consts, slots, m, scale, At, lda, tiles, ntiles, dst, out, \
-                        splits, s);
-    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
-    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
-#undef FIAT_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Blocks of the plan an SM holds at once (registers and shared memory, by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error;
+// -cudaErrorInvalidValue for a plan fiat_zoo_f32 refuses.
+extern "C" int fiat_zoo_f32_occupancy(int sd, int degree, int kpad, int kmax, int tp, int kc,
+                                      int stages, int minb) {
+  using namespace fiat::k6;
+  if (!valid(sd, degree, kpad, kmax, tp, kc, stages, minb))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(sd, tp, Params{}, degree, smem_bytes(kpad, tp, kc, stages), nullptr);
 }

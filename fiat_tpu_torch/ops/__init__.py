@@ -4,8 +4,13 @@
 the kernel engine on the requested device.
 """
 
+#: fiat_tpu's keywords that only steer its TPU engines (point tile, the
+#: Ozaki / native matmul, the MXU word type, Pallas interpret mode): taken
+#: and ignored, so that fiat_tpu's callers run unchanged
+TPU_ONLY = ("tile", "matmul", "wdtype", "interpret")
 
-def device_tabulator(elements, order=0, f64=True, device=None):
+
+def device_tabulator(elements, order=0, f64=True, device=None, derivs="dmats", **tpu_only):
     """The kernel engine for a zoo of nodal elements sharing a reference
     cell, plain and macro, tabulating derivatives up to ``order`` on
     ``device``: the current CUDA card when None (raising without one), the
@@ -23,8 +28,24 @@ def device_tabulator(elements, order=0, f64=True, device=None):
       triangles and tetrahedra; ``tab.tables(points)`` gives the whole
       zoo's float32 tables.
 
+    It takes fiat_tpu's keywords: ``derivs="dmats"`` (derivatives as
+    change-of-basis rows on the order-0 recurrence, the only route the port
+    has; ``"jets"``, the Taylor-jet recurrence, raises
+    ``NotImplementedError``), and ``tile``, ``matmul``, ``wdtype`` and
+    ``interpret``, which steer fiat_tpu's TPU engines only and are
+    ignored.  Any other keyword is a ``TypeError``.
+
     Never returns a slower engine in place of the one asked for: what is
     not ported yet raises ``NotImplementedError``."""
+    unknown = sorted(set(tpu_only) - set(TPU_ONLY))
+    if unknown:
+        raise TypeError(f"device_tabulator() got unexpected keyword arguments {unknown}")
+    if derivs == "jets":
+        raise NotImplementedError(
+            "derivs='jets' (the Taylor-jet recurrence of fiat_tpu's BatchedTabulator) is not "
+            "ported: the engines take derivs='dmats'")
+    if derivs != "dmats":
+        raise ValueError(f"derivs {derivs!r}: 'dmats' or 'jets'")
     from .kernels import resolve_device
     from .tabulate import BatchedTabulator
     device = resolve_device(device)

@@ -19,13 +19,14 @@ version of K6 is the eager f32 recurrence and a per-group f32
 tensor it launches the kernel or raises.
 """
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
 from ..core.expansions import _c0_matrix, dubiner_tabulate
-from .fused_zoo import _merge_macro_programs, group_by_width, pack_rows, transposed_tiles
+from .fused_zoo import _merge_macro_programs, group_by_width, pack_rows
 from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream_of
 from .macro_oneshot import MacroOneShot
 from .recurrence import pack_stages
@@ -36,11 +37,31 @@ MAX_DEGREE = {2: 15, 3: 10}
 VARIANTS = (None, "bubble", "dual")
 
 
-def tile_points(sd, degree):
-    """Points of one block's Phi tile (csrc/zoo_f32.cu ``tile_points``): 256,
-    or 128 on the tetrahedron from degree 9, where 256 points of Phi would
-    not fit a block's shared memory."""
-    return 128 if sd == 3 and degree >= 9 else 256
+def k6_layout(packed, tiles, row_width, kpad, depth, tile_rows, warp_rows):
+    """K6's A operand (``csrc/zoo_f32.cu``): every ``tile_rows``-row tile of
+    ``pack_rows``' output transposed at its own width, the widest row it
+    holds rounded up to ``depth`` (at most ``kpad``; the padding is exact
+    zeros), tile after tile, so that any run of a tile's rows of k is one
+    contiguous copy.  Returns (At float32 (sum of the widths, tile_rows),
+    the tile table int32 (ntiles, 4 + tile_rows / warp_rows) = (first row,
+    rows, width, first row of At, then the width of each ``warp_rows``-row
+    slab, its widest row in ``row_width`` rounded up alike, 0 past the
+    tile's rows))."""
+    def even(k):
+        return min(kpad, -(-int(k) // depth) * depth)
+
+    width = [even(k) for _, _, k in tiles]
+    first = np.concatenate([[0], np.cumsum(width)]).astype(int)
+    padded = np.zeros((packed.shape[0], kpad))
+    padded[:, :packed.shape[1]] = packed
+    At = np.zeros((first[-1], tile_rows), np.float32)
+    table = []
+    for (r0, n, _), w, f in zip(tiles, width, first):
+        At[f:f + w, :n] = padded[r0:r0 + n, :w].T
+        slabs = [even(row_width[r0 + s:r0 + min(n, s + warp_rows)].max()) if s < n else 0
+                 for s in range(0, tile_rows, warp_rows)]
+        table.append((r0, n, w, f, *slabs))
+    return At, np.asarray(table, np.int32).reshape(-1, 4 + tile_rows // warp_rows)
 
 
 class ZooF32Kernel:
@@ -53,14 +74,34 @@ class ZooF32Kernel:
     given, on the cell mapped onto the default triangle or tetrahedron by
     ``affine_map`` (points (npts, sd), sd 2 or 3).
 
-    Rows are packed back to back, zero-padded to the widest K and cut into
-    64-row tiles (K2's layout).  The kernel reads the tiles transposed
-    (``At``, on the device); the packed rows ``A`` serve the plain version
-    only and live where it last ran.  ``launches`` counts kernel launches
-    (the plain CPU path adds nothing)."""
+    Rows are packed back to back, zero-padded to the widest K (``max_k``)
+    and cut into 128-row tiles (K2's ``pack_rows``); the kernel reads the
+    tiles transposed at their own widths (``At`` and the table ``tiles``,
+    with each warp slab's width, ``k6_layout``, on the device); the packed
+    rows ``A`` serve the plain version only and live where it last ran.
+    ``plan`` is the kernel's (point tile, A rows of a chunk, chunks in the
+    ring, blocks an SM), ``plan_for``'s choice; ``launches`` counts kernel
+    launches (the plain CPU path adds nothing)."""
 
-    #: rows of one kernel tile (csrc/zoo_f32.cu, TR)
-    TILE_ROWS = 64
+    #: rows of one kernel tile and of a warp's (csrc/zoo_f32.cuh, TR,
+    #: WARP_ROWS: a warp holds 32 rows x 64 points, a lane 8 x 8)
+    TILE_ROWS, WARP_ROWS = 128, 32
+    #: k-steps of one turn of the product loop: widths, the Phi tile and the
+    #: chunks are multiples of it
+    DEPTH = 2
+    #: the most A chunks in the ring and the fewest, and the fewest A rows
+    #: worth a chunk
+    STAGES, MIN_STAGES, KC_MIN = 4, 2, 16
+    #: point tiles, widest first (a block has 4 warps along the rows of a
+    #: tile, tp / 64 along the points: two threads a point)
+    POINT_TILES = (128, 64)
+    #: the fewest blocks an SM (one's recurrence beside another's products),
+    #: the threads an SM the launch bounds leave registers for, and the most
+    #: row tiles for which the narrowest point tile is preferred
+    MIN_BLOCKS, THREADS_SM, FEW_TILES = 2, 512, 2
+    #: shared memory a block may take on sm_90, an SM's, what the SM keeps
+    #: for each resident block, and the unit it allocates a block's in
+    SMEM_MAX, SMEM_SM, SMEM_BLOCK, SMEM_UNIT = 232448, 233472, 1024, 128
 
     def __init__(self, mats, degree, scale, affine_map, variant=None, device=None):
         Af, bf = affine_map
@@ -76,29 +117,86 @@ class ZooF32Kernel:
             raise NotImplementedError(f"expansion variant {variant!r}: K6 takes {VARIANTS}")
         self.variant = variant
         self.nexp = math.comb(self.degree + self.sd, self.sd)
-        #: points of one block's Phi tile
-        self.tile_points = tile_points(self.sd, self.degree)
         packed, tiles, self.K, self.group_rows, self.offsets = pack_rows(mats, self.TILE_ROWS)
         self.total_rows, self.max_k = packed.shape
         if self.max_k > self.nexp:
             raise ValueError(f"a row is {self.max_k} wide; the degree-{degree} basis has "
                              f"{self.nexp} members")
+        self.kpad = -(-self.max_k // self.DEPTH) * self.DEPTH
         self.scale = float(scale)
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
         self.device = resolve_device(device)
-        # every row tile transposed, (tile, k, row), for the kernel's loads
         self.A = torch.as_tensor(packed).float()
-        self.At = torch.as_tensor(transposed_tiles(packed, tiles, self.TILE_ROWS),
-                                  device=self.device).float()
-        self.tiles = torch.as_tensor(tiles, device=self.device)
-        # shared memory of a block: the Phi tile and one transposed A tile
-        self.smem = 4 * (self.nexp * self.tile_points + self.max_k * (self.TILE_ROWS + 4))
+        At, table = k6_layout(packed, tiles, np.repeat(self.K, self.group_rows), self.kpad,
+                              self.DEPTH, self.TILE_ROWS, self.WARP_ROWS)
+        self.plan = self.plan_for(self.kpad, len(table))
+        self.At = torch.as_tensor(At, device=self.device)
+        self.tiles = torch.as_tensor(table, device=self.device)
         consts, slots = pack_stages(self.degree, variant, sd=self.sd)
         self.consts = torch.as_tensor(consts, device=self.device).float()
         self.slots = torch.as_tensor(slots, device=self.device)   # read at sd = 3 only
         self.device = self.At.device       # "cuda" resolved to its index
         self.launches = 0
+
+    @classmethod
+    def threads(cls, tp):
+        """Threads of a block of ``tp`` points (``threads_of``)."""
+        return cls.TILE_ROWS // cls.WARP_ROWS * tp // 2
+
+    @classmethod
+    def smem_bytes(cls, kpad, tp, kc, stages):
+        """Shared memory of a block: the Phi tile, a ring of ``stages`` A
+        chunks, and the ring's two mbarriers and counter a buffer
+        (``smem_bytes``)."""
+        return 4 * (kpad * tp + stages * kc * cls.TILE_ROWS) + 8 * 3 * cls.STAGES
+
+    @classmethod
+    def fit(cls, kpad, tp, blocks):
+        """(tp, A chunk rows, chunks in the ring, blocks) with the widest
+        chunk, a multiple of DEPTH up to kpad, that MIN_STAGES of leave room
+        for beside the Phi tile in the shared memory of
+        ``blocks`` blocks an SM, and as many of those chunks as fit, up to
+        STAGES; None past the launch bounds' registers or if that chunk is
+        under ``min(kpad, KC_MIN)`` rows."""
+        if blocks * cls.threads(tp) > cls.THREADS_SM:
+            return None
+        chunk = 4 * cls.TILE_ROWS                 # bytes of one row of k in a chunk
+        budget = min(cls.SMEM_MAX, (cls.SMEM_SM // blocks - cls.SMEM_BLOCK)
+                     // cls.SMEM_UNIT * cls.SMEM_UNIT)
+        free = budget - cls.smem_bytes(kpad, tp, 0, 0)
+        kc = min(kpad, max(0, free) // (cls.MIN_STAGES * chunk) // cls.DEPTH * cls.DEPTH)
+        if kc < min(kpad, cls.KC_MIN):
+            return None
+        return tp, kc, min(cls.STAGES, free // (kc * chunk)), blocks
+
+    @classmethod
+    def candidates(cls, kpad):
+        """Every plan ``fit`` takes for a Phi tile of ``kpad`` rows: each
+        point tile at each count of blocks an SM from the most the launch
+        bounds allow down to MIN_BLOCKS."""
+        return [plan for tp in cls.POINT_TILES
+                for blocks in range(cls.THREADS_SM // cls.threads(tp), cls.MIN_BLOCKS - 1, -1)
+                if (plan := cls.fit(kpad, tp, blocks)) is not None]
+
+    @classmethod
+    def plan_for(cls, kpad, ntiles):
+        """(point tile, A chunk rows, chunks in the ring, blocks an SM) for a
+        Phi tile of ``kpad`` rows and ``ntiles`` row tiles: of the
+        ``candidates``, the one that keeps most threads an SM, then the
+        widest point tile (fewer reads of A) or, for at most FEW_TILES row
+        tiles, the narrowest (more, shorter blocks, whose set-up weighs most
+        when a block walks few tiles), then the widest chunk and the deepest
+        ring.  None if no point tile fits MIN_BLOCKS blocks."""
+        sign = -1 if ntiles <= cls.FEW_TILES else 1
+        return max(cls.candidates(kpad),
+                   key=lambda p: (cls.threads(p[0]) * p[3], sign * p[0], p[1], p[2]), default=None)
+
+    @property
+    def smem(self):
+        """Shared memory of one of the plan's blocks, in bytes."""
+        tp, kc, stages, _ = self.plan
+        return self.smem_bytes(self.kpad, tp, kc, stages)
 
     def _check(self, points, dst, out):
         if not isinstance(points, torch.Tensor):
@@ -130,50 +228,49 @@ class ZooF32Kernel:
         if npts == 0:
             return out
         lib = load_kernels()
-        common = (self.scale, self.degree, self.At.data_ptr(), self.max_k, self.tiles.data_ptr(),
-                  self.tiles.shape[0], dst.data_ptr(), out.data_ptr(),
-                  self.splits(npts, points.device))
-        if self.sd == 2:
-            name = "fiat_zoo_f32"
-            err = lib.fiat_zoo_f32(points.data_ptr(), npts, self.consts.data_ptr(),
-                                   *self.affine.tolist(), *common, stream_of(points))
-        else:
-            name = "fiat_zoo3_f32"
-            err = lib.fiat_zoo3_f32(points.data_ptr(), npts, self.consts.data_ptr(),
-                                    self.slots.data_ptr(), *self.affine.tolist(), *common,
-                                    self.tile_points, stream_of(points))
-        check_launch(f"{name} (degree {self.degree}, width {self.max_k})", err)
+        tp, kc, stages, blocks = self.plan
+        affine = (ctypes.c_float * 12)(*self.affine)
+        err = lib.fiat_zoo_f32(points.data_ptr(), npts, self.sd, self.consts.data_ptr(),
+                               self.slots.data_ptr(), affine, self.scale, self.degree,
+                               self.At.data_ptr(), self.kpad, self.max_k, self.tiles.data_ptr(),
+                               self.tiles.shape[0], dst.data_ptr(), out.data_ptr(), tp, kc,
+                               stages, blocks, stream_of(points))
+        check_launch(f"fiat_zoo_f32 (sd {self.sd}, degree {self.degree}, width {self.max_k}, "
+                     f"plan {self.plan})", err)
         self.launches += 1
         return out
 
-    def splits(self, npts, device):
-        """Blocks per point tile, each taking every splits-th row tile: the
-        split (at most 4) whose blocks fill their last wave on the card best
-        (two blocks fit an SM while their shared memory allows, as the
-        kernel's launch bounds ask)."""
-        ptiles = -(-npts // self.tile_points)
-        per_sm = max(1, min(2, 232448 // self.smem))
-        slots = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    def occupancy(self):
+        """Blocks of the plan an SM holds at once on the card (registers and
+        shared memory), from the CUDA runtime."""
+        blocks = load_kernels().fiat_zoo_f32_occupancy(self.sd, self.degree, self.kpad,
+                                                       self.max_k, *self.plan)
+        check_launch("fiat_zoo_f32_occupancy", max(0, -blocks))
+        return blocks
 
-        def fill(s):
-            waves = ptiles * s / slots
-            return waves / np.ceil(waves)
-        return max(range(1, min(4, self.tiles.shape[0]) + 1), key=lambda s: (fill(s), -s))
-
-    def plain(self, points, dst, out):
-        """The same rows in plain PyTorch, on the points' device: the eager
-        f32 recurrence and one full-f32 matmul per group."""
+    def phi(self, points):
+        """The plain Phi (nexp, npts) at ``points``, on their device: the
+        eager f32 recurrence on the default simplex."""
         sd = self.sd
         Af = points.new_tensor(self.affine[:sd * sd].reshape(sd, sd))
         ref = points @ Af.T + points.new_tensor(self.affine[sd * sd:])
-        phi = dubiner_tabulate(sd, self.degree, [ref[:, i] for i in range(sd)], self.scale,
-                               variant=self.variant, raw=True)
-        self.A = A = self.A.to(points.device)
+        return dubiner_tabulate(sd, self.degree, [ref[:, i] for i in range(sd)], self.scale,
+                                variant=self.variant, raw=True)
+
+    def product(self, phi, dst, out):
+        """``out[dst[row]] = A_g[r] @ phi[:K_g]`` for every packed row, one
+        full-f32 matmul per group, on phi's device."""
+        self.A = A = self.A.to(phi.device)
         dst = dst.long()
         with no_tf32():
             for off, K, rows in zip(self.offsets, self.K, self.group_rows):
                 out[dst[off:off + rows]] = A[off:off + rows, :K] @ phi[:K]
         return out
+
+    def plain(self, points, dst, out):
+        """The same rows in plain PyTorch, on the points' device: the eager
+        f32 recurrence and one full-f32 matmul per group."""
+        return self.product(self.phi(points), dst, out)
 
 
 class F32ZooTabulator:

@@ -63,13 +63,13 @@ SIGNATURES = {
     # pts, npts, sd, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
     # phi, out, stream
     "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
-    # pts, npts, consts, affine[6], scale, degree, At, lda, tiles, ntiles, dst,
-    # out, splits, stream
-    "fiat_zoo_f32": [_P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P, _I, _P, _P, _I,
+    # pts, npts, sd, consts, slots, affine[12] (host array), scale, degree, At, kpad,
+    # kmax, tiles, ntiles, dst, out, tp, kc, stages, minb, stream
+    "fiat_zoo_f32": [_P, _I, _I, _P, _P, _P, _F, _I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                      _P],
-    # pts, npts, consts, slots, affine[12], scale, degree, At, lda, tiles, ntiles,
-    # dst, out, splits, tile_points, stream
-    "fiat_zoo3_f32": [_P, _I, _P, _P, *[_F] * 12, _F, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P],
+    # sd, degree, kpad, kmax, tp, kc, stages, minb (returns blocks an SM, or
+    # minus the error)
+    "fiat_zoo_f32_occupancy": [_I] * 8,
 }
 
 

@@ -1,10 +1,15 @@
 """The f32 engine (``ops/f32_zoo.F32ZooTabulator``: K6's and K3's float32
 plain versions) against fiat_tpu's ``PallasZooTabulator`` in interpret mode,
 as fiat_tpu's own tests run it (tests/test_device_ops.py), and against the
-port's float64 tables.
+port's float64 tables.  K6's host layout and plan on the CPU: a numpy replay
+of the kernel's schedule on ``ZooF32Kernel``'s device arrays (the ring of A
+chunks, row and point tiles, each lane's fragments and stores) against the
+plain product, bit for bit on integers under every plan; the shared-memory
+addresses of its fragments; the plan's shared memory at every degree.
 
 Inputs are numpy arrays made from seeds and handed to both packages."""
 
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -190,3 +195,205 @@ def test_float32_binning_equals_fiat_tpu_masks():
                                                  raw=True)
             for gm, wm in zip(g, w):
                 assert np.array_equal(gm.numpy(), np.asarray(wm)), (split, unique)
+
+
+# -- K6's schedule on the card, replayed on the CPU ---------------------------
+
+LANE = np.arange(32)
+RG, PG = LANE >> 3, LANE & 7        # a lane's row group and point group
+
+
+def _lane_tiles(tp):
+    """Per warp and lane, as the kernel computes them: the lane's first row
+    in a row tile (W, 32) and first point in a point tile (W, 32); the warp
+    tile's place (wr, wp) in the block tile."""
+    warps = np.arange(ZooF32Kernel.threads(tp) // 32)
+    wr, wp = warps // (tp // 64), warps % (tp // 64)
+    return (wr[:, None] * 32 + 8 * RG[None]), (wp[:, None] * 64 + 4 * PG[None]), wr, wp
+
+
+def k6_replay(k6, phi, dst, out, pad):
+    """``out`` as K6 leaves it, from ``k6.At``, ``k6.tiles`` and ``k6.plan``:
+    per point tile the Phi tile in shared memory (``phi``'s columns, ``pad``
+    (kmax, tp) past the last point as the recurrence at x = 0 gives them,
+    each pair of points' columns swapped, zeros past kmax, NaN elsewhere),
+    every lane pairing the Phi it loads for point p with its accumulator for
+    point p ^ 1, every row tile's A chunks as the bulk
+    copies bring them into the ring (NaN until copied), each lane's 8 x 8
+    float32 accumulators over its two A and two Phi float4 a k-step, up to
+    its warp's width in the table, and each finished tile's rows stored
+    from the lanes to ``out[dst]``, the points past the last one dropped."""
+    tp, kc, stages, _ = k6.plan
+    At, tiles, dst = k6.At.numpy(), k6.tiles.numpy(), dst.numpy()
+    npts, W, TR = phi.shape[1], ZooF32Kernel.threads(tp) // 32, ZooF32Kernel.TILE_ROWS
+    row_l, pt_l, wr, _ = _lane_tiles(tp)
+    rows8 = row_l[..., None] + np.arange(8)                                   # (W, 32, 8)
+    pts8 = pt_l[..., None, None] + 32 * np.arange(2)[:, None] + np.arange(4)  # (W, 32, 2, 4)
+    chunks = [(t, k0, min(kc, int(w) - k0)) for t, (_, _, w, *_) in enumerate(tiles)
+              for k0 in range(0, int(w), kc)]
+    for p0 in range(0, npts, tp):
+        cols = min(tp, npts - p0)
+        Bs = np.full((k6.kpad, tp), np.nan, np.float32)
+        Bs[:k6.max_k, :cols] = phi[:k6.max_k, p0:p0 + cols]
+        Bs[:k6.max_k, cols:] = pad[:, cols:]
+        Bs[k6.max_k:] = 0.0
+        Bs = Bs[:, np.arange(tp) ^ 1]                    # point pt at column pt ^ 1
+        ring = np.full((stages, kc, TR), np.nan, np.float32)
+
+        def fetch(q):
+            t, k0, kn = chunks[q]
+            first = tiles[t, 3]
+            ring[q % stages, :kn] = At[first + k0:first + k0 + kn]
+
+        for q in range(min(stages, len(chunks))):
+            fetch(q)
+        q = 0
+        for row0, nrows, width, _, *warp_width in tiles:
+            acc = np.zeros((W, 32, 8, 2, 4), np.float32)
+            kw = np.asarray(warp_width)[wr]                # each warp's width
+            for k0 in range(0, width, kc):
+                buf = ring[q % stages]
+                for kk in range(min(kc, width - k0)):
+                    a = buf[kk, rows8]                      # the lane's A fragments
+                    b = Bs[k0 + kk, pts8][..., [1, 0, 3, 2]]  # Phi, paired as fma8 does
+                    on = k0 + kk < kw
+                    acc[on] += (a[..., :, None, None] * b[..., None, :, :])[on]
+                if q + stages < len(chunks):               # the last warp refills it
+                    fetch(q + stages)
+                q += 1
+            keep = (rows8 < nrows)[..., None, None] & (p0 + pts8 < npts)[..., None, :, :]
+            r = np.broadcast_to(rows8[..., None, None], keep.shape)[keep]
+            p = np.broadcast_to((p0 + pts8)[..., None, :, :], keep.shape)[keep]
+            out[dst[row0 + r], p] = acc[keep]
+    return out
+
+
+def _replay_check(k6, phi, exact=False, seed=0):
+    rng = _rng(seed)
+    npts = phi.shape[1]
+    pad = rng.standard_normal((k6.max_k, k6.plan[0])).astype(np.float32)
+    dst = torch.as_tensor(rng.permutation(k6.total_rows + 5)[:k6.total_rows].astype(np.int32))
+    got = k6_replay(k6, phi, dst, np.full((k6.total_rows + 5, npts), np.nan, np.float32), pad)
+    want = k6.product(torch.as_tensor(phi), dst,
+                      torch.full((k6.total_rows + 5, npts), float("nan"))).numpy()
+    assert k6.launches == 0
+    untouched = np.setdiff1d(np.arange(k6.total_rows + 5), dst.numpy())
+    assert np.isnan(got[untouched]).all() and np.isnan(want[untouched]).all()
+    rows = dst.numpy()
+    if exact:
+        np.testing.assert_array_equal(got[rows], want[rows])
+    else:
+        assert np.isfinite(got[rows]).all()
+        assert np.abs(got[rows] - want[rows]).max() <= 1e-5 * np.abs(want[rows]).max()
+
+
+def _kernel(sd, degree, shapes, seed=0, integers=False):
+    rng = _rng(seed)
+    mats = [(rng.integers(-8, 9, s).astype(np.float64) if integers else rng.standard_normal(s))
+            for s in shapes]
+    es = texp.ExpansionSet(tcl.ufc_simplex(sd))
+    return ZooF32Kernel(mats, degree, float(es.get_scale(degree)), es.affine_mappings[0],
+                        device="cpu")
+
+
+@pytest.mark.parametrize("case", [
+    (2, 10, ((70, 66), (9, 3))), (3, 8, ((70, 165),)), (2, 2, ((1, 1), (63, 1), (2, 3))),
+    (3, 3, ((40, 20), (100, 10), (3, 4))), (3, 10, ((65, 286),))])
+@pytest.mark.parametrize("npts", [1, 255, 300, 517])
+def test_replay_of_the_schedule_matches_plain(case, npts):
+    """Ragged row tiles and points (whole tiles of 300 go out as bulk
+    copies, a tile of 517 one value at a time), widths of 1 (a Phi tile
+    padded to 2 rows) to 286, multi-chunk tiles, on Phi from the plain
+    recurrence at the cell's points; rows outside dst keep their NaN."""
+    sd, degree, shapes = case
+    k6 = _kernel(sd, degree, shapes, seed=npts)
+    pts = _rng(npts).random((npts, sd))
+    pts = pts / (pts.sum(axis=1)[:, None] + 1e-9) * _rng(npts + 1).random((npts, 1))
+    phi = k6.phi(torch.as_tensor(pts, dtype=torch.float32)).numpy()
+    _replay_check(k6, phi, seed=npts)
+
+
+@pytest.mark.parametrize("sd,degree,width", [(2, 10, 66), (3, 3, 20), (3, 8, 165)])
+def test_replay_is_exact_on_integers_under_every_plan(sd, degree, width):
+    """Integer A and Phi in [-8, 8]: every partial sum is exact in float32,
+    so the replay equals the plain product bit for bit under every plan the
+    host offers (rings of 2 to 4 chunks, tiles of 1 to several chunks, point
+    tiles of 64, 128 and 256) and no index can hide under a tolerance."""
+    k6 = _kernel(sd, degree, ((90, width), (41, 7)), integers=True)
+    phi = _rng(width).integers(-8, 9, (k6.max_k, 300)).astype(np.float32)
+    plans = k6.candidates(k6.kpad)
+    assert {p[0] for p in plans} == set(ZooF32Kernel.POINT_TILES) or width == 165
+    for plan in plans:
+        k6.plan = plan
+        _replay_check(k6, phi, exact=True, seed=plan[1])
+
+
+@pytest.mark.parametrize("tp", ZooF32Kernel.POINT_TILES)
+def test_fragment_and_store_addresses_are_conflict_free(tp):
+    """Shared memory serves 128 bytes a wavefront.  Each k-step's float4
+    loads of A (4 row groups' 16 bytes, 32 bytes apart) and of Phi (8
+    lanes' consecutive 16 bytes, broadcast to the 4 row groups) touch at
+    most 8 distinct 16-byte words in 8 distinct bank groups: one wavefront
+    each.  The recurrence's writes of a warp (one member, 32 consecutive
+    points, each pair's columns swapped) take 32 distinct banks.  Each 16-byte store of a row group
+    (8 lanes) writes 128 contiguous, 128-byte aligned bytes of one row of
+    the tile; the ring's buffers and every chunk's source in At are 16-byte
+    aligned, as the bulk copies need."""
+    row_l, pt_l, _, _ = _lane_tiles(tp)
+    kc, TR = 42, ZooF32Kernel.TILE_ROWS
+    for k in (0, 1, 5):
+        for h in range(2):
+            a = 4 * 7 * kc * TR + k * TR + row_l + 4 * h      # floats, in ring buffer 7
+            b = k * tp + pt_l + 32 * h
+            for addr in (a, b):
+                for warp in addr:
+                    words = np.unique(warp)
+                    assert (words % 4 == 0).all() and len(words) <= 8
+                    assert len(set((words // 4) % 8)) == len(words)
+    for m in (0, 3):                   # two threads a point, at column pt ^ 1
+        cols = m * tp + (np.arange(2 * tp) % tp ^ 1)
+        assert all(len(set(warp % 32)) == 32 for warp in cols.reshape(-1, 32))
+    for j in range(2):
+        for warp_rows, warp_pts in zip(row_l, pt_l + 32 * j):
+            for group in range(4):
+                lanes = RG == group
+                assert len(set(warp_rows[lanes])) == 1
+                cols = np.sort(warp_pts[lanes])
+                assert cols[0] % 32 == 0 and (np.diff(cols) == 4).all()
+    k6 = _kernel(3, 8, ((70, 165),))
+    tp_, kc_, stages, _ = k6.plan
+    ring = 4 * k6.kpad * tp_
+    assert ring % 16 == 0 and (4 * kc_ * TR) % 16 == 0
+    assert (4 * TR * k6.tiles.numpy()[:, 3] % 16 == 0).all()
+
+
+def test_plan_fits_shared_memory_at_every_degree_and_refuses_past_it():
+    """At every width a zoo of sd 2 degrees 0-15 or sd 3 degrees 0-10 can
+    have (Phi tiles of 2 to 286 rows), the plan keeps at least two blocks an
+    SM within 232,448 bytes a block and 233,472 an SM (in 128-byte units,
+    1 KB kept a block) and 16 warps' registers, on the widest point tile of
+    those that keep most threads, or the narrowest for at most two row
+    tiles; it refuses a Phi tile past 386 rows, and the kernel degrees past
+    its instantiations."""
+    K = ZooF32Kernel
+    for kpad in range(2, 392, 2):
+        for ntiles in (1, 2, 3, 40):
+            plan = K.plan_for(kpad, ntiles)
+            if kpad > 386:
+                assert plan is None
+                continue
+            tp, kc, stages, blocks = plan
+            smem = K.smem_bytes(kpad, tp, kc, stages)
+            assert smem <= 232448 and blocks >= 2 and blocks * K.threads(tp) <= 512
+            assert blocks * (-(-smem // 128) * 128 + 1024) <= 233472
+            assert kc % 2 == 0 and min(kpad, 16) <= kc <= kpad and 2 <= stages <= 4
+            most = max(K.threads(p[0]) * p[3] for p in K.candidates(kpad))
+            tiles = {p[0] for p in K.candidates(kpad) if K.threads(p[0]) * p[3] == most}
+            assert K.threads(tp) * blocks == most
+            assert tp == (min(tiles) if ntiles <= 2 else max(tiles))
+    for sd, top in ((2, 15), (3, 10)):
+        for degree in range(top + 1):
+            k6 = _kernel(sd, degree, ((3, math.comb(degree + sd, sd)),))
+            assert k6.plan == K.plan_for(k6.kpad, 1) and k6.plan is not None
+        with pytest.raises(NotImplementedError, match=f"outside 0..{top}"):
+            _kernel(sd, top + 1, ((3, 4),))

@@ -95,6 +95,31 @@ def test_slice_matches_fiat_tpu_fused_interpret_and_host(points, zoos):
             assert tuple(t.shape) == (el.space_dimension(), len(points))
 
 
+@pytest.mark.parametrize("f64", [True, False])
+def test_device_tabulator_takes_fiat_tpu_keywords(points, zoos, f64):
+    """Both front doors called with fiat_tpu's keywords (its TPU-only ones
+    are ignored by the port) give the same tables: f64 within the slice's
+    1e-11, f32 within fiat_tpu's 5e-6 of the table's max; derivs="jets"
+    raises by name, and a keyword neither package takes is a TypeError."""
+    from fiat_tpu.ops import device_tabulator as jdevice_tabulator
+    jzoo, tzoo = zoos
+    kw = dict(tile=256, matmul="native", wdtype="bf16", interpret=True, derivs="dmats")
+    jtab = jdevice_tabulator(jzoo, order=1, f64=f64, **kw)
+    tab = device_tabulator(tzoo, order=1, f64=f64, device="cpu", **kw)
+    if f64:
+        assert _max_diff(jtab.unpack(jtab(jnp.asarray(points))),
+                         tab.unpack(tab.block_tables(points))) <= 1e-11
+    else:
+        want = np.asarray(jtab(jnp.asarray(points)))
+        got = tab(points).numpy()
+        assert got.shape == want.shape and tab.kernel.launches == 0
+        assert np.abs(got - want).max() <= 5e-6 * np.abs(want).max()
+    with pytest.raises(NotImplementedError, match="jets"):
+        device_tabulator(tzoo, order=1, f64=f64, device="cpu", derivs="jets")
+    with pytest.raises(TypeError, match="row_block"):
+        device_tabulator(tzoo, order=1, f64=f64, device="cpu", row_block=256)
+
+
 def test_from_arrays_on_fiat_tpu_batched_arrays(points, zoos):
     jzoo, _ = zoos
     bt = JBatchedTabulator(jzoo, order=1, matmul="native")

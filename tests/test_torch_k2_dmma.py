@@ -12,7 +12,8 @@ the plain version, and the plain version fiat_tpu's ``FusedMultiwordMatmul``
 in interpret mode on ``full_zoo``'s and ``tet_lagrange8``'s groups.  Also:
 the swizzle puts each half-warp's fragment loads on 16 distinct bank
 pairs, the plan fits a block's shared memory, and ``pack_rows`` /
-``transposed_tiles`` give K6 the arrays they always gave it."""
+``transposed_tiles`` give the arrays they always gave, from which K6's
+``k6_layout`` cuts its own."""
 
 import numpy as np
 import pytest
@@ -292,10 +293,13 @@ def _parent_pack_rows(mats, tile_rows):
 @pytest.mark.parametrize("shape", [((5, 3), (130, 10), (64, 6)), ((1, 1),),
                                    ((65, 21), (64, 28), (3, 36))])
 def test_k6_keeps_its_unswizzled_tiles(shape):
-    """``pack_rows`` and ``transposed_tiles`` (which K6 imports) still give
-    the packed rows, the (first row, rows, K) table and the plain
-    (tile, k, row) transpose, unswizzled and unpadded; K6's device arrays
-    are those in float32."""
+    """``pack_rows`` and ``transposed_tiles`` still give the packed rows,
+    the (first row, rows, K) table and the plain (tile, k, row) transpose,
+    unswizzled and unpadded; K6's device arrays (``k6_layout``) are the
+    same transposed tiles, of 128 rows, in float32, each cut to its width
+    rounded up to the kernel's depth of 2 (zeros past max_k) and stacked
+    tile after tile, with each tile's width, first row of At and its 32-row
+    warp slabs' widths in the table."""
     rng = np.random.default_rng(len(shape))
     mats = [rng.standard_normal(s) for s in shape]
     packed, tiles, K, rows, offsets = pack_rows(mats, 64)
@@ -306,5 +310,14 @@ def test_k6_keeps_its_unswizzled_tiles(shape):
     assert offsets == np.concatenate([[0], np.cumsum(rows)]).tolist()
     np.testing.assert_array_equal(transposed_tiles(packed, tiles, 64), want_At)
     k6 = ZooF32Kernel(mats, 7, 1.0, (np.eye(2), np.zeros(2)), device="cpu")
-    assert torch.equal(k6.At, torch.as_tensor(want_At).float())
-    assert k6.tiles.tolist() == want_tiles
+    _, k6_tiles, k6_At = _parent_pack_rows(mats, k6.TILE_ROWS)
+    widths = [min(k6.kpad, k + k % 2) for _, _, k in k6_tiles]
+    firsts = np.concatenate([[0], np.cumsum(widths)]).tolist()
+    padded = np.pad(k6_At, ((0, 0), (0, k6.kpad - k6_At.shape[1]), (0, 0)))
+    assert torch.equal(k6.At, torch.as_tensor(np.concatenate(
+        [padded[t, :w] for t, w in enumerate(widths)])).float())
+    row_width = np.concatenate([np.full(M.shape[0], M.shape[1]) for M in mats])
+    slabs = [[min(k6.kpad, int(row_width[r0 + s:r0 + min(n, s + 32)].max()) + 1) // 2 * 2
+              if s < n else 0 for s in range(0, k6.TILE_ROWS, 32)] for r0, n, _ in k6_tiles]
+    assert k6.tiles.tolist() == [[r0, n, w, f, *ws] for (r0, n, _), w, f, ws in
+                                 zip(k6_tiles, widths, firsts, slabs)]

@@ -714,7 +714,7 @@ def test_tet_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(
     (d, v) for d in (0, 3, 8, 10) for v in (None, "bubble", "dual") if (d, v) != (0, "bubble")])
 def test_tet_f32_kernel_matches_plain(cuda, degree, variant):
     """K6's sd = 3 stage against its plain version, every variant (the
-    bubble basis starts at degree 1); degree 10 takes the 128-point tile."""
+    bubble basis starts at degree 1); degree 10 takes the 64-point tile."""
     from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
     es = ExpansionSet(tcl.ufc_simplex(3), variant=variant)
     nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
@@ -724,7 +724,7 @@ def test_tet_f32_kernel_matches_plain(cuda, degree, variant):
         stacked=stacked, alpha_mats={}, slices=[(0, 100, (100,)), (100, 300, (200,))],
         plain_nexp=None, max_degree=degree, scale=float(es.get_scale(degree)),
         affine_map=es.affine_mappings[0], variant=variant, device=cuda)
-    assert tab.kernel.sd == 3 and tab.kernel.tile_points == (128 if degree == 10 else 256)
+    assert tab.kernel.sd == 3 and tab.kernel.plan[0] == (64 if degree == 10 else 128)
     P = torch.as_tensor(_tet_points(3001, seed=degree), device=cuda).float()
     out = torch.empty((300, 3001), device=cuda)
     got = tab.kernel(P, tab.dst_plain, out).clone()
@@ -732,6 +732,140 @@ def test_tet_f32_kernel_matches_plain(cuda, degree, variant):
     assert tab.kernel.launches == 1
     want = tab.kernel.plain(P, tab.dst_plain, torch.empty_like(out))
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def _zoo_kernel(device, sd, degree, shapes, variant=None, seed=0):
+    """K6 on random rows of the given (rows, width) groups."""
+    from fiat_tpu_torch.ops.f32_zoo import ZooF32Kernel
+    es = ExpansionSet(tcl.ufc_simplex(sd), variant=variant)
+    rng = np.random.default_rng(seed)
+    return ZooF32Kernel([rng.standard_normal(s) for s in shapes], degree,
+                        float(es.get_scale(degree)), es.affine_mappings[0], variant, device)
+
+
+def _k6_matches_plain(k6, npts, device, seed=1):
+    """K6 on ``npts`` points of its cell, every packed row to its own output
+    row, against its plain version (1e-5 of the plain rows' max abs: only
+    the order of the float32 operations differs); returns the output."""
+    pts = (_points if k6.sd == 2 else _tet_points)(npts, seed)
+    P = torch.as_tensor(pts, device=device).float()
+    dst = torch.arange(k6.total_rows, dtype=torch.int32, device=device)
+    k6.launches = 0
+    got = k6(P, dst, torch.empty((k6.total_rows, npts), device=device)).clone()
+    torch.cuda.synchronize()
+    assert k6.launches == 1
+    want = k6.plain(P, dst, torch.empty_like(got))
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    return got
+
+
+@pytest.mark.parametrize("npts", [1, 3, 255, 257, 3001, 3072])
+@pytest.mark.parametrize("sd,degree", [(2, 10), (3, 8)])
+def test_k6_point_counts(cuda, sd, degree, npts):
+    """One point to many tiles, ragged and whole last tiles (the bulk
+    stores take whole tiles of a point count divisible by 4), on 79 rows
+    (a ragged row tile) in two widths."""
+    nexp = (degree + 1) * (degree + 2) // 2 if sd == 2 else 165
+    _k6_matches_plain(_zoo_kernel(cuda, sd, degree, ((70, nexp), (9, 3)), seed=npts), npts,
+                      cuda)
+
+
+@pytest.mark.parametrize("sd", [2, 3])
+def test_k6_ragged_rows_and_width_one(cuda, sd):
+    """Row groups of width 1 (a Phi tile padded to 2 rows) beside width 3,
+    66 rows: row tiles not a multiple of 64."""
+    _k6_matches_plain(_zoo_kernel(cuda, sd, 2, ((1, 1), (63, 1), (2, 3))), 1000, cuda)
+    _k6_matches_plain(_zoo_kernel(cuda, sd, 0, ((5, 1),)), 4000, cuda)
+
+
+@pytest.mark.parametrize("variant", [None, "bubble", "dual"])
+@pytest.mark.parametrize("degree", [9, 10])
+def test_k6_tet_degrees_9_and_10(cuda, degree, variant):
+    """The 64-point tiles of the widest tetrahedral Phi, every variant."""
+    nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
+    k6 = _zoo_kernel(cuda, 3, degree, ((100, nexp), (30, 20)), variant)
+    assert k6.plan[0] == 64
+    _k6_matches_plain(k6, 2000, cuda)
+
+
+@pytest.mark.parametrize("sd,degree,width", [(2, 10, 66), (3, 8, 165), (3, 3, 20), (2, 15, 136)])
+def test_k6_every_candidate_plan(cuda, sd, degree, width):
+    """Every plan the host offers (each point tile at each count of blocks an
+    SM) computes the same rows, and holds its blocks an SM on the card."""
+    k6 = _zoo_kernel(cuda, sd, degree, ((150, width), (40, 7)))
+    plans = k6.candidates(k6.kpad)
+    assert k6.plan in plans and len(plans) >= 1
+    for plan in plans:
+        k6.plan = plan
+        assert k6.occupancy() >= plan[3]
+        _k6_matches_plain(k6, 3000, cuda)
+
+
+def test_k6_plans_hold_their_blocks_at_every_degree(cuda):
+    """At every degree and cell, a full-width zoo's plan keeps its planned
+    blocks an SM resident (registers within the launch bounds, shared memory
+    within the SM's)."""
+    import math
+    for sd, top in ((2, 15), (3, 10)):
+        for degree in range(top + 1):
+            n = math.comb(degree + sd, sd)
+            k6 = _zoo_kernel(cuda, sd, degree, ((64, n),))
+            assert k6.occupancy() >= k6.plan[3] >= 2, (sd, degree, k6.plan)
+
+
+def test_k6_leaves_rows_outside_dst_untouched_and_repeats_bit_for_bit(cuda):
+    """dst scatters 150 rows into every other row of a 320-row output, in
+    reverse: the rows it does not name keep their bits (NaN here), and a
+    second call gives the same bits."""
+    for sd, degree in ((2, 6), (3, 4)):
+        k6 = _zoo_kernel(cuda, sd, degree, ((110, 28 if sd == 2 else 35), (40, 10)))
+        P = torch.as_tensor((_points if sd == 2 else _tet_points)(4096, 9),
+                            device=cuda).float()
+        dst = torch.arange(2 * 149, -1, -2, dtype=torch.int32, device=cuda)
+        out = torch.full((320, 4096), float("nan"), device=cuda)
+        first = k6(P, dst, out).clone()
+        second = k6(P, dst, out)
+        torch.cuda.synchronize()
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+        assert k6.launches == 2
+        untouched = torch.ones(320, dtype=torch.bool, device=cuda)
+        untouched[dst.long()] = False
+        assert torch.isnan(first[untouched]).all() and torch.isfinite(first[~untouched]).all()
+        want = k6.plain(P, dst, torch.full_like(out, float("nan")))
+        scale = want[~untouched].abs().max()
+        assert ((first[~untouched] - want[~untouched]).abs().max() / scale).item() <= 1e-5
+
+
+def test_k6_entry_refuses_plans_it_does_not_take(cuda):
+    """The C entry checks the host's plan: a Phi tile, ring and staging past
+    a block's shared memory (or the planned blocks' an SM), blocks past the
+    launch bounds' registers, a point tile it has no kernel for, a chunk or
+    Phi tile off the depth of 2, a ring of other than 2 to 4 chunks, or a
+    degree past the cell's, is refused with cudaErrorInvalidValue,
+    launching nothing."""
+    import ctypes
+    from fiat_tpu_torch.ops.kernels import load_kernels, stream_of
+    k6 = _zoo_kernel(cuda, 3, 8, ((64, 165),))
+    assert (k6.kpad, k6.plan) == (166, (128, 28, 2, 2))
+    P = torch.as_tensor(_tet_points(256), device=cuda).float()
+    dst = torch.arange(64, dtype=torch.int32, device=cuda)
+    out = torch.zeros((64, 256), device=cuda)
+    affine = (ctypes.c_float * 12)(*k6.affine)
+    lib = load_kernels()
+    for degree, kpad, tp, kc, stages, minb in (
+            (8, 166, 128, 28, 2, 3), (8, 166, 128, 30, 2, 2),
+            (8, 166, 256, 28, 2, 2), (8, 166, 96, 28, 2, 2), (8, 166, 128, 27, 2, 2),
+            (8, 165, 128, 28, 2, 2), (8, 166, 128, 28, 1, 2), (8, 166, 128, 28, 5, 2),
+            (8, 166, 64, 16, 2, 5), (8, 166, 128, 28, 2, 0), (11, 166, 128, 28, 2, 2)):
+        err = lib.fiat_zoo_f32(P.data_ptr(), 256, 3, k6.consts.data_ptr(), k6.slots.data_ptr(),
+                               affine, k6.scale, degree, k6.At.data_ptr(), kpad, k6.max_k,
+                               k6.tiles.data_ptr(), k6.tiles.shape[0], dst.data_ptr(),
+                               out.data_ptr(), tp, kc, stages, minb, stream_of(P))
+        assert err == 1                 # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert out.abs().max().item() == 0.0
+    _k6_matches_plain(k6, 256, cuda)
 
 
 def test_tet_f32_engine_on_card_one_launch_matches_cpu_and_refuses_cpu_points(cuda):

@@ -32,7 +32,7 @@ from fiat_tpu_torch import elements as tfe
 from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.ops import moments as tmo
-from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator, ZooF32Kernel, tile_points
+from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator, ZooF32Kernel
 from fiat_tpu_torch.ops.moment_kernel import GROUP, PairMoments, grid_blocks
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
@@ -551,18 +551,21 @@ def test_f32_tet_phi_tile_replay_on_variant_constants(variant):
 
 
 def test_f32_tet_tiles_fit_shared_memory_and_refuse_past_degree_10():
-    """tet_lagrange8's tile (165 rows of Phi at 256 points and its 165-wide
-    A tile) fits one block, one per SM; from degree 9 the tile takes 128
-    points, and degree 10 still fits."""
+    """tet_lagrange8's plan (165 rows of Phi, padded to 166, at 128 points
+    beside a ring of two 28-row A chunks of 128 rows) fits two blocks an
+    SM, so one block's recurrence runs beside the other's products; from
+    degree 9 the tile takes 64 points, and degree 10 still fits two
+    blocks.  A single row tile of degree 3 takes the 64-point tile, four
+    blocks an SM."""
     es = texp.ExpansionSet(tcl.ufc_simplex(3))
     amap = es.affine_mappings[0]
     limit = 232448
-    for degree, points, per_sm in ((3, 256, 2), (8, 256, 1), (9, 128, 1), (10, 128, 1)):
+    for degree, plan in ((3, (64, 20, 4, 4)), (8, (128, 28, 2, 2)), (9, (64, 18, 2, 3)),
+                         (10, (64, 40, 2, 2))):
         n = math.comb(degree + 3, 3)
         k6 = ZooF32Kernel([np.eye(n)], degree, 1.0, amap, device="cpu")
-        assert (k6.tile_points, tile_points(3, degree)) == (points, points)
-        assert k6.smem <= limit and min(2, limit // k6.smem) == per_sm
-    assert tile_points(2, 15) == 256
+        assert k6.plan == plan and k6.kpad == n + n % 2
+        assert k6.smem <= limit and plan[3] * (k6.smem + 1024) <= 233472
     with pytest.raises(NotImplementedError, match="outside 0..10 for sd = 3"):
         ZooF32Kernel([np.eye(4)], 11, 1.0, amap, device="cpu")
     k6 = ZooF32Kernel([np.eye(4)], 1, 1.0, amap, device="cpu")
