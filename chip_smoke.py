@@ -29,7 +29,10 @@ Drives the port's main paths once each at their real size, at 1e5 points
      refined tetrahedra (Lagrange 1 and 3, Lagrange 3 + DG 2 on the Alfeld
      split, Lagrange 2 + DG 1 on the Worsey-Farin split) through
      ``device_tabulator(..., order=1)`` on the default device: K1 (sd = 3),
-     K2 and K7, the macro elements on K7 reading K1's Phi by prefix;
+     K2 and K7, the macro elements on K7 reading K1's Phi by prefix; then
+     Lagrange 1 + DiscontinuousLagrange 6 on the Worsey-Farin split, whose
+     K7 row chunks (274,176 bytes) pass a block's shared memory, on K1, K2
+     and K7 once each;
   7. tetrahedra through dual evaluation and the f32 engine, at ``pts3``:
      ``ops.moments.moment_rows`` and ``interpolate_rows`` on a
      ``BatchedTabulator(zoo, order=0)`` on the default device for
@@ -67,19 +70,22 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k2-cells ROOT   # K2 alone per cell, package at ROOT
     python3 chip_smoke.py --k45-cells ROOT  # K45 alone per cell, package at ROOT
     python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
+    python3 chip_smoke.py --k7-cells ROOT   # K7 alone per cell, package at ROOT
+    python3 chip_smoke.py --k1-cells ROOT   # K1 and K8 alone per cell, package at ROOT
 
-Prints the card's name and power limit, the build time, K3's, K45's, K6's
-and K2's registers by instantiation and the spills (it fails where K6
-spills), the DMMA instructions in each of K2's instantiations (it fails
+Prints the card's name and power limit, the build time, K3's, K45's, K6's,
+K2's and K7's registers by instantiation and the spills (it fails where K6
+or K7 spills), the DMMA instructions in each of K2's instantiations (it fails
 where one has none), K6's plan and resident blocks an SM in each f32 cell
-(it fails below the plan's), one line per step,
-a JSON line ``{"kernels": [...]}`` (K1, K2 and K3 measured on
+(it fails below the plan's), K7's plan and resident blocks in phase 6 (the
+same check), one line per step, a JSON line ``{"kernels": [...]}`` (K1, K2 and K3 measured on
 ``full_zoo``, K45 on the moments phase with K3 on its interpolation, K6
 on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7
-on ``sv_macro_tet``, K45 at sd = 3 on phase 7's three cells and K6 at sd =
-3 on two, K3's sd = 3 stage and K6 on phase 8's and K3 on the C1 zoos (order
-1, 2 and 3), each with its bound: the larger of its bytes over the HBM rate and
-its operations over the peak rate for their type), and as its last line
+on ``sv_macro_tet`` and on the Worsey-Farin DG 6 zoo, K45 at sd = 3 on
+phase 7's three cells and K6 at sd = 3 on two, K3's sd = 3 stage and K6 on
+phase 8's and K3 on the C1 zoos (order 1, 2 and 3), each with its bound:
+the larger of its bytes over the HBM rate and its operations over the peak
+rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, if any phase fails or there is no
 CUDA device.
@@ -102,6 +108,7 @@ KERNEL_RTOL = 1e-13      # kernel vs plain, relative to max |plain| (float64)
 F32_KERNEL_RTOL = 1e-5   # float32 kernel vs plain: only the order of operations differs
 F32_RTOL = 5e-6          # f32 plain rows vs float64, per alpha (tests/test_device_ops.py:143)
 F32_MACRO_TOL = 5e-5     # f32 macro rows vs float64, / (max abs + 1) (:586-589)
+DG6_HOST_RTOL = 1e-9     # Worsey-Farin DG 6 vs host, / max(1, max |table|) per alpha
 BIG_NPTS = 10_000_000    # moments streamed from HBM: 240 MB of points and weights
 STACK_SLICE = 1_000_000  # points per slice of a K45 stack built for its DGEMV
 REPS = 10
@@ -146,6 +153,7 @@ def ptxas_entries(log):
 
 
 K2_INSTANCES = 6     # point tiles 128, 64, 32, each for 1 and 2 blocks an SM
+K7_INSTANCES = 6     # sd 2 and 3, each at point tiles 64, 128 and 256
 
 
 def k2_instance(name):
@@ -158,20 +166,28 @@ def k2_instance(name):
 def print_ptxas(log):
     """The registers of K3's instantiations by (sd, chunk height, type),
     degree 0 to 10, K45's by sd, degree 0 to 10, K6's by (sd, point tile),
-    degree 0 to 15, K2's registers and spills by instantiation, and every
-    kernel that spills; fails where a K6 instantiation spills."""
+    degree 0 to 15, K2's registers and spills by instantiation, K7's
+    registers, spills and stack by (sd, point tile), and every kernel that
+    spills; fails where a K6 or K7 instantiation spills."""
     if not log:
         print("ptxas: no build log (a matching build existed)")
         return
-    k3, k45, k6, k2, spills, k6_spills = {}, {}, {}, [], [], []
+    k3, k45, k6, k2, k7, spills, no_spill = {}, {}, {}, [], {}, [], []
     for name, regs, st, ld, frame in ptxas_entries(log):
+        m = re.search(r"masked_matmul_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            sd, tp = map(int, m.groups())
+            k7[(sd, tp)] = (regs, st, ld, frame)
+            name = f"K7 sd {sd} TP {tp}"
+            if st or ld:
+                no_spill.append(name)
         m = re.search(r"zoo_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
         if m:
             sd, n, tp = map(int, m.groups())
             k6.setdefault((sd, tp), {})[n] = (regs, frame)
             name = f"K6 sd {sd} degree {n} TP {tp}"
             if st or ld:
-                k6_spills.append(name)
+                no_spill.append(name)
         m = re.search(r"pair_moments_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             sd, n = int(m.group(1)), int(m.group(2))
@@ -197,9 +213,13 @@ def print_ptxas(log):
         print(f"ptxas K6 sd {sd} TP {tp}: (registers, stack frame bytes) by degree "
               f"{[regs.get(n) for n in range(16 if sd == 2 else 11)]}")
     print(f"ptxas {'; '.join(sorted(k2))}")
+    print("ptxas K7 (registers, spill stores, spill loads, stack frame bytes) by (sd, point "
+          f"tile): {json.dumps({f'{sd} {tp}': v for (sd, tp), v in sorted(k7.items())})}")
     print(f"ptxas spill stores/loads: {spills if spills else 'none'}")
-    if k6_spills:
-        fail(f"K6 must not spill: {k6_spills}")
+    if k7 and len(k7) != K7_INSTANCES:     # (an older checkout's K7 has other names)
+        fail(f"ptxas reported {len(k7)} K7 instantiations, not {K7_INSTANCES}")
+    if no_spill:
+        fail(f"K6 and K7 must not spill: {no_spill}")
 
 
 def check_k2_sass(lib_path):
@@ -1057,11 +1077,95 @@ def sv_macro_tet(T3):
 
 def masked_bound(k7, npts):
     """K7: the points, Phi's prefix and A in, the tables out; per point and
-    program, its rows against the one subcell an interior point bins into."""
+    program, its rows against the one subcell an interior point bins into.
+    A matrix product once points are grouped by subcell, so the FP64
+    tensor-core rate, as K2's."""
     flops = sum(2 * (g["rows"][1] - g["rows"][0]) * nexp
                 for g, nexp in one_piece_nexp(k7.geom, k7.nexp))
     nbytes = 8 * (npts * (k7.sd + k7.max_nexp) + k7.A.numel() + k7.rows * npts)
-    return bound_of(nbytes, flops * npts, FP64_FMA_MS)
+    return bound_of(nbytes, flops * npts, FP64_MMA_MS)
+
+
+def dg6_worsey_farin(T3):
+    """Lagrange 1 beside DiscontinuousLagrange 6 on the Worsey-Farin split:
+    K7's row chunks of 274,176 bytes, past a block's shared memory."""
+    import fiat_tpu_torch as ft
+    return [ft.Lagrange(T3, 1), ft.DiscontinuousLagrange(T3, 6, variant="worsey-farin")]
+
+
+def k7_plan_line(name, k7):
+    """K7's plan and, from the CUDA runtime, the blocks an SM that its
+    registers and shared memory allow; fails below the plan's blocks."""
+    from fiat_tpu_torch.ops.masked_matmul import COLUMN_STRIDE
+    tp, cols, stages, blocks = k7.plan
+    resident = k7.occupancy()
+    print(f"{name} K7 plan: {tp}-point tiles (two threads a point), slices of {cols} columns "
+          f"({cols * COLUMN_STRIDE * 8} bytes; the widest chunk {k7.chunk_cols}) in a ring of "
+          f"{stages}, {blocks} blocks an SM "
+          f"planned, {resident} resident ({k7.smem} bytes of shared memory a block, Phi prefix "
+          f"{k7.max_nexp} x {tp}; {k7.slices.shape[0]} slices of {k7.chunks.shape[0]} row chunks)")
+    if resident < blocks:
+        fail(f"{name}: K7 holds {resident} blocks an SM, its plan {k7.plan} needs {blocks}")
+
+
+def masked_scale(k7, P, phi):
+    """max of |A| |B|, B the masked basis: the scale of K7's rounding where
+    its sums cancel (A's entries reach 5.2e5 on Worsey-Farin DG 6)."""
+    return (k7.A.abs() @ k7.masked_basis(k7.masks(P)[0], phi).abs()).max().item()
+
+
+def dg6_phase(P, pts3, card, torch, np):
+    """Phase 6, second part: the zoo past K7's old shared-memory ceiling
+    (``dg6_worsey_farin``) on K1, K2 and K7, one launch each a pass; K7
+    against its plain version relative to |A| |B|, the tables against host
+    per alpha relative to max(1, max |table|) (degree 6's change of basis
+    leaves fiat_tpu's own engine 2.1e-10 of that from host on these points'
+    values)."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+
+    t0 = time.perf_counter()
+    zoo = dg6_worsey_farin(ufc_simplex(3))
+    tab = device_tabulator(zoo, order=1)
+    rec, mm, k7 = tab.recurrence, tab.matmul, tab.macro
+    print(f"dg6_worsey_farin host construction: K7 {k7.rows} x {k7.K} over {len(k7.nexp)} "
+          f"subcells, {time.perf_counter() - t0:.2f} s")
+    k7_plan_line("dg6_worsey_farin", k7)
+    if k7.plan[1] >= k7.chunk_cols:
+        fail("dg6_worsey_farin: K7's slices must cut its chunks")
+    phi = rec(P)
+    err = (k7(P, phi) - k7.plain(P, phi)).abs().max().item()
+    rel = err / masked_scale(k7, P, phi)
+    print(f"dg6_worsey_farin K7 ({k7.rows} x {NPTS}) vs plain: max abs {err:.3e}, rel to |A| |B| "
+          f"{rel:.3e}")
+    if not rel <= KERNEL_RTOL:
+        fail(f"dg6_worsey_farin: K7 disagrees with its plain version: {rel:.3e} > {KERNEL_RTOL}")
+    blocks, launches = counted({"K1": rec, "K2": mm, "K7": k7}, lambda: tab.block_tables(P),
+                               torch)
+    expect_launches("dg6_worsey_farin", launches, {"K1": 1, "K2": 1, "K7": 1})
+    if not all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl):
+        fail("dg6_worsey_farin: non-finite values in the tables")
+    worst = 0.0
+    for el, got in zip(zoo, tab.unpack(blocks)):
+        for a, w in el.tabulate(1, pts3[:HOST_CHECK_PTS]).items():
+            d = np.abs(got[a][..., :HOST_CHECK_PTS].cpu().numpy() - w).max()
+            worst = max(worst, float(d) / max(1.0, float(np.abs(w).max())))
+    del blocks
+    print(f"dg6_worsey_farin vs host el.tabulate on {HOST_CHECK_PTS} points: {worst:.3e} of "
+          f"max(1, max |table|) per alpha (limit {DG6_HOST_RTOL})")
+    if not worst <= DG6_HOST_RTOL:
+        fail(f"dg6_worsey_farin disagrees with host: {worst:.3e} > {DG6_HOST_RTOL}")
+    ms, plain = median_ms(lambda: k7(P, phi), torch), median_ms(lambda: k7.plain(P, phi), torch)
+    B, A = k7.masked_basis(k7.masks(P)[0], phi), k7.A.to(P.device)
+    lib = median_ms(lambda: torch.matmul(A, B), torch)
+    del B, A, phi
+    path_ms = median_ms(lambda: tab.block_tables(P), torch)
+    bound = masked_bound(k7, NPTS)
+    print(f"dg6_worsey_farin timing ({card}; median of {REPS} runs of {INNER}, CUDA events): pass "
+          f"{path_ms:.4f} ms; K7 {ms:.4f} ms (plain {plain:.4f}, one DGEMM on the masked B "
+          f"{lib:.4f}, bound {bound[0]:.4f} by {bound[1]})")
+    return entry("K7 masked_matmul (Worsey-Farin DG 6, slices past a block's shared memory)",
+                 "fiat_tpu_torch/csrc/masked_matmul.cu", "fiat_tpu/ops/pallas_multiword.py:440",
+                 launches["K7"], err, ms, plain, bound, lib)
 
 
 def sv_phase(dev, card, torch, np):
@@ -1083,6 +1187,7 @@ def sv_phase(dev, card, torch, np):
           f"widths {tab.widths}, K7 {k7.rows} x {k7.K} over {len(k7.nexp)} subcells in "
           f"{len(k7.geom)} programs ({k7.chunks.shape[0]} row chunks), K1 degree {rec.degree}, "
           f"{time.perf_counter() - t0:.2f} s")
+    k7_plan_line("sv_macro_tet", k7)
 
     phi_p = rec.plain(P)
     check_kernel(f"sv_macro_tet K1 recurrence (sd 3, degree {rec.degree})", rec(P), phi_p, torch)
@@ -1122,7 +1227,8 @@ def sv_phase(dev, card, torch, np):
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
     return tab, [entry("K7 masked_matmul (sv_macro_tet)", "fiat_tpu_torch/csrc/masked_matmul.cu",
                        "fiat_tpu/ops/pallas_multiword.py:440", launches["K7"], k7_abs, k7_ms,
-                       k7_plain, bound, k7_lib)]
+                       k7_plain, bound, k7_lib),
+                 dg6_phase(P, pts3, card, torch, np)]
 
 
 def tet_dual_f32_phase(dev, card, engines64, torch, np):
@@ -1709,6 +1815,124 @@ def k6_cells(dev, card, torch, np, own):
         print(json.dumps({"k6_clocks": clocks}))
 
 
+def k7_cells(dev, card, torch, np, own):
+    """``python3 chip_smoke.py --k7-cells ROOT``: K7 alone, one call of its
+    wrapper on a Phi computed beforehand, in every cell that runs it
+    (sv_macro_tet's f64 tables; dg6_worsey_farin, past a block's shared
+    memory; K3's merged triangle arrays of full_zoo and of the C1 zoo at
+    order 1, 2 and 3), at the main run's points, on the fiat_tpu_torch
+    package of the checkout at ROOT.  Prints {"k7_cells": {cell: [ms,
+    device ms, DGEMM ms, bound ms, device / bound, TB/s of out, host ms]}}:
+    CUDA events, the profiler's device time, one cuBLAS DGEMM of A by the
+    masked B of the plain version (this checkout's runs only; None for
+    another's), the bound, the output rate at the device time and the host's
+    time to issue one call.  On this checkout it also prints {"k7_plans":
+    {cell: {plan: [device ms, resident blocks an SM]}}}, the wrapper's own
+    plan first, then every candidate up to twice the threads an SM its launch
+    bounds assume."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
+
+    T, T3 = ufc_simplex(2), ufc_simplex(3)
+    P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
+    P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev)
+    c1 = [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
+          ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T), ft.QuadraticPowellSabin12(T)]
+    plans = {}
+
+    def tables(zoo, Q):
+        tab = device_tabulator(zoo, order=1, device=dev)
+        return tab.macro, tab.recurrence(Q), Q
+
+    def k3_arrays(zoo, order, Q):
+        tab = device_tabulator(zoo, order=order, device=dev)
+        mo = tab.macro
+        k7 = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
+                          device=dev)
+        return k7, tab.recurrence(Q), Q
+
+    def cell(name, make):
+        def made():
+            k7, phi, Q = make()
+
+            def run():
+                return k7(Q, phi)
+
+            def more(ev, dev_ms):
+                ms = dev_ms or ev
+                bound = masked_bound(k7, NPTS)[0]
+                lib = None
+                if own:
+                    B, A = k7.masked_basis(k7.masks(Q)[0], phi), k7.A.to(dev)
+                    lib = median_ms(lambda: torch.matmul(A, B), torch)
+                    del B, A
+                    mine, plans[name] = k7.plan, {}
+                    for plan in [mine] + [p for p in k7.candidates(k7.max_nexp, k7.chunk_cols,
+                                                                   k7.sd, 2) if p != mine]:
+                        k7.plan = plan
+                        plans[name][str(plan)] = [device_ms(run, torch), k7.occupancy()]
+                    k7.plan = mine
+                return [lib, bound, ms / bound, k7.rows * NPTS * 8 / ms / 1e9, host_ms(run, torch)]
+            return run, more
+        return made
+
+    cells = {"sv_macro_tet": lambda: tables(sv_macro_tet(T3), P3),
+             "dg6_worsey_farin": lambda: tables(dg6_worsey_farin(T3), P3),
+             "full_zoo K3 arrays": lambda: k3_arrays(full_zoo(T), 1, P),
+             "c1_macro_zoo K3 arrays": lambda: k3_arrays(c1, 1, P),
+             "c1_macro_hessians K3 arrays": lambda: k3_arrays(c1, 2, P),
+             "c1_macro_zoo order 3 K3 arrays": lambda: k3_arrays(c1, 3, P)}
+    time_cells("k7_cells", "one cuBLAS DGEMM on the masked B ms; bound ms; device / bound; "
+               "TB/s of out at the device time; host ms a call",
+               {name: cell(name, make) for name, make in cells.items()}, card, torch, own)
+    if own:
+        print(json.dumps({"k7_plans": plans}))
+
+
+def k1_cells(dev, card, torch, np, own):
+    """``python3 chip_smoke.py --k1-cells ROOT``: K1 alone, one call of its
+    wrapper, on full_zoo, tet_lagrange8, hdiv_hcurl_tet and sv_macro_tet,
+    and K8 on tet_lagrange8's Bernstein route, at the main run's points, on
+    the fiat_tpu_torch package of the checkout at ROOT.  Prints
+    {"k1_cells": {cell: [ms, device ms, bound ms, device / bound, host
+    ms]}}: CUDA events over back-to-back calls (the wrapper's host time
+    included), the profiler's device time, the bound, and the host's time
+    to issue one call."""
+    from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    T, T3 = ufc_simplex(2), ufc_simplex(3)
+    P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
+    P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev)
+    lag8, hdiv = tet_zoos(T3)
+
+    def timed(fn, bound, Q):
+        def run():
+            return fn(Q)
+
+        def more(ev, dev_ms):
+            return [bound, (dev_ms or ev) / bound, host_ms(run, torch)]
+        return run, more
+
+    def k1(zoo, Q):
+        rec = device_tabulator(zoo, order=1, device=dev).recurrence
+        return timed(rec, rec_bound(rec, NPTS)[0], Q)
+
+    def k8(zoo, Q):
+        feat = FusedZooTabulator(BatchedTabulator(zoo, order=1, device="cpu"), device=dev,
+                                 features="bernstein").features
+        return timed(feat, features_bound(feat, NPTS)[0], Q)
+
+    cells = {"full_zoo K1": lambda: k1(full_zoo(T), P),
+             "tet_lagrange8 K1": lambda: k1(lag8, P3),
+             "hdiv_hcurl_tet K1": lambda: k1(hdiv, P3),
+             "sv_macro_tet K1": lambda: k1(sv_macro_tet(T3), P3),
+             "tet_lagrange8 K8": lambda: k8(lag8, P3)}
+    time_cells("k1_cells", "bound ms; device / bound; host ms a call", cells, card, torch, own)
+
+
 def main():
     try:
         import torch
@@ -1718,7 +1942,7 @@ def main():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     here = root = Path(__file__).resolve().parent
     modes = {"--k3-cells": k3_cells, "--k2-cells": k2_cells, "--k45-cells": k45_cells,
-             "--k6-cells": k6_cells}
+             "--k6-cells": k6_cells, "--k7-cells": k7_cells, "--k1-cells": k1_cells}
     mode = next((m for m in modes if m in sys.argv), None)
     if mode:
         root = Path(sys.argv[sys.argv.index(mode) + 1]).resolve()

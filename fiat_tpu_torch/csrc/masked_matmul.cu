@@ -24,150 +24,390 @@
 // (no second recurrence).
 //
 // Bound on the card: the store of out (rows * npts doubles; 632 x 1e5 =
-// 0.506 GB on sv_macro_tet).  The work is small next to it: only the pieces a
-// point bins into are multiplied (6568 FMAs a point on sv_macro_tet).  What
-// limits a plain design is reading A: neighbouring points bin into different
-// subcells, so the lanes of a warp read different columns of A.  Design:
-//   - the grid is (point tiles of THREADS * SUB points) x (row chunks of at
-//     most RC rows of one program); a block stages its chunk of A into shared
-//     memory once and walks SUB tiles of THREADS points with it, one thread
-//     per point, RC accumulators in registers;
-//   - the host lays every chunk out as shared memory holds it (ChunkLayout
-//     below): column-major with RCP = RC + 2 doubles per column, each piece
-//     ps (odd) columns apart, so one 16-byte load gives a lane two rows of a
-//     column, lanes in one subcell read the same address (a broadcast), and
-//     lanes in up to 8 different subcells read distinct banks;
-//   - Phi[k, x] comes straight from global memory, coalesced across the warp
-//     (neighbouring points are neighbouring addresses), once per k;
-//   - out is row-major with points contiguous, so every store of a warp is
-//     one coalesced row segment.
+// 0.506 GB on sv_macro_tet).  The FMAs are a quarter of that at the FP64
+// peak: only the pieces a point bins into are multiplied (6568 a point on
+// sv_macro_tet).  What limits the design is feeding them: every FMA takes 8
+// bytes of A from shared memory (A changes with the point's subcell, so no
+// register holds it for two points), and on the H100 a warp's 16-byte
+// shared load costs at least one wavefront for each 8-lane quarter, and one
+// more for each further address inside a quarter (PERF.md section 6).  Design:
+//   - a block of TP points walks every row chunk of every program with two
+//     threads a point, each RT = 16 rows of a chunk (RT accumulators, one
+//     FMA chain per row);
+//   - the first TP threads bin the points once per program, or once for
+//     consecutive programs on one split under one rule (an Alfeld P3 / DG2
+//     pair), and deal each warp's 32 points to its lanes in the order of
+//     their first subcell, through shared memory: lanes next to each other
+//     then read the same columns of A (fewer addresses a quarter), while a
+//     warp's stores still cover its 32 contiguous points;
+//   - the block's Phi prefix (kmax rows x TP points) is staged in shared
+//     memory once, by bulk copies (cp.async.bulk, bulk_copy.cuh) of each
+//     row's TP contiguous doubles on one mbarrier (plain loads on a ragged
+//     or unaligned tile), and read from there by every chunk;
+//   - A streams through a ring of `stages` buffers of bulk-copied slices:
+//     a slice is a run of k of a row chunk, every piece of the program, as
+//     shared memory holds it (column k * P + j for piece j of P, RCP = RC +
+//     2 doubles a column, so one 16-byte load gives a lane two rows of a
+//     column and lanes in up to 8 different subcells read distinct banks).
+//     A chunk wider than a buffer is cut along k, so no chunk has to fit in
+//     shared memory, and every lane works in every slice.  Each warp done
+//     with a buffer arrives on its "empty" mbarrier, and the last of them (a
+//     counter elects it) refills it with the slice `stages` ahead, as K2 and
+//     K6 do: the next slices land while this one is multiplied, and the
+//     first ones while the points are binned and Phi is staged;
+//   - a group of G rows past a chunk's last row is skipped (as K3 does), so
+//     a 12-row tail pays for 16 rows, not 32;
+//   - out is row-major with points contiguous: a finished chunk goes out
+//     from the accumulators (evict-first), each warp's store the 256 bytes
+//     of its points in one row (a permutation of them, which the coalescer
+//     takes as it takes them in order).
+// The block's slices run in (program, chunk, k) order and a point's hit
+// pieces are added in increasing order within a slice, so a point inside
+// one subcell gets the same FMA chain as in K3 and under any plan; a tie
+// point (on a face between subcells) gets its pieces in (c, k) order where
+// the slices hold whole chunks, and interleaved by runs of k otherwise.
 //
-// ChunkLayout (built by fiat_tpu_torch/ops/masked_matmul.py):
-//   chunks[5*t + {0..4}]   chunk t: program g, first row, rows (<= RC), offset
-//                          of its block in At (in doubles), ps
-//   At[offset + (j * ps + k) * RCP + r] = A[first row + r, off_(c0 + j) + k]
-//                          for piece j of the program, k < nexp, r < rows;
-//                          zeros elsewhere.
+// Slice table (built by fiat_tpu_torch/ops/masked_matmul.py:slice_table):
+//   slices[SLICE_COLS*q + {0..7}]  slice q: program g, first row, rows (<= RC),
+//       first k, end k, offset of its block in At (in doubles), pieces P of
+//       the program, flags (FIRST_IN_CHUNK, LAST_IN_CHUNK, FIRST_IN_PROGRAM,
+//       SAME_BINS: the program's split and rule are the last program's)
+//   At[offset + ((k - first k) * P + j) * RCP + r] = A[first row + r, off_(c0 + j) + k]
+//       for k < nexp_(c0 + j), r < rows; zeros elsewhere.
 // Geometry tables (maps, progs, pieces): binning.cuh.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "binning.cuh"
+#include "bulk_copy.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int SUB = 8;      // point tiles per block
-constexpr int RC = 32;      // rows per chunk (csrc and masked_matmul.py agree)
-constexpr int RCP = RC + 2; // doubles per staged column
-constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+constexpr int RC = 32;       // rows per chunk (csrc and masked_matmul.py agree)
+constexpr int RCP = RC + 2;  // doubles per staged column
+constexpr int G = 8;         // rows a chunk skips at a time past its last row
+constexpr int STAGES = 4;    // the most buffers in the ring
+constexpr int SLICE_COLS = 8;
+constexpr int FIRST_IN_CHUNK = 1, LAST_IN_CHUNK = 2, FIRST_IN_PROGRAM = 4, SAME_BINS = 8;
 
-template <int SD>
-__global__ void __launch_bounds__(THREADS)
-masked_matmul_kernel(const double* __restrict__ pts, int npts, double tol,
-                     const double* __restrict__ maps, const int* __restrict__ progs,
-                     const int* __restrict__ pieces, const int* __restrict__ chunks,
-                     const double* __restrict__ At, const double* __restrict__ phi,
-                     double* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* As = reinterpret_cast<double*>(smem_raw);
-  const int* ch = chunks + 5 * blockIdx.y;
-  const int g = __ldg(ch), row0 = __ldg(ch + 1), nrows = __ldg(ch + 2);
-  const int off = __ldg(ch + 3), ps = __ldg(ch + 4);
-  const int c0 = __ldg(progs + 5 * g + 2), c1 = __ldg(progs + 5 * g + 3);
-  const int unique = __ldg(progs + 5 * g + 4);
+constexpr int HALVES = 2;    // threads a point, each RC / HALVES rows of a chunk
+constexpr int RT = RC / HALVES;
+// launch bounds: threads an SM, 768 (80 registers a thread) on tetrahedra,
+// 512 (128) on triangles, whose binning inlined spills at 80
+__host__ __device__ constexpr int threads_sm(int sd) { return sd == 2 ? 512 : 768; }
+__host__ __device__ constexpr int min_blocks(int sd, int tp) {
+  return threads_sm(sd) / (HALVES * tp) > 0 ? threads_sm(sd) / (HALVES * tp) : 1;
+}
 
-  // stage the chunk: (c1 - c0) * ps columns of RCP doubles, 16 bytes a copy
-  const int n2 = (c1 - c0) * ps * (RCP / 2);
-  const double2* src = reinterpret_cast<const double2*>(At + off);
-  double2* dst = reinterpret_cast<double2*>(As);
-  for (int i = threadIdx.x; i < n2; i += THREADS) dst[i] = __ldg(src + i);
-  __syncthreads();
+struct Params {
+  const double* pts;
+  int npts;
+  double tol;
+  const double* maps;
+  const int* progs;
+  const int* pieces;
+  const int* slices;
+  int nslices;
+  const double* At;
+  const double* phi;  // (>= kmax, npts)
+  int kmax;           // Phi rows staged: the widest piece
+  int slice_cols, stages;
+  double* out;
+};
 
-  const size_t ld = static_cast<size_t>(npts);
-  for (int s = 0; s < SUB; ++s) {
-    const int p = (blockIdx.x * SUB + s) * THREADS + threadIdx.x;
-    if (p >= npts) return;
-    double x[SD];
+// Shared memory of a block of tp points: the Phi tile, the ring, every
+// point slot's sorted point, masks and factor, and the ring's two mbarriers
+// and counter a buffer plus the Phi tile's mbarrier.
+__host__ __device__ constexpr size_t smem_bytes(int kmax, int tp, int slice_cols, int stages) {
+  return sizeof(double) * (static_cast<size_t>(kmax) * tp +
+                           static_cast<size_t>(stages) * slice_cols * RCP + tp) +
+         2 * sizeof(int) * static_cast<size_t>(tp) + sizeof(uint64_t) * (3 * STAGES + 1);
+}
+
+// A piece's columns k = kb .. ke - 1 of a slice (column k at Aj + (k - kb) *
+// stride) times Phi's prefix into the first NG groups of G rows, one FMA
+// chain per row: 16-byte loads of A (two rows of a column), Phi from this
+// lane's column of the tile (f[k * TP]).
+template <int NG, int TP>
+__device__ __forceinline__ void multiply(double (&acc)[RT], const double* __restrict__ Aj,
+                                         int stride, const double* __restrict__ f, int kb,
+                                         int ke) {
+  for (int k = kb; k < ke; ++k, Aj += stride) {
+    const double v = f[k * TP];
+    const double2* a = reinterpret_cast<const double2*>(Aj);
 #pragma unroll
-    for (int i = 0; i < SD; ++i) x[i] = pts[static_cast<size_t>(SD) * p + i];
-
-    // 1. binning: bit j of mk is the mask of piece c0 + j
-    const double best = fiat::parent_bound<SD>(maps, x, tol);
-    double recip;
-    unsigned mk = fiat::program_rule(fiat::piece_bits<SD>(maps, c0, c1, x, best), unique, recip);
-
-    // 2. the hit pieces' columns times Phi's prefix, one chain per row
-    double acc[RC];
-#pragma unroll
-    for (int r = 0; r < RC; ++r) acc[r] = 0.0;
-    while (mk) {
-      const int j = __ffs(mk) - 1;
-      mk &= mk - 1u;
-      const int nk = __ldg(pieces + 2 * (c0 + j) + 1);
-      const double* Aj = As + static_cast<size_t>(j) * ps * RCP;
-      for (int k = 0; k < nk; ++k) {
-        const double f = __ldg(phi + static_cast<size_t>(k) * ld + p);
-        const double2* a = reinterpret_cast<const double2*>(Aj + k * RCP);
-#pragma unroll
-        for (int r = 0; r < RC / 2; ++r) {
-          const double2 v = a[r];
-          acc[2 * r] = fma(v.x, f, acc[2 * r]);
-          acc[2 * r + 1] = fma(v.y, f, acc[2 * r + 1]);
-        }
-      }
-    }
-    double* o = out + static_cast<size_t>(row0) * ld + p;
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      if (r < nrows) o[static_cast<size_t>(r) * ld] = acc[r] * recip;
+    for (int r = 0; r < NG * G / 2; ++r) {
+      const double2 w = a[r];
+      acc[2 * r] = fma(w.x, v, acc[2 * r]);
+      acc[2 * r + 1] = fma(w.y, v, acc[2 * r + 1]);
     }
   }
 }
 
-template <int SD>
-int launch(const double* pts, int npts, double tol, const double* maps, const int* progs,
-           const int* pieces, const int* chunks, int nchunks, const double* At, int smem_doubles,
-           const double* phi, double* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(smem_doubles) * sizeof(double);
-  if (smem > STATIC_SMEM_LIMIT) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        masked_matmul_kernel<SD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, so the next launch does not report it
-      return static_cast<int>(err);
+// The rank of this lane's key (0..31) among the warp's, ties by lane: the
+// lanes in key order.
+__device__ __forceinline__ int warp_rank(unsigned key, int lane) {
+  unsigned same = ~0u;
+  int less = 0;
+#pragma unroll
+  for (int b = 4; b >= 0; --b) {
+    const unsigned ones = __ballot_sync(~0u, (key >> b) & 1u);
+    if ((key >> b) & 1u) {
+      less += __popc(same & ~ones);
+      same &= ones;
+    } else {
+      same &= ~ones;
     }
   }
-  const int per_block = THREADS * SUB;
-  const dim3 grid((npts + per_block - 1) / per_block, nchunks);
-  masked_matmul_kernel<SD><<<grid, THREADS, smem, stream>>>(pts, npts, tol, maps, progs, pieces,
-                                                            chunks, At, phi, out);
-  return static_cast<int>(cudaGetLastError());
+  return less + __popc(same & ((1u << lane) - 1u));
+}
+
+// Two threads a point, each RT rows of every chunk: thread tid takes point
+// slot tid % TP and rows (tid / TP) * RT onwards; the first TP threads bin
+// and sort the points for both.
+template <int SD, int TP>
+__global__ void __launch_bounds__(HALVES * TP, min_blocks(SD, TP))
+masked_matmul_kernel(const __grid_constant__ Params q) {
+  constexpr int W = HALVES * TP / 32;  // warps
+  extern __shared__ __align__(16) double smem[];
+  double* Bs = smem;                                          // [kmax][TP]: Phi
+  double* As = Bs + static_cast<size_t>(q.kmax) * TP;         // stages x [slice_cols][RCP]
+  const size_t buf = static_cast<size_t>(q.slice_cols) * RCP;
+  double* recips = As + q.stages * buf;                       // [TP]: each slot's factor
+  int* slots = reinterpret_cast<int*>(recips + TP);           // [TP]: each slot's point
+  int* masks = slots + TP;                                    // [TP]: each slot's masks
+  uint64_t* full = reinterpret_cast<uint64_t*>(masks + TP);   // [STAGES]
+  uint64_t* empty = full + STAGES;                                // [STAGES]
+  uint64_t* phibar = empty + STAGES;                              // [1]
+  unsigned* done = reinterpret_cast<unsigned*>(phibar + 1);       // [STAGES]
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int pt = tid % TP, half = tid / TP;  // warp-uniform
+  const int p0 = blockIdx.x * TP, npts = q.npts, nslices = q.nslices;
+  const int stages = q.stages, kmax = q.kmax;
+  const size_t ld = static_cast<size_t>(npts);
+  // a whole tile with 16-byte aligned rows of Phi comes by bulk copy
+  const bool whole = (p0 + TP <= npts) && ((npts & 1) == 0) &&
+                     ((reinterpret_cast<uintptr_t>(q.phi) & 15) == 0);
+
+  // slice t into ring buffer s, completing on its mbarrier: one contiguous copy
+  auto fetch = [&](int t, int s) {
+    const int* sl = q.slices + SLICE_COLS * t;
+    fiat::bulk_copy(As + s * buf, q.At + __ldg(sl + 5),
+                    sizeof(double) * (__ldg(sl + 4) - __ldg(sl + 3)) * __ldg(sl + 6) * RCP,
+                    full + s);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      fiat::mbar_init(full + s, 1);  // the fetching thread's arrival, plus the copy's bytes
+      fiat::mbar_init(empty + s, W);  // one arrival a warp
+      done[s] = 0;
+    }
+    fiat::mbar_init(phibar, kmax);  // one arrival a Phi row, plus its bytes
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // fill the ring and stage Phi: their copies run beside the first binning
+  if (tid == 0)
+    for (int s = 0; s < stages && s < nslices; ++s) fetch(s, s);
+  if (whole) {
+    if (tid < 32)
+      for (int k = lane; k < kmax; k += 32)
+        fiat::bulk_copy(Bs + k * TP, q.phi + k * ld + p0, sizeof(double) * TP, phibar);
+  } else {
+    for (int k = half; k < kmax; k += HALVES)
+      Bs[k * TP + pt] = p0 + pt < npts ? q.phi[k * ld + p0 + pt] : 0.0;
+    __syncthreads();
+  }
+
+  // the thread's own point, which it bins
+  const bool own_live = half == 0 && p0 + pt < npts;
+  double x[SD], best = 0.0;
+  if (own_live) {
+#pragma unroll
+    for (int i = 0; i < SD; ++i) x[i] = q.pts[static_cast<size_t>(SD) * (p0 + pt) + i];
+    best = fiat::parent_bound<SD>(q.maps, x, q.tol);
+  }
+
+  // the point the thread multiplies: after each binning the warp's 32 points
+  // are dealt to its lanes in the order of their first subcell, so lanes
+  // next to each other read the same columns of A (the stores still cover
+  // the warp's 32 contiguous points)
+  int slot = pt;
+  unsigned mk = 0u;  // that point's masks in the program: bit j for piece c0 + j
+  double recip = 1.0;
+  int c0 = 0;
+  double acc[RT];
+  for (int t = 0; t < nslices; ++t) {
+    const int* sl = q.slices + SLICE_COLS * t;
+    const int flags = __ldg(sl + 7);
+    const int row0 = __ldg(sl + 1), nrows = __ldg(sl + 2);
+    const int k0 = __ldg(sl + 3), k1 = __ldg(sl + 4), np = __ldg(sl + 6);
+    if (flags & FIRST_IN_PROGRAM) {
+      // 1. binning, once per program (a program on the split and rule of the
+      //    one before keeps its masks), and the warp's points sorted by it
+      const int g = __ldg(sl);
+      c0 = __ldg(q.progs + 5 * g + 2);
+      if (!(flags & SAME_BINS)) {
+        __syncthreads();  // every thread has read the last program's slots
+        if (half == 0) {
+          const int c1 = __ldg(q.progs + 5 * g + 3);
+          double r_own = 1.0;
+          const unsigned mk_own =
+              own_live ? fiat::program_rule(fiat::piece_bits<SD>(q.maps, c0, c1, x, best),
+                                            __ldg(q.progs + 5 * g + 4), r_own)
+                       : 0u;
+          const unsigned key = mk_own ? __ffs(mk_own) - 1 : 31u;  // dead points last
+          const int at = (pt & ~31) + warp_rank(key, lane);
+          slots[at] = pt;
+          masks[at] = static_cast<int>(mk_own);
+          recips[at] = r_own;
+        }
+        __syncthreads();
+        slot = slots[pt];
+        mk = static_cast<unsigned>(masks[pt]);
+        recip = recips[pt];
+      }
+    }
+    if (flags & FIRST_IN_CHUNK) {
+#pragma unroll
+      for (int r = 0; r < RT; ++r) acc[r] = 0.0;
+    }
+    if (t == 0 && whole) fiat::mbar_wait(phibar, 0);
+    const int s = t % stages;
+    fiat::mbar_wait(full + s, (t / stages) & 1);  // this slice has landed
+
+    // 2. the hit pieces' columns in this slice times Phi's prefix, one chain
+    //    per row; the groups of G rows past the chunk's last row are skipped
+    const int rows = min(RT, nrows - half * RT);  // of this thread's rows
+    if (rows > 0) {
+      const double* Ab = As + s * buf + half * RT;
+      const double* f = Bs + slot;
+      const int groups = (rows + G - 1) / G, stride = np * RCP;
+      unsigned m = mk;
+      while (m) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1u;
+        const int ke = min(__ldg(q.pieces + 2 * (c0 + j) + 1), k1);
+        const double* Aj = Ab + j * RCP;
+        if (groups == 2) {
+          multiply<2, TP>(acc, Aj, stride, f, k0, ke);
+        } else {
+          multiply<1, TP>(acc, Aj, stride, f, k0, ke);
+        }
+      }
+    }
+    __syncwarp();  // every lane's reads of this buffer are done
+    if (lane == 0) {
+      fiat::mbar_arrive(empty + s);
+      // the last warp done with the buffer resets its count and refills it
+      if (atomicAdd(done + s, 1u) == W - 1) {
+        done[s] = 0;
+        if (t + stages < nslices) {
+          fiat::mbar_wait(empty + s, (t / stages) & 1);  // every warp's reads, acquired
+          fiat::fence_async_smem();  // order those reads before the copy's writes
+          fetch(t + stages, s);
+        }
+      }
+    }
+
+    if ((flags & LAST_IN_CHUNK) && p0 + slot < npts) {
+      double* o = q.out + static_cast<size_t>(row0 + half * RT) * ld + p0 + slot;
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r < rows) __stcs(o + static_cast<size_t>(r) * ld, acc[r] * recip);
+      }
+    }
+  }
+}
+
+// The instantiation's shared-memory attributes on the current card, set on
+// its first launch there and raised when a plan needs more, not on every
+// call (each cudaFuncSetAttribute is host time on the wrapper's path).
+template <int SD, int TP>
+cudaError_t prepare(size_t bytes) {
+  constexpr int CARDS = 64;
+  static size_t allowed[CARDS] = {};  // bytes allowed so far, per card
+  int card = 0;
+  cudaError_t err = cudaGetDevice(&card);
+  if (err != cudaSuccess) return err;
+  if (card < CARDS && bytes <= allowed[card]) return cudaSuccess;
+  auto kernel = masked_matmul_kernel<SD, TP>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && card < CARDS) allowed[card] = bytes;
+  return err;
+}
+
+// The launch, or with `occupancy` the blocks an SM holds at once (minus the
+// CUDA error on failure).
+template <int SD, int TP>
+int run(const Params& q, bool occupancy, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(q.kmax, TP, q.slice_cols, q.stages);
+  cudaError_t err = prepare<SD, TP>(bytes);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    if (occupancy) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, masked_matmul_kernel<SD, TP>,
+                                                          HALVES * TP, bytes);
+    } else {
+      masked_matmul_kernel<SD, TP><<<(q.npts + TP - 1) / TP, HALVES * TP, bytes, stream>>>(q);
+      err = cudaGetLastError();
+    }
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch's check would report it
+    return occupancy ? -static_cast<int>(err) : static_cast<int>(err);
+  }
+  return occupancy ? blocks : 0;
+}
+
+template <int SD>
+int by_tile(const Params& q, int tp, bool occupancy, cudaStream_t s) {
+  switch (tp) {
+    case 64: return run<SD, 64>(q, occupancy, s);
+    case 128: return run<SD, 128>(q, occupancy, s);
+    case 256: return run<SD, 256>(q, occupancy, s);
+    default:
+      return occupancy ? -static_cast<int>(cudaErrorInvalidValue)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool valid(int sd, int kmax, int slice_cols, int stages) {
+  return (sd == 2 || sd == 3) && kmax >= 1 && slice_cols >= 1 && stages >= 1 && stages <= STAGES;
 }
 
 }  // namespace
 
 // Return the CUDA error code of the launch (0 on success);
-// cudaErrorInvalidValue for sd other than 2 or 3, no chunks, or more chunks
-// than a grid's second dimension takes (the wrapper checks all three first).
+// cudaErrorInvalidValue for sd other than 2 or 3, a point tile other than
+// 64, 128 or 256, no slices, or a ring past STAGES (the wrapper checks them
+// first).
 extern "C" int fiat_masked_matmul(const double* pts, int npts, int sd, double tol,
                                   const double* maps, const int* progs, const int* pieces,
-                                  const int* chunks, int nchunks, const double* At,
-                                  int smem_doubles, const double* phi, double* out,
-                                  void* stream) {
-  if (nchunks < 1 || nchunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                                  const int* slices, int nslices, const double* At,
+                                  const double* phi, int kmax, double* out, int tp,
+                                  int slice_cols, int stages, void* stream) {
+  if (!valid(sd, kmax, slice_cols, stages) || nslices < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params q{pts, npts, tol, maps, progs, pieces, slices, nslices, At, phi, kmax,
+                 slice_cols, stages, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (sd) {
-    case 2:
-      return launch<2>(pts, npts, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
-                       phi, out, s);
-    case 3:
-      return launch<3>(pts, npts, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
-                       phi, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return sd == 2 ? by_tile<2>(q, tp, false, s) : by_tile<3>(q, tp, false, s);
+}
+
+// Blocks of the plan an SM holds at once (registers and shared memory), or
+// minus the CUDA error.
+extern "C" int fiat_masked_matmul_occupancy(int sd, int kmax, int tp, int slice_cols,
+                                            int stages) {
+  if (!valid(sd, kmax, slice_cols, stages)) return -static_cast<int>(cudaErrorInvalidValue);
+  const Params q{nullptr, 0, 0.0, nullptr, nullptr, nullptr, nullptr, 0, nullptr, nullptr,
+                 kmax, slice_cols, stages, nullptr};
+  return sd == 2 ? by_tile<2>(q, tp, true, nullptr) : by_tile<3>(q, tp, true, nullptr);
 }

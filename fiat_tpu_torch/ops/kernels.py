@@ -60,9 +60,11 @@ SIGNATURES = {
                           _I, _I, _P, _P, _P, _P],
     # sd, degree, warps, piece rows (returns blocks an SM, or minus the error)
     "fiat_pair_moments_occupancy": [_I, _I, _I, _I],
-    # pts, npts, sd, tol, maps, progs, pieces, chunks, nchunks, At, smem_doubles,
-    # phi, out, stream
-    "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
+    # pts, npts, sd, tol, maps, progs, pieces, slices, nslices, At, phi, kmax, out,
+    # tp, slice_cols, stages, stream
+    "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P],
+    # sd, kmax, tp, slice_cols, stages (returns blocks an SM, or minus the error)
+    "fiat_masked_matmul_occupancy": [_I] * 5,
     # pts, npts, sd, consts, slots, affine[12] (host array), scale, degree, At, kpad,
     # kmax, tiles, ntiles, dst, out, tp, kc, stages, minb, stream
     "fiat_zoo_f32": [_P, _I, _I, _P, _P, _P, _F, _I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I,

@@ -111,8 +111,9 @@ def chunk_table(progs, pieces, rows=CHUNK_ROWS):
     ps), the largest chunk's staged values).  The kernel stages piece j of
     the chunk's program ps * j columns in (ps is the program's widest piece
     rounded up to odd, so lanes in up to 8 subcells read distinct banks),
-    each column ``column_stride(rows)`` values, K7's layout
-    (``masked_matmul.chunk_layout``)."""
+    each column ``column_stride(rows)`` values.  K7 cuts its rows into the
+    same chunks (``masked_matmul.chunk_layout``, which lays them out by
+    k)."""
     chunks, largest = [], 0
     for g, (r0, r1, c0, c1, _) in enumerate(progs):
         ps = int(pieces[c0:c1, 1].max()) | 1

@@ -8,8 +8,12 @@ neighbours in ``FusedZooTabulator._specials_merged``: the binning masks of
 it.  The merged change of basis ``A`` (rows, sum_c nexp_c) multiplies B,
 whose rows for subcell ("piece") c are ``mask_c * Phi[:nexp_c]``, with Phi
 the (nexp, npts) f64 tabulation K1 made for K2, read by prefix.  The kernel
-(``csrc/masked_matmul.cu``) bins each point itself and multiplies only the
-pieces it bins into (the others add exact zeros); the TPU kernel's df32
+(``csrc/masked_matmul.cu``) bins each point itself, once per program, and
+multiplies only the pieces it bins into (the others add exact zeros), with
+each warp's points dealt to its lanes in subcell order, the block's Phi
+prefix staged in shared memory and A streamed through a ring of
+bulk-copied slices of its row chunks (``chunk_layout``, ``slice_table``;
+the plan sizes both, ``MaskedMatmul.plan_for``); the TPU kernel's df32
 pairs, Ozaki windows, one-hot G/E assembly dots and int8 selects are TPU
 workarounds and are not ported.
 
@@ -23,30 +27,70 @@ import torch
 
 from ..core.expansions import subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import BINNING_TOL, COLUMN_STRIDE, MAX_SMEM, chunk_table, pack_geometry
+from .macro_oneshot import BINNING_TOL, COLUMN_STRIDE, chunk_table, pack_geometry
 
 #: pieces of one program: the kernel keeps a point's masks as bits of one word
 MAX_PROGRAM_PIECES = 32
+#: columns of the slice table, and its flags (csrc/masked_matmul.cu)
+SLICE_COLS = 8
+FIRST_IN_CHUNK, LAST_IN_CHUNK, FIRST_IN_PROGRAM, SAME_BINS = 1, 2, 4, 8
 
 
 def chunk_layout(A, progs, pieces):
     """Every program's rows cut into chunks (``macro_oneshot.chunk_table``)
     and laid out as ``csrc/masked_matmul.cu`` stages them: (chunks int32
-    (nchunks, 5) = (program, first row, rows, offset in ``At``, ps), ``At``
-    f64 flat, the largest chunk in doubles).  Within a chunk, piece j of the
-    program starts ps * j columns in and column k of a piece holds its rows'
-    A[:, off + k], ``COLUMN_STRIDE`` doubles apart."""
-    table, largest = chunk_table(progs, pieces)
+    (nchunks, 5) = (program, first row, rows, offset in ``At``, its widest
+    piece kw), ``At`` f64 flat).  Within a chunk of a program of P pieces,
+    column k * P + j holds piece j's rows' A[:, off_j + k] (zeros for k past
+    its width), ``COLUMN_STRIDE`` doubles apart, so the columns of a run of
+    k are one contiguous block and lanes in different pieces read columns
+    one apart (distinct banks for up to 8 pieces)."""
+    table, _ = chunk_table(progs, pieces)
     chunks, blocks, offset = [], [], 0
-    for g, row, n, ps in table:
+    for g, row, n, _ in table:
         _, _, c0, c1, _ = progs[g]
-        block = np.zeros((c1 - c0, ps, COLUMN_STRIDE))
+        kw = int(pieces[c0:c1, 1].max())
+        block = np.zeros((kw, c1 - c0, COLUMN_STRIDE))
         for j, (off, w) in enumerate(pieces[c0:c1]):
-            block[j, :w, :n] = A[row:row + n, off:off + w].T
-        chunks.append((g, row, n, offset, ps))
+            block[:w, j, :n] = A[row:row + n, off:off + w].T
+        chunks.append((g, row, n, offset, kw))
         blocks.append(block.ravel())
         offset += block.size
-    return np.asarray(chunks, np.int32).reshape(-1, 5), np.concatenate(blocks), largest
+    return np.asarray(chunks, np.int32).reshape(-1, 5), np.concatenate(blocks)
+
+
+def same_bins(maps, progs):
+    """Per program, whether it bins a point as the program before it does:
+    the same subcell maps in the same order and the same rule (unique or
+    averaged), as an Alfeld P3 / DG2 pair at order 1."""
+    out = [False]
+    for (_, _, a0, a1, ua), (_, _, b0, b1, ub) in zip(progs[:-1], progs[1:]):
+        out.append(bool(ua == ub and np.array_equal(maps[1 + a0:1 + a1], maps[1 + b0:1 + b1])))
+    return out
+
+
+def slice_table(chunks, progs, slice_cols, shared=None):
+    """The ring's slices, in the order a block walks them: every chunk of
+    ``chunk_layout`` cut into runs of k, as many as ``slice_cols`` columns
+    hold (at least one).  int32 (nslices, SLICE_COLS) = (program, first row,
+    rows, first k, end k, offset in At, pieces P, flags); a slice is one
+    contiguous block of At, (end - first k) * P * COLUMN_STRIDE doubles.
+    ``shared`` (per program, ``same_bins``) marks the programs that keep the
+    masks of the one before (SAME_BINS on their first slice)."""
+    out, prev = [], None
+    for g, row, n, offset, kw in chunks:
+        npieces = int(progs[g, 3] - progs[g, 2])
+        run = max(1, slice_cols // npieces)
+        for k in range(0, kw, run):
+            end = min(kw, k + run)
+            first = k == 0 and g != prev
+            flags = ((FIRST_IN_CHUNK if k == 0 else 0) | (LAST_IN_CHUNK if end == kw else 0)
+                     | (FIRST_IN_PROGRAM if first else 0)
+                     | (SAME_BINS if first and shared is not None and shared[g] else 0))
+            out.append((g, row, n, k, end, offset + k * npieces * COLUMN_STRIDE, npieces,
+                        flags))
+        prev = g
+    return np.asarray(out, np.int32).reshape(-1, SLICE_COLS)
 
 
 class MaskedMatmul:
@@ -63,11 +107,25 @@ class MaskedMatmul:
     rescaled barycentric map (``fused_zoo._merge_macro_programs`` builds all
     of them).
 
-    ``launches`` counts kernel launches (the plain CPU path adds nothing).
+    ``plan`` is the kernel's (point tile, columns of a slice, slices in the
+    ring, blocks an SM), ``plan_for``'s choice; setting it rebuilds the
+    slice table.  ``launches`` counts kernel launches (the plain CPU path
+    adds nothing).
     """
 
     #: which TPU kernel this engine ports
     name = "K7"
+    #: point tiles (csrc/masked_matmul.cu instantiates them; two threads a
+    #: point), and by sd the threads an SM its launch bounds leave registers
+    #: for (csrc ``threads_sm``)
+    POINT_TILES, THREADS_SM = (256, 128, 64), {2: 512, 3: 768}
+    #: the fewest slices in the ring, the most (csrc STAGES), the fewest
+    #: columns of a slice (8.5 KB) where the chunk is wider, and the columns
+    #: past which more, smaller blocks beat wider slices (PERF.md section 6)
+    MIN_STAGES, STAGES, MIN_COLS, WIDE_COLS = 2, 4, 32, 64
+    #: shared memory a block may take on sm_90, an SM's, what the SM keeps
+    #: for each resident block, and the unit it allocates a block's in
+    SMEM_MAX, SMEM_SM, SMEM_BLOCK, SMEM_UNIT = 232448, 233472, 1024, 128
 
     def __init__(self, A, pieces, geom, parent_map, device=None):
         A = np.asarray(A, np.float64)
@@ -85,13 +143,13 @@ class MaskedMatmul:
             raise NotImplementedError(
                 f"a program of {widest} subcells: K7 takes at most {MAX_PROGRAM_PIECES}")
         self.max_nexp = max(self.nexp)
-        chunks, At, largest = chunk_layout(A, progs, pieces_t)
-        if largest * 8 > MAX_SMEM:
-            raise NotImplementedError(f"a chunk of {largest * 8} bytes: K7 stages at most "
-                                      f"{MAX_SMEM} bytes of A in shared memory")
-        if len(chunks) > 65535:
-            raise NotImplementedError(f"{len(chunks)} row chunks: K7's grid takes at most 65535")
-        self.smem_doubles = largest
+        chunks, At = chunk_layout(A, progs, pieces_t)
+        self.chunks = chunks
+        self._progs = progs
+        self._shared = same_bins(maps, progs)
+        #: columns of the widest chunk: a slice needs no more
+        self.chunk_cols = max(int(progs[g, 3] - progs[g, 2]) * int(kw)
+                              for g, _, _, _, kw in chunks)
         self.device = resolve_device(device)
 
         def as_t(a, dtype=torch.float64):
@@ -100,12 +158,94 @@ class MaskedMatmul:
         # the kernel reads A in its chunk layout (At); the plain version reads A
         self.A = as_t(A)
         self.At = as_t(At)
-        self.chunks = as_t(chunks, torch.int32)
         self.maps = as_t(maps)
         self.progs = as_t(progs, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
         self.device = self.A.device       # "cuda" resolved to its index
+        plan = self.plan_for(self.max_nexp, self.chunk_cols, self.sd)
+        if plan is None:
+            raise NotImplementedError(
+                f"a Phi prefix of {self.max_nexp} rows: K7's smallest point tile leaves no room "
+                f"for a ring of A in a block's {self.SMEM_MAX} bytes of shared memory")
+        self.plan = plan
         self.launches = 0
+
+    @property
+    def plan(self):
+        return self._plan
+
+    @plan.setter
+    def plan(self, plan):
+        if plan[0] not in self.POINT_TILES:
+            raise ValueError(f"plan {plan}: K7 is built for point tiles {self.POINT_TILES}")
+        widest = int((self._progs[:, 3] - self._progs[:, 2]).max())
+        if plan[1] < widest:
+            raise ValueError(f"a slice of {plan[1]} columns: one k of a program of {widest} "
+                             f"pieces needs {widest}")
+        self._plan = tuple(plan)
+        self.slices = torch.as_tensor(
+            slice_table(self.chunks, self._progs, self._plan[1], self._shared), device=self.device)
+
+    @classmethod
+    def smem_bytes(cls, kmax, tp, cols, stages):
+        """Shared memory of a block of ``tp`` points (csrc ``smem_bytes``):
+        the Phi tile, a ring of ``stages`` slices of ``cols`` columns, each
+        point slot's sorted point, masks and factor, the mbarriers and
+        counters."""
+        return 8 * (kmax * tp + stages * cols * COLUMN_STRIDE + tp) + 8 * tp + 8 * (
+            3 * cls.STAGES + 1)
+
+    @classmethod
+    def fit(cls, kmax, chunk_cols, tp, blocks):
+        """(tp, slice columns, slices in the ring, blocks) with the widest
+        slice, up to ``chunk_cols``, that MIN_STAGES of leave room for beside
+        the Phi tile in the shared memory of ``blocks`` blocks an SM, and as
+        many of those slices as fit, up to STAGES; None if that slice is
+        under ``min(chunk_cols, MIN_COLS)`` columns."""
+        col = 8 * COLUMN_STRIDE
+        budget = min(cls.SMEM_MAX, (cls.SMEM_SM // blocks - cls.SMEM_BLOCK)
+                     // cls.SMEM_UNIT * cls.SMEM_UNIT)
+        free = budget - cls.smem_bytes(kmax, tp, 0, 0)
+        cols = min(chunk_cols, max(0, free) // (cls.MIN_STAGES * col))
+        if cols < min(chunk_cols, cls.MIN_COLS):
+            return None
+        return tp, cols, min(cls.STAGES, free // (cols * col)), blocks
+
+    @classmethod
+    def candidates(cls, kmax, chunk_cols, sd, scale=1):
+        """Every plan ``fit`` takes for a Phi prefix of ``kmax`` rows and
+        chunks ``chunk_cols`` columns wide in cells of dimension ``sd``: each
+        point tile at each count of blocks an SM up to ``scale`` times the
+        threads its launch bounds leave registers for, most first."""
+        return [plan for tp in cls.POINT_TILES
+                for blocks in range(scale * cls.THREADS_SM[sd] // (2 * tp), 0, -1)
+                if (plan := cls.fit(kmax, chunk_cols, tp, blocks)) is not None]
+
+    @classmethod
+    def plan_for(cls, kmax, chunk_cols, sd):
+        """Of the ``candidates``, the one that keeps most threads an SM; then
+        one whose slices hold ``min(chunk_cols, WIDE_COLS)`` columns (fewer
+        waits on the ring); then the most blocks an SM (one block's binning
+        and ring fill beside another's products), the widest slice and the
+        deepest ring; None if none fits."""
+        wide = min(chunk_cols, cls.WIDE_COLS)
+        return max(cls.candidates(kmax, chunk_cols, sd),
+                   key=lambda p: (p[0] * p[3], p[1] >= wide, p[3], p[1], p[2]), default=None)
+
+    @property
+    def smem(self):
+        """Shared memory of one of the plan's blocks, in bytes."""
+        tp, cols, stages, _ = self.plan
+        return self.smem_bytes(self.max_nexp, tp, cols, stages)
+
+    def occupancy(self):
+        """Blocks of the plan an SM holds at once on the card (registers and
+        shared memory), from the CUDA runtime."""
+        tp, cols, stages, _ = self.plan
+        blocks = load_kernels().fiat_masked_matmul_occupancy(self.sd, self.max_nexp, tp, cols,
+                                                             stages)
+        check_launch("fiat_masked_matmul_occupancy", max(0, -blocks))
+        return blocks
 
     def _check(self, points, phi):
         for name, t in (("points", points), ("phi", phi)):
@@ -136,12 +276,14 @@ class MaskedMatmul:
         if npts == 0:
             return out
         lib = load_kernels()
+        tp, cols, stages, _ = self.plan
         err = lib.fiat_masked_matmul(
             points.data_ptr(), npts, self.sd, BINNING_TOL[torch.float64], self.maps.data_ptr(),
-            self.progs.data_ptr(), self.pieces.data_ptr(), self.chunks.data_ptr(),
-            self.chunks.shape[0], self.At.data_ptr(), self.smem_doubles, phi.data_ptr(),
-            out.data_ptr(), stream_of(points))
-        check_launch(f"fiat_masked_matmul ({self.rows} x {self.K}, sd = {self.sd})", err)
+            self.progs.data_ptr(), self.pieces.data_ptr(), self.slices.data_ptr(),
+            self.slices.shape[0], self.At.data_ptr(), phi.data_ptr(), self.max_nexp,
+            out.data_ptr(), tp, cols, stages, stream_of(points))
+        check_launch(f"fiat_masked_matmul ({self.rows} x {self.K}, sd = {self.sd}, plan "
+                     f"{self.plan})", err)
         self.launches += 1
         return out
 

@@ -569,6 +569,81 @@ def test_masked_matmul_kernel_on_tie_points(cuda, order):
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
 
 
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("npts,offset", [(1077, 0), (1078, 0), (100_003, 0), (100_000, 0),
+                                         (100_000, 1)])
+def test_masked_matmul_kernel_under_every_plan(cuda, npts, offset, order):
+    """sv_macro_tet under every candidate plan (point tiles 256, 128, 64,
+    slices from the widest chunk down to ones that cut pieces, rings of 2 to
+    4) and under slices of one to six k, on ragged point
+    counts (none a multiple of a tile), odd and even ones (Phi by plain
+    loads or by bulk copy), a Phi that starts off 16-byte alignment, unique
+    programs (order 0) and averaged ones: each plan equals the plain
+    version and gives the same bits as the wrapper's own plan on the points
+    inside one subcell (each output is one FMA chain in (c, k) order; a tie
+    point's pieces interleave by runs of k where a chunk is cut), and on
+    every point where its slices hold whole chunks; two calls give the same
+    bits."""
+    fz = device_tabulator(_sv_zoo(tcl.ufc_simplex(3)), order=order, device=cuda)
+    k7 = fz.macro
+    assert [g["unique"] for g in k7.geom] == [order == 0, False, order == 0, False]
+    ties = _tet_special_points()
+    P = torch.as_tensor(np.vstack([_tet_points(npts - len(ties), seed=npts), ties]),
+                        device=cuda)
+    rec = fz.recurrence(P)
+    buf = torch.empty(rec.numel() + offset, dtype=torch.float64, device=cuda)
+    phi = buf[offset:].view(rec.shape)
+    phi.copy_(rec)
+    want = k7.plain(P, phi)
+    mine = k7.plan
+    first = k7(P, phi)
+    assert torch.equal(first, k7(P, phi))
+    plans = k7.candidates(k7.max_nexp, k7.chunk_cols, 3, 2)
+    assert mine in plans and any(cols < k7.chunk_cols for _, cols, _, _ in plans)
+    plans += [(64, 12, 3, 1), (128, 24, 2, 1), (256, 13, 4, 1)]   # runs of 1 to 6 k
+    rand = npts - len(ties)      # points inside one subcell: one hit, one chain
+    whole = None                 # the first plan whose slices hold whole chunks
+    for plan in plans:
+        k7.plan = plan
+        got = k7(P, phi)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :rand], first[:, :rand]), plan
+        if plan[1] >= k7.chunk_cols:  # a tie point's hits in (c, k) order too
+            whole = got if whole is None else whole
+            assert torch.equal(got, whole), plan
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
+    assert whole is not None
+    k7.plan = mine
+    assert k7.launches == 2 + len(plans)
+    assert ((first - want).abs().max() / want.abs().max()).item() <= 1e-13
+
+
+@pytest.mark.parametrize("npts", [1, 1077, 100_000])
+def test_masked_matmul_kernel_past_the_old_shared_memory_ceiling(cuda, npts):
+    """Lagrange 1 + Worsey-Farin DG 6: row chunks of 274,176 bytes, past a
+    block's shared memory, streamed in slices; against the plain version
+    (relative to |A| |B|: A's entries reach 5.2e5 and its sums cancel), and
+    the tables on the card against host tabulation."""
+    T = tcl.ufc_simplex(3)
+    zoo = [tfe.Lagrange(T, 1), tfe.DiscontinuousLagrange(T, 6, variant="worsey-farin")]
+    fz = device_tabulator(zoo, order=1, device=cuda)
+    k7 = fz.macro
+    assert k7.name == "K7" and k7.plan[1] < k7.chunk_cols
+    P = torch.as_tensor(_tet_points(npts, seed=npts), device=cuda)
+    phi = fz.recurrence(P)
+    got = k7(P, phi)
+    torch.cuda.synchronize()
+    want = k7.plain(P, phi)
+    scale = (k7.A.abs() @ k7.masked_basis(k7.masks(P)[0], phi).abs()).max().item()
+    assert k7.launches == 1 and (got - want).abs().max().item() <= 1e-13 * scale
+    pts = np.vstack([_tet_points(300), _tet_special_points()])
+    tables = fz.unpack(fz.block_tables(torch.as_tensor(pts, device=cuda)))
+    for el, g in zip(zoo, tables):
+        for a, w in el.tabulate(1, pts).items():
+            scale = max(1.0, float(np.abs(w).max()))
+            assert np.abs(g[a].cpu().numpy() - w).max() <= 1e-9 * scale, a
+
+
 def test_masked_matmul_kernel_matches_k3_on_triangle_macro_arrays(cuda):
     """K7 on the merged macro arrays of HCT + PS6 (K3's 63 x 66), reading
     the zoo's degree-10 Phi by prefix, against K3."""

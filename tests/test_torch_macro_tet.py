@@ -7,6 +7,8 @@ both packages; fiat_tpu's Pallas kernels run in interpret mode, as its own
 tests run them (tests/test_device_ops.py), where its macro tables come from
 the merged masked kernel (K7) because the one-shot engine is off."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -26,13 +28,16 @@ from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.core.variants import parse_lagrange_variant
 from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
-from fiat_tpu_torch.ops.masked_matmul import COLUMN_STRIDE, MaskedMatmul
+from fiat_tpu_torch.ops.masked_matmul import (COLUMN_STRIDE, FIRST_IN_CHUNK, FIRST_IN_PROGRAM,
+                                              LAST_IN_CHUNK, SAME_BINS, MaskedMatmul,
+                                              chunk_layout, slice_table)
 
 TOL_COEFFS = 1e-14      # the same numpy construction on both sides
 TOL_FIAT = 1e-11        # engine vs fiat_tpu's interpreted engine (its Ozaki windows)
 TOL_HOST = 1e-11        # engine vs host el.tabulate (both f64)
 TOL_K7 = 1e-12          # K7's plain version vs fiat_tpu's interpreted K7
 RTOL_REPLAY = 1e-13     # the kernel's loop vs the plain version: the order of sums differs
+TOL_DG6 = 3e-10         # Worsey-Farin DG 6 vs fiat_tpu and host, / max(1, max |table|)
 
 
 def sv_macro_tet(fe, T):
@@ -193,40 +198,204 @@ def _bin_as_the_kernel(maps, x, c0, c1, tol=1e-12):
 
 
 def _replay_k7(mm, pts, phi):
-    """csrc/masked_matmul.cu's loop in numpy, reading the chunk layout the
-    wrapper built (chunks, At) and the geometry tables as the kernel does."""
-    maps, progs = mm.maps.numpy(), mm.progs.numpy()
-    pieces, At = mm.pieces.numpy(), mm.At.numpy()
+    """csrc/masked_matmul.cu's loop in numpy, on the wrapper's host layout
+    (At, the slice table, the plan) and geometry tables: per point tile of
+    the plan, its Phi prefix staged; per program, the binning once; the
+    ring's buffers filled as the kernel's bulk copies fill them (slice t
+    into buffer t % stages once slice t - stages is done), and each lane
+    adding its hit pieces' columns of a slice (a run of k) in piece order."""
+    maps, progs, pieces = mm.maps.numpy(), mm.progs.numpy(), mm.pieces.numpy()
+    At, slices = mm.At.numpy(), mm.slices.numpy()
+    tp, cols, stages, _ = mm.plan
     out = np.full((mm.rows, len(pts)), np.nan)
-    for g, row0, nrows, off, ps in mm.chunks.numpy():
-        _, _, c0, c1, unique = progs[g]
-        hits = _bin_as_the_kernel(maps, pts, c0, c1)
-        if unique:      # the first hit alone
-            hits &= np.cumsum(hits, axis=1) == 1
-        recip = 1.0 if unique else 1.0 / hits.sum(axis=1)
-        block = At[off:off + (c1 - c0) * ps * COLUMN_STRIDE].reshape(c1 - c0, ps, COLUMN_STRIDE)
-        acc = np.zeros((nrows, len(pts)))
-        for j in range(c1 - c0):
-            nk = pieces[c0 + j, 1]
-            acc += hits[:, j] * (block[j, :nk, :nrows].T @ phi[:nk])
-        out[row0:row0 + nrows] = acc * recip
+    ring = np.full((stages, cols * COLUMN_STRIDE), np.nan)
+
+    def fetch(t, s):
+        _, _, _, k0, k1, off, npieces, _ = slices[t]
+        n = (k1 - k0) * npieces * COLUMN_STRIDE
+        ring[s, :n] = At[off:off + n]
+
+    for p0 in range(0, len(pts), tp):
+        x, Bs = pts[p0:p0 + tp], phi[:mm.max_nexp, p0:p0 + tp]
+        for s in range(min(stages, len(slices))):
+            fetch(s, s)
+        for t, (g, row0, nrows, k0, k1, _, npieces, flags) in enumerate(slices):
+            _, _, c0, c1, unique = progs[g]
+            if flags & FIRST_IN_PROGRAM and not flags & SAME_BINS:
+                hits = _bin_as_the_kernel(maps, x, c0, c1)
+                if unique:      # the first hit alone
+                    hits &= np.cumsum(hits, axis=1) == 1
+                recip = 1.0 if unique else 1.0 / hits.sum(axis=1)
+            if flags & FIRST_IN_CHUNK:
+                acc = np.zeros((nrows, len(x)))
+            buf = ring[t % stages].reshape(cols, COLUMN_STRIDE)
+            for j in range(npieces):
+                for k in range(k0, min(pieces[c0 + j, 1], k1)):
+                    acc += hits[:, j] * buf[(k - k0) * npieces + j, :nrows, None] * Bs[k]
+            if t + stages < len(slices):
+                fetch(t + stages, t % stages)
+            if flags & LAST_IN_CHUNK:
+                out[row0:row0 + nrows, p0:p0 + tp] = acc * recip
     return out
 
 
 @pytest.mark.parametrize("order", [0, 1])
 def test_k7_kernel_loop_on_its_chunk_layout_matches_plain(order):
-    """The kernel cannot run here: its loop, replayed on the packed chunks,
-    equals the plain version, on random and tie points, unique (order 0,
-    C0 bases) and averaged."""
+    """The kernel cannot run here: its loop, replayed on the packed slices
+    under the wrapper's plan and under a plan whose narrow slices cut the
+    chunks into runs of one to three k (and a ragged last point tile), equals the plain
+    version, on random and tie points, unique (order 0, C0 bases) and
+    averaged."""
     tab = device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=order, device="cpu")
     mm = tab.macro
     assert mm.name == "K7" and mm.chunks.shape[0] == sum(
         -(-(g["rows"][1] - g["rows"][0]) // 32) for g in mm.geom)
+    assert mm.plan == MaskedMatmul.plan_for(20, 120, 3)
+    # at order 1 the Alfeld pair and the Worsey-Farin pair each bin once
+    flags = mm.slices.numpy()[:, 7]
+    firsts = flags[flags & FIRST_IN_PROGRAM > 0]
+    assert list(firsts & SAME_BINS > 0) == [False, order == 1, False, order == 1]
     pts = np.vstack([_points(200, 11), _tet_special_points()])
     phi = tab.recurrence(torch.as_tensor(pts))
     want = mm(torch.as_tensor(pts), phi).numpy()
-    got = _replay_k7(mm, pts, phi.numpy())
-    assert np.abs(got - want).max() <= RTOL_REPLAY * np.abs(want).max()
+    for plan in (mm.plan, (64, 13, 3, 1), (256, 120, 2, 2)):  # one k of 12 pieces; whole chunks
+        mm.plan = plan
+        assert len(pts) % plan[0]
+        got = _replay_k7(mm, pts, phi.numpy())
+        assert np.abs(got - want).max() <= RTOL_REPLAY * np.abs(want).max()
+
+
+def _synthetic_tables(nexp, nsub, rows, seed):
+    """Geometry-free K7 tables: two programs of ``nsub`` subcells each, of
+    ``rows`` and ``rows // 3 + 1`` rows, every piece ``nexp`` wide (the
+    first program's last piece one narrower, where it can be), and a random
+    A over them: (A, progs, pieces) as ``pack_geometry`` lays them out."""
+    widths = [nexp] * (2 * nsub)
+    widths[nsub - 1] = max(1, nexp - 1)
+    offsets = np.concatenate([[0], np.cumsum(widths)])
+    r1 = rows + rows // 3 + 1
+    progs = np.array([(0, rows, 0, nsub, 0), (rows, r1, nsub, 2 * nsub, 1)], np.int32)
+    pieces = np.column_stack([offsets[:-1], widths]).astype(np.int32)
+    A = np.random.default_rng(seed).standard_normal((r1, offsets[-1]))
+    return A, progs, pieces
+
+
+@pytest.mark.parametrize("nsub", [4, 12, 32])
+@pytest.mark.parametrize("degree", range(11))
+def test_k7_slices_hold_every_entry_of_a_exactly_once(degree, nsub):
+    """Every (row, piece, k) of A (a program's rows by its own pieces'
+    columns) lies in exactly one slice of the ring,
+    under the plan the wrapper would choose and under slices of one k of
+    every piece and a few, at the piece widths of tet degrees 0-10 and 4, 12 and 32
+    subcells; the slice's block of At holds A's value there, and every other
+    staged value is zero.  The flags mark each chunk's first and last slice
+    and each program's first."""
+    nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
+    A, progs, pieces = _synthetic_tables(nexp, nsub, 45, degree * 100 + nsub)
+    chunks, At = chunk_layout(A, progs, pieces)
+    chunk_cols = max(int(progs[g, 3] - progs[g, 2]) * int(kw) for g, _, _, _, kw in chunks)
+    plan = MaskedMatmul.plan_for(nexp, chunk_cols, 3)
+    assert plan is not None
+    for cols in sorted({plan[1], nsub, nsub + 7, chunk_cols}):
+        slices = slice_table(chunks, progs, cols)
+        seen = np.zeros(A.shape, int)
+        staged = np.zeros(At.shape, int)
+        for g, row0, nrows, k0, k1, off, npieces, flags in slices:
+            assert 0 < (k1 - k0) * npieces <= cols and off % 2 == 0
+            _, _, c0, c1, _ = progs[g]
+            assert npieces == c1 - c0
+            for k in range(k0, k1):
+                for j in range(npieces):
+                    base = off + ((k - k0) * npieces + j) * COLUMN_STRIDE
+                    staged[base:base + COLUMN_STRIDE] += 1
+                    if k < pieces[c0 + j, 1]:
+                        c = pieces[c0 + j, 0] + k
+                        seen[row0:row0 + nrows, c] += 1
+                        assert np.array_equal(At[base:base + nrows], A[row0:row0 + nrows, c])
+                        assert not At[base + nrows:base + COLUMN_STRIDE].any()
+                    else:
+                        assert not At[base:base + COLUMN_STRIDE].any()
+        own = np.zeros(A.shape, int)        # each program's rows by its own pieces' columns
+        for r0, r1, c0, c1, _ in progs:
+            own[r0:r1, pieces[c0, 0]:pieces[c1 - 1].sum()] = 1
+        assert np.array_equal(seen, own) and (staged == 1).all()
+        assert ((slices[:, 7] & FIRST_IN_PROGRAM) > 0).sum() == len(progs)
+        assert ((slices[:, 7] & FIRST_IN_CHUNK) > 0).sum() == len(chunks)
+        assert ((slices[:, 7] & LAST_IN_CHUNK) > 0).sum() == len(chunks)
+
+
+@pytest.mark.parametrize("sd,degrees", [(2, range(16)), (3, range(11))])
+def test_k7_plans_fit_the_shared_memory_at_every_degree(sd, degrees):
+    """At every degree K1 tabulates, for chunks from one column to
+    sv_macro_tet's widest and a 12-subcell program of 32 rows at that
+    degree, the plan exists, holds its blocks in an SM's shared memory
+    within a block's limit, and every candidate keeps at least MIN_STAGES
+    slices in the ring."""
+    M = MaskedMatmul
+    for n in degrees:
+        kmax = math.comb(n + sd, sd)
+        for chunk_cols in (1, 120, 12 * kmax):
+            plan = M.plan_for(kmax, chunk_cols, sd)
+            assert plan is not None and plan in M.candidates(kmax, chunk_cols, sd)
+            for tp, cols, stages, blocks in M.candidates(kmax, chunk_cols, sd, 4):
+                smem = M.smem_bytes(kmax, tp, cols, stages)
+                assert smem <= M.SMEM_MAX and blocks * (smem + M.SMEM_BLOCK) <= M.SMEM_SM
+                assert M.MIN_STAGES <= stages <= M.STAGES
+                assert min(chunk_cols, M.MIN_COLS) <= cols <= chunk_cols
+
+
+def _dg6_case():
+    """Lagrange 1 + Worsey-Farin DG 6 in both packages, at 150 random and
+    the tie points: (port's CPU tabulator, port zoo, fiat_tpu zoo, points)."""
+    T, J = tcl.ufc_simplex(3), jcl.ufc_simplex(3)
+    tzoo = [tfe.Lagrange(T, 1), tfe.DiscontinuousLagrange(T, 6, variant="worsey-farin")]
+    jzoo = [jfe.Lagrange(J, 1), jfe.DiscontinuousLagrange(J, 6, variant="worsey-farin")]
+    pts = np.vstack([_points(150, 21), _tet_special_points()])
+    return device_tabulator(tzoo, order=1, device="cpu"), tzoo, jzoo, pts
+
+
+def _dg6_readings(tab, tzoo, jzoo, pts):
+    """The tables of the port, of fiat_tpu's BatchedTabulator and of host
+    tabulation, compared pairwise: per pair, the largest difference per
+    alpha relative to max(1, its largest value)."""
+    port = [{a: t.numpy() for a, t in g.items()} for g in tab.unpack(tab.block_tables(pts))]
+    bt = JBatchedTabulator(jzoo, order=1)
+    fiat = [{a: np.asarray(t) for a, t in g.items()} for g in bt.unpack(bt(jnp.asarray(pts)))]
+    host = [el.tabulate(1, pts) for el in tzoo]
+    out = {}
+    for name, ref, other in (("port vs fiat_tpu", fiat, port), ("port vs host", host, port),
+                             ("fiat_tpu vs host", host, fiat)):
+        out[name] = max(np.abs(r[a] - g[a]).max() / max(1.0, float(np.abs(r[a]).max()))
+                        for r, g in zip(ref, other) for a in r)
+    return out
+
+
+def test_k7_past_the_old_shared_memory_ceiling_matches_fiat_tpu_and_host():
+    """Lagrange 1 + Worsey-Farin DG 6: a row chunk of 274,176 bytes, past a
+    block's 227 KB of shared memory (K7 refused the zoo when a whole chunk
+    had to fit), streamed through the ring in slices of fewer k.  The
+    tables against fiat_tpu's BatchedTabulator and host tabulation, per
+    alpha relative to max(1, its largest value), at TOL_DG6: degree 6's
+    change of basis (entries up to 5.2e5) leaves fiat_tpu's own engine
+    1.46e-10 of that from host here (3.2e-10 on the values, max 2.2; 2.2e-9
+    in absolute terms on the derivatives, max 244), and the port 1.56e-10
+    from fiat_tpu and 1.46e-10 from host (``PYTHONPATH=. python
+    tests/test_torch_macro_tet.py`` prints the three); and the kernel's
+    loop on those slices against the plain version."""
+    tab, tzoo, jzoo, pts = _dg6_case()
+    mm = tab.macro
+    assert mm.name == "K7" and (len(mm.nexp), mm.max_nexp) == (12, 84)
+    assert mm.chunk_cols * COLUMN_STRIDE * 8 == 274176 > MaskedMatmul.SMEM_MAX
+    assert mm.plan[1] < mm.chunk_cols
+    readings = _dg6_readings(tab, tzoo, jzoo, pts)
+    assert readings["port vs fiat_tpu"] <= TOL_DG6 and readings["port vs host"] <= TOL_DG6
+    # the kernel's loop: its sums cancel (A's entries reach 5.2e5 here), so the
+    # order of the sums is held to the scale of |A| |B|, not of the result
+    P = torch.as_tensor(np.ascontiguousarray(pts[::4]))
+    phi = tab.recurrence(P)
+    want = mm(P, phi).numpy()
+    scale = (mm.A.abs() @ mm.masked_basis(mm.masks(P)[0], phi).abs()).max().item()
+    assert np.abs(_replay_k7(mm, P.numpy(), phi.numpy()) - want).max() <= RTOL_REPLAY * scale
 
 
 def _engine_checks(tab, tzoo, pts, ref):
@@ -339,3 +508,8 @@ def test_tet_macro_zoos_refused_by_the_f32_and_moments_engines():
     host = sum(c[lo:hi] @ el.tabulate(0, pts)[(0, 0, 0)].reshape(hi - lo, len(pts))
                for el, (lo, hi, _) in zip(zoo, eng.slices))
     assert np.abs(u - host).max() <= 1e-12
+
+
+if __name__ == "__main__":
+    # the readings behind TOL_DG6
+    print({pair: float(v) for pair, v in _dg6_readings(*_dg6_case()).items()})
