@@ -53,7 +53,28 @@ Drives the port's main paths once each at their real size, at 1e5 points
      Morley, Argyris 5, Bell, HCT 3, PS6 and PS12 at order 1 and 2), and the
      same zoo at order 3 (K3's A 330 x 138, past a block's shared memory),
      through ``device_tabulator(..., order=1|2|3, device="cuda").block_tables``
-     (K1, K2 and K3's sd = 2 stage over 21 subcells; K7 timed beside K3).
+     (K1, K2 and K3's sd = 2 stage over 21 subcells; K7 timed beside K3);
+ 10. ``families_tri`` at ``pts2``: the nodal simplicial families of
+     fiat_tpu's nodality sweep on the triangle (``FAMILIES_TRI``,
+     ``COMPOSITES_TRI``: Crouzeix-Raviart, Taylor, DRT, NED2, BDFM, Regge,
+     HHJ, GLS, GL, GLL, bubbles, KMV, restricted and enriched elements; 63
+     elements, widths 1-45, tensor-valued rows among them) through every
+     entry point on the default device: ``device_tabulator(..., order=1)
+     .block_tables`` (K1, K2; K2 also timed on each width group alone),
+     ``moment_rows`` (K45) and ``interpolate_rows`` (K1) on a
+     ``BatchedTabulator(zoo, order=0)``, and the f32 ``tables`` (K6), held
+     against the f64 tables;
+ 11. ``families_tet`` at ``pts3``, the same on the tetrahedron (47 elements,
+     6732 rows, 21.5 GB of f64 tables a pass);
+ 12. bench.py's ``hdiv_hcurl_tri`` (RT, Nedelec and BDM 1-6 at ``pts2``) and
+     ``p2_tri_deg4rule`` (P2 at the degree-4 rule tiled to 1e5 points) on
+     the f64 engine (K1, K2);
+ 13. ``hex_gll_sumfact`` (bench.py:515-579): GaussLobattoLegendre 8 on the
+     interval tabulated on the host at the 46-point Gauss-Jacobi rule, the
+     three sum-factorised ``torch.einsum`` contractions on the card in
+     float64 over a 46^3 field, held to the dense Kronecker contraction on
+     the host (no kernel of the port runs here, nor a Pallas kernel in
+     fiat_tpu).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -83,7 +104,8 @@ same check), one line per step, a JSON line ``{"kernels": [...]}`` (K1, K2 and K
 on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7
 on ``sv_macro_tet`` and on the Worsey-Farin DG 6 zoo, K45 at sd = 3 on
 phase 7's three cells and K6 at sd = 3 on two, K3's sd = 3 stage and K6 on
-phase 8's and K3 on the C1 zoos (order 1, 2 and 3), each with its bound:
+phase 8's, K3 on the C1 zoos (order 1, 2 and 3), K1, K2, K45 and K6 on
+phases 10 and 11 and K1 and K2 on phase 12, each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -113,6 +135,8 @@ BIG_NPTS = 10_000_000    # moments streamed from HBM: 240 MB of points and weigh
 STACK_SLICE = 1_000_000  # points per slice of a K45 stack built for its DGEMV
 REPS = 10
 INNER = 10
+SPIN_CYCLES = 20_000_000  # ~10 ms of clock cycles queued ahead of timed calls
+PROFILE_PAD_S = 0.2       # host seconds around a profiled run
 # the H100 SXM's published peaks (NVIDIA's data sheet), per millisecond
 HBM_BYTES_MS = 3.35e9    # 3.35 TB/s
 FP64_FMA_MS = 33.5e9     # 33.5 TFLOP/s FP64 outside the tensor cores
@@ -273,36 +297,67 @@ def median_ms(fn, torch, reps=REPS, inner=INNER, warmup=2):
     return statistics.median(times)
 
 
+def profile_kernels(run, torch, tries=3):
+    """{kernel name: (launches, device microseconds)} of run(), from
+    torch.profiler's CUDA activity.  The profiler can drop the card's
+    kernel events, some or all of a session's: the host's window is padded
+    by PROFILE_PAD_S on each side, and a session that saw no kernel at all
+    is run again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        seen = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count}
+        if seen:
+            return seen
+    return {}
+
+
 def device_ms(fn, torch, calls=INNER):
     """Mean device time of the kernels one fn() call launches, from
     torch.profiler's CUDA activity over ``calls`` calls (host time not
     included: what the card spends, where a wrapper's host time hides it
     from CUDA events); None if the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    seen = profile_kernels(lambda: [fn() for _ in range(calls)], torch)
+    total = sum(us for _, us in seen.values())
+    return total / calls / 1000 if total else None
+
+
+def queued_ms(fn, torch, calls=INNER, spin_cycles=SPIN_CYCLES):
+    """Device time of one fn() call by CUDA events, the ``calls`` calls
+    queued behind a spin of ``spin_cycles`` clock cycles, so that the
+    events bracket the kernels alone and not the host's time to issue
+    them: the median of REPS samples.  Unlike the profiler
+    (``profile_kernels``), these events drop nothing."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / calls / 1000 if total else None
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def device_kernels(fn, torch):
     """{kernel name: launches} of one fn() call, from torch.profiler's CUDA
     activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and e.count}
+    return {name: n for name, (n, _) in profile_kernels(fn, torch).items()}
 
 
 def check_k45_alone(name, pm, P, wf, torch):
@@ -354,9 +409,14 @@ def clock_under_load(fn, torch, seconds=1.5):
             statistics.median(r[1] for r in rows) if rows else None)
 
 
-def rel_err(got, want):
-    scale = want.abs().max().item()
-    err = (got - want).abs().max().item()
+def rel_err(got, want, rows=2048):
+    """Max abs difference and max abs of ``want``, over chunks of ``rows``
+    rows (no temporary of the whole tables): (err, err / scale)."""
+    err = scale = 0.0
+    for s in range(0, want.shape[0], rows):
+        w = want[s:s + rows]
+        scale = max(scale, w.abs().max().item())
+        err = max(err, (got[s:s + rows] - w).abs().max().item())
     return err, err / scale if scale else err
 
 
@@ -1570,6 +1630,404 @@ def c1_phase(T, dev, pts2, P, card, torch, np):
     return kernels
 
 
+#: fiat_tpu's own instance list (tests/test_nodality_sweep.py, SPECS at
+#: :36-115), cut to the families that need no macro polynomial set, no
+#: pointwise dual and no tensor-product cell, on one cell, in SPECS order:
+#: (family, degree, variant); the COMPOSITES (:147-169) on that cell follow
+FAMILIES_TRI = (
+    ("DiscontinuousTaylor", 0, None), ("DiscontinuousTaylor", 1, None),
+    ("DiscontinuousTaylor", 2, None), ("DiscontinuousTaylor", 3, None),
+    ("DiscontinuousTaylor", 4, None), ("CrouzeixRaviart", 1, None),
+    ("CrouzeixRaviart", 1, "point"), ("CrouzeixRaviart", 3, None),
+    ("CrouzeixRaviart", 3, "point"), ("CrouzeixRaviart", 5, None),
+    ("CrouzeixRaviart", 5, "point"), ("NedelecSecondKind", 1, None),
+    ("NedelecSecondKind", 1, "integral"), ("NedelecSecondKind", 1, "integral(1)"),
+    ("NedelecSecondKind", 1, "point"), ("NedelecSecondKind", 2, None),
+    ("NedelecSecondKind", 2, "integral"), ("NedelecSecondKind", 2, "integral(1)"),
+    ("NedelecSecondKind", 2, "point"), ("NedelecSecondKind", 3, None),
+    ("NedelecSecondKind", 3, "integral"), ("NedelecSecondKind", 3, "integral(1)"),
+    ("NedelecSecondKind", 3, "point"), ("DiscontinuousRaviartThomas", 1, None),
+    ("DiscontinuousRaviartThomas", 2, None), ("DiscontinuousRaviartThomas", 3, None),
+    ("Regge", 0, None), ("Regge", 1, None), ("Regge", 2, None), ("Regge", 1, "point"),
+    ("HellanHerrmannJohnson", 0, None), ("HellanHerrmannJohnson", 1, None),
+    ("HellanHerrmannJohnson", 2, None), ("HellanHerrmannJohnson", 1, "point"),
+    ("GopalakrishnanLedererSchoberlFirstKind", 1, None),
+    ("GopalakrishnanLedererSchoberlFirstKind", 2, None),
+    ("GopalakrishnanLedererSchoberlFirstKind", 3, None),
+    ("GopalakrishnanLedererSchoberlSecondKind", 0, None),
+    ("GopalakrishnanLedererSchoberlSecondKind", 1, None),
+    ("GopalakrishnanLedererSchoberlSecondKind", 2, None), ("BrezziDouglasFortinMarini", 2, None),
+    ("BrezziDouglasFortinMarini", 3, None), ("BrezziDouglasFortinMarini", 2, "point"),
+    ("GaussLegendre", 0, None), ("GaussLegendre", 1, None), ("GaussLegendre", 2, None),
+    ("GaussLobattoLegendre", 1, None), ("GaussLobattoLegendre", 2, None),
+    ("GaussLobattoLegendre", 3, None), ("Bubble", 3, None), ("Bubble", 3, "integral"),
+    ("FacetBubble", 2, None), ("FacetBubble", 2, "integral"), ("KongMulderVeldhuizen", 1, None),
+    ("KongMulderVeldhuizen", 2, None), ("KongMulderVeldhuizen", 3, None),
+    ("KongMulderVeldhuizen", 4, None), ("KongMulderVeldhuizen", 5, None),
+    ("KongMulderVeldhuizen", 6, None),
+)
+COMPOSITES_TRI = ("RestrictedElement-vertex", "RestrictedElement-facet", "NodalEnriched-T",
+                  "NodalEnriched-RT")
+FAMILIES_TET = (
+    ("DiscontinuousTaylor", 0, None), ("DiscontinuousTaylor", 1, None),
+    ("DiscontinuousTaylor", 2, None), ("CrouzeixRaviart", 1, None),
+    ("CrouzeixRaviart", 1, "point"), ("NedelecSecondKind", 1, None),
+    ("NedelecSecondKind", 1, "integral"), ("NedelecSecondKind", 1, "integral(1)"),
+    ("NedelecSecondKind", 1, "point"), ("NedelecSecondKind", 2, None),
+    ("NedelecSecondKind", 2, "integral"), ("NedelecSecondKind", 2, "integral(1)"),
+    ("NedelecSecondKind", 2, "point"), ("NedelecSecondKind", 3, None),
+    ("NedelecSecondKind", 3, "integral"), ("NedelecSecondKind", 3, "integral(1)"),
+    ("NedelecSecondKind", 3, "point"), ("DiscontinuousRaviartThomas", 1, None),
+    ("DiscontinuousRaviartThomas", 2, None), ("DiscontinuousRaviartThomas", 3, None),
+    ("Regge", 0, None), ("Regge", 1, None), ("Regge", 2, None), ("Regge", 1, "point"),
+    ("HellanHerrmannJohnson", 0, None), ("HellanHerrmannJohnson", 1, None),
+    ("HellanHerrmannJohnson", 2, None), ("HellanHerrmannJohnson", 1, "point"),
+    ("GopalakrishnanLedererSchoberlFirstKind", 1, None),
+    ("GopalakrishnanLedererSchoberlFirstKind", 2, None),
+    ("GopalakrishnanLedererSchoberlFirstKind", 3, None),
+    ("GopalakrishnanLedererSchoberlSecondKind", 0, None),
+    ("GopalakrishnanLedererSchoberlSecondKind", 1, None),
+    ("GopalakrishnanLedererSchoberlSecondKind", 2, None), ("BrezziDouglasFortinMarini", 2, None),
+    ("GaussLegendre", 0, None), ("GaussLegendre", 1, None), ("GaussLegendre", 2, None),
+    ("GaussLobattoLegendre", 1, None), ("GaussLobattoLegendre", 2, None),
+    ("GaussLobattoLegendre", 3, None), ("Bubble", 4, None), ("Bubble", 4, "integral"),
+    ("FacetBubble", 3, None), ("FacetBubble", 3, "integral"),
+)
+COMPOSITES_TET = ("NodalEnriched-S", "NodalEnriched-Regge")
+HEX_DEGREE = 8           # bench.py:522, the GLL element of hex_gll_sumfact
+HEX_M = 46               # bench.py:523, Gauss-Jacobi points a direction
+HEX_RTOL = 1e-12         # sum-factorised vs dense Kronecker moments, / max |dense|
+HEX_CHUNK = 81           # rows of the dense (729, 46^3) table built at a time
+
+
+def composite(name, T):
+    """The COMPOSITES entry ``name`` of fiat_tpu's nodality sweep
+    (tests/test_nodality_sweep.py:147-169), built on T by the port."""
+    import fiat_tpu_torch as ft
+    build = {
+        "RestrictedElement-vertex": lambda: ft.RestrictedElement(
+            ft.Lagrange(T, 2), restriction_domain="vertex"),
+        "RestrictedElement-facet": lambda: ft.RestrictedElement(
+            ft.Lagrange(T, 3), restriction_domain="facet"),
+        "NodalEnriched-T": lambda: ft.NodalEnrichedElement(ft.Lagrange(T, 1), ft.Bubble(T, 3)),
+        "NodalEnriched-S": lambda: ft.NodalEnrichedElement(ft.Lagrange(T, 1), ft.Bubble(T, 4)),
+        "NodalEnriched-RT": lambda: ft.NodalEnrichedElement(
+            ft.RaviartThomas(T, 1),
+            ft.RestrictedElement(ft.RaviartThomas(T, 2), restriction_domain="interior")),
+        "NodalEnriched-Regge": lambda: ft.NodalEnrichedElement(
+            ft.Regge(T, 1), ft.RestrictedElement(ft.Regge(T, 2), restriction_domain="interior")),
+    }
+    return build[name]()
+
+
+def families_zoo(specs, composites, T):
+    """The port's elements of a (family, degree, variant) list, then the
+    named composites."""
+    import fiat_tpu_torch as ft
+    return ([getattr(ft, fam)(T, deg, **({} if v is None else {"variant": v}))
+             for fam, deg, v in specs]
+            + [composite(name, T) for name in composites])
+
+
+def f64_cell(name, zoo, pts, P, card, torch, np):
+    """A plain zoo on the f64 engine at ``pts`` (``P`` on the card):
+    ``device_tabulator(zoo, order=1)`` on the default device, K1 and K2
+    against their plain versions, one launch of each a pass, the tables
+    held to host, and the pass, the kernels and their plain versions
+    timed.  Returns the engine and K1's and K2's kernels-line entries."""
+    from fiat_tpu_torch import device_tabulator
+
+    t0 = time.perf_counter()
+    tab = device_tabulator(zoo, order=1)           # the default device: the card
+    rec, mm = tab.recurrence, tab.matmul
+    if tab.macro is not None or tab.features is not None or tab.device != P.device:
+        fail(f"{name}: a plain zoo runs K1 and K2 alone on {P.device}")
+    gbytes = mm.total_rows * NPTS * 8 / 1e9
+    print(f"{name} host construction: {len(zoo)} elements, {tab.rows} rows x "
+          f"{len(tab.alphas)} alphas, widths {tab.widths} (rows {mm.rows}), K2 plan {mm.plan}, "
+          f"K1 sd {rec.sd} degree {rec.degree}; a pass writes {gbytes:.3f} GB; "
+          f"{time.perf_counter() - t0:.2f} s")
+    phi_p = rec.plain(P)
+    k1_abs = check_kernel(f"{name} K1 recurrence (sd {rec.sd}, degree {rec.degree}) at {NPTS} "
+                          f"points", rec(P), phi_p, torch)
+    C_k = mm(phi_p)
+    C_p = mm.plain(phi_p)
+    k2_abs = check_kernel(f"{name} K2 bucket matmul ({mm.total_rows} x {NPTS}, widths {mm.K})",
+                          C_k, C_p, torch)
+    worst = max(rel_err(a, b)[1] for a, b in zip(mm.views(C_k), mm.views(C_p)))
+    if not worst <= KERNEL_RTOL:
+        fail(f"{name} K2 disagrees with its plain version on a group: rel {worst:.3e}")
+    del phi_p, C_k, C_p
+    launches, host_err = run_main_path(name, tab, zoo, pts, torch, np)
+    if launches != {"K1": 1, "K2": 1}:
+        fail(f"{name}: one pass must launch K1 and K2 once each: {launches}")
+
+    phi = rec(P)
+    k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
+    k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), median_ms(lambda: mm.plain(phi), torch)
+    A = mm.A.to(phi.device)
+    k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)  # one padded DGEMM
+    k1_card, k2_card = queued_ms(lambda: rec(P), torch), queued_ms(lambda: mm(phi), torch)
+    del A, phi
+    path_ms = median_ms(lambda: tab.block_tables(P), torch)
+    plain_ms = median_ms(lambda: mm.plain(rec.plain(P)), torch)
+    k1_bound, k2_bound = rec_bound(rec, NPTS), matmul_bound(mm, NPTS)
+    print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events; card: the "
+          f"same with the calls queued behind a spin): pass {path_ms:.4f} ms, plain path "
+          f"{plain_ms:.4f} ms; K1 {k1_ms:.4f} ms (card {k1_card:.4f} ms, plain {k1_plain:.4f}, "
+          f"bound {k1_bound[0]:.4f} by {k1_bound[1]}), K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} "
+          f"(card {k2_card:.4f} ms, plain {k2_plain:.4f}, one padded DGEMM {k2_lib:.4f}, bound "
+          f"{k2_bound[0]:.4f} by {k2_bound[1]}); {gbytes / path_ms:.3f} TB/s a pass; host "
+          f"error {host_err:.3e}")
+    src = "fiat_tpu_torch/csrc/"
+    return tab, [
+        entry(f"K1 dubiner{rec.sd}_values ({name})", src + "recurrence.cu",
+              "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain,
+              k1_bound),
+        entry(f"K2 bucket_matmul ({name})", src + "bucket_matmul.cu",
+              "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain,
+              k2_bound, k2_lib)]
+
+
+def k2_by_group(name, mm, P, phi, torch):
+    """K2 on each width group of ``mm`` alone (a BucketMatmul of that
+    group's rows; device time, its calls queued behind a spin), against
+    the group's own bound: which contraction width costs the most against
+    its bytes."""
+    from fiat_tpu_torch.ops.fused_zoo import BucketMatmul
+    A = mm.A.cpu().numpy()
+    for off, K, rows in zip(mm.offsets, mm.K, mm.rows):
+        one = BucketMatmul([A[off:off + rows, :K]], device=P.device)
+        ms = queued_ms(lambda: one(phi), torch)
+        bound = matmul_bound(one, NPTS)
+        print(f"{name} K2 width {K} alone ({rows} rows x {NPTS}, plan {one.plan}): {ms:.4f} ms, "
+              f"bound {bound[0]:.4f} by {bound[1]} ({bound[0] / ms:.0%} of it), "
+              f"{rows * NPTS * 8 / 1e9 / ms:.3f} TB/s of C")
+
+
+def dual_cell(name, zoo, pts, P, card, torch, np):
+    """``moment_rows`` (K45 alone, one launch) and ``interpolate_rows``
+    (K1 alone, one launch) of a plain zoo on a ``BatchedTabulator(zoo,
+    order=0)`` on the default device, held to host; K45 against its plain
+    version and timed.  Returns K45's kernels-line entry."""
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    t0 = time.perf_counter()
+    bt = BatchedTabulator(zoo, order=0)            # the default device: the card
+    eng = mo.moment_engine(bt)
+    pm, rec = eng.moments, eng.recurrence
+    print(f"{name} dual host construction: {len(zoo)} elements, {eng.rows} rows, K45 "
+          f"{pm.rows} sums (sd {pm.sd}, degree {pm.degree}), {time.perf_counter() - t0:.2f} s")
+    wf_h = np.random.default_rng(7).random(NPTS)      # bench.py:441
+    wf = torch.as_tensor(wf_h, device=P.device)
+    c_h = np.random.default_rng(11).random(eng.rows) - 0.5
+    c = torch.as_tensor(c_h, device=P.device)
+    k45_abs = check_kernel(f"{name} K45 ({pm.rows} sums over {NPTS} points)", pm(P, wf),
+                           pm.plain(P, wf), torch)
+    check_k45_alone(name, pm, P, wf, torch)
+    engines = {"K45": pm, "K1": rec}
+    M, launches = counted(engines, lambda: mo.moment_rows(bt, P, wf), torch)
+    expect_launches(f"{name} moments", launches, {"K45": 1, "K1": 0})
+    k45_launches = launches["K45"]
+    u, launches = counted(engines, lambda: mo.interpolate_rows(bt, P, c), torch)
+    expect_launches(f"{name} interpolation", launches, {"K45": 0, "K1": 1})
+    if eng.built["macro"]:
+        fail(f"{name}: a plain zoo builds no K3")
+    if tuple(M.shape) != (eng.rows,) or tuple(u.shape) != (NPTS,):
+        fail(f"{name}: moments {tuple(M.shape)} / interpolation {tuple(u.shape)}: wrong shapes")
+    if not (bool(torch.isfinite(M).all()) and bool(torch.isfinite(u).all())):
+        fail(f"{name}: non-finite moments or interpolated values")
+    host_dual_check(name, zoo, bt, mo, P, pts, wf, wf_h, u, c_h, np)
+    mom_ms = median_ms(lambda: mo.moment_rows(bt, P, wf), torch)
+    int_ms = median_ms(lambda: mo.interpolate_rows(bt, P, c), torch)
+    k45_ms, k45_plain = median_ms(lambda: pm(P, wf), torch), median_ms(lambda: pm.plain(P, wf),
+                                                                      torch)
+    k45_lib = stack_mv_ms(pm, P, wf, torch)
+    k45_card = queued_ms(lambda: pm(P, wf), torch)
+    bound = moments_bound(pm, NPTS)
+    print(f"{name} dual timing at {NPTS} points ({card}; median of {REPS} runs of {INNER}, CUDA "
+          f"events): moment_rows {mom_ms:.4f} ms, interpolate_rows {int_ms:.4f} ms; K45 "
+          f"{k45_ms:.4f} ms (card {k45_card:.4f} ms, plain {k45_plain:.4f}, one DGEMV on its "
+          f"stack built beforehand {k45_lib:.4f}, bound {bound[0]:.4f} by {bound[1]})")
+    return entry(f"K45 pair_moments sd {pm.sd} ({name})", "fiat_tpu_torch/csrc/moments.cu",
+                 "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727",
+                 k45_launches, k45_abs, k45_ms, k45_plain, bound, k45_lib)
+
+
+def f32_cell(name, zoo, P, tab64, card, torch):
+    """A plain zoo on the f32 engine: ``device_tabulator(zoo, order=1,
+    f64=False).tables`` on the default device (K6 alone, one launch a
+    pass), K6 against its plain version, the tables held to the f64
+    engine ``tab64``'s per alpha (F32_RTOL of each alpha's max abs),
+    element by element so that no second f64 copy of the tables is made.
+    Returns K6's kernels-line entry."""
+    from fiat_tpu_torch import device_tabulator
+
+    t0 = time.perf_counter()
+    tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
+    k6 = tab.kernel
+    if tab.device != P.device or tab.macro is not None:
+        fail(f"{name} f32: K6 alone on {P.device}")
+    print(f"{name} f32 host construction: {tab.rows} rows x {len(tab.alphas)} alphas, K6 "
+          f"{k6.total_rows} rows in widths {k6.K} (sd {k6.sd}, variant {k6.variant}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    k6_plan_line(f"{name} f32", k6)
+    P32 = P.float()
+    out = torch.empty((k6.total_rows, NPTS), device=P.device)
+    k6_abs = check_kernel(f"{name} K6 ({k6.total_rows} x {NPTS})",
+                          k6(P32, tab.dst_plain, out).clone(),
+                          k6.plain(P32, tab.dst_plain, out), torch, F32_KERNEL_RTOL)
+    tables, launches = counted({"K6": k6}, lambda: tab.tables(P), torch)
+    expect_launches(f"{name} f32", launches, {"K6": 1})
+    if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
+        fail(f"{name} f32: non-finite values in the tables")
+    per64 = tab64.unpack(tab64.block_tables(P))
+    worst = 0.0
+    for a in tab.alphas:
+        err = scale = 0.0
+        for (lo, hi, _), t64 in zip(tab.slices, per64):
+            ref = t64[a].reshape(hi - lo, NPTS)
+            err = max(err, (tables[a][lo:hi].double() - ref).abs().max().item())
+            scale = max(scale, ref.abs().max().item())
+        worst = max(worst, err / scale)
+        if not err / scale <= F32_RTOL:
+            fail(f"{name} f32 {a}: {err / scale:.3e} of the alpha's max > {F32_RTOL}")
+    print(f"{name} f32 vs the f64 tables on all {NPTS} points: worst alpha {worst:.3e} of its "
+          f"max abs (limit {F32_RTOL})")
+    del tables, per64
+    torch.cuda.empty_cache()
+    k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
+    k6_plain = median_ms(lambda: k6.plain(P32, tab.dst_plain, out), torch)
+    k6_lib = zoo_f32_library_ms(k6, P32, torch)
+    k6_card = queued_ms(lambda: k6(P32, tab.dst_plain, out), torch)
+    del out
+    path_ms = median_ms(lambda: tab.tables(P), torch)
+    bound = zoo_f32_bound(k6, NPTS)
+    gbytes = k6.total_rows * NPTS * 4 / 1e9
+    print(f"{name} f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events): tables "
+          f"{path_ms:.4f} ms; K6 {k6_ms:.4f} ms (card {k6_card:.4f} ms, plain "
+          f"{k6_plain:.4f}, one padded SGEMM on a computed Phi {k6_lib:.4f}, bound "
+          f"{bound[0]:.4f} by {bound[1]}); K6 writes {gbytes:.3f} GB = {gbytes / k6_ms:.3f} TB/s")
+    return entry(f"K6 zoo_f32 sd {k6.sd} ({name})", "fiat_tpu_torch/csrc/zoo_f32.cu",
+                 "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs, k6_ms, k6_plain,
+                 bound, k6_lib)
+
+
+def families_phase(dev, card, torch, np):
+    """Phases 10 and 11: families_tri at pts2 and families_tet at pts3, the
+    nodal simplicial families of fiat_tpu's nodality sweep (FAMILIES_*,
+    COMPOSITES_*) through every entry point: f64 tables (K1 + K2), moments
+    (K45), interpolation (K1) and f32 tables (K6), one launch of each
+    kernel a pass."""
+    from fiat_tpu_torch import ufc_simplex
+
+    kernels = []
+    for sd, name, specs, comps in ((2, "families_tri", FAMILIES_TRI, COMPOSITES_TRI),
+                                   (3, "families_tet", FAMILIES_TET, COMPOSITES_TET)):
+        torch.cuda.empty_cache()
+        pts = make_points(NPTS, SEED, np, sd=sd)
+        P = torch.as_tensor(pts, device=dev)
+        t0 = time.perf_counter()
+        zoo = families_zoo(specs, comps, ufc_simplex(sd))
+        print(f"{name}: {len(zoo)} elements built on the host in "
+              f"{time.perf_counter() - t0:.2f} s")
+        tab64, f64_entries = f64_cell(name, zoo, pts, P, card, torch, np)
+        torch.cuda.empty_cache()
+        k2_by_group(name, tab64.matmul, P, tab64.recurrence(P), torch)
+        kernels += f64_entries
+        kernels.append(dual_cell(name, zoo, pts, P, card, torch, np))
+        kernels.append(f32_cell(name, zoo, P, tab64, card, torch))
+        del tab64, P
+        torch.cuda.empty_cache()
+    return kernels
+
+
+def bench_tri_phase(T, dev, pts2, P, card, torch, np):
+    """Phase 12: bench.py's hdiv_hcurl_tri (RT, Nedelec and BDM 1-6 at
+    pts2, :799-807) and p2_tri_deg4rule (P2 at the degree-4 rule tiled to
+    NPTS points, :786-790) on the f64 engine, K1 + K2 once each a pass."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch.core.quadrature_schemes import create_quadrature
+
+    hdiv = ([ft.RaviartThomas(T, k) for k in range(1, 7)]
+            + [ft.Nedelec(T, k) for k in range(1, 7)]
+            + [ft.BrezziDouglasMarini(T, k) for k in range(1, 7)])
+    _, kernels = f64_cell("hdiv_hcurl_tri", hdiv, pts2, P, card, torch, np)
+    q4 = create_quadrature(T, 4).get_points()
+    tiled = np.tile(q4, (NPTS // len(q4) + 1, 1))[:NPTS]
+    _, more = f64_cell("p2_tri_deg4rule", [ft.Lagrange(T, 2)], tiled,
+                       torch.as_tensor(tiled, device=dev), card, torch, np)
+    return kernels + more
+
+
+def gll_sumfact(PW, F, torch):
+    """hex_gll_sumfact's moments (bench.py:535-542): the weighted 1D GLL
+    table ``PW`` (p, m) contracted with the (m, m, m) field ``F`` one axis
+    at a time, three einsums."""
+    t = torch.einsum("aq,qrs->ars", PW, F)
+    t = torch.einsum("br,ars->abs", PW, t)
+    return torch.einsum("cs,abs->abc", PW, t)
+
+
+def dense_hex_moments(phi1, w1, F, np, chunk=HEX_CHUNK):
+    """The same moments from the dense hexahedral table, the Kronecker
+    product of the 1D table with itself three times ((p^3, m^3), built
+    ``chunk`` rows at a time), times the tensor-product weights and F."""
+    p, m = phi1.shape
+    w3f = (np.einsum("p,q,r->pqr", w1, w1, w1) * F).ravel()
+    rows = np.stack(np.meshgrid(np.arange(p), np.arange(p), np.arange(p), indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    out = np.empty(p ** 3)
+    for s in range(0, p ** 3, chunk):
+        a, b, c = rows[s:s + chunk].T
+        table = (phi1[a][:, :, None, None] * phi1[b][:, None, :, None]
+                 * phi1[c][:, None, None, :]).reshape(len(a), m ** 3)
+        out[s:s + chunk] = table @ w3f
+    return out.reshape(p, p, p)
+
+
+def hex_gll_phase(dev, card, torch, np):
+    """Phase 13: hex_gll_sumfact as bench.py:515-579 sets it: the GLL
+    element of degree HEX_DEGREE on the interval, tabulated on the host at
+    the HEX_M-point Gauss-Jacobi rule, and the three sum-factorised einsums
+    on the card in float64 on a HEX_M^3 field from default_rng(0), held to
+    the dense Kronecker contraction on the host (HEX_RTOL of its max) and
+    timed beside the einsums' bytes over the HBM rate.  No Pallas kernel
+    runs here in fiat_tpu: torch.einsum is the port of its jnp.einsum."""
+    from fiat_tpu_torch import GaussLobattoLegendre, ufc_simplex
+    from fiat_tpu_torch.core.quadrature import GaussJacobiQuadratureLineRule
+
+    I = ufc_simplex(1)
+    gll = GaussLobattoLegendre(I, HEX_DEGREE)
+    rule = GaussJacobiQuadratureLineRule(I, HEX_M)
+    x1, w1 = rule.get_points(), rule.get_weights()
+    phi1 = np.asarray(gll.tabulate(0, x1)[(0,)])
+    F_h = np.random.default_rng(0).random((HEX_M,) * 3)
+    PW = torch.as_tensor(phi1 * w1, device=dev)
+    F = torch.as_tensor(F_h, device=dev)
+    M = gll_sumfact(PW, F, torch)
+    t0 = time.perf_counter()
+    want = dense_hex_moments(phi1, w1, F_h, np)
+    dense_s = time.perf_counter() - t0
+    got = M.cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    p, m = phi1.shape
+    print(f"hex_gll_sumfact: GLL {HEX_DEGREE} on the interval ({p} x {m} table at the {m}-point "
+          f"Gauss-Jacobi rule), moments {tuple(got.shape)} of a {m}^3 field, finite "
+          f"{bool(np.isfinite(got).all())}; vs the dense Kronecker contraction on the host "
+          f"({p ** 3} x {m ** 3}, {dense_s:.2f} s): rel {rel:.3e}")
+    if tuple(got.shape) != (p, p, p) or not np.isfinite(got).all() or not rel <= HEX_RTOL:
+        fail(f"hex_gll_sumfact: shape {tuple(got.shape)}, rel {rel:.3e} > {HEX_RTOL}")
+    ms = median_ms(lambda: gll_sumfact(PW, F, torch), torch)
+    card_ms = queued_ms(lambda: gll_sumfact(PW, F, torch), torch)
+    # each einsum reads its operands once and writes its output once
+    nbytes = 8 * (3 * p * m + m ** 3 + 2 * p * m * m + 2 * p * p * m + p ** 3)
+    print(f"hex_gll_sumfact timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
+          f"three einsums {ms:.4f} ms (card, the calls queued behind a spin: {card_ms:.4f} ms); "
+          f"their {nbytes} bytes over the HBM rate {nbytes / HBM_BYTES_MS:.6f} ms")
+
+
 def k3_cells(dev, card, torch, np, own):
     """``python3 chip_smoke.py --k3-cells ROOT``: K3 alone in every cell
     that launches it, on the fiat_tpu_torch package of the checkout at ROOT
@@ -2000,6 +2458,13 @@ def main():
     lap(8)
     kernels += c1_phase(T, dev, pts2, P, card, torch, np)
     lap(9)
+    del tab64, tet64, sv64
+    kernels += families_phase(dev, card, torch, np)
+    lap("10-11")
+    kernels += bench_tri_phase(T, dev, pts2, P, card, torch, np)
+    lap(12)
+    hex_gll_phase(dev, card, torch, np)
+    lap(13)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,14 @@ on the CPU.  Nothing here imports JAX.
 from fiat_tpu_torch.core.cells import default_simplex, ufc_simplex  # noqa: F401
 from fiat_tpu_torch.core.finite_element import CiarletElement, FiniteElement  # noqa: F401
 from fiat_tpu_torch.elements import (  # noqa: F401
-    Argyris, Bell, BrezziDouglasMarini, CubicHermite, DiscontinuousLagrange,
-    HsiehCloughTocher, Lagrange, Morley, Nedelec, P0, QuadraticPowellSabin6,
-    QuadraticPowellSabin12, RaviartThomas)
+    Argyris, Bell, BrezziDouglasFortinMarini, BrezziDouglasMarini, Bubble,
+    CrouzeixRaviart, CubicHermite, DiscontinuousElement, DiscontinuousLagrange,
+    DiscontinuousRaviartThomas, DiscontinuousTaylor, FacetBubble, GaussLegendre,
+    GaussLobattoLegendre, GaussRadau, GopalakrishnanLedererSchoberlFirstKind,
+    GopalakrishnanLedererSchoberlSecondKind, HellanHerrmannJohnson,
+    HsiehCloughTocher, IntegratedLegendre, KongMulderVeldhuizen, Lagrange,
+    Legendre, Morley, Nedelec, NedelecSecondKind, NodalEnrichedElement, P0,
+    QuadraticPowellSabin6, QuadraticPowellSabin12, RaviartThomas, Regge,
+    RestrictedElement)
 from fiat_tpu_torch.ops import device_tabulator  # noqa: F401
 from fiat_tpu_torch.ops.kernels import load_kernels  # noqa: F401

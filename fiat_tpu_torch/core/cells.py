@@ -5,8 +5,10 @@ Counterpart of the simplex part of ``fiat_tpu/core/cells.py`` (UFC
 conventions): ``Cell`` (topology, sub/super entities, connectivity,
 parents), ``SimplicialComplex`` (normals, tangents, barycentric maps,
 L1 distances, subentity transforms) and the reference simplices.  Split
-complexes subclass ``SimplicialComplex`` in ``core/macro.py``.  Cells are
-plain Python objects whose data parameterise the tabulation kernels;
+complexes subclass ``SimplicialComplex`` in ``core/macro.py``.  A cell
+is ``<=`` another when it lies on the other's parent-complex chain (a
+split complex is ``>`` its parent).  Cells
+are plain Python objects whose data parameterise the tabulation kernels;
 everything here is float64 numpy.  Tensor-product cells and hypercubes are
 not ported yet.
 """
@@ -177,6 +179,32 @@ class Cell:
     def get_parent_complex(self):
         return None
 
+    def is_parent(self, other, strict=False):
+        """Whether ``self`` appears in ``other``'s parent-complex chain
+        (including ``other`` itself unless ``strict``)."""
+        link = other.get_parent_complex() if strict else other
+        while link is not None:
+            if self == link:
+                return True
+            link = link.get_parent_complex()
+        return False
+
+    def __ne__(self, other):
+        return not self.__eq__(other)
+
+    def __ge__(self, other):
+        return other.is_parent(self)
+
+    def __gt__(self, other):
+        return other.is_parent(self, strict=True)
+
+    def __le__(self, other):
+        return self.is_parent(other)
+
+    def __lt__(self, other):
+        return self.is_parent(other, strict=True)
+
+
 class SimplicialComplex(Cell):
     """A cell made of simplices (a single simplex, or a split complex)."""
 
@@ -231,6 +259,15 @@ class SimplicialComplex(Cell):
             raise ValueError("Face tangents only defined in 3D")
         vs = np.asarray(self.get_vertices_of_subcomplex(self.topology[2][face_i]))
         return vs[1:] - vs[:1]
+
+    def compute_face_edge_tangents(self, dim, entity_id):
+        """The edge vectors v_b - v_a (a < b) of an entity's vertices."""
+        vs = np.asarray(self.get_vertices_of_subcomplex(self.topology[dim][entity_id]))
+        pairs = [(a, b) for a in range(dim) for b in range(a + 1, dim + 1)]
+        if not pairs:
+            return np.zeros((0, vs.shape[1]))
+        src, dst = zip(*pairs)
+        return vs[list(dst)] - vs[list(src)]
 
     def compute_scaled_normal(self, facet_i):
         """Normal to facet_i scaled by the facet volume (UFC sign rules in
@@ -349,6 +386,29 @@ class SimplicialComplex(Cell):
         bary = self.compute_barycentric_coordinates(points, entity=entity, rescale=rescale)
         return 0.5 * abs((abs(bary) - bary).sum(-1))
 
+    def point_entity_ids(self, points, tol=1e-10):
+        """{dim: {entity: [indices of the points interior to it]}}, each
+        point credited to the lowest-dimensional entity holding it."""
+        top = self.topology
+        sd = self.get_spatial_dimension()
+        entity_ids = {d: {e: [] for e in top[d]} for d in top}
+        by_verts = {top[d][e]: (d, e) for d in top for e in top[d]}
+        seen = []
+        for cell in top[sd]:
+            cell_verts = top[sd][cell]
+            bary = self.compute_barycentric_coordinates(points, entity=(sd, cell))
+            dist = 0.5 * abs(np.sum(abs(bary) - bary, axis=-1))
+            cand = np.setdiff1d(np.flatnonzero(dist <= tol), seen)
+            cand = cand[np.lexsort(bary[cand].T)]
+            for i in cand.tolist():
+                key = tuple(cell_verts[v] for v in np.flatnonzero(bary[i] > tol))
+                d, e = by_verts[key]
+                entity_ids[d][e].append(i)
+                seen.append(i)
+            if len(seen) == len(points):
+                break
+        return entity_ids
+
 
 class Simplex(SimplicialComplex):
     """A single reference simplex."""
@@ -365,6 +425,11 @@ class UFCSimplex(Simplex):
 class DefaultSimplex(Simplex):
     def construct_subelement(self, dimension):
         return default_simplex(dimension)
+
+
+class SymmetricSimplex(Simplex):
+    def construct_subelement(self, dimension):
+        return symmetric_simplex(dimension)
 
 
 class Point(Simplex):
@@ -452,3 +517,15 @@ def default_simplex(spatial_dim):
 
 def ufc_simplex(spatial_dim):
     return {0: Point, 1: UFCInterval, 2: UFCTriangle, 3: UFCTetrahedron}[spatial_dim]()
+
+
+def symmetric_simplex(spatial_dim):
+    """The simplex centred at the origin with all edges of length 2."""
+    A = np.array([[2.0, 1.0, 1.0],
+                  [0.0, np.sqrt(3.0), np.sqrt(3.0) / 3],
+                  [0.0, 0.0, np.sqrt(6.0) * (2.0 / 3)]])
+    A = A[:spatial_dim, :spatial_dim]
+    b = A.sum(axis=1) * (-1.0 / (1 + spatial_dim))
+    ref = ufc_simplex(spatial_dim)
+    verts = np.dot(ref.get_vertices(), A.T) + b[None, :]
+    return SymmetricSimplex(ref.get_shape(), tuple(map(tuple, verts)), ref.get_topology())

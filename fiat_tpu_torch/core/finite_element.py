@@ -96,6 +96,9 @@ class FiniteElement:
     def space_dimension(self):
         return len(self.dual)
 
+    def num_sub_elements(self):
+        return 1
+
     def is_macroelement(self):
         return self.ref_el is not self.ref_complex
 

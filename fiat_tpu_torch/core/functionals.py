@@ -15,9 +15,11 @@ and the Riesz map (the rows of the generalized Vandermonde system) is one
 expansion tabulation over the union of all points followed by a segment-sum
 per derivative multi-index (``riesz_representers``), for scalar and
 vector/tensor target shapes alike.  Point evaluations of values and
-derivatives, and integral moments of values and derivatives (pushed onto
-facets by ``quadrature.FacetQuadratureRule``) are ported; the tensor,
-divergence, Legendre-weighted and trace-moment families are not yet.
+derivatives, integral moments of values and derivatives (pushed onto
+facets by ``quadrature.FacetQuadratureRule``) and the bidirectional
+inner products v^T u w of tensor fields, pointwise and as moments, are
+ported; the divergence, Legendre-weighted and trace-moment families are
+not yet.
 """
 
 import numpy as np
@@ -239,6 +241,18 @@ def _vector_point_args(ref_el, direction, pt, name):
             np.zeros(n, np.intp), W.ravel(), np.arange(n))
 
 
+class PointwiseInnerProductEvaluation(Functional):
+    """u (tensor) -> v^T u(p) w, via Frobenius weights w v^T."""
+
+    def __init__(self, ref_el, v, w, pt):
+        wvT = np.outer(w, v)
+        super().__init__(ref_el, wvT.shape, "PointwiseInnerProductEval",
+                         [tuple(pt)],
+                         pt_ids=np.zeros(wvT.size, np.intp),
+                         weights=wvT.ravel(),
+                         comps=np.arange(wvT.size))
+
+
 class PointDerivative(Functional):
     """f -> D^alpha f(x)."""
 
@@ -346,3 +360,13 @@ class IntegralMomentOfNormalDerivative(IntegralMomentOfDerivative):
         space_dim = ref_el.get_spatial_dimension()
         Q = quadrature.FacetQuadratureRule(ref_el, space_dim - 1, facet_no, Q_face, avg=True)
         super().__init__(ref_el, Q, f_at_qpts, n, nm="IntegralMomentOfNormalDerivative")
+
+
+class TensorBidirectionalIntegralMoment(FrobeniusIntegralMoment):
+    r"""u (tensor) -> \int v^T u(x) w f(x)."""
+
+    def __init__(self, ref_el, v, w, Q, f_at_qpts):
+        vwT = np.outer(v, w)
+        F_at_qpts = np.multiply(vwT[..., None], f_at_qpts)
+        super().__init__(ref_el, Q, F_at_qpts,
+                         "TensorBidirectionalMomentInnerProductEvaluation")

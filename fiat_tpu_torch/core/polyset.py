@@ -3,10 +3,12 @@
 Counterpart of ``fiat_tpu/core/polyset.py`` (the parts the ``full_zoo``
 elements use).  A set is ``coeffs[i, (shape...), k]`` against expansion
 member k; tabulation is one dense contraction ``coeffs . base_vals``.
-Vector sets (``shape=``), unions re-orthonormalised by SVD and null-space
-bases (the C^k macro spaces) are here; the symmetric/traceless tensor sets
-and bubbles are not ported yet.
+Vector sets (``shape=``), symmetric and traceless matrix-valued sets,
+unions re-orthonormalised by SVD, null-space bases (the C^k macro spaces)
+and bubbles are here.
 """
+
+from itertools import chain
 
 import numpy as np
 
@@ -91,6 +93,53 @@ class ONPolynomialSet(PolynomialSet):
         super().__init__(ref_el, degree, degree, es, coeffs)
 
 
+class ONSymTensorPolynomialSet(PolynomialSet):
+    """Orthonormal basis of symmetric-matrix-valued polynomials."""
+
+    def __init__(self, ref_el, degree, size=None, **kwargs):
+        es = expansions.ExpansionSet(ref_el, **kwargs)
+        size = size or ref_el.get_spatial_dimension()
+        rows, cols = np.triu_indices(size)
+        patterns = np.zeros((rows.size, size, size))
+        arange = np.arange(rows.size)
+        patterns[arange, rows, cols] = 1.0
+        patterns[arange, cols, rows] = 1.0
+        coeffs = _pattern_coeffs(patterns, es.get_num_members(degree))
+        super().__init__(ref_el, degree, degree, es, coeffs)
+
+
+class TracelessTensorPolynomialSet(PolynomialSet):
+    """Orthonormal basis of traceless-matrix-valued polynomials."""
+
+    def __init__(self, ref_el, degree, size=None, **kwargs):
+        es = expansions.ExpansionSet(ref_el, **kwargs)
+        size = size or ref_el.get_spatial_dimension()
+        # E_ij for every component but the last diagonal entry, which
+        # absorbs -trace so every pattern is traceless
+        npat = size * size - 1
+        patterns = np.eye(size * size)[:npat].reshape(npat, size, size)
+        patterns[:, -1, -1] = -np.trace(patterns, axis1=1, axis2=2)
+        coeffs = _pattern_coeffs(patterns, es.get_num_members(degree))
+        super().__init__(ref_el, degree, degree, es, coeffs)
+
+
+def project(f, U, Q):
+    """Expansion coefficients of f against the members of U by quadrature Q."""
+    pts = Q.get_points()
+    weighted = Q.get_weights() * np.asarray([f(x) for x in pts])
+    zeroth = (0,) * U.get_reference_element().get_spatial_dimension()
+    members = U.tabulate(pts)[zeroth]
+    return members.reshape(len(members), -1) @ weighted.ravel()
+
+
+def form_matrix_product(mats, alpha):
+    """prod_i mats[i]^alpha[i] (for dmats chains)."""
+    out = np.eye(mats[0].shape[0])
+    for mat, power in zip(mats, alpha):
+        out = np.linalg.matrix_power(mat, power) @ out
+    return out
+
+
 def spanning_basis(A, nullspace=False, rtol=1e-10):
     """Row-space (or nullspace) orthonormal basis of A by SVD.
 
@@ -143,3 +192,23 @@ def polynomial_set_union_normalized(A, B):
                              B.get_embedded_degree()),
                          A.get_expansion_set(),
                          spanning_basis(stacked))
+
+
+def make_bubbles(ref_el, degree, codim=0, shape=(), scale="L2 piola"):
+    """Bubbles (C0 members vanishing on dimension sd-codim entity
+    boundaries) up to ``degree``."""
+    poly_set = ONPolynomialSet(ref_el, degree, shape=shape, scale=scale,
+                               variant="bubble")
+    sd = ref_el.get_spatial_dimension()
+    if sd == 0:
+        return poly_set
+    entity_ids = expansions.polynomial_entity_ids(ref_el, degree,
+                                                  continuity="C0")
+    interior = np.asarray(list(
+        chain(*entity_ids[sd - codim].values())), dtype=int)
+    ncomp = int(np.prod(shape, dtype=int))
+    if ncomp > 1:
+        # per-component copies sit dimPk apart in the flat member index
+        stride = len(poly_set) // ncomp
+        interior = (interior[:, None] + stride * np.arange(ncomp)).ravel()
+    return poly_set.take(interior)

@@ -1,11 +1,11 @@
 """Quadrature rules on reference simplices, array-native.
 
 Counterpart of the simplex part of ``fiat_tpu/core/quadrature.py``:
-Gauss-Jacobi line rules, collapsed Duffy simplex rules and rules pushed
-forward onto facets.
+Gauss-Jacobi, Gauss-Legendre, Gauss-Lobatto-Legendre and Gauss-Radau line
+rules, collapsed Duffy simplex rules and rules pushed forward onto facets.
 Points and weights are contiguous float64 ndarrays from construction on;
-an affine pushforward is one matmul.  Lobatto and Radau line rules and
-tensor-product rules are not ported yet.
+an affine pushforward is one matmul.  Tensor-product rules are not ported
+yet.
 """
 
 import math
@@ -13,7 +13,8 @@ import math
 import numpy as np
 
 from . import cells as cl
-from .recursive_nodes import collapsed_gauss_simplex, gauss_jacobi_rule
+from .recursive_nodes import (collapsed_gauss_simplex, gauss_jacobi_rule,
+                              gauss_lobatto_jacobi_rule)
 
 
 class QuadratureRule:
@@ -54,12 +55,67 @@ def affine_pushforward(pts, wts, source_cell, target_cell, avg=False):
     return pts @ A.T + b, np.asarray(wts, dtype=float).ravel() * scale, A
 
 
+def map_quadrature(pts_ref, wts_ref, source_cell, target_cell, jacobian=False,
+                   avg=False):
+    """``affine_pushforward`` returning (points, weights[, A])."""
+    pts, wts, A = affine_pushforward(pts_ref, wts_ref, source_cell,
+                                     target_cell, avg=avg)
+    return (pts, wts, A) if jacobian else (pts, wts)
+
+
+def _line_rule(ref_el, x, w):
+    """A 1D rule given on the default [-1, 1] line, mapped onto ref_el."""
+    pts, wts, _ = affine_pushforward(x, w, cl.DefaultLine(), ref_el)
+    return pts, wts
+
+
 class GaussJacobiQuadratureLineRule(QuadratureRule):
     """m-point Gauss-Jacobi rule for weights (a, b) on an interval."""
 
     def __init__(self, ref_el, m, a=0, b=0):
-        x, w = gauss_jacobi_rule(m, a, b)
-        pts, wts, _ = affine_pushforward(x, w, cl.DefaultLine(), ref_el)
+        super().__init__(ref_el, *_line_rule(ref_el, *gauss_jacobi_rule(m, a, b)))
+
+
+class GaussLegendreQuadratureLineRule(GaussJacobiQuadratureLineRule):
+    def __init__(self, ref_el, m):
+        super().__init__(ref_el, m)
+
+
+class GaussLobattoLegendreQuadratureLineRule(QuadratureRule):
+    """m-point GLL rule (endpoints included, exact to degree 2m-3)."""
+
+    def __init__(self, ref_el, m):
+        if m < 2:
+            raise ValueError("GLL quadrature needs at least 2 points")
+        super().__init__(ref_el, *_line_rule(ref_el, *gauss_lobatto_jacobi_rule(m, 0, 0)))
+
+
+class RadauQuadratureLineRule(QuadratureRule):
+    """m-point Gauss-Radau rule with a fixed endpoint (exact to 2m-2).
+
+    Built from the (m-1)-point Gauss-Jacobi rule with the weight absorbed:
+    w_i = w_i^GJ / |x0 - x_i|-hat, and the endpoint weight closes the total
+    volume."""
+
+    def __init__(self, ref_el, m, right=True):
+        if m < 1:
+            raise ValueError("Radau quadrature needs at least 1 point")
+        right = int(right)
+        x0 = np.asarray(ref_el.vertices[right], dtype=float)
+        volume = ref_el.volume()
+        if m > 1:
+            inner = GaussJacobiQuadratureLineRule(ref_el, m - 1, right, 1 - right)
+            hat = (2.0 / volume) * np.abs(x0[0] - inner.pts[:, 0])
+            ipts, iwts = inner.pts, inner.wts / hat
+        else:
+            ipts, iwts = np.zeros((0, 1)), np.zeros(0)
+        w0 = volume - iwts.sum()
+        if right:
+            pts = np.vstack([ipts, x0[None, :]])
+            wts = np.append(iwts, w0)
+        else:
+            pts = np.vstack([x0[None, :], ipts])
+            wts = np.append(w0, iwts)
         super().__init__(ref_el, pts, wts)
 
 
@@ -88,6 +144,9 @@ class FacetQuadratureRule(QuadratureRule):
 
     def jacobian(self):
         return self._J
+
+    def jacobian_determinant(self):
+        return pseudo_determinant(self._J)
 
 
 def make_quadrature(ref_el, m):

@@ -12,12 +12,14 @@ same points and the coefficients of the moment elements agree:
 
 with ties going to the symmetric rule, then elimination.  Lines and
 points always take collapsed Gauss (Gauss-Jacobi).  Split complexes get
-the composite rule (``macro.MacroQuadratureRule``).  Grundmann-Moller and
-KMV schemes, and tensor-product cells, are not ported yet.
+the composite rule (``macro.MacroQuadratureRule``).  ``"KMV"`` takes the
+Kong-Mulder-Veldhuizen mass-lumping rules (GLL on a line).  Grundmann-Moller
+schemes and tensor-product cells are not ported yet.
 """
 
 from . import cells as cl
-from .quadrature import FacetQuadratureRule, make_quadrature
+from .quadrature import (FacetQuadratureRule,
+                         GaussLobattoLegendreQuadratureLineRule, make_quadrature)
 
 
 def create_quadrature(ref_el, degree, scheme="default", entity=None):
@@ -65,7 +67,9 @@ def create_quadrature(ref_el, degree, scheme="default", entity=None):
     if scheme in ("symmetric", "xg"):
         from .symquad import symmetric_rule
         return symmetric_rule(ref_el, degree)
-    if scheme in ("gm", "grundmann_moller", "KMV"):
+    if scheme == "KMV":
+        return _kmv_lump_scheme(ref_el, degree)
+    if scheme in ("gm", "grundmann_moller"):
         raise NotImplementedError(f"Quadrature scheme {scheme!r} is not ported yet")
     raise ValueError(f"Unknown quadrature scheme {scheme!r}")
 
@@ -86,3 +90,11 @@ def _general_elim_scheme(ref_el, degree):
 def _collapsed_scheme(ref_el, degree):
     """Collapsed Gauss rule exact to the requested degree."""
     return make_quadrature(ref_el, (degree + 2) // 2)
+
+
+def _kmv_lump_scheme(ref_el, degree):
+    """Kong-Mulder-Veldhuizen spectral mass-lumping rules."""
+    if ref_el.get_spatial_dimension() == 1:
+        return GaussLobattoLegendreQuadratureLineRule(ref_el, degree + 1)
+    from ..elements.kong_mulder_veldhuizen import kmv_quadrature
+    return kmv_quadrature(ref_el, degree)

@@ -76,12 +76,34 @@ def _jacobi_and_derivative(n, a, b, x):
     return p, dp
 
 
-def gauss_lobatto_legendre_nodes(m):
-    """The m >= 2 Lobatto-Gauss-Legendre nodes on [-1, 1]."""
+def gauss_lobatto_jacobi_rule(m, a=0.0, b=0.0):
+    """Lobatto-Gauss-Jacobi rule: m >= 2 points on [-1, 1] including both
+    endpoints, exact to degree 2m-3 (for a = b = 0)."""
     if m < 2:
         raise ValueError("Lobatto rules need at least 2 points")
-    xi, _ = gauss_jacobi_rule(m - 2, 1.0, 1.0)
-    return np.concatenate(([-1.0], xi, [1.0]))
+    xi, _ = gauss_jacobi_rule(m - 2, a + 1, b + 1)
+    x = np.concatenate(([-1.0], xi, [1.0]))
+    if a == 0 and b == 0:
+        # classical GLL weights: w_i = 2 / (n(n+1) P_n(x_i)^2), n = m-1
+        n = m - 1
+        p, _ = _jacobi_and_derivative(n, 0.0, 0.0, x)
+        w = 2.0 / (n * (n + 1) * p ** 2)
+    else:
+        # generic Lobatto weights from the Vandermonde moment system
+        V = np.polynomial.legendre.legvander(x, m - 1).T
+        moments = np.zeros(m)
+        for j in range(m):
+            c = np.zeros(j + 1)
+            c[j] = 1.0
+            moments[j] = _jacobi_weighted_legendre_moment(c, a, b)
+        w = np.linalg.solve(V, moments)
+    return x, w
+
+
+def _jacobi_weighted_legendre_moment(c, a, b):
+    """integral_{-1}^{1} (1-x)^a (1+x)^b  P(x) dx for Legendre series c."""
+    gq, gw = gauss_jacobi_rule(len(c) // 2 + 2, a, b)
+    return float(np.dot(np.polynomial.legendre.legval(gq, c), gw))
 
 
 def collapsed_gauss_simplex(dim, m):
@@ -121,7 +143,8 @@ def family_nodes_1d(family, n):
             return (0.5,)
         if n == 1:
             return (0.0, 1.0)
-        return tuple(0.5 * (gauss_lobatto_legendre_nodes(n + 1) + 1.0))
+        x, _ = gauss_lobatto_jacobi_rule(n + 1)
+        return tuple(0.5 * (x + 1.0))
     if family == "gl":
         x, _ = gauss_jacobi_rule(n + 1)
         return tuple(0.5 * (x + 1.0))

@@ -97,8 +97,9 @@ def check_format_variant(variant, degree):
 
 
 def parse_quadrature_scheme(ref_el, degree, quad_scheme=None):
-    """A quadrature rule from a scheme string (no splitting prefixes or
-    'KMV(p)' overrides yet)."""
+    """A quadrature rule from a scheme string; 'KMV(p)' takes the degree-p
+    KMV rule whatever the degree asked (splitting prefixes are not ported
+    yet)."""
     from .quadrature_schemes import create_quadrature
     scheme = None
     for opt in (quad_scheme or "").split(","):
@@ -106,7 +107,8 @@ def parse_quadrature_scheme(ref_el, degree, quad_scheme=None):
         if opt.lower() in _split_table():
             raise NotImplementedError(
                 f"Quadrature scheme {opt!r}: split prefixes are not ported yet")
-        if re.fullmatch(r"KMV\((\d+)\)", opt):
-            raise NotImplementedError("KMV quadrature schemes are not ported yet")
+        kmv = re.fullmatch(r"KMV\((\d+)\)", opt)
+        if kmv:
+            degree, opt = int(kmv.group(1)), "KMV"
         scheme = opt or scheme
     return create_quadrature(ref_el, degree, scheme or "default")

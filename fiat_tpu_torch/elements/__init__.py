@@ -1,15 +1,44 @@
-"""The element families ported so far: the whole ``full_zoo`` triangle
-configuration (plus PS12), under fiat_tpu's names."""
+"""The element families ported so far, under fiat_tpu's names.
+
+* ``full_zoo``'s triangle families (plus PS12): Lagrange and
+  DiscontinuousLagrange (also on Alfeld, Worsey-Farin and Powell-Sabin
+  splits), P0, RaviartThomas, Nedelec, BrezziDouglasMarini, CubicHermite,
+  Morley, Argyris, Bell, HsiehCloughTocher, QuadraticPowellSabin6/12;
+* the nodal simplicial families of fiat_tpu's nodality sweep that need no
+  macro polynomial set: CrouzeixRaviart, DiscontinuousTaylor,
+  DiscontinuousRaviartThomas, NedelecSecondKind, BrezziDouglasFortinMarini,
+  Regge, HellanHerrmannJohnson, GopalakrishnanLedererSchoberlFirstKind /
+  SecondKind, GaussLegendre, GaussLobattoLegendre, GaussRadau, Legendre,
+  IntegratedLegendre, Bubble, FacetBubble, KongMulderVeldhuizen;
+* the wrappers RestrictedElement, DiscontinuousElement and
+  NodalEnrichedElement.
+"""
 
 from .argyris import Argyris  # noqa: F401
 from .bell import Bell  # noqa: F401
+from .brezzi_douglas_fortin_marini import BrezziDouglasFortinMarini  # noqa: F401
 from .brezzi_douglas_marini import BrezziDouglasMarini  # noqa: F401
+from .bubble import Bubble, FacetBubble  # noqa: F401
+from .crouzeix_raviart import CrouzeixRaviart  # noqa: F401
+from .discontinuous import DiscontinuousElement  # noqa: F401
 from .discontinuous_lagrange import DiscontinuousLagrange  # noqa: F401
+from .discontinuous_raviart_thomas import DiscontinuousRaviartThomas  # noqa: F401
+from .discontinuous_taylor import DiscontinuousTaylor  # noqa: F401
+from .gopalakrishnan_lederer_schoberl import (  # noqa: F401
+    GopalakrishnanLedererSchoberlFirstKind, GopalakrishnanLedererSchoberlSecondKind)
 from .hct import HsiehCloughTocher  # noqa: F401
+from .hellan_herrmann_johnson import HellanHerrmannJohnson  # noqa: F401
 from .hermite import CubicHermite  # noqa: F401
+from .hierarchical import IntegratedLegendre, Legendre  # noqa: F401
+from .kong_mulder_veldhuizen import KongMulderVeldhuizen  # noqa: F401
 from .lagrange import Lagrange  # noqa: F401
 from .morley import Morley  # noqa: F401
 from .nedelec import Nedelec  # noqa: F401
+from .nedelec_second_kind import NedelecSecondKind  # noqa: F401
+from .nodal_enriched import NodalEnrichedElement  # noqa: F401
 from .p0 import P0  # noqa: F401
 from .powell_sabin import QuadraticPowellSabin6, QuadraticPowellSabin12  # noqa: F401
 from .raviart_thomas import RaviartThomas  # noqa: F401
+from .regge import Regge  # noqa: F401
+from .restricted import RestrictedElement  # noqa: F401
+from .spectral import GaussLegendre, GaussLobattoLegendre, GaussRadau  # noqa: F401

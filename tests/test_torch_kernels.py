@@ -1202,3 +1202,56 @@ def test_macro_kernel_refuses_only_the_mode_past_shared_memory(cuda):
     scale = (W.abs() @ gpu.macro.operand(P)[0].abs()).max().item()
     assert (got - want).abs().max().item() <= 1e-13 * scale
     assert (u.cpu() - cpu.interpolate_rows(pts, c)).abs().max().item() <= 1e-13 * scale
+
+
+# -- the nodal simplicial families: width 1, tensor-valued rows ----------------
+
+@pytest.mark.parametrize("npts", [1, 1077])
+@pytest.mark.parametrize("sd", [2, 3])
+def test_families_zoos_on_card_one_launch_each_match_plain_and_host(cuda, sd, npts):
+    """chip_smoke.py's families_tri / families_tet (contraction width 1 for
+    the degree-0 rows, (sd, sd)-valued rows) through every engine on the
+    card: K1 and K2, K45, K1 for interpolation and K6 launch once a pass
+    each and match their plain versions, the CPU engines and host."""
+    import sys
+    from pathlib import Path
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    specs, comps = ((chip_smoke.FAMILIES_TRI, chip_smoke.COMPOSITES_TRI) if sd == 2
+                    else (chip_smoke.FAMILIES_TET, chip_smoke.COMPOSITES_TET))
+    zoo = chip_smoke.families_zoo(specs, comps, tcl.ufc_simplex(sd))
+    pts = _points(npts) if sd == 2 else _tet_points(npts)
+    P = torch.as_tensor(pts, device=cuda)
+
+    tab = device_tabulator(zoo, order=1, device=cuda)
+    assert tab.widths[0] == 1
+    got = tab.unpack(tab.block_tables(P))
+    assert (tab.recurrence.launches, tab.matmul.launches) == (1, 1)
+    tab.matmul.launches = 0
+    _k2_matches_plain(tab.matmul, tab.recurrence.plain(P))
+    for el, g in zip(zoo, got):
+        want = el.tabulate(1, pts)
+        for a in want:
+            assert np.abs(g[a].cpu().numpy() - want[a]).max() <= 1e-10
+
+    gpu = mo.moment_engine(BatchedTabulator(zoo, order=0, device=cuda))
+    cpu = mo.MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device="cpu")
+    rng = np.random.default_rng(sd)
+    wf, c = rng.random(npts), rng.random(gpu.rows) - 0.5
+    M = gpu.moment_rows(P, torch.as_tensor(wf, device=cuda))
+    u = gpu.interpolate_rows(P, torch.as_tensor(c, device=cuda))
+    assert (gpu.moments.launches, gpu.recurrence.launches) == (1, 1)
+    want = cpu.moment_rows(pts, wf)
+    assert (M.cpu() - want).abs().max().item() <= 1e-12 * (want.abs().max().item() + 1)
+    want = cpu.interpolate_rows(pts, c)
+    assert (u.cpu() - want).abs().max().item() <= 1e-12 * (want.abs().max().item() + 1)
+
+    f32 = device_tabulator(zoo, order=1, f64=False, device=cuda)
+    tables = f32.tables(P)
+    assert f32.kernel.launches == 1 and f32.macro is None
+    want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
+    for a in want:
+        assert (tables[a].cpu() - want[a]).abs().max().item() \
+            <= 1e-5 * (want[a].abs().max().item() + 1)
