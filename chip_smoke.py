@@ -74,7 +74,20 @@ Drives the port's main paths once each at their real size, at 1e5 points
      three sum-factorised ``torch.einsum`` contractions on the card in
      float64 over a 46^3 field, held to the dense Kronecker contraction on
      the host (no kernel of the port runs here, nor a Pallas kernel in
-     fiat_tpu).
+     fiat_tpu);
+ 14. ``stokes_elasticity_tri`` at ``pts2``: the Stokes, elasticity and C2
+     families of fiat_tpu's nodality sweep on the triangle (``STOKES_TRI``:
+     WuXu, Bramble-Zlamal, AlfeldC2 on the double Alfeld split,
+     Bernardi-Raugel, Mardal-Tai-Winther, Arnold-Winther, Hu-Zhang,
+     Johnson-Mercier, Alfeld-Sorokina, Arnold-Qin, Christiansen-Hu,
+     Guzman-Neilan; 21 elements, 42 subcells in 9 macro programs) through
+     every entry point: the f64 tables (K1, K2, K7; K3 on the same merged
+     programs held to K7 and timed beside it), ``moment_rows`` (K45),
+     ``interpolate_rows`` (K1, K3 one row per program) and the f32
+     ``tables`` (K6, K3 float32);
+ 15. ``stokes_elasticity_tet`` at ``pts3``: the same on the tetrahedron
+     (``STOKES_TET``, NodalEnriched-GN and Walkington; 12 elements, 44
+     subcells in 9 programs).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -105,7 +118,9 @@ on the f32 phase, K1, K2 (on both routes) and K8 on the tetrahedra, K7
 on ``sv_macro_tet`` and on the Worsey-Farin DG 6 zoo, K45 at sd = 3 on
 phase 7's three cells and K6 at sd = 3 on two, K3's sd = 3 stage and K6 on
 phase 8's, K3 on the C1 zoos (order 1, 2 and 3), K1, K2, K45 and K6 on
-phases 10 and 11 and K1 and K2 on phase 12, each with its bound:
+phases 10 and 11, K1 and K2 on phase 12, and K1, K2, K7, K45, K3 (one
+row per program and float32) and K6 on phases 14 and 15, each with its
+bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -431,6 +446,41 @@ def check_kernel(name, got, want, torch, rtol=KERNEL_RTOL):
     return err
 
 
+def check_scaled(name, got, want, scales, rtol=KERNEL_RTOL, rows=2048):
+    """A kernel against its plain version row by row, each row relative to
+    ``scales``' entry for it (``row_scales``: the scale that row's sums
+    round at, where a change of basis cancels far below it; a row of scale
+    0 must agree exactly); fails past rtol.  Returns the max abs
+    difference."""
+    err = worst = 0.0
+    for s in range(0, want.shape[0], rows):
+        d = (got[s:s + rows].double() - want[s:s + rows].double()).abs().amax(dim=1)
+        sc = scales[s:s + rows]
+        rel = d / sc.clamp_min(1e-300)
+        err, worst = max(err, d.max().item()), max(worst, rel.max().item())
+    print(f"{name} vs plain: max abs {err:.3e}; worst row {worst:.3e} of its own max |A_r| |B| "
+          f"(rows' scales {scales.min().item():.3e} to {scales.max().item():.3e})")
+    if not worst <= rtol:
+        fail(f"{name} disagrees with its plain version: a row {worst:.3e} of its max |A_r| |B| "
+             f"> {rtol}")
+    return err
+
+
+def row_scales(A, B, rows=1024):
+    """Per row r of the product A B, max over the points of |A_r| |B| in
+    float64: the scale row r's sums round at."""
+    import torch
+    B = B.double().abs()
+    return torch.cat([(A[s:s + rows].double().abs() @ B).amax(dim=1)
+                      for s in range(0, A.shape[0], rows)])
+
+
+def oneshot_scale(mo, P, A=None):
+    """``row_scales`` of K3's product: ``A`` its tables' change of basis,
+    or one row per program, by its masked parent basis at ``P``."""
+    return row_scales(mo.A if A is None else A, mo.operand(P)[0])
+
+
 def counted(engines, run, torch):
     """Run the main path once with every launch count set to 0 just before
     and read just after: (result, {kernel: launches})."""
@@ -733,19 +783,29 @@ def host_dual_check(name, zoo, bt, mo, P, pts, wf, wf_h, u, c_h, np):
     el.tabulate(0) @ wf, in the bench's form (bench.py:476-486), and, where
     ``u`` (the main path's interpolated values) is given, its first
     HOST_CHECK_PTS values against host sum_i c_i phi_i; fails past
-    HOST_ATOL."""
+    HOST_ATOL, or for the SUMMED_MOMENTS elements' moments past their table
+    bar (``table_bar``) times the sum of the weights."""
     n = HOST_CHECK_PTS
     sub, wsub = pts[:n], wf_h[:n]
     origin = (0,) * pts.shape[1]
     per = mo.unpack_moments(bt, mo.moment_rows(bt, P[:n], wf[:n]))
-    mom_err, host_u = 0.0, np.zeros(n)
+    mom_err, host_u, summed = 0.0, np.zeros(n), []
     for el, m, (lo, hi, _) in zip(zoo, per, bt.slices):
         tab = np.asarray(el.tabulate(0, sub)[origin]).reshape(hi - lo, n)
-        mom_err = max(mom_err, float(np.abs(tab @ wsub - m.reshape(-1).cpu().numpy()).max()))
+        err = float(np.abs(tab @ wsub - m.reshape(-1).cpu().numpy()).max())
+        if type(el).__name__ in SUMMED_MOMENTS:
+            bar = table_bar(el, tab) * float(wsub.sum())
+            summed.append(f"{element_label(el)} {err:.3e} (bar {bar:.3e})")
+            if not err <= bar:
+                fail(f"{name}: moments of {element_label(el)} {err:.3e} from host > {bar:.3e}")
+        else:
+            mom_err = max(mom_err, err)
         host_u += c_h[lo:hi] @ tab
     interp_err = 0.0 if u is None else float(np.abs(u[:n].cpu().numpy() - host_u).max())
     print(f"{name} vs host el.tabulate(0) on {n} points: moments max abs {mom_err:.3e}"
-          + ("" if u is None else f", interpolation max abs {interp_err:.3e}"))
+          + ("" if u is None else f", interpolation max abs {interp_err:.3e}")
+          + (f"; moments held to their table bar times the sum of the weights: "
+             f"{', '.join(summed)}" if summed else ""))
     if not (mom_err <= HOST_ATOL and interp_err <= HOST_ATOL):
         fail(f"{name}: moments {mom_err:.3e} / interpolation {interp_err:.3e} > {HOST_ATOL}")
 
@@ -1716,6 +1776,8 @@ def composite(name, T):
             ft.RestrictedElement(ft.RaviartThomas(T, 2), restriction_domain="interior")),
         "NodalEnriched-Regge": lambda: ft.NodalEnrichedElement(
             ft.Regge(T, 1), ft.RestrictedElement(ft.Regge(T, 2), restriction_domain="interior")),
+        "NodalEnriched-GN": lambda: ft.NodalEnrichedElement(
+            ft.GuzmanNeilanFirstKindH1(T, 0), ft.AlfeldSorokina(T)),
     }
     return build[name]()
 
@@ -1730,23 +1792,34 @@ def families_zoo(specs, composites, T):
 
 
 def f64_cell(name, zoo, pts, P, card, torch, np):
-    """A plain zoo on the f64 engine at ``pts`` (``P`` on the card):
-    ``device_tabulator(zoo, order=1)`` on the default device, K1 and K2
-    against their plain versions, one launch of each a pass, the tables
-    held to host, and the pass, the kernels and their plain versions
-    timed.  Returns the engine and K1's and K2's kernels-line entries."""
+    """A zoo on the f64 engine at ``pts`` (``P`` on the card):
+    ``device_tabulator(zoo, order=1)`` on the default device runs K1 and K2,
+    and K7 for macro elements past 32 subcells; each kernel against its
+    plain version, one launch of each a pass, the tables held to host
+    (``host_bars``), and the pass, the kernels and their plain versions
+    timed.  Where K7 runs, K3 built on the same merged programs is held to
+    K7 and timed beside it.  Returns the engine and the kernels-line
+    entries."""
     from fiat_tpu_torch import device_tabulator
+    from fiat_tpu_torch.ops.fused_zoo import _merge_macro_programs
+    from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot
 
     t0 = time.perf_counter()
     tab = device_tabulator(zoo, order=1)           # the default device: the card
-    rec, mm = tab.recurrence, tab.matmul
-    if tab.macro is not None or tab.features is not None or tab.device != P.device:
-        fail(f"{name}: a plain zoo runs K1 and K2 alone on {P.device}")
-    gbytes = mm.total_rows * NPTS * 8 / 1e9
+    rec, mm, k7 = tab.recurrence, tab.matmul, tab.macro
+    if tab.features is not None or tab.device != P.device or (
+            k7 is not None and (k7.name != "K7" or len(k7.nexp) <= 32)):
+        fail(f"{name}: K1 and K2, and K7 for macro elements past 32 subcells, on {P.device}")
+    gbytes = (mm.total_rows + (0 if k7 is None else k7.rows)) * NPTS * 8 / 1e9
+    macro = "" if k7 is None else (
+        f", K7 {k7.rows} x {k7.K} over {len(k7.nexp)} subcells in {len(k7.geom)} programs "
+        f"({k7.chunks.shape[0]} row chunks, widest piece {k7.max_nexp})")
     print(f"{name} host construction: {len(zoo)} elements, {tab.rows} rows x "
           f"{len(tab.alphas)} alphas, widths {tab.widths} (rows {mm.rows}), K2 plan {mm.plan}, "
-          f"K1 sd {rec.sd} degree {rec.degree}; a pass writes {gbytes:.3f} GB; "
+          f"K1 sd {rec.sd} degree {rec.degree}{macro}; a pass writes {gbytes:.3f} GB; "
           f"{time.perf_counter() - t0:.2f} s")
+    if k7 is not None:
+        k7_plan_line(name, k7)
     phi_p = rec.plain(P)
     k1_abs = check_kernel(f"{name} K1 recurrence (sd {rec.sd}, degree {rec.degree}) at {NPTS} "
                           f"points", rec(P), phi_p, torch)
@@ -1757,10 +1830,21 @@ def f64_cell(name, zoo, pts, P, card, torch, np):
     worst = max(rel_err(a, b)[1] for a, b in zip(mm.views(C_k), mm.views(C_p)))
     if not worst <= KERNEL_RTOL:
         fail(f"{name} K2 disagrees with its plain version on a group: rel {worst:.3e}")
-    del phi_p, C_k, C_p
-    launches, host_err = run_main_path(name, tab, zoo, pts, torch, np)
-    if launches != {"K1": 1, "K2": 1}:
-        fail(f"{name}: one pass must launch K1 and K2 once each: {launches}")
+    del C_k, C_p
+    engines = {"K1": rec, "K2": mm}
+    if k7 is not None:
+        engines["K7"] = k7
+        k7_scales = row_scales(k7.A, k7.masked_basis(k7.masks(P)[0], phi_p))
+        k7_abs = check_scaled(f"{name} K7 masked matmul ({k7.rows} x {NPTS})", k7(P, phi_p),
+                              k7.plain(P, phi_p), k7_scales)
+    del phi_p
+    blocks, launches = counted(engines, lambda: tab.block_tables(P), torch)
+    expect_launches(f"{name} f64", launches, dict.fromkeys(engines, 1))
+    if not all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl):
+        fail(f"{name}: non-finite values in the tables")
+    host_err = host_bars(name, zoo, tab.unpack(blocks), pts, NPTS, np)
+    del blocks
+    torch.cuda.empty_cache()
 
     phi = rec(P)
     k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
@@ -1768,25 +1852,62 @@ def f64_cell(name, zoo, pts, P, card, torch, np):
     A = mm.A.to(phi.device)
     k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)  # one padded DGEMM
     k1_card, k2_card = queued_ms(lambda: rec(P), torch), queued_ms(lambda: mm(phi), torch)
-    del A, phi
-    path_ms = median_ms(lambda: tab.block_tables(P), torch)
-    plain_ms = median_ms(lambda: mm.plain(rec.plain(P)), torch)
+    del A
     k1_bound, k2_bound = rec_bound(rec, NPTS), matmul_bound(mm, NPTS)
+    macro = ""
+    if k7 is not None:
+        k7_ms, k7_plain = median_ms(lambda: k7(P, phi), torch), median_ms(lambda: k7.plain(P, phi),
+                                                                          torch)
+        B, A7 = k7.masked_basis(k7.masks(P)[0], phi), k7.A.to(P.device)
+        k7_lib = median_ms(lambda: torch.matmul(A7, B), torch)     # one DGEMM, B given
+        del B, A7
+        k7_card = queued_ms(lambda: k7(P, phi), torch)
+        k7_bound = masked_bound(k7, NPTS)
+        # K3 as the engine would build it on these programs, beside K7
+        k3 = MacroOneShot(**_merge_macro_programs(tab._programs, rec.scale, (rec.A, rec.b), 1),
+                          device=P.device)
+        print(f"{name}: K3 on the f64 engine's merged programs: {k3.rows} x {k3.K}, parent "
+              f"degree {k3.degree}, {k3.chunks.shape[0]} row chunks, {k3.smem * 8} bytes of "
+              f"shared memory a block")
+        check_scaled(f"{name} K3 on the merged programs, against K7 (not its plain version),",
+                     k3(P), k7(P, phi), k7_scales)
+        k3_ms, k3_card = median_ms(lambda: k3(P), torch), queued_ms(lambda: k3(P), torch)
+        k3_bound = macro_bound(k3, NPTS)
+        del k3
+        macro = (f", K7 {k7_ms:.4f} ms (card {k7_card:.4f}, plain {k7_plain:.4f}, one DGEMM on "
+                 f"the masked B {k7_lib:.4f}, bound {k7_bound[0]:.4f} by {k7_bound[1]}; "
+                 f"{k7_bound[0] / k7_card:.0%} of its bound); K3 on the same programs "
+                 f"{k3_ms:.4f} ms (card {k3_card:.4f}, bound {k3_bound[0]:.4f} by "
+                 f"{k3_bound[1]}): K7 / K3 card {k7_card / k3_card:.3f}")
+    del phi
+    path_ms = median_ms(lambda: tab.block_tables(P), torch)
+
+    def plain_path():
+        phi = rec.plain(P)
+        return mm.plain(phi), None if k7 is None else k7.plain(P, phi)
+
+    plain_ms = median_ms(plain_path, torch)
     print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events; card: the "
-          f"same with the calls queued behind a spin): pass {path_ms:.4f} ms, plain path "
-          f"{plain_ms:.4f} ms; K1 {k1_ms:.4f} ms (card {k1_card:.4f} ms, plain {k1_plain:.4f}, "
-          f"bound {k1_bound[0]:.4f} by {k1_bound[1]}), K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} "
+          f"same with the calls queued behind a spin): pass {path_ms:.4f} ms "
+          f"({gbytes / path_ms:.3f} TB/s; the store of its tables alone "
+          f"{gbytes * 1e9 / HBM_BYTES_MS:.4f} ms), plain path {plain_ms:.4f} ms; K1 "
+          f"{k1_ms:.4f} ms (card {k1_card:.4f} ms, plain {k1_plain:.4f}, bound "
+          f"{k1_bound[0]:.4f} by {k1_bound[1]}), K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} "
           f"(card {k2_card:.4f} ms, plain {k2_plain:.4f}, one padded DGEMM {k2_lib:.4f}, bound "
-          f"{k2_bound[0]:.4f} by {k2_bound[1]}); {gbytes / path_ms:.3f} TB/s a pass; host "
-          f"error {host_err:.3e}")
+          f"{k2_bound[0]:.4f} by {k2_bound[1]}){macro}; host error {host_err:.3e}")
     src = "fiat_tpu_torch/csrc/"
-    return tab, [
+    entries = [
         entry(f"K1 dubiner{rec.sd}_values ({name})", src + "recurrence.cu",
               "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain,
               k1_bound),
         entry(f"K2 bucket_matmul ({name})", src + "bucket_matmul.cu",
               "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain,
               k2_bound, k2_lib)]
+    if k7 is not None:
+        entries.append(entry(f"K7 masked_matmul ({name})", src + "masked_matmul.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:440", launches["K7"], k7_abs,
+                             k7_ms, k7_plain, k7_bound, k7_lib))
+    return tab, entries
 
 
 def k2_by_group(name, mm, P, phi, torch):
@@ -1806,19 +1927,26 @@ def k2_by_group(name, mm, P, phi, torch):
 
 
 def dual_cell(name, zoo, pts, P, card, torch, np):
-    """``moment_rows`` (K45 alone, one launch) and ``interpolate_rows``
-    (K1 alone, one launch) of a plain zoo on a ``BatchedTabulator(zoo,
-    order=0)`` on the default device, held to host; K45 against its plain
-    version and timed.  Returns K45's kernels-line entry."""
+    """``moment_rows`` (K45 alone, one launch) and ``interpolate_rows`` (K1,
+    and K3 one row per program where the zoo has macro elements; one
+    launch each) on a ``BatchedTabulator(zoo, order=0)`` on the default
+    device, held to host (``host_dual_check``); K45 and K3 against their
+    plain versions and timed.  Returns their kernels-line entries."""
     from fiat_tpu_torch.ops import moments as mo
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
     t0 = time.perf_counter()
     bt = BatchedTabulator(zoo, order=0)            # the default device: the card
     eng = mo.moment_engine(bt)
-    pm, rec = eng.moments, eng.recurrence
-    print(f"{name} dual host construction: {len(zoo)} elements, {eng.rows} rows, K45 "
-          f"{pm.rows} sums (sd {pm.sd}, degree {pm.degree}), {time.perf_counter() - t0:.2f} s")
+    pm, rec, m3 = eng.moments, eng.recurrence, eng.macro
+    if m3 is not None and m3.name != "K3":
+        fail(f"{name}: interpolation runs K3 for the macro elements")
+    masked = "" if m3 is None else (
+        f": {pm.nplain} plain + {pm.rows - pm.nplain} masked over {len(pm.piece_nexp)} subcells "
+        f"in {len(pm.geom)} programs; K3 one row per program over {len(m3.nexp)} subcells")
+    print(f"{name} dual host construction: {len(zoo)} elements, {eng.rows} rows, K45 {pm.rows} "
+          f"sums (sd {pm.sd}, degree {pm.degree}{masked}; {pm.warps} warps a block, {pm.smem} "
+          f"bytes of shared memory), {time.perf_counter() - t0:.2f} s")
     wf_h = np.random.default_rng(7).random(NPTS)      # bench.py:441
     wf = torch.as_tensor(wf_h, device=P.device)
     c_h = np.random.default_rng(11).random(eng.rows) - 0.5
@@ -1827,13 +1955,16 @@ def dual_cell(name, zoo, pts, P, card, torch, np):
                            pm.plain(P, wf), torch)
     check_k45_alone(name, pm, P, wf, torch)
     engines = {"K45": pm, "K1": rec}
+    if m3 is not None:
+        engines["K3"] = m3
+        W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
+        w_abs = check_scaled(f"{name} K3 one row per program ({W.shape[0]} x {W.shape[1]})",
+                             m3(P, A=W), m3.plain(P, A=W), oneshot_scale(m3, P, W))
     M, launches = counted(engines, lambda: mo.moment_rows(bt, P, wf), torch)
-    expect_launches(f"{name} moments", launches, {"K45": 1, "K1": 0})
+    expect_launches(f"{name} moments", launches, {**dict.fromkeys(engines, 0), "K45": 1})
     k45_launches = launches["K45"]
     u, launches = counted(engines, lambda: mo.interpolate_rows(bt, P, c), torch)
-    expect_launches(f"{name} interpolation", launches, {"K45": 0, "K1": 1})
-    if eng.built["macro"]:
-        fail(f"{name}: a plain zoo builds no K3")
+    expect_launches(f"{name} interpolation", launches, {**dict.fromkeys(engines, 1), "K45": 0})
     if tuple(M.shape) != (eng.rows,) or tuple(u.shape) != (NPTS,):
         fail(f"{name}: moments {tuple(M.shape)} / interpolation {tuple(u.shape)}: wrong shapes")
     if not (bool(torch.isfinite(M).all()) and bool(torch.isfinite(u).all())):
@@ -1845,32 +1976,57 @@ def dual_cell(name, zoo, pts, P, card, torch, np):
                                                                       torch)
     k45_lib = stack_mv_ms(pm, P, wf, torch)
     k45_card = queued_ms(lambda: pm(P, wf), torch)
-    bound = moments_bound(pm, NPTS)
+    k45_bound = moments_bound(pm, NPTS)
+    macro = ""
+    if m3 is not None:
+        w_ms, w_plain = median_ms(lambda: m3(P, A=W), torch), median_ms(lambda: m3.plain(P, A=W),
+                                                                      torch)
+        w_card = queued_ms(lambda: m3(P, A=W), torch)
+        B = m3.operand(P)[0]
+        w_lib = median_ms(lambda: torch.matmul(W, B), torch)      # one DGEMM, B given
+        del B
+        w_bound = macro_bound(m3, NPTS, one_row=True)
+        macro = (f"; K3 one row per program {w_ms:.4f} ms (card {w_card:.4f}, plain "
+                 f"{w_plain:.4f}, one DGEMM on the masked B {w_lib:.4f}, bound {w_bound[0]:.4f} "
+                 f"by {w_bound[1]})")
     print(f"{name} dual timing at {NPTS} points ({card}; median of {REPS} runs of {INNER}, CUDA "
-          f"events): moment_rows {mom_ms:.4f} ms, interpolate_rows {int_ms:.4f} ms; K45 "
-          f"{k45_ms:.4f} ms (card {k45_card:.4f} ms, plain {k45_plain:.4f}, one DGEMV on its "
-          f"stack built beforehand {k45_lib:.4f}, bound {bound[0]:.4f} by {bound[1]})")
-    return entry(f"K45 pair_moments sd {pm.sd} ({name})", "fiat_tpu_torch/csrc/moments.cu",
-                 "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727",
-                 k45_launches, k45_abs, k45_ms, k45_plain, bound, k45_lib)
+          f"events; card: queued behind a spin): moment_rows {mom_ms:.4f} ms, interpolate_rows "
+          f"{int_ms:.4f} ms; K45 {k45_ms:.4f} ms (card {k45_card:.4f} ms, plain {k45_plain:.4f}, "
+          f"one DGEMV on its stack built beforehand {k45_lib:.4f}, bound {k45_bound[0]:.4f} by "
+          f"{k45_bound[1]}){macro}")
+    entries = [entry(f"K45 pair_moments sd {pm.sd} ({name})", "fiat_tpu_torch/csrc/moments.cu",
+                     "fiat_tpu/ops/pallas_recurrence.py:549, fiat_tpu/ops/pallas_recurrence.py:727",
+                     k45_launches, k45_abs, k45_ms, k45_plain, k45_bound, k45_lib)]
+    if m3 is not None:
+        entries.append(entry(f"K3 macro_oneshot sd {m3.sd} ({name} interpolation, one row per "
+                             f"program)", "fiat_tpu_torch/csrc/macro_oneshot.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], w_abs, w_ms,
+                             w_plain, w_bound, w_lib))
+    return entries
 
 
 def f32_cell(name, zoo, P, tab64, card, torch):
-    """A plain zoo on the f32 engine: ``device_tabulator(zoo, order=1,
-    f64=False).tables`` on the default device (K6 alone, one launch a
-    pass), K6 against its plain version, the tables held to the f64
-    engine ``tab64``'s per alpha (F32_RTOL of each alpha's max abs),
-    element by element so that no second f64 copy of the tables is made.
-    Returns K6's kernels-line entry."""
+    """The f32 engine: ``device_tabulator(zoo, order=1, f64=False).tables``
+    on the default device (K6, and K3 float32 for the macro elements; one
+    launch each a pass), each kernel against its plain version, and the
+    tables held to the f64 engine ``tab64``'s element by element, so that no
+    second f64 copy of the tables is made: plain rows per alpha to F32_RTOL
+    of the alpha's max abs; macro rows per element and alpha to
+    F32_MACRO_TOL (or the element's own bar in F32_OWN_BARS) of max abs + 1,
+    at the points the float32 binning puts in the same subcells as the
+    float64 one (``same_subcells``).  Returns the kernels-line entries."""
     from fiat_tpu_torch import device_tabulator
 
     t0 = time.perf_counter()
     tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
-    k6 = tab.kernel
-    if tab.device != P.device or tab.macro is not None:
-        fail(f"{name} f32: K6 alone on {P.device}")
+    k6, m3 = tab.kernel, tab.macro
+    if tab.device != P.device or (m3 is not None and m3.name != "K3"):
+        fail(f"{name} f32: K6, and K3 float32 for the macro elements, on {P.device}")
+    macro = "" if m3 is None else (
+        f", K3 float32 {m3.rows} x {m3.K} over {len(m3.nexp)} subcells ({m3.smem * 4} bytes of "
+        f"shared memory a block)")
     print(f"{name} f32 host construction: {tab.rows} rows x {len(tab.alphas)} alphas, K6 "
-          f"{k6.total_rows} rows in widths {k6.K} (sd {k6.sd}, variant {k6.variant}), "
+          f"{k6.total_rows} rows in widths {k6.K} (sd {k6.sd}, variant {k6.variant}){macro}, "
           f"{time.perf_counter() - t0:.2f} s")
     k6_plan_line(f"{name} f32", k6)
     P32 = P.float()
@@ -1878,23 +2034,50 @@ def f32_cell(name, zoo, P, tab64, card, torch):
     k6_abs = check_kernel(f"{name} K6 ({k6.total_rows} x {NPTS})",
                           k6(P32, tab.dst_plain, out).clone(),
                           k6.plain(P32, tab.dst_plain, out), torch, F32_KERNEL_RTOL)
-    tables, launches = counted({"K6": k6}, lambda: tab.tables(P), torch)
-    expect_launches(f"{name} f32", launches, {"K6": 1})
+    engines = {"K6": k6}
+    if m3 is not None:
+        engines["K3 float32"] = m3
+        m3_abs = check_scaled(f"{name} K3 float32 ({m3.rows} x {NPTS})", m3(P32), m3.plain(P32),
+                              oneshot_scale(m3, P32), F32_KERNEL_RTOL)
+    tables, launches = counted(engines, lambda: tab.tables(P), torch)
+    expect_launches(f"{name} f32", launches, dict.fromkeys(engines, 1))
     if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
         fail(f"{name} f32: non-finite values in the tables")
     per64 = tab64.unpack(tab64.block_tables(P))
-    worst = 0.0
-    for a in tab.alphas:
-        err = scale = 0.0
-        for (lo, hi, _), t64 in zip(tab.slices, per64):
+    keep = slice(None)
+    if m3 is not None:
+        keep = m3.same_subcells(P)
+        print(f"{name} f32: {int((~keep).sum())} of {NPTS} points lie within the float32 binning "
+              f"tolerance of an interior face, where float32 averages over the subcells that "
+              f"meet and float64 does not; macro rows compared on the other {int(keep.sum())}")
+    err, scale = dict.fromkeys(tab.alphas, 0.0), dict.fromkeys(tab.alphas, 0.0)
+    macro_worst, own = 0.0, []
+    for el, (lo, hi, _), t64 in zip(zoo, tab.slices, per64):
+        for a in tab.alphas:
             ref = t64[a].reshape(hi - lo, NPTS)
-            err = max(err, (tables[a][lo:hi].double() - ref).abs().max().item())
-            scale = max(scale, ref.abs().max().item())
-        worst = max(worst, err / scale)
-        if not err / scale <= F32_RTOL:
-            fail(f"{name} f32 {a}: {err / scale:.3e} of the alpha's max > {F32_RTOL}")
-    print(f"{name} f32 vs the f64 tables on all {NPTS} points: worst alpha {worst:.3e} of its "
-          f"max abs (limit {F32_RTOL})")
+            if lo < tab.plain_rows:
+                err[a] = max(err[a], (tables[a][lo:hi].double() - ref).abs().max().item())
+                scale[a] = max(scale[a], ref.abs().max().item())
+                continue
+            ref = ref[:, keep]
+            rel = ((tables[a][lo:hi, keep].double() - ref).abs().max().item()
+                   / (ref.abs().max().item() + 1.0))
+            bar = F32_OWN_BARS.get(element_label(el), F32_MACRO_TOL)
+            if element_label(el) in F32_OWN_BARS:
+                own.append(f"{element_label(el)} {a} {rel:.3e}")
+            else:
+                macro_worst = max(macro_worst, rel)
+            if not rel <= bar:
+                fail(f"{name} f32 macro rows of {element_label(el)} {a}: {rel:.3e} of max abs "
+                     f"+ 1 > {bar}")
+    worst = max(err[a] / scale[a] for a in tab.alphas)
+    if not worst <= F32_RTOL:
+        fail(f"{name} f32 plain rows: an alpha at {worst:.3e} of its max > {F32_RTOL}")
+    print(f"{name} f32 vs the f64 tables on all {NPTS} points: plain rows, worst alpha "
+          f"{worst:.3e} of its max abs (limit {F32_RTOL})" + ("" if m3 is None else (
+              f"; macro rows {macro_worst:.3e} of max abs + 1 (limit {F32_MACRO_TOL})"
+              + (f", on their own bars ({json.dumps(F32_OWN_BARS)}): {', '.join(own)}"
+                 if own else ""))))
     del tables, per64
     torch.cuda.empty_cache()
     k6_ms = median_ms(lambda: k6(P32, tab.dst_plain, out), torch)
@@ -1902,42 +2085,57 @@ def f32_cell(name, zoo, P, tab64, card, torch):
     k6_lib = zoo_f32_library_ms(k6, P32, torch)
     k6_card = queued_ms(lambda: k6(P32, tab.dst_plain, out), torch)
     del out
+    k6_bound = zoo_f32_bound(k6, NPTS)
+    macro = ""
+    if m3 is not None:
+        m3_ms, m3_plain = median_ms(lambda: m3(P32), torch), median_ms(lambda: m3.plain(P32),
+                                                                      torch)
+        m3_lib = masked_gemm_ms(m3, P32, torch)
+        m3_card = queued_ms(lambda: m3(P32), torch)
+        m3_bound = macro_bound(m3, NPTS, 4, FP32_FMA_MS)
+        macro = (f"; K3 float32 {m3_ms:.4f} ms (card {m3_card:.4f}, plain {m3_plain:.4f}, one "
+                 f"SGEMM on the masked B {m3_lib:.4f}, bound {m3_bound[0]:.4f} by {m3_bound[1]})")
     path_ms = median_ms(lambda: tab.tables(P), torch)
-    bound = zoo_f32_bound(k6, NPTS)
-    gbytes = k6.total_rows * NPTS * 4 / 1e9
-    print(f"{name} f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events): tables "
-          f"{path_ms:.4f} ms; K6 {k6_ms:.4f} ms (card {k6_card:.4f} ms, plain "
+    gbytes = len(tab.alphas) * tab.rows * NPTS * 4 / 1e9
+    print(f"{name} f32 timing ({card}; median of {REPS} runs of {INNER}, CUDA events; card: "
+          f"queued behind a spin): tables {path_ms:.4f} ms ({gbytes:.3f} GB = "
+          f"{gbytes / path_ms:.3f} TB/s); K6 {k6_ms:.4f} ms (card {k6_card:.4f} ms, plain "
           f"{k6_plain:.4f}, one padded SGEMM on a computed Phi {k6_lib:.4f}, bound "
-          f"{bound[0]:.4f} by {bound[1]}); K6 writes {gbytes:.3f} GB = {gbytes / k6_ms:.3f} TB/s")
-    return entry(f"K6 zoo_f32 sd {k6.sd} ({name})", "fiat_tpu_torch/csrc/zoo_f32.cu",
-                 "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs, k6_ms, k6_plain,
-                 bound, k6_lib)
+          f"{k6_bound[0]:.4f} by {k6_bound[1]}){macro}")
+    entries = [entry(f"K6 zoo_f32 sd {k6.sd} ({name})", "fiat_tpu_torch/csrc/zoo_f32.cu",
+                     "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs, k6_ms,
+                     k6_plain, k6_bound, k6_lib)]
+    if m3 is not None:
+        entries.append(entry(f"K3 macro_oneshot float32 sd {m3.sd} ({name})",
+                             "fiat_tpu_torch/csrc/macro_oneshot.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:652", launches["K3 float32"],
+                             m3_abs, m3_ms, m3_plain, m3_bound, m3_lib))
+    return entries
 
 
-def families_phase(dev, card, torch, np):
-    """Phases 10 and 11: families_tri at pts2 and families_tet at pts3, the
-    nodal simplicial families of fiat_tpu's nodality sweep (FAMILIES_*,
-    COMPOSITES_*) through every entry point: f64 tables (K1 + K2), moments
-    (K45), interpolation (K1) and f32 tables (K6), one launch of each
-    kernel a pass."""
-    from fiat_tpu_torch import ufc_simplex
-
+def zoo_phase(cells, dev, card, torch, np):
+    """Each (sd, name, make) of ``cells``, a zoo built by make() at pts2
+    (sd = 2) or pts3 (sd = 3), through every entry point: f64 tables (K1 +
+    K2, and K7 for macro elements past 32 subcells), moments (K45),
+    interpolation (K1, and K3 one row per program) and f32 tables (K6, and
+    K3 float32), one launch of each kernel a pass; K2 timed by width group.
+    Phases 10-11 (the nodal families) and 14-15 (the Stokes, elasticity and
+    C2 families)."""
     kernels = []
-    for sd, name, specs, comps in ((2, "families_tri", FAMILIES_TRI, COMPOSITES_TRI),
-                                   (3, "families_tet", FAMILIES_TET, COMPOSITES_TET)):
+    for sd, name, make in cells:
         torch.cuda.empty_cache()
         pts = make_points(NPTS, SEED, np, sd=sd)
         P = torch.as_tensor(pts, device=dev)
         t0 = time.perf_counter()
-        zoo = families_zoo(specs, comps, ufc_simplex(sd))
+        zoo = make()
         print(f"{name}: {len(zoo)} elements built on the host in "
               f"{time.perf_counter() - t0:.2f} s")
         tab64, f64_entries = f64_cell(name, zoo, pts, P, card, torch, np)
         torch.cuda.empty_cache()
         k2_by_group(name, tab64.matmul, P, tab64.recurrence(P), torch)
         kernels += f64_entries
-        kernels.append(dual_cell(name, zoo, pts, P, card, torch, np))
-        kernels.append(f32_cell(name, zoo, P, tab64, card, torch))
+        kernels += dual_cell(name, zoo, pts, P, card, torch, np)
+        kernels += f32_cell(name, zoo, P, tab64, card, torch)
         del tab64, P
         torch.cuda.empty_cache()
     return kernels
@@ -2026,6 +2224,103 @@ def hex_gll_phase(dev, card, torch, np):
     print(f"hex_gll_sumfact timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"three einsums {ms:.4f} ms (card, the calls queued behind a spin: {card_ms:.4f} ms); "
           f"their {nbytes} bytes over the HBM rate {nbytes / HBM_BYTES_MS:.6f} ms")
+
+
+#: fiat_tpu's own instance list (tests/test_nodality_sweep.py, SPECS at
+#: :36-115) cut to the Stokes, elasticity and C2 families, on one cell, in
+#: SPECS order: (family, degree or None, keywords); on the tetrahedron the
+#: sweep's NodalEnriched-GN (:167) and Walkington (fiat_tpu's parity tests,
+#: tests/test_elements_wave2.py:238) follow
+STOKES_TRI = (
+    ("WuXuH3NC", 4, {}), ("WuXuRobustH3NC", 7, {}), ("BrambleZlamalC2", 9, {}),
+    ("BrambleZlamalC2", 10, {}), ("AlfeldC2", 5, {}), ("AlfeldC2", 6, {}),
+    ("BernardiRaugel", None, {}), ("MardalTaiWinther", 1, {}), ("ArnoldWintherNC", 2, {}),
+    ("ArnoldWinther", 3, {}), ("HuZhang", 3, {}), ("HuZhang", 4, {}),
+    ("HuZhang", 3, {"variant": "point"}), ("HuZhang", 4, {"variant": "point"}),
+    ("JohnsonMercier", None, {}), ("AlfeldSorokina", None, {}),
+    ("ArnoldQin", None, {"reduced": False}), ("ArnoldQin", None, {"reduced": True}),
+    ("ChristiansenHu", None, {}), ("GuzmanNeilanFirstKindH1", 1, {}),
+    ("GuzmanNeilanSecondKindH1", 1, {}),
+)
+STOKES_TET = (
+    ("BernardiRaugel", None, {}), ("MardalTaiWinther", 1, {}), ("MardalTaiWinther", 2, {}),
+    ("JohnsonMercier", None, {}), ("AlfeldSorokina", None, {}), ("ChristiansenHu", None, {}),
+    ("GuzmanNeilanFirstKindH1", 1, {}), ("GuzmanNeilanFirstKindH1", 2, {}),
+    ("GuzmanNeilanSecondKindH1", 1, {}), ("GuzmanNeilanSecondKindH1", 2, {}),
+)
+STOKES_TET_TAIL = ("NodalEnriched-GN", "Walkington")
+#: the elements whose tables are held to host per alpha relative to
+#: max(1, max |table|) (fiat_tpu's own engine is 4.3e-10 from host on
+#: AlfeldC2 6, 2.3e-11 of that; tests/test_parity_sweep.py:39 holds it to
+#: FIAT at 4e-10); every other element is held to HOST_ATOL
+STOKES_RELATIVE = ("AlfeldC2",)
+STOKES_HOST_RTOL = 1e-9
+#: the elements whose moments on HOST_CHECK_PTS points are held to their
+#: table bar times the sum of the weights, because their readings need more
+#: than HOST_ATOL (PERF.md §2: on the H100, AlfeldC2 5 1.0e-10, AlfeldC2 6
+#: 8.8e-9, Walkington 2.0e-10); every other element's are held to HOST_ATOL
+SUMMED_MOMENTS = ("AlfeldC2", "Walkington")
+#: float32 macro rows held to a bar of their own, of max abs + 1 per alpha,
+#: about three times their readings (PERF.md §2: on the H100, AlfeldC2 5
+#: 5.1e-5, AlfeldC2 6 1.7e-3): AlfeldC2's change of basis cancels far below
+#: the float32 rounding of its sums
+F32_OWN_BARS = {"AlfeldC2 5": 2e-4, "AlfeldC2 6": 5e-3}
+
+
+def element_label(el):
+    """An element's family and degree, as the bars above name it."""
+    return f"{type(el).__name__} {el.degree()}"
+
+
+def table_bar(el, want):
+    """An element's bar against host tables ``want``: HOST_ATOL, or for the
+    STOKES_RELATIVE elements STOKES_HOST_RTOL of max(1, max |table|)."""
+    if type(el).__name__ in STOKES_RELATIVE:
+        return STOKES_HOST_RTOL * max(1.0, float(abs(want).max()))
+    return HOST_ATOL
+
+
+def stokes_zoo(sd):
+    """stokes_elasticity_tri (sd = 2) or stokes_elasticity_tet (sd = 3),
+    built by the port."""
+    import fiat_tpu_torch as ft
+    T = ft.ufc_simplex(sd)
+    zoo = [getattr(ft, fam)(T, *(() if deg is None else (deg,)), **kw)
+           for fam, deg, kw in (STOKES_TRI if sd == 2 else STOKES_TET)]
+    if sd == 3:
+        zoo += [composite(name, T) if name != "Walkington" else ft.Walkington(T)
+                for name in STOKES_TET_TAIL]
+    return zoo
+
+
+def host_bars(name, zoo, per, pts, npts, np, order=1):
+    """Each element's tables against host el.tabulate on the first
+    HOST_CHECK_PTS points, each to its ``table_bar``; fails on wrong alphas
+    or shapes, or past a bar.  Returns the worst absolute error of the
+    elements held to HOST_ATOL."""
+    worst_abs, worst_rel = 0.0, {}
+    check = pts[:HOST_CHECK_PTS]
+    for el, got in zip(zoo, per):
+        want = el.tabulate(order, check)
+        if set(want) != set(got):
+            fail(f"{type(el).__name__}: alphas {sorted(got)} != {sorted(want)}")
+        for a, w in want.items():
+            if tuple(got[a].shape) != w.shape[:-1] + (npts,):
+                fail(f"{type(el).__name__} {a}: shape {tuple(got[a].shape)}")
+            err = float(np.abs(got[a][..., :HOST_CHECK_PTS].cpu().numpy() - w).max())
+            bar, key = table_bar(el, w), element_label(el)
+            if not err <= bar:
+                fail(f"{name}: {key} {a} is {err:.3e} from host el.tabulate > {bar:.3e}")
+            if type(el).__name__ in STOKES_RELATIVE:
+                rel = err / max(1.0, float(np.abs(w).max()))
+                worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+            else:
+                worst_abs = max(worst_abs, err)
+    print(f"{name} main path: block_tables(order {order}) at {npts} points vs host el.tabulate "
+          f"on {HOST_CHECK_PTS} points: max abs {worst_abs:.3e} (limit {HOST_ATOL})"
+          + "".join(f"; {k} {v:.3e} of max(1, max |table|) per alpha (limit {STOKES_HOST_RTOL})"
+                    for k, v in worst_rel.items()))
+    return worst_abs
 
 
 def k3_cells(dev, card, torch, np, own):
@@ -2459,12 +2754,19 @@ def main():
     kernels += c1_phase(T, dev, pts2, P, card, torch, np)
     lap(9)
     del tab64, tet64, sv64
-    kernels += families_phase(dev, card, torch, np)
+    kernels += zoo_phase([(sd, name, lambda sd=sd, specs=specs, comps=comps: families_zoo(
+        specs, comps, ufc_simplex(sd))) for sd, name, specs, comps in (
+            (2, "families_tri", FAMILIES_TRI, COMPOSITES_TRI),
+            (3, "families_tet", FAMILIES_TET, COMPOSITES_TET))], dev, card, torch, np)
     lap("10-11")
     kernels += bench_tri_phase(T, dev, pts2, P, card, torch, np)
     lap(12)
     hex_gll_phase(dev, card, torch, np)
     lap(13)
+    kernels += zoo_phase([(2, "stokes_elasticity_tri", lambda: stokes_zoo(2)),
+                          (3, "stokes_elasticity_tet", lambda: stokes_zoo(3))],
+                         dev, card, torch, np)
+    lap("14-15")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

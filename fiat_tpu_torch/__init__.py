@@ -10,14 +10,16 @@ on the CPU.  Nothing here imports JAX.
 from fiat_tpu_torch.core.cells import default_simplex, ufc_simplex  # noqa: F401
 from fiat_tpu_torch.core.finite_element import CiarletElement, FiniteElement  # noqa: F401
 from fiat_tpu_torch.elements import (  # noqa: F401
-    Argyris, Bell, BrezziDouglasFortinMarini, BrezziDouglasMarini, Bubble,
-    CrouzeixRaviart, CubicHermite, DiscontinuousElement, DiscontinuousLagrange,
-    DiscontinuousRaviartThomas, DiscontinuousTaylor, FacetBubble, GaussLegendre,
-    GaussLobattoLegendre, GaussRadau, GopalakrishnanLedererSchoberlFirstKind,
-    GopalakrishnanLedererSchoberlSecondKind, HellanHerrmannJohnson,
-    HsiehCloughTocher, IntegratedLegendre, KongMulderVeldhuizen, Lagrange,
-    Legendre, Morley, Nedelec, NedelecSecondKind, NodalEnrichedElement, P0,
-    QuadraticPowellSabin6, QuadraticPowellSabin12, RaviartThomas, Regge,
-    RestrictedElement)
+    AlfeldC2, AlfeldSorokina, Argyris, ArnoldQin, ArnoldWinther, ArnoldWintherNC, Bell,
+    BernardiRaugel, BrambleZlamalC2, BrezziDouglasFortinMarini, BrezziDouglasMarini, Bubble,
+    ChristiansenHu, CrouzeixRaviart, CubicHermite, DiscontinuousElement,
+    DiscontinuousLagrange, DiscontinuousRaviartThomas, DiscontinuousTaylor, FacetBubble,
+    GaussLegendre, GaussLobattoLegendre, GaussRadau, GopalakrishnanLedererSchoberlFirstKind,
+    GopalakrishnanLedererSchoberlSecondKind, GuzmanNeilanFirstKindH1, GuzmanNeilanH1div,
+    GuzmanNeilanSecondKindH1, HellanHerrmannJohnson, HsiehCloughTocher, HuZhang,
+    IntegratedLegendre, JohnsonMercier, KongMulderVeldhuizen, Lagrange, Legendre,
+    MardalTaiWinther, Morley, Nedelec, NedelecSecondKind, NodalEnrichedElement, P0,
+    QuadraticPowellSabin6, QuadraticPowellSabin12, RaviartThomas, Regge, RestrictedElement,
+    Walkington, WuXuH3NC, WuXuRobustH3NC)
 from fiat_tpu_torch.ops import device_tabulator  # noqa: F401
 from fiat_tpu_torch.ops.kernels import load_kernels  # noqa: F401

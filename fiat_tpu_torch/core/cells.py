@@ -167,6 +167,16 @@ class Cell:
     def construct_subelement(self, dimension):
         raise NotImplementedError
 
+    def construct_subcomplex(self, dimension):
+        """The subentity of ``dimension`` as a complex: the subelement of
+        an unsplit cell (split complexes override it)."""
+        if self.get_parent() is None:
+            return self.construct_subelement(dimension)
+        raise NotImplementedError
+
+    def is_simplex(self):
+        return False
+
     def is_macrocell(self):
         return False
 
@@ -412,6 +422,9 @@ class SimplicialComplex(Cell):
 
 class Simplex(SimplicialComplex):
     """A single reference simplex."""
+
+    def is_simplex(self):
+        return True
 
     def symmetry_group_size(self, dim):
         return math.factorial(dim + 1)

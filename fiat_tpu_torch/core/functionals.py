@@ -16,15 +16,17 @@ expansion tabulation over the union of all points followed by a segment-sum
 per derivative multi-index (``riesz_representers``), for scalar and
 vector/tensor target shapes alike.  Point evaluations of values and
 derivatives, integral moments of values and derivatives (pushed onto
-facets by ``quadrature.FacetQuadratureRule``) and the bidirectional
-inner products v^T u w of tensor fields, pointwise and as moments, are
-ported; the divergence, Legendre-weighted and trace-moment families are
-not yet.
+facets by ``quadrature.FacetQuadratureRule``), the bidirectional inner
+products v^T u w of tensor fields, pointwise and as moments, pointwise
+divergence, moments of a tensor field's divergence and the
+Legendre-weighted edge moments (directional, normal-normal and
+normal-tangential) are ported, with the argument builder of the facet
+trace moments; the trace-moment classes themselves are not yet.
 """
 
 import numpy as np
 
-from . import quadrature
+from . import quadrature, quadrature_schemes
 
 
 def flat_component(comp, shape):
@@ -112,6 +114,22 @@ class Functional:
             pt = tuple(self.points[self.pt_ids[k]].tolist())
             d.setdefault(pt, []).append((self.weights[k], self._unflat(self.comps[k])))
         self._pt_dict = d
+        return d
+
+    @property
+    def deriv_dict(self):
+        try:
+            return self._deriv_dict
+        except AttributeError:
+            pass
+        d = {}
+        orders = self.alphas.sum(axis=1)
+        for k in np.flatnonzero(orders > 0):
+            pt = tuple(self.points[self.pt_ids[k]].tolist())
+            d.setdefault(pt, []).append(
+                (self.weights[k], tuple(int(a) for a in self.alphas[k]),
+                 self._unflat(self.comps[k])))
+        self._deriv_dict = d
         return d
 
     def get_point_dict(self):
@@ -289,6 +307,18 @@ class PointNormalDerivative(PointDirectionalDerivative):
         super().__init__(ref_el, n, pt, comp=comp, shp=shp, nm="PointNormalDeriv")
 
 
+class PointDivergence(Functional):
+    """v -> (div v)(x)."""
+
+    def __init__(self, ref_el, x):
+        space_dim = ref_el.get_spatial_dimension()
+        super().__init__(ref_el, (len(x),), "PointDiv", [tuple(x)],
+                         pt_ids=np.zeros(space_dim, np.intp),
+                         weights=np.ones(space_dim),
+                         comps=np.arange(space_dim),
+                         alphas=np.eye(space_dim, dtype=np.intp))
+
+
 class IntegralMoment(Functional):
     """f -> int f_c q  against a tabulated density q (rule Q)."""
 
@@ -362,6 +392,32 @@ class IntegralMomentOfNormalDerivative(IntegralMomentOfDerivative):
         super().__init__(ref_el, Q, f_at_qpts, n, nm="IntegralMomentOfNormalDerivative")
 
 
+class IntegralMomentOfTensorDivergence(Functional):
+    """tau -> int (div tau) . q for tensor fields: sum_ij int d_j tau_ij q_i."""
+
+    def __init__(self, ref_el, Q, f_at_qpts):
+        self.f_at_qpts = f_at_qpts
+        self.Q = Q
+        pts = Q.get_points()
+        self.dpts = pts
+        space_dim = ref_el.get_spatial_dimension()
+        assert f_at_qpts.shape == (space_dim, len(pts))
+        qwts = np.multiply(f_at_qpts, Q.get_weights()).T     # (npts, space_dim)
+        # slots (i, j): alpha = e_j, component (i, j), weight q_i w
+        pairs = np.indices((space_dim, space_dim)).reshape(2, -1).T
+        alphas = np.eye(space_dim, dtype=np.intp)[pairs[:, 1]]
+        comps = np.ravel_multi_index((pairs[:, 0], pairs[:, 1]), (space_dim, space_dim))
+        W = qwts[:, pairs[:, 0]]
+        super().__init__(ref_el, (), "IntegralMomentOfDivergence", pts,
+                         **_derivative_term_arrays(alphas, W, comps=comps))
+        # the target shape is (), but comps address (space_dim, space_dim)
+        # slots: the dict views unflatten them against that shape
+        self._tensor_shape = (space_dim, space_dim)
+
+    def _unflat(self, c):
+        return tuple(int(i) for i in np.unravel_index(c, self._tensor_shape))
+
+
 class TensorBidirectionalIntegralMoment(FrobeniusIntegralMoment):
     r"""u (tensor) -> \int v^T u(x) w f(x)."""
 
@@ -370,3 +426,66 @@ class TensorBidirectionalIntegralMoment(FrobeniusIntegralMoment):
         F_at_qpts = np.multiply(vwT[..., None], f_at_qpts)
         super().__init__(ref_el, Q, F_at_qpts,
                          "TensorBidirectionalMomentInnerProductEvaluation")
+
+
+def _facet_trace_moment_args(ref_el, Q, P_at_qpts, entity_dim, entity_id,
+                             direction, name):
+    """(init args) for ``v -> int_F (v . direction) p``: the rule Q lives on
+    the reference facet and is pushed onto the named entity."""
+    space_dim = ref_el.get_spatial_dimension()
+    transform = ref_el.get_entity_transform(entity_dim, entity_id)
+    pts = np.asarray(transform(Q.get_points()))
+    W = np.outer(np.multiply(P_at_qpts, Q.get_weights()),
+                 np.asarray(direction, float))          # (npts, space_dim)
+    npts = W.shape[0]
+    return (ref_el, (space_dim,), name, pts,
+            np.repeat(np.arange(npts), space_dim), W.ravel(),
+            np.tile(np.arange(space_dim), npts))
+
+
+def _legendre(n, x):
+    """P_n at points x by the three-term recurrence."""
+    x = np.asarray(x)
+    p0 = np.ones_like(x)
+    if n == 0:
+        return p0
+    p1 = x.copy()
+    for k in range(1, n):
+        p0, p1 = p1, ((2 * k + 1) * x * p1 - k * p0) / (k + 1)
+    return p1
+
+
+class IntegralLegendreDirectionalMoment(FrobeniusIntegralMoment):
+    """v -> int_e (v . s) P_k along an edge, P_k Legendre of degree k."""
+
+    def __init__(self, cell, s, entity, mom_deg, quad_deg, nm=""):
+        assert cell.get_spatial_dimension() == 2
+        entity = (1, entity)
+        Q = quadrature_schemes.create_quadrature(cell, quad_deg, entity=entity)
+        x = cell.compute_barycentric_coordinates(Q.get_points(), entity=entity)
+        f_at_qpts = _legendre(mom_deg, x[:, 1] - x[:, 0])
+        f_at_qpts /= Q.jacobian_determinant()
+        f_at_qpts = np.multiply(np.asarray(s)[..., None], f_at_qpts)
+        super().__init__(cell, Q, f_at_qpts, nm=nm)
+
+
+class IntegralLegendreBidirectionalMoment(IntegralLegendreDirectionalMoment):
+    """tau -> int_e (s1 . tau . s2) P_k."""
+
+    def __init__(self, cell, s1, s2, entity, mom_deg, comp_deg, nm=""):
+        super().__init__(cell, np.outer(s1, s2), entity, mom_deg, comp_deg, nm=nm)
+
+
+class IntegralLegendreNormalNormalMoment(IntegralLegendreBidirectionalMoment):
+    def __init__(self, cell, entity, mom_deg, comp_deg):
+        n = cell.compute_scaled_normal(entity)
+        super().__init__(cell, n, n, entity, mom_deg, comp_deg,
+                         "IntegralNormalNormalLegendreMoment")
+
+
+class IntegralLegendreNormalTangentialMoment(IntegralLegendreBidirectionalMoment):
+    def __init__(self, cell, entity, mom_deg, comp_deg):
+        n = cell.compute_scaled_normal(entity)
+        t = cell.compute_edge_tangent(entity)
+        super().__init__(cell, n, t, entity, mom_deg, comp_deg,
+                         "IntegralNormalTangentialLegendreMoment")

@@ -4,9 +4,10 @@ them.
 Counterpart of ``fiat_tpu/core/macro.py`` (the parts the ``full_zoo``
 macro elements use): the Alfeld / Worsey-Farin / Powell-Sabin(6/12) splits
 with child<->parent entity maps and interior-facet lists, the composite
-quadrature rule, and C^k-continuous polynomial spaces as the null space of
-weighted derivative-jump functionals on interior facets.  ``IsoSplit``,
-the H(div) sets, Piola pullbacks and ``MacroPolynomialSet`` are not ported
+quadrature rule, C^k-continuous polynomial spaces as the null space of
+weighted derivative-jump functionals on interior facets, and the
+H(div)-conforming vector and symmetric-tensor sets (vanishing normal jumps).
+``IsoSplit``, Piola pullbacks and ``MacroPolynomialSet`` are not ported
 yet.  Host float64 numpy throughout; tabulation of macro spaces on the
 device bins points to subcells (``expansions.partition_of_unity_masks``).
 """
@@ -184,6 +185,13 @@ class PowellSabinSplit(SplitSimplicialComplex):
                   else PowellSabinSplit(ref_el, dimension=dimension + 1))
         super().__init__(parent, tuple(verts_out), topology)
 
+    def construct_subcomplex(self, dimension):
+        if dimension == self.get_dimension():
+            return self
+        sub = self.get_parent_complex().construct_subcomplex(dimension)
+        return sub if dimension < self.split_dimension else \
+            PowellSabinSplit(sub, dimension=self.split_dimension)
+
 
 class _CachedSplit(PowellSabinSplit):
     """Split variants cached on the cell being split."""
@@ -231,6 +239,14 @@ class PowellSabin12Split(SplitSimplicialComplex):
         parent = PowellSabinSplit(ref_el)
         super().__init__(parent, tuple(map(tuple, new_verts)),
                          make_topology(2, len(new_verts), self._EDGES))
+
+    def construct_subcomplex(self, dimension):
+        if dimension not in (0, 1, 2):
+            raise ValueError("Illegal dimension")
+        if dimension == 2:
+            return self
+        sub = self.construct_subelement(dimension)
+        return AlfeldSplit(sub) if dimension == 1 else sub
 
 
 def merge_coincident(pts, wts, atol=1e-10):
@@ -326,3 +342,58 @@ class CkPolynomialSet(polyset.PolynomialSet):
             coeffs = np.kron(coeffs, np.eye(ncomp)).reshape(m * ncomp,
                                                             *shape, n)
         super().__init__(ref_el, degree, degree, es, coeffs)
+
+
+def hdiv_conforming_coefficients(U, order=0):
+    """Constrain a (vector/tensor) PolynomialSet to vanishing normal jumps
+    on interior facets (null-space SVD)."""
+    from .quadrature_schemes import create_quadrature
+    degree = U.degree
+    cell = U.get_reference_element()
+    coeffs = U.get_coeffs()
+    shape = U.get_shape()
+    es = U.get_expansion_set()
+    k = 1 if es.continuity == "C0" else 0
+
+    fdim = cell.get_spatial_dimension() - 1
+    facet_cell = cell.construct_subelement(fdim)
+    mdeg = 0 if fdim == 0 else degree - k
+    moments = polyset.ONPolynomialSet(facet_cell, mdeg, shape=shape[1:])
+    rule = create_quadrature(facet_cell, 2 * mdeg)
+    qp = rule.get_points()
+    wtab = moments.tabulate(qp)[(0,) * fdim] * rule.get_weights()
+    ax = tuple(range(1, wtab.ndim))
+
+    rows = []
+    for facet in cell.get_interior_facets(fdim):
+        normal = cell.compute_scaled_normal(facet)
+        ncoeffs = np.tensordot(coeffs, normal, axes=(len(shape), 0))
+        jumps = es.tabulate_normal_jumps(degree, qp, facet, order=order)
+        for r in range(k, order + 1):
+            rows.append(np.tensordot(wtab, np.dot(ncoeffs, jumps[r]),
+                                     axes=(ax, ax)))
+
+    if rows:
+        nsp = polyset.spanning_basis(np.vstack(rows), nullspace=True)
+        coeffs = np.tensordot(nsp, coeffs, axes=(1, 0))
+    return coeffs
+
+
+class HDivPolynomialSet(polyset.PolynomialSet):
+    """Vector polynomials with continuous normal components on a complex."""
+
+    def __init__(self, ref_el, degree, order=0, **kwargs):
+        U = polyset.ONPolynomialSet(
+            ref_el, degree, shape=(ref_el.get_spatial_dimension(),),
+            **kwargs)
+        super().__init__(ref_el, degree, degree, U.expansion_set,
+                         hdiv_conforming_coefficients(U, order=order))
+
+
+class HDivSymPolynomialSet(polyset.PolynomialSet):
+    """Symmetric-tensor polynomials with continuous normal components."""
+
+    def __init__(self, ref_el, degree, order=0, **kwargs):
+        U = polyset.ONSymTensorPolynomialSet(ref_el, degree, **kwargs)
+        super().__init__(ref_el, degree, degree, U.expansion_set,
+                         hdiv_conforming_coefficients(U, order=order))

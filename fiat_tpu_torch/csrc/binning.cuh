@@ -60,8 +60,9 @@ __device__ __forceinline__ T parent_bound(const T* __restrict__ maps, const T* x
   return add_rn(l1_distance<SD>(maps, x), tol);
 }
 
-// Bit c - c0 of the result is the mask of piece c, for c0 <= c < c1 (at most
-// 32 pieces).
+// Bit c - c0 of the result is the mask of piece c, for c0 <= c < c1: the
+// pieces of one program, at most 32 (the wrappers check it; a zoo may have
+// any number of programs, and each kernel bins a point program by program).
 template <int SD, class T>
 __device__ __forceinline__ unsigned piece_bits(const T* __restrict__ maps, int c0, int c1,
                                                const T* x, T best) {
@@ -72,8 +73,9 @@ __device__ __forceinline__ unsigned piece_bits(const T* __restrict__ maps, int c
   return near;
 }
 
-// A program's rule on its masks: the first hit alone for a unique program,
-// else every hit times recip = 1 / (number of hits).
+// A program's rule on its masks (one word from ``piece_bits``): the first
+// hit alone for a unique program, else every hit times recip = 1 / (number
+// of hits).
 template <class T>
 __device__ __forceinline__ unsigned program_rule(unsigned mk, int unique, T& recip) {
   if (unique) {
@@ -82,35 +84,6 @@ __device__ __forceinline__ unsigned program_rule(unsigned mk, int unique, T& rec
   }
   recip = T(1) / static_cast<T>(__popc(mk));
   return mk;
-}
-
-// Triangles, every piece of every program in one word (K45's sd = 2 stage:
-// at most 32 pieces): bit c of the result is the mask of piece c.
-template <class T>
-__device__ __forceinline__ unsigned subcell_bits(const T* __restrict__ maps, int npieces, T x,
-                                                 T y, T tol) {
-  const T p[2] = {x, y};
-  return piece_bits<2>(maps, 0, npieces, p, parent_bound<2>(maps, p, tol));
-}
-
-// Tetrahedra, the same for K45's sd = 3 stage: bit c of the result is the
-// mask of piece c.
-template <class T>
-__device__ __forceinline__ unsigned subcell_bits3(const T* __restrict__ maps, int npieces, T x,
-                                                  T y, T z, T tol) {
-  const T p[3] = {x, y, z};
-  return piece_bits<3>(maps, 0, npieces, p, parent_bound<3>(maps, p, tol));
-}
-
-// Program g's masks (bit c - c0 for piece c) out of ``subcell_bits`` or
-// ``subcell_bits3``, and the factor each masked value takes.
-template <class T>
-__device__ __forceinline__ unsigned program_mask(unsigned near, const int* __restrict__ progs,
-                                                 int g, T& recip) {
-  const int c0 = __ldg(progs + 5 * g + 2), c1 = __ldg(progs + 5 * g + 3);
-  const int nc = c1 - c0;
-  const unsigned mk = (near >> c0) & (nc >= 32 ? ~0u : (1u << nc) - 1u);
-  return program_rule(mk, __ldg(progs + 5 * g + 4), recip);
 }
 
 }  // namespace fiat

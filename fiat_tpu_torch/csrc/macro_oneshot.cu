@@ -46,7 +46,9 @@
 //     shared memory ([member][THREADS], so no thread waits for another and a
 //     warp's accesses are consecutive), on triangles too (66 values at
 //     degree 10; a k loop over registers would have to unroll to nexp);
-//   - each point is binned against each chunk's program only, and for each
+//   - each point is binned against each chunk's program only (so a zoo may
+//     have any number of subcells, at most 32 a program: a program's masks
+//     are the bits of one word), and for each
 //     piece it falls in (and only those) a k loop reads phi_k back beside
 //     the staged column and adds it into RC independent accumulators, so no
 //     row waits on another's FMA chain; the groups of 8 rows past a chunk's

@@ -49,11 +49,20 @@
 //     the same launch.  The tickets are left 0.  The order of every sum
 //     depends on the launch's shape only, so two calls give identical bits.
 //
-// Shared memory a warp: the slab, the tile's piece and hit masks, and one
-// double per piece row: 8 (1088 + piece rows) bytes, rounded up to 16.  Sd =
-// 3, degree 10, 32 pieces of 286 members (the largest zoo the tables take)
-// need 80 KB, two warps a block; there is no row cap beside those of the
-// tables.
+// Binning is program by program (binning.cuh piece_bits, at most 32 pieces
+// a program), so a zoo may have any number of subcells in all: per tile the
+// warp keeps one 32-point mask per piece (a ballot) and, per program, each
+// point's hit count (the tie weight 1 / hits); each piece's sums find their
+// program in the block's piece table.
+//
+// Shared memory: the block's tables (first row, width and program per
+// piece, first and end piece and rule per program: 12 bytes each), then a
+// warp's share: the slab, the tile's piece
+// masks (4 bytes a piece) and hit counts (32 bytes a program), and one
+// double per piece row, each part rounded up to 16 bytes.  Sd = 3, degree
+// 10, 32 pieces of 286 members in 4 programs (the largest zoo the tables
+// take at 32 pieces) need 80 KB a warp, two warps a block; there is no row
+// or piece cap beside those of the tables and a block's shared memory.
 //
 // Output row layout (R = nplain + the pieces' widths): rows 0..nplain-1 are
 // pw; piece c's masked moments are rows nplain + off_c + k, k < nexp_c
@@ -77,8 +86,8 @@ using namespace fiat::k45;
 // error code of the launch (0 on success), or the attribute call's error
 // (the warps' shared memory is more than a block may have), which is then
 // cleared and nothing is launched; cudaErrorInvalidValue for an sd or a
-// degree it is not instantiated for (degree 0..10), more than 32 pieces,
-// nplain past the degree's members, no blocks or more warps than the
+// degree it is not instantiated for (degree 0..10), nplain past the
+// degree's members, no blocks or more warps than the
 // instantiation is built for (the wrapper checks all of these first).
 extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, int sd,
                                  const double* consts, const int* slots, const double* affine,
@@ -87,7 +96,7 @@ extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, 
                                  const int* pieces, int R, int warps, int nblocks,
                                  double* partials, unsigned* tickets, double* out,
                                  void* stream) {
-  if ((sd != 2 && sd != 3) || degree < 0 || npieces > 32 || nplain > nexp_of(sd, degree) ||
+  if ((sd != 2 && sd != 3) || degree < 0 || npieces < 0 || nplain > nexp_of(sd, degree) ||
       nblocks < 1 || warps < 1 || warps > MAX_WARPS)
     return static_cast<int>(cudaErrorInvalidValue);
   Params q{pts,    wf,     npts,   slots, {}, scale,    tol,    nplain, maps,
@@ -99,12 +108,15 @@ extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, 
 }
 
 // The blocks of ``warps`` warps an SM holds at once for the (sd, degree)
-// instantiation with ``piece_rows`` piece rows (registers and shared memory
-// both counted: cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus
-// the CUDA error; minus cudaErrorInvalidValue outside the instantiations.
-extern "C" int fiat_pair_moments_occupancy(int sd, int degree, int warps, int piece_rows) {
-  if ((sd != 2 && sd != 3) || warps < 1 || warps > MAX_WARPS || piece_rows < 0)
+// instantiation with ``piece_rows`` piece rows over ``npieces`` pieces in
+// ``nprogs`` programs (registers and shared memory both counted:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error;
+// minus cudaErrorInvalidValue outside the instantiations.
+extern "C" int fiat_pair_moments_occupancy(int sd, int degree, int warps, int piece_rows,
+                                           int npieces, int nprogs) {
+  if ((sd != 2 && sd != 3) || warps < 1 || warps > MAX_WARPS || piece_rows < 0 || npieces < 0 ||
+      nprogs < 0)
     return -static_cast<int>(cudaErrorInvalidValue);
-  return sd == 2 ? occupancy_by_degree<2>(degree, warps, piece_rows)
-                 : occupancy_by_degree<3>(degree, warps, piece_rows);
+  return sd == 2 ? occupancy_by_degree<2>(degree, warps, piece_rows, npieces, nprogs)
+                 : occupancy_by_degree<3>(degree, warps, piece_rows, npieces, nprogs);
 }

@@ -18,10 +18,6 @@ namespace fiat::k45 {
 constexpr int MAX_WARPS = 8;   // the most warps a block
 constexpr int SLAB_LD = 33;    // slab row stride (doubles)
 constexpr int SLAB = 32 * SLAB_LD;
-// doubles of a warp before its piece sums: the slab, then 32 piece masks
-// and 32 hit masks (unsigned); a warp's share is rounded up to an even
-// count (ops/moment_kernel.py WARP_FIXED and warp_smem)
-constexpr int WARP_FIXED = SLAB + 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int GROUP = 16;  // blocks whose partials one block sums (ops/moment_kernel.py GROUP)
 
@@ -44,12 +40,29 @@ __host__ __device__ constexpr int nexp_of(int sd, int n) {
 __host__ __device__ constexpr int nconst_of(int sd, int n) {
   return n == 0 ? 4 : 4 * (n + 1 + nexp_of(2, n) + (sd == 3 ? nexp_of(3, n) : 0));
 }
-__host__ __device__ constexpr int warp_doubles(int piece_rows) {
-  return (WARP_FIXED + piece_rows + 1) & ~1;
+// Shared memory (ops/moment_kernel.py block_smem): the block's tables first
+// (per piece its first row, width and program, then per program its first
+// and end piece and its rule, ints), then each warp's share: the slab, the
+// tile's point mask of each piece (unsigned), the hits of each point in each
+// program (bytes, [g][point]), and one double per piece row; each part
+// rounded up to an even count of doubles, so every warp's slab stays
+// 16-byte aligned.
+__host__ __device__ constexpr int even_doubles(long long bytes) {
+  return static_cast<int>(((bytes + 15) / 16) * 2);
+}
+__host__ __device__ constexpr int header_doubles(int npieces, int nprogs) {
+  return even_doubles(12LL * (npieces + nprogs));
+}
+__host__ __device__ constexpr int masks_doubles(int npieces, int nprogs) {
+  return even_doubles(4LL * npieces + 32LL * nprogs);
+}
+__host__ __device__ constexpr int warp_doubles(int piece_rows, int npieces, int nprogs) {
+  return SLAB + masks_doubles(npieces, nprogs) + even_doubles(8LL * piece_rows);
 }
 
-inline size_t smem_bytes(int warps, int piece_rows) {
-  return sizeof(double) * static_cast<size_t>(warps) * warp_doubles(piece_rows);
+inline size_t smem_bytes(int warps, int piece_rows, int npieces, int nprogs) {
+  return sizeof(double) * (static_cast<size_t>(header_doubles(npieces, nprogs)) +
+                           static_cast<size_t>(warps) * warp_doubles(piece_rows, npieces, nprogs));
 }
 
 struct Params {
@@ -81,36 +94,42 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
   constexpr int NE = nexp_of(SD, N);
   constexpr int NCH = (NE + 31) / 32;
   extern __shared__ double smem[];
-  __shared__ int s_off[32], s_nk[32];
-  __shared__ unsigned s_pmask[32];
   __shared__ double s_rcp[33];
   __shared__ bool last;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int PR = q.R - q.nplain;
-  double* slab = smem + warp * warp_doubles(PR);
+  // piece c: first row tab[3 c] of its sums, width tab[3 c + 1], program
+  // tab[3 c + 2]; program g: first and end piece ptab[3 g], ptab[3 g + 1],
+  // unique ptab[3 g + 2] (the tables sit at the start of shared memory, so
+  // their addresses need no register)
+  int* const tab = reinterpret_cast<int*>(smem);
+  const int* const ptab = tab + 3 * q.npieces;
+  const int WD = warp_doubles(PR, q.npieces, q.nprogs);
+  double* wbase = smem + header_doubles(q.npieces, q.nprogs);
+  double* slab = wbase + warp * WD;
   unsigned* mq = reinterpret_cast<unsigned*>(slab + SLAB);  // piece c's points
-  unsigned* hq = mq + 32;                                    // point k's pieces
-  double* acc = slab + WARP_FIXED;  // this warp's piece sums: piece c's member j at off_c + j
+  unsigned char* hc = reinterpret_cast<unsigned char*>(mq + q.npieces);  // [g][point]: hits
+  // this warp's piece sums: piece c's member j at off_c + j
+  double* acc = slab + SLAB + masks_doubles(q.npieces, q.nprogs);
 
-  // piece tables: first row, width, the mask of its program's pieces, and
-  // 1 / hits for 1..32 hits (binning.cuh's program_rule computes the same)
-  if (threadIdx.x < 32) {
-    const int c = threadIdx.x;
-    s_rcp[c + 1] = 1.0 / static_cast<double>(c + 1);
-    if (c < q.npieces) {
-      s_off[c] = __ldg(q.pieces + 2 * c);
-      s_nk[c] = __ldg(q.pieces + 2 * c + 1);
-    }
-    if (c < q.nprogs) {
-      const int c0 = __ldg(q.progs + 5 * c + 2), c1 = __ldg(q.progs + 5 * c + 3);
-      const unsigned m = (c1 - c0 >= 32 ? ~0u : (1u << (c1 - c0)) - 1u) << c0;
-      for (int k = c0; k < c1; ++k) s_pmask[k] = m;
+  // the tables, and 1 / hits for 1..32 hits (binning.cuh's program_rule
+  // computes the same)
+  if (threadIdx.x < 32) s_rcp[threadIdx.x + 1] = 1.0 / static_cast<double>(threadIdx.x + 1);
+  for (int g = threadIdx.x; g < q.nprogs; g += blockDim.x) {
+    const int c0 = __ldg(q.progs + 5 * g + 2), c1 = __ldg(q.progs + 5 * g + 3);
+    tab[3 * q.npieces + 3 * g] = c0;
+    tab[3 * q.npieces + 3 * g + 1] = c1;
+    tab[3 * q.npieces + 3 * g + 2] = __ldg(q.progs + 5 * g + 4);
+    for (int c = c0; c < c1; ++c) {
+      tab[3 * c] = __ldg(q.pieces + 2 * c);
+      tab[3 * c + 1] = __ldg(q.pieces + 2 * c + 1);
+      tab[3 * c + 2] = g;
     }
   }
   for (int i = lane; i < PR; i += 32) acc[i] = 0.0;
   __syncthreads();
   int widest = 0;  // the widest piece's members
-  for (int c = 0; c < q.npieces; ++c) widest = max(widest, s_nk[c]);
+  for (int c = 0; c < q.npieces; ++c) widest = max(widest, tab[3 * c + 1]);
 
   // the plain sums of the lane's entries 32 c + lane
   double plain[NCH];
@@ -143,7 +162,7 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
     const int npieces = __any_sync(FULL, j < widest) ? q.npieces : 0;
     for (int pc = 0; pc < npieces; ++pc) {
       const unsigned m = mq[pc];
-      if (!m || j >= s_nk[pc]) continue;
+      if (!m || j >= tab[3 * pc + 1]) continue;
       double t0 = 0.0, t1 = 0.0;
       if (!ties) {
         // every hit takes the whole weight: two points at a time, the
@@ -159,10 +178,10 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
       } else {
         for (unsigned mm = m; mm; mm &= mm - 1u) {
           const int k = __ffs(mm) - 1;
-          t0 += s_rcp[__popc(hq[k] & s_pmask[pc])] * row[k];
+          t0 += s_rcp[hc[32 * tab[3 * pc + 2] + k]] * row[k];
         }
       }
-      acc[s_off[pc] + j] += t0 + t1;
+      acc[tab[3 * pc] + j] += t0 + t1;
     }
     __syncwarp();
     // rows past the last entry hold stale values
@@ -188,27 +207,27 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
     for (int i = 0; i < SD; ++i) x[i] = live ? q.pts[SD * p + i] : 0.0;
     w = live ? q.wf[p] : 0.0;
     if (q.nprogs) {
-      unsigned hits = 0u;
+      // each program's masks of the lane's point (binning.cuh), then per
+      // piece the ballot of the tile's points on it and per program the
+      // hits of each point
+      const double best = live ? fiat::parent_bound<SD>(q.maps, x, q.tol) : 0.0;
       bool tie = false;
-      if (live) {
-        const unsigned near = SD == 2 ? fiat::subcell_bits(q.maps, q.npieces, x[0], x[1], q.tol)
-                                      : fiat::subcell_bits3(q.maps, q.npieces, x[0], x[1],
-                                                            x[SD - 1], q.tol);
-        for (int g = 0; g < q.nprogs; ++g) {
+      for (int g = 0; g < q.nprogs; ++g) {
+        const int c0 = ptab[3 * g], c1 = ptab[3 * g + 1];
+        unsigned mk = 0u;
+        if (live) {
           double recip;
-          const unsigned mk = fiat::program_mask(near, q.progs, g, recip);
-          tie |= __popc(mk) > 1;
-          hits |= mk << __ldg(q.progs + 5 * g + 2);
+          mk = fiat::program_rule(fiat::piece_bits<SD>(q.maps, c0, c1, x, best), ptab[3 * g + 2],
+                                  recip);
+        }
+        tie |= __popc(mk) > 1;
+        hc[32 * g + lane] = static_cast<unsigned char>(__popc(mk));
+        for (int c = c0; c < c1; ++c) {
+          const unsigned m = __ballot_sync(FULL, (mk >> (c - c0)) & 1u);
+          if (lane == (c & 31)) mq[c] = m;
         }
       }
       ties = __any_sync(FULL, tie);
-      unsigned mine = 0u;
-      for (int c = 0; c < q.npieces; ++c) {
-        const unsigned m = __ballot_sync(FULL, (hits >> c) & 1u);
-        if (lane == c) mine = m;
-      }
-      mq[lane] = mine;
-      hq[lane] = hits;
     }
 
     // cell map onto the default (-1, 1) simplex, as K1's
@@ -238,11 +257,12 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
   }
   __syncthreads();
   double* part = q.partials + static_cast<size_t>(blockIdx.x) * q.R;
+  const int acc_at = SLAB + masks_doubles(q.npieces, q.nprogs);
   for (int r = threadIdx.x; r < q.R; r += blockDim.x) {
     double s = 0.0;
     for (int wi = 0; wi < warps; ++wi) {
-      const double* b = smem + wi * warp_doubles(PR);
-      s += r < q.nplain ? b[r] : b[WARP_FIXED + r - q.nplain];
+      const double* b = wbase + wi * WD;
+      s += r < q.nplain ? b[r] : b[acc_at + r - q.nplain];
     }
     part[r] = s;
   }
@@ -293,7 +313,7 @@ cudaError_t allow_smem(size_t smem) {
 template <int SD, int N>
 int launch(const Params& q, const double* consts, int warps, int nblocks, cudaStream_t stream) {
   if (warps > block_warps(SD, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(warps, q.R - q.nplain);
+  const size_t smem = smem_bytes(warps, q.R - q.nplain, q.npieces, q.nprogs);
   const cudaError_t err = allow_smem<SD, N>(smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
@@ -308,9 +328,9 @@ int launch(const Params& q, const double* consts, int warps, int nblocks, cudaSt
 // Resident blocks an SM (registers and shared memory both counted), or
 // minus the CUDA error.
 template <int SD, int N>
-int occupancy(int warps, int piece_rows) {
+int occupancy(int warps, int piece_rows, int npieces, int nprogs) {
   if (warps > block_warps(SD, N)) return -static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(warps, piece_rows);
+  const size_t smem = smem_bytes(warps, piece_rows, npieces, nprogs);
   int blocks = 0;
   cudaError_t err = allow_smem<SD, N>(smem);
   if (err == cudaSuccess)
@@ -341,11 +361,11 @@ int launch_by_degree(const Params& q, const double* consts, int degree, int warp
 }
 
 template <int SD>
-int occupancy_by_degree(int degree, int warps, int piece_rows) {
+int occupancy_by_degree(int degree, int warps, int piece_rows, int npieces, int nprogs) {
   switch (degree) {
 #define FIAT_CASE(n) \
   case n:            \
-    return occupancy<SD, n>(warps, piece_rows);
+    return occupancy<SD, n>(warps, piece_rows, npieces, nprogs);
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
 #undef FIAT_CASE
@@ -357,6 +377,6 @@ int occupancy_by_degree(int degree, int warps, int piece_rows) {
 // sd = 3 is instantiated in moments3.cu
 extern template int launch_by_degree<3>(const Params&, const double*, int, int, int,
                                         cudaStream_t);
-extern template int occupancy_by_degree<3>(int, int, int);
+extern template int occupancy_by_degree<3>(int, int, int, int, int);
 
 }  // namespace fiat::k45

@@ -6,6 +6,6 @@
 namespace fiat::k45 {
 
 template int launch_by_degree<3>(const Params&, const double*, int, int, int, cudaStream_t);
-template int occupancy_by_degree<3>(int, int, int);
+template int occupancy_by_degree<3>(int, int, int, int, int);
 
 }  // namespace fiat::k45

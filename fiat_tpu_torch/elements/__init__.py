@@ -10,15 +10,26 @@
   Regge, HellanHerrmannJohnson, GopalakrishnanLedererSchoberlFirstKind /
   SecondKind, GaussLegendre, GaussLobattoLegendre, GaussRadau, Legendre,
   IntegratedLegendre, Bubble, FacetBubble, KongMulderVeldhuizen;
+* the Stokes, elasticity and C2 families of the sweep: BernardiRaugel,
+  MardalTaiWinther, ArnoldWinther / ArnoldWintherNC, HuZhang,
+  JohnsonMercier, AlfeldSorokina, ArnoldQin, ChristiansenHu,
+  GuzmanNeilanFirstKindH1 / SecondKindH1 (and GuzmanNeilanH1div),
+  WuXuH3NC / WuXuRobustH3NC, BrambleZlamalC2, AlfeldC2 and Walkington;
 * the wrappers RestrictedElement, DiscontinuousElement and
   NodalEnrichedElement.
 """
 
+from .alfeld_sorokina import AlfeldSorokina  # noqa: F401
 from .argyris import Argyris  # noqa: F401
+from .arnold_qin import ArnoldQin  # noqa: F401
+from .arnold_winther import ArnoldWinther, ArnoldWintherNC  # noqa: F401
 from .bell import Bell  # noqa: F401
+from .bernardi_raugel import BernardiRaugel  # noqa: F401
 from .brezzi_douglas_fortin_marini import BrezziDouglasFortinMarini  # noqa: F401
 from .brezzi_douglas_marini import BrezziDouglasMarini  # noqa: F401
 from .bubble import Bubble, FacetBubble  # noqa: F401
+from .c2_elements import AlfeldC2, BrambleZlamalC2  # noqa: F401
+from .christiansen_hu import ChristiansenHu  # noqa: F401
 from .crouzeix_raviart import CrouzeixRaviart  # noqa: F401
 from .discontinuous import DiscontinuousElement  # noqa: F401
 from .discontinuous_lagrange import DiscontinuousLagrange  # noqa: F401
@@ -26,12 +37,17 @@ from .discontinuous_raviart_thomas import DiscontinuousRaviartThomas  # noqa: F4
 from .discontinuous_taylor import DiscontinuousTaylor  # noqa: F401
 from .gopalakrishnan_lederer_schoberl import (  # noqa: F401
     GopalakrishnanLedererSchoberlFirstKind, GopalakrishnanLedererSchoberlSecondKind)
+from .guzman_neilan import (  # noqa: F401
+    GuzmanNeilanFirstKindH1, GuzmanNeilanH1div, GuzmanNeilanSecondKindH1)
 from .hct import HsiehCloughTocher  # noqa: F401
 from .hellan_herrmann_johnson import HellanHerrmannJohnson  # noqa: F401
 from .hermite import CubicHermite  # noqa: F401
 from .hierarchical import IntegratedLegendre, Legendre  # noqa: F401
+from .hu_zhang import HuZhang  # noqa: F401
+from .johnson_mercier import JohnsonMercier  # noqa: F401
 from .kong_mulder_veldhuizen import KongMulderVeldhuizen  # noqa: F401
 from .lagrange import Lagrange  # noqa: F401
+from .mardal_tai_winther import MardalTaiWinther  # noqa: F401
 from .morley import Morley  # noqa: F401
 from .nedelec import Nedelec  # noqa: F401
 from .nedelec_second_kind import NedelecSecondKind  # noqa: F401
@@ -42,3 +58,5 @@ from .raviart_thomas import RaviartThomas  # noqa: F401
 from .regge import Regge  # noqa: F401
 from .restricted import RestrictedElement  # noqa: F401
 from .spectral import GaussLegendre, GaussLobattoLegendre, GaussRadau  # noqa: F401
+from .walkington import Walkington  # noqa: F401
+from .wuxu import WuXuH3NC, WuXuRobustH3NC  # noqa: F401

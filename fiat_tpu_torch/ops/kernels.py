@@ -59,7 +59,7 @@ SIGNATURES = {
     "fiat_pair_moments": [_P, _P, _I, _I, _P, _P, _P, _D, _D, _I, _I, _P, _I, _P, _I, _P, _I,
                           _I, _I, _P, _P, _P, _P],
     # sd, degree, warps, piece rows (returns blocks an SM, or minus the error)
-    "fiat_pair_moments_occupancy": [_I, _I, _I, _I],
+    "fiat_pair_moments_occupancy": [_I] * 6,
     # pts, npts, sd, tol, maps, progs, pieces, slices, nslices, At, phi, kmax, out,
     # tp, slice_cols, stages, stream
     "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P],

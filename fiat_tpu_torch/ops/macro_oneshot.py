@@ -13,9 +13,10 @@ Hopper has native FP64, so the kernel computes it in f64 (or in f32 for the
 f32 engine).  On both parents the grid runs over row chunks of one program,
 as K7's does, so A has no size limit; each point multiplies only the
 subcells it falls in, and keeps its parent basis in its own column of a
-shared-memory Phi tile (the kernel's source note says why).  One row per
-program (interpolation) runs an instantiation whose chunks are one row
-high.
+shared-memory Phi tile (the kernel's source note says why).  A point is
+binned against each chunk's program alone, so a zoo may have any number of
+subcells (at most ``MAX_PROGRAM_PIECES`` a program).  One row per program
+(interpolation) runs an instantiation whose chunks are one row high.
 
 The plain version beside it does the same in plain PyTorch: masks by
 ``core.expansions.subcell_masks`` (the body of
@@ -36,8 +37,13 @@ from .recurrence import pack_stages
 
 #: highest parent degree the kernel is instantiated for (csrc/macro_oneshot.cu)
 MAX_DEGREE = 10
-#: subcells over all programs: the kernel keeps a point's masks as bits of one word
-MAX_PIECES = 32
+#: subcells of one program: the kernels (K3, K7, K45) bin a point program by
+#: program and keep a program's masks as the bits of one word; a zoo may
+#: have any number of programs
+MAX_PROGRAM_PIECES = 32
+#: subcells in all up to which the f64 engine takes K3 on a triangle parent,
+#: and K7 past it (``one_shot_applies``)
+ONE_SHOT_PIECES = 32
 #: binning tolerance per working type (``subcell_masks``' defaults)
 BINNING_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 #: rows of one chunk, and values per staged column, of the chunked macro
@@ -134,13 +140,17 @@ def group_staged(chunks, progs, rows, cpb):
 
 def one_shot_applies(merged):
     """Whether K3 is the f64 engine's kernel for the merged macro programs
-    (``fused_zoo._merge_macro_programs``' output): at most ``MAX_PIECES``
-    subcells in all, a parent degree of at most ``MAX_DEGREE``, and a
-    triangle parent.  On a tetrahedral parent K3's sd = 3 stage runs the
-    f32 tables and interpolation, and the f64 tables take K7, which the
-    H100 measured faster on ``sv_macro_tet`` (PERF.md §6)."""
+    (``fused_zoo._merge_macro_programs``' output): at most
+    ``ONE_SHOT_PIECES`` subcells in all, a parent degree of at most
+    ``MAX_DEGREE``, and a triangle parent.  K3 takes any number of
+    subcells, but past those the f64 tables take K7, which reads the zoo's
+    Phi from K1 instead of running the recurrence again; on a tetrahedral
+    parent K3's sd = 3 stage runs the f32 tables and interpolation, and the
+    f64 tables take K7, which the H100 measured faster on ``sv_macro_tet``
+    (PERF.md §6)."""
     return (np.asarray(merged["parent_map"][0]).shape == (3, 2)
-            and len(merged["pieces"]) <= MAX_PIECES and 0 <= merged["degree"] <= MAX_DEGREE)
+            and len(merged["pieces"]) <= ONE_SHOT_PIECES
+            and 0 <= merged["degree"] <= MAX_DEGREE)
 
 
 class MacroOneShot:
@@ -184,9 +194,11 @@ class MacroOneShot:
                                    for Am, bm in g["maps"]]) for g in geom]
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
         self.nexp = [int(n) for _, n in pieces]
-        if len(self.nexp) > MAX_PIECES:
-            raise NotImplementedError(f"{len(self.nexp)} subcells: K3 takes at most {MAX_PIECES}")
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
+        widest = int((progs[:, 3] - progs[:, 2]).max())
+        if widest > MAX_PROGRAM_PIECES:
+            raise NotImplementedError(f"a program of {widest} subcells: K3 takes at most "
+                                      f"{MAX_PROGRAM_PIECES} a program")
         self.sd = sd = self.parent_map[0].shape[1]
         if max(self.nexp) > math.comb(self.degree + sd, sd):
             raise ValueError("a subcell reads more parent members than the recurrence makes")

@@ -27,10 +27,8 @@ import torch
 
 from ..core.expansions import subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import BINNING_TOL, COLUMN_STRIDE, chunk_table, pack_geometry
-
-#: pieces of one program: the kernel keeps a point's masks as bits of one word
-MAX_PROGRAM_PIECES = 32
+from .macro_oneshot import (BINNING_TOL, COLUMN_STRIDE, MAX_PROGRAM_PIECES, chunk_table,
+                            pack_geometry)
 #: columns of the slice table, and its flags (csrc/masked_matmul.cu)
 SLICE_COLS = 8
 FIRST_IN_CHUNK, LAST_IN_CHUNK, FIRST_IN_PROGRAM, SAME_BINS = 1, 2, 4, 8

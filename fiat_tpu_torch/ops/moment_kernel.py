@@ -7,8 +7,9 @@ through df32 pairs, Ozaki windows and exact window reductions, and are two
 kernels; Hopper has native FP64, so one kernel (``csrc/moments.cu``)
 computes both in f64: per point the Dubiner recurrence and the subcell
 masks of every macro program (``csrc/binning.cuh``, shared with K3 and
-K7), streamed a warp's 32 points at a time through a shared-memory slab
-into sums each lane owns by member, reduced per block, and the blocks'
+K7; program by program, so a zoo may have any number of subcells),
+streamed a warp's 32 points at a time through a shared-memory slab into
+sums each lane owns by member, reduced per block, and the blocks'
 partials summed in groups by the last blocks to finish, in the same
 launch (``csrc/moments.cu`` has the design).
 
@@ -25,18 +26,16 @@ import torch
 
 from ..core.expansions import dubiner_tabulate, subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import BINNING_TOL, MAX_PIECES, pack_geometry
+from .macro_oneshot import BINNING_TOL, MAX_PROGRAM_PIECES, pack_geometry
 from .recurrence import pack_stages
 
 #: highest degree the kernel is instantiated for (csrc/moments.cu), on the
 #: triangle and on the tetrahedron
 MAX_DEGREE = 10
 
-#: doubles of shared memory a warp holds besides its piece sums: the slab
-#: of 32 entries x 32 points (row stride 33), the tile's 32 piece masks and
-#: 32 hit masks (csrc/moments.cuh WARP_FIXED; a warp's share is rounded up
-#: to an even count of doubles)
-WARP_FIXED = 32 * 33 + 32
+#: doubles of a warp's slab: 32 entries x 32 points, row stride 33
+#: (csrc/moments.cuh SLAB)
+SLAB = 32 * 33
 #: shared memory a block may have, less the kernel's static tables (bytes)
 BLOCK_SMEM = 232448 - 1024
 #: blocks whose partials one block of the launch sums, before the last
@@ -49,6 +48,29 @@ def block_warps(sd, degree):
     (csrc/moments.cuh block_warps: the tetrahedron from degree 7 runs more,
     smaller blocks within its registers)."""
     return 4 if sd == 3 and degree >= 7 else 8
+
+
+def even_doubles(nbytes):
+    """``nbytes`` of shared memory rounded up to an even count of doubles
+    (csrc/moments.cuh even_doubles)."""
+    return -(-nbytes // 16) * 2
+
+
+def warp_doubles(piece_rows, npieces, nprogs):
+    """Doubles of one warp's shared memory (csrc/moments.cuh warp_doubles):
+    the slab, the tile's point mask of each piece (4 bytes) and hit count
+    of each point in each program (32 bytes a program), then one double per
+    piece row."""
+    return SLAB + even_doubles(4 * npieces + 32 * nprogs) + even_doubles(8 * piece_rows)
+
+
+def block_smem(warps, piece_rows, npieces, nprogs):
+    """Bytes of a block's shared memory (csrc/moments.cuh smem_bytes): the
+    tables (first row, width and program of each piece, first and end
+    piece and rule of each program: 12 bytes each), then ``warps`` warps'
+    shares."""
+    return 8 * (even_doubles(12 * (npieces + nprogs))
+                + warps * warp_doubles(piece_rows, npieces, nprogs))
 
 
 def grid_blocks(npts, warps, blocks_per_sm, sms):
@@ -96,9 +118,6 @@ class PairMoments:
         self.nexp = math.comb(self.degree + self.sd, self.sd)
         self.nplain = int(nplain)
         self.piece_nexp = [int(n) for _, n in pieces]
-        if len(self.piece_nexp) > MAX_PIECES:
-            raise NotImplementedError(
-                f"{len(self.piece_nexp)} subcells: K45 takes at most {MAX_PIECES}")
         if self.nplain > self.nexp or max(self.piece_nexp, default=0) > self.nexp:
             raise ValueError("a row reads more members than the recurrence makes")
         self.geom = list(geom)
@@ -112,6 +131,10 @@ class PairMoments:
 
         if self.geom:
             maps, progs, pieces_t = pack_geometry(self.geom, parent_map, self.piece_nexp)
+            widest = int((progs[:, 3] - progs[:, 2]).max())
+            if widest > MAX_PROGRAM_PIECES:
+                raise NotImplementedError(f"a program of {widest} subcells: K45 takes at most "
+                                          f"{MAX_PROGRAM_PIECES} a program")
         else:
             maps = np.zeros((1, self.sd + 1, self.sd + 1))
             progs, pieces_t = np.zeros((0, 5)), np.zeros((0, 2))
@@ -124,13 +147,20 @@ class PairMoments:
         self._affine_arg = (ctypes.c_double * 12)(*self.affine)
         self.slots = as_t(slots, torch.int32)
         self.device = self.slots.device        # "cuda" resolved to its index
-        # a warp's shared memory (its slab, piece and hit masks and piece
-        # sums) and the warps a block takes: the largest zoo the tables
-        # allow (degree 10, 32 pieces of 286) needs 80 KB a warp, 2 a block
-        piece_rows = self.rows - self.nplain
-        self.warp_smem = 8 * (WARP_FIXED + piece_rows + piece_rows % 2)
-        self.warps = min(block_warps(self.sd, self.degree), BLOCK_SMEM // self.warp_smem)
-        self.smem = self.warps * self.warp_smem
+        # a warp's shared memory (its slab, piece masks, hit counts and
+        # piece sums) and the warps a block takes beside the piece table:
+        # degree 10 with 32 pieces of 286 needs 80 KB a warp, 2 a block
+        self.piece_rows = self.rows - self.nplain
+        self.nprogs = len(self.geom)
+        self.warp_smem = 8 * warp_doubles(self.piece_rows, len(self.piece_nexp), self.nprogs)
+        table = block_smem(0, 0, len(self.piece_nexp), self.nprogs)
+        self.warps = min(block_warps(self.sd, self.degree),
+                         (BLOCK_SMEM - table) // self.warp_smem)
+        if self.warps < 1:
+            raise NotImplementedError(
+                f"K45: one warp's {self.warp_smem} bytes of shared memory ({self.piece_rows} "
+                f"piece rows) are past a block's {BLOCK_SMEM - table}")
+        self.smem = block_smem(self.warps, self.piece_rows, len(self.piece_nexp), self.nprogs)
         self._blocks_per_sm = self._sms = None
         self._tickets = {}
         self.launches = 0
@@ -142,7 +172,8 @@ class PairMoments:
         Needs the card."""
         if self._blocks_per_sm is None:
             n = load_kernels().fiat_pair_moments_occupancy(
-                self.sd, self.degree, self.warps, self.rows - self.nplain)
+                self.sd, self.degree, self.warps, self.piece_rows, len(self.piece_nexp),
+                self.nprogs)
             if n <= 0:
                 raise RuntimeError(f"K45 (degree {self.degree}, sd {self.sd}, {self.warps} "
                                    f"warps, {self.smem} bytes): no block fits an SM ({n})")
@@ -196,7 +227,7 @@ class PairMoments:
             points.data_ptr(), wf.data_ptr(), npts, self.sd, self._consts_arg,
             self.slots.data_ptr(), self._affine_arg, self.scale, BINNING_TOL[torch.float64],
             self.degree, self.nplain, self.maps.data_ptr(), len(self.piece_nexp),
-            self.progs.data_ptr(), len(self.geom), self.pieces.data_ptr(), self.rows, self.warps,
+            self.progs.data_ptr(), self.nprogs, self.pieces.data_ptr(), self.rows, self.warps,
             nblocks, partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream)
         check_launch(f"fiat_pair_moments ({self.rows} rows, degree {self.degree}, sd {self.sd})",
                      err)

@@ -374,11 +374,12 @@ def test_k45_sd3_kernel_loop_on_its_packed_tables_matches_plain(where, grid):
 
 def test_k45_sd3_plain_rows_replay_at_degree_8():
     """tet_lagrange8's K45: 165 plain rows in 6 chunks, no pieces; blocks
-    of 4 warps (the tetrahedron from degree 7) of 8 (1088 + 0) doubles each
-    (the card's occupancy then sets the blocks an SM from the registers)."""
+    of 4 warps (the tetrahedron from degree 7) of 8 x 1056 bytes each, the
+    slab alone (the card's occupancy then sets the blocks an SM from the
+    registers)."""
     tb = BatchedTabulator([tfe.Lagrange(tcl.ufc_simplex(3), 8)], order=0, device="cpu")
     pm = tmo.moment_engine(tb).moments
-    assert (pm.degree, pm.nplain, pm.rows, pm.warps, pm.smem) == (8, 165, 165, 4, 4 * 8 * 1088)
+    assert (pm.degree, pm.nplain, pm.rows, pm.warps, pm.smem) == (8, 165, 165, 4, 4 * 8 * 1056)
     pts = _points(40, 13)
     wf = np.random.default_rng(14).random(len(pts))
     want = pm(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
@@ -457,7 +458,10 @@ def test_k45_sd3_past_the_old_row_cap_matches_plain_and_fiat_tpu():
     scale = es.get_scale(10)
     big = PairMoments(10, 286, scale, es.affine_mappings[0], pm.geom, pm.parent_map,
                       [(i, 286) for i in range(32)], device="cpu")
-    assert (big.rows, big.warps, big.smem) == (286 * 33, 2, 2 * 8 * (1088 + 32 * 286))
+    # the tables (12 bytes a piece and a program), then two warps: the
+    # slab, 32 piece masks and 4 x 32 hit counts (256 bytes), the piece sums
+    assert (big.rows, big.warps, big.smem) == (286 * 33, 2,
+                                               8 * (54 + 2 * (1056 + 32 + 32 * 286)))
     pts = np.vstack([_points(40, 21), _tie_points()])
     wf = np.random.default_rng(22).random(len(pts)) - 0.5
     sums = big(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
