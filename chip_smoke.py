@@ -87,7 +87,22 @@ Drives the port's main paths once each at their real size, at 1e5 points
      ``tables`` (K6, K3 float32);
  15. ``stokes_elasticity_tet`` at ``pts3``: the same on the tetrahedron
      (``STOKES_TET``, NodalEnriched-GN and Walkington; 12 elements, 44
-     subcells in 9 programs).
+     subcells in 9 programs);
+ 16. ``split_variants_tri`` at ``pts2``: the split variants (``SPLIT_TRI``:
+     RT, Nedelec, BDM, CR, NED2, Regge, HHJ and GLS of both kinds at degree
+     1 on the Alfeld, Powell-Sabin, Powell-Sabin(12) and Iso(2) splits,
+     BDFM 2 on three of them, RT 3 and Nedelec 3 on Alfeld and Iso(2), the
+     iso variants of Lagrange 1-3 and DG 1, and the ten families unsplit;
+     57 elements, 273 subcells in 47 programs, 9.7 GB of f64 tables a
+     pass) through every entry point, as phases 14-15 (K1, K2, K7; K3 on
+     the same merged programs held to K7 and timed beside it, with its
+     plain version and one DGEMM on its masked B; K45; K1 and K3 one row
+     per program; K6 and K3 float32);
+ 17. ``split_variants_tet`` at ``pts3``: the same on the tetrahedron
+     (``SPLIT_TET``: the nine families on the Alfeld split, RT, Nedelec,
+     CR and NED2 on the Worsey-Farin, Powell-Sabin (24 subcells) and Iso(2)
+     splits, Lagrange 1 and DG 1 iso, the nine unsplit; 32 elements, 228
+     subcells in 23 programs, 16.8 GB of f64 tables a pass).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -119,7 +134,7 @@ on ``sv_macro_tet`` and on the Worsey-Farin DG 6 zoo, K45 at sd = 3 on
 phase 7's three cells and K6 at sd = 3 on two, K3's sd = 3 stage and K6 on
 phase 8's, K3 on the C1 zoos (order 1, 2 and 3), K1, K2, K45 and K6 on
 phases 10 and 11, K1 and K2 on phase 12, and K1, K2, K7, K45, K3 (one
-row per program and float32) and K6 on phases 14 and 15, each with its
+row per program and float32) and K6 on phases 14-17, each with its
 bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
@@ -784,25 +799,27 @@ def host_dual_check(name, zoo, bt, mo, P, pts, wf, wf_h, u, c_h, np):
     ``u`` (the main path's interpolated values) is given, its first
     HOST_CHECK_PTS values against host sum_i c_i phi_i; fails past
     HOST_ATOL, or for the SUMMED_MOMENTS elements' moments past their table
-    bar (``table_bar``) times the sum of the weights."""
+    bar (``table_bar``) times the sum of the weights.  Prints the element of
+    the worst reading held to HOST_ATOL."""
     n = HOST_CHECK_PTS
     sub, wsub = pts[:n], wf_h[:n]
     origin = (0,) * pts.shape[1]
     per = mo.unpack_moments(bt, mo.moment_rows(bt, P[:n], wf[:n]))
-    mom_err, host_u, summed = 0.0, np.zeros(n), []
+    mom_err, worst, host_u, summed = 0.0, "", np.zeros(n), []
     for el, m, (lo, hi, _) in zip(zoo, per, bt.slices):
         tab = np.asarray(el.tabulate(0, sub)[origin]).reshape(hi - lo, n)
         err = float(np.abs(tab @ wsub - m.reshape(-1).cpu().numpy()).max())
-        if type(el).__name__ in SUMMED_MOMENTS:
+        if type(el).__name__ in SUMMED_MOMENTS or split_label(el) in SUMMED_MOMENTS:
             bar = table_bar(el, tab) * float(wsub.sum())
-            summed.append(f"{element_label(el)} {err:.3e} (bar {bar:.3e})")
+            summed.append(f"{split_label(el)} {err:.3e} (bar {bar:.3e})")
             if not err <= bar:
-                fail(f"{name}: moments of {element_label(el)} {err:.3e} from host > {bar:.3e}")
-        else:
-            mom_err = max(mom_err, err)
+                fail(f"{name}: moments of {split_label(el)} {err:.3e} from host > {bar:.3e}")
+        elif err > mom_err:
+            mom_err, worst = err, split_label(el)
         host_u += c_h[lo:hi] @ tab
     interp_err = 0.0 if u is None else float(np.abs(u[:n].cpu().numpy() - host_u).max())
-    print(f"{name} vs host el.tabulate(0) on {n} points: moments max abs {mom_err:.3e}"
+    print(f"{name} vs host el.tabulate(0) on {n} points: moments max abs {mom_err:.3e} "
+          f"({worst})"
           + ("" if u is None else f", interpolation max abs {interp_err:.3e}")
           + (f"; moments held to their table bar times the sum of the weights: "
              f"{', '.join(summed)}" if summed else ""))
@@ -1872,13 +1889,15 @@ def f64_cell(name, zoo, pts, P, card, torch, np):
         check_scaled(f"{name} K3 on the merged programs, against K7 (not its plain version),",
                      k3(P), k7(P, phi), k7_scales)
         k3_ms, k3_card = median_ms(lambda: k3(P), torch), queued_ms(lambda: k3(P), torch)
+        k3_plain, k3_lib = median_ms(lambda: k3.plain(P), torch), masked_gemm_ms(k3, P, torch)
         k3_bound = macro_bound(k3, NPTS)
         del k3
         macro = (f", K7 {k7_ms:.4f} ms (card {k7_card:.4f}, plain {k7_plain:.4f}, one DGEMM on "
                  f"the masked B {k7_lib:.4f}, bound {k7_bound[0]:.4f} by {k7_bound[1]}; "
                  f"{k7_bound[0] / k7_card:.0%} of its bound); K3 on the same programs "
-                 f"{k3_ms:.4f} ms (card {k3_card:.4f}, bound {k3_bound[0]:.4f} by "
-                 f"{k3_bound[1]}): K7 / K3 card {k7_card / k3_card:.3f}")
+                 f"{k3_ms:.4f} ms (card {k3_card:.4f}, plain {k3_plain:.4f}, one DGEMM on the "
+                 f"masked B {k3_lib:.4f}, bound {k3_bound[0]:.4f} by {k3_bound[1]}): K7 / K3 "
+                 f"card {k7_card / k3_card:.3f}")
     del phi
     path_ms = median_ms(lambda: tab.block_tables(P), torch)
 
@@ -2119,8 +2138,8 @@ def zoo_phase(cells, dev, card, torch, np):
     K2, and K7 for macro elements past 32 subcells), moments (K45),
     interpolation (K1, and K3 one row per program) and f32 tables (K6, and
     K3 float32), one launch of each kernel a pass; K2 timed by width group.
-    Phases 10-11 (the nodal families) and 14-15 (the Stokes, elasticity and
-    C2 families)."""
+    Phases 10-11 (the nodal families), 14-15 (the Stokes, elasticity and
+    C2 families) and 16-17 (the split variants)."""
     kernels = []
     for sd, name, make in cells:
         torch.cuda.empty_cache()
@@ -2249,6 +2268,32 @@ STOKES_TET = (
     ("GuzmanNeilanSecondKindH1", 1, {}), ("GuzmanNeilanSecondKindH1", 2, {}),
 )
 STOKES_TET_TAIL = ("NodalEnriched-GN", "Walkington")
+#: the split-variant cells (phases 16-17): the moment families that build
+#: on a split through MacroPolynomialSet, on the Alfeld, Powell-Sabin(6/12),
+#: Worsey-Farin and Iso(2) splits, the iso variants of Lagrange and DG, and
+#: the same families unsplit; one macro program an element
+SPLIT_FAMILIES = ("RaviartThomas", "Nedelec", "BrezziDouglasMarini", "CrouzeixRaviart",
+                  "NedelecSecondKind", "Regge", "HellanHerrmannJohnson",
+                  "GopalakrishnanLedererSchoberlFirstKind",
+                  "GopalakrishnanLedererSchoberlSecondKind")
+SPLIT_TRI = (
+    tuple((fam, 1, split) for fam in SPLIT_FAMILIES
+          for split in ("alfeld", "powell-sabin", "powell-sabin(12)", "iso(2)"))
+    + tuple(("BrezziDouglasFortinMarini", 2, split)
+            for split in ("alfeld", "powell-sabin", "iso(2)"))
+    + tuple((fam, 3, split) for fam in ("RaviartThomas", "Nedelec")
+            for split in ("alfeld", "iso(2)"))
+    + (("Lagrange", 1, "iso"), ("Lagrange", 2, "iso(2)"), ("Lagrange", 3, "iso(3)"),
+       ("DiscontinuousLagrange", 1, "iso"))
+    + tuple((fam, 1, None) for fam in SPLIT_FAMILIES)
+    + (("BrezziDouglasFortinMarini", 2, None),))
+SPLIT_TET = (
+    tuple((fam, 1, "alfeld") for fam in SPLIT_FAMILIES)
+    + tuple((fam, 1, split)
+            for fam in ("RaviartThomas", "Nedelec", "CrouzeixRaviart", "NedelecSecondKind")
+            for split in ("worsey-farin", "powell-sabin", "iso(2)"))
+    + (("Lagrange", 1, "iso"), ("DiscontinuousLagrange", 1, "iso"))
+    + tuple((fam, 1, None) for fam in SPLIT_FAMILIES))
 #: the elements whose tables are held to host per alpha relative to
 #: max(1, max |table|) (fiat_tpu's own engine is 4.3e-10 from host on
 #: AlfeldC2 6, 2.3e-11 of that; tests/test_parity_sweep.py:39 holds it to
@@ -2258,8 +2303,13 @@ STOKES_HOST_RTOL = 1e-9
 #: the elements whose moments on HOST_CHECK_PTS points are held to their
 #: table bar times the sum of the weights, because their readings need more
 #: than HOST_ATOL (PERF.md §2: on the H100, AlfeldC2 5 1.0e-10, AlfeldC2 6
-#: 8.8e-9, Walkington 2.0e-10); every other element's are held to HOST_ATOL
-SUMMED_MOMENTS = ("AlfeldC2", "Walkington")
+#: 8.8e-9, Walkington 2.0e-10; RT 3 and Nedelec 3 on the Alfeld triangle,
+#: named with their split (``split_label``), 1.1e-10 and 9.4e-11 there and
+#: 1.12e-10 and 1.26e-10 on the CPU: a degree-3 collocation into the parent
+#: basis, as fiat_tpu's device route takes, at 3e-14 of their sums' scale);
+#: every other element's are held to HOST_ATOL
+SUMMED_MOMENTS = ("AlfeldC2", "Walkington", "RaviartThomas 3 AlfeldSplit",
+                  "Nedelec 3 AlfeldSplit")
 #: float32 macro rows held to a bar of their own, of max abs + 1 per alpha,
 #: about three times their readings (PERF.md §2: on the H100, AlfeldC2 5
 #: 5.1e-5, AlfeldC2 6 1.7e-3): AlfeldC2's change of basis cancels far below
@@ -2270,6 +2320,12 @@ F32_OWN_BARS = {"AlfeldC2 5": 2e-4, "AlfeldC2 6": 5e-3}
 def element_label(el):
     """An element's family and degree, as the bars above name it."""
     return f"{type(el).__name__} {el.degree()}"
+
+
+def split_label(el):
+    """``element_label`` and the complex the element's basis lives on, as
+    SUMMED_MOMENTS names a split variant."""
+    return f"{element_label(el)} {type(el.get_nodal_basis().get_reference_element()).__name__}"
 
 
 def table_bar(el, want):
@@ -2767,6 +2823,11 @@ def main():
                           (3, "stokes_elasticity_tet", lambda: stokes_zoo(3))],
                          dev, card, torch, np)
     lap("14-15")
+    kernels += zoo_phase([(sd, name, lambda sd=sd, specs=specs: families_zoo(
+        specs, (), ufc_simplex(sd))) for sd, name, specs in (
+            (2, "split_variants_tri", SPLIT_TRI), (3, "split_variants_tet", SPLIT_TET))],
+        dev, card, torch, np)
+    lap("16-17")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

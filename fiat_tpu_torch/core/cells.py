@@ -41,6 +41,17 @@ def multiindex_equal(d, total, imin=0):
     yield (imin,) * (d - 1) + (imax,)
 
 
+def lattice_iter(start, finish, depth):
+    """The depth-dimensional simplex lattice of integers in [start,
+    finish)."""
+    if depth == 0:
+        yield ()
+        return
+    for i in range(start, finish):
+        for rest in lattice_iter(start, finish - i, depth - 1):
+            yield rest + (i,)
+
+
 _LATTICE_FAMILIES = {"equispaced": "equi",
                      "equispaced_interior": "equi_interior",
                      "gll": "lgl"}

@@ -287,6 +287,10 @@ class ExpansionSet:
         self._dmats_cache = {}
         self._cell_node_map_cache = {}
 
+    def reconstruct(self, ref_el=None, scale=None, variant=None):
+        return ExpansionSet(ref_el or self.ref_el, scale=scale or self.scale,
+                            variant=variant or self.variant)
+
     def get_scale(self, n, cell=0):
         scale = self.scale
         sd = self.ref_el.get_spatial_dimension()
@@ -531,6 +535,8 @@ def polynomial_dimension(ref_el, n, continuity=None):
             raise ValueError("Only degree-0 polynomials on a point")
         return 1
     top = ref_el.get_topology()
+    if isinstance(continuity, dict):
+        return sum(len(continuity[dim][0]) * len(top[dim]) for dim in top)
     if continuity == "C0":
         return sum(math.comb(n - 1, dim) * len(top[dim]) for dim in top)
     dim = ref_el.get_spatial_dimension()
@@ -539,13 +545,16 @@ def polynomial_dimension(ref_el, n, continuity=None):
 
 def polynomial_entity_ids(ref_el, n, continuity=None):
     """{dim: {entity: [member ids]}}: C0 members sit on every entity,
-    discontinuous ones on the cells only."""
+    discontinuous ones on the cells only; a dict ``continuity`` (an
+    element's entity dofs) puts as many on each entity as it lists."""
     top = ref_el.get_topology()
     sd = ref_el.get_spatial_dimension()
     entity_ids = {}
     cur = 0
     for dim in sorted(top):
-        if continuity == "C0":
+        if isinstance(continuity, dict):
+            dofs, = set(len(continuity[dim][e]) for e in continuity[dim])
+        elif continuity == "C0":
             dofs = math.comb(n - 1, dim)
         else:
             dofs = math.comb(n + dim, dim) if dim == sd else 0

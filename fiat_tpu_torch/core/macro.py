@@ -1,15 +1,16 @@
-"""Macro elements: split simplicial complexes and C^k polynomial spaces on
+"""Macro elements: split simplicial complexes and polynomial spaces on
 them.
 
-Counterpart of ``fiat_tpu/core/macro.py`` (the parts the ``full_zoo``
-macro elements use): the Alfeld / Worsey-Farin / Powell-Sabin(6/12) splits
-with child<->parent entity maps and interior-facet lists, the composite
-quadrature rule, C^k-continuous polynomial spaces as the null space of
-weighted derivative-jump functionals on interior facets, and the
-H(div)-conforming vector and symmetric-tensor sets (vanishing normal jumps).
-``IsoSplit``, Piola pullbacks and ``MacroPolynomialSet`` are not ported
-yet.  Host float64 numpy throughout; tabulation of macro spaces on the
-device bins points to subcells (``expansions.partition_of_unity_masks``).
+Counterpart of ``fiat_tpu/core/macro.py``: the Alfeld / Worsey-Farin /
+Powell-Sabin(6/12) / Iso(k) splits with child<->parent entity maps and
+interior-facet lists, the composite quadrature rule, C^k-continuous
+polynomial spaces as the null space of weighted derivative-jump
+functionals on interior facets, the H(div)-conforming vector and
+symmetric-tensor sets (vanishing normal jumps), the Piola pullbacks, and
+``MacroPolynomialSet``, which tiles an element over every subcell of a
+complex.  Host float64 numpy throughout, in fiat_tpu's order of
+operations; tabulation of macro spaces on the device bins points to
+subcells (``expansions.partition_of_unity_masks``).
 """
 
 from itertools import chain, combinations
@@ -145,6 +146,41 @@ for _name, _attr in (("get_child_to_parent", "_child_to_parent"),
                      ("get_parent", "_parent_simplex"),
                      ("get_parent_complex", "_parent_complex")):
     setattr(SplitSimplicialComplex, _name, _attr_reader(_attr))
+
+
+class IsoSplit(SplitSimplicialComplex):
+    """Uniform split along a regular degree-k lattice (P2:P1 iso etc.)."""
+
+    def __init__(self, ref_el, degree=2, variant=None):
+        self.degree = degree
+        self.variant = variant
+        sd = ref_el.get_spatial_dimension()
+        new_verts = cl.make_lattice(ref_el.vertices, degree, variant=variant)
+
+        # edges of the refined lattice: every unit-box diagonal chain
+        flat_index = {alpha: i for i, alpha in
+                      enumerate(cl.lattice_iter(0, degree + 1, sd))}
+        edges = set()
+        corners = list(cl.lattice_iter(0, 2, sd))
+        for alpha in cl.lattice_iter(0, degree, sd):
+            box = [flat_index[tuple(a + b for a, b in zip(alpha, beta))]
+                   for beta in corners]
+            edges.update((min(u, v), max(u, v))
+                         for i, u in enumerate(box) for v in box[i + 1:])
+        if sd == 3:
+            # cut the central octahedron along one diagonal
+            if degree != 2:
+                raise NotImplementedError("3D IsoSplit needs degree 2")
+            diag = sorted((flat_index[(1, 0, 0)], flat_index[(0, 1, 1)]))
+            edges.add(tuple(diag))
+        topology = make_topology(sd, len(new_verts), edges)
+        super().__init__(ref_el, tuple(new_verts), topology)
+
+    def construct_subcomplex(self, dimension):
+        if dimension == self.get_dimension():
+            return self
+        sub = self.construct_subelement(dimension)
+        return sub if dimension == 0 else IsoSplit(sub, self.degree, self.variant)
 
 
 class PowellSabinSplit(SplitSimplicialComplex):
@@ -397,3 +433,66 @@ class HDivSymPolynomialSet(polyset.PolynomialSet):
         U = polyset.ONSymTensorPolynomialSet(ref_el, degree, **kwargs)
         super().__init__(ref_el, degree, degree, U.expansion_set,
                          hdiv_conforming_coefficients(U, order=order))
+
+
+_FORM_DEGREES = {
+    "affine": (0,),
+    "covariant piola": (1,),
+    "contravariant piola": (2,),
+    "double covariant piola": (1, 1),
+    "double contravariant piola": (2, 2),
+    "covariant contravariant piola": (1, 2),
+    "contravariant covariant piola": (2, 1)}
+
+
+def pullback(phi, mapping, J=None, Jinv=None, Jdet=None):
+    """Push reference tabulations to physical space by the named Piola
+    pullback.  ``phi`` may carry leading batch axes: the value axes are the
+    len(formdegree) axes after the first, and each is hit with one
+    tensordot against J^-T (1-forms) or J/detJ (2-forms)."""
+    if mapping not in _FORM_DEGREES:
+        raise ValueError(f"Unrecognized mapping {mapping}")
+    formdegree = _FORM_DEGREES[mapping]
+    if J is None:
+        J = np.linalg.pinv(Jinv)
+    if Jinv is None:
+        Jinv = np.linalg.pinv(J)
+    if Jdet is None:
+        Jdet = np.linalg.det(J)
+    factor = {0: None, 1: Jinv.T, 2: J / Jdet}
+    for axis, k in enumerate(formdegree, start=1):
+        if k:
+            phi = np.moveaxis(np.tensordot(phi, factor[k], axes=(axis, 1)), -1, axis)
+    return phi
+
+
+class MacroPolynomialSet(polyset.PolynomialSet):
+    """Tile a CiarletElement over every subcell of a complex (with the
+    appropriate Piola pullback per subcell)."""
+
+    def __init__(self, ref_el, element):
+        topo = ref_el.get_topology()
+        dim = ref_el.get_spatial_dimension()
+        mapping, = set(element.mapping())
+        base_cell = element.get_reference_element()
+        base_ids = element.entity_dofs()
+        n = element.degree()
+
+        es = element.get_nodal_basis().get_expansion_set().reconstruct(ref_el=ref_el)
+
+        shp = element.value_shape()
+        nbf = expansions.polynomial_dimension(ref_el, n, base_ids)
+        coeffs = np.zeros((nbf, *shp, es.get_num_members(n)))
+        base_coeffs = element.get_coeffs()
+
+        rmap = expansions.polynomial_cell_node_map(ref_el, n, base_ids)
+        cmap = es.get_cell_node_map(n)
+        cells = sorted(topo[dim])
+        # all subcell affine maps in one stacked build, pullbacks per cell
+        As = np.stack([cl.make_affine_mapping(
+            base_cell.vertices, ref_el.get_vertices_of_subcomplex(topo[dim][c]))[0]
+            for c in cells])
+        for c, A in zip(cells, As):
+            block = np.ix_(rmap[c], *map(range, shp), cmap[c])
+            coeffs[block] = pullback(base_coeffs, mapping, J=A)
+        super().__init__(ref_el, n, n, es, coeffs)

@@ -3,9 +3,11 @@
 Counterpart of ``fiat_tpu/core/variants.py``: a variant string is a comma
 list of at most two options, each a point or moment family ('equispaced',
 'gll', 'spectral', 'integral(q)', 'point', ...) or a macro split
-('Alfeld', 'Worsey-Farin', 'Powell-Sabin', 'Powell-Sabin(12)'), which
-comes back as the split constructor of ``core/macro.py``.  'Iso(k)' is
-recognised but raises ``NotImplementedError``: ``IsoSplit`` is not ported.
+('Alfeld', 'Worsey-Farin', 'Powell-Sabin', 'Powell-Sabin(12)', 'Iso',
+'Iso(k)'), which comes back as the split constructor of ``core/macro.py``
+('Iso(k)' as a constructor of the degree-k ``IsoSplit`` on the lattice of
+the string's point family).  Quadrature-scheme strings take a split
+prefix too.
 """
 
 import re
@@ -23,20 +25,15 @@ def _families(discontinuous):
 
 
 def _split_table():
-    from .macro import (AlfeldSplit, PowellSabin12Split, PowellSabinSplit,
+    from .macro import (AlfeldSplit, IsoSplit, PowellSabin12Split, PowellSabinSplit,
                         WorseyFarinSplit)
     return {
+        "iso": IsoSplit,
         "alfeld": AlfeldSplit,
         "worsey-farin": WorseyFarinSplit,
         "powell-sabin": PowellSabinSplit,
         "powell-sabin(12)": PowellSabin12Split,
     }
-
-
-def _refuse_iso(raw):
-    if raw.lower() == "iso" or re.fullmatch(r"iso\((\d+)\)", raw.lower()):
-        raise NotImplementedError(
-            f"Macro split {raw!r}: IsoSplit is not ported yet")
 
 
 def _parse_options(variant, families, default):
@@ -50,18 +47,27 @@ def _parse_options(variant, families, default):
         raise ValueError("At most two comma-separated variant options")
     splits = _split_table()
     splitting = None
+    iso_k = None
     family = families.get(default, default)
     for raw in options:
-        _refuse_iso(raw)
         opt = raw.lower()
+        iso_match = re.fullmatch(r"iso\((\d+)\)", opt)
         if opt in splits:
             splitting = splits[opt]
+        elif iso_match:
+            iso_k = int(iso_match.group(1))
         elif opt.startswith("integral"):
             family = opt
         elif opt in families:
             family = families[opt]
         else:
             raise ValueError(f"Illegal variant option {raw!r}")
+    if iso_k is not None:
+        # bind after the loop so the family option may come in either order
+        iso, k, fam = splits["iso"], iso_k, family
+
+        def splitting(T):
+            return iso(T, k, fam or "gll")
     return splitting, family
 
 
@@ -97,18 +103,19 @@ def check_format_variant(variant, degree):
 
 
 def parse_quadrature_scheme(ref_el, degree, quad_scheme=None):
-    """A quadrature rule from a scheme string; 'KMV(p)' takes the degree-p
-    KMV rule whatever the degree asked (splitting prefixes are not ported
-    yet)."""
+    """A quadrature rule from a scheme string, possibly with a split prefix
+    (matched as spelled: 'alfeld', 'iso', ...) or 'KMV(p)', which takes the
+    degree-p KMV rule whatever the degree asked."""
     from .quadrature_schemes import create_quadrature
+    splits = _split_table()
     scheme = None
     for opt in (quad_scheme or "").split(","):
-        _refuse_iso(opt)
-        if opt.lower() in _split_table():
-            raise NotImplementedError(
-                f"Quadrature scheme {opt!r}: split prefixes are not ported yet")
         kmv = re.fullmatch(r"KMV\((\d+)\)", opt)
-        if kmv:
-            degree, opt = int(kmv.group(1)), "KMV"
-        scheme = opt or scheme
+        if opt in splits:
+            ref_el = splits[opt](ref_el)
+        elif kmv:
+            degree = int(kmv.group(1))
+            scheme = "KMV"
+        else:
+            scheme = opt
     return create_quadrature(ref_el, degree, scheme or "default")

@@ -1,12 +1,14 @@
 """Brezzi-Douglas-Marini H(div): full (P_k)^d with scaled-normal facet
 moments and interior Nedelec moments.  Counterpart of
 ``fiat_tpu/elements/brezzi_douglas_marini.py``, on the declarative dual
-builder (split variants are not ported yet)."""
+builder; a split variant builds the element on the split complex
+(``MacroPolynomialSet``)."""
 
 import numpy as np
 
 from ..core import finite_element, functionals, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.variants import check_format_variant, parse_quadrature_scheme
 from .nedelec import Nedelec
 
@@ -50,12 +52,14 @@ class BrezziDouglasMarini(finite_element.CiarletElement):
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "BrezziDouglasMarini on a split complex needs MacroPolynomialSet, which is not ported yet")
+            ref_el = splitting(ref_el)
         if degree < 1:
             raise ValueError("BDM_k elements are only valid for k >= 1")
         sd = ref_el.get_spatial_dimension()
-        poly_set = polyset.ONPolynomialSet(ref_el, degree, (sd,))
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = polyset.ONPolynomialSet(ref_el, degree, (sd,))
 
         b = DualBuilder(ref_el)
         bdm_facet_duals(b, degree, variant, qdegree, quad_scheme)

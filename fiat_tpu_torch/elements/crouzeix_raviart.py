@@ -1,12 +1,14 @@
 """Crouzeix-Raviart: nonconforming P_k (odd degree) with facet
 barycentre/moment dofs.  Counterpart of
-``fiat_tpu/elements/crouzeix_raviart.py``, on the declarative dual builder
-(split variants are not ported yet)."""
+``fiat_tpu/elements/crouzeix_raviart.py``, on the declarative dual builder;
+a split variant builds the element on the split complex
+(``MacroPolynomialSet``)."""
 
 import numpy as np
 
 from ..core import finite_element, functionals, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.variants import check_format_variant, parse_quadrature_scheme
 
 
@@ -55,16 +57,18 @@ class CrouzeixRaviart(finite_element.CiarletElement):
             raise ValueError("Crouzeix-Raviart only defined for odd degree")
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "CrouzeixRaviart on a split complex needs MacroPolynomialSet, "
-                "which is not ported yet")
+            ref_el = splitting(ref_el)
         if degree > 1 and ref_el.get_spatial_dimension() != 2:
             raise NotImplementedError(
                 "High-order Crouzeix-Raviart is only implemented on "
                 "triangles.")
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = polyset.ONPolynomialSet(ref_el, degree)
         b = DualBuilder(ref_el)
         if variant == "integral":
             cr_moment_duals(b, degree, qdegree, quad_scheme)
         else:
             cr_point_duals(b, degree)
-        super().__init__(polyset.ONPolynomialSet(ref_el, degree), b.dual_set(), degree)
+        super().__init__(poly_set, b.dual_set(), degree)

@@ -1,10 +1,12 @@
 """Gopalakrishnan-Lederer-Schoberl: traceless tensors with continuous
 normal-tangential components (MCS Stokes).  Counterpart of
 ``fiat_tpu/elements/gopalakrishnan_lederer_schoberl.py``, on the
-declarative dual builder (split variants are not ported yet)."""
+declarative dual builder; a split variant builds the element on the split
+complex (``MacroPolynomialSet``)."""
 
 from ..core import expansions, finite_element, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.functionals import TensorBidirectionalIntegralMoment
 from ..core.variants import check_format_variant
 from .restricted import RestrictedElement
@@ -39,14 +41,15 @@ class GopalakrishnanLedererSchoberlSecondKind(finite_element.CiarletElement):
         splitting, variant, _ = check_format_variant(variant, degree)
         assert variant == "integral"
         if splitting is not None:
-            raise NotImplementedError(
-                "GopalakrishnanLedererSchoberlSecondKind on a split complex needs "
-                "MacroPolynomialSet, which is not ported yet")
+            ref_el = splitting(ref_el)
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = polyset.TracelessTensorPolynomialSet(ref_el, degree)
         b = DualBuilder(ref_el)
         nt_moment_duals(b, degree, quad_scheme)
         sd = ref_el.get_spatial_dimension()
-        super().__init__(polyset.TracelessTensorPolynomialSet(ref_el, degree),
-                         b.dual_set(), degree, (1, sd - 1),
+        super().__init__(poly_set, b.dual_set(), degree, (1, sd - 1),
                          mapping="covariant contravariant piola")
 
 

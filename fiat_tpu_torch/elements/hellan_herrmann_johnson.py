@@ -1,10 +1,12 @@
 """Hellan-Herrmann-Johnson: symmetric tensors with normal-normal
 continuity.  Counterpart of
 ``fiat_tpu/elements/hellan_herrmann_johnson.py``, on the declarative dual
-builder (split variants are not ported yet)."""
+builder; a split variant builds the element on the split complex
+(``MacroPolynomialSet``)."""
 
 from ..core import finite_element, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.functionals import (ComponentPointEvaluation,
                                 PointwiseInnerProductEvaluation,
                                 TensorBidirectionalIntegralMoment)
@@ -71,9 +73,11 @@ class HellanHerrmannJohnson(finite_element.CiarletElement):
             raise ValueError("HHJ only defined for degree >= 0")
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "HellanHerrmannJohnson on a split complex needs MacroPolynomialSet, "
-                "which is not ported yet")
+            ref_el = splitting(ref_el)
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = polyset.ONSymTensorPolynomialSet(ref_el, degree)
         sd = ref_el.get_spatial_dimension()
         b = DualBuilder(ref_el)
         normals = [ref_el.compute_scaled_normal(f)
@@ -84,6 +88,5 @@ class HellanHerrmannJohnson(finite_element.CiarletElement):
         else:
             nn_moment_duals(b, degree, qdegree, quad_scheme, normals,
                             cell_faces)
-        super().__init__(polyset.ONSymTensorPolynomialSet(ref_el, degree),
-                         b.dual_set(), degree, (sd - 1, sd - 1),
+        super().__init__(poly_set, b.dual_set(), degree, (sd - 1, sd - 1),
                          mapping="double contravariant piola")

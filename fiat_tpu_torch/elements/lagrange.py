@@ -43,8 +43,8 @@ def LagrangeDualSet(ref_el, degree, point_variant="equispaced",
 class Lagrange(finite_element.CiarletElement):
     """The Lagrange element.  ``variant`` may combine a point distribution
     ('equispaced', 'gll', 'spectral', ...) and a macro splitting ('Alfeld',
-    'Worsey-Farin', 'Powell-Sabin', 'Powell-Sabin(12)'): on a split, the C0
-    bubble expansion set of the complex."""
+    'Worsey-Farin', 'Powell-Sabin', 'Powell-Sabin(12)', 'Iso', 'Iso(k)'):
+    on a split, the C0 bubble expansion set of the complex."""
 
     def __init__(self, ref_el, degree, variant="equispaced", sort_entities=False):
         splitting, point_variant = parse_lagrange_variant(variant)

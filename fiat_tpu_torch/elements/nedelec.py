@@ -1,12 +1,13 @@
-"""First-kind Nedelec H(curl): N1_k = (P_{k-1})^d + S_k, with edge
-tangent, face tangential, and interior moments.  Counterpart of
-``fiat_tpu/elements/nedelec.py``, on the declarative dual builder (split
-variants are not ported yet)."""
+"""First-kind Nedelec H(curl): N1_k = (P_{k-1})^d + S_k, with edge tangent,
+face tangential, and interior moments.  Counterpart of
+``fiat_tpu/elements/nedelec.py``, on the declarative dual builder; a split
+variant builds the element on the split complex (``MacroPolynomialSet``)."""
 
 import numpy as np
 
 from ..core import expansions, finite_element, functionals, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.quadrature_schemes import create_quadrature
 from ..core.variants import check_format_variant
 
@@ -119,10 +120,11 @@ class Nedelec(finite_element.CiarletElement):
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "Nedelec on a split complex needs MacroPolynomialSet, which is not ported yet")
+            ref_el = splitting(ref_el)
         sd = ref_el.get_spatial_dimension()
-        if sd == 3:
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        elif sd == 3:
             poly_set = NedelecSpace3D(ref_el, degree)
         elif sd == 2:
             poly_set = NedelecSpace2D(ref_el, degree)

@@ -1,7 +1,8 @@
-"""Second-kind Nedelec H(curl): full (P_k)^d with edge tangent
-evaluations and facet/cell RT moments.  Counterpart of
+"""Second-kind Nedelec H(curl): full (P_k)^d with edge tangent evaluations
+and facet/cell RT moments.  Counterpart of
 ``fiat_tpu/elements/nedelec_second_kind.py``, on the declarative dual
-builder (split variants are not ported yet)."""
+builder; a split variant builds the element on the split complex
+(``MacroPolynomialSet``)."""
 
 import numpy as np
 
@@ -9,6 +10,7 @@ from ..core.dual_builder import DualBuilder
 from ..core.finite_element import CiarletElement
 from ..core.functionals import (FrobeniusIntegralMoment,
                                 PointEdgeTangentEvaluation)
+from ..core.macro import MacroPolynomialSet
 from ..core.polyset import ONPolynomialSet
 from ..core.variants import check_format_variant, parse_quadrature_scheme
 from .raviart_thomas import RaviartThomas
@@ -42,15 +44,17 @@ class NedelecSecondKind(CiarletElement):
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "NedelecSecondKind on a split complex needs MacroPolynomialSet, "
-                "which is not ported yet")
+            ref_el = splitting(ref_el)
         if degree < 1:
             raise ValueError("Second-kind Nedelecs start at 1!")
         sd = ref_el.get_spatial_dimension()
         if sd not in (2, 3):
             raise ValueError(
                 "Second-kind Nedelecs only implemented in 2/3D.")
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = ONPolynomialSet(ref_el, degree, (sd,))
 
         b = DualBuilder(ref_el)
         if qdegree is None:
@@ -64,5 +68,4 @@ class NedelecSecondKind(CiarletElement):
         for dim in range(2, sd + 1):
             n2_rt_moment_duals(b, dim, degree, variant, qdegree,
                                quad_scheme)
-        super().__init__(ONPolynomialSet(ref_el, degree, (sd,)), b.dual_set(),
-                         degree, 1, mapping="covariant piola")
+        super().__init__(poly_set, b.dual_set(), degree, 1, mapping="covariant piola")

@@ -1,10 +1,12 @@
 """Raviart-Thomas H(div): RT_k = (P_{k-1})^d + x P^H_{k-1}, with
 scaled-normal facet dofs and interior vector moments.  Counterpart of
-``fiat_tpu/elements/raviart_thomas.py``, on the declarative dual builder
-(split variants are not ported yet)."""
+``fiat_tpu/elements/raviart_thomas.py``, on the declarative dual builder; a
+split variant builds the element on the split complex
+(``MacroPolynomialSet``)."""
 
 from ..core import expansions, finite_element, functionals, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.quadrature_schemes import create_quadrature
 from ..core.variants import check_format_variant
 
@@ -77,9 +79,11 @@ class RaviartThomas(finite_element.CiarletElement):
     def __init__(self, ref_el, degree, variant=None, quad_scheme=None):
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "RaviartThomas on a split complex needs MacroPolynomialSet, which is not ported yet")
-        poly_set = RTSpace(ref_el, degree)
+            ref_el = splitting(ref_el)
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = RTSpace(ref_el, degree)
         b = DualBuilder(ref_el)
         if variant == "integral":
             rt_moment_duals(b, degree, qdegree, quad_scheme)

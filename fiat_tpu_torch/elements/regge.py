@@ -1,9 +1,11 @@
 """Generalized Regge: symmetric tensors with tangential-tangential
 continuity.  Counterpart of ``fiat_tpu/elements/regge.py``, on the
-declarative dual builder (split variants are not ported yet)."""
+declarative dual builder; a split variant builds the element on the split
+complex (``MacroPolynomialSet``)."""
 
 from ..core import finite_element, polyset
 from ..core.dual_builder import DualBuilder
+from ..core.macro import MacroPolynomialSet
 from ..core.functionals import (PointwiseInnerProductEvaluation,
                                 TensorBidirectionalIntegralMoment)
 from ..core.variants import check_format_variant
@@ -39,10 +41,12 @@ class Regge(finite_element.CiarletElement):
             raise ValueError("Regge only defined for degree >= 0")
         splitting, variant, qdegree = check_format_variant(variant, degree)
         if splitting is not None:
-            raise NotImplementedError(
-                "Regge on a split complex needs MacroPolynomialSet, which is not ported yet")
+            ref_el = splitting(ref_el)
+        if ref_el.is_macrocell():
+            poly_set = MacroPolynomialSet(ref_el, type(self)(ref_el.get_parent(), degree))
+        else:
+            poly_set = polyset.ONSymTensorPolynomialSet(ref_el, degree)
         b = DualBuilder(ref_el)
         tt_duals(b, degree, variant, qdegree, quad_scheme)
-        super().__init__(polyset.ONSymTensorPolynomialSet(ref_el, degree),
-                         b.dual_set(), degree, (1, 1),
+        super().__init__(poly_set, b.dual_set(), degree, (1, 1),
                          mapping="double covariant piola")

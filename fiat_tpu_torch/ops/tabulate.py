@@ -52,7 +52,21 @@ class MacroSideProgram:
     def __init__(self, es, degree, members, alphas):
         """:arg members: [(element_index, flat_coeffs (rows_e, num_phis))]
         :arg alphas: derivative multi-indices (the (0,..,0) value entry
-        first)."""
+        first).
+
+        A program of embedded degree 0 (DG 0, Regge 0 or HHJ 0 on a split)
+        raises ``NotImplementedError``: fiat_tpu collocates the subcell
+        basis on a degree-max(degree, 1) lattice against the degree-0
+        parent basis, a non-square solve that fails there with a
+        ``LinAlgError`` (``fiat_tpu/ops/tabulate.py:181-187``), so neither
+        package's engines take it; such an element tabulates on the host."""
+        if degree == 0:
+            raise NotImplementedError(
+                f"MacroSideProgram: a macro program of embedded degree 0 on "
+                f"{type(es.ref_el).__name__}; fiat_tpu's engine collocates it on a degree-1 "
+                "lattice against the one-member parent basis (a non-square solve, "
+                "fiat_tpu/ops/tabulate.py:181-187), so no engine runs it: tabulate such an "
+                "element on the host")
         self.es = es
         self.degree = degree
         self.alphas = list(alphas)

@@ -60,8 +60,10 @@ def test_variants_and_unported_splits():
     el = tfe.Lagrange(T, 2, variant="alfeld")
     assert el.is_macroelement() and el.entity_dofs() == ref.entity_dofs()
     assert np.abs(el.get_coeffs() - np.asarray(ref.get_coeffs())).max() <= TOL
-    with pytest.raises(NotImplementedError, match="IsoSplit"):
-        tfe.Lagrange(T, 2, variant="iso(2)")
+    ref = jfe.Lagrange(jcl.ufc_simplex(2), 2, variant="iso(2)")
+    el = tfe.Lagrange(T, 2, variant="iso(2)")
+    assert el.is_macroelement() and el.entity_dofs() == ref.entity_dofs()
+    assert np.array_equal(el.get_coeffs(), np.asarray(ref.get_coeffs()))
     with pytest.raises(ValueError):
         tfe.Lagrange(T, 2, variant="nonsense")
 
@@ -111,8 +113,10 @@ def test_moment_variants_and_unported_splits():
     ref = jfe.RaviartThomas(jcl.ufc_simplex(2), 2, variant="integral(1)")
     el = tfe.RaviartThomas(T, 2, variant="integral(1)")
     assert np.abs(el.get_coeffs() - np.asarray(ref.get_coeffs())).max() <= TOL
-    with pytest.raises(NotImplementedError):
-        tfe.RaviartThomas(T, 2, variant="integral,alfeld")
+    ref = jfe.RaviartThomas(jcl.ufc_simplex(2), 2, variant="integral,alfeld")
+    el = tfe.RaviartThomas(T, 2, variant="integral,alfeld")
+    assert el.is_macroelement() and el.entity_dofs() == ref.entity_dofs()
+    assert np.array_equal(el.get_coeffs(), np.asarray(ref.get_coeffs()))
     with pytest.raises(ValueError):
         tfe.Nedelec(T, 2, variant="nonsense")
 

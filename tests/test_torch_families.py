@@ -334,11 +334,14 @@ SPLITS = [(fam, sd, deg) for fam, deg in
 @pytest.mark.parametrize("family,sd,degree", SPLITS)
 @pytest.mark.parametrize("split", ["alfeld", "worsey-farin", "powell-sabin"])
 def test_split_variants_raise_naming_macro_polynomial_set(family, sd, degree, split):
-    """A split variant reaches MacroPolynomialSet, which is not ported: it
-    raises by name (BDFM through BDM)."""
+    """A split variant builds the element on the split complex through
+    MacroPolynomialSet (BDFM through BDM), as fiat_tpu's does: bit for bit
+    (tests/test_torch_split_variants.py covers every split and degree)."""
     variant = split if family == "CrouzeixRaviart" else f"integral,{split}"
-    with pytest.raises(NotImplementedError, match="MacroPolynomialSet"):
-        getattr(ft, family)(tcl.ufc_simplex(sd), degree, variant=variant)
+    want = getattr(jfe, family)(jcl.ufc_simplex(sd), degree, variant=variant)
+    got = getattr(ft, family)(tcl.ufc_simplex(sd), degree, variant=variant)
+    assert got.is_macroelement() and want.is_macroelement()
+    _same_element(want, got)
 
 
 @pytest.mark.parametrize("family", ["GaussRadau", "GaussLegendre", "CrouzeixRaviart"])

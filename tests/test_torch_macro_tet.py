@@ -19,6 +19,7 @@ from fiat_tpu import elements as jfe
 from fiat_tpu.core import cells as jcl
 from fiat_tpu.core import expansions as jexp
 from fiat_tpu.core import macro as jmacro
+from fiat_tpu.core.variants import parse_lagrange_variant as jparse_lagrange_variant
 from fiat_tpu.ops.pallas_multiword import FusedZooTabulator as JFusedZooTabulator
 from fiat_tpu.ops.tabulate import BatchedTabulator as JBatchedTabulator
 from fiat_tpu_torch import device_tabulator
@@ -120,9 +121,15 @@ def test_variants_return_split_constructors_and_refuse_iso():
         assert parse_lagrange_variant(f"gl,{name}", discontinuous=True) == (split, "gl")
     with pytest.raises(ValueError, match="not unisolvent"):
         parse_lagrange_variant("equispaced,alfeld", discontinuous=True)
-    for iso in ("iso", "Iso(2)", "equispaced,iso(3)"):
-        with pytest.raises(NotImplementedError, match="IsoSplit"):
-            parse_lagrange_variant(iso)
+    # Iso splits, as fiat_tpu's (a tetrahedron takes degree 2 only)
+    for iso, sd in (("iso", 3), ("Iso(2)", 3), ("equispaced,iso(3)", 2)):
+        split, family = parse_lagrange_variant(iso)
+        j_split, j_family = jparse_lagrange_variant(iso)
+        assert family == j_family and split.__name__ == j_split.__name__
+        got, want = split(tcl.ufc_simplex(sd)), j_split(jcl.ufc_simplex(sd))
+        assert type(got).__name__ == type(want).__name__ == "IsoSplit"
+        assert np.array_equal(np.asarray(got.get_vertices()), np.asarray(want.get_vertices()))
+        assert got.get_topology() == want.get_topology()
     # degree 0 on a split is one constant per subcell, not P0
     dg0 = tfe.DiscontinuousLagrange(tcl.ufc_simplex(3), 0, variant="alfeld")
     assert type(dg0).__name__ == "DiscontinuousLagrange" and dg0.space_dimension() == 4
