@@ -8,7 +8,10 @@
 // lambda_cj) is the L1 distance to it, and the subcell takes the point when
 // dist_c <= dist_parent + tol (1e-12 in float64, 1e-5 in float32).  A
 // program whose basis is C0 at order 0 keeps the first hit in subcell order;
-// every other program averages over its hits, recip = 1 / (number of hits).
+// every other program averages over its hits, recip = 1 / (number of hits
+// over the whole program).  A program's masks are as many 32-bit words as
+// it has pieces over 32 (``piece_bits`` gives one word, ``rule_word``
+// applies the rule word by word), so a program has no cap on its subcells.
 //
 // Every operation is rounded on its own (no FMA contraction), in the order
 // fiat_tpu_torch/core/expansions.py:subcell_masks computes the float32
@@ -60,30 +63,41 @@ __device__ __forceinline__ T parent_bound(const T* __restrict__ maps, const T* x
   return add_rn(l1_distance<SD>(maps, x), tol);
 }
 
-// Bit c - c0 of the result is the mask of piece c, for c0 <= c < c1: the
-// pieces of one program, at most 32 (the wrappers check it; a zoo may have
-// any number of programs, and each kernel bins a point program by program).
+// Word w of a program's masks: bit i is the mask of piece c0 + 32 w + i,
+// for the pieces [c0 + 32 w, min(c1, c0 + 32 w + 32)).  A program of P
+// pieces has words_of(P) words, so it may have any number of pieces; a zoo
+// may have any number of programs, and each kernel bins a point program by
+// program.
+__host__ __device__ constexpr int words_of(int npieces) { return (npieces + 31) / 32; }
+
 template <int SD, class T>
-__device__ __forceinline__ unsigned piece_bits(const T* __restrict__ maps, int c0, int c1,
+__device__ __forceinline__ unsigned piece_bits(const T* __restrict__ maps, int c0, int c1, int w,
                                                const T* x, T best) {
   unsigned near = 0u;
-  for (int c = c0; c < c1; ++c) {
-    if (l1_distance<SD>(maps + (SD + 1) * (SD + 1) * (c + 1), x) <= best) near |= 1u << (c - c0);
+  const int lo = c0 + 32 * w, hi = min(c1, lo + 32);
+  for (int c = lo; c < hi; ++c) {
+    if (l1_distance<SD>(maps + (SD + 1) * (SD + 1) * (c + 1), x) <= best) near |= 1u << (c - lo);
   }
   return near;
 }
 
-// A program's rule on its masks (one word from ``piece_bits``): the first
-// hit alone for a unique program, else every hit times recip = 1 / (number
-// of hits).
+// A program's rule, applied to its words in subcell order: ``bits`` is word
+// w's ``piece_bits`` and ``kept`` the hits kept in the words before it (0
+// before the first).  A unique program keeps its first hit alone (the
+// lowest bit of the first word that has one; every later word is cleared),
+// any other program every hit.  Returns the word's kept bits and adds
+// their count to ``kept``.
+__device__ __forceinline__ unsigned rule_word(unsigned bits, int unique, int& kept) {
+  if (unique) bits = kept ? 0u : bits & (0u - bits);
+  kept += __popc(bits);
+  return bits;
+}
+
+// The factor of a program's sums once all its words are in: 1 for a unique
+// program, else recip = 1 / (hits over the whole program).
 template <class T>
-__device__ __forceinline__ unsigned program_rule(unsigned mk, int unique, T& recip) {
-  if (unique) {
-    recip = T(1);
-    return mk & (0u - mk);  // the first hit in subcell order
-  }
-  recip = T(1) / static_cast<T>(__popc(mk));
-  return mk;
+__device__ __forceinline__ T program_recip(int kept, int unique) {
+  return unique ? T(1) : T(1) / static_cast<T>(kept);
 }
 
 }  // namespace fiat

@@ -39,7 +39,13 @@
 //     pair), and deal each warp's 32 points to its lanes in the order of
 //     their first subcell, through shared memory: lanes next to each other
 //     then read the same columns of A (fewer addresses a quarter), while a
-//     warp's stores still cover its 32 contiguous points;
+//     warp's stores still cover its 32 contiguous points.  A program's masks
+//     are words_of(P) words a point (binning.cuh), kept in shared memory by
+//     point slot ([word][TP]: the binning thread writes its own point's
+//     column, the multiplying thread reads the column of the point it was
+//     dealt), so a program may have any number of subcells; the sort key is
+//     the index of the point's first hit in the program (P for a dead
+//     point), ranked over the bits it needs;
 //   - the block's Phi prefix (kmax rows x TP points) is staged in shared
 //     memory once, by bulk copies (cp.async.bulk, bulk_copy.cuh) of each
 //     row's TP contiguous doubles on one mbarrier (plain loads on a ragged
@@ -67,11 +73,15 @@
 // point (on a face between subcells) gets its pieces in (c, k) order where
 // the slices hold whole chunks, and interleaved by runs of k otherwise.
 //
-// Slice table (built by fiat_tpu_torch/ops/masked_matmul.py:slice_table):
-//   slices[SLICE_COLS*q + {0..7}]  slice q: program g, first row, rows (<= RC),
+// Slice table (built by fiat_tpu_torch/ops/macro_oneshot.py:slice_table,
+// K3's layout):
+//   slices[SLICE_COLS*q + {0..10}]  slice q: program g, first row, rows (<= RC),
 //       first k, end k, offset of its block in At (in doubles), pieces P of
 //       the program, flags (FIRST_IN_CHUNK, LAST_IN_CHUNK, FIRST_IN_PROGRAM,
-//       SAME_BINS: the program's split and rule are the last program's)
+//       SAME_BINS: the program's split and rule are the last program's),
+//       doubles of its block, the program's first piece and rule (K3's;
+//       this kernel reads them from progs, which kept it within 80
+//       registers at sd = 3 where the slice's copies did not)
 //   At[offset + ((k - first k) * P + j) * RCP + r] = A[first row + r, off_(c0 + j) + k]
 //       for k < nexp_(c0 + j), r < rows; zeros elsewhere.
 // Geometry tables (maps, progs, pieces): binning.cuh.
@@ -90,7 +100,7 @@ constexpr int RC = 32;       // rows per chunk (csrc and masked_matmul.py agree)
 constexpr int RCP = RC + 2;  // doubles per staged column
 constexpr int G = 8;         // rows a chunk skips at a time past its last row
 constexpr int STAGES = 4;    // the most buffers in the ring
-constexpr int SLICE_COLS = 8;
+constexpr int SLICE_COLS = 11;
 constexpr int FIRST_IN_CHUNK = 1, LAST_IN_CHUNK = 2, FIRST_IN_PROGRAM = 4, SAME_BINS = 8;
 
 constexpr int HALVES = 2;    // threads a point, each RC / HALVES rows of a chunk
@@ -115,16 +125,19 @@ struct Params {
   const double* phi;  // (>= kmax, npts)
   int kmax;           // Phi rows staged: the widest piece
   int slice_cols, stages;
+  int words;          // mask words a point: words_of(the widest program)
   double* out;
 };
 
 // Shared memory of a block of tp points: the Phi tile, the ring, every
-// point slot's sorted point, masks and factor, and the ring's two mbarriers
-// and counter a buffer plus the Phi tile's mbarrier.
-__host__ __device__ constexpr size_t smem_bytes(int kmax, int tp, int slice_cols, int stages) {
+// point slot's factor, sorted point and mask words, and the ring's two
+// mbarriers and counter a buffer plus the Phi tile's mbarrier.
+__host__ __device__ constexpr size_t smem_bytes(int kmax, int tp, int slice_cols, int stages,
+                                                int words) {
   return sizeof(double) * (static_cast<size_t>(kmax) * tp +
                            static_cast<size_t>(stages) * slice_cols * RCP + tp) +
-         2 * sizeof(int) * static_cast<size_t>(tp) + sizeof(uint64_t) * (3 * STAGES + 1);
+         sizeof(int) * static_cast<size_t>(tp) * (1 + words) +
+         sizeof(uint64_t) * (3 * STAGES + 1);
 }
 
 // A piece's columns k = kb .. ke - 1 of a slice (column k at Aj + (k - kb) *
@@ -147,13 +160,12 @@ __device__ __forceinline__ void multiply(double (&acc)[RT], const double* __rest
   }
 }
 
-// The rank of this lane's key (0..31) among the warp's, ties by lane: the
-// lanes in key order.
-__device__ __forceinline__ int warp_rank(unsigned key, int lane) {
+// The rank of this lane's key (below 2^bits) among the warp's, ties by
+// lane: the lanes in key order.
+__device__ __forceinline__ int warp_rank(unsigned key, int lane, int bits) {
   unsigned same = ~0u;
   int less = 0;
-#pragma unroll
-  for (int b = 4; b >= 0; --b) {
+  for (int b = bits - 1; b >= 0; --b) {
     const unsigned ones = __ballot_sync(~0u, (key >> b) & 1u);
     if ((key >> b) & 1u) {
       less += __popc(same & ~ones);
@@ -178,8 +190,8 @@ masked_matmul_kernel(const __grid_constant__ Params q) {
   const size_t buf = static_cast<size_t>(q.slice_cols) * RCP;
   double* recips = As + q.stages * buf;                       // [TP]: each slot's factor
   int* slots = reinterpret_cast<int*>(recips + TP);           // [TP]: each slot's point
-  int* masks = slots + TP;                                    // [TP]: each slot's masks
-  uint64_t* full = reinterpret_cast<uint64_t*>(masks + TP);   // [STAGES]
+  unsigned* masks = reinterpret_cast<unsigned*>(slots + TP);  // [words][TP]: by point slot
+  uint64_t* full = reinterpret_cast<uint64_t*>(masks + q.words * TP);  // [STAGES]
   uint64_t* empty = full + STAGES;                                // [STAGES]
   uint64_t* phibar = empty + STAGES;                              // [1]
   unsigned* done = reinterpret_cast<unsigned*>(phibar + 1);       // [STAGES]
@@ -195,9 +207,7 @@ masked_matmul_kernel(const __grid_constant__ Params q) {
   // slice t into ring buffer s, completing on its mbarrier: one contiguous copy
   auto fetch = [&](int t, int s) {
     const int* sl = q.slices + SLICE_COLS * t;
-    fiat::bulk_copy(As + s * buf, q.At + __ldg(sl + 5),
-                    sizeof(double) * (__ldg(sl + 4) - __ldg(sl + 3)) * __ldg(sl + 6) * RCP,
-                    full + s);
+    fiat::bulk_copy(As + s * buf, q.At + __ldg(sl + 5), sizeof(double) * __ldg(sl + 8), full + s);
   };
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -234,41 +244,44 @@ masked_matmul_kernel(const __grid_constant__ Params q) {
   // the point the thread multiplies: after each binning the warp's 32 points
   // are dealt to its lanes in the order of their first subcell, so lanes
   // next to each other read the same columns of A (the stores still cover
-  // the warp's 32 contiguous points)
+  // the warp's 32 contiguous points); its masks in the program are
+  // masks[w * TP + slot], bit i of word w for piece c0 + 32 w + i, and its
+  // factor recips[slot].  The program's pieces and words are read again
+  // for each slice and the factor at each store, so that only the slot and
+  // the accumulators live across slices (within 80 registers at sd = 3)
   int slot = pt;
-  unsigned mk = 0u;  // that point's masks in the program: bit j for piece c0 + j
-  double recip = 1.0;
-  int c0 = 0;
   double acc[RT];
   for (int t = 0; t < nslices; ++t) {
     const int* sl = q.slices + SLICE_COLS * t;
     const int flags = __ldg(sl + 7);
     const int row0 = __ldg(sl + 1), nrows = __ldg(sl + 2);
     const int k0 = __ldg(sl + 3), k1 = __ldg(sl + 4), np = __ldg(sl + 6);
+    const int g = __ldg(sl), c0 = __ldg(q.progs + 5 * g + 2);
+    const int npc = __ldg(q.progs + 5 * g + 3) - c0;
     if (flags & FIRST_IN_PROGRAM) {
       // 1. binning, once per program (a program on the split and rule of the
       //    one before keeps its masks), and the warp's points sorted by it
-      const int g = __ldg(sl);
-      c0 = __ldg(q.progs + 5 * g + 2);
       if (!(flags & SAME_BINS)) {
-        __syncthreads();  // every thread has read the last program's slots
+        __syncthreads();  // every thread has read the last program's slots and masks
         if (half == 0) {
-          const int c1 = __ldg(q.progs + 5 * g + 3);
-          double r_own = 1.0;
-          const unsigned mk_own =
-              own_live ? fiat::program_rule(fiat::piece_bits<SD>(q.maps, c0, c1, x, best),
-                                            __ldg(q.progs + 5 * g + 4), r_own)
-                       : 0u;
-          const unsigned key = mk_own ? __ffs(mk_own) - 1 : 31u;  // dead points last
-          const int at = (pt & ~31) + warp_rank(key, lane);
+          // this thread's point, word by word into its own column; its key
+          // is its first hit in the program (npc: none, or a dead point)
+          const int unique = __ldg(q.progs + 5 * g + 4);
+          int kept = 0, key = npc;
+          for (int w = 0; w < fiat::words_of(npc); ++w) {
+            const unsigned bits =
+                own_live ? fiat::rule_word(fiat::piece_bits<SD>(q.maps, c0, c0 + npc, w, x, best),
+                                           unique, kept)
+                         : 0u;
+            if (bits && key == npc) key = 32 * w + __ffs(bits) - 1;
+            masks[w * TP + pt] = bits;
+          }
+          const int at = (pt & ~31) + warp_rank(key, lane, 32 - __clz(npc));
           slots[at] = pt;
-          masks[at] = static_cast<int>(mk_own);
-          recips[at] = r_own;
+          recips[pt] = fiat::program_recip<double>(kept, unique);
         }
         __syncthreads();
         slot = slots[pt];
-        mk = static_cast<unsigned>(masks[pt]);
-        recip = recips[pt];
       }
     }
     if (flags & FIRST_IN_CHUNK) {
@@ -286,16 +299,18 @@ masked_matmul_kernel(const __grid_constant__ Params q) {
       const double* Ab = As + s * buf + half * RT;
       const double* f = Bs + slot;
       const int groups = (rows + G - 1) / G, stride = np * RCP;
-      unsigned m = mk;
-      while (m) {
-        const int j = __ffs(m) - 1;
-        m &= m - 1u;
-        const int ke = min(__ldg(q.pieces + 2 * (c0 + j) + 1), k1);
-        const double* Aj = Ab + j * RCP;
-        if (groups == 2) {
-          multiply<2, TP>(acc, Aj, stride, f, k0, ke);
-        } else {
-          multiply<1, TP>(acc, Aj, stride, f, k0, ke);
+      for (int w = 0; 32 * w < npc; ++w) {
+        unsigned m = masks[w * TP + slot];
+        while (m) {
+          const int j = 32 * w + __ffs(m) - 1;
+          m &= m - 1u;
+          const int ke = min(__ldg(q.pieces + 2 * (c0 + j) + 1), k1);
+          const double* Aj = Ab + j * RCP;
+          if (groups == 2) {
+            multiply<2, TP>(acc, Aj, stride, f, k0, ke);
+          } else {
+            multiply<1, TP>(acc, Aj, stride, f, k0, ke);
+          }
         }
       }
     }
@@ -314,6 +329,7 @@ masked_matmul_kernel(const __grid_constant__ Params q) {
     }
 
     if ((flags & LAST_IN_CHUNK) && p0 + slot < npts) {
+      const double recip = recips[slot];
       double* o = q.out + static_cast<size_t>(row0 + half * RT) * ld + p0 + slot;
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
@@ -348,7 +364,7 @@ cudaError_t prepare(size_t bytes) {
 // CUDA error on failure).
 template <int SD, int TP>
 int run(const Params& q, bool occupancy, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(q.kmax, TP, q.slice_cols, q.stages);
+  const size_t bytes = smem_bytes(q.kmax, TP, q.slice_cols, q.stages, q.words);
   cudaError_t err = prepare<SD, TP>(bytes);
   int blocks = 0;
   if (err == cudaSuccess) {
@@ -379,25 +395,27 @@ int by_tile(const Params& q, int tp, bool occupancy, cudaStream_t s) {
   }
 }
 
-bool valid(int sd, int kmax, int slice_cols, int stages) {
-  return (sd == 2 || sd == 3) && kmax >= 1 && slice_cols >= 1 && stages >= 1 && stages <= STAGES;
+bool valid(int sd, int kmax, int slice_cols, int stages, int words) {
+  return (sd == 2 || sd == 3) && kmax >= 1 && slice_cols >= 1 && stages >= 1 &&
+         stages <= STAGES && words >= 1;
 }
 
 }  // namespace
 
+// words: the mask words of the widest program (words_of its pieces).
 // Return the CUDA error code of the launch (0 on success);
 // cudaErrorInvalidValue for sd other than 2 or 3, a point tile other than
-// 64, 128 or 256, no slices, or a ring past STAGES (the wrapper checks them
-// first).
+// 64, 128 or 256, no slices, no words or a ring past STAGES (the wrapper
+// checks them first).
 extern "C" int fiat_masked_matmul(const double* pts, int npts, int sd, double tol,
                                   const double* maps, const int* progs, const int* pieces,
                                   const int* slices, int nslices, const double* At,
                                   const double* phi, int kmax, double* out, int tp,
-                                  int slice_cols, int stages, void* stream) {
-  if (!valid(sd, kmax, slice_cols, stages) || nslices < 1)
+                                  int slice_cols, int stages, int words, void* stream) {
+  if (!valid(sd, kmax, slice_cols, stages, words) || nslices < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params q{pts, npts, tol, maps, progs, pieces, slices, nslices, At, phi, kmax,
-                 slice_cols, stages, out};
+                 slice_cols, stages, words, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return sd == 2 ? by_tile<2>(q, tp, false, s) : by_tile<3>(q, tp, false, s);
 }
@@ -405,9 +423,10 @@ extern "C" int fiat_masked_matmul(const double* pts, int npts, int sd, double to
 // Blocks of the plan an SM holds at once (registers and shared memory), or
 // minus the CUDA error.
 extern "C" int fiat_masked_matmul_occupancy(int sd, int kmax, int tp, int slice_cols,
-                                            int stages) {
-  if (!valid(sd, kmax, slice_cols, stages)) return -static_cast<int>(cudaErrorInvalidValue);
+                                            int stages, int words) {
+  if (!valid(sd, kmax, slice_cols, stages, words))
+    return -static_cast<int>(cudaErrorInvalidValue);
   const Params q{nullptr, 0, 0.0, nullptr, nullptr, nullptr, nullptr, 0, nullptr, nullptr,
-                 kmax, slice_cols, stages, nullptr};
+                 kmax, slice_cols, stages, words, nullptr};
   return sd == 2 ? by_tile<2>(q, tp, true, nullptr) : by_tile<3>(q, tp, true, nullptr);
 }

@@ -49,20 +49,26 @@
 //     the same launch.  The tickets are left 0.  The order of every sum
 //     depends on the launch's shape only, so two calls give identical bits.
 //
-// Binning is program by program (binning.cuh piece_bits, at most 32 pieces
-// a program), so a zoo may have any number of subcells in all: per tile the
-// warp keeps one 32-point mask per piece (a ballot) and, per program, each
-// point's hit count (the tie weight 1 / hits); each piece's sums find their
-// program in the block's piece table.
+// Binning is program by program and, within a program, word by word
+// (binning.cuh piece_bits and rule_word: 32 pieces a word, any number of
+// words), so a zoo may have any number of subcells in all and a program
+// any number of its own: per tile the warp keeps one 32-point mask per
+// piece (a ballot, taken as each word is binned, so no word is kept) and,
+// per program, each point's hit count over the whole program (the tie
+// weight 1 / hits, from a table for 1..32 hits and divided past it); each
+// piece's sums find their program in the block's piece table.
 //
 // Shared memory: the block's tables (first row, width and program per
 // piece, first and end piece and rule per program: 12 bytes each), then a
-// warp's share: the slab, the tile's piece
-// masks (4 bytes a piece) and hit counts (32 bytes a program), and one
-// double per piece row, each part rounded up to 16 bytes.  Sd = 3, degree
-// 10, 32 pieces of 286 members in 4 programs (the largest zoo the tables
-// take at 32 pieces) need 80 KB a warp, two warps a block; there is no row
-// or piece cap beside those of the tables and a block's shared memory.
+// warp's share: the slab (8448 bytes), the tile's piece masks (4 bytes a
+// piece) and hit counts (64 bytes a program), and one double per piece
+// row, each part rounded up to 16 bytes.  A piece of n members thus costs
+// 12 + 4 + 8 n bytes in a block of one warp: one warp stops fitting a
+// block's 231,424 bytes at about 5,500 pieces of P1's 3 members (a
+// program on iso(16) has 256), 930 of degree 6's 28, 96 of
+// tet degree 10's 286; the wrapper raises past that, naming shared memory.
+// Sd = 3, degree 10, 32 pieces of 286 members in 4 programs need 80 KB a
+// warp, two warps a block.
 //
 // Output row layout (R = nplain + the pieces' widths): rows 0..nplain-1 are
 // pw; piece c's masked moments are rows nplain + off_c + k, k < nexp_c

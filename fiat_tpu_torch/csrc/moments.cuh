@@ -44,7 +44,7 @@ __host__ __device__ constexpr int nconst_of(int sd, int n) {
 // (per piece its first row, width and program, then per program its first
 // and end piece and its rule, ints), then each warp's share: the slab, the
 // tile's point mask of each piece (unsigned), the hits of each point in each
-// program (bytes, [g][point]), and one double per piece row; each part
+// program (16-bit, [g][point]), and one double per piece row; each part
 // rounded up to an even count of doubles, so every warp's slab stays
 // 16-byte aligned.
 __host__ __device__ constexpr int even_doubles(long long bytes) {
@@ -54,7 +54,7 @@ __host__ __device__ constexpr int header_doubles(int npieces, int nprogs) {
   return even_doubles(12LL * (npieces + nprogs));
 }
 __host__ __device__ constexpr int masks_doubles(int npieces, int nprogs) {
-  return even_doubles(4LL * npieces + 32LL * nprogs);
+  return even_doubles(4LL * npieces + 64LL * nprogs);
 }
 __host__ __device__ constexpr int warp_doubles(int piece_rows, int npieces, int nprogs) {
   return SLAB + masks_doubles(npieces, nprogs) + even_doubles(8LL * piece_rows);
@@ -108,12 +108,12 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
   double* wbase = smem + header_doubles(q.npieces, q.nprogs);
   double* slab = wbase + warp * WD;
   unsigned* mq = reinterpret_cast<unsigned*>(slab + SLAB);  // piece c's points
-  unsigned char* hc = reinterpret_cast<unsigned char*>(mq + q.npieces);  // [g][point]: hits
+  unsigned short* hc = reinterpret_cast<unsigned short*>(mq + q.npieces);  // [g][point]: hits
   // this warp's piece sums: piece c's member j at off_c + j
   double* acc = slab + SLAB + masks_doubles(q.npieces, q.nprogs);
 
-  // the tables, and 1 / hits for 1..32 hits (binning.cuh's program_rule
-  // computes the same)
+  // the tables, and 1 / hits for 1..32 hits (binning.cuh's program_recip
+  // computes the same; a point of more hits, on a degenerate split, divides)
   if (threadIdx.x < 32) s_rcp[threadIdx.x + 1] = 1.0 / static_cast<double>(threadIdx.x + 1);
   for (int g = threadIdx.x; g < q.nprogs; g += blockDim.x) {
     const int c0 = __ldg(q.progs + 5 * g + 2), c1 = __ldg(q.progs + 5 * g + 3);
@@ -178,7 +178,8 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
       } else {
         for (unsigned mm = m; mm; mm &= mm - 1u) {
           const int k = __ffs(mm) - 1;
-          t0 += s_rcp[hc[32 * tab[3 * pc + 2] + k]] * row[k];
+          const int h = hc[32 * tab[3 * pc + 2] + k];
+          t0 += (h <= 32 ? s_rcp[h] : 1.0 / static_cast<double>(h)) * row[k];
         }
       }
       acc[tab[3 * pc] + j] += t0 + t1;
@@ -207,25 +208,25 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
     for (int i = 0; i < SD; ++i) x[i] = live ? q.pts[SD * p + i] : 0.0;
     w = live ? q.wf[p] : 0.0;
     if (q.nprogs) {
-      // each program's masks of the lane's point (binning.cuh), then per
-      // piece the ballot of the tile's points on it and per program the
-      // hits of each point
+      // each program's masks of the lane's point, word by word
+      // (binning.cuh), then per piece the ballot of the tile's points on it
+      // and per program the hits of each point
       const double best = live ? fiat::parent_bound<SD>(q.maps, x, q.tol) : 0.0;
       bool tie = false;
       for (int g = 0; g < q.nprogs; ++g) {
-        const int c0 = ptab[3 * g], c1 = ptab[3 * g + 1];
-        unsigned mk = 0u;
-        if (live) {
-          double recip;
-          mk = fiat::program_rule(fiat::piece_bits<SD>(q.maps, c0, c1, x, best), ptab[3 * g + 2],
-                                  recip);
-        }
-        tie |= __popc(mk) > 1;
-        hc[32 * g + lane] = static_cast<unsigned char>(__popc(mk));
+        const int c0 = ptab[3 * g], c1 = ptab[3 * g + 1], unique = ptab[3 * g + 2];
+        int kept = 0;
+        unsigned mk = 0u;  // the word of pieces c0 + 32 w .. of the lane's point
         for (int c = c0; c < c1; ++c) {
-          const unsigned m = __ballot_sync(FULL, (mk >> (c - c0)) & 1u);
+          const int i = (c - c0) & 31;
+          if (i == 0 && live)
+            mk = fiat::rule_word(fiat::piece_bits<SD>(q.maps, c0, c1, (c - c0) >> 5, x, best),
+                                 unique, kept);
+          const unsigned m = __ballot_sync(FULL, (mk >> i) & 1u);
           if (lane == (c & 31)) mq[c] = m;
         }
+        tie |= kept > 1;
+        hc[32 * g + lane] = static_cast<unsigned short>(min(kept, 0xffff));
       }
       ties = __any_sync(FULL, tie);
     }

@@ -19,13 +19,15 @@ def device_tabulator(elements, order=0, f64=True, device=None, derivs="dmats", *
 
     * ``f64=True``: ``fused_zoo.FusedZooTabulator`` in float64, on
       triangles and tetrahedra: K1 and K2, and for macro elements K3 (a
-      triangle parent, at most 32 subcells in all) or else K7 (tetrahedra,
-      and triangle zoos past 32 subcells), as ``tab.macro.name`` says;
+      triangle parent, at most 32 subcells in all: a measured routing
+      rule) or else K7 (tetrahedra, and triangle zoos past 32 subcells),
+      as ``tab.macro.name`` says; both take programs of any number of
+      subcells;
       ``tab.block_tables(points)`` gives per-group blocks and
       ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
     * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``
       (K6, and K3 in float32 for macro elements: any number of subcells,
-      at most 32 a program), on
+      in all and a program), on
       triangles and tetrahedra; ``tab.tables(points)`` gives the whole
       zoo's float32 tables.
 

@@ -18,7 +18,9 @@ over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
      in one launch: K3 (``macro_oneshot.MacroOneShot``,
      ``csrc/macro_oneshot.cu``, with its own parent recurrence) where
      ``macro_oneshot.one_shot_applies`` (a triangle parent, at most 32
-     subcells in all, parent degree at most 10), else K7
+     subcells in all, parent degree at most 10: a measured routing rule,
+     not a cap; both kernels take programs of any number of subcells), else
+     K7
      (``masked_matmul.MaskedMatmul``, ``csrc/masked_matmul.cu``), which
      reads the parent basis as a prefix of K1's Phi; K1 then runs at the
      larger of the plain and macro degrees.

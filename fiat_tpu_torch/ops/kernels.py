@@ -47,12 +47,12 @@ SIGNATURES = {
     # At, kpad, kmax, tp, kc, stages, minb, tiles, ntiles, phi, ldphi, npts, C, stream
     "fiat_bucket_matmul": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     # pts, npts, sd, consts, slots, affine[12] (host array), scale, tol, degree,
-    # maps, progs, pieces, chunks, nchunks, rc, cpb, sub, phi_at, A, K, out,
-    # stream (in f64 / in f32)
-    "fiat_macro_oneshot": [_P, _I, _I, _P, _P, _P, _D, _D, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _P, _I, _P, _P],
-    "fiat_macro_oneshot_f32": [_P, _I, _I, _P, _P, _P, _F, _F, _I, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _P, _I, _P, _P],
+    # maps, pieces, slices, groups, ngroups, rc, sub, resident, stages, buf,
+    # ring, nbar, words, At, gather (or null), out, stream (in f64 / in f32)
+    "fiat_macro_oneshot": [_P, _I, _I, _P, _P, _P, _D, _D, _I, _P, _P, _P, _P, *[_I] * 9,
+                           _P, _P, _P, _P],
+    "fiat_macro_oneshot_f32": [_P, _I, _I, _P, _P, _P, _F, _F, _I, _P, _P, _P, _P,
+                               *[_I] * 9, _P, _P, _P, _P],
     # pts, wf, npts, sd, consts (host array), slots, affine[12] (host array),
     # scale, tol, degree, nplain, maps, npieces, progs, nprogs, pieces, R, warps,
     # nblocks, partials, tickets, out, stream
@@ -61,10 +61,11 @@ SIGNATURES = {
     # sd, degree, warps, piece rows (returns blocks an SM, or minus the error)
     "fiat_pair_moments_occupancy": [_I] * 6,
     # pts, npts, sd, tol, maps, progs, pieces, slices, nslices, At, phi, kmax, out,
-    # tp, slice_cols, stages, stream
-    "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P],
-    # sd, kmax, tp, slice_cols, stages (returns blocks an SM, or minus the error)
-    "fiat_masked_matmul_occupancy": [_I] * 5,
+    # tp, slice_cols, stages, words, stream
+    "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
+                           _P],
+    # sd, kmax, tp, slice_cols, stages, words (returns blocks an SM, or minus the error)
+    "fiat_masked_matmul_occupancy": [_I] * 6,
     # pts, npts, sd, consts, slots, affine[12] (host array), scale, degree, At, kpad,
     # kmax, tiles, ntiles, dst, out, tp, kc, stages, minb, stream
     "fiat_zoo_f32": [_P, _I, _I, _P, _P, _P, _F, _I, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I,

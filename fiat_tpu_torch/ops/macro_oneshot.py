@@ -11,12 +11,17 @@ basis by the masked parent basis and averages over the subcells that share
 the point.  The TPU kernel does this in df32 pairs and Ozaki windows;
 Hopper has native FP64, so the kernel computes it in f64 (or in f32 for the
 f32 engine).  On both parents the grid runs over row chunks of one program,
-as K7's does, so A has no size limit; each point multiplies only the
-subcells it falls in, and keeps its parent basis in its own column of a
-shared-memory Phi tile (the kernel's source note says why).  A point is
-binned against each chunk's program alone, so a zoo may have any number of
-subcells (at most ``MAX_PROGRAM_PIECES`` a program).  One row per program
-(interpolation) runs an instantiation whose chunks are one row high.
+as K7's does, so A has no size limit; a chunk's columns reach shared memory
+in slices (runs of k), kept there whole where they fit a quarter of an SM
+beside the Phi tile and streamed through a ring of bulk copies where not
+(``MacroOneShot.plan_for``, ``slice_table``), so no chunk has to fit a
+block either; each point
+multiplies only the subcells it falls in, and keeps its parent basis in its
+own column of a shared-memory Phi tile (the kernel's source note says why).
+A point is binned against each chunk's program alone, 32 subcells a mask
+word, so a zoo and each of its programs may have any number of subcells.
+One row per program (interpolation) runs an instantiation whose chunks are
+one row high.
 
 The plain version beside it does the same in plain PyTorch: masks by
 ``core.expansions.subcell_masks`` (the body of
@@ -37,10 +42,6 @@ from .recurrence import pack_stages
 
 #: highest parent degree the kernel is instantiated for (csrc/macro_oneshot.cu)
 MAX_DEGREE = 10
-#: subcells of one program: the kernels (K3, K7, K45) bin a point program by
-#: program and keep a program's masks as the bits of one word; a zoo may
-#: have any number of programs
-MAX_PROGRAM_PIECES = 32
 #: subcells in all up to which the f64 engine takes K3 on a triangle parent,
 #: and K7 past it (``one_shot_applies``)
 ONE_SHOT_PIECES = 32
@@ -56,30 +57,60 @@ COLUMN_STRIDE = CHUNK_ROWS + 2
 ONE_ROW_CHUNK = 1
 #: shared memory one block may take on the card (bytes)
 MAX_SMEM = 227 * 1024
-#: points of one block of K3, each with a column of the Phi tile
-#: (csrc/macro_oneshot.cu THREADS)
-TILE_POINTS = 128
-#: point tiles one block of K3 may walk (csrc/macro_oneshot.cu MAX_SUB), and
+#: point tiles one block of K3 may walk (csrc/macro_oneshot.cuh MAX_SUB), and
 #: the blocks a launch keeps at least, where it can: about eight an SM on
 #: the H100's 132 SMs (of 256 to 8192, 1024 timed best on the H100 on the
 #: C1 zoos and full_zoo)
 MAX_SUB = 8
 MIN_BLOCKS = 1024
+#: the fewest and the most buffers of K3's streaming ring (csrc MAX_STAGES),
+#: and the bytes a streamed slice aims at, K7's 64 columns of 32 f64 rows:
+#: two buffers of such slices timed fastest of the candidate rings in every
+#: streamed cell on the H100 (PERF.md section 6)
+MIN_STAGES, MAX_STAGES = 2, 4
+SLICE_BYTES = 64 * COLUMN_STRIDE * 8
+#: columns of the slice table of K3 and K7 and its flags
+#: (csrc/macro_oneshot.cuh, csrc/masked_matmul.cu; K3 reads the first two)
+SLICE_COLS = 11
+FIRST_IN_CHUNK, LAST_IN_CHUNK, FIRST_IN_PROGRAM, SAME_BINS = 1, 2, 4, 8
+#: shared memory of one buffer's full and empty mbarriers and counter
+BARRIER_BYTES = 20
+#: the most shared memory of a block whose chunks stay resident: a quarter
+#: of an SM's, so that four blocks (16 warps) share an SM
+RESIDENT_SMEM = MAX_SMEM // 4
+#: the most blocks of one launch (a one-dimensional grid)
+MAX_BLOCKS = 2 ** 31 - 1
 
 
 def column_stride(rows):
     """Values per staged column of a chunk ``rows`` high
-    (csrc/macro_oneshot.cu ``column_stride``): ``rows + 2`` (even, so
+    (csrc/macro_oneshot.cuh ``column_stride``): ``rows + 2`` (even, so
     16-byte pairs stay aligned), or 1 for one-row chunks."""
     return rows + 2 if rows > 1 else 1
 
 
-def tiles_per_block(npts, nchunks):
-    """Point tiles each block of K3 walks with its staged chunk: as many as
-    keep ``MIN_BLOCKS`` blocks in the grid, 1 to ``MAX_SUB``.  Fewer tiles a
-    block stage the chunk more often; more leave SMs idle at the tail."""
-    tiles = -(-npts // TILE_POINTS)
-    return max(1, min(MAX_SUB, tiles * nchunks // MIN_BLOCKS))
+def point_tile(sd, degree, itemsize):
+    """Points (threads) of a block of K3 (csrc/macro_oneshot.cuh
+    ``point_tile``, a constant of each instantiation): 128, but 64 on
+    tetrahedra from degree 9 in double, whose Phi tile of 128 points alone
+    passes a block's shared memory."""
+    return 64 if sd == 3 and degree >= 9 and itemsize == 8 else 128
+
+
+def tiles_per_block(npts, ngroups, tp=128):
+    """Point tiles of ``tp`` points each block of K3 walks with its group of
+    chunks: as many as keep ``MIN_BLOCKS`` blocks in the grid, 1 to
+    ``MAX_SUB``.  Fewer tiles a block fetch a resident group more often;
+    more leave SMs idle at the tail."""
+    tiles = -(-npts // tp)
+    return max(1, min(MAX_SUB, tiles * ngroups // MIN_BLOCKS))
+
+
+def mask_words(progs):
+    """Mask words a point keeps for the widest program of ``progs``
+    (``pack_geometry``'s): 32 subcells a word (csrc/binning.cuh
+    ``words_of``)."""
+    return max(-(-int(c1 - c0) // 32) for _, _, c0, c1, _ in progs)
 
 
 def pack_geometry(geom, parent_map, nexp):
@@ -112,30 +143,78 @@ def pack_geometry(geom, parent_map, nexp):
 
 
 def chunk_table(progs, pieces, rows=CHUNK_ROWS):
-    """Every program's rows cut into chunks of at most ``rows``, as K3
-    stages them: (chunks int32 (nchunks, 4) = (program, first row, rows,
-    ps), the largest chunk's staged values).  The kernel stages piece j of
-    the chunk's program ps * j columns in (ps is the program's widest piece
-    rounded up to odd, so lanes in up to 8 subcells read distinct banks),
-    each column ``column_stride(rows)`` values.  K7 cuts its rows into the
-    same chunks (``masked_matmul.chunk_layout``, which lays them out by
-    k)."""
-    chunks, largest = [], 0
+    """Every program's rows cut into chunks of at most ``rows``: int32
+    (nchunks, 4) = (program, first row, rows, kw), kw the program's widest
+    piece.  K3 cuts them into slices (``slice_table``), K7 lays them out the
+    same way by k (``masked_matmul.chunk_layout``)."""
+    chunks = []
     for g, (r0, r1, c0, c1, _) in enumerate(progs):
-        ps = int(pieces[c0:c1, 1].max()) | 1
-        chunks.extend((g, row, min(rows, r1 - row), ps) for row in range(r0, r1, rows))
-        largest = max(largest, (c1 - c0) * ps * column_stride(rows))
-    return np.asarray(chunks, np.int32).reshape(-1, 4), largest
+        kw = int(pieces[c0:c1, 1].max())
+        chunks.extend((g, row, min(rows, r1 - row), kw) for row in range(r0, r1, rows))
+    return np.asarray(chunks, np.int32).reshape(-1, 4)
 
 
-def group_staged(chunks, progs, rows, cpb):
-    """Staged values of the largest group of ``cpb`` consecutive chunks of
-    ``chunk_table(progs, pieces, rows)``, rounded up to even: where the Phi
-    tile starts in a block's shared memory."""
-    sizes = [int(progs[g, 3] - progs[g, 2]) * int(ps) * column_stride(rows)
-             for g, _, _, ps in chunks]
-    largest = max(sum(sizes[i:i + cpb]) for i in range(0, len(sizes), cpb))
-    return largest + largest % 2
+def ceil16(nbytes):
+    """``nbytes`` rounded up to a multiple of 16 (a bulk copy's unit)."""
+    return -(-nbytes // 16) * 16
+
+
+def slice_table(chunks, progs, pieces, K, cols, rows, itemsize, shared=None):
+    """The slices of K3 and K7: every chunk of ``chunk_table(progs, pieces,
+    rows)`` cut into runs of k, as many as ``cols`` columns hold (at least
+    one k), in chunk order, each laid out as the kernels' shared memory
+    holds it (column k * P + j for piece j of the program's P,
+    ``column_stride(rows)`` values a column, so the columns of a run of k
+    are one contiguous block and lanes in different pieces read columns one
+    apart) and padded to 16 bytes, one after another in At.  Returns
+    (slices int32 (nslices, SLICE_COLS) = (program, first row, rows, first
+    k, end k, offset in At, P, flags, values, the program's first piece,
+    unique), gather int64: per value of At its index in ``A.ravel()`` of an
+    A of K columns, or -1 for a zero: the index of the zero that
+    ``gather_slices`` appends).
+    ``shared`` (per program, K7's ``masked_matmul.same_bins``) marks the
+    programs that keep the masks of the one before (SAME_BINS on their
+    first slice)."""
+    rcp, align = column_stride(rows), 16 // itemsize
+    out, gathers, offset, prev = [], [], 0, None
+    for g, row, n, kw in chunks:
+        c0, c1 = int(progs[g, 2]), int(progs[g, 3])
+        npieces = c1 - c0
+        off, width = pieces[c0:c1, 0][None, :, None], pieces[c0:c1, 1][None, :, None]
+        r = np.arange(rcp)[None, None, :]
+        run = max(1, cols // npieces)
+        for k in range(0, kw, run):
+            end = min(kw, k + run)
+            ks = np.arange(k, end)[:, None, None]
+            block = np.where((ks < width) & (r < n), (row + r) * K + off + ks, -1).ravel()
+            size = -(-block.size // align) * align
+            gathers += [block, np.full(size - block.size, -1)]
+            first = k == 0 and g != prev
+            flags = ((FIRST_IN_CHUNK if k == 0 else 0) | (LAST_IN_CHUNK if end == kw else 0)
+                     | (FIRST_IN_PROGRAM if first else 0)
+                     | (SAME_BINS if first and shared is not None and shared[g] else 0))
+            out.append((g, row, n, k, end, offset, npieces, flags, size, c0,
+                        int(progs[g, 4])))
+            offset += size
+        prev = g
+    return (np.asarray(out, np.int32).reshape(-1, SLICE_COLS),
+            np.concatenate(gathers).astype(np.int64))
+
+
+def gather_slices(A, gather):
+    """At from A (numpy or torch, any shape) by ``slice_table``'s gather:
+    A's values and a zero appended, indexed (-1 takes the zero)."""
+    if isinstance(A, np.ndarray):
+        return np.append(A.ravel(), 0.0)[gather]
+    return torch.cat([A.reshape(-1), A.new_zeros(1)])[gather]
+
+
+def smem_bytes(nexp, itemsize, tp, ring, words, nbar):
+    """Shared memory of a block of K3 (csrc/macro_oneshot.cuh
+    ``smem_bytes``): ``ring`` values of slices, the Phi tile (``nexp`` x
+    ``tp``) and a factor a point, ``words`` mask words a point, and
+    ``nbar`` buffers' mbarriers."""
+    return itemsize * (ring + (nexp + 1) * tp) + 4 * words * tp + BARRIER_BYTES * nbar
 
 
 def one_shot_applies(merged):
@@ -195,10 +274,6 @@ class MacroOneShot:
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
         self.nexp = [int(n) for _, n in pieces]
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
-        widest = int((progs[:, 3] - progs[:, 2]).max())
-        if widest > MAX_PROGRAM_PIECES:
-            raise NotImplementedError(f"a program of {widest} subcells: K3 takes at most "
-                                      f"{MAX_PROGRAM_PIECES} a program")
         self.sd = sd = self.parent_map[0].shape[1]
         if max(self.nexp) > math.comb(self.degree + sd, sd):
             raise ValueError("a subcell reads more parent members than the recurrence makes")
@@ -221,27 +296,197 @@ class MacroOneShot:
         consts, slots = pack_stages(self.degree, sd=sd)
         self.consts = as_t(consts)
         self.slots = as_t(slots, torch.int32)
-        # the row chunks of the tables and, for ``mo(points, A=W)``, one row
-        # per program; shared memory of a block in each mode (values): its
-        # staged chunks (rounded up to even), then the Phi tile.  A mode
-        # whose block does not fit raises at its launch on the card; the
-        # plain version has no such limit
+        self.device = self.A.device       # "cuda" resolved to its index
+        #: mask words a point keeps for the widest program (32 subcells a word)
+        self.words = mask_words(progs)
+        self._progs, self._pieces = progs, pieces_t
+        # the row chunks of the tables, one a group; for ``mo(points, A=W)``
+        # one row per program, every program's in one group, so the
+        # recurrence runs once a point
         one = progs.copy()
         one[:, 0], one[:, 1] = np.arange(len(progs)), np.arange(1, len(progs) + 1)
-        chunks = chunk_table(progs, pieces_t)[0]
-        chunks_one = chunk_table(one, pieces_t, ONE_ROW_CHUNK)[0]
-        # a block of the tables takes one chunk; one of the one-row chunks
-        # takes every program's (fewer values than the largest chunk of 32
-        # rows), so the recurrence runs once a point
-        self.cpb, self.cpb_one = 1, len(chunks_one)
-        self.phi_at = group_staged(chunks, progs, CHUNK_ROWS, self.cpb)
-        self.phi_at_one = group_staged(chunks_one, progs, ONE_ROW_CHUNK, self.cpb_one)
-        tile = math.comb(self.degree + sd, sd) * TILE_POINTS
-        self.smem, self.smem_one = self.phi_at + tile, self.phi_at_one + tile
-        self.chunks = as_t(chunks, torch.int32)
-        self.chunks_one = as_t(chunks_one, torch.int32)
-        self.device = self.A.device       # "cuda" resolved to its index
+        self.chunks = chunk_table(progs, pieces_t)
+        self.chunks_one = chunk_table(one, pieces_t, ONE_ROW_CHUNK)
+        self.cpb, self.cpb_one = 1, len(self.chunks_one)
+        #: points of a block: a constant of the kernel's instantiation
+        self.tp = point_tile(sd, self.degree, self.itemsize)
+        self.plan = self.plan_for(*self._plan_args())
+        self.plan_one = self.plan_for(*self._plan_args(one=True))
         self.launches = 0
+
+    @property
+    def plan(self):
+        """The tables' plan: (point tile, slice columns, buffers, resident),
+        ``plan_for``'s choice, or None; setting it rebuilds the tables'
+        layout on next use."""
+        return self._plan
+
+    @plan.setter
+    def plan(self, plan):
+        self._plan, self._tab = self._checked(plan, self.chunks), None
+
+    @property
+    def plan_one(self):
+        """One row a program's plan, as ``plan``."""
+        return self._plan_one
+
+    @plan_one.setter
+    def plan_one(self, plan):
+        self._plan_one, self._one = self._checked(plan, self.chunks_one), None
+
+    def _checked(self, plan, chunks):
+        """``plan`` if the kernel takes it for ``chunks``: the
+        instantiation's point tile, slices of at least one k of the widest
+        program (of whole chunks where resident) and a ring of 1 to
+        MAX_STAGES buffers."""
+        if plan is None:
+            return None
+        tp, cols, stages, resident = plan
+        npieces = self._progs[chunks[:, 0], 3] - self._progs[chunks[:, 0], 2]
+        need = int((npieces * chunks[:, 3]).max() if resident else npieces.max())
+        if tp != self.tp or cols < need or not (resident or 1 <= stages <= MAX_STAGES):
+            raise ValueError(f"K3 plan {plan}: {self.tp} points, slices of at least {need} "
+                             f"columns, 1 to {MAX_STAGES} buffers")
+        return tuple(plan)
+
+    @property
+    def itemsize(self):
+        """Bytes of one value in the working type."""
+        return 8 if self.dtype == torch.float64 else 4
+
+    @property
+    def nexp_parent(self):
+        """Members of the parent recurrence: the rows of the Phi tile."""
+        return math.comb(self.degree + self.sd, self.sd)
+
+    @staticmethod
+    def candidates(tp, nexp, itemsize, rows, chunks, progs, cpb, words):
+        """Every plan the kernel takes for ``chunks`` (``chunk_table(...,
+        rows)``) taken ``cpb`` consecutive ones a block of ``tp`` points, a
+        Phi tile of ``nexp`` members and ``words`` mask words a point, in
+        values of ``itemsize`` bytes, within a block's MAX_SMEM, narrowest
+        streaming ring first: [((tp, slice columns, buffers, resident),
+        block bytes)].  Every group's chunks resident (one slice a chunk,
+        fetched once a block), and rings of MIN_STAGES and MAX_STAGES
+        buffers of slices of one k of the widest program, of SLICE_BYTES
+        and of twice that (at most the widest chunk)."""
+        col = column_stride(rows) * itemsize
+        npieces = [int(progs[g, 3] - progs[g, 2]) for g in chunks[:, 0]]
+        cols = [p * int(kw) for p, kw in zip(npieces, chunks[:, 3])]
+        group = max(sum(ceil16(c * col) for c in cols[i:i + cpb])
+                    for i in range(0, len(cols), cpb))
+        most = min(cpb, len(cols))
+        widths = sorted({min(max(cols), max(max(npieces), n * SLICE_BYTES // col))
+                         for n in (0, 1, 2)})
+        fixed = smem_bytes(nexp, itemsize, tp, 0, words, 0)
+        out = [((tp, w, n, False), fixed + n * (ceil16(w * col) + BARRIER_BYTES))
+               for w in widths for n in (MIN_STAGES, MAX_STAGES)]
+        out.append(((tp, max(cols), most, True), fixed + group))
+        return [(plan, nbytes) for plan, nbytes in out if nbytes <= MAX_SMEM]
+
+    @classmethod
+    def plan_for(cls, tp, nexp, itemsize, rows, chunks, progs, cpb, words):
+        """Of the ``candidates``, the resident plan where its block takes
+        at most RESIDENT_SMEM (a quarter of an SM's, so four blocks share an
+        SM), else a ring of MIN_STAGES buffers of slices of SLICE_BYTES, or
+        of the widest that fit; None without candidates.  On the H100 the
+        resident plan was the fastest where it fits RESIDENT_SMEM and two
+        buffers of SLICE_BYTES the fastest streamed (PERF.md section 6)."""
+        cands = cls.candidates(tp, nexp, itemsize, rows, chunks, progs, cpb, words)
+        resident = [plan for plan, nbytes in cands if plan[3] and nbytes <= RESIDENT_SMEM]
+        if resident:
+            return resident[0]
+        widest = max(int(progs[g, 3] - progs[g, 2]) for g in chunks[:, 0])
+        aim = max(widest, SLICE_BYTES // (column_stride(rows) * itemsize))
+        ring = [plan for plan, _ in cands
+                if not plan[3] and plan[2] == MIN_STAGES and plan[1] <= aim]
+        return max(ring, key=lambda plan: plan[1],
+                   default=next((plan for plan, _ in cands if plan[3]), None))
+
+    def _plan_args(self, one=False):
+        """The arguments of ``candidates`` and ``plan_for`` for this engine's
+        tables, or ``one`` row a program."""
+        rows, chunks, cpb = ((ONE_ROW_CHUNK, self.chunks_one, self.cpb_one) if one
+                             else (CHUNK_ROWS, self.chunks, self.cpb))
+        return (self.tp, self.nexp_parent, self.itemsize, rows, chunks, self._progs, cpb,
+                self.words)
+
+    def plan_candidates(self, one=False):
+        """``candidates`` for this engine's tables, or ``one`` row a
+        program."""
+        return self.candidates(*self._plan_args(one))
+
+    def layout(self, one=False):
+        """The launch's tables of one mode (the tables, or ``one`` row per
+        program) under its plan: a dict of the slices, the groups' first
+        slices, the gather of At from A's values (``slice_table``), and the
+        plan's shared memory: ``ring`` values before
+        the Phi tile, ``nbar`` buffers, ``buf`` values a streaming buffer,
+        ``smem`` bytes.  None where the mode has no plan."""
+        plan = self.plan_one if one else self.plan
+        if plan is None:
+            return None
+        tp, cols, stages, resident = plan
+        rows, chunks = (ONE_ROW_CHUNK, self.chunks_one) if one else (CHUNK_ROWS, self.chunks)
+        cpb = self.cpb_one if one else self.cpb
+        slices, gather = slice_table(chunks, self._progs, self._pieces, self.K, cols, rows,
+                                     self.itemsize)
+        # each group's first slice: the slices of its first chunk
+        first = np.flatnonzero(slices[:, 7] & FIRST_IN_CHUNK)
+        groups = np.append(first[::cpb], len(slices))
+        align = 16 // self.itemsize
+        if resident:
+            ring = int(max(slices[groups[i + 1] - 1, 5] + slices[groups[i + 1] - 1, 8]
+                           - slices[groups[i], 5] for i in range(len(groups) - 1)))
+            nbar, buf = 0, 0
+        else:
+            buf = -(-cols * column_stride(rows) // align) * align
+            ring, nbar = stages * buf, stages
+        return {"slices": slices, "groups": groups.astype(np.int32), "gather": gather,
+                "ring": ring, "nbar": nbar, "buf": buf,
+                "smem": smem_bytes(self.nexp_parent, self.itemsize, tp, ring, self.words, nbar)}
+
+    @property
+    def smem(self):
+        """Bytes of shared memory of a block of the tables' plan (None
+        without a plan)."""
+        lay = self._tables()
+        return lay and lay["smem"]
+
+    @property
+    def smem_one(self):
+        """Bytes of shared memory of a block of one row a program (None
+        without a plan)."""
+        lay = self._ones()
+        return lay and lay["smem"]
+
+    def _tables(self):
+        """The tables' layout, and At, built on first use."""
+        if self._tab is None:
+            lay = self.layout()
+            if lay is not None:
+                lay["At"] = torch.as_tensor(gather_slices(self.A.cpu().numpy(), lay["gather"]),
+                                            device=self.device).to(self.dtype)
+                self._device_tables(lay)
+            self._tab = lay
+        return self._tab
+
+    def _ones(self):
+        """One row a program's layout, built on first use; At comes from
+        each call's A: the kernel gathers a resident group itself, by the
+        int32 table, and a streamed one is gathered before the launch."""
+        if self._one is None:
+            lay = self.layout(one=True)
+            if lay is not None:
+                dtype = torch.int32 if self.plan_one[3] else torch.int64
+                lay["gather"] = torch.as_tensor(lay["gather"], dtype=dtype, device=self.device)
+                self._device_tables(lay)
+            self._one = lay
+        return self._one
+
+    def _device_tables(self, lay):
+        lay["slices_t"] = torch.as_tensor(lay["slices"], device=self.device)
+        lay["groups_t"] = torch.as_tensor(lay["groups"], device=self.device)
 
     def _check(self, points, A):
         if not isinstance(points, torch.Tensor):
@@ -274,36 +519,46 @@ class MacroOneShot:
 
     def _launch(self, points, A):
         """Launch the kernel on checked CUDA inputs: the (rows, npts)
-        output.  Raises where a block of this mode (the tables, or one row
-        per program) is past the card's shared memory, or the grid has too
-        many blocks along the chunks."""
+        output.  Raises where the mode (the tables, or one row per program)
+        has no plan (its Phi tile leaves no room for a ring even at the
+        smallest point tile) or the grid would pass 2^31 - 1 blocks."""
         one = A is not None
-        chunks, rc, cpb, phi_at, smem = (
-            (self.chunks_one, ONE_ROW_CHUNK, self.cpb_one, self.phi_at_one, self.smem_one) if one
-            else (self.chunks, CHUNK_ROWS, self.cpb, self.phi_at, self.smem))
-        nbytes = smem * self.A.element_size()
-        if nbytes > MAX_SMEM:
+        lay = self._ones() if one else self._tables()
+        mode = "one row a program" if one else "tables"
+        if lay is None:
             raise NotImplementedError(
-                f"K3 {'one row a program' if one else 'tables'}: a block's row chunks and Phi "
-                f"tile take {nbytes} bytes, past the {MAX_SMEM} bytes of shared memory a block")
-        groups = -(-chunks.shape[0] // cpb)
-        if groups > 65535:
-            raise NotImplementedError(f"{groups} blocks of row chunks: K3's grid takes at most "
-                                      f"65535")
-        A = A if one else self.A
+                f"K3 {mode}: a Phi tile of {self.nexp_parent} members and {self.words} mask words "
+                f"a point leave no room for a ring of slices at {self.tp} points in a block's "
+                f"{MAX_SMEM} bytes of shared memory")
+        tp, _, stages, resident = self.plan_one if one else self.plan
         npts = points.shape[0]
-        out = torch.empty((A.shape[0], npts), dtype=self.dtype, device=points.device)
+        out = torch.empty((A.shape[0] if one else self.rows, npts), dtype=self.dtype,
+                          device=points.device)
         if npts == 0:
             return out
+        ngroups = len(lay["groups"]) - 1
+        sub = tiles_per_block(npts, ngroups, tp)
+        nblocks = -(-(-(-npts // tp)) // sub) * ngroups
+        if nblocks > MAX_BLOCKS:
+            raise NotImplementedError(f"K3 {mode}: {nblocks} blocks, past a grid's {MAX_BLOCKS}")
+        gather = None
+        if not one:
+            At = lay["At"]
+        elif resident:      # the kernel gathers this call's A into its resident group
+            At, gather = A, lay["gather"].data_ptr()
+        else:
+            At = gather_slices(A, lay["gather"])
         f64 = self.dtype == torch.float64
         fn = getattr(load_kernels(), "fiat_macro_oneshot" if f64 else "fiat_macro_oneshot_f32")
         affine = ((ctypes.c_double if f64 else ctypes.c_float) * 12)(*self.affine)
         err = fn(points.data_ptr(), npts, self.sd, self.consts.data_ptr(), self.slots.data_ptr(),
                  affine, self.scale, self.tol, self.degree, self.maps.data_ptr(),
-                 self.progs.data_ptr(), self.pieces.data_ptr(), chunks.data_ptr(),
-                 chunks.shape[0], rc, cpb, tiles_per_block(npts, groups), phi_at, A.data_ptr(),
-                 self.K, out.data_ptr(), stream_of(points))
-        check_launch(f"K3 ({A.shape[0]} x {self.K}, {self.dtype})", err)
+                 self.pieces.data_ptr(), lay["slices_t"].data_ptr(),
+                 lay["groups_t"].data_ptr(), ngroups, ONE_ROW_CHUNK if one else CHUNK_ROWS, sub,
+                 int(resident), stages, lay["buf"], lay["ring"], lay["nbar"], self.words,
+                 At.data_ptr(), gather, out.data_ptr(), stream_of(points))
+        check_launch(f"K3 ({out.shape[0]} x {self.K}, {self.dtype}, {mode}, plan "
+                     f"{self.plan_one if one else self.plan})", err)
         self.launches += 1
         return out
 

@@ -12,8 +12,9 @@ the (nexp, npts) f64 tabulation K1 made for K2, read by prefix.  The kernel
 multiplies only the pieces it bins into (the others add exact zeros), with
 each warp's points dealt to its lanes in subcell order, the block's Phi
 prefix staged in shared memory and A streamed through a ring of
-bulk-copied slices of its row chunks (``chunk_layout``, ``slice_table``;
-the plan sizes both, ``MaskedMatmul.plan_for``); the TPU kernel's df32
+bulk-copied slices of its row chunks (``macro_oneshot.chunk_table`` and
+``slice_table``, K3's layout; the plan sizes both,
+``MaskedMatmul.plan_for``); the TPU kernel's df32
 pairs, Ozaki windows, one-hot G/E assembly dots and int8 selects are TPU
 workarounds and are not ported.
 
@@ -27,34 +28,8 @@ import torch
 
 from ..core.expansions import subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import (BINNING_TOL, COLUMN_STRIDE, MAX_PROGRAM_PIECES, chunk_table,
-                            pack_geometry)
-#: columns of the slice table, and its flags (csrc/masked_matmul.cu)
-SLICE_COLS = 8
-FIRST_IN_CHUNK, LAST_IN_CHUNK, FIRST_IN_PROGRAM, SAME_BINS = 1, 2, 4, 8
-
-
-def chunk_layout(A, progs, pieces):
-    """Every program's rows cut into chunks (``macro_oneshot.chunk_table``)
-    and laid out as ``csrc/masked_matmul.cu`` stages them: (chunks int32
-    (nchunks, 5) = (program, first row, rows, offset in ``At``, its widest
-    piece kw), ``At`` f64 flat).  Within a chunk of a program of P pieces,
-    column k * P + j holds piece j's rows' A[:, off_j + k] (zeros for k past
-    its width), ``COLUMN_STRIDE`` doubles apart, so the columns of a run of
-    k are one contiguous block and lanes in different pieces read columns
-    one apart (distinct banks for up to 8 pieces)."""
-    table, _ = chunk_table(progs, pieces)
-    chunks, blocks, offset = [], [], 0
-    for g, row, n, _ in table:
-        _, _, c0, c1, _ = progs[g]
-        kw = int(pieces[c0:c1, 1].max())
-        block = np.zeros((kw, c1 - c0, COLUMN_STRIDE))
-        for j, (off, w) in enumerate(pieces[c0:c1]):
-            block[:w, j, :n] = A[row:row + n, off:off + w].T
-        chunks.append((g, row, n, offset, kw))
-        blocks.append(block.ravel())
-        offset += block.size
-    return np.asarray(chunks, np.int32).reshape(-1, 5), np.concatenate(blocks)
+from .macro_oneshot import (BINNING_TOL, CHUNK_ROWS, COLUMN_STRIDE, chunk_table, gather_slices,
+                            mask_words, pack_geometry, slice_table)
 
 
 def same_bins(maps, progs):
@@ -65,30 +40,6 @@ def same_bins(maps, progs):
     for (_, _, a0, a1, ua), (_, _, b0, b1, ub) in zip(progs[:-1], progs[1:]):
         out.append(bool(ua == ub and np.array_equal(maps[1 + a0:1 + a1], maps[1 + b0:1 + b1])))
     return out
-
-
-def slice_table(chunks, progs, slice_cols, shared=None):
-    """The ring's slices, in the order a block walks them: every chunk of
-    ``chunk_layout`` cut into runs of k, as many as ``slice_cols`` columns
-    hold (at least one).  int32 (nslices, SLICE_COLS) = (program, first row,
-    rows, first k, end k, offset in At, pieces P, flags); a slice is one
-    contiguous block of At, (end - first k) * P * COLUMN_STRIDE doubles.
-    ``shared`` (per program, ``same_bins``) marks the programs that keep the
-    masks of the one before (SAME_BINS on their first slice)."""
-    out, prev = [], None
-    for g, row, n, offset, kw in chunks:
-        npieces = int(progs[g, 3] - progs[g, 2])
-        run = max(1, slice_cols // npieces)
-        for k in range(0, kw, run):
-            end = min(kw, k + run)
-            first = k == 0 and g != prev
-            flags = ((FIRST_IN_CHUNK if k == 0 else 0) | (LAST_IN_CHUNK if end == kw else 0)
-                     | (FIRST_IN_PROGRAM if first else 0)
-                     | (SAME_BINS if first and shared is not None and shared[g] else 0))
-            out.append((g, row, n, k, end, offset + k * npieces * COLUMN_STRIDE, npieces,
-                        flags))
-        prev = g
-    return np.asarray(out, np.int32).reshape(-1, SLICE_COLS)
 
 
 class MaskedMatmul:
@@ -136,35 +87,34 @@ class MaskedMatmul:
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
         if int(pieces_t[-1].sum()) != self.K:
             raise ValueError("the pieces must cover the columns of A")
-        widest = int((progs[:, 3] - progs[:, 2]).max())
-        if widest > MAX_PROGRAM_PIECES:
-            raise NotImplementedError(
-                f"a program of {widest} subcells: K7 takes at most {MAX_PROGRAM_PIECES}")
+        #: mask words a point keeps for the widest program (32 subcells a word)
+        self.words = mask_words(progs)
         self.max_nexp = max(self.nexp)
-        chunks, At = chunk_layout(A, progs, pieces_t)
-        self.chunks = chunks
-        self._progs = progs
+        self.chunks = chunk_table(progs, pieces_t)
+        self._progs, self._pieces = progs, pieces_t
         self._shared = same_bins(maps, progs)
         #: columns of the widest chunk: a slice needs no more
         self.chunk_cols = max(int(progs[g, 3] - progs[g, 2]) * int(kw)
-                              for g, _, _, _, kw in chunks)
+                              for g, _, _, kw in self.chunks)
         self.device = resolve_device(device)
 
         def as_t(a, dtype=torch.float64):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=self.device)
 
-        # the kernel reads A in its chunk layout (At); the plain version reads A
+        # the kernel reads A in its slices' layout (At, built with the plan's
+        # slices); the plain version reads A
         self.A = as_t(A)
-        self.At = as_t(At)
         self.maps = as_t(maps)
         self.progs = as_t(progs, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
         self.device = self.A.device       # "cuda" resolved to its index
-        plan = self.plan_for(self.max_nexp, self.chunk_cols, self.sd)
+        plan = self.plan_for(self.max_nexp, self.chunk_cols, self.sd, self.words,
+                             int((progs[:, 3] - progs[:, 2]).max()))
         if plan is None:
             raise NotImplementedError(
-                f"a Phi prefix of {self.max_nexp} rows: K7's smallest point tile leaves no room "
-                f"for a ring of A in a block's {self.SMEM_MAX} bytes of shared memory")
+                f"a Phi prefix of {self.max_nexp} rows and {self.words} mask words a point: "
+                f"K7's smallest point tile leaves no room for a ring of A in a block's "
+                f"{self.SMEM_MAX} bytes of shared memory")
         self.plan = plan
         self.launches = 0
 
@@ -181,67 +131,71 @@ class MaskedMatmul:
             raise ValueError(f"a slice of {plan[1]} columns: one k of a program of {widest} "
                              f"pieces needs {widest}")
         self._plan = tuple(plan)
-        self.slices = torch.as_tensor(
-            slice_table(self.chunks, self._progs, self._plan[1], self._shared), device=self.device)
+        slices, gather = slice_table(self.chunks, self._progs, self._pieces, self.K, plan[1],
+                                     CHUNK_ROWS, 8, self._shared)
+        self.slices = torch.as_tensor(slices, device=self.device)
+        self.At = gather_slices(self.A, torch.as_tensor(gather, device=self.device))
 
     @classmethod
-    def smem_bytes(cls, kmax, tp, cols, stages):
+    def smem_bytes(cls, kmax, tp, cols, stages, words=1):
         """Shared memory of a block of ``tp`` points (csrc ``smem_bytes``):
         the Phi tile, a ring of ``stages`` slices of ``cols`` columns, each
-        point slot's sorted point, masks and factor, the mbarriers and
-        counters."""
-        return 8 * (kmax * tp + stages * cols * COLUMN_STRIDE + tp) + 8 * tp + 8 * (
+        point slot's factor, sorted point and ``words`` mask words, the
+        mbarriers and counters."""
+        return 8 * (kmax * tp + stages * cols * COLUMN_STRIDE + tp) + 4 * tp * (1 + words) + 8 * (
             3 * cls.STAGES + 1)
 
     @classmethod
-    def fit(cls, kmax, chunk_cols, tp, blocks):
+    def fit(cls, kmax, chunk_cols, tp, blocks, words=1, widest=1):
         """(tp, slice columns, slices in the ring, blocks) with the widest
         slice, up to ``chunk_cols``, that MIN_STAGES of leave room for beside
         the Phi tile in the shared memory of ``blocks`` blocks an SM, and as
         many of those slices as fit, up to STAGES; None if that slice is
-        under ``min(chunk_cols, MIN_COLS)`` columns."""
+        under ``min(chunk_cols, MIN_COLS)`` columns or one k of the
+        ``widest`` program."""
         col = 8 * COLUMN_STRIDE
         budget = min(cls.SMEM_MAX, (cls.SMEM_SM // blocks - cls.SMEM_BLOCK)
                      // cls.SMEM_UNIT * cls.SMEM_UNIT)
-        free = budget - cls.smem_bytes(kmax, tp, 0, 0)
+        free = budget - cls.smem_bytes(kmax, tp, 0, 0, words)
         cols = min(chunk_cols, max(0, free) // (cls.MIN_STAGES * col))
-        if cols < min(chunk_cols, cls.MIN_COLS):
+        if cols < max(min(chunk_cols, cls.MIN_COLS), widest):
             return None
         return tp, cols, min(cls.STAGES, free // (cols * col)), blocks
 
     @classmethod
-    def candidates(cls, kmax, chunk_cols, sd, scale=1):
-        """Every plan ``fit`` takes for a Phi prefix of ``kmax`` rows and
-        chunks ``chunk_cols`` columns wide in cells of dimension ``sd``: each
-        point tile at each count of blocks an SM up to ``scale`` times the
-        threads its launch bounds leave registers for, most first."""
+    def candidates(cls, kmax, chunk_cols, sd, scale=1, words=1, widest=1):
+        """Every plan ``fit`` takes for a Phi prefix of ``kmax`` rows,
+        chunks ``chunk_cols`` columns wide, ``words`` mask words a point and
+        programs of at most ``widest`` pieces in cells of dimension ``sd``:
+        each point tile at each count of blocks an SM up to ``scale`` times
+        the threads its launch bounds leave registers for, most first."""
         return [plan for tp in cls.POINT_TILES
                 for blocks in range(scale * cls.THREADS_SM[sd] // (2 * tp), 0, -1)
-                if (plan := cls.fit(kmax, chunk_cols, tp, blocks)) is not None]
+                if (plan := cls.fit(kmax, chunk_cols, tp, blocks, words, widest)) is not None]
 
     @classmethod
-    def plan_for(cls, kmax, chunk_cols, sd):
+    def plan_for(cls, kmax, chunk_cols, sd, words=1, widest=1):
         """Of the ``candidates``, the one that keeps most threads an SM; then
         one whose slices hold ``min(chunk_cols, WIDE_COLS)`` columns (fewer
         waits on the ring); then the most blocks an SM (one block's binning
         and ring fill beside another's products), the widest slice and the
         deepest ring; None if none fits."""
         wide = min(chunk_cols, cls.WIDE_COLS)
-        return max(cls.candidates(kmax, chunk_cols, sd),
+        return max(cls.candidates(kmax, chunk_cols, sd, words=words, widest=widest),
                    key=lambda p: (p[0] * p[3], p[1] >= wide, p[3], p[1], p[2]), default=None)
 
     @property
     def smem(self):
         """Shared memory of one of the plan's blocks, in bytes."""
         tp, cols, stages, _ = self.plan
-        return self.smem_bytes(self.max_nexp, tp, cols, stages)
+        return self.smem_bytes(self.max_nexp, tp, cols, stages, self.words)
 
     def occupancy(self):
         """Blocks of the plan an SM holds at once on the card (registers and
         shared memory), from the CUDA runtime."""
         tp, cols, stages, _ = self.plan
         blocks = load_kernels().fiat_masked_matmul_occupancy(self.sd, self.max_nexp, tp, cols,
-                                                             stages)
+                                                             stages, self.words)
         check_launch("fiat_masked_matmul_occupancy", max(0, -blocks))
         return blocks
 
@@ -279,7 +233,7 @@ class MaskedMatmul:
             points.data_ptr(), npts, self.sd, BINNING_TOL[torch.float64], self.maps.data_ptr(),
             self.progs.data_ptr(), self.pieces.data_ptr(), self.slices.data_ptr(),
             self.slices.shape[0], self.At.data_ptr(), phi.data_ptr(), self.max_nexp,
-            out.data_ptr(), tp, cols, stages, stream_of(points))
+            out.data_ptr(), tp, cols, stages, self.words, stream_of(points))
         check_launch(f"fiat_masked_matmul ({self.rows} x {self.K}, sd = {self.sd}, plan "
                      f"{self.plan})", err)
         self.launches += 1

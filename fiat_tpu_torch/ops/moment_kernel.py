@@ -7,7 +7,8 @@ through df32 pairs, Ozaki windows and exact window reductions, and are two
 kernels; Hopper has native FP64, so one kernel (``csrc/moments.cu``)
 computes both in f64: per point the Dubiner recurrence and the subcell
 masks of every macro program (``csrc/binning.cuh``, shared with K3 and
-K7; program by program, so a zoo may have any number of subcells),
+K7; program by program and 32 subcells a word, so a zoo and each of its
+programs may have any number of subcells),
 streamed a warp's 32 points at a time through a shared-memory slab into
 sums each lane owns by member, reduced per block, and the blocks'
 partials summed in groups by the last blocks to finish, in the same
@@ -26,7 +27,7 @@ import torch
 
 from ..core.expansions import dubiner_tabulate, subcell_masks
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .macro_oneshot import BINNING_TOL, MAX_PROGRAM_PIECES, pack_geometry
+from .macro_oneshot import BINNING_TOL, pack_geometry
 from .recurrence import pack_stages
 
 #: highest degree the kernel is instantiated for (csrc/moments.cu), on the
@@ -58,10 +59,10 @@ def even_doubles(nbytes):
 
 def warp_doubles(piece_rows, npieces, nprogs):
     """Doubles of one warp's shared memory (csrc/moments.cuh warp_doubles):
-    the slab, the tile's point mask of each piece (4 bytes) and hit count
-    of each point in each program (32 bytes a program), then one double per
-    piece row."""
-    return SLAB + even_doubles(4 * npieces + 32 * nprogs) + even_doubles(8 * piece_rows)
+    the slab, the tile's point mask of each piece (4 bytes) and 16-bit hit
+    count of each point in each program (64 bytes a program), then one
+    double per piece row."""
+    return SLAB + even_doubles(4 * npieces + 64 * nprogs) + even_doubles(8 * piece_rows)
 
 
 def block_smem(warps, piece_rows, npieces, nprogs):
@@ -131,10 +132,6 @@ class PairMoments:
 
         if self.geom:
             maps, progs, pieces_t = pack_geometry(self.geom, parent_map, self.piece_nexp)
-            widest = int((progs[:, 3] - progs[:, 2]).max())
-            if widest > MAX_PROGRAM_PIECES:
-                raise NotImplementedError(f"a program of {widest} subcells: K45 takes at most "
-                                          f"{MAX_PROGRAM_PIECES} a program")
         else:
             maps = np.zeros((1, self.sd + 1, self.sd + 1))
             progs, pieces_t = np.zeros((0, 5)), np.zeros((0, 2))
@@ -149,7 +146,10 @@ class PairMoments:
         self.device = self.slots.device        # "cuda" resolved to its index
         # a warp's shared memory (its slab, piece masks, hit counts and
         # piece sums) and the warps a block takes beside the piece table:
-        # degree 10 with 32 pieces of 286 needs 80 KB a warp, 2 a block
+        # degree 10 with 32 pieces of 286 needs 80 KB a warp, 2 a block; a
+        # piece of n members costs 16 + 8 n bytes of one warp's share and 12
+        # of the table, so one warp stops fitting at about 5,500 pieces of 3
+        # members (csrc/moments.cu), where this raises naming shared memory
         self.piece_rows = self.rows - self.nplain
         self.nprogs = len(self.geom)
         self.warp_smem = 8 * warp_doubles(self.piece_rows, len(self.piece_nexp), self.nprogs)

@@ -34,8 +34,9 @@ from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
 from fiat_tpu_torch.ops.fused_zoo import _merge_macro_programs
-from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, MAX_SMEM, TILE_POINTS,
-                                              MacroOneShot, chunk_table, one_shot_applies)
+from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, MAX_SMEM, RESIDENT_SMEM,
+                                              MacroOneShot, ceil16, chunk_table,
+                                              one_shot_applies, smem_bytes)
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
@@ -186,22 +187,24 @@ def test_k3_sd3_kernel_loop_on_its_chunk_table_matches_plain(order, where):
 
 def test_k3_sd3_chunks_fit_shared_memory_and_the_precondition():
     """sv_macro_tet's largest chunk (the Worsey-Farin programs: 12 pieces of
-    ps 11 columns, 35.9 KB in f64) and its Phi tile (20 members x 128
-    points, 20 KB) fit a block; K3 takes tets for the f32 tables and
-    interpolation, and the f64 engine keeps K7 there (one_shot_applies)."""
+    10 columns, 32.6 KB in f64) and its Phi tile (20 members x 128 points,
+    20 KB) fit a block, so every chunk stays resident; K3 takes tets for the
+    f32 tables and interpolation, and the f64 engine keeps K7 there
+    (one_shot_applies)."""
     mo = _k3(sv_macro_tet(tfe, tcl.ufc_simplex(3)), 1)
-    assert mo.phi_at == 12 * 11 * COLUMN_STRIDE and mo.smem == mo.phi_at + 20 * TILE_POINTS
-    assert mo.smem * 8 <= MAX_SMEM
-    assert mo.chunks[:, 3].tolist() == [21] * 5 + [11] * 10 + [5] * 6
+    assert mo.plan == (128, 12 * 10, 1, True)
+    ring = 12 * 10 * COLUMN_STRIDE
+    assert mo.layout()["ring"] == ring and mo.smem == smem_bytes(20, 8, 128, ring, 1, 0)
+    assert mo.smem <= MAX_SMEM
+    assert mo.chunks[:, 3].tolist() == [20] * 5 + [10] * 10 + [4] * 6
     assert mo.consts.shape[0] == 4 * (4 + 10 + 20) and mo.slots.shape[0] == 20
     st = BatchedTabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1, device="cpu").state()
     merged = _merge_macro_programs(st["macro_programs"], st["scale"], st["affine_map"], 1)
     assert not one_shot_applies(merged)
     assert device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1,
                             device="cpu").macro.name == "K7"
-    chunks, largest = chunk_table(np.array([[0, 70, 0, 2, 0]]), np.array([[0, 9], [9, 4]]))
+    chunks = chunk_table(np.array([[0, 70, 0, 2, 0]]), np.array([[0, 9], [9, 4]]))
     assert chunks.tolist() == [[0, 0, 32, 9], [0, 32, 32, 9], [0, 64, 6, 9]]
-    assert largest == 2 * 9 * COLUMN_STRIDE
 
 
 def test_k3_sd3_wrapper_checks_and_limits():
@@ -226,29 +229,39 @@ def test_k3_sd3_wrapper_checks_and_limits():
 @pytest.mark.parametrize("dtype,subcells,degree,fits", [
     (torch.float64, 4, 6, True), (torch.float64, 4, 7, False), (torch.float64, 12, 4, True),
     (torch.float64, 12, 5, False), (torch.float32, 4, 8, True), (torch.float32, 12, 6, True),
-    (torch.float32, 12, 7, False)])
-def test_k3_sd3_refuses_a_chunk_and_tile_past_shared_memory(dtype, subcells, degree, fits):
-    """One program of ``subcells`` pieces of the degree's width: its staged
-    chunk and the Phi tile fit a block's 227 KB, or the tables' launch
-    raises naming it, with no launch counted (the source note's limits).
-    The engine builds either way and its plain version runs."""
+    (torch.float32, 12, 7, False), (torch.float64, 4, 10, False)])
+def test_k3_sd3_streams_a_chunk_and_tile_past_shared_memory(dtype, subcells, degree, fits):
+    """One program of ``subcells`` pieces of the degree's width: its chunk
+    and the Phi tile fit a block's 227 KB, or not (``fits``: the shapes the
+    kernel refused before).  The chunk stays resident where the block
+    takes at most RESIDENT_SMEM, and is streamed through a ring of slices
+    where not; at degree 10 the Phi tile of 286 members x 128 points (293
+    KB in f64) does not fit alone, so the plan takes 64 points.  Every plan
+    fits a block and the kernel's loop under it equals the plain
+    version."""
     split = tmacro.AlfeldSplit if subcells == 4 else tmacro.WorseyFarinSplit
     cell = split(tcl.ufc_simplex(3))
     n = math.comb(degree + 3, 3)
     maps = [cell.barycentric_map(entity=(3, c), rescale=True) for c in range(subcells)]
-    args = dict(A=np.zeros((40, subcells * n)), pieces=[(c, n) for c in range(subcells)],
+    rng = np.random.default_rng(degree)
+    args = dict(A=rng.standard_normal((40, subcells * n)), pieces=[(c, n) for c in range(subcells)],
                 geom=[{"maps": maps, "unique": False, "rows": (0, 40)}],
                 parent_map=tcl.ufc_simplex(3).barycentric_map(rescale=True), degree=degree,
                 scale=1.0, affine_map=(2 * np.eye(3), -np.ones(3)), device="cpu", dtype=dtype)
     mo = MacroOneShot(**args)
-    assert (mo.smem * (8 if dtype == torch.float64 else 4) <= MAX_SMEM) == fits
-    P = torch.as_tensor(_points(20, degree)).to(dtype)
-    assert tuple(mo(P).shape) == (40, 20) and mo.launches == 0
-    if not fits:
-        # the launch on the card, up to the kernel's library (none here)
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            mo._launch(P, None)
-        assert mo.launches == 0
+    size = 8 if dtype == torch.float64 else 4
+    tp = 64 if degree == 10 else 128
+    whole = ceil16(subcells * n * COLUMN_STRIDE * size) + (n + 1) * tp * size + 4 * tp
+    assert fits == (whole <= MAX_SMEM) and mo.plan[0] == tp
+    assert mo.plan[3] == (whole <= RESIDENT_SMEM)
+    assert mo.smem <= MAX_SMEM and mo.smem_one <= MAX_SMEM
+    pts = _points(20, degree)
+    P = torch.as_tensor(pts).to(dtype)
+    want = mo(P)
+    assert tuple(want.shape) == (40, 20) and mo.launches == 0
+    if dtype == torch.float64:
+        got = _replay_k3(mo, pts)
+        assert np.abs(got - want.numpy()).max() <= RTOL_REPLAY * np.abs(want.numpy()).max()
 
 
 def test_tet_macro_f32_tables_match_fiat_tpu_pallas_interpret():

@@ -1,11 +1,12 @@
 """K3 on triangles (``ops/macro_oneshot.MacroOneShot`` on a triangle parent)
 in its row-chunked layout, against fiat_tpu on the CPU: a replay of the
-kernel's loop on the chunk tables the wrapper builds (one chunk a block for
-the tables, every program's one-row chunk in one block for the
-interpolation's W), the shared-memory limit that holds only a chunk and the
-Phi tile, and the C1 zoo at order 3, whose A (330 x 138) is past a block's
-shared memory, against fiat_tpu's host tabulation and its one-shot kernel
-``FusedMacroOneShot`` in interpret mode.
+kernel's loop on the slice tables the wrapper builds (one chunk a group for
+the tables, every program's one-row chunk in one group for the
+interpolation's W; resident slices or a streaming ring, under the plan and
+under narrow ones), the plan that fits only the Phi tile and a ring of
+slices in a block, and the C1 zoo at order 3, whose A (330 x 138) is past a
+block's shared memory, against fiat_tpu's host tabulation and its one-shot
+kernel ``FusedMacroOneShot`` in interpret mode.
 
 Inputs are numpy arrays made from seeds and handed to both packages;
 fiat_tpu's Pallas kernels run in interpret mode, as its own tests run
@@ -32,8 +33,10 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.fused_zoo import _merge_macro_programs
-from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, MAX_SMEM, ONE_ROW_CHUNK, TILE_POINTS,
-                                              MacroOneShot, column_stride)
+from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, FIRST_IN_CHUNK, LAST_IN_CHUNK,
+                                              MAX_SMEM, ONE_ROW_CHUNK, RESIDENT_SMEM, MacroOneShot,
+                                              ceil16, column_stride, smem_bytes,
+                                              tiles_per_block)
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -72,27 +75,42 @@ def _k3(zoo, order, dtype=torch.float64):
     return MacroOneShot(**merged, device="cpu", dtype=dtype)
 
 
-def _replay_k3(mo, pts, A=None):
+def _rule_words(hits, unique):
+    """binning.cuh's rule_word over a program's words of 32 pieces, in
+    order: (kept hits, hits kept a point)."""
+    kept, out = np.zeros(len(hits), int), np.zeros_like(hits)
+    for w0 in range(0, hits.shape[1], 32):
+        bits = hits[:, w0:w0 + 32].copy()
+        if unique:      # the word's first hit, if no word before had one
+            bits &= (np.cumsum(bits, axis=1) == 1) & (kept == 0)[:, None]
+        kept += bits.sum(axis=1)
+        out[:, w0:w0 + 32] = bits
+    return out, kept
+
+
+def _replay_k3(mo, pts, A=None, sub=None):
     """csrc/macro_oneshot.cuh's loop in numpy on the tables the wrapper
-    built, on triangles or tetrahedra.  Per block, its group of chunks
-    (``cpb`` consecutive ones: one for the tables, every program's one-row
-    chunk for ``A``) staged one after another into a flat shared memory of
-    ``phi_at`` values (piece j's column k of a chunk at its offset + (j * ps
-    + k) * column_stride + r; whatever the kernel never writes is NaN here),
-    the recurrence's values (dubiner2.cuh or dubiner3.cuh) at their member
-    rows of the Phi tile, once a point; then per chunk its program's
-    binning and, for each hit piece, k ascending, phi_k times its staged
-    column into the chunk's rows, a group of ROW_GROUP rows at a time up to
-    the chunk's last row."""
+    built for its plan (``mo.layout``), on triangles or tetrahedra.  Per
+    block, its group of chunks (one for the tables, every program's one-row
+    chunk for ``A``) and ``sub`` point tiles of the plan's points (the
+    wrapper's count unless given): the shared memory as the bulk copies fill
+    it (every slice of the group at its offset from the group's first, or
+    the ring's buffers, visit u's slice into buffer u % stages once visit u
+    - stages is done; whatever no copy writes is NaN here); per tile the
+    recurrence's values (dubiner2.cuh or dubiner3.cuh); per chunk its
+    program's binning word by word; per slice, for each hit piece in order,
+    k ascending, phi_k times its column into the chunk's rows, a group of
+    ROW_GROUP rows at a time up to the chunk's last row."""
     maps, progs, pieces = mo.maps.numpy(), mo.progs.numpy(), mo.pieces.numpy()
     consts, slots = mo.consts.numpy(), mo.slots.numpy()
     one = A is not None
-    chunks = (mo.chunks_one if one else mo.chunks).numpy()
-    cpb, rc, phi_at = ((mo.cpb_one, ONE_ROW_CHUNK, mo.phi_at_one) if one
-                       else (mo.cpb, CHUNK_ROWS, mo.phi_at))
-    assert phi_at % 2 == 0
+    lay = mo.layout(one)
+    tp, _, stages, resident = mo.plan_one if one else mo.plan
+    rc = ONE_ROW_CHUNK if one else CHUNK_ROWS
     rcp, group = column_stride(rc), min(rc, ROW_GROUP)
     A = mo.A.numpy() if A is None else A
+    At = np.append(A.ravel(), 0.0)[lay["gather"]]
+    slices, groups, buf = lay["slices"], lay["groups"], lay["buf"]
     sd = mo.sd
     ref = (pts @ mo.affine[:sd * sd].reshape(sd, sd).T + mo.affine[sd * sd:]).T
     if sd == 2:
@@ -101,32 +119,50 @@ def _replay_k3(mo, pts, A=None):
         phi = np.zeros((math.comb(mo.degree + 3, 3), len(pts)))
         for e, v in _dubiner3_values(ref, consts, mo.degree, mo.scale):
             phi[slots[e]] = v
-    out = np.full((A.shape[0], len(pts)), np.nan)
-    for t0 in range(0, len(chunks), cpb):
-        smem, at = np.full(phi_at, np.nan), 0
-        for g, row0, nrows, ps in chunks[t0:t0 + cpb]:
-            _, _, c0, c1, _ = progs[g]
-            for j, (off, nk) in enumerate(pieces[c0:c1]):
-                for k in range(nk):
-                    col = at + (j * ps + k) * rcp
-                    smem[col:col + nrows] = A[row0:row0 + nrows, off + k]
-            at += (c1 - c0) * ps * rcp
-        assert at <= phi_at
-        at = 0
-        for g, row0, nrows, ps in chunks[t0:t0 + cpb]:
-            _, _, c0, c1, unique = progs[g]
-            hits = _bin_as_the_kernel(maps, pts, c0, c1)
-            if unique:      # the first hit alone
-                hits &= np.cumsum(hits, axis=1) == 1
-            recip = 1.0 if unique else 1.0 / hits.sum(axis=1)
-            live = min(rc, -(-nrows // group) * group)
-            acc = np.zeros((live, len(pts)))
-            for j, (_, nk) in enumerate(pieces[c0:c1]):
-                for k in range(nk):
-                    col = at + (j * ps + k) * rcp
-                    acc += np.where(hits[:, j], smem[col:col + live, None] * phi[k], 0.0)
-            out[row0:row0 + nrows] = (acc * recip)[:nrows]
-            at += (c1 - c0) * ps * rcp
+    npts = len(pts)
+    ntiles = -(-npts // tp)
+    sub = sub or tiles_per_block(npts, len(groups) - 1, tp)
+    out = np.full((A.shape[0], npts), np.nan)
+    for first, end in zip(groups[:-1], groups[1:]):
+        n, base = end - first, slices[first, 5]
+        for tile0 in range(0, ntiles, sub):
+            tiles = min(sub, ntiles - tile0)
+            smem = np.full(lay["ring"], np.nan)
+
+            def fetch(t, at):
+                off, size = slices[first + t, 5], slices[first + t, 8]
+                assert at + size <= len(smem) and off % (16 // At.itemsize) == 0
+                smem[at:at + size] = At[off:off + size]
+
+            if resident:
+                for t in range(n):
+                    fetch(t, slices[first + t, 5] - base)
+            else:
+                for u in range(min(stages, tiles * n)):
+                    fetch(u % n, u * buf)
+            for s in range(tiles):
+                q = np.arange((tile0 + s) * tp, min((tile0 + s + 1) * tp, npts))
+                for t in range(n):
+                    u = s * n + t
+                    g, row0, nrows, k0, k1, off, npieces, flags, _, c0, unique = slices[first + t]
+                    assert (c0, c0 + npieces, unique) == tuple(progs[g, 2:])
+                    if flags & FIRST_IN_CHUNK:
+                        hits, kept = _rule_words(
+                            _bin_as_the_kernel(maps, pts[q], c0, c0 + npieces), unique)
+                        with np.errstate(divide="ignore"):
+                            recip = 1.0 if unique else 1.0 / kept
+                        live = min(rc, -(-nrows // group) * group)
+                        acc = np.zeros((live, len(q)))
+                    at = off - base if resident else (u % stages) * buf
+                    cols = smem[at:at + (k1 - k0) * npieces * rcp].reshape(k1 - k0, npieces, rcp)
+                    for j in range(npieces):
+                        for k in range(k0, min(pieces[c0 + j, 1], k1)):
+                            acc += np.where(hits[:, j], cols[k - k0, j, :live, None] * phi[k, q],
+                                            0.0)
+                    if not resident and u + stages < tiles * n:
+                        fetch((u + stages) % n, (u % stages) * buf)
+                    if flags & LAST_IN_CHUNK:
+                        out[row0:row0 + nrows, q] = (acc * recip)[:nrows]
     return out
 
 
@@ -146,6 +182,11 @@ def test_k3_tri_kernel_loop_on_its_chunk_table_matches_plain(zoo, order, where):
     P = torch.as_tensor(pts)
     want = mo(P).numpy()
     assert np.abs(_replay_k3(mo, pts) - want).max() <= RTOL_REPLAY * np.abs(want).max()
+    # a streaming ring of one k of the widest program a slice, blocks of
+    # three tiles of 64 points (the ring's visits run on across tiles)
+    widest = int((mo.progs[:, 3] - mo.progs[:, 2]).max())
+    mo.plan = (mo.tp, widest, 2, False)
+    assert np.abs(_replay_k3(mo, pts, sub=3) - want).max() <= RTOL_REPLAY * np.abs(want).max()
     # row g of W holds program g's columns alone, as the interpolation's does
     W = np.random.default_rng(order).standard_normal((len(mo.geom), mo.K))
     W *= np.repeat(np.eye(len(mo.geom)), [sum(mo.nexp[c0:c1]) for _, _, c0, c1, _ in
@@ -155,24 +196,33 @@ def test_k3_tri_kernel_loop_on_its_chunk_table_matches_plain(zoo, order, where):
 
 
 @pytest.mark.parametrize("order,rows,chunks", [
-    (1, (36, 27), [[0, 0, 32, 11], [0, 32, 4, 11], [1, 36, 27, 7]]),
-    (2, (72, 54, 72), [[0, 0, 32, 11], [0, 32, 32, 11], [0, 64, 8, 11], [1, 72, 32, 7],
-                       [1, 104, 22, 7], [2, 126, 32, 7], [2, 158, 32, 7], [2, 190, 8, 7]])])
+    (1, (36, 27), [[0, 0, 32, 10], [0, 32, 4, 10], [1, 36, 27, 6]]),
+    (2, (72, 54, 72), [[0, 0, 32, 10], [0, 32, 32, 10], [0, 64, 8, 10], [1, 72, 32, 6],
+                       [1, 104, 22, 6], [2, 126, 32, 6], [2, 158, 32, 6], [2, 190, 8, 6]])])
 def test_k3_tri_chunk_tables(order, rows, chunks):
     """full_zoo's macro programs at order 1 (HCT 36 rows, PS6 27) and the C1
-    zoo's at order 2 (HCT 72, PS6 54, PS12 72): 32-row chunks, each staged
-    with ps = the widest piece rounded up to odd; one-row chunks all in one
-    block, staged in fewer values than the largest chunk."""
+    zoo's at order 2 (HCT 72, PS6 54, PS12 72): 32-row chunks with the
+    program's widest piece; the plan keeps each chunk resident at 128
+    points (one slice a chunk, its P x kw columns of 34 values padded to 16
+    bytes), and one-row chunks all in one group, resident too."""
     zoo = (_full_zoo_macro if order == 1 else _c1_zoo)(tfe, tcl.ufc_simplex(2))
     mo = _k3(zoo, order)
     assert [r1 - r0 for r0, r1 in (g["rows"] for g in mo.geom)] == list(rows)
     assert mo.chunks.tolist() == chunks
-    staged = [(c1 - c0) * ps for (_, _, c0, c1, _), ps in
-              zip(mo.progs.numpy(), [11, 7, 7][:len(rows)])]
-    assert mo.phi_at == max(staged) * column_stride(CHUNK_ROWS)
-    assert mo.chunks_one.tolist() == [[g, g, 1, ps] for g, ps in enumerate([11, 7, 7][:len(rows)])]
-    assert mo.phi_at_one == sum(staged) + sum(staged) % 2 < mo.phi_at
-    assert mo.smem == mo.phi_at + 10 * TILE_POINTS
+    npieces = [3, 6, 12][:len(rows)]
+    widths = [10, 6, 6][:len(rows)]
+    cols = [p * w for p, w in zip(npieces, widths)]
+    assert mo.plan == (128, max(cols), 1, True) and mo.plan_one == (128, max(cols), len(rows),
+                                                                    True)
+    lay = mo.layout()
+    assert lay["slices"][:, 8].tolist() == [cols[g] * column_stride(CHUNK_ROWS) for g, *_ in chunks]
+    assert lay["ring"] == max(cols) * column_stride(CHUNK_ROWS) and lay["nbar"] == 0
+    assert mo.smem == smem_bytes(10, 8, 128, lay["ring"], 1, 0)
+    one = mo.layout(one=True)
+    assert mo.chunks_one.tolist() == [[g, g, 1, w] for g, w in enumerate(widths)]
+    assert one["ring"] == sum(ceil16(8 * c) // 8 for c in cols) < lay["ring"]
+    assert one["groups"].tolist() == [0, len(rows)]
+    assert mo.smem_one == smem_bytes(10, 8, 128, one["ring"], 1, 0)
 
 
 def test_k3_tri_takes_an_a_past_shared_memory():
@@ -181,60 +231,67 @@ def test_k3_tri_takes_an_a_past_shared_memory():
     a program 4000 rows tall."""
     mo = _k3(_c1_zoo(tfe, tcl.ufc_simplex(2)), 3)
     assert (mo.rows, mo.K) == (330, 138) and mo.rows * mo.K * 8 > MAX_SMEM
-    assert mo.smem * 8 <= MAX_SMEM and mo.chunks.shape[0] == 11
+    assert mo.smem <= MAX_SMEM and mo.chunks.shape[0] == 11 and mo.plan[3]
     split = tmacro.PowellSabin12Split(tcl.ufc_simplex(2))
     tall = MacroOneShot(A=np.ones((4000, 12 * 10)), pieces=[(c, 10) for c in range(12)],
                         geom=[{"maps": [split.barycentric_map(entity=(2, c), rescale=True)
                                         for c in range(12)], "unique": False, "rows": (0, 4000)}],
                         parent_map=tcl.ufc_simplex(2).barycentric_map(rescale=True), degree=3,
                         scale=1.0, affine_map=(2 * np.eye(2), -np.ones(2)), device="cpu")
-    assert tall.chunks.shape[0] == 125 and tall.smem * 8 <= MAX_SMEM
+    assert tall.chunks.shape[0] == 125 and tall.smem <= MAX_SMEM
+    assert len(tall.layout()["groups"]) == 126
 
 
 @pytest.mark.parametrize("dtype,subcells,degree,fits", [
     (torch.float64, 3, 10, True), (torch.float64, 6, 10, True), (torch.float64, 12, 8, True),
     (torch.float64, 12, 9, False), (torch.float32, 12, 10, True)])
-def test_k3_tri_refuses_only_a_chunk_and_tile_past_shared_memory(dtype, subcells, degree, fits):
+def test_k3_tri_streams_only_a_chunk_and_tile_past_shared_memory(dtype, subcells, degree, fits):
     """One triangle program of ``subcells`` pieces of the degree's width, 40
-    rows: its staged chunk (subcells x ps x 34 values) and the Phi tile
-    (nexp x 128) fit a block's 227 KB, or the tables' launch raises naming
-    shared memory, with no launch counted.  The engine builds either way
-    and its plain version runs; one row a program stages far less and
-    fits in every case."""
+    rows: its chunk (subcells x n x 34 values) and the Phi tile (n x 128)
+    fit a block's 227 KB, or not (``fits``: the shapes the kernel refused
+    before).  The plan keeps the chunk resident where the block takes at
+    most a quarter of an SM's shared memory (RESIDENT_SMEM), and else
+    streams it through a ring of slices at 128 points.  Every plan fits a
+    block, and the kernel's loop under it equals the plain version."""
     split = {3: tmacro.AlfeldSplit, 6: tmacro.PowellSabinSplit,
              12: tmacro.PowellSabin12Split}[subcells](tcl.ufc_simplex(2))
     n = (degree + 1) * (degree + 2) // 2
-    args = dict(A=np.zeros((40, subcells * n)), pieces=[(c, n) for c in range(subcells)],
+    rng = np.random.default_rng(degree)
+    args = dict(A=rng.standard_normal((40, subcells * n)),
+                pieces=[(c, n) for c in range(subcells)],
                 geom=[{"maps": [split.barycentric_map(entity=(2, c), rescale=True)
                                 for c in range(subcells)], "unique": False, "rows": (0, 40)}],
                 parent_map=tcl.ufc_simplex(2).barycentric_map(rescale=True), degree=degree,
                 scale=1.0, affine_map=(2 * np.eye(2), -np.ones(2)), device="cpu", dtype=dtype)
     size = 8 if dtype == torch.float64 else 4
-    nbytes = (subcells * (n | 1) * column_stride(CHUNK_ROWS) + n * TILE_POINTS) * size
-    assert (nbytes <= MAX_SMEM) == fits
+    whole = ceil16(subcells * n * column_stride(CHUNK_ROWS) * size) + (n + 1) * 128 * size + 4 * 128
+    assert (whole <= MAX_SMEM) == fits
     mo = MacroOneShot(**args)
-    assert mo.smem * size == nbytes
-    staged_one = subcells * (n | 1)
-    assert mo.smem_one == staged_one + staged_one % 2 + n * TILE_POINTS
-    assert mo.smem_one * size <= MAX_SMEM
-    P = torch.as_tensor(_points(20, degree)).to(dtype)
-    assert tuple(mo(P).shape) == (40, 20) and mo.launches == 0
-    if not fits:
-        # the launch on the card, up to the kernel's library (none here)
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            mo._launch(P, None)
-        assert mo.launches == 0
+    assert mo.plan[0] == 128 and mo.plan[3] == (whole <= RESIDENT_SMEM) and mo.smem <= MAX_SMEM
+    if mo.plan[3]:
+        assert mo.smem == whole
+    else:       # slices of at most about 17 KB, two to four of them
+        assert mo.plan[1] * column_stride(CHUNK_ROWS) * size <= 17408 and mo.plan[2] >= 2
+    assert mo.smem_one <= MAX_SMEM
+    pts = _points(20, degree)
+    P = torch.as_tensor(pts).to(dtype)
+    want = mo(P)
+    assert tuple(want.shape) == (40, 20) and mo.launches == 0
+    if dtype == torch.float64:
+        got = _replay_k3(mo, pts)
+        assert np.abs(got - want.numpy()).max() <= RTOL_REPLAY * np.abs(want.numpy()).max()
 
 
 def test_k3_tri_tables_past_shared_memory_run_plain_and_interpolate():
-    """Lagrange 9 on Powell-Sabin-12 splits beside P1: a block of K3's
-    tables (12 pieces of ps 55 x 34 values and the 55-member Phi tile,
-    235,840 bytes in f64) is past 227 KB, a block of one row a program
-    (61,600 bytes) is not.  The engines build; on the CPU the plain tables
-    match fiat_tpu's CPU engine and the interpolation the port's own tables
-    (the element is ill-conditioned: fiat_tpu's tables are 3.5e-6 and its
-    interpolation 8.1e-6 from host tabulation, the port's no further); only
-    the tables' launch raises, naming shared memory."""
+    """Lagrange 9 on Powell-Sabin-12 splits beside P1: K3's tables chunk
+    (12 pieces of 55 x 34 values) and the 55-member Phi tile take 235,840
+    bytes in f64, past 227 KB, so the plan streams the chunk through a ring
+    of slices at 128 points, as it does one row a program.  The
+    engines build; on the CPU the plain tables match fiat_tpu's CPU engine,
+    the kernel's loop on the streamed slices matches the plain version, and
+    the interpolation the port's own tables (the element is
+    ill-conditioned: fiat_tpu's tables are 3.5e-6 and its interpolation
+    8.1e-6 from host tabulation, the port's no further)."""
     pts = _points(200, 47)
     J, T = jcl.ufc_simplex(2), tcl.ufc_simplex(2)
     jzoo = [jfe.Lagrange(J, 1), jfe.Lagrange(J, 9, variant="powell-sabin(12)")]
@@ -242,7 +299,9 @@ def test_k3_tri_tables_past_shared_memory_run_plain_and_interpolate():
     tab = device_tabulator(tzoo, order=0, device="cpu")
     mo = tab.macro
     assert mo.name == "K3" and (mo.rows, mo.K) == (514, 660)
-    assert mo.smem * 8 == 235_840 > MAX_SMEM >= mo.smem_one * 8 == 61_600
+    whole = 12 * 55 * column_stride(CHUNK_ROWS) * 8 + 55 * 128 * 8
+    assert whole == 235_840 > MAX_SMEM >= mo.smem
+    assert mo.plan[:1] + mo.plan[3:] == (128, False) and mo.smem_one <= MAX_SMEM
     jbt = JBatchedTabulator(jzoo, order=0)
     want = jbt.unpack(jbt(pts))
     got = tab.unpack(tab.block_tables(pts))
@@ -251,18 +310,28 @@ def test_k3_tri_tables_past_shared_memory_run_plain_and_interpolate():
     assert diff(want, got) <= ATOL_PS12_9
     host = [el.tabulate(0, pts) for el in jzoo]
     assert diff(host, got) <= diff(host, want) + ATOL_PS12_9
+    # the kernel's loop on the streamed slices: the sums cancel (the change
+    # of basis reaches 1e9), so they are held to the scale of |A| |B|
+    P = torch.as_tensor(pts[:60])
+    scale = _rounding_scale(mo, P).numpy()
+    assert (np.abs(_replay_k3(mo, pts[:60]) - mo(P).numpy()) <= RTOL_REPLAY * scale).all()
     c = np.random.default_rng(29).random(max(hi for _, hi, _ in jbt.slices)) - 0.5
     u_want = np.asarray(jmo.interpolate_rows(jbt, jnp.asarray(pts), jnp.asarray(c)))
     tb = BatchedTabulator(tzoo, order=0, device="cpu")
     u = tmo.interpolate_rows(tb, pts, c).numpy()
-    assert tb._moment_engine.macro.smem_one * 8 == 61_600
+    assert tb._moment_engine.macro.smem_one <= MAX_SMEM
     # fiat_tpu's interpolation is itself 8.1e-6 from host here, the port's 2.1e-6
     u_host = c @ np.vstack([np.asarray(h[(0, 0)]) for h in host])
     assert np.abs(u - u_host).max() <= np.abs(u_want - u_host).max()
     assert np.abs(u - c @ np.vstack([g[(0, 0)].numpy() for g in got])).max() <= ATOL_PS12_9
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        mo._launch(torch.as_tensor(pts), None)
     assert mo.launches == 0
+
+
+def _rounding_scale(mo, P, A=None):
+    """Per row r of K3's product, max over the points of |A_r| |B| (B its
+    masked parent basis), as a column: the scale row r's sums round at."""
+    B = mo.operand(P)[0]
+    return ((mo.A if A is None else A).abs() @ B.abs()).amax(dim=1, keepdim=True)
 
 
 def test_k3_tri_order3_matches_fiat_tpu_oneshot_interpreted_and_host():

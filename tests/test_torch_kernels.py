@@ -1167,14 +1167,15 @@ def test_macro_kernel_one_row_per_program_matches_plain(cuda, zoo, dtype):
     assert (got - want).abs().max().item() <= _bar(mo, P, want, Wt)
 
 
-def test_macro_kernel_refuses_only_the_mode_past_shared_memory(cuda):
-    """Lagrange 9 on Powell-Sabin-12 splits beside P1: a block of K3's
-    tables (235,840 bytes in f64) is past the card's 227 KB and its launch
-    raises naming shared memory, with no launch counted; the interpolation's
-    one row a program (61,600 bytes) launches K3 and matches its plain
-    version and the CPU engine.  The element is ill-conditioned: the
-    folded W reaches 7.5e8 and a value sums terms up to 3.4e9 for a result
-    near 1, so the bars are of that rounding scale (max |W| @ |B|)."""
+def test_macro_kernel_streams_the_tables_past_shared_memory(cuda):
+    """Lagrange 9 on Powell-Sabin-12 splits beside P1: K3's tables chunk and
+    Phi tile (235,840 bytes in f64) pass the card's 227 KB, so the plan
+    streams the chunk through a ring of slices; the tables launch K3, match
+    its plain version, and the interpolation's one row a program (resident)
+    launches K3 and matches its plain version and the CPU engine.  The
+    element is ill-conditioned: the folded W reaches 7.5e8 and a value sums
+    terms up to 3.4e9 for a result near 1, so the bars are of that rounding
+    scale (max |A| @ |B| row by row)."""
     from fiat_tpu_torch.ops.moments import MomentEngine
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
     T = tcl.ufc_simplex(2)
@@ -1182,10 +1183,12 @@ def test_macro_kernel_refuses_only_the_mode_past_shared_memory(cuda):
     pts = np.vstack([_points(3000, seed=9), _special_points()])
     P = torch.as_tensor(pts, device=cuda)
     mo = device_tabulator(zoo, order=0, device=cuda).macro
-    assert mo.name == "K3" and mo.smem * 8 > 227 * 1024 >= mo.smem_one * 8
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        mo(P)
-    assert mo.launches == 0
+    assert mo.name == "K3" and not mo.plan[3] and mo.smem <= 227 * 1024
+    got, want = mo(P), mo.plain(P)
+    torch.cuda.synchronize()
+    assert mo.launches == 1
+    scale = (mo.A.abs() @ mo.operand(P)[0].abs()).amax(dim=1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
     gpu = MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device=cuda)
     cpu = MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"), device="cpu")
     c = np.random.default_rng(5).random(gpu.rows) - 0.5

@@ -29,9 +29,10 @@ from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.core.variants import parse_lagrange_variant
 from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
-from fiat_tpu_torch.ops.masked_matmul import (COLUMN_STRIDE, FIRST_IN_CHUNK, FIRST_IN_PROGRAM,
-                                              LAST_IN_CHUNK, SAME_BINS, MaskedMatmul,
-                                              chunk_layout, slice_table)
+from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, FIRST_IN_CHUNK,
+                                              FIRST_IN_PROGRAM, LAST_IN_CHUNK, SAME_BINS,
+                                              chunk_table, slice_table)
+from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
 
 TOL_COEFFS = 1e-14      # the same numpy construction on both sides
 TOL_FIAT = 1e-11        # engine vs fiat_tpu's interpreted engine (its Ozaki windows)
@@ -218,15 +219,15 @@ def _replay_k7(mm, pts, phi):
     ring = np.full((stages, cols * COLUMN_STRIDE), np.nan)
 
     def fetch(t, s):
-        _, _, _, k0, k1, off, npieces, _ = slices[t]
-        n = (k1 - k0) * npieces * COLUMN_STRIDE
+        _, _, _, k0, k1, off, npieces, _, n, _, _ = slices[t]
+        assert n == (k1 - k0) * npieces * COLUMN_STRIDE
         ring[s, :n] = At[off:off + n]
 
     for p0 in range(0, len(pts), tp):
         x, Bs = pts[p0:p0 + tp], phi[:mm.max_nexp, p0:p0 + tp]
         for s in range(min(stages, len(slices))):
             fetch(s, s)
-        for t, (g, row0, nrows, k0, k1, _, npieces, flags) in enumerate(slices):
+        for t, (g, row0, nrows, k0, k1, _, npieces, flags, _, _, _) in enumerate(slices):
             _, _, c0, c1, unique = progs[g]
             if flags & FIRST_IN_PROGRAM and not flags & SAME_BINS:
                 hits = _bin_as_the_kernel(maps, x, c0, c1)
@@ -299,16 +300,19 @@ def test_k7_slices_hold_every_entry_of_a_exactly_once(degree, nsub):
     and each program's first."""
     nexp = (degree + 1) * (degree + 2) * (degree + 3) // 6
     A, progs, pieces = _synthetic_tables(nexp, nsub, 45, degree * 100 + nsub)
-    chunks, At = chunk_layout(A, progs, pieces)
-    chunk_cols = max(int(progs[g, 3] - progs[g, 2]) * int(kw) for g, _, _, _, kw in chunks)
-    plan = MaskedMatmul.plan_for(nexp, chunk_cols, 3)
+    chunks = chunk_table(progs, pieces)
+    chunk_cols = max(int(progs[g, 3] - progs[g, 2]) * int(kw) for g, _, _, kw in chunks)
+    plan = MaskedMatmul.plan_for(nexp, chunk_cols, 3, widest=nsub)
     assert plan is not None
     for cols in sorted({plan[1], nsub, nsub + 7, chunk_cols}):
-        slices = slice_table(chunks, progs, cols)
+        slices, gather = slice_table(chunks, progs, pieces, A.shape[1], cols, CHUNK_ROWS, 8)
+        At = np.append(A.ravel(), 0.0)[np.where(gather < 0, A.size, gather)]
         seen = np.zeros(A.shape, int)
         staged = np.zeros(At.shape, int)
-        for g, row0, nrows, k0, k1, off, npieces, flags in slices:
+        for g, row0, nrows, k0, k1, off, npieces, flags, size, c0, unique in slices:
             assert 0 < (k1 - k0) * npieces <= cols and off % 2 == 0
+            assert size == (k1 - k0) * npieces * COLUMN_STRIDE
+            assert (c0, c0 + npieces, unique) == tuple(progs[g, 2:])
             _, _, c0, c1, _ = progs[g]
             assert npieces == c1 - c0
             for k in range(k0, k1):

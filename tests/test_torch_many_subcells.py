@@ -1,7 +1,7 @@
 """K3 and K45 on zoos past 32 subcells in all, on the port against fiat_tpu.
 
-The two kernels bin a point program by program (at most 32 subcells a
-program), so a zoo may have any number of macro programs.  Here: K3's and
+The two kernels bin a point program by program (32 subcells a mask word,
+any number of words), so a zoo may have any number of macro programs.  Here: K3's and
 K45's plain versions on chip_smoke.py's ``stokes_elasticity_tri`` (42
 subcells in 9 programs) and ``stokes_elasticity_tet`` (44 in 9) against
 fiat_tpu's interpreted one-shot and masked-moment kernels, the kernels'
@@ -26,7 +26,7 @@ from fiat_tpu_torch import device_tabulator
 from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.fused_zoo import _merge_macro_programs
-from fiat_tpu_torch.ops.macro_oneshot import MAX_PROGRAM_PIECES, MacroOneShot
+from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot
 from fiat_tpu_torch.ops.moment_kernel import PairMoments
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
@@ -213,7 +213,7 @@ def test_zoo_has_more_than_32_subcells_and_none_past_32_a_program(zoos, zoo):
     mo = _k3(tzoo, 1)
     progs = mo.progs.numpy()
     assert len(mo.nexp) == ZOOS[zoo][2] > 32
-    assert (progs[:, 3] - progs[:, 2]).max() <= MAX_PROGRAM_PIECES
+    assert (progs[:, 3] - progs[:, 2]).max() <= 32
     assert mo.sd == sd and len(mo.geom) >= 2
 
 
@@ -316,9 +316,9 @@ def test_k45_schedule_on_its_packed_tables_matches_plain(zoos, zoo, grid):
 @pytest.mark.parametrize("zoo", sorted(ZOOS))
 def test_k45_shared_memory_layout(zoos, zoo):
     """K45's shared memory: the tables (12 bytes a piece and a program),
-    then each warp's slab, piece masks (4 bytes a piece), hit counts (32
-    bytes a program) and piece sums, each rounded up to 16 bytes, within a
-    block."""
+    then each warp's slab, piece masks (4 bytes a piece), 16-bit hit counts
+    (64 bytes a program) and piece sums, each rounded up to 16 bytes,
+    within a block."""
     _, _, tzoo = zoos[zoo]
     pm = MomentEngine(BatchedTabulator(tzoo, order=0, device="cpu"), device="cpu").moments
     npieces, nprogs, rows = len(pm.piece_nexp), len(pm.geom), pm.rows - pm.nplain
@@ -326,29 +326,43 @@ def test_k45_shared_memory_layout(zoos, zoo):
     def up16(nbytes):
         return -(-nbytes // 16) * 16
 
-    warp = 32 * 33 * 8 + up16(4 * npieces + 32 * nprogs) + up16(8 * rows)
+    warp = 32 * 33 * 8 + up16(4 * npieces + 64 * nprogs) + up16(8 * rows)
     assert pm.warp_smem == warp
     assert pm.smem == up16(12 * (npieces + nprogs)) + pm.warps * warp <= 232448 - 1024
     assert pm.warps == 8 or pm.smem + warp > 232448 - 1024
 
 
-def test_program_past_32_subcells_is_refused_by_name():
-    """The one cap left: 32 subcells a program (a program's masks are one
-    word), in K3, K45 and K7 alike."""
+@pytest.mark.parametrize("kernel", ["K3", "K45", "K7"])
+def test_program_past_32_subcells_runs_by_words(kernel):
+    """A program past 32 subcells (a program's masks are as many words as it
+    needs): 33 subcells (HCT's three maps eleven times, so a point of one
+    subcell hits eleven pieces in two words), averaged, beside a unique
+    program of the same 33, in K3, K45 and K7 alike: each builds, and its
+    plain version runs."""
     T = tcl.ufc_simplex(2)
     mo = _k3([ft.Lagrange(T, 1), ft.HsiehCloughTocher(T, 3)], 1)
-    geom = [dict(mo.geom[0], maps=mo.geom[0]["maps"] * 11)]       # 33 subcells
-    pieces = [(i, mo.nexp[0]) for i in range(33)]
-    A = np.zeros((mo.rows, 33 * mo.nexp[0]))
-    from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
-    with pytest.raises(NotImplementedError, match="a program of 33 subcells: K3 takes at most 32"):
-        MacroOneShot(A, pieces, geom, mo.parent_map, mo.degree, mo.scale,
-                     (mo.affine[:4].reshape(2, 2), mo.affine[4:6]), device="cpu")
-    with pytest.raises(NotImplementedError, match="a program of 33 subcells: K45"):
-        PairMoments(mo.degree, 1, mo.scale, (mo.affine[:4].reshape(2, 2), mo.affine[4:6]),
-                    geom, mo.parent_map, pieces, device="cpu")
-    with pytest.raises(NotImplementedError, match="a program of 33 subcells: K7"):
-        MaskedMatmul(A, pieces, geom, mo.parent_map, device="cpu")
+    n, rows = mo.nexp[0], mo.rows
+    geom = [dict(mo.geom[0], maps=mo.geom[0]["maps"] * 11, unique=u,
+                 rows=(r * rows, (r + 1) * rows)) for r, u in enumerate((False, True))]
+    pieces = [(i, n) for i in range(66)]
+    A = np.random.default_rng(47).standard_normal((2 * rows, 66 * n))
+    affine = (mo.affine[:4].reshape(2, 2), mo.affine[4:6])
+    P = torch.as_tensor(np.vstack([_points(30, 2, 48), _tie_points(2)]))
+    if kernel == "K3":
+        k = MacroOneShot(A, pieces, geom, mo.parent_map, mo.degree, mo.scale, affine, device="cpu")
+        got = k(P)
+    elif kernel == "K45":
+        k = PairMoments(mo.degree, 1, mo.scale, affine, geom, mo.parent_map, pieces, device="cpu")
+        got = k(P, torch.ones(P.shape[0], dtype=torch.float64))
+    else:
+        from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
+        k = MaskedMatmul(A, pieces, geom, mo.parent_map, device="cpu")
+        from fiat_tpu_torch.core.expansions import dubiner_tabulate
+        ref = P @ P.new_tensor(affine[0]).T + P.new_tensor(affine[1])
+        got = k(P, dubiner_tabulate(2, mo.degree, [ref[:, 0], ref[:, 1]], mo.scale).contiguous())
+    assert torch.isfinite(got).all() and k.launches == 0
+    if kernel != "K45":
+        assert k.words == 2
 
 
 # -- the mixed-split zoo through every entry point on the CPU --------------------

@@ -459,9 +459,10 @@ def test_k45_sd3_past_the_old_row_cap_matches_plain_and_fiat_tpu():
     big = PairMoments(10, 286, scale, es.affine_mappings[0], pm.geom, pm.parent_map,
                       [(i, 286) for i in range(32)], device="cpu")
     # the tables (12 bytes a piece and a program), then two warps: the
-    # slab, 32 piece masks and 4 x 32 hit counts (256 bytes), the piece sums
+    # slab, 32 piece masks and 4 x 32 16-bit hit counts (384 bytes), the
+    # piece sums
     assert (big.rows, big.warps, big.smem) == (286 * 33, 2,
-                                               8 * (54 + 2 * (1056 + 32 + 32 * 286)))
+                                               8 * (54 + 2 * (1056 + 48 + 32 * 286)))
     pts = np.vstack([_points(40, 21), _tie_points()])
     wf = np.random.default_rng(22).random(len(pts)) - 0.5
     sums = big(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
