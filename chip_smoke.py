@@ -117,7 +117,17 @@ Drives the port's main paths once each at their real size, at 1e5 points
      Lagrange 7 on Worsey-Farin at ``pts3``, f64 tables on K7), each
      through every entry point (K3 float32 and one row per program in all
      three); their ill-conditioned elements held to host on bars of their
-     own (``ILL_CONDITIONED``, ``F32_NO_DIGITS``).
+     own (``ILL_CONDITIONED``, ``F32_NO_DIGITS``);
+ 20. ``interval_zoo`` at 1e5 points of the interval (the generator's first
+     draw, uniform in [0, 1)): the interval families (``INTERVAL_ZOO``:
+     Lagrange, DG, GLL, GL, GaussRadau, Legendre, IntegratedLegendre and
+     Bubble to degree 15, CubicHermite, Histopolation, the FDM family, and
+     the split interval elements, Lagrange 1 on iso(64) a program of 64
+     subcells among them; 220 elements, 3.1 GB of f64 tables a pass)
+     through every entry point (K1, K2 and K3 at sd = 1; K45; K1 and K3 one
+     row per program; K6 and K3 float32), held to host relative to max(1,
+     max |table|), and ``INTERVAL_BERNSTEIN`` (Lagrange, DG, GLL and
+     FDMLagrange 15) on the Bernstein route (K8 + K2).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -149,9 +159,10 @@ on ``sv_macro_tet`` and on the Worsey-Farin DG 6 zoo, K45 at sd = 3 on
 phase 7's three cells and K6 at sd = 3 on two, K3's sd = 3 stage and K6 on
 phase 8's, K3 on the C1 zoos (order 1, 2 and 3), K1, K2, K45 and K6 on
 phases 10 and 11, K1 and K2 on phase 12, K1, K2, K7, K45, K3 (one
-row per program and float32) and K6 on phases 14-18, and K1, K2, K3 (or
-K7), K45, K3 one row per program and float32 and K6 on phase 19, each with
-its bound:
+row per program and float32) and K6 on phases 14-18, K1, K2, K3 (or
+K7), K45, K3 one row per program and float32 and K6 on phase 19, and K1,
+K2, K3, K45, K3 one row per program and float32, K6, and K8 + K2 at sd = 1
+on phase 20, each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -235,10 +246,11 @@ def k2_instance(name):
 
 def print_ptxas(log):
     """The registers of K3's instantiations by (sd, chunk height, type),
-    degree 0 to 10, K45's by sd, degree 0 to 10, K6's by (sd, point tile),
-    degree 0 to 15, K2's registers and spills by instantiation, K7's
-    registers, spills and stack by (sd, point tile), and every kernel that
-    spills; fails where a K6 or K7 instantiation spills."""
+    degree 0 to 10 (to 15 at sd = 1), K45's by sd, degree 0 to 10 (to 15 at
+    sd = 1), K6's by (sd, point tile), degree 0 to 15 (to 10 at sd = 3),
+    K2's registers and spills by instantiation, K7's registers, spills and
+    stack by (sd, point tile), and every kernel that spills; fails where a
+    K6 or K7 instantiation spills."""
     if not log:
         print("ptxas: no build log (a matching build existed)")
         return
@@ -275,13 +287,13 @@ def print_ptxas(log):
             spills.append(f"{name[:80]}: {st}/{ld} bytes")
     for (sd, rc, t), regs in sorted(k3.items()):
         print(f"ptxas K3 sd {sd} RC {rc} {t}: registers by degree "
-              f"{[regs.get(n) for n in range(11)]}")
+              f"{[regs.get(n) for n in range(16 if sd == 1 else 11)]}")
     for sd, by_n in sorted(k45.items()):
         print(f"ptxas K45 sd {sd}: (registers, stack frame bytes) by degree "
-              f"{[by_n.get(n) for n in range(11)]}")
+              f"{[by_n.get(n) for n in range(16 if sd == 1 else 11)]}")
     for (sd, tp), regs in sorted(k6.items()):
         print(f"ptxas K6 sd {sd} TP {tp}: (registers, stack frame bytes) by degree "
-              f"{[regs.get(n) for n in range(16 if sd == 2 else 11)]}")
+              f"{[regs.get(n) for n in range(11 if sd == 3 else 16)]}")
     print(f"ptxas {'; '.join(sorted(k2))}")
     print("ptxas K7 (registers, spill stores, spill loads, stack frame bytes) by (sd, point "
           f"tile): {json.dumps({f'{sd} {tp}': v for (sd, tp), v in sorted(k7.items())})}")
@@ -818,8 +830,11 @@ def features_bound(feat, npts):
 def make_points(n, seed, np, sd=2):
     """bench.py's pts2 (sd = 2) or pts3 (sd = 3): uniform in the UFC
     simplex's bounding box, pulled into the simplex; pts3 comes from the
-    same generator after pts2 (bench.py:764-768)."""
+    same generator after pts2 (bench.py:764-768).  On the interval (sd = 1)
+    the generator's first draw, uniform in [0, 1)."""
     rng = np.random.default_rng(seed)
+    if sd == 1:
+        return rng.random((n, 1))
     for d in range(2, sd + 1):
         pts = rng.random((n, d))
         pts = pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((n, 1))
@@ -832,8 +847,9 @@ def host_dual_check(name, zoo, bt, mo, P, pts, wf, wf_h, u, c_h, np):
     ``u`` (the main path's interpolated values) is given, its first
     HOST_CHECK_PTS values against host sum_i c_i phi_i; fails past
     HOST_ATOL, or for the SUMMED_MOMENTS elements' moments past their table
-    bar (``table_bar``) times the sum of the weights.  Prints the element of
-    the worst reading held to HOST_ATOL."""
+    bar (``table_bar``) times the sum of the weights (and the interval's
+    INTERVAL_SUMMED elements alike).  Prints the element of the worst
+    reading held to HOST_ATOL."""
     n = HOST_CHECK_PTS
     sub, wsub = pts[:n], wf_h[:n]
     origin = (0,) * pts.shape[1]
@@ -842,10 +858,11 @@ def host_dual_check(name, zoo, bt, mo, P, pts, wf, wf_h, u, c_h, np):
     for el, m, (lo, hi, _) in zip(zoo, per, bt.slices):
         tab = np.asarray(el.tabulate(0, sub)[origin]).reshape(hi - lo, n)
         err = float(np.abs(tab @ wsub - m.reshape(-1).cpu().numpy()).max())
-        if split_label(el) in ILL_CONDITIONED:
+        interval_summed = on_interval(el) and split_label(el) in INTERVAL_SUMMED
+        if split_label(el) in ILL_CONDITIONED or interval_summed:
             u_bar += table_bar(el, tab) * float(np.abs(c_h[lo:hi]).sum())
         if (type(el).__name__ in SUMMED_MOMENTS or split_label(el) in SUMMED_MOMENTS
-                or split_label(el) in ILL_CONDITIONED):
+                or split_label(el) in ILL_CONDITIONED or interval_summed):
             bar = table_bar(el, tab) * float(wsub.sum())
             summed.append(f"{split_label(el)} {err:.3e} (bar {bar:.3e})")
             if not err <= bar:
@@ -1838,10 +1855,11 @@ def composite(name, T):
 
 
 def families_zoo(specs, composites, T):
-    """The port's elements of a (family, degree, variant) list, then the
-    named composites."""
+    """The port's elements of a (family, degree, variant) list (degree None:
+    a family that takes none), then the named composites."""
     import fiat_tpu_torch as ft
-    return ([getattr(ft, fam)(T, deg, **({} if v is None else {"variant": v}))
+    return ([getattr(ft, fam)(T, *(() if deg is None else (deg,)),
+                              **({} if v is None else {"variant": v}))
              for fam, deg, v in specs]
             + [composite(name, T) for name in composites])
 
@@ -2197,21 +2215,24 @@ def f32_cell(name, zoo, P, tab64, card, torch):
             if split_label(el) in F32_NO_DIGITS:
                 no_digits.append(f"{split_label(el)} {a} {rel:.3e}")
                 continue
-            bar = F32_OWN_BARS.get(element_label(el), F32_MACRO_TOL)
-            if element_label(el) in F32_OWN_BARS:
-                own.append(f"{element_label(el)} {a} {rel:.3e}")
+            bar = f32_own_bar(el)
+            if bar is not None:
+                own.append(f"{split_label(el)} {a} {rel:.3e}")
             else:
+                bar = F32_MACRO_TOL
                 macro_worst = max(macro_worst, rel)
             if not rel <= bar:
                 fail(f"{name} f32 macro rows of {element_label(el)} {a}: {rel:.3e} of max abs "
                      f"+ 1 > {bar}")
     worst = max(err[a] / scale[a] for a in tab.alphas)
-    if not worst <= F32_RTOL:
-        fail(f"{name} f32 plain rows: an alpha at {worst:.3e} of its max > {F32_RTOL}")
+    rtol = INTERVAL_F32_RTOL if on_interval(zoo[0]) else F32_RTOL
+    if not worst <= rtol:
+        fail(f"{name} f32 plain rows: an alpha at {worst:.3e} of its max > {rtol}")
     print(f"{name} f32 vs the f64 tables on all {NPTS} points: plain rows, worst alpha "
-          f"{worst:.3e} of its max abs (limit {F32_RTOL})" + ("" if m3 is None else (
+          f"{worst:.3e} of its max abs (limit {rtol})" + ("" if m3 is None else (
               f"; macro rows {macro_worst:.3e} of max abs + 1 (limit {F32_MACRO_TOL})"
-              + (f", on their own bars ({json.dumps(F32_OWN_BARS)}): {', '.join(own)}"
+              + (f", on their own bars ({json.dumps({**F32_OWN_BARS, **INTERVAL_F32_BARS})}): "
+                 f"{', '.join(own)}"
                  if own else "")
               + (f"; not held (F32_NO_DIGITS, ill-conditioned in float32; K3 float32 held to "
                  f"its plain version above): {', '.join(no_digits)}" if no_digits else ""))))
@@ -2276,6 +2297,83 @@ def zoo_phase(cells, dev, card, torch, np):
         del tab64, P
         torch.cuda.empty_cache()
     return kernels
+
+
+def interval_phase(dev, card, torch, np):
+    """Phase 20, ``interval_zoo``: INTERVAL_ZOO at 1e5 points of the
+    interval through every entry point (``zoo_phase``: f64 tables on K1 +
+    K2 + K3, moments on K45, interpolation on K1 + K3 one row per program,
+    f32 tables on K6 + K3 float32), then INTERVAL_BERNSTEIN on the Bernstein
+    route (``bernstein_cell``: K8 + K2)."""
+    from fiat_tpu_torch import ufc_simplex
+
+    I = ufc_simplex(1)
+    kernels = zoo_phase([(1, "interval_zoo", lambda: families_zoo(INTERVAL_ZOO, (), I))],
+                        dev, card, torch, np)
+    pts = make_points(NPTS, SEED, np, sd=1)
+    P = torch.as_tensor(pts, device=dev)
+    kernels += bernstein_cell("interval_bernstein", families_zoo(INTERVAL_BERNSTEIN, (), I),
+                              pts, P, card, torch, np)
+    return kernels
+
+
+def bernstein_cell(name, zoo, pts, P, card, torch, np):
+    """A zoo of one contraction width on the Bernstein route:
+    ``FusedZooTabulator(..., features="bernstein").block_tables`` on the
+    default device (K8, then K2 on its features with the conversion folded
+    into K2's rows), each kernel against its plain version, one launch of
+    each a pass, the tables held to host (``host_bars``), and the pass, the
+    kernels and their plain versions timed.  Returns the kernels-line
+    entries."""
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    t0 = time.perf_counter()
+    tab = FusedZooTabulator(BatchedTabulator(zoo, order=1, device="cpu"), features="bernstein")
+    feat, mm = tab.features, tab.matmul
+    if tab.recurrence is not None or tab.device != P.device:
+        fail(f"{name}: K8 and K2 on {P.device}")
+    print(f"{name} host construction: {len(zoo)} elements, {tab.rows} rows x "
+          f"{len(tab.alphas)} alphas, K {mm.max_k}, K8 sd {feat.sd} degree {feat.degree}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    b_p = feat.plain(P)
+    k8_abs = check_kernel(f"{name} K8 Bernstein features (sd {feat.sd}, degree {feat.degree}) "
+                          f"at {NPTS} points", feat(P), b_p, torch)
+    k2_abs = check_kernel(f"{name} K2 bucket matmul ({mm.total_rows} x {NPTS}, K {mm.max_k})",
+                          mm(b_p), mm.plain(b_p), torch)
+    del b_p
+    engines = {"K8": feat, "K2": mm}
+    blocks, launches = counted(engines, lambda: tab.block_tables(P), torch)
+    expect_launches(name, launches, dict.fromkeys(engines, 1))
+    if not all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl):
+        fail(f"{name}: non-finite values in the tables")
+    host_bars(name, zoo, tab.unpack(blocks), pts, NPTS, np)
+    del blocks
+    feats = feat(P)
+    k8_ms, k8_plain = median_ms(lambda: feat(P), torch), plain_ms(lambda: feat.plain(P), torch)
+    k8_card = queued_ms(lambda: feat(P), torch)
+    k2_ms, k2_plain = median_ms(lambda: mm(feats), torch), plain_ms(lambda: mm.plain(feats),
+                                                                    torch)
+    A = mm.A.to(P.device)
+    k2_lib = median_ms(lambda: torch.matmul(A, feats), torch)      # one cuBLAS DGEMM
+    k2_card = queued_ms(lambda: mm(feats), torch)
+    del A, feats
+    path_ms = median_ms(lambda: tab.block_tables(P), torch)
+    plain_path_ms = plain_ms(lambda: mm.plain(feat.plain(P)), torch)
+    k8_bound, k2_bound = features_bound(feat, NPTS), matmul_bound(mm, NPTS)
+    print(f"{name} timing ({card}; median of {REPS} runs of {INNER}, CUDA events; card: the "
+          f"same with the calls queued behind a spin): pass {path_ms:.4f} ms, plain path "
+          f"{plain_path_ms:.4f} ms; K8 {k8_ms:.4f} ms (card {k8_card:.4f}, plain {k8_plain:.4f}, "
+          f"bound {k8_bound[0]:.4f} by {k8_bound[1]}), K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} "
+          f"(card {k2_card:.4f}, plain {k2_plain:.4f}, one DGEMM {k2_lib:.4f}, bound "
+          f"{k2_bound[0]:.4f} by {k2_bound[1]})")
+    src = "fiat_tpu_torch/csrc/"
+    return [entry(f"K8 bernstein_features ({name})", src + "bernstein.cu",
+                  "fiat_tpu/ops/pallas_bernstein.py:288", launches["K8"], k8_abs, k8_ms,
+                  k8_plain, k8_bound),
+            entry(f"K2 bucket_matmul ({name}, K {mm.max_k})", src + "bucket_matmul.cu",
+                  "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms,
+                  k2_plain, k2_bound, k2_lib)]
 
 
 def bench_tri_phase(T, dev, pts2, P, card, torch, np):
@@ -2471,6 +2569,70 @@ SUMMED_MOMENTS = ("AlfeldC2", "Walkington", "RaviartThomas 3 AlfeldSplit",
 #: 5.1e-5, AlfeldC2 6 1.7e-3): AlfeldC2's change of basis cancels far below
 #: the float32 rounding of its sums
 F32_OWN_BARS = {"AlfeldC2 5": 2e-4, "AlfeldC2 6": 5e-3}
+#: phase 20, ``interval_zoo``: the interval families at order 1 (the nodal
+#: ones of fiat_tpu's sweep to degree 15, Histopolation, the FDM family, and
+#: the split interval elements: 220 elements, 1,937 basis functions, 3.1 GB
+#: of f64 tables a pass).  FDMHermite takes degree 3 only (fiat_tpu's own
+#: limit: its degree 4-15 raise LinAlgError).  DiscontinuousLagrange 3 on
+#: iso(4) is left out, DiscontinuousLagrange 3 on Alfeld in its place:
+#: fiat_tpu's own engine gives NaN where the iso subcells (on the open
+#: lattice of DG's points) leave the ends of the interval uncovered, as
+#: phase 18 found for DG 1 on iso(6).  Lagrange 1 on iso(64) is one program
+#: of 64 subcells, two mask words
+INTERVAL_ZOO = (
+    tuple(("Lagrange", d, None) for d in range(1, 16))
+    + tuple(("DiscontinuousLagrange", d, None) for d in range(16))
+    + tuple(("GaussLobattoLegendre", d, None) for d in range(1, 16))
+    + tuple(("GaussLegendre", d, None) for d in range(16))
+    + tuple(("GaussRadau", d, None) for d in range(1, 16))
+    + tuple(("Legendre", d, None) for d in range(16))
+    + tuple(("IntegratedLegendre", d, None) for d in range(1, 16))
+    + (("CubicHermite", None, None),)
+    + tuple(("Bubble", d, None) for d in range(2, 16))
+    + tuple(("Histopolation", d, None) for d in range(15))
+    + tuple((fam, d, None) for fam in ("FDMLagrange", "FDMQuadrature", "FDMBrokenH1")
+            for d in range(1, 16))
+    + tuple((fam, d, None) for fam in ("FDMDiscontinuousLagrange", "FDMBrokenL2")
+            for d in range(15))
+    + (("FDMHermite", 3, None),
+       ("Lagrange", 1, "iso(2)"), ("Lagrange", 1, "iso(8)"), ("Lagrange", 1, "iso(64)"),
+       ("Lagrange", 3, "iso(4)"), ("DiscontinuousLagrange", 3, "alfeld"),
+       ("Lagrange", 6, "alfeld")))
+#: the single-width sub-zoo of phase 20 on the Bernstein route (K8 + K2)
+INTERVAL_BERNSTEIN = (("Lagrange", 15, None), ("DiscontinuousLagrange", 15, None),
+                      ("GaussLobattoLegendre", 15, None), ("FDMLagrange", 15, None))
+#: the interval's tables are held to host relative to max(1, max |table|) at
+#: HOST_ATOL: the degree-15 nodal bases' derivatives reach 1.3e4 there, and
+#: the engine's error grows with them (on the CPU the port's plain path
+#: reads 3.7e-10 absolute, 2.8e-14 of it, on Lagrange 15; fiat_tpu's own
+#: engine is 4.9e-11 of max(1, max |table|) from host on this zoo)
+INTERVAL_HOST_RTOL = HOST_ATOL
+INTERVAL_KEY = "the interval's elements"
+#: the interval's float32 plain rows against its f64 tables, per alpha of
+#: its max: the degree-15 equispaced bases (Lagrange, DG, Bubble 15, the
+#: alphas' largest rows) cancel in float32 past F32_RTOL (on the CPU on 300
+#: points: the port 2.9e-6, fiat_tpu's own f32 engine 3.5e-6; the port
+#: 6.5e-6 on 3000), so they are held to about three times that
+INTERVAL_F32_RTOL = 2e-5
+#: the split interval elements whose float32 macro rows cancel below their
+#: float32 rounding, held to a bar of their own of max abs + 1 per alpha, by
+#: ``split_label``: Lagrange 3 iso(4) and Lagrange 6 Alfeld at about three
+#: times their readings (on the CPU, 2000 points: 6.3e-5 and 1.5e-4;
+#: fiat_tpu's own f32 engine 1.7e-5 and 4.3e-5 on 300), and Lagrange 1 on
+#: the iso splits, whose iso(64) subcells at the ends are 8.8e-4 wide, so
+#: that its parent-basis coefficients reach 1.1e3 and cancel to O(1): its
+#: float32 rounding is up to 6.8e-5 (the port 2.2e-5 on 2000 points,
+#: fiat_tpu 3.3e-6 on 300), held to about three times that
+INTERVAL_F32_BARS = {"Lagrange 1 IsoSplit": 2e-4, "Lagrange 3 IsoSplit": 2e-4,
+                     "Lagrange 6 AlfeldSplit": 5e-4}
+#: the split interval elements whose moments on HOST_CHECK_PTS points are
+#: held to their table bar times the sum of the weights, and their
+#: interpolated values to it times the sum of |c| over their rows, by
+#: ``split_label`` (on the CPU: 2.0e-9 and 2.3e-10 from host, 2e-12 of their
+#: sums' scale; the dual route goes through the parent-basis collocation,
+#: as fiat_tpu's device route does, and SUMMED_MOMENTS's elements); every
+#: other interval element's moments are held to HOST_ATOL
+INTERVAL_SUMMED = ("Lagrange 6 AlfeldSplit", "Lagrange 3 IsoSplit")
 
 
 def element_label(el):
@@ -2484,10 +2646,18 @@ def split_label(el):
     return f"{element_label(el)} {type(el.get_nodal_basis().get_reference_element()).__name__}"
 
 
+def on_interval(el):
+    """Whether ``el`` lives on the interval (phase 20)."""
+    return el.get_reference_element().get_spatial_dimension() == 1
+
+
 def table_bar(el, want):
     """An element's bar against host tables ``want``: HOST_ATOL, or for the
     STOKES_RELATIVE elements STOKES_HOST_RTOL of max(1, max |table|), for
-    the ILL_CONDITIONED ones their own bar of it."""
+    the ILL_CONDITIONED ones their own bar of it, for the interval's
+    INTERVAL_HOST_RTOL of it."""
+    if on_interval(el):
+        return INTERVAL_HOST_RTOL * max(1.0, float(abs(want).max()))
     if type(el).__name__ in STOKES_RELATIVE:
         return STOKES_HOST_RTOL * max(1.0, float(abs(want).max()))
     if split_label(el) in ILL_CONDITIONED:
@@ -2495,9 +2665,19 @@ def table_bar(el, want):
     return HOST_ATOL
 
 
+def f32_own_bar(el):
+    """An element's bar of its own on its float32 macro rows (F32_OWN_BARS by
+    ``element_label``, INTERVAL_F32_BARS by ``split_label`` on the
+    interval), or None: F32_MACRO_TOL."""
+    if on_interval(el):
+        return INTERVAL_F32_BARS.get(split_label(el))
+    return F32_OWN_BARS.get(element_label(el))
+
+
 def relative_bar(el):
     """Whether ``table_bar`` holds ``el`` relative to max(1, max |table|)."""
-    return type(el).__name__ in STOKES_RELATIVE or split_label(el) in ILL_CONDITIONED
+    return (on_interval(el) or type(el).__name__ in STOKES_RELATIVE
+            or split_label(el) in ILL_CONDITIONED)
 
 
 def stokes_zoo(sd):
@@ -2533,13 +2713,16 @@ def host_bars(name, zoo, per, pts, npts, np, order=1):
                 fail(f"{name}: {key} {a} is {err:.3e} from host el.tabulate > {bar:.3e}")
             if relative_bar(el):
                 rel = err / max(1.0, float(np.abs(w).max()))
+                if on_interval(el):     # one reading for the interval's elements
+                    key = INTERVAL_KEY
                 worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
             else:
                 worst_abs = max(worst_abs, err)
+    limits = {INTERVAL_KEY: INTERVAL_HOST_RTOL, **ILL_CONDITIONED}
     print(f"{name} main path: block_tables(order {order}) at {npts} points vs host el.tabulate "
           f"on {HOST_CHECK_PTS} points: max abs {worst_abs:.3e} (limit {HOST_ATOL})"
           + "".join(f"; {k} {v:.3e} of max(1, max |table|) per alpha (limit "
-                    f"{ILL_CONDITIONED.get(k, STOKES_HOST_RTOL)})" for k, v in worst_rel.items()))
+                    f"{limits.get(k, STOKES_HOST_RTOL)})" for k, v in worst_rel.items()))
     return worst_abs
 
 
@@ -2551,7 +2734,7 @@ def k3_cells(dev, card, torch, np, own):
     interpolate_rows passes of full_zoo and sv_macro_tet (K1 + K3, host
     bound at these sizes); the same points and shapes as the main run: the
     earlier cells (full_zoo, the C1 zoos, sv_macro_tet, the Stokes and split
-    cells) and phases 18-19's.
+    cells) and phases 18-20's.
     Prints {"k3_cells": {cell: [ms, device ms, host ms, K3 ms]}}: CUDA
     events over back-to-back calls (host time of the wrapper included where
     it exceeds the kernel's), torch.profiler's device time alone, the
@@ -2614,6 +2797,13 @@ def k3_cells(dev, card, torch, np, own):
              "split_variants_tri interpolation": lambda: interpolation(split_tri, P),
              "iso_refined_tri f32": lambda: tables(iso_tri, 1, P, f64=False),
              "iso_refined_tri interpolation": lambda: interpolation(iso_tri, P)}
+    I = ufc_simplex(1)
+    P1 = torch.as_tensor(make_points(NPTS, SEED, np, sd=1), device=dev)
+    cells["interval_zoo f64"] = lambda: tables(families_zoo(INTERVAL_ZOO, (), I), 1, P1)
+    cells["interval_zoo f32"] = lambda: tables(families_zoo(INTERVAL_ZOO, (), I), 1, P1,
+                                               f64=False)
+    cells["interval_zoo interpolation"] = lambda: interpolation(
+        families_zoo(INTERVAL_ZOO, (), I), P1)
     for name, sd, spec in K3_WIDE:
         zoo = families_zoo((("Lagrange", 1, None), spec), (), ufc_simplex(sd))
         Q = P if sd == 2 else P3
@@ -2672,10 +2862,10 @@ def time_cells(label, extra, cells, card, torch, own):
             run, more = make()
             run()
             torch.cuda.synchronize()
-        except (RuntimeError, NotImplementedError) as exc:
+        except Exception as exc:    # another checkout may lack a family or refuse a cell
             if own:
                 raise
-            out[name] = f"raises: {str(exc).splitlines()[0][:160]}"
+            out[name] = f"raises {type(exc).__name__}: {(str(exc).splitlines() or [''])[0][:160]}"
         else:
             ev, dev_ms = median_ms(run, torch), device_ms(run, torch)
             out[name] = [ev, dev_ms] + more(ev, dev_ms)
@@ -2732,8 +2922,9 @@ def k2_cells(dev, card, torch, np, own):
 def k45_cells(dev, card, torch, np, own):
     """``python3 chip_smoke.py --k45-cells ROOT``: K45 alone, one call of its
     wrapper, in every cell that runs it (full_zoo and tet_lagrange8 at 1e5
-    and 1e7 points, hdiv_hcurl_tet and sv_macro_tet at 1e5; the main run's
-    points and weights), on the fiat_tpu_torch package of the checkout at
+    and 1e7 points, hdiv_hcurl_tet, sv_macro_tet and interval_zoo at 1e5;
+    the main run's points and weights), on the fiat_tpu_torch package of the
+    checkout at
     ROOT.  Prints {"k45_cells": {cell: [ms, device ms, DGEMV ms, bound ms,
     device ms / bound, resident warps an SM, host ms]}}: CUDA events, the
     profiler's device time of every kernel the call launches, one cuBLAS
@@ -2771,7 +2962,9 @@ def k45_cells(dev, card, torch, np, own):
         "tet_lagrange8": lambda: k45("tet_lagrange8", lambda: lag8, 3, NPTS),
         "tet_lagrange8 1e7": lambda: k45("tet_lagrange8", lambda: lag8, 3, BIG_NPTS),
         "hdiv_hcurl_tet": lambda: k45("hdiv_hcurl_tet", lambda: hdiv, 3, NPTS),
-        "sv_macro_tet": lambda: k45("sv_macro_tet", lambda: sv_macro_tet(T3), 3, NPTS)}
+        "sv_macro_tet": lambda: k45("sv_macro_tet", lambda: sv_macro_tet(T3), 3, NPTS),
+        "interval_zoo": lambda: k45("interval_zoo", lambda: families_zoo(
+            INTERVAL_ZOO, (), ufc_simplex(1)), 1, NPTS)}
     time_cells("k45_cells", "one cuBLAS DGEMV on its stack ms; bound ms; device / bound; "
                "resident warps an SM; host ms a call", cells, card, torch, own)
 
@@ -2779,7 +2972,7 @@ def k45_cells(dev, card, torch, np, own):
 def k6_cells(dev, card, torch, np, own):
     """``python3 chip_smoke.py --k6-cells ROOT``: K6 alone, one call of its
     wrapper, in every f32 cell (full_zoo, tet_lagrange8, hdiv_hcurl_tet,
-    sv_macro_tet at the main run's points), on the fiat_tpu_torch package of
+    sv_macro_tet, interval_zoo at the main run's points), on the fiat_tpu_torch package of
     the checkout at ROOT.  Prints {"k6_cells": {cell: [ms, device ms, SGEMM
     ms, bound ms, device / bound, TB/s of out, FP32 peak share, host ms]}}:
     CUDA events, the profiler's device time of every kernel the call
@@ -2796,6 +2989,7 @@ def k6_cells(dev, card, torch, np, own):
     T, T3 = ufc_simplex(2), ufc_simplex(3)
     P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev).float()
     P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev).float()
+    P1 = torch.as_tensor(make_points(NPTS, SEED, np, sd=1), device=dev).float()
     lag8, hdiv = tet_zoos(T3)
     plans, clocks = {}, {}
 
@@ -2826,7 +3020,9 @@ def k6_cells(dev, card, torch, np, own):
     cells = {"full_zoo f32": lambda: k6("full_zoo f32", full_zoo(T), P),
              "tet_lagrange8 f32": lambda: k6("tet_lagrange8 f32", lag8, P3),
              "hdiv_hcurl_tet f32": lambda: k6("hdiv_hcurl_tet f32", hdiv, P3),
-             "sv_macro_tet f32": lambda: k6("sv_macro_tet f32", sv_macro_tet(T3), P3)}
+             "sv_macro_tet f32": lambda: k6("sv_macro_tet f32", sv_macro_tet(T3), P3),
+             "interval_zoo f32": lambda: k6("interval_zoo f32", families_zoo(
+                 INTERVAL_ZOO, (), ufc_simplex(1)), P1)}
     time_cells("k6_cells", "one cuBLAS SGEMM (TF32 off) on a computed Phi ms; bound ms; "
                "device / bound; TB/s of out and FP32 peak share at the device time; host ms "
                "a call", cells, card, torch, own)
@@ -2912,8 +3108,9 @@ def k7_cells(dev, card, torch, np, own):
 
 def k1_cells(dev, card, torch, np, own):
     """``python3 chip_smoke.py --k1-cells ROOT``: K1 alone, one call of its
-    wrapper, on full_zoo, tet_lagrange8, hdiv_hcurl_tet and sv_macro_tet,
-    and K8 on tet_lagrange8's Bernstein route, at the main run's points, on
+    wrapper, on full_zoo, tet_lagrange8, hdiv_hcurl_tet, sv_macro_tet and
+    interval_zoo, and K8 on the Bernstein routes of tet_lagrange8 and
+    interval_bernstein, at the main run's points, on
     the fiat_tpu_torch package of the checkout at ROOT.  Prints
     {"k1_cells": {cell: [ms, device ms, bound ms, device / bound, host
     ms]}}: CUDA events over back-to-back calls (the wrapper's host time
@@ -2926,6 +3123,7 @@ def k1_cells(dev, card, torch, np, own):
     T, T3 = ufc_simplex(2), ufc_simplex(3)
     P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
     P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev)
+    P1 = torch.as_tensor(make_points(NPTS, SEED, np, sd=1), device=dev)
     lag8, hdiv = tet_zoos(T3)
 
     def timed(fn, bound, Q):
@@ -2949,7 +3147,10 @@ def k1_cells(dev, card, torch, np, own):
              "tet_lagrange8 K1": lambda: k1(lag8, P3),
              "hdiv_hcurl_tet K1": lambda: k1(hdiv, P3),
              "sv_macro_tet K1": lambda: k1(sv_macro_tet(T3), P3),
-             "tet_lagrange8 K8": lambda: k8(lag8, P3)}
+             "tet_lagrange8 K8": lambda: k8(lag8, P3),
+             "interval_zoo K1": lambda: k1(families_zoo(INTERVAL_ZOO, (), ufc_simplex(1)), P1),
+             "interval_bernstein K8": lambda: k8(families_zoo(INTERVAL_BERNSTEIN, (),
+                                                              ufc_simplex(1)), P1)}
     time_cells("k1_cells", "bound ms; device / bound; host ms a call", cells, card, torch, own)
 
 
@@ -3046,6 +3247,8 @@ def main():
         (("Lagrange", 1, None), spec), (), ufc_simplex(sd))) for name, sd, spec in K3_WIDE],
         dev, card, torch, np)
     lap(19)
+    kernels += interval_phase(dev, card, torch, np)
+    lap(20)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

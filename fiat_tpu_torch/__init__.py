@@ -14,9 +14,11 @@ from fiat_tpu_torch.elements import (  # noqa: F401
     BernardiRaugel, BrambleZlamalC2, BrezziDouglasFortinMarini, BrezziDouglasMarini, Bubble,
     ChristiansenHu, CrouzeixRaviart, CubicHermite, DiscontinuousElement,
     DiscontinuousLagrange, DiscontinuousRaviartThomas, DiscontinuousTaylor, FacetBubble,
-    GaussLegendre, GaussLobattoLegendre, GaussRadau, GopalakrishnanLedererSchoberlFirstKind,
-    GopalakrishnanLedererSchoberlSecondKind, GuzmanNeilanFirstKindH1, GuzmanNeilanH1div,
-    GuzmanNeilanSecondKindH1, HellanHerrmannJohnson, HsiehCloughTocher, HuZhang,
+    FDMBrokenH1, FDMBrokenL2, FDMDiscontinuousLagrange, FDMHermite, FDMLagrange,
+    FDMQuadrature, GaussLegendre, GaussLobattoLegendre, GaussRadau,
+    GopalakrishnanLedererSchoberlFirstKind, GopalakrishnanLedererSchoberlSecondKind,
+    GuzmanNeilanFirstKindH1, GuzmanNeilanH1div, GuzmanNeilanSecondKindH1,
+    HellanHerrmannJohnson, Histopolation, HsiehCloughTocher, HuZhang,
     IntegratedLegendre, JohnsonMercier, KongMulderVeldhuizen, Lagrange, Legendre,
     MardalTaiWinther, Morley, Nedelec, NedelecSecondKind, NodalEnrichedElement, P0,
     QuadraticPowellSabin6, QuadraticPowellSabin12, RaviartThomas, Regge, RestrictedElement,

@@ -52,27 +52,43 @@ def barycentric_interpolation(nodes, wts, dmat, pts, order=0):
 
 
 class LagrangeLineExpansionSet(expansions.LineExpansionSet):
-    """Nodal expansion set on given 1D points of a single interval."""
+    """Nodal expansion set on given 1D points of an interval or of a split
+    interval: the nodes are binned to the subintervals that hold them
+    (``cell_node_map``), each subinterval with its own nodes, weights and
+    differentiation matrix.  Where neighbouring subintervals share a node
+    the basis is C0 (``continuity``)."""
 
     def __init__(self, ref_el, pts):
         self.points = pts
         self.x = np.asarray(pts, dtype=np.float64).flatten()
-        self.dmat, self.weights = make_dmat(self.x)
-        self.degree = len(self.x) - 1
-        super().__init__(ref_el)
+        self.cell_node_map = expansions.compute_cell_point_map(ref_el, pts, unique=False)
+        self.dmats = [None] * len(self.cell_node_map)
+        self.weights = [None] * len(self.cell_node_map)
+        self.nodes = [None] * len(self.cell_node_map)
+        for cell, ibfs in self.cell_node_map.items():
+            self.nodes[cell] = self.x[ibfs if ibfs is not Ellipsis else slice(None)]
+            self.dmats[cell], self.weights[cell] = make_dmat(self.nodes[cell])
+        self.degree = max(len(w) for w in self.weights) - 1
         self.recurrence_order = self.degree + 1
+        super().__init__(ref_el)
+        self.continuity = (None if len(self.x) == sum(len(xk) for xk in self.nodes)
+                           else "C0")
 
     def get_num_members(self, n):
         return len(self.points)
+
+    def get_cell_node_map(self, n):
+        return self.cell_node_map
 
     def get_points(self):
         return self.points
 
     def get_dmats(self, degree, cell=0):
-        return [self.dmat.T]
+        return [self.dmats[cell].T]
 
     def _tabulate_on_cell(self, n, pts, order=0, cell=0):
-        return barycentric_interpolation(self.x, self.weights, self.dmat, pts, order=order)
+        return barycentric_interpolation(self.nodes[cell], self.weights[cell],
+                                         self.dmats[cell], pts, order=order)
 
 
 class LagrangePolynomialSet(polyset.PolynomialSet):

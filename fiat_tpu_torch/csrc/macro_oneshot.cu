@@ -2,7 +2,9 @@
 // f64 engine) or f32 (the f32 engine's macro members), on triangles (SD = 2)
 // and tetrahedra (SD = 3): subcell binning, the parent-cell Dubiner
 // recurrence, the masked change of basis and the multiplicity average, per
-// point.
+// point.  The interval (SD = 1: the split interval elements, iso(k) and
+// Alfeld) runs the same template on dubiner1.cuh's recurrence and binning.cuh
+// at SD = 1 (macro_oneshot_1.cu instantiates it, to degree 15).
 //
 // Replaces the TPU kernel fiat_tpu/ops/pallas_multiword.py:
 // FusedMacroOneShot._oneshot_kernel (apply_pair_points), with the binning of
@@ -142,6 +144,8 @@ int dispatch(const T* pts, int npts, int sd, const T* consts, const int* slots,
               0, sub, resident, stages, buf, ring, nbar, words, At, gather, out};
   for (int i = 0; i < 12; ++i) q.affine[i] = affine[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sd == 1 && rc == RC_TABLES) return by_degree<1, RC_TABLES, T>(q, degree, ngroups, s);
+  if (sd == 1 && rc == RC_ONE) return by_degree<1, RC_ONE, T>(q, degree, ngroups, s);
   if (sd == 2 && rc == RC_TABLES) return by_degree<2, RC_TABLES, T>(q, degree, ngroups, s);
   if (sd == 2 && rc == RC_ONE) return by_degree<2, RC_ONE, T>(q, degree, ngroups, s);
   if (sd == 3 && rc == RC_TABLES) return by_degree<3, RC_TABLES, T>(q, degree, ngroups, s);
@@ -151,7 +155,7 @@ int dispatch(const T* pts, int npts, int sd, const T* consts, const int* slots,
 
 }  // namespace
 
-// pts (npts, sd), sd 2 or 3; consts and slots (pack_stages(degree, sd=sd));
+// pts (npts, sd), sd 1, 2 or 3; consts and slots (pack_stages(degree, sd=sd));
 // affine: the 12 values the wrapper packs (the sd x sd map row-major, its
 // shift, zeros after); maps, pieces: binning.cuh; slices (nslices, 11) of
 // chunks at most rc rows high (32, or 1 for one row per program), groups
@@ -166,7 +170,7 @@ int dispatch(const T* pts, int npts, int sd, const T* consts, const int* slots,
 // launch (0 on success), or the attribute call's error (more shared memory
 // than a block may have), which is then cleared and nothing is launched;
 // cudaErrorInvalidValue for an sd, rc or degree it is not instantiated for
-// (degree 0..10), no points or groups, a grid past 2^31 - 1 blocks, or an
+// (degree 0..10, 0..15 at sd = 1), no points or groups, a grid past 2^31 - 1 blocks, or an
 // argument outside the ranges above (the wrapper checks all of these
 // first).
 extern "C" int fiat_macro_oneshot(const double* pts, int npts, int sd, const double* consts,

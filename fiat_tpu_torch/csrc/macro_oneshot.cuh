@@ -10,6 +10,7 @@
 
 #include "binning.cuh"
 #include "bulk_copy.cuh"
+#include "dubiner1.cuh"
 #include "dubiner2.cuh"
 #include "dubiner3.cuh"
 
@@ -29,7 +30,7 @@ constexpr int FIRST_IN_CHUNK = 1, LAST_IN_CHUNK = 2;
 // over the banks; a one-row chunk is read one value at a time
 __host__ __device__ constexpr int column_stride(int rc) { return rc > 1 ? rc + 2 : 1; }
 __host__ __device__ constexpr int nexp_of(int sd, int n) {
-  return sd == 2 ? (n + 1) * (n + 2) / 2 : (n + 1) * (n + 2) * (n + 3) / 6;
+  return sd == 1 ? n + 1 : sd == 2 ? (n + 1) * (n + 2) / 2 : (n + 1) * (n + 2) * (n + 3) / 6;
 }
 // Points (threads) of a block (ops/macro_oneshot.py point_tile): 128, but
 // 64 on tetrahedra from degree 9 in double, whose Phi tile of 128 points
@@ -191,7 +192,9 @@ __global__ void __launch_bounds__(point_tile<SD, N, T>())
         for (int j = 1; j < SD; ++j) v += x[j] * q.affine[SD * i + j];
         y[i] = v + q.affine[SD * SD + i];
       }
-      if constexpr (SD == 2) {
+      if constexpr (SD == 1) {
+        fiat::dubiner1_point<N>(y[0], q.consts, q.scale, [&](int i, T v) { phi[i * tp] = v; });
+      } else if constexpr (SD == 2) {
         fiat::dubiner2_point<N>(y[0], y[1], q.consts, q.scale, [&](int, int r, int i, T v) {
           phi[((r + i) * (r + i + 1) / 2 + i) * tp] = v;
         });
@@ -317,27 +320,37 @@ int launch(Params<T> q, int ngroups, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Degrees 0..10, and on the interval (SD = 1, nexp 16 at most) 0..15.
 template <int SD, int RC, class T>
 int by_degree(const Params<T>& q, int degree, int ngroups, cudaStream_t s) {
   switch (degree) {
 #define FIAT_CASE(n) \
   case n:            \
     return launch<SD, n, RC, T>(q, ngroups, s);
+#define FIAT_CASE_1D(n)                                            \
+  case n:                                                          \
+    if constexpr (SD == 1) return launch<SD, n, RC, T>(q, ngroups, s); \
+    break;
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
+    FIAT_CASE_1D(11) FIAT_CASE_1D(12) FIAT_CASE_1D(13) FIAT_CASE_1D(14) FIAT_CASE_1D(15)
+#undef FIAT_CASE_1D
 #undef FIAT_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Each source instantiates its share of (SD, RC, T), so nvcc builds them
 // in parallel: macro_oneshot.cu the f64 tables, macro_oneshot_f32.cu the
-// f32 tables, macro_oneshot_one.cu one row per program in both types.
+// f32 tables, macro_oneshot_one.cu one row per program in both types, and
+// macro_oneshot_1.cu the interval's four families.
 #define FIAT_K3_FAMILIES(X)                                                   \
   X(2, RC_TABLES, double) X(3, RC_TABLES, double) X(2, RC_TABLES, float)     \
   X(3, RC_TABLES, float) X(2, RC_ONE, double) X(3, RC_ONE, double)           \
-  X(2, RC_ONE, float) X(3, RC_ONE, float)
+  X(2, RC_ONE, float) X(3, RC_ONE, float) X(1, RC_TABLES, double)            \
+  X(1, RC_TABLES, float) X(1, RC_ONE, double) X(1, RC_ONE, float)
 #define FIAT_K3_EXTERN(SD, RC, T) \
   extern template int by_degree<SD, RC, T>(const Params<T>&, int, int, cudaStream_t);
 #define FIAT_K3_INSTANTIATE(SD, RC, T) \

@@ -1,5 +1,5 @@
 // K45: the expansion-side moments of a zoo in one launch, in f64, on
-// triangles and tetrahedra: the plain moments pw[k] = sum_q phi_k(x_q) wf_q
+// intervals, triangles and tetrahedra: the plain moments pw[k] = sum_q phi_k(x_q) wf_q
 // and, for every subcell c of every macro program, the masked moments
 // bw[c, k] = sum_q mask_c(x_q) recip(x_q) phi_k(x_q) wf_q.
 //
@@ -80,7 +80,7 @@
 
 using namespace fiat::k45;
 
-// pts (npts, sd), wf (npts,), sd 2 or 3; consts (on the host: they are
+// pts (npts, sd), wf (npts,), sd 1, 2 or 3; consts (on the host: they are
 // passed in the kernel's parameters) and slots (on the device),
 // pack_stages(degree, sd=sd); affine: 12 values on the host (the sd x sd
 // map row-major, its shift, zeros after); maps, progs, pieces: binning.cuh;
@@ -92,7 +92,7 @@ using namespace fiat::k45;
 // error code of the launch (0 on success), or the attribute call's error
 // (the warps' shared memory is more than a block may have), which is then
 // cleared and nothing is launched; cudaErrorInvalidValue for an sd or a
-// degree it is not instantiated for (degree 0..10), nplain past the
+// degree it is not instantiated for (degree 0..10, 0..15 at sd = 1), nplain past the
 // degree's members, no blocks or more warps than the
 // instantiation is built for (the wrapper checks all of these first).
 extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, int sd,
@@ -102,13 +102,14 @@ extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, 
                                  const int* pieces, int R, int warps, int nblocks,
                                  double* partials, unsigned* tickets, double* out,
                                  void* stream) {
-  if ((sd != 2 && sd != 3) || degree < 0 || npieces < 0 || nplain > nexp_of(sd, degree) ||
+  if (sd < 1 || sd > 3 || degree < 0 || npieces < 0 || nplain > nexp_of(sd, degree) ||
       nblocks < 1 || warps < 1 || warps > MAX_WARPS)
     return static_cast<int>(cudaErrorInvalidValue);
   Params q{pts,    wf,     npts,   slots, {}, scale,    tol,    nplain, maps,
            npieces, progs, nprogs, pieces, R,  partials, tickets, out};
   for (int i = 0; i < 12; ++i) q.affine[i] = affine[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sd == 1) return launch_by_degree<1>(q, consts, degree, warps, nblocks, s);
   return sd == 2 ? launch_by_degree<2>(q, consts, degree, warps, nblocks, s)
                  : launch_by_degree<3>(q, consts, degree, warps, nblocks, s);
 }
@@ -120,9 +121,10 @@ extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, 
 // minus cudaErrorInvalidValue outside the instantiations.
 extern "C" int fiat_pair_moments_occupancy(int sd, int degree, int warps, int piece_rows,
                                            int npieces, int nprogs) {
-  if ((sd != 2 && sd != 3) || warps < 1 || warps > MAX_WARPS || piece_rows < 0 || npieces < 0 ||
+  if (sd < 1 || sd > 3 || warps < 1 || warps > MAX_WARPS || piece_rows < 0 || npieces < 0 ||
       nprogs < 0)
     return -static_cast<int>(cudaErrorInvalidValue);
+  if (sd == 1) return occupancy_by_degree<1>(degree, warps, piece_rows, npieces, nprogs);
   return sd == 2 ? occupancy_by_degree<2>(degree, warps, piece_rows, npieces, nprogs)
                  : occupancy_by_degree<3>(degree, warps, piece_rows, npieces, nprogs);
 }

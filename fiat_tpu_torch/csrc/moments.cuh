@@ -1,6 +1,7 @@
 // K45's kernel template, its launch and its occupancy query
 // (csrc/moments.cu has the design note and the C entry points; the sd = 3
-// instantiations build from csrc/moments3.cu, beside the others).
+// instantiations build from csrc/moments3.cu and the sd = 1 ones from
+// csrc/moments1.cu, beside the others).
 
 #pragma once
 
@@ -10,6 +11,7 @@
 #include <cstddef>
 
 #include "binning.cuh"
+#include "dubiner1.cuh"
 #include "dubiner2.cuh"
 #include "dubiner3.cuh"
 
@@ -34,11 +36,12 @@ __host__ __device__ constexpr int min_blocks(int sd, int n) {
 }
 
 __host__ __device__ constexpr int nexp_of(int sd, int n) {
-  return sd == 2 ? (n + 1) * (n + 2) / 2 : (n + 1) * (n + 2) * (n + 3) / 6;
+  return sd == 1 ? n + 1 : sd == 2 ? (n + 1) * (n + 2) / 2 : (n + 1) * (n + 2) * (n + 3) / 6;
 }
 // doubles of pack_stages(n, sd=sd): 4 per stage entry (4 at degree 0)
 __host__ __device__ constexpr int nconst_of(int sd, int n) {
-  return n == 0 ? 4 : 4 * (n + 1 + nexp_of(2, n) + (sd == 3 ? nexp_of(3, n) : 0));
+  return n == 0 ? 4
+                : 4 * (n + 1 + (sd > 1 ? nexp_of(2, n) : 0) + (sd == 3 ? nexp_of(3, n) : 0));
 }
 // Shared memory (ops/moment_kernel.py block_smem): the block's tables first
 // (per piece its first row, width and program, then per program its first
@@ -240,7 +243,9 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
       for (int k = 1; k < SD; ++k) v += x[k] * q.affine[SD * i + k];
       y[i] = v + q.affine[SD * SD + i];
     }
-    if constexpr (SD == 2) {
+    if constexpr (SD == 1) {
+      fiat::dubiner1_point<N>(y[0], consts, q.scale, put);
+    } else if constexpr (SD == 2) {
       fiat::dubiner2_point<N>(y[0], y[1], consts, q.scale,
                               [&](int e, int, int, double v) { put(e, v); });
     } else {
@@ -345,7 +350,8 @@ int occupancy(int warps, int piece_rows, int npieces, int nprogs) {
 }
 
 // Every degree of one sd: the launch and the occupancy query, or
-// cudaErrorInvalidValue for a degree outside 0..10.
+// cudaErrorInvalidValue for a degree outside 0..10 (0..15 on the interval,
+// SD = 1, whose basis has 16 members at most).
 template <int SD>
 int launch_by_degree(const Params& q, const double* consts, int degree, int warps, int nblocks,
                      cudaStream_t stream) {
@@ -353,12 +359,19 @@ int launch_by_degree(const Params& q, const double* consts, int degree, int warp
 #define FIAT_CASE(n) \
   case n:            \
     return launch<SD, n>(q, consts, warps, nblocks, stream);
+#define FIAT_CASE_1D(n)                                                        \
+  case n:                                                                      \
+    if constexpr (SD == 1) return launch<SD, n>(q, consts, warps, nblocks, stream); \
+    break;
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
+    FIAT_CASE_1D(11) FIAT_CASE_1D(12) FIAT_CASE_1D(13) FIAT_CASE_1D(14) FIAT_CASE_1D(15)
+#undef FIAT_CASE_1D
 #undef FIAT_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int SD>
@@ -367,17 +380,27 @@ int occupancy_by_degree(int degree, int warps, int piece_rows, int npieces, int 
 #define FIAT_CASE(n) \
   case n:            \
     return occupancy<SD, n>(warps, piece_rows, npieces, nprogs);
+#define FIAT_CASE_1D(n)                                                            \
+  case n:                                                                          \
+    if constexpr (SD == 1) return occupancy<SD, n>(warps, piece_rows, npieces, nprogs); \
+    break;
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
+    FIAT_CASE_1D(11) FIAT_CASE_1D(12) FIAT_CASE_1D(13) FIAT_CASE_1D(14) FIAT_CASE_1D(15)
+#undef FIAT_CASE_1D
 #undef FIAT_CASE
     default:
-      return -static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// sd = 3 is instantiated in moments3.cu
+// sd = 3 is instantiated in moments3.cu, sd = 1 in moments1.cu
 extern template int launch_by_degree<3>(const Params&, const double*, int, int, int,
                                         cudaStream_t);
 extern template int occupancy_by_degree<3>(int, int, int, int, int);
+extern template int launch_by_degree<1>(const Params&, const double*, int, int, int,
+                                        cudaStream_t);
+extern template int occupancy_by_degree<1>(int, int, int, int, int);
 
 }  // namespace fiat::k45

@@ -1,5 +1,5 @@
-// K1: f64 Dubiner value recurrence on the triangle and the tetrahedron,
-// writing Phi (nexp, npts).
+// K1: f64 Dubiner value recurrence on the interval, the triangle and the
+// tetrahedron, writing Phi (nexp, npts).
 //
 // Replaces the TPU kernel fiat_tpu/ops/pallas_recurrence.py:
 // PallasSliceRecurrence._kernel (emit_slices + slice_split_ff).  That kernel
@@ -10,8 +10,9 @@
 // straight to its morton row, no windows.
 //
 // Bound on the card: the store of Phi, nexp * npts doubles (53 MB on the
-// triangle at degree 10, 132 MB on the tetrahedron at degree 8, at 1e5
-// points); the arithmetic is ~5 flops per value.  Design: one
+// triangle at degree 10, 132 MB on the tetrahedron at degree 8, 12.8 MB on
+// the interval at degree 15, at 1e5 points); the arithmetic is ~5 flops per
+// value.  Design: one
 // thread per point; Phi is row-major with points contiguous, so every store
 // of a warp is one coalesced 256-byte row segment.  The degree is a template
 // parameter, so the loops unroll and the live state stays in registers:
@@ -19,7 +20,9 @@
 // current row.  The per-(level, row) constants are uniform across the
 // warp and come through the read-only cache.
 //
-// The per-point recurrence lives in dubiner2.cuh (triangle; shared with K3,
+// The per-point recurrence lives in dubiner1.cuh (interval: a three-term
+// loop, each level stored as it comes, its member the level itself),
+// dubiner2.cuh (triangle; shared with K3,
 // which keeps Phi in registers) and dubiner3.cuh (tetrahedron: 165 values
 // at degree 8 do not fit a thread's registers, so each stage-2 chain streams
 // its values out holding two levels); the constant layouts are documented
@@ -31,10 +34,33 @@
 
 #include <cstddef>
 
+#include "dubiner1.cuh"
 #include "dubiner2.cuh"
 #include "dubiner3.cuh"
 
 namespace {
+
+template <int N>
+__global__ void __launch_bounds__(128)
+dubiner1_values_kernel(const double* __restrict__ pts, int npts,
+                       const double* __restrict__ consts, double a00, double b0,
+                       double scale, double* __restrict__ phi) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  // cell map onto the default (-1, 1) interval: ref = a00 x + b0
+  const double x0 = pts[p] * a00 + b0;
+  const size_t ld = static_cast<size_t>(npts);
+  fiat::dubiner1_point<N>(x0, consts, scale, [&](int i, double v) { phi[i * ld + p] = v; });
+}
+
+template <int N>
+void launch1(const double* pts, int npts, const double* consts, double a00, double b0,
+             double scale, double* phi, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (npts + threads - 1) / threads;
+  dubiner1_values_kernel<N><<<blocks, threads, 0, stream>>>(pts, npts, consts, a00, b0, scale,
+                                                             phi);
+}
 
 struct Affine {
   double a00, a01, a10, a11, b0, b1;
@@ -102,8 +128,32 @@ void launch3(const double* pts, int npts, const double* consts, const int* slots
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// degree outside 0..15 (the wrapper checks first).
+// The interval: degree 0..15 (nexp 16); the members are the levels, so
+// slots (the identity) is not read.  Returns cudaGetLastError() after the
+// launch; cudaErrorInvalidValue for a degree outside 0..15 (the wrapper
+// checks first).
+extern "C" int fiat_dubiner1_values(const double* pts, int npts, const double* consts,
+                                    const int* /*slots*/, double a00, double b0, double scale,
+                                    int degree, double* phi, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (degree) {
+#define FIAT_CASE(n) \
+  case n:            \
+    launch1<n>(pts, npts, consts, a00, b0, scale, phi, s); \
+    break;
+    FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
+    FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10) FIAT_CASE(11)
+    FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
+#undef FIAT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The triangle: returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for a degree outside 0..15 (the wrapper checks
+// first).
 extern "C" int fiat_dubiner2_values(const double* pts, int npts, const double* consts,
                                     const int* slots, double a00, double a01, double a10,
                                     double a11, double b0, double b1, double scale,

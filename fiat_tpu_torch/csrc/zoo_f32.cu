@@ -61,6 +61,10 @@
 // Each output is one sequential FMA chain over k = 0..K_t - 1 (A's padding
 // is exact zeros), so two calls give the same bits.
 //
+// The interval (sd = 1, degree 0..15) takes it from dubiner1.cuh in float,
+// the first thread of each point running the whole loop (zoo_f32_1.cu
+// instantiates it).
+//
 // The tetrahedron (sd = 3, degree 0..10) takes the Phi tile from
 // dubiner3.cuh in float, each value to its morton row through slots[e]
 // (ops/recurrence.py:pack_stages(N, variant, sd=3)), as K1's sd = 3 stage
@@ -75,6 +79,7 @@ FIAT_K6_INSTANTIATE(2, 128)
 namespace {
 
 int members(int sd, int degree) {
+  if (sd == 1) return degree + 1;
   return sd == 2 ? (degree + 1) * (degree + 2) / 2 : (degree + 1) * (degree + 2) * (degree + 3) / 6;
 }
 
@@ -83,7 +88,7 @@ int members(int sd, int degree) {
 // multiple of DEPTH rows, and minb blocks of tp threads fit an SM's
 // registers (the launch bounds) and shared memory
 bool valid(int sd, int degree, int kpad, int kmax, int tp, int kc, int stages, int minb) {
-  if ((sd != 2 && sd != 3) || degree < 0 || degree > (sd == 2 ? 15 : 10)) return false;
+  if (sd < 1 || sd > 3 || degree < 0 || degree > (sd == 3 ? 10 : 15)) return false;
   if (kmax < 1 || kmax > members(sd, degree) || kpad != (kmax + DEPTH - 1) / DEPTH * DEPTH)
     return false;
   if ((tp != 64 && tp != 128) || kc < DEPTH || kc % DEPTH != 0 || kc > kpad || stages < 2 ||
@@ -95,6 +100,8 @@ bool valid(int sd, int degree, int kpad, int kmax, int tp, int kc, int stages, i
 }
 
 int dispatch(int sd, int tp, const Params& q, int degree, size_t bytes, cudaStream_t s) {
+  if (sd == 1)
+    return tp == 64 ? by_degree<1, 64>(q, degree, bytes, s) : by_degree<1, 128>(q, degree, bytes, s);
   if (sd == 2)
     return tp == 64 ? by_degree<2, 64>(q, degree, bytes, s) : by_degree<2, 128>(q, degree, bytes, s);
   return tp == 64 ? by_degree<3, 64>(q, degree, bytes, s) : by_degree<3, 128>(q, degree, bytes, s);
@@ -103,7 +110,7 @@ int dispatch(int sd, int tp, const Params& q, int degree, size_t bytes, cudaStre
 }  // namespace
 }  // namespace fiat::k6
 
-// pts: device (npts, sd) f32, sd 2 or 3; consts, slots: pack_stages(degree,
+// pts: device (npts, sd) f32, sd 1, 2 or 3; consts, slots: pack_stages(degree,
 // variant, sd) on the device (slots read at sd = 3 only); affine: HOST array
 // of sd * sd + sd floats (A row-major, then b) mapping the points onto the
 // default simplex; At: device (sum of widths, 128) f32, every 128-row tile

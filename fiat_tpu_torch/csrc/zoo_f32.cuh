@@ -10,6 +10,7 @@
 #include <cstdint>
 
 #include "bulk_copy.cuh"
+#include "dubiner1.cuh"
 #include "dubiner2.cuh"
 #include "dubiner3.cuh"
 
@@ -131,7 +132,16 @@ zoo_f32_kernel(const __grid_constant__ Params q) {
     constexpr unsigned second = second_rows(SD, N);
     auto mine = [&](int r) { return static_cast<int>((second >> r) & 1u) == half; };
     const auto& a = q.aff;
-    if constexpr (SD == 2) {
+    if constexpr (SD == 1) {
+      // the interval's recurrence is one loop of N + 1 levels: the first
+      // thread of each point runs it alone
+      const float px = p < npts ? q.pts[p] : 0.0f;
+      const float x0 = px * a[0] + a[1];
+      if (half == 0)
+        fiat::dubiner1_point<N>(x0, q.consts, q.scale, [&](int m, float v) {
+          if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
+        });
+    } else if constexpr (SD == 2) {
       const float px = p < npts ? q.pts[2 * p] : 0.0f;
       const float py = p < npts ? q.pts[2 * p + 1] : 0.0f;
       const float x0 = (px * a[0] + py * a[1]) + a[4];
@@ -306,7 +316,7 @@ int by_degree(const Params& q, int degree, size_t bytes, cudaStream_t s) {
   switch (degree) {
 #define FIAT_CASE(n)                                                    \
   case n:                                                               \
-    if constexpr (SD == 2 || n <= 10)                                   \
+    if constexpr (SD != 3 || n <= 10)                                   \
       return bytes ? occupancy<SD, n, TP>(bytes) : launch<SD, n, TP>(q, s); \
     break;
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
@@ -320,7 +330,8 @@ int by_degree(const Params& q, int degree, size_t bytes, cudaStream_t s) {
 }
 
 // Each source instantiates one (cell, point tile): zoo_f32.cu (2, 128),
-// zoo_f32_3.cu (3, 128), zoo_f32_64.cu (2, 64), zoo_f32_3_64.cu (3, 64).
+// zoo_f32_3.cu (3, 128), zoo_f32_64.cu (2, 64), zoo_f32_3_64.cu (3, 64),
+// and zoo_f32_1.cu both of the interval's, (1, 128) and (1, 64).
 #define FIAT_K6_EXTERN(SD, TP) \
   extern template int by_degree<SD, TP>(const Params&, int, size_t, cudaStream_t);
 #define FIAT_K6_INSTANTIATE(SD, TP) \
@@ -329,5 +340,7 @@ FIAT_K6_EXTERN(2, 128)
 FIAT_K6_EXTERN(3, 128)
 FIAT_K6_EXTERN(2, 64)
 FIAT_K6_EXTERN(3, 64)
+FIAT_K6_EXTERN(1, 128)
+FIAT_K6_EXTERN(1, 64)
 
 }  // namespace fiat::k6

@@ -16,7 +16,10 @@
   GuzmanNeilanFirstKindH1 / SecondKindH1 (and GuzmanNeilanH1div),
   WuXuH3NC / WuXuRobustH3NC, BrambleZlamalC2, AlfeldC2 and Walkington;
 * the wrappers RestrictedElement, DiscontinuousElement and
-  NodalEnrichedElement.
+  NodalEnrichedElement;
+* the interval families Histopolation, FDMLagrange,
+  FDMDiscontinuousLagrange, FDMQuadrature, FDMBrokenH1, FDMBrokenL2 and
+  FDMHermite.
 """
 
 from .alfeld_sorokina import AlfeldSorokina  # noqa: F401
@@ -35,6 +38,9 @@ from .discontinuous import DiscontinuousElement  # noqa: F401
 from .discontinuous_lagrange import DiscontinuousLagrange  # noqa: F401
 from .discontinuous_raviart_thomas import DiscontinuousRaviartThomas  # noqa: F401
 from .discontinuous_taylor import DiscontinuousTaylor  # noqa: F401
+from .fdm_element import (  # noqa: F401
+    FDMBrokenH1, FDMBrokenL2, FDMDiscontinuousLagrange, FDMHermite, FDMLagrange,
+    FDMQuadrature)
 from .gopalakrishnan_lederer_schoberl import (  # noqa: F401
     GopalakrishnanLedererSchoberlFirstKind, GopalakrishnanLedererSchoberlSecondKind)
 from .guzman_neilan import (  # noqa: F401
@@ -43,6 +49,7 @@ from .hct import HsiehCloughTocher  # noqa: F401
 from .hellan_herrmann_johnson import HellanHerrmannJohnson  # noqa: F401
 from .hermite import CubicHermite  # noqa: F401
 from .hierarchical import IntegratedLegendre, Legendre  # noqa: F401
+from .histopolation import Histopolation  # noqa: F401
 from .hu_zhang import HuZhang  # noqa: F401
 from .johnson_mercier import JohnsonMercier  # noqa: F401
 from .kong_mulder_veldhuizen import KongMulderVeldhuizen  # noqa: F401

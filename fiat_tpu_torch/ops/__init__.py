@@ -18,17 +18,19 @@ def device_tabulator(elements, order=0, f64=True, device=None, derivs="dmats", *
     the caller asks for ``device="cpu"``.
 
     * ``f64=True``: ``fused_zoo.FusedZooTabulator`` in float64, on
-      triangles and tetrahedra: K1 and K2, and for macro elements K3 (a
-      triangle parent, at most 32 subcells in all: a measured routing
-      rule) or else K7 (tetrahedra, and triangle zoos past 32 subcells),
-      as ``tab.macro.name`` says; both take programs of any number of
-      subcells;
+      intervals, triangles and tetrahedra: K1 and K2, and for macro
+      elements K3 (an interval parent, whatever its subcells, as
+      fiat_tpu's one-shot route takes it; a triangle parent with at most
+      32 subcells in all: a measured routing rule) or else K7
+      (tetrahedra, and triangle zoos past 32 subcells; K7 has no interval
+      stage), as ``tab.macro.name`` says; both take programs of any number
+      of subcells;
       ``tab.block_tables(points)`` gives per-group blocks and
       ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
     * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``
       (K6, and K3 in float32 for macro elements: any number of subcells,
       in all and a program), on
-      triangles and tetrahedra; ``tab.tables(points)`` gives the whole
+      intervals, triangles and tetrahedra; ``tab.tables(points)`` gives the whole
       zoo's float32 tables.
 
     It takes fiat_tpu's keywords: ``derivs="dmats"`` (derivatives as

@@ -1,5 +1,5 @@
 """K6: the f32 throughput engine (recurrence fused with the change of
-basis), on triangles and tetrahedra.
+basis), on intervals, triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_tabulate.py`` (``PallasZooTabulator``).
 One pass runs
@@ -8,7 +8,7 @@ One pass runs
      derivative multi-indices stacked, as A_g @ Phi[:K_g] in float32, with
      Phi computed per point tile inside the kernel (it never reaches device
      memory) and every row written straight to its place in the output;
-  2. K3 in float32 (``macro_oneshot.MacroOneShot``, its sd = 2 or sd = 3
+  2. K3 in float32 (``macro_oneshot.MacroOneShot``, its sd = 1, 2 or 3
      stage) for the macro elements, when the zoo holds them: fiat_tpu's
      ``_macro_tables``.
 
@@ -33,7 +33,7 @@ from .recurrence import pack_stages
 
 #: highest degree the kernel is instantiated for per spatial dimension
 #: (csrc/zoo_f32.cu), as K1
-MAX_DEGREE = {2: 15, 3: 10}
+MAX_DEGREE = {1: 15, 2: 15, 3: 10}
 VARIANTS = (None, "bubble", "dual")
 
 
@@ -71,8 +71,8 @@ class ZooF32Kernel:
     ``out[dst[row]]`` and returns ``out`` (rows not in ``dst`` are left as
     they were).  Phi is the degree-``degree`` Dubiner recurrence of
     ``variant`` (the bubble C0 recovery belongs in A) with ``scale`` as
-    given, on the cell mapped onto the default triangle or tetrahedron by
-    ``affine_map`` (points (npts, sd), sd 2 or 3).
+    given, on the cell mapped onto the default interval, triangle or
+    tetrahedron by ``affine_map`` (points (npts, sd), sd 1, 2 or 3).
 
     Rows are packed back to back, zero-padded to the widest K (``max_k``)
     and cut into 128-row tiles (K2's ``pack_rows``); the kernel reads the
@@ -108,7 +108,8 @@ class ZooF32Kernel:
         self.sd = np.asarray(Af).shape[0]
         if self.sd not in MAX_DEGREE:
             raise NotImplementedError(
-                f"K6 covers triangles and tetrahedra (sd = 2, 3), not sd = {self.sd}")
+                f"K6 covers intervals, triangles and tetrahedra (sd = 1, 2, 3), not "
+                f"sd = {self.sd}")
         self.degree = int(degree)
         if not 0 <= self.degree <= MAX_DEGREE[self.sd]:
             raise NotImplementedError(
@@ -282,8 +283,8 @@ class F32ZooTabulator:
     ``tab.tables(points)`` gives {alpha: (rows, npts)} float32 for the whole
     zoo in the ``BatchedTabulator`` row order (plain rows, then the macro
     elements').  ``tab.kernel`` (K6) and ``tab.macro`` (K3 in float32; None
-    without macro elements) carry the launch counts.  Triangles and
-    tetrahedra, plain and macro."""
+    without macro elements) carry the launch counts.  Intervals, triangles
+    and tetrahedra, plain and macro."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), device=device)

@@ -5,7 +5,7 @@ Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedZooTabulator``
 over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
 
   1. K1 (``recurrence.DubinerRecurrence``): Phi (nexp, npts) in f64, on
-     triangles and tetrahedra; or, with ``features="bernstein"`` on a zoo
+     intervals, triangles and tetrahedra; or, with ``features="bernstein"`` on a zoo
      of one contraction width and no macro elements, K8
      (``bernstein.BernsteinFeatures``): the Bernstein features, with the
      Dubiner <- Bernstein conversion folded into K2's rows on the host;
@@ -17,9 +17,10 @@ over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
      program (subcell binning, masked change of basis, multiplicity average)
      in one launch: K3 (``macro_oneshot.MacroOneShot``,
      ``csrc/macro_oneshot.cu``, with its own parent recurrence) where
-     ``macro_oneshot.one_shot_applies`` (a triangle parent, at most 32
-     subcells in all, parent degree at most 10: a measured routing rule,
-     not a cap; both kernels take programs of any number of subcells), else
+     ``macro_oneshot.one_shot_applies`` (an interval parent, always, as
+     fiat_tpu's one-shot route; a triangle parent, at most 32 subcells in
+     all, parent degree at most 10: a measured routing rule, not a cap;
+     both kernels take programs of any number of subcells), else
      K7
      (``masked_matmul.MaskedMatmul``, ``csrc/masked_matmul.cu``), which
      reads the parent basis as a prefix of K1's Phi; K1 then runs at the

@@ -38,6 +38,8 @@ _D = ctypes.c_double
 _F = ctypes.c_float
 #: C signatures: name -> argtypes (all return int, the CUDA error code)
 SIGNATURES = {
+    # pts, npts, consts, slots, affine[2], scale, degree, phi, stream
+    "fiat_dubiner1_values": [_P, _I, _P, _P, _D, _D, _D, _I, _P, _P],
     # pts, npts, consts, slots, affine[6], scale, degree, phi, stream
     "fiat_dubiner2_values": [_P, _I, _P, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _P],
     # pts, npts, consts, slots, affine[12], scale, degree, phi, stream

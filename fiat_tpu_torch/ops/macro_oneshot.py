@@ -1,5 +1,5 @@
 """K3: the macro (split-complex) elements of a zoo in one CUDA launch, on
-triangles and tetrahedra.
+intervals, triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_multiword.py`` (``FusedMacroOneShot``,
 with the binning of ``pallas_recurrence.SubcellBinning``) and, in float32,
@@ -40,8 +40,9 @@ from ..core.expansions import dubiner_tabulate, subcell_masks
 from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream_of
 from .recurrence import pack_stages
 
-#: highest parent degree the kernel is instantiated for (csrc/macro_oneshot.cu)
-MAX_DEGREE = 10
+#: highest parent degree the kernel is instantiated for, per spatial
+#: dimension (csrc/macro_oneshot.cu, csrc/macro_oneshot_1.cu)
+MAX_DEGREE = {1: 15, 2: 10, 3: 10}
 #: subcells in all up to which the f64 engine takes K3 on a triangle parent,
 #: and K7 past it (``one_shot_applies``)
 ONE_SHOT_PIECES = 32
@@ -115,7 +116,8 @@ def mask_words(progs):
 
 def pack_geometry(geom, parent_map, nexp):
     """The binning tables of ``csrc/binning.cuh`` (float64 numpy/int32) on
-    triangles or tetrahedra (sd = 2, 3): ``maps`` (1 + pieces, sd + 1, sd +
+    intervals, triangles or tetrahedra (sd = 1, 2, 3): ``maps`` (1 + pieces,
+    sd + 1, sd +
     1), the parent's rescaled barycentric map first, then every subcell's,
     each row (a_0, ..., a_{sd-1}, b); ``progs`` (programs, 5) = (first row,
     end row, first piece, end piece, unique) from ``geom`` (per program
@@ -123,9 +125,9 @@ def pack_geometry(geom, parent_map, nexp):
     nexp) from the per-piece widths ``nexp``."""
     parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
     sd = parent_map[0].shape[1]
-    if sd not in (2, 3) or parent_map[0].shape != (sd + 1, sd):
-        raise NotImplementedError(f"the macro kernels bin on triangles and tetrahedra, "
-                                  f"not a parent map of shape {parent_map[0].shape}")
+    if sd not in (1, 2, 3) or parent_map[0].shape != (sd + 1, sd):
+        raise NotImplementedError(f"the macro kernels bin on intervals, triangles and "
+                                  f"tetrahedra, not a parent map of shape {parent_map[0].shape}")
     nexp = [int(n) for n in nexp]
     maps, progs, c0 = [parent_map], [], 0
     for g in geom:
@@ -219,23 +221,27 @@ def smem_bytes(nexp, itemsize, tp, ring, words, nbar):
 
 def one_shot_applies(merged):
     """Whether K3 is the f64 engine's kernel for the merged macro programs
-    (``fused_zoo._merge_macro_programs``' output): at most
-    ``ONE_SHOT_PIECES`` subcells in all, a parent degree of at most
-    ``MAX_DEGREE``, and a triangle parent.  K3 takes any number of
-    subcells, but past those the f64 tables take K7, which reads the zoo's
-    Phi from K1 instead of running the recurrence again; on a tetrahedral
-    parent K3's sd = 3 stage runs the f32 tables and interpolation, and the
-    f64 tables take K7, which the H100 measured faster on ``sv_macro_tet``
-    (PERF.md §6)."""
-    return (np.asarray(merged["parent_map"][0]).shape == (3, 2)
-            and len(merged["pieces"]) <= ONE_SHOT_PIECES
-            and 0 <= merged["degree"] <= MAX_DEGREE)
+    (``fused_zoo._merge_macro_programs``' output).  On an interval parent
+    always, whatever the number of subcells: fiat_tpu's one-shot route is
+    generic in sd (``pallas_multiword.py:1026-1048``) and K7 has no sd = 1
+    stage.  On a triangle parent where the programs have at most
+    ``ONE_SHOT_PIECES`` subcells in all and a parent degree of at most
+    ``MAX_DEGREE[2]``.  K3 takes any number of subcells, but past those the
+    f64 tables take K7, which reads the zoo's Phi from K1 instead of running
+    the recurrence again; on a tetrahedral parent K3's sd = 3 stage runs the
+    f32 tables and interpolation, and the f64 tables take K7, which the
+    H100 measured faster on ``sv_macro_tet`` (PERF.md §6)."""
+    shape = np.asarray(merged["parent_map"][0]).shape
+    if shape == (2, 1):
+        return True
+    return (shape == (3, 2) and len(merged["pieces"]) <= ONE_SHOT_PIECES
+            and 0 <= merged["degree"] <= MAX_DEGREE[2])
 
 
 class MacroOneShot:
     """``mo = MacroOneShot(A, pieces, geom, parent_map, degree, scale,
     affine_map, device, dtype)``; ``out = mo(points)`` is the (rows, npts)
-    table of every macro program at ``points`` (npts, sd), sd 2 or 3 as
+    table of every macro program at ``points`` (npts, sd), sd 1, 2 or 3 as
     ``parent_map`` says, in ``dtype`` (float64, or float32 for the f32
     engine).
 
@@ -266,15 +272,16 @@ class MacroOneShot:
         A = np.asarray(A, np.float64)
         self.rows, self.K = A.shape
         self.degree = int(degree)
-        if not 0 <= self.degree <= MAX_DEGREE:
-            raise NotImplementedError(f"macro parent degree {degree} outside 0..{MAX_DEGREE}: "
-                                      f"K3 is instantiated for degrees 0..{MAX_DEGREE}")
         self.geom = [dict(g, maps=[(np.asarray(Am, np.float64), np.asarray(bm, np.float64))
                                    for Am, bm in g["maps"]]) for g in geom]
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
         self.nexp = [int(n) for _, n in pieces]
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
         self.sd = sd = self.parent_map[0].shape[1]
+        if not 0 <= self.degree <= MAX_DEGREE[sd]:
+            raise NotImplementedError(
+                f"macro parent degree {degree} outside 0..{MAX_DEGREE[sd]}: K3 is instantiated "
+                f"for degrees 0..{MAX_DEGREE[sd]} at sd = {sd}")
         if max(self.nexp) > math.comb(self.degree + sd, sd):
             raise ValueError("a subcell reads more parent members than the recurrence makes")
         if int(pieces_t[-1].sum()) != self.K:

@@ -83,6 +83,10 @@ class MaskedMatmul:
                                    for Am, bm in g["maps"]]) for g in geom]
         self.parent_map = tuple(np.asarray(v, np.float64) for v in parent_map)
         self.sd = self.parent_map[0].shape[1]
+        if self.sd not in (2, 3):
+            raise NotImplementedError(
+                f"K7 covers triangle and tetrahedron parents (sd = 2, 3), not sd = {self.sd}: "
+                "the interval's macro programs take K3 (macro_oneshot.one_shot_applies)")
         self.nexp = [int(n) for _, n in pieces]
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
         if int(pieces_t[-1].sum()) != self.K:

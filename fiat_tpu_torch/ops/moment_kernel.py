@@ -1,5 +1,5 @@
 """K45: the plain and masked moments of a zoo in one CUDA launch, on
-triangles and tetrahedra.
+intervals, triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_recurrence.py`` ``PallasPairMoments``
 (K4) and ``PallasMaskedPairMoments`` (K5).  The TPU kernels reach f64 sums
@@ -30,9 +30,9 @@ from .kernels import check_launch, load_kernels, resolve_device, stream_of
 from .macro_oneshot import BINNING_TOL, pack_geometry
 from .recurrence import pack_stages
 
-#: highest degree the kernel is instantiated for (csrc/moments.cu), on the
-#: triangle and on the tetrahedron
-MAX_DEGREE = 10
+#: highest degree the kernel is instantiated for per spatial dimension
+#: (csrc/moments.cu, moments1.cu, moments3.cu)
+MAX_DEGREE = {1: 15, 2: 10, 3: 10}
 
 #: doubles of a warp's slab: 32 entries x 32 points, row stride 33
 #: (csrc/moments.cuh SLAB)
@@ -86,7 +86,7 @@ class PairMoments:
     """``pm = PairMoments(degree, nplain, scale, affine_map, geom,
     parent_map, pieces, device)``; ``out = pm(points, wf)`` is the float64
     vector of every moment over ``points`` (npts, sd) with weights ``wf``
-    (npts,), sd 2 or 3 as ``affine_map`` says:
+    (npts,), sd 1, 2 or 3 as ``affine_map`` says:
 
       * ``out[:nplain]``: pw[k] = sum_q phi_k(x_q) wf_q, the degree-``degree``
         Dubiner basis (scale ``scale``, cell map ``affine_map``);
@@ -108,14 +108,16 @@ class PairMoments:
                  device=None):
         Af, bf = affine_map
         self.sd = np.asarray(Af).shape[0]
-        if self.sd not in (2, 3):
+        if self.sd not in MAX_DEGREE:
             raise NotImplementedError(
-                f"K45 covers triangles and tetrahedra (sd = 2, 3), not sd = {self.sd}")
+                f"K45 covers intervals, triangles and tetrahedra (sd = 1, 2, 3), not "
+                f"sd = {self.sd}")
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
         self.degree = int(degree)
-        if not 0 <= self.degree <= MAX_DEGREE:
-            raise NotImplementedError(f"moments degree {degree} outside 0..{MAX_DEGREE}")
+        if not 0 <= self.degree <= MAX_DEGREE[self.sd]:
+            raise NotImplementedError(
+                f"moments degree {degree} outside 0..{MAX_DEGREE[self.sd]} for sd = {self.sd}")
         self.nexp = math.comb(self.degree + self.sd, self.sd)
         self.nplain = int(nplain)
         self.piece_nexp = [int(n) for _, n in pieces]

@@ -13,8 +13,8 @@ one launch of K45 (``moment_kernel.PairMoments``); interpolation, the
 transpose, runs K1 for the plain rows and K3 with the coefficients folded
 into a one-row change of basis per macro program (K3's one-row chunks,
 every program's in one block).  The small products around them stay ``torch.matmul``, as fiat_tpu
-leaves them to XLA.  Both directions take triangles and tetrahedra, plain
-and macro.
+leaves them to XLA.  Both directions take intervals, triangles and
+tetrahedra, plain and macro.
 
 The engine is built once per tabulator and cached on it; it runs on
 ``tabulator.device`` (a CUDA device, the default: the kernels; the CPU,

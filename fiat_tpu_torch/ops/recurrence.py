@@ -1,5 +1,5 @@
 """K1: the Dubiner value recurrence as a hand-written CUDA kernel, on
-triangles and tetrahedra.
+intervals, triangles and tetrahedra.
 
 Counterpart of ``fiat_tpu/ops/pallas_recurrence.py``
 (``PallasSliceRecurrence``).  The TPU kernel emits the expansion
@@ -22,24 +22,26 @@ from ..core.expansions import _stage_constants, dubiner_tabulate
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
 
 #: highest degree the kernel is instantiated for, per spatial dimension
-#: (csrc/recurrence.cu): nexp 136 on the triangle, 286 on the tetrahedron,
-#: both inside the widest contraction K2 takes (438)
-MAX_DEGREE = {2: 15, 3: 10}
+#: (csrc/recurrence.cu): nexp 16 on the interval, 136 on the triangle, 286
+#: on the tetrahedron, all inside the widest contraction K2 takes (438)
+MAX_DEGREE = {1: 15, 2: 15, 3: 10}
 
 
 def pack_stages(degree, variant=None, sd=2):
     """Host-packed constants of the Dubiner recurrence for the kernels:
-    (consts f64, slots int32) in the layout ``csrc/dubiner2.cuh`` (sd = 2)
-    or ``csrc/dubiner3.cuh`` (sd = 3) documents.  Stage 0 runs on one row
-    (its output is the identity permutation of its levels); every later
+    (consts f64, slots int32) in the layout ``csrc/dubiner1.cuh`` (sd = 1),
+    ``csrc/dubiner2.cuh`` (sd = 2) or ``csrc/dubiner3.cuh`` (sd = 3)
+    documents.  Stage 0 runs on one row (its output is the identity
+    permutation of its levels; on the interval it is the only stage, and
+    ``slots`` the identity); every later
     stage's entries are (input row, level) pairs, input rows in the order
     of their multi-indices (p, then q), levels innermost, each with the
     (a, b, c) of its level and the norm of its output row.  ``slots`` gives
     the last stage's entries their morton output rows.  The expansion
     variants ("bubble", "dual") keep the stage structure and the morton
     rows; their recurrence coefficients and norms differ."""
-    if sd not in (2, 3):
-        raise NotImplementedError(f"the recurrence kernels cover sd = 2 and 3, not sd = {sd}")
+    if sd not in MAX_DEGREE:
+        raise NotImplementedError(f"the recurrence kernels cover sd = 1, 2 and 3, not sd = {sd}")
     n = degree
     if n == 0:
         return np.zeros(4), np.zeros(1, np.int32)
@@ -47,6 +49,8 @@ def pack_stages(degree, variant=None, sd=2):
     if not np.array_equal(perm, np.arange(n + 1)):
         raise AssertionError("stage-0 output is expected in level order")
     consts = [(*_level_coeffs(a1, b1, general, i, 0), norms[i, 0]) for i in range(n + 1)]
+    if sd == 1:
+        return np.asarray(consts, np.float64).ravel(), np.arange(n + 1, dtype=np.int32)
 
     # stage 1: input row p (stage 0's level p), level q
     a1, b1, general, perm, norms = _stage_constants(sd, n, 1, variant)
@@ -90,7 +94,8 @@ class DubinerRecurrence:
     ``phi = rec(points)`` is the (nexp, npts) float64 tabulation of the
     plain orthonormal Dubiner basis at ``points`` (npts, sd), float64,
     contiguous, mapped onto the default simplex by ``ref = A @ x + b``;
-    sd is 2 (triangle) or 3 (tetrahedron).
+    sd is 1 (interval: the Legendre basis), 2 (triangle) or 3
+    (tetrahedron).
 
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
     """
@@ -98,7 +103,8 @@ class DubinerRecurrence:
     def __init__(self, sd, degree, scale, affine_map, device=None):
         if sd not in MAX_DEGREE:
             raise NotImplementedError(
-                f"The CUDA recurrence covers triangles and tetrahedra (sd = 2, 3), not sd={sd}")
+                f"The CUDA recurrence covers intervals, triangles and tetrahedra (sd = 1, 2, 3), "
+                f"not sd={sd}")
         if not 0 <= degree <= MAX_DEGREE[sd]:
             raise NotImplementedError(
                 f"degree {degree} outside 0..{MAX_DEGREE[sd]} for sd = {sd}")

@@ -345,13 +345,28 @@ def test_split_variants_raise_naming_macro_polynomial_set(family, sd, degree, sp
 
 
 @pytest.mark.parametrize("family", ["GaussRadau", "GaussLegendre", "CrouzeixRaviart"])
-def test_interval_elements_are_host_only(family):
-    """The engines refuse sd = 1 by name; the elements tabulate on the host."""
+def test_interval_elements_run_on_the_engines(family):
+    """The engines take sd = 1 (K1, K2; K45 and K1 for moments and
+    interpolation; K6 in float32): each element's tables, moments and
+    interpolated values on the CPU (the kernels' plain versions) against
+    host el.tabulate."""
     I = tcl.ufc_simplex(1)
     el = getattr(ft, family)(I, 1)
-    with pytest.raises(NotImplementedError, match="sd=1"):
-        device_tabulator([el], order=1, device="cpu")
-    assert el.tabulate(1, np.array([[0.25], [0.5]]))[(1,)].shape == (el.space_dimension(), 2)
+    pts = np.random.default_rng(23).random((40, 1))
+    host = el.tabulate(1, pts)
+    tab = device_tabulator([el], order=1, device="cpu")
+    got, = tab.unpack(tab.block_tables(pts))
+    assert tab.recurrence.sd == 1 and set(got) == set(host)
+    for a in host:
+        assert np.abs(got[a].numpy() - host[a]).max() <= ATOL_FIAT
+    f32 = device_tabulator([el], order=1, f64=False, device="cpu").tables(pts)
+    for a in host:
+        assert np.abs(f32[a].numpy() - host[a]).max() <= RTOL_F32 * max(1.0, np.abs(host[a]).max())
+    bt = BatchedTabulator([el], order=0, device="cpu")
+    wf = np.random.default_rng(24).random(len(pts))
+    assert np.abs(tmo.moment_rows(bt, pts, wf).numpy() - host[(0,)] @ wf).max() <= ATOL_DUAL
+    c = np.random.default_rng(25).random(el.space_dimension()) - 0.5
+    assert np.abs(tmo.interpolate_rows(bt, pts, c).numpy() - c @ host[(0,)]).max() <= ATOL_DUAL
 
 
 # -- the two zoos through the engines ----------------------------------------------

@@ -42,7 +42,8 @@ from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_macro import _points, _special_points  # noqa: E402
 from test_torch_macro_tet import _bin_as_the_kernel  # noqa: E402
-from test_torch_recurrence import _dubiner2_point  # noqa: E402
+from test_torch_recurrence import (_dubiner1_point,  # noqa: E402
+                                   _dubiner2_point)
 from test_torch_tet_dual import _dubiner3_values  # noqa: E402
 
 RTOL_REPLAY = 1e-13     # the kernel's loop vs the plain version: the order of sums differs
@@ -90,14 +91,16 @@ def _rule_words(hits, unique):
 
 def _replay_k3(mo, pts, A=None, sub=None):
     """csrc/macro_oneshot.cuh's loop in numpy on the tables the wrapper
-    built for its plan (``mo.layout``), on triangles or tetrahedra.  Per
+    built for its plan (``mo.layout``), on intervals, triangles or
+    tetrahedra.  Per
     block, its group of chunks (one for the tables, every program's one-row
     chunk for ``A``) and ``sub`` point tiles of the plan's points (the
     wrapper's count unless given): the shared memory as the bulk copies fill
     it (every slice of the group at its offset from the group's first, or
     the ring's buffers, visit u's slice into buffer u % stages once visit u
     - stages is done; whatever no copy writes is NaN here); per tile the
-    recurrence's values (dubiner2.cuh or dubiner3.cuh); per chunk its
+    recurrence's values (dubiner1.cuh, dubiner2.cuh or dubiner3.cuh); per
+    chunk its
     program's binning word by word; per slice, for each hit piece in order,
     k ascending, phi_k times its column into the chunk's rows, a group of
     ROW_GROUP rows at a time up to the chunk's last row."""
@@ -113,7 +116,9 @@ def _replay_k3(mo, pts, A=None, sub=None):
     slices, groups, buf = lay["slices"], lay["groups"], lay["buf"]
     sd = mo.sd
     ref = (pts @ mo.affine[:sd * sd].reshape(sd, sd).T + mo.affine[sd * sd:]).T
-    if sd == 2:
+    if sd == 1:
+        phi = _dubiner1_point(ref[0], consts, mo.degree, mo.scale)
+    elif sd == 2:
         phi = _dubiner2_point(ref[0], ref[1], consts, slots, mo.degree, mo.scale)
     else:
         phi = np.zeros((math.comb(mo.degree + 3, 3), len(pts)))

@@ -122,10 +122,10 @@ def test_pyproject_ships_the_port():
     data = cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
-        "bernstein.cu", "binning.cuh", "bucket_matmul.cu", "bulk_copy.cuh", "dubiner2.cuh",
-        "dubiner3.cuh", "macro_oneshot.cu", "macro_oneshot.cuh", "macro_oneshot_f32.cu",
-        "macro_oneshot_one.cu", "masked_matmul.cu", "moments.cu", "moments.cuh", "moments3.cu",
-        "recurrence.cu", "zoo_f32.cu", "zoo_f32.cuh", "zoo_f32_3.cu", "zoo_f32_3_64.cu",
-        "zoo_f32_64.cu"]
+        "bernstein.cu", "binning.cuh", "bucket_matmul.cu", "bulk_copy.cuh", "dubiner1.cuh",
+        "dubiner2.cuh", "dubiner3.cuh", "macro_oneshot.cu", "macro_oneshot.cuh",
+        "macro_oneshot_1.cu", "macro_oneshot_f32.cu", "macro_oneshot_one.cu", "masked_matmul.cu",
+        "moments.cu", "moments.cuh", "moments1.cu", "moments3.cu", "recurrence.cu", "zoo_f32.cu",
+        "zoo_f32.cuh", "zoo_f32_1.cu", "zoo_f32_3.cu", "zoo_f32_3_64.cu", "zoo_f32_64.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)

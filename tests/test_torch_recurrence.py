@@ -111,6 +111,24 @@ def _dubiner2_point(x0, x1, consts, slots, n, scale):
     return out
 
 
+def _dubiner1_point(x0, consts, n, scale):
+    """csrc/dubiner1.cuh's per-point recurrence in numpy, reading the packed
+    constants as the kernels do; level i is member i."""
+    out = np.zeros((n + 1,) + np.shape(x0))
+    out[0] = scale if n == 0 else scale * consts[3]
+    if n == 0:
+        return out
+    c = consts.reshape(-1, 4)
+    fb = 0.5 * (-1.0 + -1.0)
+    fa, fc = x0 + fb + 1.0, fb * fb
+    prev2, prev = 0.0, scale
+    for i in range(1, n + 1):
+        v = (c[i, 0] * fa - c[i, 1] * fb) * prev - (c[i, 2] * fc) * prev2
+        out[i] = v * c[i, 3]
+        prev2, prev = prev, v
+    return out
+
+
 @pytest.mark.parametrize("variant", [None, "bubble", "dual"])
 @pytest.mark.parametrize("degree", [0, 1, 4, 10])
 def test_packed_constants_run_the_variant_recurrences(variant, degree):
@@ -132,7 +150,7 @@ def test_wrapper_rejects_bad_inputs():
         rec(torch.as_tensor(PTS[:, :1]).contiguous())
     with pytest.raises(ValueError):
         rec(torch.as_tensor(np.asfortranarray(PTS)).T.contiguous().T)
-    with pytest.raises(NotImplementedError, match="sd = 2, 3"):
+    with pytest.raises(NotImplementedError, match="sd = 1, 2, 3"):
         DubinerRecurrence(4, 2, 1.0, (np.eye(4), np.zeros(4)), device="cpu")
     with pytest.raises(NotImplementedError, match="outside 0..15"):
         DubinerRecurrence(2, MAX_DEGREE[2] + 1, 1.0, (np.eye(2), np.zeros(2)), device="cpu")

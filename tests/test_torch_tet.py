@@ -130,8 +130,8 @@ def test_pack_stages_sd3_layout_covers_every_member_once():
         want = [texp.morton_index3(p, q, r) for p in range(n + 1) for q in range(n + 1 - p)
                 for r in range(n + 1 - p - q)]
         assert slots.tolist() == want
-    with pytest.raises(NotImplementedError, match="sd = 2 and 3"):
-        pack_stages(2, sd=1)
+    with pytest.raises(NotImplementedError, match="sd = 1, 2 and 3"):
+        pack_stages(2, sd=4)
 
 
 def _lagrange(fe, cell):

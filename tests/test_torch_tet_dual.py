@@ -39,7 +39,7 @@ from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_macro_tet import _bin_as_the_kernel  # noqa: E402
-from test_torch_recurrence import _dubiner2_point  # noqa: E402
+from test_torch_recurrence import _dubiner1_point, _dubiner2_point  # noqa: E402
 
 ATOL = 1e-12            # against fiat_tpu and host (f64 on both sides)
 RTOL_PLAIN = 1e-13      # the same sums in another order of operations
@@ -265,7 +265,7 @@ def _dubiner3_values(x, consts, n, scale):
 
 def _replay_k45(pm, pts, wf, nblocks, warps=None):
     """csrc/moments.cuh's schedule in numpy on the tables the wrapper built,
-    on triangles or tetrahedra, for a grid of ``nblocks`` blocks of
+    on intervals, triangles or tetrahedra, for a grid of ``nblocks`` blocks of
     ``warps`` warps (the wrapper's ``pm.warps`` unless given; the kernel
     takes 1 to 8).  Warp w of block b takes the 32-point tiles b * warps +
     w, then every nblocks * warps further.  Each point's values of the
@@ -283,7 +283,9 @@ def _replay_k45(pm, pts, wf, nblocks, warps=None):
     consts, slots = pm.consts, pm.slots.numpy()
     sd, n, R, warps = pm.sd, len(pts), pm.rows, warps or pm.warps
     ref = (pts @ pm.affine[:sd * sd].reshape(sd, sd).T + pm.affine[sd * sd:]).T
-    if sd == 2:
+    if sd == 1:
+        phi = _dubiner1_point(ref[0], consts, pm.degree, pm.scale)
+    elif sd == 2:
         phi = _dubiner2_point(ref[0], ref[1], consts, slots, pm.degree, pm.scale)
     else:
         phi = np.zeros((pm.nexp, n))
