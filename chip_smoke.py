@@ -72,9 +72,11 @@ Drives the port's main paths once each at their real size, at 1e5 points
  13. ``hex_gll_sumfact`` (bench.py:515-579): GaussLobattoLegendre 8 on the
      interval tabulated on the host at the 46-point Gauss-Jacobi rule, the
      three sum-factorised ``torch.einsum`` contractions on the card in
-     float64 over a 46^3 field, held to the dense Kronecker contraction on
-     the host (no kernel of the port runs here, nor a Pallas kernel in
-     fiat_tpu);
+     float64 over a 46^3 field, held to the port's dense hexahedral
+     element (``FlattenedDimensions`` of GLL x GLL x GLL, 729 x 97,336,
+     tabulated on the host) contracted with the weights and the field by
+     one ``torch.matmul`` on the card (no kernel of the port runs here, nor
+     a Pallas kernel in fiat_tpu);
  14. ``stokes_elasticity_tri`` at ``pts2``: the Stokes, elasticity and C2
      families of fiat_tpu's nodality sweep on the triangle (``STOKES_TRI``:
      WuXu, Bramble-Zlamal, AlfeldC2 on the double Alfeld split,
@@ -127,7 +129,23 @@ Drives the port's main paths once each at their real size, at 1e5 points
      through every entry point (K1, K2 and K3 at sd = 1; K45; K1 and K3 one
      row per program; K6 and K3 float32), held to host relative to max(1,
      max |table|), and ``INTERVAL_BERNSTEIN`` (Lagrange, DG, GLL and
-     FDMLagrange 15) on the Bernstein route (K8 + K2).
+     FDMLagrange 15) on the Bernstein route (K8 + K2);
+ 21. ``tp_zoo``: the tensor-product cells and the composite elements
+     (``tp_zoo``: on the quadrilateral Q 1-8 and DQ 0-6 as flattened
+     products of interval elements, RTCF and RTCE 1-4, S 1-6, DPC 0-6,
+     SminusF, SminusE, BDMCF and BDMCE 1-3; on the hexahedron Q 1-4, DQ
+     0-3, NCF and NCE 1-2, S 1-4, DPC 0-3, SminusE 1-3; HDivTrace 0-3 on
+     I x I; MixedElement and QuadratureElement on the triangle; 78
+     elements) built and tabulated at order 1 on the host, held finite,
+     FlattenedDimensions to its TensorProductElement, MixedElement blocks
+     to their members; the product check: every Q and DQ's interval
+     factors through ``device_tabulator(factors, order=1)`` at each column
+     of the 1e5 points (K1 at sd = 1 and K2, five launches each), their
+     Kronecker products by ``torch.einsum`` on the card held to host
+     ``TensorProductElement.tabulate``; the Bernstein check: ``Bernstein``
+     on the interval and triangle at degrees 1-15 and the tetrahedron at
+     1-10 against K8 (``BernsteinFeatures``, rows permuted to the
+     element's) on the card.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -160,9 +178,10 @@ phase 7's three cells and K6 at sd = 3 on two, K3's sd = 3 stage and K6 on
 phase 8's, K3 on the C1 zoos (order 1, 2 and 3), K1, K2, K45 and K6 on
 phases 10 and 11, K1 and K2 on phase 12, K1, K2, K7, K45, K3 (one
 row per program and float32) and K6 on phases 14-18, K1, K2, K3 (or
-K7), K45, K3 one row per program and float32 and K6 on phase 19, and K1,
+K7), K45, K3 one row per program and float32 and K6 on phase 19, K1,
 K2, K3, K45, K3 one row per program and float32, K6, and K8 + K2 at sd = 1
-on phase 20, each with its bound:
+on phase 20, and K1 and K2 on phase 21's factor tables and K8 on its
+Bernstein elements (sd 1-3 at their top degrees), each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1828,8 +1847,7 @@ FAMILIES_TET = (
 COMPOSITES_TET = ("NodalEnriched-S", "NodalEnriched-Regge")
 HEX_DEGREE = 8           # bench.py:522, the GLL element of hex_gll_sumfact
 HEX_M = 46               # bench.py:523, Gauss-Jacobi points a direction
-HEX_RTOL = 1e-12         # sum-factorised vs dense Kronecker moments, / max |dense|
-HEX_CHUNK = 81           # rows of the dense (729, 46^3) table built at a time
+HEX_RTOL = 1e-12         # sum-factorised vs dense hexahedral moments, / max |dense|
 
 
 def composite(name, T):
@@ -2403,21 +2421,17 @@ def gll_sumfact(PW, F, torch):
     return torch.einsum("cs,abs->abc", PW, t)
 
 
-def dense_hex_moments(phi1, w1, F, np, chunk=HEX_CHUNK):
-    """The same moments from the dense hexahedral table, the Kronecker
-    product of the 1D table with itself three times ((p^3, m^3), built
-    ``chunk`` rows at a time), times the tensor-product weights and F."""
-    p, m = phi1.shape
-    w3f = (np.einsum("p,q,r->pqr", w1, w1, w1) * F).ravel()
-    rows = np.stack(np.meshgrid(np.arange(p), np.arange(p), np.arange(p), indexing="ij"),
-                    axis=-1).reshape(-1, 3)
-    out = np.empty(p ** 3)
-    for s in range(0, p ** 3, chunk):
-        a, b, c = rows[s:s + chunk].T
-        table = (phi1[a][:, :, None, None] * phi1[b][:, None, :, None]
-                 * phi1[c][:, None, None, :]).reshape(len(a), m ** 3)
-        out[s:s + chunk] = table @ w3f
-    return out.reshape(p, p, p)
+def dense_hex_table(gll, x1, np):
+    """hex_gll_sumfact's dense reference as bench.py:554-570 builds it: the
+    port's FlattenedDimensions(TensorProductElement(TensorProductElement(
+    gll, gll), gll)) tabulated on the host at the tensor grid of the 1D
+    points ``x1`` (the first coordinate slowest): the (p^3, m^3) table."""
+    from fiat_tpu_torch import FlattenedDimensions, TensorProductElement
+
+    hexel = FlattenedDimensions(TensorProductElement(TensorProductElement(gll, gll), gll))
+    xg = np.asarray(x1).ravel()
+    grid = np.stack(np.meshgrid(xg, xg, xg, indexing="ij"), axis=-1).reshape(-1, 3)
+    return np.asarray(hexel.tabulate(0, grid)[(0, 0, 0)])
 
 
 def hex_gll_phase(dev, card, torch, np):
@@ -2425,9 +2439,11 @@ def hex_gll_phase(dev, card, torch, np):
     element of degree HEX_DEGREE on the interval, tabulated on the host at
     the HEX_M-point Gauss-Jacobi rule, and the three sum-factorised einsums
     on the card in float64 on a HEX_M^3 field from default_rng(0), held to
-    the dense Kronecker contraction on the host (HEX_RTOL of its max) and
-    timed beside the einsums' bytes over the HBM rate.  No Pallas kernel
-    runs here in fiat_tpu: torch.einsum is the port of its jnp.einsum."""
+    the port's dense hexahedral element (``dense_hex_table``, tabulated on
+    the host) contracted with the tensor-product weights times the field by
+    one torch.matmul on the card, at HEX_RTOL of its max, and timed beside
+    the einsums' bytes over the HBM rate.  No Pallas kernel runs here in
+    fiat_tpu: torch.einsum is the port of its jnp.einsum."""
     from fiat_tpu_torch import GaussLobattoLegendre, ufc_simplex
     from fiat_tpu_torch.core.quadrature import GaussJacobiQuadratureLineRule
 
@@ -2440,25 +2456,32 @@ def hex_gll_phase(dev, card, torch, np):
     PW = torch.as_tensor(phi1 * w1, device=dev)
     F = torch.as_tensor(F_h, device=dev)
     M = gll_sumfact(PW, F, torch)
+    p, m = phi1.shape
     t0 = time.perf_counter()
-    want = dense_hex_moments(phi1, w1, F_h, np)
+    dense = torch.as_tensor(dense_hex_table(gll, x1, np), device=dev)
     dense_s = time.perf_counter() - t0
+    w3f = torch.as_tensor((np.einsum("p,q,r->pqr", w1, w1, w1) * F_h).ravel(), device=dev)
+    want = torch.matmul(dense, w3f).reshape(p, p, p).cpu().numpy()
     got = M.cpu().numpy()
     rel = float(np.abs(got - want).max() / np.abs(want).max())
-    p, m = phi1.shape
     print(f"hex_gll_sumfact: GLL {HEX_DEGREE} on the interval ({p} x {m} table at the {m}-point "
           f"Gauss-Jacobi rule), moments {tuple(got.shape)} of a {m}^3 field, finite "
-          f"{bool(np.isfinite(got).all())}; vs the dense Kronecker contraction on the host "
-          f"({p ** 3} x {m ** 3}, {dense_s:.2f} s): rel {rel:.3e}")
+          f"{bool(np.isfinite(got).all())}; vs the port's dense hexahedral element (the "
+          f"FlattenedDimensions of GLL x GLL x GLL, {tuple(dense.shape)}, tabulated on the host "
+          f"in {dense_s:.2f} s) times w^3 F, one torch.matmul on the card: rel {rel:.3e} "
+          f"(bar {HEX_RTOL})")
     if tuple(got.shape) != (p, p, p) or not np.isfinite(got).all() or not rel <= HEX_RTOL:
         fail(f"hex_gll_sumfact: shape {tuple(got.shape)}, rel {rel:.3e} > {HEX_RTOL}")
     ms = median_ms(lambda: gll_sumfact(PW, F, torch), torch)
     card_ms = queued_ms(lambda: gll_sumfact(PW, F, torch), torch)
+    dense_ms = median_ms(lambda: torch.matmul(dense, w3f), torch)
+    del dense
     # each einsum reads its operands once and writes its output once
     nbytes = 8 * (3 * p * m + m ** 3 + 2 * p * m * m + 2 * p * p * m + p ** 3)
     print(f"hex_gll_sumfact timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"three einsums {ms:.4f} ms (card, the calls queued behind a spin: {card_ms:.4f} ms); "
-          f"their {nbytes} bytes over the HBM rate {nbytes / HBM_BYTES_MS:.6f} ms")
+          f"their {nbytes} bytes over the HBM rate {nbytes / HBM_BYTES_MS:.6f} ms; the dense "
+          f"contraction {dense_ms:.4f} ms")
 
 
 #: fiat_tpu's own instance list (tests/test_nodality_sweep.py, SPECS at
@@ -2724,6 +2747,381 @@ def host_bars(name, zoo, per, pts, npts, np, order=1):
           + "".join(f"; {k} {v:.3e} of max(1, max |table|) per alpha (limit "
                     f"{limits.get(k, STOKES_HOST_RTOL)})" for k, v in worst_rel.items()))
     return worst_abs
+
+
+# -- phase 21: the tensor-product cells and the composite elements -------------
+
+#: phase 21, ``tp_zoo``: the product of interval elements held to host on
+#: the interval's bar (PERF.md §2), of max(1, max |table|) per alpha
+TP_PRODUCT_RTOL = INTERVAL_HOST_RTOL
+#: K8 against the Bernstein element's order-0 table, of its max |table|
+BERNSTEIN_RTOL = 1e-13
+#: the Bernstein elements of phase 21: degrees 1 to these, by sd (the
+#: ranges of ops/bernstein.py's MAX_DEGREE)
+BERNSTEIN_TOP = {1: 15, 2: 15, 3: 10}
+
+
+def quad_piola(m, k, curl=False):
+    """RTCF k (RTCE k with ``curl``) on I x I, built by the package
+    namespace ``m`` (the port, or fiat_tpu in the tests): the
+    EnrichedElement of the Hdiv (Hcurl) products CG k x DG k-1 and DG k-1
+    x CG k."""
+    I = m.ufc_simplex(1)
+    CG, DG = m.Lagrange(I, k), m.DiscontinuousLagrange(I, k - 1)
+    wrap = m.Hcurl if curl else m.Hdiv
+    return m.EnrichedElement(wrap(m.TensorProductElement(CG, DG)),
+                             wrap(m.TensorProductElement(DG, CG)))
+
+
+def hex_piola(m, k, curl=False):
+    """NCF k (NCE k with ``curl``) on (I x I) x I: the EnrichedElement of
+    Hdiv(RTCF k x DG k-1) and Hdiv(DQ k-1 x CG k) (Hcurl(RTCE k x CG k)
+    and Hcurl(Q k x DG k-1))."""
+    I = m.ufc_simplex(1)
+    CG, DG = m.Lagrange(I, k), m.DiscontinuousLagrange(I, k - 1)
+    if curl:
+        pairs = ((quad_piola(m, k, curl=True), CG), (m.TensorProductElement(CG, CG), DG))
+    else:
+        pairs = ((quad_piola(m, k), DG), (m.TensorProductElement(DG, DG), CG))
+    wrap = m.Hcurl if curl else m.Hdiv
+    return m.EnrichedElement(*[wrap(m.TensorProductElement(a, b)) for a, b in pairs])
+
+
+def tp_product(m, k, sd, continuous=True):
+    """Q k (DQ k unless ``continuous``) on the quadrilateral (sd 2) or the
+    hexahedron (sd 3): the FlattenedDimensions of the product of sd
+    interval elements, CG k (DG k)."""
+    I = m.ufc_simplex(1)
+    family = m.Lagrange if continuous else m.DiscontinuousLagrange
+    el = m.TensorProductElement(family(I, k), family(I, k))
+    if sd == 3:
+        el = m.TensorProductElement(el, family(I, k))
+    return m.FlattenedDimensions(el)
+
+
+def tp_zoo(m):
+    """Phase 21's zoo built by the package namespace ``m``: {group: [(label,
+    element)]} for "quadrilateral" and "hexahedron" (tabulated in the unit
+    square and cube), "trace" (HDivTrace on I x I, tabulated on its
+    facets) and "composite" (on the triangle).  The Q and DQ entries are
+    the plain products of the product check."""
+    I, Q, H = m.ufc_simplex(1), m.UFCQuadrilateral(), m.UFCHexahedron()
+    T = m.ufc_simplex(2)
+    quad = ([(f"Q {k}", tp_product(m, k, 2)) for k in range(1, 9)]
+            + [(f"DQ {k}", tp_product(m, k, 2, False)) for k in range(7)]
+            + [(f"RTCF {k}", quad_piola(m, k)) for k in range(1, 5)]
+            + [(f"RTCE {k}", quad_piola(m, k, curl=True)) for k in range(1, 5)]
+            + [(f"S {k}", m.Serendipity(Q, k)) for k in range(1, 7)]
+            + [(f"DPC {k}", m.DPC(Q, k)) for k in range(7)]
+            + [(f"SminusF {k}", m.TrimmedSerendipityFace(Q, k)) for k in range(1, 4)]
+            + [(f"SminusE {k}", m.TrimmedSerendipityEdge(Q, k)) for k in range(1, 4)]
+            + [(f"BDMCF {k}", m.BrezziDouglasMariniCubeFace(Q, k)) for k in range(1, 4)]
+            + [(f"BDMCE {k}", m.BrezziDouglasMariniCubeEdge(Q, k)) for k in range(1, 4)])
+    hexa = ([(f"Q {k}", tp_product(m, k, 3)) for k in range(1, 5)]
+            + [(f"DQ {k}", tp_product(m, k, 3, False)) for k in range(4)]
+            + [(f"NCF {k}", hex_piola(m, k)) for k in range(1, 3)]
+            + [(f"NCE {k}", hex_piola(m, k, curl=True)) for k in range(1, 3)]
+            + [(f"S {k}", m.Serendipity(H, k)) for k in range(1, 5)]
+            + [(f"DPC {k}", m.DPC(H, k)) for k in range(4)]
+            + [(f"SminusE {k}", m.TrimmedSerendipityEdge(H, k)) for k in range(1, 4)])
+    trace = [(f"HDivTrace {k}", m.HDivTrace(m.TensorProductCell(I, I), k)) for k in range(4)]
+    composite = [("MixedElement (Lagrange 2, RaviartThomas 2)",
+                  m.MixedElement([m.Lagrange(T, 2), m.RaviartThomas(T, 2)])),
+                 ("MixedElement (DiscontinuousLagrange 1, Lagrange 3)",
+                  m.MixedElement([m.DiscontinuousLagrange(T, 1), m.Lagrange(T, 3)])),
+                 ("QuadratureElement (degree 4 rule)",
+                  m.QuadratureElement(T, m.create_quadrature(T, 4).get_points()))]
+    return {"quadrilateral": quad, "hexahedron": hexa, "trace": trace, "composite": composite}
+
+
+def tp_points(n, seed, np):
+    """Phase 21's points: {group: (n, sd)} uniform in the unit square and
+    the unit cube (default_rng(seed), square first), their first column as
+    points of the interval facets of I x I (``trace``), and pts2 in the
+    triangle (``composite``)."""
+    rng = np.random.default_rng(seed)
+    square, cube = rng.random((n, 2)), rng.random((n, 3))
+    return {"quadrilateral": square, "hexahedron": cube, "trace": square[:, :1],
+            "composite": make_points(n, seed, np)}
+
+
+def tp_factors(el):
+    """The interval factors of a plain product (a FlattenedDimensions of
+    nested TensorProductElements), in coordinate order."""
+    el = getattr(el, "element", el)
+    if hasattr(el, "A") and hasattr(el, "B"):
+        return tp_factors(el.A) + tp_factors(el.B)
+    return [el]
+
+
+def kron_tables(tabs, order, torch):
+    """The tables of a product of interval elements from its factors'
+    {(a,): (n_f, npts)} tables ``tabs`` (coordinate order): for every alpha
+    of total order <= ``order``, the Kronecker product over the factors of
+    their alpha_i-th derivatives, the last factor fastest, as the product
+    element numbers its basis."""
+    from fiat_tpu_torch.core.expansions import mis
+
+    d = len(tabs)
+    letters = "abc"[:d]
+    spec = ",".join(c + "p" for c in letters) + "->" + letters + "p"
+    out = {}
+    for total in range(order + 1):
+        for alpha in mis(d, total):
+            t = torch.einsum(spec, *[tab[(a,)] for tab, a in zip(tabs, alpha)])
+            out[alpha] = t.reshape(-1, t.shape[-1])
+    return out
+
+
+def tp_host_tables(zoo, pts, np, check=HOST_CHECK_PTS):
+    """Every element of ``tp_zoo`` tabulated at order 1 on the host at the
+    first ``check`` points of its group (HDivTrace on each facet of I x I;
+    QuadratureElement at order 0 at its own points, the only tabulation it
+    has), each table held finite, each FlattenedDimensions to its
+    TensorProductElement and each MixedElement's blocks to its members'
+    tables.  Returns ({(group, label): table dict}, seconds)."""
+    from fiat_tpu_torch import FlattenedDimensions, MixedElement, QuadratureElement
+    from fiat_tpu_torch.elements.hdiv_trace import TraceError
+
+    tables, t0 = {}, time.perf_counter()
+    for group, members in zoo.items():
+        x = pts[group][:check]
+        for label, el in members:
+            key = f"{group} {label}"
+            if isinstance(el, QuadratureElement):
+                own = np.asarray(el._points)
+                tab = el.tabulate(0, own)
+                if not np.array_equal(tab[(0, 0)], np.eye(len(own))):
+                    fail(f"{key}: not the identity at its own points")
+            elif group == "trace":
+                tab = {}
+                for dim in ((0, 1), (1, 0)):
+                    for e in sorted(el.entity_dofs()[dim]):
+                        ft = el.tabulate(1, x, (dim, e))
+                        if not all(isinstance(v, TraceError) for a, v in ft.items() if sum(a)):
+                            fail(f"{key}: a derivative on facet {(dim, e)} is not a TraceError")
+                        tab[(dim, e)] = ft[(0, 0)]
+            else:
+                tab = el.tabulate(1, x)
+            if not all(np.isfinite(v).all() for v in tab.values()):
+                fail(f"{key}: non-finite host values")
+            if isinstance(el, FlattenedDimensions):
+                inner = el.element.tabulate(1, x)
+                if set(inner) != set(tab) or not all(np.array_equal(inner[a], tab[a])
+                                                      for a in tab):
+                    fail(f"{key}: FlattenedDimensions differs from its TensorProductElement")
+            if isinstance(el, MixedElement):
+                rows = cols = 0
+                for sub in el.elements():
+                    st = sub.tabulate(1, x)
+                    n, c = sub.space_dimension(), max(int(np.prod(sub.value_shape())), 1)
+                    for a, v in st.items():
+                        block = tab[a][rows:rows + n, cols:cols + c]
+                        if not np.array_equal(block, v.reshape(n, c, -1)):
+                            fail(f"{key}: a block differs from its member's table")
+                    rows, cols = rows + n, cols + c
+            tables[key] = tab
+    return tables, time.perf_counter() - t0
+
+
+def tp_product_cell(zoo, pts, host, dev, card, torch, np):
+    """The product check (K1 at sd = 1 and K2): the interval factors of
+    every plain product in ``zoo`` (Q and DQ on both cells) through
+    ``device_tabulator(factors, order=1)`` on the card, one ``block_tables``
+    call at each column of the quadrilateral's and the hexahedron's 1e5
+    points (one K1 and one K2 launch each), the Kronecker products of the
+    factor tables formed on the card by torch.einsum and held to the host
+    TensorProductElement tables ``host`` at TP_PRODUCT_RTOL of max(1, max
+    |table|) per alpha; K1 and K2 against their plain versions and timed.
+    Returns the kernels-line entries."""
+    from fiat_tpu_torch import device_tabulator
+
+    products = [(group, label, el) for group in ("quadrilateral", "hexahedron")
+                for label, el in zoo[group] if label.split()[0] in ("Q", "DQ")]
+    factors, index = [], {}
+    for _, _, el in products:
+        for f in tp_factors(el):
+            key = (type(f).__name__, f.degree())
+            if key not in index:
+                index[key] = len(factors)
+                factors.append(f)
+    t0 = time.perf_counter()
+    tab = device_tabulator(factors, order=1)       # the default device: the card
+    rec, mm = tab.recurrence, tab.matmul
+    if tab.macro is not None or tab.features is not None or tab.device != dev:
+        fail(f"tp_zoo factors: K1 and K2 only, on {dev}")
+    cols = {(group, i): torch.as_tensor(np.ascontiguousarray(pts[group][:, i:i + 1]), device=dev)
+            for group, sd in (("quadrilateral", 2), ("hexahedron", 3)) for i in range(sd)}
+    print(f"tp_zoo product check: {len(products)} products of {len(factors)} interval factors "
+          f"({tab.rows} rows, widths {tab.widths}), K1 sd {rec.sd} degree {rec.degree}, "
+          f"{len(cols)} columns of {NPTS} points; {time.perf_counter() - t0:.2f} s")
+    P = cols[("quadrilateral", 0)]
+    phi_p = rec.plain(P)
+    k1_abs = check_kernel(f"tp_zoo factors K1 recurrence (sd 1, degree {rec.degree}) at {NPTS} "
+                          f"points", rec(P), phi_p, torch)
+    k2_abs = check_kernel(f"tp_zoo factors K2 bucket matmul ({mm.total_rows} x {NPTS})",
+                          mm(phi_p), mm.plain(phi_p), torch)
+    del phi_p
+    engines = {"K1": rec, "K2": mm}
+    blocks, launches = counted(engines, lambda: {c: tab.block_tables(C) for c, C in cols.items()},
+                               torch)
+    expect_launches("tp_zoo factors", launches, dict.fromkeys(engines, len(cols)))
+    per = {c: tab.unpack(b) for c, b in blocks.items()}
+    worst = 0.0
+    for group, label, el in products:
+        tabs = [per[(group, i)][index[(type(f).__name__, f.degree())]]
+                for i, f in enumerate(tp_factors(el))]
+        got = kron_tables(tabs, 1, torch)
+        want = host[f"{group} {label}"]
+        if set(got) != set(want):
+            fail(f"tp_zoo {group} {label}: alphas {sorted(got)} != {sorted(want)}")
+        for a, w in want.items():
+            g = got[a]
+            if tuple(g.shape) != (w.shape[0], NPTS) or not bool(torch.isfinite(g).all()):
+                fail(f"tp_zoo {group} {label} {a}: shape {tuple(g.shape)} or non-finite values")
+            rel = float(np.abs(g[:, :w.shape[1]].cpu().numpy() - w).max()) / max(
+                1.0, float(np.abs(w).max()))
+            if not rel <= TP_PRODUCT_RTOL:
+                fail(f"tp_zoo {group} {label} {a}: {rel:.3e} of max(1, max |table|) from host "
+                     f"> {TP_PRODUCT_RTOL}")
+            worst = max(worst, rel)
+    print(f"tp_zoo product check: the Kronecker products of the factor tables vs host "
+          f"TensorProductElement.tabulate on {HOST_CHECK_PTS} points: {worst:.3e} of max(1, "
+          f"max |table|) per alpha (bar {TP_PRODUCT_RTOL})")
+    del blocks, per
+    torch.cuda.empty_cache()
+
+    def product_pass():
+        per = {c: tab.unpack(tab.block_tables(C)) for c, C in cols.items()}
+        return [kron_tables([per[(group, i)][index[(type(f).__name__, f.degree())]]
+                             for i, f in enumerate(tp_factors(el))], 1, torch)
+                for group, _, el in products]
+
+    phi = rec(P)
+    k1_ms, k1_plain = median_ms(lambda: rec(P), torch), plain_ms(lambda: rec.plain(P), torch)
+    k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), plain_ms(lambda: mm.plain(phi), torch)
+    A = mm.A.to(dev)
+    k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)     # one padded DGEMM
+    k1_card, k2_card = queued_ms(lambda: rec(P), torch), queued_ms(lambda: mm(phi), torch)
+    del A, phi
+    pass_ms = median_ms(product_pass, torch, reps=3, inner=3, warmup=1)
+    k1_bound, k2_bound = rec_bound(rec, NPTS), matmul_bound(mm, NPTS)
+    print(f"tp_zoo product timing ({card}; median of {REPS} runs of {INNER}, CUDA events; card: "
+          f"the same queued behind a spin): the factor tables at {len(cols)} columns and every "
+          f"product's Kronecker tables {pass_ms:.4f} ms; a column's K1 {k1_ms:.4f} ms (card "
+          f"{k1_card:.4f}, plain {k1_plain:.4f}, bound {k1_bound[0]:.4f} by {k1_bound[1]}), K2 "
+          f"{k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} (card {k2_card:.4f}, plain {k2_plain:.4f}, one "
+          f"padded DGEMM {k2_lib:.4f}, bound {k2_bound[0]:.4f} by {k2_bound[1]})")
+    src = "fiat_tpu_torch/csrc/"
+    return [entry("K1 dubiner1_values (tp_zoo factors)", src + "recurrence.cu",
+                  "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms,
+                  k1_plain, k1_bound),
+            entry("K2 bucket_matmul (tp_zoo factors)", src + "bucket_matmul.cu",
+                  "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms,
+                  k2_plain, k2_bound, k2_lib)]
+
+
+def bernstein_rows(sd, degree):
+    """The permutation taking K8's rows (``bernstein_multiindices``) to the
+    Bernstein element's (``mis(sd + 1, degree)``), by exponent tuple."""
+    from fiat_tpu_torch.core.expansions import mis
+    from fiat_tpu_torch.ops.bernstein import bernstein_multiindices
+
+    k8 = {tuple(k): i for i, k in enumerate(bernstein_multiindices(sd, degree))}
+    return [k8[tuple(k)] for k in mis(sd + 1, degree)]
+
+
+def bernstein_element_cell(dev, card, torch, np):
+    """The Bernstein check (K8): ``Bernstein(cell, d)`` on the interval and
+    the triangle at d = 1-15 and the tetrahedron at d = 1-10, and
+    ``BernsteinFeatures(sd, d, _bary_map(cell), device)`` on the card at
+    the 1e5 points of the cell (``make_points``), one launch each, its rows
+    permuted to the element's, held to ``Bernstein.tabulate(0, .)`` on the
+    first HOST_CHECK_PTS points and to its plain version at BERNSTEIN_RTOL
+    of max |table|; each timed against its bound.  Returns the
+    kernels-line entries, one a cell at its top degree."""
+    from fiat_tpu_torch import Bernstein, ufc_simplex
+    from fiat_tpu_torch.ops.bernstein import BernsteinFeatures, _bary_map
+
+    t0 = time.perf_counter()
+    cells = {}
+    for sd, top in BERNSTEIN_TOP.items():
+        cell = ufc_simplex(sd)
+        pts = make_points(NPTS, SEED, np, sd=sd)
+        cells[sd] = (pts, torch.as_tensor(pts, device=dev),
+                     [(Bernstein(cell, d), BernsteinFeatures(sd, d, _bary_map(cell), device=dev))
+                      for d in range(1, top + 1)])
+    print(f"bernstein_element host construction: {sum(BERNSTEIN_TOP.values())} Bernstein "
+          f"elements (sd 1-3 to degrees {BERNSTEIN_TOP}), {time.perf_counter() - t0:.2f} s")
+    engines = {(sd, feat.degree): feat for sd, (_, _, els) in cells.items() for _, feat in els}
+    outs, launches = counted(engines, lambda: {(sd, feat.degree): feat(P) for sd, (_, P, els)
+                                               in cells.items() for _, feat in els}, torch)
+    if set(launches.values()) != {1}:
+        fail(f"bernstein_element: one K8 launch an element, got {launches}")
+    print(f"bernstein_element launches on the main path: {len(launches)} K8 calls, one launch "
+          f"each")
+    entries, src = [], "fiat_tpu_torch/csrc/"
+    for sd, (pts, P, els) in cells.items():
+        for el, feat in els:
+            d = feat.degree
+            got = outs[(sd, d)][bernstein_rows(sd, d)]
+            want = el.tabulate(0, pts[:HOST_CHECK_PTS])[(0,) * sd]
+            if tuple(got.shape) != (want.shape[0], NPTS) or not bool(torch.isfinite(got).all()):
+                fail(f"bernstein_element sd {sd} degree {d}: shape {tuple(got.shape)} or "
+                     f"non-finite values")
+            host = float(np.abs(got[:, :HOST_CHECK_PTS].cpu().numpy() - want).max()
+                         / np.abs(want).max())
+            k8_abs, plain_rel = rel_err(outs[(sd, d)], feat.plain(P))
+            if not (host <= BERNSTEIN_RTOL and plain_rel <= BERNSTEIN_RTOL):
+                fail(f"bernstein_element sd {sd} degree {d}: {host:.3e} from the element, "
+                     f"{plain_rel:.3e} from its plain version, of max |table| > {BERNSTEIN_RTOL}")
+            k8_ms, k8_plain = median_ms(lambda: feat(P), torch), plain_ms(lambda: feat.plain(P),
+                                                                          torch)
+            k8_card, bound = queued_ms(lambda: feat(P), torch), features_bound(feat, NPTS)
+            print(f"bernstein_element sd {sd} degree {d} ({feat.nexp} rows): K8 vs "
+                  f"Bernstein.tabulate(0) on {HOST_CHECK_PTS} points {host:.3e}, vs plain "
+                  f"{plain_rel:.3e} of max |table| (bar {BERNSTEIN_RTOL}); K8 {k8_ms:.4f} ms "
+                  f"(card {k8_card:.4f}, plain {k8_plain:.4f}, bound {bound[0]:.4f} by "
+                  f"{bound[1]}; {card})")
+            if d == BERNSTEIN_TOP[sd]:
+                entries.append(entry(f"K8 bernstein_features (bernstein_element sd {sd}, degree "
+                                     f"{d})", src + "bernstein.cu",
+                                     "fiat_tpu/ops/pallas_bernstein.py:288",
+                                     launches[(sd, d)], k8_abs, k8_ms, k8_plain, bound))
+    return entries
+
+
+def tp_phase(dev, card, torch, np):
+    """Phase 21, ``tp_zoo``: the tensor-product cells and the composite
+    elements.  The zoo of ``tp_zoo`` built on the host and tabulated at
+    order 1 there (``tp_host_tables``), the host's time at 1e5 points of
+    the largest products (Q 8 on the quadrilateral, Q 4 on the
+    hexahedron), the product check on K1 and K2 (``tp_product_cell``) and
+    the Bernstein check on K8 (``bernstein_element_cell``).  Returns the
+    kernels-line entries."""
+    import fiat_tpu_torch as ft
+
+    t0 = time.perf_counter()
+    zoo = tp_zoo(ft)
+    sizes = {g: sum(el.space_dimension() for _, el in members) for g, members in zoo.items()}
+    print(f"tp_zoo host construction: {sum(len(v) for v in zoo.values())} elements "
+          f"({', '.join(f'{g} {len(v)}' for g, v in zoo.items())}; basis functions {sizes}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    pts = tp_points(NPTS, SEED, np)
+    host, host_s = tp_host_tables(zoo, pts, np)
+    print(f"tp_zoo host tables: every element at order 1 on {HOST_CHECK_PTS} points (HDivTrace "
+          f"on each facet of I x I, derivatives TraceError), finite; FlattenedDimensions equal "
+          f"to its TensorProductElement; MixedElement blocks equal to their members' tables; "
+          f"{host_s:.2f} s")
+    for group, label in (("quadrilateral", "Q 8"), ("hexahedron", "Q 4")):
+        el = dict(zoo[group])[label]
+        s0 = time.perf_counter()
+        el.tabulate(1, pts[group])
+        print(f"tp_zoo host time: {group} {label} ({el.space_dimension()} functions) at order "
+              f"1 at {NPTS} points: {time.perf_counter() - s0:.3f} s")
+    kernels = tp_product_cell(zoo, pts, host, dev, card, torch, np)
+    torch.cuda.empty_cache()
+    return kernels + bernstein_element_cell(dev, card, torch, np)
 
 
 def k3_cells(dev, card, torch, np, own):
@@ -3249,6 +3647,8 @@ def main():
     lap(19)
     kernels += interval_phase(dev, card, torch, np)
     lap(20)
+    kernels += tp_phase(dev, card, torch, np)
+    lap(21)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,25 +4,38 @@ host-side and static.
 Counterpart of the simplex part of ``fiat_tpu/core/cells.py`` (UFC
 conventions): ``Cell`` (topology, sub/super entities, connectivity,
 parents), ``SimplicialComplex`` (normals, tangents, barycentric maps,
-L1 distances, subentity transforms) and the reference simplices.  Split
-complexes subclass ``SimplicialComplex`` in ``core/macro.py``.  A cell
-is ``<=`` another when it lies on the other's parent-complex chain (a
-split complex is ``>`` its parent).  Cells
-are plain Python objects whose data parameterise the tabulation kernels;
-everything here is float64 numpy.  Tensor-product cells and hypercubes are
-not ported yet.
+L1 distances, subentity transforms, orientation maps) and the reference
+simplices; ``TensorProductCell`` (products of cells, tuple entity
+dimensions) and the hypercubes presented with flat dimensions
+(``Hypercube``, ``UFCQuadrilateral``, ``UFCHexahedron``) with the
+flattening maps between the two numberings.  Split complexes subclass
+``SimplicialComplex`` in ``core/macro.py``.  A cell is ``<=`` another when
+it lies on the other's parent-complex chain (a split complex is ``>`` its
+parent); products compare factor by factor.  Cells are plain Python
+objects whose data parameterise the tabulation kernels; everything here is
+float64 numpy.
 """
 
 import math
+import operator
+from collections import defaultdict
+from functools import reduce
+from itertools import chain, count, product
 
 import numpy as np
 
+from . import orientation as ornt
 from .recursive_nodes import recursive_node
 
 POINT = "point"
 LINE = "line"
 TRIANGLE = "triangle"
 TETRAHEDRON = "tetrahedron"
+QUADRILATERAL = "quadrilateral"
+HEXAHEDRON = "hexahedron"
+TENSORPRODUCT = "tensorproduct"
+
+HYPERCUBE_SHAPES = {0: POINT, 1: LINE, 2: QUADRILATERAL, 3: HEXAHEDRON}
 
 
 # Lattice utilities --------------------------------------------------------
@@ -303,6 +316,13 @@ class SimplicialComplex(Cell):
         v = self.volume_of_subcomplex(sd - 1, facet_i)
         return self.compute_normal(facet_i) * v
 
+    def compute_reference_normal(self, facet_dim, facet_i):
+        """The outward normal of a facet (no UFC sign override), scaled to
+        unit max norm."""
+        assert facet_dim == self.get_spatial_dimension() - 1
+        n = SimplicialComplex.compute_normal(self, facet_i)
+        return n / np.linalg.norm(n, np.inf)
+
     def volume(self):
         sd = self.get_spatial_dimension()
         return sum(self.volume_of_subcomplex(sd, k) for k in self.topology[sd])
@@ -407,6 +427,9 @@ class SimplicialComplex(Cell):
         bary = self.compute_barycentric_coordinates(points, entity=entity, rescale=rescale)
         return 0.5 * abs((abs(bary) - bary).sum(-1))
 
+    def contains_point(self, point, epsilon=0.0, entity=None):
+        return self.distance_to_point_l1(point, entity=entity) <= epsilon
+
     def point_entity_ids(self, points, tol=1e-10):
         """{dim: {entity: [indices of the points interior to it]}}, each
         point credited to the lowest-dimensional entity holding it."""
@@ -439,6 +462,9 @@ class Simplex(SimplicialComplex):
 
     def symmetry_group_size(self, dim):
         return math.factorial(dim + 1)
+
+    def cell_orientation_reflection_map(self):
+        return ornt.make_cell_orientation_reflection_map_simplex(self.get_dimension())
 
 
 class UFCSimplex(Simplex):
@@ -535,6 +561,244 @@ class UFCTetrahedron(UFCSimplex):
         return -2.0 * n / np.linalg.norm(n)
 
 
+# Tensor products ------------------------------------------------------------
+
+class TensorProductCell(Cell):
+    """Product of reference cells; entities are products of factor entities,
+    numbered lexicographically within each dimension tuple."""
+
+    def __init__(self, *cells):
+        vertices = tuple(tuple(chain(*coords))
+                         for coords in product(*[c.get_vertices() for c in cells]))
+        vshape = tuple(len(c.get_vertices()) for c in cells)
+        topology = {}
+        for dim in product(*[c.get_topology().keys() for c in cells]):
+            tops = [c.get_topology()[d] for c, d in zip(cells, dim)]
+            ents = {}
+            for key in product(*[sorted(t) for t in tops]):
+                vert_tuples = list(product(*[t[e] for t, e in zip(tops, key)]))
+                ents[key] = tuple(np.ravel_multi_index(np.transpose(vert_tuples), vshape))
+            topology[dim] = dict(enumerate(ents[k] for k in sorted(ents)))
+        super().__init__(TENSORPRODUCT, vertices, topology)
+        self.cells = tuple(cells)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.cells!r})"
+
+    def __hash__(self):
+        return hash((type(self), self.cells))
+
+    @staticmethod
+    def _split_slices(lengths):
+        offs = np.cumsum([0, *lengths])
+        return [slice(a, b) for a, b in zip(offs[:-1], offs[1:])]
+
+    def get_dimension(self):
+        return tuple(c.get_dimension() for c in self.cells)
+
+    def construct_subelement(self, dimension):
+        return TensorProductCell(*[c.construct_subelement(d)
+                                   for c, d in zip(self.cells, dimension)])
+
+    def construct_subcomplex(self, dimension):
+        return TensorProductCell(*[c.construct_subcomplex(d)
+                                   for c, d in zip(self.cells, dimension)])
+
+    def get_entity_transform(self, dim, entity_i):
+        """Map from the product subentity's coordinates into this cell:
+        each factor's transform on its own slice of the coordinates."""
+        shape = tuple(len(c.get_topology()[d]) for c, d in zip(self.cells, dim))
+        alpha = np.unravel_index(entity_i, shape)
+        maps = [c.get_entity_transform(d, i) for c, d, i in zip(self.cells, dim, alpha)]
+        slices = self._split_slices(dim)
+
+        def transform(point):
+            point = np.asarray(point)
+            return np.concatenate([t(point[..., s]) for t, s in zip(maps, slices)], axis=-1)
+        return transform
+
+    def volume(self):
+        return float(np.prod([c.volume() for c in self.cells]))
+
+    def compute_reference_normal(self, facet_dim, facet_i):
+        assert len(facet_dim) == len(self.get_dimension())
+        diff = np.array(self.get_dimension()) - np.array(facet_dim)
+        (which,), = np.nonzero(diff)
+        n = []
+        for i, c in enumerate(self.cells):
+            if i == which:
+                n.extend(c.compute_reference_normal(facet_dim[i], facet_i))
+            else:
+                n.extend([0] * c.get_spatial_dimension())
+        return np.asarray(n)
+
+    def contains_point(self, point, epsilon=0.0):
+        slices = self._split_slices(self.get_dimension())
+        point = np.asarray(point)
+        return reduce(lambda a, b: a & b,
+                      (c.contains_point(point[..., s], epsilon=epsilon)
+                       for c, s in zip(self.cells, slices)), True)
+
+    def distance_to_point_l1(self, point, rescale=False):
+        slices = self._split_slices(self.get_dimension())
+        point = np.asarray(point)
+        return sum(c.distance_to_point_l1(point[..., s], rescale=rescale)
+                   for c, s in zip(self.cells, slices))
+
+    def point_entity_ids(self, points, tol=1e-10):
+        points = np.asarray(points)
+        slices = self._split_slices(self.get_dimension())
+        factor_ids = [c.point_entity_ids(points[..., s], tol=tol)
+                      for c, s in zip(self.cells, slices)]
+        top = self.get_topology()
+        out = {dim: {e: [] for e in top[dim]} for dim in top}
+        for dims in product(*factor_ids):
+            pieces = [A[d] for A, d in zip(factor_ids, dims)]
+            for entity, ents in enumerate(product(*pieces)):
+                sets = [set(A[d][e]) for A, d, e in zip(factor_ids, dims, ents)]
+                out[dims][entity].extend(sorted(set.intersection(*sets)))
+        return out
+
+    def symmetry_group_size(self, dim):
+        return tuple(c.symmetry_group_size(d) for d, c in zip(dim, self.cells))
+
+    def cell_orientation_reflection_map(self):
+        return ornt.make_cell_orientation_reflection_map_tensorproduct(self.cells)
+
+    def extract_extrinsic_orientation(self, o):
+        return o // 2 ** len(self.cells)
+
+    def extract_intrinsic_orientation(self, o, axis):
+        dim = len(self.cells)
+        if axis >= dim:
+            raise ValueError(f"axis must be < {dim}")
+        return o % 2 ** dim // 2 ** (dim - 1 - axis) % 2
+
+    @property
+    def extrinsic_orientation_permutation_map(self):
+        dim = len(self.cells)
+        a = np.zeros((math.factorial(dim), dim, dim), dtype=int)
+        perms = ornt.make_entity_permutations_simplex(dim - 1, 2)
+        ai = np.array(list(perms.values()), dtype=int).reshape((math.factorial(dim), dim, 1))
+        np.put_along_axis(a, ai, 1, axis=2)
+        return a
+
+    def is_macrocell(self):
+        return any(c.is_macrocell() for c in self.cells)
+
+    def _compare(self, op, other):
+        if hasattr(other, "product"):
+            other = other.product
+        if isinstance(other, TensorProductCell):
+            return all(op(a, b) for a, b in zip(self.cells, other.cells))
+        return op(self, other)
+
+    def __gt__(self, other):
+        return self._compare(operator.gt, other)
+
+    def __lt__(self, other):
+        return self._compare(operator.lt, other)
+
+    def __ge__(self, other):
+        return self._compare(operator.ge, other)
+
+    def __le__(self, other):
+        return self._compare(operator.le, other)
+
+
+# Hypercubes (flattened tensor products) ----------------------------------------
+
+class Hypercube(Cell):
+    """A tensor-product cell of intervals presented with flat (integer)
+    entity dimensions."""
+
+    def __init__(self, dimension, tp):
+        self.dimension = dimension
+        super().__init__(HYPERCUBE_SHAPES[dimension], tp.get_vertices(),
+                         flatten_entities(tp.get_topology()))
+        self.product = tp
+        self.unflattening_map = compute_unflattening_map(tp.get_topology())
+
+    def construct_subelement(self, dimension):
+        sd = self.get_spatial_dimension()
+        if dimension > sd:
+            raise ValueError("Invalid subentity dimension")
+        if dimension == sd:
+            return self
+        sub = self.product.construct_subelement((dimension,) + (0,) * (len(self.product.cells) - 1))
+        return flatten_reference_cube(sub)
+
+    def get_entity_transform(self, dim, entity_i):
+        d, e = self.unflattening_map[(dim, entity_i)]
+        return self.product.get_entity_transform(d, e)
+
+    def volume(self):
+        return self.product.volume()
+
+    def compute_reference_normal(self, facet_dim, facet_i):
+        assert facet_dim == self.get_spatial_dimension() - 1
+        d, i = self.unflattening_map[(facet_dim, facet_i)]
+        return self.product.compute_reference_normal(d, i)
+
+    def contains_point(self, point, epsilon=0.0):
+        return self.product.contains_point(point, epsilon=epsilon)
+
+    def distance_to_point_l1(self, point, rescale=False):
+        return self.product.distance_to_point_l1(point, rescale=rescale)
+
+    def point_entity_ids(self, points, tol=1e-10):
+        product_ids = self.product.point_entity_ids(points, tol=tol)
+        where = self.unflattening_map
+        return {dim: {e: product_ids[where[(dim, e)][0]][where[(dim, e)][1]]
+                      for e in self.topology[dim]}
+                for dim in self.topology}
+
+    def symmetry_group_size(self, dim):
+        return math.factorial(dim) * 2 ** dim
+
+    def cell_orientation_reflection_map(self):
+        return self.product.cell_orientation_reflection_map()
+
+    def __gt__(self, other):
+        return self.product > other
+
+    def __lt__(self, other):
+        return self.product < other
+
+    def __ge__(self, other):
+        return self.product >= other
+
+    def __le__(self, other):
+        return self.product <= other
+
+
+class UFCHypercube(Hypercube):
+    """[0, 1]^d, vertices in lexicographic order."""
+
+    def __init__(self, dim):
+        super().__init__(dim, TensorProductCell(*[UFCInterval()] * dim))
+
+    def construct_subelement(self, dimension):
+        sd = self.get_spatial_dimension()
+        if dimension > sd:
+            raise ValueError("Invalid subentity dimension")
+        if dimension == sd:
+            return self
+        return ufc_hypercube(dimension)
+
+
+class UFCQuadrilateral(UFCHypercube):
+    def __init__(self):
+        super().__init__(2)
+
+
+class UFCHexahedron(UFCHypercube):
+    def __init__(self):
+        super().__init__(3)
+
+
+# Factories --------------------------------------------------------------------
+
 def default_simplex(spatial_dim):
     return {0: Point, 1: DefaultLine, 2: DefaultTriangle, 3: DefaultTetrahedron}[spatial_dim]()
 
@@ -553,3 +817,95 @@ def symmetric_simplex(spatial_dim):
     ref = ufc_simplex(spatial_dim)
     verts = np.dot(ref.get_vertices(), A.T) + b[None, :]
     return SymmetricSimplex(ref.get_shape(), tuple(map(tuple, verts)), ref.get_topology())
+
+
+def ufc_hypercube(spatial_dim):
+    return {0: Point, 1: UFCInterval, 2: UFCQuadrilateral, 3: UFCHexahedron}[spatial_dim]()
+
+
+def ufc_cell(cell):
+    """The UFC cell of a name ("triangle", "quadrilateral", ...; products
+    spelled "interval * interval") or of an object with ``cellname``."""
+    name = cell if isinstance(cell, str) else cell.cellname
+    if " * " in name:
+        return TensorProductCell(*map(ufc_cell, name.split(" * ")))
+    table = {"quadrilateral": UFCQuadrilateral, "hexahedron": UFCHexahedron,
+             "vertex": Point, "interval": UFCInterval,
+             "triangle": UFCTriangle, "tetrahedron": UFCTetrahedron}
+    if name not in table:
+        raise ValueError(f"Unknown UFC cell {name!r}")
+    return table[name]()
+
+
+# Flattening helpers ---------------------------------------------------------------
+
+def tuple_sum(tree):
+    if isinstance(tree, tuple):
+        return sum(map(tuple_sum, tree))
+    return tree
+
+
+def is_ufc(cell):
+    if isinstance(cell, (Point, UFCInterval, UFCHypercube, UFCSimplex)):
+        return True
+    if isinstance(cell, TensorProductCell):
+        return all(is_ufc(c) for c in cell.cells)
+    return False
+
+
+def is_hypercube(cell):
+    if isinstance(cell, (DefaultLine, UFCInterval, Hypercube)):
+        return True
+    if isinstance(cell, TensorProductCell):
+        return all(is_hypercube(c) for c in cell.cells)
+    return False
+
+
+def flatten_reference_cube(ref_el):
+    """Present a tensor product of intervals as the flat UFC hypercube."""
+    if ref_el.get_spatial_dimension() <= 1:
+        return ref_el
+    if isinstance(ref_el, TensorProductCell):
+        if is_ufc(ref_el):
+            return ufc_hypercube(ref_el.get_spatial_dimension())
+        return Hypercube(ref_el.get_spatial_dimension(), ref_el)
+    if is_hypercube(ref_el):
+        return ref_el
+    raise TypeError("Not a hypercube-like cell")
+
+
+def flatten_entities(topology_dict):
+    """Flatten a tensor-product topology (tuple dims) to integer dims."""
+    flat = defaultdict(list)
+    for dim in sorted(topology_dict):
+        flat[tuple_sum(dim)] += [v for _, v in sorted(topology_dict[dim].items())]
+    return {dim: dict(enumerate(ents)) for dim, ents in flat.items()}
+
+
+def flatten_permutations(perm_dict):
+    """Flatten tensor-product entity permutations (tuple dims, tuple
+    orientations) to integer dims and orientations."""
+    flat = defaultdict(list)
+    for dim in sorted(perm_dict):
+        flat[tuple_sum(dim)] += [{o: v[o_tuple] for o, o_tuple in enumerate(sorted(v))}
+                                 for _, v in sorted(perm_dict[dim].items())]
+    return {dim: dict(enumerate(perms)) for dim, perms in flat.items()}
+
+
+def compute_unflattening_map(topology_dict):
+    """{(flat dim, flat entity): (tuple dim, entity)} of a product topology."""
+    counters = defaultdict(count)
+    out = {}
+    for dim, ents in sorted(topology_dict.items()):
+        flat_dim = tuple_sum(dim)
+        for e in ents:
+            out[(flat_dim, next(counters[flat_dim]))] = (dim, e)
+    return out
+
+
+def max_complex(complexes):
+    """The complex that refines every other one of ``complexes``."""
+    biggest = max(complexes)
+    if all(biggest >= c for c in complexes):
+        return biggest
+    raise ValueError("No maximal complex")

@@ -1,19 +1,24 @@
 """Dual sets: the functionals of an element plus entity->DoF maps.
 
 Counterpart of ``fiat_tpu/core/dualset.py`` on simplices and their split
-complexes.  ``to_riesz`` (the generalized-Vandermonde assembly) delegates
-to the segment-sum program in ``functionals.riesz_representers``.  A dual
-set built on a split complex collects its DoFs onto the parent cell's
-entities (``merge_entities``).
+complexes and on tensor-product cells.  ``to_riesz`` (the
+generalized-Vandermonde assembly) delegates to the segment-sum program in
+``functionals.riesz_representers``.  A dual set built on a split complex
+collects its DoFs onto the parent cell's entities (``merge_entities``);
+one given flat (integer-dimension) entity ids on a product cell re-keys
+them onto its tuple dimensions (``unflatten_entity_ids``).
 """
 
 import numpy as np
 
 from . import functionals
+from .cells import compute_unflattening_map, tuple_sum
 
 
 class DualSet:
     def __init__(self, nodes, ref_el, entity_ids, entity_permutations=None):
+        if ref_el.get_dimension() != max(entity_ids):
+            entity_ids = unflatten_entity_ids(ref_el, entity_ids)
         nodes, ref_el, entity_ids, entity_permutations = merge_entities(
             nodes, ref_el, entity_ids, entity_permutations)
         self.nodes = nodes
@@ -58,15 +63,33 @@ class DualSet:
         'vertex', 'edge', 'face', 'facet', 'ridge')."""
         dofs = self.get_entity_ids()
         if restriction_domain == "interior":
-            return [i for _, ids in sorted(dofs[max(dofs)].items()) for i in ids]
+            return [i for _, ids in sorted_by_key(dofs[max(dofs)]) for i in ids]
         csd = self.get_reference_element().get_spatial_dimension()
         named = {"vertex": 0, "edge": 1, "face": 2, "facet": csd - 1, "ridge": csd - 2}
         if restriction_domain not in named:
             raise RuntimeError("Invalid restriction domain")
         dim = named[restriction_domain]
         wanted = range(0 if take_closure else dim, dim + 1)
-        return [i for edim in sorted(dofs) if edim in wanted
-                for _, ids in sorted(dofs[edim].items()) for i in ids]
+        return [i for edim in sorted(dofs, key=tuple_sum) if tuple_sum(edim) in wanted
+                for _, ids in sorted_by_key(dofs[edim]) for i in ids]
+
+
+def sorted_by_key(mapping):
+    """Items sorted with heterogeneous keys grouped by type name (int
+    entity numbers vs tuple tensor-product keys)."""
+    return sorted(mapping.items(), key=lambda kv: (type(kv[0]).__name__, kv[0]))
+
+
+def unflatten_entity_ids(ref_el, entity_ids):
+    """Re-key flat (integer-dim) entity ids onto a tensor-product
+    topology."""
+    where = compute_unflattening_map(ref_el.get_topology())
+    out = {dim: {} for dim in sorted(ref_el.get_topology())}
+    for flat_key, ids_of in sorted(entity_ids.items()):
+        for entity in sorted(ids_of):
+            d, e = where[(flat_key, entity)]
+            out[d][e] = ids_of[entity]
+    return out
 
 
 def make_entity_closure_ids(ref_el, entity_ids):

@@ -3,8 +3,10 @@
 Counterpart of ``fiat_tpu/core/finite_element.py``.  The nodal solve
 (``nodal_coefficients``) LU-factorises the generalized Vandermonde matrix
 once, guards ill-conditioning with a LAPACK reciprocal-condition estimate,
-and refines ill-conditioned solves with longdouble residuals.  All of it
-is host-side float64 numpy/scipy; the coefficient tensors are the static
+and refines ill-conditioned solves with longdouble residuals.
+``entity_support_dofs`` integrates |phi|^2 over every entity of a
+dimension in one stacked tabulation and one einsum.  All of it is
+host-side float64 numpy/scipy; the coefficient tensors are the static
 data of the device engine (``fiat_tpu_torch.ops.tabulate``).
 """
 
@@ -12,6 +14,7 @@ import numpy as np
 from scipy.linalg import get_lapack_funcs, lu_factor, lu_solve
 
 from .polyset import PolynomialSet
+from .quadrature_schemes import create_quadrature
 
 
 def nodal_coefficients(poly_set, dual):
@@ -157,3 +160,31 @@ class CiarletElement(FiniteElement):
             entity = (self.ref_el.get_spatial_dimension(), 0)
         transform = self.ref_el.get_entity_transform(*entity)
         return self.poly_set.tabulate(transform(points), order)
+
+
+def entity_support_dofs(elem, entity_dim):
+    """{entity id: dofs whose basis functions are nonzero on the entity}.
+
+    The reference-entity rule is pushed onto every entity of the
+    dimension, the element is tabulated once at the stacked points, and
+    the (entity, dof) L2 masses come out of one einsum; cached on the
+    element."""
+    cache = elem.__dict__.setdefault("_entity_support_dofs", {})
+    try:
+        return cache[entity_dim]
+    except KeyError:
+        pass
+    ref_el = elem.get_reference_element()
+    sd = ref_el.get_spatial_dimension()
+    quad = create_quadrature(ref_el.construct_subelement(entity_dim), max(2 * elem.degree(), 1))
+    qpts, qwts = quad.get_points(), quad.get_weights()
+    entities = sorted(elem.entity_dofs()[entity_dim])
+    stacked = np.concatenate([ref_el.get_entity_transform(entity_dim, e)(qpts) for e in entities])
+    vals = np.asarray(elem.tabulate(0, stacked)[(0,) * sd])
+    # (ndof[, comps...], nent, nq) -> mass (nent, ndof): contract comps + q
+    blocks = vals.reshape(vals.shape[:-1] + (len(entities), len(qwts)))
+    sq = (blocks * blocks).sum(axis=tuple(range(1, blocks.ndim - 2)))
+    masses = np.einsum("deq,q->ed", sq, qwts)
+    result = {e: np.flatnonzero(masses[k] > 1e-8).tolist() for k, e in enumerate(entities)}
+    cache[entity_dim] = result
+    return result

@@ -1,11 +1,11 @@
-"""Quadrature rules on reference simplices, array-native.
+"""Quadrature rules on reference cells, array-native.
 
-Counterpart of the simplex part of ``fiat_tpu/core/quadrature.py``:
-Gauss-Jacobi, Gauss-Legendre, Gauss-Lobatto-Legendre and Gauss-Radau line
-rules, collapsed Duffy simplex rules and rules pushed forward onto facets.
-Points and weights are contiguous float64 ndarrays from construction on;
-an affine pushforward is one matmul.  Tensor-product rules are not ported
-yet.
+Counterpart of ``fiat_tpu/core/quadrature.py``: Gauss-Jacobi,
+Gauss-Legendre, Gauss-Lobatto-Legendre and Gauss-Radau line rules,
+collapsed Duffy simplex rules, rules pushed forward onto facets, and
+tensor-product rules on product cells and hypercubes.  Points and weights
+are contiguous float64 ndarrays from construction on; an affine pushforward
+is one matmul.
 """
 
 import math
@@ -149,8 +149,26 @@ class FacetQuadratureRule(QuadratureRule):
         return pseudo_determinant(self._J)
 
 
+def make_tensor_product_quadrature(*quad_rules):
+    """Product rule on the TensorProductCell of the factors, the first
+    factor's points varying slowest."""
+    ref_el = cl.TensorProductCell(*[q.ref_el for q in quad_rules])
+    counts = [q.pts.shape[0] for q in quad_rules]
+    cols = []
+    for k, q in enumerate(quad_rules):
+        before = int(np.prod(counts[:k], dtype=int))
+        after = int(np.prod(counts[k + 1:], dtype=int))
+        cols.append(np.repeat(np.tile(q.pts, (before, 1)), after, axis=0))
+    wts = quad_rules[0].wts
+    for q in quad_rules[1:]:
+        wts = np.multiply.outer(wts, q.wts).ravel()
+    assert wts.shape[0] == int(np.prod(counts))
+    return QuadratureRule(ref_el, np.hstack(cols), wts)
+
+
 def make_quadrature(ref_el, m):
-    """Collapsed-quadrature rule with m points per direction."""
+    """Collapsed-quadrature rule with m points per direction (Gauss-Jacobi
+    products on quadrilaterals and hexahedra)."""
     if m <= 0:
         raise ValueError("Need at least one quadrature point per direction")
     shape = ref_el.get_shape()
@@ -160,4 +178,7 @@ def make_quadrature(ref_el, m):
         return GaussJacobiQuadratureLineRule(ref_el, m)
     if shape in (cl.TRIANGLE, cl.TETRAHEDRON):
         return CollapsedQuadratureSimplexRule(ref_el, m)
+    if shape in (cl.QUADRILATERAL, cl.HEXAHEDRON):
+        line = GaussJacobiQuadratureLineRule(ref_el.construct_subelement(1), m)
+        return make_tensor_product_quadrature(*([line] * ref_el.get_spatial_dimension()))
     raise ValueError(f"Unable to make quadrature for cell {ref_el}")

@@ -1,6 +1,6 @@
 """Degree -> quadrature rule selection.
 
-Counterpart of the simplex part of ``fiat_tpu/core/quadrature_schemes.py``.
+Counterpart of ``fiat_tpu/core/quadrature_schemes.py``.
 The 'default' scheme picks the CHEAPEST of the interchangeable exact
 candidates, exactly as fiat_tpu does, so the moment duals land on the
 same points and the coefficients of the moment elements agree:
@@ -12,14 +12,17 @@ same points and the coefficients of the moment elements agree:
 
 with ties going to the symmetric rule, then elimination.  Lines and
 points always take collapsed Gauss (Gauss-Jacobi).  Split complexes get
-the composite rule (``macro.MacroQuadratureRule``).  ``"KMV"`` takes the
-Kong-Mulder-Veldhuizen mass-lumping rules (GLL on a line).  Grundmann-Moller
-schemes and tensor-product cells are not ported yet.
+the composite rule (``macro.MacroQuadratureRule``); tensor-product cells
+the product of their factors' rules (a degree per factor, or one for
+all), and quadrilaterals and hexahedra those of their interval products.
+``"KMV"`` takes the Kong-Mulder-Veldhuizen mass-lumping rules (GLL on a
+line).  Grundmann-Moller schemes are not ported yet.
 """
 
 from . import cells as cl
 from .quadrature import (FacetQuadratureRule,
-                         GaussLobattoLegendreQuadratureLineRule, make_quadrature)
+                         GaussLobattoLegendreQuadratureLineRule, make_quadrature,
+                         make_tensor_product_quadrature)
 
 
 def create_quadrature(ref_el, degree, scheme="default", entity=None):
@@ -37,8 +40,18 @@ def create_quadrature(ref_el, degree, scheme="default", entity=None):
         Q_ref = create_quadrature(sub_el, degree, scheme=scheme)
         return MacroQuadratureRule(ref_el, Q_ref)
 
-    if ref_el.get_shape() not in (cl.POINT, cl.LINE, cl.TRIANGLE, cl.TETRAHEDRON):
-        raise NotImplementedError(f"Quadrature on {ref_el.get_shape()} cells is not ported yet")
+    if ref_el.get_shape() == cl.TENSORPRODUCT:
+        try:
+            degree = tuple(degree)
+        except TypeError:
+            degree = (degree,) * len(ref_el.cells)
+        assert len(ref_el.cells) == len(degree)
+        return make_tensor_product_quadrature(
+            *[create_quadrature(c, d, scheme) for c, d in zip(ref_el.cells, degree)])
+
+    if ref_el.get_shape() in (cl.QUADRILATERAL, cl.HEXAHEDRON):
+        return create_quadrature(ref_el.product, degree, scheme)
+
     if degree < 0:
         raise ValueError(f"Need positive degree, not {degree}")
 

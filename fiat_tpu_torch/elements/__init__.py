@@ -19,15 +19,23 @@
   NodalEnrichedElement;
 * the interval families Histopolation, FDMLagrange,
   FDMDiscontinuousLagrange, FDMQuadrature, FDMBrokenH1, FDMBrokenL2 and
-  FDMHermite.
+  FDMHermite;
+* the tensor-product layer: TensorProductElement, FlattenedDimensions,
+  Hdiv / Hcurl, and on quadrilaterals and hexahedra Serendipity, DPC, the
+  trimmed serendipity families (TrimmedSerendipityEdge / Face / Div /
+  Curl) and BrezziDouglasMariniCubeEdge / Face; HDivTrace;
+* the composite elements MixedElement, EnrichedElement and
+  QuadratureElement, and Bernstein (with its pointwise dual).
 """
 
 from .alfeld_sorokina import AlfeldSorokina  # noqa: F401
 from .argyris import Argyris  # noqa: F401
 from .arnold_qin import ArnoldQin  # noqa: F401
 from .arnold_winther import ArnoldWinther, ArnoldWintherNC  # noqa: F401
+from .bdm_cube import BrezziDouglasMariniCubeEdge, BrezziDouglasMariniCubeFace  # noqa: F401
 from .bell import Bell  # noqa: F401
 from .bernardi_raugel import BernardiRaugel  # noqa: F401
+from .bernstein import Bernstein  # noqa: F401
 from .brezzi_douglas_fortin_marini import BrezziDouglasFortinMarini  # noqa: F401
 from .brezzi_douglas_marini import BrezziDouglasMarini  # noqa: F401
 from .bubble import Bubble, FacetBubble  # noqa: F401
@@ -36,8 +44,10 @@ from .christiansen_hu import ChristiansenHu  # noqa: F401
 from .crouzeix_raviart import CrouzeixRaviart  # noqa: F401
 from .discontinuous import DiscontinuousElement  # noqa: F401
 from .discontinuous_lagrange import DiscontinuousLagrange  # noqa: F401
+from .discontinuous_pc import DPC  # noqa: F401
 from .discontinuous_raviart_thomas import DiscontinuousRaviartThomas  # noqa: F401
 from .discontinuous_taylor import DiscontinuousTaylor  # noqa: F401
+from .enriched import EnrichedElement  # noqa: F401
 from .fdm_element import (  # noqa: F401
     FDMBrokenH1, FDMBrokenL2, FDMDiscontinuousLagrange, FDMHermite, FDMLagrange,
     FDMQuadrature)
@@ -46,6 +56,8 @@ from .gopalakrishnan_lederer_schoberl import (  # noqa: F401
 from .guzman_neilan import (  # noqa: F401
     GuzmanNeilanFirstKindH1, GuzmanNeilanH1div, GuzmanNeilanSecondKindH1)
 from .hct import HsiehCloughTocher  # noqa: F401
+from .hdiv_trace import HDivTrace  # noqa: F401
+from .hdivcurl import Hcurl, Hdiv  # noqa: F401
 from .hellan_herrmann_johnson import HellanHerrmannJohnson  # noqa: F401
 from .hermite import CubicHermite  # noqa: F401
 from .hierarchical import IntegratedLegendre, Legendre  # noqa: F401
@@ -55,15 +67,22 @@ from .johnson_mercier import JohnsonMercier  # noqa: F401
 from .kong_mulder_veldhuizen import KongMulderVeldhuizen  # noqa: F401
 from .lagrange import Lagrange  # noqa: F401
 from .mardal_tai_winther import MardalTaiWinther  # noqa: F401
+from .mixed import MixedElement  # noqa: F401
 from .morley import Morley  # noqa: F401
 from .nedelec import Nedelec  # noqa: F401
 from .nedelec_second_kind import NedelecSecondKind  # noqa: F401
 from .nodal_enriched import NodalEnrichedElement  # noqa: F401
 from .p0 import P0  # noqa: F401
 from .powell_sabin import QuadraticPowellSabin6, QuadraticPowellSabin12  # noqa: F401
+from .quadrature_element import QuadratureElement  # noqa: F401
 from .raviart_thomas import RaviartThomas  # noqa: F401
 from .regge import Regge  # noqa: F401
 from .restricted import RestrictedElement  # noqa: F401
+from .serendipity import Serendipity  # noqa: F401
 from .spectral import GaussLegendre, GaussLobattoLegendre, GaussRadau  # noqa: F401
+from .tensor_product import FlattenedDimensions, TensorProductElement  # noqa: F401
+from .trimmed_serendipity import (  # noqa: F401
+    TrimmedSerendipityCurl, TrimmedSerendipityDiv, TrimmedSerendipityEdge,
+    TrimmedSerendipityFace)
 from .walkington import Walkington  # noqa: F401
 from .wuxu import WuXuH3NC, WuXuRobustH3NC  # noqa: F401

@@ -1,13 +1,22 @@
 """P0: the piecewise-constant element.
 
 Counterpart of ``fiat_tpu/elements/p0.py``: one barycenter evaluation,
-with trivial orientation permutations throughout.
+with trivial orientation permutations throughout (on a product cell the
+orientations of an entity are tuples, one entry a factor).
 """
 
 import numpy as np
 
 from ..core import finite_element, functionals, polyset
 from ..core.dualset import DualSet
+
+
+def _identity_perms(ref_el, dim, n):
+    """Identity dof permutation for every orientation of an entity (a
+    constant is orientation-blind)."""
+    size = ref_el.symmetry_group_size(dim)
+    orients = np.ndindex(size) if isinstance(dim, tuple) else range(size)
+    return {o: list(range(n)) for o in orients}
 
 
 class P0Dual(DualSet):
@@ -20,11 +29,8 @@ class P0Dual(DualSet):
         nodes = [functionals.PointEvaluation(ref_el, x) for x in centers]
         entity_ids = {dim: {e: ([e] if dim == sd else []) for e in sorted(top[dim])}
                       for dim in sorted(top)}
-        # a constant is orientation-blind: identity permutation everywhere
         entity_permutations = {
-            dim: dict.fromkeys(sorted(top[dim]),
-                               {o: list(range(1 if dim == sd else 0))
-                                for o in range(ref_el.symmetry_group_size(dim))})
+            dim: dict.fromkeys(sorted(top[dim]), _identity_perms(ref_el, dim, 1 if dim == sd else 0))
             for dim in sorted(top)}
         super().__init__(nodes, ref_el, entity_ids, entity_permutations)
 

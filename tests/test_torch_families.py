@@ -504,9 +504,11 @@ def test_engines_from_fiat_tpu_arrays_match_the_ports(zoos, zoo):
 @pytest.mark.parametrize("degree,m", [(3, 5), (8, 10)])
 def test_hex_gll_sumfact_matches_fiat_tpu_dense_hex_table(degree, m):
     """chip_smoke.py's sum-factorised moments (three einsums on torch
-    tensors) and its chunked dense Kronecker contraction against fiat_tpu's
-    dense hexahedral table (FlattenedDimensions of a TensorProductElement
-    of its GLL element) times the tensor-product weights."""
+    tensors) and its dense reference, the port's hexahedral element
+    (FlattenedDimensions of a TensorProductElement of its GLL element)
+    tabulated at the tensor grid and contracted by one torch.matmul,
+    against fiat_tpu's dense hexahedral table times the tensor-product
+    weights; the two dense tables bit for bit."""
     from fiat_tpu.elements.tensor_product import FlattenedDimensions, TensorProductElement
     I, jI = tcl.ufc_simplex(1), jcl.ufc_simplex(1)
     gll, jgll = ft.GaussLobattoLegendre(I, degree), jfe.GaussLobattoLegendre(jI, degree)
@@ -522,8 +524,12 @@ def test_hex_gll_sumfact_matches_fiat_tpu_dense_hex_table(degree, m):
     xg = x1.ravel()
     grid = np.stack(np.meshgrid(xg, xg, xg, indexing="ij"), axis=-1).reshape(-1, 3)
     w3f = (np.einsum("p,q,r->pqr", w1, w1, w1) * F).ravel()
-    want = (np.asarray(hexel.tabulate(0, grid)[(0, 0, 0)]) @ w3f).reshape(got.shape)
+    jdense = np.asarray(hexel.tabulate(0, grid)[(0, 0, 0)])
+    want = (jdense @ w3f).reshape(got.shape)
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= chip_smoke.HEX_RTOL * scale
-    dense = chip_smoke.dense_hex_moments(phi1, w1, F, np, chunk=7)
-    assert np.abs(dense - want).max() <= chip_smoke.HEX_RTOL * scale
+    dense = chip_smoke.dense_hex_table(gll, x1, np)
+    assert np.array_equal(dense, jdense)
+    mine = torch.matmul(torch.as_tensor(dense), torch.as_tensor(w3f)).numpy().reshape(got.shape)
+    assert np.abs(mine - want).max() <= chip_smoke.HEX_RTOL * scale
+    assert np.abs(got - mine).max() <= chip_smoke.HEX_RTOL * scale

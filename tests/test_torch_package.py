@@ -22,10 +22,23 @@ def test_import_leaves_jax_and_fiat_tpu_out():
             "fiat_tpu_torch.ops.moment_kernel, fiat_tpu_torch.ops.f32_zoo, "
             "fiat_tpu_torch.ops.bernstein, fiat_tpu_torch.core.elimquad, "
             "fiat_tpu_torch.core.macro, "
-            "fiat_tpu_torch.core.quadrature_schemes\n"
+            "fiat_tpu_torch.core.quadrature_schemes, fiat_tpu_torch.core.pointwise_dual, "
+            "fiat_tpu_torch.core.orthopoly, fiat_tpu_torch.elements.tensor_product, "
+            "fiat_tpu_torch.elements.hdivcurl, fiat_tpu_torch.elements.mixed, "
+            "fiat_tpu_torch.elements.enriched, fiat_tpu_torch.elements.quadrature_element, "
+            "fiat_tpu_torch.elements.discontinuous_pc, fiat_tpu_torch.elements.hdiv_trace, "
+            "fiat_tpu_torch.elements.bernstein, fiat_tpu_torch.elements.serendipity, "
+            "fiat_tpu_torch.elements.sympy_vector, fiat_tpu_torch.elements.bdm_cube, "
+            "fiat_tpu_torch.elements.trimmed_serendipity\n"
             "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(3), 9)\n"
+            "create_quadrature(fiat_tpu_torch.UFCHexahedron(), 5)\n"
+            "ft, I = fiat_tpu_torch, fiat_tpu_torch.ufc_simplex(1)\n"
+            "q2 = ft.FlattenedDimensions(ft.TensorProductElement(ft.Lagrange(I, 2), "
+            "ft.Lagrange(I, 2)))\n"
+            "q2.tabulate(1, [[0.2, 0.3]])\n"
+            "ft.TrimmedSerendipityEdge(ft.UFCHexahedron(), 2).tabulate(1, [[0.2, 0.3, 0.4]])\n"
             "from fiat_tpu_torch.core import elimquad\n"
             "elimquad.rule_size(8, 2), elimquad.rule_size(8, 3)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
