@@ -145,7 +145,38 @@ Drives the port's main paths once each at their real size, at 1e5 points
      ``TensorProductElement.tabulate``; the Bernstein check: ``Bernstein``
      on the interval and triangle at degrees 1-15 and the tetrahedron at
      1-10 against K8 (``BernsteinFeatures``, rows permuted to the
-     element's) on the card.
+     element's) on the card;
+ 22. ``rest_of_core``: the Grundmann-Moller ("gm") rules on the interval,
+     triangle and tetrahedron against the exact integrals of monomials,
+     summed on the card; the fourteen functional classes of the rest of
+     core (point normal, tangential and second derivatives, moments of
+     divergence and of normal and tangential traces, the Legendre normal
+     and tangential moments) read on ``full_zoo`` (with Regge 2 and
+     Hellan-Herrmann-Johnson 1 for the tensor-valued one) tabulated on the
+     card at order 2 (K1, K2, K3) and on ``hdiv_hcurl_tet`` (the face
+     tangent moment), against host el.tabulate;
+ 23. ``per_program_macro``: fiat_tpu's per-program macro route by group, at
+     1e5 points, on ``full_zoo``'s macro programs with a parent moved to
+     another basis as the tests move it (``rebase_program``: another
+     scale, then a variant parent), on ``sv_macro_tet``'s with one on
+     another cell map, and on DG 0 beside Lagrange 2 on the Alfeld and
+     Worsey-Farin splits, which reach it unedited: f64 tables (K1, K2, a K3 a group, K2 on the variant
+     parent's masked parent; on the tet a K7 a group, the one off the
+     zoo's basis with its own K1), moments (a K45 a group), interpolation
+     (K1, a K3 a group) and f32 tables (K6, a K3 float32 a group), one
+     launch of each a pass, each route against its plain version, tables
+     and moments held to host;
+ 24. ``jets``: ``device_tabulator(full_zoo, order=1, derivs="jets")``,
+     which keys the value table alone, as fiat_tpu's engines do under
+     jets: K1, K2 and K3 once each, against their plain versions, host and
+     the dmats engine's values;
+ 25. ``sharded``: ``full_zoo`` at 1e5 points through every step of
+     ``fiat_tpu_torch.parallel.sharding`` (tabulation, the fused f64
+     engine, 1-D and 2-D moments with their all-reduce, interpolation) in
+     a world of one process on NCCL and a world of two processes on gloo
+     on the one card, each rank's kernels counted, every step held to the
+     unsharded engine on the card, each step's time and its all-reduce's
+     share printed.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -164,6 +195,7 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
     python3 chip_smoke.py --k7-cells ROOT   # K7 alone per cell, package at ROOT
     python3 chip_smoke.py --k1-cells ROOT   # K1 and K8 alone per cell, package at ROOT
+    python3 chip_smoke.py --phases 23,25    # some of phases 22-25 alone (a quick check)
 
 Prints the card's name and power limit, the build time, K3's, K45's, K6's,
 K2's and K7's registers by instantiation and the spills (it fails where K6
@@ -180,8 +212,10 @@ phases 10 and 11, K1 and K2 on phase 12, K1, K2, K7, K45, K3 (one
 row per program and float32) and K6 on phases 14-18, K1, K2, K3 (or
 K7), K45, K3 one row per program and float32 and K6 on phase 19, K1,
 K2, K3, K45, K3 one row per program and float32, K6, and K8 + K2 at sd = 1
-on phase 20, and K1 and K2 on phase 21's factor tables and K8 on its
-Bernstein elements (sd 1-3 at their top degrees), each with its bound:
+on phase 20, K1 and K2 on phase 21's factor tables and K8 on its
+Bernstein elements (sd 1-3 at their top degrees), the per-program routes'
+K3, K2, K7, K45 and K3 float32 of phase 23, K1 and K2 under jets (phase
+24), and rank 0's K45 and K2 in each world of phase 25, each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3552,6 +3586,589 @@ def k1_cells(dev, card, torch, np, own):
     time_cells("k1_cells", "bound ms; device / bound; host ms a call", cells, card, torch, own)
 
 
+# -- phases 22-25: the rest of core, the per-program route, jets, sharding ------------
+
+#: phase 22: Grundmann-Moller degrees and their bars (tests/test_quadrature.py:
+#: 111-155): absolute to degree 11, relative on the first eight monomials of
+#: the top degree past it
+GM_DEGREES = (1, 2, 3, 5, 8, 11)
+GM_HIGH_DEGREES = (21, 25)
+GM_ATOL, GM_HIGH_RTOL = 1e-12, 5e-12
+#: phase 22: a functional's reading on a card-tabulated element against host
+#: el.tabulate, relative to max(1, max |reading|)
+FUNCTIONAL_RTOL = 1e-10
+#: phase 25: a sharded step against the unsharded engine on the card, relative
+#: to max(1, max |unsharded|): the per-point steps are the same kernels on a
+#: part of the points; the moments sum in another order
+SHARDED_RTOL = {"tabulate": KERNEL_RTOL, "fused": KERNEL_RTOL, "interpolation": KERNEL_RTOL,
+                "moments": 1e-12, "moments_2d": 1e-12}
+SHARD_REPS = 5
+WORLD_TIMEOUT_S = 400
+
+
+def gm_phase(torch, np, dev):
+    """Phase 22, first half: the "gm" rules on the UFC simplices of
+    dimension 1-3 integrate every monomial to their degree, summed on the
+    card in float64, against the exact integrals prod(a_i!) / (|a| + sd)!."""
+    from itertools import product
+    from fiat_tpu_torch import create_quadrature, ufc_simplex
+
+    worst = {}
+    for sd in (1, 2, 3):
+        for degree in GM_DEGREES + GM_HIGH_DEGREES:
+            Q = create_quadrature(ufc_simplex(sd), degree, "gm")
+            X = torch.as_tensor(Q.get_points(), device=dev).reshape(-1, sd)
+            W = torch.as_tensor(Q.get_weights(), device=dev)
+            high = degree in GM_HIGH_DEGREES
+            alphas = [a for a in product(range(degree + 1), repeat=sd)
+                      if (sum(a) == degree if high else sum(a) <= degree)]
+            if high:                   # the first eight top monomials, as the tests
+                alphas = alphas[:8]
+            A = torch.as_tensor(alphas, dtype=torch.float64, device=dev)
+            vals = (X[:, None, :] ** A[None]).prod(dim=2).T @ W
+            exact = torch.as_tensor([math.prod(math.factorial(k) for k in a)
+                                     / math.factorial(sum(a) + sd) for a in alphas],
+                                    dtype=torch.float64, device=dev)
+            err = ((vals - exact).abs() / (exact if high else 1.0)).max().item()
+            worst[(sd, degree)] = err
+            if not err <= (GM_HIGH_RTOL if high else GM_ATOL):
+                fail(f"gm rule sd {sd} degree {degree}: {err:.3e} from the exact integrals")
+    print(f"rest_of_core gm rules on the card: sd 1-3, degrees {GM_DEGREES} (absolute, limit "
+          f"{GM_ATOL}) and {GM_HIGH_DEGREES} (relative, limit {GM_HIGH_RTOL}); worst "
+          + ", ".join(f"sd {sd} deg {d} {e:.2e}" for (sd, d), e in worst.items()
+                      if d in (11, 25)))
+
+
+def new_functionals(ft, fn, sd):
+    """The fourteen functional classes of the rest of core, on the UFC
+    simplex of dimension ``sd`` where they are defined there (the face
+    tangent moment on the tetrahedron, the rest on the triangle)."""
+    import numpy as np
+    from fiat_tpu_torch.core.quadrature_schemes import create_quadrature
+    K = ft.ufc_simplex(sd)
+    pt = tuple(np.linspace(0.15, 0.3, sd))
+    Qe = create_quadrature(ft.ufc_simplex(sd - 1), 6)
+    xe = Qe.get_points().reshape(len(Qe.get_weights()), -1).sum(axis=1)
+    if sd == 3:
+        return [fn.IntegralMomentOfFaceTangentEvaluation(
+            K, Qe, np.stack([1.0 + xe, xe ** 2, 1.0 - 2.0 * xe]), 2)]
+    Q = create_quadrature(K, 5)
+    x = Q.get_points().sum(axis=1)
+    return [fn.PointNormalEvaluation(K, 1, pt), fn.PointTangentialDerivative(K, 0, pt),
+            fn.PointSecondDerivative(K, (0.6, 1.1), (-1.0, 0.4), pt),
+            fn.PointNormalSecondDerivative(K, 2, pt),
+            fn.PointTangentialSecondDerivative(K, 1, pt),
+            fn.IntegralMomentOfDivergence(K, Q, 1.0 + x ** 2),
+            fn.IntegralMomentOfNormalEvaluation(K, Qe, 1.0 + 2.0 * xe, 1),
+            fn.IntegralMomentOfScaledNormalEvaluation(K, Qe, 1.0 - xe, 2),
+            fn.IntegralMomentOfTangentialEvaluation(K, Qe, xe ** 2, 0),
+            fn.IntegralMomentOfEdgeTangentEvaluation(K, Qe, 1.0 + xe, 1),
+            fn.IntegralLegendreNormalMoment(K, 0, 2, 6),
+            fn.IntegralLegendreTangentialMoment(K, 1, 3, 7),
+            fn.IntegralLegendreTangentialTangentialMoment(K, 2, 1, 5)]
+
+
+def readings(ells, per_elem, offsets, value_shapes, np, xp=None):
+    """ell(phi_i) for every functional and element of matching value
+    shape, from per-element tables {alpha: (ndof, *shape, npts)} at the
+    functionals' points stacked (``offsets``): {(functional, element):
+    (ndof,) array}."""
+    out = {}
+    for f, (ell, off) in enumerate(zip(ells, offsets)):
+        for e, (tabs, shape) in enumerate(zip(per_elem, value_shapes)):
+            if tuple(shape) != tuple(ell.target_shape):
+                continue
+            acc = 0.0
+            for k in range(len(ell.weights)):
+                tab = tabs[tuple(int(a) for a in ell.alphas[k])]
+                tab = tab.reshape(tab.shape[0], -1, tab.shape[-1])
+                acc = acc + float(ell.weights[k]) * tab[:, int(ell.comps[k]),
+                                                        off + int(ell.pt_ids[k])]
+            out[(f, e)] = acc if xp is None else acc.cpu().numpy()
+    return out
+
+
+def rest_of_core_phase(dev, card, torch, np):
+    """Phase 22: the gm rules against exact monomial integrals on the card;
+    the fourteen functionals of the rest of core read on ``full_zoo``
+    (with Regge 2 and HHJ 1 for the tensor-valued one) tabulated on the
+    card at order 2 (K1 + K2 + K3), and the face tangent moment on
+    ``hdiv_hcurl_tet`` (K1 + K2 at sd = 3), against host el.tabulate."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator
+    from fiat_tpu_torch.core import functionals as fn
+
+    gm_phase(torch, np, dev)
+    T, S = ft.ufc_simplex(2), ft.ufc_simplex(3)
+    cases = [("full_zoo", full_zoo(T) + [ft.Regge(T, 2), ft.HellanHerrmannJohnson(T, 1)],
+              new_functionals(ft, fn, 2)),
+             ("hdiv_hcurl_tet", tet_zoos(S)[1], new_functionals(ft, fn, 3))]
+    classes, count, worst = set(), 0, 0.0
+    for name, zoo, ells in cases:
+        offsets = np.cumsum([0] + [len(e.points) for e in ells])[:-1]
+        X = np.vstack([e.points for e in ells])
+        tab = device_tabulator(zoo, order=2)          # the card
+        engines = {"K1": tab.recurrence, "K2": tab.matmul}
+        if tab.macro is not None:
+            engines[tab.macro.name] = tab.macro
+        blocks, launches = counted(engines, lambda: tab.block_tables(X), torch)
+        expect_launches(f"rest_of_core {name}", launches, dict.fromkeys(engines, 1))
+        shapes = [el.value_shape() for el in zoo]
+        card_r = readings(ells, tab.unpack(blocks), offsets, shapes, np, xp=torch)
+        host = [el.tabulate(2, X) for el in zoo]
+        host_r = readings(ells, host, offsets, shapes, np)
+        for key, want in host_r.items():
+            err = float(np.abs(card_r[key] - want).max()) / max(1.0, float(np.abs(want).max()))
+            worst = max(worst, err)
+            if not err <= FUNCTIONAL_RTOL:
+                fail(f"rest_of_core: {type(ells[key[0]]).__name__} on "
+                     f"{type(zoo[key[1]]).__name__}: {err:.3e} from host")
+        classes |= {type(ells[f]).__name__ for f, _ in host_r}
+        count += len(host_r)
+    if len(classes) != 14:
+        fail(f"rest_of_core: {len(classes)} of the 14 functionals read on an element")
+    print(f"rest_of_core functionals: the 14 classes, {count} (functional, element) readings on "
+          f"the card's order-2 tables of full_zoo + Regge 2 + HHJ 1 and hdiv_hcurl_tet, against "
+          f"host el.tabulate: worst {worst:.3e} of max(1, max |reading|) (limit "
+          f"{FUNCTIONAL_RTOL})")
+
+
+def edited_state(state, edits, np):
+    """``state`` with macro programs moved to other parent bases as the
+    tests move them (``rebase_program``): ``edits`` {program: (attribute,
+    value)} of the parent's expansion set (a variant, another cell map,
+    another scale); the tables stay the elements'."""
+    import copy
+    from fiat_tpu_torch.ops.tabulate import rebase_program
+    programs = list(state["macro_programs"])
+    for g, (attr, value) in edits.items():
+        pes = copy.copy(programs[g].parent_es)
+        setattr(pes, attr, value)
+        programs[g] = rebase_program(programs[g], pes)
+    return {**state, "macro_programs": programs}
+
+
+def rotated_map(ft, sd, np):
+    """The UFC simplex onto the reference simplex with its vertices
+    rotated: another Dubiner basis of the same polynomials."""
+    from fiat_tpu_torch.core.cells import make_affine_mapping
+    return [make_affine_mapping(np.roll(ft.ufc_simplex(sd).get_vertices(), 1, axis=0),
+                                ft.default_simplex(sd).get_vertices())]
+
+
+def route_entries(label, fz, P, basis, card, torch, routes, launches):
+    """Each macro route in ``routes`` against its plain version on the card,
+    timed beside it and its library call; ``launches`` the main path's
+    counts (``counted``, by "<kernel> route <k>"); returns kernels-line
+    entries."""
+    from fiat_tpu_torch.ops.fused_zoo import masked_parent
+    src = "fiat_tpu_torch/csrc/"
+    out = []
+    for k in routes:
+        r = fz.macro_routes[k]
+        rows = r.engine.total_rows if r.name == "K2" else r.engine.rows
+        err = check_kernel(f"{label} route {k} {r.name} ({rows} rows, programs {r.members})",
+                           r(P, basis), r.plain(P, basis), torch)
+        ms = median_ms(lambda: r(P, basis), torch)
+        pl = plain_ms(lambda: r.plain(P, basis), torch)
+        if r.name == "K3":
+            bound, lib = macro_bound(r.engine, NPTS), masked_gemm_ms(r.engine, P, torch)
+            out.append(entry(f"K3 macro_oneshot ({label}, route {k})", src + "macro_oneshot.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:652", launches[f"K3 route {k}"],
+                             err, ms, pl, bound, lib))
+        elif r.name == "K7":
+            phi = basis if r.recurrence is None else r.recurrence(P)
+            B, A = r.engine.masked_basis(r.engine.masks(P)[0], phi), r.engine.A.to(P.device)
+            lib = median_ms(lambda: torch.matmul(A, B), torch)
+            del B, A
+            out.append(entry(f"K7 masked_matmul ({label}, route {k})", src + "masked_matmul.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:440", launches[f"K7 route {k}"],
+                             err, ms, pl, masked_bound(r.engine, NPTS), lib))
+        else:
+            B = masked_parent(r.program, P, r.unique).contiguous()
+            A = r.engine.A.to(P.device)
+            lib = median_ms(lambda: torch.matmul(A, B), torch)
+            k2 = median_ms(lambda: r.engine(B), torch)
+            del A, B
+            out.append(entry(f"K2 bucket_matmul ({label}, route {k}, variant parent)",
+                             src + "bucket_matmul.cu", "fiat_tpu/ops/pallas_multiword.py:269",
+                             launches[f"K2 route {k}"], err, k2, pl,
+                             matmul_bound(r.engine, NPTS), lib))
+            print(f"{label} route {k} K2 alone on the masked parent {k2:.4f} ms; the route with "
+                  f"its PyTorch masked parent {ms:.4f} ms")
+        print(f"{label} route {k} {r.name} timing ({card}): {ms:.4f} ms (plain {pl:.4f}, "
+              f"library {out[-1]['library_ms']:.4f}, bound {out[-1]['bound_ms']:.4f} by "
+              f"{out[-1]['bound_by']})")
+    return out
+
+
+def per_program_phase(dev, card, torch, np):
+    """Phase 23: the per-program macro route (fiat_tpu's macro_fms, by
+    group) at 1e5 points on full_zoo's macro programs with a parent moved
+    to another basis as the tests move it, on sv_macro_tet's, and on the
+    zoos of DG 0 beside Lagrange 2 on the Alfeld and Worsey-Farin splits,
+    which reach the route unedited: f64 tables (K3 a group, K2 on a
+    variant parent; K7 a group on the tet, one with its own K1), moments
+    (K45 a group), interpolation (K3 a group), f32 tables (K3 float32 a
+    group); every kernel against its plain version, launches asserted,
+    tables and moments held to host."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.moments import MomentEngine
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    T, S = ft.ufc_simplex(2), ft.ufc_simplex(3)
+    pts2, pts3 = make_points(NPTS, SEED, np), make_points(NPTS, SEED, np, sd=3)
+    P2, P3 = (torch.as_tensor(p, device=dev) for p in (pts2, pts3))
+    zoo = full_zoo(T)
+    bt1 = BatchedTabulator(zoo, order=1, device="cpu")
+    bt0 = BatchedTabulator(zoo, order=0, device="cpu")
+    # (label, zoo, tabulator, points, edits, routes, routes reported)
+    configs = [("full_zoo scale", zoo, bt1, pts2, P2,
+                {1: ("get_scale", lambda n, cell=0: 0.5)}, ["K3", "K3"], [1]),
+               ("full_zoo variant", zoo, bt1, pts2, P2, {0: ("variant", "dual")},
+                ["K3", "K2"], [1])]
+    sv = sv_macro_tet(S)
+    configs.append(("sv_macro_tet cell map", sv, BatchedTabulator(sv, order=1, device="cpu"),
+                    pts3, P3, {3: ("affine_mappings", rotated_map(ft, 3, np))}, ["K7", "K7"],
+                    [0, 1]))
+    # zoos of the families that reach the route unedited: DG 0 beside a
+    # macro element (the zoo's degree-0 basis has scale 1, the parent not)
+    for K, variant, route, pts, P in ((T, "alfeld", "K3", pts2, P2),
+                                      (S, "worsey-farin", "K7", pts3, P3)):
+        z = [ft.DiscontinuousLagrange(K, 0), ft.Lagrange(K, 2, variant=variant)]
+        configs.append((f"dg0 + Lagrange 2 {variant}", z,
+                        BatchedTabulator(z, order=1, device="cpu"), pts, P, {}, [route], [0]))
+    entries, ref64 = [], None
+    for label, z, bt, pts, P, edits, names, report in configs:
+        st = edited_state(bt.state(), edits, np)
+        fz = FusedZooTabulator.from_arrays(**st, device=dev)
+        if [r.name for r in fz.macro_routes] != names:
+            fail(f"{label}: routes {[r.name for r in fz.macro_routes]}, expected {names}")
+        print(f"per_program_macro {label}: routes "
+              + "; ".join(f"{r.name} on programs {r.members}"
+                          + (" with its own K1" if r.recurrence is not None else "")
+                          for r in fz.macro_routes))
+        engines = {"K1": fz.recurrence, "K2": fz.matmul}
+        for k, r in enumerate(fz.macro_routes):
+            engines.update({f"{n} route {k}": e for n, e in r.kernels().items()})
+        blocks, launches = counted(engines, lambda: fz.block_tables(P), torch)
+        expect_launches(f"per_program_macro {label} f64", launches, dict.fromkeys(engines, 1))
+        host_err = host_check(z, fz.unpack(blocks), pts, NPTS, torch, np)
+        print(f"per_program_macro {label} f64 vs host el.tabulate on {HOST_CHECK_PTS} points: "
+              f"{host_err:.3e}")
+        if not host_err <= HOST_ATOL:
+            fail(f"{label}: {host_err:.3e} from host > {HOST_ATOL}")
+        if label == "full_zoo scale":
+            ref64 = {a: torch.cat([fz._table(i, t) for i in sorted(
+                range(len(fz.slices)), key=lambda i: fz.slices[i][0])]) for a, t in blocks.items()}
+        del blocks
+        basis = fz.recurrence(P)
+        entries += route_entries(f"per_program_macro {label}", fz, P, basis, card, torch,
+                                 report, launches)
+        del basis
+        torch.cuda.empty_cache()
+
+    # moments and interpolation on the edited programs (order 0)
+    wf_h = np.random.default_rng(7).random(NPTS)
+    wf = torch.as_tensor(wf_h, device=dev)
+    dg0 = [ft.DiscontinuousLagrange(T, 0), ft.Lagrange(T, 2, variant="alfeld")]
+    for label, z, b0, edits, counts in (
+            ("full_zoo scale", zoo, bt0, {1: ("get_scale", lambda n, cell=0: 0.5)}, (2, 2)),
+            ("full_zoo variant", zoo, bt0, {0: ("variant", "dual")}, (1, 1)),
+            ("dg0 + Lagrange 2 alfeld", dg0, BatchedTabulator(dg0, order=0, device="cpu"), {},
+             (2, 1))):
+        eng = MomentEngine.from_arrays(**edited_state(b0.state(), edits, np), device=dev)
+        pms, k3s = eng.moment_kernels, eng.macros
+        if (len(pms), len(k3s)) != counts:
+            fail(f"{label}: {len(pms)} K45 and {len(k3s)} K3, expected {counts}")
+        c = torch.as_tensor(np.random.default_rng(11).random(eng.rows) - 0.5, device=dev)
+        engines = {f"K45 {k}": pm for k, pm in enumerate(pms)}
+        engines.update({f"K3 {k}": m for k, m in enumerate(k3s)})
+        engines["K1"] = eng.recurrence
+        M, launches = counted(engines, lambda: eng.moment_rows(P2, wf), torch)
+        expect_launches(f"per_program_macro {label} moments", launches,
+                        {k: int(k.startswith("K45")) for k in engines})
+        k45_launches = launches
+        u, launches = counted(engines, lambda: eng.interpolate_rows(P2, c), torch)
+        expect_launches(f"per_program_macro {label} interpolation", launches,
+                        {k: int(not k.startswith("K45")) for k in engines})
+        n = HOST_CHECK_PTS
+        Mh = eng.moment_rows(P2[:n], wf[:n]).cpu().numpy()
+        c_h = c.cpu().numpy()
+        mom_err, host_u = 0.0, np.zeros(n)
+        for el, (lo, hi, _) in zip(z, b0.slices):
+            tab = np.asarray(el.tabulate(0, pts2[:n])[(0, 0)]).reshape(hi - lo, n)
+            mom_err = max(mom_err, float(np.abs(tab @ wf_h[:n] - Mh[lo:hi]).max()))
+            host_u += c_h[lo:hi] @ tab
+        u_err = float(np.abs(u[:n].cpu().numpy() - host_u).max())
+        print(f"per_program_macro {label} vs host on {n} points: moments {mom_err:.3e}, "
+              f"interpolation {u_err:.3e}")
+        if not (mom_err <= HOST_ATOL and u_err <= HOST_ATOL):
+            fail(f"{label}: moments {mom_err:.3e} / interpolation {u_err:.3e} > {HOST_ATOL}")
+        for k, pm in enumerate(pms[1:], 1):
+            err = check_kernel(f"per_program_macro {label} K45 {k} ({pm.rows} sums)",
+                               pm(P2, wf), pm.plain(P2, wf), torch)
+            ms, pl = median_ms(lambda: pm(P2, wf), torch), plain_ms(lambda: pm.plain(P2, wf),
+                                                                     torch)
+            lib = stack_mv_ms(pm, P2, wf, torch)
+            entries.append(entry(f"K45 pair_moments (per_program_macro {label}, group {k})",
+                                 "fiat_tpu_torch/csrc/moments.cu",
+                                 "fiat_tpu/ops/pallas_recurrence.py:549, "
+                                 "fiat_tpu/ops/pallas_recurrence.py:727",
+                                 k45_launches[f"K45 {k}"], err, ms, pl,
+                                 moments_bound(pm, NPTS), lib))
+            print(f"per_program_macro {label} K45 {k} timing ({card}): {ms:.4f} ms (plain "
+                  f"{pl:.4f}, one DGEMV on its stack {lib:.4f})")
+        del eng, M, u
+        torch.cuda.empty_cache()
+
+    # f32 tables on the groups (K6 + K3 float32 a group), held to the f64 ones
+    st = edited_state(bt1.state(), {1: ("get_scale", lambda n, cell=0: 0.5)}, np)
+    tab32 = F32ZooTabulator.from_arrays(**st, device=dev)
+    engines = {"K6": tab32.kernel}
+    engines.update({f"K3 float32 route {k}": e for k, e in enumerate(tab32.macro_routes)})
+    tables, launches = counted(engines, lambda: tab32.tables(P2), torch)
+    expect_launches("per_program_macro full_zoo scale f32", launches, dict.fromkeys(engines, 1))
+    f32_vs_f64("per_program_macro full_zoo scale f32", tab32, zoo, tables, ref64, torch)
+    del tables, ref64
+    k3 = tab32.macro_routes[1]
+    P32 = P2.float()
+    err = check_kernel("per_program_macro full_zoo scale K3 float32 route 1", k3(P32),
+                       k3.plain(P32), torch, rtol=F32_KERNEL_RTOL)
+    ms, pl = median_ms(lambda: k3(P32), torch), plain_ms(lambda: k3.plain(P32), torch)
+    entries.append(entry("K3 macro_oneshot float32 (per_program_macro full_zoo scale, route 1)",
+                         "fiat_tpu_torch/csrc/macro_oneshot_f32.cu",
+                         "fiat_tpu/ops/pallas_multiword.py:652",
+                         launches["K3 float32 route 1"], err, ms, pl,
+                         macro_bound(k3, NPTS, itemsize=4, flops_ms=FP32_FMA_MS),
+                         masked_gemm_ms(k3, P32, torch)))
+    print(f"per_program_macro full_zoo scale K3 float32 route 1 timing ({card}): {ms:.4f} ms "
+          f"(plain {pl:.4f})")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def jets_phase(dev, card, torch, np):
+    """Phase 24: ``device_tabulator(full_zoo, order=1, derivs="jets")``:
+    fiat_tpu's engines key only the value table under jets, so the pass is
+    K1 + K2 (+ K3 for the macro elements' values) on the values alone, each
+    kernel against its plain version, the values held to host and to the
+    dmats engine's."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator
+
+    pts = make_points(NPTS, SEED, np)
+    P = torch.as_tensor(pts, device=dev)
+    zoo = full_zoo(ft.ufc_simplex(2))
+    tab = device_tabulator(zoo, order=1, derivs="jets")
+    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    if tab.alphas != [(0, 0)]:
+        fail(f"jets: the engine keys {tab.alphas}, fiat_tpu's the value table alone")
+    phi_p = rec.plain(P)
+    k1_err = check_kernel("jets K1 recurrence", rec(P), phi_p, torch)
+    k2_err = check_kernel(f"jets K2 bucket matmul ({mm.total_rows} x {NPTS})", mm(phi_p),
+                          mm.plain(phi_p), torch)
+    del phi_p
+    check_kernel(f"jets {mo.name} ({mo.rows} rows)", mo(P), mo.plain(P), torch)
+    engines = {"K1": rec, "K2": mm, mo.name: mo}
+    blocks, launches = counted(engines, lambda: tab.block_tables(P), torch)
+    expect_launches("jets", launches, dict.fromkeys(engines, 1))
+    if set(blocks) != {(0, 0)}:
+        fail(f"jets: keys {sorted(blocks)}")
+    host_err = host_check(zoo, tab.unpack(blocks), pts, NPTS, torch, np, order=0)
+    dm = device_tabulator(zoo, order=1)
+    ref = dm.block_tables(P)[(0, 0)]
+    dm_err = max(rel_err(a, b)[1] for a, b in zip(blocks[(0, 0)], ref))
+    del ref, dm
+    print(f"jets main path: device_tabulator(full_zoo, order=1, derivs='jets').block_tables: "
+          f"keys {sorted(blocks)} (fiat_tpu's), max abs err vs host el.tabulate(0) on "
+          f"{HOST_CHECK_PTS} points {host_err:.3e}, vs the dmats engine's values {dm_err:.3e}")
+    if not (host_err <= HOST_ATOL and dm_err <= KERNEL_RTOL):
+        fail(f"jets: {host_err:.3e} from host or {dm_err:.3e} from the dmats values")
+    del blocks
+    phi = rec(P)
+    k1_ms, k1_pl = median_ms(lambda: rec(P), torch), plain_ms(lambda: rec.plain(P), torch)
+    k2_ms, k2_pl = median_ms(lambda: mm(phi), torch), plain_ms(lambda: mm.plain(phi), torch)
+    A = mm.A.to(dev)
+    k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)
+    del A, phi
+    path = median_ms(lambda: tab.block_tables(P), torch)
+    print(f"jets timing ({card}): pass {path:.4f} ms, K1 {k1_ms:.4f} (plain {k1_pl:.4f}), K2 "
+          f"{k2_ms:.4f} (plain {k2_pl:.4f}, one padded DGEMM {k2_lib:.4f})")
+    src = "fiat_tpu_torch/csrc/"
+    return [entry("K1 dubiner2_values (full_zoo jets)", src + "recurrence.cu",
+                  "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_err, k1_ms, k1_pl,
+                  rec_bound(rec, NPTS)),
+            entry("K2 bucket_matmul (full_zoo jets)", src + "bucket_matmul.cu",
+                  "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_err, k2_ms, k2_pl,
+                  matmul_bound(mm, NPTS), k2_lib)]
+
+
+def host_timed(fn, torch, reps=SHARD_REPS):
+    """Median host-clock ms of fn(), the card synchronized around each."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def sharded_rank(rank, n, backend):
+    """One rank of phase 25: full_zoo at 1e5 points through every step of
+    ``fiat_tpu_torch.parallel.sharding`` on the card, each step's kernels
+    counted, its time (host clock, the card synchronized) and its
+    collective's, and each held against the unsharded engine on the card.
+    Returns {"launches", "ms", "collective_ms", "err", "k45", "k2"}."""
+    import numpy as np
+    import torch
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator
+    from fiat_tpu_torch.ops.moments import moment_engine
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    from fiat_tpu_torch.parallel import sharding as sh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    zoo = full_zoo(ft.ufc_simplex(2))
+    pts = make_points(NPTS, SEED, np)
+    P = torch.as_tensor(pts, device=dev)
+    w = torch.as_tensor(np.random.default_rng(7).random(NPTS), device=dev)
+    f = torch.ones(NPTS, dtype=torch.float64, device=dev)
+    bt = BatchedTabulator(zoo, order=0, device=dev)
+    eng = moment_engine(bt)
+    fz = device_tabulator(zoo, order=1, device=dev)
+    c = torch.as_tensor(np.random.default_rng(11).random(eng.rows) - 0.5, device=dev)
+    mesh = sh.points_mesh(n)
+    mesh2 = sh.zoo_mesh(n // 2 or 1, 2 if n > 1 else 1)
+    first, end = sh.shard_bounds(NPTS, mesh)
+    p, ws, fs = (sh.shard_points(a, mesh) for a in (P, w, f))
+    p2, w2, f2 = (sh.shard_points(a, mesh2) for a in (P, w, f))
+    moment = sh.make_moment_step(bt, mesh)
+    moment2 = sh.make_moment_step_2d(bt, mesh2)
+    interp = sh.make_interpolation_step(bt, mesh)
+    fused = sh.make_fused_tabulate_step(fz, mesh)
+    kernels = {"fused": {"K1": fz.recurrence, "K2": fz.matmul, fz.macro.name: fz.macro},
+               "moments": {"K45": eng.moments}, "moments_2d": {"K45": eng.moments},
+               "interpolation": {"K1": eng.recurrence, "K3": eng.macro}, "tabulate": {}}
+    steps = {"tabulate": lambda: sh.sharded_tabulate(bt, P, mesh),
+             "fused": lambda: fused(p), "moments": lambda: moment(p, ws, fs),
+             "moments_2d": lambda: moment2(p2, w2, f2), "interpolation": lambda: interp(p, c)}
+    out = {"launches": {}, "ms": {}, "collective_ms": {}, "err": {}}
+    got = {}
+    for name, run in steps.items():
+        for k in kernels[name].values():
+            k.launches = 0
+        got[name] = run()
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: v.launches for k, v in kernels[name].items()}
+        step = {"moments": moment, "moments_2d": moment2}.get(name)
+        colls = []
+
+        def timed_run(run=run, step=step):
+            run()
+            if step is not None:
+                colls.append(step.collective_ms)
+        out["ms"][name] = host_timed(timed_run, torch)
+        if step is not None:
+            out["collective_ms"][name] = statistics.median(colls[1:])
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    ref = bt(P)[(0, 0)]
+    out["err"]["tabulate"] = rel(got["tabulate"][(0, 0)], ref[:, first:end])
+    del ref, got["tabulate"]
+    whole = fz.block_tables(P)
+    out["err"]["fused"] = max(rel(a, b[:, first:end]) for al in whole
+                              for a, b in zip(got["fused"][al], whole[al]))
+    del whole, got["fused"]
+    torch.cuda.empty_cache()
+    wf = w * f
+    M = eng.moment_rows(P, wf)
+    out["err"]["moments"] = rel(got["moments"], M)
+    rows2 = sh.gather(got["moments_2d"], mesh2, axis="rows", dim=0)[:eng.rows]
+    out["err"]["moments_2d"] = rel(rows2, M)
+    out["err"]["interpolation"] = rel(got["interpolation"], eng.interpolate_rows(P, c)[first:end])
+    # rank 0's K45 and K2 on its shard, for the kernels line
+    pm, mm = eng.moments, fz.matmul
+    k45_err = (pm(p, ws) - pm.plain(p, ws)).abs().max().item()
+    phi = fz.recurrence(p)
+    k2_err = (mm(phi) - mm.plain(phi)).abs().max().item()
+    A = mm.A.to(dev)
+    out["k45"] = [k45_err, median_ms(lambda: pm(p, ws), torch),
+                  plain_ms(lambda: pm.plain(p, ws), torch), list(moments_bound(pm, p.shape[0])),
+                  stack_mv_ms(pm, p, ws, torch)]
+    out["k2"] = [k2_err, median_ms(lambda: mm(phi), torch), plain_ms(lambda: mm.plain(phi), torch),
+                 list(matmul_bound(mm, p.shape[0])),
+                 median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)]
+    out["shard"] = [first, end]
+    return out
+
+
+def sharded_phase(dev, card, torch, np):
+    """Phase 25: full_zoo at 1e5 points through every sharded step, in a
+    world of one process on NCCL and in a world of two processes on gloo
+    on the one card (NCCL refuses two ranks on one device), each rank's
+    kernels counted, every step held to the unsharded engine on the card,
+    each step's time and its collective's share printed."""
+    from fiat_tpu_torch.parallel.sharding import spawn_world
+
+    entries = []
+    want = {"fused": {"K1": 1, "K2": 1, "K3": 1}, "moments": {"K45": 1},
+            "moments_2d": {"K45": 1}, "interpolation": {"K1": 1, "K3": 1}, "tabulate": {}}
+    for n, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = spawn_world(n, sharded_rank, (backend,), backend=backend, timeout=WORLD_TIMEOUT_S,
+                            device="cuda")
+        print(f"sharded world of {n} on {backend} (one card): {time.perf_counter() - t0:.1f} s "
+              f"with its spawn, kernels' load and construction")
+        for rank, r in enumerate(ranks):
+            for step, launches in r["launches"].items():
+                if launches != want[step]:
+                    fail(f"sharded {backend} rank {rank} {step}: launches {launches}, "
+                         f"expected {want[step]}")
+            for step, err in r["err"].items():
+                if not err <= SHARDED_RTOL[step]:
+                    fail(f"sharded {backend} rank {rank} {step}: {err:.3e} from the unsharded "
+                         f"engine > {SHARDED_RTOL[step]}")
+            share = {s: f"{c:.4f} ms = {c / r['ms'][s]:.1%}" for s, c in
+                     r["collective_ms"].items()}     # medians of the same calls
+            print(f"sharded {backend} rank {rank} of {n} ({card}; points {r['shard']}): launches "
+                  f"{json.dumps(r['launches'])}; step ms (host clock, median of {SHARD_REPS}) "
+                  + ", ".join(f"{s} {m:.4f}" for s, m in r["ms"].items())
+                  + f"; all_reduce {share}; vs unsharded "
+                  + ", ".join(f"{s} {e:.2e}" for s, e in r["err"].items()))
+        r0 = ranks[0]
+        label = f"sharded full_zoo, rank 0 of {n}, {backend}"
+        entries.append(entry(f"K45 pair_moments ({label})", "fiat_tpu_torch/csrc/moments.cu",
+                             "fiat_tpu/ops/pallas_recurrence.py:549, "
+                             "fiat_tpu/ops/pallas_recurrence.py:727",
+                             r0["launches"]["moments"]["K45"], r0["k45"][0], r0["k45"][1],
+                             r0["k45"][2], tuple(r0["k45"][3]), r0["k45"][4]))
+        entries.append(entry(f"K2 bucket_matmul ({label})", "fiat_tpu_torch/csrc/bucket_matmul.cu",
+                             "fiat_tpu/ops/pallas_multiword.py:269",
+                             r0["launches"]["fused"]["K2"], r0["k2"][0], r0["k2"][1],
+                             r0["k2"][2], tuple(r0["k2"][3]), r0["k2"][4]))
+    return entries
+
+
+def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25)):
+    """Phases 22-25 (those in ``only``); returns their kernels-line entries."""
+    phases = {22: lambda: rest_of_core_phase(dev, card, torch, np) or [],
+              23: lambda: per_program_phase(dev, card, torch, np),
+              24: lambda: jets_phase(dev, card, torch, np),
+              25: lambda: sharded_phase(dev, card, torch, np)}
+    kernels = []
+    for p in sorted(only):
+        kernels += phases[p]()
+        lap(p)
+    return kernels
+
+
 def main():
     try:
         import torch
@@ -3596,6 +4213,13 @@ def main():
         now = time.perf_counter()
         print(f"phase {phase} done in {now - clock[0]:.1f} s (wall clock)")
         clock[0] = now
+
+    if "--phases" in sys.argv:
+        # a quick check of some of the newest phases; the contract run takes
+        # no arguments
+        only = {int(p) for p in sys.argv[sys.argv.index("--phases") + 1].split(",")}
+        print(json.dumps({"kernels": new_phases(dev, card, torch, np, lap, only)}))
+        return 0
 
     slice_phase(T, dev, pts2, P, card, torch, np)
     lap(1)
@@ -3649,6 +4273,7 @@ def main():
     lap(20)
     kernels += tp_phase(dev, card, torch, np)
     lap(21)
+    kernels += new_phases(dev, card, torch, np, lap)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

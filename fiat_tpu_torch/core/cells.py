@@ -5,10 +5,11 @@ Counterpart of the simplex part of ``fiat_tpu/core/cells.py`` (UFC
 conventions): ``Cell`` (topology, sub/super entities, connectivity,
 parents), ``SimplicialComplex`` (normals, tangents, barycentric maps,
 L1 distances, subentity transforms, orientation maps) and the reference
-simplices; ``TensorProductCell`` (products of cells, tuple entity
-dimensions) and the hypercubes presented with flat dimensions
-(``Hypercube``, ``UFCQuadrilateral``, ``UFCHexahedron``) with the
-flattening maps between the two numberings.  Split complexes subclass
+simplices (UFC, default, symmetric and Intrepid numberings);
+``TensorProductCell`` (products of cells, tuple entity dimensions) and
+the hypercubes presented with flat dimensions (``Hypercube``,
+``UFCQuadrilateral``, ``UFCHexahedron``) with the flattening maps between
+the two numberings.  Split complexes subclass
 ``SimplicialComplex`` in ``core/macro.py``.  A cell is ``<=`` another when
 it lies on the other's parent-complex chain (a split complex is ``>`` its
 parent); products compare factor by factor.  Cells are plain Python
@@ -106,6 +107,9 @@ def simplex_volume(verts):
     edges = verts[1:] - verts[:1]
     sv = np.linalg.svd(edges, compute_uv=False)
     return float(np.prod(sv[sv > 1e-10])) / math.factorial(d)
+
+
+volume = simplex_volume
 
 
 # Cells --------------------------------------------------------------------
@@ -466,6 +470,9 @@ class Simplex(SimplicialComplex):
     def cell_orientation_reflection_map(self):
         return ornt.make_cell_orientation_reflection_map_simplex(self.get_dimension())
 
+    def get_facet_element(self):
+        return self.construct_subelement(self.get_spatial_dimension() - 1)
+
 
 class UFCSimplex(Simplex):
     def construct_subelement(self, dimension):
@@ -529,6 +536,20 @@ class UFCTriangle(UFCSimplex):
         return n / np.linalg.norm(n)
 
 
+class IntrepidTriangle(Simplex):
+    """The UFC triangle's vertices with Intrepid's (Trilinos) edge order."""
+
+    def __init__(self):
+        super().__init__(TRIANGLE,
+                         ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0)),
+                         {0: {0: (0,), 1: (1,), 2: (2,)},
+                          1: {0: (0, 1), 1: (1, 2), 2: (2, 0)},
+                          2: {0: (0, 1, 2)}})
+
+    def get_facet_element(self):
+        return UFCInterval()
+
+
 class DefaultTetrahedron(DefaultSimplex):
     def __init__(self):
         super().__init__(TETRAHEDRON,
@@ -540,6 +561,25 @@ class DefaultTetrahedron(DefaultSimplex):
                           2: {0: (1, 3, 2), 1: (2, 3, 0),
                               2: (3, 1, 0), 3: (0, 1, 2)},
                           3: {0: (0, 1, 2, 3)}})
+
+
+class IntrepidTetrahedron(Simplex):
+    """The UFC tetrahedron's vertices with Intrepid's (Trilinos) edge and
+    face order."""
+
+    def __init__(self):
+        super().__init__(TETRAHEDRON,
+                         ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)),
+                         {0: {i: (i,) for i in range(4)},
+                          1: {0: (0, 1), 1: (1, 2), 2: (2, 0),
+                              3: (0, 3), 4: (1, 3), 5: (2, 3)},
+                          2: {0: (0, 1, 3), 1: (1, 2, 3),
+                              2: (0, 3, 2), 3: (0, 2, 1)},
+                          3: {0: (0, 1, 2, 3)}})
+
+    def get_facet_element(self):
+        return IntrepidTriangle()
 
 
 class UFCTetrahedron(UFCSimplex):

@@ -18,10 +18,11 @@ vector/tensor target shapes alike.  Point evaluations of values and
 derivatives, integral moments of values and derivatives (pushed onto
 facets by ``quadrature.FacetQuadratureRule``), the bidirectional inner
 products v^T u w of tensor fields, pointwise and as moments, pointwise
-divergence, moments of a tensor field's divergence and the
-Legendre-weighted edge moments (directional, normal-normal and
-normal-tangential) are ported, with the argument builder of the facet
-trace moments; the trace-moment classes themselves are not yet.
+divergence, moments of a field's divergence (vector and tensor), the
+moments of normal and tangential traces on facets and edges, and the
+Legendre-weighted edge moments (directional, normal, tangential and the
+bidirectional ones): every functional class of fiat_tpu, with its names
+and arguments.
 """
 
 import numpy as np
@@ -90,10 +91,62 @@ class Functional:
         self.alphas = (np.zeros((n, space_dim), np.intp) if alphas is None
                        else np.asarray(alphas, np.intp).reshape(n, space_dim))
 
+    # -- array-level builders ------------------------------------------------
+
+    @classmethod
+    def at_points(cls, ref_el, shape, name, points, weights, comp=()):
+        """One value term per point, all against the same component."""
+        weights = np.asarray(weights, float).ravel()
+        n = weights.shape[0]
+        c = flat_component(comp, shape)
+        return cls(ref_el, shape, name, points, pt_ids=np.arange(n),
+                   weights=weights, comps=np.full(n, c, np.intp))
+
+    @classmethod
+    def from_weights(cls, ref_el, shape, name, points, W):
+        """Dense value terms: ell(f) = sum_q W[q, *c] f_c(x_q); every
+        component slot becomes a term (zeros kept)."""
+        W = np.asarray(W, dtype=float)
+        npts = W.shape[0]
+        ncomp = int(np.prod(shape, dtype=int)) if shape else 1
+        return cls(ref_el, shape, name, points,
+                   pt_ids=np.repeat(np.arange(npts), ncomp),
+                   weights=W.reshape(npts, ncomp).ravel(),
+                   comps=np.tile(np.arange(ncomp), npts))
+
+    @classmethod
+    def from_derivative_terms(cls, ref_el, shape, name, points, alphas, W, comps=None):
+        """Derivative terms from alpha "slots":
+        ell(f) = sum_q sum_a W[q, a] (D^{alphas[a]} f)_{comps[a]}(x_q)."""
+        return cls(ref_el, shape, name, points, **_derivative_term_arrays(alphas, W, comps))
+
     # -- queries --------------------------------------------------------------
+
+    @property
+    def max_deriv_order(self):
+        if self.alphas.shape[0] == 0:
+            return 0
+        return int(self.alphas.sum(axis=1).max())
 
     def get_reference_element(self):
         return self.ref_el
+
+    def get_type_tag(self):
+        return self.functional_type
+
+    def __call__(self, fn):
+        raise NotImplementedError(f"Evaluation not implemented for {type(self)}")
+
+    def evaluate(self, f):
+        raise AttributeError("To evaluate the functional just call it on a function.")
+
+    def to_riesz(self, poly_set):
+        """Riesz representer against poly_set's expansion set:
+        array of shape (*poly_set.value_shape, num_exp)."""
+        return riesz_representers([self], poly_set, shape=poly_set.get_shape())[0]
+
+    def tostr(self):
+        return self.functional_type
 
     # -- point-keyed dict views, derived lazily ------------------------------
 
@@ -134,6 +187,7 @@ class Functional:
 
     def get_point_dict(self):
         return self.pt_dict
+
 
 def _segment_sum(out, rows, values):
     """out[rows[k]] += values[k] with duplicate rows reduced first
@@ -205,6 +259,8 @@ class PointEvaluation(Functional):
     def __call__(self, fn):
         return fn(tuple(self.points[0]))
 
+    def tostr(self):
+        return "u(%s)" % (",".join(map(str, self.points[0])),)
 
 
 class ComponentPointEvaluation(Functional):
@@ -222,6 +278,14 @@ class ComponentPointEvaluation(Functional):
                          weights=[1.0], comps=[flat_component(comp, shp)])
 
 
+class PointNormalEvaluation(Functional):
+    """v -> (v . n)(x) on a facet."""
+
+    def __init__(self, ref_el, facet_no, pt):
+        self.n = ref_el.compute_normal(facet_no)
+        super().__init__(*_vector_point_args(ref_el, self.n, pt, "PointNormalEval"))
+
+
 class PointScaledNormalEvaluation(Functional):
     """v -> (v . n~)(x), n~ the facet-volume-scaled normal."""
 
@@ -229,6 +293,8 @@ class PointScaledNormalEvaluation(Functional):
         n = ref_el.compute_scaled_normal(facet_no)
         super().__init__(*_vector_point_args(ref_el, n, pt, "PointScaledNormalEval"))
 
+    def tostr(self):
+        return "(u.n)(%s)" % (",".join(map(str, self.points[0])),)
 
 
 class PointEdgeTangentEvaluation(Functional):
@@ -238,6 +304,8 @@ class PointEdgeTangentEvaluation(Functional):
         self.t = ref_el.compute_edge_tangent(edge_no)
         super().__init__(*_vector_point_args(ref_el, self.t, pt, "PointEdgeTangent"))
 
+    def tostr(self):
+        return "(u.t)(%s)" % (",".join(map(str, self.points[0])),)
 
 
 class PointFaceTangentEvaluation(Functional):
@@ -247,6 +315,9 @@ class PointFaceTangentEvaluation(Functional):
         self.t = ref_el.compute_face_tangents(face_no)[tno]
         self.tno = tno
         super().__init__(*_vector_point_args(ref_el, self.t, pt, "PointFaceTangent"))
+
+    def tostr(self):
+        return "(u.t%d)(%s)" % (self.tno, ",".join(map(str, self.points[0])))
 
 
 
@@ -305,6 +376,40 @@ class PointNormalDerivative(PointDirectionalDerivative):
     def __init__(self, ref_el, facet_no, pt, comp=(), shp=()):
         n = ref_el.compute_normal(facet_no)
         super().__init__(ref_el, n, pt, comp=comp, shp=shp, nm="PointNormalDeriv")
+
+
+class PointTangentialDerivative(PointDirectionalDerivative):
+    def __init__(self, ref_el, edge_no, pt, comp=(), shp=()):
+        t = ref_el.compute_edge_tangent(edge_no)
+        super().__init__(ref_el, t, pt, comp=comp, shp=shp, nm="PointTangentialDeriv")
+
+
+class PointSecondDerivative(Functional):
+    """f -> s1^T (D^2 f)(x) s2."""
+
+    def __init__(self, ref_el, s1, s2, pt, comp=(), shp=(), nm=None):
+        space_dim = ref_el.get_spatial_dimension()
+        alphas, taus = directional_alphas(np.outer(s1, s2), space_dim)
+        cf = flat_component(comp, shp)
+        super().__init__(ref_el, shp, nm or "PointSecondDeriv", [tuple(pt)],
+                         pt_ids=np.zeros(len(taus), np.intp),
+                         weights=taus,
+                         comps=np.full(len(taus), cf, np.intp),
+                         alphas=alphas)
+
+
+class PointNormalSecondDerivative(PointSecondDerivative):
+    def __init__(self, ref_el, facet_no, pt, comp=(), shp=()):
+        n = ref_el.compute_normal(facet_no)
+        super().__init__(ref_el, n, n, pt, comp=comp, shp=shp,
+                         nm="PointNormalSecondDeriv")
+
+
+class PointTangentialSecondDerivative(PointSecondDerivative):
+    def __init__(self, ref_el, edge_no, pt, comp=(), shp=()):
+        t = ref_el.compute_edge_tangent(edge_no)
+        super().__init__(ref_el, t, t, pt, comp=comp, shp=shp,
+                         nm="PointTangentialSecondDeriv")
 
 
 class PointDivergence(Functional):
@@ -392,6 +497,25 @@ class IntegralMomentOfNormalDerivative(IntegralMomentOfDerivative):
         super().__init__(ref_el, Q, f_at_qpts, n, nm="IntegralMomentOfNormalDerivative")
 
 
+class IntegralMomentOfDivergence(Functional):
+    """v -> int (div v) q."""
+
+    def __init__(self, ref_el, Q, f_at_qpts):
+        self.f_at_qpts = f_at_qpts
+        self.Q = Q
+        space_dim = ref_el.get_spatial_dimension()
+        shp = f_at_qpts.shape[1:-1] + (space_dim,)
+        pts = Q.get_points()
+        self.dpts = pts
+        qwts = np.multiply(f_at_qpts, Q.get_weights())
+        # slot a: alpha = e_a, component a (the diagonal of grad)
+        super().__init__(ref_el, shp, "IntegralMomentOfDivergence", pts,
+                         **_derivative_term_arrays(
+                             np.eye(space_dim, dtype=np.intp),
+                             np.tile(qwts[:, None], (1, space_dim)),
+                             comps=np.arange(space_dim)))
+
+
 class IntegralMomentOfTensorDivergence(Functional):
     """tau -> int (div tau) . q for tensor fields: sum_ij int d_j tau_ij q_i."""
 
@@ -443,6 +567,70 @@ def _facet_trace_moment_args(ref_el, Q, P_at_qpts, entity_dim, entity_id,
             np.tile(np.arange(space_dim), npts))
 
 
+class IntegralMomentOfNormalEvaluation(Functional):
+    r"""v -> \int_F (v . n~) p ds (volume-scaled normal)."""
+
+    def __init__(self, ref_el, Q, P_at_qpts, facet):
+        space_dim = ref_el.get_spatial_dimension()
+        n = ref_el.compute_scaled_normal(facet)
+        super().__init__(*_facet_trace_moment_args(
+            ref_el, Q, P_at_qpts, space_dim - 1, facet, n,
+            "IntegralMomentOfNormalEvaluation"))
+
+
+class IntegralMomentOfScaledNormalEvaluation(Functional):
+    r"""v -> \int_F (v . n~) p ds."""
+
+    def __init__(self, ref_el, Q, P_at_qpts, facet):
+        space_dim = ref_el.get_spatial_dimension()
+        n = ref_el.compute_scaled_normal(facet)
+        super().__init__(*_facet_trace_moment_args(
+            ref_el, Q, P_at_qpts, space_dim - 1, facet, n,
+            "IntegralMomentOfScaledNormalEvaluation"))
+
+
+class IntegralMomentOfTangentialEvaluation(Functional):
+    r"""v -> \int_e (v . t) p ds (2D)."""
+
+    def __init__(self, ref_el, Q, P_at_qpts, facet):
+        space_dim = ref_el.get_spatial_dimension()
+        assert space_dim == 2
+        t = ref_el.compute_edge_tangent(facet)
+        super().__init__(*_facet_trace_moment_args(
+            ref_el, Q, P_at_qpts, space_dim - 1, facet, t,
+            "IntegralMomentOfScaledTangentialEvaluation"))
+
+
+class IntegralMomentOfEdgeTangentEvaluation(Functional):
+    r"""v -> \int_e (v . t) p ds for p tabulated at the edge rule Q."""
+
+    def __init__(self, ref_el, Q, P_at_qpts, edge):
+        t = ref_el.compute_edge_tangent(edge)
+        super().__init__(*_facet_trace_moment_args(
+            ref_el, Q, P_at_qpts, 1, edge, t,
+            "IntegralMomentOfEdgeTangentEvaluation"))
+
+
+class IntegralMomentOfFaceTangentEvaluation(Functional):
+    r"""v -> \int_F (v x n) . p dA, expressed through the double cross
+    product: the weight for component i is w * (n x (p x n))_i."""
+
+    def __init__(self, ref_el, Q, P_at_qpts, facet):
+        n = ref_el.compute_scaled_normal(facet)
+        space_dim = ref_el.get_spatial_dimension()
+        transform = ref_el.get_entity_transform(space_dim - 1, facet)
+        pts = np.asarray(transform(Q.get_points()))
+        phi = np.asarray(P_at_qpts).T                     # (npts, 3)
+        phixn = np.cross(phi, n[None, :])
+        W = Q.get_weights()[:, None] * np.cross(n[None, :], phixn)
+        npts = W.shape[0]
+        super().__init__(ref_el, (space_dim,), "IntegralMomentOfFaceTangentEvaluation",
+                         pts,
+                         pt_ids=np.repeat(np.arange(npts), space_dim),
+                         weights=W.ravel(),
+                         comps=np.tile(np.arange(space_dim), npts))
+
+
 def _legendre(n, x):
     """P_n at points x by the three-term recurrence."""
     x = np.asarray(x)
@@ -469,6 +657,20 @@ class IntegralLegendreDirectionalMoment(FrobeniusIntegralMoment):
         super().__init__(cell, Q, f_at_qpts, nm=nm)
 
 
+class IntegralLegendreNormalMoment(IntegralLegendreDirectionalMoment):
+    def __init__(self, cell, entity, mom_deg, comp_deg):
+        n = cell.compute_scaled_normal(entity)
+        super().__init__(cell, n, entity, mom_deg, comp_deg,
+                         "IntegralLegendreNormalMoment")
+
+
+class IntegralLegendreTangentialMoment(IntegralLegendreDirectionalMoment):
+    def __init__(self, cell, entity, mom_deg, comp_deg):
+        t = cell.compute_edge_tangent(entity)
+        super().__init__(cell, t, entity, mom_deg, comp_deg,
+                         "IntegralLegendreTangentialMoment")
+
+
 class IntegralLegendreBidirectionalMoment(IntegralLegendreDirectionalMoment):
     """tau -> int_e (s1 . tau . s2) P_k."""
 
@@ -489,3 +691,10 @@ class IntegralLegendreNormalTangentialMoment(IntegralLegendreBidirectionalMoment
         t = cell.compute_edge_tangent(entity)
         super().__init__(cell, n, t, entity, mom_deg, comp_deg,
                          "IntegralNormalTangentialLegendreMoment")
+
+
+class IntegralLegendreTangentialTangentialMoment(IntegralLegendreBidirectionalMoment):
+    def __init__(self, cell, entity, mom_deg, comp_deg):
+        t = cell.compute_edge_tangent(entity)
+        super().__init__(cell, t, t, entity, mom_deg, comp_deg,
+                         "IntegralTangentialTangentialLegendreMoment")

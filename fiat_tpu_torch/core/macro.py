@@ -43,6 +43,12 @@ def xy_to_bary(verts, pts, result=None):
     return result
 
 
+def facet_support(facet_coords, tol=1e-12):
+    """Parent vertex ids supporting a child facet (nonzero barycentric)."""
+    mask = np.abs(np.asarray(facet_coords)).max(axis=0) > tol
+    return tuple(np.flatnonzero(mask).tolist())
+
+
 def invert_cell_topology(T):
     """{dim: {vertex tuple: entity id}}."""
     return {dim: {verts: e for e, verts in T[dim].items()} for dim in T}

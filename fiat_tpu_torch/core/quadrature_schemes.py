@@ -16,13 +16,16 @@ the composite rule (``macro.MacroQuadratureRule``); tensor-product cells
 the product of their factors' rules (a degree per factor, or one for
 all), and quadrilaterals and hexahedra those of their interval products.
 ``"KMV"`` takes the Kong-Mulder-Veldhuizen mass-lumping rules (GLL on a
-line).  Grundmann-Moller schemes are not ported yet.
+line), and ``"gm"`` / ``"grundmann_moller"`` the Grundmann-Moller rules,
+their alternating layer weights summed in exact rational arithmetic.
 """
+
+import numpy as np
 
 from . import cells as cl
 from .quadrature import (FacetQuadratureRule,
-                         GaussLobattoLegendreQuadratureLineRule, make_quadrature,
-                         make_tensor_product_quadrature)
+                         GaussLobattoLegendreQuadratureLineRule, QuadratureRule,
+                         make_quadrature, make_tensor_product_quadrature)
 
 
 def create_quadrature(ref_el, degree, scheme="default", entity=None):
@@ -77,14 +80,20 @@ def create_quadrature(ref_el, degree, scheme="default", entity=None):
         return _collapsed_scheme(ref_el, degree)
     if scheme == "canonical":
         return _collapsed_scheme(ref_el, degree)
+    if scheme in ("gm", "grundmann_moller"):
+        return _grundmann_moller_scheme(ref_el, degree)
     if scheme in ("symmetric", "xg"):
-        from .symquad import symmetric_rule
-        return symmetric_rule(ref_el, degree)
+        return _symmetric_scheme(ref_el, degree)
     if scheme == "KMV":
         return _kmv_lump_scheme(ref_el, degree)
-    if scheme in ("gm", "grundmann_moller"):
-        raise NotImplementedError(f"Quadrature scheme {scheme!r} is not ported yet")
     raise ValueError(f"Unknown quadrature scheme {scheme!r}")
+
+
+def _symmetric_scheme(ref_el, degree):
+    """Generated fully symmetric simplex rule (core/symquad.py); raises
+    KeyError when no generated rule covers the degree."""
+    from .symquad import symmetric_rule
+    return symmetric_rule(ref_el, degree)
 
 
 def _gated_symmetric_scheme(ref_el, degree):
@@ -98,6 +107,54 @@ def _general_elim_scheme(ref_el, degree):
     """Generated general (asymmetric, positive) simplex rule."""
     from .elimquad import general_rule
     return general_rule(ref_el, degree)
+
+
+def _grundmann_moller_scheme(ref_el, degree):
+    """Grundmann & Moller (1978) fully symmetric simplex rule of the
+    requested exactness: degree 2s+1 with binom(s+dim, dim) points on
+    the s-th member.  Points are barycentric lattice nodes; weights have
+    alternating signs (use scheme='canonical' when positivity matters,
+    e.g. lumping).
+
+    Layer weights and their normalisation are accumulated in exact
+    rational arithmetic (the alternating sum cancels catastrophically in
+    floats past s ~ 12) and rounded once at the end."""
+    from fractions import Fraction
+    from math import factorial
+
+    d = ref_el.get_spatial_dimension()
+    s = degree // 2  # rule of degree 2s+1 >= degree
+    if 2 * s + 1 < degree:
+        s += 1
+
+    verts = np.asarray(ref_el.get_vertices(), dtype=np.float64)
+    pts, wts, counts = [], [], []
+    for i in range(s + 1):
+        # i-th layer weight (Grundmann & Moller 1978, Theorem 4): the
+        # global constant is fixed afterwards by matching the volume
+        w = Fraction((-1) ** i * (d + 2 * s + 1 - 2 * i) ** (2 * s + 1),
+                     factorial(i) * factorial(d + 2 * s + 1 - i))
+        denom = float(d + 2 * s + 1 - 2 * i)
+        layer = [np.array([(2 * k + 1) / denom for k in kk]) @ verts
+                 for kk in _compositions(d + 1, s - i)]
+        pts.extend(layer)
+        wts.append(w)
+        counts.append(len(layer))
+    total = sum(w * c for w, c in zip(wts, counts))
+    vol = ref_el.volume()
+    wts = np.concatenate([np.full(c, float(w / total) * vol)
+                          for w, c in zip(wts, counts)])
+    return QuadratureRule(ref_el, np.asarray(pts), wts)
+
+
+def _compositions(parts, total):
+    """All tuples of ``parts`` nonnegative ints summing to ``total``."""
+    if parts == 1:
+        yield (total,)
+        return
+    for first in range(total + 1):
+        for rest in _compositions(parts - 1, total - first):
+            yield (first,) + rest
 
 
 def _collapsed_scheme(ref_el, degree):

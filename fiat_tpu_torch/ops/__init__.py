@@ -33,29 +33,33 @@ def device_tabulator(elements, order=0, f64=True, device=None, derivs="dmats", *
       intervals, triangles and tetrahedra; ``tab.tables(points)`` gives the whole
       zoo's float32 tables.
 
-    It takes fiat_tpu's keywords: ``derivs="dmats"`` (derivatives as
-    change-of-basis rows on the order-0 recurrence, the only route the port
-    has; ``"jets"``, the Taylor-jet recurrence, raises
-    ``NotImplementedError``), and ``tile``, ``matmul``, ``wdtype`` and
-    ``interpret``, which steer fiat_tpu's TPU engines only and are
-    ignored.  Any other keyword is a ``TypeError``.
+    Macro programs that do not share the zoo's parent basis run by route
+    (``fused_zoo.partition_macro_programs``, fiat_tpu's per-program
+    fallback): K3 or K7 once per group of one Dubiner parent, K2 on the
+    masked parent of a program on a variant parent.
+
+    It takes fiat_tpu's keywords: ``derivs`` ("dmats", derivatives as
+    change-of-basis rows on the order-0 recurrence, or "jets", the
+    recurrence on Taylor jets; past order 0 fiat_tpu's engines key only
+    the value table under "jets", since its ``alpha_mats`` is empty there,
+    and so do the port's: K1 and K2 on the values, the macro elements'
+    values on K3 or K7; any other value is a ``ValueError``), and
+    ``tile``, ``matmul``, ``wdtype`` and ``interpret``, which steer
+    fiat_tpu's TPU engines only and are ignored.  Any other keyword is a
+    ``TypeError``.
 
     Never returns a slower engine in place of the one asked for: what is
-    not ported yet raises ``NotImplementedError``."""
+    not ported raises ``NotImplementedError``."""
     unknown = sorted(set(tpu_only) - set(TPU_ONLY))
     if unknown:
         raise TypeError(f"device_tabulator() got unexpected keyword arguments {unknown}")
-    if derivs == "jets":
-        raise NotImplementedError(
-            "derivs='jets' (the Taylor-jet recurrence of fiat_tpu's BatchedTabulator) is not "
-            "ported: the engines take derivs='dmats'")
-    if derivs != "dmats":
+    if derivs not in ("dmats", "jets"):
         raise ValueError(f"derivs {derivs!r}: 'dmats' or 'jets'")
     from .kernels import resolve_device
     from .tabulate import BatchedTabulator
     device = resolve_device(device)
     # the plain engine stays on the host: it only supplies the arrays
-    batched = BatchedTabulator(elements, order=order, device="cpu")
+    batched = BatchedTabulator(elements, order=order, device="cpu", derivs=derivs)
     if not f64:
         from .f32_zoo import F32ZooTabulator
         return F32ZooTabulator(batched, device=device)

@@ -10,7 +10,9 @@ One pass runs
      memory) and every row written straight to its place in the output;
   2. K3 in float32 (``macro_oneshot.MacroOneShot``, its sd = 1, 2 or 3
      stage) for the macro elements, when the zoo holds them: fiat_tpu's
-     ``_macro_tables``.
+     ``_macro_tables``; one launch for each group of programs on one
+     Dubiner parent (``fused_zoo.partition_macro_programs``), and a
+     program on a variant parent in PyTorch (``VariantProgramF32``).
 
 Points are cast to float32 on the device.  Plain FP32 FMAs throughout: no
 TF32 and no tensor cores, as fiat_tpu's ``Precision.HIGHEST``.  The plain
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from ..core.expansions import _c0_matrix, dubiner_tabulate
-from .fused_zoo import _merge_macro_programs, group_by_width, pack_rows
+from .fused_zoo import (group_by_width, masked_parent, merge_group, pack_rows,
+                        partition_macro_programs, unique_binning)
 from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream_of
 from .macro_oneshot import MacroOneShot
 from .recurrence import pack_stages
@@ -274,6 +277,23 @@ class ZooF32Kernel:
         return self.product(self.phi(points), dst, out)
 
 
+class VariantProgramF32:
+    """A macro program on a variant parent in the f32 engine: its masked
+    parent in float32 by PyTorch, times its ``tall`` matrix in full float32
+    (no TF32), the multiplicity averaged: fiat_tpu's ``_macro_tables``, an
+    XLA product there too."""
+
+    name = "torch"
+
+    def __init__(self, program, order, device):
+        self.program, self.unique = program, unique_binning(program, order)
+        self.tall = torch.as_tensor(program.tall, dtype=torch.float32, device=device)
+
+    def __call__(self, points):
+        with no_tf32():
+            return self.tall @ masked_parent(self.program, points, self.unique)
+
+
 class F32ZooTabulator:
     """The f32 engine of a zoo of nodal elements, plain and macro
     (fiat_tpu's ``PallasZooTabulator``).
@@ -282,8 +302,9 @@ class F32ZooTabulator:
     plain rows, alpha-major (``tab.unpack`` splits it by alpha);
     ``tab.tables(points)`` gives {alpha: (rows, npts)} float32 for the whole
     zoo in the ``BatchedTabulator`` row order (plain rows, then the macro
-    elements').  ``tab.kernel`` (K6) and ``tab.macro`` (K3 in float32; None
-    without macro elements) carry the launch counts.  Intervals, triangles
+    elements').  ``tab.kernel`` (K6) and ``tab.macro`` (K3 in float32, the
+    first group's; None without one) carry the launch counts;
+    ``tab.macro_routes`` lists every route.  Intervals, triangles
     and tetrahedra, plain and macro."""
 
     def __init__(self, batched, device=None):
@@ -291,22 +312,24 @@ class F32ZooTabulator:
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, max_degree, scale, affine_map,
-                    plain_nexp=None, macro_programs=(), variant=None, device=None):
+                    plain_nexp=None, macro_programs=(), variant=None, device=None, order=None,
+                    derivs="dmats"):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``state()``, or fiat_tpu's attributes of the same names), as
         ``FusedZooTabulator.from_arrays`` takes them; ``variant`` is the
         target expansion set's (None, "bubble" or "dual").  Without
         ``plain_nexp`` (or with a variant, whose rows are not degree
-        prefixes) every plain row contracts the whole basis."""
+        prefixes) every plain row contracts the whole basis.  ``order`` and
+        ``derivs`` as ``FusedZooTabulator.from_arrays`` takes them."""
         self = cls.__new__(cls)
         self._setup(stacked=stacked, alpha_mats=alpha_mats, slices=slices,
                     max_degree=max_degree, scale=scale, affine_map=affine_map,
                     plain_nexp=plain_nexp, macro_programs=macro_programs, variant=variant,
-                    device=device)
+                    device=device, order=order)
         return self
 
     def _setup(self, stacked, alpha_mats, slices, max_degree, scale, affine_map, plain_nexp,
-               macro_programs, device, variant=None):
+               macro_programs, device, variant=None, order=None, derivs="dmats"):
         self.device = resolve_device(device)
         self.sd = np.asarray(affine_map[0]).shape[0]
         if variant not in VARIANTS:
@@ -341,18 +364,31 @@ class F32ZooTabulator:
         # and the flattened (nalpha, rows) tables (``tables``)
         self.dst_plain = rows_t(src[:, 0] * self.plain_rows + src[:, 1])
         self.dst_tables = rows_t(src[:, 0] * self.rows + src[:, 1])
-        self.macro = None
-        if self._programs:
-            self.macro = MacroOneShot(**_merge_macro_programs(
-                self._programs, zoo_scale, affine_map, max(map(sum, self.alphas))),
-                device=self.device, dtype=torch.float32)
-            # K3's rows (program-major, alpha, element) in the tables
-            macro_dst = []
-            for p in self._programs:
+        # the macro programs by route (``fused_zoo.partition_macro_programs``):
+        # K3 in float32 for each group on one Dubiner parent, PyTorch in
+        # float32 for a program on a variant parent (fiat_tpu's
+        # ``_macro_tables`` runs every program so, in XLA)
+        order = max(map(sum, self.alphas)) if order is None else order
+        self.macro_routes = []
+        macro_dst = []
+        for kind, members, _ in partition_macro_programs(self._programs, zoo_scale,
+                                                         affine_map):
+            progs = [self._programs[g] for g in members]
+            if kind == "merged":
+                engine = MacroOneShot(**merge_group(progs, order), device=self.device,
+                                      dtype=torch.float32)
+            else:
+                engine = VariantProgramF32(progs[0], order, self.device)
+            self.macro_routes.append(engine)
+            # the route's rows (program-major, alpha, element) in the tables
+            for p in progs:
                 for k in range(len(self.alphas)):
                     for idx, lo, hi in sorted(p.row_slices, key=lambda s: s[1]):
                         flo, fhi, _ = self.slices[idx]
                         macro_dst.extend(k * self.rows + r for r in range(flo, fhi))
+        merged = [e for e in self.macro_routes if isinstance(e, MacroOneShot)]
+        self.macro = merged[0] if merged else None
+        if self.macro_routes:
             self.dst_macro = torch.as_tensor(macro_dst, device=self.device)
 
     def _points(self, points):
@@ -385,6 +421,7 @@ class F32ZooTabulator:
         out = torch.empty((len(self.alphas) * self.rows, pts.shape[0]),
                           dtype=torch.float32, device=self.device)
         self.kernel(pts, self.dst_tables, out)
-        if self.macro is not None:
-            out.index_copy_(0, self.dst_macro, self.macro(pts))
+        if self.macro_routes:
+            macro = [route(pts) for route in self.macro_routes]
+            out.index_copy_(0, self.dst_macro, macro[0] if len(macro) == 1 else torch.cat(macro))
         return {a: out[k * self.rows:(k + 1) * self.rows] for k, a in enumerate(self.alphas)}

@@ -24,7 +24,13 @@ over ``FusedMultiwordMatmul`` and ``FusedMacroOneShot``).  One pass runs
      K7
      (``masked_matmul.MaskedMatmul``, ``csrc/masked_matmul.cu``), which
      reads the parent basis as a prefix of K1's Phi; K1 then runs at the
-     larger of the plain and macro degrees.
+     larger of the plain and macro degrees.  Macro programs that do not
+     share the zoo's parent basis take fiat_tpu's per-program fallback
+     (``macro_fms``) by route (``partition_macro_programs``): a K3 or K7
+     launch for each group of programs on one Dubiner parent (a K7 group
+     off the zoo's basis with a K1 of its own), and for a program on a
+     variant parent its masked parent in PyTorch times its tall matrix on
+     K2.
 
 The TPU engine reaches f64 on the bf16 MXU through df32 pairs, Ozaki
 windows and TwoSum combines; Hopper has native FP64, so no kernel carries
@@ -39,6 +45,7 @@ kernel or raises.
 import numpy as np
 import torch
 
+from ..core.expansions import dubiner_tabulate, partition_of_unity_masks
 from .bernstein import BernsteinFeatures, bernstein_operand
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
 from .macro_oneshot import MacroOneShot, one_shot_applies
@@ -255,8 +262,9 @@ class FusedZooTabulator:
     npts)} in the row order of ``BatchedTabulator``.  ``fz.recurrence``
     (K1; None on the Bernstein route), ``fz.features`` (K8; None on the
     Dubiner route), ``fz.matmul`` (K2) and ``fz.macro`` (K3 or K7, as
-    ``fz.macro.name`` says; None without macro elements) carry the launch
-    counts.
+    ``fz.macro.name`` says; the first merged route's, None without one)
+    carry the launch counts; ``fz.macro_routes`` lists every route of the
+    macro programs (``MacroRoute``: its kernel, its own K1 if any).
 
     ``features``: "auto" or "dubiner" (the default) feed K2 from the
     recurrence; "bernstein" from the Bernstein features, with the
@@ -270,7 +278,8 @@ class FusedZooTabulator:
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-                    affine_map, macro_programs=(), features="auto", device=None):
+                    affine_map, macro_programs=(), features="auto", device=None, order=None,
+                    derivs="dmats"):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``BatchedTabulator.state()``, or fiat_tpu's ``BatchedTabulator``
         attributes of the same names): ``stacked`` (plain rows, nexp);
@@ -280,16 +289,19 @@ class FusedZooTabulator:
         ``max_degree``, ``scale`` and ``affine_map`` (A, b); and the
         ``macro_programs`` (``MacroSideProgram``s, the port's or fiat_tpu's)
         of the macro elements, which are the elements missing from
-        ``plain_nexp``."""
+        ``plain_nexp``; ``order``, the zoo's derivative order, sets the
+        binning of C0 macro bases (the highest order of ``alpha_mats`` when
+        None); ``derivs`` is taken and not needed (``alpha_mats`` is empty
+        under jets)."""
         self = cls.__new__(cls)
         self._setup(stacked=stacked, alpha_mats=alpha_mats, slices=slices,
                     plain_nexp=plain_nexp, max_degree=max_degree, scale=scale,
                     affine_map=affine_map, macro_programs=macro_programs, device=device,
-                    features=features)
+                    features=features, order=order)
         return self
 
     def _setup(self, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-               affine_map, macro_programs, device, features):
+               affine_map, macro_programs, device, features, order=None, derivs="dmats"):
         if features not in ("auto", "dubiner", "bernstein"):
             raise ValueError(f"features {features!r}: 'auto', 'dubiner' or 'bernstein'")
         self.device = resolve_device(device)
@@ -313,18 +325,22 @@ class FusedZooTabulator:
             mats, self.alphas, self.slices, plain_nexp)
         self.recurrence = self.features = self.macro = None
         self._programs = list(macro_programs)
+        order = max(map(sum, self.alphas)) if order is None else order
         rec_degree = max_degree
-        if self._programs:
-            merged = _merge_macro_programs(self._programs, scale, affine_map,
-                                           max(map(sum, self.alphas)))
-            # chosen by precondition, once: K3 where it applies, else K7 (on
-            # tetrahedra K7 measured faster than K3's sd = 3 stage)
-            if one_shot_applies(merged):
-                self.macro = MacroOneShot(**merged, device=self.device)
-            else:
-                self.macro = MaskedMatmul(merged["A"], merged["pieces"], merged["geom"],
-                                          merged["parent_map"], device=self.device)
-                rec_degree = max(max_degree, merged["degree"])
+        #: one route per group of macro programs (``partition_macro_programs``)
+        self.macro_routes = []
+        for kind, members, on_zoo in partition_macro_programs(self._programs, scale,
+                                                              affine_map):
+            route = MacroRoute(kind, members, [self._programs[g] for g in members], order,
+                               self.device, on_zoo)
+            if route.name == "K7" and on_zoo:
+                rec_degree = max(rec_degree, route.degree)
+            self.macro_routes.append(route)
+        merged = [r.engine for r in self.macro_routes if r.kind == "merged"]
+        self.macro = merged[0] if merged else None
+        #: macro program -> (route, first row of its tables in the route's output)
+        self._route_of = {g: (k, r0) for k, r in enumerate(self.macro_routes)
+                          for g, r0 in r.first_row.items()}
         if features == "bernstein":
             if len(self.widths) != 1 or self.special:
                 raise ValueError(
@@ -359,13 +375,13 @@ class FusedZooTabulator:
         blocks = self.matmul.views(self.matmul(basis))
         out = {a: [blk[k * r:(k + 1) * r] for blk, r in zip(blocks, self.group_rows)]
                for k, a in enumerate(self.alphas)}
-        if self.macro is not None:
-            merged = self.macro(pts, basis) if self.macro.name == "K7" else self.macro(pts)
-            for i in self.special:
-                g, lo, hi = self._macro_loc[i]
-                r0, r = self.macro.geom[g]["rows"][0], self._programs[g].rows
-                for k, a in enumerate(self.alphas):
-                    out[a].append(merged[r0 + k * r + lo:r0 + k * r + hi])
+        outs = [route(pts, basis) for route in self.macro_routes]
+        for i in self.special:
+            g, lo, hi = self._macro_loc[i]
+            route, r0 = self._route_of[g]
+            r = self._programs[g].rows
+            for k, a in enumerate(self.alphas):
+                out[a].append(outs[route][r0 + k * r + lo:r0 + k * r + hi])
         return out
 
     def _table(self, i, tabs):
@@ -392,6 +408,69 @@ class FusedZooTabulator:
         order = sorted(range(len(self.slices)), key=lambda i: self.slices[i][0])
         return {a: torch.cat([self._table(i, tabs) for i in order], dim=0)
                 for a, tabs in self.block_tables(points).items()}
+
+
+class MacroRoute:
+    """One route of a zoo's macro programs (``partition_macro_programs``):
+    ``route(points, basis)`` is the (rows, npts) float64 tables of its
+    programs, one after another, each alpha-major as its ``tall`` matrix.
+
+    ``name`` is the kernel: "K3" or "K7" for merged programs
+    (``one_shot_applies`` chooses), "K2" for a program on a variant parent,
+    whose masked parent is tabulated in PyTorch (``masked_parent``) and
+    multiplied by its ``tall`` matrix; ``engine`` is that kernel's wrapper
+    (its launch count); ``recurrence`` the parent recurrence (K1) of a K7
+    route off the zoo's basis, which cannot read K1's Phi of the zoo (None
+    else); ``members`` the zoo's program indices and ``first_row`` each
+    one's first row in the output."""
+
+    def __init__(self, kind, members, programs, order, device, on_zoo):
+        self.kind, self.members, self.on_zoo = kind, list(members), on_zoo
+        self.recurrence = None
+        if kind == "variant":
+            self.program, = programs
+            self.unique = unique_binning(self.program, order)
+            self.degree = self.program.degree
+            self.engine = BucketMatmul([self.program.tall], device)
+            self.name, self.first_row = "K2", {self.members[0]: 0}
+            return
+        merged = merge_group(programs, order)
+        self.degree = merged["degree"]
+        if one_shot_applies(merged):
+            self.engine = MacroOneShot(**merged, device=device)
+        else:
+            self.engine = MaskedMatmul(merged["A"], merged["pieces"], merged["geom"],
+                                       merged["parent_map"], device=device)
+            if not on_zoo:
+                self.recurrence = DubinerRecurrence(
+                    np.asarray(merged["parent_map"][0]).shape[1], merged["degree"],
+                    merged["scale"], merged["affine_map"], device)
+        self.name = self.engine.name
+        self.first_row = {g: geo["rows"][0] for g, geo in zip(self.members, merged["geom"])}
+
+    def __call__(self, points, basis=None):
+        if self.kind == "variant":
+            return self.engine(masked_parent(self.program, points, self.unique).contiguous())
+        if self.name == "K3":
+            return self.engine(points)
+        return self.engine(points, basis if self.recurrence is None else self.recurrence(points))
+
+    def plain(self, points, basis=None):
+        """The same tables from the kernels' plain versions."""
+        if self.kind == "variant":
+            return self.engine.plain(masked_parent(self.program, points, self.unique))
+        if self.name == "K3":
+            return self.engine.plain(points)
+        if self.recurrence is not None:
+            basis = self.recurrence.plain(points)
+        return self.engine.plain(points, basis)
+
+    def kernels(self):
+        """{label: wrapper} of the kernels this route launches."""
+        out = {self.name: self.engine}
+        if self.recurrence is not None:
+            out["K1"] = self.recurrence
+        return out
 
 
 def group_by_width(mats, alphas, slices, plain_nexp):
@@ -425,22 +504,85 @@ def group_by_width(mats, alphas, slices, plain_nexp):
     return widths, group_mats, loc, group_rows, np.asarray(src, np.int64).reshape(-1, 2)
 
 
+def partition_macro_programs(programs, scale, affine_map):
+    """The macro programs in routes (fiat_tpu's per-program fallback,
+    ``macro_fms``, in groups): [(kind, [program indices], shares the zoo's
+    basis)], the group on the zoo's basis first, the others in the order
+    of their first program.
+
+    * "merged": programs whose parents share one plain Dubiner basis (the
+      same expansion-set type, cell map and scale), merged into one
+      ``_merge_macro_programs`` table and run by one K3 or K7 launch (K45
+      for moments).  The group on the zoo's own basis (``scale`` and
+      ``affine_map``) comes first and says so: K7 reads it from K1's Phi;
+      any other group has a parent recurrence of its own.
+    * "variant": one program whose parent basis the recurrence cannot
+      take (``parent_es.variant`` is not None): its masked parent is
+      tabulated in PyTorch, as fiat_tpu's ``_macro_prepared_B`` does in
+      XLA, and K2 multiplies it by the program's ``tall`` matrix.
+
+    A zoo whose programs all share the zoo's basis, as every zoo of the
+    element families does, is one merged route, fiat_tpu's merged kernel."""
+    A_zoo, b_zoo = (np.asarray(v, np.float64) for v in affine_map)
+    groups, routes = {}, []
+    for g, p in enumerate(programs):
+        pes = p.parent_es
+        if pes.variant is not None:
+            routes.append(["variant", [g], False])
+            continue
+        if len(pes.affine_mappings) != 1:
+            raise NotImplementedError(
+                f"macro program {g}: a parent expansion set over {len(pes.affine_mappings)} "
+                "cells; a macro program's parent is one simplex")
+        A, b = (np.asarray(v, np.float64) for v in pes.affine_mappings[0])
+        key = (type(pes), A.tobytes(), b.tobytes(), float(pes.get_scale(max(p.degree, 1))))
+        if key not in groups:
+            zoo = (np.allclose(A, A_zoo) and np.allclose(b, b_zoo) and key[3] == float(scale)
+                   and not any(r[2] for r in routes))
+            groups[key] = ["merged", [], zoo]
+            routes.append(groups[key])
+        groups[key][1].append(g)
+    # the group on the zoo's basis first: K7 reads it from K1's Phi
+    routes.sort(key=lambda r: not r[2])
+    return [tuple(r) for r in routes]
+
+
+def masked_parent(program, points, unique):
+    """A macro program's masked parent basis, (ncells * nexp_parent, npts)
+    in the points' dtype on their device (``MacroSideProgram.b_stack``, for
+    the port's programs and fiat_tpu's alike): every subcell's {0,1} mask,
+    divided by the cover count unless ``unique``, times the parent's
+    Dubiner tabulation with its variant."""
+    pes = program.parent_es
+    sd = points.shape[1]
+    A, b = (np.asarray(v, np.float64) for v in pes.affine_mappings[0])
+    ref = points @ points.new_tensor(A.T) + points.new_tensor(b)
+    phi = dubiner_tabulate(sd, program.degree, [ref[:, i] for i in range(sd)],
+                           float(pes.get_scale(program.degree)), variant=pes.variant)
+    masks = partition_of_unity_masks(program.es.ref_el, points, unique=unique)
+    return torch.cat([m * phi for m in masks], dim=0)
+
+
+def unique_binning(program, order):
+    """Whether a program's points keep their first subcell (a C0 basis at
+    order 0) or average over the subcells they lie on."""
+    return program.es.continuity is not None and order == 0
+
+
 def _merge_macro_programs(programs, scale, affine_map, order,
                           engine="each macro engine (K3, K7)"):
-    """The merged arrays of the macro side programs (fiat_tpu's
-    ``_build_macro_merged`` / ``_build_macro_oneshot``): the merged tall
-    matrix with each program's scale ratio folded in, the (row, nexp_parent)
-    pieces per subcell, per-program geometry (rescaled barycentric maps,
-    ``unique``, row range), the parent map, ``rec_deg`` and the parent
-    scale.  ``engine`` is built on one parent basis shared by every program:
-    one plain expansion set on the zoo's cell at its scale.  Where the
-    programs do not share one, this raises ``NotImplementedError`` naming
-    fiat_tpu's per-program fallback (``macro_fms``), which is not ported."""
+    """The merged arrays of macro side programs that share one parent basis
+    (fiat_tpu's ``_build_macro_merged`` / ``_build_macro_oneshot``): the
+    merged tall matrix with each program's scale ratio folded in, the (row,
+    nexp_parent) pieces per subcell, per-program geometry (rescaled
+    barycentric maps, ``unique``, row range), the parent map, ``degree``
+    and the parent ``scale`` and ``affine_map``.  ``scale`` and
+    ``affine_map`` are those of the shared basis (the zoo's, for the group
+    on it); programs that do not share it raise ``ValueError``:
+    ``partition_macro_programs`` groups them first."""
     def refuse(why):
-        raise NotImplementedError(
-            f"macro programs {why} do not share one parent basis, and {engine} is built on "
-            "one; fiat_tpu's per-program fallback (macro_fms, one kernel per macro program) "
-            "is not ported yet")
+        raise ValueError(f"macro programs {why} do not share one parent basis, and {engine} "
+                         "is built on one: partition_macro_programs groups them first")
 
     A_zoo, b_zoo = (np.asarray(v, np.float64) for v in affine_map)
     if any(type(p.parent_es) is not type(programs[0].parent_es) for p in programs):
@@ -451,13 +593,13 @@ def _merge_macro_programs(programs, scale, affine_map, order,
             refuse(f"with a parent expansion variant {pes.variant!r}")
         if (len(pes.affine_mappings) != 1 or not np.allclose(pes.affine_mappings[0][0], A_zoo)
                 or not np.allclose(pes.affine_mappings[0][1], b_zoo)):
-            refuse("on another parent cell than the zoo's")
+            refuse("on another parent cell")
     rec_deg = max(p.degree for p in programs)
     rec_scale = float(programs[0].parent_es.get_scale(rec_deg))
     # degree-dependent normalisation (the degree-0 "exactly 1" quirk)
     # would break the shared parent basis
     if rec_scale != float(scale):
-        refuse(f"whose degree-{rec_deg} parent scale {rec_scale} differs from the zoo's {scale}")
+        refuse(f"whose degree-{rec_deg} parent scale {rec_scale} differs from {scale}")
 
     rows_t = sum(p.tall.shape[0] for p in programs)
     A = np.zeros((rows_t, sum(p.K for p in programs)))
@@ -470,7 +612,7 @@ def _merge_macro_programs(programs, scale, affine_map, order,
         sd = ref.get_spatial_dimension()
         pieces.extend((len(pieces), p.nexp_parent) for _ in p.cells)
         geom.append({"maps": [ref.barycentric_map(entity=(sd, c), rescale=True) for c in p.cells],
-                     "unique": p.es.continuity is not None and order == 0,
+                     "unique": unique_binning(p, order),
                      "rows": (r0, r0 + p.tall.shape[0])})
         r0 += p.tall.shape[0]
         c0 += p.K
@@ -478,3 +620,10 @@ def _merge_macro_programs(programs, scale, affine_map, order,
     return dict(A=A, pieces=pieces, geom=geom, parent_map=parent.barycentric_map(rescale=True),
                 degree=rec_deg, scale=rec_scale,
                 affine_map=programs[0].parent_es.affine_mappings[0])
+
+
+def merge_group(programs, order, engine="each macro engine (K3, K7)"):
+    """``_merge_macro_programs`` of one merged route, on its own basis."""
+    pes = programs[0].parent_es
+    return _merge_macro_programs(programs, float(pes.get_scale(max(p.degree for p in programs))),
+                                 pes.affine_mappings[0], order, engine)

@@ -1,19 +1,25 @@
 """The batched tabulation engine for a zoo of elements.
 
 Counterpart of ``fiat_tpu/ops/tabulate.py`` (``change_of_basis``,
-``MacroSideProgram`` and ``BatchedTabulator`` with ``derivs="dmats"``,
-``matmul="native"``).  Every plain element's coefficients are re-expressed
-in the orthonormal Dubiner basis of the zoo's maximum degree (lower-degree
-bases are prefixes of higher-degree ones in morton order), stacked, and
-multiplied by one change-of-basis matrix per derivative multi-index (the
-dmats form), so the plain part of a pass is ONE recurrence plus one matrix
-product per multi-index.  Macro elements (bases on split complexes) become
-``MacroSideProgram``s: one tall matrix over the masked parent-cell basis.
+``MacroSideProgram`` and ``BatchedTabulator`` with ``matmul="native"``).
+Every plain element's coefficients are re-expressed in the orthonormal
+Dubiner basis of the zoo's maximum degree (lower-degree bases are prefixes
+of higher-degree ones in morton order) and stacked.  With
+``derivs="dmats"`` (the default) the stack is multiplied by one
+change-of-basis matrix per derivative multi-index, so the plain part of a
+pass is ONE value recurrence plus one matrix product per multi-index;
+with ``derivs="jets"`` the one stack multiplies every derivative table of
+the recurrence run on Taylor jets.  Macro elements (bases on split
+complexes) become ``MacroSideProgram``s: one tall matrix over the masked
+parent-cell basis (under jets past order 0, as in fiat_tpu, each macro
+element tabulates its own split expansion instead).
 
 The engine here runs in plain PyTorch on the points' device; the kernel
 engine is ``fused_zoo.FusedZooTabulator``, which takes the same host-built
 arrays (``state``).
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -122,6 +128,28 @@ class MacroSideProgram:
         return {a: out[k * r:(k + 1) * r] for k, a in enumerate(self.alphas)}
 
 
+def rebase_program(program, parent_es):
+    """A copy of a macro side program (the port's or fiat_tpu's) whose
+    ``tall`` matrix multiplies another basis of the same parent
+    polynomials, ``parent_es`` (another scale, cell map or variant): each
+    subcell's column block of ``tall`` times T, phi_old = T phi_new, by
+    collocation at a Gauss-Legendre lattice of the parent (exact: both
+    bases span the parent's polynomials of the program's degree).  The
+    tables are the same; the engines take the new parent's route."""
+    out = copy.copy(program)
+    parent = program.es.ref_el.get_parent()
+    lat = cl.make_lattice(parent.get_vertices(), max(program.degree, 1), variant="gl")
+    old = np.asarray(program.parent_es.tabulate(program.degree, lat))
+    new = np.asarray(parent_es.tabulate(program.degree, lat))
+    T = np.linalg.solve(new.T, old.T).T
+    n = program.nexp_parent
+    tall = np.array(program.tall, dtype=np.float64)
+    for c in range(len(program.cells)):
+        tall[:, c * n:(c + 1) * n] = tall[:, c * n:(c + 1) * n] @ T
+    out.parent_es, out.tall = parent_es, tall
+    return out
+
+
 class BatchedTabulator:
     """Tabulate a whole zoo of nodal elements (same reference cell) in one
     program: ``tables = bt(points)`` gives {alpha: (rows, npts)} (the plain
@@ -131,9 +159,17 @@ class BatchedTabulator:
     ``device``: where ``bt(points)`` and the moments functions run; the
     CUDA card when None (raising without one), the CPU only where asked.
     The kernel engines take the host arrays (``state()``) and their own
-    ``device``."""
+    ``device``.
 
-    def __init__(self, elements, order=0, device=None):
+    ``derivs``: "dmats" (derivative tables as change-of-basis rows on the
+    order-0 recurrence) or "jets" (the recurrence on Taylor jets, one
+    change of basis for every table; ``alpha_mats`` stays empty, and past
+    order 0 ``macro_programs`` too, as in fiat_tpu)."""
+
+    def __init__(self, elements, order=0, device=None, derivs="dmats"):
+        if derivs not in ("dmats", "jets"):
+            raise ValueError(f"derivs {derivs!r}: 'dmats' or 'jets'")
+        self.derivs = derivs
         cells = {e.get_reference_element() for e in elements}
         if len(cells) != 1:
             raise ValueError("BatchedTabulator needs a common reference cell")
@@ -201,7 +237,7 @@ class BatchedTabulator:
         # one change-of-basis matrix per derivative multi-index:
         # D^alpha phi = (prod_k dmats[k]^T^alpha_k) @ phi
         self.alpha_mats = {}
-        if self.order > 0:
+        if self.order > 0 and derivs == "dmats":
             D = self.target_es.get_dmats(self.max_degree)
             for alpha in expansions.multiindices(self.sd, self.order):
                 M = self.stacked
@@ -212,13 +248,33 @@ class BatchedTabulator:
         mats = self.alpha_mats or {(0,) * self.sd: self.stacked}
         self._mats = {a: torch.as_tensor(M, device=self.device) for a, M in mats.items()}
 
-        # one tall program per group of macro elements sharing an expansion set
+        self._stacked_t = torch.as_tensor(self.stacked, device=self.device)
+
+        # one tall program per group of macro elements sharing an expansion
+        # set; under jets past order 0 none (fiat_tpu's special_progs route)
         self.macro_programs = []
+        if derivs == "dmats" or order == 0:
+            self.macro_programs = self._programs(list(mats))
+        self._value_programs = None
+
+    def _programs(self, alphas):
+        """The macro side programs over the derivative multi-indices
+        ``alphas``."""
         groups = {}
         for (i, e), (es, deg, flat) in zip(self.special, self.special_progs):
             groups.setdefault((id(es), deg), (es, deg, []))[2].append((i, flat))
-        for es, deg, members in groups.values():
-            self.macro_programs.append(MacroSideProgram(es, deg, members, list(mats)))
+        return [MacroSideProgram(es, deg, members, alphas) for es, deg, members in groups.values()]
+
+    def engine_programs(self):
+        """The macro programs the kernel engines take (``state()``): the
+        tabulator's own, or under jets past order 0, where it has none,
+        programs of the value table alone, which is all fiat_tpu's engines
+        key there."""
+        if self.macro_programs or not self.special:
+            return self.macro_programs
+        if self._value_programs is None:
+            self._value_programs = self._programs([(0,) * self.sd])
+        return self._value_programs
 
     def state(self):
         """The host-built arrays that define the engine (see
@@ -228,19 +284,33 @@ class BatchedTabulator:
                     max_degree=self.max_degree,
                     scale=float(self.target_es.get_scale(self.max_degree)),
                     affine_map=self.target_es.affine_mappings[0],
-                    macro_programs=self.macro_programs)
+                    macro_programs=self.engine_programs(), order=self.order,
+                    derivs=self.derivs)
 
     def __call__(self, points):
         """{alpha: (total_rows, npts)} fused tables, in float64 on the
         engine's device."""
         pts = torch.as_tensor(points, dtype=torch.float64, device=self.device)
-        phi = self.target_es._tabulate_on_cell(self.max_degree, pts)[(0,) * self.sd]
-        parts = {a: [M @ phi] for a, M in self._mats.items()}
+        if self.alpha_mats:
+            phi = self.target_es._tabulate_on_cell(self.max_degree, pts)[(0,) * self.sd]
+            parts = {a: [M @ phi] for a, M in self._mats.items()}
+        else:
+            # jets (or order 0): one change of basis on every table of the
+            # recurrence
+            base = self.target_es._tabulate_on_cell(self.max_degree, pts, order=self.order)
+            parts = {a: [self._stacked_t @ tab] for a, tab in base.items()}
         per_elem = {}
         for prog in self.macro_programs:
             tabs = prog.tables(pts, self.order)
             for idx, lo, hi in prog.row_slices:
                 per_elem[idx] = {a: t[lo:hi] for a, t in tabs.items()}
+        if self.special and not self.macro_programs:
+            # jets past order 0: each macro element tabulates its own split
+            # expansion (fiat_tpu's special_progs route)
+            for (i, _), (es, deg, flat) in zip(self.special, self.special_progs):
+                base = es._tabulate(deg, pts, order=self.order)
+                C = pts.new_tensor(flat)
+                per_elem[i] = {a: C @ base[a] for a in parts}
         for i, _ in self.special:
             for a in parts:
                 parts[a].append(per_elem[i][a])

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from fiat_tpu import elements as jfe
 from fiat_tpu.core import cells as jcl
+from fiat_tpu.ops import moments as jmo
 from fiat_tpu.ops.pallas_multiword import FusedMultiwordMatmul
 from fiat_tpu.ops.pallas_multiword import FusedZooTabulator as JFusedZooTabulator
 from fiat_tpu.ops.tabulate import BatchedTabulator as JBatchedTabulator
@@ -23,7 +24,7 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
 from fiat_tpu_torch.ops.fused_zoo import BucketMatmul, FusedZooTabulator
 from fiat_tpu_torch.ops.moments import MomentEngine
-from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from fiat_tpu_torch.ops.tabulate import BatchedTabulator, rebase_program
 
 
 def _zoo(fe, cell):
@@ -100,7 +101,9 @@ def test_device_tabulator_takes_fiat_tpu_keywords(points, zoos, f64):
     """Both front doors called with fiat_tpu's keywords (its TPU-only ones
     are ignored by the port) give the same tables: f64 within the slice's
     1e-11, f32 within fiat_tpu's 5e-6 of the table's max; derivs="jets"
-    raises by name, and a keyword neither package takes is a TypeError."""
+    (which the port once refused) gives fiat_tpu's keys, the value table
+    alone at order 1, and its tables; an unknown derivs is a ValueError
+    and a keyword neither package takes a TypeError."""
     from fiat_tpu.ops import device_tabulator as jdevice_tabulator
     jzoo, tzoo = zoos
     kw = dict(tile=256, matmul="native", wdtype="bf16", interpret=True, derivs="dmats")
@@ -114,8 +117,19 @@ def test_device_tabulator_takes_fiat_tpu_keywords(points, zoos, f64):
         got = tab(points).numpy()
         assert got.shape == want.shape and tab.kernel.launches == 0
         assert np.abs(got - want).max() <= 5e-6 * np.abs(want).max()
-    with pytest.raises(NotImplementedError, match="jets"):
-        device_tabulator(tzoo, order=1, f64=f64, device="cpu", derivs="jets")
+    jets = {**kw, "derivs": "jets"}
+    jtab = jdevice_tabulator(jzoo, order=1, f64=f64, **jets)
+    tab = device_tabulator(tzoo, order=1, f64=f64, device="cpu", **jets)
+    if f64:
+        want, got = jtab.unpack(jtab(jnp.asarray(points))), tab.unpack(tab.block_tables(points))
+        assert [set(w) for w in want] == [set(g) for g in got] == [{(0, 0)}] * len(tzoo)
+        assert _max_diff(want, got) <= 1e-11
+    else:
+        want, got = np.asarray(jtab(jnp.asarray(points))), tab(points).numpy()
+        assert got.shape == want.shape == (tab.plain_rows, len(points))
+        assert np.abs(got - want).max() <= 5e-6 * np.abs(want).max()
+    with pytest.raises(ValueError, match="derivs"):
+        device_tabulator(tzoo, order=1, f64=f64, device="cpu", derivs="taylor")
     with pytest.raises(TypeError, match="row_block"):
         device_tabulator(tzoo, order=1, f64=f64, device="cpu", row_block=256)
 
@@ -194,9 +208,10 @@ def test_grouping_refuses_to_drop_real_coefficients(zoos):
 
 def test_device_tabulator_raises_for_unported_engines(zoos):
     """``f64=False`` builds the f32 engine (K6, macro elements on K3 in
-    float32); what is still unported raises naming it: macro programs the
-    fused moments kernel (K45) cannot take name fiat_tpu's per-program
-    fallback, macro_fms."""
+    float32); a macro program the fused moments kernel (K45) cannot take,
+    on a variant parent (which the port once refused naming fiat_tpu's
+    per-program fallback, macro_fms), runs its own route, its moments
+    held to fiat_tpu's and host's."""
     _, tzoo = zoos
     hct = tfe.HsiehCloughTocher(tcl.ufc_simplex(2), 3)
     assert hct.is_macroelement()
@@ -206,9 +221,22 @@ def test_device_tabulator_raises_for_unported_engines(zoos):
     assert tab.macro.geom[0]["unique"] is False       # order 1: averaged binning
     tab = device_tabulator(tzoo + [hct], order=1, device="cpu")
     assert tab.macro is not None and tab.special == [len(tzoo)]
-    st = BatchedTabulator(tzoo + [hct], order=0, device="cpu").state()
-    odd = copy.copy(st["macro_programs"][0])
-    odd.parent_es = copy.copy(odd.parent_es)
-    odd.parent_es.variant = "dual"
-    with pytest.raises(NotImplementedError, match="K45.*macro_fms"):
-        MomentEngine.from_arrays(**{**st, "macro_programs": [odd]}, device="cpu")
+    bt = BatchedTabulator(tzoo + [hct], order=0, device="cpu")
+    st = bt.state()
+    pes = copy.copy(st["macro_programs"][0].parent_es)
+    pes.variant = "dual"
+    eng = MomentEngine.from_arrays(
+        **{**st, "macro_programs": [rebase_program(st["macro_programs"][0], pes)]},
+        device="cpu")
+    assert [r[0] for r in eng.routes] == ["variant"] and eng.macro is None
+    rng = np.random.default_rng(13)
+    pts = rng.random((150, 2)) * 0.5
+    wf = rng.random(150)
+    jzoo = _zoo(jfe, jcl.ufc_simplex(2)) + [jfe.HsiehCloughTocher(jcl.ufc_simplex(2), 3)]
+    jbt = JBatchedTabulator(jzoo, order=0)
+    want = np.asarray(jmo.moment_rows(jbt, jnp.asarray(pts), jnp.asarray(wf)))
+    got = eng.moment_rows(pts, wf).numpy()
+    assert np.abs(got - want).max() <= 1e-12
+    lo, hi, _ = bt.slices[-1]
+    host = hct.tabulate(0, pts)[(0, 0)] @ wf
+    assert np.abs(got[lo:hi] - host).max() <= 1e-12

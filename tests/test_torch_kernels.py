@@ -1254,3 +1254,107 @@ def test_families_zoos_on_card_one_launch_each_match_plain_and_host(cuda, sd, np
     for a in want:
         assert (tables[a].cpu() - want[a]).abs().max().item() \
             <= 1e-5 * (want[a].abs().max().item() + 1)
+
+
+def _dg0_macro_zoo(sd):
+    """DG 0 beside Lagrange 2 on a split: the zoo's degree-0 basis has
+    scale 1, the program's parent not, so it takes the per-program route."""
+    K = tcl.ufc_simplex(sd)
+    variant = "alfeld" if sd == 2 else "worsey-farin"
+    return [tfe.DiscontinuousLagrange(K, 0), tfe.Lagrange(K, 2, variant=variant)]
+
+
+@pytest.mark.parametrize("sd", [2, 3])
+def test_per_program_route_on_the_card(cuda, sd):
+    """The per-program route (a K3 of its own on the triangle, a K7 with its
+    own K1 on the tetrahedron; a K45 of its own for moments) on the card
+    against the same engines' plain versions on the CPU, one launch each."""
+    from fiat_tpu_torch.ops import moments as mo
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    zoo = _dg0_macro_zoo(sd)
+    rng = np.random.default_rng(40 + sd)
+    pts = rng.random((3001, sd))
+    pts = pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((3001, 1))
+    P = torch.as_tensor(pts, device=cuda)
+    tab = device_tabulator(zoo, order=1, device=cuda)
+    (r,) = tab.macro_routes
+    got = tab.block_tables(P)
+    assert (r.name, r.engine.launches, tab.recurrence.launches) == (
+        "K3" if sd == 2 else "K7", 1, 1)
+    assert r.recurrence is None if sd == 2 else r.recurrence.launches == 1
+    want = device_tabulator(zoo, order=1, device="cpu").block_tables(pts)
+    for a in want:
+        for g, w in zip(got[a], want[a]):
+            assert (g.cpu() - w).abs().max().item() <= 1e-13 * max(1.0, w.abs().max().item())
+    eng = mo.moment_engine(BatchedTabulator(zoo, order=0, device=cuda))
+    wf = rng.random(len(pts))
+    M = eng.moment_rows(P, torch.as_tensor(wf, device=cuda))
+    assert [pm.launches for pm in eng.moment_kernels] == [1, 1]
+    want = mo.MomentEngine(BatchedTabulator(zoo, order=0, device="cpu"),
+                           device="cpu").moment_rows(pts, wf)
+    assert (M.cpu() - want).abs().max().item() <= 1e-12 * (want.abs().max().item() + 1)
+
+
+def test_variant_parent_route_and_jets_on_the_card(cuda):
+    """HCT on a "dual" parent (``rebase_program``): K2 on its masked parent
+    on the card against the plain version; ``derivs="jets"`` on the card
+    keys the value table alone, K1 + K2 + K3 once each."""
+    import copy
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator, rebase_program
+
+    T = tcl.ufc_simplex(2)
+    zoo = [tfe.Lagrange(T, 3), tfe.HsiehCloughTocher(T, 3), tfe.QuadraticPowellSabin6(T)]
+    pts = _points(2048)
+    P = torch.as_tensor(pts, device=cuda)
+    st = BatchedTabulator(zoo, order=1, device="cpu").state()
+    pes = copy.copy(st["macro_programs"][0].parent_es)
+    pes.variant = "dual"
+    st["macro_programs"] = [rebase_program(st["macro_programs"][0], pes),
+                            *st["macro_programs"][1:]]
+    tab = FusedZooTabulator.from_arrays(**st, device=cuda)
+    assert [r.name for r in tab.macro_routes] == ["K3", "K2"]
+    got = tab.block_tables(P)
+    assert [r.engine.launches for r in tab.macro_routes] == [1, 1]
+    want = FusedZooTabulator.from_arrays(**st, device="cpu").block_tables(pts)
+    for a in want:
+        for g, w in zip(got[a], want[a]):
+            assert (g.cpu() - w).abs().max().item() <= 1e-13 * max(1.0, w.abs().max().item())
+
+    jets = device_tabulator(zoo, order=1, derivs="jets", device=cuda)
+    blocks = jets.block_tables(P)
+    assert set(blocks) == {(0, 0)}
+    assert (jets.recurrence.launches, jets.matmul.launches, jets.macro.launches) == (1, 1, 1)
+    want = device_tabulator(zoo, order=1, derivs="jets", device="cpu").block_tables(pts)
+    for g, w in zip(blocks[(0, 0)], want[(0, 0)]):
+        assert (g.cpu() - w).abs().max().item() <= 1e-13 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.parametrize("n,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_steps_on_the_card(cuda, n, backend):
+    """Every sharded step in a spawned world on the card (NCCL for one
+    rank; gloo for two ranks on one card) against a gloo world of one on
+    the CPU."""
+    from fiat_tpu_torch.parallel import sharding as sh
+
+    spec = (2, sh.FLAGSHIP[1] + [("HsiehCloughTocher", 3)])
+    rng = np.random.default_rng(9)
+    pts = rng.random((4000, 2)) * 0.5
+    w, f = np.ones(4000) / 4000, rng.random(4000)
+    rows = sum(el.space_dimension() * int(np.prod(el.value_shape(), dtype=int))
+               for el in sh.build_zoo(spec))
+    c = rng.random(rows) - 0.5
+    (got, launches), *_ = sh.spawn_world(n, sh.run_steps,
+                                         (spec, pts, w, f, c, (1, n), pts[:64], "cuda"),
+                                         backend=backend, device="cuda")
+    (want, _), = sh.spawn_world(1, sh.run_steps, (spec, pts, w, f, c, (1, 1), pts[:64]))
+    assert launches["moments"] == {"K45": 1} and launches["fused"]["K2"] == 1
+    rows = len(want["moments"])
+    for key in ("moments", "interpolation", "moments_2d"):
+        scale = max(1.0, float(np.abs(want[key]).max()))
+        assert np.abs(got[key][:len(want[key])] - want[key]).max() <= 1e-12 * scale, key
+    assert not np.any(got["moments_2d"][rows:])
+    for mine, ref in zip(got["fused"], want["fused"]):
+        for a in ref:
+            assert np.abs(mine[a] - ref[a]).max() <= 1e-13 * max(1.0, np.abs(ref[a]).max())

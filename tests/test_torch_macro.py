@@ -12,6 +12,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from fiat_tpu import elements as jfe
@@ -26,7 +27,7 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
-from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from fiat_tpu_torch.ops.tabulate import BatchedTabulator, rebase_program
 
 SPLITS = ["AlfeldSplit", "PowellSabinSplit", "WorseyFarinSplit", "PowellSabin12Split"]
 TOL = 1e-14         # host geometry and expansions: the same numpy algorithm
@@ -243,21 +244,54 @@ def test_from_arrays_on_fiat_tpu_macro_programs():
     assert max(np.abs(cat[a].numpy() - np.asarray(want[a])).max() for a in want) <= 1e-12
 
 
+#: edits of a macro program's parent that take it off the zoo's parent
+#: basis: a variant, another cell map (the triangle onto the reference
+#: simplex with its vertices rotated: another Dubiner basis of the same
+#: polynomials, as well conditioned), another scale
+PARENT_EDITS = (("variant", "dual"),
+                ("affine_mappings", [tcl.make_affine_mapping(
+                    np.roll(tcl.ufc_simplex(2).get_vertices(), 1, axis=0),
+                    tcl.default_simplex(2).get_vertices())]),
+                ("get_scale", lambda n, cell=0: 0.5))
+
+
+def _edited(prog, attr, value):
+    """The program on its parent's basis edited by ``attr`` = ``value``,
+    its tall matrix re-expressed on that basis (``rebase_program``), so
+    that its tables stay the element's."""
+    pes = copy.copy(prog.parent_es)
+    setattr(pes, attr, value)
+    return rebase_program(prog, pes)
+
+
 def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
-    """Where the programs do not share one parent basis (fiat_tpu's
-    precondition for its merged engines), the port raises naming fiat_tpu's
-    per-program fallback (macro_fms, not ported) instead of running
-    something else."""
-    st = BatchedTabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu").state()
-    for attr, value in (("variant", "dual"),                       # a parent variant
-                        ("affine_mappings", [(2 * np.eye(2), np.zeros(2))]),  # another cell
-                        ("get_scale", lambda n, cell=0: 0.5)):     # another scale
-        odd = copy.copy(st["macro_programs"][0])
-        odd.parent_es = copy.copy(odd.parent_es)
-        setattr(odd.parent_es, attr, value)
-        with pytest.raises(NotImplementedError, match="macro_fms"):
-            programs = [odd, *st["macro_programs"][1:]]
-            FusedZooTabulator.from_arrays(**{**st, "macro_programs": programs}, device="cpu")
+    """Where the programs do not share one parent basis (which the port
+    once refused), the engine runs them by route, fiat_tpu's per-program
+    fallback (``macro_fms``) in groups: a variant parent on K2 over its
+    masked parent, another cell map or scale on a K3 of its own.  Held to
+    fiat_tpu's interpreted per-program route on the same edited programs
+    at 1e-12 and to host at 1e-10."""
+    pts = np.vstack([_points(150, 4), _special_points()])
+    tzoo, jzoo = _macro_zoo(tfe, tcl.ufc_simplex(2)), _macro_zoo(jfe, jcl.ufc_simplex(2))
+    st = BatchedTabulator(tzoo, order=1, device="cpu").state()
+    jbt = JBatchedTabulator(jzoo, order=1, matmul="native")
+    jprogs = list(jbt.macro_programs)
+    host = [el.tabulate(1, pts) for el in tzoo]
+    for (attr, value), routes in zip(PARENT_EDITS, (["K3", "K2"], ["K3", "K3"], ["K3", "K3"])):
+        programs = [_edited(st["macro_programs"][0], attr, value), *st["macro_programs"][1:]]
+        fz = FusedZooTabulator.from_arrays(**{**st, "macro_programs": programs}, device="cpu")
+        assert [r.name for r in fz.macro_routes] == routes
+        assert [r.members for r in fz.macro_routes] == [[1], [0]]
+        got = fz.unpack(fz.block_tables(pts))
+        jbt.macro_programs = [_edited(jprogs[0], attr, value), *jprogs[1:]]
+        jfz = JFusedZooTabulator(jbt, interpret=True, row_block=256, point_tile=256)
+        jfz.macro_merged = None                # fiat_tpu's per-program route
+        jfz._jit_blocks = jax.jit(jfz._f64_blocks)
+        want = jfz.unpack({a: [np.asarray(x) for x in v]
+                           for a, v in jfz.block_tables(jnp.asarray(pts)).items()})
+        assert _max_diff(want, got) <= 1e-12, attr
+        assert _max_diff(host, got) <= 1e-10, attr
+        assert all(r.engine.launches == 0 for r in fz.macro_routes)
 
 
 def test_k3_wrapper_checks_its_inputs():
@@ -269,3 +303,52 @@ def test_k3_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="engine on cpu"):
         fz.macro(torch.zeros((4, 2), dtype=torch.float64, device="meta"))
     assert fz.macro.launches == 0
+
+
+@pytest.mark.parametrize("sd,variant,route", [(2, "alfeld", "K3"), (3, "worsey-farin", "K7")])
+def test_dg0_beside_a_macro_element_takes_the_per_program_route(sd, variant, route):
+    """A zoo of DG 0 beside Lagrange 2 on a split: the zoo's degree-0
+    basis has scale 1 (the constant member is exactly 1), the program's
+    parent another, so fiat_tpu's merged kernel refuses the program and
+    its per-program route (macro_fms) runs it, where the port once raised.
+    The port runs it on a K3 of its own (a K7 with its own K1 on the
+    tetrahedron): f64 tables and moments against fiat_tpu's interpreted
+    route at 1e-12 of max(1, max |table|) and host, f32 at fiat_tpu's
+    macro bar."""
+    from fiat_tpu.ops import device_tabulator as jdevice_tabulator
+    from fiat_tpu.ops import moments as jmo
+    from fiat_tpu_torch.ops import moments as tmo
+
+    def zoo(fe, cl):
+        K = cl.ufc_simplex(sd)
+        return [fe.DiscontinuousLagrange(K, 0), fe.Lagrange(K, 2, variant=variant)]
+    rng = np.random.default_rng(31 + sd)
+    pts = rng.random((120, sd))
+    pts = pts / (pts.sum(axis=1)[:, None] + 1e-9) * rng.random((120, 1))
+    tzoo, jzoo = zoo(tfe, tcl), zoo(jfe, jcl)
+    jtab = jdevice_tabulator(jzoo, order=1, matmul="native", interpret=True)
+    assert jtab.macro_merged is None and len(jtab.macro_fms) == 1
+    tab = device_tabulator(tzoo, order=1, device="cpu")
+    (r,) = tab.macro_routes
+    assert (r.name, r.on_zoo, r.recurrence is not None) == (route, False, route == "K7")
+    want = jtab.unpack(jtab.block_tables(jnp.asarray(pts)))
+    got = tab.unpack(tab.block_tables(pts))
+    for w, g, el in zip(want, got, tzoo):
+        host = el.tabulate(1, pts)
+        for a in w:
+            scale = max(1.0, float(np.abs(host[a]).max()))
+            assert np.abs(g[a].numpy() - np.asarray(w[a])).max() <= 1e-12 * scale, a
+            assert np.abs(g[a].numpy().reshape(host[a].shape) - host[a]).max() <= 1e-12 * scale
+    wf = rng.random(len(pts))
+    bt = BatchedTabulator(tzoo, order=0, device="cpu")
+    m = tmo.moment_rows(bt, pts, wf).numpy()
+    jm = np.asarray(jmo.moment_rows(JBatchedTabulator(jzoo, order=0), jnp.asarray(pts),
+                                    jnp.asarray(wf)))
+    assert np.abs(m - jm).max() <= 1e-12
+    assert len(bt._moment_engine.moment_kernels) == 2
+    t32 = device_tabulator(tzoo, order=1, f64=False, device="cpu").tables(pts)
+    j32 = jdevice_tabulator(jzoo, order=1, f64=False, matmul="native",
+                            interpret=True).tables(jnp.asarray(pts))
+    for a in j32:
+        w = np.asarray(j32[a])
+        assert np.abs(t32[a].numpy() - w).max() <= 5e-5 * (np.abs(w).max() + 1.0)

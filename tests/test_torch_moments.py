@@ -23,9 +23,10 @@ from fiat_tpu_torch import elements as tfe
 from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.moments import MomentEngine
-from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from fiat_tpu_torch.ops.tabulate import BatchedTabulator, rebase_program
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_macro import PARENT_EDITS  # noqa: E402
 from test_torch_tet_dual import K45_GRIDS, _replay_k45  # noqa: E402
 
 ATOL = 1e-12        # against fiat_tpu (f64 on both sides; fiat_tpu's own bar)
@@ -207,26 +208,55 @@ def test_engine_is_cached_and_refuses_a_tensor_on_another_device():
     assert (eng.moments.launches, eng.recurrence.launches, eng.macro.launches) == (0, 0, 0)
 
 
-@pytest.mark.parametrize("attr,value", [
-    ("variant", "dual"),                                   # a parent variant
-    ("affine_mappings", [(2 * np.eye(2), np.zeros(2))]),   # another parent cell
-    ("get_scale", lambda n, cell=0: 0.5),                  # another scale
-])
+def _edited_programs(bt, attr, value):
+    """``bt``'s macro programs with the first on its parent's basis edited
+    by ``attr`` = ``value`` (``test_torch_macro.PARENT_EDITS``), its tall
+    matrix re-expressed there (``rebase_program``)."""
+    pes = copy.copy(bt.macro_programs[0].parent_es)
+    setattr(pes, attr, value)
+    return [rebase_program(bt.macro_programs[0], pes), *bt.macro_programs[1:]]
+
+
+@pytest.mark.parametrize("attr,value", PARENT_EDITS, ids=[a for a, _ in PARENT_EDITS])
 def test_engine_refuses_programs_k45_cannot_take(attr, value):
-    """Where the fused kernel's preconditions fail, the engine raises
-    naming fiat_tpu's per-program fallback (macro_fms, not ported) instead
-    of running something else."""
-    st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0, device="cpu").state()
-    odd = copy.copy(st["macro_programs"][0])
-    odd.parent_es = copy.copy(odd.parent_es)
-    setattr(odd.parent_es, attr, value)
-    with pytest.raises(NotImplementedError, match="K45.*macro_fms"):
-        MomentEngine.from_arrays(**{**st, "macro_programs": [odd, *st["macro_programs"][1:]]},
-                                 device="cpu")
+    """Programs off the zoo's parent basis (which the port once refused)
+    run by route: another cell map or scale on a K45 of its own (and a K3
+    of its own for interpolation), a variant parent's masked parent by the
+    weights in PyTorch.  Moments held to fiat_tpu's ``moment_rows`` on the
+    same edited programs at 1e-12, and both directions to host."""
+    jzoo, tzoo = _zoos(_moment_zoo)
+    rng, pts, wf = _inputs(23, n=300)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
+    jbt = JBatchedTabulator(jzoo, order=0)
+    eng = MomentEngine.from_arrays(**{**tb.state(),
+                                      "macro_programs": _edited_programs(tb, attr, value)},
+                                   device="cpu")
+    variant = attr == "variant"
+    assert len(eng.moment_kernels) == (1 if variant else 2)
+    assert len(eng.macros) == (1 if variant else 2)
+    jbt.macro_programs = _edited_programs(jbt, attr, value)
+    want = np.asarray(jax.jit(lambda q, w: jmo.moment_rows(jbt, q, w))(
+        jnp.asarray(pts), jnp.asarray(wf)))
+    got = eng.moment_rows(pts, wf).numpy()
+    assert np.abs(got - want).max() <= ATOL
+    c = rng.random(eng.rows) - 0.5
+    u = eng.interpolate_rows(pts, c).numpy()
+    host_u = np.zeros(len(pts))
+    for el, (lo, hi, _) in zip(tzoo, tb.slices):
+        tab = el.tabulate(0, pts)[(0, 0)].reshape(hi - lo, len(pts))
+        assert np.abs(tab @ wf - got[lo:hi]).max() <= ATOL, type(el).__name__
+        host_u += c[lo:hi] @ tab
+    assert np.abs(u - host_u).max() <= ATOL
+    assert all(pm.launches == 0 for pm in eng.moment_kernels)
 
 
 def test_engine_refuses_mixed_parent_expansion_types():
-    st = BatchedTabulator(_moment_zoo(tfe, tcl.ufc_simplex(2)), order=0, device="cpu").state()
+    """A program whose parent is of another expansion-set type (which the
+    port once refused) makes a group of its own, on a K45 of its own."""
+    jzoo, tzoo = _zoos(_moment_zoo)
+    _, pts, wf = _inputs(29, n=300)
+    tb = BatchedTabulator(tzoo, order=0, device="cpu")
+    st = tb.state()
     odd = copy.copy(st["macro_programs"][1])
 
     class OtherSet(type(odd.parent_es)):
@@ -234,6 +264,10 @@ def test_engine_refuses_mixed_parent_expansion_types():
 
     odd.parent_es = copy.copy(odd.parent_es)
     odd.parent_es.__class__ = OtherSet
-    with pytest.raises(NotImplementedError, match="mixed parent.*macro_fms"):
-        MomentEngine.from_arrays(**{**st, "macro_programs": [st["macro_programs"][0], odd]},
-                                 device="cpu")
+    eng = MomentEngine.from_arrays(**{**st, "macro_programs": [st["macro_programs"][0], odd]},
+                                   device="cpu")
+    assert len(eng.moment_kernels) == 2 and [r[1] for r in eng.routes] == [[0], [1]]
+    bt = JBatchedTabulator(jzoo, order=0)
+    want = np.asarray(jax.jit(lambda q, w: jmo.moment_rows(bt, q, w))(
+        jnp.asarray(pts), jnp.asarray(wf)))
+    assert np.abs(eng.moment_rows(pts, wf).numpy() - want).max() <= ATOL

@@ -29,7 +29,8 @@ def test_import_leaves_jax_and_fiat_tpu_out():
             "fiat_tpu_torch.elements.discontinuous_pc, fiat_tpu_torch.elements.hdiv_trace, "
             "fiat_tpu_torch.elements.bernstein, fiat_tpu_torch.elements.serendipity, "
             "fiat_tpu_torch.elements.sympy_vector, fiat_tpu_torch.elements.bdm_cube, "
-            "fiat_tpu_torch.elements.trimmed_serendipity\n"
+            "fiat_tpu_torch.elements.trimmed_serendipity, fiat_tpu_torch.parallel, "
+            "fiat_tpu_torch.parallel.sharding\n"
             "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(3), 9)\n"
@@ -54,6 +55,7 @@ def test_sources_import_no_jax_or_fiat_tpu():
     pattern = re.compile(r"^\s*(from|import)\s+(jax|fiat_tpu)(\.|\s|$)", re.M)
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 15
+    assert PKG / "parallel" / "sharding.py" in files
     for path in files:
         text = path.read_text()
         assert not pattern.search(text), path

@@ -71,8 +71,9 @@ def test_gauss_jacobi_line_rules_match(m, a, b):
 
 
 def test_unported_schemes_raise():
-    with pytest.raises(NotImplementedError):
-        tcreate(tcl.ufc_simplex(2), 3, "gm")
+    """The "gm" scheme, once refused, now gives fiat_tpu's rule; an unknown
+    scheme still raises ValueError."""
+    _same_rule(tcreate(tcl.ufc_simplex(2), 3, "gm"), jcreate(jcl.ufc_simplex(2), 3, "gm"))
     with pytest.raises(ValueError):
         tcreate(tcl.ufc_simplex(2), 3, "nonsense")
 

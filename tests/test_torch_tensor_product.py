@@ -295,9 +295,17 @@ def test_facet_rules_on_product_cells(name):
 
 
 def test_unported_scheme_still_raises_on_products():
+    """The "gm" scheme on a product cell, once refused with the scheme, is
+    the product of the factors' Grundmann-Moller rules, fiat_tpu's bit for
+    bit; an unknown scheme still raises ValueError."""
     T = tcl.ufc_simplex(2)
-    with pytest.raises(NotImplementedError):
-        ft.create_quadrature(tcl.TensorProductCell(T, tcl.ufc_simplex(1)), 3, "gm")
+    got = ft.create_quadrature(tcl.TensorProductCell(T, tcl.ufc_simplex(1)), 3, "gm")
+    want = fiat_tpu.create_quadrature(jcl.TensorProductCell(jcl.ufc_simplex(2),
+                                                            jcl.ufc_simplex(1)), 3, "gm")
+    assert np.array_equal(got.get_points(), np.asarray(want.get_points()))
+    assert np.array_equal(got.get_weights(), np.asarray(want.get_weights()))
+    with pytest.raises(ValueError):
+        ft.create_quadrature(tcl.TensorProductCell(T, tcl.ufc_simplex(1)), 3, "nonsense")
 
 
 # -- entity_support_dofs ------------------------------------------------------------
