@@ -171,12 +171,14 @@ Drives the port's main paths once each at their real size, at 1e5 points
      jets: K1, K2 and K3 once each, against their plain versions, host and
      the dmats engine's values;
  25. ``sharded``: ``full_zoo`` at 1e5 points through every step of
-     ``fiat_tpu_torch.parallel.sharding`` (tabulation, the fused f64
-     engine, 1-D and 2-D moments with their all-reduce, interpolation) in
-     a world of one process on NCCL and a world of two processes on gloo
-     on the one card, each rank's kernels counted, every step held to the
-     unsharded engine on the card, each step's time and its all-reduce's
-     share printed.
+     ``fiat_tpu_torch.parallel.sharding`` (tabulation on the f64 kernel
+     engine at order 0, its block tables at order 1, 1-D and 2-D moments
+     with their all-reduce, the 2-D step in the world of two also on a
+     (points 2, rows 1) mesh, so that its all-reduce crosses ranks,
+     interpolation) in a world of one process on NCCL and a world of two
+     processes on gloo on the one card, each rank's kernels counted, every
+     step held to the unsharded engine on the card, each step's time and
+     its all-reduce's share printed.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -3601,7 +3603,7 @@ FUNCTIONAL_RTOL = 1e-10
 #: to max(1, max |unsharded|): the per-point steps are the same kernels on a
 #: part of the points; the moments sum in another order
 SHARDED_RTOL = {"tabulate": KERNEL_RTOL, "fused": KERNEL_RTOL, "interpolation": KERNEL_RTOL,
-                "moments": 1e-12, "moments_2d": 1e-12}
+                "moments": 1e-12, "moments_2d": 1e-12, "moments_2d_points": 1e-12}
 SHARD_REPS = 5
 WORLD_TIMEOUT_S = 400
 
@@ -4040,6 +4042,7 @@ def sharded_rank(rank, n, backend):
     f = torch.ones(NPTS, dtype=torch.float64, device=dev)
     bt = BatchedTabulator(zoo, order=0, device=dev)
     eng = moment_engine(bt)
+    fz0 = device_tabulator(zoo, order=0, device=dev)
     fz = device_tabulator(zoo, order=1, device=dev)
     c = torch.as_tensor(np.random.default_rng(11).random(eng.rows) - 0.5, device=dev)
     mesh = sh.points_mesh(n)
@@ -4049,14 +4052,22 @@ def sharded_rank(rank, n, backend):
     p2, w2, f2 = (sh.shard_points(a, mesh2) for a in (P, w, f))
     moment = sh.make_moment_step(bt, mesh)
     moment2 = sh.make_moment_step_2d(bt, mesh2)
+    # past one rank, the 2-D step also on a (points n, rows 1) mesh: its
+    # all-reduce crosses ranks
+    mesh3 = sh.zoo_mesh(n, 1) if n > 1 else None
+    moment3 = sh.make_moment_step_2d(bt, mesh3) if mesh3 else None
     interp = sh.make_interpolation_step(bt, mesh)
     fused = sh.make_fused_tabulate_step(fz, mesh)
-    kernels = {"fused": {"K1": fz.recurrence, "K2": fz.matmul, fz.macro.name: fz.macro},
+    kernels = {"tabulate": {"K1": fz0.recurrence, "K2": fz0.matmul, fz0.macro.name: fz0.macro},
+               "fused": {"K1": fz.recurrence, "K2": fz.matmul, fz.macro.name: fz.macro},
                "moments": {"K45": eng.moments}, "moments_2d": {"K45": eng.moments},
-               "interpolation": {"K1": eng.recurrence, "K3": eng.macro}, "tabulate": {}}
-    steps = {"tabulate": lambda: sh.sharded_tabulate(bt, P, mesh),
+               "moments_2d_points": {"K45": eng.moments},
+               "interpolation": {"K1": eng.recurrence, "K3": eng.macro}}
+    steps = {"tabulate": lambda: sh.sharded_tabulate(fz0, P, mesh),
              "fused": lambda: fused(p), "moments": lambda: moment(p, ws, fs),
              "moments_2d": lambda: moment2(p2, w2, f2), "interpolation": lambda: interp(p, c)}
+    if moment3 is not None:
+        steps["moments_2d_points"] = lambda: moment3(p, ws, fs)
     out = {"launches": {}, "ms": {}, "collective_ms": {}, "err": {}}
     got = {}
     for name, run in steps.items():
@@ -4065,7 +4076,7 @@ def sharded_rank(rank, n, backend):
         got[name] = run()
         torch.cuda.synchronize()
         out["launches"][name] = {k: v.launches for k, v in kernels[name].items()}
-        step = {"moments": moment, "moments_2d": moment2}.get(name)
+        step = {"moments": moment, "moments_2d": moment2, "moments_2d_points": moment3}.get(name)
         colls = []
 
         def timed_run(run=run, step=step):
@@ -4079,7 +4090,7 @@ def sharded_rank(rank, n, backend):
     def rel(a, b):
         return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
 
-    ref = bt(P)[(0, 0)]
+    ref = fz0(P)[(0, 0)]
     out["err"]["tabulate"] = rel(got["tabulate"][(0, 0)], ref[:, first:end])
     del ref, got["tabulate"]
     whole = fz.block_tables(P)
@@ -4092,6 +4103,8 @@ def sharded_rank(rank, n, backend):
     out["err"]["moments"] = rel(got["moments"], M)
     rows2 = sh.gather(got["moments_2d"], mesh2, axis="rows", dim=0)[:eng.rows]
     out["err"]["moments_2d"] = rel(rows2, M)
+    if moment3 is not None:
+        out["err"]["moments_2d_points"] = rel(got["moments_2d_points"][:eng.rows], M)
     out["err"]["interpolation"] = rel(got["interpolation"], eng.interpolate_rows(P, c)[first:end])
     # rank 0's K45 and K2 on its shard, for the kernels line
     pm, mm = eng.moments, fz.matmul
@@ -4118,8 +4131,9 @@ def sharded_phase(dev, card, torch, np):
     from fiat_tpu_torch.parallel.sharding import spawn_world
 
     entries = []
-    want = {"fused": {"K1": 1, "K2": 1, "K3": 1}, "moments": {"K45": 1},
-            "moments_2d": {"K45": 1}, "interpolation": {"K1": 1, "K3": 1}, "tabulate": {}}
+    want = {"tabulate": {"K1": 1, "K2": 1, "K3": 1}, "fused": {"K1": 1, "K2": 1, "K3": 1},
+            "moments": {"K45": 1}, "moments_2d": {"K45": 1}, "moments_2d_points": {"K45": 1},
+            "interpolation": {"K1": 1, "K3": 1}}
     for n, backend in ((1, "nccl"), (2, "gloo")):
         t0 = time.perf_counter()
         ranks = spawn_world(n, sharded_rank, (backend,), backend=backend, timeout=WORLD_TIMEOUT_S,

@@ -308,19 +308,18 @@ class F32ZooTabulator:
     and tetrahedra, plain and macro."""
 
     def __init__(self, batched, device=None):
-        self._setup(**batched.state(), device=device)
+        self._setup(**batched.state(), order=batched.order, device=device)
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, max_degree, scale, affine_map,
-                    plain_nexp=None, macro_programs=(), variant=None, device=None, order=None,
-                    derivs="dmats"):
+                    plain_nexp=None, macro_programs=(), variant=None, device=None, order=None):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``state()``, or fiat_tpu's attributes of the same names), as
         ``FusedZooTabulator.from_arrays`` takes them; ``variant`` is the
         target expansion set's (None, "bubble" or "dual").  Without
         ``plain_nexp`` (or with a variant, whose rows are not degree
-        prefixes) every plain row contracts the whole basis.  ``order`` and
-        ``derivs`` as ``FusedZooTabulator.from_arrays`` takes them."""
+        prefixes) every plain row contracts the whole basis.  ``order`` as
+        ``FusedZooTabulator.from_arrays`` takes it."""
         self = cls.__new__(cls)
         self._setup(stacked=stacked, alpha_mats=alpha_mats, slices=slices,
                     max_degree=max_degree, scale=scale, affine_map=affine_map,
@@ -329,7 +328,7 @@ class F32ZooTabulator:
         return self
 
     def _setup(self, stacked, alpha_mats, slices, max_degree, scale, affine_map, plain_nexp,
-               macro_programs, device, variant=None, order=None, derivs="dmats"):
+               macro_programs, device, variant=None, order=None):
         self.device = resolve_device(device)
         self.sd = np.asarray(affine_map[0]).shape[0]
         if variant not in VARIANTS:

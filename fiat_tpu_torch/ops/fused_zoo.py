@@ -274,12 +274,12 @@ class FusedZooTabulator:
     keeps the recurrence there without saying so)."""
 
     def __init__(self, batched, device=None, features="auto"):
-        self._setup(**batched.state(), device=device, features=features)
+        self._setup(**batched.state(), order=batched.order, device=device,
+                    features=features)
 
     @classmethod
     def from_arrays(cls, *, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-                    affine_map, macro_programs=(), features="auto", device=None, order=None,
-                    derivs="dmats"):
+                    affine_map, macro_programs=(), features="auto", device=None, order=None):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``BatchedTabulator.state()``, or fiat_tpu's ``BatchedTabulator``
         attributes of the same names): ``stacked`` (plain rows, nexp);
@@ -291,8 +291,8 @@ class FusedZooTabulator:
         of the macro elements, which are the elements missing from
         ``plain_nexp``; ``order``, the zoo's derivative order, sets the
         binning of C0 macro bases (the highest order of ``alpha_mats`` when
-        None); ``derivs`` is taken and not needed (``alpha_mats`` is empty
-        under jets)."""
+        None, which under jets, where ``alpha_mats`` is empty, is 0: pass
+        the tabulator's ``order`` there)."""
         self = cls.__new__(cls)
         self._setup(stacked=stacked, alpha_mats=alpha_mats, slices=slices,
                     plain_nexp=plain_nexp, max_degree=max_degree, scale=scale,
@@ -301,7 +301,7 @@ class FusedZooTabulator:
         return self
 
     def _setup(self, stacked, alpha_mats, slices, plain_nexp, max_degree, scale,
-               affine_map, macro_programs, device, features, order=None, derivs="dmats"):
+               affine_map, macro_programs, device, features, order=None):
         if features not in ("auto", "dubiner", "bernstein"):
             raise ValueError(f"features {features!r}: 'auto', 'dubiner' or 'bernstein'")
         self.device = resolve_device(device)

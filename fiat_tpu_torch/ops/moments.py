@@ -59,21 +59,20 @@ class MomentEngine:
 
     @classmethod
     def from_arrays(cls, *, stacked, slices, max_degree, scale, affine_map, macro_programs=(),
-                    alpha_mats=None, plain_nexp=None, device=None, order=None, derivs="dmats"):
+                    alpha_mats=None, plain_nexp=None, device=None):
         """The engine from the host-built arrays of a ``BatchedTabulator``
         (``state()``, or fiat_tpu's attributes of the same names): the
         value rows ``stacked`` (plain rows, nexp), the element ``slices``,
         the target expansion set's ``max_degree``, ``scale`` and
-        ``affine_map``, and the ``macro_programs``.  ``alpha_mats``,
-        ``plain_nexp``, ``order`` and ``derivs`` are accepted and not
-        needed: moments take values at order 0."""
+        ``affine_map``, and the ``macro_programs``.  ``alpha_mats`` and
+        ``plain_nexp`` are accepted and not needed: moments take values."""
         self = cls.__new__(cls)
         self._setup(stacked=stacked, slices=slices, max_degree=max_degree, scale=scale,
                     affine_map=affine_map, macro_programs=macro_programs, device=device)
         return self
 
     def _setup(self, stacked, slices, max_degree, scale, affine_map, macro_programs, device,
-               alpha_mats=None, plain_nexp=None, order=None, derivs=None):
+               alpha_mats=None, plain_nexp=None):
         self.device = resolve_device(device)
         stacked = np.asarray(stacked, np.float64)
         self.plain_rows, self.nexp = stacked.shape

@@ -135,7 +135,9 @@ def rebase_program(program, parent_es):
     subcell's column block of ``tall`` times T, phi_old = T phi_new, by
     collocation at a Gauss-Legendre lattice of the parent (exact: both
     bases span the parent's polynomials of the program's degree).  The
-    tables are the same; the engines take the new parent's route."""
+    tables are the same; the engines take the new parent's route.  A
+    checking utility: no path of the package calls it; the tests and
+    ``chip_smoke.py`` use it to reach the per-program routes."""
     out = copy.copy(program)
     parent = program.es.ref_el.get_parent()
     lat = cl.make_lattice(parent.get_vertices(), max(program.degree, 1), variant="gl")
@@ -284,8 +286,7 @@ class BatchedTabulator:
                     max_degree=self.max_degree,
                     scale=float(self.target_es.get_scale(self.max_degree)),
                     affine_map=self.target_es.affine_mappings[0],
-                    macro_programs=self.engine_programs(), order=self.order,
-                    derivs=self.derivs)
+                    macro_programs=self.engine_programs())
 
     def __call__(self, points):
         """{alpha: (total_rows, npts)} fused tables, in float64 on the

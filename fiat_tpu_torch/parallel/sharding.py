@@ -354,7 +354,9 @@ def _dryrun_rank(rank, n, device):
     pts, w, f = (shard_points(a, mesh) for a in (hpts, hw, hf))
 
     phi = tab(hpts)[(0, 0)]
-    tables = sharded_tabulate(tab, hpts, mesh)
+    # tabulation on the f64 kernel engine (K1, K2, K3), held to the plain
+    # tabulator's tables
+    tables = sharded_tabulate(device_tabulator(zoo, order=0, device=dev), hpts, mesh)
     errs["tabulate"] = check("tabulate", gather(tables[(0, 0)], mesh), phi, 1e-10)
 
     moments = make_moment_step(tab, mesh)(pts, w, f)
@@ -394,9 +396,10 @@ def _dryrun_rank(rank, n, device):
 def dryrun(n, device="cpu", backend="gloo", timeout=WORLD_TIMEOUT_S):
     """Validate the sharded path in a world of ``n`` spawned processes
     (gloo on the CPU by default), the counterpart of
-    ``__graft_entry__._dryrun_impl``: sharded tabulation, 1-D moments with
-    an all-reduce, the interpolation transpose and the f64 kernel engine
-    per rank at >= 1e4 points, and, when ``n`` is even, the 2-D (points x
+    ``__graft_entry__._dryrun_impl``: sharded tabulation (on the f64
+    kernel engine), 1-D moments with an all-reduce, the interpolation
+    transpose and the f64 kernel engine per rank at >= 1e4 points, and,
+    when ``n`` is even, the 2-D (points x
     rows) moments, also with a macro element; every result held to the
     unsharded engines.  Returns each rank's {check: error}; raises on a
     failed check, a failed rank or a world past ``timeout``."""
@@ -420,9 +423,10 @@ def run_steps(rank, n, spec, points, weights, f_at_pts, coefficients, mesh_2d=No
               fused_points=None, device="cpu"):
     """Every step once in the current world, on the zoo of ``spec``
     (``build_zoo``) and the whole batch given to every rank, each rank
-    taking its shards: ``sharded_tabulate`` and the interpolation step
-    (gathered), the 1-D moment step, the f64 kernel engine's step at order 1
-    on ``fused_points`` (per element, gathered), and on the (points, rows)
+    taking its shards: ``sharded_tabulate`` on the f64 kernel engine at
+    order 0 and the interpolation step (gathered), the 1-D moment step,
+    the f64 kernel engine's step at order 1 on ``fused_points`` (per
+    element, gathered), and on the (points, rows)
     mesh ``mesh_2d`` the 2-D moment step (gathered over "rows").  Returns
     rank 0's numpy results (None on the other ranks) and every rank's
     kernel launches, {step: {kernel: launches}}."""
@@ -446,7 +450,9 @@ def run_steps(rank, n, spec, points, weights, f_at_pts, coefficients, mesh_2d=No
         launches[name] = {k: v.launches for k, v in kernels.items()}
         return res
 
-    tables = sharded_tabulate(tab, points, mesh)
+    fz0 = device_tabulator(zoo, order=0, device=dev)
+    tables = counted("tabulate", _engine_kernels(fz0),
+                     lambda: sharded_tabulate(fz0, points, mesh))
     out["tabulate"] = {a: gather(t, mesh) for a, t in tables.items()}
     moments = counted("moments", {"K45": eng.moments},
                       lambda: make_moment_step(tab, mesh)(pts, w, f))
@@ -457,9 +463,8 @@ def run_steps(rank, n, spec, points, weights, f_at_pts, coefficients, mesh_2d=No
     out["interpolation"] = gather(vals, mesh)
     fz = device_tabulator(zoo, order=1, device=dev)
     small = shard_points(points if fused_points is None else fused_points, mesh)
-    kernels = {"K1": fz.recurrence, "K2": fz.matmul}
-    kernels.update({f"{r.name} route {k}": r.engine for k, r in enumerate(fz.macro_routes)})
-    blocks = counted("fused", kernels, lambda: make_fused_tabulate_step(fz, mesh)(small))
+    blocks = counted("fused", _engine_kernels(fz),
+                     lambda: make_fused_tabulate_step(fz, mesh)(small))
     out["fused"] = fz.unpack({a: [gather(b, mesh) for b in bl] for a, bl in blocks.items()})
     if mesh_2d is not None:
         mesh2 = zoo_mesh(*mesh_2d, device=device)
@@ -470,6 +475,14 @@ def run_steps(rank, n, spec, points, weights, f_at_pts, coefficients, mesh_2d=No
     if rank != 0:
         return None, launches
     return _to_numpy(out), launches
+
+
+def _engine_kernels(fused):
+    """{name: wrapper} of the f64 kernel engine's kernels: K1, K2 and each
+    macro route's."""
+    kernels = {"K1": fused.recurrence, "K2": fused.matmul}
+    kernels.update({f"{r.name} route {k}": r.engine for k, r in enumerate(fused.macro_routes)})
+    return kernels
 
 
 def _to_numpy(x):
