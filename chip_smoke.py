@@ -178,7 +178,19 @@ Drives the port's main paths once each at their real size, at 1e5 points
      interpolation) in a world of one process on NCCL and a world of two
      processes on gloo on the one card, each rank's kernels counted, every
      step held to the unsharded engine on the card, each step's time and
-     its all-reduce's share printed.
+     its all-reduce's share printed;
+ 26. ``symbolic``: the symbolic layer on the card.  ``ElementTabulator``
+     (one element on the f64 kernel engine, the default device) on
+     Lagrange 4 at ``pts2`` and ``tet_lagrange8`` at ``pts3``, order 1: one
+     K1 and one K2 launch each, each kernel against its plain version,
+     host parity, the tet tables equal to phase 5's; then the symbolic
+     tensor path, ``basis_evaluation(1, UnknownPointSet(P))`` at 1e5
+     points on the card, of every stamped wrapper of the FIAT bridge and
+     of the product, flattened, enriched, mixed, H(div) and H(curl)
+     wrappers, held to host; dual evaluation on a torch function on the
+     card; the GLL Q8 hexahedron's identity on the card.  That path runs
+     torch operations, no hand-written kernel (fiat_tpu's traced path runs
+     XLA outside any Pallas kernel), and counts none.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -197,7 +209,7 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
     python3 chip_smoke.py --k7-cells ROOT   # K7 alone per cell, package at ROOT
     python3 chip_smoke.py --k1-cells ROOT   # K1 and K8 alone per cell, package at ROOT
-    python3 chip_smoke.py --phases 23,25    # some of phases 22-25 alone (a quick check)
+    python3 chip_smoke.py --phases 23,25    # some of phases 22-26 alone (a quick check)
 
 Prints the card's name and power limit, the build time, K3's, K45's, K6's,
 K2's and K7's registers by instantiation and the spills (it fails where K6
@@ -217,7 +229,8 @@ K2, K3, K45, K3 one row per program and float32, K6, and K8 + K2 at sd = 1
 on phase 20, K1 and K2 on phase 21's factor tables and K8 on its
 Bernstein elements (sd 1-3 at their top degrees), the per-program routes'
 K3, K2, K7, K45 and K3 float32 of phase 23, K1 and K2 under jets (phase
-24), and rank 0's K45 and K2 in each world of phase 25, each with its bound:
+24), rank 0's K45 and K2 in each world of phase 25, and K1 and K2 of
+``ElementTabulator``'s two cells in phase 26, each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -4170,12 +4183,257 @@ def sharded_phase(dev, card, torch, np):
     return entries
 
 
-def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25)):
-    """Phases 22-25 (those in ``only``); returns their kernels-line entries."""
+#: phase 26's stamped wrappers of the symbolic bridge, (family, cell, degree):
+#: degree 3 on the natural cell, degree 2 on the quadrilateral for the
+#: hypercube families
+SYMBOLIC_WRAPPERS = tuple(
+    [(f, "T", 3) for f in ("Regge", "HellanHerrmannJohnson",
+                           "GopalakrishnanLedererSchoberlFirstKind",
+                           "GopalakrishnanLedererSchoberlSecondKind", "Bernstein", "Bubble",
+                           "FacetBubble", "CrouzeixRaviart", "Lagrange", "DiscontinuousLagrange",
+                           "DiscontinuousTaylor", "HDivTrace", "RaviartThomas",
+                           "BrezziDouglasMarini", "BrezziDouglasFortinMarini", "Nedelec",
+                           "NedelecSecondKind", "Real")]
+    + [("Histopolation", "I", 3)]
+    + [(f, "Q", 2) for f in ("Serendipity", "DPC", "TrimmedSerendipityEdge",
+                             "TrimmedSerendipityFace", "TrimmedSerendipityDiv",
+                             "TrimmedSerendipityCurl", "BrezziDouglasMariniCubeEdge",
+                             "BrezziDouglasMariniCubeFace")])
+SYMBOLIC_RTOL = 1e-10     # tensor path vs host, of max(1, max |table|) per alpha
+DUAL_RTOL = 1e-12         # dual evaluation on the card vs host, of max(1, max |dofs|)
+
+
+def edge_points(n, seed, np):
+    """n points on the UFC triangle's edges, a third on each (the trace
+    element's points)."""
+    rng = np.random.default_rng(seed)
+    s = rng.random(n)
+    ends = np.array([[[0, 1], [1, 0]], [[0, 0], [0, 1]], [[0, 0], [1, 0]]], dtype=float)
+    e = np.arange(n) % 3
+    return ends[e, 0] * (1 - s)[:, None] + ends[e, 1] * s[:, None]
+
+
+def symbolic_tables_check(name, tables, host, dev, torch, np):
+    """The tensor path's tables against the host's on the first
+    HOST_CHECK_PTS points: every table a float64 tensor on the card, the
+    same alphas, exceptions (the trace element's gradients) alike; returns
+    the worst error of max(1, max |table|)."""
+    if set(tables) != set(host):
+        fail(f"{name}: alphas {sorted(tables)} != host {sorted(host)}")
+    worst = 0.0
+    for a, want in host.items():
+        got = tables[a]
+        if isinstance(want, Exception):
+            if type(got) is not type(want):
+                fail(f"{name} {a}: {type(got).__name__}, host {type(want).__name__}")
+            continue
+        if not (torch.is_tensor(got) and got.device == dev and got.dtype == torch.float64):
+            fail(f"{name} {a}: not a float64 tensor on {dev}: {type(got).__name__}")
+        g = got[..., :HOST_CHECK_PTS].cpu().numpy()
+        if g.shape != want.shape:
+            fail(f"{name} {a}: shape {g.shape}, host {want.shape}")
+        if not np.isfinite(g).all():
+            fail(f"{name} {a}: non-finite values")
+        worst = max(worst, float(np.abs(g - want).max()) / max(1.0, float(np.abs(want).max())))
+    if not worst <= SYMBOLIC_RTOL:
+        fail(f"{name}: tensor path vs host {worst:.3e} > {SYMBOLIC_RTOL}")
+    return worst
+
+
+def element_tabulator_cell(name, el, pts, card, torch, np, reference=None):
+    """``ElementTabulator(el, order=1)`` on the default device at ``pts``:
+    one K1 and one K2 launch a call, each kernel against its plain version,
+    the tables against host el.tabulate (and, where given, equal to
+    ``reference``, another engine's tables); returns (its K1 and K2
+    kernels-line entries, the call's ms)."""
+    from fiat_tpu_torch.ops.tabulate import ElementTabulator
+    dev = torch.device("cuda", 0)
+    P = torch.as_tensor(pts, device=dev)
+    tab = ElementTabulator(el, order=1)            # the default device: the card
+    if tab.device != dev:
+        fail(f"{name}: ElementTabulator on {tab.device}, not {dev}")
+    rec, mm = tab.recurrence, tab.matmul
+    tables, launches = counted({"K1": rec, "K2": mm}, lambda: tab(P), torch)
+    expect_launches(name, launches, {"K1": 1, "K2": 1})
+    if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
+        fail(f"{name}: non-finite values in the tables")
+    host_err = host_check([el], [tables], pts, NPTS, torch, np)
+    print(f"{name} main path: ElementTabulator(order 1) at {NPTS} points, max abs err vs host "
+          f"el.tabulate on {HOST_CHECK_PTS} points {host_err:.3e}")
+    if not host_err <= HOST_ATOL:
+        fail(f"{name}: tables disagree with host tabulation: {host_err:.3e} > {HOST_ATOL}")
+    if reference is not None:
+        same = all(torch.equal(tables[a], reference[a]) for a in reference)
+        print(f"{name} tables equal to phase 5's tet_lagrange8 block tables: {same}")
+        if not same or set(reference) != set(tables):
+            fail(f"{name}: tables differ from phase 5's tet_lagrange8 block tables")
+    del tables
+    phi_p = rec.plain(P)
+    k1_abs = check_kernel(f"{name} K1 recurrence (sd {rec.sd}, degree {rec.degree})", rec(P),
+                          phi_p, torch)
+    k2_abs = check_kernel(f"{name} K2 bucket matmul ({mm.total_rows} x {NPTS}, K {mm.max_k})",
+                          mm(phi_p), mm.plain(phi_p), torch)
+    del phi_p
+    phi = rec(P)
+    k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
+    k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), median_ms(lambda: mm.plain(phi), torch)
+    A = mm.A.to(phi.device)
+    k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)   # one cuBLAS DGEMM
+    call_ms = median_ms(lambda: tab(P), torch)
+    k1_card, k2_card = device_ms(lambda: rec(P), torch), device_ms(lambda: mm(phi), torch)
+    del phi, A
+    card_ms = lambda ms: "not measured" if ms is None else f"{ms:.4f}"   # noqa: E731
+    print(f"{name} timing ({card}; CUDA events, card = the profiler's device time): call "
+          f"{call_ms:.4f} ms; K1 {k1_ms:.4f} ms (card {card_ms(k1_card)}, plain "
+          f"{k1_plain:.4f}); K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} (card "
+          f"{card_ms(k2_card)}, plain {k2_plain:.4f}, cuBLAS DGEMM {k2_lib:.4f})")
+    src = "fiat_tpu_torch/csrc/"
+    return [entry(f"K1 dubiner{rec.sd}_values ({name})", src + "recurrence.cu",
+                  "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms,
+                  k1_plain, rec_bound(rec, NPTS)),
+            entry(f"K2 bucket_matmul ({name})", src + "bucket_matmul.cu",
+                  "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms,
+                  k2_plain, matmul_bound(mm, NPTS), k2_lib)], call_ms
+
+
+def symbolic_phase(dev, card, torch, np, tet_engine=None):
+    """Phase 26, the symbolic layer on the card.
+
+    1. ``ops.tabulate.ElementTabulator`` on the default device: Lagrange 4
+       on the triangle at ``pts2`` and Lagrange 8 on the tetrahedron
+       (``tet_lagrange8``) at ``pts3``, order 1, one K1 and one K2 launch
+       each, each kernel against its plain version, host parity at
+       HOST_ATOL, the tet tables equal to phase 5's block tables
+       (``tet_engine``, the same engine; built here when the phase runs
+       alone).
+    2. The symbolic layer's tensor path: ``basis_evaluation(1,
+       UnknownPointSet(P))`` of every stamped wrapper (SYMBOLIC_WRAPPERS), a
+       TensorProductElement, FlattenedDimensions on the quadrilateral, an
+       EnrichedElement, a MixedElement of Lagrange 2 and RT 1, HDivElement
+       and HCurlElement at 1e5 points on the card, each table held to the
+       host's on HOST_CHECK_PTS points at SYMBOLIC_RTOL; dual evaluation of
+       Lagrange 5 and RT 3 on a torch function on the card against the
+       host's at DUAL_RTOL; the GLL Q8 hexahedron on a TensorPointSet of
+       three 9-point GLL sets on the card, its identity pattern.  This path
+       runs torch operations on the card, as fiat_tpu's traced path runs
+       XLA outside any Pallas kernel: no kernel is launched or counted.
+
+    Returns the kernels-line entries of part 1."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator, symbolic as sym
+    from fiat_tpu_torch.core.quadrature import GaussLobattoLegendreQuadratureLineRule
+    from fiat_tpu_torch.symbolic.point_set import (GaussLobattoLegendrePointSet, PointSet,
+                                                   TensorPointSet, UnknownPointSet)
+
+    T, S, I, Q = ft.ufc_simplex(2), ft.ufc_simplex(3), ft.ufc_simplex(1), ft.UFCQuadrilateral()
+    pts2 = make_points(NPTS, SEED, np)
+    pts3 = make_points(NPTS, SEED, np, sd=3)
+    P3 = torch.as_tensor(pts3, device=dev)
+    if tet_engine is None:
+        tet_engine = device_tabulator(tet_zoos(S)[0], order=1)
+    phase5 = tet_engine.unpack(tet_engine.block_tables(P3))[0]
+    kernels, tri_ms = element_tabulator_cell("ElementTabulator lagrange4 tri", ft.Lagrange(T, 4),
+                                             pts2, card, torch, np)
+    lag8 = tet_zoos(S)[0][0]
+    tet_kernels, tet_ms = element_tabulator_cell("ElementTabulator tet_lagrange8", lag8, pts3,
+                                                 card, torch, np, reference=phase5)
+    kernels += tet_kernels
+    del phase5
+
+    print("symbolic tensor path: torch operations on the card (the expansion recurrence and "
+          "torch.matmul, einsum, cat, stack), no hand-written kernel, as fiat_tpu's traced "
+          "path runs XLA outside any Pallas kernel; nothing of it is counted as a kernel")
+    cells = {"T": T, "I": I, "Q": Q}
+    rng = np.random.default_rng(SEED + 26)
+    points = {"T": pts2, "I": make_points(NPTS, SEED, np, sd=1), "Q": rng.random((NPTS, 2)),
+              "edges": edge_points(NPTS, SEED, np)}
+    on_card = {k: torch.as_tensor(v, device=dev) for k, v in points.items()}
+    cases = [(f"{f} {d} on {c}", getattr(sym, f)(cells[c], d),
+              "edges" if f == "HDivTrace" else c) for f, c, d in SYMBOLIC_WRAPPERS]
+    cases += [
+        ("TensorProductElement(Lagrange 3, DG 2) on I x I",
+         sym.TensorProductElement([sym.Lagrange(I, 3), sym.DiscontinuousLagrange(I, 2)]), "Q"),
+        ("FlattenedDimensions(Lagrange 3 x Lagrange 3) on Q",
+         sym.FlattenedDimensions(sym.TensorProductElement([sym.Lagrange(I, 3)] * 2)), "Q"),
+        ("EnrichedElement(Lagrange 1, Bubble 3)",
+         sym.EnrichedElement([sym.Lagrange(T, 1), sym.Bubble(T, 3)]), "T"),
+        ("MixedElement(Lagrange 2, RT 1)",
+         sym.MixedElement([sym.Lagrange(T, 2), sym.RaviartThomas(T, 1)]), "T"),
+        ("HDivElement(Lagrange 2 x DG 1)", sym.HDivElement(sym.TensorProductElement(
+            [sym.Lagrange(I, 2), sym.DiscontinuousLagrange(I, 1)])), "Q"),
+        ("HCurlElement(DG 1 x Lagrange 2)", sym.HCurlElement(sym.TensorProductElement(
+            [sym.DiscontinuousLagrange(I, 1), sym.Lagrange(I, 2)])), "Q"),
+    ]
+    timings, worst = [], 0.0
+    for name, el, where in cases:
+        ps = UnknownPointSet(on_card[where])          # the default device: the card
+        tables = el.basis_evaluation(1, ps)
+        host = el.basis_evaluation(1, PointSet(points[where][:HOST_CHECK_PTS]))
+        err = symbolic_tables_check(name, tables, host, dev, torch, np)
+        worst = max(worst, err)
+        del tables
+        ms = host_timed(lambda el=el, ps=ps: el.basis_evaluation(1, ps), torch)
+        timings.append(f"{name} {ms:.2f}")
+        print(f"symbolic {name}: basis_evaluation(1) at {NPTS} points on the card {ms:.2f} ms "
+              f"(host clock, synchronised; median of 5), vs host on {HOST_CHECK_PTS} points {err:.3e} of "
+              f"max(1, max |table|)")
+    print(f"symbolic tensor path: {len(cases)} elements at {NPTS} points, worst {worst:.3e} of "
+          f"max(1, max |table|) vs host (bar {SYMBOLIC_RTOL})")
+
+    sym_lag8 = sym.Lagrange(S, 8)
+    ps3 = UnknownPointSet(P3)
+    tables = sym_lag8.basis_evaluation(1, ps3)
+    lag8_err = symbolic_tables_check("symbolic Lagrange 8 on S", tables, sym_lag8.basis_evaluation(
+        1, PointSet(pts3[:HOST_CHECK_PTS])), dev, torch, np)
+    del tables
+    lag8_ms = host_timed(lambda: sym_lag8.basis_evaluation(1, ps3), torch)
+    print(f"tet_lagrange8 order 1 at {NPTS} points ({card}): symbolic tensor path {lag8_ms:.2f} ms "
+          f"(host clock, synchronised; {lag8_err:.3e} vs host) beside ElementTabulator "
+          f"{tet_ms:.4f} ms (CUDA events; K1 + K2); Lagrange 4 on the triangle through "
+          f"ElementTabulator {tri_ms:.4f} ms")
+
+    def on_card_fn(xp_fn):
+        return lambda ps: xp_fn(torch.as_tensor(ps.points, device=dev))
+
+    scalar = lambda x: x[:, 0] ** 5 - 2.0 * x[:, 0] * x[:, 1] ** 2 + 1.0   # noqa: E731
+    vector = lambda x: (torch.stack if torch.is_tensor(x) else np.stack)(    # noqa: E731
+        [x[:, 1] ** 3 - x[:, 0], x[:, 0] * x[:, 1] ** 2 + 0.5], -1)
+    for name, el, fn in (("Lagrange 5", sym.Lagrange(T, 5), scalar),
+                         ("RT 3", sym.RaviartThomas(T, 3), vector)):
+        got = el.dual_evaluation(on_card_fn(fn))
+        want = el.dual_evaluation(lambda ps: fn(ps.points))
+        if not (torch.is_tensor(got) and got.device == dev):
+            fail(f"dual_evaluation of {name}: not a tensor on the card")
+        err = float(np.abs(got.cpu().numpy() - want).max()) / max(1.0, float(np.abs(want).max()))
+        ms = host_timed(lambda el=el, fn=fn: el.dual_evaluation(on_card_fn(fn)), torch)
+        print(f"symbolic dual_evaluation of {name} ({len(want)} dofs) on a torch function on the "
+              f"card: {ms:.2f} ms (host clock), vs host {err:.3e} of max(1, max |dofs|)")
+        if not err <= DUAL_RTOL:
+            fail(f"dual_evaluation of {name}: {err:.3e} > {DUAL_RTOL}")
+
+    gll = sym.GaussLobattoLegendre(I, 8)
+    hexa = sym.TensorProductElement([gll, gll, gll])
+    x = torch.as_tensor(GaussLobattoLegendreQuadratureLineRule(I, 9).get_points(), device=dev)
+    nodes = TensorPointSet([GaussLobattoLegendrePointSet(x)] * 3)
+    tab = hexa.basis_evaluation(0, nodes)[(0, 0, 0)]
+    eye = torch.eye(9 ** 3, dtype=torch.float64, device=dev)
+    if tuple(tab.shape) != (9,) * 6 or tab.device != dev or not torch.equal(
+            tab.reshape(9 ** 3, 9 ** 3), eye):
+        fail("GLL Q8 hexahedron: the table at its own GLL nodes is not the identity on the card")
+    hex_ms = host_timed(lambda: hexa.basis_evaluation(0, nodes), torch)
+    print(f"symbolic GLL Q8 hexahedron on a TensorPointSet of three 9-point GLL sets on the card: "
+          f"table {tuple(tab.shape)} is the identity (sum-factorised spectral delta), "
+          f"{hex_ms:.2f} ms (host clock)")
+    return kernels
+
+
+def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26), tet_engine=None):
+    """Phases 22-26 (those in ``only``); returns their kernels-line entries."""
     phases = {22: lambda: rest_of_core_phase(dev, card, torch, np) or [],
               23: lambda: per_program_phase(dev, card, torch, np),
               24: lambda: jets_phase(dev, card, torch, np),
-              25: lambda: sharded_phase(dev, card, torch, np)}
+              25: lambda: sharded_phase(dev, card, torch, np),
+              26: lambda: symbolic_phase(dev, card, torch, np, tet_engine)}
     kernels = []
     for p in sorted(only):
         kernels += phases[p]()
@@ -4257,6 +4515,7 @@ def main():
     lap(8)
     kernels += c1_phase(T, dev, pts2, P, card, torch, np)
     lap(9)
+    tet_engine = tet64["tet_lagrange8"]       # phase 26 holds its tables to this engine's
     del tab64, tet64, sv64
     kernels += zoo_phase([(sd, name, lambda sd=sd, specs=specs, comps=comps: families_zoo(
         specs, comps, ufc_simplex(sd))) for sd, name, specs, comps in (
@@ -4287,7 +4546,7 @@ def main():
     lap(20)
     kernels += tp_phase(dev, card, torch, np)
     lap(21)
-    kernels += new_phases(dev, card, torch, np, lap)
+    kernels += new_phases(dev, card, torch, np, lap, tet_engine=tet_engine)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,13 @@
 
 Counterpart of ``fiat_tpu/core/barycentric.py`` (Berrut & Trefethen 2004):
 values from the second barycentric formula, derivatives from the spectral
-differentiation matrix.  Host-side numpy; the 1D Lagrange and DG elements
-use it as their nodal basis.
+differentiation matrix.  Host-side numpy, and torch for tensor points (the
+symbolic layer's tensor path); the 1D Lagrange and DG elements use it as
+their nodal basis.
 """
 
 import numpy as np
+import torch
 
 from . import cells as cl
 from . import expansions
@@ -35,7 +37,19 @@ def make_dmat(x):
 
 def barycentric_interpolation(nodes, wts, dmat, pts, order=0):
     """dict (k,) -> k-th derivative tabulation (num_nodes, npts) of the
-    Lagrange basis on ``nodes`` by the second barycentric formula."""
+    Lagrange basis on ``nodes`` by the second barycentric formula; a torch
+    tensor of points runs the same formula on its device, in its dtype."""
+    if isinstance(pts, torch.Tensor):
+        diff = pts.reshape(1, -1) - pts.new_tensor(nodes)[:, None]
+        phi = pts.new_tensor(wts)[:, None] / diff
+        phi = phi / phi.sum(dim=0)
+        phi = torch.where(torch.isnan(phi), 1.0, phi).reshape(-1, *pts.shape[:-1])
+        D = pts.new_tensor(dmat)
+        results = {(0,): phi}
+        for r in range(1, order + 1):
+            phi = D @ phi
+            results[(r,)] = phi
+        return results
     pts = np.asarray(pts)
     diff = np.add.outer(-nodes, pts.flatten())
     with np.errstate(divide="ignore", invalid="ignore"):

@@ -24,6 +24,7 @@ from functools import reduce
 from itertools import chain, count, product
 
 import numpy as np
+import torch
 
 from . import orientation as ornt
 from .recursive_nodes import recursive_node
@@ -384,6 +385,11 @@ class SimplicialComplex(Cell):
             offset = v_c[0] - v_e[0] @ C
 
         def transform(point):
+            if isinstance(point, torch.Tensor):
+                # runtime points: on their device, in their dtype
+                if dim == 0:
+                    return point.new_tensor(offset).expand(*point.shape[:-1], len(offset))
+                return point @ point.new_tensor(C) + point.new_tensor(offset)
             point = np.asarray(point)
             if dim == 0 and point.ndim >= 1 and point.shape[-1] == 0:
                 return np.broadcast_to(offset, point.shape[:-1] + offset.shape).copy()
@@ -653,6 +659,8 @@ class TensorProductCell(Cell):
         slices = self._split_slices(dim)
 
         def transform(point):
+            if isinstance(point, torch.Tensor):
+                return torch.cat([t(point[..., s]) for t, s in zip(maps, slices)], dim=-1)
             point = np.asarray(point)
             return np.concatenate([t(point[..., s]) for t, s in zip(maps, slices)], axis=-1)
         return transform

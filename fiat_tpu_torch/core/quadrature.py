@@ -13,6 +13,7 @@ import math
 import numpy as np
 
 from . import cells as cl
+from .orientation import make_entity_permutations_simplex
 from .recursive_nodes import (collapsed_gauss_simplex, gauss_jacobi_rule,
                               gauss_lobatto_jacobi_rule)
 
@@ -30,12 +31,23 @@ class QuadratureRule:
         self.ref_el = ref_el
         self.pts = pts
         self.wts = wts
+        self._intrinsic_orientation_permutation_map_tuple = (None,)
 
     def get_points(self):
         return self.pts
 
     def get_weights(self):
         return self.wts
+
+    @property
+    def extrinsic_orientation_permutation_map(self):
+        return self.ref_el.extrinsic_orientation_permutation_map
+
+    @property
+    def intrinsic_orientation_permutation_map_tuple(self):
+        if any(m is None for m in self._intrinsic_orientation_permutation_map_tuple):
+            raise ValueError("intrinsic orientation permutation maps not set")
+        return self._intrinsic_orientation_permutation_map_tuple
 
 
 def pseudo_determinant(A):
@@ -74,6 +86,11 @@ class GaussJacobiQuadratureLineRule(QuadratureRule):
 
     def __init__(self, ref_el, m, a=0, b=0):
         super().__init__(ref_el, *_line_rule(ref_el, *gauss_jacobi_rule(m, a, b)))
+        # intrinsic orientation o -> inverse point permutation
+        perm = np.zeros((math.factorial(2), m), dtype=int)
+        for io, p in make_entity_permutations_simplex(1, m).items():
+            perm[io, p] = range(m)
+        self._intrinsic_orientation_permutation_map_tuple = (perm,)
 
 
 class GaussLegendreQuadratureLineRule(GaussJacobiQuadratureLineRule):

@@ -322,3 +322,77 @@ class BatchedTabulator:
         return [{a: tab[lo:hi].reshape(tuple(shape) + tuple(tab.shape[-1:]))
                  for a, tab in tables.items()}
                 for lo, hi, shape in self.slices]
+
+
+class ElementTabulator:
+    """One element's tables {alpha: (rows..., npts)} on the kernel engine:
+    ``tab = ElementTabulator(element, order); tables = tab(points)`` gives
+    what ``element.tabulate(order, points)`` gives, in float64 on
+    ``device``.
+
+    Counterpart of fiat_tpu's ``ElementTabulator`` ("the element's
+    expansion recurrence and its change-of-basis product"): a zoo of one
+    element on the f64 kernel engine, ``device_tabulator([element],
+    order)`` -- K1 (the Dubiner recurrence) and K2 (the change-of-basis
+    product), one launch each a call -- on the CUDA card when ``device`` is
+    None (raising without one), the kernels' plain versions where the caller
+    asks for the CPU.  ``recurrence`` (K1) and ``matmul`` (K2) carry the
+    launch counts.  fiat_tpu's TPU-only keywords (``tile``, ``matmul``,
+    ``wdtype``, ``interpret``: ``TPU_ONLY``) are taken and ignored, as by
+    ``device_tabulator``; any other is a ``TypeError``.  Its point tiling
+    (``adaptive_tile``, ``lax.map``) has no counterpart.
+
+    Where the engine does not apply it raises ``NotImplementedError``
+    naming the case, never a slower engine: a macro element (the engine
+    fuses macro elements only beside a plain one, as
+    ``BatchedTabulator``), an element without a nodal expansion basis, a
+    cell other than the interval, the triangle and the tetrahedron, and an
+    embedded degree past K1's (``recurrence.MAX_DEGREE``)."""
+
+    def __init__(self, element, order=0, device=None, **tpu_only):
+        from . import TPU_ONLY, device_tabulator
+        from .recurrence import MAX_DEGREE
+        unknown = sorted(set(tpu_only) - set(TPU_ONLY))
+        if unknown:
+            raise TypeError(f"ElementTabulator() got unexpected keyword arguments {unknown}")
+        name = type(element).__name__
+        ref_el = element.get_reference_element()
+        if ref_el.get_shape() not in (cl.LINE, cl.TRIANGLE, cl.TETRAHEDRON):
+            raise NotImplementedError(
+                f"ElementTabulator: {name} on {type(ref_el).__name__}; the kernel engine "
+                "covers the interval, the triangle and the tetrahedron")
+        if element.is_macroelement():
+            raise NotImplementedError(
+                f"ElementTabulator: {name} is a macro element; the kernel engine takes macro "
+                "elements only in a zoo with a plain element (BatchedTabulator, "
+                "device_tabulator)")
+        try:
+            degree = element.get_nodal_basis().get_embedded_degree()
+        except (AttributeError, NotImplementedError):
+            raise NotImplementedError(
+                f"ElementTabulator: {name} has no nodal expansion basis for the kernel "
+                "engine's change of basis") from None
+        sd = ref_el.get_spatial_dimension()
+        if degree > MAX_DEGREE[sd]:
+            raise NotImplementedError(
+                f"ElementTabulator: {name} has embedded degree {degree}, past the "
+                f"recurrence kernel's {MAX_DEGREE[sd]} for sd = {sd}")
+        self.element = element
+        self.order = order
+        self.engine = device_tabulator([element], order=order, device=device)
+        self.device = self.engine.device
+
+    @property
+    def recurrence(self):
+        """K1's wrapper (its ``launches``)."""
+        return self.engine.recurrence
+
+    @property
+    def matmul(self):
+        """K2's wrapper (its ``launches``)."""
+        return self.engine.matmul
+
+    def __call__(self, points):
+        """{alpha: float64 tensor (rows..., npts)} at ``points`` (npts, sd):
+        host points go to the engine's device; a tensor must be there."""
+        return self.engine.unpack(self.engine.block_tables(points))[0]

@@ -30,7 +30,7 @@ def test_import_leaves_jax_and_fiat_tpu_out():
             "fiat_tpu_torch.elements.bernstein, fiat_tpu_torch.elements.serendipity, "
             "fiat_tpu_torch.elements.sympy_vector, fiat_tpu_torch.elements.bdm_cube, "
             "fiat_tpu_torch.elements.trimmed_serendipity, fiat_tpu_torch.parallel, "
-            "fiat_tpu_torch.parallel.sharding\n"
+            "fiat_tpu_torch.parallel.sharding, fiat_tpu_torch.symbolic\n"
             "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(3), 9)\n"
@@ -96,7 +96,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from fiat_tpu_torch.ops import moments
     from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
     from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
-    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator, ElementTabulator
+    from fiat_tpu_torch.symbolic import UnknownPointSet
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     zoo = [ft.Lagrange(ft.ufc_simplex(2), 2)]
     bt = BatchedTabulator(zoo, order=1, device="cpu")
@@ -107,13 +108,18 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
              lambda: FusedZooTabulator.from_arrays(**bt.state()),
              lambda: F32ZooTabulator(bt),
              lambda: moments.MomentEngine(bt),
-             lambda: moments.MomentEngine.from_arrays(**bt.state())]
+             lambda: moments.MomentEngine.from_arrays(**bt.state()),
+             lambda: ElementTabulator(zoo[0], order=1),
+             lambda: UnknownPointSet(np.zeros((3, 2))),
+             lambda: UnknownPointSet(torch.zeros((3, 2)))]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     tab = ft.device_tabulator(zoo, order=1, device="cpu")
     pts = np.random.default_rng(2).random((9, 2)) / 2
     assert tab.block_tables(pts)[(0, 0)][0].device.type == "cpu"
+    assert ElementTabulator(zoo[0], order=1, device="cpu")(pts)[(0, 1)].device.type == "cpu"
+    assert UnknownPointSet(pts, device="cpu").points.device.type == "cpu"
     # the moments functions build their engine on the tabulator's device
     assert moments.moment_rows(bt, pts, np.ones(9)).device.type == "cpu"
 
@@ -132,7 +138,7 @@ def test_load_kernels_raises_without_nvcc(monkeypatch):
 def test_pyproject_ships_the_port():
     cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
     packages = cfg["tool"]["setuptools"]["packages"]
-    for sub in ("", ".core", ".elements", ".ops", ".utils"):
+    for sub in ("", ".core", ".elements", ".ops", ".parallel", ".symbolic", ".utils"):
         assert "fiat_tpu_torch" + sub in packages
     data = cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
