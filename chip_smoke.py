@@ -190,7 +190,25 @@ Drives the port's main paths once each at their real size, at 1e5 points
      wrappers, held to host; dual evaluation on a torch function on the
      card; the GLL Q8 hexahedron's identity on the card.  That path runs
      torch operations, no hand-written kernel (fiat_tpu's traced path runs
-     XLA outside any Pallas kernel), and counts none.
+     XLA outside any Pallas kernel), and counts none;
+ 27. ``zany``: the physically mapped elements of the symbolic layer on the
+     card, their geometry callbacks float64 tensors there
+     (``SimplexGeometry`` from a cell's vertices): (1) the 37 cases of
+     tests/test_zany_mapping.py (``ZANY_SCALAR``, ``ZANY_PIOLA``) on its
+     distorted triangle and tetrahedron, M on the card held to M from
+     numpy geometry, ``basis_evaluation(1, UnknownPointSet(P),
+     coordinate_mapping=...)`` at ``pts2`` / ``pts3`` held to the host's
+     mapped tables, and the physical check (``zany_physical_check``);
+     (2) M of ``full_zoo``'s six zany families over 1e5 distorted triangles
+     in one ``torch.func.vmap`` each, the reference tables at a degree-10
+     rule mapped for every cell in one batched product, 64 sampled cells
+     held to numpy geometry and host; (3) ``full_zoo``'s f64 engine (phase
+     2's), one ``block_tables`` call (K1, K2, K3 once each), its zany
+     blocks mapped by M through ``MappedTabulation`` and held to the
+     tensor path; (4) DirectSerendipity 1-4 with tensor vertices at 1e5
+     tensor points, held to host.  M and the mapped tables are torch
+     operations (fiat_tpu builds and applies M in XLA outside any Pallas
+     kernel); part 3's kernels are phase 2's and add no entry.
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -209,7 +227,7 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
     python3 chip_smoke.py --k7-cells ROOT   # K7 alone per cell, package at ROOT
     python3 chip_smoke.py --k1-cells ROOT   # K1 and K8 alone per cell, package at ROOT
-    python3 chip_smoke.py --phases 23,25    # some of phases 22-26 alone (a quick check)
+    python3 chip_smoke.py --phases 23,25    # some of phases 22-27 alone (a quick check)
 
 Prints the card's name and power limit, the build time, K3's, K45's, K6's,
 K2's and K7's registers by instantiation and the spills (it fails where K6
@@ -702,8 +720,14 @@ def full_zoo(T):
             + [ft.RaviartThomas(T, k) for k in range(1, 7)]
             + [ft.Nedelec(T, k) for k in range(1, 7)]
             + [ft.BrezziDouglasMarini(T, k) for k in range(1, 7)]
-            + [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
-               ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T)])
+            + full_zoo_zany(T))
+
+
+def full_zoo_zany(T):
+    """full_zoo's last six elements, its zany ones (bench.py:846-848)."""
+    import fiat_tpu_torch as ft
+    return [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
+            ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T)]
 
 
 def full_zoo_phase(T, dev, pts2, P, card, torch, np):
@@ -4215,9 +4239,9 @@ def edge_points(n, seed, np):
 
 def symbolic_tables_check(name, tables, host, dev, torch, np):
     """The tensor path's tables against the host's on the first
-    HOST_CHECK_PTS points: every table a float64 tensor on the card, the
-    same alphas, exceptions (the trace element's gradients) alike; returns
-    the worst error of max(1, max |table|)."""
+    HOST_CHECK_PTS points: every table a float64 tensor on the card, the same alphas,
+    exceptions (the trace element's gradients) alike; returns the worst
+    error of max(1, max |table|)."""
     if set(tables) != set(host):
         fail(f"{name}: alphas {sorted(tables)} != host {sorted(host)}")
     worst = 0.0
@@ -4427,13 +4451,466 @@ def symbolic_phase(dev, card, torch, np, tet_engine=None):
     return kernels
 
 
-def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26), tet_engine=None):
-    """Phases 22-26 (those in ``only``); returns their kernels-line entries."""
+# -- phase 27: the physically mapped ("zany") elements ------------------------------------
+
+#: tests/test_zany_mapping.py's cases, (symbolic class, cell dimension, args,
+#: kwargs): its test_zany_scalar (:148-167) and test_zany_piola (:173-193)
+ZANY_SCALAR = (
+    ("Hermite", 2, (), {}), ("Hermite", 3, (), {}), ("Morley", 2, (), {}),
+    ("Morley", 3, (), {}), ("Bell", 2, (), {}), ("Argyris", 2, (5,), {"avg": True}),
+    ("Argyris", 2, (6,), {"avg": True}), ("Argyris", 2, (5,), {"variant": "point"}),
+    ("HsiehCloughTocher", 2, (3,), {"avg": True}), ("HsiehCloughTocher", 2, (4,), {"avg": True}),
+    ("ReducedHsiehCloughTocher", 2, (), {}), ("QuadraticPowellSabin6", 2, (), {}),
+    ("QuadraticPowellSabin12", 2, (), {"avg": True}), ("WuXuH3NC", 2, (), {}),
+    ("WuXuRobustH3NC", 2, (), {}), ("BrambleZlamalC2", 2, (), {}), ("AlfeldC2", 2, (), {}),
+    ("Walkington", 3, (), {}))
+ZANY_PIOLA = (
+    ("ArnoldWinther", 2, (), {}), ("ArnoldWintherNC", 2, (), {}), ("HuZhang", 2, (3,), {}),
+    ("HuZhang", 2, (4,), {}), ("MardalTaiWinther", 2, (), {}), ("MardalTaiWinther", 3, (), {}),
+    ("JohnsonMercier", 2, (), {}), ("JohnsonMercier", 3, (), {}), ("BernardiRaugel", 2, (), {}),
+    ("BernardiRaugel", 3, (), {}), ("ChristiansenHu", 2, (), {}), ("ChristiansenHu", 3, (), {}),
+    ("AlfeldSorokina", 2, (), {}), ("AlfeldSorokina", 3, (), {}), ("ReducedArnoldQin", 2, (), {}),
+    ("GuzmanNeilanFirstKindH1", 2, (), {}), ("GuzmanNeilanFirstKindH1", 3, (), {}),
+    ("GuzmanNeilanSecondKindH1", 2, (), {}), ("GuzmanNeilanH1div", 2, (), {}))
+#: full_zoo's six zany families (bench.py:846-848) as symbolic elements, (class, args)
+ZOO_ZANY = (("Hermite", ()), ("Morley", ()), ("Argyris", (5,)), ("Bell", ()),
+            ("HsiehCloughTocher", (3,)), ("QuadraticPowellSabin6", ()))
+ZANY_M_RTOL = 1e-13       # M from tensor geometry vs numpy geometry, of max(1, max |M|)
+ZANY_PHYS_ATOL = 1e-9     # the physical check (tests/test_zany_mapping.py:143)
+MESH_CELLS = 100_000
+MESH_SAMPLES = 64
+MESH_RULE = 10            # degree of the triangle rule the mesh's tables are mapped at
+#: tests/test_direct_serendipity.py's distorted quadrilateral
+DS_VERTS = ((0.0, 0.0), (1.0, 0.0), (0.1, 1.1), (0.95, 1.01))
+
+
+def distorted_vertices(dim):
+    """tests/test_zany_mapping.py's distorted physical simplex
+    (``_distorted_cells``)."""
+    if dim == 2:
+        return ((0.0, 0.1), (1.17, -0.09), (0.15, 1.84))
+    return ((0, 0, 0.1), (1.17, -0.09, 0.0), (0.15, 1.84, -0.02), (0.11, 0.17, 1.19))
+
+
+class SimplexGeometry:
+    """The ``symbolic.PhysicalGeometry`` callbacks of an affinely mapped UFC
+    simplex, computed from its vertices ``verts`` (nvertex, sd) by array
+    operations: numpy for a numpy array; torch on the tensor's device for a
+    tensor, also over a batch of cells under ``torch.func.vmap``.  The
+    conventions are the UFC cells' (``compute_normal``), as
+    tests/test_zany_mapping.py's MyMapping reads them off a cell with moved
+    vertices: a facet normal is the edge tangent rotated (triangle) or -2
+    times the unit cross product of the face's tangents (tetrahedron);
+    tangents are unit; the cell size is 1 at each vertex."""
+
+    def __init__(self, ref_cell, verts):
+        import numpy as np
+        self.np, self.ref_cell, self.verts = np, ref_cell, verts
+        self.torch = None if isinstance(verts, np.ndarray) else __import__("torch")
+        self.sd = ref_cell.get_spatial_dimension()
+        self.top = ref_cell.get_topology()
+        R = np.asarray(ref_cell.get_vertices(), dtype=np.float64)
+        self._R0, self._Rinv = R[0], np.linalg.inv((R[1:] - R[0]).T)
+
+    def _const(self, x):
+        """A numpy constant beside the vertices: numpy, or on their device."""
+        x = self.np.asarray(x, dtype=self.np.float64)
+        return x if self.torch is None else self.torch.as_tensor(x, device=self.verts.device)
+
+    def _norm(self, a):
+        if self.torch is None:
+            return self.np.linalg.norm(a, axis=-1)
+        return self.torch.linalg.vector_norm(a, dim=-1)
+
+    def _tangents(self, dim):
+        """v_1 - v_0, ..., v_dim - v_0 of each dim-entity: (nentity, dim, sd)."""
+        ids = self.np.array([self.top[dim][e] for e in sorted(self.top[dim])])
+        if self.torch is not None:
+            ids = self.torch.as_tensor(ids, device=self.verts.device)
+        V = self.verts[ids]
+        return V[:, 1:] - V[:, :1]
+
+    def jacobian_at(self, point):
+        return (self.verts[1:] - self.verts[0]).T @ self._const(self._Rinv)
+
+    def detJ_at(self, point):
+        return (self.torch or self.np).linalg.det(self.jacobian_at(point))
+
+    def cell_size(self):
+        return self._const(self.np.ones(self.sd + 1))
+
+    def reference_normals(self):
+        return self._const([self.ref_cell.compute_normal(f)
+                            for f in sorted(self.top[self.sd - 1])])
+
+    def normalized_reference_edge_tangents(self):
+        return self._const([self.ref_cell.compute_normalized_edge_tangent(e)
+                            for e in sorted(self.top[1])])
+
+    def physical_normals(self):
+        t = self._tangents(self.sd - 1)
+        if self.sd == 2:
+            n = (self.torch or self.np).stack([t[:, 0, 1], -t[:, 0, 0]], -1)
+            return n / self._norm(n)[:, None]
+        if self.torch is None:
+            n = self.np.cross(t[:, 0], t[:, 1])
+        else:
+            n = self.torch.linalg.cross(t[:, 0], t[:, 1], dim=-1)
+        return -2.0 * n / self._norm(n)[:, None]
+
+    def physical_tangents(self):
+        t = self._tangents(1)[:, 0]
+        return t / self._norm(t)[:, None]
+
+    def physical_edge_lengths(self):
+        return self._norm(self._tangents(1)[:, 0])
+
+    def physical_points(self, ps, entity=None):
+        assert entity is None
+        J = self.jacobian_at(None)
+        x = ps.points
+        if self.torch is not None and not self.torch.is_tensor(x):
+            x = self._const(x)
+        return x @ J.T + (self.verts[0] - J @ self._const(self._R0))
+
+    def physical_vertices(self):
+        return self.verts
+
+
+class QuadMapping:
+    """tests/test_direct_serendipity.py's bilinear map of the UFC square
+    onto a convex quadrilateral, the callbacks DirectSerendipity reads, on
+    numpy or tensor vertices (tensor points then)."""
+
+    def __init__(self, verts):
+        self.verts = verts
+
+    def physical_points(self, ps, entity=None):
+        assert entity is None
+        p, v = ps.points, self.verts
+        sx, sy = p[..., 0:1], p[..., 1:2]
+        return (v[0] * (1 - sx) * (1 - sy) + v[1] * (1 - sx) * sy
+                + v[2] * sx * (1 - sy) + v[3] * sx * sy)
+
+    def physical_vertices(self):
+        return self.verts
+
+
+def unisolvent_points(element, interior=False):
+    """tests/test_zany_mapping.py's ``make_unisolvent_points``."""
+    degree = element.degree()
+    ref_complex = element.get_reference_complex()
+    top = ref_complex.get_topology()
+    pts = []
+    if interior:
+        dim = ref_complex.get_spatial_dimension()
+        for entity in top[dim]:
+            pts.extend(ref_complex.make_points(dim, entity, degree + dim + 1, variant="gll"))
+    else:
+        for dim in top:
+            for entity in top[dim]:
+                pts.extend(ref_complex.make_points(dim, entity, degree, variant="gll"))
+    return pts
+
+
+def zany_physical_check(name, dim, args, kwargs, M, np):
+    """tests/test_zany_mapping.py's ``check_zany_mapping`` on the port: the
+    element's transformation ``M`` on the distorted cell (numpy, or a tensor
+    on its device, where the product runs) applied to the Piola-mapped
+    reference tables at unisolvent points reproduces the tables of the
+    element built on the physical cell; returns the max abs error."""
+    import torch
+    from fiat_tpu_torch import symbolic as sym, ufc_simplex
+    from fiat_tpu_torch.core.cells import make_affine_mapping
+    ref_cell, phys_cell = ufc_simplex(dim), ufc_simplex(dim)
+    phys_cell.vertices = distorted_vertices(dim)
+    cls = getattr(sym, name)
+    finat_element = cls(ref_cell, *args, **kwargs)
+    ref_element = finat_element._element
+    phys_element = cls(phys_cell, *args, **kwargs).fiat_equivalent
+    sd = ref_cell.get_spatial_dimension()
+    shape = ref_element.value_shape()
+    ref_vals = ref_element.tabulate(0, unisolvent_points(ref_element, True))[(0,) * sd]
+    phys_vals = phys_element.tabulate(0, unisolvent_points(phys_element, True))[(0,) * sd]
+    map_name = ref_element.mapping()[0]
+    if map_name == "affine":
+        piola_vals = ref_vals
+    else:
+        J, _ = make_affine_mapping(ref_cell.vertices, phys_cell.vertices)
+        K = []
+        if "covariant" in map_name:
+            K.append(np.linalg.inv(J).T)
+        if "contravariant" in map_name:
+            K.append(J / np.linalg.det(J))
+        piola_vals = np.zeros(ref_vals.shape)
+        for i in range(ref_vals.shape[0]):
+            for k in range(ref_vals.shape[-1]):
+                x = ref_vals[i, ..., k]
+                piola_vals[i, ..., k] = K[0] @ x @ K[-1].T if len(shape) == 2 else K[0] @ x
+    num_dofs = finat_element.space_dimension()
+    if torch.is_tensor(M):
+        zany = torch.tensordot(M, torch.as_tensor(piola_vals, device=M.device), ([-1], [0]))
+        zany = zany.cpu().numpy()
+    else:
+        zany = np.tensordot(M, piola_vals, (-1, 0))
+    return float(np.abs(zany - phys_vals[:num_dofs]).max())
+
+
+def tables_on(tabs):
+    """Every table of a (lazy) tabulation, computed: {alpha: table}."""
+    return {a: tabs[a] for a in tabs}
+
+
+def transformation_check(label, el, geom, geom_np, dev, torch, np):
+    """M from tensor geometry on the card (float64 on ``dev``) against M from
+    numpy geometry at ZANY_M_RTOL of max(1, max |M|); returns (M on the
+    card, error)."""
+    from fiat_tpu_torch.symbolic.physically_mapped import to_dense
+    M = to_dense(el.basis_transformation(geom))
+    want = to_dense(el.basis_transformation(geom_np))
+    if not (torch.is_tensor(M) and M.device == dev and M.dtype == torch.float64):
+        fail(f"{label}: M is not a float64 tensor on {dev}: {type(M).__name__}")
+    if tuple(M.shape) != want.shape:
+        fail(f"{label}: M {tuple(M.shape)}, numpy geometry's {want.shape}")
+    err = float(np.abs(M.cpu().numpy() - want).max()) / max(1.0, float(np.abs(want).max()))
+    if not err <= ZANY_M_RTOL:
+        fail(f"{label}: M on the card vs numpy geometry {err:.3e} > {ZANY_M_RTOL}")
+    return M, err
+
+
+def mesh_vertices(n, np):
+    """n distorted triangles: the UFC triangle's vertices each moved by up
+    to 0.2 in each coordinate (so every Jacobian determinant is at least
+    0.2), scaled by 0.1-2 and shifted by up to 1, from a seed."""
+    rng = np.random.default_rng(SEED + 27)
+    V = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]) + rng.uniform(-0.2, 0.2, (n, 3, 2))
+    V = V * rng.uniform(0.1, 2.0, (n, 1, 1)) + rng.uniform(-1.0, 1.0, (n, 1, 2))
+    E = V[:, 1:] - V[:, :1]
+    if not (E[:, 0, 0] * E[:, 1, 1] - E[:, 0, 1] * E[:, 1, 0] > 0).all():
+        fail("mesh: a cell with a Jacobian determinant <= 0")
+    return V
+
+
+def zany_cells_part(dev, card, torch, np):
+    """Phase 27, part 1: each of the ZANY_SCALAR and ZANY_PIOLA elements on
+    its distorted cell, the geometry's callbacks float64 tensors on the
+    card: M vs numpy geometry, ``basis_evaluation(1, UnknownPointSet(P),
+    coordinate_mapping=...)`` at 1e5 points vs the host's mapped tables,
+    the physical check on the card."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import symbolic as sym
+    from fiat_tpu_torch.symbolic.point_set import PointSet, UnknownPointSet
+    points = {2: make_points(NPTS, SEED, np), 3: make_points(NPTS, SEED, np, sd=3)}
+    on_card = {d: UnknownPointSet(torch.as_tensor(p), device=dev) for d, p in points.items()}
+    worst = {"M": 0.0, "tables": 0.0, "physical": 0.0}
+    for name, dim, args, kwargs in ZANY_SCALAR + ZANY_PIOLA:
+        label = f"zany {name}{args}{kwargs or ''} on {'T' if dim == 2 else 'S'}"
+        cell = ft.ufc_simplex(dim)
+        el = getattr(sym, name)(cell, *args, **kwargs)
+        verts = np.asarray(distorted_vertices(dim), dtype=np.float64)
+        geom, geom_np = SimplexGeometry(cell, torch.as_tensor(verts, device=dev)), \
+            SimplexGeometry(cell, verts)
+        M, m_err = transformation_check(label, el, geom, geom_np, dev, torch, np)
+        tables = tables_on(el.basis_evaluation(1, on_card[dim], coordinate_mapping=geom))
+        host = tables_on(el.basis_evaluation(1, PointSet(points[dim][:HOST_CHECK_PTS]),
+                                             coordinate_mapping=geom_np))
+        t_err = symbolic_tables_check(label, tables, host, dev, torch, np)
+        del tables
+        p_err = zany_physical_check(name, dim, args, kwargs, M, np)
+        if not p_err <= ZANY_PHYS_ATOL:
+            fail(f"{label}: the physical check on the card {p_err:.3e} > {ZANY_PHYS_ATOL}")
+        m_ms = host_timed(lambda el=el, geom=geom: el.basis_transformation(geom), torch)
+        ms = host_timed(lambda el=el, geom=geom: tables_on(el.basis_evaluation(
+            1, on_card[dim], coordinate_mapping=geom)), torch)
+        for k, v in (("M", m_err), ("tables", t_err), ("physical", p_err)):
+            worst[k] = max(worst[k], v)
+        print(f"{label}: M {tuple(M.shape)} on the card {m_ms:.2f} ms, vs numpy geometry "
+              f"{m_err:.3e} of max(1, max |M|); basis_evaluation(1) at {NPTS} points "
+              f"{ms:.2f} ms (host clock, synchronised; median of {SHARD_REPS}), vs host on "
+              f"{HOST_CHECK_PTS} points {t_err:.3e} of max(1, max |table|); physical check "
+              f"{p_err:.3e}")
+    print(f"zany part 1 ({card}): {len(ZANY_SCALAR + ZANY_PIOLA)} elements; worst M "
+          f"{worst['M']:.3e} (bar {ZANY_M_RTOL}), tables {worst['tables']:.3e} (bar "
+          f"{SYMBOLIC_RTOL}), physical {worst['physical']:.3e} (bar {ZANY_PHYS_ATOL})")
+
+
+def zany_mesh_part(dev, card, torch, np):
+    """Phase 27, part 2: M of full_zoo's six zany families over MESH_CELLS
+    distorted triangles in one ``torch.func.vmap`` of
+    ``basis_transformation`` each, MESH_SAMPLES cells held to M from numpy
+    geometry; the reference tables at a degree-MESH_RULE rule, order 1,
+    mapped for every cell in one batched product, the sampled cells held
+    to the host's mapped tables."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import symbolic as sym
+    from fiat_tpu_torch.symbolic.physically_mapped import to_dense
+    from fiat_tpu_torch.symbolic.point_set import PointSet
+    from fiat_tpu_torch.symbolic.quadrature import make_quadrature
+    T = ft.ufc_simplex(2)
+    V = mesh_vertices(MESH_CELLS, np)
+    Vc = torch.as_tensor(V, device=dev)
+    samples = np.random.default_rng(SEED + 28).choice(MESH_CELLS, MESH_SAMPLES, replace=False)
+    qpts = make_quadrature(T, MESH_RULE).point_set.points
+    for name, args in ZOO_ZANY:
+        el = getattr(sym, name)(T, *args)
+
+        def build(el=el):
+            return torch.func.vmap(lambda v: to_dense(el.basis_transformation(
+                SimplexGeometry(T, v))))(Vc)
+
+        M = build()
+        ndof, nrows = el.space_dimension(), el._element.space_dimension()
+        if tuple(M.shape) != (MESH_CELLS, ndof, nrows) or M.device != dev \
+                or not bool(torch.isfinite(M).all()):
+            fail(f"mesh {name}: M {tuple(M.shape)} on {M.device}, finite "
+                 f"{bool(torch.isfinite(M).all())}")
+        ref = el._element.tabulate(1, qpts)
+        alphas = sorted(ref)
+        R = torch.as_tensor(np.stack([ref[a] for a in alphas]), device=dev)
+
+        def mapped(M=M, R=R):
+            return torch.matmul(M[:, None], R[None])       # (cells, alphas, ndof, points)
+
+        out = mapped()
+        m_err = t_err = 0.0
+        for c in samples:
+            geom = SimplexGeometry(T, V[c])
+            want = to_dense(el.basis_transformation(geom))
+            m_err = max(m_err, float(np.abs(M[c].cpu().numpy() - want).max())
+                        / max(1.0, float(np.abs(want).max())))
+            host = el.basis_evaluation(1, PointSet(qpts), coordinate_mapping=geom)
+            got = out[c].cpu().numpy()
+            for k, a in enumerate(alphas):
+                t_err = max(t_err, float(np.abs(got[k] - host[a]).max())
+                            / max(1.0, float(np.abs(host[a]).max())))
+        if not m_err <= ZANY_M_RTOL:
+            fail(f"mesh {name}: M under vmap vs numpy geometry {m_err:.3e} > {ZANY_M_RTOL}")
+        if not t_err <= SYMBOLIC_RTOL:
+            fail(f"mesh {name}: mapped tables vs host {t_err:.3e} > {SYMBOLIC_RTOL}")
+        del out
+        build_ms, map_ms = host_timed(build, torch), host_timed(mapped, torch)
+        print(f"mesh {name}{args} ({card}): M over {MESH_CELLS} cells in one vmap "
+              f"{tuple(M.shape)}, {M.numel() * 8 / 1e6:.1f} MB, {build_ms:.2f} ms; mapped "
+              f"{len(alphas)} tables at {len(qpts)} points for every cell in one batched "
+              f"product {map_ms:.2f} ms (host clock, synchronised; median of {SHARD_REPS}); "
+              f"{MESH_SAMPLES} sampled cells vs numpy geometry: M {m_err:.3e}, tables "
+              f"{t_err:.3e}")
+        del M, R
+
+
+def zany_engine_part(dev, card, torch, np, zoo_engine=None):
+    """Phase 27, part 3: full_zoo's f64 kernel engine (phase 2's, or built
+    here), one ``block_tables`` call at ``pts2`` (K1, K2, K3 once each),
+    each zany element's blocks mapped by its M on part 1's cell through
+    ``MappedTabulation``, held to the symbolic tensor path's tables."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import device_tabulator, symbolic as sym
+    from fiat_tpu_torch.symbolic.physically_mapped import MappedTabulation
+    from fiat_tpu_torch.symbolic.point_set import UnknownPointSet
+    T = ft.ufc_simplex(2)
+    zoo_zany = full_zoo_zany(T)
+    syms = [getattr(sym, name)(T, *args) for name, args in ZOO_ZANY]
+    for s, e in zip(syms, zoo_zany):
+        a = s._element
+        same = (type(a) is type(e) and a.space_dimension() == e.space_dimension()
+                and a.entity_dofs() == e.entity_dofs()
+                and np.array_equal(a.get_coeffs(), e.get_coeffs()))
+        if not same:
+            fail(f"zany engine: {type(s).__name__}'s element is not full_zoo's {type(e).__name__}")
+    tab = zoo_engine if zoo_engine is not None else device_tabulator(full_zoo(T), order=1,
+                                                                     device=dev)
+    P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
+    ps = UnknownPointSet(P, device=dev)
+    verts = torch.as_tensor(distorted_vertices(2), dtype=torch.float64, device=dev)
+    geom = SimplexGeometry(T, verts)
+    blocks, launches = counted({"K1": tab.recurrence, "K2": tab.matmul, "K3": tab.macro},
+                               lambda: tab.block_tables(P), torch)
+    expect_launches("zany engine", launches, {"K1": 1, "K2": 1, "K3": 1})
+    per = tab.unpack(blocks)[-len(syms):]
+    worst = 0.0
+    for s, ref in zip(syms, per):
+        got = tables_on(MappedTabulation(s.basis_transformation(geom), ref))
+        want = tables_on(s.basis_evaluation(1, ps, coordinate_mapping=geom))
+        if set(got) != set(want):
+            fail(f"zany engine {type(s).__name__}: alphas {sorted(got)} != {sorted(want)}")
+        for a, w in want.items():
+            err = (got[a] - w).abs().max().item() / max(1.0, w.abs().max().item())
+            worst = max(worst, err)
+            if not err <= SYMBOLIC_RTOL:
+                fail(f"zany engine {type(s).__name__} {a}: engine + map vs tensor path "
+                     f"{err:.3e} > {SYMBOLIC_RTOL}")
+    del blocks, per
+
+    def engine_and_map():
+        per = tab.unpack(tab.block_tables(P))[-len(syms):]
+        return [tables_on(MappedTabulation(s.basis_transformation(geom), ref))
+                for s, ref in zip(syms, per)]
+
+    def tensor_path():
+        return [tables_on(s.basis_evaluation(1, ps, coordinate_mapping=geom)) for s in syms]
+
+    engine_ms, tensor_ms = host_timed(engine_and_map, torch), host_timed(tensor_path, torch)
+    print(f"zany engine ({card}): full_zoo's f64 engine, one block_tables call (K1, K2, K3 "
+          f"once each), the six zany elements' blocks mapped by their M: vs the tensor path "
+          f"{worst:.3e} of max(1, max |table|); engine + map (the whole zoo's tables, M "
+          f"built each call) {engine_ms:.2f} ms beside the tensor path of the six "
+          f"{tensor_ms:.2f} ms (host clock, synchronised; median of {SHARD_REPS})")
+
+
+def direct_serendipity_part(dev, card, torch, np):
+    """Phase 27, part 4: DirectSerendipity 1-4 on DS_VERTS, tensor vertices
+    and 1e5 tensor points on the card, held to the host's numpy
+    evaluation."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import symbolic as sym
+    from fiat_tpu_torch.symbolic.point_set import PointSet, UnknownPointSet
+    Q = ft.UFCQuadrilateral()
+    pts = np.random.default_rng(SEED + 29).random((NPTS, 2))
+    ps = UnknownPointSet(torch.as_tensor(pts), device=dev)
+    geom = QuadMapping(torch.as_tensor(DS_VERTS, dtype=torch.float64, device=dev))
+    geom_np = QuadMapping(np.asarray(DS_VERTS, dtype=np.float64))
+    for degree in (1, 2, 3, 4):
+        t0 = time.perf_counter()
+        el = sym.DirectSerendipity(Q, degree)
+        host = el.basis_evaluation(1, PointSet(pts[:HOST_CHECK_PTS]), coordinate_mapping=geom_np)
+        build_s = time.perf_counter() - t0
+        label = f"DirectSerendipity {degree}"
+        err = symbolic_tables_check(label, el.basis_evaluation(1, ps, coordinate_mapping=geom),
+                                    host, dev, torch, np)
+        ms = host_timed(lambda el=el: el.basis_evaluation(1, ps, coordinate_mapping=geom), torch)
+        print(f"{label} ({card}): {el.space_dimension()} functions, basis_evaluation(1) of tensor "
+              f"vertices at {NPTS} tensor points on the card {ms:.2f} ms (host clock, "
+              f"synchronised; median of {SHARD_REPS}), vs host on {HOST_CHECK_PTS} points "
+              f"{err:.3e} of max(1, max |table|); sympy basis and host evaluation {build_s:.1f} s")
+
+
+def zany_phase(dev, card, torch, np, zoo_engine=None):
+    """Phase 27, the physically mapped ("zany") elements on the card: parts
+    1-4 (``zany_cells_part``, ``zany_mesh_part``, ``zany_engine_part`` on
+    ``zoo_engine``, phase 2's engine, or one built here when the phase runs
+    alone, ``direct_serendipity_part``).  M and the mapped tables are torch
+    operations on the card, as fiat_tpu builds and applies M in XLA outside
+    any Pallas kernel: no kernel is counted but the engine's K1, K2 and K3
+    in part 3, which adds no kernels-line entry."""
+    print("zany: M and the mapped tables are torch operations on the card (entrywise scalar "
+          "algebra, torch.stack / cat, one product), no hand-written kernel; only part 3's "
+          "engine call launches kernels (K1, K2, K3)")
+    zany_cells_part(dev, card, torch, np)
+    zany_mesh_part(dev, card, torch, np)
+    zany_engine_part(dev, card, torch, np, zoo_engine)
+    direct_serendipity_part(dev, card, torch, np)
+    return []
+
+
+def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26, 27), tet_engine=None,
+               zoo_engine=None):
+    """Phases 22-27 (those in ``only``); returns their kernels-line entries."""
     phases = {22: lambda: rest_of_core_phase(dev, card, torch, np) or [],
               23: lambda: per_program_phase(dev, card, torch, np),
               24: lambda: jets_phase(dev, card, torch, np),
               25: lambda: sharded_phase(dev, card, torch, np),
-              26: lambda: symbolic_phase(dev, card, torch, np, tet_engine)}
+              26: lambda: symbolic_phase(dev, card, torch, np, tet_engine),
+              27: lambda: zany_phase(dev, card, torch, np, zoo_engine)}
     kernels = []
     for p in sorted(only):
         kernels += phases[p]()
@@ -4516,6 +4993,7 @@ def main():
     kernels += c1_phase(T, dev, pts2, P, card, torch, np)
     lap(9)
     tet_engine = tet64["tet_lagrange8"]       # phase 26 holds its tables to this engine's
+    zoo_engine = tab64                        # phase 27 maps this engine's zany tables
     del tab64, tet64, sv64
     kernels += zoo_phase([(sd, name, lambda sd=sd, specs=specs, comps=comps: families_zoo(
         specs, comps, ufc_simplex(sd))) for sd, name, specs, comps in (
@@ -4546,7 +5024,8 @@ def main():
     lap(20)
     kernels += tp_phase(dev, card, torch, np)
     lap(21)
-    kernels += new_phases(dev, card, torch, np, lap, tet_engine=tet_engine)
+    kernels += new_phases(dev, card, torch, np, lap, tet_engine=tet_engine,
+                          zoo_engine=zoo_engine)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -183,12 +183,15 @@ class FiniteElementBase(metaclass=ABCMeta):
 
 
 def _tensordot(a, b, axes):
-    """tensordot dispatching to torch when either operand is a tensor (the
-    other joins it on its device, in its dtype)."""
+    """tensordot dispatching to torch when either operand is a tensor: the
+    other joins it on its device, and both take their promoted dtype, as
+    ``jnp.tensordot`` promotes under x64 (a float64 numpy operand makes a
+    float32 tensor's product float64)."""
     if _is_traced(a) or _is_traced(b):
-        like = a if _is_traced(a) else b
-        a, b = (torch.as_tensor(x, dtype=like.dtype, device=like.device) for x in (a, b))
-        return torch.tensordot(a, b, [list(axes[0]), list(axes[1])])
+        device = (a if _is_traced(a) else b).device
+        a, b = (torch.as_tensor(x, device=device) for x in (a, b))
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        return torch.tensordot(a.to(dtype), b.to(dtype), [list(axes[0]), list(axes[1])])
     return np.tensordot(a, b, axes)
 
 

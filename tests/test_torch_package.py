@@ -124,6 +124,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     assert moments.moment_rows(bt, pts, np.ones(9)).device.type == "cpu"
 
 
+def test_symbolic_exports_every_public_name_of_fiat_tpus():
+    """fiat_tpu_torch.symbolic exports every public name of fiat_tpu.symbolic
+    (the zany families, MappedTabulation, PhysicalGeometry,
+    DirectSerendipity and evaluate_sympy among them), each module of
+    fiat_tpu's symbolic/ having its counterpart."""
+    import fiat_tpu.symbolic as jsym
+    import fiat_tpu_torch.symbolic as tsym
+
+    def public(module):
+        return {n for n in dir(module) if not n.startswith("_")}
+
+    assert public(jsym) <= public(tsym), sorted(public(jsym) - public(tsym))
+    ported = {p.stem for p in (PKG / "symbolic").glob("*.py")}
+    jax_side = {p.stem for p in (REPO / "fiat_tpu" / "symbolic").glob("*.py")}
+    # element_factory re-exports factory.py, which comes with the ufl layer
+    assert jax_side - ported == {"element_factory"}, sorted(jax_side - ported)
+
+
 def test_load_kernels_raises_without_nvcc(monkeypatch):
     from fiat_tpu_torch.ops import kernels
     monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
