@@ -208,7 +208,24 @@ Drives the port's main paths once each at their real size, at 1e5 points
      tensor path; (4) DirectSerendipity 1-4 with tensor vertices at 1e5
      tensor points, held to host.  M and the mapped tables are torch
      operations (fiat_tpu builds and applies M in XLA outside any Pallas
-     kernel); part 3's kernels are phase 2's and add no entry.
+     kernel); part 3's kernels are phase 2's and add no entry;
+ 28. ``factory``: element descriptions through the factory on the card:
+     (1) ``full_zoo``'s 42 elements written as ``fiat_tpu_torch.ufl``
+     descriptions (``full_zoo_descriptions``: Lagrange and DG equispaced,
+     as the factory's default is spectral), converted by ``create_element``
+     and put through ``device_tabulator(..., order=1)`` on the default
+     device at ``pts2``: K1, K2 and K3 once each a pass, each against its
+     plain version, host parity, the block tables equal bit for bit to
+     phase 2's engine, whose kernel times its entries carry (equal tables,
+     equal arrays; timed on its own engine when the phase runs alone);
+     (2) ``ElementTabulator`` on Lagrange 4 from its description (K1 +
+     K2), held to host; (3) examples/assemble_mass.py on the card, on
+     that one ``ElementTabulator``: tabulated at the degree-8 rule, M and K by
+     ``ir.contract``, sum(M) against the cell's volume, K @ 1 against 0,
+     both against a host assembly, ``ir.cost_analysis`` against the
+     analytic counts; (4) ``ir`` on the card: ``as_graph`` and
+     ``evaluate`` of the symbolic tensor path equal to the direct call,
+     ``as_graph`` of the kernel engine refused (``NotTraceable``).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -227,7 +244,7 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
     python3 chip_smoke.py --k7-cells ROOT   # K7 alone per cell, package at ROOT
     python3 chip_smoke.py --k1-cells ROOT   # K1 and K8 alone per cell, package at ROOT
-    python3 chip_smoke.py --phases 23,25    # some of phases 22-27 alone (a quick check)
+    python3 chip_smoke.py --phases 23,28    # some of phases 22-28 alone (a quick check)
 
 Prints the card's name and power limit, the build time, K3's, K45's, K6's,
 K2's and K7's registers by instantiation and the spills (it fails where K6
@@ -247,8 +264,10 @@ K2, K3, K45, K3 one row per program and float32, K6, and K8 + K2 at sd = 1
 on phase 20, K1 and K2 on phase 21's factor tables and K8 on its
 Bernstein elements (sd 1-3 at their top degrees), the per-program routes'
 K3, K2, K7, K45 and K3 float32 of phase 23, K1 and K2 under jets (phase
-24), rank 0's K45 and K2 in each world of phase 25, and K1 and K2 of
-``ElementTabulator``'s two cells in phase 26, each with its bound:
+24), rank 0's K45 and K2 in each world of phase 25, K1 and K2 of
+``ElementTabulator``'s two cells in phase 26, and K1, K2 and K3 of the
+factory-built ``full_zoo`` and K1 and K2 of its Lagrange 4 in phase 28,
+each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -730,6 +749,24 @@ def full_zoo_zany(T):
             ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T)]
 
 
+def full_zoo_descriptions(ufl):
+    """full_zoo's 42 elements as element descriptions of the package
+    ``ufl`` (the port's, or fiat_tpu's in the tests) on the triangle, in
+    full_zoo's order.  The factory's default for Lagrange and
+    discontinuous Lagrange is spectral (GaussLobattoLegendre,
+    GaussLegendre), so those name full_zoo's equispaced variant; the
+    registry fixes the zany degrees (Hermite 3, Morley 2, Argyris 5, Bell
+    5, HCT 3, PS6 2)."""
+    FE = ufl.FiniteElement
+    return ([FE("Lagrange", "triangle", p, variant="equispaced") for p in range(1, 11)]
+            + [FE("Discontinuous Lagrange", "triangle", p, variant="equispaced")
+               for p in range(1, 9)]
+            + [FE(family, "triangle", k) for family in ("RT", "N1curl", "BDM")
+               for k in range(1, 7)]
+            + [FE(family, "triangle", k) for family, k in (
+                ("HER", 3), ("MOR", 2), ("ARG", 5), ("BELL", 5), ("HCT", 3), ("PS6", 2))])
+
+
 def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     """Phase 2: the whole full_zoo on K1, K2 and K3, one launch each."""
     from fiat_tpu_torch import device_tabulator
@@ -737,59 +774,84 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     t0 = time.perf_counter()
     zoo = full_zoo(T)
     tab = device_tabulator(zoo, order=1, device=dev)
-    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    mo = tab.macro
     print(f"full_zoo host construction: {len(zoo)} elements, {tab.rows} rows x "
           f"{len(tab.alphas)} alphas, widths {tab.widths}, K3 {mo.rows} x {mo.K} over "
           f"{len(mo.nexp)} subcells (parent degree {mo.degree}), "
           f"{time.perf_counter() - t0:.2f} s")
     if len(zoo) != 42 or tab.macro is None:
         fail("full_zoo must hold 42 elements, the macro ones on K3")
-
-    phi_p = rec.plain(P)
-    k1_abs = check_kernel(f"full_zoo K1 recurrence at {NPTS} points", rec(P), phi_p, torch)
-    k2_abs = check_kernel(f"full_zoo K2 bucket matmul ({mm.total_rows} x {NPTS})",
-                          mm(phi_p), mm.plain(phi_p), torch)
-    k3_abs = check_kernel(f"full_zoo K3 macro one-shot ({mo.rows} x {NPTS})",
-                          mo(P), mo.plain(P), torch)
-    del phi_p
-
-    launches, host_err = run_main_path("full_zoo", tab, zoo, pts2, torch, np)
-    if launches != {"K1": 1, "K2": 1, "K3": 1}:
-        fail(f"full_zoo: one pass must launch K1, K2 and K3 once each: {launches}")
-
-    phi = rec(P)
-    k1_ms, k1_plain = median_ms(lambda: rec(P), torch), median_ms(lambda: rec.plain(P), torch)
-    k2_ms, k2_plain = median_ms(lambda: mm(phi), torch), median_ms(lambda: mm.plain(phi), torch)
-    # one cuBLAS DGEMM over the zero-padded stack of every group
-    A = mm.A.to(phi.device)
-    k2_lib = median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch)
-    del A
-    k3_ms, k3_plain = median_ms(lambda: mo(P), torch), median_ms(lambda: mo.plain(P), torch)
-    k3_lib = masked_gemm_ms(mo, P, torch)
+    errs, launches, host_err = full_zoo_checks("full_zoo", tab, zoo, pts2, P, torch, np)
+    ms = full_zoo_times(tab, P, torch)
+    phi = tab.recurrence(P)
     k7_ms = k7_on_k3_arrays("full_zoo", mo, phi, P, dev, torch)
     del phi
+    rec, mm = tab.recurrence, tab.matmul
     path_ms = median_ms(lambda: tab.block_tables(P), torch)
     plain_ms = median_ms(lambda: (mm.plain(rec.plain(P)), mo.plain(P)), torch)
     gbytes = (mm.total_rows + mo.rows) * NPTS * 8 / 1e9
     print(f"full_zoo timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
           f"kernel path {path_ms:.4f} ms, plain path {plain_ms:.4f} ms; "
-          f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}), K2 {k2_ms:.4f} ms = {k2_rates(mm, k2_ms)} "
-          f"(plain {k2_plain:.4f}, one padded DGEMM {k2_lib:.4f}), K3 {k3_ms:.4f} ms (plain "
-          f"{k3_plain:.4f}, one DGEMM "
-          f"on the masked B {k3_lib:.4f}, K7 on K1's Phi {k7_ms:.4f}); "
+          f"K1 {ms['K1']:.4f} ms (plain {ms['K1 plain']:.4f}), K2 {ms['K2']:.4f} ms = "
+          f"{k2_rates(mm, ms['K2'])} (plain {ms['K2 plain']:.4f}, one padded DGEMM "
+          f"{ms['K2 library']:.4f}), K3 {ms['K3']:.4f} ms (plain {ms['K3 plain']:.4f}, one DGEMM "
+          f"on the masked B {ms['K3 library']:.4f}, K7 on K1's Phi {k7_ms:.4f}); "
           f"a pass writes {gbytes:.3f} GB "
           f"= {gbytes / path_ms:.3f} TB/s; host error {host_err:.3e}")
+    return tab, full_zoo_entries(tab, errs, launches, ms), ms
 
-    return tab, [
-        entry("K1 dubiner2_values", "fiat_tpu_torch/csrc/recurrence.cu",
-              "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain,
-              rec_bound(rec, NPTS)),
-        entry("K2 bucket_matmul", "fiat_tpu_torch/csrc/bucket_matmul.cu",
-              "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain,
-              matmul_bound(mm, NPTS), k2_lib),
-        entry("K3 macro_oneshot", "fiat_tpu_torch/csrc/macro_oneshot.cu",
-              "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], k3_abs, k3_ms, k3_plain,
-              macro_bound(mo, NPTS), k3_lib),
+
+def full_zoo_checks(label, tab, zoo, pts2, P, torch, np):
+    """``full_zoo``'s kernels on ``tab``, its f64 engine: K1, K2 and K3
+    each against its plain version at P, then one pass of the main path
+    (K1, K2 and K3 once each, host parity).  Returns ({kernel: max abs
+    error}, {kernel: launches}, the host error)."""
+    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    phi_p = rec.plain(P)
+    errs = {"K1": check_kernel(f"{label} K1 recurrence at {NPTS} points", rec(P), phi_p, torch),
+            "K2": check_kernel(f"{label} K2 bucket matmul ({mm.total_rows} x {NPTS})",
+                               mm(phi_p), mm.plain(phi_p), torch),
+            "K3": check_kernel(f"{label} K3 macro one-shot ({mo.rows} x {NPTS})",
+                               mo(P), mo.plain(P), torch)}
+    del phi_p
+    launches, host_err = run_main_path(label, tab, zoo, pts2, torch, np)
+    if launches != {"K1": 1, "K2": 1, "K3": 1}:
+        fail(f"{label}: one pass must launch K1, K2 and K3 once each: {launches}")
+    return errs, launches, host_err
+
+
+def full_zoo_times(tab, P, torch):
+    """Each of ``full_zoo``'s kernels on ``tab``, its plain version and its
+    library call (K2: one padded DGEMM; K3: one DGEMM on the masked B),
+    timed at P: the times by name."""
+    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    phi = rec(P)
+    A = mm.A.to(phi.device)
+    return {"K1": median_ms(lambda: rec(P), torch),
+            "K1 plain": median_ms(lambda: rec.plain(P), torch),
+            "K2": median_ms(lambda: mm(phi), torch),
+            "K2 plain": median_ms(lambda: mm.plain(phi), torch),
+            "K2 library": median_ms(lambda: torch.matmul(A, phi[:mm.max_k]), torch),
+            "K3": median_ms(lambda: mo(P), torch),
+            "K3 plain": median_ms(lambda: mo.plain(P), torch),
+            "K3 library": masked_gemm_ms(mo, P, torch)}
+
+
+def full_zoo_entries(tab, errs, launches, ms, suffix=""):
+    """The kernels-line entries of ``full_zoo``'s K1, K2 and K3 on
+    ``tab`` (``full_zoo_checks``' errors and launches,
+    ``full_zoo_times``' times)."""
+    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    return [
+        entry("K1 dubiner2_values" + suffix, "fiat_tpu_torch/csrc/recurrence.cu",
+              "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], errs["K1"], ms["K1"],
+              ms["K1 plain"], rec_bound(rec, NPTS)),
+        entry("K2 bucket_matmul" + suffix, "fiat_tpu_torch/csrc/bucket_matmul.cu",
+              "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], errs["K2"], ms["K2"],
+              ms["K2 plain"], matmul_bound(mm, NPTS), ms["K2 library"]),
+        entry("K3 macro_oneshot" + suffix, "fiat_tpu_torch/csrc/macro_oneshot.cu",
+              "fiat_tpu/ops/pallas_multiword.py:652", launches["K3"], errs["K3"], ms["K3"],
+              ms["K3 plain"], macro_bound(mo, NPTS), ms["K3 library"]),
     ]
 
 
@@ -4264,16 +4326,18 @@ def symbolic_tables_check(name, tables, host, dev, torch, np):
     return worst
 
 
-def element_tabulator_cell(name, el, pts, card, torch, np, reference=None):
-    """``ElementTabulator(el, order=1)`` on the default device at ``pts``:
-    one K1 and one K2 launch a call, each kernel against its plain version,
-    the tables against host el.tabulate (and, where given, equal to
-    ``reference``, another engine's tables); returns (its K1 and K2
-    kernels-line entries, the call's ms)."""
+def element_tabulator_cell(name, el, pts, card, torch, np, reference=None, tab=None):
+    """``ElementTabulator(el, order=1)`` on the default device (``tab``
+    where the caller built it) at ``pts``: one K1 and one K2 launch a
+    call, each kernel against its plain version, the tables against host
+    el.tabulate (and, where given, equal to ``reference``, another
+    engine's tables); returns (its K1 and K2 kernels-line entries, the
+    call's ms)."""
     from fiat_tpu_torch.ops.tabulate import ElementTabulator
     dev = torch.device("cuda", 0)
     P = torch.as_tensor(pts, device=dev)
-    tab = ElementTabulator(el, order=1)            # the default device: the card
+    if tab is None:
+        tab = ElementTabulator(el, order=1)        # the default device: the card
     if tab.device != dev:
         fail(f"{name}: ElementTabulator on {tab.device}, not {dev}")
     rec, mm = tab.recurrence, tab.matmul
@@ -4902,15 +4966,197 @@ def zany_phase(dev, card, torch, np, zoo_engine=None):
     return []
 
 
-def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26, 27), tet_engine=None,
-               zoo_engine=None):
-    """Phases 22-27 (those in ``only``); returns their kernels-line entries."""
+# -- phase 28: descriptions through the factory -------------------------------------------
+
+MASS_DEGREE = 4           # examples/assemble_mass.py's Lagrange 4, at its degree-8 rule
+MASS_VOLUME_ATOL = 1e-14  # sum(M) vs the cell's volume
+MASS_NULL_ATOL = 1e-12    # |K @ 1|: the stiffness matrix annihilates constants
+MASS_HOST_RTOL = 1e-13    # M, K on the card vs a host numpy assembly, of max(1, max |entry|)
+
+
+def factory_zoo_part(dev, card, torch, np, zoo_engine=None, zoo_ms=None):
+    """Phase 28, part 1: full_zoo's 42 elements written as descriptions
+    (``full_zoo_descriptions``), converted by ``create_element`` and put
+    through ``device_tabulator(..., order=1)`` on the default device: each
+    kernel against its plain version, one pass that launches K1, K2 and K3
+    once each, host parity, and the block tables equal bit for bit to
+    ``zoo_engine``'s (phase 2's engine on ``full_zoo(T)``; built here when
+    the phase runs alone).  Equal tables come from equal arrays, so the
+    kernels' times are phase 2's (``zoo_ms``), measured on this engine only
+    when the phase runs alone.  Returns (the K1, K2 and K3 entries, the
+    engine, the points on the card)."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import create_element, device_tabulator, ufl
+
+    T = ft.ufc_simplex(2)
+    pts2 = make_points(NPTS, SEED, np)
+    P = torch.as_tensor(pts2, device=dev)
+    t0 = time.perf_counter()
+    descs = full_zoo_descriptions(ufl)
+    zoo = [create_element(d).fiat_equivalent for d in descs]
+    t_elements = time.perf_counter() - t0
+    tab = device_tabulator(zoo, order=1)            # the default device: the card
+    t_build = time.perf_counter() - t0
+    mo = tab.macro
+    if len(zoo) != 42 or mo is None or tab.device != dev:
+        fail(f"factory full_zoo: {len(zoo)} elements on {tab.device}, macro {mo is not None}")
+    print(f"factory full_zoo host construction ({card}; host clock): 42 descriptions -> "
+          f"create_element -> fiat_equivalent {t_elements:.3f} s, + device_tabulator "
+          f"{t_build:.3f} s in all; {tab.rows} rows x {len(tab.alphas)} alphas, widths "
+          f"{tab.widths}, K3 {mo.rows} x {mo.K} over {len(mo.nexp)} subcells")
+
+    errs, launches, host_err = full_zoo_checks("factory full_zoo", tab, zoo, pts2, P, torch, np)
+    if zoo_engine is None:
+        zoo_engine = device_tabulator(full_zoo(T), order=1)
+    got, want = tab.block_tables(P), zoo_engine.block_tables(P)
+    same = set(got) == set(want) and all(
+        len(got[a]) == len(want[a]) and all(torch.equal(g, w) for g, w in zip(got[a], want[a]))
+        for a in want)
+    print(f"factory full_zoo block tables equal to phase 2's engine on full_zoo(T): {same}")
+    if not same:
+        fail("factory full_zoo: block tables differ from phase 2's full_zoo engine")
+    del got, want
+    path_ms = median_ms(lambda: tab.block_tables(P), torch)
+    source = "phase 2's, on equal arrays"
+    if zoo_ms is None:
+        zoo_ms, source = full_zoo_times(tab, P, torch), "this engine's"
+    print(f"factory full_zoo timing ({card}; median of {REPS} runs of {INNER}, CUDA events): "
+          f"pass {path_ms:.4f} ms; host error {host_err:.3e}; the kernels' times are {source}")
+    return (full_zoo_entries(tab, errs, launches, zoo_ms, " (factory full_zoo)"), tab, P)
+
+
+def mass_stiffness_part(desc, el, tab, dev, card, torch, np):
+    """Phase 28, part 3: examples/assemble_mass.py on the card.  ``el``,
+    the description ``desc`` (Lagrange 4, equispaced) through the factory,
+    tabulated by ``tab``, its ``ElementTabulator`` (K1 + K2, one launch
+    each), at ``create_quadrature(T, 8)``'s points, M and K formed by
+    ``ir.contract``; sum(M) against the cell's volume, K @ 1 against 0,
+    both against a host numpy assembly from ``tabulate``, and
+    ``ir.cost_analysis`` of the contractions against their analytic
+    counts."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import create_quadrature, ir
+
+    cell = ft.ufc_simplex(2)
+    Q = create_quadrature(cell, 2 * MASS_DEGREE)
+    qp, qw = Q.get_points(), Q.get_weights()
+    X, W = torch.as_tensor(qp, device=dev), torch.as_tensor(qw, device=dev)
+    tables, launches = counted({"K1": tab.recurrence, "K2": tab.matmul}, lambda: tab(X), torch)
+    expect_launches("mass/stiffness ElementTabulator", launches, {"K1": 1, "K2": 1})
+    phi = tables[(0, 0)]
+    grads = torch.stack([tables[(1, 0)], tables[(0, 1)]])
+
+    def assemble():
+        return (ir.contract("iq,q,jq->ij", phi, W, phi),
+                ir.contract("kiq,q,kjq->ij", grads, W, grads))
+
+    M, K = assemble()
+    ms = host_timed(assemble, torch)
+    n, nq = phi.shape
+    host = el.tabulate(1, qp)
+    Mh = (host[(0, 0)] * qw) @ host[(0, 0)].T
+    Gh = np.stack([host[(1, 0)], host[(0, 1)]])
+    Kh = np.einsum("kiq,q,kjq->ij", Gh, qw, Gh)
+    Mc, Kc = M.cpu().numpy(), K.cpu().numpy()
+    volume_err = abs(Mc.sum() - cell.volume())
+    null_err = float(np.abs(Kc @ np.ones(n)).max())
+    m_err = float(np.abs(Mc - Mh).max()) / max(1.0, float(np.abs(Mh).max()))
+    k_err = float(np.abs(Kc - Kh).max()) / max(1.0, float(np.abs(Kh).max()))
+    product = ir.cost_analysis(lambda a, b: ir.contract("iq,jq->ij", a, b), phi * W, phi)
+    chain = ir.cost_analysis(lambda a, w: ir.contract("iq,q,jq->ij", a, w, a), phi, W)
+    print(f"mass/stiffness ({card}): {desc} ({n} dofs) at the degree-{2 * MASS_DEGREE} rule "
+          f"({nq} points) on the card, M and K by ir.contract in {ms:.3f} ms (host clock, "
+          f"synchronised); |sum(M) - volume| {volume_err:.3e}, |K @ 1| {null_err:.3e}, vs host "
+          f"M {m_err:.3e}, K {k_err:.3e} of max(1, max |entry|); cost_analysis flops: product "
+          f"{product['flops']:.0f} (2 n n nq = {2 * n * n * nq}), iq,q,jq->ij {chain['flops']:.0f} "
+          f"(n nq + 2 n n nq = {n * nq + 2 * n * n * nq})")
+    if not volume_err <= MASS_VOLUME_ATOL:
+        fail(f"mass: sum(M) is {volume_err:.3e} from the cell's volume > {MASS_VOLUME_ATOL}")
+    if not null_err <= MASS_NULL_ATOL:
+        fail(f"stiffness: |K @ 1| {null_err:.3e} > {MASS_NULL_ATOL}")
+    if not max(m_err, k_err) <= MASS_HOST_RTOL:
+        fail(f"mass/stiffness vs host: M {m_err:.3e}, K {k_err:.3e} > {MASS_HOST_RTOL}")
+    if product["flops"] != 2 * n * n * nq or chain["flops"] != n * nq + 2 * n * n * nq:
+        fail(f"cost_analysis: {product['flops']} / {chain['flops']} flops, not the analytic "
+             f"{2 * n * n * nq} / {n * nq + 2 * n * n * nq}")
+
+
+def ir_part(dev, card, torch, np, P, engine):
+    """Phase 28, part 4: ``ir`` on the card.  ``as_graph`` of the symbolic
+    tensor path (Lagrange 4's ``basis_evaluation(1, UnknownPointSet(P))``)
+    called on ``P`` equals the direct call bit for bit, ``evaluate`` on the
+    host points moved to the card (its default) too; ``as_graph`` of the
+    kernel engine's ``block_tables`` raises ``NotTraceable``: its kernels
+    are launched through ctypes and no trace can hold them."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import ir, symbolic as sym
+    from fiat_tpu_torch.symbolic import UnknownPointSet
+
+    el = sym.Lagrange(ft.ufc_simplex(2), 4)
+
+    def tables(p):
+        return el.basis_evaluation(1, UnknownPointSet(p))   # the default device: the card
+
+    t0 = time.perf_counter()
+    gm = ir.as_graph(tables, P)
+    trace_s = time.perf_counter() - t0
+    direct, traced = tables(P), gm(P)
+    evaluated = ir.evaluate(tables, P.cpu().numpy())
+    same = set(direct) == set(traced) == set(evaluated) and all(
+        traced[a].device == dev and torch.equal(traced[a], direct[a])
+        and torch.equal(evaluated[a], direct[a]) for a in direct)
+    nodes = sum(1 for n in gm.graph.nodes if n.op == "call_function")
+    graph_ms = host_timed(lambda: gm(P), torch)
+    direct_ms = host_timed(lambda: tables(P), torch)
+    print(f"ir on the card ({card}): as_graph of symbolic Lagrange 4 basis_evaluation(1) at "
+          f"{NPTS} points: {nodes} aten calls, traced in {trace_s:.2f} s (host clock); graph "
+          f"call {graph_ms:.2f} ms, direct call {direct_ms:.2f} ms (host clock, synchronised); "
+          f"graph and evaluate equal to the direct call: {same}")
+    if not same:
+        fail("ir: the traced graph or evaluate differs from the direct call on the card")
+    del direct, traced, evaluated
+    try:
+        ir.as_graph(engine.block_tables, P)
+    except ir.NotTraceable as exc:
+        print(f"ir: as_graph of the kernel engine's block_tables refused: {str(exc)[:120]}...")
+    else:
+        fail("ir: as_graph traced the kernel engine, whose ctypes launches no graph holds")
+
+
+def factory_phase(dev, card, torch, np, zoo_engine=None, zoo_ms=None):
+    """Phase 28, descriptions through the factory on the card: parts 1-4
+    (``factory_zoo_part`` on ``zoo_engine`` and ``zoo_ms``, phase 2's
+    engine and kernel times, or its own when the phase runs alone; Lagrange
+    4 from its description, its one ``ElementTabulator`` through
+    ``element_tabulator_cell`` and ``mass_stiffness_part``; ``ir_part``).
+    Returns the kernels-line entries of parts 1 and 2."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import create_element, ufl
+    from fiat_tpu_torch.ops.tabulate import ElementTabulator
+
+    kernels, engine, P = factory_zoo_part(dev, card, torch, np, zoo_engine, zoo_ms)
+    desc = ufl.FiniteElement("Lagrange", "triangle", MASS_DEGREE, variant="equispaced")
+    lag4 = create_element(desc).fiat_equivalent
+    if type(lag4) is not ft.Lagrange:
+        fail(f"factory: Lagrange 4 equispaced became {type(lag4).__name__}")
+    tab = ElementTabulator(lag4, order=1)           # the default device: the card
+    el_kernels, _ = element_tabulator_cell("ElementTabulator factory lagrange4", lag4,
+                                           make_points(NPTS, SEED, np), card, torch, np, tab=tab)
+    mass_stiffness_part(desc, lag4, tab, dev, card, torch, np)
+    ir_part(dev, card, torch, np, P, engine)
+    return kernels + el_kernels
+
+
+def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26, 27, 28), tet_engine=None,
+               zoo_engine=None, zoo_ms=None):
+    """Phases 22-28 (those in ``only``); returns their kernels-line entries."""
     phases = {22: lambda: rest_of_core_phase(dev, card, torch, np) or [],
               23: lambda: per_program_phase(dev, card, torch, np),
               24: lambda: jets_phase(dev, card, torch, np),
               25: lambda: sharded_phase(dev, card, torch, np),
               26: lambda: symbolic_phase(dev, card, torch, np, tet_engine),
-              27: lambda: zany_phase(dev, card, torch, np, zoo_engine)}
+              27: lambda: zany_phase(dev, card, torch, np, zoo_engine),
+              28: lambda: factory_phase(dev, card, torch, np, zoo_engine, zoo_ms)}
     kernels = []
     for p in sorted(only):
         kernels += phases[p]()
@@ -4972,7 +5218,7 @@ def main():
 
     slice_phase(T, dev, pts2, P, card, torch, np)
     lap(1)
-    tab64, kernels = full_zoo_phase(T, dev, pts2, P, card, torch, np)
+    tab64, kernels, zoo_ms = full_zoo_phase(T, dev, pts2, P, card, torch, np)
     lap(2)
     ref64 = tab64(P)
     kernels += moments_phase(T, dev, pts2, P, card, torch, np)
@@ -4993,7 +5239,7 @@ def main():
     kernels += c1_phase(T, dev, pts2, P, card, torch, np)
     lap(9)
     tet_engine = tet64["tet_lagrange8"]       # phase 26 holds its tables to this engine's
-    zoo_engine = tab64                        # phase 27 maps this engine's zany tables
+    zoo_engine = tab64                        # phase 27 maps its zany tables, 28 matches them
     del tab64, tet64, sv64
     kernels += zoo_phase([(sd, name, lambda sd=sd, specs=specs, comps=comps: families_zoo(
         specs, comps, ufc_simplex(sd))) for sd, name, specs, comps in (
@@ -5025,7 +5271,7 @@ def main():
     kernels += tp_phase(dev, card, torch, np)
     lap(21)
     kernels += new_phases(dev, card, torch, np, lap, tet_engine=tet_engine,
-                          zoo_engine=zoo_engine)
+                          zoo_engine=zoo_engine, zoo_ms=zoo_ms)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,22 +15,16 @@ from fiat_tpu_torch.core.finite_element import (  # noqa: F401
     CiarletElement, FiniteElement, entity_support_dofs)
 from fiat_tpu_torch.core.quadrature import make_quadrature  # noqa: F401
 from fiat_tpu_torch.core.quadrature_schemes import create_quadrature  # noqa: F401
-from fiat_tpu_torch.elements import (  # noqa: F401
-    DPC, AlfeldC2, AlfeldSorokina, Argyris, ArnoldQin, ArnoldWinther, ArnoldWintherNC, Bell,
-    BernardiRaugel, Bernstein, BrambleZlamalC2, BrezziDouglasFortinMarini,
-    BrezziDouglasMarini, BrezziDouglasMariniCubeEdge, BrezziDouglasMariniCubeFace, Bubble,
-    ChristiansenHu, CrouzeixRaviart, CubicHermite, DiscontinuousElement,
-    DiscontinuousLagrange, DiscontinuousRaviartThomas, DiscontinuousTaylor, EnrichedElement,
-    FacetBubble, FDMBrokenH1, FDMBrokenL2, FDMDiscontinuousLagrange, FDMHermite, FDMLagrange,
-    FDMQuadrature, FlattenedDimensions, GaussLegendre, GaussLobattoLegendre, GaussRadau,
-    GopalakrishnanLedererSchoberlFirstKind, GopalakrishnanLedererSchoberlSecondKind,
-    GuzmanNeilanFirstKindH1, GuzmanNeilanH1div, GuzmanNeilanSecondKindH1, Hcurl, Hdiv,
-    HDivTrace, HellanHerrmannJohnson, Histopolation, HsiehCloughTocher, HuZhang,
-    IntegratedLegendre, JohnsonMercier, KongMulderVeldhuizen, Lagrange, Legendre,
-    MardalTaiWinther, MixedElement, Morley, Nedelec, NedelecSecondKind,
-    NodalEnrichedElement, P0, QuadratureElement, QuadraticPowellSabin6,
-    QuadraticPowellSabin12, RaviartThomas, Regge, RestrictedElement, Serendipity,
-    TensorProductElement, TrimmedSerendipityCurl, TrimmedSerendipityDiv,
-    TrimmedSerendipityEdge, TrimmedSerendipityFace, Walkington, WuXuH3NC, WuXuRobustH3NC)
+from fiat_tpu_torch.elements import *  # noqa: F401,F403
+from fiat_tpu_torch.elements import extra_elements, supported_elements  # noqa: F401
 from fiat_tpu_torch.ops import device_tabulator  # noqa: F401
 from fiat_tpu_torch.ops.kernels import load_kernels  # noqa: F401
+
+# subpackages re-exported as fiat_tpu's root re-exports them:
+# fiat_tpu_torch.symbolic (the symbolic element layer), fiat_tpu_torch.ufl
+# (element descriptions), fiat_tpu_torch.factory (descriptions -> symbolic
+# elements)
+from fiat_tpu_torch import symbolic  # noqa: E402,F401
+from fiat_tpu_torch import ufl  # noqa: E402,F401
+from fiat_tpu_torch.factory import (  # noqa: E402,F401
+    as_fiat_cell, create_base_element, create_element)

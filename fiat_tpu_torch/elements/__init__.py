@@ -1,4 +1,5 @@
-"""The element families ported so far, under fiat_tpu's names.
+"""The element families, under fiat_tpu's names, with its registry
+(``supported_elements``, ``extra_elements``: the same keys).
 
 * ``full_zoo``'s triangle families (plus PS12): Lagrange and
   DiscontinuousLagrange (also on Alfeld, Worsey-Farin and Powell-Sabin
@@ -86,3 +87,69 @@ from .trimmed_serendipity import (  # noqa: F401
     TrimmedSerendipityFace)
 from .walkington import Walkington  # noqa: F401
 from .wuxu import WuXuH3NC, WuXuRobustH3NC  # noqa: F401
+
+#: family name -> element class (parity with FIAT/__init__.py:72-131 and
+#: with ``fiat_tpu.elements``' registry, same keys)
+supported_elements = {
+    "Argyris": Argyris,
+    "Bell": Bell,
+    "Bernardi-Raugel": BernardiRaugel,
+    "Bernstein": Bernstein,
+    "Brezzi-Douglas-Marini": BrezziDouglasMarini,
+    "Brezzi-Douglas-Fortin-Marini": BrezziDouglasFortinMarini,
+    "Bubble": Bubble,
+    "FacetBubble": FacetBubble,
+    "Crouzeix-Raviart": CrouzeixRaviart,
+    "Discontinuous Lagrange": DiscontinuousLagrange,
+    "S": Serendipity,
+    "DPC": DPC,
+    "Discontinuous Taylor": DiscontinuousTaylor,
+    "Discontinuous Raviart-Thomas": DiscontinuousRaviartThomas,
+    "Hermite": CubicHermite,
+    "Nonconforming Wu-Xu": WuXuH3NC,
+    "Nonconforming Robust Wu-Xu": WuXuRobustH3NC,
+    "Hsieh-Clough-Tocher": HsiehCloughTocher,
+    "QuadraticPowellSabin6": QuadraticPowellSabin6,
+    "QuadraticPowellSabin12": QuadraticPowellSabin12,
+    "Alfeld C2": AlfeldC2,
+    "Bramble-Zlamal C2": BrambleZlamalC2,
+    "Alfeld-Sorokina": AlfeldSorokina,
+    "Arnold-Qin": ArnoldQin,
+    "Christiansen-Hu": ChristiansenHu,
+    "Guzman-Neilan 1st kind H1": GuzmanNeilanFirstKindH1,
+    "Guzman-Neilan 2nd kind H1": GuzmanNeilanSecondKindH1,
+    "Guzman-Neilan H1(div)": GuzmanNeilanH1div,
+    "Johnson-Mercier": JohnsonMercier,
+    "Lagrange": Lagrange,
+    "Kong-Mulder-Veldhuizen": KongMulderVeldhuizen,
+    "Gauss-Lobatto-Legendre": GaussLobattoLegendre,
+    "Gauss-Legendre": GaussLegendre,
+    "Gauss-Radau": GaussRadau,
+    "Histopolation": Histopolation,
+    "Legendre": Legendre,
+    "Integrated Legendre": IntegratedLegendre,
+    "Morley": Morley,
+    "Nedelec 1st kind H(curl)": Nedelec,
+    "Nedelec 2nd kind H(curl)": NedelecSecondKind,
+    "Raviart-Thomas": RaviartThomas,
+    "Regge": Regge,
+    "HDiv Trace": HDivTrace,
+    "Hellan-Herrmann-Johnson": HellanHerrmannJohnson,
+    "Gopalakrishnan-Lederer-Schoberl 1st kind":
+        GopalakrishnanLedererSchoberlFirstKind,
+    "Gopalakrishnan-Lederer-Schoberl 2nd kind":
+        GopalakrishnanLedererSchoberlSecondKind,
+    "Conforming Arnold-Winther": ArnoldWinther,
+    "Nonconforming Arnold-Winther": ArnoldWintherNC,
+    "Hu-Zhang": HuZhang,
+    "Mardal-Tai-Winther": MardalTaiWinther,
+    "Walkington": Walkington,
+    "SminusF": TrimmedSerendipityFace,
+    "SminusDiv": TrimmedSerendipityDiv,
+    "SminusE": TrimmedSerendipityEdge,
+    "SminusCurl": TrimmedSerendipityCurl,
+    "Brezzi-Douglas-Marini Cube Face": BrezziDouglasMariniCubeFace,
+    "Brezzi-Douglas-Marini Cube Edge": BrezziDouglasMariniCubeEdge,
+}
+
+extra_elements = {"P0": P0}

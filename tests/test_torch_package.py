@@ -30,7 +30,10 @@ def test_import_leaves_jax_and_fiat_tpu_out():
             "fiat_tpu_torch.elements.bernstein, fiat_tpu_torch.elements.serendipity, "
             "fiat_tpu_torch.elements.sympy_vector, fiat_tpu_torch.elements.bdm_cube, "
             "fiat_tpu_torch.elements.trimmed_serendipity, fiat_tpu_torch.parallel, "
-            "fiat_tpu_torch.parallel.sharding, fiat_tpu_torch.symbolic\n"
+            "fiat_tpu_torch.parallel.sharding, fiat_tpu_torch.symbolic, fiat_tpu_torch.ufl, "
+            "fiat_tpu_torch.factory, fiat_tpu_torch.ir, "
+            "fiat_tpu_torch.symbolic.element_factory\n"
+
             "from fiat_tpu_torch.core.quadrature_schemes import create_quadrature\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(2), 6)\n"
             "create_quadrature(fiat_tpu_torch.ufc_simplex(3), 9)\n"
@@ -39,6 +42,7 @@ def test_import_leaves_jax_and_fiat_tpu_out():
             "q2 = ft.FlattenedDimensions(ft.TensorProductElement(ft.Lagrange(I, 2), "
             "ft.Lagrange(I, 2)))\n"
             "q2.tabulate(1, [[0.2, 0.3]])\n"
+            "ft.create_element(ft.ufl.FiniteElement('RTCF', 'quadrilateral', 2))\n"
             "ft.TrimmedSerendipityEdge(ft.UFCHexahedron(), 2).tabulate(1, [[0.2, 0.3, 0.4]])\n"
             "from fiat_tpu_torch.core import elimquad\n"
             "elimquad.rule_size(8, 2), elimquad.rule_size(8, 3)\n"
@@ -111,7 +115,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
              lambda: moments.MomentEngine.from_arrays(**bt.state()),
              lambda: ElementTabulator(zoo[0], order=1),
              lambda: UnknownPointSet(np.zeros((3, 2))),
-             lambda: UnknownPointSet(torch.zeros((3, 2)))]
+             lambda: UnknownPointSet(torch.zeros((3, 2))),
+             lambda: ft.ir.evaluate(torch.sin, np.zeros(3)),
+             lambda: ft.ir.contract("ij,jk,kl->il", *[np.eye(3)] * 3),
+             lambda: ft.ir.contract("ij,jk->ik", np.eye(3), np.eye(3))]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
@@ -120,6 +127,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     assert tab.block_tables(pts)[(0, 0)][0].device.type == "cpu"
     assert ElementTabulator(zoo[0], order=1, device="cpu")(pts)[(0, 1)].device.type == "cpu"
     assert UnknownPointSet(pts, device="cpu").points.device.type == "cpu"
+    assert ft.ir.contract("ij,jk->ik", np.eye(3), np.eye(3), device="cpu").device.type == "cpu"
     # the moments functions build their engine on the tabulator's device
     assert moments.moment_rows(bt, pts, np.ones(9)).device.type == "cpu"
 
@@ -138,8 +146,49 @@ def test_symbolic_exports_every_public_name_of_fiat_tpus():
     assert public(jsym) <= public(tsym), sorted(public(jsym) - public(tsym))
     ported = {p.stem for p in (PKG / "symbolic").glob("*.py")}
     jax_side = {p.stem for p in (REPO / "fiat_tpu" / "symbolic").glob("*.py")}
-    # element_factory re-exports factory.py, which comes with the ufl layer
-    assert jax_side - ported == {"element_factory"}, sorted(jax_side - ported)
+    assert jax_side - ported == set(), sorted(jax_side - ported)
+
+
+def test_root_elements_and_ir_export_every_public_name_of_fiat_tpus():
+    """The port's root and its elements package export every public name of
+    fiat_tpu's (the registry, the factory's entry points, symbolic and
+    ufl among them); ir exports fiat_tpu.ir's __all__ with as_jaxpr
+    renamed as_graph (the graph is torch.fx's, not a jaxpr)."""
+    import fiat_tpu
+    import fiat_tpu.elements as jel
+    import fiat_tpu.ir as jir
+    import fiat_tpu_torch
+    import fiat_tpu_torch.elements as tel
+    import fiat_tpu_torch.ir as tir
+
+    def public(module):
+        return {n for n in dir(module) if not n.startswith("_")}
+
+    for jax_side, ported in ((fiat_tpu, fiat_tpu_torch), (jel, tel)):
+        assert public(jax_side) <= public(ported), sorted(public(jax_side) - public(ported))
+    assert list(tel.supported_elements) == list(jel.supported_elements)
+    assert {k: v.__name__ for k, v in tel.supported_elements.items()} == {
+        k: v.__name__ for k, v in jel.supported_elements.items()}
+    assert list(tel.extra_elements) == list(jel.extra_elements)
+    assert fiat_tpu_torch.supported_elements is tel.supported_elements
+    renamed = {"as_jaxpr": "as_graph"}
+    assert set(tir.__all__) == {renamed.get(n, n) for n in jir.__all__}
+    assert all(callable(getattr(tir, n)) for n in tir.__all__)
+    assert public(jir) - {"jax", "jnp", "np"} - set(renamed) <= public(tir)
+
+
+#: fiat_tpu modules left out of the port on purpose: the Pallas kernels
+#: (ported as CUDA sources under csrc/), the TPU's float-pair and multiword
+#: arithmetic, and the TPU runtime's probes
+LEFT_OUT = {"ops/pallas_bernstein.py", "ops/pallas_multiword.py", "ops/pallas_recurrence.py",
+            "ops/pallas_tabulate.py", "ops/doublefloat.py", "ops/multiword.py",
+            "utils/runtime.py"}
+
+
+def test_every_module_of_fiat_tpu_has_its_counterpart():
+    jax_side = {str(p.relative_to(REPO / "fiat_tpu")) for p in (REPO / "fiat_tpu").rglob("*.py")}
+    ported = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert jax_side - ported == LEFT_OUT, sorted(jax_side - ported)
 
 
 def test_load_kernels_raises_without_nvcc(monkeypatch):
@@ -156,7 +205,8 @@ def test_load_kernels_raises_without_nvcc(monkeypatch):
 def test_pyproject_ships_the_port():
     cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
     packages = cfg["tool"]["setuptools"]["packages"]
-    for sub in ("", ".core", ".elements", ".ops", ".parallel", ".symbolic", ".utils"):
+    for sub in ("", ".core", ".elements", ".ir", ".ops", ".parallel", ".symbolic", ".ufl",
+                ".utils"):
         assert "fiat_tpu_torch" + sub in packages
     data = cfg["tool"]["setuptools"]["package-data"]["fiat_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
