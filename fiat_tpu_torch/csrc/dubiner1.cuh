@@ -16,6 +16,10 @@
 // pointer or a ConstTable, dubiner2.cuh):
 //   consts[4*i + {0,1,2,3}], i = 0..N          level i: a, b, c, norm
 // N == 0 calls emit(0, scale) and reads no constants.
+//
+// dubiner1_point_n(n, ...) is the same recurrence at a degree n given at
+// run time (the kernels' generic instantiations past their unrolled
+// degrees), its constants through the read-only cache.
 
 #pragma once
 
@@ -46,6 +50,30 @@ __device__ __forceinline__ void dubiner1_point(T x0, const Consts& consts, T sca
       prev2 = prev;
       prev = v;
     }
+  }
+}
+
+template <class T, class Emit>
+__device__ __forceinline__ void dubiner1_point_n(int n, T x0, const T* __restrict__ consts,
+                                                 T scale, Emit&& emit) {
+  if (n == 0) {
+    emit(0, scale);
+    return;
+  }
+  const T half = T(0.5), one = T(1.0);
+  const T fb = half * (-one + -one);
+  const T fa = x0 + fb + one;
+  const T fc = fb * fb;
+  T prev2 = T(0), prev = scale;
+  emit(0, prev * const_at(consts, 3));
+#pragma unroll 1
+  for (int i = 1; i <= n; ++i) {
+    const int c = 4 * i;
+    const T v = (const_at(consts, c) * fa - const_at(consts, c + 1) * fb) * prev -
+                (const_at(consts, c + 2) * fc) * prev2;
+    emit(i, v * const_at(consts, c + 3));
+    prev2 = prev;
+    prev = v;
   }
 }
 

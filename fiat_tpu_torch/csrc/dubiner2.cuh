@@ -27,12 +27,24 @@
 // rows r it refuses, so that two threads can share one point's recurrence
 // (K6 gives each half of its rows to one thread); the entries keep their
 // numbers.
+//
+// dubiner2_point_n(n, ...) is the same recurrence, in the same entry order,
+// at a degree n given at run time (the kernels' generic instantiations past
+// their unrolled degrees).  It streams: stage 0 advances one level for
+// each stage-1 row, so row r starts from stage 0's level r as it is made,
+// and a thread holds two previous values a stage whatever the degree (no
+// array of stage-0 values).  Its constants come through the read-only
+// cache (a device pointer).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace fiat {
+
+// The degree template argument of the kernels' generic instantiations, which
+// take the degree at run time (dubiner*_point_n).
+constexpr int GENERIC = -1;
 
 template <int N>
 struct Nexp {
@@ -111,6 +123,58 @@ __device__ __forceinline__ void dubiner2_point(T x0, T x1, const Consts& consts,
         prev2 = prev;
         prev = v;
       }
+    }
+  }
+}
+
+template <class T, class Emit, class Keep = AllRows>
+__device__ __forceinline__ void dubiner2_point_n(int n, T x0, T x1, const T* __restrict__ consts,
+                                                 T scale, Emit&& emit, Keep keep = {}) {
+  if (n == 0) {
+    emit(0, 0, 0, scale);
+    return;
+  }
+  const T half = T(0.5), one = T(1.0);
+  // stage 0: the 1D recurrence in the first collapsed coordinate, one level
+  // a row
+  const T fb0 = half * (x1 + -one);
+  const T fa0 = x0 + fb0 + one;
+  const T fc0 = fb0 * fb0;
+  T s_prev2 = T(0), s_prev = scale;
+  // stage 1
+  const T fb = half * (-one + -one);
+  const T fa = x1 + fb + one;
+  const T fc = fb * fb;
+  const int c1 = 4 * (n + 1);
+  int e = 0;
+#pragma unroll 1
+  for (int r = 0; r <= n; ++r) {
+    T r1;
+    if (r == 0) {
+      r1 = s_prev * const_at(consts, 3);
+    } else {
+      const int c = 4 * r;
+      const T v = (const_at(consts, c) * fa0 - const_at(consts, c + 1) * fb0) * s_prev -
+                  (const_at(consts, c + 2) * fc0) * s_prev2;
+      r1 = v * const_at(consts, c + 3);
+      s_prev2 = s_prev;
+      s_prev = v;
+    }
+    if (!keep(r)) {
+      e += n - r + 1;
+      continue;
+    }
+    T prev2 = T(0), prev = r1;
+    emit(e, r, 0, prev * const_at(consts, c1 + 4 * e + 3));
+    ++e;
+#pragma unroll 1
+    for (int i = 1; i <= n - r; ++i, ++e) {
+      const int c = c1 + 4 * e;
+      const T v = (const_at(consts, c) * fa - const_at(consts, c + 1) * fb) * prev -
+                  (const_at(consts, c + 2) * fc) * prev2;
+      emit(e, r, i, v * const_at(consts, c + 3));
+      prev2 = prev;
+      prev = v;
     }
   }
 }

@@ -29,6 +29,13 @@
 // with nexp2 = (N+1)(N+2)/2.  N == 0 calls emit(0, scale) and reads no
 // constants.  An optional last argument keep(p) (default: every row)
 // skips the stage-1 rows p it refuses, as dubiner2_point's.
+//
+// dubiner3_point_n(n, ...) is the same recurrence, in the same entry order,
+// at a degree n given at run time (the generic instantiations), streaming
+// stage 0 as dubiner2_point_n does: one level for each stage-1 row p, and
+// stage 1 one level for each stage-2 row (p, q), so the live state is two
+// values a stage whatever the degree.  Constants through the read-only
+// cache.
 
 #pragma once
 
@@ -112,6 +119,73 @@ __device__ __forceinline__ void dubiner3_point(T x0, T x1, T x2, const Consts& c
           s2 = s;
           s = w;
         }
+      }
+    }
+  }
+}
+
+template <class T, class Emit, class Keep = AllRows>
+__device__ __forceinline__ void dubiner3_point_n(int n, T x0, T x1, T x2,
+                                                 const T* __restrict__ consts, T scale,
+                                                 Emit&& emit, Keep keep = {}) {
+  if (n == 0) {
+    emit(0, scale);
+    return;
+  }
+  const int nexp2 = (n + 1) * (n + 2) / 2;
+  const T half = T(0.5), one = T(1.0);
+  const T fb0 = half * (x1 + x2);
+  const T fa0 = x0 + fb0 + one;
+  const T fc0 = fb0 * fb0;
+  const T fb1 = half * (x2 + -one);
+  const T fa1 = x1 + fb1 + one;
+  const T fc1 = fb1 * fb1;
+  const T fb2 = half * (-one + -one);
+  const T fa2 = x2 + fb2 + one;
+  const T fc2 = fb2 * fb2;
+  const int c1 = 4 * (n + 1);
+  const int c2 = c1 + 4 * nexp2;
+  T s_prev2 = T(0), s_prev = scale;  // stage 0's last two levels
+  int e1 = 0, e = 0;
+#pragma unroll 1
+  for (int p = 0; p <= n; ++p) {
+    // stage 0, level p
+    T r0;
+    if (p == 0) {
+      r0 = s_prev * const_at(consts, 3);
+    } else {
+      const T v = dubiner_step(consts, 4 * p, fa0, fb0, fc0, s_prev, s_prev2);
+      r0 = v * const_at(consts, 4 * p + 3);
+      s_prev2 = s_prev;
+      s_prev = v;
+    }
+    if (!keep(p)) {
+      e1 += n - p + 1;
+      e += (n - p + 1) * (n - p + 2) / 2;
+      continue;
+    }
+    // stage 1, row p: levels q = 0..n-p, one a stage-2 row
+    T prev2 = T(0), prev = r0;
+#pragma unroll 1
+    for (int q = 0; q <= n - p; ++q, ++e1) {
+      const int c = c1 + 4 * e1;
+      T v = prev;
+      if (q > 0) {
+        v = dubiner_step(consts, c, fa1, fb1, fc1, prev, prev2);
+        prev2 = prev;
+        prev = v;
+      }
+      // stage 2, row (p, q): levels r = 0..n-p-q, straight to the emitter
+      T s2 = T(0), s = v * const_at(consts, c + 3);
+      emit(e, s * const_at(consts, c2 + 4 * e + 3));
+      ++e;
+#pragma unroll 1
+      for (int r = 1; r <= n - p - q; ++r, ++e) {
+        const int cc = c2 + 4 * e;
+        const T w = dubiner_step(consts, cc, fa2, fb2, fc2, s, s2);
+        emit(e, w * const_at(consts, cc + 3));
+        s2 = s;
+        s = w;
       }
     }
   }

@@ -84,7 +84,13 @@
 //     k) order where a slice holds a whole chunk, and interleaved by runs of
 //     k otherwise;
 //   - out is row-major with points contiguous, so every store of a warp is
-//     one coalesced row segment.
+//     one coalesced row segment;
+//   - past the unrolled degrees (0..15 on the interval, 0..10 on triangles
+//     and tetrahedra) a generic instantiation per (SD, RC, T) takes the
+//     degree and the point tile (128, 64 or 32) at the launch, so that a
+//     high degree's Phi tile fits: triangle degree 20 at 64 points in f64
+//     (116 KB), tet degree 14 at 32 points in f64 (174 KB) or 64 in f32
+//     (174 KB).  It runs the streaming recurrence of dubiner*_point_n.
 // The tables take one chunk a group, so the recurrence runs again for every
 // row chunk (8 at order 2 on the C1 zoo, 21 at order 1 on sv_macro_tet): 45
 // flops a point at degree 3 on a triangle, 167 on a tetrahedron, against a
@@ -134,22 +140,22 @@ int dispatch(const T* pts, int npts, int sd, const T* consts, const int* slots,
              const T* affine, T scale, T tol, int degree, const T* maps, const int* pieces,
              const int* slices, const int* groups, int ngroups, int rc, int sub, int resident,
              int stages, int buf, int ring, int nbar, int words, const T* At,
-             const int* gather, T* out, void* stream) {
+             const int* gather, T* out, int tp, void* stream) {
   if (npts < 1 || ngroups < 1 || sub < 1 || sub > MAX_SUB || nbar < 0 || words < 1 ||
       ring < 0 || ring % (16 / sizeof(T)) ||
       (!resident && (stages < 1 || stages > MAX_STAGES || stages > nbar || buf < 1 ||
                      buf % (16 / sizeof(T)) || stages * buf > ring || gather)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params<T> q{pts, npts, consts, slots, {}, scale, tol, maps, pieces, slices, groups,
-              0, sub, resident, stages, buf, ring, nbar, words, At, gather, out};
+              0, sub, resident, stages, buf, ring, nbar, words, At, gather, out, 0};
   for (int i = 0; i < 12; ++i) q.affine[i] = affine[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sd == 1 && rc == RC_TABLES) return by_degree<1, RC_TABLES, T>(q, degree, ngroups, s);
-  if (sd == 1 && rc == RC_ONE) return by_degree<1, RC_ONE, T>(q, degree, ngroups, s);
-  if (sd == 2 && rc == RC_TABLES) return by_degree<2, RC_TABLES, T>(q, degree, ngroups, s);
-  if (sd == 2 && rc == RC_ONE) return by_degree<2, RC_ONE, T>(q, degree, ngroups, s);
-  if (sd == 3 && rc == RC_TABLES) return by_degree<3, RC_TABLES, T>(q, degree, ngroups, s);
-  if (sd == 3 && rc == RC_ONE) return by_degree<3, RC_ONE, T>(q, degree, ngroups, s);
+  if (sd == 1 && rc == RC_TABLES) return by_degree<1, RC_TABLES, T>(q, degree, ngroups, tp, s);
+  if (sd == 1 && rc == RC_ONE) return by_degree<1, RC_ONE, T>(q, degree, ngroups, tp, s);
+  if (sd == 2 && rc == RC_TABLES) return by_degree<2, RC_TABLES, T>(q, degree, ngroups, tp, s);
+  if (sd == 2 && rc == RC_ONE) return by_degree<2, RC_ONE, T>(q, degree, ngroups, tp, s);
+  if (sd == 3 && rc == RC_TABLES) return by_degree<3, RC_TABLES, T>(q, degree, ngroups, tp, s);
+  if (sd == 3 && rc == RC_ONE) return by_degree<3, RC_ONE, T>(q, degree, ngroups, tp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -166,23 +172,24 @@ int dispatch(const T* pts, int npts, int sd, const T* consts, const int* slots,
 // before the Phi tile, words the mask words of the widest program; At (the
 // slices' values, or with a resident plan the call's A and gather, the
 // int32 index of each of the slices' values in it, -1 for a zero; gather
-// null otherwise) and out (rows, npts).  Returns the CUDA error code of the
+// null otherwise), out (rows, npts) and tp, the point tile (the
+// instantiation's point_tile at an unrolled degree; 128, 64 or 32 past it).  Returns the CUDA error code of the
 // launch (0 on success), or the attribute call's error (more shared memory
 // than a block may have), which is then cleared and nothing is launched;
-// cudaErrorInvalidValue for an sd, rc or degree it is not instantiated for
-// (degree 0..10, 0..15 at sd = 1), no points or groups, a grid past 2^31 - 1 blocks, or an
-// argument outside the ranges above (the wrapper checks all of these
-// first).
+// cudaErrorInvalidValue for an sd or rc it is not instantiated for, a
+// negative degree, a point tile the degree's instantiation does not take,
+// no points or groups, a grid past 2^31 - 1 blocks, or an argument outside
+// the ranges above (the wrapper checks all of these first).
 extern "C" int fiat_macro_oneshot(const double* pts, int npts, int sd, const double* consts,
                                   const int* slots, const double* affine, double scale,
                                   double tol, int degree, const double* maps, const int* pieces,
                                   const int* slices, const int* groups, int ngroups, int rc,
                                   int sub, int resident, int stages, int buf, int ring, int nbar,
                                   int words, const double* At, const int* gather, double* out,
-                                  void* stream) {
+                                  int tp, void* stream) {
   return dispatch<double>(pts, npts, sd, consts, slots, affine, scale, tol, degree, maps, pieces,
                           slices, groups, ngroups, rc, sub, resident, stages, buf, ring, nbar,
-                          words, At, gather, out, stream);
+                          words, At, gather, out, tp, stream);
 }
 
 extern "C" int fiat_macro_oneshot_f32(const float* pts, int npts, int sd, const float* consts,
@@ -191,8 +198,8 @@ extern "C" int fiat_macro_oneshot_f32(const float* pts, int npts, int sd, const 
                                       const int* pieces, const int* slices, const int* groups,
                                       int ngroups, int rc, int sub, int resident, int stages,
                                       int buf, int ring, int nbar, int words, const float* At,
-                                      const int* gather, float* out, void* stream) {
+                                      const int* gather, float* out, int tp, void* stream) {
   return dispatch<float>(pts, npts, sd, consts, slots, affine, scale, tol, degree, maps, pieces,
                          slices, groups, ngroups, rc, sub, resident, stages, buf, ring, nbar,
-                         words, At, gather, out, stream);
+                         words, At, gather, out, tp, stream);
 }

@@ -1,5 +1,14 @@
 // K3's kernel template and its launch (csrc/macro_oneshot.cu has the
 // design note and the C entry points).
+//
+// Past the unrolled degrees (0..15 at SD = 1, 0..10 at SD = 2 and 3) each
+// (SD, RC, T) has one generic instantiation (N = GENERIC): the degree is a
+// launch argument, the recurrence the streaming dubiner*_point_n, and the
+// point tile (the block's threads) a launch argument too, 128, 64 or 32,
+// since the Phi tile of a high degree outgrows shared memory at 128 points
+// (triangle degree 20: 232 x 128 doubles, 237 KB; tet degree 14 at 64
+// points: 681 x 64 doubles, 348 KB) and the plan narrows the tile to fit
+// (ops/macro_oneshot.py GENERIC_TILES).
 
 #pragma once
 
@@ -40,10 +49,14 @@ __host__ __device__ constexpr int nexp_of(int sd, int n) {
 // recurrence to spill, and K3's time on the earlier cells up to +68%, on
 // the H100), and the H100 timed 128 points fastest on every plan of every
 // cell where 64 and 32 fit too (PERF.md section 6).
+// (The generic instantiation: at most 128, the launch's choice.)
 template <int SD, int N, class T>
 __host__ __device__ constexpr int point_tile() {
   return SD == 3 && N >= 9 && sizeof(T) == 8 ? 64 : 128;
 }
+// the generic instantiation's point tiles (ops/macro_oneshot.py GENERIC_TILES)
+__host__ __device__ constexpr bool generic_tile(int tp) { return tp == 128 || tp == 64 || tp == 32; }
+__host__ __device__ constexpr int unrolled_top(int sd) { return sd == 1 ? 15 : 10; }
 
 template <class T>
 struct Pair;
@@ -84,6 +97,7 @@ struct Params {
   const T* At;
   const int* gather;  // resident: At[gather[i]] (0 where -1) is the slices' value i; or null
   T* out;
+  int degree;  // the generic instantiation's degree
 };
 
 // Shared memory of a block of tp points: the ring (or the group's resident
@@ -101,15 +115,18 @@ template <int SD, int N, int RC, class T>
 __global__ void __launch_bounds__(point_tile<SD, N, T>())
     macro_oneshot_kernel(const __grid_constant__ Params<T> q) {
   using P2 = typename Pair<T>::type;
+  constexpr bool kGeneric = N < 0;
   constexpr int RCP = column_stride(RC);
   constexpr int G = RC < ROW_GROUP ? RC : ROW_GROUP;
-  constexpr int NE = nexp_of(SD, N);
-  constexpr int tp = point_tile<SD, N, T>();
+  // the unrolled instantiations' members and point tile are constants;
+  // the generic one's come with the launch
+  const int NE = kGeneric ? nexp_of(SD, q.degree) : nexp_of(SD, N);
+  const int tp = kGeneric ? static_cast<int>(blockDim.x) : point_tile<SD, N, T>();
   // one-row chunks: unrolled k steps, so the loads of one run ahead of the
   // FMA chain of another
   constexpr int K_UNROLL = RC == 1 ? 4 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int nwarps = tp / 32;
+  const int nwarps = tp / 32;
   const int tid = threadIdx.x, lane = tid & 31;
   T* ring = reinterpret_cast<T*>(smem_raw);
   T* phi = ring + q.ring + tid;  // this thread's column: member k at phi[k * tp]
@@ -192,7 +209,20 @@ __global__ void __launch_bounds__(point_tile<SD, N, T>())
         for (int j = 1; j < SD; ++j) v += x[j] * q.affine[SD * i + j];
         y[i] = v + q.affine[SD * SD + i];
       }
-      if constexpr (SD == 1) {
+      if constexpr (kGeneric) {
+        if constexpr (SD == 1) {
+          fiat::dubiner1_point_n(q.degree, y[0], q.consts, q.scale,
+                                 [&](int i, T v) { phi[i * tp] = v; });
+        } else if constexpr (SD == 2) {
+          fiat::dubiner2_point_n(q.degree, y[0], y[1], q.consts, q.scale,
+                                 [&](int, int r, int i, T v) {
+                                   phi[((r + i) * (r + i + 1) / 2 + i) * tp] = v;
+                                 });
+        } else {
+          fiat::dubiner3_point_n(q.degree, y[0], y[1], y[2], q.consts, q.scale,
+                                 [&](int e, T v) { phi[__ldg(q.slots + e) * tp] = v; });
+        }
+      } else if constexpr (SD == 1) {
         fiat::dubiner1_point<N>(y[0], q.consts, q.scale, [&](int i, T v) { phi[i * tp] = v; });
       } else if constexpr (SD == 2) {
         fiat::dubiner2_point<N>(y[0], y[1], q.consts, q.scale, [&](int, int r, int i, T v) {
@@ -299,14 +329,17 @@ __global__ void __launch_bounds__(point_tile<SD, N, T>())
   }
 }
 
+// tp: the point tile (the instantiation's own for an unrolled degree)
 template <int SD, int N, int RC, class T>
-int launch(Params<T> q, int ngroups, cudaStream_t stream) {
-  constexpr int tp = point_tile<SD, N, T>();
+int launch(Params<T> q, int ngroups, int tp, cudaStream_t stream) {
+  if (N >= 0 ? tp != point_tile<SD, N, T>() : !generic_tile(tp))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long tile_blocks = ((q.npts + tp - 1) / tp + q.sub - 1) / q.sub;
   if (tile_blocks * ngroups > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   q.tile_blocks = static_cast<int>(tile_blocks);
   const int nblocks = static_cast<int>(tile_blocks * ngroups);
-  const size_t smem = smem_bytes<T>(nexp_of(SD, N), tp, q.ring, q.words, q.nbar);
+  const size_t smem = smem_bytes<T>(nexp_of(SD, N < 0 ? q.degree : N), tp, q.ring, q.words,
+                                    q.nbar);
   if (smem > STATIC_SMEM_LIMIT) {
     const cudaError_t err =
         cudaFuncSetAttribute(macro_oneshot_kernel<SD, N, RC, T>,
@@ -320,16 +353,17 @@ int launch(Params<T> q, int ngroups, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Degrees 0..10, and on the interval (SD = 1, nexp 16 at most) 0..15.
+// Degrees 0..10, and on the interval (SD = 1, nexp 16 at most) 0..15,
+// unrolled; every degree past them on the generic instantiation.
 template <int SD, int RC, class T>
-int by_degree(const Params<T>& q, int degree, int ngroups, cudaStream_t s) {
+int by_degree(Params<T> q, int degree, int ngroups, int tp, cudaStream_t s) {
   switch (degree) {
 #define FIAT_CASE(n) \
   case n:            \
-    return launch<SD, n, RC, T>(q, ngroups, s);
-#define FIAT_CASE_1D(n)                                            \
-  case n:                                                          \
-    if constexpr (SD == 1) return launch<SD, n, RC, T>(q, ngroups, s); \
+    return launch<SD, n, RC, T>(q, ngroups, tp, s);
+#define FIAT_CASE_1D(n)                                                \
+  case n:                                                              \
+    if constexpr (SD == 1) return launch<SD, n, RC, T>(q, ngroups, tp, s); \
     break;
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
@@ -338,6 +372,10 @@ int by_degree(const Params<T>& q, int degree, int ngroups, cudaStream_t s) {
 #undef FIAT_CASE
     default:
       break;
+  }
+  if (degree > unrolled_top(SD)) {
+    q.degree = degree;
+    return launch<SD, fiat::GENERIC, RC, T>(q, ngroups, tp, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -352,9 +390,9 @@ int by_degree(const Params<T>& q, int degree, int ngroups, cudaStream_t s) {
   X(2, RC_ONE, float) X(3, RC_ONE, float) X(1, RC_TABLES, double)            \
   X(1, RC_TABLES, float) X(1, RC_ONE, double) X(1, RC_ONE, float)
 #define FIAT_K3_EXTERN(SD, RC, T) \
-  extern template int by_degree<SD, RC, T>(const Params<T>&, int, int, cudaStream_t);
+  extern template int by_degree<SD, RC, T>(Params<T>, int, int, int, cudaStream_t);
 #define FIAT_K3_INSTANTIATE(SD, RC, T) \
-  template int by_degree<SD, RC, T>(const Params<T>&, int, int, cudaStream_t);
+  template int by_degree<SD, RC, T>(Params<T>, int, int, int, cudaStream_t);
 FIAT_K3_FAMILIES(FIAT_K3_EXTERN)
 
 }  // namespace fiat::k3

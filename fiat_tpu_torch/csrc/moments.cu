@@ -70,6 +70,12 @@
 // Sd = 3, degree 10, 32 pieces of 286 members in 4 programs need 80 KB a
 // warp, two warps a block.
 //
+// Past the unrolled degrees (0..15 at sd = 1, 0..10 at sd = 2 and 3) one
+// generic instantiation per sd takes the degree at run time
+// (moments.cuh): the same schedule on the streaming recurrence, its
+// constants read through the read-only cache and its plain sums in the
+// warp's shared memory (one double a plain row more a warp).
+//
 // Output row layout (R = nplain + the pieces' widths): rows 0..nplain-1 are
 // pw; piece c's masked moments are rows nplain + off_c + k, k < nexp_c
 // (program-major, subcell-major: fiat_tpu's b_stack order).  Tables:
@@ -82,7 +88,8 @@ using namespace fiat::k45;
 
 // pts (npts, sd), wf (npts,), sd 1, 2 or 3; consts (on the host: they are
 // passed in the kernel's parameters) and slots (on the device),
-// pack_stages(degree, sd=sd); affine: 12 values on the host (the sd x sd
+// pack_stages(degree, sd=sd), and dconsts the same on the device (read by
+// the generic instantiation only; may be null below it); affine: 12 values on the host (the sd x sd
 // map row-major, its shift, zeros after); maps, progs, pieces: binning.cuh;
 // R = nplain + the pieces' widths; warps a block, 1 to block_warps(sd,
 // degree) (moments.cuh); partials (nblocks +
@@ -91,22 +98,24 @@ using namespace fiat::k45;
 // Every point count from 0 on is taken (out is then 0).  Returns the CUDA
 // error code of the launch (0 on success), or the attribute call's error
 // (the warps' shared memory is more than a block may have), which is then
-// cleared and nothing is launched; cudaErrorInvalidValue for an sd or a
-// degree it is not instantiated for (degree 0..10, 0..15 at sd = 1), nplain past the
-// degree's members, no blocks or more warps than the
-// instantiation is built for (the wrapper checks all of these first).
+// cleared and nothing is launched; cudaErrorInvalidValue for an sd outside
+// 1..3, a negative degree, a generic degree without dconsts, nplain past
+// the degree's members, no blocks or more warps than the instantiation is
+// built for (the wrapper checks all of these first).
 extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, int sd,
-                                 const double* consts, const int* slots, const double* affine,
+                                 const double* consts, const double* dconsts, const int* slots,
+                                 const double* affine,
                                  double scale, double tol, int degree, int nplain,
                                  const double* maps, int npieces, const int* progs, int nprogs,
                                  const int* pieces, int R, int warps, int nblocks,
                                  double* partials, unsigned* tickets, double* out,
                                  void* stream) {
   if (sd < 1 || sd > 3 || degree < 0 || npieces < 0 || nplain > nexp_of(sd, degree) ||
-      nblocks < 1 || warps < 1 || warps > MAX_WARPS)
+      nblocks < 1 || warps < 1 || warps > MAX_WARPS ||
+      (degree > unrolled_top(sd) && dconsts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params q{pts,    wf,     npts,   slots, {}, scale,    tol,    nplain, maps,
-           npieces, progs, nprogs, pieces, R,  partials, tickets, out};
+           npieces, progs, nprogs, pieces, R,  partials, tickets, out, dconsts, degree};
   for (int i = 0; i < 12; ++i) q.affine[i] = affine[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sd == 1) return launch_by_degree<1>(q, consts, degree, warps, nblocks, s);
@@ -116,15 +125,16 @@ extern "C" int fiat_pair_moments(const double* pts, const double* wf, int npts, 
 
 // The blocks of ``warps`` warps an SM holds at once for the (sd, degree)
 // instantiation with ``piece_rows`` piece rows over ``npieces`` pieces in
-// ``nprogs`` programs (registers and shared memory both counted:
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error;
-// minus cudaErrorInvalidValue outside the instantiations.
+// ``nprogs`` programs and ``nplain`` plain rows (registers and shared memory
+// both counted: cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus
+// the CUDA error; minus cudaErrorInvalidValue for a negative degree or an
+// argument out of range.
 extern "C" int fiat_pair_moments_occupancy(int sd, int degree, int warps, int piece_rows,
-                                           int npieces, int nprogs) {
+                                           int npieces, int nprogs, int nplain) {
   if (sd < 1 || sd > 3 || warps < 1 || warps > MAX_WARPS || piece_rows < 0 || npieces < 0 ||
-      nprogs < 0)
+      nprogs < 0 || nplain < 0)
     return -static_cast<int>(cudaErrorInvalidValue);
-  if (sd == 1) return occupancy_by_degree<1>(degree, warps, piece_rows, npieces, nprogs);
-  return sd == 2 ? occupancy_by_degree<2>(degree, warps, piece_rows, npieces, nprogs)
-                 : occupancy_by_degree<3>(degree, warps, piece_rows, npieces, nprogs);
+  if (sd == 1) return occupancy_by_degree<1>(degree, warps, piece_rows, npieces, nprogs, nplain);
+  return sd == 2 ? occupancy_by_degree<2>(degree, warps, piece_rows, npieces, nprogs, nplain)
+                 : occupancy_by_degree<3>(degree, warps, piece_rows, npieces, nprogs, nplain);
 }

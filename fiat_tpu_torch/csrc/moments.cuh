@@ -1,7 +1,18 @@
 // K45's kernel template, its launch and its occupancy query
 // (csrc/moments.cu has the design note and the C entry points; the sd = 3
 // instantiations build from csrc/moments3.cu and the sd = 1 ones from
-// csrc/moments1.cu, beside the others).
+// csrc/moments1.cu, beside the others, each source with its cell's generic
+// instantiation).
+//
+// The generic instantiation (N = GENERIC) takes any degree at run time,
+// past the unrolled 0..15 (sd 1) and 0..10 (sd 2, 3): the streaming
+// recurrence (dubiner*_point_n), its constants through the read-only cache
+// from a device pointer (Params::consts) rather than the parameters (3872
+// doubles at tet degree 15 would pass their 32,764 bytes); the entry count,
+// the chunks and the slab flushes are run-time values; and the lane's plain
+// sums, which the unrolled kernel keeps in registers by chunk, sit in the
+// warp's shared memory by member (one double a plain row, after the piece
+// sums: each member belongs to one lane, so no atomics).
 
 #pragma once
 
@@ -9,6 +20,7 @@
 
 #include <climits>
 #include <cstddef>
+#include <type_traits>
 
 #include "binning.cuh"
 #include "dubiner1.cuh"
@@ -27,6 +39,10 @@ constexpr int GROUP = 16;  // blocks whose partials one block sums (ops/moment_k
 // (__launch_bounds__, ops/moment_kernel.py block_warps): 8 and 3, 24 warps
 // within 80 registers a thread; the tetrahedron from degree 7, whose
 // recurrence holds more values, in blocks of 4 warps, MIN_BLOCKS_WIDE an SM.
+// The generic instantiation is built for blocks of up to 8 warps, 3 an SM
+// (80 registers a thread, as the triangle's: its recurrence holds two
+// values a stage and no sums); the wrapper picks its warps a block by the
+// occupancy query.
 constexpr int MIN_BLOCKS_WIDE = 5;
 __host__ __device__ constexpr int block_warps(int sd, int n) {
   return sd == 3 && n >= 7 ? 4 : MAX_WARPS;
@@ -34,6 +50,8 @@ __host__ __device__ constexpr int block_warps(int sd, int n) {
 __host__ __device__ constexpr int min_blocks(int sd, int n) {
   return sd == 3 && n >= 7 ? MIN_BLOCKS_WIDE : 3;
 }
+// the top of the unrolled degrees of an sd
+__host__ __device__ constexpr int unrolled_top(int sd) { return sd == 1 ? 15 : 10; }
 
 __host__ __device__ constexpr int nexp_of(int sd, int n) {
   return sd == 1 ? n + 1 : sd == 2 ? (n + 1) * (n + 2) / 2 : (n + 1) * (n + 2) * (n + 3) / 6;
@@ -59,13 +77,18 @@ __host__ __device__ constexpr int header_doubles(int npieces, int nprogs) {
 __host__ __device__ constexpr int masks_doubles(int npieces, int nprogs) {
   return even_doubles(4LL * npieces + 64LL * nprogs);
 }
-__host__ __device__ constexpr int warp_doubles(int piece_rows, int npieces, int nprogs) {
-  return SLAB + masks_doubles(npieces, nprogs) + even_doubles(8LL * piece_rows);
+// (the generic instantiation: then one double a plain row, the lane's plain
+// sums by member)
+__host__ __device__ constexpr int warp_doubles(int piece_rows, int npieces, int nprogs,
+                                               int plain_rows = 0) {
+  return SLAB + masks_doubles(npieces, nprogs) + even_doubles(8LL * piece_rows) +
+         even_doubles(8LL * plain_rows);
 }
 
-inline size_t smem_bytes(int warps, int piece_rows, int npieces, int nprogs) {
-  return sizeof(double) * (static_cast<size_t>(header_doubles(npieces, nprogs)) +
-                           static_cast<size_t>(warps) * warp_doubles(piece_rows, npieces, nprogs));
+inline size_t smem_bytes(int warps, int piece_rows, int npieces, int nprogs, int plain_rows) {
+  return sizeof(double) *
+         (static_cast<size_t>(header_doubles(npieces, nprogs)) +
+          static_cast<size_t>(warps) * warp_doubles(piece_rows, npieces, nprogs, plain_rows));
 }
 
 struct Params {
@@ -85,17 +108,25 @@ struct Params {
   double* partials;  // (gridDim.x + the groups of GROUP blocks, R)
   unsigned* tickets; // 1 + the groups: 0 before the launch, 0 after it
   double* out;       // (R,)
+  const double* consts;  // the generic instantiation: pack_stages(degree, sd) on the device
+  int degree;
 };
 
+// The unrolled instantiations' constants, in the kernel's parameters; the
+// generic one reads Params::consts (an empty table here).
+struct NoTable {};
 template <int SD, int N>
-using Consts = fiat::ConstTable<double, nconst_of(SD, N)>;
+using Consts = std::conditional_t<(N < 0), NoTable,
+                                  fiat::ConstTable<double, nconst_of(SD, N < 0 ? 0 : N)>>;
 
 template <int SD, int N>
 __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
     pair_moments_kernel(const __grid_constant__ Params q,
                         const __grid_constant__ Consts<SD, N> consts) {
-  constexpr int NE = nexp_of(SD, N);
-  constexpr int NCH = (NE + 31) / 32;
+  constexpr bool kGeneric = N < 0;
+  constexpr int NE_U = nexp_of(SD, kGeneric ? 0 : N);
+  constexpr int NCH_U = (NE_U + 31) / 32;
+  const int NE = kGeneric ? nexp_of(SD, q.degree) : NE_U;
   extern __shared__ double smem[];
   __shared__ double s_rcp[33];
   __shared__ bool last;
@@ -107,13 +138,15 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
   // their addresses need no register)
   int* const tab = reinterpret_cast<int*>(smem);
   const int* const ptab = tab + 3 * q.npieces;
-  const int WD = warp_doubles(PR, q.npieces, q.nprogs);
+  const int WD = warp_doubles(PR, q.npieces, q.nprogs, kGeneric ? q.nplain : 0);
   double* wbase = smem + header_doubles(q.npieces, q.nprogs);
   double* slab = wbase + warp * WD;
   unsigned* mq = reinterpret_cast<unsigned*>(slab + SLAB);  // piece c's points
   unsigned short* hc = reinterpret_cast<unsigned short*>(mq + q.npieces);  // [g][point]: hits
   // this warp's piece sums: piece c's member j at off_c + j
   double* acc = slab + SLAB + masks_doubles(q.npieces, q.nprogs);
+  // the generic instantiation's plain sums: member j at psum[j], j < nplain
+  double* psum = acc + even_doubles(8LL * PR);
 
   // the tables, and 1 / hits for 1..32 hits (binning.cuh's program_recip
   // computes the same; a point of more hits, on a degenerate split, divides)
@@ -130,14 +163,17 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
     }
   }
   for (int i = lane; i < PR; i += 32) acc[i] = 0.0;
+  if constexpr (kGeneric)
+    for (int i = lane; i < q.nplain; i += 32) psum[i] = 0.0;
   __syncthreads();
   int widest = 0;  // the widest piece's members
   for (int c = 0; c < q.npieces; ++c) widest = max(widest, tab[3 * c + 1]);
 
-  // the plain sums of the lane's entries 32 c + lane
-  double plain[NCH];
+  // the plain sums of the lane's entries 32 c + lane (unrolled: in
+  // registers by chunk; generic: psum)
+  double plain[kGeneric ? 1 : NCH_U];
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) plain[c] = 0.0;
+  for (int c = 0; c < (kGeneric ? 1 : NCH_U); ++c) plain[c] = 0.0;
   // entry 32 c + lane's member (morton row), INT_MAX past the last entry
   auto member = [&](int c) {
     const int e = 32 * c + lane;
@@ -195,7 +231,15 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
   double w = 0.0;
   auto put = [&](int e, double v) {
     slab[(e & 31) * SLAB_LD + lane] = v * w;
-    if ((e & 31) == 31 || e == NE - 1) plain[e >> 5] += flush(e >> 5);
+    if ((e & 31) == 31 || e == NE - 1) {
+      if constexpr (kGeneric) {
+        const double s = flush(e >> 5);
+        const int j = member(e >> 5);
+        if (j < q.nplain) psum[j] += s;
+      } else {
+        plain[e >> 5] += flush(e >> 5);
+      }
+    }
   };
 
   slab[lane * SLAB_LD + 32] = 0.0;  // the zero past the points of row lane
@@ -243,7 +287,16 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
       for (int k = 1; k < SD; ++k) v += x[k] * q.affine[SD * i + k];
       y[i] = v + q.affine[SD * SD + i];
     }
-    if constexpr (SD == 1) {
+    if constexpr (kGeneric) {
+      if constexpr (SD == 1) {
+        fiat::dubiner1_point_n(q.degree, y[0], q.consts, q.scale, put);
+      } else if constexpr (SD == 2) {
+        fiat::dubiner2_point_n(q.degree, y[0], y[1], q.consts, q.scale,
+                               [&](int e, int, int, double v) { put(e, v); });
+      } else {
+        fiat::dubiner3_point_n(q.degree, y[0], y[1], y[SD - 1], q.consts, q.scale, put);
+      }
+    } else if constexpr (SD == 1) {
       fiat::dubiner1_point<N>(y[0], consts, q.scale, put);
     } else if constexpr (SD == 2) {
       fiat::dubiner2_point<N>(y[0], y[1], consts, q.scale,
@@ -256,19 +309,22 @@ __global__ void __launch_bounds__(32 * block_warps(SD, N), min_blocks(SD, N))
   // the block's partial: each warp's plain sums into its slab by member,
   // then every row summed over the warps in order
   __syncwarp();
+  if constexpr (!kGeneric) {
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    const int j = member(c);
-    if (j < q.nplain) slab[j] = plain[c];
+    for (int c = 0; c < NCH_U; ++c) {
+      const int j = member(c);
+      if (j < q.nplain) slab[j] = plain[c];
+    }
   }
   __syncthreads();
   double* part = q.partials + static_cast<size_t>(blockIdx.x) * q.R;
   const int acc_at = SLAB + masks_doubles(q.npieces, q.nprogs);
+  const int plain_at = kGeneric ? acc_at + even_doubles(8LL * PR) : 0;
   for (int r = threadIdx.x; r < q.R; r += blockDim.x) {
     double s = 0.0;
     for (int wi = 0; wi < warps; ++wi) {
       const double* b = wbase + wi * WD;
-      s += r < q.nplain ? b[r] : b[acc_at + r - q.nplain];
+      s += r < q.nplain ? b[plain_at + r] : b[acc_at + r - q.nplain];
     }
     part[r] = s;
   }
@@ -316,17 +372,20 @@ cudaError_t allow_smem(size_t smem) {
                               static_cast<int>(smem));
 }
 
+// consts: the host's copy (the unrolled instantiations put it in the
+// parameters); the generic one reads q.consts on the device.
 template <int SD, int N>
 int launch(const Params& q, const double* consts, int warps, int nblocks, cudaStream_t stream) {
   if (warps > block_warps(SD, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(warps, q.R - q.nplain, q.npieces, q.nprogs);
+  const size_t smem = smem_bytes(warps, q.R - q.nplain, q.npieces, q.nprogs, N < 0 ? q.nplain : 0);
   const cudaError_t err = allow_smem<SD, N>(smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return static_cast<int>(err);
   }
   Consts<SD, N> table;
-  for (int i = 0; i < nconst_of(SD, N); ++i) table.v[i] = consts[i];
+  if constexpr (N >= 0)
+    for (int i = 0; i < nconst_of(SD, N); ++i) table.v[i] = consts[i];
   pair_moments_kernel<SD, N><<<nblocks, 32 * warps, smem, stream>>>(q, table);
   return static_cast<int>(cudaGetLastError());
 }
@@ -334,9 +393,9 @@ int launch(const Params& q, const double* consts, int warps, int nblocks, cudaSt
 // Resident blocks an SM (registers and shared memory both counted), or
 // minus the CUDA error.
 template <int SD, int N>
-int occupancy(int warps, int piece_rows, int npieces, int nprogs) {
+int occupancy(int warps, int piece_rows, int npieces, int nprogs, int nplain) {
   if (warps > block_warps(SD, N)) return -static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(warps, piece_rows, npieces, nprogs);
+  const size_t smem = smem_bytes(warps, piece_rows, npieces, nprogs, N < 0 ? nplain : 0);
   int blocks = 0;
   cudaError_t err = allow_smem<SD, N>(smem);
   if (err == cudaSuccess)
@@ -349,9 +408,19 @@ int occupancy(int warps, int piece_rows, int npieces, int nprogs) {
   return blocks;
 }
 
-// Every degree of one sd: the launch and the occupancy query, or
-// cudaErrorInvalidValue for a degree outside 0..10 (0..15 on the interval,
-// SD = 1, whose basis has 16 members at most).
+// The generic instantiation's launch and occupancy query.
+template <int SD>
+int launch_generic(const Params& q, int warps, int nblocks, cudaStream_t stream) {
+  return launch<SD, fiat::GENERIC>(q, nullptr, warps, nblocks, stream);
+}
+template <int SD>
+int occupancy_generic(int warps, int piece_rows, int npieces, int nprogs, int nplain) {
+  return occupancy<SD, fiat::GENERIC>(warps, piece_rows, npieces, nprogs, nplain);
+}
+
+// Every degree of one sd: the launch and the occupancy query, the unrolled
+// instantiations to unrolled_top(SD) and the generic one past it;
+// cudaErrorInvalidValue for a negative degree.
 template <int SD>
 int launch_by_degree(const Params& q, const double* consts, int degree, int warps, int nblocks,
                      cudaStream_t stream) {
@@ -371,18 +440,20 @@ int launch_by_degree(const Params& q, const double* consts, int degree, int warp
     default:
       break;
   }
+  if (degree > unrolled_top(SD)) return launch_generic<SD>(q, warps, nblocks, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int SD>
-int occupancy_by_degree(int degree, int warps, int piece_rows, int npieces, int nprogs) {
+int occupancy_by_degree(int degree, int warps, int piece_rows, int npieces, int nprogs,
+                        int nplain) {
   switch (degree) {
 #define FIAT_CASE(n) \
   case n:            \
-    return occupancy<SD, n>(warps, piece_rows, npieces, nprogs);
-#define FIAT_CASE_1D(n)                                                            \
-  case n:                                                                          \
-    if constexpr (SD == 1) return occupancy<SD, n>(warps, piece_rows, npieces, nprogs); \
+    return occupancy<SD, n>(warps, piece_rows, npieces, nprogs, nplain);
+#define FIAT_CASE_1D(n)                                                                    \
+  case n:                                                                                  \
+    if constexpr (SD == 1) return occupancy<SD, n>(warps, piece_rows, npieces, nprogs, nplain); \
     break;
     FIAT_CASE(0) FIAT_CASE(1) FIAT_CASE(2) FIAT_CASE(3) FIAT_CASE(4) FIAT_CASE(5)
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
@@ -392,15 +463,17 @@ int occupancy_by_degree(int degree, int warps, int piece_rows, int npieces, int 
     default:
       break;
   }
+  if (degree > unrolled_top(SD))
+    return occupancy_generic<SD>(warps, piece_rows, npieces, nprogs, nplain);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // sd = 3 is instantiated in moments3.cu, sd = 1 in moments1.cu
 extern template int launch_by_degree<3>(const Params&, const double*, int, int, int,
                                         cudaStream_t);
-extern template int occupancy_by_degree<3>(int, int, int, int, int);
+extern template int occupancy_by_degree<3>(int, int, int, int, int, int);
 extern template int launch_by_degree<1>(const Params&, const double*, int, int, int,
                                         cudaStream_t);
-extern template int occupancy_by_degree<1>(int, int, int, int, int);
+extern template int occupancy_by_degree<1>(int, int, int, int, int, int);
 
 }  // namespace fiat::k45

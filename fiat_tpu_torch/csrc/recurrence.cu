@@ -29,6 +29,14 @@
 // there.  Here
 //   slots[e]                                   last-stage entry e: output row
 // (ops/recurrence.py:pack_stages), the morton row of the entry.
+//
+// Degrees 0..15 (sd 1, 2) and 0..10 (sd 3) are unrolled instantiations.
+// Every degree past them runs one generic kernel per sd, the degree a
+// launch argument: the streaming recurrence of dubiner{1,2,3}.cuh
+// (dubiner*_point_n: two values a stage in registers, whatever the degree;
+// constants through the read-only cache), each value to phi[slots[e] * ld
+// + p] as it comes.  It is bound by the same store (231 x 1e5 doubles, 0.18
+// GB, at triangle degree 20).
 
 #include <cuda_runtime.h>
 
@@ -126,12 +134,58 @@ void launch3(const double* pts, int npts, const double* consts, const int* slots
                                                              scale, phi);
 }
 
+// the generic kernels: any degree, given at run time
+__global__ void __launch_bounds__(128)
+dubiner1_values_kernel_n(const double* __restrict__ pts, int npts,
+                         const double* __restrict__ consts, double a00, double b0,
+                         double scale, int n, double* __restrict__ phi) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  const double x0 = pts[p] * a00 + b0;
+  const size_t ld = static_cast<size_t>(npts);
+  fiat::dubiner1_point_n(n, x0, consts, scale, [&](int i, double v) { phi[i * ld + p] = v; });
+}
+
+__global__ void __launch_bounds__(128)
+dubiner2_values_kernel_n(const double* __restrict__ pts, int npts,
+                         const double* __restrict__ consts, const int* __restrict__ slots,
+                         Affine m, double scale, int n, double* __restrict__ phi) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  const double px = pts[2 * p], py = pts[2 * p + 1];
+  const double x0 = (px * m.a00 + py * m.a01) + m.b0;
+  const double x1 = (px * m.a10 + py * m.a11) + m.b1;
+  const size_t ld = static_cast<size_t>(npts);
+  fiat::dubiner2_point_n(n, x0, x1, consts, scale, [&](int e, int, int, double v) {
+    phi[__ldg(slots + e) * ld + p] = v;
+  });
+}
+
+__global__ void __launch_bounds__(128)
+dubiner3_values_kernel_n(const double* __restrict__ pts, int npts,
+                         const double* __restrict__ consts, const int* __restrict__ slots,
+                         Affine3 m, double scale, int n, double* __restrict__ phi) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npts) return;
+  const double px = pts[3 * p], py = pts[3 * p + 1], pz = pts[3 * p + 2];
+  const double x0 = (px * m.a[0] + py * m.a[1] + pz * m.a[2]) + m.b[0];
+  const double x1 = (px * m.a[3] + py * m.a[4] + pz * m.a[5]) + m.b[1];
+  const double x2 = (px * m.a[6] + py * m.a[7] + pz * m.a[8]) + m.b[2];
+  const size_t ld = static_cast<size_t>(npts);
+  fiat::dubiner3_point_n(n, x0, x1, x2, consts, scale, [&](int e, double v) {
+    phi[__ldg(slots + e) * ld + p] = v;
+  });
+}
+
+constexpr int kThreads = 128;
+int blocks_for(int npts) { return (npts + kThreads - 1) / kThreads; }
+
 }  // namespace
 
-// The interval: degree 0..15 (nexp 16); the members are the levels, so
-// slots (the identity) is not read.  Returns cudaGetLastError() after the
-// launch; cudaErrorInvalidValue for a degree outside 0..15 (the wrapper
-// checks first).
+// The interval: degree 0..15 unrolled (nexp 16), any degree past it on the
+// generic kernel; the members are the levels, so slots (the identity) is
+// not read.  Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for a negative degree (the wrapper checks first).
 extern "C" int fiat_dubiner1_values(const double* pts, int npts, const double* consts,
                                     const int* /*slots*/, double a00, double b0, double scale,
                                     int degree, double* phi, void* stream) {
@@ -146,14 +200,16 @@ extern "C" int fiat_dubiner1_values(const double* pts, int npts, const double* c
     FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
 #undef FIAT_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (degree < 0) return static_cast<int>(cudaErrorInvalidValue);
+      dubiner1_values_kernel_n<<<blocks_for(npts), kThreads, 0, s>>>(pts, npts, consts, a00, b0,
+                                                                      scale, degree, phi);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The triangle: returns cudaGetLastError() after the launch;
-// cudaErrorInvalidValue for a degree outside 0..15 (the wrapper checks
-// first).
+// The triangle: degree 0..15 unrolled, any degree past it on the generic
+// kernel.  Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for a negative degree (the wrapper checks first).
 extern "C" int fiat_dubiner2_values(const double* pts, int npts, const double* consts,
                                     const int* slots, double a00, double a01, double a10,
                                     double a11, double b0, double b1, double scale,
@@ -170,12 +226,15 @@ extern "C" int fiat_dubiner2_values(const double* pts, int npts, const double* c
     FIAT_CASE(12) FIAT_CASE(13) FIAT_CASE(14) FIAT_CASE(15)
 #undef FIAT_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (degree < 0) return static_cast<int>(cudaErrorInvalidValue);
+      dubiner2_values_kernel_n<<<blocks_for(npts), kThreads, 0, s>>>(pts, npts, consts, slots, m,
+                                                                      scale, degree, phi);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tetrahedron: degree 0..10 (nexp 286); cudaErrorInvalidValue outside.
+// The tetrahedron: degree 0..10 unrolled (nexp 286), any degree past it on
+// the generic kernel; cudaErrorInvalidValue for a negative degree.
 extern "C" int fiat_dubiner3_values(const double* pts, int npts, const double* consts,
                                     const int* slots, double a00, double a01, double a02,
                                     double a10, double a11, double a12, double a20,
@@ -192,7 +251,9 @@ extern "C" int fiat_dubiner3_values(const double* pts, int npts, const double* c
     FIAT_CASE(6) FIAT_CASE(7) FIAT_CASE(8) FIAT_CASE(9) FIAT_CASE(10)
 #undef FIAT_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (degree < 0) return static_cast<int>(cudaErrorInvalidValue);
+      dubiner3_values_kernel_n<<<blocks_for(npts), kThreads, 0, s>>>(pts, npts, consts, slots, m,
+                                                                      scale, degree, phi);
   }
   return static_cast<int>(cudaGetLastError());
 }

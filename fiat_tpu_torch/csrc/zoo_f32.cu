@@ -65,6 +65,12 @@
 // the first thread of each point running the whole loop (zoo_f32_1.cu
 // instantiates it).
 //
+// Past those degrees (0..15 on the interval and the triangle, 0..10 on
+// the tetrahedron) each (cell, point tile) has one generic instantiation
+// that takes the degree at the launch (zoo_f32.cuh), on the streaming
+// recurrence; the plan narrows to what its Phi tile leaves room for (tet
+// degree 14: 680 rows at 64 points, 174 KB, one block an SM).
+//
 // The tetrahedron (sd = 3, degree 0..10) takes the Phi tile from
 // dubiner3.cuh in float, each value to its morton row through slots[e]
 // (ops/recurrence.py:pack_stages(N, variant, sd=3)), as K1's sd = 3 stage
@@ -88,7 +94,7 @@ int members(int sd, int degree) {
 // multiple of DEPTH rows, and minb blocks of tp threads fit an SM's
 // registers (the launch bounds) and shared memory
 bool valid(int sd, int degree, int kpad, int kmax, int tp, int kc, int stages, int minb) {
-  if (sd < 1 || sd > 3 || degree < 0 || degree > (sd == 3 ? 10 : 15)) return false;
+  if (sd < 1 || sd > 3 || degree < 0 || (sd > 1 && degree > MAX_GENERIC_DEGREE)) return false;
   if (kmax < 1 || kmax > members(sd, degree) || kpad != (kmax + DEPTH - 1) / DEPTH * DEPTH)
     return false;
   if ((tp != 64 && tp != 128) || kc < DEPTH || kc % DEPTH != 0 || kc > kpad || stages < 2 ||
@@ -119,9 +125,10 @@ int dispatch(int sd, int tp, const Params& q, int degree, size_t bytes, cudaStre
 // row of At, the width of each 32-row warp slab (even, <= the tile's, 0
 // past its rows)); kmax: the widest row (Phi rows read), kpad: kmax rounded up
 // to 2; dst: device int32, the output row of every packed row; out: device
-// (>= max dst + 1, npts) f32; (tp, kc, stages, minb): the plan.  Returns
-// cudaGetLastError() after the launch; cudaErrorInvalidValue, launching
-// nothing, for a degree or plan outside what the kernel takes (`valid`).
+// (>= max dst + 1, npts) f32; (tp, kc, stages, minb): the plan; any degree
+// (up to 63 on triangles and tetrahedra).  Returns cudaGetLastError() after
+// the launch; cudaErrorInvalidValue, launching nothing, for a degree or
+// plan outside what the kernel takes (`valid`).
 extern "C" int fiat_zoo_f32(const float* pts, int npts, int sd, const float* consts,
                             const int* slots, const float* affine, float scale, int degree,
                             const float* At, int kpad, int kmax, const int* tiles, int ntiles,
@@ -131,7 +138,7 @@ extern "C" int fiat_zoo_f32(const float* pts, int npts, int sd, const float* con
   if (!valid(sd, degree, kpad, kmax, tp, kc, stages, minb) || npts < 0 || ntiles < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params q{pts, npts, consts, slots, {}, scale, At, kpad, kmax, tiles, ntiles, dst, out, kc,
-           stages};
+           stages, degree};
   for (int i = 0; i < sd * sd + sd; ++i) q.aff[i] = affine[i];
   return dispatch(sd, tp, q, degree, 0, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,10 @@
 // K6's kernel template and its launch (csrc/zoo_f32.cu has the design notes
 // and the C entry; four sources each instantiate one cell and point tile, so
-// that nvcc builds them in parallel).
+// that nvcc builds them in parallel).  Past the unrolled degrees (0..15 on
+// intervals and triangles, 0..10 on tetrahedra) each (cell, point tile) has
+// one generic instantiation (N = GENERIC) that takes the degree at the
+// launch and runs the streaming recurrence (dubiner*_point_n), its two
+// threads a point splitting the stage-1 rows by second_rows_n.
 
 #pragma once
 
@@ -42,6 +46,22 @@ __host__ __device__ constexpr unsigned second_rows(int sd, int n) {
   }
   return mask;
 }
+// second_rows at a degree given at run time, up to 63 (the generic
+// instantiation; fiat_zoo_f32 refuses past it on triangles and tetrahedra)
+__host__ __device__ inline unsigned long long second_rows_n(int sd, int n) {
+  unsigned long long mask = 0;
+  int load[2] = {0, 0};
+  for (int r = 0; r <= n; ++r) {
+    const int entries = sd == 2 ? n - r + 1 : (n - r + 1) * (n - r + 2) / 2;
+    const int h = load[1] < load[0] ? 1 : 0;
+    load[h] += entries;
+    if (h) mask |= 1ull << r;
+  }
+  return mask;
+}
+__host__ __device__ constexpr int unrolled_top(int sd) { return sd == 3 ? 10 : 15; }
+constexpr int MAX_GENERIC_DEGREE = 63;
+
 // shared memory a block may take on sm_90, an SM's, what the SM keeps for
 // each resident block, and the unit it allocates a block's in
 constexpr size_t SMEM_MAX = 232448, SMEM_SM = 233472, SMEM_BLOCK = 1024, SMEM_UNIT = 128;
@@ -61,6 +81,7 @@ struct Params {
   const int* dst;
   float* out;
   int kc, stages;     // A rows of a chunk, chunks in the ring
+  int degree;         // the generic instantiation's degree
 };
 
 // Shared memory of a block: the Phi tile, the ring of A chunks, and the
@@ -129,10 +150,51 @@ zoo_f32_kernel(const __grid_constant__ Params q) {
     const int pt = tid % TP, half = tid / TP;  // warp-uniform: no divergence
     const int p = p0 + pt;
     const int kmax = q.kmax;
-    constexpr unsigned second = second_rows(SD, N);
+    constexpr unsigned second = second_rows(SD, N < 0 ? 0 : N);
     auto mine = [&](int r) { return static_cast<int>((second >> r) & 1u) == half; };
     const auto& a = q.aff;
-    if constexpr (SD == 1) {
+    if constexpr (N < 0) {
+      // the generic instantiation: the same Phi tile at a run-time degree
+      const int n = q.degree;
+      if constexpr (SD == 1) {
+        const float px = p < npts ? q.pts[p] : 0.0f;
+        const float x0 = px * a[0] + a[1];
+        if (half == 0)
+          fiat::dubiner1_point_n(n, x0, q.consts, q.scale, [&](int m, float v) {
+            if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
+          });
+      } else {
+        const unsigned long long second_n = second_rows_n(SD, n);
+        auto mine_n = [&](int r) { return static_cast<int>((second_n >> r) & 1ull) == half; };
+        if constexpr (SD == 2) {
+          const float px = p < npts ? q.pts[2 * p] : 0.0f;
+          const float py = p < npts ? q.pts[2 * p + 1] : 0.0f;
+          const float x0 = (px * a[0] + py * a[1]) + a[4];
+          const float x1 = (px * a[2] + py * a[3]) + a[5];
+          fiat::dubiner2_point_n(
+              n, x0, x1, q.consts, q.scale,
+              [&](int, int r, int i, float v) {
+                const int m = (r + i) * (r + i + 1) / 2 + i;
+                if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
+              },
+              mine_n);
+        } else {
+          const float px = p < npts ? q.pts[3 * p] : 0.0f;
+          const float py = p < npts ? q.pts[3 * p + 1] : 0.0f;
+          const float pz = p < npts ? q.pts[3 * p + 2] : 0.0f;
+          const float x0 = (px * a[0] + py * a[1] + pz * a[2]) + a[9];
+          const float x1 = (px * a[3] + py * a[4] + pz * a[5]) + a[10];
+          const float x2 = (px * a[6] + py * a[7] + pz * a[8]) + a[11];
+          fiat::dubiner3_point_n(
+              n, x0, x1, x2, q.consts, q.scale,
+              [&](int e, float v) {
+                const int m = __ldg(q.slots + e);
+                if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
+              },
+              mine_n);
+        }
+      }
+    } else if constexpr (SD == 1) {
       // the interval's recurrence is one loop of N + 1 levels: the first
       // thread of each point runs it alone
       const float px = p < npts ? q.pts[p] : 0.0f;
@@ -326,6 +388,8 @@ int by_degree(const Params& q, int degree, size_t bytes, cudaStream_t s) {
     default:
       break;
   }
+  if (degree > unrolled_top(SD))  // the generic instantiation
+    return bytes ? occupancy<SD, fiat::GENERIC, TP>(bytes) : launch<SD, fiat::GENERIC, TP>(q, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

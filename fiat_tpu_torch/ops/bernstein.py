@@ -31,12 +31,12 @@ from ..core.cells import default_simplex
 from ..core.expansions import ExpansionSet
 from ..core.quadrature import make_quadrature
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
-from .recurrence import MAX_DEGREE as _RECURRENCE_MAX_DEGREE
 
 #: degrees the kernel is instantiated for, per spatial dimension
-#: (csrc/bernstein.cu): the recurrence's ranges, with the interval's
-#: equal to the triangle's
-MAX_DEGREE = {1: _RECURRENCE_MAX_DEGREE[2], **_RECURRENCE_MAX_DEGREE}
+#: (csrc/bernstein.cu's switch): its own, pinned here; past them
+#: ``features="bernstein"`` raises by name (fiat_tpu's K8 takes 26 / 17 /
+#: 15, where its packed multinomials stay below 2^24)
+MAX_DEGREE = {1: 15, 2: 15, 3: 10}
 
 
 def bernstein_multiindices(sd, degree):

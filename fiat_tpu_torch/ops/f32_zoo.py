@@ -34,9 +34,12 @@ from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream
 from .macro_oneshot import MacroOneShot
 from .recurrence import pack_stages
 
-#: highest degree the kernel is instantiated for per spatial dimension
-#: (csrc/zoo_f32.cu), as K1
-MAX_DEGREE = {1: 15, 2: 15, 3: 10}
+#: the top of the unrolled instantiations per spatial dimension
+#: (csrc/zoo_f32.cuh), as K1's; every degree past them runs the generic
+#: instantiation, up to GENERIC_TOP on triangles and tetrahedra (its split of
+#: the stage-1 rows between a point's two threads is a 64-bit mask)
+UNROLLED_DEGREE = {1: 15, 2: 15, 3: 10}
+GENERIC_TOP = 63
 VARIANTS = (None, "bubble", "dual")
 
 
@@ -109,14 +112,19 @@ class ZooF32Kernel:
     def __init__(self, mats, degree, scale, affine_map, variant=None, device=None):
         Af, bf = affine_map
         self.sd = np.asarray(Af).shape[0]
-        if self.sd not in MAX_DEGREE:
+        if self.sd not in UNROLLED_DEGREE:
             raise NotImplementedError(
                 f"K6 covers intervals, triangles and tetrahedra (sd = 1, 2, 3), not "
                 f"sd = {self.sd}")
         self.degree = int(degree)
-        if not 0 <= self.degree <= MAX_DEGREE[self.sd]:
+        if self.degree < 0:
+            raise ValueError(f"degree {degree} is negative")
+        if self.sd > 1 and self.degree > GENERIC_TOP:
             raise NotImplementedError(
-                f"degree {degree} outside 0..{MAX_DEGREE[self.sd]} for sd = {self.sd}")
+                f"K6: degree {degree} past {GENERIC_TOP} for sd = {self.sd} (the generic "
+                "instantiation splits a point's stage-1 rows by a 64-bit mask)")
+        #: whether the degree runs the generic instantiation
+        self.generic = self.degree > UNROLLED_DEGREE[self.sd]
         if variant not in VARIANTS:
             raise NotImplementedError(f"expansion variant {variant!r}: K6 takes {VARIANTS}")
         self.variant = variant
@@ -135,6 +143,11 @@ class ZooF32Kernel:
         At, table = k6_layout(packed, tiles, np.repeat(self.K, self.group_rows), self.kpad,
                               self.DEPTH, self.TILE_ROWS, self.WARP_ROWS)
         self.plan = self.plan_for(self.kpad, len(table))
+        if self.plan is None:
+            raise NotImplementedError(
+                f"K6: a Phi tile of {self.kpad} rows (width {self.max_k}, degree {degree}, sd "
+                f"{self.sd}) leaves no room for a ring of A chunks at {min(self.POINT_TILES)} "
+                f"points in a block's {self.SMEM_MAX} bytes of shared memory")
         self.At = torch.as_tensor(At, device=self.device)
         self.tiles = torch.as_tensor(table, device=self.device)
         consts, slots = pack_stages(self.degree, variant, sd=self.sd)
@@ -178,10 +191,13 @@ class ZooF32Kernel:
     def candidates(cls, kpad):
         """Every plan ``fit`` takes for a Phi tile of ``kpad`` rows: each
         point tile at each count of blocks an SM from the most the launch
-        bounds allow down to MIN_BLOCKS."""
-        return [plan for tp in cls.POINT_TILES
-                for blocks in range(cls.THREADS_SM // cls.threads(tp), cls.MIN_BLOCKS - 1, -1)
-                if (plan := cls.fit(kpad, tp, blocks)) is not None]
+        bounds allow down to MIN_BLOCKS; where none fits, each point tile
+        at one block an SM (a Phi tile past 386 rows: the high degrees of
+        the generic instantiation, tet degree 14's 680 rows at 64 points)."""
+        plans = [plan for tp in cls.POINT_TILES
+                 for blocks in range(cls.THREADS_SM // cls.threads(tp), cls.MIN_BLOCKS - 1, -1)
+                 if (plan := cls.fit(kpad, tp, blocks)) is not None]
+        return plans or [plan for tp in cls.POINT_TILES if (plan := cls.fit(kpad, tp, 1))]
 
     @classmethod
     def plan_for(cls, kpad, ntiles):
@@ -191,7 +207,7 @@ class ZooF32Kernel:
         widest point tile (fewer reads of A) or, for at most FEW_TILES row
         tiles, the narrowest (more, shorter blocks, whose set-up weighs most
         when a block walks few tiles), then the widest chunk and the deepest
-        ring.  None if no point tile fits MIN_BLOCKS blocks."""
+        ring.  None if no point tile fits even one block an SM."""
         sign = -1 if ntiles <= cls.FEW_TILES else 1
         return max(cls.candidates(kpad),
                    key=lambda p: (cls.threads(p[0]) * p[3], sign * p[0], p[1], p[2]), default=None)

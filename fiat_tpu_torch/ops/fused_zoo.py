@@ -42,6 +42,8 @@ wrapper runs it for CPU tensors only.  For a CUDA tensor it launches the
 kernel or raises.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -113,9 +115,9 @@ class BucketMatmul:
     tiles, each contracting up to the widest row it holds, rounded up to
     that depth (the padding is exact zeros): one launch covers every group.
     ``plan`` is the kernel's (point tile, rows of an A chunk, chunks in the
-    ring, blocks an SM holds), or None past the widest K whose Phi tile a
-    block's shared memory takes beside a ring of A chunks (792); such a
-    width raises at the launch.  The kernel reads the tiles transposed and
+    ring, blocks an SM holds); past the widest K whose Phi tile a block's
+    shared memory takes beside a ring of A chunks (``MAX_WIDTH``, 792) the
+    constructor raises ``NotImplementedError``.  The kernel reads the tiles transposed and
     swizzled (``At``, ``swizzled_tiles``, on the device); the packed rows
     ``A`` serve the plain version only and live where it last ran.
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
@@ -141,6 +143,9 @@ class BucketMatmul:
     SMEM_MAX, SMEM_SM, SMEM_BLOCK = 232448, 233472, 1024
     #: the depth of the MMA (mma.sync m16n8k4)
     DEPTH = 4
+    #: the widest contraction a plan fits (``plan_for``: a 32-point Phi tile
+    #: of 792 rows beside two chunks of 16 rows and the C staging)
+    MAX_WIDTH = 792
 
     def __init__(self, mats, device=None):
         self.device = resolve_device(device)
@@ -148,6 +153,11 @@ class BucketMatmul:
         self.total_rows, self.max_k = packed.shape
         self.kpad = max(1, -(-self.max_k // self.DEPTH)) * self.DEPTH
         self.plan = self.plan_for(self.kpad, len(tiles))
+        if self.plan is None:
+            raise NotImplementedError(
+                f"K2: contraction width {self.max_k} past the {self.MAX_WIDTH} whose Phi tile a "
+                f"block's {self.SMEM_MAX} bytes of shared memory take beside the ring of A "
+                "chunks and the C staging")
         self.A = torch.as_tensor(packed)
         At = np.pad(transposed_tiles(packed, tiles, self.TILE_ROWS),
                     ((0, 0), (0, self.kpad - self.max_k), (0, 0)))
@@ -221,11 +231,6 @@ class BucketMatmul:
             return self.plain(phi)
         if phi.device.type != "cuda" or phi.device != self.device:
             raise ValueError(f"phi on {phi.device}, engine on {self.device}")
-        if self.plan is None:
-            raise RuntimeError(
-                f"fiat_bucket_matmul (contraction width {self.max_k}): a block's "
-                f"{self.SMEM_MAX} bytes of shared memory take no Phi tile of {self.kpad} rows "
-                f"beside the ring of A chunks and the C staging")
         npts = phi.shape[1]
         C = torch.empty((self.total_rows, npts), dtype=torch.float64, device=phi.device)
         if npts == 0:
@@ -323,6 +328,13 @@ class FusedZooTabulator:
 
         self.widths, group_mats, self._loc, self.group_rows, _ = group_by_width(
             mats, self.alphas, self.slices, plain_nexp)
+        widest = max(self.widths, default=0)
+        if widest > BucketMatmul.MAX_WIDTH:
+            degree = next(d for d in range(widest + 1) if math.comb(d + self.sd, self.sd) >= widest)
+            raise NotImplementedError(
+                f"K2 contracts widths up to {BucketMatmul.MAX_WIDTH}; this zoo's widest is "
+                f"{widest}, the degree-{degree} basis on sd = {self.sd}: the f64 engine takes "
+                f"degrees whose basis has at most {BucketMatmul.MAX_WIDTH} members")
         self.recurrence = self.features = self.macro = None
         self._programs = list(macro_programs)
         order = max(map(sum, self.alphas)) if order is None else order

@@ -50,18 +50,20 @@ SIGNATURES = {
     "fiat_bucket_matmul": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     # pts, npts, sd, consts, slots, affine[12] (host array), scale, tol, degree,
     # maps, pieces, slices, groups, ngroups, rc, sub, resident, stages, buf,
-    # ring, nbar, words, At, gather (or null), out, stream (in f64 / in f32)
+    # ring, nbar, words, At, gather (or null), out, tp, stream (in f64 / in f32)
     "fiat_macro_oneshot": [_P, _I, _I, _P, _P, _P, _D, _D, _I, _P, _P, _P, _P, *[_I] * 9,
-                           _P, _P, _P, _P],
+                           _P, _P, _P, _I, _P],
     "fiat_macro_oneshot_f32": [_P, _I, _I, _P, _P, _P, _F, _F, _I, _P, _P, _P, _P,
-                               *[_I] * 9, _P, _P, _P, _P],
-    # pts, wf, npts, sd, consts (host array), slots, affine[12] (host array),
-    # scale, tol, degree, nplain, maps, npieces, progs, nprogs, pieces, R, warps,
-    # nblocks, partials, tickets, out, stream
-    "fiat_pair_moments": [_P, _P, _I, _I, _P, _P, _P, _D, _D, _I, _I, _P, _I, _P, _I, _P, _I,
-                          _I, _I, _P, _P, _P, _P],
-    # sd, degree, warps, piece rows (returns blocks an SM, or minus the error)
-    "fiat_pair_moments_occupancy": [_I] * 6,
+                               *[_I] * 9, _P, _P, _P, _I, _P],
+    # pts, wf, npts, sd, consts (host array), dconsts (device, or null),
+    # slots, affine[12] (host array), scale, tol, degree, nplain, maps,
+    # npieces, progs, nprogs, pieces, R, warps, nblocks, partials, tickets,
+    # out, stream
+    "fiat_pair_moments": [_P, _P, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _P, _I, _P, _I, _P,
+                          _I, _I, _I, _P, _P, _P, _P],
+    # sd, degree, warps, piece rows, pieces, programs, plain rows in shared
+    # memory (returns blocks an SM, or minus the error)
+    "fiat_pair_moments_occupancy": [_I] * 7,
     # pts, npts, sd, tol, maps, progs, pieces, slices, nslices, At, phi, kmax, out,
     # tp, slice_cols, stages, words, stream
     "fiat_masked_matmul": [_P, _I, _I, _D, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,

@@ -21,7 +21,12 @@ own column of a shared-memory Phi tile (the kernel's source note says why).
 A point is binned against each chunk's program alone, 32 subcells a mask
 word, so a zoo and each of its programs may have any number of subcells.
 One row per program (interpolation) runs an instantiation whose chunks are
-one row high.
+one row high.  Every parent degree: up to ``UNROLLED_DEGREE`` on
+instantiations with the recurrence unrolled and a point tile of their own,
+past them on one generic instantiation per (cell, type, chunk height) that
+takes the degree and the point tile (``GENERIC_TILES``, the widest whose
+Phi tile leaves room for a plan) at the launch; where none does, the
+wrapper raises ``NotImplementedError`` naming the shared memory.
 
 The plain version beside it does the same in plain PyTorch: masks by
 ``core.expansions.subcell_masks`` (the body of
@@ -40,9 +45,14 @@ from ..core.expansions import dubiner_tabulate, subcell_masks
 from .kernels import check_launch, load_kernels, no_tf32, resolve_device, stream_of
 from .recurrence import pack_stages
 
-#: highest parent degree the kernel is instantiated for, per spatial
-#: dimension (csrc/macro_oneshot.cu, csrc/macro_oneshot_1.cu)
-MAX_DEGREE = {1: 15, 2: 10, 3: 10}
+#: the top of the unrolled instantiations' parent degrees, per spatial
+#: dimension (csrc/macro_oneshot.cuh); every degree past them runs the
+#: generic instantiation
+UNROLLED_DEGREE = {1: 15, 2: 10, 3: 10}
+#: the generic instantiation's point tiles, widest first (csrc
+#: macro_oneshot.cuh generic_tile): a launch argument, so that a high
+#: degree's Phi tile fits
+GENERIC_TILES = (128, 64, 32)
 #: subcells in all up to which the f64 engine takes K3 on a triangle parent,
 #: and K7 past it (``one_shot_applies``)
 ONE_SHOT_PIECES = 32
@@ -90,12 +100,16 @@ def column_stride(rows):
     return rows + 2 if rows > 1 else 1
 
 
-def point_tile(sd, degree, itemsize):
-    """Points (threads) of a block of K3 (csrc/macro_oneshot.cuh
-    ``point_tile``, a constant of each instantiation): 128, but 64 on
-    tetrahedra from degree 9 in double, whose Phi tile of 128 points alone
-    passes a block's shared memory."""
-    return 64 if sd == 3 and degree >= 9 and itemsize == 8 else 128
+def point_tiles(sd, degree, itemsize):
+    """The point tiles (threads of a block) K3 takes at a parent degree,
+    widest first: past ``UNROLLED_DEGREE`` the generic instantiation's
+    ``GENERIC_TILES``; else the unrolled instantiation's own
+    (csrc/macro_oneshot.cuh ``point_tile``, a constant of it): 128, but 64
+    on tetrahedra from degree 9 in double, whose Phi tile of 128 points
+    alone passes a block's shared memory."""
+    if degree > UNROLLED_DEGREE[sd]:
+        return GENERIC_TILES
+    return (64 if sd == 3 and degree >= 9 and itemsize == 8 else 128,)
 
 
 def tiles_per_block(npts, ngroups, tp=128):
@@ -219,23 +233,40 @@ def smem_bytes(nexp, itemsize, tp, ring, words, nbar):
     return itemsize * (ring + (nexp + 1) * tp) + 4 * words * tp + BARRIER_BYTES * nbar
 
 
+def tables_plan(merged, dtype=torch.float64):
+    """The plan K3 would take for the merged programs' tables (``plan_for``
+    over the point tiles of their parent degree), or None where no point
+    tile leaves room for one; computed on the host."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    nexp = [int(n) for _, n in merged["pieces"]]
+    maps, progs, pieces_t = pack_geometry(merged["geom"], merged["parent_map"], nexp)
+    sd, degree = maps.shape[1] - 1, int(merged["degree"])
+    chunks = chunk_table(progs, pieces_t)
+    return next((plan for tp in point_tiles(sd, degree, itemsize)
+                 if (plan := MacroOneShot.plan_for(tp, math.comb(degree + sd, sd), itemsize,
+                                                   CHUNK_ROWS, chunks, progs, 1,
+                                                   mask_words(progs))) is not None), None)
+
+
 def one_shot_applies(merged):
     """Whether K3 is the f64 engine's kernel for the merged macro programs
     (``fused_zoo._merge_macro_programs``' output).  On an interval parent
     always, whatever the number of subcells: fiat_tpu's one-shot route is
     generic in sd (``pallas_multiword.py:1026-1048``) and K7 has no sd = 1
     stage.  On a triangle parent where the programs have at most
-    ``ONE_SHOT_PIECES`` subcells in all and a parent degree of at most
-    ``MAX_DEGREE[2]``.  K3 takes any number of subcells, but past those the
-    f64 tables take K7, which reads the zoo's Phi from K1 instead of running
-    the recurrence again; on a tetrahedral parent K3's sd = 3 stage runs the
-    f32 tables and interpolation, and the f64 tables take K7, which the
-    H100 measured faster on ``sv_macro_tet`` (PERF.md §6)."""
+    ``ONE_SHOT_PIECES`` subcells in all and K3's tables have a plan at the
+    parent degree (``tables_plan``: every degree whose Phi tile leaves room
+    at some point tile; triangle degree 38 in f64 does not).  K3 takes any
+    number of subcells, but past those the f64 tables take K7, which reads
+    the zoo's Phi from K1 instead of running the recurrence again; on a
+    tetrahedral parent K3's sd = 3 stage runs the f32 tables and
+    interpolation, and the f64 tables take K7, which the H100 measured
+    faster on ``sv_macro_tet`` (PERF.md §6)."""
     shape = np.asarray(merged["parent_map"][0]).shape
     if shape == (2, 1):
         return True
     return (shape == (3, 2) and len(merged["pieces"]) <= ONE_SHOT_PIECES
-            and 0 <= merged["degree"] <= MAX_DEGREE[2])
+            and tables_plan(merged) is not None)
 
 
 class MacroOneShot:
@@ -278,10 +309,10 @@ class MacroOneShot:
         self.nexp = [int(n) for _, n in pieces]
         maps, progs, pieces_t = pack_geometry(self.geom, self.parent_map, self.nexp)
         self.sd = sd = self.parent_map[0].shape[1]
-        if not 0 <= self.degree <= MAX_DEGREE[sd]:
-            raise NotImplementedError(
-                f"macro parent degree {degree} outside 0..{MAX_DEGREE[sd]}: K3 is instantiated "
-                f"for degrees 0..{MAX_DEGREE[sd]} at sd = {sd}")
+        if self.degree < 0:
+            raise ValueError(f"macro parent degree {degree} is negative")
+        #: whether the parent degree runs the generic instantiation
+        self.generic = self.degree > UNROLLED_DEGREE[sd]
         if max(self.nexp) > math.comb(self.degree + sd, sd):
             raise ValueError("a subcell reads more parent members than the recurrence makes")
         if int(pieces_t[-1].sum()) != self.K:
@@ -315,11 +346,29 @@ class MacroOneShot:
         self.chunks = chunk_table(progs, pieces_t)
         self.chunks_one = chunk_table(one, pieces_t, ONE_ROW_CHUNK)
         self.cpb, self.cpb_one = 1, len(self.chunks_one)
-        #: points of a block: a constant of the kernel's instantiation
-        self.tp = point_tile(sd, self.degree, self.itemsize)
-        self.plan = self.plan_for(*self._plan_args())
-        self.plan_one = self.plan_for(*self._plan_args(one=True))
+        #: the point tiles the degree's instantiation takes (one constant
+        #: of an unrolled one; the generic one's GENERIC_TILES)
+        self.tiles = point_tiles(sd, self.degree, self.itemsize)
+        self.plan = self._first_plan()
+        self.plan_one = self._first_plan(one=True)
+        if self.plan is None and self.plan_one is None:
+            raise NotImplementedError(
+                f"K3: a Phi tile of {self.nexp_parent} rows (parent degree {self.degree}, sd "
+                f"{sd}) and {self.words} mask words a point leave no room for a ring of slices "
+                f"at {self.tiles[-1]} points in a block's {MAX_SMEM} bytes of shared memory")
         self.launches = 0
+
+    @property
+    def tp(self):
+        """The point tile of the tables' plan (the narrowest the degree takes
+        without one)."""
+        return self.tiles[-1] if self.plan is None else self.plan[0]
+
+    def _first_plan(self, one=False):
+        """``plan_for`` at the widest point tile of ``tiles`` that has one,
+        or None."""
+        return next((plan for tp in self.tiles
+                     if (plan := self.plan_for(*self._plan_args(one, tp))) is not None), None)
 
     @property
     def plan(self):
@@ -351,8 +400,8 @@ class MacroOneShot:
         tp, cols, stages, resident = plan
         npieces = self._progs[chunks[:, 0], 3] - self._progs[chunks[:, 0], 2]
         need = int((npieces * chunks[:, 3]).max() if resident else npieces.max())
-        if tp != self.tp or cols < need or not (resident or 1 <= stages <= MAX_STAGES):
-            raise ValueError(f"K3 plan {plan}: {self.tp} points, slices of at least {need} "
+        if tp not in self.tiles or cols < need or not (resident or 1 <= stages <= MAX_STAGES):
+            raise ValueError(f"K3 plan {plan}: {self.tiles} points, slices of at least {need} "
                              f"columns, 1 to {MAX_STAGES} buffers")
         return tuple(plan)
 
@@ -410,18 +459,19 @@ class MacroOneShot:
         return max(ring, key=lambda plan: plan[1],
                    default=next((plan for plan, _ in cands if plan[3]), None))
 
-    def _plan_args(self, one=False):
+    def _plan_args(self, one=False, tp=None):
         """The arguments of ``candidates`` and ``plan_for`` for this engine's
-        tables, or ``one`` row a program."""
+        tables, or ``one`` row a program, at point tile ``tp`` (the first of
+        ``tiles`` when None)."""
         rows, chunks, cpb = ((ONE_ROW_CHUNK, self.chunks_one, self.cpb_one) if one
                              else (CHUNK_ROWS, self.chunks, self.cpb))
-        return (self.tp, self.nexp_parent, self.itemsize, rows, chunks, self._progs, cpb,
-                self.words)
+        return (self.tiles[0] if tp is None else tp, self.nexp_parent, self.itemsize, rows,
+                chunks, self._progs, cpb, self.words)
 
     def plan_candidates(self, one=False):
         """``candidates`` for this engine's tables, or ``one`` row a
-        program."""
-        return self.candidates(*self._plan_args(one))
+        program, at every point tile the degree takes."""
+        return [c for tp in self.tiles for c in self.candidates(*self._plan_args(one, tp))]
 
     def layout(self, one=False):
         """The launch's tables of one mode (the tables, or ``one`` row per
@@ -534,9 +584,9 @@ class MacroOneShot:
         mode = "one row a program" if one else "tables"
         if lay is None:
             raise NotImplementedError(
-                f"K3 {mode}: a Phi tile of {self.nexp_parent} members and {self.words} mask words "
-                f"a point leave no room for a ring of slices at {self.tp} points in a block's "
-                f"{MAX_SMEM} bytes of shared memory")
+                f"K3 {mode}: a Phi tile of {self.nexp_parent} rows and {self.words} mask words "
+                f"a point leave no room for a ring of slices at {self.tiles[-1]} points in a "
+                f"block's {MAX_SMEM} bytes of shared memory")
         tp, _, stages, resident = self.plan_one if one else self.plan
         npts = points.shape[0]
         out = torch.empty((A.shape[0] if one else self.rows, npts), dtype=self.dtype,
@@ -563,7 +613,7 @@ class MacroOneShot:
                  self.pieces.data_ptr(), lay["slices_t"].data_ptr(),
                  lay["groups_t"].data_ptr(), ngroups, ONE_ROW_CHUNK if one else CHUNK_ROWS, sub,
                  int(resident), stages, lay["buf"], lay["ring"], lay["nbar"], self.words,
-                 At.data_ptr(), gather, out.data_ptr(), stream_of(points))
+                 At.data_ptr(), gather, out.data_ptr(), tp, stream_of(points))
         check_launch(f"K3 ({out.shape[0]} x {self.K}, {self.dtype}, {mode}, plan "
                      f"{self.plan_one if one else self.plan})", err)
         self.launches += 1

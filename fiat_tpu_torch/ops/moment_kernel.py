@@ -12,7 +12,11 @@ programs may have any number of subcells),
 streamed a warp's 32 points at a time through a shared-memory slab into
 sums each lane owns by member, reduced per block, and the blocks'
 partials summed in groups by the last blocks to finish, in the same
-launch (``csrc/moments.cu`` has the design).
+launch (``csrc/moments.cu`` has the design).  Every degree: up to
+``UNROLLED_DEGREE`` on instantiations with the recurrence unrolled and
+its constants in the kernel's parameters, past them on one generic
+instantiation per cell that takes the degree at the launch and its
+constants from the device.
 
 The plain version beside it is the eager recurrence times the weights plus
 ``subcell_masks`` x phi times the weights; the wrapper runs it for CPU
@@ -30,9 +34,14 @@ from .kernels import check_launch, load_kernels, resolve_device, stream_of
 from .macro_oneshot import BINNING_TOL, pack_geometry
 from .recurrence import pack_stages
 
-#: highest degree the kernel is instantiated for per spatial dimension
-#: (csrc/moments.cu, moments1.cu, moments3.cu)
-MAX_DEGREE = {1: 15, 2: 10, 3: 10}
+#: the top of the unrolled instantiations per spatial dimension
+#: (csrc/moments.cu, moments1.cu, moments3.cu); every degree past them runs
+#: the generic one (csrc/moments.cuh)
+UNROLLED_DEGREE = {1: 15, 2: 10, 3: 10}
+#: warps a block the generic instantiation may take, most first: the
+#: wrapper keeps the one with the most resident warps an SM (occupancy
+#: query: registers and shared memory)
+GENERIC_WARPS = (8, 4, 2, 1)
 
 #: doubles of a warp's slab: 32 entries x 32 points, row stride 33
 #: (csrc/moments.cuh SLAB)
@@ -47,8 +56,8 @@ GROUP = 16
 def block_warps(sd, degree):
     """The most warps a block of the (sd, degree) instantiation takes
     (csrc/moments.cuh block_warps: the tetrahedron from degree 7 runs more,
-    smaller blocks within its registers)."""
-    return 4 if sd == 3 and degree >= 7 else 8
+    smaller blocks within its registers; the generic instantiation 8)."""
+    return 4 if sd == 3 and 7 <= degree <= UNROLLED_DEGREE[3] else 8
 
 
 def even_doubles(nbytes):
@@ -57,21 +66,23 @@ def even_doubles(nbytes):
     return -(-nbytes // 16) * 2
 
 
-def warp_doubles(piece_rows, npieces, nprogs):
+def warp_doubles(piece_rows, npieces, nprogs, plain_rows=0):
     """Doubles of one warp's shared memory (csrc/moments.cuh warp_doubles):
     the slab, the tile's point mask of each piece (4 bytes) and 16-bit hit
     count of each point in each program (64 bytes a program), then one
-    double per piece row."""
-    return SLAB + even_doubles(4 * npieces + 64 * nprogs) + even_doubles(8 * piece_rows)
+    double per piece row and, in the generic instantiation, one per plain
+    row (``plain_rows``: its plain sums)."""
+    return (SLAB + even_doubles(4 * npieces + 64 * nprogs) + even_doubles(8 * piece_rows)
+            + even_doubles(8 * plain_rows))
 
 
-def block_smem(warps, piece_rows, npieces, nprogs):
+def block_smem(warps, piece_rows, npieces, nprogs, plain_rows=0):
     """Bytes of a block's shared memory (csrc/moments.cuh smem_bytes): the
     tables (first row, width and program of each piece, first and end
     piece and rule of each program: 12 bytes each), then ``warps`` warps'
     shares."""
     return 8 * (even_doubles(12 * (npieces + nprogs))
-                + warps * warp_doubles(piece_rows, npieces, nprogs))
+                + warps * warp_doubles(piece_rows, npieces, nprogs, plain_rows))
 
 
 def grid_blocks(npts, warps, blocks_per_sm, sms):
@@ -108,16 +119,17 @@ class PairMoments:
                  device=None):
         Af, bf = affine_map
         self.sd = np.asarray(Af).shape[0]
-        if self.sd not in MAX_DEGREE:
+        if self.sd not in UNROLLED_DEGREE:
             raise NotImplementedError(
                 f"K45 covers intervals, triangles and tetrahedra (sd = 1, 2, 3), not "
                 f"sd = {self.sd}")
         self.affine = np.concatenate([np.asarray(Af, np.float64).ravel(),
                                       np.asarray(bf, np.float64).ravel()])
         self.degree = int(degree)
-        if not 0 <= self.degree <= MAX_DEGREE[self.sd]:
-            raise NotImplementedError(
-                f"moments degree {degree} outside 0..{MAX_DEGREE[self.sd]} for sd = {self.sd}")
+        if self.degree < 0:
+            raise ValueError(f"moments degree {degree} is negative")
+        #: whether the degree runs the generic instantiation
+        self.generic = self.degree > UNROLLED_DEGREE[self.sd]
         self.nexp = math.comb(self.degree + self.sd, self.sd)
         self.nplain = int(nplain)
         self.piece_nexp = [int(n) for _, n in pieces]
@@ -141,8 +153,11 @@ class PairMoments:
         self.progs = as_t(progs, torch.int32)
         self.pieces = as_t(pieces_t, torch.int32)
         # the recurrence's constants go to the kernel in its parameters
+        # (the unrolled instantiations) or through a device pointer (the
+        # generic one)
         self.consts, slots = pack_stages(self.degree, sd=self.sd)
         self._consts_arg = (ctypes.c_double * len(self.consts))(*self.consts)
+        self.dconsts = as_t(self.consts) if self.generic else None
         self._affine_arg = (ctypes.c_double * 12)(*self.affine)
         self.slots = as_t(slots, torch.int32)
         self.device = self.slots.device        # "cuda" resolved to its index
@@ -154,28 +169,48 @@ class PairMoments:
         # members (csrc/moments.cu), where this raises naming shared memory
         self.piece_rows = self.rows - self.nplain
         self.nprogs = len(self.geom)
-        self.warp_smem = 8 * warp_doubles(self.piece_rows, len(self.piece_nexp), self.nprogs)
+        #: plain rows whose sums sit in shared memory (the generic instantiation)
+        self.plain_smem_rows = self.nplain if self.generic else 0
+        self.warp_smem = 8 * warp_doubles(self.piece_rows, len(self.piece_nexp), self.nprogs,
+                                          self.plain_smem_rows)
         table = block_smem(0, 0, len(self.piece_nexp), self.nprogs)
         self.warps = min(block_warps(self.sd, self.degree),
                          (BLOCK_SMEM - table) // self.warp_smem)
         if self.warps < 1:
             raise NotImplementedError(
                 f"K45: one warp's {self.warp_smem} bytes of shared memory ({self.piece_rows} "
-                f"piece rows) are past a block's {BLOCK_SMEM - table}")
-        self.smem = block_smem(self.warps, self.piece_rows, len(self.piece_nexp), self.nprogs)
+                f"piece rows, {self.plain_smem_rows} plain rows) are past a block's "
+                f"{BLOCK_SMEM - table}")
         self._blocks_per_sm = self._sms = None
         self._tickets = {}
         self.launches = 0
 
     @property
+    def smem(self):
+        """Bytes of shared memory of one block."""
+        return block_smem(self.warps, self.piece_rows, len(self.piece_nexp), self.nprogs,
+                          self.plain_smem_rows)
+
+    def occupancy(self, warps):
+        """Blocks of ``warps`` warps an SM of the card holds at once for
+        this launch (registers and shared memory both counted, by the CUDA
+        runtime), or minus the CUDA error.  Needs the card."""
+        return load_kernels().fiat_pair_moments_occupancy(
+            self.sd, self.degree, warps, self.piece_rows, len(self.piece_nexp), self.nprogs,
+            self.plain_smem_rows)
+
+    @property
     def blocks_per_sm(self):
         """The blocks an SM of the card holds at once (registers and shared
         memory both counted, by the CUDA runtime); the grid is sized to it.
-        Needs the card."""
+        The generic instantiation first takes, of GENERIC_WARPS that fit
+        shared memory, the warps a block that keep the most warps resident
+        (fewer on ties: more blocks).  Needs the card."""
         if self._blocks_per_sm is None:
-            n = load_kernels().fiat_pair_moments_occupancy(
-                self.sd, self.degree, self.warps, self.piece_rows, len(self.piece_nexp),
-                self.nprogs)
+            if self.generic:
+                fits = [w for w in GENERIC_WARPS if w <= self.warps]
+                self.warps = max(fits, key=lambda w: (w * max(0, self.occupancy(w)), -w))
+            n = self.occupancy(self.warps)
             if n <= 0:
                 raise RuntimeError(f"K45 (degree {self.degree}, sd {self.sd}, {self.warps} "
                                    f"warps, {self.smem} bytes): no block fits an SM ({n})")
@@ -214,7 +249,7 @@ class PairMoments:
         npts = points.shape[0]
         if self._sms is None:
             self._sms = torch.cuda.get_device_properties(self.device).multi_processor_count
-        bps = self.blocks_per_sm
+        bps = self.blocks_per_sm      # (fixes the generic instantiation's warps first)
         nblocks = grid_blocks(npts, self.warps, bps, self._sms)
         out = torch.empty(self.rows, dtype=torch.float64, device=points.device)
         partials = torch.empty((nblocks + -(-nblocks // GROUP), self.rows), dtype=torch.float64,
@@ -227,6 +262,7 @@ class PairMoments:
                                                           device=points.device)
         err = load_kernels().fiat_pair_moments(
             points.data_ptr(), wf.data_ptr(), npts, self.sd, self._consts_arg,
+            None if self.dconsts is None else self.dconsts.data_ptr(),
             self.slots.data_ptr(), self._affine_arg, self.scale, BINNING_TOL[torch.float64],
             self.degree, self.nplain, self.maps.data_ptr(), len(self.piece_nexp),
             self.progs.data_ptr(), self.nprogs, self.pieces.data_ptr(), self.rows, self.warps,

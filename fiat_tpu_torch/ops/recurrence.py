@@ -5,8 +5,11 @@ Counterpart of ``fiat_tpu/ops/pallas_recurrence.py``
 (``PallasSliceRecurrence``).  The TPU kernel emits the expansion
 tabulation as Ozaki bf16/int8 windows of a df32 recurrence, because the
 TPU has no f64; the CUDA kernel (``csrc/recurrence.cu``) computes the
-f64 tabulation Phi (nexp, npts) itself.  See the kernel source for what
-bounds it on the card and how its design meets that.
+f64 tabulation Phi (nexp, npts) itself, at every degree: the degrees up
+to ``UNROLLED_DEGREE`` on instantiations with the recurrence unrolled,
+every degree past them on one generic kernel per cell that takes the
+degree at the launch.  See the kernel source for what bounds it on the
+card and how its design meets that.
 
 The plain version beside it is the torch path of
 ``core.expansions.dubiner_tabulate``; the wrapper runs it for CPU tensors
@@ -21,10 +24,12 @@ import torch
 from ..core.expansions import _stage_constants, dubiner_tabulate
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
 
-#: highest degree the kernel is instantiated for, per spatial dimension
+#: the top of the unrolled instantiations, per spatial dimension
 #: (csrc/recurrence.cu): nexp 16 on the interval, 136 on the triangle, 286
-#: on the tetrahedron, all inside the widest contraction K2 takes (438)
-MAX_DEGREE = {1: 15, 2: 15, 3: 10}
+#: on the tetrahedron; every degree past them runs the generic kernel.  The
+#: widest contraction K2 takes (792) bounds what the f64 engine can use:
+#: triangle degree 38, tetrahedron degree 14
+UNROLLED_DEGREE = {1: 15, 2: 15, 3: 10}
 
 
 def pack_stages(degree, variant=None, sd=2):
@@ -40,7 +45,7 @@ def pack_stages(degree, variant=None, sd=2):
     the last stage's entries their morton output rows.  The expansion
     variants ("bubble", "dual") keep the stage structure and the morton
     rows; their recurrence coefficients and norms differ."""
-    if sd not in MAX_DEGREE:
+    if sd not in UNROLLED_DEGREE:
         raise NotImplementedError(f"the recurrence kernels cover sd = 1, 2 and 3, not sd = {sd}")
     n = degree
     if n == 0:
@@ -97,19 +102,21 @@ class DubinerRecurrence:
     sd is 1 (interval: the Legendre basis), 2 (triangle) or 3
     (tetrahedron).
 
-    ``launches`` counts kernel launches (the plain CPU path adds nothing).
+    ``launches`` counts kernel launches (the plain CPU path adds nothing);
+    ``generic`` says whether the degree runs the generic kernel (past
+    ``UNROLLED_DEGREE``).
     """
 
     def __init__(self, sd, degree, scale, affine_map, device=None):
-        if sd not in MAX_DEGREE:
+        if sd not in UNROLLED_DEGREE:
             raise NotImplementedError(
                 f"The CUDA recurrence covers intervals, triangles and tetrahedra (sd = 1, 2, 3), "
                 f"not sd={sd}")
-        if not 0 <= degree <= MAX_DEGREE[sd]:
-            raise NotImplementedError(
-                f"degree {degree} outside 0..{MAX_DEGREE[sd]} for sd = {sd}")
+        if degree < 0:
+            raise ValueError(f"degree {degree} is negative")
         self.sd = sd
         self.degree = degree
+        self.generic = degree > UNROLLED_DEGREE[sd]
         self.scale = float(scale)
         self.nexp = math.comb(degree + sd, sd)
         A, b = affine_map

@@ -191,7 +191,7 @@ class BatchedTabulator:
             raise ValueError("BatchedTabulator needs at least one non-macro element")
 
         self.max_degree = max(e.get_nodal_basis().get_embedded_degree() for e in plain)
-        self.target_es = expansions.ExpansionSet(self.ref_el)
+        self.target_es = _target_expansion_set(self.ref_el, plain)
         nexp = self.target_es.get_num_members(self.max_degree)
 
         blocks = []
@@ -209,7 +209,7 @@ class BatchedTabulator:
             self.plain_nexp[i] = self.target_es.get_num_members(deg)
             coeffs = np.asarray(ps.get_coeffs())
             if (type(es) is type(self.target_es) and es.variant is None
-                    and es.ref_el == self.ref_el):
+                    and es.ref_el == self.target_es.ref_el):
                 # plain Dubiner: prefix embedding, zero-padded, up to the
                 # degree-dependent normalisation (1 at degree 0)
                 ratio = float(es.get_scale(deg)) / float(self.target_es.get_scale(self.max_degree))
@@ -342,41 +342,44 @@ class ElementTabulator:
     ``device_tabulator``; any other is a ``TypeError``.  Its point tiling
     (``adaptive_tile``, ``lax.map``) has no counterpart.
 
+    An element on a quadrilateral or hexahedron whose nodal basis is a
+    plain Dubiner set on an embedded simplex (DPC, as fiat_tpu's
+    ``ElementTabulator`` evaluates it) runs the same engine on that
+    simplex's expansion set: K1 evaluates its polynomials at the cell's
+    points, which the simplex need not contain.
+
     Where the engine does not apply it raises ``NotImplementedError``
     naming the case, never a slower engine: a macro element (the engine
     fuses macro elements only beside a plain one, as
-    ``BatchedTabulator``), an element without a nodal expansion basis, a
-    cell other than the interval, the triangle and the tetrahedron, and an
-    embedded degree past K1's (``recurrence.MAX_DEGREE``)."""
+    ``BatchedTabulator``), an element without a nodal expansion basis, any
+    other element on a cell other than the interval, the triangle and the
+    tetrahedron, and a basis wider than K2 contracts (792 members: the
+    tetrahedron past degree 14, the engine's construction raises)."""
 
     def __init__(self, element, order=0, device=None, **tpu_only):
         from . import TPU_ONLY, device_tabulator
-        from .recurrence import MAX_DEGREE
         unknown = sorted(set(tpu_only) - set(TPU_ONLY))
         if unknown:
             raise TypeError(f"ElementTabulator() got unexpected keyword arguments {unknown}")
         name = type(element).__name__
         ref_el = element.get_reference_element()
-        if ref_el.get_shape() not in (cl.LINE, cl.TRIANGLE, cl.TETRAHEDRON):
+        simplex = ref_el.get_shape() in (cl.LINE, cl.TRIANGLE, cl.TETRAHEDRON)
+        if not simplex and _embedded_dubiner(element) is None:
             raise NotImplementedError(
                 f"ElementTabulator: {name} on {type(ref_el).__name__}; the kernel engine "
-                "covers the interval, the triangle and the tetrahedron")
+                "covers the interval, the triangle and the tetrahedron, and on other cells a "
+                "nodal basis on an embedded simplex (DPC)")
         if element.is_macroelement():
             raise NotImplementedError(
                 f"ElementTabulator: {name} is a macro element; the kernel engine takes macro "
                 "elements only in a zoo with a plain element (BatchedTabulator, "
                 "device_tabulator)")
         try:
-            degree = element.get_nodal_basis().get_embedded_degree()
+            element.get_nodal_basis().get_embedded_degree()
         except (AttributeError, NotImplementedError):
             raise NotImplementedError(
                 f"ElementTabulator: {name} has no nodal expansion basis for the kernel "
                 "engine's change of basis") from None
-        sd = ref_el.get_spatial_dimension()
-        if degree > MAX_DEGREE[sd]:
-            raise NotImplementedError(
-                f"ElementTabulator: {name} has embedded degree {degree}, past the "
-                f"recurrence kernel's {MAX_DEGREE[sd]} for sd = {sd}")
         self.element = element
         self.order = order
         self.engine = device_tabulator([element], order=order, device=device)
@@ -396,3 +399,36 @@ class ElementTabulator:
         """{alpha: float64 tensor (rows..., npts)} at ``points`` (npts, sd):
         host points go to the engine's device; a tensor must be there."""
         return self.engine.unpack(self.engine.block_tables(points))[0]
+
+
+def _embedded_dubiner(element):
+    """The expansion set of ``element``'s nodal basis where it is a plain
+    Dubiner set on a simplex (the interval, triangle or tetrahedron) of the
+    element's dimension, as DPC's on a quadrilateral or hexahedron; else
+    None."""
+    try:
+        es = element.get_nodal_basis().get_expansion_set()
+    except (AttributeError, NotImplementedError):
+        return None
+    if (type(es) not in (expansions.LineExpansionSet, expansions.TriangleExpansionSet,
+                         expansions.TetrahedronExpansionSet)
+            or es.variant is not None or es.ref_el.is_macrocell()
+            or es.ref_el.get_spatial_dimension()
+            != element.get_reference_element().get_spatial_dimension()):
+        return None
+    return es
+
+
+
+def _target_expansion_set(ref_el, plain):
+    """The Dubiner set a zoo's rows are fused on: the cell's own on a
+    simplex; on another cell the set the ``plain`` elements' nodal bases
+    share where each is a plain Dubiner set on one simplex of the cell's
+    dimension (DPC's on a quadrilateral or hexahedron: K1 evaluates its
+    polynomials at the cell's points, which the simplex need not
+    contain); else the cell's own, which raises."""
+    if not ref_el.is_simplex():
+        sets = [_embedded_dubiner(e) for e in plain]
+        if all(es is not None and es.ref_el == sets[0].ref_el for es in sets):
+            return expansions.ExpansionSet(sets[0].ref_el)
+    return expansions.ExpansionSet(ref_el)

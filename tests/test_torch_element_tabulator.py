@@ -7,10 +7,13 @@ against fiat_tpu's ``ElementTabulator`` and the host tables.
   (tests/test_symbolic.py's BASELINE config 2), the interval, RT and N1,
   order 2: within RTOL_FIAT_TPU of max(1, max |table|) per alpha of
   fiat_tpu's tables and within HOST_ATOL of the host's.
+* Degrees past K1's unrolled instantiations (triangle 16, tet 11) and DPC
+  on the quadrilateral and hexahedron (its basis on the embedded simplex),
+  degrees 1-3, against fiat_tpu and the host.
 * Every refusal by name (``NotImplementedError``): a macro element (where
   fiat_tpu fails too, each held to its own error), an element without a
-  nodal expansion basis, a cell past the interval, triangle and
-  tetrahedron, a degree past K1's.
+  nodal expansion basis, any other element on a cell past the interval,
+  triangle and tetrahedron, a basis wider than K2 takes (tet 15).
 * On a card (marker ``cuda``, skipped without one): one K1 and one K2
   launch a call, the tables against the plain engine's.
 
@@ -37,7 +40,8 @@ def _build(module, spec):
     family, cell, degree = spec
     cells = module.cells if hasattr(module, "cells") else module
     ref = {"I": cells.ufc_simplex(1), "T": cells.ufc_simplex(2),
-           "S": cells.ufc_simplex(3), "Q": cells.UFCQuadrilateral()}[cell]
+           "S": cells.ufc_simplex(3), "Q": cells.UFCQuadrilateral(),
+           "H": cells.UFCHexahedron()}[cell]
     return getattr(module, family)(ref, degree)
 
 
@@ -116,16 +120,65 @@ def test_macro_element_refused_where_fiat_tpu_fails(name):
 
 
 @pytest.mark.parametrize("spec,match", [
-    (("Bernstein", "T", 3), "has no nodal expansion basis"),
-    (("HDivTrace", "T", 2), "has no nodal expansion basis"),
-    (("Serendipity", "Q", 2), "on UFCQuadrilateral; the kernel engine covers"),
-    (("DPC", "Q", 2), "on UFCQuadrilateral; the kernel engine covers"),
-    (("Lagrange", "T", 16), "has embedded degree 16, past the recurrence kernel's 15"),
-    (("Lagrange", "S", 11), "has embedded degree 11, past the recurrence kernel's 10"),
-], ids=["bernstein", "trace", "serendipity-quad", "dpc-quad", "tri-16", "tet-11"])
+    (("Bernstein", "T", 3), r"ElementTabulator: \w+ has no nodal expansion basis"),
+    (("HDivTrace", "T", 2), r"ElementTabulator: \w+ has no nodal expansion basis"),
+    (("Serendipity", "Q", 2), r"ElementTabulator: \w+ on UFCQuadrilateral; the kernel engine "
+                              "covers"),
+    (("Lagrange", "S", 15), "K2 contracts widths up to 792; this zoo's widest is 816, the "
+                            "degree-15 basis on sd = 3"),
+], ids=["bernstein", "trace", "serendipity-quad", "tet-15"])
 def test_refusals_by_name(spec, match):
-    with pytest.raises(NotImplementedError, match=r"ElementTabulator: \w+ " + match):
+    with pytest.raises(NotImplementedError, match=match):
         ElementTabulator(_build(ft, spec), 1, device="cpu")
+
+
+def _against_fiat_tpu(spec, order, npts, seed, rtol_host):
+    """The port's ElementTabulator (plain versions) and fiat_tpu's on the same
+    points: within RTOL_FIAT_TPU of max(1, max |table|) per alpha of each
+    other, and both within ``rtol_host`` of it of the host's."""
+    import jax.numpy as jnp
+    import fiat_tpu.elements as jfe
+    from fiat_tpu.core import cells as jcl
+    from fiat_tpu.ops.tabulate import ElementTabulator as JaxElementTabulator
+    t = _build(ft, spec)
+    j = _build(type("m", (), {"cells": jcl, spec[0]: getattr(jfe, spec[0])}), spec)
+    sd = t.get_reference_element().get_spatial_dimension()
+    pts = _points(sd, npts, seed)
+    tab = ElementTabulator(t, order, device="cpu")
+    mine = tab(pts)
+    ref = JaxElementTabulator(j, order)(jnp.asarray(pts))
+    host = t.tabulate(order, pts)
+    assert set(mine) == set(ref) == set(host)
+    for alpha in host:
+        x, y, h = mine[alpha].numpy(), np.asarray(ref[alpha]), host[alpha]
+        big = max(1.0, np.abs(h).max())
+        assert x.shape == y.shape == h.shape
+        assert np.abs(x - y).max() <= RTOL_FIAT_TPU * big, alpha
+        assert np.abs(x - h).max() <= rtol_host * big, alpha
+        assert np.abs(y - h).max() <= rtol_host * big, alpha
+    assert tab.recurrence.launches == 0 and tab.matmul.launches == 0
+    return tab
+
+
+@pytest.mark.parametrize("spec", [("Lagrange", "T", 16), ("Lagrange", "S", 11)],
+                         ids=["tri-16", "tet-11"])
+def test_past_the_unrolled_degrees_matches_fiat_tpu(spec):
+    """The degrees the port refused before its generic kernels (triangle
+    16, tet 11: fiat_tpu's XLA recurrence takes them, 2.8e-10 / 6.8e-12
+    from host) against fiat_tpu and the host, relative to max(1, max
+    |table|)."""
+    tab = _against_fiat_tpu(spec, 1, 41, spec[2], RTOL_FIAT_TPU)
+    assert tab.recurrence.generic
+
+
+@pytest.mark.parametrize("cell", ["Q", "H"])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_dpc_matches_fiat_tpu_and_host(cell, degree):
+    """DPC on the quadrilateral and the hexahedron: its nodal basis is a
+    Dubiner set on the embedded simplex, which the one-element engine runs
+    (K1 at the cell's points), as fiat_tpu's ElementTabulator does."""
+    tab = _against_fiat_tpu(("DPC", cell, degree), 1, 37, degree, RTOL_FIAT_TPU)
+    assert tab.engine.recurrence.sd == (2 if cell == "Q" else 3)
 
 
 def test_keywords():

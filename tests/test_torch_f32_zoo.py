@@ -373,14 +373,25 @@ def test_plan_fits_shared_memory_at_every_degree_and_refuses_past_it():
     SM within 232,448 bytes a block and 233,472 an SM (in 128-byte units,
     1 KB kept a block) and 16 warps' registers, on the widest point tile of
     those that keep most threads, or the narrowest for at most two row
-    tiles; it refuses a Phi tile past 386 rows, and the kernel degrees past
-    its instantiations."""
+    tiles; past 386 rows (the generic instantiation's degrees: tet 14's
+    680) one block an SM on the widest point tile that fits, up to 842 rows
+    (64 points); it refuses a
+    Phi tile past 842 rows, at construction, naming the shared memory.  The
+    first degrees past the unrolled ones build on the generic
+    instantiation."""
     K = ZooF32Kernel
-    for kpad in range(2, 392, 2):
+    for kpad in range(2, 850, 2):
         for ntiles in (1, 2, 3, 40):
             plan = K.plan_for(kpad, ntiles)
-            if kpad > 386:
+            if kpad > 842:
                 assert plan is None
+                continue
+            if kpad > 386:
+                tp, kc, stages, blocks = plan
+                smem = K.smem_bytes(kpad, tp, kc, stages)
+                widest = max(t for t in K.POINT_TILES if K.fit(kpad, t, 1) is not None)
+                assert (tp, blocks) == (widest, 1) and smem <= 232448 and 2 <= stages <= 4
+                assert -(-smem // 128) * 128 + 1024 <= 233472 and min(kpad, 16) <= kc <= kpad
                 continue
             tp, kc, stages, blocks = plan
             smem = K.smem_bytes(kpad, tp, kc, stages)
@@ -395,5 +406,8 @@ def test_plan_fits_shared_memory_at_every_degree_and_refuses_past_it():
         for degree in range(top + 1):
             k6 = _kernel(sd, degree, ((3, math.comb(degree + sd, sd)),))
             assert k6.plan == K.plan_for(k6.kpad, 1) and k6.plan is not None
-        with pytest.raises(NotImplementedError, match=f"outside 0..{top}"):
-            _kernel(sd, top + 1, ((3, 4),))
+        k6 = _kernel(sd, top + 1, ((3, 4),))
+        assert k6.generic and k6.plan == K.plan_for(k6.kpad, 1)
+    assert _kernel(3, 14, ((3, 680),)).plan == K.plan_for(680, 1) == (64, 56, 2, 1)
+    with pytest.raises(NotImplementedError, match="K6: a Phi tile of 844 rows"):
+        _kernel(2, 40, ((3, 843),))

@@ -35,7 +35,7 @@ from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator, _merge_macro_program
 from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot, one_shot_applies
 from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
 from fiat_tpu_torch.ops.moment_kernel import PairMoments
-from fiat_tpu_torch.ops.recurrence import MAX_DEGREE, DubinerRecurrence, pack_stages
+from fiat_tpu_torch.ops.recurrence import UNROLLED_DEGREE, DubinerRecurrence, pack_stages
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
 HERE = Path(__file__).resolve().parent
@@ -273,7 +273,7 @@ def test_plain_interval_recurrence_matches_fiat_tpu(degree):
     got = rec(torch.as_tensor(pts))
     assert tuple(got.shape) == want.shape == (degree + 1, 300)
     assert np.abs(got.numpy() - want).max() <= RTOL_PLAIN * np.abs(want).max()
-    assert rec.launches == 0 and MAX_DEGREE[1] == 15
+    assert rec.launches == 0 and UNROLLED_DEGREE[1] == 15
 
 
 @pytest.mark.parametrize("variant", [None, "bubble", "dual"])
@@ -481,17 +481,32 @@ def test_k6_sd1_schedule_matches_plain(degree, shapes, npts):
 
 
 def test_wrappers_take_sd1_and_refuse_past_their_degrees():
+    """K1, K6 and K45 take degree 16 on the interval, past their unrolled
+    15 (their generic instantiations): K1's plain version matches
+    fiat_tpu's recurrence, K6's plan and its plain product and K45's plain
+    sums are the plain tables'; K8 keeps its own 15 and refuses past it."""
     es = texp.ExpansionSet(tcl.ufc_simplex(1))
     amap = es.affine_mappings[0]
-    with pytest.raises(NotImplementedError, match="outside 0..15 for sd = 1"):
-        DubinerRecurrence(1, 16, 1.0, amap, device="cpu")
-    with pytest.raises(NotImplementedError, match="outside 0..15 for sd = 1"):
-        ZooF32Kernel([np.eye(2)], 16, 1.0, amap, device="cpu")
-    with pytest.raises(NotImplementedError, match="outside 0..15 for sd = 1"):
-        PairMoments(16, 3, 1.0, amap, device="cpu")
+    pts = _points(40, 16)
+    rec = DubinerRecurrence(1, 16, float(es.get_scale(16)), amap, device="cpu")
+    phi = rec(torch.as_tensor(pts))
+    want = np.asarray(JExpansionSet(jcl.ufc_simplex(1))._tabulate_on_cell(16, pts)[(0,)])
+    assert rec.generic and np.abs(phi.numpy() - want).max() <= 1e-13 * np.abs(want).max()
+    A = np.random.default_rng(16).standard_normal((5, 17))
+    k6 = ZooF32Kernel([A], 16, float(es.get_scale(16)), amap, device="cpu")
+    out = torch.zeros((5, 40), dtype=torch.float32)
+    k6(torch.as_tensor(pts, dtype=torch.float32), torch.arange(5, dtype=torch.int32), out)
+    assert k6.generic and k6.plan is not None
+    assert np.abs(out.numpy() - A @ want).max() <= RTOL_F32_KERNEL * np.abs(A @ want).max()
+    wf = np.random.default_rng(17).random(40)
+    pm = PairMoments(16, 17, float(es.get_scale(16)), amap, device="cpu")
+    got = pm(torch.as_tensor(pts), torch.as_tensor(wf)).numpy()
+    assert pm.generic and np.abs(got - want @ wf).max() <= 1e-13 * np.abs(want @ wf).max()
     assert PairMoments(15, 16, 1.0, amap, device="cpu").nexp == 16
-    assert BernsteinFeatures(1, 15, (np.array([[-1.0], [1.0]]), np.array([1.0, 0.0])),
-                             device="cpu").nexp == 16
+    bary = (np.array([[-1.0], [1.0]]), np.array([1.0, 0.0]))
+    assert BernsteinFeatures(1, 15, bary, device="cpu").nexp == 16
+    with pytest.raises(NotImplementedError, match="outside 0..15 for sd = 1"):
+        BernsteinFeatures(1, 16, bary, device="cpu")
 
 
 # -- on the card ------------------------------------------------------------------------

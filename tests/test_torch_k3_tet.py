@@ -34,8 +34,8 @@ from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.ops import moments as tmo
 from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
 from fiat_tpu_torch.ops.fused_zoo import _merge_macro_programs
-from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, MAX_SMEM, RESIDENT_SMEM,
-                                              MacroOneShot, ceil16, chunk_table,
+from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, GENERIC_TILES, MAX_SMEM,
+                                              RESIDENT_SMEM, MacroOneShot, ceil16, chunk_table,
                                               one_shot_applies, smem_bytes)
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
@@ -222,8 +222,13 @@ def test_k3_sd3_wrapper_checks_and_limits():
     args = dict(A=mo.A.numpy(), pieces=list(enumerate(mo.nexp)), geom=mo.geom,
                 parent_map=mo.parent_map, scale=mo.scale,
                 affine_map=(mo.affine[:9].reshape(3, 3), mo.affine[9:]), device="cpu")
-    with pytest.raises(NotImplementedError, match="outside 0..10"):
-        MacroOneShot(degree=11, **args)
+    # parent degree 11, past the unrolled 10, computes on the generic
+    # instantiation: the pieces read the same leading members of the
+    # degree-11 recurrence (same scale), so the tables are the same
+    gen = MacroOneShot(degree=11, **args)
+    assert gen.generic and gen.tiles == GENERIC_TILES and gen.plan is not None
+    want = mo(P)
+    assert np.abs(gen(P).numpy() - want.numpy()).max() <= 1e-13 * np.abs(want.numpy()).max()
 
 
 @pytest.mark.parametrize("dtype,subcells,degree,fits", [

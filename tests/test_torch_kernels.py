@@ -63,13 +63,10 @@ def test_bucket_matmul_kernel_matches_plain(cuda, npts, offset):
 def test_bucket_matmul_kernel_raises_past_its_shared_memory(cuda):
     """Contraction width 793 leaves no room for a ring of two 16-row A
     chunks and the C staging beside a 32-point Phi tile in a block's shared
-    memory: the launch raises, naming the width, and launches nothing."""
-    mm = BucketMatmul([np.ones((4, 793))], cuda)
-    assert mm.plan is None
-    with pytest.raises(RuntimeError, match="contraction width 793"):
-        mm(torch.ones((793, 256), dtype=torch.float64, device=cuda))
-    assert mm.launches == 0
-    # the refused launch leaves no error behind for the next one to report
+    memory: construction raises, naming the width, and nothing launches."""
+    with pytest.raises(NotImplementedError, match="contraction width 793"):
+        BucketMatmul([np.ones((4, 793))], cuda)
+    # the refusal leaves no error behind for the next launch to report
     ok = BucketMatmul([np.ones((4, 10))], cuda)
     ok(torch.ones((10, 256), dtype=torch.float64, device=cuda))
     assert ok.launches == 1
@@ -917,8 +914,10 @@ def test_k6_entry_refuses_plans_it_does_not_take(cuda):
     a block's shared memory (or the planned blocks' an SM), blocks past the
     launch bounds' registers, a point tile it has no kernel for, a chunk or
     Phi tile off the depth of 2, a ring of other than 2 to 4 chunks, or a
-    degree past the cell's, is refused with cudaErrorInvalidValue,
-    launching nothing."""
+    degree past the generic instantiation's 63 (the split of a point's
+    stage-1 rows is a 64-bit mask; degree 11, past the unrolled 10, now
+    launches the generic instantiation), is refused with
+    cudaErrorInvalidValue, launching nothing."""
     import ctypes
     from fiat_tpu_torch.ops.kernels import load_kernels, stream_of
     k6 = _zoo_kernel(cuda, 3, 8, ((64, 165),))
@@ -932,7 +931,7 @@ def test_k6_entry_refuses_plans_it_does_not_take(cuda):
             (8, 166, 128, 28, 2, 3), (8, 166, 128, 30, 2, 2),
             (8, 166, 256, 28, 2, 2), (8, 166, 96, 28, 2, 2), (8, 166, 128, 27, 2, 2),
             (8, 165, 128, 28, 2, 2), (8, 166, 128, 28, 1, 2), (8, 166, 128, 28, 5, 2),
-            (8, 166, 64, 16, 2, 5), (8, 166, 128, 28, 2, 0), (11, 166, 128, 28, 2, 2)):
+            (8, 166, 64, 16, 2, 5), (8, 166, 128, 28, 2, 0), (64, 166, 128, 28, 2, 2)):
         err = lib.fiat_zoo_f32(P.data_ptr(), 256, 3, k6.consts.data_ptr(), k6.slots.data_ptr(),
                                affine, k6.scale, degree, k6.At.data_ptr(), kpad, k6.max_k,
                                k6.tiles.data_ptr(), k6.tiles.shape[0], dst.data_ptr(),

@@ -4,6 +4,8 @@ expansion-set host math of the port, against fiat_tpu.
 Inputs are numpy arrays made from seeds and handed to both packages; the
 fiat_tpu Pallas kernel runs in interpret mode, as its own tests run it."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ from fiat_tpu.ops.pallas_recurrence import PallasSliceRecurrence
 from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core.expansions import ExpansionSet
-from fiat_tpu_torch.ops.recurrence import MAX_DEGREE, DubinerRecurrence, pack_stages
+from fiat_tpu_torch.ops.recurrence import UNROLLED_DEGREE, DubinerRecurrence, pack_stages
 
 PTS = np.random.default_rng(11).random((300, 2)) * 0.45
 
@@ -152,7 +154,17 @@ def test_wrapper_rejects_bad_inputs():
         rec(torch.as_tensor(np.asfortranarray(PTS)).T.contiguous().T)
     with pytest.raises(NotImplementedError, match="sd = 1, 2, 3"):
         DubinerRecurrence(4, 2, 1.0, (np.eye(4), np.zeros(4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="outside 0..15"):
-        DubinerRecurrence(2, MAX_DEGREE[2] + 1, 1.0, (np.eye(2), np.zeros(2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="outside 0..10"):
-        DubinerRecurrence(3, MAX_DEGREE[3] + 1, 1.0, (np.eye(3), np.zeros(3)), device="cpu")
+    with pytest.raises(ValueError, match="negative"):
+        DubinerRecurrence(2, -1, 1.0, (np.eye(2), np.zeros(2)), device="cpu")
+    # the first degrees past the unrolled instantiations (refused before the
+    # generic kernel) compute, and match fiat_tpu's recurrence
+    for sd in (2, 3):
+        degree = UNROLLED_DEGREE[sd] + 1
+        es, jes = ExpansionSet(tcl.ufc_simplex(sd)), JExpansionSet(jcl.ufc_simplex(sd))
+        pts = np.random.default_rng(sd).random((50, sd)) / sd
+        gen = DubinerRecurrence(sd, degree, es.get_scale(degree), es.affine_mappings[0],
+                                device="cpu")
+        assert gen.generic and gen.nexp == math.comb(degree + sd, sd)
+        want = np.asarray(jes._tabulate_on_cell(degree, pts)[(0,) * sd])
+        got = gen(torch.as_tensor(pts)).numpy()
+        assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()

@@ -443,8 +443,16 @@ def test_k45_sd3_wrapper_checks_and_limits():
         pm(torch.as_tensor(pts, device="meta"), torch.as_tensor(wf, device="meta"))
     es = texp.ExpansionSet(tcl.ufc_simplex(3))
     amap = es.affine_mappings[0]
-    with pytest.raises(NotImplementedError, match="outside 0..10"):
-        PairMoments(11, 1, 1.0, amap, device="cpu")
+    # degree 11, past the unrolled 10, runs the generic instantiation: its
+    # plain sums are the degree-11 basis times the weights
+    gen = PairMoments(11, 364, float(es.get_scale(11)), amap, device="cpu")
+    P, W = torch.as_tensor(pts), torch.as_tensor(wf)
+    want = texp.dubiner_tabulate(3, 11, [(P @ torch.as_tensor(amap[0]).T
+                                          + torch.as_tensor(amap[1]))[:, i] for i in range(3)],
+                                 float(es.get_scale(11))) @ W
+    assert gen.generic and torch.allclose(gen(P, W), want, rtol=0, atol=1e-13 * want.abs().max())
+    with pytest.raises(ValueError, match="negative"):
+        PairMoments(-1, 1, 1.0, amap, device="cpu")
     assert pm.launches == 0
 
 
@@ -563,7 +571,8 @@ def test_f32_tet_tiles_fit_shared_memory_and_refuse_past_degree_10():
     SM, so one block's recurrence runs beside the other's products; from
     degree 9 the tile takes 64 points, and degree 10 still fits two
     blocks.  A single row tile of degree 3 takes the 64-point tile, four
-    blocks an SM."""
+    blocks an SM.  Past degree 10 the generic instantiation takes the
+    degree: at 11 (364 rows) the 64-point tile still fits two blocks."""
     es = texp.ExpansionSet(tcl.ufc_simplex(3))
     amap = es.affine_mappings[0]
     limit = 232448
@@ -573,8 +582,8 @@ def test_f32_tet_tiles_fit_shared_memory_and_refuse_past_degree_10():
         k6 = ZooF32Kernel([np.eye(n)], degree, 1.0, amap, device="cpu")
         assert k6.plan == plan and k6.kpad == n + n % 2
         assert k6.smem <= limit and plan[3] * (k6.smem + 1024) <= 233472
-    with pytest.raises(NotImplementedError, match="outside 0..10 for sd = 3"):
-        ZooF32Kernel([np.eye(4)], 11, 1.0, amap, device="cpu")
+    k11 = ZooF32Kernel([np.eye(364)], 11, 1.0, amap, device="cpu")
+    assert k11.generic and k11.plan == (64, 20, 2, 2) and k11.smem <= limit
     k6 = ZooF32Kernel([np.eye(4)], 1, 1.0, amap, device="cpu")
     with pytest.raises(ValueError, match=r"points must have shape \(npts, 3\)"):
         k6(torch.zeros((4, 2)), torch.zeros(4, dtype=torch.int32), torch.zeros((4, 4)))
