@@ -225,7 +225,16 @@ Drives the port's main paths once each at their real size, at 1e5 points
      both against a host assembly, ``ir.cost_analysis`` against the
      analytic counts; (4) ``ir`` on the card: ``as_graph`` and
      ``evaluate`` of the symbolic tensor path equal to the direct call,
-     ``as_graph`` of the kernel engine refused (``NotTraceable``).
+     ``as_graph`` of the kernel engine refused (``NotTraceable``);
+ 29. ``high_degree``: the HIGH_DEGREE zoos through every entry point on
+     the generic instantiations of K1, K3, K45 and K6
+     (``high_degree_phase``);
+ 30. ``wide_basis``: the WIDE zoos (tet GLL Lagrange 15, 16, 20 and DG 20;
+     triangle GLL Lagrange 40 and DG 40) through every entry point, K2 in
+     its streamed mode and K6 in its wide mode (its Phi stage and its
+     product); the Bernstein elements and routes at fiat_tpu's highest
+     degrees on K8's generic instantiation; ``ElementTabulator`` on tet GLL
+     Lagrange 20 (``wide_phase``).
 
 On the way it builds the CUDA kernels from ``fiat_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the shapes each path
@@ -244,7 +253,7 @@ Usage (from the repository root, on a machine with a CUDA card):
     python3 chip_smoke.py --k6-cells ROOT   # K6 alone per cell, package at ROOT
     python3 chip_smoke.py --k7-cells ROOT   # K7 alone per cell, package at ROOT
     python3 chip_smoke.py --k1-cells ROOT   # K1 and K8 alone per cell, package at ROOT
-    python3 chip_smoke.py --phases 23,28    # some of phases 22-28 alone (a quick check)
+    python3 chip_smoke.py --phases 23,28    # some of phases 22-30 alone (a quick check)
 
 Prints the card's name and power limit, the build time, K3's, K45's, K6's,
 K2's and K7's registers by instantiation and the spills (it fails where K6
@@ -267,7 +276,8 @@ K3, K2, K7, K45 and K3 float32 of phase 23, K1 and K2 under jets (phase
 24), rank 0's K45 and K2 in each world of phase 25, K1 and K2 of
 ``ElementTabulator``'s two cells in phase 26, and K1, K2 and K3 of the
 factory-built ``full_zoo`` and K1 and K2 of its Lagrange 4 in phase 28,
-each with its bound:
+the generic stages of phase 29, and phase 30's K1, K2 streamed, K45, K6
+wide and its Phi stage, and K8 generic, each with its bound:
 the larger of its bytes over the HBM rate and its operations over the peak
 rate for their type), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -709,8 +719,8 @@ def run_main_path(name, tab, zoo, pts2, torch, np, engines=None, order=1):
     finiteness and host parity."""
     if engines is None:
         engines = {"K1": tab.recurrence, "K2": tab.matmul}
-        if tab.macro is not None:
-            engines["K3"] = tab.macro
+        if merged_macro(tab) is not None:
+            engines["K3"] = merged_macro(tab)
     blocks, launches = counted(engines, lambda: tab.block_tables(pts2), torch)
     finite = all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl)
     host_err = host_check(zoo, tab.unpack(blocks), pts2, NPTS, torch, np, order)
@@ -796,12 +806,12 @@ def full_zoo_phase(T, dev, pts2, P, card, torch, np):
     t0 = time.perf_counter()
     zoo = full_zoo(T)
     tab = device_tabulator(zoo, order=1, device=dev)
-    mo = tab.macro
+    mo = merged_macro(tab)
     print(f"full_zoo host construction: {len(zoo)} elements, {tab.rows} rows x "
           f"{len(tab.alphas)} alphas, widths {tab.widths}, K3 {mo.rows} x {mo.K} over "
           f"{len(mo.nexp)} subcells (parent degree {mo.degree}), "
           f"{time.perf_counter() - t0:.2f} s")
-    if len(zoo) != 42 or tab.macro is None:
+    if len(zoo) != 42 or merged_macro(tab) is None:
         fail("full_zoo must hold 42 elements, the macro ones on K3")
     errs, launches, host_err = full_zoo_checks("full_zoo", tab, zoo, pts2, P, torch, np)
     ms = full_zoo_times(tab, P, torch)
@@ -828,7 +838,7 @@ def full_zoo_checks(label, tab, zoo, pts2, P, torch, np):
     each against its plain version at P, then one pass of the main path
     (K1, K2 and K3 once each, host parity).  Returns ({kernel: max abs
     error}, {kernel: launches}, the host error)."""
-    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, mo = tab.recurrence, tab.matmul, merged_macro(tab)
     phi_p = rec.plain(P)
     errs = {"K1": check_kernel(f"{label} K1 recurrence at {NPTS} points", rec(P), phi_p, torch),
             "K2": check_kernel(f"{label} K2 bucket matmul ({mm.total_rows} x {NPTS})",
@@ -846,7 +856,7 @@ def full_zoo_times(tab, P, torch):
     """Each of ``full_zoo``'s kernels on ``tab``, its plain version and its
     library call (K2: one padded DGEMM; K3: one DGEMM on the masked B),
     timed at P: the times by name."""
-    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, mo = tab.recurrence, tab.matmul, merged_macro(tab)
     phi = rec(P)
     A = mm.A.to(phi.device)
     return {"K1": median_ms(lambda: rec(P), torch),
@@ -863,7 +873,7 @@ def full_zoo_entries(tab, errs, launches, ms, suffix=""):
     """The kernels-line entries of ``full_zoo``'s K1, K2 and K3 on
     ``tab`` (``full_zoo_checks``' errors and launches,
     ``full_zoo_times``' times)."""
-    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, mo = tab.recurrence, tab.matmul, merged_macro(tab)
     return [
         entry("K1 dubiner2_values" + suffix, "fiat_tpu_torch/csrc/recurrence.cu",
               "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], errs["K1"], ms["K1"],
@@ -890,6 +900,27 @@ def generic(wrapper):
     """" generic" where a kernel wrapper runs its generic instantiation (a
     degree past its unrolled ones), for its kernels-line name."""
     return " generic" if getattr(wrapper, "generic", False) else ""
+
+
+def merged_macro(engine):
+    """The kernel of an engine's first merged macro route (the group on the
+    zoo's basis where there is one), read off its route list: the f64
+    engine's K3 or K7 (``macro_routes``' ``.engine``), the f32 engine's K3
+    float32 (``macro_routes``), the moments engine's K3 for interpolation
+    (``macros``); None without merged macro programs."""
+    if hasattr(engine, "macros"):
+        kernels = engine.macros
+    else:
+        kernels = [getattr(r, "engine", r) for r in engine.macro_routes
+                   if getattr(r, "kind", "merged") == "merged" and r.name != "torch"]
+    return kernels[0] if kernels else None
+
+
+def wide(wrapper):
+    """" streamed" (K2) or " wide" (K6) where a kernel wrapper runs the mode
+    past its resident Phi tile (phase 30), for its kernels-line name."""
+    mode = getattr(wrapper, "mode", None)
+    return f" {mode}" if mode in ("streamed", "wide") else ""
 
 
 def bound_of(nbytes, flops, flops_ms):
@@ -1091,7 +1122,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     zoo = full_zoo(T)
     bt = BatchedTabulator(zoo, order=0)     # the default device: the card
     eng = mo.moment_engine(bt)
-    pm, rec, m3 = eng.moments, eng.recurrence, eng.macro
+    pm, rec, m3 = eng.moments, eng.recurrence, merged_macro(eng)
     rows = eng.rows
     print(f"moments host construction: {len(zoo)} elements, {rows} rows, K45 {pm.rows} sums "
           f"(degree {pm.degree}: {pm.nplain} plain + {pm.rows - pm.nplain} masked over "
@@ -1104,7 +1135,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     k45_abs = check_kernel(f"K45 pair moments ({pm.rows} sums over {NPTS} points)",
                            pm(P, wf), pm.plain(P, wf), torch)
     check_k45_alone("full_zoo", pm, P, wf, torch)
-    W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
+    W = eng.program_columns[0] * (c @ eng.matrix)[eng.nexp:]
     w_abs = check_kernel(f"K3 one row per program ({W.shape[0]} x {W.shape[1]}, interpolation)",
                          m3(P, A=W), m3.plain(P, A=W), torch)
 
@@ -1128,7 +1159,7 @@ def moments_phase(T, dev, pts2, P, card, torch, np):
     def interp_plain(Q):
         folded = c @ eng.matrix
         return (folded[:eng.nexp] @ rec.plain(Q)
-                + m3.plain(Q, A=eng.program_columns * folded[eng.nexp:]).sum(dim=0))
+                + m3.plain(Q, A=eng.program_columns[0] * folded[eng.nexp:]).sum(dim=0))
 
     k45_ms, k45_plain = median_ms(lambda: pm(P, wf), torch), median_ms(lambda: pm.plain(P, wf),
                                                                       torch)
@@ -1214,7 +1245,7 @@ def f32_phase(T, dev, P, ref64, card, torch):
     t0 = time.perf_counter()
     zoo = full_zoo(T)
     tab = device_tabulator(zoo, order=1, f64=False, device=dev)
-    k6, m3 = tab.kernel, tab.macro
+    k6, m3 = tab.kernel, merged_macro(tab)
     if k6.variant is not None:
         fail("f32: full_zoo's target basis is the plain Dubiner one")
     print(f"f32 host construction: {len(zoo)} elements, {tab.rows} rows x {len(tab.alphas)} "
@@ -1288,7 +1319,7 @@ def f32_vs_f64(name, tab, zoo, tables, ref64, torch, P=None):
                  f"{type(zoo[el]).__name__} #{el}")
     macro_worst, keep = 0.0, slice(None)
     if P is not None:
-        keep = tab.macro.same_subcells(P)
+        keep = merged_macro(tab).same_subcells(P)
         print(f"{name}: {int((~keep).sum())} of {keep.numel()} points lie within the float32 "
               f"binning tolerance of an interior face, where float32 averages over the subcells "
               f"that meet and float64 does not; macro rows compared on the other "
@@ -1516,7 +1547,7 @@ def dg6_phase(P, pts3, card, torch, np):
     t0 = time.perf_counter()
     zoo = dg6_worsey_farin(ufc_simplex(3))
     tab = device_tabulator(zoo, order=1)
-    rec, mm, k7 = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, k7 = tab.recurrence, tab.matmul, merged_macro(tab)
     print(f"dg6_worsey_farin host construction: K7 {k7.rows} x {k7.K} over {len(k7.nexp)} "
           f"subcells, {time.perf_counter() - t0:.2f} s")
     k7_plan_line("dg6_worsey_farin", k7)
@@ -1569,7 +1600,7 @@ def sv_phase(dev, card, torch, np):
     t0 = time.perf_counter()
     zoo = sv_macro_tet(ufc_simplex(3))
     tab = device_tabulator(zoo, order=1)          # the default device: the card
-    rec, mm, k7 = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, k7 = tab.recurrence, tab.matmul, merged_macro(tab)
     if tab.device != dev or k7 is None or k7.name != "K7":
         fail(f"sv_macro_tet: the macro elements must run on K7 on {dev}, got "
              f"{getattr(k7, 'name', None)} on {tab.device}")
@@ -1720,7 +1751,7 @@ def tet_dual_f32_phase(dev, card, engines64, torch, np):
         t0 = time.perf_counter()
         tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
         k6 = tab.kernel
-        if tab.device != dev or k6.sd != 3 or tab.macro is not None:
+        if tab.device != dev or k6.sd != 3 or merged_macro(tab) is not None:
             fail(f"{name} f32: K6's sd = 3 stage alone on {dev}")
         print(f"{name} f32 host construction: {tab.rows} rows x {len(tab.alphas)} alphas, K6 "
               f"{k6.total_rows} rows in widths {k6.K}, {time.perf_counter() - t0:.2f} s")
@@ -1785,7 +1816,7 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
     t0 = time.perf_counter()
     bt = BatchedTabulator(zoo, order=0)     # the default device: the card
     eng = mo.moment_engine(bt)
-    rec, m3 = eng.recurrence, eng.macro
+    rec, m3 = eng.recurrence, merged_macro(eng)
     if eng.device != dev or m3 is None or m3.sd != 3:
         fail(f"sv_macro_tet interpolation must run K3's sd = 3 stage on {dev}")
     print(f"sv_macro_tet interpolation host construction: {eng.rows} rows, K1 degree "
@@ -1794,7 +1825,7 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
           f"{time.perf_counter() - t0:.2f} s")
     c_h = np.random.default_rng(11).random(eng.rows) - 0.5
     c = torch.as_tensor(c_h, device=dev)
-    W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
+    W = eng.program_columns[0] * (c @ eng.matrix)[eng.nexp:]
     w_abs = check_kernel(f"sv_macro_tet K3 sd 3 one row per program ({W.shape[0]} x "
                          f"{W.shape[1]}, interpolation)", m3(P, A=W), m3.plain(P, A=W), torch)
     u, launches = counted({"K1": rec, "K3": m3}, lambda: mo.interpolate_rows(bt, P, c), torch)
@@ -1817,7 +1848,7 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
     def interp_plain():
         folded = c @ eng.matrix
         return (folded[:eng.nexp] @ rec.plain(P)
-                + m3.plain(P, A=eng.program_columns * folded[eng.nexp:]).sum(dim=0))
+                + m3.plain(P, A=eng.program_columns[0] * folded[eng.nexp:]).sum(dim=0))
 
     int_ms, int_plain = median_ms(lambda: mo.interpolate_rows(bt, P, c), torch), median_ms(
         interp_plain, torch)
@@ -1835,7 +1866,7 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
     # the f32 tables: K6's sd = 3 stage for the plain rows, K3 float32 for the macro rows
     t0 = time.perf_counter()
     tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
-    k6, m3f = tab.kernel, tab.macro
+    k6, m3f = tab.kernel, merged_macro(tab)
     if tab.device != dev or k6.sd != 3 or m3f is None or m3f.sd != 3:
         fail(f"sv_macro_tet f32: K6's and K3's sd = 3 stages on {dev}")
     print(f"sv_macro_tet f32 host construction: K6 {k6.total_rows} rows in widths {k6.K}, K3 "
@@ -1872,7 +1903,7 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
           f"writes {len(tab.alphas) * tab.rows * NPTS * 4 / 1e9:.3f} GB")
 
     # K3 against K7 on the f64 engine's merged arrays (632 x 288) and points
-    k7, rec64 = sv_tab.macro, sv_tab.recurrence
+    k7, rec64 = merged_macro(sv_tab), sv_tab.recurrence
     k3 = MacroOneShot(k7.A.cpu().numpy(), list(enumerate(k7.nexp)), k7.geom, k7.parent_map,
                       rec64.degree, rec64.scale, (rec64.A, rec64.b), device=dev)
     out3 = k3(P)
@@ -1893,7 +1924,7 @@ def tet_macro_phase(dev, card, sv_tab, torch, np):
     print(f"K3 sd 3 vs K7 on sv_macro_tet ({card}; median of {REPS} runs of {INNER}, CUDA "
           f"events): K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, one DGEMM on the masked B "
           f"{k3_lib:.4f}, bound {k3_bound[0]:.4f} by {k3_bound[1]}); K7 {k7_ms:.4f} ms on K1's "
-          f"Phi (K1 {k1_ms:.4f} ms); the f64 engine takes {sv_tab.macro.name}")
+          f"Phi (K1 {k1_ms:.4f} ms); the f64 engine takes {merged_macro(sv_tab).name}")
     return [
         # the f64 sd = 3 kernel's main path is the interpolation (the f64
         # tables take K7): its launches there, its times on the tables' A
@@ -1927,7 +1958,7 @@ def c1_phase(T, dev, pts2, P, card, torch, np):
                         ("c1_macro_zoo order 3", 3)):
         t0 = time.perf_counter()
         tab = device_tabulator(zoo, order=order, device=dev)
-        rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+        rec, mm, mo = tab.recurrence, tab.matmul, merged_macro(tab)
         if mo is None or mo.name != "K3" or len(mo.nexp) != 21:
             fail(f"{name}: the macro elements must run on K3 over 21 subcells")
         print(f"{name} host construction: {len(zoo)} elements, order {order}, {tab.rows} rows x "
@@ -2076,7 +2107,7 @@ def f64_cell(name, zoo, pts, P, card, torch, np, k3_beside=True):
 
     t0 = time.perf_counter()
     tab = device_tabulator(zoo, order=1)           # the default device: the card
-    rec, mm, k7 = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, k7 = tab.recurrence, tab.matmul, merged_macro(tab)
     if k7 is not None and k7.name == "K3":       # the engine's K3: run as the macro kernel
         return f64_k3_cell(name, zoo, tab, pts, P, card, torch, np, t0)
     merged = None if k7 is None else _merge_macro_programs(tab._programs, rec.scale,
@@ -2176,7 +2207,7 @@ def f64_cell(name, zoo, pts, P, card, torch, np, k3_beside=True):
         entry(f"K1 dubiner{rec.sd}_values{generic(rec)} ({name})", src + "recurrence.cu",
               "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain,
               k1_bound),
-        entry(f"K2 bucket_matmul ({name})", src + "bucket_matmul.cu",
+        entry(f"K2 bucket_matmul{wide(mm)} ({name})", src + "bucket_matmul.cu",
               "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain,
               k2_bound, k2_lib)]
     if k7 is not None:
@@ -2192,7 +2223,7 @@ def f64_k3_cell(name, zoo, tab, pts, P, card, torch, np, t0):
     against its plain version (K3 row by row to its own max |A_r| |B|), one
     launch each a pass, the tables to host, and the pass, the kernels, their
     plain versions and one DGEMM on K3's masked B timed."""
-    rec, mm, k3 = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, k3 = tab.recurrence, tab.matmul, merged_macro(tab)
     if tab.features is not None or tab.device != P.device:
         fail(f"{name}: K1, K2 and K3 on {P.device}")
     gbytes = (mm.total_rows + k3.rows) * NPTS * 8 / 1e9
@@ -2250,7 +2281,7 @@ def f64_k3_cell(name, zoo, tab, pts, P, card, torch, np, t0):
         entry(f"K1 dubiner{rec.sd}_values{generic(rec)} ({name})", src + "recurrence.cu",
               "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms, k1_plain,
               k1_bound),
-        entry(f"K2 bucket_matmul ({name})", src + "bucket_matmul.cu",
+        entry(f"K2 bucket_matmul{wide(mm)} ({name})", src + "bucket_matmul.cu",
               "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms, k2_plain,
               k2_bound, k2_lib),
         entry(f"K3 macro_oneshot sd {k3.sd}{generic(k3)} ({name})", src + "macro_oneshot.cu",
@@ -2286,7 +2317,7 @@ def dual_cell(name, zoo, pts, P, card, torch, np):
     t0 = time.perf_counter()
     bt = BatchedTabulator(zoo, order=0)            # the default device: the card
     eng = mo.moment_engine(bt)
-    pm, rec, m3 = eng.moments, eng.recurrence, eng.macro
+    pm, rec, m3 = eng.moments, eng.recurrence, merged_macro(eng)
     if m3 is not None and m3.name != "K3":
         fail(f"{name}: interpolation runs K3 for the macro elements")
     masked = "" if m3 is None else (
@@ -2305,7 +2336,7 @@ def dual_cell(name, zoo, pts, P, card, torch, np):
     engines = {"K45": pm, "K1": rec}
     if m3 is not None:
         engines["K3"] = m3
-        W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
+        W = eng.program_columns[0] * (c @ eng.matrix)[eng.nexp:]
         w_abs = check_scaled(f"{name} K3 one row per program ({W.shape[0]} x {W.shape[1]})",
                              m3(P, A=W), m3.plain(P, A=W), oneshot_scale(m3, P, W))
     M, launches = counted(engines, lambda: mo.moment_rows(bt, P, wf), torch)
@@ -2368,7 +2399,7 @@ def f32_cell(name, zoo, P, tab64, card, torch):
 
     t0 = time.perf_counter()
     tab = device_tabulator(zoo, order=1, f64=False)   # the default device: the card
-    k6, m3 = tab.kernel, tab.macro
+    k6, m3 = tab.kernel, merged_macro(tab)
     if tab.device != P.device or (m3 is not None and m3.name != "K3"):
         fail(f"{name} f32: K6, and K3 float32 for the macro elements, on {P.device}")
     macro = "" if m3 is None else (
@@ -2384,6 +2415,11 @@ def f32_cell(name, zoo, P, tab64, card, torch):
                           k6(P32, tab.dst_plain, out).clone(),
                           k6.plain(P32, tab.dst_plain, out), torch, F32_KERNEL_RTOL)
     engines = {"K6": k6}
+    if k6.mode == "wide":        # phase 30: K6's Phi stage is a launch of its own
+        engines["K6 Phi stage"] = StageLaunches(k6)
+        stage_abs = check_kernel(f"{name} K6 Phi stage ({k6.kpad} x {NPTS})",
+                                 wide_phi(k6, P32, torch), k6.phi(P32)[:k6.max_k], torch,
+                                 WIDE_PHI_RTOL)
     if m3 is not None:
         engines["K3 float32"] = m3
         m3_abs = check_scaled(f"{name} K3 float32 ({m3.rows} x {NPTS})", m3(P32), m3.plain(P32),
@@ -2424,7 +2460,7 @@ def f32_cell(name, zoo, P, tab64, card, torch):
                 fail(f"{name} f32 macro rows of {element_label(el)} {a}: {rel:.3e} of max abs "
                      f"+ 1 > {bar}")
     worst = max(err[a] / scale[a] for a in tab.alphas)
-    rtol = (INTERVAL_F32_RTOL if on_interval(zoo[0])
+    rtol = (INTERVAL_F32_RTOL if on_interval(zoo[0]) else WIDE_F32_RTOL if wide(k6)
             else HIGH_DEGREE_F32_RTOL if any(map(high_degree, zoo)) else F32_RTOL)
     if not worst <= rtol:
         fail(f"{name} f32 plain rows: an alpha at {worst:.3e} of its max > {rtol}")
@@ -2460,16 +2496,51 @@ def f32_cell(name, zoo, P, tab64, card, torch):
           f"{gbytes / path_ms:.3f} TB/s); K6 {k6_ms:.4f} ms (card {k6_card:.4f} ms, plain "
           f"{k6_plain:.4f}, one padded SGEMM on a computed Phi {k6_lib:.4f}, bound "
           f"{k6_bound[0]:.4f} by {k6_bound[1]}){macro}")
-    entries = [entry(f"K6 zoo_f32 sd {k6.sd}{generic(k6)} ({name})",
-                     "fiat_tpu_torch/csrc/zoo_f32.cu",
+    src = "fiat_tpu_torch/csrc/zoo_f32" + ("_wide.cu" if wide(k6) else ".cu")
+    entries = [entry(f"K6 zoo_f32 sd {k6.sd}{generic(k6)}{wide(k6)} ({name})", src,
                      "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6"], k6_abs, k6_ms,
                      k6_plain, k6_bound, k6_lib)]
+    if wide(k6):
+        stage_ms = median_ms(lambda: k6.phi_stage(P32), torch)
+        stage_plain = plain_ms(lambda: k6.phi(P32), torch)
+        stage_card = queued_ms(lambda: k6.phi_stage(P32), torch)
+        stage_bound = bound_of(4 * NPTS * (k6.sd + k6.kpad), rec_flops(k6.sd, k6.degree) * NPTS,
+                               FP32_FMA_MS)
+        print(f"{name} f32 K6 Phi stage ({k6.kpad} x {NPTS}): {stage_ms:.4f} ms (card "
+              f"{stage_card:.4f}, plain {stage_plain:.4f}, bound {stage_bound[0]:.4f} by "
+              f"{stage_bound[1]}; {card})")
+        entries.append(entry(f"K6 Phi stage sd {k6.sd}{generic(k6)} ({name})", src,
+                             "fiat_tpu/ops/pallas_tabulate.py:248", launches["K6 Phi stage"],
+                             stage_abs, stage_ms, stage_plain, stage_bound))
     if m3 is not None:
         entries.append(entry(f"K3 macro_oneshot float32 sd {m3.sd}{generic(m3)} ({name})",
                              "fiat_tpu_torch/csrc/macro_oneshot.cu",
                              "fiat_tpu/ops/pallas_multiword.py:652", launches["K3 float32"],
                              m3_abs, m3_ms, m3_plain, m3_bound, m3_lib))
     return entries
+
+
+class StageLaunches:
+    """The launch count of K6's Phi stage in its wide mode, as ``counted``
+    reads and resets a wrapper's ``launches``."""
+
+    def __init__(self, k6):
+        self.k6 = k6
+
+    @property
+    def launches(self):
+        return self.k6.phi_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.k6.phi_launches = n
+
+
+def wide_phi(k6, P32, torch):
+    """K6's wide Phi stage at ``P32``, its rows of Phi with each point's
+    column in place (the stage keeps point p in column p ^ 1)."""
+    cols = torch.arange(P32.shape[0], device=P32.device) ^ 1
+    return k6.phi_stage(P32)[:k6.max_k, cols]
 
 
 def zoo_phase(cells, dev, card, torch, np, k3_beside=True):
@@ -2519,14 +2590,16 @@ def interval_phase(dev, card, torch, np):
     return kernels
 
 
-def bernstein_cell(name, zoo, pts, P, card, torch, np):
+def bernstein_cell(name, zoo, pts, P, card, torch, np, route_bar=None):
     """A zoo of one contraction width on the Bernstein route:
     ``FusedZooTabulator(..., features="bernstein").block_tables`` on the
     default device (K8, then K2 on its features with the conversion folded
     into K2's rows), each kernel against its plain version, one launch of
-    each a pass, the tables held to host (``host_bars``), and the pass, the
-    kernels and their plain versions timed.  Returns the kernels-line
-    entries."""
+    each a pass, the tables held to host (``host_bars``; with ``route_bar``,
+    where the conversion's growth amplifies rounding past the host bar, to
+    the zoo's Dubiner-route tables at that bar of max(1, max |table|) per
+    alpha, the distance from host printed), and the pass, the kernels and
+    their plain versions timed.  Returns the kernels-line entries."""
     from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
@@ -2549,7 +2622,10 @@ def bernstein_cell(name, zoo, pts, P, card, torch, np):
     expect_launches(name, launches, dict.fromkeys(engines, 1))
     if not all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl):
         fail(f"{name}: non-finite values in the tables")
-    host_bars(name, zoo, tab.unpack(blocks), pts, NPTS, np)
+    if route_bar is None:
+        host_bars(name, zoo, tab.unpack(blocks), pts, NPTS, np)
+    else:
+        bernstein_route_check(name, zoo, tab, blocks, pts, P, route_bar, torch, np)
     del blocks
     feats = feat(P)
     k8_ms, k8_plain = median_ms(lambda: feat(P), torch), plain_ms(lambda: feat.plain(P), torch)
@@ -2570,12 +2646,39 @@ def bernstein_cell(name, zoo, pts, P, card, torch, np):
           f"(card {k2_card:.4f}, plain {k2_plain:.4f}, one DGEMM {k2_lib:.4f}, bound "
           f"{k2_bound[0]:.4f} by {k2_bound[1]})")
     src = "fiat_tpu_torch/csrc/"
-    return [entry(f"K8 bernstein_features ({name})", src + "bernstein.cu",
+    return [entry(f"K8 bernstein_features{generic(feat)} ({name})", src + "bernstein.cu",
                   "fiat_tpu/ops/pallas_bernstein.py:288", launches["K8"], k8_abs, k8_ms,
                   k8_plain, k8_bound),
-            entry(f"K2 bucket_matmul ({name}, K {mm.max_k})", src + "bucket_matmul.cu",
+            entry(f"K2 bucket_matmul{wide(mm)} ({name}, K {mm.max_k})", src + "bucket_matmul.cu",
                   "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms,
                   k2_plain, k2_bound, k2_lib)]
+
+
+def bernstein_route_check(name, zoo, tab, blocks, pts, P, bar, torch, np):
+    """The Bernstein route's tables ``blocks`` against the Dubiner route's
+    (``FusedZooTabulator`` on the same zoo, K1 + K2) on all the points, at
+    ``bar`` of max(1, max |table|) per alpha; their distance from host on
+    the first HOST_CHECK_PTS points printed (the conversion M's growth
+    amplifies rounding: ROADMAP section 3)."""
+    from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+
+    dub = FusedZooTabulator(BatchedTabulator(zoo, order=1, device="cpu"))
+    got, want = tab.unpack(blocks), dub.unpack(dub.block_tables(P))
+    to_dub, to_host = 0.0, 0.0
+    for el, g, w in zip(zoo, got, want):
+        host = el.tabulate(1, pts[:HOST_CHECK_PTS])
+        for a in host:
+            big = max(1.0, w[a].abs().max().item())
+            to_dub = max(to_dub, (g[a] - w[a]).abs().max().item() / big)
+            err = float(np.abs(g[a][..., :HOST_CHECK_PTS].cpu().numpy() - host[a]).max())
+            to_host = max(to_host, err / max(1.0, np.abs(host[a]).max()))
+    print(f"{name} main path vs the Dubiner route's tables on {NPTS} points: {to_dub:.3e} of "
+          f"max(1, max |table|) per alpha (bar {bar}); vs host el.tabulate on "
+          f"{HOST_CHECK_PTS} points {to_host:.3e} (not held: the conversion's growth)")
+    if not to_dub <= bar:
+        fail(f"{name}: the Bernstein route is {to_dub:.3e} from the Dubiner route's tables > "
+             f"{bar}")
 
 
 def bench_tri_phase(T, dev, pts2, P, card, torch, np):
@@ -2779,6 +2882,18 @@ HIGH_DEGREE_F32_RTOL = 2e-5
 #: on the CPU; fiat_tpu's interpreted engine 2.4e-4 from host at triangle 12)
 HIGH_DEGREE_ILL = {"DiscontinuousLagrange 30 UFCInterval": 5e-9,
                    "Lagrange 12 AlfeldSplit": 2e-4, "Lagrange 11 AlfeldSplit": 2e-3}
+#: phase 30's elements (WIDE), whose tables grow far past 1 with the
+#: degree (the equispaced DG 40's most): their tables held at the high
+#: degrees' bar, HOST_ATOL of max(1, max |table|) (1.2e-12 at tet 20,
+#: 4.9e-11 and 3.4e-12 at triangle 40 from host, phase 30 on the card), and
+#: so their moments on that bar
+#: times the sum of the weights and their interpolated values on it times
+#: the sum of |c| over their rows (their moments are 1.4e-10 at tet GLL 20,
+#: 7.8e-8 and 7.6e-6 at triangle 40 from host in absolute terms)
+WIDE_ILL = {f"{family} {degree} {cell}": HOST_ATOL for family, degree, cell in (
+    ("Lagrange", 15, "UFCTetrahedron"), ("Lagrange", 16, "UFCTetrahedron"),
+    ("Lagrange", 20, "UFCTetrahedron"), ("DiscontinuousLagrange", 20, "UFCTetrahedron"),
+    ("Lagrange", 40, "UFCTriangle"), ("DiscontinuousLagrange", 40, "UFCTriangle"))}
 #: the elements whose tables keep no digit of the host's: Lagrange 20 on the
 #: Alfeld interval and 18 on the Alfeld triangle, whose subcell polynomials
 #: grow by ~T_20(3) = 1e15 on their extension to the parent (the port's
@@ -2800,7 +2915,7 @@ NO_DIGITS = ("Lagrange 20 AlfeldSplit", "Lagrange 18 AlfeldSplit")
 #: the sum of |c| over their rows
 ILL_CONDITIONED = {"Lagrange 6 IsoSplit": 2e-6, "Lagrange 9 PowellSabin12Split": 2e-5,
                    "Lagrange 10 IsoSplit": 0.3, "Lagrange 7 WorseyFarinSplit": 2e-8,
-                   **HIGH_DEGREE_ILL}
+                   **HIGH_DEGREE_ILL, **WIDE_ILL}
 #: the same elements' float32 tables carry no digit of their f64 tables
 #: (fiat_tpu's own f32 engine is 0.47, 2.7, 7.6e4 and 5.4e-3 of max abs + 1
 #: from them on 300 points on the CPU): their f32 rows are held to K3
@@ -3199,7 +3314,7 @@ def tp_product_cell(zoo, pts, host, dev, card, torch, np):
     t0 = time.perf_counter()
     tab = device_tabulator(factors, order=1)       # the default device: the card
     rec, mm = tab.recurrence, tab.matmul
-    if tab.macro is not None or tab.features is not None or tab.device != dev:
+    if merged_macro(tab) is not None or tab.features is not None or tab.device != dev:
         fail(f"tp_zoo factors: K1 and K2 only, on {dev}")
     cols = {(group, i): torch.as_tensor(np.ascontiguousarray(pts[group][:, i:i + 1]), device=dev)
             for group, sd in (("quadrilateral", 2), ("hexahedron", 3)) for i in range(sd)}
@@ -3282,9 +3397,10 @@ def bernstein_rows(sd, degree):
     return [k8[tuple(k)] for k in mis(sd + 1, degree)]
 
 
-def bernstein_element_cell(dev, card, torch, np):
-    """The Bernstein check (K8): ``Bernstein(cell, d)`` on the interval and
-    the triangle at d = 1-15 and the tetrahedron at d = 1-10, and
+def bernstein_element_cell(dev, card, torch, np, degrees=None, label="bernstein_element"):
+    """The Bernstein check (K8): ``Bernstein(cell, d)`` at the ``degrees``
+    of each sd (by default 1-15 on the interval and the triangle and 1-10
+    on the tetrahedron, BERNSTEIN_TOP), and
     ``BernsteinFeatures(sd, d, _bary_map(cell), device)`` on the card at
     the 1e5 points of the cell (``make_points``), one launch each, its rows
     permuted to the element's, held to ``Bernstein.tabulate(0, .)`` on the
@@ -3294,22 +3410,25 @@ def bernstein_element_cell(dev, card, torch, np):
     from fiat_tpu_torch import Bernstein, ufc_simplex
     from fiat_tpu_torch.ops.bernstein import BernsteinFeatures, _bary_map
 
+    if degrees is None:
+        degrees = {sd: range(1, top + 1) for sd, top in BERNSTEIN_TOP.items()}
     t0 = time.perf_counter()
     cells = {}
-    for sd, top in BERNSTEIN_TOP.items():
+    for sd, ds in degrees.items():
         cell = ufc_simplex(sd)
         pts = make_points(NPTS, SEED, np, sd=sd)
         cells[sd] = (pts, torch.as_tensor(pts, device=dev),
                      [(Bernstein(cell, d), BernsteinFeatures(sd, d, _bary_map(cell), device=dev))
-                      for d in range(1, top + 1)])
-    print(f"bernstein_element host construction: {sum(BERNSTEIN_TOP.values())} Bernstein "
-          f"elements (sd 1-3 to degrees {BERNSTEIN_TOP}), {time.perf_counter() - t0:.2f} s")
+                      for d in ds])
+    print(f"{label} host construction: {sum(map(len, degrees.values()))} Bernstein elements "
+          f"(sd 1-3 at degrees {({sd: list(ds) for sd, ds in degrees.items()})}), "
+          f"{time.perf_counter() - t0:.2f} s")
     engines = {(sd, feat.degree): feat for sd, (_, _, els) in cells.items() for _, feat in els}
     outs, launches = counted(engines, lambda: {(sd, feat.degree): feat(P) for sd, (_, P, els)
                                                in cells.items() for _, feat in els}, torch)
     if set(launches.values()) != {1}:
-        fail(f"bernstein_element: one K8 launch an element, got {launches}")
-    print(f"bernstein_element launches on the main path: {len(launches)} K8 calls, one launch "
+        fail(f"{label}: one K8 launch an element, got {launches}")
+    print(f"{label} launches on the main path: {len(launches)} K8 calls, one launch "
           f"each")
     entries, src = [], "fiat_tpu_torch/csrc/"
     for sd, (pts, P, els) in cells.items():
@@ -3318,25 +3437,25 @@ def bernstein_element_cell(dev, card, torch, np):
             got = outs[(sd, d)][bernstein_rows(sd, d)]
             want = el.tabulate(0, pts[:HOST_CHECK_PTS])[(0,) * sd]
             if tuple(got.shape) != (want.shape[0], NPTS) or not bool(torch.isfinite(got).all()):
-                fail(f"bernstein_element sd {sd} degree {d}: shape {tuple(got.shape)} or "
+                fail(f"{label} sd {sd} degree {d}: shape {tuple(got.shape)} or "
                      f"non-finite values")
             host = float(np.abs(got[:, :HOST_CHECK_PTS].cpu().numpy() - want).max()
                          / np.abs(want).max())
             k8_abs, plain_rel = rel_err(outs[(sd, d)], feat.plain(P))
             if not (host <= BERNSTEIN_RTOL and plain_rel <= BERNSTEIN_RTOL):
-                fail(f"bernstein_element sd {sd} degree {d}: {host:.3e} from the element, "
+                fail(f"{label} sd {sd} degree {d}: {host:.3e} from the element, "
                      f"{plain_rel:.3e} from its plain version, of max |table| > {BERNSTEIN_RTOL}")
             k8_ms, k8_plain = median_ms(lambda: feat(P), torch), plain_ms(lambda: feat.plain(P),
                                                                           torch)
             k8_card, bound = queued_ms(lambda: feat(P), torch), features_bound(feat, NPTS)
-            print(f"bernstein_element sd {sd} degree {d} ({feat.nexp} rows): K8 vs "
+            print(f"{label} sd {sd} degree {d} ({feat.nexp} rows): K8 vs "
                   f"Bernstein.tabulate(0) on {HOST_CHECK_PTS} points {host:.3e}, vs plain "
                   f"{plain_rel:.3e} of max |table| (bar {BERNSTEIN_RTOL}); K8 {k8_ms:.4f} ms "
                   f"(card {k8_card:.4f}, plain {k8_plain:.4f}, bound {bound[0]:.4f} by "
                   f"{bound[1]}; {card})")
-            if d == BERNSTEIN_TOP[sd]:
-                entries.append(entry(f"K8 bernstein_features (bernstein_element sd {sd}, degree "
-                                     f"{d})", src + "bernstein.cu",
+            if d == max(degrees[sd]):
+                entries.append(entry(f"K8 bernstein_features{generic(feat)} ({label} sd {sd}, "
+                                     f"degree {d})", src + "bernstein.cu",
                                      "fiat_tpu/ops/pallas_bernstein.py:288",
                                      launches[(sd, d)], k8_abs, k8_ms, k8_plain, bound))
     return entries
@@ -3404,15 +3523,15 @@ def k3_cells(dev, card, torch, np, own):
     split_tri, iso_tri = families_zoo(SPLIT_TRI, (), T), families_zoo(ISO_TRI, (), T)
 
     def tables(zoo, order, Q, f64=True):
-        m3 = device_tabulator(zoo, order=order, f64=f64, device=dev).macro
+        m3 = merged_macro(device_tabulator(zoo, order=order, f64=f64, device=dev))
         Q = Q if f64 else Q.float()
         return lambda: m3(Q)
 
     def interpolation(zoo, Q):
         eng = mo.moment_engine(BatchedTabulator(zoo, order=0, device=dev))
         c = torch.as_tensor(np.random.default_rng(11).random(eng.rows) - 0.5, device=dev)
-        W = eng.program_columns * (c @ eng.matrix)[eng.nexp:]
-        return lambda: eng.macro(Q, A=W)
+        W = eng.program_columns[0] * (c @ eng.matrix)[eng.nexp:]
+        return lambda: merged_macro(eng)(Q, A=W)
 
     def interpolation_pass(zoo, Q):
         bt = BatchedTabulator(zoo, order=0, device=dev)
@@ -3423,7 +3542,7 @@ def k3_cells(dev, card, torch, np, own):
     def k7_tables(zoo, Q):
         tab = device_tabulator(zoo, order=1, device=dev)
         phi = tab.recurrence(Q)
-        return lambda: tab.macro(Q, phi)
+        return lambda: merged_macro(tab)(Q, phi)
 
     cells = {"full_zoo": lambda: tables(full_zoo(T), 1, P),
              "full_zoo f32": lambda: tables(full_zoo(T), 1, P, f64=False),
@@ -3485,7 +3604,7 @@ def k3_cells(dev, card, torch, np, own):
                 ("k3_wide_wf_lagrange7_tet f32", families_zoo(
                     (("Lagrange", 1, None), K3_WIDE[2][2]), (), T3), P3, False)):
             order = 3 if name.startswith("c1") else 1
-            m3 = device_tabulator(zoo, order=order, f64=f64, device=dev).macro
+            m3 = merged_macro(device_tabulator(zoo, order=order, f64=f64, device=dev))
             Qd = Q if f64 else Q.float()
             mine, plans[name] = m3.plan, []
             for plan, nbytes in m3.plan_candidates():
@@ -3496,6 +3615,14 @@ def k3_cells(dev, card, torch, np, own):
             print(f"{name} K3 plans ({card}; [plan, bytes a block, ms queued behind a spin, "
                   f"the wrapper's]): {plans[name]}")
         print(json.dumps({"k3_plans": plans}))
+
+
+#: the streamed K2's and the wide K6's plans timed by ``--k2-cells`` and
+#: ``--k6-cells`` on tet GLL Lagrange 20: (chunk rows, chunks in the ring, row
+#: tiles a group; None: the wrapper's group)
+STREAM_PLANS = ((32, 2, None), (24, 3, None), (36, 2, None), (16, 4, None), (32, 2, 4),
+                (32, 2, 1 << 20))
+WIDE_PLANS = ((36, 3, None), (48, 2, None), (24, 4, None), (16, 4, None), (36, 3, 1 << 20))
 
 
 def time_cells(label, extra, cells, card, torch, own):
@@ -3531,7 +3658,11 @@ def k2_cells(dev, card, torch, np, own):
     and shapes of the main run, each beside one cuBLAS DGEMM of the same
     packed A by the same Phi (zero-padded to the widest width where the
     cell has several).  Prints {"k2_cells": {cell: [ms, device ms, DGEMM
-    ms, TFLOP/s, TB/s of C]}}, the rates at the device time."""
+    ms, TFLOP/s, TB/s of C]}}, the rates at the device time.  Also tet GLL
+    Lagrange 20 (phase 30: K 1771, the streamed mode; a checkout that
+    refuses it records the refusal) and, on this checkout, {"k2_stream_plans":
+    {(chunk rows, chunks in the ring, row tiles a group): device ms}} there
+    (STREAM_PLANS, the wrapper's own first)."""
     import fiat_tpu_torch as ft
     from fiat_tpu_torch import device_tabulator, ufc_simplex
     from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
@@ -3544,6 +3675,8 @@ def k2_cells(dev, card, torch, np, own):
     c1 = [ft.CubicHermite(T), ft.Morley(T), ft.Argyris(T, 5), ft.Bell(T),
           ft.HsiehCloughTocher(T, 3), ft.QuadraticPowellSabin6(T), ft.QuadraticPowellSabin12(T)]
 
+    stream_plans = {}
+
     def k2(tab, Q):
         mm = tab.matmul
         basis = (tab.features if tab.recurrence is None else tab.recurrence)(Q)
@@ -3552,6 +3685,14 @@ def k2_cells(dev, card, torch, np, own):
         def more(ev, dev_ms):
             ms = dev_ms or ev
             lib = median_ms(lambda: torch.matmul(A, basis[:mm.max_k]), torch)
+            if own and getattr(mm, "mode", None) == "streamed":
+                mine = (mm.plan, mm.group)
+                for kc, stages, group in [(mine[0][1], mine[0][2], mine[1])] + [
+                        p for p in STREAM_PLANS if p != (mine[0][1], mine[0][2], mine[1])]:
+                    mm.plan, mm.group = (mine[0][0], kc, stages, mine[0][3]), group or mine[1]
+                    stream_plans[str((kc, stages, mm.group))] = device_ms(lambda: mm(basis),
+                                                                          torch)
+                mm.plan, mm.group = mine
             return [lib, matmul_flops(mm, NPTS) / ms / 1e9, mm.total_rows * NPTS * 8 / ms / 1e9]
         return lambda: mm(basis), more
 
@@ -3563,9 +3704,13 @@ def k2_cells(dev, card, torch, np, own):
         "hdiv_hcurl_tet": lambda: k2(device_tabulator(hdiv, order=1, device=dev), P3),
         "sv_macro_tet": lambda: k2(device_tabulator(sv_macro_tet(T3), order=1, device=dev), P3),
         "c1_macro_zoo": lambda: k2(device_tabulator(c1, order=1, device=dev), P),
-        "c1_macro_hessians": lambda: k2(device_tabulator(c1, order=2, device=dev), P)}
+        "c1_macro_hessians": lambda: k2(device_tabulator(c1, order=2, device=dev), P),
+        "tet_gll20": lambda: k2(device_tabulator(
+            [ft.Lagrange(T3, 20, variant="gll")], order=1, device=dev), P3)}
     time_cells("k2_cells", "one cuBLAS DGEMM ms; TFLOP/s and TB/s of C at the device time",
                cells, card, torch, own)
+    if own:
+        print(json.dumps({"k2_stream_plans": stream_plans}))
 
 
 def k45_cells(dev, card, torch, np, own):
@@ -3632,7 +3777,11 @@ def k6_cells(dev, card, torch, np, own):
     ms}}}, the device time under every plan ``ZooF32Kernel.candidates``
     offers (the wrapper's own plan first), and {"k6_clocks": {cell: [SM
     MHz, W]}}, the card's clock and power draw while K6 runs back to back
-    (the FP32 peak scales with the clock)."""
+    (the FP32 peak scales with the clock).  Also tet GLL Lagrange 20 (phase
+    30: 1771 Phi rows, the wide mode, both its launches; a checkout that
+    refuses it records the refusal), whose plans on this checkout are
+    WIDE_PLANS, the wrapper's own first."""
+    import fiat_tpu_torch as ft
     from fiat_tpu_torch import device_tabulator, ufc_simplex
 
     T, T3 = ufc_simplex(2), ufc_simplex(3)
@@ -3656,7 +3805,15 @@ def k6_cells(dev, card, torch, np, own):
             row = [zoo_f32_library_ms(k, Q, torch) if own else None, bound, ms / bound,
                    k.total_rows * NPTS * 4 / ms / 1e9,
                    zoo_f32_flops(k, NPTS) / ms / FP32_FMA_MS, host_ms(run, torch)]
-            if own:
+            if own and k.mode == "wide":
+                mine, plans[name] = (k.plan, k.group), {}
+                for kc, stages, group in [(mine[0][1], mine[0][2], mine[1])] + [
+                        p for p in WIDE_PLANS if p != (mine[0][1], mine[0][2], mine[1])]:
+                    k.plan, k.group = (mine[0][0], kc, stages, mine[0][3]), group or mine[1]
+                    plans[name][str((kc, stages, k.group))] = device_ms(run, torch)
+                k.plan, k.group = mine
+                clocks[name] = clock_under_load(run, torch)
+            elif own:
                 mine, plans[name] = k.plan, {}
                 for plan in [mine] + [p for p in k.candidates(k.kpad) if p != mine]:
                     k.plan = plan
@@ -3671,7 +3828,9 @@ def k6_cells(dev, card, torch, np, own):
              "hdiv_hcurl_tet f32": lambda: k6("hdiv_hcurl_tet f32", hdiv, P3),
              "sv_macro_tet f32": lambda: k6("sv_macro_tet f32", sv_macro_tet(T3), P3),
              "interval_zoo f32": lambda: k6("interval_zoo f32", families_zoo(
-                 INTERVAL_ZOO, (), ufc_simplex(1)), P1)}
+                 INTERVAL_ZOO, (), ufc_simplex(1)), P1),
+             "tet_gll20 f32": lambda: k6("tet_gll20 f32", [ft.Lagrange(T3, 20, variant="gll")],
+                                         P3)}
     time_cells("k6_cells", "one cuBLAS SGEMM (TF32 off) on a computed Phi ms; bound ms; "
                "device / bound; TB/s of out and FP32 peak share at the device time; host ms "
                "a call", cells, card, torch, own)
@@ -3708,11 +3867,11 @@ def k7_cells(dev, card, torch, np, own):
 
     def tables(zoo, Q):
         tab = device_tabulator(zoo, order=1, device=dev)
-        return tab.macro, tab.recurrence(Q), Q
+        return merged_macro(tab), tab.recurrence(Q), Q
 
     def k3_arrays(zoo, order, Q):
         tab = device_tabulator(zoo, order=order, device=dev)
-        mo = tab.macro
+        mo = merged_macro(tab)
         k7 = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
                           device=dev)
         return k7, tab.recurrence(Q), Q
@@ -3926,8 +4085,8 @@ def rest_of_core_phase(dev, card, torch, np):
         X = np.vstack([e.points for e in ells])
         tab = device_tabulator(zoo, order=2)          # the card
         engines = {"K1": tab.recurrence, "K2": tab.matmul}
-        if tab.macro is not None:
-            engines[tab.macro.name] = tab.macro
+        if merged_macro(tab) is not None:
+            engines[merged_macro(tab).name] = merged_macro(tab)
         blocks, launches = counted(engines, lambda: tab.block_tables(X), torch)
         expect_launches(f"rest_of_core {name}", launches, dict.fromkeys(engines, 1))
         shapes = [el.value_shape() for el in zoo]
@@ -4180,7 +4339,7 @@ def jets_phase(dev, card, torch, np):
     P = torch.as_tensor(pts, device=dev)
     zoo = full_zoo(ft.ufc_simplex(2))
     tab = device_tabulator(zoo, order=1, derivs="jets")
-    rec, mm, mo = tab.recurrence, tab.matmul, tab.macro
+    rec, mm, mo = tab.recurrence, tab.matmul, merged_macro(tab)
     if tab.alphas != [(0, 0)]:
         fail(f"jets: the engine keys {tab.alphas}, fiat_tpu's the value table alone")
     phi_p = rec.plain(P)
@@ -4273,11 +4432,12 @@ def sharded_rank(rank, n, backend):
     moment3 = sh.make_moment_step_2d(bt, mesh3) if mesh3 else None
     interp = sh.make_interpolation_step(bt, mesh)
     fused = sh.make_fused_tabulate_step(fz, mesh)
-    kernels = {"tabulate": {"K1": fz0.recurrence, "K2": fz0.matmul, fz0.macro.name: fz0.macro},
-               "fused": {"K1": fz.recurrence, "K2": fz.matmul, fz.macro.name: fz.macro},
+    mo0, mo = merged_macro(fz0), merged_macro(fz)
+    kernels = {"tabulate": {"K1": fz0.recurrence, "K2": fz0.matmul, mo0.name: mo0},
+               "fused": {"K1": fz.recurrence, "K2": fz.matmul, mo.name: mo},
                "moments": {"K45": eng.moments}, "moments_2d": {"K45": eng.moments},
                "moments_2d_points": {"K45": eng.moments},
-               "interpolation": {"K1": eng.recurrence, "K3": eng.macro}}
+               "interpolation": {"K1": eng.recurrence, "K3": merged_macro(eng)}}
     steps = {"tabulate": lambda: sh.sharded_tabulate(fz0, P, mesh),
              "fused": lambda: fused(p), "moments": lambda: moment(p, ws, fs),
              "moments_2d": lambda: moment2(p2, w2, f2), "interpolation": lambda: interp(p, c)}
@@ -4442,11 +4602,13 @@ def symbolic_tables_check(name, tables, host, dev, torch, np):
     return worst
 
 
-def element_tabulator_cell(name, el, pts, card, torch, np, reference=None, tab=None):
+def element_tabulator_cell(name, el, pts, card, torch, np, reference=None, tab=None,
+                           bars=False):
     """``ElementTabulator(el, order=1)`` on the default device (``tab``
     where the caller built it) at ``pts``: one K1 and one K2 launch a
     call, each kernel against its plain version, the tables against host
-    el.tabulate (and, where given, equal to ``reference``, another
+    el.tabulate at HOST_ATOL (with ``bars``, at the element's ``table_bar``:
+    phase 30) (and, where given, equal to ``reference``, another
     engine's tables); returns (its K1 and K2 kernels-line entries, the
     call's ms)."""
     from fiat_tpu_torch.ops.tabulate import ElementTabulator
@@ -4461,10 +4623,13 @@ def element_tabulator_cell(name, el, pts, card, torch, np, reference=None, tab=N
     expect_launches(name, launches, {"K1": 1, "K2": 1})
     if not all(bool(torch.isfinite(t).all()) for t in tables.values()):
         fail(f"{name}: non-finite values in the tables")
-    host_err = host_check([el], [tables], pts, NPTS, torch, np)
+    if bars:
+        host_err = host_bars(name, [el], [tables], pts, NPTS, np)
+    else:
+        host_err = host_check([el], [tables], pts, NPTS, torch, np)
     print(f"{name} main path: ElementTabulator(order 1) at {NPTS} points, max abs err vs host "
           f"el.tabulate on {HOST_CHECK_PTS} points {host_err:.3e}")
-    if not host_err <= HOST_ATOL:
+    if not (bars or host_err <= HOST_ATOL):
         fail(f"{name}: tables disagree with host tabulation: {host_err:.3e} > {HOST_ATOL}")
     if reference is not None:
         same = all(torch.equal(tables[a], reference[a]) for a in reference)
@@ -4495,7 +4660,7 @@ def element_tabulator_cell(name, el, pts, card, torch, np, reference=None, tab=N
     return [entry(f"K1 dubiner{rec.sd}_values{generic(rec)} ({name})", src + "recurrence.cu",
                   "fiat_tpu/ops/pallas_recurrence.py:399", launches["K1"], k1_abs, k1_ms,
                   k1_plain, rec_bound(rec, NPTS)),
-            entry(f"K2 bucket_matmul ({name})", src + "bucket_matmul.cu",
+            entry(f"K2 bucket_matmul{wide(mm)} ({name})", src + "bucket_matmul.cu",
                   "fiat_tpu/ops/pallas_multiword.py:269", launches["K2"], k2_abs, k2_ms,
                   k2_plain, matmul_bound(mm, NPTS), k2_lib)], call_ms
 
@@ -5003,7 +5168,7 @@ def zany_engine_part(dev, card, torch, np, zoo_engine=None):
     ps = UnknownPointSet(P, device=dev)
     verts = torch.as_tensor(distorted_vertices(2), dtype=torch.float64, device=dev)
     geom = SimplexGeometry(T, verts)
-    blocks, launches = counted({"K1": tab.recurrence, "K2": tab.matmul, "K3": tab.macro},
+    blocks, launches = counted({"K1": tab.recurrence, "K2": tab.matmul, "K3": merged_macro(tab)},
                                lambda: tab.block_tables(P), torch)
     expect_launches("zany engine", launches, {"K1": 1, "K2": 1, "K3": 1})
     per = tab.unpack(blocks)[-len(syms):]
@@ -5113,7 +5278,7 @@ def factory_zoo_part(dev, card, torch, np, zoo_engine=None, zoo_ms=None):
     t_elements = time.perf_counter() - t0
     tab = device_tabulator(zoo, order=1)            # the default device: the card
     t_build = time.perf_counter() - t0
-    mo = tab.macro
+    mo = merged_macro(tab)
     if len(zoo) != 42 or mo is None or tab.device != dev:
         fail(f"factory full_zoo: {len(zoo)} elements on {tab.device}, macro {mo is not None}")
     print(f"factory full_zoo host construction ({card}; host clock): 42 descriptions -> "
@@ -5301,9 +5466,96 @@ def high_degree_phase(dev, card, torch, np):
         long_call_ms = None
 
 
-def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26, 27, 28, 29), tet_engine=None,
-               zoo_engine=None, zoo_ms=None):
-    """Phases 22-29 (those in ``only``); returns their kernels-line entries."""
+#: phase 30, ``wide_basis``: the bases past the widths the port's kernels
+#: once refused, at the degrees hp and spectral-element users run: K2 past
+#: 792 (its streamed mode), K6 past 842 Phi rows (its wide mode).  GLL
+#: Lagrange 15 (816 members), 16 (969) and 20 (1771) and DG 20 on the
+#: tetrahedron (21,308 rows at order 1: 17 GB of f64 tables a pass), GLL
+#: Lagrange 40 and DG 40 (861) on the triangle
+WIDE = ((3, "wide_tet", (("Lagrange", 15, "gll"), ("Lagrange", 16, "gll"),
+                         ("Lagrange", 20, "gll"), ("DiscontinuousLagrange", 20, None))),
+        (2, "wide_tri", (("Lagrange", 40, "gll"), ("DiscontinuousLagrange", 40, None))))
+#: phase 30's Bernstein elements: K8's generic instantiation at fiat_tpu's
+#: highest degrees, by sd
+BERNSTEIN_HIGH = {1: (26,), 2: (17,), 3: (15,)}
+#: phase 30's Bernstein routes (``features="bernstein"``: K8 generic + K2) at
+#: the top degrees, (sd, element, bar): tet GLL Lagrange 15 (K2 streamed)
+#: held to host (None: ``host_bars``; 3.3e-11 of max(1, max |table|) on
+#: the card); GLL Lagrange 26 on the interval and 17 on the triangle, whose
+#: conversion M amplifies rounding past the host bar in both packages (4.6e-6
+#: and 2.7e-10 from host, 6.8e-6 and 2.7e-10 from the Dubiner route's tables,
+#: phase 30 on the card), held to the Dubiner route's tables at their bar of
+#: max(1, max |table|) per alpha
+WIDE_BERNSTEIN = ((3, ("Lagrange", 15, "gll"), None), (1, ("Lagrange", 26, "gll"), 2e-5),
+                  (2, ("Lagrange", 17, "gll"), 1e-9))
+#: phase 30's ElementTabulator case: (sd, GLL Lagrange degree)
+WIDE_ELEMENT = (3, 20)
+#: phase 30's float32 plain rows against its f64 tables, per alpha of its
+#: max: the f32 recurrence's rounding grows with the degree (2.4e-5 on
+#: ``wide_tri``, 1.1e-5 on ``wide_tet``, phase 30 on the card), past
+#: HIGH_DEGREE_F32_RTOL; ``tests/test_torch_wide.py`` holds the f32 engine
+#: to fiat_tpu's at tet 16
+WIDE_F32_RTOL = 5e-5
+#: K6's wide Phi stage against its plain version (the eager float32
+#: recurrence), of max |Phi|: two float32 recurrences in another order of
+#: operations (the kernel contracts to FMAs), whose rounding grows with the
+#: degree (1.5e-5 at triangle 40, 4.4e-6 at tet 20, phase 30 on the card),
+#: held at phase 30's f32 table bar, the tables these rows enter
+WIDE_PHI_RTOL = WIDE_F32_RTOL
+
+
+def wide_phase(dev, card, torch, np):
+    """Phase 30, ``wide_basis``: the WIDE zoos at 1e5 points (pts3, pts2)
+    through every entry point (``zoo_phase``: f64 tables on K1 + K2
+    streamed; moments on K45; interpolation on K1; f32 tables on K6 wide,
+    its Phi stage and its product), each kernel held to its plain version
+    and counted on the main path, the tables to host; the Bernstein elements
+    at BERNSTEIN_HIGH on K8's generic instantiation; ``features="bernstein"``
+    on tet GLL Lagrange 15 (K8 generic + K2 streamed); ``ElementTabulator``
+    on tet GLL Lagrange 20 (K1 + K2 streamed).  Every K2 of the phase must
+    stream, every K6 run wide and every K8 run past 15 / 15 / 10.  Its calls
+    of LONG_CALL_MS or more are timed one call a sample."""
+    import fiat_tpu_torch as ft
+    from fiat_tpu_torch import ufc_simplex
+
+    global long_call_ms
+    long_call_ms = LONG_CALL_MS
+    try:
+        kernels = zoo_phase([(sd, name, lambda sd=sd, specs=specs: families_zoo(
+            specs, (), ufc_simplex(sd))) for sd, name, specs in WIDE], dev, card, torch, np,
+            k3_beside=False)
+        sd, degree = WIDE_ELEMENT
+        el = ft.Lagrange(ufc_simplex(sd), degree, variant="gll")
+        entries, _ = element_tabulator_cell(f"ElementTabulator GLL Lagrange {degree} sd {sd}", el,
+                                            make_points(NPTS, SEED, np, sd=sd), card, torch, np,
+                                            bars=True)
+        kernels += entries
+        # every K2 and K6 of the wide bases past their resident Phi tiles
+        off = [k["name"] for k in kernels
+               if (k["name"].startswith("K2 ") and " streamed" not in k["name"])
+               or (k["name"].startswith("K6 zoo_f32") and " wide" not in k["name"])]
+        kernels += bernstein_element_cell(dev, card, torch, np, BERNSTEIN_HIGH, "bernstein_high")
+        for sd, spec, bar in WIDE_BERNSTEIN:
+            pts = make_points(NPTS, SEED, np, sd=sd)
+            entries = bernstein_cell(f"bernstein_high_route {spec[0]} {spec[1]} sd {sd}",
+                                     families_zoo((spec,), (), ufc_simplex(sd)), pts,
+                                     torch.as_tensor(pts, device=dev), card, torch, np, bar)
+            kernels += entries
+            off += [k["name"] for k in entries if sd == 3 and k["name"].startswith("K2 ")
+                    and " streamed" not in k["name"]]
+        # and every K8 past 15 / 15 / 10
+        off += [k["name"] for k in kernels
+                if k["name"].startswith("K8 ") and " generic" not in k["name"]]
+        if off:
+            fail(f"phase 30: kernels off the new modes: {off}")
+        return kernels
+    finally:
+        long_call_ms = None
+
+
+def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26, 27, 28, 29, 30),
+               tet_engine=None, zoo_engine=None, zoo_ms=None):
+    """Phases 22-30 (those in ``only``); returns their kernels-line entries."""
     phases = {22: lambda: rest_of_core_phase(dev, card, torch, np) or [],
               23: lambda: per_program_phase(dev, card, torch, np),
               24: lambda: jets_phase(dev, card, torch, np),
@@ -5311,7 +5563,8 @@ def new_phases(dev, card, torch, np, lap, only=(22, 23, 24, 25, 26, 27, 28, 29),
               26: lambda: symbolic_phase(dev, card, torch, np, tet_engine),
               27: lambda: zany_phase(dev, card, torch, np, zoo_engine),
               28: lambda: factory_phase(dev, card, torch, np, zoo_engine, zoo_ms),
-              29: lambda: high_degree_phase(dev, card, torch, np)}
+              29: lambda: high_degree_phase(dev, card, torch, np),
+              30: lambda: wide_phase(dev, card, torch, np)}
     kernels = []
     for p in sorted(only):
         kernels += phases[p]()

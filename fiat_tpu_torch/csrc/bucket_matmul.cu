@@ -60,6 +60,28 @@
 // The plan (point tile, chunk rows, chunks in the ring, blocks an SM) is
 // chosen on the host (ops/fused_zoo.py BucketMatmul.plan_for) and checked
 // by this entry.
+//
+// Past the widest K whose Phi tile a block's shared memory takes (kpad >
+// 792: tet degree 15 and up, triangle degree 39 and up) a second kernel
+// streams Phi in k (bucket_matmul_stream_kernel, fiat_bucket_matmul_stream):
+//   * one block per (128-point tile, 64-row tile): C's 64 x 128 tile stays in
+//     the warps' registers over the whole k loop (the same 8 warps, warp
+//     tiles and m16n8k4 fragments as above);
+//   * each chunk of kc rows of k brings A's chunk (one contiguous run of the
+//     swizzled At) and Phi's kc x 128 slab (swizzled as above, rows past
+//     kmax and points past npts written as zeros) into a ring of 2 to 4
+//     buffers by cp.async, all 256 threads copying, one block barrier a
+//     chunk (a multistage cp.async pipeline: chunk c + stages - 1 is in
+//     flight while the MMAs run on chunk c);
+//   * every block re-reads its Phi slab and its A tile, so the grid is
+//     ordered for L2: the row tiles go in groups of `group` (about 16 MB of
+//     A), and within a group the blocks of one point tile run together, so
+//     each Phi slab (1.8 MB at tet degree 20) is read from device memory
+//     once a group and A's group stays in L2 across the point tiles;
+//   * the ring is re-used as the C staging area once the k loop is done.
+//   At tet degree 20 (7084 rows x K 1771 at 1e5 points: 2.51 TFLOP, 37.4
+//   ms at 67 TFLOP/s) a 64 x 128 tile does 16 FLOP a byte of its chunks
+//   from L2, so L2 bandwidth, not only the DMMA rate, bounds it.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -346,6 +368,148 @@ int launch(const double* At, int kpad, int kmax, int kc, int stages, const int* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of a streamed block, in doubles: the ring of `stages` (A
+// chunk, Phi slab) pairs, which the C staging re-uses after the k loop.
+constexpr int STP = 128;  // points of a streamed block
+size_t stream_smem_doubles(int kc, int stages) {
+  const size_t ring = static_cast<size_t>(stages) * kc * (TR + STP);
+  const size_t staging = static_cast<size_t>(WARPS) * SLAB * staging_stride(STP / WARPS_N);
+  return ring > staging ? ring : staging;
+}
+
+__global__ void __launch_bounds__(32 * WARPS, 2)
+bucket_matmul_stream_kernel(const double* __restrict__ At, int kpad, int kmax, int kc,
+                            int stages, int group, const int* __restrict__ tiles, int ntiles,
+                            const double* __restrict__ phi, int ldphi, int npts,
+                            double* __restrict__ C) {
+  constexpr int TP = STP;
+  constexpr int WN = TP / WARPS_N;   // points of a warp tile
+  constexpr int MT = WM / 16;        // MMA tiles of a warp tile along the rows
+  constexpr int NT = WN / 8;         // and along the points
+  constexpr int SS = staging_stride(WN);
+  constexpr int THREADS = 32 * WARPS;
+  extern __shared__ __align__(16) double smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  const fiat::StreamBlock blk = fiat::stream_block(blockIdx.x, group, (npts + TP - 1) / TP, ntiles);
+  const int tile = blk.tile, p0 = blk.pt * TP;
+
+  const int kt = max(4, (__ldg(tiles + 3 * tile + 2) + 3) / 4 * 4);  // <= kpad
+  const int nch = (kt + kc - 1) / kc;
+  double* As = smem;                                            // stages x [kc][TR]
+  double* Bs = As + static_cast<size_t>(stages) * kc * TR;      // stages x [kc][TP]
+  const double* At_t = At + static_cast<size_t>(tile) * kpad * TR;
+  // 16-byte copies of Phi need a whole tile and 16-byte aligned rows
+  const bool full_tile = (p0 + TP <= npts) && ((ldphi & 1) == 0) &&
+                         ((reinterpret_cast<uintptr_t>(phi) & 15) == 0);
+  // chunk c (rows c * kc .. of k) into ring buffer s
+  auto load = [&](int c, int s) {
+    const int k0 = c * kc, kn = min(kc, kt - k0);
+    double* Ad = As + static_cast<size_t>(s) * kc * TR;
+    double* Bd = Bs + static_cast<size_t>(s) * kc * TP;
+    const double* Asrc = At_t + static_cast<size_t>(k0) * TR;
+    for (int e = tid; e < kn * TR / 2; e += THREADS)
+      __pipeline_memcpy_async(Ad + 2 * e, Asrc + 2 * e, 16);
+    if (full_tile) {
+      for (int e = tid; e < kn * TP / 2; e += THREADS) {
+        const int k = e / (TP / 2), p = 2 * (e % (TP / 2));
+        double* dst = Bd + k * TP + (p ^ swizzle(k));
+        if (k0 + k < kmax)
+          __pipeline_memcpy_async(dst, phi + static_cast<size_t>(k0 + k) * ldphi + p0 + p, 16);
+        else
+          dst[0] = dst[1] = 0.0;
+      }
+    } else {
+      for (int e = tid; e < kn * TP; e += THREADS) {
+        const int k = e / TP, p = e % TP;
+        double* dst = Bd + k * TP + (p ^ swizzle(k));
+        if (k0 + k < kmax && p0 + p < npts)
+          __pipeline_memcpy_async(dst, phi + static_cast<size_t>(k0 + k) * ldphi + p0 + p, 8);
+        else
+          *dst = 0.0;
+      }
+    }
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  const int row_w = (warp / WARPS_N) * WM;   // the warp tile's first row in the row tile
+  const int pt_w = (warp % WARPS_N) * WN;    // and its first point in the point tile
+  double acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
+
+  for (int s = 0; s < stages - 1; ++s) {  // the ring's first chunks
+    if (s < nch) load(s, s);
+    __pipeline_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    fiat::wait_pending(stages - 2);  // this thread's copies of chunk c have landed
+    __syncthreads();           // every thread's, and every warp is done with chunk c - 1
+    if (c + stages - 1 < nch) load(c + stages - 1, (c + stages - 1) % stages);
+    __pipeline_commit();       // (an empty group past the last chunk keeps the count)
+    const int s = c % stages;
+    const int kn = min(kc, kt - c * kc);
+    const double* Ab = As + static_cast<size_t>(s) * kc * TR;
+    const double* Bk = Bs + static_cast<size_t>(s) * kc * TP;
+#pragma unroll 2
+    for (int kk = 0; kk < kn; kk += 4) {
+      double a[MT][2], b[NT];
+      // kk and the chunk's first row are multiples of 4: fragment row k has k % 4 == t
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          a[i][h] = Ab[(kk + t) * TR + ((row_w + 16 * i + 8 * h + g) ^ swizzle(t))];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = Bk[(kk + t) * TP + ((pt_w + 8 * j + g) ^ swizzle(t))];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_16x8x4(acc[i][j], a[i], b[j]);
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the ring is free: it becomes the staging area
+
+  // write C as the resident kernel does, 8 rows at a time through the staging
+  const int row0 = __ldg(tiles + 3 * tile), nrows = __ldg(tiles + 3 * tile + 1);
+  const bool whole = (p0 + TP <= npts) && ((npts & 1) == 0) &&
+                     ((reinterpret_cast<uintptr_t>(C) & 15) == 0);
+  double* St = smem + warp * SLAB * SS;  // [SLAB][SS]
+#pragma unroll
+  for (int s = 0; s < WM / SLAB; ++s) {
+    const int i = s / 2, h = s % 2;  // MMA tile, half
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<double2*>(St + g * SS + 8 * j + 2 * t) =
+          make_double2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    __syncwarp();
+    const int r0 = row_w + s * SLAB;  // the slab's first row in the tile
+    if (whole) {
+#pragma unroll
+      for (int e = lane; e < SLAB * WN / 2; e += 32) {
+        const int r = e / (WN / 2), p = 2 * (e % (WN / 2));
+        if (r0 + r < nrows)
+          __stcs(reinterpret_cast<double2*>(C + static_cast<size_t>(row0 + r0 + r) * npts + p0 +
+                                            pt_w + p),
+                 *reinterpret_cast<const double2*>(St + r * SS + p));
+      }
+    } else {
+      for (int e = lane; e < SLAB * WN; e += 32) {
+        const int r = e / WN, p = e % WN;
+        if (r0 + r < nrows && p0 + pt_w + p < npts)
+          __stcs(C + static_cast<size_t>(row0 + r0 + r) * npts + p0 + pt_w + p, St[r * SS + p]);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // At: device (ntiles, kpad, 64) f64, every 64-row tile of the stacked rows
@@ -384,4 +548,40 @@ extern "C" int fiat_bucket_matmul(const double* At, int kpad, int kmax, int tp, 
     case 64: return go(launch<64, 1>);
     default: return go(launch<32, 1>);
   }
+}
+
+// The streamed mode, for any kpad (the host runs it past the resident plans):
+// At, tiles, phi, C as fiat_bucket_matmul takes them; kc: the rows of a
+// chunk (a multiple of 4); stages: the chunks in the ring (2 to 4); group:
+// the row tiles of one group of the grid's order.  Two blocks an SM.
+// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue,
+// launching nothing, for arguments outside those or a grid past 2^31 - 1
+// blocks.
+extern "C" int fiat_bucket_matmul_stream(const double* At, int kpad, int kmax, int kc,
+                                         int stages, int group, const int* tiles, int ntiles,
+                                         const double* phi, int ldphi, int npts, double* C,
+                                         void* stream) {
+  const size_t bytes = sizeof(double) * stream_smem_doubles(kc, stages);
+  const long long blocks = static_cast<long long>((npts + STP - 1) / STP) * ntiles;
+  if (kmax < 0 || kmax > kpad || kpad < 4 || kpad % 4 != 0 || kc < 4 || kc % 4 != 0 ||
+      stages < 2 || stages > STAGES || group < 1 || ntiles < 0 || npts < 0 ||
+      blocks > 2147483647LL || 2 * (bytes + SMEM_BLOCK) > SMEM_SM) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaFuncSetAttribute(bucket_matmul_stream_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bucket_matmul_stream_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  bucket_matmul_stream_kernel<<<static_cast<unsigned>(blocks), 32 * WARPS, bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      At, kpad, kmax, kc, stages, group, tiles, ntiles, phi, ldphi, npts, C);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,12 @@
 // mbarriers and the bulk copy (cp.async.bulk, the TMA's 1-D form) from
 // device to shared memory, PTX ISA 8.0, sm_90: the rings of A chunks of K2
-// (bucket_matmul.cu) and K6 (zoo_f32.cuh).
+// (bucket_matmul.cu) and K6 (zoo_f32.cuh); and what the streamed products
+// of both (bucket_matmul_stream_kernel, zoo_f32_wide.cu) share: the wait on
+// their cp.async ring and their grid's order.
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,6 +56,32 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 // bulk copies (the async proxy) that read them.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's cp.async groups are in
+// flight (the count must be an immediate: 0 to 2, a ring of 2 to 4).
+__device__ __forceinline__ void wait_pending(int pending) {
+  switch (pending) {
+    case 0: __pipeline_wait_prior(0); break;
+    case 1: __pipeline_wait_prior(1); break;
+    default: __pipeline_wait_prior(2);
+  }
+}
+
+// The (row tile, point tile) of block b of a streamed product over `ntiles`
+// row tiles and `npt` point tiles: the row tiles in groups of `group`, the
+// blocks of one point tile together within a group, so that a group's A
+// stays in L2 across the point tiles and each point tile's Phi slab is read
+// from device memory once a group.
+struct StreamBlock {
+  int tile, pt;
+};
+__device__ __forceinline__ StreamBlock stream_block(unsigned b, int group, int npt, int ntiles) {
+  const long long span = static_cast<long long>(group) * npt;
+  const int gi = static_cast<int>(b / span);
+  const int local = static_cast<int>(b - gi * span);
+  const int rows = min(group, ntiles - gi * group);
+  return {gi * group + local % rows, local / rows};
 }
 
 }  // namespace fiat

@@ -82,7 +82,47 @@ struct Params {
   float* out;
   int kc, stages;     // A rows of a chunk, chunks in the ring
   int degree;         // the generic instantiation's degree
+  float* phi;         // the wide mode (zoo_f32_wide.cu): its Phi, (kpad, ldphi)
+  int ldphi;
+  int group;          // and the row tiles of a group of its product's grid
 };
+
+// The generic instantiation's recurrence of point p (coordinates 0 past
+// npts) at the run-time degree q.degree, the share of thread `half` of the
+// point's two: put(m, v) for each value v of member m it computes (the
+// interval's first thread runs the whole loop).
+template <int SD, class Put>
+__device__ __forceinline__ void generic_point(const Params& q, int p, int half, Put put) {
+  const int n = q.degree, npts = q.npts;
+  const auto& a = q.aff;
+  if constexpr (SD == 1) {
+    const float px = p < npts ? q.pts[p] : 0.0f;
+    const float x0 = px * a[0] + a[1];
+    if (half == 0) fiat::dubiner1_point_n(n, x0, q.consts, q.scale, put);
+  } else {
+    const unsigned long long second_n = second_rows_n(SD, n);
+    auto mine_n = [&](int r) { return static_cast<int>((second_n >> r) & 1ull) == half; };
+    if constexpr (SD == 2) {
+      const float px = p < npts ? q.pts[2 * p] : 0.0f;
+      const float py = p < npts ? q.pts[2 * p + 1] : 0.0f;
+      const float x0 = (px * a[0] + py * a[1]) + a[4];
+      const float x1 = (px * a[2] + py * a[3]) + a[5];
+      fiat::dubiner2_point_n(
+          n, x0, x1, q.consts, q.scale,
+          [&](int, int r, int i, float v) { put((r + i) * (r + i + 1) / 2 + i, v); }, mine_n);
+    } else {
+      const float px = p < npts ? q.pts[3 * p] : 0.0f;
+      const float py = p < npts ? q.pts[3 * p + 1] : 0.0f;
+      const float pz = p < npts ? q.pts[3 * p + 2] : 0.0f;
+      const float x0 = (px * a[0] + py * a[1] + pz * a[2]) + a[9];
+      const float x1 = (px * a[3] + py * a[4] + pz * a[5]) + a[10];
+      const float x2 = (px * a[6] + py * a[7] + pz * a[8]) + a[11];
+      fiat::dubiner3_point_n(
+          n, x0, x1, x2, q.consts, q.scale,
+          [&](int e, float v) { put(__ldg(q.slots + e), v); }, mine_n);
+    }
+  }
+}
 
 // Shared memory of a block: the Phi tile, the ring of A chunks, and the
 // ring's two mbarriers and counter a buffer.
@@ -155,45 +195,9 @@ zoo_f32_kernel(const __grid_constant__ Params q) {
     const auto& a = q.aff;
     if constexpr (N < 0) {
       // the generic instantiation: the same Phi tile at a run-time degree
-      const int n = q.degree;
-      if constexpr (SD == 1) {
-        const float px = p < npts ? q.pts[p] : 0.0f;
-        const float x0 = px * a[0] + a[1];
-        if (half == 0)
-          fiat::dubiner1_point_n(n, x0, q.consts, q.scale, [&](int m, float v) {
-            if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
-          });
-      } else {
-        const unsigned long long second_n = second_rows_n(SD, n);
-        auto mine_n = [&](int r) { return static_cast<int>((second_n >> r) & 1ull) == half; };
-        if constexpr (SD == 2) {
-          const float px = p < npts ? q.pts[2 * p] : 0.0f;
-          const float py = p < npts ? q.pts[2 * p + 1] : 0.0f;
-          const float x0 = (px * a[0] + py * a[1]) + a[4];
-          const float x1 = (px * a[2] + py * a[3]) + a[5];
-          fiat::dubiner2_point_n(
-              n, x0, x1, q.consts, q.scale,
-              [&](int, int r, int i, float v) {
-                const int m = (r + i) * (r + i + 1) / 2 + i;
-                if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
-              },
-              mine_n);
-        } else {
-          const float px = p < npts ? q.pts[3 * p] : 0.0f;
-          const float py = p < npts ? q.pts[3 * p + 1] : 0.0f;
-          const float pz = p < npts ? q.pts[3 * p + 2] : 0.0f;
-          const float x0 = (px * a[0] + py * a[1] + pz * a[2]) + a[9];
-          const float x1 = (px * a[3] + py * a[4] + pz * a[5]) + a[10];
-          const float x2 = (px * a[6] + py * a[7] + pz * a[8]) + a[11];
-          fiat::dubiner3_point_n(
-              n, x0, x1, x2, q.consts, q.scale,
-              [&](int e, float v) {
-                const int m = __ldg(q.slots + e);
-                if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
-              },
-              mine_n);
-        }
-      }
+      generic_point<SD>(q, p, half, [&](int m, float v) {
+        if (m < kmax) Bs[m * TP + (pt ^ 1)] = v;
+      });
     } else if constexpr (SD == 1) {
       // the interval's recurrence is one loop of N + 1 levels: the first
       // thread of each point runs it alone

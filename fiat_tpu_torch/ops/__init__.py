@@ -23,8 +23,8 @@ def device_tabulator(elements, order=0, f64=True, device=None, derivs="dmats", *
       fiat_tpu's one-shot route takes it; a triangle parent with at most
       32 subcells in all: a measured routing rule) or else K7
       (tetrahedra, and triangle zoos past 32 subcells; K7 has no interval
-      stage), as ``tab.macro.name`` says; both take programs of any number
-      of subcells;
+      stage), as each of ``tab.macro_routes``' ``.name`` says; both take
+      programs of any number of subcells;
       ``tab.block_tables(points)`` gives per-group blocks and
       ``tab.unpack(blocks)`` the per-element dicts of ``el.tabulate``.
     * ``f64=False``: the f32 throughput engine ``f32_zoo.F32ZooTabulator``

@@ -23,6 +23,8 @@ for CPU tensors only.  For a CUDA tensor it launches the kernel or raises.
 """
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -32,11 +34,14 @@ from ..core.expansions import ExpansionSet
 from ..core.quadrature import make_quadrature
 from .kernels import check_launch, load_kernels, resolve_device, stream_of
 
-#: degrees the kernel is instantiated for, per spatial dimension
-#: (csrc/bernstein.cu's switch): its own, pinned here; past them
-#: ``features="bernstein"`` raises by name (fiat_tpu's K8 takes 26 / 17 /
-#: 15, where its packed multinomials stay below 2^24)
-MAX_DEGREE = {1: 15, 2: 15, 3: 10}
+#: the top of the unrolled instantiations per spatial dimension
+#: (csrc/bernstein.cu's switch); past them one generic instantiation takes
+#: the degree at the launch
+UNROLLED_DEGREE = {1: 15, 2: 15, 3: 10}
+#: the highest degree per spatial dimension, fiat_tpu's (its K8 packs the
+#: multinomials as exact float32 integers, below 2^24, and refuses past
+#: them); past it ``features="bernstein"`` raises by name
+MAX_DEGREE = {1: 26, 2: 17, 3: 15}
 
 
 def bernstein_multiindices(sd, degree):
@@ -64,11 +69,38 @@ def multinomial(degree, mi):
     return out
 
 
+def ld_matmul(a, b, workers=None):
+    """``a @ b`` in longdouble, bit for bit as numpy's ``matmul`` computes it
+    for that type (no BLAS: each entry summed from 0 in the order of k, each
+    product rounded to longdouble before it is added), but as k outer
+    products, each on a block of rows in its own thread (numpy releases
+    the GIL in its longdouble loops): the same additions in the same order,
+    a vector operation each.  ``workers`` threads (the CPU count when
+    None)."""
+    a, b = np.asarray(a, np.longdouble), np.asarray(b, np.longdouble)
+    out = np.zeros((a.shape[0], b.shape[1]), np.longdouble)
+    workers = max(1, min(workers or os.cpu_count() or 1, a.shape[0]))
+    bounds = np.linspace(0, a.shape[0], workers + 1).astype(int)
+
+    def rows(lo, hi):
+        acc, tmp = out[lo:hi], np.empty((hi - lo, b.shape[1]), np.longdouble)
+        for k in range(a.shape[1]):
+            np.multiply(a[lo:hi, k, None], b[k], out=tmp)
+            acc += tmp
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(rows, bounds[:-1], bounds[1:]))
+    return out
+
+
 def bernstein_conversion(es, degree):
     """(nexp, nexp) matrix M with ``es.tabulate(degree, X) == M @
     bernstein(X)`` to ~1e-13, in longdouble: Gram projection of the scaled
     Dubiner basis onto the Bernstein basis (quadrature exact at
-    2*degree), with two refinement steps against the Bernstein Gram."""
+    2*degree), with two refinement steps against the Bernstein Gram.  The
+    longdouble products go through ``ld_matmul`` (fiat_tpu's matrix, bit
+    for bit, in a fraction of the time: tet degree 15's Gram matrices are
+    816 x 4096 x 816)."""
     ld = np.longdouble
     cell = es.ref_el
     sd = cell.get_spatial_dimension()
@@ -80,12 +112,12 @@ def bernstein_conversion(es, degree):
     W = np.asarray(Q.get_weights()).astype(ld)
     B = _bernstein_host(cell, degree, Xq, ld)
     Phi = np.asarray(es.tabulate(degree, Xq)).astype(ld)[:nexp]
-    GB = (B * W) @ B.T
-    PB = (Phi * W) @ B.T
+    GB = ld_matmul(B * W, B.T)
+    PB = ld_matmul(Phi * W, B.T)
     GB64 = GB.astype(np.float64)
     M = np.linalg.solve(GB64, PB.astype(np.float64).T).T.astype(ld)
     for _ in range(2):
-        R = PB - M @ GB
+        R = PB - ld_matmul(M, GB)
         M = M + np.linalg.solve(GB64, R.astype(np.float64).T).T
     return M
 
@@ -142,9 +174,12 @@ class BernsteinFeatures:
             raise NotImplementedError(f"Bernstein features: sd 1-3, not sd={sd}")
         if not 0 <= degree <= MAX_DEGREE[sd]:
             raise NotImplementedError(
-                f"Bernstein degree {degree} outside 0..{MAX_DEGREE[sd]} for sd = {sd}")
+                f"Bernstein degree {degree} outside 0..{MAX_DEGREE[sd]} for sd = {sd} (as "
+                "fiat_tpu's K8: a multinomial past 2^24)")
         self.sd = sd
         self.degree = degree
+        #: whether the degree runs the generic instantiation
+        self.generic = degree > UNROLLED_DEGREE[sd]
         self.nexp = math.comb(degree + sd, sd)
         self.mis = bernstein_multiindices(sd, degree)
         A, c = bary_map
@@ -152,7 +187,7 @@ class BernsteinFeatures:
         self.c = np.asarray(c, np.float64).reshape(sd + 1)
         self.device = resolve_device(device)
         self.bary = torch.as_tensor(np.concatenate([self.A.ravel(), self.c]), device=self.device)
-        # exact integers in f64 (at most 15!/(4!4!4!3!) < 2^53)
+        # exact integers in f64 (below 2^24 at MAX_DEGREE)
         self.coef = torch.as_tensor([float(multinomial(degree, mi)) for mi in self.mis],
                                     dtype=torch.float64, device=self.device)
         self.device = self.bary.device      # "cuda" resolved to its index

@@ -86,8 +86,14 @@ class ZooF32Kernel:
     with each warp slab's width, ``k6_layout``, on the device); the packed
     rows ``A`` serve the plain version only and live where it last ran.
     ``plan`` is the kernel's (point tile, A rows of a chunk, chunks in the
-    ring, blocks an SM), ``plan_for``'s choice; ``launches`` counts kernel
-    launches (the plain CPU path adds nothing)."""
+    ring, blocks an SM), ``plan_for``'s choice.  ``mode`` is "fused" where
+    a block's shared memory takes the Phi tile beside a ring of A chunks
+    (up to 842 rows at 64 points), else "wide" (``csrc/zoo_f32_wide.cu``):
+    K6's recurrence writes Phi to device memory (``phi_launches``), then a
+    product streams it in k beside A, one block a (point tile, row tile),
+    the grid in groups of ``group`` row tiles (``wide_plan``).
+    ``launches`` counts the product's launches, of either mode (the plain
+    CPU path adds nothing)."""
 
     #: rows of one kernel tile and of a warp's (csrc/zoo_f32.cuh, TR,
     #: WARP_ROWS: a warp holds 32 rows x 64 points, a lane 8 x 8)
@@ -108,6 +114,9 @@ class ZooF32Kernel:
     #: shared memory a block may take on sm_90, an SM's, what the SM keeps
     #: for each resident block, and the unit it allocates a block's in
     SMEM_MAX, SMEM_SM, SMEM_BLOCK, SMEM_UNIT = 232448, 233472, 1024, 128
+    #: the wide mode: its point tile, the chunks in its ring, the blocks an
+    #: SM holds, and the bytes of A a group of row tiles keeps in L2
+    WIDE_TP, WIDE_STAGES, WIDE_BLOCKS, WIDE_L2 = 128, 3, 2, 16 << 20
 
     def __init__(self, mats, degree, scale, affine_map, variant=None, device=None):
         Af, bf = affine_map
@@ -143,18 +152,37 @@ class ZooF32Kernel:
         At, table = k6_layout(packed, tiles, np.repeat(self.K, self.group_rows), self.kpad,
                               self.DEPTH, self.TILE_ROWS, self.WARP_ROWS)
         self.plan = self.plan_for(self.kpad, len(table))
+        self.mode, self.group = "fused", None
         if self.plan is None:
-            raise NotImplementedError(
-                f"K6: a Phi tile of {self.kpad} rows (width {self.max_k}, degree {degree}, sd "
-                f"{self.sd}) leaves no room for a ring of A chunks at {min(self.POINT_TILES)} "
-                f"points in a block's {self.SMEM_MAX} bytes of shared memory")
+            self.mode = "wide"
+            self.plan, self.group = self.wide_plan(self.kpad)
         self.At = torch.as_tensor(At, device=self.device)
         self.tiles = torch.as_tensor(table, device=self.device)
         consts, slots = pack_stages(self.degree, variant, sd=self.sd)
         self.consts = torch.as_tensor(consts, device=self.device).float()
         self.slots = torch.as_tensor(slots, device=self.device)   # read at sd = 3 only
         self.device = self.At.device       # "cuda" resolved to its index
-        self.launches = 0
+        self.launches = self.phi_launches = 0
+
+    @classmethod
+    def wide_smem_bytes(cls, kc, stages):
+        """Shared memory of a wide product block: the ring of ``stages`` (A
+        chunk, Phi slab) pairs of ``kc`` rows (``stream_smem_bytes``)."""
+        return 4 * stages * kc * (cls.TILE_ROWS + cls.WIDE_TP)
+
+    @classmethod
+    def wide_plan(cls, kpad):
+        """The wide mode's ((point tile, chunk rows, chunks in the ring,
+        blocks an SM), row tiles a group) for a Phi of ``kpad`` rows: the
+        widest chunk, a multiple of DEPTH up to kpad, whose ring of
+        WIDE_STAGES fits WIDE_BLOCKS blocks an SM, and groups of row tiles
+        whose A takes about WIDE_L2 bytes."""
+        budget = ((cls.SMEM_SM // cls.WIDE_BLOCKS - cls.SMEM_BLOCK)
+                  // cls.SMEM_UNIT * cls.SMEM_UNIT)
+        row = 4 * cls.WIDE_STAGES * (cls.TILE_ROWS + cls.WIDE_TP)
+        kc = min(kpad, budget // row // cls.DEPTH * cls.DEPTH)
+        group = max(1, cls.WIDE_L2 // (4 * kpad * cls.TILE_ROWS))
+        return (cls.WIDE_TP, kc, cls.WIDE_STAGES, cls.WIDE_BLOCKS), group
 
     @classmethod
     def threads(cls, tp):
@@ -216,6 +244,8 @@ class ZooF32Kernel:
     def smem(self):
         """Shared memory of one of the plan's blocks, in bytes."""
         tp, kc, stages, _ = self.plan
+        if self.mode == "wide":
+            return self.wide_smem_bytes(kc, stages)
         return self.smem_bytes(self.kpad, tp, kc, stages)
 
     def _check(self, points, dst, out):
@@ -248,6 +278,8 @@ class ZooF32Kernel:
         if npts == 0:
             return out
         lib = load_kernels()
+        if self.mode == "wide":
+            return self._wide(lib, points, dst, out)
         tp, kc, stages, blocks = self.plan
         affine = (ctypes.c_float * 12)(*self.affine)
         err = lib.fiat_zoo_f32(points.data_ptr(), npts, self.sd, self.consts.data_ptr(),
@@ -260,11 +292,50 @@ class ZooF32Kernel:
         self.launches += 1
         return out
 
+    def phi_stage(self, points):
+        """The wide mode's first launch on float32 ``points`` on the card:
+        Phi (kpad, the points rounded up to the point tile) float32 from
+        K6's recurrence, each pair of points' columns swapped (point p in
+        column p ^ 1), rows past ``max_k`` zero."""
+        tp = self.plan[0]
+        npts = points.shape[0]
+        ld = -(-npts // tp) * tp
+        phi = torch.empty((self.kpad, ld), dtype=torch.float32, device=points.device)
+        affine = (ctypes.c_float * 12)(*self.affine)
+        err = load_kernels().fiat_zoo_f32_phi(
+            points.data_ptr(), npts, self.sd, self.consts.data_ptr(), self.slots.data_ptr(),
+            affine, self.scale, self.degree, self.kpad, self.max_k, phi.data_ptr(), ld,
+            stream_of(points))
+        check_launch(f"fiat_zoo_f32_phi (sd {self.sd}, degree {self.degree}, {self.kpad} rows)",
+                     err)
+        self.phi_launches += 1
+        return phi
+
+    def _wide(self, lib, points, dst, out):
+        """The wide mode's two launches: ``phi_stage``, then the product."""
+        tp, kc, stages, _ = self.plan
+        npts, ntiles = points.shape[0], self.tiles.shape[0]
+        if -(-npts // tp) * ntiles >= 2 ** 31:
+            raise ValueError(f"{npts} points x {ntiles} row tiles: too many blocks for one "
+                             "launch")
+        phi = self.phi_stage(points)
+        err = lib.fiat_zoo_f32_stream(self.At.data_ptr(), self.kpad, self.max_k,
+                                      self.tiles.data_ptr(), ntiles, phi.data_ptr(),
+                                      phi.shape[1], npts, dst.data_ptr(), out.data_ptr(), kc,
+                                      stages, self.group, stream_of(points))
+        check_launch(f"fiat_zoo_f32_stream (width {self.max_k}, plan {self.plan}, group "
+                     f"{self.group})", err)
+        self.launches += 1
+        return out
+
     def occupancy(self):
         """Blocks of the plan an SM holds at once on the card (registers and
         shared memory), from the CUDA runtime."""
-        blocks = load_kernels().fiat_zoo_f32_occupancy(self.sd, self.degree, self.kpad,
-                                                       self.max_k, *self.plan)
+        if self.mode == "wide":
+            blocks = load_kernels().fiat_zoo_f32_stream_occupancy(*self.plan[1:3])
+        else:
+            blocks = load_kernels().fiat_zoo_f32_occupancy(self.sd, self.degree, self.kpad,
+                                                           self.max_k, *self.plan)
         check_launch("fiat_zoo_f32_occupancy", max(0, -blocks))
         return blocks
 
@@ -318,10 +389,12 @@ class F32ZooTabulator:
     plain rows, alpha-major (``tab.unpack`` splits it by alpha);
     ``tab.tables(points)`` gives {alpha: (rows, npts)} float32 for the whole
     zoo in the ``BatchedTabulator`` row order (plain rows, then the macro
-    elements').  ``tab.kernel`` (K6) and ``tab.macro`` (K3 in float32, the
-    first group's; None without one) carry the launch counts;
-    ``tab.macro_routes`` lists every route.  Intervals, triangles
-    and tetrahedra, plain and macro."""
+    elements').  ``tab.kernel`` (K6) carries its launch counts;
+    ``tab.macro_routes`` lists every route of the macro programs (K3 in
+    float32, ``MacroOneShot``, for a group on one Dubiner parent, the one
+    on the zoo's basis first; ``VariantProgramF32`` for a program on a
+    variant parent).  Intervals, triangles and tetrahedra, plain and
+    macro."""
 
     def __init__(self, batched, device=None):
         self._setup(**batched.state(), order=batched.order, device=device)
@@ -401,8 +474,6 @@ class F32ZooTabulator:
                     for idx, lo, hi in sorted(p.row_slices, key=lambda s: s[1]):
                         flo, fhi, _ = self.slices[idx]
                         macro_dst.extend(k * self.rows + r for r in range(flo, fhi))
-        merged = [e for e in self.macro_routes if isinstance(e, MacroOneShot)]
-        self.macro = merged[0] if merged else None
         if self.macro_routes:
             self.dst_macro = torch.as_tensor(macro_dst, device=self.device)
 

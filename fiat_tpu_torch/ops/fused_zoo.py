@@ -42,8 +42,6 @@ wrapper runs it for CPU tensors only.  For a CUDA tensor it launches the
 kernel or raises.
 """
 
-import math
-
 import numpy as np
 import torch
 
@@ -115,9 +113,11 @@ class BucketMatmul:
     tiles, each contracting up to the widest row it holds, rounded up to
     that depth (the padding is exact zeros): one launch covers every group.
     ``plan`` is the kernel's (point tile, rows of an A chunk, chunks in the
-    ring, blocks an SM holds); past the widest K whose Phi tile a block's
-    shared memory takes beside a ring of A chunks (``MAX_WIDTH``, 792) the
-    constructor raises ``NotImplementedError``.  The kernel reads the tiles transposed and
+    ring, blocks an SM holds).  ``mode`` is "resident" where a block's
+    shared memory takes the Phi tile beside a ring of A chunks (K up to
+    792), else "streamed": Phi then comes through the ring in k beside A,
+    one block a (point tile, row tile), the grid ordered in groups of
+    ``group`` row tiles (``stream_plan``).  The kernel reads the tiles transposed and
     swizzled (``At``, ``swizzled_tiles``, on the device); the packed rows
     ``A`` serve the plain version only and live where it last ran.
     ``launches`` counts kernel launches (the plain CPU path adds nothing).
@@ -143,9 +143,11 @@ class BucketMatmul:
     SMEM_MAX, SMEM_SM, SMEM_BLOCK = 232448, 233472, 1024
     #: the depth of the MMA (mma.sync m16n8k4)
     DEPTH = 4
-    #: the widest contraction a plan fits (``plan_for``: a 32-point Phi tile
-    #: of 792 rows beside two chunks of 16 rows and the C staging)
-    MAX_WIDTH = 792
+    #: the streamed mode: its point tile, the rows of a chunk and the chunks
+    #: in its ring (the fastest of the plans ``chip_smoke.py --k2-cells``
+    #: times on tet GLL Lagrange 20), the blocks an SM holds, and the bytes
+    #: of A a group of row tiles keeps in L2
+    STREAM_TP, STREAM_KC, STREAM_STAGES, STREAM_BLOCKS, STREAM_L2 = 128, 32, 2, 2, 16 << 20
 
     def __init__(self, mats, device=None):
         self.device = resolve_device(device)
@@ -153,11 +155,10 @@ class BucketMatmul:
         self.total_rows, self.max_k = packed.shape
         self.kpad = max(1, -(-self.max_k // self.DEPTH)) * self.DEPTH
         self.plan = self.plan_for(self.kpad, len(tiles))
+        self.mode, self.group = "resident", None
         if self.plan is None:
-            raise NotImplementedError(
-                f"K2: contraction width {self.max_k} past the {self.MAX_WIDTH} whose Phi tile a "
-                f"block's {self.SMEM_MAX} bytes of shared memory take beside the ring of A "
-                "chunks and the C staging")
+            self.mode = "streamed"
+            self.plan, self.group = self.stream_plan(self.kpad)
         self.A = torch.as_tensor(packed)
         At = np.pad(transposed_tiles(packed, tiles, self.TILE_ROWS),
                     ((0, 0), (0, self.kpad - self.max_k), (0, 0)))
@@ -213,6 +214,25 @@ class BucketMatmul:
                 return plan
         return None
 
+    @classmethod
+    def stream_smem_bytes(cls, kc, stages):
+        """Shared memory of a streamed block: the ring of ``stages`` (A
+        chunk, Phi slab) pairs of ``kc`` rows, which the C staging re-uses
+        (``stream_smem_doubles``)."""
+        staging = cls.WARPS * cls.SLAB * k2_staging_stride(cls.STREAM_TP // cls.WARPS_N)
+        return 8 * max(stages * kc * (cls.TILE_ROWS + cls.STREAM_TP), staging)
+
+    @classmethod
+    def stream_plan(cls, kpad):
+        """The streamed mode's ((point tile, chunk rows, chunks in the ring,
+        blocks an SM), row tiles a group) for a contraction padded to
+        ``kpad``: chunks of STREAM_KC rows (kpad where narrower) in a ring of
+        STREAM_STAGES, STREAM_BLOCKS blocks an SM, and groups of row tiles
+        whose A takes about STREAM_L2 bytes."""
+        kc = min(kpad, cls.STREAM_KC)
+        group = max(1, cls.STREAM_L2 // (8 * kpad * cls.TILE_ROWS))
+        return (cls.STREAM_TP, kc, cls.STREAM_STAGES, cls.STREAM_BLOCKS), group
+
     def _check(self, phi):
         if not isinstance(phi, torch.Tensor):
             raise TypeError("phi must be a torch.Tensor")
@@ -237,10 +257,21 @@ class BucketMatmul:
             return C
         lib = load_kernels()
         tp, kc, stages, blocks = self.plan
-        err = lib.fiat_bucket_matmul(self.At.data_ptr(), self.kpad, self.max_k, tp, kc, stages,
-                                     blocks, self.tiles.data_ptr(), self.tiles.shape[0],
-                                     phi.data_ptr(), npts, npts, C.data_ptr(), stream_of(phi))
-        check_launch(f"fiat_bucket_matmul (contraction width {self.max_k})", err)
+        ntiles = self.tiles.shape[0]
+        if self.mode == "streamed":
+            if -(-npts // tp) * ntiles >= 2 ** 31:
+                raise ValueError(f"{npts} points x {ntiles} row tiles: too many blocks for one "
+                                 "launch")
+            err = lib.fiat_bucket_matmul_stream(
+                self.At.data_ptr(), self.kpad, self.max_k, kc, stages, self.group,
+                self.tiles.data_ptr(), ntiles, phi.data_ptr(), npts, npts, C.data_ptr(),
+                stream_of(phi))
+        else:
+            err = lib.fiat_bucket_matmul(self.At.data_ptr(), self.kpad, self.max_k, tp, kc,
+                                         stages, blocks, self.tiles.data_ptr(), ntiles,
+                                         phi.data_ptr(), npts, npts, C.data_ptr(),
+                                         stream_of(phi))
+        check_launch(f"fiat_bucket_matmul ({self.mode}, contraction width {self.max_k})", err)
         self.launches += 1
         return C
 
@@ -266,10 +297,11 @@ class FusedZooTabulator:
     ``el.tabulate(order, points)``; ``fz(points)`` gives {alpha: (rows,
     npts)} in the row order of ``BatchedTabulator``.  ``fz.recurrence``
     (K1; None on the Bernstein route), ``fz.features`` (K8; None on the
-    Dubiner route), ``fz.matmul`` (K2) and ``fz.macro`` (K3 or K7, as
-    ``fz.macro.name`` says; the first merged route's, None without one)
-    carry the launch counts; ``fz.macro_routes`` lists every route of the
-    macro programs (``MacroRoute``: its kernel, its own K1 if any).
+    Dubiner route) and ``fz.matmul`` (K2) carry the launch counts;
+    ``fz.macro_routes`` lists every route of the macro programs
+    (``MacroRoute``: its kernel and launch count in ``.engine``, K3 or K7
+    as ``.name`` says, its own K1 if any), the one on the zoo's basis
+    first.
 
     ``features``: "auto" or "dubiner" (the default) feed K2 from the
     recurrence; "bernstein" from the Bernstein features, with the
@@ -328,14 +360,7 @@ class FusedZooTabulator:
 
         self.widths, group_mats, self._loc, self.group_rows, _ = group_by_width(
             mats, self.alphas, self.slices, plain_nexp)
-        widest = max(self.widths, default=0)
-        if widest > BucketMatmul.MAX_WIDTH:
-            degree = next(d for d in range(widest + 1) if math.comb(d + self.sd, self.sd) >= widest)
-            raise NotImplementedError(
-                f"K2 contracts widths up to {BucketMatmul.MAX_WIDTH}; this zoo's widest is "
-                f"{widest}, the degree-{degree} basis on sd = {self.sd}: the f64 engine takes "
-                f"degrees whose basis has at most {BucketMatmul.MAX_WIDTH} members")
-        self.recurrence = self.features = self.macro = None
+        self.recurrence = self.features = None
         self._programs = list(macro_programs)
         order = max(map(sum, self.alphas)) if order is None else order
         rec_degree = max_degree
@@ -348,8 +373,6 @@ class FusedZooTabulator:
             if route.name == "K7" and on_zoo:
                 rec_degree = max(rec_degree, route.degree)
             self.macro_routes.append(route)
-        merged = [r.engine for r in self.macro_routes if r.kind == "merged"]
-        self.macro = merged[0] if merged else None
         #: macro program -> (route, first row of its tables in the route's output)
         self._route_of = {g: (k, r0) for k, r in enumerate(self.macro_routes)
                           for g, r0 in r.first_row.items()}

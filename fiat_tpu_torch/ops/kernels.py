@@ -48,6 +48,8 @@ SIGNATURES = {
     "fiat_bernstein_features": [_P, _I, _I, _I, _P, _P, _P, _P],
     # At, kpad, kmax, tp, kc, stages, minb, tiles, ntiles, phi, ldphi, npts, C, stream
     "fiat_bucket_matmul": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P],
+    # At, kpad, kmax, kc, stages, group, tiles, ntiles, phi, ldphi, npts, C, stream
+    "fiat_bucket_matmul_stream": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P],
     # pts, npts, sd, consts, slots, affine[12] (host array), scale, tol, degree,
     # maps, pieces, slices, groups, ngroups, rc, sub, resident, stages, buf,
     # ring, nbar, words, At, gather (or null), out, tp, stream (in f64 / in f32)
@@ -77,6 +79,13 @@ SIGNATURES = {
     # sd, degree, kpad, kmax, tp, kc, stages, minb (returns blocks an SM, or
     # minus the error)
     "fiat_zoo_f32_occupancy": [_I] * 8,
+    # pts, npts, sd, consts, slots, affine[12] (host array), scale, degree, kpad,
+    # kmax, phi, ldphi, stream
+    "fiat_zoo_f32_phi": [_P, _I, _I, _P, _P, _P, _F, _I, _I, _I, _P, _I, _P],
+    # At, kpad, kmax, tiles, ntiles, phi, ldphi, npts, dst, out, kc, stages, group, stream
+    "fiat_zoo_f32_stream": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
+    # kc, stages (returns blocks an SM, or minus the error)
+    "fiat_zoo_f32_stream_occupancy": [_I] * 2,
 }
 
 

@@ -48,9 +48,10 @@ class MomentEngine:
     contracted in PyTorch (its masked parent by the weights), as fiat_tpu's
     engines leave such a program to XLA.
 
-    ``moments`` (the first K45), ``recurrence`` (K1) and ``macro`` (the
-    first K3, None without merged macro programs) carry the launch counts;
-    ``moment_kernels`` and ``macros`` list every K45 and K3 of the routes.
+    ``moments`` (the first K45) and ``recurrence`` (K1) carry the launch
+    counts; ``moment_kernels`` and ``macros`` list every K45 and K3 of the
+    routes (``program_columns``: each merged route's one-row selection of
+    its programs' columns).
     The K45s and K3s are built on first use, by whichever reads them first,
     and ``built`` says which exist."""
 
@@ -127,7 +128,7 @@ class MomentEngine:
         self.matrix = torch.as_tensor(matrix, device=self.device)
         #: per merged route, program g's columns of its folded coefficients
         #: (interpolation: one K3 row a program)
-        self._program_columns = []
+        self.program_columns = []
         for kind, members, merged, cols in self.routes:
             if merged is None:
                 continue
@@ -136,8 +137,7 @@ class MomentEngine:
             for j, g in enumerate(members):
                 pc[j, c0:c0 + programs[g].K] = 1.0
                 c0 += programs[g].K
-            self._program_columns.append(torch.as_tensor(pc, device=self.device))
-        self.program_columns = self._program_columns[0] if self._program_columns else None
+            self.program_columns.append(torch.as_tensor(pc, device=self.device))
         self._variants = [(programs[members[0]], cols)
                           for kind, members, _, cols in self.routes if kind == "variant"]
 
@@ -162,12 +162,6 @@ class MomentEngine:
             self._macros = [MacroOneShot(**merged, device=self.device)
                             for _, _, merged, _ in self.routes if merged is not None]
         return self._macros
-
-    @property
-    def macro(self):
-        """The first K3 for interpolation; None without merged macro
-        programs."""
-        return self.macros[0] if self.macros else None
 
     @property
     def built(self):
@@ -201,7 +195,7 @@ class MomentEngine:
         folded = c @ self.matrix            # the transpose of moment_rows
         out = folded[:self.nexp] @ self.recurrence(pts)
         merged = [cols for _, _, m, cols in self.routes if m is not None]
-        for mo, cols, pc in zip(self.macros if merged else (), merged, self._program_columns):
+        for mo, cols, pc in zip(self.macros if merged else (), merged, self.program_columns):
             out = out + mo(pts, A=pc * folded[cols]).sum(dim=0)
         for p, cols in self._variants:
             out = out + folded[cols] @ masked_parent(p, pts, unique_binning(p, 0))

@@ -26,9 +26,7 @@ from .kernels import check_launch, load_kernels, resolve_device, stream_of
 
 #: the top of the unrolled instantiations, per spatial dimension
 #: (csrc/recurrence.cu): nexp 16 on the interval, 136 on the triangle, 286
-#: on the tetrahedron; every degree past them runs the generic kernel.  The
-#: widest contraction K2 takes (792) bounds what the f64 engine can use:
-#: triangle degree 38, tetrahedron degree 14
+#: on the tetrahedron; every degree past them runs the generic kernel
 UNROLLED_DEGREE = {1: 15, 2: 15, 3: 10}
 
 

@@ -353,8 +353,8 @@ class ElementTabulator:
     fuses macro elements only beside a plain one, as
     ``BatchedTabulator``), an element without a nodal expansion basis, any
     other element on a cell other than the interval, the triangle and the
-    tetrahedron, and a basis wider than K2 contracts (792 members: the
-    tetrahedron past degree 14, the engine's construction raises)."""
+    tetrahedron.  A basis of any width runs: past 792 members (the
+    tetrahedron past degree 14) K2 streams Phi in k."""
 
     def __init__(self, element, order=0, device=None, **tpu_only):
         from . import TPU_ONLY, device_tabulator

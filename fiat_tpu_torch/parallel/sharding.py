@@ -458,8 +458,8 @@ def run_steps(rank, n, spec, points, weights, f_at_pts, coefficients, mesh_2d=No
                       lambda: make_moment_step(tab, mesh)(pts, w, f))
     out["moments"] = moments
     interp = make_interpolation_step(tab, mesh)
-    vals = counted("interpolation", {"K1": eng.recurrence, "K3": eng.macro} if eng.macro
-                   else {"K1": eng.recurrence}, lambda: interp(pts, coefficients))
+    vals = counted("interpolation", {"K1": eng.recurrence, **{
+        f"K3 route {k}": mo for k, mo in enumerate(eng.macros)}}, lambda: interp(pts, coefficients))
     out["interpolation"] = gather(vals, mesh)
     fz = device_tabulator(zoo, order=1, device=dev)
     small = shard_points(points if fused_points is None else fused_points, mesh)

@@ -126,7 +126,7 @@ def test_features_wrapper_checks():
         feat(torch.zeros((4, 3), dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         feat(torch.zeros((2, 4), dtype=torch.float64).T)
-    with pytest.raises(NotImplementedError, match="outside 0..10"):
-        tb.BernsteinFeatures(3, 11, tb._bary_map(tcl.ufc_simplex(3)), device="cpu")
+    with pytest.raises(NotImplementedError, match="outside 0..15"):
+        tb.BernsteinFeatures(3, 16, tb._bary_map(tcl.ufc_simplex(3)), device="cpu")
     with pytest.raises(NotImplementedError, match="sd 1-3"):
         tb.BernsteinFeatures(4, 1, (np.zeros((5, 4)), np.zeros(5)), device="cpu")

@@ -28,6 +28,7 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator, ZooF32Kernel
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from chip_smoke import merged_macro
 
 RTOL = 5e-6         # fiat_tpu's f32 bar (tests/test_device_ops.py:143-144)
 MACRO_TOL = 5e-5    # its macro bar, relative to max abs + 1 (:586-589)
@@ -99,7 +100,7 @@ def test_macro_zoo_matches_host_and_fiat_tpu_pallas_interpret():
     for a in want:
         w = np.asarray(want[a])
         assert np.abs(got[a].numpy() - w).max() / (np.abs(w).max() + 1.0) <= MACRO_TOL, a
-    assert (tab.kernel.launches, tab.macro.launches) == (0, 0)
+    assert (tab.kernel.launches, merged_macro(tab).launches) == (0, 0)
     for el, t in zip(tzoo, BatchedTabulator(tzoo, order=1, device="cpu").unpack(got)):
         host = el.tabulate(1, pts)
         for a in host:
@@ -171,9 +172,9 @@ def test_engine_checks_device_cell_and_inputs():
     T3 = tcl.ufc_simplex(3)
     tet = device_tabulator([tfe.Lagrange(T3, 2), tfe.Lagrange(T3, 2, variant="alfeld")],
                            order=0, f64=False, device="cpu")
-    assert tet.kernel.sd == tet.macro.sd == 3
+    assert tet.kernel.sd == merged_macro(tet).sd == 3
     with pytest.raises(ValueError, match="points must have shape"):
-        tet.macro(torch.zeros((4, 2)))
+        merged_macro(tet)(torch.zeros((4, 2)))
     with pytest.raises(NotImplementedError, match="variant"):
         ZooF32Kernel([np.eye(3)], 1, 1.0, (np.eye(2), np.zeros(2)), variant="other")
 
@@ -375,8 +376,8 @@ def test_plan_fits_shared_memory_at_every_degree_and_refuses_past_it():
     those that keep most threads, or the narrowest for at most two row
     tiles; past 386 rows (the generic instantiation's degrees: tet 14's
     680) one block an SM on the widest point tile that fits, up to 842 rows
-    (64 points); it refuses a
-    Phi tile past 842 rows, at construction, naming the shared memory.  The
+    (64 points); past 842 rows no fused plan fits and the kernel takes
+    its wide mode at construction (``wide_plan``).  The
     first degrees past the unrolled ones build on the generic
     instantiation."""
     K = ZooF32Kernel
@@ -409,5 +410,5 @@ def test_plan_fits_shared_memory_at_every_degree_and_refuses_past_it():
         k6 = _kernel(sd, top + 1, ((3, 4),))
         assert k6.generic and k6.plan == K.plan_for(k6.kpad, 1)
     assert _kernel(3, 14, ((3, 680),)).plan == K.plan_for(680, 1) == (64, 56, 2, 1)
-    with pytest.raises(NotImplementedError, match="K6: a Phi tile of 844 rows"):
-        _kernel(2, 40, ((3, 843),))
+    k6 = _kernel(2, 40, ((3, 843),))
+    assert k6.mode == "wide" and k6.plan == K.wide_plan(844)[0]

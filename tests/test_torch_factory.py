@@ -40,6 +40,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chip_smoke  # noqa: E402
+from chip_smoke import merged_macro
 from test_torch_ufl import descriptions  # noqa: E402
 
 #: the port's f64 engine (plain versions) against fiat_tpu's
@@ -375,7 +376,7 @@ def test_full_zoo_descriptions_through_the_engine():
         assert len(got[k]) == len(want[k])
         assert all(torch.equal(a, b) for a, b in zip(got[k], want[k])), k
     assert tab.recurrence.launches == 0 and tab.matmul.launches == 0
-    assert tab.macro is not None and tab.macro.launches == 0
+    assert merged_macro(tab) is not None and merged_macro(tab).launches == 0
 
     jzoo = [jfactory.create_element(d).fiat_equivalent
             for d in chip_smoke.full_zoo_descriptions(jufl)]

@@ -25,6 +25,7 @@ from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
 from fiat_tpu_torch.ops.fused_zoo import BucketMatmul, FusedZooTabulator
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator, rebase_program
+from chip_smoke import merged_macro
 
 
 def _zoo(fe, cell):
@@ -217,10 +218,10 @@ def test_device_tabulator_raises_for_unported_engines(zoos):
     assert hct.is_macroelement()
     tab = device_tabulator(tzoo + [hct], order=1, f64=False, device="cpu")
     assert isinstance(tab, F32ZooTabulator)
-    assert tab.macro is not None and tab.macro.dtype == torch.float32
-    assert tab.macro.geom[0]["unique"] is False       # order 1: averaged binning
+    assert merged_macro(tab) is not None and merged_macro(tab).dtype == torch.float32
+    assert merged_macro(tab).geom[0]["unique"] is False       # order 1: averaged binning
     tab = device_tabulator(tzoo + [hct], order=1, device="cpu")
-    assert tab.macro is not None and tab.special == [len(tzoo)]
+    assert merged_macro(tab) is not None and tab.special == [len(tzoo)]
     bt = BatchedTabulator(tzoo + [hct], order=0, device="cpu")
     st = bt.state()
     pes = copy.copy(st["macro_programs"][0].parent_es)
@@ -228,7 +229,7 @@ def test_device_tabulator_raises_for_unported_engines(zoos):
     eng = MomentEngine.from_arrays(
         **{**st, "macro_programs": [rebase_program(st["macro_programs"][0], pes)]},
         device="cpu")
-    assert [r[0] for r in eng.routes] == ["variant"] and eng.macro is None
+    assert [r[0] for r in eng.routes] == ["variant"] and merged_macro(eng) is None
     rng = np.random.default_rng(13)
     pts = rng.random((150, 2)) * 0.5
     wf = rng.random(150)

@@ -43,6 +43,7 @@ from fiat_tpu_torch.ops.macro_oneshot import (GENERIC_TILES, MAX_SMEM, MacroOneS
 from fiat_tpu_torch.ops.moment_kernel import PairMoments, block_smem, warp_doubles
 from fiat_tpu_torch.ops.recurrence import UNROLLED_DEGREE, DubinerRecurrence, pack_stages
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator, ElementTabulator
+from chip_smoke import merged_macro
 
 try:    # fiat_tpu and JAX, the CPU tests' oracle; the card's cases need neither
     import jax.numpy as jnp
@@ -345,11 +346,12 @@ def test_f64_macro_zoo_runs_k3_generic(engines, random_macro, sd):
     and on the triangle's collocation zoo against fiat_tpu and the host
     (``_f64_check``)."""
     tab = _random_f64_check(random_macro[sd])
-    assert tab.macro.name == "K3" and tab.macro.generic and tab.macro.launches == 0
-    assert tab.macro.plan[0] in GENERIC_TILES and tab.macro.smem <= MAX_SMEM
+    mo = merged_macro(tab)
+    assert mo.name == "K3" and mo.generic and mo.launches == 0
+    assert merged_macro(tab).plan[0] in GENERIC_TILES and merged_macro(tab).smem <= MAX_SMEM
     if sd == 2:
         tab = _f64_check(engines[sd, "macro"])
-        assert tab.macro.name == "K3" and tab.macro.generic
+        assert merged_macro(tab).name == "K3" and merged_macro(tab).generic
 
 
 def test_f64_macro_tet_takes_k7_on_k1s_prefix(random_macro):
@@ -358,7 +360,8 @@ def test_f64_macro_tet_takes_k7_on_k1s_prefix(random_macro):
     memory, on random rows against fiat_tpu's interpreted engine at
     RTOL_TABLES."""
     tab = _random_f64_check(random_macro[3])
-    assert tab.macro.name == "K7" and tab.macro.max_nexp == 364 and tab.macro.plan is not None
+    mo = merged_macro(tab)
+    assert mo.name == "K7" and mo.max_nexp == 364 and mo.plan is not None
     assert tab.recurrence.generic and tab.recurrence.degree == 11
 
 
@@ -401,8 +404,8 @@ def test_f32_macro_zoo_matches_fiat_tpu_pallas_interpret(random_macro, sd):
     rule), so the random rows hold the stage."""
     e = random_macro[sd]
     tab = _f32_check(*e[1], e["pts"])
-    assert tab.macro.generic and tab.macro.dtype == torch.float32
-    assert tab.macro.plan is not None and tab.macro.smem <= MAX_SMEM
+    assert merged_macro(tab).generic and merged_macro(tab).dtype == torch.float32
+    assert merged_macro(tab).plan is not None and merged_macro(tab).smem <= MAX_SMEM
 
 
 def _dual_check(e, moments=True):
@@ -488,10 +491,11 @@ def test_macro_dual_matches_fiat_tpu(engines, random_macro, sd):
     digits of the host's, against fiat_tpu's CPU path and the host
     (``_dual_check``; moments on the triangle)."""
     eng = _random_dual_check(random_macro[sd])
-    assert eng.macro.generic and eng.macro.plan_one is not None and eng.moments.generic
+    mo = merged_macro(eng)
+    assert mo.generic and mo.plan_one is not None and eng.moments.generic
     if sd > 1:
         eng = _dual_check(engines[sd, "macro"], moments=sd < 3)
-        assert eng.macro.generic
+        assert merged_macro(eng).generic
 
 
 @pytest.mark.parametrize("sd,degree", [(2, 20), (3, 14)], ids=["tri-20", "tet-14"])
@@ -583,13 +587,13 @@ def test_one_shot_applies_follows_k3s_plans():
 # -- the refusals that remain --------------------------------------------------------
 
 def test_k2_refuses_past_792_at_construction():
-    """Tet degree 15 (816 members) is past K2's 792: engine construction
-    raises, naming the width and the degree."""
-    with pytest.raises(NotImplementedError, match="K2 contracts widths up to 792; this zoo's "
-                                                  "widest is 816, the degree-15 basis on sd = 3"):
-        device_tabulator([ft.Lagrange(tcl.ufc_simplex(3), 15)], order=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="contraction width 816 past the 792"):
-        BucketMatmul([np.ones((2, 816))], device="cpu")
+    """Tet degree 15 (816 members) is past the 792 whose Phi tile K2 keeps
+    resident: engine construction no longer raises, K2 streams Phi in k
+    (``tests/test_torch_wide.py`` holds it to fiat_tpu)."""
+    tab = device_tabulator([ft.Lagrange(tcl.ufc_simplex(3), 15)], order=1, device="cpu")
+    assert tab.matmul.mode == "streamed" and tab.matmul.max_k == 816
+    assert BucketMatmul([np.ones((2, 816))], device="cpu").mode == "streamed"
+    assert BucketMatmul([np.ones((2, 792))], device="cpu").mode == "resident"
 
 
 def test_k3_refuses_where_no_plan_fits():
@@ -609,19 +613,21 @@ def test_k3_refuses_where_no_plan_fits():
 
 def test_k6_refuses_where_no_plan_fits():
     """A Phi tile past 842 rows leaves no room for a ring of A at 64 points:
-    K6 raises at construction, naming the Phi tile's rows."""
+    K6 no longer raises, it takes its wide mode (Phi through device memory,
+    streamed in k; ``tests/test_torch_wide.py``)."""
     es = texp.ExpansionSet(tcl.ufc_simplex(2))
-    with pytest.raises(NotImplementedError, match="K6: a Phi tile of 862 rows .* shared memory"):
-        ZooF32Kernel([np.ones((2, 861))], 40, 1.0, es.affine_mappings[0], device="cpu")
+    k6 = ZooF32Kernel([np.ones((2, 861))], 40, 1.0, es.affine_mappings[0], device="cpu")
+    assert k6.mode == "wide" and k6.kpad == 862 and k6.plan == ZooF32Kernel.wide_plan(862)[0]
 
 
-@pytest.mark.parametrize("sd,top", [(1, 15), (2, 15), (3, 10)])
+@pytest.mark.parametrize("sd,top", [(1, 26), (2, 17), (3, 15)])
 def test_k8_keeps_its_own_degrees(sd, top):
-    """K8 is pinned to its instantiations (15 / 15 / 10), apart from K1's
-    lifted range: ``features="bernstein"`` raises by name past them."""
+    """K8 takes fiat_tpu's degrees (26 / 17 / 15, the generic instantiation
+    past 15 / 15 / 10): ``features="bernstein"`` raises by name past them,
+    where fiat_tpu's K8 refuses."""
     cell = tcl.ufc_simplex(sd)
     A, c = cell.barycentric_map()
-    BernsteinFeatures(sd, top, (A, c), device="cpu")
+    assert BernsteinFeatures(sd, top, (A, c), device="cpu").generic
     with pytest.raises(NotImplementedError, match=f"Bernstein degree {top + 1} outside 0..{top}"):
         BernsteinFeatures(sd, top + 1, (A, c), device="cpu")
     if sd == 1:     # the engine's Bernstein route (K1 would take the degree)
@@ -729,11 +735,12 @@ def test_generic_entry_points_on_card_one_launch_each(sd, cuda):
         got, want = tab(P), cpu(pts)
         torch.cuda.synchronize()
         assert tab.recurrence.launches == tab.matmul.launches == 1
-        if tab.macro is None:
+        if merged_macro(tab) is None:
             assert tab.recurrence.generic
         else:   # K3's generic stage, or on the tet K7 over K1's generic Phi
-            assert tab.macro.launches == 1
-            assert (tab.macro.generic if tab.macro.name == "K3" else tab.recurrence.generic)
+            assert merged_macro(tab).launches == 1
+            mo = merged_macro(tab)
+            assert (mo.generic if mo.name == "K3" else tab.recurrence.generic)
         pr = sum(hi - lo for (lo, hi, _), el in zip(cpu.slices, zoo) if not el.is_macroelement())
         for a in want:
             assert _scaled(got[a][:pr].cpu().numpy(), want[a][:pr].numpy()) <= 1e-12, (name, a)
@@ -756,7 +763,7 @@ def test_generic_entry_points_on_card_one_launch_each(sd, cuda):
         u = tmo.interpolate_rows(bt, P, torch.as_tensor(c, device=cuda))
         assert eng.recurrence.launches == 1
         if eng.macros:
-            assert eng.macro.launches == 1 and eng.macro.generic
+            assert merged_macro(eng).launches == 1 and merged_macro(eng).generic
         else:
             uc = tmo.interpolate_rows(btc, pts, c)
             assert _scaled(u.cpu().numpy(), uc.numpy()) <= 1e-12

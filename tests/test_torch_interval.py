@@ -42,6 +42,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chip_smoke  # noqa: E402
+from chip_smoke import merged_macro
 from test_torch_iso_refined import _one_row_A  # noqa: E402
 
 try:    # fiat_tpu and JAX, the CPU tests' oracle; the card's cases need neither
@@ -319,7 +320,7 @@ def test_f64_engine_matches_fiat_tpu_engines_and_host(zoos, name):
     tab = device_tabulator(tzoo, order=1, device="cpu")
     got = tab.unpack(tab.block_tables(pts))
     if any(el.is_macroelement() for el in tzoo):
-        assert tab.macro.name == "K3" and tab.macro.sd == 1
+        assert merged_macro(tab).name == "K3" and merged_macro(tab).sd == 1
     for el, b, f, g in zip(tzoo, batched, fused, got):
         host = el.tabulate(1, pts)
         for a, h in host.items():
@@ -399,7 +400,7 @@ def test_chip_smoke_interval_zoo_builds_and_routes():
     tab = device_tabulator(zoo, order=1, device="cpu")
     assert (len(zoo), tab.rows, tab.widths) == (220, 1937, list(range(1, 17)))
     assert (tab.recurrence.sd, tab.recurrence.degree) == (1, 15)
-    mo = tab.macro
+    mo = merged_macro(tab)
     assert (mo.name, len(mo.nexp), len(mo.geom), mo.words) == ("K3", 82, 6, 2)
     bern = FusedZooTabulator(BatchedTabulator(chip_smoke.families_zoo(
         chip_smoke.INTERVAL_BERNSTEIN, (), I), order=1, device="cpu"), device="cpu",
@@ -505,8 +506,9 @@ def test_wrappers_take_sd1_and_refuse_past_their_degrees():
     assert PairMoments(15, 16, 1.0, amap, device="cpu").nexp == 16
     bary = (np.array([[-1.0], [1.0]]), np.array([1.0, 0.0]))
     assert BernsteinFeatures(1, 15, bary, device="cpu").nexp == 16
-    with pytest.raises(NotImplementedError, match="outside 0..15 for sd = 1"):
-        BernsteinFeatures(1, 16, bary, device="cpu")
+    assert BernsteinFeatures(1, 26, bary, device="cpu").generic
+    with pytest.raises(NotImplementedError, match="outside 0..26 for sd = 1"):
+        BernsteinFeatures(1, 27, bary, device="cpu")
 
 
 # -- on the card ------------------------------------------------------------------------
@@ -607,7 +609,8 @@ def test_entry_points_on_card_launch_each_kernel_once_and_match_cpu(name, cuda):
     tab = device_tabulator(tzoo, order=1, device=cuda)
     got = tab(P)
     assert (tab.recurrence.launches, tab.matmul.launches) == (1, 1)
-    assert tab.macro is None or (tab.macro.name, tab.macro.launches) == ("K3", 1)
+    mo = merged_macro(tab)
+    assert mo is None or (mo.name, mo.launches) == ("K3", 1)
     want = device_tabulator(tzoo, order=1, device="cpu")(pts)
     for a in want:
         assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-12 * max(
@@ -623,13 +626,14 @@ def test_entry_points_on_card_launch_each_kernel_once_and_match_cpu(name, cuda):
     assert np.abs(M.cpu().numpy() - Mc).max() <= 1e-12 * max(1.0, np.abs(Mc).max())
     c = rng.random(len(Mc)) - 0.5
     u = tmo.interpolate_rows(gpu0, P, torch.as_tensor(c, device=cuda))
-    assert eng.recurrence.launches == 1 and (eng.macro is None) == (not macro)
-    assert eng.macro is None or eng.macro.launches == 1
+    assert eng.recurrence.launches == 1 and (merged_macro(eng) is None) == (not macro)
+    assert merged_macro(eng) is None or merged_macro(eng).launches == 1
     uc = tmo.interpolate_rows(cpu0, pts, c).numpy()
     assert np.abs(u.cpu().numpy() - uc).max() <= 1e-12 * max(1.0, np.abs(uc).max())
     f32 = device_tabulator(tzoo, order=1, f64=False, device=cuda)
     t32 = f32.tables(P)
-    assert f32.kernel.launches == 1 and (f32.macro is None or f32.macro.launches == 1)
+    mo = merged_macro(f32)
+    assert f32.kernel.launches == 1 and (mo is None or mo.launches == 1)
     ref = device_tabulator(tzoo, order=1, f64=False, device="cpu").tables(pts)
     pr = f32.plain_rows
     for a in ref:

@@ -43,6 +43,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chip_smoke  # noqa: E402
+from chip_smoke import merged_macro
 
 try:    # fiat_tpu and JAX, the CPU tests' oracle; the card's cases need neither
     import jax.numpy as jnp
@@ -200,11 +201,11 @@ def test_iso_zoo_programs_past_one_mask_word(zoos):
     a word boundary."""
     _, _, tzoo = zoos["iso_refined_tri"]
     tab = device_tabulator(tzoo, order=1, device="cpu")
-    k7 = tab.macro
+    k7 = merged_macro(tab)
     progs = k7._progs
     assert k7.name == "K7" and (progs[:, 3] - progs[:, 2]).tolist() == [36, 64, 100] + [36] * 5
     assert k7.words == 4 and k7.plan[1] >= 100
-    k3 = device_tabulator(tzoo, order=1, f64=False, device="cpu").macro
+    k3 = merged_macro(device_tabulator(tzoo, order=1, f64=False, device="cpu"))
     assert k3.name == "K3" and k3.words == 4 and len(k3.nexp) == 380
     pm = MomentEngine(BatchedTabulator(tzoo, order=0, device="cpu"), device="cpu").moments
     assert len(pm.piece_nexp) == 380
@@ -249,7 +250,7 @@ def test_iso_f64_engine_matches_fiat_tpu_interpret_and_host(zoos):
                                            point_tile=256)(jnp.asarray(pts)))
         tab = device_tabulator(tzoo, order=order, device="cpu")
         got = tab.unpack(tab.block_tables(pts))
-        assert tab.macro.launches == 0
+        assert merged_macro(tab).launches == 0
         for r, g, el in zip(ref, got, tzoo):
             host = el.tabulate(order, pts)
             for a in r:
@@ -298,7 +299,7 @@ def test_moments_and_interpolation_match_fiat_tpu(zoos, zoo):
     assert (np.abs(got - want) <= mbar).all()
     assert np.abs(u - wi).max() <= ubar
     eng = tb._moment_engine
-    assert eng.moments.launches == eng.macro.launches == 0
+    assert eng.moments.launches == merged_macro(eng).launches == 0
 
 
 @pytest.mark.parametrize("zoo", sorted(ZOOS))
@@ -314,10 +315,10 @@ def test_f32_engine_matches_fiat_tpu_pallas_interpret(zoos, zoo):
     want = PallasZooTabulator(JBatchedTabulator(jzoo, order=1), tile=256,
                               interpret=True).tables(pts)
     tab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
-    assert tab.macro.name == "K3" and tab.macro.dtype == torch.float32
+    assert merged_macro(tab).name == "K3" and merged_macro(tab).dtype == torch.float32
     got = tab.tables(pts)
-    assert (tab.kernel.launches, tab.macro.launches) == (0, 0)
-    same = tab.macro.same_subcells(torch.as_tensor(pts)).numpy()
+    assert (tab.kernel.launches, merged_macro(tab).launches) == (0, 0)
+    same = merged_macro(tab).same_subcells(torch.as_tensor(pts)).numpy()
     pr = tab.plain_rows
     for a in want:
         w, g = np.asarray(want[a]), got[a].numpy()
@@ -367,7 +368,7 @@ def test_k7_loop_on_the_iso_zoo_matches_plain(zoos):
     plan of one k of the widest program a slice."""
     _, _, tzoo = zoos["iso_refined_tri"]
     tab = device_tabulator(tzoo, order=1, device="cpu")
-    mm = tab.macro
+    mm = merged_macro(tab)
     pts = np.vstack([_points(70, 2, 67), _tie_points()])
     phi = tab.recurrence(torch.as_tensor(pts))
     want = mm(torch.as_tensor(pts), phi).numpy()
@@ -457,7 +458,7 @@ def test_k3_wide_chunks_stream_and_match_plain(zoos, zoo):
             got = _replay_k3(mo, pts)
             assert (np.abs(got - want) <= RTOL_PLAIN * _rounding_scale(mo, P).numpy()).all()
     if sd == 2:
-        assert device_tabulator(tzoo, order=1, device="cpu").macro.name == "K3"
+        assert merged_macro(device_tabulator(tzoo, order=1, device="cpu")).name == "K3"
 
 
 @pytest.mark.parametrize("zoo", [name for name, _, _ in chip_smoke.K3_WIDE])
@@ -477,7 +478,7 @@ def test_k3_wide_f64_engine_matches_fiat_tpu_and_host(zoos, zoo):
     else:
         ref = bt.unpack(bt(pts))
     tab = device_tabulator(tzoo, order=1, device="cpu")
-    assert tab.macro.name == ("K3" if sd == 2 else "K7")
+    assert merged_macro(tab).name == ("K3" if sd == 2 else "K7")
     got = tab.unpack(tab.block_tables(pts))
     for r, g, el in zip(ref, got, tzoo):
         host = el.tabulate(1, pts)
@@ -594,7 +595,7 @@ def test_entry_points_on_card_launch_each_kernel_once_and_match_cpu(zoo, cuda):
     P = torch.as_tensor(pts, device=cuda)
     tab = device_tabulator(tzoo, order=1, device=cuda)
     blocks = tab.block_tables(P)
-    mac = tab.macro
+    mac = merged_macro(tab)
     assert (tab.recurrence.launches, tab.matmul.launches, mac.launches) == (1, 1, 1)
     assert all(bool(torch.isfinite(b).all()) for bl in blocks.values() for b in bl)
     if mac.name == "K3":
@@ -623,12 +624,12 @@ def test_entry_points_on_card_launch_each_kernel_once_and_match_cpu(zoo, cuda):
     uscale = ((torch.as_tensor(np.abs(c)) @ Mabs) @ stack).numpy()
     assert (np.abs(M.cpu().numpy() - Mc) <= RTOL_PLAIN * mscale).all()
     u = tmo.interpolate_rows(gpu0, P, torch.as_tensor(c, device=cuda))
-    assert (eng.recurrence.launches, eng.macro.launches) == (1, 1)
+    assert (eng.recurrence.launches, merged_macro(eng).launches) == (1, 1)
     uc = tmo.interpolate_rows(cpu0, pts, c).numpy()
     assert (np.abs(u.cpu().numpy() - uc) <= RTOL_PLAIN * uscale).all()
     f32 = device_tabulator(tzoo, order=1, f64=False, device=cuda)
     t32 = f32.tables(P)
-    assert (f32.kernel.launches, f32.macro.launches) == (1, 1)
+    assert (f32.kernel.launches, merged_macro(f32).launches) == (1, 1)
     ref = device_tabulator(tzoo, order=1, f64=False, device="cpu").tables(pts)
     pr = f32.plain_rows
     for a in ref:

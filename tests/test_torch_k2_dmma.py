@@ -240,9 +240,8 @@ def test_plan_fits_shared_memory_and_refuses_past_792(ntiles):
     32-point tile for at most 16 row tiles, else on the 128-point one; any
     other one block an SM on the widest point tile with room for two A
     chunks, the widest chunk there, then as many chunks as fit (up to 4);
-    nothing past K 792, where construction raises ``NotImplementedError``
-    naming the width (on the CPU too: the engine refuses what the kernel
-    cannot run)."""
+    no resident plan past K 792, where construction takes the streamed
+    mode (``stream_plan``; on the CPU too)."""
     B = BucketMatmul
     plans = {}
     for kpad in range(4, 800, 4):
@@ -266,9 +265,9 @@ def test_plan_fits_shared_memory_and_refuses_past_792(ntiles):
         48: (128, 48, 4, 1), 68: (128, 68, 4, 1), 108: (128, 96, 2, 1), 168: (128, 36, 2, 1),
         188: (128, 16, 2, 1), 192: (64, 116, 2, 1), 396: (64, 16, 2, 1), 400: (32, 112, 2, 1),
         440: (32, 104, 2, 1), 792: (32, 16, 2, 1)}
-    assert BucketMatmul.MAX_WIDTH == 792
-    with pytest.raises(NotImplementedError, match="contraction width 793 past the 792"):
-        BucketMatmul([np.ones((4, 793))], device="cpu")
+    mm = BucketMatmul([np.ones((4, 793))], device="cpu")
+    assert mm.mode == "streamed" and mm.plan == BucketMatmul.stream_plan(796)[0]
+    assert BucketMatmul([np.ones((4, 792))], device="cpu").mode == "resident"
 
 
 def _parent_pack_rows(mats, tile_rows):

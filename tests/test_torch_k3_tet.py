@@ -39,6 +39,7 @@ from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, GENERIC
                                               one_shot_applies, smem_bytes)
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from chip_smoke import merged_macro
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_k3_tri import _replay_k3  # noqa: E402
@@ -140,7 +141,7 @@ def test_k3_sd3_in_the_f64_engine_matches_fiat_tpu_k7_path_and_host(order):
     ref = jfz.unpack(jfz.block_tables(jnp.asarray(rand)))
 
     tab = device_tabulator(tzoo, order=order, device="cpu")
-    k7, rec = tab.macro, tab.recurrence
+    k7, rec = merged_macro(tab), tab.recurrence
     assert k7.name == "K7"
     k3 = MacroOneShot(k7.A.numpy(), list(enumerate(k7.nexp)), k7.geom, k7.parent_map,
                       rec.degree, rec.scale, (rec.A, rec.b), device="cpu")
@@ -148,8 +149,9 @@ def test_k3_sd3_in_the_f64_engine_matches_fiat_tpu_k7_path_and_host(order):
     want = k7(P, rec(P))
     got = k3(P)
     assert (got - want).abs().max().item() <= RTOL_REPLAY * want.abs().max().item()
-    # the engine with K3 in K7's place: the same block_tables call
-    tab.macro = k3
+    # the engine with K3 in K7's place on its route: the same block_tables call
+    route = tab.macro_routes[0]
+    route.engine, route.name = k3, "K3"
     tables = tab.unpack(tab.block_tables(pts))
     assert k3.launches == 0
     n = len(rand)
@@ -201,8 +203,8 @@ def test_k3_sd3_chunks_fit_shared_memory_and_the_precondition():
     st = BatchedTabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1, device="cpu").state()
     merged = _merge_macro_programs(st["macro_programs"], st["scale"], st["affine_map"], 1)
     assert not one_shot_applies(merged)
-    assert device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1,
-                            device="cpu").macro.name == "K7"
+    assert merged_macro(device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1,
+                                         device="cpu")).name == "K7"
     chunks = chunk_table(np.array([[0, 70, 0, 2, 0]]), np.array([[0, 9], [9, 4]]))
     assert chunks.tolist() == [[0, 0, 32, 9], [0, 32, 32, 9], [0, 64, 6, 9]]
 
@@ -278,9 +280,9 @@ def test_tet_macro_f32_tables_match_fiat_tpu_pallas_interpret():
     want = PallasZooTabulator(bt, tile=256, interpret=True).tables(pts)
     tab = device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1, f64=False,
                            device="cpu")
-    assert tab.kernel.sd == tab.macro.sd == 3 and tab.macro.dtype == torch.float32
+    assert tab.kernel.sd == merged_macro(tab).sd == 3 and merged_macro(tab).dtype == torch.float32
     got = tab.tables(pts)
-    assert (tab.kernel.launches, tab.macro.launches) == (0, 0)
+    assert (tab.kernel.launches, merged_macro(tab).launches) == (0, 0)
     assert list(got) == list(want)
     pr = tab.plain_rows
     for a in want:
@@ -314,7 +316,7 @@ def test_tet_macro_interpolation_matches_fiat_tpu_and_host_without_k45():
     got = tmo.interpolate_rows(tb, pts, c).numpy()
     eng = tb._moment_engine
     assert eng.built == {"moments": False, "macro": True}
-    assert eng.macro.sd == 3 and eng.macro.launches == eng.recurrence.launches == 0
+    assert merged_macro(eng).sd == 3 and merged_macro(eng).launches == eng.recurrence.launches == 0
     assert np.abs(got - want).max() <= ATOL_FIAT_DUAL
     host = np.zeros(len(pts))
     for el, (lo, hi, _) in zip(tzoo, tb.slices):
@@ -335,7 +337,7 @@ def test_from_arrays_on_fiat_tpu_macro_programs_runs_k3_sd3():
                                        **common)
     ttab = device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1, f64=False,
                             device="cpu")
-    assert jtab.macro.sd == 3
+    assert merged_macro(jtab).sd == 3
     got, want = jtab.tables(pts), ttab.tables(pts)
     for a in want:
         assert np.abs(got[a].numpy() - want[a].numpy()).max() <= 1e-6 * (
@@ -365,7 +367,7 @@ def test_c1_macro_zoos_take_k3_and_match_host(order):
     T = tcl.ufc_simplex(2)
     zoo = _c1_zoo(tfe, T)
     tab = device_tabulator(zoo, order=order, device="cpu")
-    mo = tab.macro
+    mo = merged_macro(tab)
     assert mo.name == "K3" and mo.sd == 2 and len(mo.nexp) == 21
     assert (mo.rows, mo.K) == ((99, 138) if order == 1 else (198, 138))
     assert mo.rows * mo.K * 8 <= MAX_SMEM

@@ -38,6 +38,7 @@ from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, FIRST_IN_CHUNK, LAST_I
                                               ceil16, column_stride, smem_bytes,
                                               tiles_per_block)
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from chip_smoke import merged_macro
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_macro import _points, _special_points  # noqa: E402
@@ -302,7 +303,7 @@ def test_k3_tri_tables_past_shared_memory_run_plain_and_interpolate():
     jzoo = [jfe.Lagrange(J, 1), jfe.Lagrange(J, 9, variant="powell-sabin(12)")]
     tzoo = [tfe.Lagrange(T, 1), tfe.Lagrange(T, 9, variant="powell-sabin(12)")]
     tab = device_tabulator(tzoo, order=0, device="cpu")
-    mo = tab.macro
+    mo = merged_macro(tab)
     assert mo.name == "K3" and (mo.rows, mo.K) == (514, 660)
     whole = 12 * 55 * column_stride(CHUNK_ROWS) * 8 + 55 * 128 * 8
     assert whole == 235_840 > MAX_SMEM >= mo.smem
@@ -324,7 +325,7 @@ def test_k3_tri_tables_past_shared_memory_run_plain_and_interpolate():
     u_want = np.asarray(jmo.interpolate_rows(jbt, jnp.asarray(pts), jnp.asarray(c)))
     tb = BatchedTabulator(tzoo, order=0, device="cpu")
     u = tmo.interpolate_rows(tb, pts, c).numpy()
-    assert tb._moment_engine.macro.smem_one <= MAX_SMEM
+    assert merged_macro(tb._moment_engine).smem_one <= MAX_SMEM
     # fiat_tpu's interpolation is itself 8.1e-6 from host here, the port's 2.1e-6
     u_host = c @ np.vstack([np.asarray(h[(0, 0)]) for h in host])
     assert np.abs(u - u_host).max() <= np.abs(u_want - u_host).max()
@@ -371,7 +372,7 @@ def test_k3_tri_order3_matches_fiat_tpu_oneshot_interpreted_and_host():
 
     tzoo = _c1_zoo(tfe, tcl.ufc_simplex(2))
     tab = device_tabulator(tzoo, order=3, device="cpu")
-    mo = tab.macro
+    mo = merged_macro(tab)
     assert mo.name == "K3" and (mo.rows, mo.K) == A.shape == (330, 138)
     assert np.array_equal(mo.A.numpy(), A)
     got = mo(torch.as_tensor(pts)).numpy()

@@ -15,6 +15,7 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core.expansions import ExpansionSet
 from fiat_tpu_torch.ops.fused_zoo import BucketMatmul
 from fiat_tpu_torch.ops.recurrence import DubinerRecurrence
+from chip_smoke import merged_macro
 
 pytestmark = pytest.mark.cuda
 
@@ -63,10 +64,12 @@ def test_bucket_matmul_kernel_matches_plain(cuda, npts, offset):
 def test_bucket_matmul_kernel_raises_past_its_shared_memory(cuda):
     """Contraction width 793 leaves no room for a ring of two 16-row A
     chunks and the C staging beside a 32-point Phi tile in a block's shared
-    memory: construction raises, naming the width, and nothing launches."""
-    with pytest.raises(NotImplementedError, match="contraction width 793"):
-        BucketMatmul([np.ones((4, 793))], cuda)
-    # the refusal leaves no error behind for the next launch to report
+    memory: construction takes the streamed mode, which runs against its
+    plain version, and a resident launch after it runs too."""
+    rng = np.random.default_rng(793)
+    wide = BucketMatmul([rng.standard_normal((4, 793))], cuda)
+    assert wide.mode == "streamed"
+    _k2_matches_plain(wide, torch.as_tensor(rng.standard_normal((793, 256)), device=cuda))
     ok = BucketMatmul([np.ones((4, 10))], cuda)
     ok(torch.ones((10, 256), dtype=torch.float64, device=cuda))
     assert ok.launches == 1
@@ -120,12 +123,12 @@ def test_macro_kernel_matches_plain(cuda, order):
     """K3 against its plain version: order 0 bins the C0 HCT basis uniquely,
     order 1 averages over the subcells sharing a point."""
     fz = device_tabulator(_macro_zoo(tcl.ufc_simplex(2)), order=order, device=cuda)
-    assert [g["unique"] for g in fz.macro.geom] == [order == 0, False]
+    assert [g["unique"] for g in merged_macro(fz).geom] == [order == 0, False]
     P = torch.as_tensor(_points(3001, seed=order), device=cuda)
-    got = fz.macro(P)
+    got = merged_macro(fz)(P)
     torch.cuda.synchronize()
-    assert fz.macro.launches == 1
-    want = fz.macro.plain(P)
+    assert merged_macro(fz).launches == 1
+    want = merged_macro(fz).plain(P)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
 
 
@@ -133,8 +136,8 @@ def test_macro_kernel_matches_plain(cuda, order):
 def test_macro_kernel_on_facet_barycentre_and_centre_points(cuda, order):
     fz = device_tabulator(_macro_zoo(tcl.ufc_simplex(2)), order=order, device=cuda)
     P = torch.as_tensor(_special_points(), device=cuda)
-    got = fz.macro(P)
-    want = fz.macro.plain(P)
+    got = merged_macro(fz)(P)
+    want = merged_macro(fz).plain(P)
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
 
@@ -147,10 +150,10 @@ def test_macro_engine_on_card_matches_host_and_refuses_cpu_points(cuda):
     with pytest.raises(ValueError, match="engine on cuda:0"):
         gpu.block_tables(torch.as_tensor(pts))
     # K3's wrapper alone runs its plain version on a CPU tensor, launching nothing
-    assert gpu.macro(torch.as_tensor(pts)).device.type == "cpu"
-    assert gpu.macro.launches == 0
+    assert merged_macro(gpu)(torch.as_tensor(pts)).device.type == "cpu"
+    assert merged_macro(gpu).launches == 0
     got = gpu.unpack(gpu.block_tables(torch.as_tensor(pts, device=cuda)))
-    assert (gpu.recurrence.launches, gpu.matmul.launches, gpu.macro.launches) == (1, 1, 1)
+    assert (gpu.recurrence.launches, gpu.matmul.launches, merged_macro(gpu).launches) == (1, 1, 1)
     for el, g in zip(zoo, got):
         want = el.tabulate(1, pts)
         for a in want:
@@ -208,11 +211,11 @@ def test_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(cuda
     with pytest.raises(ValueError, match="engine on cuda:0"):
         gpu.moment_rows(torch.as_tensor(pts), wf)
     got = gpu.moment_rows(torch.as_tensor(pts, device=cuda), torch.as_tensor(wf, device=cuda))
-    assert (gpu.moments.launches, gpu.recurrence.launches, gpu.macro.launches) == (1, 0, 0)
+    assert (gpu.moments.launches, gpu.recurrence.launches, merged_macro(gpu).launches) == (1, 0, 0)
     want = cpu.moment_rows(pts, wf)
     assert (got.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
     u = gpu.interpolate_rows(torch.as_tensor(pts, device=cuda), torch.as_tensor(c, device=cuda))
-    assert (gpu.moments.launches, gpu.recurrence.launches, gpu.macro.launches) == (1, 1, 1)
+    assert (gpu.moments.launches, gpu.recurrence.launches, merged_macro(gpu).launches) == (1, 1, 1)
     want = cpu.interpolate_rows(pts, c)
     assert (u.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
 
@@ -245,13 +248,13 @@ def test_f32_macro_kernel_matches_plain(cuda, order):
     """K3 in float32 (tolerance 1e-5 binning) against its plain version,
     on random points and on points on interior edges and centres."""
     tab = device_tabulator(_macro_zoo(tcl.ufc_simplex(2)), order=order, f64=False, device=cuda)
-    assert tab.macro.dtype == torch.float32
+    assert merged_macro(tab).dtype == torch.float32
     pts = np.vstack([_points(3001, seed=order), _special_points()])
     P = torch.as_tensor(pts, device=cuda).float()
-    got = tab.macro(P)
+    got = merged_macro(tab)(P)
     torch.cuda.synchronize()
-    assert tab.macro.launches == 1
-    want = tab.macro.plain(P)
+    assert merged_macro(tab).launches == 1
+    want = merged_macro(tab).plain(P)
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
 
@@ -264,7 +267,7 @@ def test_f32_engine_on_card_one_launch_each_and_refuses_cpu_points(cuda):
     with pytest.raises(ValueError, match="engine on cuda:0"):
         gpu.tables(torch.as_tensor(pts))
     got = gpu.tables(torch.as_tensor(pts, device=cuda))
-    assert (gpu.kernel.launches, gpu.macro.launches) == (1, 1)
+    assert (gpu.kernel.launches, merged_macro(gpu).launches) == (1, 1)
     want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
     for a in want:
         assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-5 * (want[a].abs().max().item() + 1)
@@ -542,7 +545,7 @@ def test_masked_matmul_kernel_matches_plain(cuda, zoo, npts):
     """K7 against its plain version on the same Phi and points: each split
     alone, and a zoo of 44 subcells (past K3's 32)."""
     fz = device_tabulator(_K7_ZOOS[zoo](tcl.ufc_simplex(3)), order=1, device=cuda)
-    k7 = fz.macro
+    k7 = merged_macro(fz)
     assert k7.name == "K7" and k7.sd == 3
     P = torch.as_tensor(_tet_points(npts, seed=npts), device=cuda)
     phi = fz.recurrence(P)
@@ -558,10 +561,10 @@ def test_masked_matmul_kernel_on_tie_points(cuda, order):
     """Points on interior faces, edges and centres: several subcells take
     them, averaged (order 1) or first hit of a C0 basis (order 0)."""
     fz = device_tabulator(_sv_zoo(tcl.ufc_simplex(3)), order=order, device=cuda)
-    assert [g["unique"] for g in fz.macro.geom] == [order == 0, False, order == 0, False]
+    assert [g["unique"] for g in merged_macro(fz).geom] == [order == 0, False, order == 0, False]
     P = torch.as_tensor(_tet_special_points(), device=cuda)
     phi = fz.recurrence(P)
-    got, want = fz.macro(P, phi), fz.macro.plain(P, phi)
+    got, want = merged_macro(fz)(P, phi), merged_macro(fz).plain(P, phi)
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
 
@@ -582,7 +585,7 @@ def test_masked_matmul_kernel_under_every_plan(cuda, npts, offset, order):
     every point where its slices hold whole chunks; two calls give the same
     bits."""
     fz = device_tabulator(_sv_zoo(tcl.ufc_simplex(3)), order=order, device=cuda)
-    k7 = fz.macro
+    k7 = merged_macro(fz)
     assert [g["unique"] for g in k7.geom] == [order == 0, False, order == 0, False]
     ties = _tet_special_points()
     P = torch.as_tensor(np.vstack([_tet_points(npts - len(ties), seed=npts), ties]),
@@ -624,7 +627,7 @@ def test_masked_matmul_kernel_past_the_old_shared_memory_ceiling(cuda, npts):
     T = tcl.ufc_simplex(3)
     zoo = [tfe.Lagrange(T, 1), tfe.DiscontinuousLagrange(T, 6, variant="worsey-farin")]
     fz = device_tabulator(zoo, order=1, device=cuda)
-    k7 = fz.macro
+    k7 = merged_macro(fz)
     assert k7.name == "K7" and k7.plan[1] < k7.chunk_cols
     P = torch.as_tensor(_tet_points(npts, seed=npts), device=cuda)
     phi = fz.recurrence(P)
@@ -647,7 +650,7 @@ def test_masked_matmul_kernel_matches_k3_on_triangle_macro_arrays(cuda):
     from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
     T = tcl.ufc_simplex(2)
     fz = device_tabulator([tfe.Lagrange(T, 10)] + _macro_zoo(T), order=1, device=cuda)
-    mo = fz.macro
+    mo = merged_macro(fz)
     assert mo.name == "K3" and (mo.rows, mo.K) == (63, 66)
     k7 = MaskedMatmul(mo.A.cpu().numpy(), list(enumerate(mo.nexp)), mo.geom, mo.parent_map,
                       device=cuda)
@@ -664,12 +667,13 @@ def test_sv_macro_tet_on_card_one_launch_each_matches_host(cuda):
     T = tcl.ufc_simplex(3)
     for zoo in (_sv_zoo(T), [tfe.Lagrange(T, 1), tfe.Lagrange(T, 3, variant="alfeld")]):
         tab = device_tabulator(zoo, order=1, device=cuda)
-        assert tab.macro.name == "K7" and tab.recurrence.degree == 3
+        assert merged_macro(tab).name == "K7" and tab.recurrence.degree == 3
         pts = np.vstack([_tet_points(900), _tet_special_points()])
         with pytest.raises(ValueError, match="engine on cuda:0"):
             tab.block_tables(torch.as_tensor(pts))
         got = tab.unpack(tab.block_tables(torch.as_tensor(pts, device=cuda)))
-        assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (1, 1, 1)
+        launches = (tab.recurrence.launches, tab.matmul.launches, merged_macro(tab).launches)
+        assert launches == (1, 1, 1)
         for el, g in zip(zoo, got):
             want = el.tabulate(1, pts)
             for a in want:
@@ -775,9 +779,9 @@ def test_tet_moments_and_interpolation_on_card_match_cpu_engine_one_launch_each(
     u = gpu.interpolate_rows(P, C)
     assert (gpu.moments.launches, gpu.recurrence.launches) == (1, 1)
     if zoo == "sv":
-        assert gpu.macro.sd == 3 and gpu.macro.launches == 1
+        assert merged_macro(gpu).sd == 3 and merged_macro(gpu).launches == 1
     else:
-        assert gpu.macro is None
+        assert merged_macro(gpu) is None
     want = cpu.interpolate_rows(pts, c)
     assert (u.cpu() - want).abs().max().item() <= 1e-12 * want.abs().max().item()
 
@@ -947,7 +951,7 @@ def test_tet_f32_engine_on_card_one_launch_matches_cpu_and_refuses_cpu_points(cu
     zoo = _tet_zoo(T)
     pts = _tet_points(700)
     gpu = device_tabulator(zoo, order=1, f64=False, device=cuda)
-    assert gpu.macro is None
+    assert merged_macro(gpu) is None
     with pytest.raises(ValueError, match="engine on cuda:0"):
         gpu.tables(torch.as_tensor(pts))
     got = gpu.tables(torch.as_tensor(pts, device=cuda))
@@ -1036,7 +1040,7 @@ def test_tet_macro_kernel_matches_k7_on_its_arrays(cuda, zoo):
     program by program, so a zoo takes any number of subcells)."""
     from fiat_tpu_torch.ops.macro_oneshot import MacroOneShot
     fz = device_tabulator(_K7_ZOOS[zoo](tcl.ufc_simplex(3)), order=1, device=cuda)
-    k7, rec = fz.macro, fz.recurrence
+    k7, rec = merged_macro(fz), fz.recurrence
     args = (k7.A.cpu().numpy(), list(enumerate(k7.nexp)), k7.geom, k7.parent_map, rec.degree,
             rec.scale, (rec.A, rec.b))
     k3 = MacroOneShot(*args, device=cuda)
@@ -1054,15 +1058,15 @@ def test_tet_macro_f32_engine_on_card_one_launch_each_matches_cpu(cuda):
     zoo = _sv_zoo(tcl.ufc_simplex(3))
     pts = np.vstack([_tet_points(900), _tet_special_points()])
     gpu = device_tabulator(zoo, order=1, f64=False, device=cuda)
-    assert gpu.macro.sd == 3 and gpu.macro.name == "K3"
+    assert merged_macro(gpu).sd == 3 and merged_macro(gpu).name == "K3"
     with pytest.raises(ValueError, match="engine on cuda:0"):
         gpu.tables(torch.as_tensor(pts))
     got = gpu.tables(torch.as_tensor(pts, device=cuda))
-    assert (gpu.kernel.launches, gpu.macro.launches) == (1, 1)
+    assert (gpu.kernel.launches, merged_macro(gpu).launches) == (1, 1)
     want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
     P = torch.as_tensor(pts, device=cuda)
     f64 = device_tabulator(zoo, order=1, device=cuda)(P)
-    keep, pr = gpu.macro.same_subcells(P), gpu.plain_rows
+    keep, pr = merged_macro(gpu).same_subcells(P), gpu.plain_rows
     for a in want:
         scale = want[a].abs().max().item() + 1.0
         assert (got[a].cpu() - want[a]).abs().max().item() <= 1e-5 * scale
@@ -1080,15 +1084,15 @@ def test_c1_macro_zoos_on_card_match_host(cuda, order):
            tfe.HsiehCloughTocher(T, 3), tfe.QuadraticPowellSabin6(T),
            tfe.QuadraticPowellSabin12(T)]
     tab = device_tabulator(zoo, order=order, device=cuda)
-    assert tab.macro.name == "K3" and len(tab.macro.nexp) == 21
+    assert merged_macro(tab).name == "K3" and len(merged_macro(tab).nexp) == 21
     pts = np.vstack([_points(1500, seed=order), _special_points()])
     P = torch.as_tensor(pts, device=cuda)
-    got = tab.macro(P)
+    got = merged_macro(tab)(P)
     torch.cuda.synchronize()
-    want = tab.macro.plain(P)
+    want = merged_macro(tab).plain(P)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-13
     per = tab.unpack(tab.block_tables(P))
-    assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (1, 1, 2)
+    assert (tab.recurrence.launches, tab.matmul.launches, merged_macro(tab).launches) == (1, 1, 2)
     for el, g in zip(zoo, per):
         host = el.tabulate(order, pts)
         for a in host:
@@ -1107,7 +1111,7 @@ def test_c1_macro_zoo_order3_on_card_matches_plain_and_host(cuda):
     launches, matches its plain version and the pass matches host."""
     zoo = _c1_zoo(tcl.ufc_simplex(2))
     tab = device_tabulator(zoo, order=3, device=cuda)
-    mo = tab.macro
+    mo = merged_macro(tab)
     assert mo.name == "K3" and (mo.rows, mo.K) == (330, 138) and mo.rows * mo.K * 8 > 227 * 1024
     pts = np.vstack([_points(2500, seed=3), _special_points()])
     P = torch.as_tensor(pts, device=cuda)
@@ -1132,7 +1136,7 @@ def test_c1_macro_kernel_matches_plain_at_every_tile_count(cuda, dtype, npts):
     several tiles with its staged chunk."""
     from fiat_tpu_torch.ops.macro_oneshot import tiles_per_block
     zoo = _c1_zoo(tcl.ufc_simplex(2))
-    mo = device_tabulator(zoo, order=2, f64=dtype == torch.float64, device=cuda).macro
+    mo = merged_macro(device_tabulator(zoo, order=2, f64=dtype == torch.float64, device=cuda))
     assert mo.chunks[:, 2].tolist() == [32, 32, 8, 32, 22, 32, 32, 8]
     pts = np.vstack([_points(npts, seed=npts), _special_points()])
     P = torch.as_tensor(pts, device=cuda).to(dtype)
@@ -1151,7 +1155,7 @@ def test_macro_kernel_one_row_per_program_matches_plain(cuda, zoo, dtype):
     interpolation's W), every program's one-row chunk in one block."""
     T = tcl.ufc_simplex(2)
     els = _macro_zoo(T) if zoo == "full_zoo_macro" else _c1_zoo(T)
-    mo = device_tabulator(els, order=0, f64=dtype == torch.float64, device=cuda).macro
+    mo = merged_macro(device_tabulator(els, order=0, f64=dtype == torch.float64, device=cuda))
     assert mo.chunks_one[:, 2].tolist() == [1] * len(mo.geom) and mo.cpb_one == len(mo.geom)
     rng = np.random.default_rng(13)
     W = rng.standard_normal((len(mo.geom), mo.K)) * np.repeat(
@@ -1181,7 +1185,7 @@ def test_macro_kernel_streams_the_tables_past_shared_memory(cuda):
     zoo = [tfe.Lagrange(T, 1), tfe.Lagrange(T, 9, variant="powell-sabin(12)")]
     pts = np.vstack([_points(3000, seed=9), _special_points()])
     P = torch.as_tensor(pts, device=cuda)
-    mo = device_tabulator(zoo, order=0, device=cuda).macro
+    mo = merged_macro(device_tabulator(zoo, order=0, device=cuda))
     assert mo.name == "K3" and not mo.plan[3] and mo.smem <= 227 * 1024
     got, want = mo(P), mo.plain(P)
     torch.cuda.synchronize()
@@ -1194,10 +1198,10 @@ def test_macro_kernel_streams_the_tables_past_shared_memory(cuda):
     C = torch.as_tensor(c, device=cuda)
     u = gpu.interpolate_rows(P, C)
     torch.cuda.synchronize()
-    assert (gpu.recurrence.launches, gpu.macro.launches) == (1, 1)
-    W = gpu.program_columns * (C @ gpu.matrix)[gpu.nexp:]
-    got, want = gpu.macro(P, A=W), gpu.macro.plain(P, A=W)
-    scale = (W.abs() @ gpu.macro.operand(P)[0].abs()).max().item()
+    assert (gpu.recurrence.launches, merged_macro(gpu).launches) == (1, 1)
+    W = gpu.program_columns[0] * (C @ gpu.matrix)[gpu.nexp:]
+    got, want = merged_macro(gpu)(P, A=W), merged_macro(gpu).plain(P, A=W)
+    scale = (W.abs() @ merged_macro(gpu).operand(P)[0].abs()).max().item()
     assert (got - want).abs().max().item() <= 1e-13 * scale
     assert (u.cpu() - cpu.interpolate_rows(pts, c)).abs().max().item() <= 1e-13 * scale
 
@@ -1248,7 +1252,7 @@ def test_families_zoos_on_card_one_launch_each_match_plain_and_host(cuda, sd, np
 
     f32 = device_tabulator(zoo, order=1, f64=False, device=cuda)
     tables = f32.tables(P)
-    assert f32.kernel.launches == 1 and f32.macro is None
+    assert f32.kernel.launches == 1 and merged_macro(f32) is None
     want = device_tabulator(zoo, order=1, f64=False, device="cpu").tables(pts)
     for a in want:
         assert (tables[a].cpu() - want[a]).abs().max().item() \
@@ -1324,7 +1328,8 @@ def test_variant_parent_route_and_jets_on_the_card(cuda):
     jets = device_tabulator(zoo, order=1, derivs="jets", device=cuda)
     blocks = jets.block_tables(P)
     assert set(blocks) == {(0, 0)}
-    assert (jets.recurrence.launches, jets.matmul.launches, jets.macro.launches) == (1, 1, 1)
+    launches = (jets.recurrence.launches, jets.matmul.launches, merged_macro(jets).launches)
+    assert launches == (1, 1, 1)
     want = device_tabulator(zoo, order=1, derivs="jets", device="cpu").block_tables(pts)
     for g, w in zip(blocks[(0, 0)], want[(0, 0)]):
         assert (g.cpu() - w).abs().max().item() <= 1e-13 * max(1.0, w.abs().max().item())

@@ -28,6 +28,7 @@ from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core import macro as tmacro
 from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator, rebase_program
+from chip_smoke import merged_macro
 
 SPLITS = ["AlfeldSplit", "PowellSabinSplit", "WorseyFarinSplit", "PowellSabin12Split"]
 TOL = 1e-14         # host geometry and expansions: the same numpy algorithm
@@ -197,7 +198,7 @@ def test_engine_matches_fiat_tpu_fused_interpret_and_host(zoo):
     blocks = tab.block_tables(pts)
     assert len(blocks[(0, 0)]) == len(tab.widths) + 2     # one block per macro element
     got = tab.unpack(blocks)
-    assert tab.recurrence.launches == tab.matmul.launches == tab.macro.launches == 0
+    assert tab.recurrence.launches == tab.matmul.launches == merged_macro(tab).launches == 0
     assert _max_diff(ref, got) <= 1e-11
     assert _max_diff([el.tabulate(1, pts) for el in tzoo], got) <= 1e-10
 
@@ -207,7 +208,7 @@ def test_order_zero_unique_binning_matches_host():
     pts = np.vstack([_points(150, 7), _special_points()])
     tzoo = _macro_zoo(tfe, tcl.ufc_simplex(2))
     tab = device_tabulator(tzoo, order=0, device="cpu")
-    assert [g["unique"] for g in tab.macro.geom] == [True, False]
+    assert [g["unique"] for g in merged_macro(tab).geom] == [True, False]
     got = tab.unpack(tab.block_tables(pts))
     assert _max_diff([el.tabulate(0, pts) for el in tzoo], got) <= 1e-12
 
@@ -218,11 +219,11 @@ def test_k3_plain_matches_the_batched_programs():
     pts = torch.as_tensor(np.vstack([_points(120, 5), _special_points()]))
     bt = BatchedTabulator(_small_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu")
     fz = FusedZooTabulator(bt, device="cpu")
-    out = fz.macro(pts)
-    assert tuple(out.shape) == (fz.macro.rows, len(pts))
+    out = merged_macro(fz)(pts)
+    assert tuple(out.shape) == (merged_macro(fz).rows, len(pts))
     # HCT 12 + PS6 9 basis rows x 3 alphas; K = 3 subcells x 10 + 6 x 6
-    assert (fz.macro.rows, fz.macro.K) == (63, 66)
-    for prog, g in zip(bt.macro_programs, fz.macro.geom):
+    assert (merged_macro(fz).rows, merged_macro(fz).K) == (63, 66)
+    for prog, g in zip(bt.macro_programs, merged_macro(fz).geom):
         want = torch.cat(list(prog.tables(pts, 1).values()), dim=0)
         r0, r1 = g["rows"]
         assert (out[r0:r1] - want).abs().max().item() <= 1e-13
@@ -297,12 +298,12 @@ def test_engine_refuses_programs_the_one_shot_engine_cannot_take():
 def test_k3_wrapper_checks_its_inputs():
     fz = device_tabulator(_macro_zoo(tfe, tcl.ufc_simplex(2)), order=1, device="cpu")
     with pytest.raises(TypeError):
-        fz.macro(torch.zeros((4, 2), dtype=torch.float32))
+        merged_macro(fz)(torch.zeros((4, 2), dtype=torch.float32))
     with pytest.raises(ValueError):
-        fz.macro(torch.zeros((4, 3), dtype=torch.float64))
+        merged_macro(fz)(torch.zeros((4, 3), dtype=torch.float64))
     with pytest.raises(ValueError, match="engine on cpu"):
-        fz.macro(torch.zeros((4, 2), dtype=torch.float64, device="meta"))
-    assert fz.macro.launches == 0
+        merged_macro(fz)(torch.zeros((4, 2), dtype=torch.float64, device="meta"))
+    assert merged_macro(fz).launches == 0
 
 
 @pytest.mark.parametrize("sd,variant,route", [(2, "alfeld", "K3"), (3, "worsey-farin", "K7")])

@@ -33,6 +33,7 @@ from fiat_tpu_torch.ops.macro_oneshot import (CHUNK_ROWS, COLUMN_STRIDE, FIRST_I
                                               FIRST_IN_PROGRAM, LAST_IN_CHUNK, SAME_BINS,
                                               chunk_table, slice_table)
 from fiat_tpu_torch.ops.masked_matmul import MaskedMatmul
+from chip_smoke import merged_macro
 
 TOL_COEFFS = 1e-14      # the same numpy construction on both sides
 TOL_FIAT = 1e-11        # engine vs fiat_tpu's interpreted engine (its Ozaki windows)
@@ -255,7 +256,7 @@ def test_k7_kernel_loop_on_its_chunk_layout_matches_plain(order):
     version, on random and tie points, unique (order 0, C0 bases) and
     averaged."""
     tab = device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=order, device="cpu")
-    mm = tab.macro
+    mm = merged_macro(tab)
     assert mm.name == "K7" and mm.chunks.shape[0] == sum(
         -(-(g["rows"][1] - g["rows"][0]) // 32) for g in mm.geom)
     assert mm.plan == MaskedMatmul.plan_for(20, 120, 3)
@@ -394,7 +395,7 @@ def test_k7_past_the_old_shared_memory_ceiling_matches_fiat_tpu_and_host():
     tests/test_torch_macro_tet.py`` prints the three); and the kernel's
     loop on those slices against the plain version."""
     tab, tzoo, jzoo, pts = _dg6_case()
-    mm = tab.macro
+    mm = merged_macro(tab)
     assert mm.name == "K7" and (len(mm.nexp), mm.max_nexp) == (12, 84)
     assert mm.chunk_cols * COLUMN_STRIDE * 8 == 274176 > MaskedMatmul.SMEM_MAX
     assert mm.plan[1] < mm.chunk_cols
@@ -412,7 +413,7 @@ def test_k7_past_the_old_shared_memory_ceiling_matches_fiat_tpu_and_host():
 def _engine_checks(tab, tzoo, pts, ref):
     """``ref``: fiat_tpu's tables at the first ``len(ref[0][alpha])`` points."""
     got = tab.unpack(tab.block_tables(pts))
-    assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (0, 0, 0)
+    assert (tab.recurrence.launches, tab.matmul.launches, merged_macro(tab).launches) == (0, 0, 0)
     n = next(iter(ref[0].values())).shape[-1]
     assert _max_diff(ref, [{a: t[..., :n] for a, t in g.items()} for g in got]) <= TOL_FIAT
     assert _max_diff([el.tabulate(1, pts) for el in tzoo], got) <= TOL_HOST
@@ -436,8 +437,9 @@ def test_sv_macro_tet_engine_matches_fiat_tpu_k7_path_and_host():
     ref = jfz.unpack(jfz.block_tables(jnp.asarray(rand)))
 
     tab = device_tabulator(tzoo, order=1, device="cpu")
-    assert tab.macro.name == "K7" and tab.recurrence.degree == 3
-    assert (tab.macro.rows, tab.macro.K, len(tab.macro.nexp)) == (632, 288, 32)
+    assert merged_macro(tab).name == "K7" and tab.recurrence.degree == 3
+    mo = merged_macro(tab)
+    assert (mo.rows, mo.K, len(mo.nexp)) == (632, 288, 32)
     _engine_checks(tab, tzoo, pts, ref)
 
     fz = FusedZooTabulator.from_arrays(
@@ -446,7 +448,7 @@ def test_sv_macro_tet_engine_matches_fiat_tpu_k7_path_and_host():
         scale=float(bt.target_es.get_scale(bt.max_degree)),
         affine_map=bt.target_es.affine_mappings[0], macro_programs=bt.macro_programs,
         device="cpu")
-    assert fz.macro.name == "K7"
+    assert merged_macro(fz).name == "K7"
     _engine_checks(fz, tzoo, pts, ref)
 
 
@@ -468,20 +470,20 @@ def test_macro_engine_is_chosen_by_precondition():
     the zoo's degree and K7 reads its prefix."""
     T = tcl.ufc_simplex(2)
     small = [tfe.Lagrange(T, 3), tfe.HsiehCloughTocher(T, 3), tfe.QuadraticPowellSabin6(T)]
-    assert device_tabulator(small, order=1, device="cpu").macro.name == "K3"
+    assert merged_macro(device_tabulator(small, order=1, device="cpu")).name == "K3"
     wide = small + [tfe.QuadraticPowellSabin12(T), tfe.Lagrange(T, 3, variant="powell-sabin(12)")]
     tab = device_tabulator(wide, order=1, device="cpu")
-    assert tab.macro.name == "K7" and len(tab.macro.nexp) == 3 + 6 + 12 + 12
+    assert merged_macro(tab).name == "K7" and len(merged_macro(tab).nexp) == 3 + 6 + 12 + 12
     pts = np.vstack([_points(150, 9, sd=2), [[1 / 3, 1 / 3], [0.25, 0.25], [0.5, 0.0]]])
     got = tab.unpack(tab.block_tables(pts))
     assert _max_diff([el.tabulate(1, pts) for el in wide], got) <= TOL_HOST
-    assert device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=0,
-                            device="cpu").macro.name == "K7"
+    assert merged_macro(device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=0,
+                                         device="cpu")).name == "K7"
 
 
 def test_k7_wrapper_checks_its_inputs():
     tab = device_tabulator(sv_macro_tet(tfe, tcl.ufc_simplex(3)), order=1, device="cpu")
-    mm = tab.macro
+    mm = merged_macro(tab)
     P = torch.as_tensor(_points(10, 1))
     phi = tab.recurrence(P)
     with pytest.raises(TypeError):
@@ -504,7 +506,8 @@ def test_tet_macro_zoos_refused_by_the_f32_and_moments_engines():
     zoo = sv_macro_tet(tfe, tcl.ufc_simplex(3))
     pts = np.vstack([_points(60, 2), _tet_special_points()])
     f32 = device_tabulator(zoo, order=1, f64=False, device="cpu")
-    assert f32.macro.name == "K3" and f32.macro.sd == 3 and f32.macro.dtype == torch.float32
+    mo = merged_macro(f32)
+    assert mo.name == "K3" and mo.sd == 3 and mo.dtype == torch.float32
     got = f32.tables(pts)
     want = device_tabulator(zoo, order=1, device="cpu")(pts)
     for a in want:
@@ -515,7 +518,7 @@ def test_tet_macro_zoos_refused_by_the_f32_and_moments_engines():
     assert eng.built == {"moments": True, "macro": False}
     c = np.random.default_rng(3).random(eng.rows) - 0.5
     u = eng.interpolate_rows(pts, c).numpy()
-    assert eng.built == {"moments": True, "macro": True} and eng.macro.sd == 3
+    assert eng.built == {"moments": True, "macro": True} and merged_macro(eng).sd == 3
     host = sum(c[lo:hi] @ el.tabulate(0, pts)[(0, 0, 0)].reshape(hi - lo, len(pts))
                for el, (lo, hi, _) in zip(zoo, eng.slices))
     assert np.abs(u - host).max() <= 1e-12

@@ -35,6 +35,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chip_smoke  # noqa: E402
+from chip_smoke import merged_macro
 
 try:    # fiat_tpu and JAX, the CPU tests' oracle; the card's cases need neither
     import jax
@@ -239,11 +240,12 @@ def test_k3_plain_in_the_f64_engine_matches_fiat_tpu_interpret_and_host(zoos, zo
     ref = bt.unpack(JFusedZooTabulator(bt, interpret=True, row_block=256,
                                        point_tile=256)(jnp.asarray(pts)))
     tab = device_tabulator(tzoo, order=1, device="cpu")
-    assert tab.macro.name == "K7"
-    tab.macro = _k3(tzoo, 1)
-    assert tab.macro.name == "K3" and np.array_equal(tab.macro.A.numpy(), A)
+    assert merged_macro(tab).name == "K7"
+    route = tab.macro_routes[0]
+    route.engine, route.name = _k3(tzoo, 1), "K3"
+    assert merged_macro(tab).name == "K3" and np.array_equal(merged_macro(tab).A.numpy(), A)
     got = tab.unpack(tab.block_tables(pts))
-    assert tab.macro.launches == 0
+    assert merged_macro(tab).launches == 0
     for r, g, el in zip(ref, got, tzoo):
         host = el.tabulate(1, pts)
         for a in r:
@@ -376,7 +378,7 @@ def test_mixed_splits_f64_engine_matches_fiat_tpu_interpret_and_host(zoos):
     jfz = JFusedZooTabulator(bt, interpret=True, row_block=256, point_tile=256)
     ref = bt.unpack(jfz(jnp.asarray(pts)))
     tab = device_tabulator(tzoo, order=1, device="cpu")
-    assert tab.macro.name == "K7" and len(tab.macro.nexp) == 39
+    assert merged_macro(tab).name == "K7" and len(merged_macro(tab).nexp) == 39
     got = tab.unpack(tab.block_tables(pts))
     for r, g, el in zip(ref, got, tzoo):
         host = el.tabulate(1, pts)
@@ -403,8 +405,8 @@ def test_mixed_splits_moments_and_interpolation_match_fiat_tpu(zoos):
     assert (np.abs(got.numpy() - want) <= mbar).all()
     assert np.abs(u - wi).max() <= ubar
     eng = tb._moment_engine
-    assert len(eng.moments.piece_nexp) == len(eng.macro.nexp) == 39
-    assert eng.moments.launches == eng.macro.launches == 0
+    assert len(eng.moments.piece_nexp) == len(merged_macro(eng).nexp) == 39
+    assert eng.moments.launches == merged_macro(eng).launches == 0
 
 
 def test_mixed_splits_f32_engine_matches_fiat_tpu_pallas_interpret(zoos):
@@ -417,9 +419,9 @@ def test_mixed_splits_f32_engine_matches_fiat_tpu_pallas_interpret(zoos):
     want = PallasZooTabulator(JBatchedTabulator(jzoo, order=1), tile=256,
                               interpret=True).tables(pts)
     tab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
-    assert tab.macro.name == "K3" and tab.macro.dtype == torch.float32
+    assert merged_macro(tab).name == "K3" and merged_macro(tab).dtype == torch.float32
     got = tab.tables(pts)
-    assert (tab.kernel.launches, tab.macro.launches) == (0, 0)
+    assert (tab.kernel.launches, merged_macro(tab).launches) == (0, 0)
     pr = tab.plain_rows
     for a in want:
         w, g = np.asarray(want[a]), got[a].numpy()
@@ -506,17 +508,18 @@ def test_entry_points_on_card_launch_each_kernel_once_and_match_cpu(zoos, zoo, c
     mscale, uscale = _rounding_scales(cpu._moment_engine, pts, wf, c)
     assert (np.abs(M.cpu().numpy() - want) <= RTOL_PLAIN * mscale).all()
     u = tmo.interpolate_rows(gpu, P, torch.as_tensor(c, device=cuda))
-    assert (eng.moments.launches, eng.recurrence.launches, eng.macro.launches) == (1, 1, 1)
+    assert (eng.moments.launches, eng.recurrence.launches, merged_macro(eng).launches) == (1, 1, 1)
     uc = tmo.interpolate_rows(cpu, pts, c).numpy()
     assert (np.abs(u.cpu().numpy() - uc) <= RTOL_PLAIN * uscale).all()
     tab = device_tabulator(tzoo, order=1, f64=False, device=cuda)
     got = tab.tables(P)
-    assert (tab.kernel.launches, tab.macro.launches) == (1, 1)
+    assert (tab.kernel.launches, merged_macro(tab).launches) == (1, 1)
     cpu32 = device_tabulator(tzoo, order=1, f64=False, device="cpu")
     ref = cpu32.tables(pts)
     # each table row's scale: K3's rounding scale of the row it comes from
     rows = torch.zeros(len(cpu32.alphas) * cpu32.rows, 1, dtype=torch.float64)
-    rows[cpu32.dst_macro] = _rounding_scale(cpu32.macro, torch.as_tensor(pts).float()).double()
+    rows[cpu32.dst_macro] = _rounding_scale(merged_macro(cpu32),
+                                            torch.as_tensor(pts).float()).double()
     pr = tab.plain_rows
     for k, a in enumerate(ref):
         g = got[a].cpu()

@@ -215,6 +215,7 @@ def test_pyproject_ships_the_port():
         "dubiner2.cuh", "dubiner3.cuh", "macro_oneshot.cu", "macro_oneshot.cuh",
         "macro_oneshot_1.cu", "macro_oneshot_f32.cu", "macro_oneshot_one.cu", "masked_matmul.cu",
         "moments.cu", "moments.cuh", "moments1.cu", "moments3.cu", "recurrence.cu", "zoo_f32.cu",
-        "zoo_f32.cuh", "zoo_f32_1.cu", "zoo_f32_3.cu", "zoo_f32_3_64.cu", "zoo_f32_64.cu"]
+        "zoo_f32.cuh", "zoo_f32_1.cu", "zoo_f32_3.cu", "zoo_f32_3_64.cu", "zoo_f32_64.cu",
+        "zoo_f32_wide.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)

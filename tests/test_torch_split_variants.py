@@ -45,6 +45,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chip_smoke  # noqa: E402
+from chip_smoke import merged_macro
 from test_nodality_sweep import SPECS, _label  # noqa: E402
 from test_torch_families import (  # noqa: E402
     _build_fiat, _build_port, _points, _same_element)
@@ -362,10 +363,11 @@ def test_split_zoo_shapes(zoos, sd):
     programs = len(tzoo) - 1
     pieces = {2: 3 + 6 + 6 + 12 + 4 + 3 + 6 + 6 + 12 + 4 + 4 + 4,
               3: 4 + 12 + 24 + 8 + 4 + 12 + 24 + 8 + 4 + 8 + 8}[sd]
-    assert (len(tab.macro.geom), len(tab.macro.nexp), tab.macro.name) == (programs, pieces, "K7")
+    mo = merged_macro(tab)
+    assert (len(mo.geom), len(mo.nexp), mo.name) == (programs, pieces, "K7")
     eng = tmo.moment_engine(BatchedTabulator(tzoo, order=0, device="cpu"))
     assert (eng.moments.nprogs, len(eng.moments.piece_nexp)) == (programs, pieces)
-    assert len(eng.macro.geom) == programs
+    assert len(merged_macro(eng).geom) == programs
 
 
 @pytest.mark.parametrize("sd", [2, 3])
@@ -382,7 +384,7 @@ def test_split_zoo_f64_engine_matches_fiat_tpu_interpret_and_host(zoos, sd):
                                        point_tile=256)(jnp.asarray(pts)))
     tab = device_tabulator(tzoo, order=1, device="cpu")
     got = tab.unpack(tab.block_tables(pts))
-    assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (0, 0, 0)
+    assert (tab.recurrence.launches, tab.matmul.launches, merged_macro(tab).launches) == (0, 0, 0)
     for r, g, el in zip(ref, got, tzoo):
         host = el.tabulate(1, pts)
         assert set(r) == set(g) == set(host)
@@ -416,7 +418,7 @@ def test_split_zoo_moments_and_interpolation_match_fiat_tpu(zoos, sd):
     wi = np.asarray(jmo.interpolate_rows(bt, jnp.asarray(pts), jnp.asarray(c)))
     assert np.abs(tmo.interpolate_rows(tb, pts, c).numpy() - wi).max() <= ubar
     eng = tb._moment_engine
-    assert eng.moments.launches == eng.recurrence.launches == eng.macro.launches == 0
+    assert eng.moments.launches == eng.recurrence.launches == merged_macro(eng).launches == 0
 
 
 @pytest.mark.parametrize("sd", [2, 3])
@@ -430,7 +432,8 @@ def test_split_zoo_f32_engine_matches_fiat_tpu_pallas_interpret(zoos, sd):
                               interpret=True).tables(pts)
     tab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
     got = tab.tables(pts)
-    assert (tab.kernel.launches, tab.macro.launches) == (0, 0) and tab.macro.name == "K3"
+    mo = merged_macro(tab)
+    assert (tab.kernel.launches, mo.launches) == (0, 0) and mo.name == "K3"
     pr = tab.plain_rows
     for a in want:
         w, g = np.asarray(want[a]), got[a].numpy()

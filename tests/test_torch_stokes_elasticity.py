@@ -50,6 +50,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chip_smoke  # noqa: E402
+from chip_smoke import merged_macro
 from test_nodality_sweep import COMPOSITES, SPECS, _label  # noqa: E402
 from test_torch_families import _permutations, _points  # noqa: E402
 from test_torch_many_subcells import (  # noqa: E402
@@ -300,7 +301,7 @@ def test_zoo_shapes(zoos, zoo):
     tab = device_tabulator(tzoo, order=1, device="cpu")
     want = {2: ([6, 10, 15, 36, 55, 66], 982, 834, 558, 42, 9, 21),
             3: ([20, 35], 270, 4820, 728, 44, 9, 12)}[sd]
-    k7 = tab.macro
+    k7 = merged_macro(tab)
     assert (tab.widths, tab.matmul.total_rows // len(tab.alphas), k7.rows, k7.K,
             len(k7.nexp), len(k7.geom), len(tzoo)) == want
     assert k7.name == "K7"
@@ -318,7 +319,7 @@ def test_f64_engine_matches_fiat_tpu_interpret_and_host(zoos, zoo):
     ref = bt.unpack(jfz(jnp.asarray(pts)))
     tab = device_tabulator(tzoo, order=1, device="cpu")
     got = tab.unpack(tab.block_tables(pts))
-    assert (tab.recurrence.launches, tab.matmul.launches, tab.macro.launches) == (0, 0, 0)
+    assert (tab.recurrence.launches, tab.matmul.launches, merged_macro(tab).launches) == (0, 0, 0)
     for r, g, el in zip(ref, got, tzoo):
         host = el.tabulate(1, pts)
         for a in r:
@@ -348,7 +349,7 @@ def test_moments_and_interpolation_match_fiat_tpu(zoos, zoo):
     assert (np.abs(got.numpy() - want) <= mbar).all()
     assert np.abs(u - wi).max() <= ubar
     eng = tb._moment_engine
-    assert eng.moments.launches == eng.recurrence.launches == eng.macro.launches == 0
+    assert eng.moments.launches == eng.recurrence.launches == merged_macro(eng).launches == 0
 
 
 @pytest.mark.parametrize("zoo", sorted(ZOOS))
@@ -364,7 +365,8 @@ def test_f32_engine_matches_fiat_tpu_pallas_interpret(zoos, zoo):
                               interpret=True).tables(pts)
     tab = device_tabulator(tzoo, order=1, f64=False, device="cpu")
     got = tab.tables(pts)
-    assert (tab.kernel.launches, tab.macro.launches) == (0, 0) and tab.macro.name == "K3"
+    mo = merged_macro(tab)
+    assert (tab.kernel.launches, mo.launches) == (0, 0) and mo.name == "K3"
     pr = tab.plain_rows
     for a in want:
         w, g = np.asarray(want[a]), got[a].numpy()

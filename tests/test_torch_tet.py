@@ -25,6 +25,7 @@ from fiat_tpu_torch.core import cells as tcl
 from fiat_tpu_torch.core import expansions as texp
 from fiat_tpu_torch.core.expansions import ExpansionSet
 from fiat_tpu_torch.ops.recurrence import DubinerRecurrence, pack_stages
+from chip_smoke import merged_macro
 
 RTOL_PLAIN = 1e-13      # the same recurrence in another order of operations
 ATOL_FIAT = 1e-10       # engine vs fiat_tpu's interpreted engine (fiat_tpu's own bar)
@@ -183,7 +184,7 @@ def test_f32_and_moments_engines_refuse_tetrahedra_naming_their_sd3_stage():
     plain, macro = [tfe.Lagrange(T, 2)], [tfe.Lagrange(T, 2), tfe.Lagrange(T, 2, variant="alfeld")]
     assert device_tabulator(plain, order=0, f64=False, device="cpu").kernel.sd == 3
     tab = device_tabulator(macro, order=0, f64=False, device="cpu")
-    assert tab.kernel.sd == tab.macro.sd == 3
+    assert tab.kernel.sd == merged_macro(tab).sd == 3
     tables = tab.tables(PTS)[(0, 0, 0)]
     host = np.vstack([el.tabulate(0, PTS)[(0, 0, 0)] for el in macro])
     assert np.abs(tables.numpy() - host).max() <= 5e-5 * (np.abs(host).max() + 1.0)

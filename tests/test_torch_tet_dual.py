@@ -36,6 +36,7 @@ from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator, ZooF32Kernel
 from fiat_tpu_torch.ops.moment_kernel import GROUP, PairMoments, grid_blocks
 from fiat_tpu_torch.ops.moments import MomentEngine
 from fiat_tpu_torch.ops.tabulate import BatchedTabulator
+from chip_smoke import merged_macro
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_macro_tet import _bin_as_the_kernel  # noqa: E402
@@ -117,7 +118,7 @@ def test_moment_rows_match_fiat_tpu_and_host(zoo):
     assert np.abs(got.numpy() - _host_moments(tzoo, tb.slices, pts, wf)).max() <= ATOL
     eng = tb._moment_engine
     assert eng.moments.sd == 3 and eng.moments.launches == 0
-    assert eng.built == {"moments": True, "macro": False} and eng.macro is None
+    assert eng.built == {"moments": True, "macro": False} and merged_macro(eng) is None
 
 
 @pytest.mark.parametrize("zoo", sorted(ZOOS))
@@ -172,7 +173,7 @@ def test_interpolation_on_a_tet_macro_zoo_raises_naming_k3():
     eng = tmo.moment_engine(tb)
     c = np.random.default_rng(10).random(eng.rows) - 0.5
     got = tmo.interpolate_rows(tb, pts, c).numpy()
-    assert eng.built == {"moments": False, "macro": True} and eng.macro.sd == 3
+    assert eng.built == {"moments": False, "macro": True} and merged_macro(eng).sd == 3
     want = np.asarray(jmo.interpolate_rows(bt, jnp.asarray(pts), jnp.asarray(c)))
     assert np.abs(got - want).max() <= ATOL
     host = np.zeros(len(pts))
@@ -512,7 +513,7 @@ def test_f32_tet_engine_matches_fiat_tpu_pallas_interpret(order):
     tab = device_tabulator(tzoo, order=order, f64=False, device="cpu")
     got = tab(pts)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
-    assert tab.kernel.sd == 3 and tab.kernel.launches == 0 and tab.macro is None
+    assert tab.kernel.sd == 3 and tab.kernel.launches == 0 and merged_macro(tab) is None
     assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= RTOL_F32
     f32 = tab.tables(pts)
     f64 = device_tabulator(tzoo, order=order, device="cpu")(pts)
