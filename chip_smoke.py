@@ -365,7 +365,9 @@ def k2_instance(name):
 
 
 def print_ptxas(log):
-    """The registers of K3's instantiations by (sd, chunk height, type),
+    """The registers of K1's instantiations by (sd, points a thread, row
+    filter), degree 0 to 15 (to 10 at sd = 3) and generic, K3's by (sd,
+    chunk height, type),
     degree 0 to 10 (to 15 at sd = 1), K45's by sd, degree 0 to 10 (to 15 at
     sd = 1), K6's by (sd, point tile), degree 0 to 15 (to 10 at sd = 3),
     K2's registers and spills by instantiation, K7's registers, spills and
@@ -375,7 +377,16 @@ def print_ptxas(log):
         print("ptxas: no build log (a matching build existed)")
         return
     k3, k45, k6, k2, k7, spills, no_spill = {}, {}, {}, [], {}, [], []
+    k1 = {}
     for name, regs, st, ld, frame in ptxas_entries(log):
+        m = re.search(r"dubiner([123])_values_kernel(_n|_bounded)?(?:ILi(n?\d+)E)?", name)
+        if m:
+            generic = m.group(2) == "_n" or m.group(3) == "n1"
+            bounded = m.group(2) == "_bounded"
+            kind = (int(m.group(1)), "pair" if bounded or "4Pair" in name else "double",
+                    "groups" if bounded or "9GroupRows" in name else "every row")
+            k1.setdefault(kind, {})["generic" if generic else int(m.group(3))] = regs
+            name = f"K1 sd {kind[0]} {kind[1]} {kind[2]} degree {m.group(3) or 'n'}"
         m = re.search(r"masked_matmul_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             sd, tp = map(int, m.groups())
@@ -405,6 +416,10 @@ def print_ptxas(log):
             k2.append(f"{name}: {regs} registers, spills {st}/{ld} bytes")
         if st or ld:
             spills.append(f"{name[:80]}: {st}/{ld} bytes")
+    for (sd, t, keep), regs in sorted(k1.items()):
+        print(f"ptxas K1 sd {sd} {t} {keep}: registers by degree "
+              f"{[regs.get(n) for n in range(11 if sd == 3 else 16)]}, generic "
+              f"{regs.get('generic')}")
     for (sd, rc, t), regs in sorted(k3.items()):
         print(f"ptxas K3 sd {sd} RC {rc} {t}: registers by degree "
               f"{[regs.get(n) for n in range(16 if sd == 1 else 11)]}")
@@ -3914,52 +3929,112 @@ def k7_cells(dev, card, torch, np, own):
         print(json.dumps({"k7_plans": plans}))
 
 
+#: ``--k1-cells``' cells built from DubinerRecurrence alone (no zoo): (cell
+#: name, sd, degree) at the main run's points.  The generic stage: interval
+#: 30 is high_degree_interval's, triangle 20 ElementTabulator's GLL 20 and
+#: high_degree_tri's, triangle 40 wide_tri's, tet 14 high_degree_tet's, tet
+#: 20 wide_tet's and ElementTabulator's.  Under 0.01 ms: triangle 2 is
+#: p2_tri_deg4rule's, triangle 3 split_variants_tri's, tet 1
+#: split_variants_tet's degree.
+K1_ALONE = (("interval 30 K1", 1, 30), ("triangle 20 K1", 2, 20), ("triangle 40 K1", 2, 40),
+            ("tet 14 K1", 3, 14), ("tet 20 K1", 3, 20), ("triangle 2 K1", 2, 2),
+            ("triangle 3 K1", 2, 3), ("tet 1 K1", 3, 1))
+
+
 def k1_cells(dev, card, torch, np, own):
     """``python3 chip_smoke.py --k1-cells ROOT``: K1 alone, one call of its
-    wrapper, on full_zoo, tet_lagrange8, hdiv_hcurl_tet, sv_macro_tet and
-    interval_zoo, and K8 on the Bernstein routes of tet_lagrange8 and
-    interval_bernstein, at the main run's points, on
-    the fiat_tpu_torch package of the checkout at ROOT.  Prints
-    {"k1_cells": {cell: [ms, device ms, bound ms, device / bound, host
-    ms]}}: CUDA events over back-to-back calls (the wrapper's host time
-    included), the profiler's device time, the bound, and the host's time
-    to issue one call."""
+    wrapper, on full_zoo, tet_lagrange8, hdiv_hcurl_tet, sv_macro_tet,
+    families_tri, families_tet, interval_zoo and K1_ALONE, and K8 on the
+    Bernstein routes of tet_lagrange8 and interval_bernstein, at the main
+    run's points, on the fiat_tpu_torch package of the checkout at ROOT.
+    Prints {"k1_cells": {cell: [ms, device ms, bound ms, device / bound,
+    host ms, store ms]}}: CUDA events over back-to-back calls (the
+    wrapper's host time included), the profiler's device time, the bound,
+    the host's time to issue one call, and the card's own streaming store
+    of the same output bytes (``fill_`` of a tensor of Phi's shape, events
+    behind a spin: what the memory takes for this store, written in
+    order).  On this checkout it also prints {"k1_plans": {cell: {(row
+    groups, points a thread): ms}}}, K1's time (events behind a spin) under
+    every plan on the triangle and the tetrahedron, the wrapper's own
+    first."""
     from fiat_tpu_torch import device_tabulator, ufc_simplex
+    from fiat_tpu_torch.core.expansions import ExpansionSet
     from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
+    from fiat_tpu_torch.ops.recurrence import DubinerRecurrence
     from fiat_tpu_torch.ops.tabulate import BatchedTabulator
 
     T, T3 = ufc_simplex(2), ufc_simplex(3)
     P = torch.as_tensor(make_points(NPTS, SEED, np), device=dev)
     P3 = torch.as_tensor(make_points(NPTS, SEED, np, sd=3), device=dev)
     P1 = torch.as_tensor(make_points(NPTS, SEED, np, sd=1), device=dev)
+    pts = {1: P1, 2: P, 3: P3}
     lag8, hdiv = tet_zoos(T3)
+    plans = {}
 
-    def timed(fn, bound, Q):
+    def timed(name, fn, bound, Q, rows, sweep=False):
         def run():
             return fn(Q)
 
         def more(ev, dev_ms):
-            return [bound, (dev_ms or ev) / bound, host_ms(run, torch)]
+            out = torch.empty((rows, Q.shape[0]), dtype=torch.float64, device=dev)
+            store = queued_ms(lambda: out.fill_(1.0), torch)
+            del out
+            if sweep:
+                plans[name] = k1_plans(fn, run, torch)
+            return [bound, (dev_ms or ev) / bound, host_ms(run, torch), store]
         return run, more
 
-    def k1(zoo, Q):
-        rec = device_tabulator(zoo, order=1, device=dev).recurrence
-        return timed(rec, rec_bound(rec, NPTS)[0], Q)
+    def k1(name, rec, Q):
+        return timed(name, rec, rec_bound(rec, NPTS)[0], Q, rec.nexp, own and rec.sd > 1)
 
-    def k8(zoo, Q):
+    def alone(name, sd, degree):
+        es = ExpansionSet(ufc_simplex(sd))
+        return k1(name, DubinerRecurrence(sd, degree, float(es.get_scale(degree)),
+                                          es.affine_mappings[0], device=dev), pts[sd])
+
+    def k8(name, zoo, Q):
         feat = FusedZooTabulator(BatchedTabulator(zoo, order=1, device="cpu"), device=dev,
                                  features="bernstein").features
-        return timed(feat, features_bound(feat, NPTS)[0], Q)
+        return timed(name, feat, features_bound(feat, NPTS)[0], Q, feat.nexp)
 
-    cells = {"full_zoo K1": lambda: k1(full_zoo(T), P),
-             "tet_lagrange8 K1": lambda: k1(lag8, P3),
-             "hdiv_hcurl_tet K1": lambda: k1(hdiv, P3),
-             "sv_macro_tet K1": lambda: k1(sv_macro_tet(T3), P3),
-             "tet_lagrange8 K8": lambda: k8(lag8, P3),
-             "interval_zoo K1": lambda: k1(families_zoo(INTERVAL_ZOO, (), ufc_simplex(1)), P1),
-             "interval_bernstein K8": lambda: k8(families_zoo(INTERVAL_BERNSTEIN, (),
-                                                              ufc_simplex(1)), P1)}
-    time_cells("k1_cells", "bound ms; device / bound; host ms a call", cells, card, torch, own)
+    zoos = {"full_zoo K1": (lambda: full_zoo(T), P),
+            "tet_lagrange8 K1": (lambda: lag8, P3),
+            "hdiv_hcurl_tet K1": (lambda: hdiv, P3),
+            "sv_macro_tet K1": (lambda: sv_macro_tet(T3), P3),
+            "families_tri K1": (lambda: families_zoo(FAMILIES_TRI, COMPOSITES_TRI, T), P),
+            "families_tet K1": (lambda: families_zoo(FAMILIES_TET, COMPOSITES_TET, T3), P3),
+            "interval_zoo K1": (lambda: families_zoo(INTERVAL_ZOO, (), ufc_simplex(1)), P1)}
+    cells = {name: lambda name=name, make=make, Q=Q: k1(
+        name, device_tabulator(make(), order=1, device=dev).recurrence, Q)
+             for name, (make, Q) in zoos.items()}
+    cells.update({name: lambda name=name, sd=sd, n=n: alone(name, sd, n)
+                  for name, sd, n in K1_ALONE})
+    cells["tet_lagrange8 K8"] = lambda: k8("tet_lagrange8 K8", lag8, P3)
+    cells["interval_bernstein K8"] = lambda: k8("interval_bernstein K8", families_zoo(
+        INTERVAL_BERNSTEIN, (), ufc_simplex(1)), P1)
+    time_cells("k1_cells", "bound ms; device / bound; host ms a call; the card's fill_ of "
+               "the same bytes ms", cells, card, torch, own)
+    if own:
+        print(json.dumps({"k1_plans": plans}))
+
+
+def k1_plans(rec, run, torch):
+    """{str((row groups, points a thread)): ms} of K1
+    under every plan it takes at the main run's points
+    (ops/recurrence.py ``plans``), the wrapper's own first; CUDA events
+    behind a spin."""
+    from fiat_tpu_torch.ops.recurrence import plans
+    mine = rec.plan_for(NPTS)
+    out = {}
+    for plan in [mine] + [p for p in plans(rec.degree, NPTS) if p != mine]:
+        rec.plan = plan
+        out[str(plan)] = queued_ms(run, torch)
+    rec.plan = None
+    resident = {str((g, v)): rec.resident_blocks(g, v) for g in (False, True) for v in (1, 2)}
+    print(f"K1 sd {rec.sd} degree {rec.degree} plans ((row groups, points a thread): ms "
+          f"queued behind a spin; the wrapper's first): {out}; blocks resident on the card "
+          f"by (grouped, points a thread): {resident}")
+    return out
 
 
 # -- phases 22-25: the rest of core, the per-program route, jets, sharding ------------

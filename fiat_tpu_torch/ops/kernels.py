@@ -40,10 +40,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # pts, npts, consts, slots, affine[2], scale, degree, phi, stream
     "fiat_dubiner1_values": [_P, _I, _P, _P, _D, _D, _D, _I, _P, _P],
-    # pts, npts, consts, slots, affine[6], scale, degree, phi, stream
-    "fiat_dubiner2_values": [_P, _I, _P, _P, _D, _D, _D, _D, _D, _D, _D, _I, _P, _P],
-    # pts, npts, consts, slots, affine[12], scale, degree, phi, stream
-    "fiat_dubiner3_values": [_P, _I, _P, _P, *[_D] * 12, _D, _I, _P, _P],
+    # pts, npts, consts, slots, owner, groups, points, affine[6], scale, degree, phi, stream
+    "fiat_dubiner2_values": [_P, _I, _P, _P, _P, _I, _I, *[_D] * 6, _D, _I, _P, _P],
+    # pts, npts, consts, slots, owner, groups, points, affine[12], scale, degree, phi, stream
+    "fiat_dubiner3_values": [_P, _I, _P, _P, _P, _I, _I, *[_D] * 12, _D, _I, _P, _P],
+    # sd, degree, grouped, points (returns blocks an SM, or minus the error)
+    "fiat_dubiner_occupancy": [_I] * 4,
     # pts, npts, sd, degree, bary, coef, out, stream
     "fiat_bernstein_features": [_P, _I, _I, _I, _P, _P, _P, _P],
     # At, kpad, kmax, tp, kc, stages, minb, tiles, ntiles, phi, ldphi, npts, C, stream

@@ -97,6 +97,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     import numpy as np
     import torch
     import fiat_tpu_torch as ft
+    import fiat_tpu_torch.ir      # the root does not import ir, as fiat_tpu's does not
     from fiat_tpu_torch.ops import moments
     from fiat_tpu_torch.ops.f32_zoo import F32ZooTabulator
     from fiat_tpu_torch.ops.fused_zoo import FusedZooTabulator
@@ -214,8 +215,9 @@ def test_pyproject_ships_the_port():
         "bernstein.cu", "binning.cuh", "bucket_matmul.cu", "bulk_copy.cuh", "dubiner1.cuh",
         "dubiner2.cuh", "dubiner3.cuh", "macro_oneshot.cu", "macro_oneshot.cuh",
         "macro_oneshot_1.cu", "macro_oneshot_f32.cu", "macro_oneshot_one.cu", "masked_matmul.cu",
-        "moments.cu", "moments.cuh", "moments1.cu", "moments3.cu", "recurrence.cu", "zoo_f32.cu",
-        "zoo_f32.cuh", "zoo_f32_1.cu", "zoo_f32_3.cu", "zoo_f32_3_64.cu", "zoo_f32_64.cu",
-        "zoo_f32_wide.cu"]
+        "moments.cu", "moments.cuh", "moments1.cu", "moments3.cu", "recurrence.cu",
+        "recurrence.cuh", "recurrence_groups.cu", "recurrence_pair_groups.cu",
+        "recurrence_pairs.cu", "zoo_f32.cu", "zoo_f32.cuh", "zoo_f32_1.cu", "zoo_f32_3.cu",
+        "zoo_f32_3_64.cu", "zoo_f32_64.cu", "zoo_f32_wide.cu"]
     markers = cfg["tool"]["pytest"]["ini_options"]["markers"]
     assert any(m.startswith("cuda:") for m in markers)
